@@ -1,0 +1,377 @@
+// Fused diag-mode chunk of the OFDM link: one Monte-Carlo chunk from random
+// words to error counters, with nothing but the counters, the PAPR
+// statistic and one carry row written to device memory.
+//
+// Replaces: ofdm_tpu/ops/pallas_link.py::_fn_for_spec -> kernel, in its
+// conv="diag", mode="qam" form (cyclic prefix covering the channel order,
+// so TX -> channel -> RX is exactly diag(h_freq)).  Per bin: Philox words ->
+// Gray/zig-zag QAM encode -> y = s*h -> measured-power AWGN (Box-Muller,
+// quarter-range polynomial phase) -> ZF / MMSE / no equalizer with the
+// slicer gain folded in -> float-clipped slicer -> popcount(tx ^ rx).
+// Every pstride-th tile also runs the IDFT+CP product for the PAPR max/sum.
+//
+// Bound on an H100: issue rate, not memory.  The kernel reads only the
+// constant rows (a few KB, L1/L2 resident) and writes 3 counters, so the
+// bytes bound is ~0.  Each bin costs ~300 integer and fp32 instructions
+// (Philox's 10 rounds alone are ~70; log, sqrt, two Horner chains, the MMSE
+// divide and the slicer make up the rest), so the bound is
+// instructions x bins / the card's fp32+int32 issue rate.
+//
+// Design for that bound:
+//  * No random numbers are stored: one Philox4x32-10 call per bin gives the
+//    TX word, u1 and u2.  The counter is (run symbol index lo, hi,
+//    subcarrier, 0) under the run's two seed words, so the draw does not
+//    depend on block shape, tile or chunking and the plain version
+//    reproduces it bit for bit.
+//  * Measured power is per tile over the tile's first `slice` symbols
+//    (the reference's estimator contract).  Blocks carry nothing between
+//    them, so a first kernel (power_partials) recomputes s*h for the slice
+//    from Philox and writes fixed-order partial sums; the main kernel sums
+//    a tile's partials in order when it reaches that tile.  The slice is
+//    1/8 of a headline tile, so the first pass costs about that share.
+//  * One warp per OFDM symbol (bins k = lane + 32 j, j < J = ceil(n/32),
+//    n <= 256): the MMSE per-symbol mean is a per-lane sum plus an xor
+//    butterfly, which leaves every lane with the same bits.
+//  * Counters: per-thread 32-bit, warp shuffle and block sums, one 64-bit
+//    atomicAdd per block.  The PAPR peak is an atomicMax on the f32 bit
+//    pattern (non-negative floats order like their bits); the PAPR sum is
+//    a double atomicAdd, so its last digits depend on block order.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "link_common.cuh"
+
+// A named namespace, so profilers show the kernels' names.
+namespace ofdm_link {
+
+constexpr int kWarps = 8;          // warps per block of the main kernel
+constexpr int kThreads = 32 * kWarps;
+constexpr int kPowerThreads = 256;  // threads per block of power_partials
+constexpr int kPowerSteps = 16;     // elements per thread of power_partials
+constexpr int kMaxN = 256;
+
+struct Link {
+  const float* hr;
+  const float* hi;
+  const float* habs2;
+  const float* gr;  // ZF gain rows, slicer gain folded in
+  const float* gi;
+  const float* fr;  // (n, T) IDFT + CP, row-major
+  const float* fi;
+  int n;
+  int T;
+  ofdm::Qam q;
+  float slicer;  // 0.5 / scale
+  float snr_lin;
+  float cg;      // mean |h|^2
+  int method;    // 0 ZF, 1 MMSE, 2 none
+  int add_noise;
+  unsigned long long sym0;  // run index of the chunk's first symbol
+  int chunk;
+  int tile;
+  int slice;
+  int groups;
+  int pstride;
+  int carry_sym;  // last symbol of the chunk's last sampled tile
+  uint2 key;
+};
+
+__device__ __forceinline__ uint4 words_for(const Link& L, int b, int k) {
+  const unsigned long long sym = L.sym0 + static_cast<unsigned long long>(b);
+  return ofdm::philox4x32_10(
+      make_uint4(static_cast<uint32_t>(sym), static_cast<uint32_t>(sym >> 32),
+                 static_cast<uint32_t>(k), 0u),
+      L.key);
+}
+
+// Partial sums of |s*h|^2 over each tile's measured-power slice.
+// grid (tiles, groups); element e = g*4096 + j*256 + t of the tile's slice.
+__global__ void __launch_bounds__(kPowerThreads) power_partials(Link L, float* partials) {
+  __shared__ float red[kPowerThreads];
+  const int tile_id = blockIdx.x;
+  const int g = blockIdx.y;
+  const int t = threadIdx.x;
+  const int b0 = tile_id * L.tile;
+  const int tlen = min(L.tile, L.chunk - b0);
+  const int count = min(L.slice, tlen) * L.n;
+  float acc = 0.0f;
+  for (int j = 0; j < kPowerSteps; ++j) {
+    const int e = g * (kPowerSteps * kPowerThreads) + j * kPowerThreads + t;
+    float p = 0.0f;
+    if (e < count) {
+      const int b = e / L.n;
+      const int k = e - b * L.n;
+      const uint4 w = words_for(L, b0 + b, k);
+      float sr, si;
+      ofdm::qam_encode(w.x, L.q, sr, si);
+      const float hr = __ldg(L.hr + k);
+      const float hi = __ldg(L.hi + k);
+      const float yr = sr * hr - si * hi;
+      const float yi = sr * hi + si * hr;
+      p = yr * yr + yi * yi;
+    }
+    acc = acc + p;
+  }
+  red[t] = acc;
+  __syncthreads();
+  for (int s = kPowerThreads / 2; s > 0; s >>= 1) {
+    if (t < s) red[t] = red[t] + red[t + s];
+    __syncthreads();
+  }
+  if (t == 0) partials[tile_id * L.groups + g] = red[0];
+}
+
+template <int J>
+__global__ void __launch_bounds__(kThreads)
+    diag_main(Link L, const float* partials, unsigned long long* acc, double* psum,
+              float* carry_r, float* carry_i) {
+  __shared__ float s_sr[kWarps][kMaxN];
+  __shared__ float s_si[kWarps][kMaxN];
+  __shared__ unsigned long long red_be[kWarps];
+  __shared__ unsigned long long red_se[kWarps];
+  __shared__ float red_pk[kWarps];
+  __shared__ double red_ps[kWarps];
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nw = gridDim.x * kWarps;
+  const unsigned full = 0xFFFFFFFFu;
+
+  uint32_t be = 0, se = 0;
+  float pk = 0.0f;
+  double ps = 0.0;
+  int cached_tile = -1;
+  float sigma = 0.0f;
+
+  for (int b = blockIdx.x * kWarps + warp; b < L.chunk; b += nw) {
+    const int tile_id = b / L.tile;
+    const bool sampled = (tile_id % L.pstride) == 0;
+    if (L.add_noise && tile_id != cached_tile) {
+      // The tile's measured power, summed over its partials in order.
+      float tot = 0.0f;
+      for (int g = 0; g < L.groups; ++g) tot = tot + partials[tile_id * L.groups + g];
+      const int tlen = min(L.tile, L.chunk - tile_id * L.tile);
+      const float mp = tot / static_cast<float>(min(L.slice, tlen) * L.n);
+      sigma = sqrtf(mp / L.snr_lin / 2.0f);
+      cached_tile = tile_id;
+    }
+
+    float yr[J], yi[J];
+    int tx[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int k = lane + 32 * j;
+      yr[j] = 0.0f;
+      yi[j] = 0.0f;
+      tx[j] = 0;
+      if (k < L.n) {
+        const uint4 w = words_for(L, b, k);
+        float sr, si;
+        tx[j] = ofdm::qam_encode(w.x, L.q, sr, si);
+        if (sampled) {
+          s_sr[warp][k] = sr;
+          s_si[warp][k] = si;
+        }
+        const float hr = __ldg(L.hr + k);
+        const float hi = __ldg(L.hi + k);
+        float r = sr * hr - si * hi;
+        float i = sr * hi + si * hr;
+        if (L.add_noise) {
+          const float u1 = ofdm::uniform24_floored(w.y);
+          const float rad = sqrtf(-2.0f * logf(u1));
+          float co, sn;
+          ofdm::cossin_u24((w.z >> 8) & 0xFFFFFFu, co, sn);
+          const float zr = rad * co;
+          const float zi = rad * sn;
+          r = r + sigma * zr;
+          i = i + sigma * zi;
+        }
+        yr[j] = r;
+        yi[j] = i;
+      }
+    }
+
+    float nv = 0.0f;
+    if (L.method == 1) {
+      float p = 0.0f;
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        if (lane + 32 * j < L.n) p = p + (yr[j] * yr[j] + yi[j] * yi[j]);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) p = p + __shfl_xor_sync(full, p, off);
+      const float sp = p / static_cast<float>(L.n);
+      nv = sp / L.snr_lin / L.cg;
+    }
+
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int k = lane + 32 * j;
+      if (k < L.n) {
+        float er, ei;
+        if (L.method == 0) {
+          const float gr = __ldg(L.gr + k);
+          const float gi = __ldg(L.gi + k);
+          er = yr[j] * gr - yi[j] * gi;
+          ei = yi[j] * gr + yr[j] * gi;
+        } else if (L.method == 1) {
+          const float hr = __ldg(L.hr + k);
+          const float hi = __ldg(L.hi + k);
+          const float g = L.slicer / (__ldg(L.habs2 + k) + nv);
+          er = (yr[j] * hr + yi[j] * hi) * g;
+          ei = (yi[j] * hr - yr[j] * hi) * g;
+        } else {
+          er = yr[j] * L.slicer;
+          ei = yi[j] * L.slicer;
+        }
+        const int x = tx[j] ^ ofdm::qam_demap(er, ei, L.q);
+        be += static_cast<uint32_t>(__popc(x));
+        se += x != 0 ? 1u : 0u;
+      }
+    }
+
+    if (sampled) {
+      // PAPR: x = s @ F_tx over this symbol's n bins, T time samples.
+      __syncwarp();
+      for (int t = lane; t < L.T; t += 32) {
+        float xr = 0.0f, xi = 0.0f;
+        for (int k = 0; k < L.n; ++k) {
+          const float a = s_sr[warp][k];
+          const float c = s_si[warp][k];
+          const float f_r = __ldg(L.fr + k * L.T + t);
+          const float f_i = __ldg(L.fi + k * L.T + t);
+          xr = xr + (a * f_r - c * f_i);
+          xi = xi + (a * f_i + c * f_r);
+        }
+        const float pw = xr * xr + xi * xi;
+        pk = fmaxf(pk, pw);
+        ps += static_cast<double>(pw);
+        if (b == L.carry_sym) {
+          carry_r[t] = xr;
+          carry_i[t] = xi;
+        }
+      }
+      __syncwarp();
+    }
+  }
+
+  unsigned long long be64 = be, se64 = se;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    be64 += __shfl_xor_sync(full, be64, off);
+    se64 += __shfl_xor_sync(full, se64, off);
+    pk = fmaxf(pk, __shfl_xor_sync(full, pk, off));
+    ps += __shfl_xor_sync(full, ps, off);
+  }
+  if (lane == 0) {
+    red_be[warp] = be64;
+    red_se[warp] = se64;
+    red_pk[warp] = pk;
+    red_ps[warp] = ps;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned long long tb = 0, ts = 0;
+    float tp = 0.0f;
+    double tps = 0.0;
+    for (int w = 0; w < kWarps; ++w) {
+      tb += red_be[w];
+      ts += red_se[w];
+      tp = fmaxf(tp, red_pk[w]);
+      tps += red_ps[w];
+    }
+    atomicAdd(acc + 0, tb);
+    atomicAdd(acc + 1, ts);
+    atomicMax(acc + 2, static_cast<unsigned long long>(__float_as_uint(tp)));
+    atomicAdd(psum, tps);
+  }
+}
+
+template <int J>
+void launch_main(const Link& L, int grid, const float* partials, unsigned long long* acc,
+                 double* psum, float* cr, float* ci, cudaStream_t stream) {
+  diag_main<J><<<grid, kThreads, 0, stream>>>(L, partials, acc, psum, cr, ci);
+}
+
+int sm_count() {
+  static int count = 0;
+  if (count == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    if (count <= 0) count = 132;
+  }
+  return count;
+}
+
+}  // namespace ofdm_link
+
+using namespace ofdm_link;
+
+extern "C" {
+
+// One chunk: power_partials (when noise is on) then diag_main, both on
+// `stream`.  acc = [bit errors, symbol errors, PAPR peak f32 bits] (int64,
+// accumulated), psum = PAPR power sum (float64, accumulated).  Returns
+// cudaGetLastError() after the launches.
+int ofdm_diag_chunk(const float* hr, const float* hi, const float* habs2, const float* gr,
+                    const float* gi, const float* fr, const float* fi, int n, int T, int order,
+                    int m, int logm, int bits, int gray, float scale, float slicer,
+                    float snr_lin, float cg, int method, int add_noise,
+                    unsigned long long sym0, int chunk, int tile, int slice, int groups,
+                    int pstride, int carry_sym, unsigned int key0, unsigned int key1,
+                    float* partials, long long* acc, double* psum, float* carry_r,
+                    float* carry_i, void* stream_ptr) {
+  if (n < 1 || n > kMaxN || chunk < 1 || tile < 1 || pstride < 1) return cudaErrorInvalidValue;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  Link L;
+  L.hr = hr;
+  L.hi = hi;
+  L.habs2 = habs2;
+  L.gr = gr;
+  L.gi = gi;
+  L.fr = fr;
+  L.fi = fi;
+  L.n = n;
+  L.T = T;
+  L.q = ofdm::Qam{order, m, logm, bits, gray, scale};
+  L.slicer = slicer;
+  L.snr_lin = snr_lin;
+  L.cg = cg;
+  L.method = method;
+  L.add_noise = add_noise;
+  L.sym0 = sym0;
+  L.chunk = chunk;
+  L.tile = tile;
+  L.slice = slice;
+  L.groups = groups;
+  L.pstride = pstride;
+  L.carry_sym = carry_sym;
+  L.key = make_uint2(key0, key1);
+
+  const int tiles = (chunk + tile - 1) / tile;
+  if (add_noise) {
+    power_partials<<<dim3(tiles, groups), kPowerThreads, 0, stream>>>(L, partials);
+  }
+  const int want = (chunk + kWarps - 1) / kWarps;
+  const int grid = want < sm_count() * 8 ? want : sm_count() * 8;
+  unsigned long long* a = reinterpret_cast<unsigned long long*>(acc);
+  switch ((n + 31) / 32) {
+    case 1: launch_main<1>(L, grid, partials, a, psum, carry_r, carry_i, stream); break;
+    case 2: launch_main<2>(L, grid, partials, a, psum, carry_r, carry_i, stream); break;
+    case 3: launch_main<3>(L, grid, partials, a, psum, carry_r, carry_i, stream); break;
+    case 4: launch_main<4>(L, grid, partials, a, psum, carry_r, carry_i, stream); break;
+    case 5: launch_main<5>(L, grid, partials, a, psum, carry_r, carry_i, stream); break;
+    case 6: launch_main<6>(L, grid, partials, a, psum, carry_r, carry_i, stream); break;
+    case 7: launch_main<7>(L, grid, partials, a, psum, carry_r, carry_i, stream); break;
+    default: launch_main<8>(L, grid, partials, a, psum, carry_r, carry_i, stream); break;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+const char* ofdm_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

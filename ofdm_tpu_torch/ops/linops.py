@@ -1,0 +1,144 @@
+"""Matrix form of the link's linear stages, built host-side in float64.
+
+    x = X @ F_tx                 IDFT + guard insertion          (N -> T)
+    y = x @ T0 + prev(x) @ T1    banded-Toeplitz stream conv     (T -> T)
+    Y = y @ R                    guard removal + DFT             (T -> N)
+
+with T = N + L.  The port uses these to check that a cyclic-prefix link is
+exactly ``diag(h_freq)`` (so the kernel runs the elementwise chain) and to
+stage F_tx for the PAPR statistic.  Same builders, same float64 values as
+``ofdm_tpu.ops.linops`` / ``ofdm_tpu.ops.dft``.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+from typing import Tuple
+
+import numpy as np
+
+from ofdm_tpu_torch.config import ModulationType, PrefixType
+
+
+@lru_cache(maxsize=None)
+def dft_matrix(n: int, inverse: bool) -> Tuple[np.ndarray, np.ndarray]:
+    """(real, imag) of the orthonormal (I)DFT matrix, F[k, j] = w^{kj}/sqrt(N).
+
+    Layout is ``y = x @ F`` with x a row vector (F is symmetric)."""
+    k = np.arange(n)
+    sign = 2j if inverse else -2j
+    F = np.exp(sign * np.pi * np.outer(k, k) / n) / np.sqrt(n)
+    return np.ascontiguousarray(F.real), np.ascontiguousarray(F.imag)
+
+
+@lru_cache(maxsize=None)
+def tx_matrix(
+    n: int, prefix: PrefixType, L: int, modulation: ModulationType
+) -> Tuple[np.ndarray, np.ndarray]:
+    """(re, im) of F_tx (N, T): frequency symbols -> time block with guard.
+
+    OFDM: orthonormal IDFT then CP prepend / ZP append.  SC-FDE: identity
+    (symbols are already time domain) then guard.
+    """
+    if modulation == ModulationType.OFDM:
+        fr, fi = dft_matrix(n, inverse=True)
+        base = fr + 1j * fi
+    else:
+        base = np.eye(n, dtype=np.complex128)
+    if L == 0 or prefix == PrefixType.NONE:
+        out = base
+    elif prefix == PrefixType.CYCLIC:
+        out = np.concatenate([base[:, n - L :], base], axis=1)
+    elif prefix == PrefixType.ZERO:
+        out = np.concatenate([base, np.zeros((n, L), np.complex128)], axis=1)
+    else:
+        raise ValueError(prefix)
+    return np.ascontiguousarray(out.real), np.ascontiguousarray(out.imag)
+
+
+def conv_matrices(taps: np.ndarray, T: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(T0, T1) complex (T, T): intra-symbol and previous-symbol Toeplitz bands.
+
+    T0[j, m] = h[m-j] (0 <= m-j < K) and T1[j, m] = h[T+m-j] (0 < T+m-j < K).
+    """
+    K = len(taps)
+    T0 = np.zeros((T, T), np.complex128)
+    T1 = np.zeros((T, T), np.complex128)
+    for k in range(K):
+        idx = np.arange(T - k)
+        T0[idx, idx + k] = taps[k]
+        if k >= 1:
+            jdx = np.arange(T - k, T)
+            T1[jdx, jdx + k - T] = taps[k]
+    return T0, T1
+
+
+def ext_width(num_taps: int, T: int) -> int:
+    """Lanes of previous-symbol tail that reach into the current block."""
+    return max(0, min(num_taps - 1, T))
+
+
+def conv_matrix_merged(taps: np.ndarray, T: int) -> np.ndarray:
+    """(T+E, T) complex C with y[b] = [x[b] | tail(x[b-1])] @ C."""
+    E = ext_width(len(taps), T)
+    T0, T1 = conv_matrices(taps, T)
+    return np.concatenate([T0, T1[T - E :, :]], axis=0) if E else T0
+
+
+@lru_cache(maxsize=None)
+def rx_matrix(n: int, prefix: PrefixType, L: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(re, im) of R (T, N): guard removal + orthonormal DFT.
+
+    CP: drop the first L samples.  ZP: overlap-add the tail onto the head.
+    """
+    fr, fi = dft_matrix(n, inverse=False)
+    F = fr + 1j * fi
+    T = n + L
+    R = np.zeros((T, n), np.complex128)
+    if L == 0 or prefix == PrefixType.NONE:
+        R[:, :] = F
+    elif prefix == PrefixType.CYCLIC:
+        R[L:, :] = F
+    elif prefix == PrefixType.ZERO:
+        R[:n, :] = F
+        R[n:, :] = F[:L, :]
+    else:
+        raise ValueError(prefix)
+    return np.ascontiguousarray(R.real), np.ascontiguousarray(R.imag)
+
+
+def conv_rx_merged(taps: np.ndarray, n: int, prefix: PrefixType, L: int) -> np.ndarray:
+    """(T+E, N) complex matrix folding the conv into guard strip + DFT.
+
+    CP / no-prefix only: guard removal is a row selection and the DFT is
+    unitary, so iid AWGN per frequency bin after this matrix is distributed
+    exactly as AWGN per time sample before R.
+    """
+    if prefix == PrefixType.ZERO:
+        raise ValueError("conv_rx_merged is defined for CP / no-prefix links only")
+    T = n + L
+    rr, ri = rx_matrix(n, prefix, L)
+    return conv_matrix_merged(taps, T) @ (rr + 1j * ri)
+
+
+def diag_response(taps: np.ndarray, n: int, prefix: PrefixType, L: int) -> np.ndarray:
+    """diag(F_tx @ C @ R) when the composite is diagonal, else ValueError.
+
+    The ISI rows of the merged matrix must vanish (the CP covers the
+    channel order); the returned diagonal is the per-bin response the
+    elementwise chain multiplies by.
+    """
+    T = n + L
+    cmrx = conv_rx_merged(taps, n, prefix, L)
+    if cmrx.shape[0] > T:
+        tail = float(np.abs(cmrx[T:, :]).max())
+        if tail >= 1e-12:
+            raise ValueError(f"link is not diagonal: ISI rows reach {tail}")
+    fr, fi = tx_matrix(n, prefix, L, ModulationType.OFDM)
+    d = np.einsum("kt,tk->k", fr + 1j * fi, cmrx[:T, :])
+    off = cmrx[:T, :].copy()
+    full = (fr + 1j * fi) @ off
+    full[np.diag_indices(n)] = 0.0
+    if np.abs(full).max() >= 1e-12:
+        raise ValueError("link is not diagonal: off-diagonal coupling")
+    return d

@@ -1,0 +1,108 @@
+"""Constellation tables: the reference's Gray + zig-zag QAM and Gray PSK.
+
+Host-side float64 tables and ``scale``, point for point the same as
+``ofdm_tpu.ops.mapping`` (reference constellation/models.py:180-218 for QAM,
+:356-380 for PSK).  The kernel never reads a table: it encodes and slices
+arithmetically (``ops.link_kernel``); the table here fixes ``scale`` and
+is what the tests hold the arithmetic codec against.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from functools import lru_cache
+
+import numpy as np
+from numpy.typing import NDArray
+
+
+def gray_code(i):
+    """Binary-reflected Gray code, g = i ^ (i >> 1)."""
+    return i ^ (i >> 1)
+
+
+def inverse_gray_code(g: NDArray[np.int64]) -> NDArray[np.int64]:
+    """Invert the Gray code by prefix-XOR over bit shifts."""
+    g = np.asarray(g).copy()
+    shift = 1
+    while (g >> shift).any():
+        g = g ^ (g >> shift)
+        shift <<= 1
+    return g
+
+
+@dataclasses.dataclass(frozen=True)
+class Constellation:
+    """``table[i]`` is the point sent for bit word ``i`` (MSB first).
+
+    ``inv_index`` maps a QAM grid position row*m+col back to its index
+    (empty for PSK).  ``coding`` is "gray" or "none" (natural order)."""
+
+    kind: str
+    order: int
+    table: NDArray[np.complex128]
+    inv_index: NDArray[np.int32]
+    scale: float
+    coding: str = "gray"
+
+    @property
+    def bits_per_symbol(self) -> int:
+        return self.order.bit_length() - 1
+
+    @property
+    def name(self) -> str:
+        return f"{self.order}-{self.kind}"
+
+
+@lru_cache(maxsize=None)
+def qam_constellation(order: int, coding: str = "gray") -> Constellation:
+    """Square QAM with the reference's Gray + zig-zag layout, unit avg power."""
+    m = int(np.sqrt(order))
+    if m * m != order:
+        raise ValueError("Order must be a perfect square (e.g., 4, 16, 64).")
+    levels = np.arange(-m + 1, m, 2, dtype=np.float64)
+    grid = (levels[None, :] + 1j * levels[::-1, None]).reshape(-1)
+    idx = np.arange(order, dtype=np.int64)
+    if coding == "gray":
+        table = grid[gray_code(idx)].reshape(m, m)
+        table[1::2] = table[1::2, ::-1]
+        table = table.reshape(-1)
+    elif coding == "none":
+        table = grid.copy()
+    else:
+        raise ValueError(f"Unknown word coding: {coding}")
+    scale = 1.0 / np.sqrt(np.mean(np.abs(table) ** 2))
+    table = table * scale
+    inv = np.empty(order, dtype=np.int32)
+    for i in range(order):
+        c = table[i] / scale
+        col = int(round((c.real + (m - 1)) / 2))
+        row = int(round(((m - 1) - c.imag) / 2))
+        inv[row * m + col] = i
+    return Constellation("QAM", order, table, inv, float(scale), coding)
+
+
+@lru_cache(maxsize=None)
+def psk_constellation(order: int, coding: str = "gray") -> Constellation:
+    """M-PSK on the unit circle, table[gray(p)] = exp(2j*pi*p/M)."""
+    bits = np.log2(order)
+    if bits != int(bits) or order < 2:
+        raise ValueError("PSK order must be a power of 2 (e.g., 2, 4, 8, 16).")
+    p = np.arange(order, dtype=np.int64)
+    points = np.exp(2j * np.pi * p / order)
+    table = np.zeros(order, dtype=np.complex128)
+    if coding == "gray":
+        table[gray_code(p)] = points
+    elif coding == "none":
+        table[:] = points
+    else:
+        raise ValueError(f"Unknown word coding: {coding}")
+    return Constellation("PSK", order, table, np.zeros(0, dtype=np.int32), 1.0, coding)
+
+
+def make_constellation(kind: str, order: int, coding: str = "gray") -> Constellation:
+    if kind == "QAM":
+        return qam_constellation(order, coding)
+    if kind == "PSK":
+        return psk_constellation(order, coding)
+    raise ValueError(f"Unknown constellation kind: {kind}")
