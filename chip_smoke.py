@@ -24,6 +24,7 @@ import time
 REFERENCE_BER_30DB = 0.01901  # the reference's published BER (bench.py gate)
 MAIN_SYMBOLS = 1 << 27
 MAIN_CHUNK = 1 << 17
+MAIN_SEED = 0
 CHECK_SYMBOLS = 1 << 14
 NOISE_SHAPE = (1 << 15, 128)
 NOISE_SEEDS = (987654321, 123456789)  # bench.py's moment-gate seeds
@@ -85,34 +86,30 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def counts_agree(a, b):
-    """Kernel and plain counts: equal, or within 1e-5 relative (an ulp of
-    logf between the two libraries can move a slicer decision)."""
-    return a == b or (b > 0 and abs(a - b) <= 1e-5 * b)
-
-
-def check_chunk(link_kw, device):
-    """diag_chunk kernel vs plain on the card, same seed, 2^14 symbols."""
+def check_chunk(link_kw, chunk, sym0, device):
+    """diag_chunk kernel vs plain on the card on the same draw: run symbols
+    [sym0, sym0 + chunk) of the main path's seed.  Counts must be equal."""
     import torch
 
     from ofdm_tpu_torch.ops import link_kernel as lk
+    from ofdm_tpu_torch.ops import prng
     from ofdm_tpu_torch.pipeline import prepare
 
-    setup = prepare(headline_cfg(CHECK_SYMBOLS, **link_kw))
+    setup = prepare(headline_cfg(MAIN_SYMBOLS, MAIN_CHUNK, **link_kw))
     link = lk.diag_link(setup, device)
     snr_lin = lk.snr_linear(setup.cfg.snr_db)
-    key = (0x2545F491, 0x4F6CDD1D)
+    key = prng.key_words(MAIN_SEED)
     got = []
     for fn in (lk.diag_chunk, lk.diag_chunk_plain):
         acc, psum = lk.new_accumulators(device)
-        cr, ci = fn(link, key, 1 << 20, CHECK_SYMBOLS, snr_lin, acc, psum)
+        cr, ci = fn(link, key, sym0, chunk, snr_lin, acc, psum)
         torch.cuda.synchronize()
         be, se, pk = acc.tolist()
         got.append((be, se, lk.bits_f32(pk), float(psum), cr.cpu(), ci.cpu()))
     (kb, ks, kp, kps, kcr, kci), (pb, ps, pp, pps, pcr, pci) = got
-    print(f"chunk {link_kw or 'headline'}: kernel be={kb} se={ks} peak={kp} sum={kps}; "
-          f"plain be={pb} se={ps} peak={pp} sum={pps}")
-    if not (counts_agree(kb, pb) and counts_agree(ks, ps)):
+    print(f"chunk {link_kw or 'headline'} symbols [{sym0}, {sym0 + chunk}): kernel be={kb} se={ks} "
+          f"peak={kp} sum={kps}; plain be={pb} se={ps} peak={pp} sum={pps}")
+    if (kb, ks) != (pb, ps):
         raise AssertionError(f"diag_chunk counts disagree: kernel {kb}/{ks}, plain {pb}/{ps}")
     if abs(kp - pp) > 1e-5 * pp or abs(kps - pps) > 1e-4 * pps:
         raise AssertionError("diag_chunk PAPR statistics disagree")
@@ -214,24 +211,29 @@ def main():
     if not ok or bm_launches != 1:
         raise AssertionError("noise-moment gate failed")
 
-    # 4. diag_chunk: kernel vs plain at the headline, with ZF and without noise
-    chunk_err = max(check_chunk(kw, device) for kw in (
-        {}, dict(equalization_method="ZF"), dict(noise_type="NONE", equalization_method="ZF"),
-        dict(equalization_method="NONE", snr_db=20.0)))
+    # 4. diag_chunk: kernel vs plain on the main path's seed, at 2^14 symbols
+    # and, in every mode, on the run's last full chunk (16 tiles)
+    last = MAIN_SYMBOLS - MAIN_CHUNK
+    chunk_err = max([check_chunk({}, CHECK_SYMBOLS, 1 << 20, device)] + [
+        check_chunk(kw, MAIN_CHUNK, last, device) for kw in (
+            {}, dict(equalization_method="ZF"), dict(noise_type="NONE", equalization_method="ZF"),
+            dict(equalization_method="NONE", snr_db=20.0))])
 
     # 5. the main path: prepare() -> LinkRunner.run() on 2^27 OFDM symbols
     runner = LinkRunner(prepare(headline_cfg(MAIN_SYMBOLS, MAIN_CHUNK)))
     runner.run(1, snr_db=25.0)  # warm-up
-    lk.diag_chunk.launches = 0
-    r = runner.run(0, snr_db=30.0)
-    main_launches = lk.diag_chunk.launches
+    lk.diag_chunk.launches = lk.diag_chunk.power_launches = 0
+    r = runner.run(MAIN_SEED, snr_db=30.0)
+    main_launches, power_launches = lk.diag_chunk.launches, lk.diag_chunk.power_launches
     num_chunks = MAIN_SYMBOLS // MAIN_CHUNK
     ber = r["bit_error_rate"]
     print(f"headline run [{card}]: {MAIN_SYMBOLS} OFDM symbols ({r['total_bits']} bits), "
           f"ofdm_symbols_per_s={r['ofdm_symbols_per_s']:.1f} run_s={r['transmission_time_ms'] / 1e3:.4f} "
-          f"BER={ber} papr_db={r['papr_db']:.4f} hotpath={r['hotpath_used']} diag_chunk launches={main_launches}")
-    if main_launches != num_chunks or r["hotpath_used"] != "cuda":
-        raise AssertionError(f"main path launched diag_chunk {main_launches} times, not {num_chunks}")
+          f"BER={ber} papr_db={r['papr_db']:.4f} hotpath={r['hotpath_used']} "
+          f"launches: diag_main {main_launches}, power_partials {power_launches}")
+    if main_launches != num_chunks or power_launches != num_chunks or r["hotpath_used"] != "cuda":
+        raise AssertionError(f"main path launched diag_main {main_launches} and power_partials "
+                             f"{power_launches} times, not {num_chunks} each")
     if not abs(ber - REFERENCE_BER_30DB) < 1.5e-3:
         raise AssertionError(f"BER gate: {ber} vs {REFERENCE_BER_30DB}")
     sweep = [runner.run(2, snr_db=s)["bit_error_rate"] for s in (0.0, 10.0, 20.0, 30.0)]
@@ -251,7 +253,8 @@ def main():
     link = runner.link
     snr_lin = lk.snr_linear(30.0)
     acc, psum = lk.new_accumulators(device)
-    dk_ms = cuda_ms(lambda: lk.diag_chunk(link, (3, 4), 0, MAIN_CHUNK, snr_lin, acc, psum), 20)
+    work = lk.chunk_workspace(link, MAIN_CHUNK, device)
+    dk_ms = cuda_ms(lambda: lk.diag_chunk(link, (3, 4), 0, MAIN_CHUNK, snr_lin, acc, psum, work), 20)
     dp_ms = cuda_ms(lambda: lk.diag_chunk_plain(link, (3, 4), 0, MAIN_CHUNK, snr_lin, acc, psum), 3)
     tile = lk.tile_for(MAIN_CHUNK, link.tile_cap)
     bins = MAIN_CHUNK * link.n
@@ -274,6 +277,7 @@ def main():
     kernels = [
         {"name": "diag_chunk", "route": "cuda", "source": "ofdm_tpu_torch/csrc/link_kernel.cu",
          "replaces": "ofdm_tpu/ops/pallas_link.py:1986", "launches": main_launches,
+         "power_partials_launches": power_launches,
          "max_abs_err": chunk_err, "ms": dk_ms, "plain_ms": dp_ms, "bound_ms": diag_bound,
          "bound_by": "operations", "library_ms": None},
         {"name": "boxmuller_sample", "route": "cuda", "source": "ofdm_tpu_torch/csrc/boxmuller.cu",

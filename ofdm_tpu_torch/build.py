@@ -29,6 +29,23 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
 )
 
+_P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
+# The C entry points of each library with their (argtypes, restype), set
+# once when the library loads.
+SIGNATURES = {
+    "link_kernel": {
+        "ofdm_diag_chunk": (
+            [_P] * 7 + [_I] * 7 + [_F] * 4 + [_I] * 2 + [ctypes.c_ulonglong]
+            + [_I] * 6 + [_U] * 2 + [_P] * 6,
+            _I,
+        ),
+    },
+    "boxmuller": {
+        "ofdm_boxmuller": ([_P, _P, ctypes.c_longlong, _U, _U, _P], _I),
+        "ofdm_philox": ([_P, ctypes.c_longlong] + [_U] * 4 + [_P], _I),
+    },
+}
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
@@ -97,6 +114,10 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(library_path(name))
             lib.ofdm_error_string.argtypes = [ctypes.c_int]
             lib.ofdm_error_string.restype = ctypes.c_char_p
+            for fname, (argtypes, restype) in SIGNATURES[name].items():
+                fn = getattr(lib, fname)
+                fn.argtypes = argtypes
+                fn.restype = restype
             _LIBS[name] = lib
         return lib
 

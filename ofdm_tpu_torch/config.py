@@ -100,24 +100,6 @@ def _load_json(file_path: str) -> dict:
 
 
 @dataclasses.dataclass(frozen=True)
-class Settings:
-    """Project-level settings (reference `Settings`, configuration/models.py:31-39)."""
-
-    project_name: str
-    version: str
-    debug: bool = False
-
-    @classmethod
-    def from_json(cls, file_path: str) -> "Settings":
-        data = _load_json(file_path)
-        known = {f.name for f in dataclasses.fields(cls)}
-        return cls(**{k: v for k, v in data.items() if k in known})
-
-    def __str__(self) -> str:
-        return f"{self.project_name}\n{self.version}\nDebug Mode: {self.debug}"
-
-
-@dataclasses.dataclass(frozen=True)
 class SimulationConfig:
     """One fully-specified simulation (all strategy axes + sizes).
 

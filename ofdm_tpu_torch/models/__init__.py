@@ -3,17 +3,13 @@
 from ofdm_tpu_torch.models.channels import (
     CHANNEL_MODELS,
     channel_frequency_response,
-    channel_gains,
     get_channel,
-    list_channels,
     normalize_impulse_response,
 )
 
 __all__ = [
     "CHANNEL_MODELS",
     "channel_frequency_response",
-    "channel_gains",
     "get_channel",
-    "list_channels",
     "normalize_impulse_response",
 ]

@@ -24,7 +24,6 @@ diag tile cap, and the measured-power slice (:1691-1694).
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import math
 import struct
@@ -160,12 +159,15 @@ def slice_symbols(n: int) -> int:
     return max(64, -(-65536 // n))
 
 
-def tile_cap(n: int, T: int, passes: int) -> int:
+def tile_cap(n: int, T: int) -> int:
     """Largest tile the reference admits for a diag link (pallas_link._plan's
     diag budget).  Kept so the per-tile power estimator sees the same tiles
-    as the JAX package."""
-    u = 3 if passes == 1 else 6
-    fixed = 2 * u * (max(1, 128 // n) ** 2 * n * T + 128 * 128)
+    as the JAX package.  The budget's staging factor is fixed at its
+    single-pass value: the port ignores ``matmul_passes``.  The JAX
+    package's cap differs from this one only where it stages three bf16
+    passes (1024-QAM, or matmul_passes=3) and T lies just below a tile
+    step (T in 155-156, 309-312 or 610-621 for n <= 256)."""
+    fixed = 2 * 3 * (max(1, 128 // n) ** 2 * n * T + 128 * 128)
     for tile in TILE_LADDER:
         if fixed + 4 * 14 * tile * T <= 72_000_000:
             return tile
@@ -234,11 +236,6 @@ def diag_link(setup, device) -> DiagLink:
     zf_g = 1.0 / h_z
     if cfg.equalization_method == EqualizationMethod.ZF:
         zf_g = zf_g * (0.5 / const.scale)
-    # the JAX package's bf16 pass count (pallas_link.selected_passes), which
-    # its tile cap depends on
-    passes = int(cfg.matmul_passes) if cfg.matmul_passes != "auto" else (
-        1 if const.scale >= 0.07 else 3
-    )
     ftx_r, ftx_i = linops.tx_matrix(n, cfg.prefix_type, L, cfg.modulation_type)
 
     def row(a):
@@ -253,7 +250,7 @@ def diag_link(setup, device) -> DiagLink:
         method=METHOD_CODE[cfg.equalization_method],
         add_noise=cfg.noise_type == NoiseType.AWGN,
         pstride=cfg.papr_stride or 32,
-        tile_cap=tile_cap(n, T, passes),
+        tile_cap=tile_cap(n, T),
         slice=slice_symbols(n),
         hr=row(h.real),
         hi=row(h.imag),
@@ -434,6 +431,14 @@ def _check_link_tensors(link: DiagLink, device):
         raise ValueError(f"diag kernel takes 1 <= n <= {MAX_N}, got {link.n}")
 
 
+def chunk_workspace(link: DiagLink, chunk: int, device):
+    """(partials, carry_r, carry_i): the scratch ``diag_chunk`` needs for
+    chunks of ``chunk`` symbols, so that a run allocates it once."""
+    _, tiles, groups, _ = _chunk_geometry(link, chunk)
+    f32 = dict(dtype=torch.float32, device=device)
+    return torch.empty(tiles * groups, **f32), torch.empty(link.T, **f32), torch.empty(link.T, **f32)
+
+
 def diag_chunk(
     link: DiagLink,
     key: Tuple[int, int],
@@ -442,13 +447,17 @@ def diag_chunk(
     snr_lin: float,
     acc: torch.Tensor,
     psum: torch.Tensor,
+    work=None,
 ):
     """One chunk of run symbols [sym0, sym0 + chunk): adds its bit errors,
     symbol errors and PAPR peak bits into ``acc`` and its PAPR power sum
     into ``psum``, on the accumulators' device.  Returns the carry row
-    (re, im): the TX time row of the chunk's last sampled symbol.
+    (re, im): the TX time row of the chunk's last sampled symbol, written
+    into ``work`` (a ``chunk_workspace`` for this chunk size) when given.
 
-    CUDA tensors launch the fused kernel (csrc/link_kernel.cu); CPU tensors
+    CUDA tensors launch the fused kernel (csrc/link_kernel.cu): with noise
+    on, ``power_partials`` and then ``diag_main``, counted apart in
+    ``diag_chunk.power_launches`` and ``diag_chunk.launches``.  CPU tensors
     run ``diag_chunk_plain``."""
     dev = acc.device
     if dev.type == "cpu":
@@ -462,30 +471,18 @@ def diag_chunk(
     _check_link_tensors(link, dev)
     if not 1 <= chunk <= (2**31 - 1) // link.n:
         raise ValueError(f"chunk out of range: {chunk}")
+    tile, tiles, groups, carry_sym = _chunk_geometry(link, chunk)
+    partials, carry_r, carry_i = chunk_workspace(link, chunk, dev) if work is None else work
+    for t, size in ((partials, tiles * groups), (carry_r, link.T), (carry_i, link.T)):
+        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous() or t.numel() < size:
+            raise ValueError(f"work must be chunk_workspace(link, {chunk}, {dev})")
     from ofdm_tpu_torch import build
 
     lib = build.load("link_kernel")
-    fn = lib.ofdm_diag_chunk
-    fn.argtypes = (
-        [ctypes.c_void_p] * 7
-        + [ctypes.c_int] * 7
-        + [ctypes.c_float] * 4
-        + [ctypes.c_int] * 2
-        + [ctypes.c_ulonglong]
-        + [ctypes.c_int] * 5
-        + [ctypes.c_int]
-        + [ctypes.c_uint] * 2
-        + [ctypes.c_void_p] * 6
-    )
-    fn.restype = ctypes.c_int
-    tile, tiles, groups, carry_sym = _chunk_geometry(link, chunk)
-    partials = torch.empty(tiles * groups, dtype=torch.float32, device=dev)
-    carry_r = torch.empty(link.T, dtype=torch.float32, device=dev)
-    carry_i = torch.empty(link.T, dtype=torch.float32, device=dev)
     q = link.q
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        code = fn(
+        code = lib.ofdm_diag_chunk(
             link.hr.data_ptr(), link.hi.data_ptr(), link.habs2.data_ptr(),
             link.gr.data_ptr(), link.gi.data_ptr(), link.fr.data_ptr(), link.fi.data_ptr(),
             link.n, link.T, q.order, q.m, q.logm, q.bits, int(q.gray),
@@ -499,11 +496,14 @@ def diag_chunk(
             carry_r.data_ptr(), carry_i.data_ptr(), stream,
         )
     build.check(lib, code, "ofdm_diag_chunk")
+    if link.add_noise:
+        diag_chunk.power_launches += 1
     diag_chunk.launches += 1
     return carry_r, carry_i
 
 
-diag_chunk.launches = 0
+diag_chunk.launches = 0  # diag_main kernels launched
+diag_chunk.power_launches = 0  # power_partials kernels launched
 
 
 def boxmuller_sample_plain(seed0: int, seed1: int, shape, device="cpu"):
@@ -534,15 +534,11 @@ def boxmuller_sample(seed0: int, seed1: int, shape, device="cuda"):
     from ofdm_tpu_torch import build
 
     lib = build.load("boxmuller")
-    fn = lib.ofdm_boxmuller
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     z0 = torch.empty(shape, dtype=torch.float32, device=device)
     z1 = torch.empty(shape, dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = fn(z0.data_ptr(), z1.data_ptr(), count,
+        code = lib.ofdm_boxmuller(z0.data_ptr(), z1.data_ptr(), count,
                   int(seed0) & prng.M32, int(seed1) & prng.M32, stream)
     build.check(lib, code, "ofdm_boxmuller")
     boxmuller_sample.launches += 1

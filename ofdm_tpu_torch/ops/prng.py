@@ -18,7 +18,6 @@ on neither the chunking nor the launch geometry.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Tuple
 
 import torch
@@ -75,7 +74,7 @@ def philox_words_plain(count: int, c2: int, c3: int, key: Tuple[int, int], devic
     return torch.stack(philox4x32_10(i & M32, i >> 32, c2_, c3_, key), dim=1)
 
 
-def philox_words(count: int, c2: int, c3: int, key: Tuple[int, int], device="cpu"):
+def philox_words(count: int, c2: int, c3: int, key: Tuple[int, int], device="cuda"):
     """``philox_words_plain`` computed by the ``ofdm_philox`` kernel on a CUDA
     device (returned as int64 like the plain version); the plain version on
     the CPU."""
@@ -87,13 +86,10 @@ def philox_words(count: int, c2: int, c3: int, key: Tuple[int, int], device="cpu
     from ofdm_tpu_torch import build
 
     lib = build.load("boxmuller")
-    fn = lib.ofdm_philox
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_uint] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     out = torch.empty((count, 4), dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        build.check(lib, fn(out.data_ptr(), count, c2, c3, key[0], key[1], stream), "ofdm_philox")
+        build.check(lib, lib.ofdm_philox(out.data_ptr(), count, c2, c3, key[0], key[1], stream), "ofdm_philox")
     philox_words.launches += 1
     return out.to(torch.int64) & M32
 

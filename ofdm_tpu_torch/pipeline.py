@@ -296,12 +296,16 @@ class LinkRunner:
         chunk, num_chunks, hotpath_used, passes_used = self._chunk_plan()
         acc, psum = lk.new_accumulators(self.device)
 
+        # kernel scratch per chunk size (the last chunk may be shorter)
+        works = {}
         papr_count = 0
         t0 = time.perf_counter()
         for c in range(num_chunks):
             sym0 = c * chunk
             size = min(chunk, B - sym0)
-            lk.diag_chunk(self.link, key, sym0, size, snr_lin, acc, psum)
+            if size not in works and self.device.type == "cuda":
+                works[size] = lk.chunk_workspace(self.link, size, self.device)
+            lk.diag_chunk(self.link, key, sym0, size, snr_lin, acc, psum, works.get(size))
             papr_count += lk.papr_samples(self.link, size)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)

@@ -166,6 +166,19 @@ def test_random_words_match_jax_oracle(extra, chunk):
     assert psum == pytest.approx(jsum, rel=1e-5)
 
 
+@pytest.mark.parametrize(
+    "n,order,tile",
+    [(64, 64, 8192), (256, 64, 4096), (256, 1024, 4096)],
+    ids=["n64", "n256", "n256_1024qam"],
+)
+def test_tile_matches_jax_spec_where_the_cap_binds(n, order, tile):
+    # 2^17 divides by every ladder tile, so the cap alone picks the tile
+    kw = dict(HEADLINE, num_symbols=n * 1024, num_subcarriers=n, constellation_order=order)
+    jr = jpl.LinkRunner(jpl.prepare(jcfg.SimulationConfig(**kw, engine="planar", hotpath="pallas")))
+    link = lk.diag_link(tpl.prepare(tcfg.SimulationConfig(**kw)), "cpu")
+    assert lk.tile_for(1 << 17, link.tile_cap) == pk._spec_for(jr, 1 << 17, True).tile == tile
+
+
 def _port_runner(num_ofdm, **extra):
     kw = dict(HEADLINE, num_symbols=64 * num_ofdm, **extra)
     return tpl.LinkRunner(tpl.prepare(tcfg.SimulationConfig(**kw)), device="cpu")
