@@ -4,11 +4,15 @@
 
 Needs a CUDA card and nvcc; imports nothing of JAX or of the JAX package.
 It builds the port's kernels from ``ofdm_tpu_torch/csrc``, holds each
-against its plain PyTorch version on the card, drives the headline link
-(64 subcarriers, 64-QAM, CP ratio 1.0, MMSE, Lin-Phoong P2, AWGN 30 dB)
-through ``prepare()`` -> ``LinkRunner.run()`` with 2^27 OFDM symbols, checks
-the BER gate, the SNR sweep and the launch counters, and times each kernel
-beside its plain version and its bound.  Any failed check raises.
+against its plain PyTorch version on the card, and drives two paths
+through ``prepare()`` -> ``LinkRunner.run()`` with 2^27 OFDM symbols each:
+the headline link (64 subcarriers, 64-QAM, CP ratio 1.0, MMSE, Lin-Phoong
+P2, AWGN 30 dB; the diag kernel) and the reference's default SC-FDE link
+(64 subcarriers, QPSK, CP ratio 1.0, ZF, Lin-Phoong P1, AWGN 10 dB; the
+fold kernel), both cut from bench.py's 2^31 and 2^29 symbols.  For each it
+checks the BER gate, the SNR sweep and the launch counters, reads the
+profiler's busy share, and times the kernel beside its plain version and
+its bound.  Any failed check raises.
 
 Output: findings on earlier lines; then the kernels JSON line, the card's
 ``nvidia-smi`` name and power limit, and as the last line
@@ -22,6 +26,10 @@ import sys
 import time
 
 REFERENCE_BER_30DB = 0.01901  # the reference's published BER (bench.py gate)
+# The reference's SC-FDE default at 0/10/20 dB (docs/RESULTS.md) and the JAX
+# package's reading of it on a TPU v5e (BENCH_r05.json, 2^29 symbols).
+REFERENCE_SCFDE_BER = {0.0: 0.246083, 10.0: 0.0145, 20.0: 0.0}
+TPU_V5E_SCFDE_BER_10DB = 0.0143092158541549
 MAIN_SYMBOLS = 1 << 27
 MAIN_CHUNK = 1 << 17
 MAIN_SEED = 0
@@ -44,9 +52,10 @@ OPS_PER_BIN = {
     "philox": 100, "encode": 21, "channel": 6, "noise": 72, "mmse": 24,
     "demap": 26, "count": 5,
 }
-# The measured-power pass repeats philox + encode + channel + |y|^2 on the
-# slice; the PAPR product costs 8 operations per (bin, time sample).
-POWER_PASS_OPS = 100 + 21 + 6 + 4
+# The measured power needs |y|^2 and its sum on each tile's slice (per bin);
+# the PAPR statistic |x|^2, its max and its sum (per time sample).
+POWER_SUM_OPS = 4
+PAPR_OPS = 5
 
 
 def card_line():
@@ -68,6 +77,45 @@ def headline_cfg(num_ofdm, chunk=0, **kw):
     )
     base.update(kw)
     return SimulationConfig(**base)
+
+
+def scfde_cfg(num_ofdm, chunk=0, **kw):
+    from ofdm_tpu_torch.config import SimulationConfig
+
+    base = dict(
+        num_symbols=kw.get("num_subcarriers", 64) * num_ofdm, num_subcarriers=64, constellation_order=4,
+        constellation_type="QAM", channel_type="CUSTOM", channel_model="Lin-Phoong_P1",
+        modulation_type="SC-OFDM", prefix_type="CYCLIC", prefix_length_ratio=1.0,
+        equalization_method="ZF", noise_type="AWGN", snr_db=10.0, symbols_per_chunk=chunk,
+    )
+    base.update(kw)
+    return SimulationConfig(**base)
+
+
+# The fold links held against the plain version: the SC-FDE default, SC-FDE
+# MMSE 16-QAM, OFDM with a short CP (E = 7), OFDM with no prefix, and the
+# short-CP link without noise; then one link at each other width the kernel
+# compiles for (bins a lane J = ceil(n / 32): 1, 3, ..., 8), up to 256-sc
+# SC-FDE (tile 4096).
+_SHORT_CP = dict(modulation_type="OFDM", prefix_length_ratio=0.5, channel_model="severe_multipath",
+                 constellation_order=16, equalization_method="MMSE", snr_db=20.0)
+FOLD_LINKS = {
+    "scfde_default": {},
+    "scfde_mmse_16qam_severe": dict(equalization_method="MMSE", constellation_order=16,
+                                    channel_model="severe_multipath", snr_db=15.0),
+    "ofdm_short_cp": _SHORT_CP,
+    "ofdm_no_prefix_p2": dict(modulation_type="OFDM", prefix_type="NONE", channel_model="Lin-Phoong_P2",
+                              constellation_order=16, snr_db=20.0),
+    "ofdm_short_cp_noiseless": dict(_SHORT_CP, noise_type="NONE"),
+    "scfde_32sc": dict(num_subcarriers=32),
+    "ofdm_short_cp_96sc": dict(_SHORT_CP, num_subcarriers=96),
+    "scfde_mmse_128sc": dict(num_subcarriers=128, equalization_method="MMSE", constellation_order=16,
+                             snr_db=15.0),
+    "scfde_160sc": dict(num_subcarriers=160),
+    "scfde_192sc": dict(num_subcarriers=192),
+    "scfde_224sc": dict(num_subcarriers=224),
+    "scfde_256sc": dict(num_subcarriers=256),
+}
 
 
 def cuda_ms(fn, reps):
@@ -118,6 +166,42 @@ def check_chunk(link_kw, chunk, sym0, device):
     return max(abs(kp - pp), abs(float((kcr - pcr).abs().max())), abs(float((kci - pci).abs().max())))
 
 
+def check_fold(name, sym0, device):
+    """fold_chunk kernel vs plain on the card on the same draw: run symbols
+    [sym0, sym0 + MAIN_CHUNK) of the main path's seed.  Counts, PAPR peak
+    and carry row must be equal, the PAPR sum within 1e-12."""
+    import torch
+
+    from ofdm_tpu_torch.ops import fold_kernel as fk
+    from ofdm_tpu_torch.ops import link_kernel as lk
+    from ofdm_tpu_torch.ops import prng
+    from ofdm_tpu_torch.pipeline import prepare
+
+    setup = prepare(scfde_cfg(MAIN_SYMBOLS, MAIN_CHUNK, **FOLD_LINKS[name]))
+    link = fk.fold_link(setup, device)
+    tile = lk.tile_for(MAIN_CHUNK, link.tile_cap)
+    snr_lin = lk.snr_linear(setup.cfg.snr_db)
+    key = prng.key_words(MAIN_SEED)
+    got = []
+    for fn in (fk.fold_chunk, fk.fold_chunk_plain):
+        acc, psum = lk.new_accumulators(device)
+        cr, ci = fn(link, key, sym0, MAIN_CHUNK, snr_lin, acc, psum)
+        torch.cuda.synchronize()
+        be, se, pk = acc.tolist()
+        got.append((be, se, lk.bits_f32(pk), float(psum), cr.cpu().clone(), ci.cpu().clone()))
+    (kb, ks, kp, kps, kcr, kci), (pb, ps, pp, pps, pcr, pci) = got
+    carry_err = max(float((kcr - pcr).abs().max()), float((kci - pci).abs().max()))
+    print(f"fold chunk {name} (n={link.n}, tile {tile}) symbols [{sym0}, {sym0 + MAIN_CHUNK}): kernel be={kb} se={ks} "
+          f"peak={kp} sum={kps}; plain be={pb} se={ps} peak={pp} sum={pps}; carry max diff {carry_err}")
+    if (kb, ks) != (pb, ps):
+        raise AssertionError(f"fold_chunk {name} counts disagree: kernel {kb}/{ks}, plain {pb}/{ps}")
+    if kp != pp or abs(kps - pps) > 1e-12 * pps:
+        raise AssertionError(f"fold_chunk {name} PAPR statistics disagree")
+    if not (torch.equal(kcr, pcr) and torch.equal(kci, pci)):
+        raise AssertionError(f"fold_chunk {name} carry rows disagree")
+    return max(abs(kp - pp), carry_err)
+
+
 def moment_gate(z0, z1):
     """bench.py's noise-moment gate on (z0, z1)."""
     a, b = z0.reshape(-1).double(), z1.reshape(-1).double()
@@ -133,16 +217,16 @@ def moment_gate(z0, z1):
     return ok, m
 
 
-def profile_run(runner):
+def profile_run(runner, snr_db):
     """Device time by kernel and the device's busy share over one profiled
-    headline run, from torch.profiler's kernel events; None when the
-    profiler recorded no kernels."""
+    run, from torch.profiler's kernel events; None when the profiler
+    recorded no kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        runner.run(4, snr_db=30.0)
+        runner.run(4, snr_db=snr_db)
     spans = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
     if not spans:
@@ -159,6 +243,119 @@ def profile_run(runner):
             end = t1
     window = max(t1 for _, _, t1 in spans) - min(t0 for _, t0, _ in spans)
     return by_name, busy / window, window / 1e3
+
+
+def print_profile(card, what, prof):
+    if prof is None:
+        print(f"profile {what}: the profiler recorded no device kernels; idle share not measured")
+    else:
+        by_name, busy, window_ms = prof
+        print(f"profile {what} [{card}]: device busy {busy:.4f} of a {window_ms:.2f} ms kernel window; "
+              f"device ms by kernel {json.dumps(by_name)}")
+
+
+def product_ops(mr, mi):
+    """Operations the complex product v @ M needs, read off this link's
+    matrix: 8 a nonzero term (four multiplies, four adds: no FMA under
+    -fmad=false) in each distinct output column, and none for a column that
+    repeats another or copies one input (its one nonzero is 1)."""
+    import numpy as np
+
+    cols = np.unique(np.concatenate([mr.cpu().numpy().T, mi.cpu().numpy().T], axis=1), axis=0)
+    re, im = np.split(cols, 2, axis=1)
+    nnz = ((re != 0) | (im != 0)).sum(axis=1)
+    copy = (nnz == 1) & (re.sum(axis=1) == 1) & (im == 0).all(axis=1)
+    return int(8 * nnz[~copy].sum())
+
+
+def fold_operations(link, chunk):
+    """(needed, power pass, tails): the operations one fold chunk needs, and
+    two kinds of work the kernel's design adds.  Needed, per symbol: the
+    products as ``product_ops`` counts them (the SC-FDE TX stage is a copy),
+    the per-bin chain as in the diag count (Philox, encode, noise,
+    equalizer, slicer, counters) and the PAPR statistic per time sample;
+    per bin of each tile's slice, |y|^2 and its sum.  fold_power recomputes
+    Philox, encode and both dense products on the slices; fold_main's warps
+    recompute their first symbol's predecessor tail (Philox, encode, the
+    dense tail product; fold_power's one tail a warp is not counted)."""
+    from ofdm_tpu_torch.ops import fold_kernel as fk
+
+    n, T, E = link.n, link.T, link.E
+    TE = T + E
+    eq = OPS_PER_BIN["mmse"] if link.method == 1 else 6
+    per_symbol = (product_ops(link.txr, link.txi) + product_ops(link.cmr, link.cmi)
+                  + (product_ops(link.idr, link.idi) if link.is_sc else 0)
+                  + n * (OPS_PER_BIN["philox"] + OPS_PER_BIN["encode"] + eq + OPS_PER_BIN["demap"]
+                         + OPS_PER_BIN["count"] + (OPS_PER_BIN["noise"] if link.add_noise else 0))
+                  + PAPR_OPS * T)
+    tile, tiles, _ = fk._chunk_geometry(link, chunk)
+    slice_syms = sum(min(link.slice, min(tile, chunk - t * tile)) for t in range(tiles)) if link.add_noise else 0
+    encode = n * (OPS_PER_BIN["philox"] + OPS_PER_BIN["encode"])
+    power = slice_syms * (encode + 8 * 2 * n * TE)
+    tails = -(-chunk // fk.RUN) * (encode + 8 * n * E)
+    return chunk * per_symbol + slice_syms * n * POWER_SUM_OPS, power, tails
+
+
+def fold_path(card, device):
+    """The SC-FDE default through the fold kernel: the kernel against its
+    plain version on five links, the main run, the sweep, the profile and
+    the kernel's times.  Returns the kernels-line entry."""
+    import torch
+
+    from ofdm_tpu_torch.ops import fold_kernel as fk
+    from ofdm_tpu_torch.ops import link_kernel as lk
+    from ofdm_tpu_torch.pipeline import LinkRunner, prepare
+
+    last = MAIN_SYMBOLS - MAIN_CHUNK
+    err = max(check_fold(name, last, device) for name in FOLD_LINKS)
+
+    runner = LinkRunner(prepare(scfde_cfg(MAIN_SYMBOLS, MAIN_CHUNK)))
+    if runner.mode != "fold":
+        raise AssertionError(f"the SC-FDE default routed to {runner.mode}")
+    runner.run(1, snr_db=5.0)  # warm-up
+    fk.fold_chunk.launches = fk.fold_chunk.power_launches = 0
+    r = runner.run(MAIN_SEED, snr_db=10.0)
+    main_launches, power_launches = fk.fold_chunk.launches, fk.fold_chunk.power_launches
+    num_chunks = MAIN_SYMBOLS // MAIN_CHUNK
+    ber = r["bit_error_rate"]
+    print(f"scfde_default run [{card}]: {MAIN_SYMBOLS} OFDM symbols ({r['total_bits']} bits; bench.py runs "
+          f"2^29), ofdm_symbols_per_s={r['ofdm_symbols_per_s']:.1f} "
+          f"run_s={r['transmission_time_ms'] / 1e3:.4f} BER={ber} (reference 0.0145; the JAX package "
+          f"on a TPU v5e read {TPU_V5E_SCFDE_BER_10DB}, BENCH_r05) papr_db={r['papr_db']:.4f} "
+          f"hotpath={r['hotpath_used']} launches: fold_main {main_launches}, fold_power {power_launches}")
+    if main_launches != num_chunks or power_launches != num_chunks or r["hotpath_used"] != "cuda":
+        raise AssertionError(f"the SC-FDE run launched fold_main {main_launches} and fold_power "
+                             f"{power_launches} times, not {num_chunks} each")
+    if not abs(ber - REFERENCE_SCFDE_BER[10.0]) < 1.5e-3:
+        raise AssertionError(f"SC-FDE BER gate: {ber} vs {REFERENCE_SCFDE_BER[10.0]}")
+    sweep = []
+    for snr in REFERENCE_SCFDE_BER:
+        fk.fold_chunk.launches = fk.fold_chunk.power_launches = 0
+        sweep.append(runner.run(2, snr_db=snr)["bit_error_rate"])
+        if fk.fold_chunk.launches != num_chunks or fk.fold_chunk.power_launches != num_chunks:
+            raise AssertionError(f"sweep at {snr} dB: {fk.fold_chunk.launches} launches, not {num_chunks}")
+    print(f"scfde sweep 0/10/20 dB BER: {sweep} (reference {list(REFERENCE_SCFDE_BER.values())})")
+    if not all(a > b for a, b in zip(sweep, sweep[1:])):
+        raise AssertionError("SC-FDE BER does not fall with SNR")
+    print_profile(card, "scfde_default", profile_run(runner, 10.0))
+
+    link = runner.link
+    snr_lin = lk.snr_linear(10.0)
+    acc, psum = lk.new_accumulators(device)
+    work = fk.chunk_workspace(link, MAIN_CHUNK, device)
+    k_ms = cuda_ms(lambda: fk.fold_chunk(link, (3, 4), MAIN_CHUNK, MAIN_CHUNK, snr_lin, acc, psum, work), 20)
+    p_ms = cuda_ms(lambda: fk.fold_chunk_plain(link, (3, 4), MAIN_CHUNK, MAIN_CHUNK, snr_lin, acc, psum), 3)
+    ops, power_ops, tail_ops = fold_operations(link, MAIN_CHUNK)
+    mats = 2 * (2 * link.n * (link.T + link.E) + (link.n * link.n if link.is_sc else 0)) + 5 * link.n
+    bound = max(ops / PEAK_OPS, (4 * mats + 3 * 8 + 8 * link.T) / PEAK_BYTES) * 1e3
+    print(f"fold_chunk at {MAIN_CHUNK} symbols [{card}]: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
+          f"bound {bound:.4f} ms ({ops} operations needed; the design adds {power_ops} in the power "
+          f"pass and {tail_ops} in fold_main's tail recomputes, {(power_ops + tail_ops) / PEAK_OPS * 1e3:.4f} ms "
+          f"at the same rate)")
+    return {"name": "fold_chunk", "route": "cuda", "source": "ofdm_tpu_torch/csrc/fold_kernel.cu",
+            "replaces": "ofdm_tpu/ops/pallas_link.py:1986", "launches": main_launches,
+            "power_launches": power_launches, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bound, "bound_by": "operations", "library_ms": None}
 
 
 def main():
@@ -241,13 +438,7 @@ def main():
     if not all(a > b for a, b in zip(sweep, sweep[1:])):
         raise AssertionError("BER does not fall with SNR")
 
-    prof = profile_run(runner)
-    if prof is None:
-        print("profile: the profiler recorded no device kernels; idle share not measured")
-    else:
-        by_name, busy, window_ms = prof
-        print(f"profile [{card}]: device busy {busy:.4f} of a {window_ms:.2f} ms kernel window; "
-              f"device ms by kernel {json.dumps(by_name)}")
+    print_profile(card, "headline", profile_run(runner, 30.0))
 
     # 6. kernel times at the main path's shapes, beside the plain versions and bounds
     link = runner.link
@@ -260,8 +451,9 @@ def main():
     bins = MAIN_CHUNK * link.n
     tiles = -(-MAIN_CHUNK // tile)
     slice_bins = sum(min(link.slice, min(tile, MAIN_CHUNK - t * tile)) for t in range(tiles)) * link.n
-    papr_macs = lk.sampled_symbols(MAIN_CHUNK, tile, link.pstride) * link.n * link.T
-    diag_ops = bins * sum(OPS_PER_BIN.values()) + slice_bins * POWER_PASS_OPS + 8 * papr_macs
+    sampled = lk.sampled_symbols(MAIN_CHUNK, tile, link.pstride)
+    diag_ops = (bins * sum(OPS_PER_BIN.values()) + slice_bins * POWER_SUM_OPS
+                + sampled * (product_ops(link.fr, link.fi) + PAPR_OPS * link.T))
     diag_bound = max(diag_ops / PEAK_OPS, (4 * 7 * link.n + 8 * link.n * link.T + 3 * 8) / PEAK_BYTES) * 1e3
     bk_ms = cuda_ms(lambda: lk.boxmuller_sample(*NOISE_SEEDS, NOISE_SHAPE, device), 20)
     bp_ms = cuda_ms(lambda: lk.boxmuller_sample_plain(*NOISE_SEEDS, NOISE_SHAPE, device), 3)
@@ -274,6 +466,9 @@ def main():
     print(f"boxmuller_sample at {NOISE_SHAPE} [{card}]: kernel {bk_ms:.4f} ms, plain {bp_ms:.3f} ms, "
           f"bound {bm_bound:.4f} ms")
 
+    # 7. the SC-FDE default through the fold kernel
+    fold = fold_path(card, device)
+
     kernels = [
         {"name": "diag_chunk", "route": "cuda", "source": "ofdm_tpu_torch/csrc/link_kernel.cu",
          "replaces": "ofdm_tpu/ops/pallas_link.py:1986", "launches": main_launches,
@@ -285,6 +480,7 @@ def main():
          "max_abs_err": bm_err, "ms": bk_ms, "plain_ms": bp_ms, "bound_ms": bm_bound,
          "bound_by": "operations" if bm_ops / PEAK_OPS >= bm_bytes / PEAK_BYTES else "bytes",
          "library_ms": None},
+        fold,
     ]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

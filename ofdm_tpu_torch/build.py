@@ -21,7 +21,7 @@ from typing import Dict, Iterable
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-SOURCES = ("link_kernel", "boxmuller")
+SOURCES = ("link_kernel", "fold_kernel", "boxmuller")
 # -fmad=false: every multiply rounds before its add, as in the plain
 # PyTorch versions, so kernel and plain agree operation for operation.
 NVCC_FLAGS = (
@@ -37,6 +37,13 @@ SIGNATURES = {
         "ofdm_diag_chunk": (
             [_P] * 7 + [_I] * 7 + [_F] * 4 + [_I] * 2 + [ctypes.c_ulonglong]
             + [_I] * 6 + [_U] * 2 + [_P] * 6,
+            _I,
+        ),
+    },
+    "fold_kernel": {
+        "ofdm_fold_chunk": (
+            [_P] * 11 + [_I] * 8 + [_F] * 4 + [_I] * 3 + [ctypes.c_ulonglong]
+            + [_I] * 5 + [_U] * 2 + [_P] * 6,
             _I,
         ),
     },

@@ -1,0 +1,454 @@
+// Fused fold-mode chunk of the OFDM / SC-FDE link: one Monte-Carlo chunk from
+// random words to error counters, with nothing but the counters, the PAPR
+// statistic and the carry row written to device memory.
+//
+// Replaces: ofdm_tpu/ops/pallas_link.py::_fn_for_spec -> kernel, in its
+// conv="mm", fold=True, mode="qam" form: SC-FDE with a cyclic prefix or none,
+// and OFDM whose guard is shorter than the channel order.  Per OFDM symbol b:
+//   Philox words -> Gray/zig-zag QAM encode s_b
+//   x_b  = s_b @ F_tx,ext                  (n -> T+E: IDFT/identity + guard,
+//                                           the last E columns repeated)
+//   PAPR max and sum over x_b[0:T)
+//   act  = [x_b[0:T) | x_{b-1}[T:T+E)]     (the previous symbol's tail)
+//   y    = act @ CM                        (T+E -> n: conv + guard strip + DFT)
+//   AWGN per frequency bin, sigma = sqrt(mp / snr_lin / 2), mp the mean |y|^2
+//   over the first `slice` symbols of b's tile, before noise
+//   ZF / MMSE / none with the slicer gain 0.5/scale folded in
+//   SC-FDE only: e = e @ IDFT (n -> n)
+//   float-clipped slicer -> popcount(tx ^ rx) into int64 counters.
+//
+// Bound on an H100: issue rate, not memory.  The chunk reads its constant
+// matrices (~100 KB at n = 64, L1/L2 resident) and writes 3 counters and one
+// row.  Each symbol runs n(T+E) + (T+E)n (+ n^2 for SC-FDE) complex
+// multiply-adds at 8 fp32 operations each (no FMA: -fmad=false), dense
+// even where a matrix only copies (SC-FDE's F_tx,ext), plus the per-bin
+// Philox / noise / equalizer / slicer chain it shares with the diag kernel
+// (link_common.cuh).
+//
+// Design:
+//  * The TPU grid runs in order and carries the last TX row from tile to tile;
+//    CUDA blocks do not.  A warp walks `run` consecutive symbols and keeps the
+//    previous symbol's tail in shared memory; for its first symbol it
+//    recomputes symbol b-1's tail from Philox (encode, then the same k-ascending
+//    product over the same F_tx,ext columns), which is bit-equal to the row a
+//    carry would hold.  Symbol 0 of the run sees zeros.  So nothing depends on
+//    block order, launch geometry or chunking.
+//  * Measured power: a first kernel (fold_power) recomputes y for each tile's
+//    slice (one block per 4096 slice elements), lays |y|^2 out in shared
+//    memory in element order and reduces it in power_partials' fixed order
+//    (16 sequential steps a thread, a 256-way tree); fold_main sums a tile's
+//    partials in order.  The plain version reproduces sigma bit for bit.  At
+//    tile 8192 and slice 1024 the pass costs ~12.5% of the products.
+//  * One warp per symbol: lane owns bins k = lane + 32 j (j < J = ceil(n/32),
+//    n <= 256), so the MMSE per-symbol mean is a per-lane sum plus an xor
+//    butterfly, as in diag_main.  Each product output is a k-ascending sum of
+//    rounded (a*f_r - c*f_i), (a*f_i + c*f_r) terms, as the plain version's
+//    cmatmul; the matrices are read through the read-only cache.
+//  * Counters: per-thread 32-bit, warp and block sums, one 64-bit atomicAdd
+//    per block; PAPR peak an atomicMax on the f32 bits, PAPR sum a double
+//    atomicAdd (its last digits depend on block order).
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "link_common.cuh"
+
+namespace ofdm_fold {
+
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kPowerSteps = 16;
+constexpr int kPowerBlock = kPowerSteps * kThreads;  // slice elements per fold_power block
+constexpr int kMaxN = 256;
+
+struct Link {
+  const float* txr;  // (n, T+E) F_tx,ext, row-major
+  const float* txi;
+  const float* cmr;  // (T+E, n) conv + guard strip + DFT, row-major
+  const float* cmi;
+  const float* idr;  // (n, n) SC-FDE IDFT (unused for OFDM)
+  const float* idi;
+  ofdm::Equalizer eq;
+  int n;
+  int T;
+  int E;
+  ofdm::Qam q;
+  float snr_lin;
+  int add_noise;
+  int is_sc;
+  unsigned long long sym0;  // run index of the chunk's first symbol
+  int chunk;
+  int tile;
+  int slice;
+  int groups;
+  int run;  // consecutive symbols a warp of fold_main walks
+  uint2 key;
+};
+
+// Floats of a warp's shared buffers: s (n complex; SC-FDE reuses it for the
+// equalized bins), act (T+E complex), the next tail (E complex).
+__host__ __device__ __forceinline__ int warp_floats(int n, int T, int E) {
+  return 2 * (n + T + E + E);
+}
+
+struct WarpBufs {
+  float* sr;
+  float* si;
+  float* ar;
+  float* ai;
+  float* nr;
+  float* ni;
+};
+
+__device__ __forceinline__ WarpBufs warp_bufs(const Link& L, float* base) {
+  const int TE = L.T + L.E;
+  WarpBufs w;
+  w.sr = base;
+  w.si = w.sr + L.n;
+  w.ar = w.si + L.n;
+  w.ai = w.ar + TE;
+  w.nr = w.ai + TE;
+  w.ni = w.nr + L.E;
+  return w;
+}
+
+// out[t] = sum_k v[k] * M[k, t] over k < rows, k ascending (M row-major, `cols` wide).
+__device__ __forceinline__ void cdot(const float* vr, const float* vi, const float* mr,
+                                     const float* mi, int rows, int cols, int t, float& outr,
+                                     float& outi) {
+  float xr = 0.0f, xi = 0.0f;
+  for (int k = 0; k < rows; ++k) {
+    const float a = vr[k];
+    const float c = vi[k];
+    const float f_r = __ldg(mr + k * cols + t);
+    const float f_i = __ldg(mi + k * cols + t);
+    xr = xr + (a * f_r - c * f_i);
+    xi = xi + (a * f_i + c * f_r);
+  }
+  outr = xr;
+  outi = xi;
+}
+
+// act[T:T+E) <- symbol (run index) `sym - 1`'s tail, or zeros for the run's
+// first symbol.  Leaves the warp synchronized.
+__device__ void prev_tail(const Link& L, const WarpBufs& w, unsigned long long sym, int lane) {
+  const int TE = L.T + L.E;
+  if (L.E == 0) return;
+  if (sym == 0) {
+    for (int t = L.T + lane; t < TE; t += 32) {
+      w.ar[t] = 0.0f;
+      w.ai[t] = 0.0f;
+    }
+    __syncwarp();
+    return;
+  }
+  for (int k = lane; k < L.n; k += 32) {
+    const uint4 wd = ofdm::symbol_words(sym - 1, k, L.key);
+    ofdm::qam_encode(wd.x, L.q, w.sr[k], w.si[k]);
+  }
+  __syncwarp();
+  for (int t = L.T + lane; t < TE; t += 32) cdot(w.sr, w.si, L.txr, L.txi, L.n, TE, t, w.ar[t], w.ai[t]);
+  __syncwarp();
+}
+
+// One symbol up to y before noise.  Encodes symbol `sym` into s (and tx/w1/w2
+// for the lane's bins), computes x into act[0:T) and the next tail, folds
+// x[0:T) into the PAPR stats when `papr`, writes it to the carry row when
+// `carry_r` is set, then y = act @ CM and moves the next tail into act.
+template <int J>
+__device__ __forceinline__ void symbol_y(const Link& L, const WarpBufs& w, unsigned long long sym,
+                                         int lane, bool papr, float& pk, double& ps,
+                                         float* carry_r, float* carry_i, int (&tx)[J],
+                                         uint32_t (&w1)[J], uint32_t (&w2)[J], float (&yr)[J],
+                                         float (&yi)[J]) {
+  const int TE = L.T + L.E;
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int k = lane + 32 * j;
+    tx[j] = 0;
+    w1[j] = 0u;
+    w2[j] = 0u;
+    if (k < L.n) {
+      const uint4 wd = ofdm::symbol_words(sym, k, L.key);
+      tx[j] = ofdm::qam_encode(wd.x, L.q, w.sr[k], w.si[k]);
+      w1[j] = wd.y;
+      w2[j] = wd.z;
+    }
+  }
+  __syncwarp();
+  for (int t = lane; t < TE; t += 32) {
+    float xr, xi;
+    cdot(w.sr, w.si, L.txr, L.txi, L.n, TE, t, xr, xi);
+    if (t < L.T) {
+      w.ar[t] = xr;
+      w.ai[t] = xi;
+      if (papr) {
+        const float pw = xr * xr + xi * xi;
+        pk = fmaxf(pk, pw);
+        ps += static_cast<double>(pw);
+      }
+      if (carry_r != nullptr) {
+        carry_r[t] = xr;
+        carry_i[t] = xi;
+      }
+    } else {
+      w.nr[t - L.T] = xr;
+      w.ni[t - L.T] = xi;
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    yr[j] = 0.0f;
+    yi[j] = 0.0f;
+  }
+  for (int t = 0; t < TE; ++t) {
+    const float a = w.ar[t];
+    const float c = w.ai[t];
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int k = lane + 32 * j;
+      if (k < L.n) {
+        const float m_r = __ldg(L.cmr + t * L.n + k);
+        const float m_i = __ldg(L.cmi + t * L.n + k);
+        yr[j] = yr[j] + (a * m_r - c * m_i);
+        yi[j] = yi[j] + (a * m_i + c * m_r);
+      }
+    }
+  }
+  __syncwarp();
+  for (int t = L.T + lane; t < TE; t += 32) {
+    w.ar[t] = w.nr[t - L.T];
+    w.ai[t] = w.ni[t - L.T];
+  }
+  __syncwarp();
+}
+
+// Partial sums of |y|^2 (before noise) over each tile's measured-power slice,
+// in power_partials' order.  grid (tiles, groups); block (tile, g) covers
+// slice elements e = b*n + k in [g*4096, (g+1)*4096).
+template <int J>
+__global__ void __launch_bounds__(kThreads) fold_power(Link L, float* partials) {
+  extern __shared__ float smem[];
+  float* red = smem;  // kPowerBlock floats, element order
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const WarpBufs w = warp_bufs(L, smem + kPowerBlock + warp * warp_floats(L.n, L.T, L.E));
+  const int tile_id = blockIdx.x;
+  const int g = blockIdx.y;
+  const int t = threadIdx.x;
+  const int b0 = tile_id * L.tile;
+  const int tlen = min(L.tile, L.chunk - b0);
+  const int count = min(L.slice, tlen) * L.n;
+  const int e_lo = g * kPowerBlock;
+  const int e_hi = min(e_lo + kPowerBlock, count);
+  for (int i = t; i < kPowerBlock; i += kThreads) red[i] = 0.0f;
+  __syncthreads();
+  if (e_lo < e_hi) {
+    const int s_lo = e_lo / L.n;
+    const int s_hi = (e_hi - 1) / L.n + 1;
+    const int per = (s_hi - s_lo + kWarps - 1) / kWarps;
+    const int w_lo = s_lo + warp * per;
+    const int w_hi = min(w_lo + per, s_hi);
+    if (w_lo < w_hi) {
+      prev_tail(L, w, L.sym0 + static_cast<unsigned long long>(b0 + w_lo), lane);
+      float pk = 0.0f;
+      double ps = 0.0;
+      int tx[J];
+      uint32_t w1[J], w2[J];
+      float yr[J], yi[J];
+      for (int s = w_lo; s < w_hi; ++s) {
+        symbol_y<J>(L, w, L.sym0 + static_cast<unsigned long long>(b0 + s), lane, false, pk, ps,
+                    nullptr, nullptr, tx, w1, w2, yr, yi);
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          const int k = lane + 32 * j;
+          const int e = s * L.n + k;
+          if (k < L.n && e >= e_lo && e < e_hi) red[e - e_lo] = yr[j] * yr[j] + yi[j] * yi[j];
+        }
+      }
+    }
+  }
+  __syncthreads();
+  float acc = 0.0f;
+  for (int j = 0; j < kPowerSteps; ++j) acc = acc + red[j * kThreads + t];
+  __syncthreads();
+  red[t] = acc;
+  __syncthreads();
+  ofdm::tree_sum<kThreads>(red, t);
+  if (t == 0) partials[tile_id * L.groups + g] = red[0];
+}
+
+template <int J>
+__global__ void __launch_bounds__(kThreads)
+    fold_main(Link L, const float* partials, unsigned long long* acc, double* psum,
+              float* carry_r, float* carry_i) {
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const WarpBufs w = warp_bufs(L, smem + warp * warp_floats(L.n, L.T, L.E));
+
+  uint32_t be = 0, se = 0;
+  float pk = 0.0f;
+  double ps = 0.0;
+
+  const long long first = (static_cast<long long>(blockIdx.x) * kWarps + warp) * L.run;
+  if (first < L.chunk) {
+    const int b0 = static_cast<int>(first);
+    const int b1 = min(b0 + L.run, L.chunk);
+    prev_tail(L, w, L.sym0 + static_cast<unsigned long long>(b0), lane);
+    int cached_tile = -1;
+    float sigma = 0.0f;
+    int tx[J];
+    uint32_t w1[J], w2[J];
+    float yr[J], yi[J];
+    for (int b = b0; b < b1; ++b) {
+      const int tile_id = b / L.tile;
+      if (L.add_noise && tile_id != cached_tile) {
+        const int tlen = min(L.tile, L.chunk - tile_id * L.tile);
+        sigma = ofdm::tile_sigma(partials + tile_id * L.groups, L.groups, min(L.slice, tlen) * L.n,
+                                 L.snr_lin);
+        cached_tile = tile_id;
+      }
+      const bool last = b == L.chunk - 1;
+      symbol_y<J>(L, w, L.sym0 + static_cast<unsigned long long>(b), lane, true, pk, ps,
+                  last ? carry_r : nullptr, last ? carry_i : nullptr, tx, w1, w2, yr, yi);
+      if (L.add_noise) {
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          if (lane + 32 * j < L.n) ofdm::add_noise(w1[j], w2[j], sigma, yr[j], yi[j]);
+        }
+      }
+
+      const float nv = ofdm::mmse_nv<J>(L.eq, yr, yi, lane, L.n, L.snr_lin);
+      float er[J], ei[J];
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const int k = lane + 32 * j;
+        er[j] = 0.0f;
+        ei[j] = 0.0f;
+        if (k < L.n) ofdm::equalize_bin(L.eq, k, yr[j], yi[j], nv, er[j], ei[j]);
+      }
+
+      if (L.is_sc) {
+        // SC-FDE: equalized bins -> time-domain symbols, e @ IDFT.
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          const int k = lane + 32 * j;
+          if (k < L.n) {
+            w.sr[k] = er[j];
+            w.si[k] = ei[j];
+          }
+        }
+        __syncwarp();
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          const int k = lane + 32 * j;
+          if (k < L.n) cdot(w.sr, w.si, L.idr, L.idi, L.n, L.n, k, er[j], ei[j]);
+        }
+        __syncwarp();
+      }
+
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        if (lane + 32 * j < L.n) ofdm::count_bin(tx[j], er[j], ei[j], L.q, be, se);
+      }
+    }
+  }
+
+  ofdm::flush_counters<kWarps>(be, se, pk, ps, acc, psum);
+}
+
+template <int J>
+cudaError_t launch(const Link& L, float* partials, unsigned long long* acc, double* psum,
+                   float* cr, float* ci, cudaStream_t stream) {
+  const int wf = warp_floats(L.n, L.T, L.E);
+  const size_t main_bytes = sizeof(float) * kWarps * wf;
+  const size_t power_bytes = sizeof(float) * (kPowerBlock + kWarps * wf);
+  cudaError_t err = cudaFuncSetAttribute(fold_main<J>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(main_bytes));
+  if (err != cudaSuccess) return err;
+  if (L.add_noise) {
+    err = cudaFuncSetAttribute(fold_power<J>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(power_bytes));
+    if (err != cudaSuccess) return err;
+    const int tiles = (L.chunk + L.tile - 1) / L.tile;
+    fold_power<J><<<dim3(tiles, L.groups), kThreads, power_bytes, stream>>>(L, partials);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const long long warps = (static_cast<long long>(L.chunk) + L.run - 1) / L.run;
+  const int grid = static_cast<int>((warps + kWarps - 1) / kWarps);
+  fold_main<J><<<grid, kThreads, main_bytes, stream>>>(L, partials, acc, psum, cr, ci);
+  return cudaGetLastError();
+}
+
+}  // namespace ofdm_fold
+
+using namespace ofdm_fold;
+
+extern "C" {
+
+// One chunk: fold_power (when noise is on) then fold_main, both on `stream`.
+// acc = [bit errors, symbol errors, PAPR peak f32 bits] (int64, accumulated),
+// psum = PAPR power sum (float64, accumulated); carry = the chunk's last
+// symbol's x[0:T).  Returns the first CUDA error of the launches, 0 if none.
+int ofdm_fold_chunk(const float* txr, const float* txi, const float* cmr, const float* cmi,
+                    const float* idr, const float* idi, const float* hr, const float* hi,
+                    const float* habs2, const float* gr, const float* gi, int n, int T, int E,
+                    int order, int m, int logm, int bits, int gray, float scale, float slicer,
+                    float snr_lin, float cg, int method, int add_noise, int is_sc,
+                    unsigned long long sym0, int chunk, int tile, int slice, int groups, int run,
+                    unsigned int key0, unsigned int key1, float* partials, long long* acc,
+                    double* psum, float* carry_r, float* carry_i, void* stream_ptr) {
+  if (n < 1 || n > kMaxN || T < n || E < 0 || E > T || chunk < 1 || tile < 1 || slice < 1 ||
+      groups < 1 || run < 1 || (is_sc && (idr == nullptr || idi == nullptr))) {
+    return cudaErrorInvalidValue;
+  }
+  if (sizeof(float) * (kPowerBlock + kWarps * warp_floats(n, T, E)) > 227 * 1024) {
+    return cudaErrorInvalidValue;
+  }
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  Link L;
+  L.txr = txr;
+  L.txi = txi;
+  L.cmr = cmr;
+  L.cmi = cmi;
+  L.idr = idr;
+  L.idi = idi;
+  L.eq = ofdm::Equalizer{hr, hi, habs2, gr, gi, slicer, cg, method};
+  L.n = n;
+  L.T = T;
+  L.E = E;
+  L.q = ofdm::Qam{order, m, logm, bits, gray, scale};
+  L.snr_lin = snr_lin;
+  L.add_noise = add_noise;
+  L.is_sc = is_sc;
+  L.sym0 = sym0;
+  L.chunk = chunk;
+  L.tile = tile;
+  L.slice = slice;
+  L.groups = groups;
+  L.run = run;
+  L.key = make_uint2(key0, key1);
+
+  unsigned long long* a = reinterpret_cast<unsigned long long*>(acc);
+  cudaError_t err;
+  switch ((n + 31) / 32) {
+    case 1: err = launch<1>(L, partials, a, psum, carry_r, carry_i, stream); break;
+    case 2: err = launch<2>(L, partials, a, psum, carry_r, carry_i, stream); break;
+    case 3: err = launch<3>(L, partials, a, psum, carry_r, carry_i, stream); break;
+    case 4: err = launch<4>(L, partials, a, psum, carry_r, carry_i, stream); break;
+    case 5: err = launch<5>(L, partials, a, psum, carry_r, carry_i, stream); break;
+    case 6: err = launch<6>(L, partials, a, psum, carry_r, carry_i, stream); break;
+    case 7: err = launch<7>(L, partials, a, psum, carry_r, carry_i, stream); break;
+    default: err = launch<8>(L, partials, a, psum, carry_r, carry_i, stream); break;
+  }
+  return static_cast<int>(err);
+}
+
+const char* ofdm_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

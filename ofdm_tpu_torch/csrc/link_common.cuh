@@ -1,6 +1,8 @@
 // Device functions shared by the port's kernels: the Philox4x32-10 counter
-// generator and the link's arithmetic chain (24-bit uniforms, quarter-range
-// cos/sin, Gray/zig-zag QAM encode and slicer).
+// generator, the link's arithmetic chain (24-bit uniforms, quarter-range
+// cos/sin, Gray/zig-zag QAM encode and slicer) and the per-bin steps both
+// chunk kernels run (tile sigma, noise, equalizer, error count, the block's
+// counter flush).
 //
 // Each function repeats, operation for operation, the plain PyTorch version
 // in ofdm_tpu_torch/ops/{prng,link_kernel}.py.  The kernels are compiled
@@ -111,6 +113,158 @@ __device__ __forceinline__ int qam_demap(float er, float ei, const Qam& q) {
   const int colj = j & (q.m - 1);
   const int colzj = (rowj & 1) ? (q.m - 1 - colj) : colj;
   return (rowj << q.logm) | colzj;
+}
+
+// --- the per-bin chain both chunk kernels run ----------------------------------
+
+// The three words of bin k of run symbol `sym`: counter (sym lo, sym hi, k, 0).
+__device__ __forceinline__ uint4 symbol_words(unsigned long long sym, int k, uint2 key) {
+  return philox4x32_10(
+      make_uint4(static_cast<uint32_t>(sym), static_cast<uint32_t>(sym >> 32),
+                 static_cast<uint32_t>(k), 0u),
+      key);
+}
+
+// sigma of a tile from its measured-power partials, summed in order over the
+// `count` elements of its slice.
+__device__ __forceinline__ float tile_sigma(const float* partials, int groups, int count,
+                                            float snr_lin) {
+  float tot = 0.0f;
+  for (int g = 0; g < groups; ++g) tot = tot + partials[g];
+  const float mp = tot / static_cast<float>(count);
+  return sqrtf(mp / snr_lin / 2.0f);
+}
+
+// y += sigma * Box-Muller(w1, w2): radius from w1's 24-bit uniform, phase
+// from w2's.
+__device__ __forceinline__ void add_noise(uint32_t w1, uint32_t w2, float sigma, float& yr,
+                                          float& yi) {
+  const float u1 = uniform24_floored(w1);
+  const float rad = sqrtf(-2.0f * logf(u1));
+  float co, sn;
+  cossin_u24((w2 >> 8) & 0xFFFFFFu, co, sn);
+  const float zr = rad * co;
+  const float zi = rad * sn;
+  yr = yr + sigma * zr;
+  yi = yi + sigma * zi;
+}
+
+// Equalizer rows and mode of a link.
+struct Equalizer {
+  const float* hr;
+  const float* hi;
+  const float* habs2;
+  const float* gr;  // ZF gain rows, slicer gain folded in
+  const float* gi;
+  float slicer;  // 0.5 / scale
+  float cg;      // mean |h|^2
+  int method;    // 0 ZF, 1 MMSE, 2 none
+};
+
+// MMSE noise variance of the warp's symbol (lane holds bins lane + 32 j):
+// per-lane sum in j order, then an xor butterfly, so every lane has the
+// same bits.  0 for the other equalizers.
+template <int J>
+__device__ __forceinline__ float mmse_nv(const Equalizer& eq, const float (&yr)[J],
+                                         const float (&yi)[J], int lane, int n, float snr_lin) {
+  if (eq.method != 1) return 0.0f;
+  float p = 0.0f;
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    if (lane + 32 * j < n) p = p + (yr[j] * yr[j] + yi[j] * yi[j]);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) p = p + __shfl_xor_sync(0xFFFFFFFFu, p, off);
+  const float sp = p / static_cast<float>(n);
+  return sp / snr_lin / eq.cg;
+}
+
+// Bin k equalized into slicer units.  MMSE is tested first: in this order
+// nvcc emits plain branches instead of a jump table, and diag_main runs
+// faster on an H100 (the headline link is MMSE).
+__device__ __forceinline__ void equalize_bin(const Equalizer& eq, int k, float yr, float yi,
+                                             float nv, float& er, float& ei) {
+  if (eq.method == 1) {
+    const float hr = __ldg(eq.hr + k);
+    const float hi = __ldg(eq.hi + k);
+    const float g = eq.slicer / (__ldg(eq.habs2 + k) + nv);
+    er = (yr * hr + yi * hi) * g;
+    ei = (yi * hr - yr * hi) * g;
+  } else if (eq.method == 0) {
+    const float gr = __ldg(eq.gr + k);
+    const float gi = __ldg(eq.gi + k);
+    er = yr * gr - yi * gi;
+    ei = yi * gr + yr * gi;
+  } else {
+    er = yr * eq.slicer;
+    ei = yi * eq.slicer;
+  }
+}
+
+// Slice one bin and add its bit and symbol errors against tx.
+__device__ __forceinline__ void count_bin(int tx, float er, float ei, const Qam& q, uint32_t& be,
+                                          uint32_t& se) {
+  const int x = tx ^ qam_demap(er, ei, q);
+  be += static_cast<uint32_t>(__popc(x));
+  se += x != 0 ? 1u : 0u;
+}
+
+// Block sum of red[0..N) by a halving tree (red is overwritten); every
+// thread of the block must call it.  The sum is red[0] afterwards.
+template <int N>
+__device__ __forceinline__ void tree_sum(float* red, int t) {
+  for (int s = N / 2; s > 0; s >>= 1) {
+    if (t < s) red[t] = red[t] + red[t + s];
+    __syncthreads();
+  }
+}
+
+// The block's counters into acc = [bit errors, symbol errors, PAPR peak f32
+// bits] and psum: warp shuffles, then one thread sums the warps and issues
+// one atomic each.  The peak is an atomicMax on the f32 bit pattern
+// (non-negative floats order like their bits); the sum is a double
+// atomicAdd, so its last digits depend on block order.  Every thread of the
+// block must call it.
+template <int kWarps>
+__device__ __forceinline__ void flush_counters(uint32_t be, uint32_t se, float pk, double ps,
+                                               unsigned long long* acc, double* psum) {
+  __shared__ unsigned long long red_be[kWarps];
+  __shared__ unsigned long long red_se[kWarps];
+  __shared__ float red_pk[kWarps];
+  __shared__ double red_ps[kWarps];
+  const unsigned full = 0xFFFFFFFFu;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  unsigned long long be64 = be, se64 = se;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    be64 += __shfl_xor_sync(full, be64, off);
+    se64 += __shfl_xor_sync(full, se64, off);
+    pk = fmaxf(pk, __shfl_xor_sync(full, pk, off));
+    ps += __shfl_xor_sync(full, ps, off);
+  }
+  if (lane == 0) {
+    red_be[warp] = be64;
+    red_se[warp] = se64;
+    red_pk[warp] = pk;
+    red_ps[warp] = ps;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned long long tb = 0, ts = 0;
+    float tp = 0.0f;
+    double tps = 0.0;
+    for (int w = 0; w < kWarps; ++w) {
+      tb += red_be[w];
+      ts += red_se[w];
+      tp = fmaxf(tp, red_pk[w]);
+      tps += red_ps[w];
+    }
+    atomicAdd(acc + 0, tb);
+    atomicAdd(acc + 1, ts);
+    atomicMax(acc + 2, static_cast<unsigned long long>(__float_as_uint(tp)));
+    atomicAdd(psum, tps);
+  }
 }
 
 }  // namespace ofdm

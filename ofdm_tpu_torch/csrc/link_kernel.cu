@@ -52,20 +52,13 @@ constexpr int kPowerSteps = 16;     // elements per thread of power_partials
 constexpr int kMaxN = 256;
 
 struct Link {
-  const float* hr;
-  const float* hi;
-  const float* habs2;
-  const float* gr;  // ZF gain rows, slicer gain folded in
-  const float* gi;
+  ofdm::Equalizer eq;
   const float* fr;  // (n, T) IDFT + CP, row-major
   const float* fi;
   int n;
   int T;
   ofdm::Qam q;
-  float slicer;  // 0.5 / scale
   float snr_lin;
-  float cg;      // mean |h|^2
-  int method;    // 0 ZF, 1 MMSE, 2 none
   int add_noise;
   unsigned long long sym0;  // run index of the chunk's first symbol
   int chunk;
@@ -78,11 +71,7 @@ struct Link {
 };
 
 __device__ __forceinline__ uint4 words_for(const Link& L, int b, int k) {
-  const unsigned long long sym = L.sym0 + static_cast<unsigned long long>(b);
-  return ofdm::philox4x32_10(
-      make_uint4(static_cast<uint32_t>(sym), static_cast<uint32_t>(sym >> 32),
-                 static_cast<uint32_t>(k), 0u),
-      L.key);
+  return ofdm::symbol_words(L.sym0 + static_cast<unsigned long long>(b), k, L.key);
 }
 
 // Partial sums of |s*h|^2 over each tile's measured-power slice.
@@ -105,8 +94,8 @@ __global__ void __launch_bounds__(kPowerThreads) power_partials(Link L, float* p
       const uint4 w = words_for(L, b0 + b, k);
       float sr, si;
       ofdm::qam_encode(w.x, L.q, sr, si);
-      const float hr = __ldg(L.hr + k);
-      const float hi = __ldg(L.hi + k);
+      const float hr = __ldg(L.eq.hr + k);
+      const float hi = __ldg(L.eq.hi + k);
       const float yr = sr * hr - si * hi;
       const float yi = sr * hi + si * hr;
       p = yr * yr + yi * yi;
@@ -115,10 +104,7 @@ __global__ void __launch_bounds__(kPowerThreads) power_partials(Link L, float* p
   }
   red[t] = acc;
   __syncthreads();
-  for (int s = kPowerThreads / 2; s > 0; s >>= 1) {
-    if (t < s) red[t] = red[t] + red[t + s];
-    __syncthreads();
-  }
+  ofdm::tree_sum<kPowerThreads>(red, t);
   if (t == 0) partials[tile_id * L.groups + g] = red[0];
 }
 
@@ -128,15 +114,10 @@ __global__ void __launch_bounds__(kThreads)
               float* carry_r, float* carry_i) {
   __shared__ float s_sr[kWarps][kMaxN];
   __shared__ float s_si[kWarps][kMaxN];
-  __shared__ unsigned long long red_be[kWarps];
-  __shared__ unsigned long long red_se[kWarps];
-  __shared__ float red_pk[kWarps];
-  __shared__ double red_ps[kWarps];
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nw = gridDim.x * kWarps;
-  const unsigned full = 0xFFFFFFFFu;
 
   uint32_t be = 0, se = 0;
   float pk = 0.0f;
@@ -148,12 +129,9 @@ __global__ void __launch_bounds__(kThreads)
     const int tile_id = b / L.tile;
     const bool sampled = (tile_id % L.pstride) == 0;
     if (L.add_noise && tile_id != cached_tile) {
-      // The tile's measured power, summed over its partials in order.
-      float tot = 0.0f;
-      for (int g = 0; g < L.groups; ++g) tot = tot + partials[tile_id * L.groups + g];
       const int tlen = min(L.tile, L.chunk - tile_id * L.tile);
-      const float mp = tot / static_cast<float>(min(L.slice, tlen) * L.n);
-      sigma = sqrtf(mp / L.snr_lin / 2.0f);
+      sigma = ofdm::tile_sigma(partials + tile_id * L.groups, L.groups, min(L.slice, tlen) * L.n,
+                               L.snr_lin);
       cached_tile = tile_id;
     }
 
@@ -173,61 +151,22 @@ __global__ void __launch_bounds__(kThreads)
           s_sr[warp][k] = sr;
           s_si[warp][k] = si;
         }
-        const float hr = __ldg(L.hr + k);
-        const float hi = __ldg(L.hi + k);
-        float r = sr * hr - si * hi;
-        float i = sr * hi + si * hr;
-        if (L.add_noise) {
-          const float u1 = ofdm::uniform24_floored(w.y);
-          const float rad = sqrtf(-2.0f * logf(u1));
-          float co, sn;
-          ofdm::cossin_u24((w.z >> 8) & 0xFFFFFFu, co, sn);
-          const float zr = rad * co;
-          const float zi = rad * sn;
-          r = r + sigma * zr;
-          i = i + sigma * zi;
-        }
-        yr[j] = r;
-        yi[j] = i;
+        const float hr = __ldg(L.eq.hr + k);
+        const float hi = __ldg(L.eq.hi + k);
+        yr[j] = sr * hr - si * hi;
+        yi[j] = sr * hi + si * hr;
+        if (L.add_noise) ofdm::add_noise(w.y, w.z, sigma, yr[j], yi[j]);
       }
     }
 
-    float nv = 0.0f;
-    if (L.method == 1) {
-      float p = 0.0f;
-#pragma unroll
-      for (int j = 0; j < J; ++j) {
-        if (lane + 32 * j < L.n) p = p + (yr[j] * yr[j] + yi[j] * yi[j]);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) p = p + __shfl_xor_sync(full, p, off);
-      const float sp = p / static_cast<float>(L.n);
-      nv = sp / L.snr_lin / L.cg;
-    }
-
+    const float nv = ofdm::mmse_nv<J>(L.eq, yr, yi, lane, L.n, L.snr_lin);
 #pragma unroll
     for (int j = 0; j < J; ++j) {
       const int k = lane + 32 * j;
       if (k < L.n) {
         float er, ei;
-        if (L.method == 0) {
-          const float gr = __ldg(L.gr + k);
-          const float gi = __ldg(L.gi + k);
-          er = yr[j] * gr - yi[j] * gi;
-          ei = yi[j] * gr + yr[j] * gi;
-        } else if (L.method == 1) {
-          const float hr = __ldg(L.hr + k);
-          const float hi = __ldg(L.hi + k);
-          const float g = L.slicer / (__ldg(L.habs2 + k) + nv);
-          er = (yr[j] * hr + yi[j] * hi) * g;
-          ei = (yi[j] * hr - yr[j] * hi) * g;
-        } else {
-          er = yr[j] * L.slicer;
-          ei = yi[j] * L.slicer;
-        }
-        const int x = tx[j] ^ ofdm::qam_demap(er, ei, L.q);
-        be += static_cast<uint32_t>(__popc(x));
-        se += x != 0 ? 1u : 0u;
+        ofdm::equalize_bin(L.eq, k, yr[j], yi[j], nv, er, ei);
+        ofdm::count_bin(tx[j], er, ei, L.q, be, se);
       }
     }
 
@@ -256,36 +195,7 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  unsigned long long be64 = be, se64 = se;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    be64 += __shfl_xor_sync(full, be64, off);
-    se64 += __shfl_xor_sync(full, se64, off);
-    pk = fmaxf(pk, __shfl_xor_sync(full, pk, off));
-    ps += __shfl_xor_sync(full, ps, off);
-  }
-  if (lane == 0) {
-    red_be[warp] = be64;
-    red_se[warp] = se64;
-    red_pk[warp] = pk;
-    red_ps[warp] = ps;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    unsigned long long tb = 0, ts = 0;
-    float tp = 0.0f;
-    double tps = 0.0;
-    for (int w = 0; w < kWarps; ++w) {
-      tb += red_be[w];
-      ts += red_se[w];
-      tp = fmaxf(tp, red_pk[w]);
-      tps += red_ps[w];
-    }
-    atomicAdd(acc + 0, tb);
-    atomicAdd(acc + 1, ts);
-    atomicMax(acc + 2, static_cast<unsigned long long>(__float_as_uint(tp)));
-    atomicAdd(psum, tps);
-  }
+  ofdm::flush_counters<kWarps>(be, se, pk, ps, acc, psum);
 }
 
 template <int J>
@@ -326,20 +236,13 @@ int ofdm_diag_chunk(const float* hr, const float* hi, const float* habs2, const 
   if (n < 1 || n > kMaxN || chunk < 1 || tile < 1 || pstride < 1) return cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   Link L;
-  L.hr = hr;
-  L.hi = hi;
-  L.habs2 = habs2;
-  L.gr = gr;
-  L.gi = gi;
+  L.eq = ofdm::Equalizer{hr, hi, habs2, gr, gi, slicer, cg, method};
   L.fr = fr;
   L.fi = fi;
   L.n = n;
   L.T = T;
   L.q = ofdm::Qam{order, m, logm, bits, gray, scale};
-  L.slicer = slicer;
   L.snr_lin = snr_lin;
-  L.cg = cg;
-  L.method = method;
   L.add_noise = add_noise;
   L.sym0 = sym0;
   L.chunk = chunk;

@@ -1,0 +1,265 @@
+"""The fused fold-mode chunk: kernel wrapper and plain version.
+
+Counterpart of ``ofdm_tpu/ops/pallas_link.py``'s ``kernel`` in conv="mm",
+fold=True, mode="qam" form (``csrc/fold_kernel.cu``): SC-FDE with a cyclic
+prefix or none, and OFDM whose guard is shorter than the channel order.
+The conv folds into the guard strip + DFT, so a symbol costs two complex
+products (three for SC-FDE) and the noise is added per frequency bin.
+
+A chunk, per OFDM symbol b (the semantics of pallas_link.py:1428-1937 in
+its fold branches, not its lane-packed TPU layout): Philox words -> QAM
+encode s_b -> x_b = s_b @ F_tx,ext (E duplicated tail columns) -> PAPR max
+and sum over x_b[:T] -> act = [x_b[:T] | x_{b-1}[T:T+E]] -> y = act @ CM
+-> AWGN with the diag chunk's per-tile measured power -> ZF / MMSE / none
+-> (SC-FDE) e @ IDFT -> slicer -> popcount into int64 counters.  The
+chunk returns its last symbol's x[:T], the JAX package's carry contract.
+The previous symbol's tail is recomputed from its Philox words, so a chunk
+reads no carry: the run's symbol 0 sees zeros (the JAX runner's zero
+initial carry), every other symbol its predecessor's tail.
+
+``fold_chunk`` launches the kernel for CUDA tensors and runs
+``fold_chunk_plain`` only for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ofdm_tpu_torch.config import ModulationType, PrefixType
+from ofdm_tpu_torch.ops import linops, prng
+from ofdm_tpu_torch.ops import link_kernel as lk
+
+MAX_N = 256  # the kernel's warp-per-symbol layout holds up to 8 bins a lane
+# Consecutive symbols one warp of fold_main walks; it recomputes the tail of
+# the symbol before its first, so one tail in RUN is extra work.
+RUN = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class FoldLink:
+    """Everything the fold chunk reads: f32 matrices and rows on one device."""
+
+    n: int
+    T: int
+    E: int  # previous-symbol tail lanes (linops.ext_width)
+    q: lk.Qam
+    slicer: float
+    cg: float
+    method: int
+    add_noise: bool
+    is_sc: bool
+    tile_cap: int
+    slice: int
+    txr: torch.Tensor  # (n, T+E) F_tx,ext
+    txi: torch.Tensor
+    cmr: torch.Tensor  # (T+E, n) conv + guard strip + DFT
+    cmi: torch.Tensor
+    idr: Optional[torch.Tensor]  # (n, n) SC-FDE IDFT; None for OFDM
+    idi: Optional[torch.Tensor]
+    hr: torch.Tensor  # (n,)
+    hi: torch.Tensor
+    habs2: torch.Tensor
+    gr: torch.Tensor  # ZF gain rows, slicer folded in
+    gi: torch.Tensor
+
+
+def fold_link(setup, device) -> FoldLink:
+    """Host constants of a fold link (pallas_link._consts_for, fold branch,
+    unpacked): F_tx,ext, the merged conv+RX matrix, the SC-FDE IDFT and the
+    equalizer rows, f32 on ``device``."""
+    cfg = setup.cfg
+    if cfg.prefix_type == PrefixType.ZERO:
+        raise ValueError("fold link: zero-prefix links do not fold the conv into RX")
+    n, L = cfg.num_subcarriers, setup.prefix_length
+    T = n + L
+    taps = np.asarray(setup.taps)
+    E = linops.ext_width(len(taps), T)
+    is_sc = cfg.modulation_type == ModulationType.SC_OFDM
+    txr, txi = linops.tx_ext_matrix(linops.tx_matrix(n, cfg.prefix_type, L, cfg.modulation_type), E)
+    cm = linops.conv_rx_merged(taps, n, cfg.prefix_type, L)
+    idr = idi = None
+    if is_sc:
+        dr, di = linops.dft_matrix(n, inverse=True)
+        idr, idi = lk.f32_tensor(dr, device), lk.f32_tensor(di, device)
+    return FoldLink(
+        T=T,
+        E=E,
+        is_sc=is_sc,
+        tile_cap=lk.fold_tile_cap(n, T, E, is_sc),
+        txr=lk.f32_tensor(txr, device),
+        txi=lk.f32_tensor(txi, device),
+        cmr=lk.f32_tensor(cm.real, device),
+        cmi=lk.f32_tensor(cm.imag, device),
+        idr=idr,
+        idi=idi,
+        **lk.equalizer_fields(setup, device),
+    )
+
+
+def _chunk_geometry(link: FoldLink, chunk: int):
+    tile = lk.tile_for(chunk, link.tile_cap)
+    tiles = -(-chunk // tile)
+    groups = -(-min(link.slice, tile) * link.n // lk.POWER_BLOCK)
+    return tile, tiles, groups
+
+
+def papr_samples(link: FoldLink, chunk: int) -> int:
+    """Time samples one chunk contributes to the PAPR statistic: all of them."""
+    return chunk * link.T
+
+
+# --- plain version of the chunk ----------------------------------------------
+
+
+def fold_planes(link: FoldLink, key: Tuple[int, int], sym0: int, chunk: int, snr_lin: float,
+                device, words=None):
+    """(tx, er, ei, xr, xi): the chunk's TX indices (chunk, n), equalized points
+    in slicer units (chunk, n) and TX rows x (chunk, T+E) — the plain chain
+    up to the slicer.
+
+    ``words`` = (raw, u1 word, u2 word) injects integer planes in place of
+    the Philox draw: (chunk, n) for sym0 == 0, else (chunk + 1, n) whose
+    first row is symbol sym0 - 1 (only its raw word is read)."""
+    n, T = link.n, link.T
+    tile, tiles, groups = _chunk_geometry(link, chunk)
+    prev = 1 if sym0 > 0 else 0
+    if words is None:
+        words = prng.link_words(key, sym0 - prev, chunk + prev, n, device)
+    raw, w1, w2 = (torch.as_tensor(w).to(device=device, dtype=torch.int64) & prng.M32 for w in words)
+    if raw.shape != (chunk + prev, n):
+        raise ValueError(f"words must be ({chunk + prev}, {n}) planes, got {tuple(raw.shape)}")
+    tx, sr, si = lk.qam_encode(raw, link.q)
+    xr, xi = lk.cmatmul(link.txr, link.txi, sr, si)
+    if prev:
+        tail_r, tail_i = xr[:1, T:], xi[:1, T:]
+        xr, xi, tx, w1, w2 = xr[1:], xi[1:], tx[1:], w1[1:], w2[1:]
+    else:
+        tail_r = tail_i = torch.zeros((1, link.E), dtype=torch.float32, device=device)
+    act_r = torch.cat([xr[:, :T], torch.cat([tail_r, xr[:-1, T:]])], dim=1)
+    act_i = torch.cat([xi[:, :T], torch.cat([tail_i, xi[:-1, T:]])], dim=1)
+    yr, yi = lk.cmatmul(link.cmr, link.cmi, act_r, act_i)
+    if link.add_noise:
+        yr, yi = lk.awgn(link, yr, yi, w1, w2, chunk, tile, tiles, groups, snr_lin)
+    er, ei = lk.equalize(link, yr, yi, snr_lin)
+    if link.is_sc:
+        er, ei = lk.cmatmul(link.idr, link.idi, er, ei)
+    return tx, er, ei, xr, xi
+
+
+def fold_chunk_plain(
+    link: FoldLink,
+    key: Tuple[int, int],
+    sym0: int,
+    chunk: int,
+    snr_lin: float,
+    acc: torch.Tensor,
+    psum: torch.Tensor,
+    words=None,
+):
+    """Plain version of ``fold_chunk`` (same arguments, same effects);
+    ``words`` as in ``fold_planes``."""
+    T = link.T
+    tx, er, ei, xr, xi = fold_planes(link, key, sym0, chunk, snr_lin, acc.device, words)
+    lk.count_errors(link, tx, er, ei, acc)
+    lk.add_papr(xr[:, :T], xi[:, :T], acc, psum)
+    return xr[-1, :T].clone(), xi[-1, :T].clone()
+
+
+# --- kernel wrapper -------------------------------------------------------------
+
+
+def _check_link(link: FoldLink, device):
+    names = ["txr", "txi", "cmr", "cmi", "hr", "hi", "habs2", "gr", "gi"]
+    names += ["idr", "idi"] if link.is_sc else []
+    for name in names:
+        t = getattr(link, name)
+        if t is None or t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"link.{name} must be contiguous f32 on {device}")
+    TE = link.T + link.E
+    n = link.n
+    if link.txr.shape != (n, TE) or link.cmr.shape != (TE, n) or link.hr.shape != (n,):
+        raise ValueError("link matrices have the wrong shape")
+    if link.is_sc and link.idr.shape != (n, n):
+        raise ValueError("link.idr must be (n, n)")
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"fold kernel takes 1 <= n <= {MAX_N}, got {n}")
+
+
+def chunk_workspace(link: FoldLink, chunk: int, device):
+    """(partials, carry_r, carry_i): the scratch ``fold_chunk`` needs for
+    chunks of ``chunk`` symbols, so that a run allocates it once."""
+    _, tiles, groups = _chunk_geometry(link, chunk)
+    f32 = dict(dtype=torch.float32, device=device)
+    return torch.empty(tiles * groups, **f32), torch.empty(link.T, **f32), torch.empty(link.T, **f32)
+
+
+def fold_chunk(
+    link: FoldLink,
+    key: Tuple[int, int],
+    sym0: int,
+    chunk: int,
+    snr_lin: float,
+    acc: torch.Tensor,
+    psum: torch.Tensor,
+    work=None,
+):
+    """One chunk of run symbols [sym0, sym0 + chunk): adds its bit errors,
+    symbol errors and PAPR peak bits into ``acc`` and its PAPR power sum
+    into ``psum``.  Returns the carry row (re, im): the last symbol's TX time
+    row x[:T], written into ``work`` (a ``chunk_workspace``) when given.
+
+    CUDA tensors launch the fused kernel (csrc/fold_kernel.cu): with noise
+    on, ``fold_power`` and then ``fold_main``, counted apart in
+    ``fold_chunk.power_launches`` and ``fold_chunk.launches``.  CPU tensors
+    run ``fold_chunk_plain``."""
+    dev = acc.device
+    if dev.type == "cpu":
+        return fold_chunk_plain(link, key, sym0, chunk, snr_lin, acc, psum)
+    if dev.type != "cuda":
+        raise ValueError(f"fold_chunk runs on cpu or cuda, not {dev}")
+    if acc.dtype != torch.int64 or acc.shape != (3,) or psum.dtype != torch.float64 or psum.shape != (1,):
+        raise ValueError("acc must be int64 (3,) and psum float64 (1,)")
+    if psum.device != dev or not (acc.is_contiguous() and psum.is_contiguous()):
+        raise ValueError("acc and psum must be contiguous on one device")
+    _check_link(link, dev)
+    if not 1 <= chunk <= (2**31 - 1) // link.n:
+        raise ValueError(f"chunk out of range: {chunk}")
+    tile, tiles, groups = _chunk_geometry(link, chunk)
+    partials, carry_r, carry_i = chunk_workspace(link, chunk, dev) if work is None else work
+    for t, size in ((partials, tiles * groups), (carry_r, link.T), (carry_i, link.T)):
+        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous() or t.numel() < size:
+            raise ValueError(f"work must be chunk_workspace(link, {chunk}, {dev})")
+    from ofdm_tpu_torch import build
+
+    lib = build.load("fold_kernel")
+    q = link.q
+    sc = link.is_sc
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.ofdm_fold_chunk(
+            link.txr.data_ptr(), link.txi.data_ptr(), link.cmr.data_ptr(), link.cmi.data_ptr(),
+            link.idr.data_ptr() if sc else None, link.idi.data_ptr() if sc else None,
+            link.hr.data_ptr(), link.hi.data_ptr(), link.habs2.data_ptr(),
+            link.gr.data_ptr(), link.gi.data_ptr(),
+            link.n, link.T, link.E, q.order, q.m, q.logm, q.bits, int(q.gray),
+            q.scale, link.slicer, snr_lin, link.cg,
+            link.method, int(link.add_noise), int(sc),
+            sym0,
+            chunk, tile, link.slice, groups, RUN,
+            key[0], key[1],
+            partials.data_ptr(), acc.data_ptr(), psum.data_ptr(),
+            carry_r.data_ptr(), carry_i.data_ptr(), stream,
+        )
+    build.check(lib, code, "ofdm_fold_chunk")
+    if link.add_noise:
+        fold_chunk.power_launches += 1
+    fold_chunk.launches += 1
+    return carry_r, carry_i
+
+
+fold_chunk.launches = 0  # fold_main kernels launched
+fold_chunk.power_launches = 0  # fold_power kernels launched

@@ -6,7 +6,10 @@ Counterpart of ``ofdm_tpu/ops/pallas_link.py`` for this slice: its
 plain PyTorch version with the same operations in the same order, f32
 arithmetic and int64 integer ops; the wrappers ``diag_chunk`` and
 ``boxmuller_sample`` launch the kernel for CUDA tensors and run the plain
-version only for CPU tensors.
+version only for CPU tensors.  The plain pieces after the channel
+(``awgn``, ``equalize``, ``count_errors``, ``add_papr``, ``cmatmul``) and
+the shared host fields (``equalizer_fields``) serve the fold chunk
+(``ops.fold_kernel``) too.
 
 A chunk of a diag link, per bin (the semantics of pallas_link.py:1428-1937,
 not its TPU layout): Philox words -> Gray/zig-zag QAM encode -> y = s * h
@@ -167,9 +170,24 @@ def tile_cap(n: int, T: int) -> int:
     package's cap differs from this one only where it stages three bf16
     passes (1024-QAM, or matmul_passes=3) and T lies just below a tile
     step (T in 155-156, 309-312 or 610-621 for n <= 256)."""
-    fixed = 2 * 3 * (max(1, 128 // n) ** 2 * n * T + 128 * 128)
+    return _budget_tile(max(1, 128 // n) ** 2 * n * T + 128 * 128, T)
+
+
+def fold_tile_cap(n: int, T: int, E: int, is_sc: bool) -> int:
+    """Largest tile the reference admits for a fold link (pallas_link._plan's
+    "mm" budget with fold staging: F_tx,ext, the merged conv+RX matrix and,
+    for SC-FDE, the IDFT; activation planes T+E wide).  Same fixed staging
+    factor as ``tile_cap``."""
+    TE = T + E
+    return _budget_tile(n * TE + TE * n + (n * n if is_sc else 0), TE)
+
+
+def _budget_tile(staged: int, width: int) -> int:
+    """_plan's scoped-VMEM rule: staged matrices at 3 bf16 splits x 2 buffers,
+    plus 14 live (tile, width) f32 planes, within 72,000,000 bytes."""
+    fixed = 2 * 3 * staged
     for tile in TILE_LADDER:
-        if fixed + 4 * 14 * tile * T <= 72_000_000:
+        if fixed + 4 * 14 * tile * width <= 72_000_000:
             return tile
     return TILE_LADDER[-1]
 
@@ -217,6 +235,40 @@ class DiagLink:
     fi: torch.Tensor
 
 
+def f32_tensor(a, device) -> torch.Tensor:
+    """A contiguous f32 tensor of a host float64 array, on ``device``."""
+    return torch.tensor(np.asarray(a, np.float32), device=device)
+
+
+def equalizer_fields(setup, device) -> dict:
+    """The fields every chunk kernel shares (pallas_link._consts_for's rows,
+    :1049-1106 and :1155): QAM geometry, slicer gain, mean |h|^2, method and
+    noise switches, the measured-power slice, and the f32 rows h, |h|^2
+    and the ZF gain with the slicer gain folded in."""
+    cfg = setup.cfg
+    n = cfg.num_subcarriers
+    h = np.asarray(setup.h_freq, np.complex128)
+    const = setup.const
+    h_z = np.where(h == 0, np.complex128(1e-10), h)
+    zf_g = 1.0 / h_z
+    if cfg.equalization_method == EqualizationMethod.ZF:
+        zf_g = zf_g * (0.5 / const.scale)
+    return dict(
+        n=n,
+        q=Qam.of(const.order, const.coding),
+        slicer=float(np.float32(0.5) / np.float32(const.scale)),
+        cg=float(np.float32(np.mean(np.abs(h) ** 2))),
+        method=METHOD_CODE[cfg.equalization_method],
+        add_noise=cfg.noise_type == NoiseType.AWGN,
+        slice=slice_symbols(n),
+        hr=f32_tensor(h.real, device),
+        hi=f32_tensor(h.imag, device),
+        habs2=f32_tensor(np.abs(h) ** 2, device),
+        gr=f32_tensor(zf_g.real, device),
+        gi=f32_tensor(zf_g.imag, device),
+    )
+
+
 def diag_link(setup, device) -> DiagLink:
     """Host constants of a diag link (pallas_link._consts_for, diag branch).
 
@@ -226,39 +278,16 @@ def diag_link(setup, device) -> DiagLink:
     n, L = cfg.num_subcarriers, setup.prefix_length
     T = n + L
     d = linops.diag_response(np.asarray(setup.taps), n, cfg.prefix_type, L)
-    h = np.asarray(setup.h_freq, np.complex128)
-    if not np.allclose(d, h, rtol=1e-5, atol=1e-7):
+    if not np.allclose(d, np.asarray(setup.h_freq, np.complex128), rtol=1e-5, atol=1e-7):
         raise ValueError("diag link: diag(F_tx C R) != h_freq")
-    const = setup.const
-    q = Qam.of(const.order, const.coding)
-    slicer = float(np.float32(0.5) / np.float32(const.scale))
-    h_z = np.where(h == 0, np.complex128(1e-10), h)
-    zf_g = 1.0 / h_z
-    if cfg.equalization_method == EqualizationMethod.ZF:
-        zf_g = zf_g * (0.5 / const.scale)
     ftx_r, ftx_i = linops.tx_matrix(n, cfg.prefix_type, L, cfg.modulation_type)
-
-    def row(a):
-        return torch.tensor(np.asarray(a, np.float32), device=device)
-
     return DiagLink(
-        n=n,
         T=T,
-        q=q,
-        slicer=slicer,
-        cg=float(np.float32(np.mean(np.abs(h) ** 2))),
-        method=METHOD_CODE[cfg.equalization_method],
-        add_noise=cfg.noise_type == NoiseType.AWGN,
         pstride=cfg.papr_stride or 32,
         tile_cap=tile_cap(n, T),
-        slice=slice_symbols(n),
-        hr=row(h.real),
-        hi=row(h.imag),
-        habs2=row(np.abs(h) ** 2),
-        gr=row(zf_g.real),
-        gi=row(zf_g.imag),
-        fr=row(ftx_r),
-        fi=row(ftx_i),
+        fr=f32_tensor(ftx_r, device),
+        fi=f32_tensor(ftx_i, device),
+        **equalizer_fields(setup, device),
     )
 
 
@@ -327,8 +356,40 @@ def _mmse_nv(link: DiagLink, yr, yi, snr_lin):
     return sp / _f32(snr_lin, p) / _f32(link.cg, p)
 
 
-def _papr_plane(fr, fi, sr, si):
-    """x = s @ F_tx with the kernel's per-output accumulation order (k ascending)."""
+def awgn(link, yr, yi, w1, w2, chunk, tile, tiles, groups, snr_lin):
+    """y + sigma * Box-Muller(w1, w2), sigma per tile from |y|^2 of its slice."""
+    sig = _tile_sigma(link, yr * yr + yi * yi, chunk, tile, tiles, groups, snr_lin)
+    sigma = sig.repeat_interleave(tile)[:chunk, None]
+    u1 = uniform24_floored(w1)
+    rad = torch.sqrt(-2.0 * torch.log(u1))
+    co, sn = cossin_u24((w2 >> 8) & 0xFFFFFF)
+    return yr + sigma * (rad * co), yi + sigma * (rad * sn)
+
+
+def equalize(link, yr, yi, snr_lin):
+    """ZF / MMSE / no equalizer, in slicer units (the 0.5/scale gain folded in)."""
+    hr, hi = link.hr, link.hi
+    if link.method == 0:
+        gr, gi = link.gr, link.gi
+        return yr * gr - yi * gi, yi * gr + yr * gi
+    if link.method == 1:
+        nv = _mmse_nv(link, yr, yi, snr_lin)
+        g = _f32(link.slicer, nv) / (link.habs2 + nv)
+        return (yr * hr + yi * hi) * g, (yi * hr - yr * hi) * g
+    return yr * link.slicer, yi * link.slicer
+
+
+def count_errors(link, tx, er, ei, acc):
+    """Slice (er, ei) and add the bit and symbol errors against tx into acc."""
+    rx = qam_demap(er, ei, link.q)
+    acc[0] += metrics.index_bit_errors(tx, rx)
+    acc[1] += metrics.symbol_errors(tx, rx)
+
+
+def cmatmul(fr, fi, sr, si):
+    """x = s @ F, complex, in the kernels' per-output accumulation order: k
+    ascending, each term (a*f_r - c*f_i) / (a*f_i + c*f_r) rounded before
+    it is added."""
     xr = torch.zeros((sr.shape[0], fr.shape[1]), dtype=torch.float32, device=sr.device)
     xi = torch.zeros_like(xr)
     for k in range(fr.shape[0]):
@@ -339,6 +400,13 @@ def _papr_plane(fr, fi, sr, si):
         xr = xr + (a * f_r - c * f_i)
         xi = xi + (a * f_i + c * f_r)
     return xr, xi
+
+
+def add_papr(xr, xi, acc, psum):
+    """Fold a time plane's PAPR peak (f32 bits, max) and power sum into acc/psum."""
+    peak, total, _ = metrics.papr_stats(xr, xi)
+    acc[2] = max(int(acc[2]), f32_bits(float(peak)))
+    psum += total
 
 
 def f32_bits(x: float) -> int:
@@ -376,34 +444,13 @@ def diag_chunk_plain(
     yr = sr * hr - si * hi
     yi = sr * hi + si * hr
     if link.add_noise:
-        sig = _tile_sigma(link, yr * yr + yi * yi, chunk, tile, tiles, groups, snr_lin)
-        sigma = sig.repeat_interleave(tile)[:chunk, None]
-        u1 = uniform24_floored(w1)
-        rad = torch.sqrt(-2.0 * torch.log(u1))
-        co, sn = cossin_u24((w2 >> 8) & 0xFFFFFF)
-        yr = yr + sigma * (rad * co)
-        yi = yi + sigma * (rad * sn)
-    if link.method == 0:
-        gr, gi = link.gr, link.gi
-        er = yr * gr - yi * gi
-        ei = yi * gr + yr * gi
-    elif link.method == 1:
-        nv = _mmse_nv(link, yr, yi, snr_lin)
-        g = _f32(link.slicer, nv) / (link.habs2 + nv)
-        er = (yr * hr + yi * hi) * g
-        ei = (yi * hr - yr * hi) * g
-    else:
-        er = yr * link.slicer
-        ei = yi * link.slicer
-    rx = qam_demap(er, ei, link.q)
-    acc[0] += metrics.index_bit_errors(tx, rx)
-    acc[1] += metrics.symbol_errors(tx, rx)
+        yr, yi = awgn(link, yr, yi, w1, w2, chunk, tile, tiles, groups, snr_lin)
+    er, ei = equalize(link, yr, yi, snr_lin)
+    count_errors(link, tx, er, ei, acc)
 
     rows = (torch.arange(chunk, device=dev) // tile) % link.pstride == 0
-    xr, xi = _papr_plane(link.fr, link.fi, sr[rows], si[rows])
-    peak, total, _ = metrics.papr_stats(xr, xi)
-    acc[2] = max(int(acc[2]), f32_bits(float(peak)))
-    psum += total
+    xr, xi = cmatmul(link.fr, link.fi, sr[rows], si[rows])
+    add_papr(xr, xi, acc, psum)
     # sampled rows are in symbol order: the last one is symbol carry_sym
     return xr[-1].clone(), xi[-1].clone()
 

@@ -5,9 +5,11 @@
     Y = y @ R                    guard removal + DFT             (T -> N)
 
 with T = N + L.  The port uses these to check that a cyclic-prefix link is
-exactly ``diag(h_freq)`` (so the kernel runs the elementwise chain) and to
-stage F_tx for the PAPR statistic.  Same builders, same float64 values as
-``ofdm_tpu.ops.linops`` / ``ofdm_tpu.ops.dft``.
+exactly ``diag(h_freq)`` (so the diag kernel runs the elementwise chain),
+to stage F_tx for the PAPR statistic, and for the fold kernel's two
+products: F_tx,ext (TX with E duplicated tail columns) and the merged
+conv + guard strip + DFT matrix.  Same builders, same float64 values as
+``ofdm_tpu.ops.linops`` / ``ofdm_tpu.ops.dft`` / ``pallas_link._tx_ext_matrix``.
 """
 
 from __future__ import annotations
@@ -76,6 +78,17 @@ def conv_matrices(taps: np.ndarray, T: int) -> Tuple[np.ndarray, np.ndarray]:
 def ext_width(num_taps: int, T: int) -> int:
     """Lanes of previous-symbol tail that reach into the current block."""
     return max(0, min(num_taps - 1, T))
+
+
+def tx_ext_matrix(ftx: Tuple[np.ndarray, np.ndarray], E: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(re, im) of F_tx,ext (N, T+E): F_tx with its last E columns repeated,
+    so one product gives a block and the tail the next block's ISI reads."""
+    fr, fi = ftx
+    if not E:
+        return fr, fi
+    T = fr.shape[1]
+    return (np.concatenate([fr, fr[:, T - E :]], axis=1),
+            np.concatenate([fi, fi[:, T - E :]], axis=1))
 
 
 def conv_matrix_merged(taps: np.ndarray, T: int) -> np.ndarray:

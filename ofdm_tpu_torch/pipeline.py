@@ -1,17 +1,26 @@
-"""End-to-end link simulation on the port: host setup, then the fused chunk kernel.
+"""End-to-end link simulation on the port: host setup, then the fused chunk kernels.
 
 ``prepare()`` does all host-side setup in float64 (channel resolution,
 power allocation), exactly as ``ofdm_tpu.pipeline.prepare``; ``LinkRunner``
-drives the fused diag chunk (``ops.link_kernel.diag_chunk``) over the run's
-OFDM symbols with int64 counters on the device and one host read at the
-end.  Its results dict has the keys of the JAX runner's.
+drives one fused chunk kernel over the run's OFDM symbols with int64
+counters on the device and one host read at the end.  Its results dict has
+the keys of the JAX runner's.
 
-This slice runs fixed-mode square QAM on cyclic-prefix OFDM links whose
-prefix covers the channel order (TX -> channel -> RX is then exactly
-diag(h_freq)), n <= 256, ZF / MMSE / no equalizer, AWGN or no noise, and
-neither power switch.  Every other configuration prepares as in the JAX
-package but raises NotImplementedError at ``LinkRunner``, naming the
-ROADMAP item that will bring it; nothing falls back to a slower path.
+``kernel_mode`` routes a link as the JAX package does (pallas_link.plan_for):
+
+* "diag" (``ops.link_kernel.diag_chunk``): OFDM whose cyclic prefix covers
+  the channel order (TX -> channel -> RX is then exactly diag(h_freq)),
+  n <= 256;
+* "fold" (``ops.fold_kernel.fold_chunk``): SC-FDE with a cyclic prefix or
+  none at n <= 256, and OFDM with a cyclic prefix or none whose guard is
+  shorter than the channel order at n < 128 (from 128 subcarriers the JAX
+  package routes those to its lr chain).
+
+Both take fixed-mode square QAM, ZF / MMSE / no equalizer, AWGN or no
+noise, and neither power switch.  Every other configuration prepares as in
+the JAX package but raises NotImplementedError at ``kernel_mode`` (and so at
+``LinkRunner``), naming the ROADMAP item that will bring it; nothing falls
+back to a slower path.
 
 Reference quirks kept (SURVEY §3.2): the equalizer's H comes from the
 *un-normalized* impulse response while the channel convolves the
@@ -24,7 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -40,6 +49,7 @@ from ofdm_tpu_torch.config import (
 )
 from ofdm_tpu_torch.models import channels as chm
 from ofdm_tpu_torch.ops import allocate as al
+from ofdm_tpu_torch.ops import fold_kernel as fk
 from ofdm_tpu_torch.ops import link_kernel as lk
 from ofdm_tpu_torch.ops import mapping as mp
 from ofdm_tpu_torch.ops import metrics as mt
@@ -136,38 +146,66 @@ def prepare(
     )
 
 
-def unsupported_reason(setup: LinkSetup) -> Optional[str]:
-    """Why this slice cannot run ``setup`` (naming the ROADMAP item that will
-    bring it), or None when the diag kernel runs it."""
+# From this width the JAX package routes OFDM links with ISI to its lr chain
+# (pallas_link._LR_MIN_N).
+LR_MIN_N = 128
+
+
+class _Kernel(NamedTuple):
+    """One chunk kernel as the runner drives it."""
+
+    link: Callable  # (setup, device) -> the link's device constants
+    chunk: Callable  # (link, key, sym0, chunk, snr_lin, acc, psum, work)
+    workspace: Callable  # (link, chunk, device) -> the chunk's scratch
+    papr_samples: Callable  # (link, chunk) -> time samples the PAPR statistic sees
+
+
+_KERNELS = {
+    "diag": _Kernel(lk.diag_link, lk.diag_chunk, lk.chunk_workspace, lk.papr_samples),
+    "fold": _Kernel(fk.fold_link, fk.fold_chunk, fk.chunk_workspace, fk.papr_samples),
+}
+
+
+def _unported(reason: str) -> NotImplementedError:
+    return NotImplementedError(f"not in this slice of the port: {reason}")
+
+
+def kernel_mode(setup: LinkSetup) -> str:
+    """"diag" or "fold": the chunk kernel that runs ``setup``.  Raises
+    NotImplementedError naming the ROADMAP item that will bring any other
+    link."""
     cfg = setup.cfg
     n = cfg.num_subcarriers
     if setup.is_adaptive or cfg.constellation_type != ConstellationType.QAM:
-        return "PSK and adaptive constellations (ROADMAP modules item 8)"
+        raise _unported("PSK and adaptive constellations (ROADMAP modules item 8)")
     if cfg.apply_power_allocation or cfg.normalize_before_demap:
-        return "apply_power_allocation / normalize_before_demap (ROADMAP modules item 8)"
-    if cfg.modulation_type == ModulationType.SC_OFDM:
-        return "SC-FDE (ROADMAP modules item 5, the fold slice)"
+        raise _unported("apply_power_allocation / normalize_before_demap (ROADMAP modules item 8)")
     if cfg.prefix_type == PrefixType.ZERO:
-        return "zero-prefix links (ROADMAP modules items 6-7, the lr and narrow ZP slices)"
+        raise _unported("zero-prefix links (ROADMAP modules items 6-7, the lr and narrow ZP slices)")
+    if cfg.modulation_type == ModulationType.SC_OFDM:
+        if n > fk.MAX_N:
+            raise _unported(f"SC-FDE wider than {fk.MAX_N} subcarriers (ROADMAP modules item 5)")
+        return "fold"
     L = setup.prefix_length if cfg.prefix_type == PrefixType.CYCLIC else 0
-    if len(setup.taps) - 1 > L:
-        return "links with ISI: guard shorter than the channel order (ROADMAP modules item 5)"
-    if n > lk.MAX_N:
-        return f"n > {lk.MAX_N} subcarriers (ROADMAP modules item 6, the lr slice)"
-    return None
+    if len(setup.taps) - 1 <= L:
+        if n > lk.MAX_N:
+            raise _unported(f"n > {lk.MAX_N} subcarriers (ROADMAP modules item 6, the lr slice)")
+        return "diag"
+    if n >= LR_MIN_N:
+        raise _unported(
+            f"OFDM links with ISI from {LR_MIN_N} subcarriers (ROADMAP modules item 6, the lr slice)")
+    return "fold"
 
 
 class LinkRunner:
-    """Runs one ``LinkSetup`` on one device through the fused diag kernel.
+    """Runs one ``LinkSetup`` on one device through its fused chunk kernel.
 
     ``device=None`` means ``cuda``; without a CUDA device that raises rather
     than carrying on on the CPU.  ``device="cpu"`` runs the kernel's plain
     PyTorch version (the tests' path)."""
 
     def __init__(self, setup: LinkSetup, device=None):
-        reason = unsupported_reason(setup)
-        if reason is not None:
-            raise NotImplementedError(f"not in this slice of the port: {reason}")
+        mode = kernel_mode(setup)
         device = torch.device("cuda" if device is None else device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("LinkRunner: CUDA is not available (pass device='cpu' to run the plain version)")
@@ -175,7 +213,9 @@ class LinkRunner:
             raise ValueError(f"LinkRunner runs on cuda or cpu, not {device}")
         self.setup = setup
         self.device = device
-        self.link = lk.diag_link(setup, device)
+        self.mode = mode
+        self.kernel = _KERNELS[mode]
+        self.link = self.kernel.link(setup, device)
 
     def point_params(self, snr_db: float):
         """(power_allocation, water_level) for an SNR point — host f64.
@@ -248,7 +288,8 @@ class LinkRunner:
             # metrics
             "papr_db": mt.papr_db(papr_peak, papr_sum, papr_count),
             # Fraction of time samples the PAPR statistic saw: every
-            # papr_stride-th tile of each chunk (error counts cover all).
+            # papr_stride-th tile of each chunk on diag links, every
+            # sample on fold links (error counts cover all).
             "papr_sample_fraction": papr_count / (B * s.block_length) if B else 1.0,
             "papr_estimator": "in_run",
             "bit_errors": totals["bit_errors"],
@@ -304,9 +345,9 @@ class LinkRunner:
             sym0 = c * chunk
             size = min(chunk, B - sym0)
             if size not in works and self.device.type == "cuda":
-                works[size] = lk.chunk_workspace(self.link, size, self.device)
-            lk.diag_chunk(self.link, key, sym0, size, snr_lin, acc, psum, works.get(size))
-            papr_count += lk.papr_samples(self.link, size)
+                works[size] = self.kernel.workspace(self.link, size, self.device)
+            self.kernel.chunk(self.link, key, sym0, size, snr_lin, acc, psum, works.get(size))
+            papr_count += self.kernel.papr_samples(self.link, size)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         elapsed = time.perf_counter() - t0

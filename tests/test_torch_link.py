@@ -235,9 +235,10 @@ def test_runner_needs_cuda_or_an_explicit_cpu():
     "extra",
     [
         dict(constellation_type="PSK", constellation_order=8, num_symbols=64 * 3 * 16),
-        dict(modulation_type="SC-OFDM"),
+        dict(modulation_type="SC-OFDM", prefix_type="ZERO"),
         dict(prefix_type="ZERO"),
-        dict(prefix_length_ratio=0.25),  # guard shorter than the channel order
+        # guard shorter than the channel order from 128 subcarriers: the lr slice
+        dict(prefix_length_ratio=0.25, num_subcarriers=256, num_symbols=256 * 16),
         dict(num_subcarriers=512, num_symbols=512 * 16),
         dict(apply_power_allocation=True),
         dict(normalize_before_demap=True),
