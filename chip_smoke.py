@@ -4,15 +4,18 @@
 
 Needs a CUDA card and nvcc; imports nothing of JAX or of the JAX package.
 It builds the port's kernels from ``ofdm_tpu_torch/csrc``, holds each
-against its plain PyTorch version on the card, and drives two paths
-through ``prepare()`` -> ``LinkRunner.run()`` with 2^27 OFDM symbols each:
-the headline link (64 subcarriers, 64-QAM, CP ratio 1.0, MMSE, Lin-Phoong
-P2, AWGN 30 dB; the diag kernel) and the reference's default SC-FDE link
-(64 subcarriers, QPSK, CP ratio 1.0, ZF, Lin-Phoong P1, AWGN 10 dB; the
-fold kernel), both cut from bench.py's 2^31 and 2^29 symbols.  For each it
-checks the BER gate, the SNR sweep and the launch counters, reads the
-profiler's busy share, and times the kernel beside its plain version and
-its bound.  Any failed check raises.
+against its plain PyTorch version on the card, and drives four paths
+through ``prepare()`` -> ``LinkRunner.run()``: the headline link (64
+subcarriers, 64-QAM, CP ratio 1.0, MMSE, Lin-Phoong P2, AWGN 30 dB; the
+diag kernel) and the reference's default SC-FDE link (64 subcarriers,
+QPSK, CP ratio 1.0, ZF, Lin-Phoong P1, AWGN 10 dB; the fold kernel) with
+2^27 OFDM symbols each, cut from bench.py's 2^31 and 2^29; then bench.py's
+two 1024-subcarrier cells through the lr kernel (64-QAM, severe_multipath,
+MMSE, AWGN 30 dB): ``wide_1024sc`` (CP ratio 1.0) on 2^26 symbols, cut
+from bench.py's 2^27, and ``lr_1024sc_zp`` (zero prefix, ratio 1.0) on
+bench.py's own 2^26.  For each it checks the BER gate, the SNR sweep and
+the launch counters, reads the profiler's busy share, and times the kernel
+beside its plain version and its bound.  Any failed check raises.
 
 Output: findings on earlier lines; then the kernels JSON line, the card's
 ``nvidia-smi`` name and power limit, and as the last line
@@ -56,6 +59,16 @@ OPS_PER_BIN = {
 # the PAPR statistic |x|^2, its max and its sum (per time sample).
 POWER_SUM_OPS = 4
 PAPR_OPS = 5
+# bench.py's lr cells: the BER gate and the JAX package's readings of it on a
+# TPU v5e (BENCH_r05.json; docs/RESULTS.md:99-112, the pod-scale sweep).
+LR_SYMBOLS = 1 << 26
+LR_BER_30DB = 3.73e-6
+LR_BER_TOL = 2e-7
+TPU_V5E_WIDE_BER = {"BENCH_r05": 3.7284e-06, "docs/RESULTS.md:112": 3.72e-06}
+TPU_V5E_ZP_BER = 3.7304e-06
+TPU_V5E_WIDE_SWEEP = {0.0: 0.402, 10.0: 0.187, 20.0: 0.0212, 30.0: 3.72e-6}
+SWEEP_SYMBOLS = 1 << 20
+U32_CHECK_WORDS = 1 << 22
 
 
 def card_line():
@@ -115,6 +128,46 @@ FOLD_LINKS = {
     "scfde_192sc": dict(num_subcarriers=192),
     "scfde_224sc": dict(num_subcarriers=224),
     "scfde_256sc": dict(num_subcarriers=256),
+}
+
+
+def wide_cfg(num_ofdm, chunk=0, **kw):
+    """bench.py's wide_1024sc link; ``prefix_type="ZERO"`` gives lr_1024sc_zp."""
+    from ofdm_tpu_torch.config import SimulationConfig
+
+    base = dict(
+        num_symbols=1024 * num_ofdm, num_subcarriers=1024, constellation_order=64,
+        constellation_type="QAM", channel_type="CUSTOM", channel_model="severe_multipath",
+        prefix_type="CYCLIC", prefix_length_ratio=1.0, equalization_method="MMSE",
+        noise_type="AWGN", snr_db=30.0, symbols_per_chunk=chunk,
+    )
+    base.update(kw)
+    base["num_symbols"] = base["num_subcarriers"] * num_ofdm
+    return SimulationConfig(**base)
+
+
+def custom_64_taps():
+    """A unit-energy 64-tap channel from a seed (E = 63 tail lanes)."""
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    ir = rng.standard_normal(64) + 1j * rng.standard_normal(64)
+    return ir / np.linalg.norm(ir)
+
+
+# The lr links held against the plain version, with their chunk sizes: the
+# two bench cells; 128-sc short-CP and ZP 0.5 links (real corrections, the
+# strided in-kernel PAPR); a 64-tap channel at 256 sc with ZP (E = 63,
+# noise rank 63); and 4096-sc ZP (16 bins a thread, tile 512), at 2^15
+# symbols so its plain version keeps to the same number of bins.
+_LR_128 = dict(num_subcarriers=128, constellation_order=16, snr_db=20.0)
+LR_LINKS = {
+    "wide_1024sc": ({}, 1 << 17),
+    "lr_1024sc_zp": (dict(prefix_type="ZERO"), 1 << 17),
+    "cp034_128sc": (dict(_LR_128, prefix_length_ratio=0.34), 1 << 17),
+    "zp05_128sc": (dict(_LR_128, prefix_type="ZERO", prefix_length_ratio=0.5), 1 << 17),
+    "custom64_256sc_zp": (dict(num_subcarriers=256, prefix_type="ZERO"), 1 << 17),
+    "zp_4096sc": (dict(num_subcarriers=4096, prefix_type="ZERO"), 1 << 15),
 }
 
 
@@ -200,6 +253,208 @@ def check_fold(name, sym0, device):
     if not (torch.equal(kcr, pcr) and torch.equal(kci, pci)):
         raise AssertionError(f"fold_chunk {name} carry rows disagree")
     return max(abs(kp - pp), carry_err)
+
+
+def check_lr(name, device):
+    """lr_chunk kernel vs plain on the card on the same draw: the last chunk
+    of a 2^26-symbol run on the main path's seed.  Counts and the carry row
+    must be equal; the PAPR peak equal and the sum within 1e-12 where the
+    kernel computes them."""
+    import torch
+
+    from ofdm_tpu_torch.ops import link_kernel as lk
+    from ofdm_tpu_torch.ops import lr_kernel as lrk
+    from ofdm_tpu_torch.ops import prng
+    from ofdm_tpu_torch.pipeline import prepare
+
+    kw, chunk = LR_LINKS[name]
+    ir = custom_64_taps() if name.startswith("custom64") else None
+    setup = prepare(wide_cfg(LR_SYMBOLS, chunk, **kw), channel_ir=ir)
+    link = lrk.lr_link(setup, device)
+    tile = lk.tile_for(chunk, link.tile_cap)
+    snr_lin = lk.snr_linear(setup.cfg.snr_db)
+    key = prng.key_words(MAIN_SEED)
+    sym0 = LR_SYMBOLS - chunk
+    got = []
+    for fn in (lrk.lr_chunk, lrk.lr_chunk_plain):
+        acc, psum = lk.new_accumulators(device)
+        cr, ci = fn(link, key, sym0, chunk, snr_lin, acc, psum)
+        torch.cuda.synchronize()
+        be, se, pk = acc.tolist()
+        got.append((be, se, lk.bits_f32(pk), float(psum), cr.cpu().clone(), ci.cpu().clone()))
+    (kb, ks, kp, kps, kcr, kci), (pb, ps, pp, pps, pcr, pci) = got
+    carry_err = max(float((kcr - pcr).abs().max()), float((kci - pci).abs().max()))
+    print(f"lr chunk {name} (n={link.n}, E={link.E}, rank={link.rank}, tile {tile}, txext={link.txext}) "
+          f"symbols [{sym0}, {sym0 + chunk}): kernel be={kb} se={ks} peak={kp} sum={kps}; "
+          f"plain be={pb} se={ps} peak={pp} sum={pps}; carry max diff {carry_err}")
+    if (kb, ks) != (pb, ps):
+        raise AssertionError(f"lr_chunk {name} counts disagree: kernel {kb}/{ks}, plain {pb}/{ps}")
+    if kp != pp or abs(kps - pps) > 1e-12 * pps or (link.txext and (kp, kps) != (0.0, 0.0)):
+        raise AssertionError(f"lr_chunk {name} PAPR statistics disagree")
+    if not (torch.equal(kcr, pcr) and torch.equal(kci, pci)):
+        raise AssertionError(f"lr_chunk {name} carry rows disagree")
+    return max(abs(kp - pp), carry_err)
+
+
+def lr_operations(link, chunk):
+    """(needed, power pass, tails): the operations one lr chunk needs, and
+    two kinds of work the kernel's design adds.  Needed, per bin: the chain
+    shared with the diag count (Philox, encode, s * D, Box-Muller, equalizer,
+    slicer, counters), the two skinny products and, on a zero prefix, g2 @
+    B^H as ``product_ops`` counts them on the link's own matrices (an input
+    that is identically zero — ZP 1.0's TailM, so t and both corrections —
+    costs nothing), 2 to add the corrections and 2 the colored part; per
+    symbol the rank's g2 draws (Philox and Box-Muller); per bin of each
+    tile's slice, |y|^2 and its sum; per sampled symbol the TX product and
+    the PAPR statistic.  lr_power recomputes Philox, encode, t and y on the
+    slices and one previous t a block; lr_main recomputes one previous t a
+    block of RUN symbols."""
+    from ofdm_tpu_torch.ops import link_kernel as lk
+    from ofdm_tpu_torch.ops import lr_kernel as lrk
+
+    n, E, r = link.n, link.E, link.rank if link.add_noise else 0
+    tail_zero = not (bool(link.tail_r.any()) or bool(link.tail_i.any()))
+    t_ops = 0 if tail_zero else product_ops(link.tail_r.T, link.tail_i.T)
+    corr_ops = 0 if tail_zero else product_ops(link.cc_r, link.cc_i) + 2 * n
+    eq = OPS_PER_BIN["mmse"] if link.method == 1 else 6
+    noise = OPS_PER_BIN["noise"] if link.add_noise else 0
+    colored = (r * (OPS_PER_BIN["philox"] + OPS_PER_BIN["noise"]) + product_ops(link.bh_r, link.bh_i)
+               + 2 * n) if r else 0
+    encode = n * (OPS_PER_BIN["philox"] + OPS_PER_BIN["encode"])
+    per_symbol = (encode + n * (OPS_PER_BIN["channel"] + eq + noise + OPS_PER_BIN["demap"] + OPS_PER_BIN["count"])
+                  + t_ops + corr_ops + colored)
+    tile, tiles, groups = lrk._chunk_geometry(link, chunk)
+    slice_syms = sum(min(link.slice, min(tile, chunk - t * tile)) for t in range(tiles)) if link.add_noise else 0
+    sampled = 0 if link.txext else lk.sampled_symbols(chunk, tile, link.pstride)
+    papr = sampled * (product_ops(link.fr, link.fi) + PAPR_OPS * link.T) if sampled else 0
+    y_ops = encode + 8 * n * E + 8 * n * 2 * E + 6 * n
+    power = slice_syms * y_ops + (tiles * groups if link.add_noise else 0) * (encode + 8 * n * E)
+    tails = -(-chunk // lrk.RUN) * (encode + 8 * n * E)
+    return chunk * per_symbol + slice_syms * n * POWER_SUM_OPS + papr, power, tails
+
+
+def lr_cell(card, device, name, kw, sweep):
+    """One bench lr cell through prepare() -> LinkRunner.run() on 2^26
+    symbols: launch counters, BER gate, the sampled-TX PAPR and its time,
+    optionally the SNR sweep, the profile and the kernel's times.  Returns
+    (launches of lr_main, of lr_power, of random_u32, chunk ms, plain ms,
+    bound ms, sample ms)."""
+    import torch
+
+    from ofdm_tpu_torch.ops import link_kernel as lk
+    from ofdm_tpu_torch.ops import lr_kernel as lrk
+    from ofdm_tpu_torch.ops import prng
+    from ofdm_tpu_torch.pipeline import LinkRunner, prepare
+
+    LinkRunner(prepare(wide_cfg(MAIN_CHUNK, MAIN_CHUNK, **kw))).run(1, snr_db=25.0)  # warm-up
+    runner = LinkRunner(prepare(wide_cfg(LR_SYMBOLS, MAIN_CHUNK, **kw)))
+    if runner.mode != "lr":
+        raise AssertionError(f"{name} routed to {runner.mode}")
+    torch.cuda.synchronize()
+    lrk.lr_chunk.launches = lrk.lr_chunk.power_launches = prng.random_u32.launches = 0
+    r = runner.run(MAIN_SEED, snr_db=30.0)
+    launches = (lrk.lr_chunk.launches, lrk.lr_chunk.power_launches, prng.random_u32.launches)
+    num_chunks = LR_SYMBOLS // MAIN_CHUNK
+    ber = r["bit_error_rate"]
+    tpu = TPU_V5E_WIDE_BER if name == "wide_1024sc" else {"BENCH_r05": TPU_V5E_ZP_BER}
+    print(f"{name} run [{card}]: {LR_SYMBOLS} OFDM symbols ({r['total_bits']} bits; bench.py runs "
+          f"{'2^27' if name == 'wide_1024sc' else '2^26'}), ofdm_symbols_per_s={r['ofdm_symbols_per_s']:.1f} "
+          f"run_s={r['transmission_time_ms'] / 1e3:.4f} BER={ber} (gate {LR_BER_30DB} +- {LR_BER_TOL}; "
+          f"the JAX package on a TPU v5e read {json.dumps(tpu)}) papr_db={r['papr_db']:.4f} "
+          f"papr_estimator={r['papr_estimator']} papr_sample_fraction={r['papr_sample_fraction']:.6f} "
+          f"hotpath={r['hotpath_used']} launches: lr_main {launches[0]}, lr_power {launches[1]}, "
+          f"random_u32 {launches[2]}")
+    if launches != (num_chunks, num_chunks, 1) or r["hotpath_used"] != "cuda":
+        raise AssertionError(f"{name} launched lr_main/lr_power/random_u32 {launches}, not "
+                             f"({num_chunks}, {num_chunks}, 1)")
+    if r["papr_estimator"] != "sampled_tx" or not 9.0 < r["papr_db"] < 14.0:
+        raise AssertionError(f"{name} PAPR: {r['papr_estimator']} {r['papr_db']}")
+    if not abs(ber - LR_BER_30DB) < LR_BER_TOL:
+        raise AssertionError(f"{name} BER gate: {ber} vs {LR_BER_30DB}")
+    runner._papr_cache = None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner._papr_sample()
+    torch.cuda.synchronize()
+    sample_ms = (time.perf_counter() - t0) * 1e3
+    print(f"{name} sampled TX PAPR [{card}]: {sample_ms:.2f} ms host clock for "
+          f"{runner._papr_cache[2] // runner.setup.block_length} symbols")
+    if sweep:
+        srun = LinkRunner(prepare(wide_cfg(SWEEP_SYMBOLS, MAIN_CHUNK, **kw)))
+        bers = [srun.run(2, snr_db=snr)["bit_error_rate"] for snr in TPU_V5E_WIDE_SWEEP]
+        print(f"{name} sweep 0/10/20/30 dB BER at {SWEEP_SYMBOLS} symbols a point: {bers} (the JAX "
+              f"package on a TPU v5e, docs/RESULTS.md: {list(TPU_V5E_WIDE_SWEEP.values())})")
+        if not all(a > b for a, b in zip(bers, bers[1:])):
+            raise AssertionError(f"{name} BER does not fall with SNR")
+    print_profile(card, name, profile_run(runner, 30.0))
+
+    link = runner.link
+    snr_lin = lk.snr_linear(30.0)
+    acc, psum = lk.new_accumulators(device)
+    work = lrk.chunk_workspace(link, MAIN_CHUNK, device)
+    k_ms = cuda_ms(lambda: lrk.lr_chunk(link, (3, 4), MAIN_CHUNK, MAIN_CHUNK, snr_lin, acc, psum, work), 20)
+    p_ms = cuda_ms(lambda: lrk.lr_chunk_plain(link, (3, 4), MAIN_CHUNK, MAIN_CHUNK, snr_lin, acc, psum), 2)
+    ops, power_ops, tail_ops = lr_operations(link, MAIN_CHUNK)
+    mats = 2 * (3 * link.E * link.n + link.rank * link.n) + 7 * link.n
+    bound = max(ops / PEAK_OPS, (4 * mats + 3 * 8 + 8 * link.T) / PEAK_BYTES) * 1e3
+    print(f"lr_chunk {name} at {MAIN_CHUNK} symbols [{card}]: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
+          f"bound {bound:.4f} ms ({ops} operations needed; the design adds {power_ops} in the power pass "
+          f"and {tail_ops} in lr_main's tail recomputes, {(power_ops + tail_ops) / PEAK_OPS * 1e3:.4f} ms "
+          f"at the same rate)")
+    return launches, k_ms, p_ms, bound, sample_ms
+
+
+def lr_path(card, device):
+    """K4 (random_u32) against its plain version, the lr kernel against its
+    plain version on six links, then bench.py's two lr cells.  Returns the
+    kernels-line entries of lr_chunk and random_u32."""
+    import torch
+
+    from ofdm_tpu_torch.ops import prng
+    from ofdm_tpu_torch.pipeline import PAPR_SAMPLE_SEED
+
+    # K4 against its plain version on 2^22 words and at the main path's
+    # shape: the wide cell's sampled batch (S, 1024), S = 2^25 // T, T = 1031
+    key = prng.key_words(PAPR_SAMPLE_SEED)
+    S = min(max(1024, (1 << 25) // 1031), LR_SYMBOLS)
+    shape = (S, 1024)
+    u_err = 0.0
+    for sh in ((U32_CHECK_WORDS,), shape):
+        wk = prng.random_u32(key, sh, device)
+        wp = prng.random_u32_plain(key, sh, device)
+        if not torch.equal(wk, wp):
+            raise AssertionError(f"random_u32 kernel and plain words differ at {sh}")
+        u_err = max(u_err, float((wk.to(torch.int64) - wp.to(torch.int64)).abs().max()))
+        del wk, wp
+        print(f"random_u32: {sh} words bit-equal")
+
+    err = max(check_lr(name, device) for name in LR_LINKS)
+    wide = lr_cell(card, device, "wide_1024sc", {}, sweep=True)
+    zp = lr_cell(card, device, "lr_1024sc_zp", dict(prefix_type="ZERO"), sweep=False)
+
+    u_ms = cuda_ms(lambda: prng.random_u32(key, shape, device), 20)
+    up_ms = cuda_ms(lambda: prng.random_u32_plain(key, shape, device), 3)
+    ri_ms = cuda_ms(lambda: torch.randint(0, 1 << 32, shape, dtype=torch.int64, device=device), 20)
+    words = S * 1024
+    u_ops = -(-words // 4) * OPS_PER_BIN["philox"]
+    u_bytes = words * 4  # the function's uint32 words
+    u_bound = max(u_ops / PEAK_OPS, u_bytes / PEAK_BYTES) * 1e3
+    print(f"random_u32 at {shape} [{card}]: kernel {u_ms:.4f} ms (one ofdm_philox launch writing the "
+          f"words, no other pass), plain {up_ms:.3f} ms, bound {u_bound:.4f} ms; torch.randint of the "
+          f"same count {ri_ms:.4f} ms (other numbers: for scale only)")
+    (wl, wk_ms, wp_ms, wb, _), (zl, zk_ms, zp_ms, zb, _) = wide, zp
+    return [
+        {"name": "lr_chunk", "route": "cuda", "source": "ofdm_tpu_torch/csrc/lr_kernel.cu",
+         "replaces": "ofdm_tpu/ops/pallas_link.py:1986", "launches": wl[0], "power_launches": wl[1],
+         "max_abs_err": err, "ms": wk_ms, "plain_ms": wp_ms, "bound_ms": wb, "bound_by": "operations",
+         "library_ms": None, "zp_cell": {"launches": zl[0], "power_launches": zl[1], "ms": zk_ms,
+                                         "plain_ms": zp_ms, "bound_ms": zb}},
+        {"name": "random_u32", "route": "cuda", "source": "ofdm_tpu_torch/csrc/boxmuller.cu",
+         "replaces": "ofdm_tpu/ops/prng.py:64", "launches": wl[2], "max_abs_err": u_err, "ms": u_ms,
+         "plain_ms": up_ms, "bound_ms": u_bound,
+         "bound_by": "operations" if u_ops / PEAK_OPS >= u_bytes / PEAK_BYTES else "bytes",
+         "library_ms": None, "randint_ms": ri_ms},
+    ]
 
 
 def moment_gate(z0, z1):
@@ -469,6 +724,9 @@ def main():
     # 7. the SC-FDE default through the fold kernel
     fold = fold_path(card, device)
 
+    # 8. bench.py's two 1024-subcarrier cells through the lr kernel
+    lr = lr_path(card, device)
+
     kernels = [
         {"name": "diag_chunk", "route": "cuda", "source": "ofdm_tpu_torch/csrc/link_kernel.cu",
          "replaces": "ofdm_tpu/ops/pallas_link.py:1986", "launches": main_launches,
@@ -481,6 +739,7 @@ def main():
          "bound_by": "operations" if bm_ops / PEAK_OPS >= bm_bytes / PEAK_BYTES else "bytes",
          "library_ms": None},
         fold,
+        *lr,
     ]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -21,7 +21,7 @@ from typing import Dict, Iterable
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-SOURCES = ("link_kernel", "fold_kernel", "boxmuller")
+SOURCES = ("link_kernel", "fold_kernel", "lr_kernel", "boxmuller")
 # -fmad=false: every multiply rounds before its add, as in the plain
 # PyTorch versions, so kernel and plain agree operation for operation.
 NVCC_FLAGS = (
@@ -43,6 +43,13 @@ SIGNATURES = {
     "fold_kernel": {
         "ofdm_fold_chunk": (
             [_P] * 11 + [_I] * 8 + [_F] * 4 + [_I] * 3 + [ctypes.c_ulonglong]
+            + [_I] * 5 + [_U] * 2 + [_P] * 6,
+            _I,
+        ),
+    },
+    "lr_kernel": {
+        "ofdm_lr_chunk": (
+            [_P] * 15 + [_I] * 9 + [_F] * 5 + [_I] * 4 + [ctypes.c_ulonglong]
             + [_I] * 5 + [_U] * 2 + [_P] * 6,
             _I,
         ),

@@ -4,16 +4,19 @@ This system has no weights: a link's state is its host setup (channel,
 allocation, constellation), from which ``LinkRunner`` derives the kernel's
 constant rows.  ``setup_to_arrays`` reads the fields both packages'
 ``LinkSetup`` share, so it takes either one without importing the other;
-``setup_from_arrays`` builds the port's ``LinkSetup`` from them.
+``setup_from_arrays`` builds the port's ``LinkSetup`` from them.  An lr
+link's other parameters are its low-rank factors, which
+``lr_factors_from_arrays`` carries across the same way.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
 from ofdm_tpu_torch.config import SimulationConfig
+from ofdm_tpu_torch.ops.lowrank import LRFactors
 from ofdm_tpu_torch.ops.mapping import Constellation
 from ofdm_tpu_torch.pipeline import LinkSetup
 
@@ -64,3 +67,11 @@ def setup_from_arrays(cfg: SimulationConfig, arrays: Dict[str, np.ndarray]) -> L
         bits_per_ofdm_symbol=int(arrays["bits_per_ofdm_symbol"]),
         total_bits=int(arrays["total_bits"]),
     )
+
+
+def lr_factors_from_arrays(d, tail, cr, cp, bnoise: Optional[np.ndarray], pw_scale: float, E: int) -> LRFactors:
+    """The port's ``LRFactors`` from the arrays of an ``LRFactors`` (JAX
+    package or port), for ``lr_kernel.lr_link(setup, device, factors=...)``."""
+    c = lambda a: np.array(a, np.complex128)  # noqa: E731
+    return LRFactors(d=c(d), tail=c(tail), cr=c(cr), cp=c(cp),
+                     bnoise=None if bnoise is None else c(bnoise), pw_scale=float(pw_scale), E=int(E))

@@ -7,8 +7,11 @@
 // element, counter = (element index lo, hi, 0, 0) under the two seed words;
 // words 1 and 2 play u1 and u2, as in the link kernel.
 //
-// ofdm_philox fills (count, 4) words for counters (i lo, i hi, c2, c3):
-// it exists to hold the device Philox against its plain version bit for bit.
+// ofdm_philox fills (count, 4) words for counters (i lo, i hi, c2, c3).
+// It replaces ofdm_tpu/ops/prng.py::_pallas_u32 (uniform uint32 words,
+// prng.random_u32) and holds the device Philox against its plain version
+// bit for bit.  It writes 16 bytes a counter and spends ~100 int32
+// instructions on it, so on an H100 it is bound by its writes.
 //
 // Bound on an H100: ofdm_boxmuller writes 8 bytes per element and spends
 // ~150 fp32/int32 instructions on it (Philox, log, sqrt, two Horner

@@ -269,14 +269,7 @@ __global__ void __launch_bounds__(kThreads) fold_power(Link L, float* partials) 
       }
     }
   }
-  __syncthreads();
-  float acc = 0.0f;
-  for (int j = 0; j < kPowerSteps; ++j) acc = acc + red[j * kThreads + t];
-  __syncthreads();
-  red[t] = acc;
-  __syncthreads();
-  ofdm::tree_sum<kThreads>(red, t);
-  if (t == 0) partials[tile_id * L.groups + g] = red[0];
+  ofdm::power_block_partial<kThreads, kPowerSteps>(red, t, partials + tile_id * L.groups + g);
 }
 
 template <int J>

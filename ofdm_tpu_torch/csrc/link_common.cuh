@@ -126,25 +126,44 @@ __device__ __forceinline__ uint4 symbol_words(unsigned long long sym, int k, uin
 }
 
 // sigma of a tile from its measured-power partials, summed in order over the
-// `count` elements of its slice.
+// `count` elements of its slice; the mean is scaled by pw_scale (n/T on a
+// zero-prefix lr link, else 1, which is exact).
 __device__ __forceinline__ float tile_sigma(const float* partials, int groups, int count,
-                                            float snr_lin) {
+                                            float snr_lin, float pw_scale = 1.0f) {
   float tot = 0.0f;
   for (int g = 0; g < groups; ++g) tot = tot + partials[g];
-  const float mp = tot / static_cast<float>(count);
+  const float mp = (tot / static_cast<float>(count)) * pw_scale;
   return sqrtf(mp / snr_lin / 2.0f);
 }
 
-// y += sigma * Box-Muller(w1, w2): radius from w1's 24-bit uniform, phase
+// A complex normal from two words: radius from w1's 24-bit uniform, phase
 // from w2's.
-__device__ __forceinline__ void add_noise(uint32_t w1, uint32_t w2, float sigma, float& yr,
-                                          float& yi) {
+__device__ __forceinline__ void box_muller(uint32_t w1, uint32_t w2, float& zr, float& zi) {
   const float u1 = uniform24_floored(w1);
   const float rad = sqrtf(-2.0f * logf(u1));
   float co, sn;
   cossin_u24((w2 >> 8) & 0xFFFFFFu, co, sn);
-  const float zr = rad * co;
-  const float zi = rad * sn;
+  zr = rad * co;
+  zi = rad * sn;
+}
+
+// y += sigma * Box-Muller(w1, w2).
+__device__ __forceinline__ void add_noise(uint32_t w1, uint32_t w2, float sigma, float& yr,
+                                          float& yi) {
+  float zr, zi;
+  box_muller(w1, w2, zr, zi);
+  yr = yr + sigma * zr;
+  yi = yi + sigma * zi;
+}
+
+// y += sigma * (Box-Muller(w1, w2) + c): c is the colored part of a
+// zero-prefix link's bin noise.
+__device__ __forceinline__ void add_noise(uint32_t w1, uint32_t w2, float cr, float ci,
+                                          float sigma, float& yr, float& yi) {
+  float zr, zi;
+  box_muller(w1, w2, zr, zi);
+  zr = zr + cr;
+  zi = zi + ci;
   yr = yr + sigma * zr;
   yi = yi + sigma * zi;
 }
@@ -176,6 +195,38 @@ __device__ __forceinline__ float mmse_nv(const Equalizer& eq, const float (&yr)[
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) p = p + __shfl_xor_sync(0xFFFFFFFFu, p, off);
   const float sp = p / static_cast<float>(n);
+  return sp / snr_lin / eq.cg;
+}
+
+// Sum of one value a thread over the block: an xor butterfly in each warp,
+// then the warps' sums in warp order, so every thread gets the same bits
+// (link_kernel.block_sum repeats it).  `wsum` holds kWarps floats of shared
+// memory; every thread of the block must call it.
+template <int kWarps>
+__device__ __forceinline__ float block_sum(float v, float* wsum) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = v + __shfl_xor_sync(0xFFFFFFFFu, v, off);
+  if ((threadIdx.x & 31) == 0) wsum[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float s = 0.0f;
+  for (int w = 0; w < kWarps; ++w) s = s + wsum[w];
+  __syncthreads();
+  return s;
+}
+
+// mmse_nv for a symbol held by a whole block (thread t holds bins
+// t + 32 kWarps j): per-thread sum in j order, then block_sum.
+template <int J, int kWarps>
+__device__ __forceinline__ float mmse_nv_block(const Equalizer& eq, const float (&yr)[J],
+                                               const float (&yi)[J], int n, float snr_lin,
+                                               float* wsum) {
+  if (eq.method != 1) return 0.0f;
+  float p = 0.0f;
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    if (static_cast<int>(threadIdx.x) + 32 * kWarps * j < n) p = p + (yr[j] * yr[j] + yi[j] * yi[j]);
+  }
+  const float sp = block_sum<kWarps>(p, wsum) / static_cast<float>(n);
   return sp / snr_lin / eq.cg;
 }
 
@@ -217,6 +268,30 @@ __device__ __forceinline__ void tree_sum(float* red, int t) {
     if (t < s) red[t] = red[t] + red[t + s];
     __syncthreads();
   }
+}
+
+// The closing step of the power kernels (power_partials, fold_power,
+// lr_power), in the order their plain versions reproduce: thread t's
+// partial acc, then the block's halving tree; thread 0 stores the sum in
+// *out.  red holds N floats; every thread of the block must call it.
+template <int N>
+__device__ __forceinline__ void store_block_sum(float acc, float* red, int t, float* out) {
+  red[t] = acc;
+  __syncthreads();
+  tree_sum<N>(red, t);
+  if (t == 0) *out = red[0];
+}
+
+// A power block whose threads staged their |y|^2 in element order in
+// red[0 .. kSteps * N): thread t sums elements j * N + t, j ascending, and
+// the block sum goes to *out as store_block_sum makes it.
+template <int N, int kSteps>
+__device__ __forceinline__ void power_block_partial(float* red, int t, float* out) {
+  __syncthreads();
+  float acc = 0.0f;
+  for (int j = 0; j < kSteps; ++j) acc = acc + red[j * N + t];
+  __syncthreads();
+  store_block_sum<N>(acc, red, t, out);
 }
 
 // The block's counters into acc = [bit errors, symbol errors, PAPR peak f32

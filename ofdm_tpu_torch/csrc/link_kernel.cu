@@ -102,10 +102,7 @@ __global__ void __launch_bounds__(kPowerThreads) power_partials(Link L, float* p
     }
     acc = acc + p;
   }
-  red[t] = acc;
-  __syncthreads();
-  ofdm::tree_sum<kPowerThreads>(red, t);
-  if (t == 0) partials[tile_id * L.groups + g] = red[0];
+  ofdm::store_block_sum<kPowerThreads>(acc, red, t, partials + tile_id * L.groups + g);
 }
 
 template <int J>

@@ -182,12 +182,25 @@ def fold_tile_cap(n: int, T: int, E: int, is_sc: bool) -> int:
     return _budget_tile(n * TE + TE * n + (n * n if is_sc else 0), TE)
 
 
-def _budget_tile(staged: int, width: int) -> int:
+def lr_tile_cap(n: int, T: int, E: int, rank: int, txext: bool) -> int:
+    """Largest tile the reference admits for an lr link (pallas_link._plan's
+    lr budget): TailM, the stacked [Cr; Cp], the noise factor (at least one
+    group of 8 rows, zero for iid noise) and, unless the PAPR statistic is
+    external, the TX matrix; activation planes T wide.  From 4096
+    subcarriers the reference raises the scoped budget
+    (_VMEM_SCOPED_GIANT_LR).  Same fixed staging factor as ``tile_cap``."""
+    ep = max(8, -(-E // 8) * 8)
+    rp = max(8, -(-max(rank, 1) // 8) * 8)
+    staged = n * ep + 2 * ep * n + rp * n + (128 * 128 if txext else n * T)
+    return _budget_tile(staged, T, 119_000_000 if n >= 4096 else 72_000_000)
+
+
+def _budget_tile(staged: int, width: int, scoped: int = 72_000_000) -> int:
     """_plan's scoped-VMEM rule: staged matrices at 3 bf16 splits x 2 buffers,
-    plus 14 live (tile, width) f32 planes, within 72,000,000 bytes."""
+    plus 14 live (tile, width) f32 planes, within ``scoped`` bytes."""
     fixed = 2 * 3 * staged
     for tile in TILE_LADDER:
-        if fixed + 4 * 14 * tile * width <= 72_000_000:
+        if fixed + 4 * 14 * tile * width <= scoped:
             return tile
     return TILE_LADDER[-1]
 
@@ -309,10 +322,10 @@ def papr_samples(link: DiagLink, chunk: int) -> int:
 # --- plain version of the chunk ----------------------------------------------
 
 
-def _tile_sigma(link: DiagLink, pw: torch.Tensor, chunk, tile, tiles, groups, snr_lin):
+def _tile_sigma(link: DiagLink, pw: torch.Tensor, chunk, tile, tiles, groups, snr_lin, pw_scale=1.0):
     """Per-tile sigma from |y|^2 (chunk, n), summed in power_partials' order:
     16 sequential steps per thread, a 256-way tree per block, then the
-    tile's blocks in order."""
+    tile's blocks in order; the mean is scaled by ``pw_scale``."""
     flat = pw.reshape(-1)
     n = link.n
     seg = torch.zeros((tiles, groups * POWER_BLOCK), dtype=torch.float32, device=pw.device)
@@ -335,45 +348,68 @@ def _tile_sigma(link: DiagLink, pw: torch.Tensor, chunk, tile, tiles, groups, sn
     for g in range(groups):
         tot = tot + parts[:, g]
     cnt = torch.tensor(counts, dtype=torch.float32, device=pw.device)
-    mp = tot / cnt
+    mp = (tot / cnt) * _f32(pw_scale, tot)
     return torch.sqrt(mp / _f32(snr_lin, mp) / _f32(2.0, mp))
 
 
-def _mmse_nv(link: DiagLink, yr, yi, snr_lin):
-    """Per-symbol noise variance, summed like the kernel's warp: bins
-    k = lane + 32 j summed per lane in j order, then an xor butterfly."""
-    chunk, n = yr.shape
-    J = -(-n // 32)
-    q = yr * yr + yi * yi
-    q = torch.nn.functional.pad(q, (0, 32 * J - n)).view(chunk, J, 32)
-    p = torch.zeros((chunk, 32), dtype=torch.float32, device=yr.device)
+def block_sum(v: torch.Tensor, threads: int) -> torch.Tensor:
+    """Sum over the last axis in a kernel block's order (link_common.cuh):
+    element k belongs to thread k % threads, which sums its elements in k
+    order; each warp sums its 32 threads by an xor butterfly; then the warps
+    are summed in order.  threads = 32 is the one-warp case."""
+    n = v.shape[-1]
+    J = -(-n // threads)
+    v = torch.nn.functional.pad(v, (0, threads * J - n)).reshape(*v.shape[:-1], J, threads)
+    p = torch.zeros(v.shape[:-2] + (threads,), dtype=v.dtype, device=v.device)
     for j in range(J):
-        p = p + q[:, j, :]
-    lanes = torch.arange(32, device=yr.device)
+        p = p + v[..., j, :]
+    p = p.reshape(*p.shape[:-1], threads // 32, 32)
+    lanes = torch.arange(32, device=v.device)
     for off in (16, 8, 4, 2, 1):
-        p = p + p[:, lanes ^ off]
-    sp = p[:, :1] / _f32(n, p)
-    return sp / _f32(snr_lin, p) / _f32(link.cg, p)
+        p = p + p[..., lanes ^ off]
+    tot = torch.zeros(p.shape[:-2], dtype=v.dtype, device=v.device)
+    for w in range(threads // 32):
+        tot = tot + p[..., w, 0]
+    return tot
 
 
-def awgn(link, yr, yi, w1, w2, chunk, tile, tiles, groups, snr_lin):
-    """y + sigma * Box-Muller(w1, w2), sigma per tile from |y|^2 of its slice."""
-    sig = _tile_sigma(link, yr * yr + yi * yi, chunk, tile, tiles, groups, snr_lin)
-    sigma = sig.repeat_interleave(tile)[:chunk, None]
-    u1 = uniform24_floored(w1)
-    rad = torch.sqrt(-2.0 * torch.log(u1))
+def _mmse_nv(link: DiagLink, yr, yi, snr_lin, threads=32):
+    """Per-symbol noise variance, |y|^2 summed in the order of a kernel
+    whose ``threads`` threads share a symbol (a warp for diag and fold, a
+    block for lr)."""
+    sp = block_sum(yr * yr + yi * yi, threads)[:, None]
+    sp = sp / _f32(link.n, sp)
+    return sp / _f32(snr_lin, sp) / _f32(link.cg, sp)
+
+
+def box_muller(w1, w2):
+    """(z0, z1) of the link's noise chain: radius sqrt(-2 ln u1) with u1 from
+    w1's 24 bits floored at 2^-24, phase from w2's 24 bits."""
+    rad = torch.sqrt(-2.0 * torch.log(uniform24_floored(w1)))
     co, sn = cossin_u24((w2 >> 8) & 0xFFFFFF)
-    return yr + sigma * (rad * co), yi + sigma * (rad * sn)
+    return rad * co, rad * sn
 
 
-def equalize(link, yr, yi, snr_lin):
-    """ZF / MMSE / no equalizer, in slicer units (the 0.5/scale gain folded in)."""
+def awgn(link, yr, yi, w1, w2, chunk, tile, tiles, groups, snr_lin, pw_scale=1.0, extra=None):
+    """y + sigma * z, z = Box-Muller(w1, w2) (+ ``extra``, the colored part),
+    sigma per tile from |y|^2 of its slice times ``pw_scale``."""
+    sig = _tile_sigma(link, yr * yr + yi * yi, chunk, tile, tiles, groups, snr_lin, pw_scale)
+    sigma = sig.repeat_interleave(tile)[:chunk, None]
+    zr, zi = box_muller(w1, w2)
+    if extra is not None:
+        zr, zi = zr + extra[0], zi + extra[1]
+    return yr + sigma * zr, yi + sigma * zi
+
+
+def equalize(link, yr, yi, snr_lin, threads=32):
+    """ZF / MMSE / no equalizer, in slicer units (the 0.5/scale gain folded
+    in); MMSE sums |y|^2 in the order of ``threads`` threads a symbol."""
     hr, hi = link.hr, link.hi
     if link.method == 0:
         gr, gi = link.gr, link.gi
         return yr * gr - yi * gi, yi * gr + yr * gi
     if link.method == 1:
-        nv = _mmse_nv(link, yr, yi, snr_lin)
+        nv = _mmse_nv(link, yr, yi, snr_lin, threads)
         g = _f32(link.slicer, nv) / (link.habs2 + nv)
         return (yr * hr + yi * hi) * g, (yi * hr - yr * hi) * g
     return yr * link.slicer, yi * link.slicer
@@ -560,10 +596,8 @@ def boxmuller_sample_plain(seed0: int, seed1: int, shape, device="cpu"):
     i = torch.arange(count, dtype=torch.int64, device=device)
     zero = torch.zeros((), dtype=torch.int64, device=device)
     _, w1, w2, _ = prng.philox4x32_10(i & prng.M32, i >> 32, zero, zero, key)
-    u1 = uniform24_floored(w1)
-    rad = torch.sqrt(-2.0 * torch.log(u1))
-    co, si = cossin_u24((w2 >> 8) & 0xFFFFFF)
-    return (rad * co).view(shape), (rad * si).view(shape)
+    z0, z1 = box_muller(w1, w2)
+    return z0.view(shape), z1.view(shape)
 
 
 def boxmuller_sample(seed0: int, seed1: int, shape, device="cuda"):

@@ -1,0 +1,341 @@
+"""The fused lr-mode chunk: host constants, kernel wrapper and plain version.
+
+Counterpart of ``ofdm_tpu/ops/pallas_link.py``'s ``kernel`` in conv="lr",
+mode="qam" form (``csrc/lr_kernel.cu``): OFDM links whose TX -> channel ->
+RX composite is factored by ``ops.lowrank`` into a diagonal D and two
+rank-E corrections.  The routing sends them here from 128 subcarriers when
+the guard does not cover the channel (short CP, no prefix, ZP) and past 512
+subcarriers when it does.
+
+A chunk, per OFDM symbol b (the semantics of the lr branches of
+pallas_link.py:1428-1937, not its TPU layout): Philox words -> QAM encode
+s_b -> t_b = s_b @ TailM (the block's last E time samples) -> y_b = s_b * D
++ t_b @ Cr + t_{b-1} @ Cp -> AWGN per bin with sigma = sqrt(mp / snr_lin /
+2), mp the mean |y|^2 over the first ``slice`` symbols of b's tile times
+``pw_scale`` (n/T for ZP), plus for ZP the colored part sigma * g2 @ B^H
+-> ZF / MMSE / none -> slicer -> popcount into int64 counters.  Below 512
+subcarriers every ``pstride``-th tile also runs x = s @ F_tx for the PAPR
+statistic; from 512 (``txext``) the runner supplies it from a sampled TX
+batch.  The chunk returns the JAX carry contract: a (T,) row, zero but for
+its last E lanes, which hold the last symbol's t.
+
+Every block-wide sum (t, the MMSE mean) runs in a fixed order that the
+plain version repeats step by step (``link_kernel.block_sum``): a kernel
+block of ``THREADS`` threads holds one symbol, thread k % THREADS sums its
+bins in k order, warps reduce by an xor butterfly, then the warps in order.
+The previous symbol's t is recomputed from its Philox words, so nothing
+depends on block order or chunking: the run's symbol 0 sees t_prev = 0.
+
+``lr_chunk`` launches the kernel for CUDA tensors and runs
+``lr_chunk_plain`` only for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ofdm_tpu_torch.config import PrefixType
+from ofdm_tpu_torch.ops import link_kernel as lk
+from ofdm_tpu_torch.ops import linops, lowrank, prng
+
+MAX_N = 4096  # bins a thread holds: up to 16
+MAX_E = 63  # tail lanes
+MAX_RANK = 128  # ZP noise-factor rank
+THREADS = 256  # one kernel block per symbol
+# Consecutive symbols one block of lr_main walks; it recomputes t of the
+# symbol before its first, so one t in RUN + 1 is extra work.
+RUN = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class LrLink:
+    """Everything the lr chunk reads: f32 matrices and rows on one device."""
+
+    n: int
+    T: int
+    E: int  # tail lanes
+    rank: int  # ZP noise-factor rank (0: iid bin noise)
+    q: lk.Qam
+    slicer: float
+    cg: float
+    method: int
+    add_noise: bool
+    txext: bool  # the PAPR statistic comes from the runner's sampled TX batch
+    pstride: int
+    tile_cap: int
+    slice: int
+    pw_scale: float  # f32 measured-power scale: n/T for ZP, 1 otherwise
+    tail_r: torch.Tensor  # (E, n) TailM transposed, so a warp reads consecutive words
+    tail_i: torch.Tensor
+    cc_r: torch.Tensor  # (2E, n) [Cr; Cp]
+    cc_i: torch.Tensor
+    bh_r: Optional[torch.Tensor]  # (rank, n) B^H; None for iid noise
+    bh_i: Optional[torch.Tensor]
+    dr: torch.Tensor  # (n,) D
+    di: torch.Tensor
+    hr: torch.Tensor  # (n,)
+    hi: torch.Tensor
+    habs2: torch.Tensor
+    gr: torch.Tensor  # ZF gain rows, slicer folded in
+    gi: torch.Tensor
+    fr: Optional[torch.Tensor]  # (n, T) TX matrix; None under txext
+    fi: Optional[torch.Tensor]
+
+
+@functools.lru_cache(maxsize=16)
+def _factor(taps: bytes, n: int, prefix, L: int, modulation) -> Optional[lowrank.LRFactors]:
+    return lowrank.factor(np.frombuffer(taps, np.complex128), n, prefix, L, modulation)
+
+
+def lr_factors(setup) -> Optional[lowrank.LRFactors]:
+    """``lowrank.factor`` of a setup's link (cached: routing and the link
+    constants both read it), or None when its certification fails."""
+    cfg = setup.cfg
+    taps = np.ascontiguousarray(setup.taps, np.complex128).tobytes()
+    return _factor(taps, cfg.num_subcarriers, cfg.prefix_type, setup.prefix_length, cfg.modulation_type)
+
+
+def lr_link(setup, device, factors: Optional[lowrank.LRFactors] = None) -> LrLink:
+    """Host constants of an lr link (pallas_link._consts_for, lr branch,
+    without its 8-lane padding and zero noise factor): from ``factors`` when
+    given, else from ``lr_factors(setup)``."""
+    cfg = setup.cfg
+    n, L = cfg.num_subcarriers, setup.prefix_length
+    T = n + L
+    f = lr_factors(setup) if factors is None else factors
+    if f is None:
+        raise ValueError("lr link: the low-rank factorization failed its certification")
+    if f.n != n or f.tail.shape != (n, f.E):
+        raise ValueError("lr link: factors of another width")
+    txext = n >= 512 and cfg.papr_stride != 1
+    rank = f.noise_rank
+    f32 = functools.partial(lk.f32_tensor, device=device)
+    tail = np.ascontiguousarray(f.tail.T)
+    cc = np.concatenate([f.cr, f.cp])
+    bh = np.ascontiguousarray(f.bnoise.conj().T) if rank else None
+    ftx = None if txext else linops.tx_matrix(n, cfg.prefix_type, L, cfg.modulation_type)
+    return LrLink(
+        T=T,
+        E=f.E,
+        rank=rank,
+        txext=txext,
+        pstride=cfg.papr_stride or 32,
+        tile_cap=lk.lr_tile_cap(n, T, f.E, rank, txext),
+        pw_scale=float(np.float32(f.pw_scale)) if cfg.prefix_type == PrefixType.ZERO else 1.0,
+        tail_r=f32(tail.real),
+        tail_i=f32(tail.imag),
+        cc_r=f32(cc.real),
+        cc_i=f32(cc.imag),
+        bh_r=None if bh is None else f32(bh.real),
+        bh_i=None if bh is None else f32(bh.imag),
+        dr=f32(f.d.real),
+        di=f32(f.d.imag),
+        fr=None if ftx is None else f32(ftx[0]),
+        fi=None if ftx is None else f32(ftx[1]),
+        **lk.equalizer_fields(setup, device),
+    )
+
+
+def _chunk_geometry(link: LrLink, chunk: int):
+    tile = lk.tile_for(chunk, link.tile_cap)
+    tiles = -(-chunk // tile)
+    groups = -(-min(link.slice, tile) * link.n // lk.POWER_BLOCK)
+    return tile, tiles, groups
+
+
+def papr_samples(link: LrLink, chunk: int) -> int:
+    """Time samples one chunk contributes to the PAPR statistic (0 under txext)."""
+    if link.txext:
+        return 0
+    return lk.sampled_symbols(chunk, lk.tile_for(chunk, link.tile_cap), link.pstride) * link.T
+
+
+# --- plain version of the chunk ----------------------------------------------
+
+
+def tails(link: LrLink, sr: torch.Tensor, si: torch.Tensor):
+    """t = s @ TailM, (count, E) re and im, summed in lr_main's block order."""
+    step = max(1, (1 << 24) // (link.E * link.n))  # symbols a pass, to bound memory
+    out_r, out_i = [], []
+    fr, fi = link.tail_r[None], link.tail_i[None]
+    for b0 in range(0, sr.shape[0], step):
+        a, c = sr[b0 : b0 + step, None, :], si[b0 : b0 + step, None, :]
+        out_r.append(lk.block_sum(a * fr - c * fi, THREADS))
+        out_i.append(lk.block_sum(a * fi + c * fr, THREADS))
+    return torch.cat(out_r), torch.cat(out_i)
+
+
+def lr_planes(link: LrLink, key: Tuple[int, int], sym0: int, chunk: int, snr_lin: float,
+              device, words=None):
+    """(tx, er, ei, tr, ti, sr, si): the chunk's TX indices, equalized points
+    in slicer units, tails t and symbols, each (chunk, n) or (chunk, E) —
+    the plain chain up to the slicer.
+
+    ``words`` injects integer planes in place of the Philox draw: (raw,
+    u1 word, u2 word), (chunk, n) for sym0 == 0, else (chunk + 1, n) whose
+    first row is symbol sym0 - 1 (only its raw word is read); a colored-noise
+    link (ZP, noise on) takes two more, the g2 draws' (u1 word, u2 word),
+    each (chunk, rank)."""
+    n, E = link.n, link.E
+    tile, tiles, groups = _chunk_geometry(link, chunk)
+    colored = link.add_noise and link.rank > 0
+    prev = 1 if sym0 > 0 else 0
+    if words is None:
+        words = prng.link_words(key, sym0 - prev, chunk + prev, n, device)
+        if colored:
+            words += prng.noise_words(key, sym0, chunk, link.rank, device)
+    planes = [torch.as_tensor(w).to(device=device, dtype=torch.int64) & prng.M32 for w in words]
+    raw, w1, w2 = planes[:3]
+    if raw.shape != (chunk + prev, n) or len(planes) != (5 if colored else 3):
+        raise ValueError(f"words must be 3 ({chunk + prev}, {n}) planes (+2 (chunk, rank) for colored noise)")
+    tx, sr, si = lk.qam_encode(raw, link.q)
+    tr, ti = tails(link, sr, si)
+    if prev:
+        tpr, tpi = tr[:-1], ti[:-1]
+        tr, ti, tx, sr, si, w1, w2 = tr[1:], ti[1:], tx[1:], sr[1:], si[1:], w1[1:], w2[1:]
+    else:
+        zero = torch.zeros((1, E), dtype=torch.float32, device=device)
+        tpr, tpi = torch.cat([zero, tr[:-1]]), torch.cat([zero, ti[:-1]])
+    cyr, cyi = lk.cmatmul(link.cc_r, link.cc_i, torch.cat([tr, tpr], 1), torch.cat([ti, tpi], 1))
+    yr = (sr * link.dr - si * link.di) + cyr
+    yi = (sr * link.di + si * link.dr) + cyi
+    if link.add_noise:
+        extra = None
+        if colored:
+            extra = lk.cmatmul(link.bh_r, link.bh_i, *lk.box_muller(planes[3], planes[4]))
+        yr, yi = lk.awgn(link, yr, yi, w1, w2, chunk, tile, tiles, groups, snr_lin, link.pw_scale, extra)
+    er, ei = lk.equalize(link, yr, yi, snr_lin, THREADS)
+    return tx, er, ei, tr, ti, sr, si
+
+
+def lr_chunk_plain(
+    link: LrLink,
+    key: Tuple[int, int],
+    sym0: int,
+    chunk: int,
+    snr_lin: float,
+    acc: torch.Tensor,
+    psum: torch.Tensor,
+    words=None,
+):
+    """Plain version of ``lr_chunk`` (same arguments, same effects);
+    ``words`` as in ``lr_planes``."""
+    dev = acc.device
+    tx, er, ei, tr, ti, sr, si = lr_planes(link, key, sym0, chunk, snr_lin, dev, words)
+    lk.count_errors(link, tx, er, ei, acc)
+    if not link.txext:
+        tile = lk.tile_for(chunk, link.tile_cap)
+        rows = (torch.arange(chunk, device=dev) // tile) % link.pstride == 0
+        lk.add_papr(*lk.cmatmul(link.fr, link.fi, sr[rows], si[rows]), acc, psum)
+    carry_r = torch.zeros(link.T, dtype=torch.float32, device=dev)
+    carry_i = torch.zeros_like(carry_r)
+    carry_r[link.T - link.E :] = tr[-1]
+    carry_i[link.T - link.E :] = ti[-1]
+    return carry_r, carry_i
+
+
+# --- kernel wrapper -------------------------------------------------------------
+
+
+def _check_link(link: LrLink, device):
+    n, E, r = link.n, link.E, link.rank
+    shapes = {"tail_r": (E, n), "tail_i": (E, n), "cc_r": (2 * E, n), "cc_i": (2 * E, n),
+              "dr": (n,), "di": (n,), "hr": (n,), "hi": (n,), "habs2": (n,), "gr": (n,), "gi": (n,)}
+    if r:
+        shapes.update(bh_r=(r, n), bh_i=(r, n))
+    if not link.txext:
+        shapes.update(fr=(n, link.T), fi=(n, link.T))
+    for name, shape in shapes.items():
+        t = getattr(link, name)
+        if t is None or t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"link.{name} must be contiguous f32 on {device}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"link.{name} must be {shape}, got {tuple(t.shape)}")
+    if not (1 <= n <= MAX_N and 1 <= E <= MAX_E and 0 <= r <= MAX_RANK and link.T >= n):
+        raise ValueError(f"lr kernel takes n <= {MAX_N}, 1 <= E <= {MAX_E}, rank <= {MAX_RANK}; "
+                         f"got n={n}, E={E}, rank={r}")
+
+
+def chunk_workspace(link: LrLink, chunk: int, device):
+    """(partials, carry_r, carry_i): the scratch ``lr_chunk`` needs for
+    chunks of ``chunk`` symbols, so that a run allocates it once."""
+    _, tiles, groups = _chunk_geometry(link, chunk)
+    f32 = dict(dtype=torch.float32, device=device)
+    return torch.empty(tiles * groups, **f32), torch.empty(link.T, **f32), torch.empty(link.T, **f32)
+
+
+def lr_chunk(
+    link: LrLink,
+    key: Tuple[int, int],
+    sym0: int,
+    chunk: int,
+    snr_lin: float,
+    acc: torch.Tensor,
+    psum: torch.Tensor,
+    work=None,
+):
+    """One chunk of run symbols [sym0, sym0 + chunk): adds its bit errors,
+    symbol errors and (below ``txext``) PAPR peak bits into ``acc`` and its
+    PAPR power sum into ``psum``.  Returns the carry row (re, im): (T,),
+    zero but for the last E lanes, the last symbol's t; written into
+    ``work`` (a ``chunk_workspace``) when given.
+
+    CUDA tensors launch the fused kernel (csrc/lr_kernel.cu): with noise on,
+    ``lr_power`` and then ``lr_main``, counted apart in
+    ``lr_chunk.power_launches`` and ``lr_chunk.launches``.  CPU tensors run
+    ``lr_chunk_plain``."""
+    dev = acc.device
+    if dev.type == "cpu":
+        return lr_chunk_plain(link, key, sym0, chunk, snr_lin, acc, psum)
+    if dev.type != "cuda":
+        raise ValueError(f"lr_chunk runs on cpu or cuda, not {dev}")
+    if acc.dtype != torch.int64 or acc.shape != (3,) or psum.dtype != torch.float64 or psum.shape != (1,):
+        raise ValueError("acc must be int64 (3,) and psum float64 (1,)")
+    if psum.device != dev or not (acc.is_contiguous() and psum.is_contiguous()):
+        raise ValueError("acc and psum must be contiguous on one device")
+    _check_link(link, dev)
+    if not 1 <= chunk <= (2**31 - 1) // link.n:
+        raise ValueError(f"chunk out of range: {chunk}")
+    tile, tiles, groups = _chunk_geometry(link, chunk)
+    partials, carry_r, carry_i = chunk_workspace(link, chunk, dev) if work is None else work
+    for t, size in ((partials, tiles * groups), (carry_r, link.T), (carry_i, link.T)):
+        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous() or t.numel() < size:
+            raise ValueError(f"work must be chunk_workspace(link, {chunk}, {dev})")
+    from ofdm_tpu_torch import build
+
+    lib = build.load("lr_kernel")
+    q = link.q
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.ofdm_lr_chunk(
+            ptr(link.tail_r), ptr(link.tail_i), ptr(link.cc_r), ptr(link.cc_i),
+            ptr(link.bh_r), ptr(link.bh_i), ptr(link.dr), ptr(link.di),
+            ptr(link.fr), ptr(link.fi), ptr(link.hr), ptr(link.hi), ptr(link.habs2),
+            ptr(link.gr), ptr(link.gi),
+            link.n, link.T, link.E, link.rank, q.order, q.m, q.logm, q.bits, int(q.gray),
+            q.scale, link.slicer, snr_lin, link.cg, link.pw_scale,
+            link.method, int(link.add_noise), int(link.txext), link.pstride,
+            sym0,
+            chunk, tile, link.slice, groups, RUN,
+            key[0], key[1],
+            partials.data_ptr(), acc.data_ptr(), psum.data_ptr(),
+            carry_r.data_ptr(), carry_i.data_ptr(), stream,
+        )
+    build.check(lib, code, "ofdm_lr_chunk")
+    if link.add_noise:
+        lr_chunk.power_launches += 1
+    lr_chunk.launches += 1
+    return carry_r, carry_i
+
+
+lr_chunk.launches = 0  # lr_main kernels launched
+lr_chunk.power_launches = 0  # lr_power kernels launched

@@ -12,12 +12,21 @@ whose kernel fills words for a range of counters.
 Counter addressing of the link: the words of bin k of OFDM symbol b (the
 symbol's index in the whole run) come from counter (b lo, b hi, k, 0)
 under the key (seed lo, seed hi).  Word 0 is the TX index, words 1 and 2
-are the Box-Muller u1 and u2, word 3 is unused.  A draw therefore depends
-on neither the chunking nor the launch geometry.
+are the Box-Muller u1 and u2, word 3 is unused.  A zero-prefix link's
+colored noise draws r more complex normals per symbol (the g2 of
+``ops.lowrank``): normal j < r takes words 1 and 2 of counter
+(b lo, b hi, j, 1), so it never meets a bin's counter.  A draw therefore
+depends on neither the chunking nor the launch geometry.
+
+``random_u32`` (the counterpart of ``ofdm_tpu.ops.prng.random_u32``, whose
+TPU kernel is ``_pallas_u32``) fills uniform words from counters
+(i lo, i hi, 0, 2), four words a counter, under the caller's key, with the
+same ``ofdm_philox`` kernel.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -66,6 +75,16 @@ def link_words(key: Tuple[int, int], sym0: int, count: int, n: int, device="cpu"
     return w0, w1, w2
 
 
+def noise_words(key: Tuple[int, int], sym0: int, count: int, r: int, device="cpu"):
+    """(u1 word, u2 word), each (count, r) int64: the colored-noise draws of
+    run symbols [sym0, sym0 + count), counter (b lo, b hi, j, 1)."""
+    b = torch.arange(sym0, sym0 + count, dtype=torch.int64, device=device)[:, None]
+    j = torch.arange(r, dtype=torch.int64, device=device)[None, :]
+    one = torch.ones((), dtype=torch.int64, device=device)
+    _, w1, w2, _ = philox4x32_10(b & M32, b >> 32, j, one, key)
+    return w1, w2
+
+
 def philox_words_plain(count: int, c2: int, c3: int, key: Tuple[int, int], device="cpu"):
     """(count, 4) int64 words for counters (i lo, i hi, c2, c3), i < count."""
     i = torch.arange(count, dtype=torch.int64, device=device)
@@ -74,15 +93,12 @@ def philox_words_plain(count: int, c2: int, c3: int, key: Tuple[int, int], devic
     return torch.stack(philox4x32_10(i & M32, i >> 32, c2_, c3_, key), dim=1)
 
 
-def philox_words(count: int, c2: int, c3: int, key: Tuple[int, int], device="cuda"):
-    """``philox_words_plain`` computed by the ``ofdm_philox`` kernel on a CUDA
-    device (returned as int64 like the plain version); the plain version on
-    the CPU."""
+def _philox_fill(count: int, c2: int, c3: int, key: Tuple[int, int], device) -> torch.Tensor:
+    """(count, 4) int32 words (the uint32 bits) from the ``ofdm_philox``
+    kernel on a CUDA device; one launch."""
     device = torch.device(device)
-    if device.type == "cpu":
-        return philox_words_plain(count, c2, c3, key, device)
     if device.type != "cuda":
-        raise ValueError(f"philox_words runs on cpu or cuda, not {device}")
+        raise ValueError(f"the ofdm_philox kernel runs on cuda, not {device}")
     from ofdm_tpu_torch import build
 
     lib = build.load("boxmuller")
@@ -90,8 +106,55 @@ def philox_words(count: int, c2: int, c3: int, key: Tuple[int, int], device="cud
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         build.check(lib, lib.ofdm_philox(out.data_ptr(), count, c2, c3, key[0], key[1], stream), "ofdm_philox")
+    return out
+
+
+def philox_words(count: int, c2: int, c3: int, key: Tuple[int, int], device="cuda"):
+    """``philox_words_plain`` computed by the ``ofdm_philox`` kernel on a CUDA
+    device (returned as int64 like the plain version); the plain version on
+    the CPU."""
+    if torch.device(device).type == "cpu":
+        return philox_words_plain(count, c2, c3, key, device)
+    out = _philox_fill(count, c2, c3, key, device)
     philox_words.launches += 1
     return out.to(torch.int64) & M32
 
 
 philox_words.launches = 0
+
+# Counter words (c2, c3) of the uniform-word stream.
+U32_STREAM = (0, 2)
+
+
+def random_u32_plain(key: Tuple[int, int], shape, device="cpu"):
+    """Plain version of ``random_u32``."""
+    count = math.prod(shape)
+    w = philox_words_plain(-(-count // 4), *U32_STREAM, key, device).reshape(-1)[:count]
+    return (w - ((w >> 31) << 32)).to(torch.int32).reshape(shape)
+
+
+def random_u32(key: Tuple[int, int], shape, device="cuda"):
+    """Uniform 32-bit words of ``shape``: ceil(count / 4) Philox counters
+    (i lo, i hi, 0, 2), their four words each in order.  The words come as
+    int32 holding the uint32 bits (torch has no full uint32 type; ``& M32``
+    of the int64 widening gives the unsigned value).  On a CUDA device the
+    ``ofdm_philox`` kernel writes them, with no further pass (counted in
+    ``random_u32.launches``); on the CPU the plain version."""
+    count = math.prod(shape)
+    if torch.device(device).type == "cpu":
+        return random_u32_plain(key, shape, device)
+    words = _philox_fill(-(-count // 4), *U32_STREAM, key, device)
+    random_u32.launches += 1
+    return words.reshape(-1)[:count].reshape(shape)
+
+
+random_u32.launches = 0
+
+
+def uniform_indices(key: Tuple[int, int], shape, mask: int, device="cuda"):
+    """Uniform int32 indices in [0, mask] for a power-of-two mask + 1 below
+    2^31: the words of ``random_u32`` masked
+    (ofdm_tpu.ops.prng.uniform_indices)."""
+    if not 0 <= int(mask) < 1 << 31:
+        raise ValueError(f"mask must be in [0, 2^31), got {mask}")
+    return random_u32(key, shape, device) & int(mask)

@@ -13,10 +13,14 @@ the keys of the JAX runner's.
   n <= 256;
 * "fold" (``ops.fold_kernel.fold_chunk``): SC-FDE with a cyclic prefix or
   none at n <= 256, and OFDM with a cyclic prefix or none whose guard is
-  shorter than the channel order at n < 128 (from 128 subcarriers the JAX
-  package routes those to its lr chain).
+  shorter than the channel order at n < 128;
+* "lr" (``ops.lr_kernel.lr_chunk``): OFDM whose ``lowrank.factor`` exists
+  with E > 0 tail lanes, when its guard does not cover the channel (short
+  CP, no prefix, zero prefix) at n >= 128, or when it does at n > 512 —
+  up to 4096 subcarriers, E <= 63.  From 512 subcarriers the PAPR
+  statistic comes from a sampled TX batch (``_papr_sample``).
 
-Both take fixed-mode square QAM, ZF / MMSE / no equalizer, AWGN or no
+All take fixed-mode square QAM, ZF / MMSE / no equalizer, AWGN or no
 noise, and neither power switch.  Every other configuration prepares as in
 the JAX package but raises NotImplementedError at ``kernel_mode`` (and so at
 ``LinkRunner``), naming the ROADMAP item that will bring it; nothing falls
@@ -51,6 +55,8 @@ from ofdm_tpu_torch.models import channels as chm
 from ofdm_tpu_torch.ops import allocate as al
 from ofdm_tpu_torch.ops import fold_kernel as fk
 from ofdm_tpu_torch.ops import link_kernel as lk
+from ofdm_tpu_torch.ops import linops
+from ofdm_tpu_torch.ops import lr_kernel as lrk
 from ofdm_tpu_torch.ops import mapping as mp
 from ofdm_tpu_torch.ops import metrics as mt
 from ofdm_tpu_torch.ops import prng
@@ -149,6 +155,12 @@ def prepare(
 # From this width the JAX package routes OFDM links with ISI to its lr chain
 # (pallas_link._LR_MIN_N).
 LR_MIN_N = 128
+# ISI-free OFDM links keep the diag chain up to this width and take lr past
+# it (pallas_link._DIAG_MAX_N).
+DIAG_MAX_N = 512
+# Seed of the sampled TX batch behind the wide links' PAPR statistic (the
+# JAX package's fixed key, pipeline.LinkRunner._papr_sample).
+PAPR_SAMPLE_SEED = 0x9A9
 
 
 class _Kernel(NamedTuple):
@@ -163,6 +175,7 @@ class _Kernel(NamedTuple):
 _KERNELS = {
     "diag": _Kernel(lk.diag_link, lk.diag_chunk, lk.chunk_workspace, lk.papr_samples),
     "fold": _Kernel(fk.fold_link, fk.fold_chunk, fk.chunk_workspace, fk.papr_samples),
+    "lr": _Kernel(lrk.lr_link, lrk.lr_chunk, lrk.chunk_workspace, lrk.papr_samples),
 }
 
 
@@ -171,7 +184,7 @@ def _unported(reason: str) -> NotImplementedError:
 
 
 def kernel_mode(setup: LinkSetup) -> str:
-    """"diag" or "fold": the chunk kernel that runs ``setup``.  Raises
+    """"diag", "fold" or "lr": the chunk kernel that runs ``setup``.  Raises
     NotImplementedError naming the ROADMAP item that will bring any other
     link."""
     cfg = setup.cfg
@@ -180,21 +193,67 @@ def kernel_mode(setup: LinkSetup) -> str:
         raise _unported("PSK and adaptive constellations (ROADMAP modules item 8)")
     if cfg.apply_power_allocation or cfg.normalize_before_demap:
         raise _unported("apply_power_allocation / normalize_before_demap (ROADMAP modules item 8)")
-    if cfg.prefix_type == PrefixType.ZERO:
-        raise _unported("zero-prefix links (ROADMAP modules items 6-7, the lr and narrow ZP slices)")
+    zp = cfg.prefix_type == PrefixType.ZERO
     if cfg.modulation_type == ModulationType.SC_OFDM:
+        if zp:
+            raise _unported("zero-prefix SC-FDE (ROADMAP modules item 7, the narrow ZP slice)")
         if n > fk.MAX_N:
             raise _unported(f"SC-FDE wider than {fk.MAX_N} subcarriers (ROADMAP modules item 5)")
         return "fold"
     L = setup.prefix_length if cfg.prefix_type == PrefixType.CYCLIC else 0
-    if len(setup.taps) - 1 <= L:
-        if n > lk.MAX_N:
-            raise _unported(f"n > {lk.MAX_N} subcarriers (ROADMAP modules item 6, the lr slice)")
+    isi_free = not zp and len(setup.taps) - 1 <= L
+    if isi_free and n <= lk.MAX_N:
         return "diag"
-    if n >= LR_MIN_N:
-        raise _unported(
-            f"OFDM links with ISI from {LR_MIN_N} subcarriers (ROADMAP modules item 6, the lr slice)")
-    return "fold"
+    if isi_free and n <= DIAG_MAX_N:
+        raise _unported(f"ISI-free links at {lk.MAX_N + 1}-{DIAG_MAX_N} subcarriers "
+                        "(ROADMAP modules item 6b, the diag kernel past 256 subcarriers)")
+    if not isi_free and n < LR_MIN_N:
+        if zp:
+            raise _unported(f"zero-prefix links below {LR_MIN_N} subcarriers "
+                            "(ROADMAP modules item 7, the narrow ZP slice)")
+        return "fold"
+    if linops.ext_width(len(setup.taps), n + setup.prefix_length) == 0:
+        if zp:
+            raise _unported("single-tap zero-prefix links (ROADMAP modules item 7, the narrow ZP slice)")
+        raise _unported(f"single-tap channels wider than {lk.MAX_N} subcarriers "
+                        "(ROADMAP modules item 6b, the diag kernel past 256 subcarriers)")
+    if n > lrk.MAX_N:
+        raise _unported(f"lr links wider than {lrk.MAX_N} subcarriers (ROADMAP modules item 6)")
+    f = lrk.lr_factors(setup)
+    if f is None:
+        raise _unported("a link whose low-rank factorization fails its certification "
+                        "(ROADMAP modules item 6)")
+    if f.E > lrk.MAX_E or f.noise_rank > lrk.MAX_RANK:
+        raise _unported(f"lr links with more than {lrk.MAX_E} tail lanes or a noise rank above "
+                        f"{lrk.MAX_RANK} (ROADMAP modules item 6)")
+    return "lr"
+
+
+def sampled_tx_papr(idx: torch.Tensor, const: mp.Constellation, ftx, rows: int = 4096):
+    """(peak power, power sum, sample count) of x = s @ F_tx over the table
+    points s = const.table[idx] of (S, n) indices, ``ftx`` = (re, im) of the
+    (n, T) TX matrix.  The product runs in full f32 (no TF32), in blocks of
+    ``rows`` symbols, on the indices' device."""
+    dev = idx.device
+    tr = lk.f32_tensor(const.table.real, dev)
+    ti = lk.f32_tensor(const.table.imag, dev)
+    fr, fi = lk.f32_tensor(ftx[0], dev), lk.f32_tensor(ftx[1], dev)
+    was = torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    try:
+        peak = torch.zeros((), dtype=torch.float32, device=dev)
+        total = torch.zeros((), dtype=torch.float64, device=dev)
+        for r0 in range(0, idx.shape[0], rows):
+            i = idx[r0 : r0 + rows]
+            sr, si = tr[i], ti[i]
+            p, s, _ = mt.papr_stats(sr @ fr - si @ fi, sr @ fi + si @ fr)
+            peak = torch.maximum(peak, p)
+            total = total + s
+    finally:
+        torch.set_float32_matmul_precision(was[1])
+        torch.backends.cuda.matmul.allow_tf32 = was[0]
+    return float(peak), float(total), idx.shape[0] * fr.shape[1]
 
 
 class LinkRunner:
@@ -216,6 +275,7 @@ class LinkRunner:
         self.mode = mode
         self.kernel = _KERNELS[mode]
         self.link = self.kernel.link(setup, device)
+        self._papr_cache = None
 
     def point_params(self, snr_db: float):
         """(power_allocation, water_level) for an SNR point — host f64.
@@ -255,7 +315,13 @@ class LinkRunner:
         hotpath_used: str,
         matmul_passes_used,
     ) -> Dict[str, Any]:
-        """The reference-style results dict for one SNR point."""
+        """The reference-style results dict for one SNR point.  When the
+        kernel counted no PAPR samples (txext), the sampled TX batch
+        supplies the statistic."""
+        papr_estimator = "in_run"
+        if papr_count == 0 and self.setup.num_ofdm_symbols > 0:
+            papr_peak, papr_sum, papr_count = self._papr_sample()
+            papr_estimator = "sampled_tx"
         s = self.setup
         cfg = s.cfg
         B = s.num_ofdm_symbols
@@ -288,10 +354,13 @@ class LinkRunner:
             # metrics
             "papr_db": mt.papr_db(papr_peak, papr_sum, papr_count),
             # Fraction of time samples the PAPR statistic saw: every
-            # papr_stride-th tile of each chunk on diag links, every
-            # sample on fold links (error counts cover all).
+            # papr_stride-th tile of each chunk on diag and narrow lr links,
+            # every sample on fold links, the sampled TX batch from 512
+            # subcarriers (error counts cover all).
             "papr_sample_fraction": papr_count / (B * s.block_length) if B else 1.0,
-            "papr_estimator": "in_run",
+            # "in_run": the run's own TX planes; "sampled_tx": the fixed-seed
+            # sampled TX batch (_papr_sample).
+            "papr_estimator": papr_estimator,
             "bit_errors": totals["bit_errors"],
             "symbol_errors": totals["symbol_errors"],
             "total_bits": s.total_bits,
@@ -311,6 +380,23 @@ class LinkRunner:
             "kernel_ablation": "",
             "constellation_plot": None,
         }
+
+    def _papr_sample(self):
+        """(peak power, power sum, count) of the PAPR statistic from a sampled
+        TX batch, cached per runner (the JAX runner's ``_papr_sample``): S =
+        min(max(1024, 2^25 // T), B) symbols of uniform indices under the
+        fixed seed, table-encoded and modulated by F_tx in full f32.  PAPR is
+        TX-side only, so one sample serves every SNR point."""
+        if self._papr_cache is None:
+            s = self.setup
+            cfg = s.cfg
+            n = cfg.num_subcarriers
+            S = int(min(max(1024, (1 << 25) // max(s.block_length, 1)), s.num_ofdm_symbols))
+            idx = prng.uniform_indices(prng.key_words(PAPR_SAMPLE_SEED), (S, n),
+                                       cfg.constellation_order - 1, self.device)
+            ftx = linops.tx_matrix(n, cfg.prefix_type, s.prefix_length, cfg.modulation_type)
+            self._papr_cache = sampled_tx_papr(idx, s.const, ftx)
+        return self._papr_cache
 
     def run(
         self,

@@ -280,27 +280,29 @@ def test_scfde_snr_sweep_falls():
 
 
 @pytest.mark.parametrize(
-    "extra,mode",
+    "extra,conv,mode",
     [
-        ({}, "fold"),
-        (dict(num_subcarriers=256, num_symbols=256 * 16), "fold"),
-        (LINKS["ofdm_short_cp"], "fold"),
-        (LINKS["ofdm_no_prefix_p2"], "fold"),
-        (dict(LINKS["ofdm_short_cp"], num_subcarriers=128, num_symbols=128 * 16), None),
-        (dict(modulation_type="OFDM", channel_model="Lin-Phoong_P2"), "diag"),
+        ({}, "mm", "fold"),
+        (dict(num_subcarriers=256, num_symbols=256 * 16), "mm", "fold"),
+        (LINKS["ofdm_short_cp"], "mm", "fold"),
+        (LINKS["ofdm_no_prefix_p2"], "mm", "fold"),
+        (dict(LINKS["ofdm_short_cp"], num_subcarriers=128, num_symbols=128 * 16), "lr", "lr"),
+        (dict(modulation_type="OFDM", channel_model="Lin-Phoong_P2"), "diag", "diag"),
+        # ISI-free past the port's 256-subcarrier diag kernel (JAX: diag, tile 2048)
+        (dict(modulation_type="OFDM", channel_model="Lin-Phoong_P2", num_subcarriers=384,
+              num_symbols=384 * 16), "diag", None),
     ],
     ids=["scfde_default", "scfde_256sc", "ofdm_short_cp", "ofdm_no_prefix", "ofdm_short_cp_128sc",
-         "ofdm_cp_covers"],
+         "ofdm_cp_covers", "ofdm_isi_free_384sc"],
 )
-def test_routing_mirrors_jax_plan(extra, mode):
+def test_routing_mirrors_jax_plan(extra, conv, mode):
     kw = dict(SCFDE_DEFAULT, **extra)
     setup = tpl.prepare(tcfg.SimulationConfig(**kw))
-    conv = pk.plan_for(_jax_runner(kw))[1]
-    assert conv == {"fold": "mm", "diag": "diag", None: "lr"}[mode]
+    assert pk.plan_for(_jax_runner(kw))[1] == conv
     if mode is None:
-        with pytest.raises(NotImplementedError, match="ROADMAP .*lr slice"):
+        with pytest.raises(NotImplementedError, match="ROADMAP modules item 6b"):
             tpl.kernel_mode(setup)
-        with pytest.raises(NotImplementedError, match="lr slice"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
             tpl.LinkRunner(setup, device="cpu")
     else:
         assert tpl.kernel_mode(setup) == mode == tpl.LinkRunner(setup, device="cpu").mode

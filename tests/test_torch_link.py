@@ -237,13 +237,13 @@ def test_runner_needs_cuda_or_an_explicit_cpu():
         dict(constellation_type="PSK", constellation_order=8, num_symbols=64 * 3 * 16),
         dict(modulation_type="SC-OFDM", prefix_type="ZERO"),
         dict(prefix_type="ZERO"),
-        # guard shorter than the channel order from 128 subcarriers: the lr slice
-        dict(prefix_length_ratio=0.25, num_subcarriers=256, num_symbols=256 * 16),
+        # a single-tap channel past 256 subcarriers: the JAX package keeps diag
+        dict(channel_model="flat_fading", num_subcarriers=1024, num_symbols=1024 * 16),
         dict(num_subcarriers=512, num_symbols=512 * 16),
         dict(apply_power_allocation=True),
         dict(normalize_before_demap=True),
     ],
-    ids=["psk", "scfde", "zp", "short_cp", "n512", "apply_power", "normalize"],
+    ids=["psk", "scfde", "zp", "flat_fading_1024sc", "n512", "apply_power", "normalize"],
 )
 def test_unsupported_configs_raise(extra):
     setup = tpl.prepare(tcfg.SimulationConfig(**dict(HEADLINE, **extra)))
