@@ -4,7 +4,7 @@
 
 Needs a CUDA card and nvcc; imports nothing of JAX or of the JAX package.
 It builds the port's kernels from ``ofdm_tpu_torch/csrc``, holds each
-against its plain PyTorch version on the card, and drives four paths
+against its plain PyTorch version on the card, and drives five paths
 through ``prepare()`` -> ``LinkRunner.run()``: the headline link (64
 subcarriers, 64-QAM, CP ratio 1.0, MMSE, Lin-Phoong P2, AWGN 30 dB; the
 diag kernel) and the reference's default SC-FDE link (64 subcarriers,
@@ -13,9 +13,13 @@ QPSK, CP ratio 1.0, ZF, Lin-Phoong P1, AWGN 10 dB; the fold kernel) with
 two 1024-subcarrier cells through the lr kernel (64-QAM, severe_multipath,
 MMSE, AWGN 30 dB): ``wide_1024sc`` (CP ratio 1.0) on 2^26 symbols, cut
 from bench.py's 2^27, and ``lr_1024sc_zp`` (zero prefix, ratio 1.0) on
-bench.py's own 2^26.  For each it checks the BER gate, the SNR sweep and
-the launch counters, reads the profiler's busy share, and times the kernel
-beside its plain version and its bound.  Any failed check raises.
+bench.py's own 2^26; then ``zp_64sc``, the headline link with a zero
+prefix (the published campaign's ZP-OFDM MMSE link at guard 1.0; the mm
+kernel) on 2^27 symbols, and the campaign's 16 CP/ZP x ZF/MMSE x guard
+cells on 2^20 symbols each.  For each path it checks the BER gate, the SNR
+sweep and the launch counters, reads the profiler's busy share, and times
+the kernel beside its plain version and its bound.  Any failed check
+raises.
 
 Output: findings on earlier lines; then the kernels JSON line, the card's
 ``nvidia-smi`` name and power limit, and as the last line
@@ -69,6 +73,22 @@ TPU_V5E_ZP_BER = 3.7304e-06
 TPU_V5E_WIDE_SWEEP = {0.0: 0.402, 10.0: 0.187, 20.0: 0.0212, 30.0: 3.72e-6}
 SWEEP_SYMBOLS = 1 << 20
 U32_CHECK_WORDS = 1 << 22
+U32_TIMED_LAUNCHES = 100
+# The published campaign (docs/OFDM-Based Systems.tex:199-264; docs/RESULTS.md:42-59):
+# 64 sc, 64-QAM, Lin-Phoong P2, 30 dB, CP/ZP x ZF/MMSE x guard ratio, as
+# (the JAX package's reading on a TPU v5e, the seeded reference value).
+CAMPAIGN = {
+    ("CYCLIC", "ZF", 0.34): (0.041078, 0.041035), ("CYCLIC", "ZF", 0.68): (0.026662, 0.026598),
+    ("CYCLIC", "ZF", 1.0): (0.018672, 0.018704), ("CYCLIC", "ZF", 1.34): (0.018672, 0.018632),
+    ("CYCLIC", "MMSE", 0.34): (0.041089, 0.041083), ("CYCLIC", "MMSE", 0.68): (0.026841, 0.026817),
+    ("CYCLIC", "MMSE", 1.0): (0.019000, 0.019054), ("CYCLIC", "MMSE", 1.34): (0.019000, 0.019021),
+    ("ZERO", "ZF", 0.34): (0.041211, 0.040943), ("ZERO", "ZF", 0.68): (0.026800, 0.026517),
+    ("ZERO", "ZF", 1.0): (0.018818, 0.018671), ("ZERO", "ZF", 1.34): (0.018822, 0.018709),
+    ("ZERO", "MMSE", 0.34): (0.041219, 0.040941), ("ZERO", "MMSE", 0.68): (0.026954, 0.026777),
+    ("ZERO", "MMSE", 1.0): (0.019113, 0.019049), ("ZERO", "MMSE", 1.34): (0.019109, 0.019078),
+}
+CAMPAIGN_SYMBOLS = 1 << 20
+CAMPAIGN_TOL = 1.5e-3
 
 
 def card_line():
@@ -171,6 +191,38 @@ LR_LINKS = {
 }
 
 
+# The mm links held against the plain version: zp_64sc (the published
+# campaign's ZP-OFDM MMSE link at guard 1.0, the main path of the slice), ZP
+# 0.34 ZF and 0.68 MMSE (real ISI: E = 3 > L), severe_multipath (E = 7), the
+# reference's default SC-FDE link with a zero prefix; then one link at each
+# other width the kernel compiles for (time samples a lane J = 2, 4, 6, 8,
+# 10: T = 35, 99, 163, 256, 259), up to 256-sc SC-FDE (tile 4096) and a
+# single-tap 256-sc link (E = 0).
+_SCFDE_ZP = dict(modulation_type="SC-OFDM", constellation_order=4, channel_model="Lin-Phoong_P1",
+                 equalization_method="ZF", snr_db=10.0)
+MM_LINKS = {
+    "zp_64sc": {},
+    "zp034_zf": dict(prefix_length_ratio=0.34, equalization_method="ZF"),
+    "zp068_mmse": dict(prefix_length_ratio=0.68),
+    "zp_severe_64sc": dict(channel_model="severe_multipath", snr_db=20.0),
+    "scfde_zp": _SCFDE_ZP,
+    "zp_32sc": dict(num_subcarriers=32),
+    "zp_96sc": dict(num_subcarriers=96),
+    "scfde_zp_160sc": dict(_SCFDE_ZP, num_subcarriers=160),
+    "flat_zp_256sc": dict(num_subcarriers=256, channel_model="flat_fading", snr_db=20.0),
+    "scfde_zp_256sc": dict(_SCFDE_ZP, num_subcarriers=256),
+}
+ZP_BER_REF = CAMPAIGN[("ZERO", "MMSE", 1.0)][1]  # the seeded reference, docs/RESULTS.md:58
+TPU_V5E_ZP_64SC_BER = CAMPAIGN[("ZERO", "MMSE", 1.0)][0]
+
+
+def zp_cfg(num_ofdm, chunk=0, **kw):
+    """zp_64sc: the headline link with a zero prefix (64 sc, 64-QAM, ZP ratio
+    1.0, MMSE, Lin-Phoong P2, AWGN 30 dB)."""
+    kw = {"prefix_type": "ZERO", **kw}
+    return headline_cfg(num_ofdm, chunk, **kw, num_symbols=kw.get("num_subcarriers", 64) * num_ofdm)
+
+
 def cuda_ms(fn, reps):
     """Mean milliseconds of fn() on the card, by CUDA events, after a warm-up."""
     import torch
@@ -219,64 +271,20 @@ def check_chunk(link_kw, chunk, sym0, device):
     return max(abs(kp - pp), abs(float((kcr - pcr).abs().max())), abs(float((kci - pci).abs().max())))
 
 
-def check_fold(name, sym0, device):
-    """fold_chunk kernel vs plain on the card on the same draw: run symbols
-    [sym0, sym0 + MAIN_CHUNK) of the main path's seed.  Counts, PAPR peak
-    and carry row must be equal, the PAPR sum within 1e-12."""
-    import torch
-
-    from ofdm_tpu_torch.ops import fold_kernel as fk
-    from ofdm_tpu_torch.ops import link_kernel as lk
-    from ofdm_tpu_torch.ops import prng
-    from ofdm_tpu_torch.pipeline import prepare
-
-    setup = prepare(scfde_cfg(MAIN_SYMBOLS, MAIN_CHUNK, **FOLD_LINKS[name]))
-    link = fk.fold_link(setup, device)
-    tile = lk.tile_for(MAIN_CHUNK, link.tile_cap)
-    snr_lin = lk.snr_linear(setup.cfg.snr_db)
-    key = prng.key_words(MAIN_SEED)
-    got = []
-    for fn in (fk.fold_chunk, fk.fold_chunk_plain):
-        acc, psum = lk.new_accumulators(device)
-        cr, ci = fn(link, key, sym0, MAIN_CHUNK, snr_lin, acc, psum)
-        torch.cuda.synchronize()
-        be, se, pk = acc.tolist()
-        got.append((be, se, lk.bits_f32(pk), float(psum), cr.cpu().clone(), ci.cpu().clone()))
-    (kb, ks, kp, kps, kcr, kci), (pb, ps, pp, pps, pcr, pci) = got
-    carry_err = max(float((kcr - pcr).abs().max()), float((kci - pci).abs().max()))
-    print(f"fold chunk {name} (n={link.n}, tile {tile}) symbols [{sym0}, {sym0 + MAIN_CHUNK}): kernel be={kb} se={ks} "
-          f"peak={kp} sum={kps}; plain be={pb} se={ps} peak={pp} sum={pps}; carry max diff {carry_err}")
-    if (kb, ks) != (pb, ps):
-        raise AssertionError(f"fold_chunk {name} counts disagree: kernel {kb}/{ks}, plain {pb}/{ps}")
-    if kp != pp or abs(kps - pps) > 1e-12 * pps:
-        raise AssertionError(f"fold_chunk {name} PAPR statistics disagree")
-    if not (torch.equal(kcr, pcr) and torch.equal(kci, pci)):
-        raise AssertionError(f"fold_chunk {name} carry rows disagree")
-    return max(abs(kp - pp), carry_err)
-
-
-def check_lr(name, device):
-    """lr_chunk kernel vs plain on the card on the same draw: the last chunk
-    of a 2^26-symbol run on the main path's seed.  Counts and the carry row
-    must be equal; the PAPR peak equal and the sum within 1e-12 where the
-    kernel computes them."""
+def compare_chunk(label, kernel, plain, link, sym0, chunk, snr_db, device, no_papr=False):
+    """A chunk kernel vs its plain version on the card on the same draw: run
+    symbols [sym0, sym0 + chunk) of the main path's seed.  Counts, PAPR peak
+    and carry row must be equal, the PAPR sum within 1e-12 (both zero when
+    ``no_papr``).  Returns the largest difference."""
     import torch
 
     from ofdm_tpu_torch.ops import link_kernel as lk
-    from ofdm_tpu_torch.ops import lr_kernel as lrk
     from ofdm_tpu_torch.ops import prng
-    from ofdm_tpu_torch.pipeline import prepare
 
-    kw, chunk = LR_LINKS[name]
-    ir = custom_64_taps() if name.startswith("custom64") else None
-    setup = prepare(wide_cfg(LR_SYMBOLS, chunk, **kw), channel_ir=ir)
-    link = lrk.lr_link(setup, device)
-    tile = lk.tile_for(chunk, link.tile_cap)
-    snr_lin = lk.snr_linear(setup.cfg.snr_db)
+    snr_lin = lk.snr_linear(snr_db)
     key = prng.key_words(MAIN_SEED)
-    sym0 = LR_SYMBOLS - chunk
     got = []
-    for fn in (lrk.lr_chunk, lrk.lr_chunk_plain):
+    for fn in (kernel, plain):
         acc, psum = lk.new_accumulators(device)
         cr, ci = fn(link, key, sym0, chunk, snr_lin, acc, psum)
         torch.cuda.synchronize()
@@ -284,16 +292,46 @@ def check_lr(name, device):
         got.append((be, se, lk.bits_f32(pk), float(psum), cr.cpu().clone(), ci.cpu().clone()))
     (kb, ks, kp, kps, kcr, kci), (pb, ps, pp, pps, pcr, pci) = got
     carry_err = max(float((kcr - pcr).abs().max()), float((kci - pci).abs().max()))
-    print(f"lr chunk {name} (n={link.n}, E={link.E}, rank={link.rank}, tile {tile}, txext={link.txext}) "
-          f"symbols [{sym0}, {sym0 + chunk}): kernel be={kb} se={ks} peak={kp} sum={kps}; "
+    print(f"{label} symbols [{sym0}, {sym0 + chunk}): kernel be={kb} se={ks} peak={kp} sum={kps}; "
           f"plain be={pb} se={ps} peak={pp} sum={pps}; carry max diff {carry_err}")
     if (kb, ks) != (pb, ps):
-        raise AssertionError(f"lr_chunk {name} counts disagree: kernel {kb}/{ks}, plain {pb}/{ps}")
-    if kp != pp or abs(kps - pps) > 1e-12 * pps or (link.txext and (kp, kps) != (0.0, 0.0)):
-        raise AssertionError(f"lr_chunk {name} PAPR statistics disagree")
+        raise AssertionError(f"{label}: counts disagree: kernel {kb}/{ks}, plain {pb}/{ps}")
+    if kp != pp or abs(kps - pps) > 1e-12 * pps or (no_papr and (kp, kps) != (0.0, 0.0)):
+        raise AssertionError(f"{label}: PAPR statistics disagree")
     if not (torch.equal(kcr, pcr) and torch.equal(kci, pci)):
-        raise AssertionError(f"lr_chunk {name} carry rows disagree")
+        raise AssertionError(f"{label}: carry rows disagree")
     return max(abs(kp - pp), carry_err)
+
+
+def check_fold(name, sym0, device):
+    """fold_chunk kernel vs plain (``compare_chunk``) on symbols [sym0, sym0 +
+    MAIN_CHUNK)."""
+    from ofdm_tpu_torch.ops import fold_kernel as fk
+    from ofdm_tpu_torch.ops import link_kernel as lk
+    from ofdm_tpu_torch.pipeline import prepare
+
+    setup = prepare(scfde_cfg(MAIN_SYMBOLS, MAIN_CHUNK, **FOLD_LINKS[name]))
+    link = fk.fold_link(setup, device)
+    tile = lk.tile_for(MAIN_CHUNK, link.tile_cap)
+    return compare_chunk(f"fold_chunk {name} (n={link.n}, tile {tile})", fk.fold_chunk, fk.fold_chunk_plain,
+                         link, sym0, MAIN_CHUNK, setup.cfg.snr_db, device)
+
+
+def check_lr(name, device):
+    """lr_chunk kernel vs plain (``compare_chunk``) on the last chunk of a
+    2^26-symbol run; no PAPR statistic under txext."""
+    from ofdm_tpu_torch.ops import link_kernel as lk
+    from ofdm_tpu_torch.ops import lr_kernel as lrk
+    from ofdm_tpu_torch.pipeline import prepare
+
+    kw, chunk = LR_LINKS[name]
+    ir = custom_64_taps() if name.startswith("custom64") else None
+    setup = prepare(wide_cfg(LR_SYMBOLS, chunk, **kw), channel_ir=ir)
+    link = lrk.lr_link(setup, device)
+    tile = lk.tile_for(chunk, link.tile_cap)
+    return compare_chunk(f"lr_chunk {name} (n={link.n}, E={link.E}, rank={link.rank}, tile {tile}, "
+                         f"txext={link.txext})", lrk.lr_chunk, lrk.lr_chunk_plain, link, LR_SYMBOLS - chunk,
+                         chunk, setup.cfg.snr_db, device, no_papr=link.txext)
 
 
 def lr_operations(link, chunk):
@@ -432,14 +470,15 @@ def lr_path(card, device):
     wide = lr_cell(card, device, "wide_1024sc", {}, sweep=True)
     zp = lr_cell(card, device, "lr_1024sc_zp", dict(prefix_type="ZERO"), sweep=False)
 
-    u_ms = cuda_ms(lambda: prng.random_u32(key, shape, device), 20)
+    u_ms = cuda_ms(lambda: prng.random_u32(key, shape, device), U32_TIMED_LAUNCHES)
     up_ms = cuda_ms(lambda: prng.random_u32_plain(key, shape, device), 3)
     ri_ms = cuda_ms(lambda: torch.randint(0, 1 << 32, shape, dtype=torch.int64, device=device), 20)
     words = S * 1024
     u_ops = -(-words // 4) * OPS_PER_BIN["philox"]
     u_bytes = words * 4  # the function's uint32 words
     u_bound = max(u_ops / PEAK_OPS, u_bytes / PEAK_BYTES) * 1e3
-    print(f"random_u32 at {shape} [{card}]: kernel {u_ms:.4f} ms (one ofdm_philox launch writing the "
+    print(f"random_u32 at {shape} [{card}]: kernel {u_ms:.4f} ms a launch over {U32_TIMED_LAUNCHES} "
+          f"(one ofdm_philox launch writing the "
           f"words, no other pass), plain {up_ms:.3f} ms, bound {u_bound:.4f} ms; torch.randint of the "
           f"same count {ri_ms:.4f} ms (other numbers: for scale only)")
     (wl, wk_ms, wp_ms, wb, _), (zl, zk_ms, zp_ms, zb, _) = wide, zp
@@ -613,6 +652,131 @@ def fold_path(card, device):
             "bound_ms": bound, "bound_by": "operations", "library_ms": None}
 
 
+def check_mm(name, device):
+    """mm_chunk kernel vs plain (``compare_chunk``) on the last chunk of a
+    2^27-symbol run (sym0 > 0)."""
+    from ofdm_tpu_torch.ops import link_kernel as lk
+    from ofdm_tpu_torch.ops import mm_kernel as mmk
+    from ofdm_tpu_torch.pipeline import kernel_mode, prepare
+
+    setup = prepare(zp_cfg(MAIN_SYMBOLS, MAIN_CHUNK, **MM_LINKS[name]))
+    if kernel_mode(setup) != "mm":
+        raise AssertionError(f"{name} routes to {kernel_mode(setup)}, not mm")
+    link = mmk.mm_link(setup, device)
+    tile = lk.tile_for(MAIN_CHUNK, link.tile_cap)
+    return compare_chunk(f"mm_chunk {name} (n={link.n}, T={link.T}, E={link.E}, tile {tile})", mmk.mm_chunk,
+                         mmk.mm_chunk_plain, link, MAIN_SYMBOLS - MAIN_CHUNK, MAIN_CHUNK, setup.cfg.snr_db,
+                         device)
+
+
+def mm_operations(link, chunk):
+    """(needed, added): the operations one mm chunk needs, and the work the
+    kernels' design adds.  Needed, per symbol: the products as
+    ``product_ops`` counts them, the conv without the rows that meet an
+    input that is identically zero (F_tx,ext's zero-guard columns and their
+    repeats); Philox for every time sample (the bins' words are the first
+    n), encode, equalizer, slicer and counters per bin, Box-Muller, |y|^2
+    and its sum per time sample when the noise is on, and the PAPR
+    statistic per time sample.  Added: mm_main draws the bins' Philox words
+    again; mm_front recomputes one predecessor tail a warp (encode and the
+    tail product) and, once a block, the symbol that straddles its start."""
+    import numpy as np
+    import torch
+
+    from ofdm_tpu_torch.ops import mm_kernel as mmk
+
+    n, T, E = link.n, link.T, link.E
+    live = np.flatnonzero((link.txr.cpu().numpy() != 0).any(axis=0) | (link.txi.cpu().numpy() != 0).any(axis=0))
+    rows = torch.as_tensor(live)
+    conv = product_ops(link.cvr[rows], link.cvi[rows])
+    products = (product_ops(link.txr, link.txi) + conv + product_ops(link.rxr, link.rxi)
+                + (product_ops(link.idr, link.idi) if link.is_sc else 0))
+    eq = OPS_PER_BIN["mmse"] if link.method == 1 else 6
+    noisy = link.add_noise
+    per_symbol = (products + (T if noisy else n) * OPS_PER_BIN["philox"]
+                  + n * (OPS_PER_BIN["encode"] + eq + OPS_PER_BIN["demap"] + OPS_PER_BIN["count"])
+                  + T * (PAPR_OPS + ((OPS_PER_BIN["noise"] + POWER_SUM_OPS) if noisy else 0)))
+    _, tiles, groups = mmk._chunk_geometry(link, chunk)
+    encode = n * (OPS_PER_BIN["philox"] + OPS_PER_BIN["encode"])
+    blocks = tiles * groups
+    added = (chunk * n * OPS_PER_BIN["philox"] + blocks * 8 * (encode + 8 * n * E)
+             + blocks * (encode + 8 * n * (T + E) + 8 * (T + E) * T))
+    return chunk * per_symbol, added
+
+
+def mm_path(card, device):
+    """The zero-prefix mm chain: the kernel against its plain version on ten
+    links, zp_64sc on 2^27 symbols (launch counters, BER gate, the sweep,
+    the profile, the kernel's times), then the 16 cells of the published
+    campaign through whichever kernel each routes to.  Returns the
+    kernels-line entry."""
+    import torch
+
+    from ofdm_tpu_torch.ops import link_kernel as lk
+    from ofdm_tpu_torch.ops import mm_kernel as mmk
+    from ofdm_tpu_torch.pipeline import LinkRunner, prepare
+
+    err = max(check_mm(name, device) for name in MM_LINKS)
+
+    runner = LinkRunner(prepare(zp_cfg(MAIN_SYMBOLS, MAIN_CHUNK)))
+    if runner.mode != "mm":
+        raise AssertionError(f"zp_64sc routed to {runner.mode}")
+    runner.run(1, snr_db=25.0)  # warm-up
+    mmk.mm_chunk.launches = mmk.mm_chunk.front_launches = 0
+    r = runner.run(MAIN_SEED, snr_db=30.0)
+    main_launches, front_launches = mmk.mm_chunk.launches, mmk.mm_chunk.front_launches
+    num_chunks = MAIN_SYMBOLS // MAIN_CHUNK
+    ber = r["bit_error_rate"]
+    print(f"zp_64sc run [{card}]: {MAIN_SYMBOLS} OFDM symbols ({r['total_bits']} bits), "
+          f"ofdm_symbols_per_s={r['ofdm_symbols_per_s']:.1f} run_s={r['transmission_time_ms'] / 1e3:.4f} "
+          f"BER={ber} (gate {ZP_BER_REF} +- {CAMPAIGN_TOL}, the seeded reference, docs/RESULTS.md:58; "
+          f"the JAX package on a TPU v5e read {TPU_V5E_ZP_64SC_BER} on 2^18 symbols) "
+          f"papr_db={r['papr_db']:.4f} papr_estimator={r['papr_estimator']} hotpath={r['hotpath_used']} "
+          f"launches: mm_front {front_launches}, mm_main {main_launches}")
+    if main_launches != num_chunks or front_launches != num_chunks or r["hotpath_used"] != "cuda":
+        raise AssertionError(f"the zp_64sc run launched mm_front {front_launches} and mm_main "
+                             f"{main_launches} times, not {num_chunks} each")
+    if r["papr_estimator"] != "in_run" or r["papr_sample_fraction"] != 1.0:
+        raise AssertionError(f"zp_64sc PAPR: {r['papr_estimator']} {r['papr_sample_fraction']}")
+    if not abs(ber - ZP_BER_REF) < CAMPAIGN_TOL:
+        raise AssertionError(f"zp_64sc BER gate: {ber} vs {ZP_BER_REF}")
+    srun = LinkRunner(prepare(zp_cfg(SWEEP_SYMBOLS, MAIN_CHUNK)))
+    sweep = [srun.run(2, snr_db=snr)["bit_error_rate"] for snr in (0.0, 10.0, 20.0, 30.0)]
+    print(f"zp_64sc sweep 0/10/20/30 dB BER at {SWEEP_SYMBOLS} symbols a point: {sweep}")
+    if not all(a > b for a, b in zip(sweep, sweep[1:])):
+        raise AssertionError("zp_64sc BER does not fall with SNR")
+    print_profile(card, "zp_64sc", profile_run(runner, 30.0))
+
+    link = runner.link
+    snr_lin = lk.snr_linear(30.0)
+    acc, psum = lk.new_accumulators(device)
+    work = mmk.chunk_workspace(link, MAIN_CHUNK, device)
+    k_ms = cuda_ms(lambda: mmk.mm_chunk(link, (3, 4), MAIN_CHUNK, MAIN_CHUNK, snr_lin, acc, psum, work), 20)
+    p_ms = cuda_ms(lambda: mmk.mm_chunk_plain(link, (3, 4), MAIN_CHUNK, MAIN_CHUNK, snr_lin, acc, psum), 3)
+    ops, added = mm_operations(link, MAIN_CHUNK)
+    mats = 2 * (link.n * (link.T + link.E) + (link.T + link.E) * link.T + link.T * link.n) + 5 * link.n
+    bound = max(ops / PEAK_OPS, (4 * mats + 3 * 8 + 8 * link.T) / PEAK_BYTES) * 1e3
+    print(f"mm_chunk at {MAIN_CHUNK} symbols [{card}]: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
+          f"bound {bound:.4f} ms ({ops} operations needed; the design adds {added}, "
+          f"{added / PEAK_OPS * 1e3:.4f} ms at the same rate, and moves y before noise through device "
+          f"memory: {2 * 8 * MAIN_CHUNK * link.T} bytes, {2 * 8 * MAIN_CHUNK * link.T / PEAK_BYTES * 1e3:.4f} ms "
+          f"at 3.35 TB/s)")
+
+    # the published campaign, each cell through the kernel it routes to
+    for (prefix, eq, ratio), (tpu, ref) in CAMPAIGN.items():
+        cell = LinkRunner(prepare(headline_cfg(CAMPAIGN_SYMBOLS, MAIN_CHUNK, prefix_type=prefix,
+                                               prefix_length_ratio=ratio, equalization_method=eq)))
+        b = cell.run(MAIN_SEED)["bit_error_rate"]
+        print(f"campaign {prefix} {eq} {ratio} ({cell.mode}) [{card}]: BER {b} at {CAMPAIGN_SYMBOLS} symbols; "
+              f"seeded reference {ref}; the JAX package on a TPU v5e {tpu}")
+        if not abs(b - ref) < CAMPAIGN_TOL:
+            raise AssertionError(f"campaign cell {prefix} {eq} {ratio}: BER {b} vs reference {ref}")
+    return {"name": "mm_chunk", "route": "cuda", "source": "ofdm_tpu_torch/csrc/mm_kernel.cu",
+            "replaces": "ofdm_tpu/ops/pallas_link.py:1986", "launches": main_launches,
+            "front_launches": front_launches, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bound, "bound_by": "operations", "library_ms": None}
+
+
 def main():
     import torch
 
@@ -727,6 +891,9 @@ def main():
     # 8. bench.py's two 1024-subcarrier cells through the lr kernel
     lr = lr_path(card, device)
 
+    # 9. zp_64sc and the published campaign through the mm kernel
+    mm = mm_path(card, device)
+
     kernels = [
         {"name": "diag_chunk", "route": "cuda", "source": "ofdm_tpu_torch/csrc/link_kernel.cu",
          "replaces": "ofdm_tpu/ops/pallas_link.py:1986", "launches": main_launches,
@@ -740,6 +907,7 @@ def main():
          "library_ms": None},
         fold,
         *lr,
+        mm,
     ]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -21,7 +21,7 @@ from typing import Dict, Iterable
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-SOURCES = ("link_kernel", "fold_kernel", "lr_kernel", "boxmuller")
+SOURCES = ("link_kernel", "fold_kernel", "lr_kernel", "mm_kernel", "boxmuller")
 # -fmad=false: every multiply rounds before its add, as in the plain
 # PyTorch versions, so kernel and plain agree operation for operation.
 NVCC_FLAGS = (
@@ -51,6 +51,13 @@ SIGNATURES = {
         "ofdm_lr_chunk": (
             [_P] * 15 + [_I] * 9 + [_F] * 5 + [_I] * 4 + [ctypes.c_ulonglong]
             + [_I] * 5 + [_U] * 2 + [_P] * 6,
+            _I,
+        ),
+    },
+    "mm_kernel": {
+        "ofdm_mm_chunk": (
+            [_P] * 13 + [_I] * 8 + [_F] * 4 + [_I] * 3 + [ctypes.c_ulonglong]
+            + [_I] * 4 + [_U] * 2 + [_P] * 8,
             _I,
         ),
     },

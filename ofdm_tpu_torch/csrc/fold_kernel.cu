@@ -43,7 +43,9 @@
 //    n <= 256), so the MMSE per-symbol mean is a per-lane sum plus an xor
 //    butterfly, as in diag_main.  Each product output is a k-ascending sum of
 //    rounded (a*f_r - c*f_i), (a*f_i + c*f_r) terms, as the plain version's
-//    cmatmul; the matrices are read through the read-only cache.
+//    cmatmul; the matrices are read through the read-only cache.  The TX
+//    stage, the tail recompute and the products are link_common.cuh's,
+//    shared with the mm kernel.
 //  * Counters: per-thread 32-bit, warp and block sums, one 64-bit atomicAdd
 //    per block; PAPR peak an atomicMax on the f32 bits, PAPR sum a double
 //    atomicAdd (its last digits depend on block order).
@@ -85,143 +87,23 @@ struct Link {
   uint2 key;
 };
 
-// Floats of a warp's shared buffers: s (n complex; SC-FDE reuses it for the
-// equalized bins), act (T+E complex), the next tail (E complex).
-__host__ __device__ __forceinline__ int warp_floats(int n, int T, int E) {
-  return 2 * (n + T + E + E);
-}
+using ofdm::WarpBufs;
+using ofdm::warp_bufs;
+using ofdm::warp_floats;
 
-struct WarpBufs {
-  float* sr;
-  float* si;
-  float* ar;
-  float* ai;
-  float* nr;
-  float* ni;
-};
-
-__device__ __forceinline__ WarpBufs warp_bufs(const Link& L, float* base) {
-  const int TE = L.T + L.E;
-  WarpBufs w;
-  w.sr = base;
-  w.si = w.sr + L.n;
-  w.ar = w.si + L.n;
-  w.ai = w.ar + TE;
-  w.nr = w.ai + TE;
-  w.ni = w.nr + L.E;
-  return w;
-}
-
-// out[t] = sum_k v[k] * M[k, t] over k < rows, k ascending (M row-major, `cols` wide).
-__device__ __forceinline__ void cdot(const float* vr, const float* vi, const float* mr,
-                                     const float* mi, int rows, int cols, int t, float& outr,
-                                     float& outi) {
-  float xr = 0.0f, xi = 0.0f;
-  for (int k = 0; k < rows; ++k) {
-    const float a = vr[k];
-    const float c = vi[k];
-    const float f_r = __ldg(mr + k * cols + t);
-    const float f_i = __ldg(mi + k * cols + t);
-    xr = xr + (a * f_r - c * f_i);
-    xi = xi + (a * f_i + c * f_r);
-  }
-  outr = xr;
-  outi = xi;
-}
-
-// act[T:T+E) <- symbol (run index) `sym - 1`'s tail, or zeros for the run's
-// first symbol.  Leaves the warp synchronized.
-__device__ void prev_tail(const Link& L, const WarpBufs& w, unsigned long long sym, int lane) {
-  const int TE = L.T + L.E;
-  if (L.E == 0) return;
-  if (sym == 0) {
-    for (int t = L.T + lane; t < TE; t += 32) {
-      w.ar[t] = 0.0f;
-      w.ai[t] = 0.0f;
-    }
-    __syncwarp();
-    return;
-  }
-  for (int k = lane; k < L.n; k += 32) {
-    const uint4 wd = ofdm::symbol_words(sym - 1, k, L.key);
-    ofdm::qam_encode(wd.x, L.q, w.sr[k], w.si[k]);
-  }
-  __syncwarp();
-  for (int t = L.T + lane; t < TE; t += 32) cdot(w.sr, w.si, L.txr, L.txi, L.n, TE, t, w.ar[t], w.ai[t]);
-  __syncwarp();
-}
-
-// One symbol up to y before noise.  Encodes symbol `sym` into s (and tx/w1/w2
-// for the lane's bins), computes x into act[0:T) and the next tail, folds
-// x[0:T) into the PAPR stats when `papr`, writes it to the carry row when
-// `carry_r` is set, then y = act @ CM and moves the next tail into act.
+// One symbol up to y before noise: the TX stage (link_common.cuh::symbol_tx:
+// s, tx/w1/w2 for the lane's bins, x into act, the PAPR stats when `papr`,
+// the carry row when `carry_r` is set), then y = act @ CM, then the next
+// tail moves into act.
 template <int J>
 __device__ __forceinline__ void symbol_y(const Link& L, const WarpBufs& w, unsigned long long sym,
                                          int lane, bool papr, float& pk, double& ps,
                                          float* carry_r, float* carry_i, int (&tx)[J],
                                          uint32_t (&w1)[J], uint32_t (&w2)[J], float (&yr)[J],
                                          float (&yi)[J]) {
-  const int TE = L.T + L.E;
-#pragma unroll
-  for (int j = 0; j < J; ++j) {
-    const int k = lane + 32 * j;
-    tx[j] = 0;
-    w1[j] = 0u;
-    w2[j] = 0u;
-    if (k < L.n) {
-      const uint4 wd = ofdm::symbol_words(sym, k, L.key);
-      tx[j] = ofdm::qam_encode(wd.x, L.q, w.sr[k], w.si[k]);
-      w1[j] = wd.y;
-      w2[j] = wd.z;
-    }
-  }
-  __syncwarp();
-  for (int t = lane; t < TE; t += 32) {
-    float xr, xi;
-    cdot(w.sr, w.si, L.txr, L.txi, L.n, TE, t, xr, xi);
-    if (t < L.T) {
-      w.ar[t] = xr;
-      w.ai[t] = xi;
-      if (papr) {
-        const float pw = xr * xr + xi * xi;
-        pk = fmaxf(pk, pw);
-        ps += static_cast<double>(pw);
-      }
-      if (carry_r != nullptr) {
-        carry_r[t] = xr;
-        carry_i[t] = xi;
-      }
-    } else {
-      w.nr[t - L.T] = xr;
-      w.ni[t - L.T] = xi;
-    }
-  }
-  __syncwarp();
-#pragma unroll
-  for (int j = 0; j < J; ++j) {
-    yr[j] = 0.0f;
-    yi[j] = 0.0f;
-  }
-  for (int t = 0; t < TE; ++t) {
-    const float a = w.ar[t];
-    const float c = w.ai[t];
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
-      const int k = lane + 32 * j;
-      if (k < L.n) {
-        const float m_r = __ldg(L.cmr + t * L.n + k);
-        const float m_i = __ldg(L.cmi + t * L.n + k);
-        yr[j] = yr[j] + (a * m_r - c * m_i);
-        yi[j] = yi[j] + (a * m_i + c * m_r);
-      }
-    }
-  }
-  __syncwarp();
-  for (int t = L.T + lane; t < TE; t += 32) {
-    w.ar[t] = w.nr[t - L.T];
-    w.ai[t] = w.ni[t - L.T];
-  }
-  __syncwarp();
+  ofdm::symbol_tx<J>(L, w, sym, lane, papr, pk, ps, carry_r, carry_i, tx, w1, w2);
+  ofdm::row_product<J>(w.ar, w.ai, L.cmr, L.cmi, L.T + L.E, L.n, lane, yr, yi);
+  ofdm::shift_tail(L, w, lane);
 }
 
 // Partial sums of |y|^2 (before noise) over each tile's measured-power slice,
@@ -233,7 +115,8 @@ __global__ void __launch_bounds__(kThreads) fold_power(Link L, float* partials) 
   float* red = smem;  // kPowerBlock floats, element order
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const WarpBufs w = warp_bufs(L, smem + kPowerBlock + warp * warp_floats(L.n, L.T, L.E));
+  const WarpBufs w =
+      warp_bufs(L.n, L.T, L.E, smem + kPowerBlock + warp * warp_floats(L.n, L.T, L.E));
   const int tile_id = blockIdx.x;
   const int g = blockIdx.y;
   const int t = threadIdx.x;
@@ -251,7 +134,7 @@ __global__ void __launch_bounds__(kThreads) fold_power(Link L, float* partials) 
     const int w_lo = s_lo + warp * per;
     const int w_hi = min(w_lo + per, s_hi);
     if (w_lo < w_hi) {
-      prev_tail(L, w, L.sym0 + static_cast<unsigned long long>(b0 + w_lo), lane);
+      ofdm::prev_tail(L, w, L.sym0 + static_cast<unsigned long long>(b0 + w_lo), lane);
       float pk = 0.0f;
       double ps = 0.0;
       int tx[J];
@@ -279,7 +162,8 @@ __global__ void __launch_bounds__(kThreads)
   extern __shared__ float smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const WarpBufs w = warp_bufs(L, smem + warp * warp_floats(L.n, L.T, L.E));
+  // SC-FDE reuses a warp's s buffer for the equalized bins.
+  const WarpBufs w = warp_bufs(L.n, L.T, L.E, smem + warp * warp_floats(L.n, L.T, L.E));
 
   uint32_t be = 0, se = 0;
   float pk = 0.0f;
@@ -289,7 +173,7 @@ __global__ void __launch_bounds__(kThreads)
   if (first < L.chunk) {
     const int b0 = static_cast<int>(first);
     const int b1 = min(b0 + L.run, L.chunk);
-    prev_tail(L, w, L.sym0 + static_cast<unsigned long long>(b0), lane);
+    ofdm::prev_tail(L, w, L.sym0 + static_cast<unsigned long long>(b0), lane);
     int cached_tile = -1;
     float sigma = 0.0f;
     int tx[J];
@@ -337,7 +221,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int j = 0; j < J; ++j) {
           const int k = lane + 32 * j;
-          if (k < L.n) cdot(w.sr, w.si, L.idr, L.idi, L.n, L.n, k, er[j], ei[j]);
+          if (k < L.n) ofdm::cdot(w.sr, w.si, L.idr, L.idi, L.n, L.n, k, er[j], ei[j]);
         }
         __syncwarp();
       }

@@ -1,8 +1,8 @@
 // Device functions shared by the port's kernels: the Philox4x32-10 counter
 // generator, the link's arithmetic chain (24-bit uniforms, quarter-range
-// cos/sin, Gray/zig-zag QAM encode and slicer) and the per-bin steps both
-// chunk kernels run (tile sigma, noise, equalizer, error count, the block's
-// counter flush).
+// cos/sin, Gray/zig-zag QAM encode and slicer), the per-bin steps the chunk
+// kernels run (tile sigma, noise, equalizer, error count, the block's
+// counter flush) and the TX stage and products of the dense ones (fold, mm).
 //
 // Each function repeats, operation for operation, the plain PyTorch version
 // in ofdm_tpu_torch/ops/{prng,link_kernel}.py.  The kernels are compiled
@@ -258,6 +258,168 @@ __device__ __forceinline__ void count_bin(int tx, float er, float ei, const Qam&
   const int x = tx ^ qam_demap(er, ei, q);
   be += static_cast<uint32_t>(__popc(x));
   se += x != 0 ? 1u : 0u;
+}
+
+// --- the TX stage of the dense chunk kernels (fold, mm) ---------------------------
+//
+// A warp holds one symbol.  `Link` is the kernel's own link struct; these
+// functions read its txr / txi ((n, T+E) F_tx,ext, row-major), n, T, E, q
+// and key.
+
+// A warp's shared buffers: s (n complex), act = [x[0:T) | previous tail]
+// (T+E complex), the next tail (E complex).
+struct WarpBufs {
+  float* sr;
+  float* si;
+  float* ar;
+  float* ai;
+  float* nr;
+  float* ni;
+};
+
+__host__ __device__ __forceinline__ int warp_floats(int n, int T, int E) {
+  return 2 * (n + T + E + E);
+}
+
+__device__ __forceinline__ WarpBufs warp_bufs(int n, int T, int E, float* base) {
+  WarpBufs w;
+  w.sr = base;
+  w.si = w.sr + n;
+  w.ar = w.si + n;
+  w.ai = w.ar + T + E;
+  w.nr = w.ai + T + E;
+  w.ni = w.nr + E;
+  return w;
+}
+
+// out[t] = sum_k v[k] * M[k, t] over k < rows, k ascending (M row-major, `cols` wide).
+__device__ __forceinline__ void cdot(const float* vr, const float* vi, const float* mr,
+                                     const float* mi, int rows, int cols, int t, float& outr,
+                                     float& outi) {
+  float xr = 0.0f, xi = 0.0f;
+  for (int k = 0; k < rows; ++k) {
+    const float a = vr[k];
+    const float c = vi[k];
+    const float f_r = __ldg(mr + k * cols + t);
+    const float f_i = __ldg(mi + k * cols + t);
+    xr = xr + (a * f_r - c * f_i);
+    xi = xi + (a * f_i + c * f_r);
+  }
+  outr = xr;
+  outi = xi;
+}
+
+// out[j] = sum_r v[r] * M[r, lane + 32 j] over r < rows, r ascending, for the
+// lane's columns below `cols` (M row-major, `cols` wide; zero elsewhere).
+// Neighbouring lanes read neighbouring words of a row.
+template <int J>
+__device__ __forceinline__ void row_product(const float* vr, const float* vi, const float* mr,
+                                            const float* mi, int rows, int cols, int lane,
+                                            float (&outr)[J], float (&outi)[J]) {
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    outr[j] = 0.0f;
+    outi[j] = 0.0f;
+  }
+  for (int r = 0; r < rows; ++r) {
+    const float a = vr[r];
+    const float c = vi[r];
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int k = lane + 32 * j;
+      if (k < cols) {
+        const float m_r = __ldg(mr + r * cols + k);
+        const float m_i = __ldg(mi + r * cols + k);
+        outr[j] = outr[j] + (a * m_r - c * m_i);
+        outi[j] = outi[j] + (a * m_i + c * m_r);
+      }
+    }
+  }
+}
+
+// act[T:T+E) <- symbol (run index) `sym - 1`'s tail, or zeros for the run's
+// first symbol: encode, then the same k-ascending product over the same
+// F_tx,ext columns, so it is bit-equal to the tail a carry would hold.
+// Leaves the warp synchronized.
+template <class Link>
+__device__ void prev_tail(const Link& L, const WarpBufs& w, unsigned long long sym, int lane) {
+  const int TE = L.T + L.E;
+  if (L.E == 0) return;
+  if (sym == 0) {
+    for (int t = L.T + lane; t < TE; t += 32) {
+      w.ar[t] = 0.0f;
+      w.ai[t] = 0.0f;
+    }
+    __syncwarp();
+    return;
+  }
+  for (int k = lane; k < L.n; k += 32) {
+    const uint4 wd = symbol_words(sym - 1, k, L.key);
+    qam_encode(wd.x, L.q, w.sr[k], w.si[k]);
+  }
+  __syncwarp();
+  for (int t = L.T + lane; t < TE; t += 32) cdot(w.sr, w.si, L.txr, L.txi, L.n, TE, t, w.ar[t], w.ai[t]);
+  __syncwarp();
+}
+
+// One symbol's TX stage.  Encodes symbol `sym` into s (and tx/w1/w2 for the
+// lane's bins k = lane + 32 j < n), computes x = s @ F_tx,ext into act[0:T)
+// and the next tail, folds x[0:T) into the PAPR stats when `papr`, writes
+// it to the carry row when `carry_r` is set.  Leaves the warp synchronized,
+// act = [x[0:T) | previous tail] ready for the channel product.
+template <int J, class Link>
+__device__ __forceinline__ void symbol_tx(const Link& L, const WarpBufs& w, unsigned long long sym,
+                                          int lane, bool papr, float& pk, double& ps,
+                                          float* carry_r, float* carry_i, int (&tx)[J],
+                                          uint32_t (&w1)[J], uint32_t (&w2)[J]) {
+  const int TE = L.T + L.E;
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int k = lane + 32 * j;
+    tx[j] = 0;
+    w1[j] = 0u;
+    w2[j] = 0u;
+    if (k < L.n) {
+      const uint4 wd = symbol_words(sym, k, L.key);
+      tx[j] = qam_encode(wd.x, L.q, w.sr[k], w.si[k]);
+      w1[j] = wd.y;
+      w2[j] = wd.z;
+    }
+  }
+  __syncwarp();
+  for (int t = lane; t < TE; t += 32) {
+    float xr, xi;
+    cdot(w.sr, w.si, L.txr, L.txi, L.n, TE, t, xr, xi);
+    if (t < L.T) {
+      w.ar[t] = xr;
+      w.ai[t] = xi;
+      if (papr) {
+        const float pw = xr * xr + xi * xi;
+        pk = fmaxf(pk, pw);
+        ps += static_cast<double>(pw);
+      }
+      if (carry_r != nullptr) {
+        carry_r[t] = xr;
+        carry_i[t] = xi;
+      }
+    } else {
+      w.nr[t - L.T] = xr;
+      w.ni[t - L.T] = xi;
+    }
+  }
+  __syncwarp();
+}
+
+// After the channel product has read act: act[T:T+E) <- this symbol's tail,
+// for the next symbol.  Synchronizes before and after.
+template <class Link>
+__device__ __forceinline__ void shift_tail(const Link& L, const WarpBufs& w, int lane) {
+  __syncwarp();
+  for (int t = L.T + lane; t < L.T + L.E; t += 32) {
+    w.ar[t] = w.nr[t - L.T];
+    w.ai[t] = w.ni[t - L.T];
+  }
+  __syncwarp();
 }
 
 // Block sum of red[0..N) by a halving tree (red is overwritten); every

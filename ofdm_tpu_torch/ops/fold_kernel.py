@@ -143,7 +143,7 @@ def fold_planes(link: FoldLink, key: Tuple[int, int], sym0: int, chunk: int, snr
     act_i = torch.cat([xi[:, :T], torch.cat([tail_i, xi[:-1, T:]])], dim=1)
     yr, yi = lk.cmatmul(link.cmr, link.cmi, act_r, act_i)
     if link.add_noise:
-        yr, yi = lk.awgn(link, yr, yi, w1, w2, chunk, tile, tiles, groups, snr_lin)
+        yr, yi = lk.awgn(yr, yi, w1, w2, chunk, tile, tiles, groups, snr_lin, link.slice)
     er, ei = lk.equalize(link, yr, yi, snr_lin)
     if link.is_sc:
         er, ei = lk.cmatmul(link.idr, link.idi, er, ei)

@@ -8,8 +8,8 @@ arithmetic and int64 integer ops; the wrappers ``diag_chunk`` and
 ``boxmuller_sample`` launch the kernel for CUDA tensors and run the plain
 version only for CPU tensors.  The plain pieces after the channel
 (``awgn``, ``equalize``, ``count_errors``, ``add_papr``, ``cmatmul``) and
-the shared host fields (``equalizer_fields``) serve the fold chunk
-(``ops.fold_kernel``) too.
+the shared host fields (``equalizer_fields``) serve the fold, lr and mm
+chunks (``ops.fold_kernel``, ``ops.lr_kernel``, ``ops.mm_kernel``) too.
 
 A chunk of a diag link, per bin (the semantics of pallas_link.py:1428-1937,
 not its TPU layout): Philox words -> Gray/zig-zag QAM encode -> y = s * h
@@ -182,6 +182,16 @@ def fold_tile_cap(n: int, T: int, E: int, is_sc: bool) -> int:
     return _budget_tile(n * TE + TE * n + (n * n if is_sc else 0), TE)
 
 
+def mm_tile_cap(n: int, T: int, E: int, is_sc: bool) -> int:
+    """Largest tile the reference admits for a zero-prefix mm link
+    (pallas_link._plan's "mm" budget without fold: F_tx,ext, the merged
+    conv, the overlap-add + DFT matrix and, for SC-FDE, the IDFT;
+    activation planes T+E wide).  Same fixed staging factor as
+    ``tile_cap``."""
+    TE = T + E
+    return _budget_tile(TE * T + n * TE + n * T + (n * n if is_sc else 0), TE)
+
+
 def lr_tile_cap(n: int, T: int, E: int, rank: int, txext: bool) -> int:
     """Largest tile the reference admits for an lr link (pallas_link._plan's
     lr budget): TailM, the stacked [Cr; Cp], the noise factor (at least one
@@ -322,18 +332,20 @@ def papr_samples(link: DiagLink, chunk: int) -> int:
 # --- plain version of the chunk ----------------------------------------------
 
 
-def _tile_sigma(link: DiagLink, pw: torch.Tensor, chunk, tile, tiles, groups, snr_lin, pw_scale=1.0):
-    """Per-tile sigma from |y|^2 (chunk, n), summed in power_partials' order:
-    16 sequential steps per thread, a 256-way tree per block, then the
-    tile's blocks in order; the mean is scaled by ``pw_scale``."""
+def _tile_sigma(pw: torch.Tensor, chunk, tile, tiles, groups, snr_lin, slice_syms, pw_scale=1.0):
+    """Per-tile sigma from |y|^2 (chunk, width): the mean over the first
+    ``slice_syms`` symbols (all ``width`` samples of each) of every tile,
+    summed in power_partials' order: 16 sequential steps per thread, a
+    256-way tree per block, then the tile's blocks in order; the mean is
+    scaled by ``pw_scale``."""
     flat = pw.reshape(-1)
-    n = link.n
+    width = pw.shape[1]
     seg = torch.zeros((tiles, groups * POWER_BLOCK), dtype=torch.float32, device=pw.device)
     counts = []
     for t in range(tiles):
         b0 = t * tile
-        count = min(link.slice, min(tile, chunk - b0)) * n
-        seg[t, :count] = flat[b0 * n : b0 * n + count]
+        count = min(slice_syms, min(tile, chunk - b0)) * width
+        seg[t, :count] = flat[b0 * width : b0 * width + count]
         counts.append(count)
     v = seg.view(tiles, groups, 16, 256)
     acc = torch.zeros((tiles, groups, 256), dtype=torch.float32, device=pw.device)
@@ -390,10 +402,11 @@ def box_muller(w1, w2):
     return rad * co, rad * sn
 
 
-def awgn(link, yr, yi, w1, w2, chunk, tile, tiles, groups, snr_lin, pw_scale=1.0, extra=None):
+def awgn(yr, yi, w1, w2, chunk, tile, tiles, groups, snr_lin, slice_syms, pw_scale=1.0, extra=None):
     """y + sigma * z, z = Box-Muller(w1, w2) (+ ``extra``, the colored part),
-    sigma per tile from |y|^2 of its slice times ``pw_scale``."""
-    sig = _tile_sigma(link, yr * yr + yi * yi, chunk, tile, tiles, groups, snr_lin, pw_scale)
+    sigma per tile from |y|^2 of its first ``slice_syms`` symbols times
+    ``pw_scale``; y is (chunk, width) of bins or time samples."""
+    sig = _tile_sigma(yr * yr + yi * yi, chunk, tile, tiles, groups, snr_lin, slice_syms, pw_scale)
     sigma = sig.repeat_interleave(tile)[:chunk, None]
     zr, zi = box_muller(w1, w2)
     if extra is not None:
@@ -480,7 +493,7 @@ def diag_chunk_plain(
     yr = sr * hr - si * hi
     yi = sr * hi + si * hr
     if link.add_noise:
-        yr, yi = awgn(link, yr, yi, w1, w2, chunk, tile, tiles, groups, snr_lin)
+        yr, yi = awgn(yr, yi, w1, w2, chunk, tile, tiles, groups, snr_lin, link.slice)
     er, ei = equalize(link, yr, yi, snr_lin)
     count_errors(link, tx, er, ei, acc)
 

@@ -208,7 +208,8 @@ def lr_planes(link: LrLink, key: Tuple[int, int], sym0: int, chunk: int, snr_lin
         extra = None
         if colored:
             extra = lk.cmatmul(link.bh_r, link.bh_i, *lk.box_muller(planes[3], planes[4]))
-        yr, yi = lk.awgn(link, yr, yi, w1, w2, chunk, tile, tiles, groups, snr_lin, link.pw_scale, extra)
+        yr, yi = lk.awgn(yr, yi, w1, w2, chunk, tile, tiles, groups, snr_lin, link.slice,
+                          link.pw_scale, extra)
     er, ei = lk.equalize(link, yr, yi, snr_lin, THREADS)
     return tx, er, ei, tr, ti, sr, si
 

@@ -1,0 +1,283 @@
+"""The fused zero-prefix mm chunk: host constants, kernel wrapper and plain version.
+
+Counterpart of ``ofdm_tpu/ops/pallas_link.py``'s ``kernel`` in conv="mm",
+fold=False, mode="qam" form (``csrc/mm_kernel.cu``): zero-prefix OFDM below
+128 subcarriers, zero-prefix SC-FDE, single-tap zero-prefix links, and
+zero-prefix OFDM whose lr factorization fails its certification, at
+n <= 256.  A zero prefix does not fold the conv into the receiver, so the
+noise is added per time sample and a symbol costs three complex products
+(four for SC-FDE).
+
+A chunk, per OFDM symbol b (the semantics of pallas_link.py:1428-1937 in
+its non-fold "mm" branches, not its lane-packed TPU layout): Philox words
+-> QAM encode s_b -> x_b = s_b @ F_tx,ext (E duplicated tail columns) ->
+PAPR max and sum over x_b[:T] -> act = [x_b[:T] | x_{b-1}[T:T+E]] -> y =
+act @ C (the merged conv, T+E -> T) -> AWGN per time sample with sigma =
+sqrt(mp / snr_lin / 2), mp the mean |y|^2 over the whole tile (all its
+tile * T samples, before noise) -> Y = y @ R (overlap-add + DFT, T -> n) ->
+ZF / MMSE / none -> (SC-FDE) e @ IDFT -> slicer -> popcount into int64
+counters.  The noise of time sample j comes from counter (b, j, 0)
+(``prng``).  The chunk returns its last symbol's x[:T], the JAX package's
+carry contract.  The previous symbol's tail is recomputed from its Philox
+words, so a chunk reads no carry: the run's symbol 0 sees zeros.
+
+``mm_chunk`` launches the kernels for CUDA tensors and runs
+``mm_chunk_plain`` only for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ofdm_tpu_torch.config import ModulationType, PrefixType
+from ofdm_tpu_torch.ops import linops, prng
+from ofdm_tpu_torch.ops import link_kernel as lk
+
+MAX_N = 256  # bins a lane of mm_main holds: up to 8
+MAX_T = 320  # time samples a lane holds: up to 10
+# Consecutive symbols one warp of mm_main walks.
+RUN = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class MmLink:
+    """Everything the mm chunk reads: f32 matrices and rows on one device."""
+
+    n: int
+    T: int
+    E: int  # previous-symbol tail lanes (linops.ext_width)
+    q: lk.Qam
+    slicer: float
+    cg: float
+    method: int
+    add_noise: bool
+    is_sc: bool
+    tile_cap: int
+    pstride: int  # 1: every symbol feeds the PAPR statistic
+    txr: torch.Tensor  # (n, T+E) F_tx,ext
+    txi: torch.Tensor
+    cvr: torch.Tensor  # (T+E, T) merged conv
+    cvi: torch.Tensor
+    rxr: torch.Tensor  # (T, n) overlap-add + DFT
+    rxi: torch.Tensor
+    idr: Optional[torch.Tensor]  # (n, n) SC-FDE IDFT; None for OFDM
+    idi: Optional[torch.Tensor]
+    hr: torch.Tensor  # (n,)
+    hi: torch.Tensor
+    habs2: torch.Tensor
+    gr: torch.Tensor  # ZF gain rows, slicer folded in
+    gi: torch.Tensor
+
+
+def mm_link(setup, device) -> MmLink:
+    """Host constants of a zero-prefix mm link (pallas_link._consts_for,
+    non-fold branch, unpacked): F_tx,ext, the merged conv, the overlap-add +
+    DFT matrix, the SC-FDE IDFT and the equalizer rows, f32 on ``device``."""
+    cfg = setup.cfg
+    if cfg.prefix_type != PrefixType.ZERO:
+        raise ValueError("mm link: only zero-prefix links keep the conv apart from the receiver")
+    n, L = cfg.num_subcarriers, setup.prefix_length
+    T = n + L
+    taps = np.asarray(setup.taps)
+    E = linops.ext_width(len(taps), T)
+    is_sc = cfg.modulation_type == ModulationType.SC_OFDM
+    txr, txi = linops.tx_ext_matrix(linops.tx_matrix(n, cfg.prefix_type, L, cfg.modulation_type), E)
+    cv = linops.conv_matrix_merged(taps, T)
+    rxr, rxi = linops.rx_matrix(n, cfg.prefix_type, L)
+    idr = idi = None
+    if is_sc:
+        dr, di = linops.dft_matrix(n, inverse=True)
+        idr, idi = lk.f32_tensor(dr, device), lk.f32_tensor(di, device)
+    fields = lk.equalizer_fields(setup, device)
+    del fields["slice"]  # the measured power covers the whole tile
+    return MmLink(
+        T=T,
+        E=E,
+        is_sc=is_sc,
+        tile_cap=lk.mm_tile_cap(n, T, E, is_sc),
+        pstride=1,
+        txr=lk.f32_tensor(txr, device),
+        txi=lk.f32_tensor(txi, device),
+        cvr=lk.f32_tensor(cv.real, device),
+        cvi=lk.f32_tensor(cv.imag, device),
+        rxr=lk.f32_tensor(rxr, device),
+        rxi=lk.f32_tensor(rxi, device),
+        idr=idr,
+        idi=idi,
+        **fields,
+    )
+
+
+def _chunk_geometry(link: MmLink, chunk: int):
+    tile = lk.tile_for(chunk, link.tile_cap)
+    tiles = -(-chunk // tile)
+    groups = -(-tile * link.T // lk.POWER_BLOCK)
+    return tile, tiles, groups
+
+
+def papr_samples(link: MmLink, chunk: int) -> int:
+    """Time samples one chunk contributes to the PAPR statistic: all of them."""
+    return chunk * link.T
+
+
+# --- plain version of the chunk ----------------------------------------------
+
+
+def mm_planes(link: MmLink, key: Tuple[int, int], sym0: int, chunk: int, snr_lin: float,
+              device, words=None):
+    """(tx, er, ei, xr, xi): the chunk's TX indices (chunk, n), equalized points
+    in slicer units (chunk, n) and TX rows x (chunk, T+E) — the plain chain
+    up to the slicer.
+
+    ``words`` = (raw, u1 word, u2 word) injects integer planes in place of
+    the Philox draw, each (chunk, T) for sym0 == 0, else (chunk + 1, T)
+    whose first row is symbol sym0 - 1: the raw word is read below column
+    n (and on the first row), the noise words on the chunk's rows."""
+    n, T = link.n, link.T
+    tile, tiles, groups = _chunk_geometry(link, chunk)
+    prev = 1 if sym0 > 0 else 0
+    if words is None:
+        words = prng.link_words(key, sym0 - prev, chunk + prev, T, device)
+    raw, w1, w2 = (torch.as_tensor(w).to(device=device, dtype=torch.int64) & prng.M32 for w in words)
+    if not raw.shape == w1.shape == w2.shape == (chunk + prev, T):
+        raise ValueError(f"words must be ({chunk + prev}, {T}) planes, got {tuple(raw.shape)}")
+    tx, sr, si = lk.qam_encode(raw[:, :n], link.q)
+    xr, xi = lk.cmatmul(link.txr, link.txi, sr, si)
+    if prev:
+        tail_r, tail_i = xr[:1, T:], xi[:1, T:]
+        xr, xi, tx, w1, w2 = xr[1:], xi[1:], tx[1:], w1[1:], w2[1:]
+    else:
+        tail_r = tail_i = torch.zeros((1, link.E), dtype=torch.float32, device=device)
+    act_r = torch.cat([xr[:, :T], torch.cat([tail_r, xr[:-1, T:]])], dim=1)
+    act_i = torch.cat([xi[:, :T], torch.cat([tail_i, xi[:-1, T:]])], dim=1)
+    yr, yi = lk.cmatmul(link.cvr, link.cvi, act_r, act_i)
+    if link.add_noise:
+        yr, yi = lk.awgn(yr, yi, w1, w2, chunk, tile, tiles, groups, snr_lin, tile)
+    fr, fi = lk.cmatmul(link.rxr, link.rxi, yr, yi)
+    er, ei = lk.equalize(link, fr, fi, snr_lin)
+    if link.is_sc:
+        er, ei = lk.cmatmul(link.idr, link.idi, er, ei)
+    return tx, er, ei, xr, xi
+
+
+def mm_chunk_plain(
+    link: MmLink,
+    key: Tuple[int, int],
+    sym0: int,
+    chunk: int,
+    snr_lin: float,
+    acc: torch.Tensor,
+    psum: torch.Tensor,
+    words=None,
+):
+    """Plain version of ``mm_chunk`` (same arguments, same effects);
+    ``words`` as in ``mm_planes``."""
+    T = link.T
+    tx, er, ei, xr, xi = mm_planes(link, key, sym0, chunk, snr_lin, acc.device, words)
+    lk.count_errors(link, tx, er, ei, acc)
+    lk.add_papr(xr[:, :T], xi[:, :T], acc, psum)
+    return xr[-1, :T].clone(), xi[-1, :T].clone()
+
+
+# --- kernel wrapper -------------------------------------------------------------
+
+
+def _check_link(link: MmLink, device):
+    n, T, TE = link.n, link.T, link.T + link.E
+    shapes = {"txr": (n, TE), "txi": (n, TE), "cvr": (TE, T), "cvi": (TE, T), "rxr": (T, n), "rxi": (T, n),
+              "hr": (n,), "hi": (n,), "habs2": (n,), "gr": (n,), "gi": (n,)}
+    if link.is_sc:
+        shapes.update(idr=(n, n), idi=(n, n))
+    for name, shape in shapes.items():
+        t = getattr(link, name)
+        if t is None or t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"link.{name} must be contiguous f32 on {device}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"link.{name} must be {shape}, got {tuple(t.shape)}")
+    if not (1 <= n <= MAX_N and n <= T <= MAX_T and 0 <= link.E <= T):
+        raise ValueError(f"mm kernel takes n <= {MAX_N}, n <= T <= {MAX_T}; got n={n}, T={T}")
+
+
+def chunk_workspace(link: MmLink, chunk: int, device):
+    """(y_r, y_i, partials, carry_r, carry_i): the scratch ``mm_chunk`` needs
+    for chunks of ``chunk`` symbols, so that a run allocates it once.  y
+    holds the chunk's time samples before noise, chunk * T of each plane."""
+    _, tiles, groups = _chunk_geometry(link, chunk)
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.empty(chunk * link.T, **f32), torch.empty(chunk * link.T, **f32),
+            torch.empty(tiles * groups, **f32), torch.empty(link.T, **f32), torch.empty(link.T, **f32))
+
+
+def mm_chunk(
+    link: MmLink,
+    key: Tuple[int, int],
+    sym0: int,
+    chunk: int,
+    snr_lin: float,
+    acc: torch.Tensor,
+    psum: torch.Tensor,
+    work=None,
+):
+    """One chunk of run symbols [sym0, sym0 + chunk): adds its bit errors,
+    symbol errors and PAPR peak bits into ``acc`` and its PAPR power sum
+    into ``psum``.  Returns the carry row (re, im): the last symbol's TX time
+    row x[:T], written into ``work`` (a ``chunk_workspace``) when given.
+
+    CUDA tensors launch the fused kernels (csrc/mm_kernel.cu): ``mm_front``
+    (TX, PAPR, conv, y before noise and the tile power partials) and then
+    ``mm_main`` (noise, RX, equalizer, slicer, counts), counted apart in
+    ``mm_chunk.front_launches`` and ``mm_chunk.launches``.  CPU tensors run
+    ``mm_chunk_plain``."""
+    dev = acc.device
+    if dev.type == "cpu":
+        return mm_chunk_plain(link, key, sym0, chunk, snr_lin, acc, psum)
+    if dev.type != "cuda":
+        raise ValueError(f"mm_chunk runs on cpu or cuda, not {dev}")
+    if acc.dtype != torch.int64 or acc.shape != (3,) or psum.dtype != torch.float64 or psum.shape != (1,):
+        raise ValueError("acc must be int64 (3,) and psum float64 (1,)")
+    if psum.device != dev or not (acc.is_contiguous() and psum.is_contiguous()):
+        raise ValueError("acc and psum must be contiguous on one device")
+    _check_link(link, dev)
+    if not 1 <= chunk <= (2**31 - 1) // link.T:
+        raise ValueError(f"chunk out of range: {chunk}")
+    tile, tiles, groups = _chunk_geometry(link, chunk)
+    y_r, y_i, partials, carry_r, carry_i = chunk_workspace(link, chunk, dev) if work is None else work
+    sizes = ((y_r, chunk * link.T), (y_i, chunk * link.T), (partials, tiles * groups), (carry_r, link.T),
+             (carry_i, link.T))
+    for t, size in sizes:
+        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous() or t.numel() < size:
+            raise ValueError(f"work must be chunk_workspace(link, {chunk}, {dev})")
+    from ofdm_tpu_torch import build
+
+    lib = build.load("mm_kernel")
+    q = link.q
+    sc = link.is_sc
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.ofdm_mm_chunk(
+            link.txr.data_ptr(), link.txi.data_ptr(), link.cvr.data_ptr(), link.cvi.data_ptr(),
+            link.rxr.data_ptr(), link.rxi.data_ptr(),
+            link.idr.data_ptr() if sc else None, link.idi.data_ptr() if sc else None,
+            link.hr.data_ptr(), link.hi.data_ptr(), link.habs2.data_ptr(),
+            link.gr.data_ptr(), link.gi.data_ptr(),
+            link.n, link.T, link.E, q.order, q.m, q.logm, q.bits, int(q.gray),
+            q.scale, link.slicer, snr_lin, link.cg,
+            link.method, int(link.add_noise), int(sc),
+            sym0,
+            chunk, tile, groups, RUN,
+            key[0], key[1],
+            y_r.data_ptr(), y_i.data_ptr(), partials.data_ptr(), acc.data_ptr(), psum.data_ptr(),
+            carry_r.data_ptr(), carry_i.data_ptr(), stream,
+        )
+    build.check(lib, code, "ofdm_mm_chunk")
+    mm_chunk.front_launches += 1
+    mm_chunk.launches += 1
+    return carry_r, carry_i
+
+
+mm_chunk.launches = 0  # mm_main kernels launched
+mm_chunk.front_launches = 0  # mm_front kernels launched

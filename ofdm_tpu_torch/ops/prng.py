@@ -15,8 +15,14 @@ under the key (seed lo, seed hi).  Word 0 is the TX index, words 1 and 2
 are the Box-Muller u1 and u2, word 3 is unused.  A zero-prefix link's
 colored noise draws r more complex normals per symbol (the g2 of
 ``ops.lowrank``): normal j < r takes words 1 and 2 of counter
-(b lo, b hi, j, 1), so it never meets a bin's counter.  A draw therefore
-depends on neither the chunking nor the launch geometry.
+(b lo, b hi, j, 1), so it never meets a bin's counter.  The zero-prefix
+mm chain adds its noise to the T = n + L time samples of a symbol instead
+of its n bins: time sample j < T takes words 1 and 2 of counter
+(b lo, b hi, j, 0).  For j < n these are the words bin j already draws,
+for n <= j < T new counters that meet neither the colored draws nor the
+uniform-word stream below; ``link_words(key, sym0, count, T)`` is the
+plain draw, and the mm chain reads its raw word only below column n.  A
+draw therefore depends on neither the chunking nor the launch geometry.
 
 ``random_u32`` (the counterpart of ``ofdm_tpu.ops.prng.random_u32``, whose
 TPU kernel is ``_pallas_u32``) fills uniform words from counters
@@ -67,7 +73,8 @@ def philox4x32_10(c0, c1, c2, c3, key: Tuple[int, int]):
 
 def link_words(key: Tuple[int, int], sym0: int, count: int, n: int, device="cpu"):
     """(raw, u1 word, u2 word), each (count, n) int64, for run symbols
-    [sym0, sym0 + count) — the plain form of the link kernel's draw."""
+    [sym0, sym0 + count) — the plain form of the link kernel's draw.  With
+    n = T the columns are a zero-prefix mm link's time samples."""
     b = torch.arange(sym0, sym0 + count, dtype=torch.int64, device=device)[:, None]
     k = torch.arange(n, dtype=torch.int64, device=device)[None, :]
     zero = torch.zeros((), dtype=torch.int64, device=device)

@@ -13,12 +13,17 @@ the keys of the JAX runner's.
   n <= 256;
 * "fold" (``ops.fold_kernel.fold_chunk``): SC-FDE with a cyclic prefix or
   none at n <= 256, and OFDM with a cyclic prefix or none whose guard is
-  shorter than the channel order at n < 128;
+  shorter than the channel order at n < 128, or at n <= 256 when its lr
+  factorization fails its certification;
 * "lr" (``ops.lr_kernel.lr_chunk``): OFDM whose ``lowrank.factor`` exists
   with E > 0 tail lanes, when its guard does not cover the channel (short
   CP, no prefix, zero prefix) at n >= 128, or when it does at n > 512 —
   up to 4096 subcarriers, E <= 63.  From 512 subcarriers the PAPR
-  statistic comes from a sampled TX batch (``_papr_sample``).
+  statistic comes from a sampled TX batch (``_papr_sample``);
+* "mm" (``ops.mm_kernel.mm_chunk``): the zero-prefix links lr does not
+  take, at n <= 256 and T <= 320: SC-FDE, OFDM below 128 subcarriers,
+  single-tap channels (E = 0), and OFDM whose lr factorization fails its
+  certification.
 
 All take fixed-mode square QAM, ZF / MMSE / no equalizer, AWGN or no
 noise, and neither power switch.  Every other configuration prepares as in
@@ -59,6 +64,7 @@ from ofdm_tpu_torch.ops import linops
 from ofdm_tpu_torch.ops import lr_kernel as lrk
 from ofdm_tpu_torch.ops import mapping as mp
 from ofdm_tpu_torch.ops import metrics as mt
+from ofdm_tpu_torch.ops import mm_kernel as mmk
 from ofdm_tpu_torch.ops import prng
 
 
@@ -176,6 +182,7 @@ _KERNELS = {
     "diag": _Kernel(lk.diag_link, lk.diag_chunk, lk.chunk_workspace, lk.papr_samples),
     "fold": _Kernel(fk.fold_link, fk.fold_chunk, fk.chunk_workspace, fk.papr_samples),
     "lr": _Kernel(lrk.lr_link, lrk.lr_chunk, lrk.chunk_workspace, lrk.papr_samples),
+    "mm": _Kernel(mmk.mm_link, mmk.mm_chunk, mmk.chunk_workspace, mmk.papr_samples),
 }
 
 
@@ -184,9 +191,9 @@ def _unported(reason: str) -> NotImplementedError:
 
 
 def kernel_mode(setup: LinkSetup) -> str:
-    """"diag", "fold" or "lr": the chunk kernel that runs ``setup``.  Raises
-    NotImplementedError naming the ROADMAP item that will bring any other
-    link."""
+    """"diag", "fold", "lr" or "mm": the chunk kernel that runs ``setup``.
+    Raises NotImplementedError naming the ROADMAP item that will bring any
+    other link."""
     cfg = setup.cfg
     n = cfg.num_subcarriers
     if setup.is_adaptive or cfg.constellation_type != ConstellationType.QAM:
@@ -194,12 +201,22 @@ def kernel_mode(setup: LinkSetup) -> str:
     if cfg.apply_power_allocation or cfg.normalize_before_demap:
         raise _unported("apply_power_allocation / normalize_before_demap (ROADMAP modules item 8)")
     zp = cfg.prefix_type == PrefixType.ZERO
-    if cfg.modulation_type == ModulationType.SC_OFDM:
+
+    def dense():
+        """The unfactored chain: mm for a zero prefix, fold otherwise."""
         if zp:
-            raise _unported("zero-prefix SC-FDE (ROADMAP modules item 7, the narrow ZP slice)")
+            if n > mmk.MAX_N or setup.block_length > mmk.MAX_T:
+                raise _unported(f"zero-prefix mm links wider than {mmk.MAX_N} subcarriers or "
+                                f"{mmk.MAX_T} time samples (ROADMAP modules item 7b, the mm kernel "
+                                f"past 256 subcarriers)")
+            return "mm"
         if n > fk.MAX_N:
-            raise _unported(f"SC-FDE wider than {fk.MAX_N} subcarriers (ROADMAP modules item 5)")
+            raise _unported(f"fold links wider than {fk.MAX_N} subcarriers "
+                            "(ROADMAP modules item 5, the fold kernel past 256 subcarriers)")
         return "fold"
+
+    if cfg.modulation_type == ModulationType.SC_OFDM:
+        return dense()
     L = setup.prefix_length if cfg.prefix_type == PrefixType.CYCLIC else 0
     isi_free = not zp and len(setup.taps) - 1 <= L
     if isi_free and n <= lk.MAX_N:
@@ -208,21 +225,17 @@ def kernel_mode(setup: LinkSetup) -> str:
         raise _unported(f"ISI-free links at {lk.MAX_N + 1}-{DIAG_MAX_N} subcarriers "
                         "(ROADMAP modules item 6b, the diag kernel past 256 subcarriers)")
     if not isi_free and n < LR_MIN_N:
+        return dense()
+    if linops.ext_width(len(setup.taps), setup.block_length) == 0:
         if zp:
-            raise _unported(f"zero-prefix links below {LR_MIN_N} subcarriers "
-                            "(ROADMAP modules item 7, the narrow ZP slice)")
-        return "fold"
-    if linops.ext_width(len(setup.taps), n + setup.prefix_length) == 0:
-        if zp:
-            raise _unported("single-tap zero-prefix links (ROADMAP modules item 7, the narrow ZP slice)")
+            return dense()
         raise _unported(f"single-tap channels wider than {lk.MAX_N} subcarriers "
                         "(ROADMAP modules item 6b, the diag kernel past 256 subcarriers)")
     if n > lrk.MAX_N:
         raise _unported(f"lr links wider than {lrk.MAX_N} subcarriers (ROADMAP modules item 6)")
     f = lrk.lr_factors(setup)
     if f is None:
-        raise _unported("a link whose low-rank factorization fails its certification "
-                        "(ROADMAP modules item 6)")
+        return dense()  # as the JAX package: the factorization failed its certification
     if f.E > lrk.MAX_E or f.noise_rank > lrk.MAX_RANK:
         raise _unported(f"lr links with more than {lrk.MAX_E} tail lanes or a noise rank above "
                         f"{lrk.MAX_RANK} (ROADMAP modules item 6)")
@@ -293,11 +306,13 @@ class LinkRunner:
         """(chunk, num_chunks, hotpath_used, matmul_passes_used).
 
         The kernel takes any symbol count and masks its ragged last tile,
-        so the last chunk is simply shorter; the cap keeps chunk * n
-        inside the kernel's int32 bin indexing."""
+        so the last chunk is simply shorter; the cap keeps the kernel's
+        int32 indexing in range: chunk * n bins, and chunk * T time samples
+        on the mm chain."""
         s = self.setup
         B = s.num_ofdm_symbols
-        chunk = min(s.cfg.symbols_per_chunk or B, B, (2**31 - 1) // s.cfg.num_subcarriers)
+        width = s.block_length if self.mode == "mm" else s.cfg.num_subcarriers
+        chunk = min(s.cfg.symbols_per_chunk or B, B, (2**31 - 1) // width)
         chunk = max(chunk, 1)
         hotpath_used = "cuda" if self.device.type == "cuda" else "torch"
         return chunk, -(-B // chunk), hotpath_used, "fp32"

@@ -235,8 +235,9 @@ def test_runner_needs_cuda_or_an_explicit_cpu():
     "extra",
     [
         dict(constellation_type="PSK", constellation_order=8, num_symbols=64 * 3 * 16),
-        dict(modulation_type="SC-OFDM", prefix_type="ZERO"),
-        dict(prefix_type="ZERO"),
+        # zero-prefix links past the port's 256-subcarrier mm kernel (the JAX package runs mm)
+        dict(modulation_type="SC-OFDM", prefix_type="ZERO", num_subcarriers=512, num_symbols=512 * 16),
+        dict(prefix_type="ZERO", channel_model="flat_fading", num_subcarriers=512, num_symbols=512 * 16),
         # a single-tap channel past 256 subcarriers: the JAX package keeps diag
         dict(channel_model="flat_fading", num_subcarriers=1024, num_symbols=1024 * 16),
         dict(num_subcarriers=512, num_symbols=512 * 16),

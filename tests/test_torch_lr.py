@@ -192,7 +192,7 @@ ROUTES = [
     # (extra, JAX conv, port mode or None = raises)
     (dict(num_subcarriers=64), "mm", "fold"),
     (dict(num_subcarriers=128), "lr", "lr"),
-    (dict(num_subcarriers=64, prefix_type="ZERO", prefix_length_ratio=1.0), "mm", None),
+    (dict(num_subcarriers=64, prefix_type="ZERO", prefix_length_ratio=1.0), "mm", "mm"),
     (dict(num_subcarriers=128, prefix_type="ZERO", prefix_length_ratio=1.0), "lr", "lr"),
     (dict(num_subcarriers=256, prefix_length_ratio=1.0), "diag", "diag"),
     (dict(num_subcarriers=512, prefix_length_ratio=1.0), "diag", None),

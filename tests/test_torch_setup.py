@@ -43,7 +43,8 @@ CONFIGS = {
     "waterfilling": dict(power_allocation_type="WATERFILLING", snr_db=12.0),
     "default_channel_num_bits": dict(channel_type="FLAT", channel_model=None, num_symbols=None,
                                      num_bits=6 * 64 * 512),
-    "zero_prefix_unsupported": dict(prefix_type="ZERO"),
+    "zero_prefix": dict(prefix_type="ZERO"),
+    "psk_unsupported": dict(constellation_type="PSK", constellation_order=8),
 }
 
 SCALARS = ("noise_power", "prefix_length", "water_level", "num_ofdm_symbols",
