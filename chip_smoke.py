@@ -16,10 +16,16 @@ from bench.py's 2^27, and ``lr_1024sc_zp`` (zero prefix, ratio 1.0) on
 bench.py's own 2^26; then ``zp_64sc``, the headline link with a zero
 prefix (the published campaign's ZP-OFDM MMSE link at guard 1.0; the mm
 kernel) on 2^27 symbols, and the campaign's 16 CP/ZP x ZF/MMSE x guard
-cells on 2^20 symbols each.  For each path it checks the BER gate, the SNR
-sweep and the launch counters, reads the profiler's busy share, and times
-the kernel beside its plain version and its bound.  Any failed check
-raises.
+cells on 2^20 symbols each; then the new constellation modes (8-PSK,
+adaptive QAM and adaptive PSK) on all four chunk kernels, and
+``adaptive_64sc``, the reference's adaptive-modulation link
+(config/simulation_settings_adaptive.json at 20 dB: 64 subcarriers,
+Lin-Phoong P1, CP ratio 1.0, MMSE, waterfilling, CAPACITY_BASED QAM 4-256;
+the diag kernel in aqam mode) on 2^26 OFDM symbols, its 15 / 25 dB points
+and the JAX package's audit links' BER bands on 2^20 symbols each.  For
+each path it checks the BER gate or band, the SNR sweep and the launch
+counters, reads the profiler's busy share, and times the kernel beside
+its plain version and its bound.  Any failed check raises.
 
 Output: findings on earlier lines; then the kernels JSON line, the card's
 ``nvidia-smi`` name and power limit, and as the last line
@@ -28,6 +34,7 @@ Output: findings on earlier lines; then the kernels JSON line, the card's
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -777,6 +784,239 @@ def mm_path(card, device):
             "bound_ms": bound, "bound_by": "operations", "library_ms": None}
 
 
+# --- the constellation modes: psk, aqam, apsk ------------------------------------
+
+ADAPTIVE_CONFIG = "config/simulation_settings_adaptive.json"  # the reference's adaptive link
+ADAPTIVE_SYMBOLS = 1 << 26  # OFDM symbols (under adaptive loading num_symbols counts them)
+# docs/RESULTS.md:61-67: the reference's adaptive setup at 20 dB.
+RESULTS_WATER_LEVEL = 1.020873477957
+RESULTS_BITS_PER_OFDM = 230
+RESULTS_ORDERS = [16] * 19 + [4] * 13 + [16] * 32
+BAND_SYMBOLS = 1 << 20
+BAND_Z = 5.0
+# The aqam codec's terms per bin, counted from csrc/link_common.cuh as
+# OPS_PER_BIN is: encode = four lane-row loads, the masked draw, zig-zag,
+# Gray, three int -> float conversions and the per-lane affine map (27);
+# demap = two lane-row loads, the per-lane centre, round / clip / convert
+# on both axes, the 8-bit inverse Gray and the zig-zag (31); MMSE reads the
+# lane's slicer gain (+1).
+OPS_PER_BIN_AQAM = dict(OPS_PER_BIN, encode=27, demap=31, mmse=25)
+
+# The JAX package's audit links (tools/shape_audit.py:38-120): 64 sc,
+# severe_multipath, CP 1.0, MMSE, AWGN 30 dB, with these changes.
+_PSK8 = dict(constellation_type="PSK", constellation_order=8)
+_ADAPT = dict(power_allocation_type="WATERFILLING", adaptive_modulation_mode="CAPACITY_BASED", snr_db=20.0)
+_APSK = dict(_ADAPT, constellation_type="PSK")
+_ZP05_256 = dict(num_subcarriers=256, prefix_type="ZERO", prefix_length_ratio=0.5)
+AUDIT_BASE = dict(num_subcarriers=64, constellation_order=64, constellation_type="QAM", channel_type="CUSTOM",
+                  channel_model="severe_multipath", prefix_type="CYCLIC", prefix_length_ratio=1.0,
+                  equalization_method="MMSE", noise_type="AWGN", snr_db=30.0)
+# The codec checks: each chunk kernel in each new mode, (chain, mode, link).
+# adapt_flat_36db loads 1024-QAM, above the config's 256 (the static width
+# must cover it; tests/test_pallas_link.py:456); the two Lin-Phoong P1
+# links leave 8 subcarriers inactive (order 0).
+CODEC_LINKS = {
+    "psk8_cp1.0_64": ("diag", "psk", _PSK8),
+    "adapt_flat_36db": ("diag", "aqam", dict(_ADAPT, channel_model="flat_fading", snr_db=36.0)),
+    "adapt_psk_wf_cp1.0_64": ("diag", "apsk", _APSK),
+    "psk8_cp0.34_64": ("fold", "psk", dict(_PSK8, prefix_length_ratio=0.34)),
+    "adapt_wf_cp0.34_64": ("fold", "aqam", dict(_ADAPT, prefix_length_ratio=0.34)),
+    "adapt_psk_p1_10db_cp0.34_64": ("fold", "apsk", dict(_APSK, channel_model="Lin-Phoong_P1", snr_db=10.0,
+                                                          prefix_length_ratio=0.34)),
+    "psk8_zp0.5_256": ("lr", "psk", dict(_PSK8, **_ZP05_256)),
+    "adapt_wf_zp0.5_256": ("lr", "aqam", dict(_ADAPT, **_ZP05_256)),
+    "adapt_psk_wf_zp0.5_256": ("lr", "apsk", dict(_APSK, **_ZP05_256)),
+    "psk8_zp1.0_64": ("mm", "psk", dict(_PSK8, prefix_type="ZERO")),
+    "adapt_p1_15db_zp1.0_64": ("mm", "aqam", dict(_ADAPT, channel_model="Lin-Phoong_P1", snr_db=15.0,
+                                                   prefix_type="ZERO")),
+    "adapt_psk_wf_zp1.0_64": ("mm", "apsk", dict(_APSK, prefix_type="ZERO")),
+}
+# The BER bands: the audit's PSK and adaptive links (the JAX package routes
+# them diag, fold, diag, lr, diag) and the reference's adaptive config at 15
+# and 25 dB, each held at z = 5 against the JAX package's reading of the same
+# config: (bit errors, bits), XLA path, on a CPU, seed jax.random.PRNGKey(0),
+# 2^18 OFDM symbols (jax_band_readings.py).
+BAND_LINKS = {
+    "psk8_cp1.0_64": ("diag", _PSK8),
+    "psk8_cp0.34_64": ("fold", dict(_PSK8, prefix_length_ratio=0.34)),
+    "adapt_wf_cp1.0_64": ("diag", _ADAPT),
+    "adapt_wf_zp0.5_256": ("lr", dict(_ADAPT, **_ZP05_256)),
+    "adapt_psk_wf_cp1.0_64": ("diag", _APSK),
+}
+JAX_CPU_READINGS = {
+    "psk8_cp1.0_64": (0, 50331648),
+    "psk8_cp0.34_64": (12161, 50331648),
+    "adapt_wf_cp1.0_64": (17787, 68157440),
+    "adapt_wf_zp0.5_256": (100194, 271581184),
+    "adapt_psk_wf_cp1.0_64": (1580, 52166656),
+    "reference_adaptive_15db": (18970, 41418752),
+    "reference_adaptive_20db": (5378, 60293120),
+    "reference_adaptive_25db": (9687, 90701824),
+}
+
+
+def audit_cfg(num_ofdm, chunk=0, **kw):
+    """An audit link of ``num_ofdm`` OFDM symbols."""
+    from ofdm_tpu_torch.config import SimulationConfig
+
+    base = dict(AUDIT_BASE, symbols_per_chunk=chunk, **kw)
+    adaptive = base.get("adaptive_modulation_mode") == "CAPACITY_BASED"
+    base["num_symbols"] = num_ofdm if adaptive else num_ofdm * base["num_subcarriers"]
+    return SimulationConfig(**base)
+
+
+def adaptive_cfg(snr_db, num_ofdm, chunk=MAIN_CHUNK):
+    """The reference's adaptive config at ``snr_db`` on ``num_ofdm`` OFDM symbols."""
+    from ofdm_tpu_torch.config import SimulationConfig
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), ADAPTIVE_CONFIG)
+    cfg = {c.snr_db: c for c in SimulationConfig.from_json(path)}[snr_db]
+    return cfg.replace(num_symbols=num_ofdm, symbols_per_chunk=chunk)
+
+
+def chains():
+    """{chain: (link builder, kernel wrapper, plain version, launch counters)}."""
+    from ofdm_tpu_torch.ops import fold_kernel as fk
+    from ofdm_tpu_torch.ops import link_kernel as lk
+    from ofdm_tpu_torch.ops import lr_kernel as lrk
+    from ofdm_tpu_torch.ops import mm_kernel as mmk
+
+    return {
+        "diag": (lk.diag_link, lk.diag_chunk, lk.diag_chunk_plain, ("launches", "power_launches")),
+        "fold": (fk.fold_link, fk.fold_chunk, fk.fold_chunk_plain, ("launches", "power_launches")),
+        "lr": (lrk.lr_link, lrk.lr_chunk, lrk.lr_chunk_plain, ("launches", "power_launches")),
+        "mm": (mmk.mm_link, mmk.mm_chunk, mmk.mm_chunk_plain, ("launches", "front_launches")),
+    }
+
+
+def band(name, r):
+    """Hold a run's BER at z = BAND_Z against the JAX package's reading."""
+    from ofdm_tpu_torch.ops import metrics as mt
+
+    je, jb = JAX_CPU_READINGS[name]
+    ok = mt.ber_equivalent(r["bit_errors"], r["total_bits"], je, jb, z=BAND_Z)
+    print(f"band {name}: BER {r['bit_error_rate']} ({r['bit_errors']} / {r['total_bits']}) vs the JAX "
+          f"package's {je / jb} ({je} / {jb}; XLA path, CPU, 2^18 symbols) z={BAND_Z}: {'inside' if ok else 'OUTSIDE'}")
+    if not ok:
+        raise AssertionError(f"{name}: BER {r['bit_error_rate']} outside its band around {je / jb}")
+
+
+def check_codec(name, device):
+    """A chunk kernel in a new mode vs its plain version (``compare_chunk``)
+    on the last 2^17-symbol chunk of a 2^27-symbol run, then the link
+    through LinkRunner on one chunk: routed to the chain, on the kernel."""
+    from ofdm_tpu_torch.ops import link_kernel as lk
+    from ofdm_tpu_torch.pipeline import LinkRunner, kernel_mode, prepare
+
+    chain, mode, kw = CODEC_LINKS[name]
+    setup = prepare(audit_cfg(MAIN_SYMBOLS, MAIN_CHUNK, **kw))
+    link_fn, kernel, plain, counters = chains()[chain]
+    link = link_fn(setup, device)
+    if kernel_mode(setup) != chain or link.q.mode != mode:
+        raise AssertionError(f"{name} routes to {kernel_mode(setup)} / {link.q.mode}, not {chain} / {mode}")
+    orders = sorted({int(o) for o in setup.constellation_orders})
+    if name == "adapt_flat_36db" and not (orders[-1] > setup.cfg.max_constellation_order
+                                          and 1 << link.q.bits >= orders[-1]):
+        raise AssertionError(f"{name}: orders {orders}, static width {link.q.bits}")
+    tile = lk.tile_for(MAIN_CHUNK, link.tile_cap)
+    err = compare_chunk(f"{chain}_chunk {mode} {name} (n={link.n}, bits={link.q.bits}, orders {orders}, tile {tile})",
+                        kernel, plain, link, MAIN_SYMBOLS - MAIN_CHUNK, MAIN_CHUNK, setup.cfg.snr_db, device,
+                        no_papr=getattr(link, "txext", False))
+    for c in counters:
+        setattr(kernel, c, 0)
+    r = LinkRunner(prepare(audit_cfg(MAIN_CHUNK, MAIN_CHUNK, **kw))).run(MAIN_SEED)
+    launches = tuple(getattr(kernel, c) for c in counters)
+    if r["hotpath_used"] != "cuda" or launches != (1, 1):
+        raise AssertionError(f"{name} through LinkRunner: {r['hotpath_used']}, launches {launches}")
+    print(f"{name} through LinkRunner ({chain}, {mode}) on {MAIN_CHUNK} symbols: BER {r['bit_error_rate']}, "
+          f"hotpath {r['hotpath_used']}, launches {launches}")
+    return err
+
+
+def diag_operations(link, chunk, ops_per_bin):
+    """Operations one diag chunk needs: the per-bin chain as ``ops_per_bin``
+    counts it, |y|^2 and its sum on each tile's measured-power slice, the
+    PAPR product and statistic on the sampled tiles."""
+    from ofdm_tpu_torch.ops import link_kernel as lk
+
+    tile = lk.tile_for(chunk, link.tile_cap)
+    tiles = -(-chunk // tile)
+    slice_bins = sum(min(link.slice, min(tile, chunk - t * tile)) for t in range(tiles)) * link.n
+    sampled = lk.sampled_symbols(chunk, tile, link.pstride)
+    return (chunk * link.n * sum(ops_per_bin.values()) + slice_bins * POWER_SUM_OPS
+            + sampled * (product_ops(link.fr, link.fi) + PAPR_OPS * link.T))
+
+
+def adaptive_path(card, device, headline_ms):
+    """The twelve codec checks, then the reference's adaptive link on 2^26 OFDM
+    symbols through the diag kernel in aqam mode (setup against
+    docs/RESULTS.md, launch counters, BER band, the profile, the kernel's
+    times), its 15 / 25 dB points and the audit links' BER bands.  Returns
+    the kernels-line entry of diag_chunk in aqam mode."""
+    import numpy as np
+    import torch
+
+    from ofdm_tpu_torch.ops import link_kernel as lk
+    from ofdm_tpu_torch.pipeline import LinkRunner, prepare
+
+    err = max(check_codec(name, device) for name in CODEC_LINKS)
+
+    setup = prepare(adaptive_cfg(20.0, ADAPTIVE_SYMBOLS))
+    wl_gap = abs(setup.water_level - RESULTS_WATER_LEVEL)
+    print(f"adaptive_64sc setup: water level {setup.water_level!r} (docs/RESULTS.md {RESULTS_WATER_LEVEL}, "
+          f"gap {wl_gap:.3e}), {setup.bits_per_ofdm_symbol} bits per OFDM symbol, orders "
+          f"{setup.constellation_orders.tolist()}")
+    if (wl_gap > 1e-12 or setup.bits_per_ofdm_symbol != RESULTS_BITS_PER_OFDM
+            or setup.constellation_orders.tolist() != RESULTS_ORDERS):
+        raise AssertionError("adaptive_64sc setup differs from docs/RESULTS.md:61-67")
+    runner = LinkRunner(setup)
+    if runner.mode != "diag" or runner.link.q.mode != "aqam":
+        raise AssertionError(f"adaptive_64sc routed to {runner.mode} / {runner.link.q.mode}")
+    runner.run(1)  # warm-up
+    lk.diag_chunk.launches = lk.diag_chunk.power_launches = 0
+    r = runner.run(MAIN_SEED)
+    launches = (lk.diag_chunk.launches, lk.diag_chunk.power_launches)
+    num_chunks = ADAPTIVE_SYMBOLS // MAIN_CHUNK
+    print(f"adaptive_64sc run [{card}]: {ADAPTIVE_SYMBOLS} OFDM symbols ({r['total_bits']} bits), "
+          f"ofdm_symbols_per_s={r['ofdm_symbols_per_s']:.1f} run_s={r['transmission_time_ms'] / 1e3:.4f} "
+          f"BER={r['bit_error_rate']} SER={r['symbol_error_rate']} papr_db={r['papr_db']:.4f} "
+          f"hotpath={r['hotpath_used']} launches: diag_main {launches[0]}, power_partials {launches[1]}")
+    if launches != (num_chunks, num_chunks) or r["hotpath_used"] != "cuda":
+        raise AssertionError(f"adaptive_64sc launched diag_main / power_partials {launches}, not {num_chunks} each")
+    band("reference_adaptive_20db", r)
+    print_profile(card, "adaptive_64sc", profile_run(runner, 20.0))
+
+    sweep = {20.0: r["bit_error_rate"]}
+    for snr in (15.0, 25.0):
+        rs = LinkRunner(prepare(adaptive_cfg(snr, BAND_SYMBOLS))).run(2)
+        band(f"reference_adaptive_{int(snr)}db", rs)
+        sweep[snr] = rs["bit_error_rate"]
+    print(f"adaptive_64sc sweep 15/20/25 dB BER: {[sweep[k] for k in (15.0, 20.0, 25.0)]}")
+    for name, (chain, kw) in BAND_LINKS.items():
+        cell = LinkRunner(prepare(audit_cfg(BAND_SYMBOLS, MAIN_CHUNK, **kw)))
+        if cell.mode != chain:
+            raise AssertionError(f"{name} routed to {cell.mode}, not {chain}")
+        band(name, cell.run(MAIN_SEED))
+
+    link = runner.link
+    snr_lin = lk.snr_linear(20.0)
+    acc, psum = lk.new_accumulators(device)
+    work = lk.chunk_workspace(link, MAIN_CHUNK, device)
+    k_ms = cuda_ms(lambda: lk.diag_chunk(link, (3, 4), 0, MAIN_CHUNK, snr_lin, acc, psum, work), 20)
+    p_ms = cuda_ms(lambda: lk.diag_chunk_plain(link, (3, 4), 0, MAIN_CHUNK, snr_lin, acc, psum), 3)
+    ops = diag_operations(link, MAIN_CHUNK, OPS_PER_BIN_AQAM)
+    rows = 4 * (7 * link.n + 5 * link.n) + 8 * link.n * link.T
+    bound = max(ops / PEAK_OPS, (rows + 3 * 8) / PEAK_BYTES) * 1e3
+    print(f"diag_chunk aqam at {MAIN_CHUNK} symbols [{card}]: kernel {k_ms:.4f} ms (the headline's qam "
+          f"{headline_ms:.4f} ms, ratio {k_ms / headline_ms:.4f}), plain {p_ms:.3f} ms, bound {bound:.4f} ms "
+          f"({ops} operations; orders {sorted(set(np.asarray(setup.constellation_orders).tolist()))})")
+    torch.cuda.synchronize()
+    return {"name": "diag_chunk (aqam)", "route": "cuda", "source": "ofdm_tpu_torch/csrc/link_kernel.cu",
+            "replaces": "ofdm_tpu/ops/pallas_link.py:1986", "launches": launches[0],
+            "power_partials_launches": launches[1], "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bound, "bound_by": "operations", "library_ms": None}
+
+
 def main():
     import torch
 
@@ -801,9 +1041,11 @@ def main():
         log = os.path.join(build.BUILD_DIR, f"{name}.log")
         if os.path.exists(log):
             with open(log) as fh:
-                for line in fh:
-                    if "registers" in line or "entry function" in line:
-                        print(f"ptxas {name}: {line.strip()}")
+                text = fh.read()
+            regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+            spills = [int(b) for b in re.findall(r"(\d+) bytes spill stores", text) if int(b)]
+            print(f"ptxas {name}: {len(regs)} kernels, {min(regs, default=0)}-{max(regs, default=0)} registers, "
+                  f"{len(spills)} with spill stores (at most {max(spills, default=0)} bytes)")
 
     # 2. Philox: kernel vs plain, bit for bit
     key = (0xA4093822, 0x299F31D0)
@@ -866,13 +1108,7 @@ def main():
     work = lk.chunk_workspace(link, MAIN_CHUNK, device)
     dk_ms = cuda_ms(lambda: lk.diag_chunk(link, (3, 4), 0, MAIN_CHUNK, snr_lin, acc, psum, work), 20)
     dp_ms = cuda_ms(lambda: lk.diag_chunk_plain(link, (3, 4), 0, MAIN_CHUNK, snr_lin, acc, psum), 3)
-    tile = lk.tile_for(MAIN_CHUNK, link.tile_cap)
-    bins = MAIN_CHUNK * link.n
-    tiles = -(-MAIN_CHUNK // tile)
-    slice_bins = sum(min(link.slice, min(tile, MAIN_CHUNK - t * tile)) for t in range(tiles)) * link.n
-    sampled = lk.sampled_symbols(MAIN_CHUNK, tile, link.pstride)
-    diag_ops = (bins * sum(OPS_PER_BIN.values()) + slice_bins * POWER_SUM_OPS
-                + sampled * (product_ops(link.fr, link.fi) + PAPR_OPS * link.T))
+    diag_ops = diag_operations(link, MAIN_CHUNK, OPS_PER_BIN)
     diag_bound = max(diag_ops / PEAK_OPS, (4 * 7 * link.n + 8 * link.n * link.T + 3 * 8) / PEAK_BYTES) * 1e3
     bk_ms = cuda_ms(lambda: lk.boxmuller_sample(*NOISE_SEEDS, NOISE_SHAPE, device), 20)
     bp_ms = cuda_ms(lambda: lk.boxmuller_sample_plain(*NOISE_SEEDS, NOISE_SHAPE, device), 3)
@@ -894,6 +1130,10 @@ def main():
     # 9. zp_64sc and the published campaign through the mm kernel
     mm = mm_path(card, device)
 
+    # 10. the new constellation modes on every chain, then the reference's
+    # adaptive link through the diag kernel in aqam mode
+    aqam = adaptive_path(card, device, dk_ms)
+
     kernels = [
         {"name": "diag_chunk", "route": "cuda", "source": "ofdm_tpu_torch/csrc/link_kernel.cu",
          "replaces": "ofdm_tpu/ops/pallas_link.py:1986", "launches": main_launches,
@@ -908,6 +1148,7 @@ def main():
         fold,
         *lr,
         mm,
+        aqam,
     ]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -35,28 +35,28 @@ _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 SIGNATURES = {
     "link_kernel": {
         "ofdm_diag_chunk": (
-            [_P] * 7 + [_I] * 7 + [_F] * 4 + [_I] * 2 + [ctypes.c_ulonglong]
+            [_P] * 7 + [_I] * 8 + [_F] + [_P] * 2 + [_F] * 3 + [_I] * 2 + [ctypes.c_ulonglong]
             + [_I] * 6 + [_U] * 2 + [_P] * 6,
             _I,
         ),
     },
     "fold_kernel": {
         "ofdm_fold_chunk": (
-            [_P] * 11 + [_I] * 8 + [_F] * 4 + [_I] * 3 + [ctypes.c_ulonglong]
+            [_P] * 11 + [_I] * 9 + [_F] + [_P] * 2 + [_F] * 3 + [_I] * 3 + [ctypes.c_ulonglong]
             + [_I] * 5 + [_U] * 2 + [_P] * 6,
             _I,
         ),
     },
     "lr_kernel": {
         "ofdm_lr_chunk": (
-            [_P] * 15 + [_I] * 9 + [_F] * 5 + [_I] * 4 + [ctypes.c_ulonglong]
+            [_P] * 15 + [_I] * 10 + [_F] + [_P] * 2 + [_F] * 4 + [_I] * 4 + [ctypes.c_ulonglong]
             + [_I] * 5 + [_U] * 2 + [_P] * 6,
             _I,
         ),
     },
     "mm_kernel": {
         "ofdm_mm_chunk": (
-            [_P] * 13 + [_I] * 8 + [_F] * 4 + [_I] * 3 + [ctypes.c_ulonglong]
+            [_P] * 13 + [_I] * 9 + [_F] + [_P] * 2 + [_F] * 3 + [_I] * 3 + [ctypes.c_ulonglong]
             + [_I] * 4 + [_U] * 2 + [_P] * 8,
             _I,
         ),

@@ -3,9 +3,11 @@
 // statistic and the carry row written to device memory.
 //
 // Replaces: ofdm_tpu/ops/pallas_link.py::_fn_for_spec -> kernel, in its
-// conv="mm", fold=True, mode="qam" form: SC-FDE with a cyclic prefix or none,
-// and OFDM whose guard is shorter than the channel order.  Per OFDM symbol b:
-//   Philox words -> Gray/zig-zag QAM encode s_b
+// conv="mm", fold=True form: SC-FDE with a cyclic prefix or none, and OFDM
+// whose guard is shorter than the channel order; in each constellation mode
+// (qam, psk, aqam, apsk: a template parameter, link_common.cuh's codec;
+// SC-FDE takes no adaptive mode).  Per OFDM symbol b:
+//   Philox words -> encode s_b
 //   x_b  = s_b @ F_tx,ext                  (n -> T+E: IDFT/identity + guard,
 //                                           the last E columns repeated)
 //   PAPR max and sum over x_b[0:T)
@@ -15,7 +17,7 @@
 //   over the first `slice` symbols of b's tile, before noise
 //   ZF / MMSE / none with the slicer gain 0.5/scale folded in
 //   SC-FDE only: e = e @ IDFT (n -> n)
-//   float-clipped slicer -> popcount(tx ^ rx) into int64 counters.
+//   slicer or PSK sector -> popcount(tx ^ rx) into int64 counters.
 //
 // Bound on an H100: issue rate, not memory.  The chunk reads its constant
 // matrices (~100 KB at n = 64, L1/L2 resident) and writes 3 counters and one
@@ -85,6 +87,7 @@ struct Link {
   int groups;
   int run;  // consecutive symbols a warp of fold_main walks
   uint2 key;
+  ofdm::Lanes lanes;  // the adaptive modes' lane rows
 };
 
 using ofdm::WarpBufs;
@@ -95,13 +98,13 @@ using ofdm::warp_floats;
 // s, tx/w1/w2 for the lane's bins, x into act, the PAPR stats when `papr`,
 // the carry row when `carry_r` is set), then y = act @ CM, then the next
 // tail moves into act.
-template <int J>
+template <int J, int kMode>
 __device__ __forceinline__ void symbol_y(const Link& L, const WarpBufs& w, unsigned long long sym,
                                          int lane, bool papr, float& pk, double& ps,
                                          float* carry_r, float* carry_i, int (&tx)[J],
                                          uint32_t (&w1)[J], uint32_t (&w2)[J], float (&yr)[J],
                                          float (&yi)[J]) {
-  ofdm::symbol_tx<J>(L, w, sym, lane, papr, pk, ps, carry_r, carry_i, tx, w1, w2);
+  ofdm::symbol_tx<J, kMode>(L, w, sym, lane, papr, pk, ps, carry_r, carry_i, tx, w1, w2);
   ofdm::row_product<J>(w.ar, w.ai, L.cmr, L.cmi, L.T + L.E, L.n, lane, yr, yi);
   ofdm::shift_tail(L, w, lane);
 }
@@ -109,7 +112,7 @@ __device__ __forceinline__ void symbol_y(const Link& L, const WarpBufs& w, unsig
 // Partial sums of |y|^2 (before noise) over each tile's measured-power slice,
 // in power_partials' order.  grid (tiles, groups); block (tile, g) covers
 // slice elements e = b*n + k in [g*4096, (g+1)*4096).
-template <int J>
+template <int J, int kMode>
 __global__ void __launch_bounds__(kThreads) fold_power(Link L, float* partials) {
   extern __shared__ float smem[];
   float* red = smem;  // kPowerBlock floats, element order
@@ -134,14 +137,14 @@ __global__ void __launch_bounds__(kThreads) fold_power(Link L, float* partials) 
     const int w_lo = s_lo + warp * per;
     const int w_hi = min(w_lo + per, s_hi);
     if (w_lo < w_hi) {
-      ofdm::prev_tail(L, w, L.sym0 + static_cast<unsigned long long>(b0 + w_lo), lane);
+      ofdm::prev_tail<kMode>(L, w, L.sym0 + static_cast<unsigned long long>(b0 + w_lo), lane);
       float pk = 0.0f;
       double ps = 0.0;
       int tx[J];
       uint32_t w1[J], w2[J];
       float yr[J], yi[J];
       for (int s = w_lo; s < w_hi; ++s) {
-        symbol_y<J>(L, w, L.sym0 + static_cast<unsigned long long>(b0 + s), lane, false, pk, ps,
+        symbol_y<J, kMode>(L, w, L.sym0 + static_cast<unsigned long long>(b0 + s), lane, false, pk, ps,
                     nullptr, nullptr, tx, w1, w2, yr, yi);
 #pragma unroll
         for (int j = 0; j < J; ++j) {
@@ -155,7 +158,7 @@ __global__ void __launch_bounds__(kThreads) fold_power(Link L, float* partials) 
   ofdm::power_block_partial<kThreads, kPowerSteps>(red, t, partials + tile_id * L.groups + g);
 }
 
-template <int J>
+template <int J, int kMode>
 __global__ void __launch_bounds__(kThreads)
     fold_main(Link L, const float* partials, unsigned long long* acc, double* psum,
               float* carry_r, float* carry_i) {
@@ -173,7 +176,7 @@ __global__ void __launch_bounds__(kThreads)
   if (first < L.chunk) {
     const int b0 = static_cast<int>(first);
     const int b1 = min(b0 + L.run, L.chunk);
-    ofdm::prev_tail(L, w, L.sym0 + static_cast<unsigned long long>(b0), lane);
+    ofdm::prev_tail<kMode>(L, w, L.sym0 + static_cast<unsigned long long>(b0), lane);
     int cached_tile = -1;
     float sigma = 0.0f;
     int tx[J];
@@ -188,7 +191,7 @@ __global__ void __launch_bounds__(kThreads)
         cached_tile = tile_id;
       }
       const bool last = b == L.chunk - 1;
-      symbol_y<J>(L, w, L.sym0 + static_cast<unsigned long long>(b), lane, true, pk, ps,
+      symbol_y<J, kMode>(L, w, L.sym0 + static_cast<unsigned long long>(b), lane, true, pk, ps,
                   last ? carry_r : nullptr, last ? carry_i : nullptr, tx, w1, w2, yr, yi);
       if (L.add_noise) {
 #pragma unroll
@@ -204,10 +207,10 @@ __global__ void __launch_bounds__(kThreads)
         const int k = lane + 32 * j;
         er[j] = 0.0f;
         ei[j] = 0.0f;
-        if (k < L.n) ofdm::equalize_bin(L.eq, k, yr[j], yi[j], nv, er[j], ei[j]);
+        if (k < L.n) ofdm::equalize_bin<kMode>(L.eq, L.lanes, k, yr[j], yi[j], nv, er[j], ei[j]);
       }
 
-      if (L.is_sc) {
+      if (!ofdm::adaptive(kMode) && L.is_sc) {
         // SC-FDE: equalized bins -> time-domain symbols, e @ IDFT.
 #pragma unroll
         for (int j = 0; j < J; ++j) {
@@ -228,7 +231,8 @@ __global__ void __launch_bounds__(kThreads)
 
 #pragma unroll
       for (int j = 0; j < J; ++j) {
-        if (lane + 32 * j < L.n) ofdm::count_bin(tx[j], er[j], ei[j], L.q, be, se);
+        const int k = lane + 32 * j;
+        if (k < L.n) ofdm::count_bin<kMode>(tx[j], er[j], ei[j], L.q, L.lanes, k, be, se);
       }
     }
   }
@@ -236,28 +240,43 @@ __global__ void __launch_bounds__(kThreads)
   ofdm::flush_counters<kWarps>(be, se, pk, ps, acc, psum);
 }
 
-template <int J>
+template <int J, int kMode>
 cudaError_t launch(const Link& L, float* partials, unsigned long long* acc, double* psum,
                    float* cr, float* ci, cudaStream_t stream) {
   const int wf = warp_floats(L.n, L.T, L.E);
   const size_t main_bytes = sizeof(float) * kWarps * wf;
   const size_t power_bytes = sizeof(float) * (kPowerBlock + kWarps * wf);
-  cudaError_t err = cudaFuncSetAttribute(fold_main<J>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t err = cudaFuncSetAttribute(fold_main<J, kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(main_bytes));
   if (err != cudaSuccess) return err;
   if (L.add_noise) {
-    err = cudaFuncSetAttribute(fold_power<J>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(fold_power<J, kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(power_bytes));
     if (err != cudaSuccess) return err;
     const int tiles = (L.chunk + L.tile - 1) / L.tile;
-    fold_power<J><<<dim3(tiles, L.groups), kThreads, power_bytes, stream>>>(L, partials);
+    fold_power<J, kMode><<<dim3(tiles, L.groups), kThreads, power_bytes, stream>>>(L, partials);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   const long long warps = (static_cast<long long>(L.chunk) + L.run - 1) / L.run;
   const int grid = static_cast<int>((warps + kWarps - 1) / kWarps);
-  fold_main<J><<<grid, kThreads, main_bytes, stream>>>(L, partials, acc, psum, cr, ci);
+  fold_main<J, kMode><<<grid, kThreads, main_bytes, stream>>>(L, partials, acc, psum, cr, ci);
   return cudaGetLastError();
+}
+
+template <int kMode>
+cudaError_t launch_mode(const Link& L, float* partials, unsigned long long* acc, double* psum,
+                        float* cr, float* ci, cudaStream_t stream) {
+  switch ((L.n + 31) / 32) {
+    case 1: return launch<1, kMode>(L, partials, acc, psum, cr, ci, stream);
+    case 2: return launch<2, kMode>(L, partials, acc, psum, cr, ci, stream);
+    case 3: return launch<3, kMode>(L, partials, acc, psum, cr, ci, stream);
+    case 4: return launch<4, kMode>(L, partials, acc, psum, cr, ci, stream);
+    case 5: return launch<5, kMode>(L, partials, acc, psum, cr, ci, stream);
+    case 6: return launch<6, kMode>(L, partials, acc, psum, cr, ci, stream);
+    case 7: return launch<7, kMode>(L, partials, acc, psum, cr, ci, stream);
+    default: return launch<8, kMode>(L, partials, acc, psum, cr, ci, stream);
+  }
 }
 
 }  // namespace ofdm_fold
@@ -266,20 +285,24 @@ using namespace ofdm_fold;
 
 extern "C" {
 
-// One chunk: fold_power (when noise is on) then fold_main, both on `stream`.
-// acc = [bit errors, symbol errors, PAPR peak f32 bits] (int64, accumulated),
-// psum = PAPR power sum (float64, accumulated); carry = the chunk's last
-// symbol's x[0:T).  Returns the first CUDA error of the launches, 0 if none.
+// One chunk: fold_power (when noise is on) then fold_main, both on `stream`,
+// in constellation mode `mode` (link_common.cuh::Mode; lane_i / lane_f the
+// adaptive modes' lane rows; SC-FDE takes no adaptive mode).  acc = [bit
+// errors, symbol errors, PAPR peak f32 bits] (int64, accumulated), psum =
+// PAPR power sum (float64, accumulated); carry = the chunk's last symbol's
+// x[0:T).  Returns the first CUDA error of the launches, 0 if none.
 int ofdm_fold_chunk(const float* txr, const float* txi, const float* cmr, const float* cmi,
                     const float* idr, const float* idi, const float* hr, const float* hi,
                     const float* habs2, const float* gr, const float* gi, int n, int T, int E,
-                    int order, int m, int logm, int bits, int gray, float scale, float slicer,
+                    int mode, int order, int m, int logm, int bits, int gray, float scale,
+                    const int* lane_i, const float* lane_f, float slicer,
                     float snr_lin, float cg, int method, int add_noise, int is_sc,
                     unsigned long long sym0, int chunk, int tile, int slice, int groups, int run,
                     unsigned int key0, unsigned int key1, float* partials, long long* acc,
                     double* psum, float* carry_r, float* carry_i, void* stream_ptr) {
   if (n < 1 || n > kMaxN || T < n || E < 0 || E > T || chunk < 1 || tile < 1 || slice < 1 ||
-      groups < 1 || run < 1 || (is_sc && (idr == nullptr || idi == nullptr))) {
+      groups < 1 || run < 1 || (is_sc && (idr == nullptr || idi == nullptr)) ||
+      (ofdm::adaptive(mode) && (is_sc || lane_i == nullptr || lane_f == nullptr))) {
     return cudaErrorInvalidValue;
   }
   if (sizeof(float) * (kPowerBlock + kWarps * warp_floats(n, T, E)) > 227 * 1024) {
@@ -298,6 +321,7 @@ int ofdm_fold_chunk(const float* txr, const float* txi, const float* cmr, const 
   L.T = T;
   L.E = E;
   L.q = ofdm::Qam{order, m, logm, bits, gray, scale};
+  L.lanes = ofdm::Lanes{lane_i, lane_f, n};
   L.snr_lin = snr_lin;
   L.add_noise = add_noise;
   L.is_sc = is_sc;
@@ -310,18 +334,9 @@ int ofdm_fold_chunk(const float* txr, const float* txi, const float* cmr, const 
   L.key = make_uint2(key0, key1);
 
   unsigned long long* a = reinterpret_cast<unsigned long long*>(acc);
-  cudaError_t err;
-  switch ((n + 31) / 32) {
-    case 1: err = launch<1>(L, partials, a, psum, carry_r, carry_i, stream); break;
-    case 2: err = launch<2>(L, partials, a, psum, carry_r, carry_i, stream); break;
-    case 3: err = launch<3>(L, partials, a, psum, carry_r, carry_i, stream); break;
-    case 4: err = launch<4>(L, partials, a, psum, carry_r, carry_i, stream); break;
-    case 5: err = launch<5>(L, partials, a, psum, carry_r, carry_i, stream); break;
-    case 6: err = launch<6>(L, partials, a, psum, carry_r, carry_i, stream); break;
-    case 7: err = launch<7>(L, partials, a, psum, carry_r, carry_i, stream); break;
-    default: err = launch<8>(L, partials, a, psum, carry_r, carry_i, stream); break;
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(ofdm::with_mode(mode, [&](auto md) {
+    return launch_mode<decltype(md)::value>(L, partials, a, psum, carry_r, carry_i, stream);
+  }));
 }
 
 const char* ofdm_error_string(int code) {

@@ -1,6 +1,8 @@
 // Device functions shared by the port's kernels: the Philox4x32-10 counter
 // generator, the link's arithmetic chain (24-bit uniforms, quarter-range
-// cos/sin, Gray/zig-zag QAM encode and slicer), the per-bin steps the chunk
+// cos/sin, the constellation codec: Gray/zig-zag QAM encode and slicer, PSK
+// on the cos/sin lattice with the rotation-search sector decision, and their
+// per-subcarrier adaptive forms), the per-bin steps the chunk
 // kernels run (tile sigma, noise, equalizer, error count, the block's
 // counter flush) and the TX stage and products of the dense ones (fold, mm).
 //
@@ -12,6 +14,8 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
+
 #include <cuda_runtime.h>
 
 namespace ofdm {
@@ -113,6 +117,201 @@ __device__ __forceinline__ int qam_demap(float er, float ei, const Qam& q) {
   const int colj = j & (q.m - 1);
   const int colzj = (rowj & 1) ? (q.m - 1 - colj) : colj;
   return (rowj << q.logm) | colzj;
+}
+
+// --- the constellation codec in its four modes ------------------------------------
+//
+// pallas_link._Spec.mode.  A kernel is compiled for one mode, a template
+// parameter beside its width, so no kernel branches on the mode at run time
+// and the qam instantiation carries none of the other modes' code.
+enum Mode : int { kQam = 0, kPsk = 1, kAqam = 2, kApsk = 3 };
+
+__host__ __device__ constexpr bool adaptive(int mode) { return mode == kAqam || mode == kApsk; }
+
+// The adaptive modes' lane rows, read by bin index k (link_kernel.Codec):
+// aqam irow = [mask, m, log2 m], frow = [scale, slicer 0.5/scale]; apsk
+// irow = [mask, order, log2 order], frow = [amplitude, cos(pi/M),
+// sin(pi/M)].  Null for qam and psk, whose Qam fields are scalars (psk:
+// order, bits = log2 M, gray; adaptive: bits = the static width).
+struct Lanes {
+  const int* irow;
+  const float* frow;
+  int n;  // row stride
+};
+
+// Prefix-XOR inverse Gray code unrolled to `width` bits.
+__device__ __forceinline__ int inverse_gray(int g, int width) {
+  for (int sh = 1; sh < width; sh <<= 1) g ^= g >> sh;
+  return g;
+}
+
+// f32 cos / sin of pi / 2^(i+1), i < 12 (orders up to 4096): the rotation
+// constants of the PSK sector search and its half-sector test at order
+// 2^(i+1), rounded from the same doubles as pallas_link.psk_sector_arith.
+__constant__ float kRotCos[12] = {
+    0x1.1a6264p-54f, 0x1.6a09e6p-1f, 0x1.d906bcp-1f, 0x1.f6297cp-1f, 0x1.fd88dap-1f, 0x1.ff621ep-1f,
+    0x1.ffd886p-1f,  0x1.fff622p-1f, 0x1.fffd88p-1f, 0x1.ffff62p-1f, 0x1.ffffd8p-1f, 0x1.fffff6p-1f};
+__constant__ float kRotSin[12] = {
+    0x1.0p+0f,       0x1.6a09e6p-1f, 0x1.87de2ap-2f, 0x1.8f8b84p-3f, 0x1.917a6cp-4f,  0x1.91f66p-5f,
+    0x1.92156p-6f,   0x1.921d2p-7f,  0x1.921f1p-8f,  0x1.921f8cp-9f, 0x1.921faap-10f, 0x1.921fb2p-11f};
+
+// round(angle(e) * M / 2pi) mod M without atan2 (pallas_link.psk_sector_arith):
+// two sign tests, then a binary search that rotates the point back by a
+// constant phasor at each step; the same f32 operations in the same order.
+__device__ __forceinline__ int psk_sector(float er, float ei, int m, int logm) {
+  int s = 0;
+  if (ei < 0.0f) {
+    s = m >> 1;
+    er = -er;
+    ei = -ei;
+  }
+  if (m >= 4 && er < 0.0f) {
+    s += m >> 2;
+    const float nr = ei;
+    ei = -er;
+    er = nr;
+  }
+  int i = 1;
+  for (int step = m >> 3; step >= 1; step >>= 1, ++i) {
+    const float ca = kRotCos[i];
+    const float sa = kRotSin[i];
+    const float ni = ei * ca - er * sa;
+    if (ni >= 0.0f) {
+      s += step;
+      const float nr = er * ca + ei * sa;
+      er = nr;
+      ei = ni;
+    }
+  }
+  const bool t = ei * kRotCos[logm - 1] - er * kRotSin[logm - 1] >= 0.0f;
+  return (s + (t ? 1 : 0)) & (m - 1);
+}
+
+// psk_sector at a per-lane order m (1 on an inactive lane, whose sector
+// masks to 0) with the lane's half-sector cos / sin, looping to the static
+// width `bits` (pallas_link.psk_sector_arith_vec): a lane whose step has
+// reached 0 stops accumulating and rotating.
+__device__ __forceinline__ int psk_sector_lane(float er, float ei, int m, float cpm, float spm,
+                                               int bits) {
+  int s = 0;
+  if (ei < 0.0f) {
+    s = m >> 1;
+    er = -er;
+    ei = -ei;
+  }
+  if (bits >= 2 && er < 0.0f && m >= 4) {
+    s += m >> 2;
+    const float nr = ei;
+    ei = -er;
+    er = nr;
+  }
+  for (int shift = 3; shift <= bits; ++shift) {
+    const int step = m >> shift;
+    const float ca = kRotCos[shift - 2];
+    const float sa = kRotSin[shift - 2];
+    const float ni = ei * ca - er * sa;
+    if (ni >= 0.0f && step >= 1) {
+      s += step;
+      const float nr = er * ca + ei * sa;
+      er = nr;
+      ei = ni;
+    }
+  }
+  const bool t = ei * cpm - er * spm >= 0.0f;
+  return (s + (t ? 1 : 0)) & (m - 1);
+}
+
+// The TX index of a raw word at bin k: the masked draw.
+template <int kMode>
+__device__ __forceinline__ int tx_index(uint32_t raw, const Qam& q, const Lanes& r, int k) {
+  if constexpr (adaptive(kMode)) {
+    return static_cast<int>(raw & static_cast<uint32_t>(__ldg(r.irow + k)));
+  } else {
+    return static_cast<int>(raw & static_cast<uint32_t>(q.order - 1));
+  }
+}
+
+// raw word -> (index, point) of bin k (pallas_link._encode_tile).  PSK
+// points lie on cossin_u24's lattice at angle p << (24 - log2 M), the
+// polynomial pair of the noise phase; an inactive adaptive lane sends 0.
+template <int kMode>
+__device__ __forceinline__ int encode(uint32_t raw, const Qam& q, const Lanes& r, int k, float& sr,
+                                      float& si) {
+  if constexpr (kMode == kQam) {
+    return qam_encode(raw, q, sr, si);
+  } else if constexpr (kMode == kPsk) {
+    const int tx = tx_index<kMode>(raw, q, r, k);
+    const int p = q.gray ? inverse_gray(tx, q.bits) : tx;
+    cossin_u24(static_cast<uint32_t>(p) << (24 - q.bits), sr, si);
+    return tx;
+  } else if constexpr (kMode == kAqam) {
+    const int tx = tx_index<kMode>(raw, q, r, k);
+    const int m = __ldg(r.irow + r.n + k);
+    const int lm = __ldg(r.irow + 2 * r.n + k);
+    const int row = tx >> lm;
+    const int col = tx & (m - 1);
+    const int colz = (row & 1) ? (m - 1 - col) : col;
+    const int g = (row << lm) | colz;
+    const int p = g ^ (g >> 1);
+    const float mf = static_cast<float>(m);
+    const float c2 = static_cast<float>(p & (m - 1));
+    const float r2 = static_cast<float>(p >> lm);
+    const float sc = __ldg(r.frow + k);
+    sr = (2.0f * c2 - (mf - 1.0f)) * sc;
+    si = ((mf - 1.0f) - 2.0f * r2) * sc;
+    return tx;
+  } else {
+    const int tx = tx_index<kMode>(raw, q, r, k);
+    const int lb = __ldg(r.irow + 2 * r.n + k);
+    const int p = inverse_gray(tx, q.bits);
+    float co, sn;
+    cossin_u24(static_cast<uint32_t>(p) << (24 - lb), co, sn);
+    const float amp = __ldg(r.frow + k);
+    sr = co * amp;
+    si = sn * amp;
+    return tx;
+  }
+}
+
+// Equalized point of bin k -> index (pallas_link._demap_tile): QAM in
+// slicer units, PSK scale-free.
+template <int kMode>
+__device__ __forceinline__ int demap(float er, float ei, const Qam& q, const Lanes& r, int k) {
+  if constexpr (kMode == kQam) {
+    return qam_demap(er, ei, q);
+  } else if constexpr (kMode == kPsk) {
+    const int s = psk_sector(er, ei, q.order, q.bits);
+    return q.gray ? (s ^ (s >> 1)) : s;
+  } else if constexpr (kMode == kAqam) {
+    const int m = __ldg(r.irow + r.n + k);
+    const int lm = __ldg(r.irow + 2 * r.n + k);
+    const float mf = static_cast<float>(m);
+    const float c0 = (mf - 1.0f) * 0.5f;
+    const int cc = static_cast<int>(fminf(fmaxf(rintf(er + c0), 0.0f), mf - 1.0f));
+    const int rr = static_cast<int>(fminf(fmaxf(rintf(c0 - ei), 0.0f), mf - 1.0f));
+    const int j = inverse_gray(rr * m + cc, q.bits);
+    const int rowj = j >> lm;
+    const int colj = j & (m - 1);
+    const int colzj = (rowj & 1) ? (m - 1 - colj) : colj;
+    return (rowj << lm) | colzj;
+  } else {
+    const int s = psk_sector_lane(er, ei, __ldg(r.irow + r.n + k), __ldg(r.frow + r.n + k),
+                                  __ldg(r.frow + 2 * r.n + k), q.bits);
+    return s ^ (s >> 1);
+  }
+}
+
+// Calls f(std::integral_constant<int, mode>()) for a runtime mode, so a
+// launcher instantiates its kernels once per mode.
+template <class F>
+cudaError_t with_mode(int mode, F&& f) {
+  switch (mode) {
+    case kQam: return f(std::integral_constant<int, kQam>());
+    case kPsk: return f(std::integral_constant<int, kPsk>());
+    case kAqam: return f(std::integral_constant<int, kAqam>());
+    case kApsk: return f(std::integral_constant<int, kApsk>());
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // --- the per-bin chain both chunk kernels run ----------------------------------
@@ -230,9 +429,10 @@ __device__ __forceinline__ float mmse_nv_block(const Equalizer& eq, const float 
   return sp / snr_lin / eq.cg;
 }
 
-// Bin k equalized into slicer units.  MMSE is tested first: in this order
-// nvcc emits plain branches instead of a jump table, and diag_main runs
-// faster on an H100 (the headline link is MMSE).
+// Bin k equalized into slicer units (the slicer gain: 0.5/scale for qam,
+// 1 for PSK).  MMSE is tested first: in this order nvcc emits plain
+// branches instead of a jump table, and diag_main runs faster on an H100
+// (the headline link is MMSE).
 __device__ __forceinline__ void equalize_bin(const Equalizer& eq, int k, float yr, float yi,
                                              float nv, float& er, float& ei) {
   if (eq.method == 1) {
@@ -252,10 +452,25 @@ __device__ __forceinline__ void equalize_bin(const Equalizer& eq, int k, float y
   }
 }
 
-// Slice one bin and add its bit and symbol errors against tx.
-__device__ __forceinline__ void count_bin(int tx, float er, float ei, const Qam& q, uint32_t& be,
-                                          uint32_t& se) {
-  const int x = tx ^ qam_demap(er, ei, q);
+// equalize_bin in mode kMode: aqam's slicer gain is the lane's row (the ZF
+// rows carry it folded in); every other mode takes the scalar.
+template <int kMode>
+__device__ __forceinline__ void equalize_bin(const Equalizer& eq, const Lanes& lanes, int k,
+                                             float yr, float yi, float nv, float& er, float& ei) {
+  if constexpr (kMode == kAqam) {
+    Equalizer lane_eq = eq;
+    lane_eq.slicer = __ldg(lanes.frow + lanes.n + k);
+    equalize_bin(lane_eq, k, yr, yi, nv, er, ei);
+  } else {
+    equalize_bin(eq, k, yr, yi, nv, er, ei);
+  }
+}
+
+// Slice bin k and add its bit and symbol errors against tx.
+template <int kMode>
+__device__ __forceinline__ void count_bin(int tx, float er, float ei, const Qam& q,
+                                          const Lanes& lanes, int k, uint32_t& be, uint32_t& se) {
+  const int x = tx ^ demap<kMode>(er, ei, q, lanes, k);
   be += static_cast<uint32_t>(__popc(x));
   se += x != 0 ? 1u : 0u;
 }
@@ -263,8 +478,8 @@ __device__ __forceinline__ void count_bin(int tx, float er, float ei, const Qam&
 // --- the TX stage of the dense chunk kernels (fold, mm) ---------------------------
 //
 // A warp holds one symbol.  `Link` is the kernel's own link struct; these
-// functions read its txr / txi ((n, T+E) F_tx,ext, row-major), n, T, E, q
-// and key.
+// functions read its txr / txi ((n, T+E) F_tx,ext, row-major), n, T, E, q,
+// lanes and key, and encode in mode kMode.
 
 // A warp's shared buffers: s (n complex), act = [x[0:T) | previous tail]
 // (T+E complex), the next tail (E complex).
@@ -341,7 +556,7 @@ __device__ __forceinline__ void row_product(const float* vr, const float* vi, co
 // first symbol: encode, then the same k-ascending product over the same
 // F_tx,ext columns, so it is bit-equal to the tail a carry would hold.
 // Leaves the warp synchronized.
-template <class Link>
+template <int kMode, class Link>
 __device__ void prev_tail(const Link& L, const WarpBufs& w, unsigned long long sym, int lane) {
   const int TE = L.T + L.E;
   if (L.E == 0) return;
@@ -355,7 +570,7 @@ __device__ void prev_tail(const Link& L, const WarpBufs& w, unsigned long long s
   }
   for (int k = lane; k < L.n; k += 32) {
     const uint4 wd = symbol_words(sym - 1, k, L.key);
-    qam_encode(wd.x, L.q, w.sr[k], w.si[k]);
+    encode<kMode>(wd.x, L.q, L.lanes, k, w.sr[k], w.si[k]);
   }
   __syncwarp();
   for (int t = L.T + lane; t < TE; t += 32) cdot(w.sr, w.si, L.txr, L.txi, L.n, TE, t, w.ar[t], w.ai[t]);
@@ -367,7 +582,7 @@ __device__ void prev_tail(const Link& L, const WarpBufs& w, unsigned long long s
 // and the next tail, folds x[0:T) into the PAPR stats when `papr`, writes
 // it to the carry row when `carry_r` is set.  Leaves the warp synchronized,
 // act = [x[0:T) | previous tail] ready for the channel product.
-template <int J, class Link>
+template <int J, int kMode, class Link>
 __device__ __forceinline__ void symbol_tx(const Link& L, const WarpBufs& w, unsigned long long sym,
                                           int lane, bool papr, float& pk, double& ps,
                                           float* carry_r, float* carry_i, int (&tx)[J],
@@ -381,7 +596,7 @@ __device__ __forceinline__ void symbol_tx(const Link& L, const WarpBufs& w, unsi
     w2[j] = 0u;
     if (k < L.n) {
       const uint4 wd = symbol_words(sym, k, L.key);
-      tx[j] = qam_encode(wd.x, L.q, w.sr[k], w.si[k]);
+      tx[j] = encode<kMode>(wd.x, L.q, L.lanes, k, w.sr[k], w.si[k]);
       w1[j] = wd.y;
       w2[j] = wd.z;
     }

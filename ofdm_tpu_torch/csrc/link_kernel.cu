@@ -3,11 +3,12 @@
 // statistic and one carry row written to device memory.
 //
 // Replaces: ofdm_tpu/ops/pallas_link.py::_fn_for_spec -> kernel, in its
-// conv="diag", mode="qam" form (cyclic prefix covering the channel order,
-// so TX -> channel -> RX is exactly diag(h_freq)).  Per bin: Philox words ->
-// Gray/zig-zag QAM encode -> y = s*h -> measured-power AWGN (Box-Muller,
+// conv="diag" form (cyclic prefix covering the channel order, so TX ->
+// channel -> RX is exactly diag(h_freq)), in each constellation mode: qam,
+// psk, aqam and apsk (a template parameter, link_common.cuh's codec).  Per
+// bin: Philox words -> encode -> y = s*h -> measured-power AWGN (Box-Muller,
 // quarter-range polynomial phase) -> ZF / MMSE / no equalizer with the
-// slicer gain folded in -> float-clipped slicer -> popcount(tx ^ rx).
+// slicer gain folded in -> slicer or PSK sector -> popcount(tx ^ rx).
 // Every pstride-th tile also runs the IDFT+CP product for the PAPR max/sum.
 //
 // Bound on an H100: issue rate, not memory.  The kernel reads only the
@@ -68,6 +69,7 @@ struct Link {
   int pstride;
   int carry_sym;  // last symbol of the chunk's last sampled tile
   uint2 key;
+  ofdm::Lanes lanes;  // the adaptive modes' lane rows
 };
 
 __device__ __forceinline__ uint4 words_for(const Link& L, int b, int k) {
@@ -76,6 +78,7 @@ __device__ __forceinline__ uint4 words_for(const Link& L, int b, int k) {
 
 // Partial sums of |s*h|^2 over each tile's measured-power slice.
 // grid (tiles, groups); element e = g*4096 + j*256 + t of the tile's slice.
+template <int kMode>
 __global__ void __launch_bounds__(kPowerThreads) power_partials(Link L, float* partials) {
   __shared__ float red[kPowerThreads];
   const int tile_id = blockIdx.x;
@@ -93,7 +96,7 @@ __global__ void __launch_bounds__(kPowerThreads) power_partials(Link L, float* p
       const int k = e - b * L.n;
       const uint4 w = words_for(L, b0 + b, k);
       float sr, si;
-      ofdm::qam_encode(w.x, L.q, sr, si);
+      ofdm::encode<kMode>(w.x, L.q, L.lanes, k, sr, si);
       const float hr = __ldg(L.eq.hr + k);
       const float hi = __ldg(L.eq.hi + k);
       const float yr = sr * hr - si * hi;
@@ -105,7 +108,7 @@ __global__ void __launch_bounds__(kPowerThreads) power_partials(Link L, float* p
   ofdm::store_block_sum<kPowerThreads>(acc, red, t, partials + tile_id * L.groups + g);
 }
 
-template <int J>
+template <int J, int kMode>
 __global__ void __launch_bounds__(kThreads)
     diag_main(Link L, const float* partials, unsigned long long* acc, double* psum,
               float* carry_r, float* carry_i) {
@@ -143,7 +146,7 @@ __global__ void __launch_bounds__(kThreads)
       if (k < L.n) {
         const uint4 w = words_for(L, b, k);
         float sr, si;
-        tx[j] = ofdm::qam_encode(w.x, L.q, sr, si);
+        tx[j] = ofdm::encode<kMode>(w.x, L.q, L.lanes, k, sr, si);
         if (sampled) {
           s_sr[warp][k] = sr;
           s_si[warp][k] = si;
@@ -162,8 +165,8 @@ __global__ void __launch_bounds__(kThreads)
       const int k = lane + 32 * j;
       if (k < L.n) {
         float er, ei;
-        ofdm::equalize_bin(L.eq, k, yr[j], yi[j], nv, er, ei);
-        ofdm::count_bin(tx[j], er, ei, L.q, be, se);
+        ofdm::equalize_bin<kMode>(L.eq, L.lanes, k, yr[j], yi[j], nv, er, ei);
+        ofdm::count_bin<kMode>(tx[j], er, ei, L.q, L.lanes, k, be, se);
       }
     }
 
@@ -195,12 +198,6 @@ __global__ void __launch_bounds__(kThreads)
   ofdm::flush_counters<kWarps>(be, se, pk, ps, acc, psum);
 }
 
-template <int J>
-void launch_main(const Link& L, int grid, const float* partials, unsigned long long* acc,
-                 double* psum, float* cr, float* ci, cudaStream_t stream) {
-  diag_main<J><<<grid, kThreads, 0, stream>>>(L, partials, acc, psum, cr, ci);
-}
-
 int sm_count() {
   static int count = 0;
   if (count == 0) {
@@ -212,6 +209,29 @@ int sm_count() {
   return count;
 }
 
+// power_partials (when noise is on) then diag_main, in mode kMode.
+template <int kMode>
+cudaError_t launch(const Link& L, float* partials, unsigned long long* acc, double* psum, float* cr,
+                   float* ci, cudaStream_t stream) {
+  const int tiles = (L.chunk + L.tile - 1) / L.tile;
+  if (L.add_noise) {
+    power_partials<kMode><<<dim3(tiles, L.groups), kPowerThreads, 0, stream>>>(L, partials);
+  }
+  const int want = (L.chunk + kWarps - 1) / kWarps;
+  const int grid = want < sm_count() * 8 ? want : sm_count() * 8;
+  switch ((L.n + 31) / 32) {
+    case 1: diag_main<1, kMode><<<grid, kThreads, 0, stream>>>(L, partials, acc, psum, cr, ci); break;
+    case 2: diag_main<2, kMode><<<grid, kThreads, 0, stream>>>(L, partials, acc, psum, cr, ci); break;
+    case 3: diag_main<3, kMode><<<grid, kThreads, 0, stream>>>(L, partials, acc, psum, cr, ci); break;
+    case 4: diag_main<4, kMode><<<grid, kThreads, 0, stream>>>(L, partials, acc, psum, cr, ci); break;
+    case 5: diag_main<5, kMode><<<grid, kThreads, 0, stream>>>(L, partials, acc, psum, cr, ci); break;
+    case 6: diag_main<6, kMode><<<grid, kThreads, 0, stream>>>(L, partials, acc, psum, cr, ci); break;
+    case 7: diag_main<7, kMode><<<grid, kThreads, 0, stream>>>(L, partials, acc, psum, cr, ci); break;
+    default: diag_main<8, kMode><<<grid, kThreads, 0, stream>>>(L, partials, acc, psum, cr, ci); break;
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace ofdm_link
 
 using namespace ofdm_link;
@@ -219,18 +239,23 @@ using namespace ofdm_link;
 extern "C" {
 
 // One chunk: power_partials (when noise is on) then diag_main, both on
-// `stream`.  acc = [bit errors, symbol errors, PAPR peak f32 bits] (int64,
-// accumulated), psum = PAPR power sum (float64, accumulated).  Returns
-// cudaGetLastError() after the launches.
+// `stream`, in constellation mode `mode` (link_common.cuh::Mode; lane_i /
+// lane_f the adaptive modes' lane rows).  acc = [bit errors, symbol errors,
+// PAPR peak f32 bits] (int64, accumulated), psum = PAPR power sum (float64,
+// accumulated).  Returns cudaGetLastError() after the launches.
 int ofdm_diag_chunk(const float* hr, const float* hi, const float* habs2, const float* gr,
-                    const float* gi, const float* fr, const float* fi, int n, int T, int order,
-                    int m, int logm, int bits, int gray, float scale, float slicer,
+                    const float* gi, const float* fr, const float* fi, int n, int T, int mode,
+                    int order, int m, int logm, int bits, int gray, float scale,
+                    const int* lane_i, const float* lane_f, float slicer,
                     float snr_lin, float cg, int method, int add_noise,
                     unsigned long long sym0, int chunk, int tile, int slice, int groups,
                     int pstride, int carry_sym, unsigned int key0, unsigned int key1,
                     float* partials, long long* acc, double* psum, float* carry_r,
                     float* carry_i, void* stream_ptr) {
-  if (n < 1 || n > kMaxN || chunk < 1 || tile < 1 || pstride < 1) return cudaErrorInvalidValue;
+  if (n < 1 || n > kMaxN || chunk < 1 || tile < 1 || pstride < 1 ||
+      (ofdm::adaptive(mode) && (lane_i == nullptr || lane_f == nullptr))) {
+    return cudaErrorInvalidValue;
+  }
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   Link L;
   L.eq = ofdm::Equalizer{hr, hi, habs2, gr, gi, slicer, cg, method};
@@ -239,6 +264,7 @@ int ofdm_diag_chunk(const float* hr, const float* hi, const float* habs2, const 
   L.n = n;
   L.T = T;
   L.q = ofdm::Qam{order, m, logm, bits, gray, scale};
+  L.lanes = ofdm::Lanes{lane_i, lane_f, n};
   L.snr_lin = snr_lin;
   L.add_noise = add_noise;
   L.sym0 = sym0;
@@ -250,24 +276,10 @@ int ofdm_diag_chunk(const float* hr, const float* hi, const float* habs2, const 
   L.carry_sym = carry_sym;
   L.key = make_uint2(key0, key1);
 
-  const int tiles = (chunk + tile - 1) / tile;
-  if (add_noise) {
-    power_partials<<<dim3(tiles, groups), kPowerThreads, 0, stream>>>(L, partials);
-  }
-  const int want = (chunk + kWarps - 1) / kWarps;
-  const int grid = want < sm_count() * 8 ? want : sm_count() * 8;
   unsigned long long* a = reinterpret_cast<unsigned long long*>(acc);
-  switch ((n + 31) / 32) {
-    case 1: launch_main<1>(L, grid, partials, a, psum, carry_r, carry_i, stream); break;
-    case 2: launch_main<2>(L, grid, partials, a, psum, carry_r, carry_i, stream); break;
-    case 3: launch_main<3>(L, grid, partials, a, psum, carry_r, carry_i, stream); break;
-    case 4: launch_main<4>(L, grid, partials, a, psum, carry_r, carry_i, stream); break;
-    case 5: launch_main<5>(L, grid, partials, a, psum, carry_r, carry_i, stream); break;
-    case 6: launch_main<6>(L, grid, partials, a, psum, carry_r, carry_i, stream); break;
-    case 7: launch_main<7>(L, grid, partials, a, psum, carry_r, carry_i, stream); break;
-    default: launch_main<8>(L, grid, partials, a, psum, carry_r, carry_i, stream); break;
-  }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(ofdm::with_mode(mode, [&](auto md) {
+    return launch<decltype(md)::value>(L, partials, a, psum, carry_r, carry_i, stream);
+  }));
 }
 
 const char* ofdm_error_string(int code) {

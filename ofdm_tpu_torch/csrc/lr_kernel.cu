@@ -3,18 +3,19 @@
 // statistic and the carry row written to device memory.
 //
 // Replaces: ofdm_tpu/ops/pallas_link.py::_fn_for_spec -> kernel, in its
-// conv="lr", mode="qam" form: OFDM links whose TX -> channel -> RX map is
+// conv="lr" form, in each constellation mode (qam, psk, aqam, apsk: a
+// template parameter, link_common.cuh's codec): OFDM links whose TX -> channel -> RX map is
 // factored (ops/lowrank.py) into a diagonal D and two rank-E corrections —
 // wide links with or without ISI, and zero-prefix links with their colored
 // bin noise.  Per OFDM symbol b:
-//   Philox words -> Gray/zig-zag QAM encode s_b
+//   Philox words -> encode s_b
 //   t_b  = s_b @ TailM                     (n -> E: the block's last E time samples)
 //   y_b  = s_b * D + t_b @ Cr + t_{b-1} @ Cp
 //   AWGN per frequency bin, sigma = sqrt(mp / snr_lin / 2), mp the mean |y|^2
 //   over the first `slice` symbols of b's tile, before noise, times pw_scale;
 //   a zero prefix adds the colored part sigma * g2 @ B^H (g2: r normals)
 //   ZF / MMSE / none with the slicer gain 0.5/scale folded in
-//   float-clipped slicer -> popcount(tx ^ rx) into int64 counters.
+//   slicer or PSK sector -> popcount(tx ^ rx) into int64 counters.
 // Below 512 subcarriers every pstride-th tile also runs x = s @ F_tx for the
 // PAPR max and sum; from 512 (txext) the runner supplies the statistic.
 //
@@ -94,6 +95,7 @@ struct Link {
   int groups;
   int run;  // consecutive symbols a block of lr_main walks
   uint2 key;
+  ofdm::Lanes lanes;  // the adaptive modes' lane rows
 };
 
 // Block-shared scratch of both kernels.
@@ -105,7 +107,7 @@ struct Scratch {
 };
 
 // Symbol `sym`'s words and points for the thread's bins.
-template <int J>
+template <int J, int kMode>
 __device__ __forceinline__ void encode(const Link& L, unsigned long long sym, int (&tx)[J],
                                        uint32_t (&w1)[J], uint32_t (&w2)[J], float (&sr)[J],
                                        float (&si)[J]) {
@@ -119,7 +121,7 @@ __device__ __forceinline__ void encode(const Link& L, unsigned long long sym, in
     si[j] = 0.0f;
     if (k < L.n) {
       const uint4 wd = ofdm::symbol_words(sym, k, L.key);
-      tx[j] = ofdm::qam_encode(wd.x, L.q, sr[j], si[j]);
+      tx[j] = ofdm::encode<kMode>(wd.x, L.q, L.lanes, k, sr[j], si[j]);
       w1[j] = wd.y;
       w2[j] = wd.z;
     }
@@ -168,7 +170,7 @@ __device__ void tail_of(const Link& L, const float (&sr)[J], const float (&si)[J
 
 // out = t of run symbol `sym - 1`, or zeros for the run's first symbol.
 // Leaves the block synchronized.
-template <int J>
+template <int J, int kMode>
 __device__ void prev_tail(const Link& L, unsigned long long sym, Scratch& sh, float* out) {
   if (sym == 0) {
     if (static_cast<int>(threadIdx.x) < 2 * L.E) out[threadIdx.x] = 0.0f;
@@ -178,7 +180,7 @@ __device__ void prev_tail(const Link& L, unsigned long long sym, Scratch& sh, fl
   int tx[J];
   uint32_t w1[J], w2[J];
   float sr[J], si[J];
-  encode<J>(L, sym - 1, tx, w1, w2, sr, si);
+  encode<J, kMode>(L, sym - 1, tx, w1, w2, sr, si);
   tail_of<J>(L, sr, si, sh, out);
 }
 
@@ -222,7 +224,7 @@ __device__ __forceinline__ void symbol_y(const Link& L, const float (&sr)[J], co
 // Partial sums of |y|^2 (before noise) over each tile's measured-power slice,
 // in power_partials' order.  grid (tiles, groups); block (tile, g) covers
 // slice elements e = b*n + k in [g*4096, (g+1)*4096).
-template <int J>
+template <int J, int kMode>
 __global__ void __launch_bounds__(kThreads) lr_power(Link L, float* partials) {
   __shared__ float red[kPowerBlock];  // element order
   __shared__ Scratch sh;
@@ -239,13 +241,13 @@ __global__ void __launch_bounds__(kThreads) lr_power(Link L, float* partials) {
   if (e_lo < e_hi) {
     const int s_lo = e_lo / L.n;
     const int s_hi = (e_hi - 1) / L.n + 1;
-    prev_tail<J>(L, L.sym0 + static_cast<unsigned long long>(b0 + s_lo), sh, sh.t[0]);
+    prev_tail<J, kMode>(L, L.sym0 + static_cast<unsigned long long>(b0 + s_lo), sh, sh.t[0]);
     int cur = 0;
     for (int s = s_lo; s < s_hi; ++s) {
       int tx[J];
       uint32_t w1[J], w2[J];
       float sr[J], si[J], yr[J], yi[J];
-      encode<J>(L, L.sym0 + static_cast<unsigned long long>(b0 + s), tx, w1, w2, sr, si);
+      encode<J, kMode>(L, L.sym0 + static_cast<unsigned long long>(b0 + s), tx, w1, w2, sr, si);
       tail_of<J>(L, sr, si, sh, sh.t[cur ^ 1]);
       symbol_y<J>(L, sr, si, sh.t[cur ^ 1], sh.t[cur], yr, yi);
 #pragma unroll
@@ -260,7 +262,7 @@ __global__ void __launch_bounds__(kThreads) lr_power(Link L, float* partials) {
   ofdm::power_block_partial<kThreads, kPowerSteps>(red, tid, partials + tile_id * L.groups + g);
 }
 
-template <int J>
+template <int J, int kMode>
 __global__ void __launch_bounds__(kThreads)
     lr_main(Link L, const float* partials, unsigned long long* acc, double* psum, float* carry_r,
             float* carry_i) {
@@ -274,7 +276,7 @@ __global__ void __launch_bounds__(kThreads)
 
   const int b0 = static_cast<int>(static_cast<long long>(blockIdx.x) * L.run);
   const int b1 = min(b0 + L.run, L.chunk);
-  prev_tail<J>(L, L.sym0 + static_cast<unsigned long long>(b0), sh, sh.t[0]);
+  prev_tail<J, kMode>(L, L.sym0 + static_cast<unsigned long long>(b0), sh, sh.t[0]);
   int cur = 0;
   int cached_tile = -1;
   float sigma = 0.0f;
@@ -290,7 +292,7 @@ __global__ void __launch_bounds__(kThreads)
     int tx[J];
     uint32_t w1[J], w2[J];
     float sr[J], si[J];
-    encode<J>(L, sym, tx, w1, w2, sr, si);
+    encode<J, kMode>(L, sym, tx, w1, w2, sr, si);
     float* t = sh.t[cur ^ 1];
     const float* tp = sh.t[cur];
     tail_of<J>(L, sr, si, sh, t);
@@ -366,8 +368,8 @@ __global__ void __launch_bounds__(kThreads)
       const int k = tid + kThreads * j;
       if (k < L.n) {
         float er, ei;
-        ofdm::equalize_bin(L.eq, k, yr[j], yi[j], nv, er, ei);
-        ofdm::count_bin(tx[j], er, ei, L.q, be, se);
+        ofdm::equalize_bin<kMode>(L.eq, L.lanes, k, yr[j], yi[j], nv, er, ei);
+        ofdm::count_bin<kMode>(tx[j], er, ei, L.q, L.lanes, k, be, se);
       }
     }
 
@@ -386,24 +388,35 @@ __global__ void __launch_bounds__(kThreads)
   ofdm::flush_counters<kWarps>(be, se, pk, ps, acc, psum);
 }
 
-template <int J>
+template <int J, int kMode>
 cudaError_t launch(const Link& L, float* partials, unsigned long long* acc, double* psum,
                    float* cr, float* ci, cudaStream_t stream) {
   if (L.add_noise) {
     const int tiles = (L.chunk + L.tile - 1) / L.tile;
-    lr_power<J><<<dim3(tiles, L.groups), kThreads, 0, stream>>>(L, partials);
+    lr_power<J, kMode><<<dim3(tiles, L.groups), kThreads, 0, stream>>>(L, partials);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   const size_t plane_bytes = L.txext ? 0 : sizeof(float) * 2 * L.n;
   if (plane_bytes > 0) {
     const cudaError_t err = cudaFuncSetAttribute(
-        lr_main<J>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(plane_bytes));
+        lr_main<J, kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(plane_bytes));
     if (err != cudaSuccess) return err;
   }
   const int grid = (L.chunk + L.run - 1) / L.run;
-  lr_main<J><<<grid, kThreads, plane_bytes, stream>>>(L, partials, acc, psum, cr, ci);
+  lr_main<J, kMode><<<grid, kThreads, plane_bytes, stream>>>(L, partials, acc, psum, cr, ci);
   return cudaGetLastError();
+}
+
+template <int kMode>
+cudaError_t launch_mode(const Link& L, float* partials, unsigned long long* acc, double* psum,
+                        float* cr, float* ci, cudaStream_t stream) {
+  const int bins = (L.n + kThreads - 1) / kThreads;  // bins a thread: 1 ... 16
+  if (bins <= 1) return launch<1, kMode>(L, partials, acc, psum, cr, ci, stream);
+  if (bins <= 2) return launch<2, kMode>(L, partials, acc, psum, cr, ci, stream);
+  if (bins <= 4) return launch<4, kMode>(L, partials, acc, psum, cr, ci, stream);
+  if (bins <= 8) return launch<8, kMode>(L, partials, acc, psum, cr, ci, stream);
+  return launch<16, kMode>(L, partials, acc, psum, cr, ci, stream);
 }
 
 }  // namespace ofdm_lr
@@ -412,8 +425,9 @@ using namespace ofdm_lr;
 
 extern "C" {
 
-// One chunk: lr_power (when noise is on) then lr_main, both on `stream`.
-// acc = [bit errors, symbol errors, PAPR peak f32 bits] (int64, accumulated),
+// One chunk: lr_power (when noise is on) then lr_main, both on `stream`, in
+// constellation mode `mode` (link_common.cuh::Mode; lane_i / lane_f the
+// adaptive modes' lane rows).  acc = [bit errors, symbol errors, PAPR peak f32 bits] (int64, accumulated),
 // psum = PAPR power sum (float64, accumulated); carry = (T,) zeros but for the
 // last E lanes, the chunk's last symbol's t.  Returns the first CUDA error of
 // the launches, 0 if none.
@@ -421,15 +435,16 @@ int ofdm_lr_chunk(const float* tlr, const float* tli, const float* ccr, const fl
                   const float* bhr, const float* bhi, const float* dr, const float* di,
                   const float* fr, const float* fi, const float* hr, const float* hi,
                   const float* habs2, const float* gr, const float* gi, int n, int T, int E,
-                  int rank, int order, int m, int logm, int bits, int gray, float scale,
-                  float slicer, float snr_lin, float cg, float pw_scale, int method, int add_noise,
+                  int rank, int mode, int order, int m, int logm, int bits, int gray, float scale,
+                  const int* lane_i, const float* lane_f, float slicer, float snr_lin, float cg, float pw_scale, int method, int add_noise,
                   int txext, int pstride, unsigned long long sym0, int chunk, int tile, int slice,
                   int groups, int run, unsigned int key0, unsigned int key1, float* partials,
                   long long* acc, double* psum, float* carry_r, float* carry_i, void* stream_ptr) {
   if (n < 1 || n > kMaxN || T < n || E < 1 || E > kMaxE || E > T || rank < 0 ||
       rank > kMaxRank || chunk < 1 || tile < 1 || slice < 1 || groups < 1 || run < 1 ||
       pstride < 1 || (!txext && (fr == nullptr || fi == nullptr)) ||
-      (add_noise && rank > 0 && (bhr == nullptr || bhi == nullptr))) {
+      (add_noise && rank > 0 && (bhr == nullptr || bhi == nullptr)) ||
+      (ofdm::adaptive(mode) && (lane_i == nullptr || lane_f == nullptr))) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
@@ -450,6 +465,7 @@ int ofdm_lr_chunk(const float* tlr, const float* tli, const float* ccr, const fl
   L.E = E;
   L.rank = add_noise ? rank : 0;
   L.q = ofdm::Qam{order, m, logm, bits, gray, scale};
+  L.lanes = ofdm::Lanes{lane_i, lane_f, n};
   L.snr_lin = snr_lin;
   L.pw_scale = pw_scale;
   L.add_noise = add_noise;
@@ -464,20 +480,9 @@ int ofdm_lr_chunk(const float* tlr, const float* tli, const float* ccr, const fl
   L.key = make_uint2(key0, key1);
 
   unsigned long long* a = reinterpret_cast<unsigned long long*>(acc);
-  const int bins = (n + kThreads - 1) / kThreads;  // bins a thread: 1 ... 16
-  cudaError_t err;
-  if (bins <= 1) {
-    err = launch<1>(L, partials, a, psum, carry_r, carry_i, stream);
-  } else if (bins <= 2) {
-    err = launch<2>(L, partials, a, psum, carry_r, carry_i, stream);
-  } else if (bins <= 4) {
-    err = launch<4>(L, partials, a, psum, carry_r, carry_i, stream);
-  } else if (bins <= 8) {
-    err = launch<8>(L, partials, a, psum, carry_r, carry_i, stream);
-  } else {
-    err = launch<16>(L, partials, a, psum, carry_r, carry_i, stream);
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(ofdm::with_mode(mode, [&](auto md) {
+    return launch_mode<decltype(md)::value>(L, partials, a, psum, carry_r, carry_i, stream);
+  }));
 }
 
 const char* ofdm_error_string(int code) {

@@ -2,9 +2,11 @@
 // from random words to error counters.
 //
 // Replaces: ofdm_tpu/ops/pallas_link.py::_fn_for_spec -> kernel, in its
-// conv="mm", fold=False, mode="qam" form: zero-prefix OFDM and SC-FDE, whose
-// conv does not fold into the receiver.  Per OFDM symbol b:
-//   Philox words -> Gray/zig-zag QAM encode s_b
+// conv="mm", fold=False form: zero-prefix OFDM and SC-FDE, whose conv does
+// not fold into the receiver; in each constellation mode (qam, psk, aqam,
+// apsk: a template parameter, link_common.cuh's codec; SC-FDE takes no
+// adaptive mode).  Per OFDM symbol b:
+//   Philox words -> encode s_b
 //   x_b  = s_b @ F_tx,ext                  (n -> T+E: IDFT/identity + zero
 //                                           guard, the last E columns repeated)
 //   PAPR max and sum over x_b[0:T)
@@ -16,7 +18,7 @@
 //   Y    = y @ R                           (T -> n: overlap-add + DFT)
 //   ZF / MMSE / none with the slicer gain 0.5/scale folded in
 //   SC-FDE only: e = e @ IDFT (n -> n)
-//   float-clipped slicer -> popcount(tx ^ rx) into int64 counters.
+//   slicer or PSK sector -> popcount(tx ^ rx) into int64 counters.
 //
 // Bound on an H100: issue rate, not memory.  Each symbol runs n(T+E) +
 // (T+E)T + Tn (+ n^2 for SC-FDE) complex multiply-adds at 8 fp32 operations
@@ -92,13 +94,14 @@ struct Link {
   int groups;  // mm_front blocks a tile: ceil(tile * T / 4096)
   int run;     // consecutive symbols a warp of mm_main walks
   uint2 key;
+  ofdm::Lanes lanes;  // the adaptive modes' lane rows
 };
 
 // y before noise of the chunk's symbols, over each tile's time samples
 // e = s*T + t (tile-local s), and the power partials in power_partials'
 // order.  grid (tiles, groups); block (tile, g) covers e in
 // [g*4096, (g+1)*4096).
-template <int J>
+template <int J, int kMode>
 __global__ void __launch_bounds__(kThreads)
     mm_front(Link L, float* y_r, float* y_i, float* partials, unsigned long long* acc, double* psum,
              float* carry_r, float* carry_i) {
@@ -127,7 +130,7 @@ __global__ void __launch_bounds__(kThreads)
     const int w_lo = s_lo + warp * per;
     const int w_hi = min(w_lo + per, s_hi);
     if (w_lo < w_hi) {
-      ofdm::prev_tail(L, w, L.sym0 + static_cast<unsigned long long>(b0 + w_lo), lane);
+      ofdm::prev_tail<kMode>(L, w, L.sym0 + static_cast<unsigned long long>(b0 + w_lo), lane);
       const long long base = static_cast<long long>(b0) * L.T;
       int tx[J];
       uint32_t w1[J], w2[J];
@@ -135,7 +138,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int s = w_lo; s < w_hi; ++s) {
         const bool own = s * L.T >= e_lo;  // the block holds the symbol's first sample
         const bool last = own && b0 + s == L.chunk - 1;
-        ofdm::symbol_tx<J>(L, w, L.sym0 + static_cast<unsigned long long>(b0 + s), lane, own, pk, ps,
+        ofdm::symbol_tx<J, kMode>(L, w, L.sym0 + static_cast<unsigned long long>(b0 + s), lane, own, pk, ps,
                            last ? carry_r : nullptr, last ? carry_i : nullptr, tx, w1, w2);
         ofdm::row_product<J>(w.ar, w.ai, L.cvr, L.cvi, L.T + L.E, L.T, lane, yr, yi);
         ofdm::shift_tail(L, w, lane);
@@ -160,7 +163,7 @@ __global__ void __launch_bounds__(kThreads)
 // SC-FDE, the equalized bins (n complex).
 __host__ __device__ __forceinline__ int main_floats(int n, int T) { return 2 * (T + n); }
 
-template <int J>
+template <int J, int kMode>
 __global__ void __launch_bounds__(kThreads)
     mm_main(Link L, const float* y_r, const float* y_i, const float* partials,
             unsigned long long* acc, double* psum) {
@@ -179,7 +182,6 @@ __global__ void __launch_bounds__(kThreads)
     const int b1 = min(b0 + L.run, L.chunk);
     int cached_tile = -1;
     float sigma = 0.0f;
-    const uint32_t mask = static_cast<uint32_t>(L.q.order - 1);
     for (int b = b0; b < b1; ++b) {
       const int tile_id = b / L.tile;
       if (L.add_noise && tile_id != cached_tile) {
@@ -199,7 +201,7 @@ __global__ void __launch_bounds__(kThreads)
           float yi = __ldg(y_i + base + t);
           if (t < L.n || L.add_noise) {
             const uint4 wd = ofdm::symbol_words(sym, t, L.key);
-            if (t < L.n) tx[j] = static_cast<int>(wd.x & mask);
+            if (t < L.n) tx[j] = ofdm::tx_index<kMode>(wd.x, L.q, L.lanes, t);
             if (L.add_noise) ofdm::add_noise(wd.y, wd.z, sigma, yr, yi);
           }
           ybr[t] = yr;
@@ -217,10 +219,10 @@ __global__ void __launch_bounds__(kThreads)
         const int k = lane + 32 * j;
         er[j] = 0.0f;
         ei[j] = 0.0f;
-        if (k < L.n) ofdm::equalize_bin(L.eq, k, fr[j], fi[j], nv, er[j], ei[j]);
+        if (k < L.n) ofdm::equalize_bin<kMode>(L.eq, L.lanes, k, fr[j], fi[j], nv, er[j], ei[j]);
       }
 
-      if (L.is_sc) {
+      if (!ofdm::adaptive(kMode) && L.is_sc) {
         // SC-FDE: equalized bins -> time-domain symbols, e @ IDFT.
 #pragma unroll
         for (int j = 0; j < J; ++j) {
@@ -240,7 +242,8 @@ __global__ void __launch_bounds__(kThreads)
 
 #pragma unroll
       for (int j = 0; j < J; ++j) {
-        if (lane + 32 * j < L.n) ofdm::count_bin(tx[j], er[j], ei[j], L.q, be, se);
+        const int k = lane + 32 * j;
+        if (k < L.n) ofdm::count_bin<kMode>(tx[j], er[j], ei[j], L.q, L.lanes, k, be, se);
       }
       __syncwarp();  // the next symbol rewrites the buffers
     }
@@ -253,26 +256,40 @@ __host__ __forceinline__ size_t front_bytes(int n, int T, int E) {
   return sizeof(float) * (kPowerBlock + kWarps * ofdm::warp_floats(n, T, E));
 }
 
-template <int J>
+template <int J, int kMode>
 cudaError_t launch(const Link& L, float* y_r, float* y_i, float* partials, unsigned long long* acc,
                    double* psum, float* cr, float* ci, cudaStream_t stream) {
   const size_t fbytes = front_bytes(L.n, L.T, L.E);
   const size_t mbytes = sizeof(float) * kWarps * main_floats(L.n, L.T);
-  cudaError_t err = cudaFuncSetAttribute(mm_front<J>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t err = cudaFuncSetAttribute(mm_front<J, kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(fbytes));
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(mm_main<J>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(mm_main<J, kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(mbytes));
   if (err != cudaSuccess) return err;
   const int tiles = (L.chunk + L.tile - 1) / L.tile;
-  mm_front<J><<<dim3(tiles, L.groups), kThreads, fbytes, stream>>>(L, y_r, y_i, partials, acc, psum,
-                                                                    cr, ci);
+  mm_front<J, kMode><<<dim3(tiles, L.groups), kThreads, fbytes, stream>>>(L, y_r, y_i, partials, acc,
+                                                                           psum, cr, ci);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long warps = (static_cast<long long>(L.chunk) + L.run - 1) / L.run;
   const int grid = static_cast<int>((warps + kWarps - 1) / kWarps);
-  mm_main<J><<<grid, kThreads, mbytes, stream>>>(L, y_r, y_i, partials, acc, psum);
+  mm_main<J, kMode><<<grid, kThreads, mbytes, stream>>>(L, y_r, y_i, partials, acc, psum);
   return cudaGetLastError();
+}
+
+// Time samples a lane holds, rounded up to a compiled width.
+template <int kMode>
+cudaError_t launch_mode(const Link& L, float* y_r, float* y_i, float* partials,
+                        unsigned long long* acc, double* psum, float* cr, float* ci,
+                        cudaStream_t stream) {
+  const int jt = (L.T + 31) / 32;
+  if (jt <= 2) return launch<2, kMode>(L, y_r, y_i, partials, acc, psum, cr, ci, stream);
+  if (jt == 3) return launch<3, kMode>(L, y_r, y_i, partials, acc, psum, cr, ci, stream);
+  if (jt == 4) return launch<4, kMode>(L, y_r, y_i, partials, acc, psum, cr, ci, stream);
+  if (jt <= 6) return launch<6, kMode>(L, y_r, y_i, partials, acc, psum, cr, ci, stream);
+  if (jt <= 8) return launch<8, kMode>(L, y_r, y_i, partials, acc, psum, cr, ci, stream);
+  return launch<10, kMode>(L, y_r, y_i, partials, acc, psum, cr, ci, stream);
 }
 
 }  // namespace ofdm_mm
@@ -281,7 +298,9 @@ using namespace ofdm_mm;
 
 extern "C" {
 
-// One chunk: mm_front then mm_main, both on `stream`.  acc = [bit errors,
+// One chunk: mm_front then mm_main, both on `stream`, in constellation mode
+// `mode` (link_common.cuh::Mode; lane_i / lane_f the adaptive modes' lane
+// rows; SC-FDE takes no adaptive mode).  acc = [bit errors,
 // symbol errors, PAPR peak f32 bits] (int64, accumulated), psum = PAPR power
 // sum (float64, accumulated); y = scratch planes of chunk * T floats;
 // carry = the chunk's last symbol's x[0:T).  Returns the first CUDA error of
@@ -289,8 +308,9 @@ extern "C" {
 int ofdm_mm_chunk(const float* txr, const float* txi, const float* cvr, const float* cvi,
                   const float* rxr, const float* rxi, const float* idr, const float* idi,
                   const float* hr, const float* hi, const float* habs2, const float* gr,
-                  const float* gi, int n, int T, int E, int order, int m, int logm, int bits,
-                  int gray, float scale, float slicer, float snr_lin, float cg, int method,
+                  const float* gi, int n, int T, int E, int mode, int order, int m, int logm,
+                  int bits, int gray, float scale, const int* lane_i, const float* lane_f,
+                  float slicer, float snr_lin, float cg, int method,
                   int add_noise, int is_sc, unsigned long long sym0, int chunk, int tile,
                   int groups, int run, unsigned int key0, unsigned int key1, float* y_r,
                   float* y_i, float* partials, long long* acc, double* psum, float* carry_r,
@@ -298,7 +318,8 @@ int ofdm_mm_chunk(const float* txr, const float* txi, const float* cvr, const fl
   if (n < 1 || n > kMaxN || T < n || T > kMaxT || E < 0 || E > T || chunk < 1 || tile < 1 ||
       run < 1 || static_cast<long long>(chunk) * T > INT_MAX ||
       static_cast<long long>(groups) * kPowerBlock < static_cast<long long>(tile) * T ||
-      (is_sc && (idr == nullptr || idi == nullptr))) {
+      (is_sc && (idr == nullptr || idi == nullptr)) ||
+      (ofdm::adaptive(mode) && (is_sc || lane_i == nullptr || lane_f == nullptr))) {
     return cudaErrorInvalidValue;
   }
   if (front_bytes(n, T, E) > 227 * 1024) return cudaErrorInvalidValue;
@@ -317,6 +338,7 @@ int ofdm_mm_chunk(const float* txr, const float* txi, const float* cvr, const fl
   L.T = T;
   L.E = E;
   L.q = ofdm::Qam{order, m, logm, bits, gray, scale};
+  L.lanes = ofdm::Lanes{lane_i, lane_f, n};
   L.snr_lin = snr_lin;
   L.add_noise = add_noise;
   L.is_sc = is_sc;
@@ -328,23 +350,9 @@ int ofdm_mm_chunk(const float* txr, const float* txi, const float* cvr, const fl
   L.key = make_uint2(key0, key1);
 
   unsigned long long* a = reinterpret_cast<unsigned long long*>(acc);
-  // Time samples a lane holds, rounded up to a compiled width.
-  const int jt = (T + 31) / 32;
-  cudaError_t err;
-  if (jt <= 2) {
-    err = launch<2>(L, y_r, y_i, partials, a, psum, carry_r, carry_i, stream);
-  } else if (jt == 3) {
-    err = launch<3>(L, y_r, y_i, partials, a, psum, carry_r, carry_i, stream);
-  } else if (jt == 4) {
-    err = launch<4>(L, y_r, y_i, partials, a, psum, carry_r, carry_i, stream);
-  } else if (jt <= 6) {
-    err = launch<6>(L, y_r, y_i, partials, a, psum, carry_r, carry_i, stream);
-  } else if (jt <= 8) {
-    err = launch<8>(L, y_r, y_i, partials, a, psum, carry_r, carry_i, stream);
-  } else {
-    err = launch<10>(L, y_r, y_i, partials, a, psum, carry_r, carry_i, stream);
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(ofdm::with_mode(mode, [&](auto md) {
+    return launch_mode<decltype(md)::value>(L, y_r, y_i, partials, a, psum, carry_r, carry_i, stream);
+  }));
 }
 
 const char* ofdm_error_string(int code) {

@@ -1,14 +1,15 @@
 """The fused fold-mode chunk: kernel wrapper and plain version.
 
 Counterpart of ``ofdm_tpu/ops/pallas_link.py``'s ``kernel`` in conv="mm",
-fold=True, mode="qam" form (``csrc/fold_kernel.cu``): SC-FDE with a cyclic
+fold=True form (``csrc/fold_kernel.cu``), in each constellation mode
+(``link_kernel.Codec``; SC-FDE fixed modes only): SC-FDE with a cyclic
 prefix or none, and OFDM whose guard is shorter than the channel order.
 The conv folds into the guard strip + DFT, so a symbol costs two complex
 products (three for SC-FDE) and the noise is added per frequency bin.
 
 A chunk, per OFDM symbol b (the semantics of pallas_link.py:1428-1937 in
-its fold branches, not its lane-packed TPU layout): Philox words -> QAM
-encode s_b -> x_b = s_b @ F_tx,ext (E duplicated tail columns) -> PAPR max
+its fold branches, not its lane-packed TPU layout): Philox words -> encode
+s_b -> x_b = s_b @ F_tx,ext (E duplicated tail columns) -> PAPR max
 and sum over x_b[:T] -> act = [x_b[:T] | x_{b-1}[T:T+E]] -> y = act @ CM
 -> AWGN with the diag chunk's per-tile measured power -> ZF / MMSE / none
 -> (SC-FDE) e @ IDFT -> slicer -> popcount into int64 counters.  The
@@ -46,7 +47,7 @@ class FoldLink:
     n: int
     T: int
     E: int  # previous-symbol tail lanes (linops.ext_width)
-    q: lk.Qam
+    q: lk.Codec
     slicer: float
     cg: float
     method: int
@@ -132,7 +133,7 @@ def fold_planes(link: FoldLink, key: Tuple[int, int], sym0: int, chunk: int, snr
     raw, w1, w2 = (torch.as_tensor(w).to(device=device, dtype=torch.int64) & prng.M32 for w in words)
     if raw.shape != (chunk + prev, n):
         raise ValueError(f"words must be ({chunk + prev}, {n}) planes, got {tuple(raw.shape)}")
-    tx, sr, si = lk.qam_encode(raw, link.q)
+    tx, sr, si = lk.encode(raw, link.q)
     xr, xi = lk.cmatmul(link.txr, link.txi, sr, si)
     if prev:
         tail_r, tail_i = xr[:1, T:], xi[:1, T:]
@@ -187,6 +188,9 @@ def _check_link(link: FoldLink, device):
         raise ValueError("link.idr must be (n, n)")
     if not 1 <= n <= MAX_N:
         raise ValueError(f"fold kernel takes 1 <= n <= {MAX_N}, got {n}")
+    lk.check_codec(link.q, n, device)
+    if link.is_sc and link.q.mode in ("aqam", "apsk"):
+        raise ValueError("fold kernel: SC-FDE takes no adaptive constellation")
 
 
 def chunk_workspace(link: FoldLink, chunk: int, device):
@@ -236,7 +240,6 @@ def fold_chunk(
     from ofdm_tpu_torch import build
 
     lib = build.load("fold_kernel")
-    q = link.q
     sc = link.is_sc
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
@@ -245,8 +248,7 @@ def fold_chunk(
             link.idr.data_ptr() if sc else None, link.idi.data_ptr() if sc else None,
             link.hr.data_ptr(), link.hi.data_ptr(), link.habs2.data_ptr(),
             link.gr.data_ptr(), link.gi.data_ptr(),
-            link.n, link.T, link.E, q.order, q.m, q.logm, q.bits, int(q.gray),
-            q.scale, link.slicer, snr_lin, link.cg,
+            link.n, link.T, link.E, *lk.codec_args(link.q), link.slicer, snr_lin, link.cg,
             link.method, int(link.add_noise), int(sc),
             sym0,
             chunk, tile, link.slice, groups, RUN,

@@ -1,28 +1,33 @@
-"""The fused diag-mode chunk and the Box-Muller sampler: kernels and plain versions.
+"""The fused diag-mode chunk, the constellation codec and the Box-Muller sampler.
 
-Counterpart of ``ofdm_tpu/ops/pallas_link.py`` for this slice: its
-``kernel`` in conv="diag", mode="qam" form (``csrc/link_kernel.cu``) and
+Counterpart of ``ofdm_tpu/ops/pallas_link.py`` for the diag chain: its
+``kernel`` in conv="diag" form (``csrc/link_kernel.cu``), in each
+constellation mode — qam, psk, aqam and apsk (``Codec``: fixed square QAM,
+fixed M-PSK, and their per-subcarrier CAPACITY_BASED forms) — and
 ``boxmuller_sample`` (``csrc/boxmuller.cu``).  Beside each kernel sits its
 plain PyTorch version with the same operations in the same order, f32
 arithmetic and int64 integer ops; the wrappers ``diag_chunk`` and
 ``boxmuller_sample`` launch the kernel for CUDA tensors and run the plain
-version only for CPU tensors.  The plain pieces after the channel
-(``awgn``, ``equalize``, ``count_errors``, ``add_papr``, ``cmatmul``) and
-the shared host fields (``equalizer_fields``) serve the fold, lr and mm
-chunks (``ops.fold_kernel``, ``ops.lr_kernel``, ``ops.mm_kernel``) too.
+version only for CPU tensors.  The plain codec (``encode``, ``demap``),
+the pieces after the channel (``awgn``, ``equalize``, ``count_errors``,
+``add_papr``, ``cmatmul``) and the shared host fields
+(``equalizer_fields``) serve the fold, lr and mm chunks
+(``ops.fold_kernel``, ``ops.lr_kernel``, ``ops.mm_kernel``) too.
 
 A chunk of a diag link, per bin (the semantics of pallas_link.py:1428-1937,
-not its TPU layout): Philox words -> Gray/zig-zag QAM encode -> y = s * h
+not its TPU layout): Philox words -> encode (Gray/zig-zag QAM or the PSK
+cos/sin lattice, per-subcarrier rows under adaptive loading) -> y = s * h
 (h is the raw-IR ``h_freq``; the diagonal identity is checked here) ->
 AWGN with sigma = sqrt(mp / snr_lin / 2), mp the mean |y|^2 over the
 first ``slice`` symbols of the bin's tile -> ZF / MMSE / none with the
-slicer gain 0.5/scale folded in -> float-clipped slicer -> popcount of
-tx ^ rx into int64 counters.  Every ``pstride``-th tile of a chunk also
-computes the IDFT+CP time plane for the PAPR max and sum.
+slicer gain folded in (QAM only) -> float-clipped slicer or PSK sector ->
+popcount of tx ^ rx into int64 counters.  Every ``pstride``-th tile of a
+chunk also computes the IDFT+CP time plane for the PAPR max and sum.
 
 Host constants and rules kept from the reference: ``_consts_for``'s diag
-rows (:1049-1161), ``_spec_for``'s tile rule (:795-799) with ``_plan``'s
-diag tile cap, and the measured-power slice (:1691-1694).
+and codec rows (:1049-1161), ``_spec_for``'s tile rule (:795-799) with
+``_plan``'s diag tile cap and its static codec width (:821-847), and the
+measured-power slice (:1691-1694).
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import struct
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -154,6 +159,226 @@ def qam_demap(er: torch.Tensor, ei: torch.Tensor, q: Qam) -> torch.Tensor:
     return (rowj << q.logm) | colzj
 
 
+def inverse_gray(g: torch.Tensor, width: int) -> torch.Tensor:
+    """Prefix-XOR inverse Gray code unrolled to a static ``width`` of bits
+    (pallas_link._inv_gray_static): exact for any word narrower than it."""
+    shift = 1
+    while shift < width:
+        g = g ^ (g >> shift)
+        shift <<= 1
+    return g
+
+
+MODE_CODE = {"qam": 0, "psk": 1, "aqam": 2, "apsk": 3}
+MAX_BITS = 12  # the codec's static width: orders up to 4096
+# f32 cos and sin of pi / 2^(i+1), i < MAX_BITS: the PSK sector search's
+# rotation constants and its half-sector test at order 2^(i+1), rounded from
+# the same doubles as pallas_link.psk_sector_arith (np.float32(np.cos(ang)));
+# csrc/link_common.cuh holds the same values.
+ROT_COS = tuple(float(np.float32(np.cos(np.pi / 2.0 ** (i + 1)))) for i in range(MAX_BITS))
+ROT_SIN = tuple(float(np.float32(np.sin(np.pi / 2.0 ** (i + 1)))) for i in range(MAX_BITS))
+
+
+def psk_sector(er: torch.Tensor, ei: torch.Tensor, order: int) -> torch.Tensor:
+    """round(angle(e) * M / 2pi) mod M by the reference's rotation search
+    (pallas_link.psk_sector_arith): sign tests, then a binary search that
+    rotates the point back by a constant phasor at each step, in f32 with
+    the same constants and operation order."""
+    m = order
+    neg = ei < 0.0
+    s = torch.where(neg, m // 2, 0)
+    er, ei = torch.where(neg, -er, er), torch.where(neg, -ei, ei)
+    if m >= 4:
+        c = er < 0.0
+        s = s + torch.where(c, m // 4, 0)
+        er, ei = torch.where(c, ei, er), torch.where(c, -er, ei)
+    i, step = 1, m // 8
+    while step >= 1:
+        ca, sa = ROT_COS[i], ROT_SIN[i]
+        ni = ei * ca - er * sa
+        t = ni >= 0.0
+        s = s + torch.where(t, step, 0)
+        nr = er * ca + ei * sa
+        er, ei = torch.where(t, nr, er), torch.where(t, ni, ei)
+        i, step = i + 1, step // 2
+    b = m.bit_length() - 2
+    t = ei * ROT_COS[b] - er * ROT_SIN[b] >= 0.0
+    return (s + t.to(torch.int64)) & (m - 1)
+
+
+def psk_sector_vec(er, ei, mrow, cpm, spm, bits: int) -> torch.Tensor:
+    """``psk_sector`` at a per-lane order ``mrow`` (1 on inactive lanes, whose
+    sector masks to 0), with the half-sector rows ``cpm``/``spm`` and a loop
+    bound of the static width ``bits`` (pallas_link.psk_sector_arith_vec):
+    a lane whose step has reached 0 stops accumulating and rotating."""
+    neg = ei < 0.0
+    s = torch.where(neg, mrow >> 1, 0)
+    er, ei = torch.where(neg, -er, er), torch.where(neg, -ei, ei)
+    if bits >= 2:
+        c = (er < 0.0) & (mrow >= 4)
+        s = s + torch.where(c, mrow >> 2, 0)
+        er, ei = torch.where(c, ei, er), torch.where(c, -er, ei)
+    for shift in range(3, bits + 1):
+        step = mrow >> shift
+        ca, sa = ROT_COS[shift - 2], ROT_SIN[shift - 2]
+        ni = ei * ca - er * sa
+        t = (ni >= 0.0) & (step >= 1)
+        s = s + torch.where(t, step, 0)
+        nr = er * ca + ei * sa
+        er, ei = torch.where(t, nr, er), torch.where(t, ni, ei)
+    t = ei * cpm - er * spm >= 0.0
+    return (s + t.to(torch.int64)) & (mrow - 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class Codec(Qam):
+    """The constellation codec a chunk kernel runs: pallas_link._Spec's
+    ``mode`` and ``bits`` with _consts_for's lane rows.
+
+    * "qam": the Qam fields.
+    * "psk": fixed M-PSK; ``order``, ``bits`` = log2 M and ``gray`` are read.
+    * "aqam", "apsk": per-subcarrier orders (0 = inactive), always Gray;
+      ``bits`` is the static width of the inverse-Gray unroll, at least
+      log2 of the largest loaded order, and the orders ride int32 and f32
+      lane rows read by bin index: aqam ``irows`` = [mask = order - 1,
+      m = sqrt(order), log2 m], ``frows`` = [scale, slicer 0.5/scale] (an
+      inactive lane has 0, 1, 0, 0, 0.5); apsk ``irows`` = [mask, order,
+      log2 order], ``frows`` = [amplitude 0/1, cos(pi/M), sin(pi/M)] (an
+      inactive lane has 0, 1, 0, 0, cos pi, sin pi)."""
+
+    mode: str = "qam"
+    irows: Optional[torch.Tensor] = None  # (3, n) int32
+    frows: Optional[torch.Tensor] = None  # (2, n) or (3, n) f32
+
+    @classmethod
+    def qam(cls, order: int, coding: str = "gray") -> "Codec":
+        return cls(**dataclasses.asdict(Qam.of(order, coding)))
+
+    @classmethod
+    def psk(cls, order: int, coding: str = "gray") -> "Codec":
+        bits = order.bit_length() - 1
+        if order < 2 or 1 << bits != order or bits > MAX_BITS:
+            raise ValueError(f"not a PSK order the codec takes: {order}")
+        return cls(order, 0, 0, bits, coding == "gray", 1.0, mode="psk")
+
+
+def codec_for(setup, device):
+    """(codec, slicer): a setup's codec on ``device`` and the f64 slicer-units
+    gain folded into its ZF rows — a scalar for qam, a per-lane row for
+    aqam, None for PSK, whose slicer is scale-free (pallas_link._consts_for
+    :1059-1076, 1124-1153; _spec_for :821-847 for the static width)."""
+    cfg = setup.cfg
+    if setup.amap is None:
+        const = setup.const
+        if const.kind == "PSK":
+            return Codec.psk(const.order, const.coding), None
+        return Codec.qam(const.order, const.coding), 0.5 / const.scale
+    orders = np.asarray(setup.amap.orders, np.int64)
+    active = orders > 0
+    bits = max(int(np.log2(cfg.max_constellation_order)), max(1, int(np.log2(max(int(orders.max()), 2)))))
+    if bits > MAX_BITS:
+        raise ValueError(f"adaptive orders above 2^{MAX_BITS}: {int(orders.max())}")
+    mask = np.where(active, orders - 1, 0)
+    if setup.amap.kind == "QAM":
+        scales = np.zeros(len(orders), np.float64)
+        for k, o in enumerate(orders):
+            if o > 0:
+                scales[k] = make_constellation("QAM", int(o)).scale
+        slicer = 0.5 * np.where(active, 1.0 / np.where(scales == 0, 1.0, scales), 1.0)
+        m_side = np.where(active, np.round(np.sqrt(np.maximum(orders, 1))), 1).astype(np.int64)
+        logm = np.where(active, np.round(np.log2(np.maximum(m_side, 1))), 0).astype(np.int64)
+        irows, frows, mode = [mask, m_side, logm], [scales, slicer], "aqam"
+    else:
+        slicer = None
+        m_eff = np.where(active, np.maximum(orders, 1), 1).astype(np.int64)
+        irows = [mask, m_eff, np.where(active, np.round(np.log2(m_eff)), 0)]
+        frows = [active.astype(np.float64), np.cos(np.pi / m_eff), np.sin(np.pi / m_eff)]
+        mode = "apsk"
+    codec = Codec(0, 0, 0, bits, True, 0.0, mode=mode,
+                  irows=torch.tensor(np.asarray(irows, np.int32), device=device),
+                  frows=f32_tensor(np.asarray(frows), device))
+    return codec, slicer
+
+
+def _lane_rows(c: Codec):
+    i = c.irows.to(torch.int64)
+    return i[0], i[1], i[2]
+
+
+def encode(raw: torch.Tensor, c: Codec):
+    """raw words (..., n) -> (tx index, re, im) in the codec's mode
+    (pallas_link._encode_tile).  PSK points come from ``cossin_u24`` at
+    angle p << (24 - log2 M): the same polynomial pair as the noise phase."""
+    if c.mode == "qam":
+        return qam_encode(raw, c)
+    if c.mode == "psk":
+        tx = raw & (c.order - 1)
+        p = inverse_gray(tx, c.bits) if c.gray else tx
+        co, sn = cossin_u24(p << (24 - c.bits))
+        return tx, co, sn
+    mask, mrow, lrow = _lane_rows(c)
+    tx = raw & mask
+    if c.mode == "apsk":
+        co, sn = cossin_u24(inverse_gray(tx, c.bits) << (24 - lrow))
+        amp = c.frows[0]
+        return tx, co * amp, sn * amp
+    row = tx >> lrow
+    col = tx & (mrow - 1)
+    colz = torch.where((row & 1) == 1, mrow - 1 - col, col)
+    g = (row << lrow) | colz
+    p = g ^ (g >> 1)
+    mf = mrow.to(torch.float32)
+    c2 = (p & (mrow - 1)).to(torch.float32)
+    r2 = (p >> lrow).to(torch.float32)
+    scale = c.frows[0]
+    return tx, (2.0 * c2 - (mf - 1.0)) * scale, ((mf - 1.0) - 2.0 * r2) * scale
+
+
+def demap(er: torch.Tensor, ei: torch.Tensor, c: Codec) -> torch.Tensor:
+    """Equalized points (..., n) -> indices in the codec's mode
+    (pallas_link._demap_tile): QAM in slicer units, PSK scale-free."""
+    if c.mode == "qam":
+        return qam_demap(er, ei, c)
+    if c.mode == "psk":
+        sector = psk_sector(er, ei, c.order)
+        return sector ^ (sector >> 1) if c.gray else sector
+    _, mrow, lrow = _lane_rows(c)
+    if c.mode == "apsk":
+        sector = psk_sector_vec(er, ei, mrow, c.frows[1], c.frows[2], c.bits)
+        return sector ^ (sector >> 1)
+    mf = mrow.to(torch.float32)
+    c0 = (mf - 1.0) * 0.5
+    cc = torch.minimum(torch.clamp(torch.round(er + c0), min=0.0), mf - 1.0).to(torch.int64)
+    rr = torch.minimum(torch.clamp(torch.round(c0 - ei), min=0.0), mf - 1.0).to(torch.int64)
+    j = inverse_gray(rr * mrow + cc, c.bits)
+    rowj = j >> lrow
+    colj = j & (mrow - 1)
+    colzj = torch.where((rowj & 1) == 1, mrow - 1 - colj, colj)
+    return (rowj << lrow) | colzj
+
+
+def check_codec(c: Codec, n: int, device):
+    """Raise unless an adaptive codec's lane rows are contiguous (3, n) int32
+    and (2 or 3, n) f32 rows on ``device``."""
+    if c.mode not in MODE_CODE:
+        raise ValueError(f"unknown codec mode {c.mode!r}")
+    if c.mode not in ("aqam", "apsk"):
+        return
+    fr = 2 if c.mode == "aqam" else 3
+    for t, dtype, shape in ((c.irows, torch.int32, (3, n)), (c.frows, torch.float32, (fr, n))):
+        if t is None or t.device != device or t.dtype != dtype or not t.is_contiguous() or tuple(t.shape) != shape:
+            raise ValueError(f"codec lane rows must be contiguous {dtype} {shape} on {device}")
+
+
+def codec_args(c: Codec):
+    """The codec's arguments of the kernels' C entry points: mode, order, m,
+    log2 m, bits, gray, scale and the two lane-row pointers (null for qam
+    and psk)."""
+    return (MODE_CODE[c.mode], c.order, c.m, c.logm, c.bits, int(c.gray), c.scale,
+            None if c.irows is None else c.irows.data_ptr(),
+            None if c.frows is None else c.frows.data_ptr())
+
+
 # --- host constants -----------------------------------------------------------
 
 
@@ -241,8 +466,8 @@ class DiagLink:
 
     n: int
     T: int
-    q: Qam
-    slicer: float  # f32(0.5) / f32(scale)
+    q: Codec
+    slicer: float  # f32(0.5) / f32(scale) for qam, else 1
     cg: float  # f32 mean |h|^2
     method: int  # METHOD_CODE
     add_noise: bool
@@ -265,21 +490,23 @@ def f32_tensor(a, device) -> torch.Tensor:
 
 def equalizer_fields(setup, device) -> dict:
     """The fields every chunk kernel shares (pallas_link._consts_for's rows,
-    :1049-1106 and :1155): QAM geometry, slicer gain, mean |h|^2, method and
-    noise switches, the measured-power slice, and the f32 rows h, |h|^2
-    and the ZF gain with the slicer gain folded in."""
+    :1049-1106 and :1155): the codec, the scalar slicer gain (0.5/scale for
+    qam; 1 for PSK, whose demap is scale-free, and for aqam, whose gain is
+    the codec's per-lane row), mean |h|^2, method and noise switches, the
+    measured-power slice, and the f32 rows h, |h|^2 and the ZF gain with
+    the slicer gain folded in (qam and aqam; raw for PSK)."""
     cfg = setup.cfg
     n = cfg.num_subcarriers
     h = np.asarray(setup.h_freq, np.complex128)
-    const = setup.const
+    codec, slicer = codec_for(setup, device)
     h_z = np.where(h == 0, np.complex128(1e-10), h)
     zf_g = 1.0 / h_z
-    if cfg.equalization_method == EqualizationMethod.ZF:
-        zf_g = zf_g * (0.5 / const.scale)
+    if cfg.equalization_method == EqualizationMethod.ZF and slicer is not None:
+        zf_g = zf_g * slicer
     return dict(
         n=n,
-        q=Qam.of(const.order, const.coding),
-        slicer=float(np.float32(0.5) / np.float32(const.scale)),
+        q=codec,
+        slicer=float(np.float32(0.5) / np.float32(codec.scale)) if codec.mode == "qam" else 1.0,
         cg=float(np.float32(np.mean(np.abs(h) ** 2))),
         method=METHOD_CODE[cfg.equalization_method],
         add_noise=cfg.noise_type == NoiseType.AWGN,
@@ -415,22 +642,28 @@ def awgn(yr, yi, w1, w2, chunk, tile, tiles, groups, snr_lin, slice_syms, pw_sca
 
 
 def equalize(link, yr, yi, snr_lin, threads=32):
-    """ZF / MMSE / no equalizer, in slicer units (the 0.5/scale gain folded
-    in); MMSE sums |y|^2 in the order of ``threads`` threads a symbol."""
+    """ZF / MMSE / no equalizer, in slicer units (the slicer gain folded in:
+    the scalar for qam, the codec's per-lane row for aqam, none for PSK);
+    MMSE sums |y|^2 in the order of ``threads`` threads a symbol."""
     hr, hi = link.hr, link.hi
+    lane_slicer = link.q.frows[1] if link.q.mode == "aqam" else None
     if link.method == 0:
         gr, gi = link.gr, link.gi
         return yr * gr - yi * gi, yi * gr + yr * gi
     if link.method == 1:
         nv = _mmse_nv(link, yr, yi, snr_lin, threads)
-        g = _f32(link.slicer, nv) / (link.habs2 + nv)
+        g = (_f32(link.slicer, nv) if lane_slicer is None else lane_slicer) / (link.habs2 + nv)
         return (yr * hr + yi * hi) * g, (yi * hr - yr * hi) * g
+    if lane_slicer is not None:
+        return yr * lane_slicer, yi * lane_slicer
+    if link.q.mode != "qam":
+        return yr, yi
     return yr * link.slicer, yi * link.slicer
 
 
 def count_errors(link, tx, er, ei, acc):
     """Slice (er, ei) and add the bit and symbol errors against tx into acc."""
-    rx = qam_demap(er, ei, link.q)
+    rx = demap(er, ei, link.q)
     acc[0] += metrics.index_bit_errors(tx, rx)
     acc[1] += metrics.symbol_errors(tx, rx)
 
@@ -488,7 +721,7 @@ def diag_chunk_plain(
     raw, w1, w2 = (torch.as_tensor(w).to(device=dev, dtype=torch.int64) & prng.M32 for w in words)
     if raw.shape != (chunk, n):
         raise ValueError(f"words must be ({chunk}, {n}) planes, got {tuple(raw.shape)}")
-    tx, sr, si = qam_encode(raw, link.q)
+    tx, sr, si = encode(raw, link.q)
     hr, hi = link.hr, link.hi
     yr = sr * hr - si * hi
     yi = sr * hi + si * hr
@@ -525,6 +758,7 @@ def _check_link_tensors(link: DiagLink, device):
         raise ValueError("link rows have the wrong shape")
     if not 1 <= link.n <= MAX_N:
         raise ValueError(f"diag kernel takes 1 <= n <= {MAX_N}, got {link.n}")
+    check_codec(link.q, link.n, device)
 
 
 def chunk_workspace(link: DiagLink, chunk: int, device):
@@ -575,14 +809,12 @@ def diag_chunk(
     from ofdm_tpu_torch import build
 
     lib = build.load("link_kernel")
-    q = link.q
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.ofdm_diag_chunk(
             link.hr.data_ptr(), link.hi.data_ptr(), link.habs2.data_ptr(),
             link.gr.data_ptr(), link.gi.data_ptr(), link.fr.data_ptr(), link.fi.data_ptr(),
-            link.n, link.T, q.order, q.m, q.logm, q.bits, int(q.gray),
-            q.scale, link.slicer, snr_lin, link.cg,
+            link.n, link.T, *codec_args(link.q), link.slicer, snr_lin, link.cg,
             link.method, int(link.add_noise),
             sym0,
             chunk, tile, link.slice, groups, link.pstride,

@@ -1,14 +1,15 @@
 """The fused lr-mode chunk: host constants, kernel wrapper and plain version.
 
-Counterpart of ``ofdm_tpu/ops/pallas_link.py``'s ``kernel`` in conv="lr",
-mode="qam" form (``csrc/lr_kernel.cu``): OFDM links whose TX -> channel ->
+Counterpart of ``ofdm_tpu/ops/pallas_link.py``'s ``kernel`` in conv="lr"
+form (``csrc/lr_kernel.cu``), in each constellation mode
+(``link_kernel.Codec``): OFDM links whose TX -> channel ->
 RX composite is factored by ``ops.lowrank`` into a diagonal D and two
 rank-E corrections.  The routing sends them here from 128 subcarriers when
 the guard does not cover the channel (short CP, no prefix, ZP) and past 512
 subcarriers when it does.
 
 A chunk, per OFDM symbol b (the semantics of the lr branches of
-pallas_link.py:1428-1937, not its TPU layout): Philox words -> QAM encode
+pallas_link.py:1428-1937, not its TPU layout): Philox words -> encode
 s_b -> t_b = s_b @ TailM (the block's last E time samples) -> y_b = s_b * D
 + t_b @ Cr + t_{b-1} @ Cp -> AWGN per bin with sigma = sqrt(mp / snr_lin /
 2), mp the mean |y|^2 over the first ``slice`` symbols of b's tile times
@@ -60,7 +61,7 @@ class LrLink:
     T: int
     E: int  # tail lanes
     rank: int  # ZP noise-factor rank (0: iid bin noise)
-    q: lk.Qam
+    q: lk.Codec
     slicer: float
     cg: float
     method: int
@@ -193,7 +194,7 @@ def lr_planes(link: LrLink, key: Tuple[int, int], sym0: int, chunk: int, snr_lin
     raw, w1, w2 = planes[:3]
     if raw.shape != (chunk + prev, n) or len(planes) != (5 if colored else 3):
         raise ValueError(f"words must be 3 ({chunk + prev}, {n}) planes (+2 (chunk, rank) for colored noise)")
-    tx, sr, si = lk.qam_encode(raw, link.q)
+    tx, sr, si = lk.encode(raw, link.q)
     tr, ti = tails(link, sr, si)
     if prev:
         tpr, tpi = tr[:-1], ti[:-1]
@@ -260,6 +261,7 @@ def _check_link(link: LrLink, device):
     if not (1 <= n <= MAX_N and 1 <= E <= MAX_E and 0 <= r <= MAX_RANK and link.T >= n):
         raise ValueError(f"lr kernel takes n <= {MAX_N}, 1 <= E <= {MAX_E}, rank <= {MAX_RANK}; "
                          f"got n={n}, E={E}, rank={r}")
+    lk.check_codec(link.q, n, device)
 
 
 def chunk_workspace(link: LrLink, chunk: int, device):
@@ -310,7 +312,6 @@ def lr_chunk(
     from ofdm_tpu_torch import build
 
     lib = build.load("lr_kernel")
-    q = link.q
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -322,8 +323,8 @@ def lr_chunk(
             ptr(link.bh_r), ptr(link.bh_i), ptr(link.dr), ptr(link.di),
             ptr(link.fr), ptr(link.fi), ptr(link.hr), ptr(link.hi), ptr(link.habs2),
             ptr(link.gr), ptr(link.gi),
-            link.n, link.T, link.E, link.rank, q.order, q.m, q.logm, q.bits, int(q.gray),
-            q.scale, link.slicer, snr_lin, link.cg, link.pw_scale,
+            link.n, link.T, link.E, link.rank, *lk.codec_args(link.q),
+            link.slicer, snr_lin, link.cg, link.pw_scale,
             link.method, int(link.add_noise), int(link.txext), link.pstride,
             sym0,
             chunk, tile, link.slice, groups, RUN,

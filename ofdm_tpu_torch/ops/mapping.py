@@ -1,10 +1,12 @@
-"""Constellation tables: the reference's Gray + zig-zag QAM and Gray PSK.
+"""Constellation tables and gap-function bit loading.
 
 Host-side float64 tables and ``scale``, point for point the same as
 ``ofdm_tpu.ops.mapping`` (reference constellation/models.py:180-218 for QAM,
 :356-380 for PSK).  The kernel never reads a table: it encodes and slices
 arithmetically (``ops.link_kernel``); the table here fixes ``scale`` and
-is what the tests hold the arithmetic codec against.
+is what the tests hold the arithmetic codec against.  The bit loading
+(``bit_loading_orders``) picks each subcarrier's order for adaptive
+modulation, as ``ofdm_tpu.ops.mapping`` does.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from functools import lru_cache
 
 import numpy as np
 from numpy.typing import NDArray
+from scipy.stats import norm
 
 
 def gray_code(i):
@@ -105,4 +108,41 @@ def make_constellation(kind: str, order: int, coding: str = "gray") -> Constella
         return qam_constellation(order, coding)
     if kind == "PSK":
         return psk_constellation(order, coding)
+    raise ValueError(f"Unknown constellation kind: {kind}")
+
+
+# --- gap-function bit loading (host, float64) -----------------------------------
+
+
+def qam_bit_loading_orders(ser: float, snr: NDArray[np.float64]) -> NDArray[np.int64]:
+    """QAM gap-function order per subcarrier (reference constellation/models.py:297-321).
+
+    Gamma = (1/3) Qinv(SER/4)^2; b = round(log2(1 + SNR/Gamma)) forced even
+    (square QAM); order 2^b, or 0 when b <= 0.  Not clamped to the config's
+    maximum order, as in the reference."""
+    snr = np.asarray(snr, dtype=np.float64)
+    q_inv = norm.isf(ser / 4)
+    gamma = (1.0 / 3.0) * q_inv**2
+    b = np.round(np.log2(1.0 + snr / gamma)).astype(np.int64)
+    b = np.where(b % 2 != 0, b - 1, b)
+    return np.where(b > 0, np.int64(1) << np.maximum(b, 0), 0).astype(np.int64)
+
+
+def psk_bit_loading_orders(ser: float, snr: NDArray[np.float64]) -> NDArray[np.int64]:
+    """PSK gap-function order per subcarrier (reference constellation/models.py:459-474)."""
+    snr = np.asarray(snr, dtype=np.float64)
+    q_inv = norm.isf(ser / 2)
+    gamma_star = q_inv**2 / (2.0 * np.pi**2)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        gamma = np.sqrt(snr * gamma_star) / (1.0 - np.sqrt(gamma_star / (snr + 1e-10)))
+        b = np.floor(np.log2(1.0 + snr / (gamma + 1e-10)) + 1e-10).astype(np.int64)
+    return np.where(b > 0, np.int64(1) << np.maximum(b, 0), 0).astype(np.int64)
+
+
+def bit_loading_orders(kind: str, ser: float, snr: NDArray[np.float64]) -> NDArray[np.int64]:
+    """Orders per subcarrier for ``kind`` ("QAM" or "PSK") at per-subcarrier ``snr``."""
+    if kind == "QAM":
+        return qam_bit_loading_orders(ser, snr)
+    if kind == "PSK":
+        return psk_bit_loading_orders(ser, snr)
     raise ValueError(f"Unknown constellation kind: {kind}")

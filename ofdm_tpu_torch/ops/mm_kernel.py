@@ -1,7 +1,8 @@
 """The fused zero-prefix mm chunk: host constants, kernel wrapper and plain version.
 
 Counterpart of ``ofdm_tpu/ops/pallas_link.py``'s ``kernel`` in conv="mm",
-fold=False, mode="qam" form (``csrc/mm_kernel.cu``): zero-prefix OFDM below
+fold=False form (``csrc/mm_kernel.cu``), in each constellation mode
+(``link_kernel.Codec``; SC-FDE fixed modes only): zero-prefix OFDM below
 128 subcarriers, zero-prefix SC-FDE, single-tap zero-prefix links, and
 zero-prefix OFDM whose lr factorization fails its certification, at
 n <= 256.  A zero prefix does not fold the conv into the receiver, so the
@@ -10,7 +11,7 @@ noise is added per time sample and a symbol costs three complex products
 
 A chunk, per OFDM symbol b (the semantics of pallas_link.py:1428-1937 in
 its non-fold "mm" branches, not its lane-packed TPU layout): Philox words
--> QAM encode s_b -> x_b = s_b @ F_tx,ext (E duplicated tail columns) ->
+-> encode s_b -> x_b = s_b @ F_tx,ext (E duplicated tail columns) ->
 PAPR max and sum over x_b[:T] -> act = [x_b[:T] | x_{b-1}[T:T+E]] -> y =
 act @ C (the merged conv, T+E -> T) -> AWGN per time sample with sigma =
 sqrt(mp / snr_lin / 2), mp the mean |y|^2 over the whole tile (all its
@@ -50,7 +51,7 @@ class MmLink:
     n: int
     T: int
     E: int  # previous-symbol tail lanes (linops.ext_width)
-    q: lk.Qam
+    q: lk.Codec
     slicer: float
     cg: float
     method: int
@@ -145,7 +146,7 @@ def mm_planes(link: MmLink, key: Tuple[int, int], sym0: int, chunk: int, snr_lin
     raw, w1, w2 = (torch.as_tensor(w).to(device=device, dtype=torch.int64) & prng.M32 for w in words)
     if not raw.shape == w1.shape == w2.shape == (chunk + prev, T):
         raise ValueError(f"words must be ({chunk + prev}, {T}) planes, got {tuple(raw.shape)}")
-    tx, sr, si = lk.qam_encode(raw[:, :n], link.q)
+    tx, sr, si = lk.encode(raw[:, :n], link.q)
     xr, xi = lk.cmatmul(link.txr, link.txi, sr, si)
     if prev:
         tail_r, tail_i = xr[:1, T:], xi[:1, T:]
@@ -200,6 +201,9 @@ def _check_link(link: MmLink, device):
             raise ValueError(f"link.{name} must be {shape}, got {tuple(t.shape)}")
     if not (1 <= n <= MAX_N and n <= T <= MAX_T and 0 <= link.E <= T):
         raise ValueError(f"mm kernel takes n <= {MAX_N}, n <= T <= {MAX_T}; got n={n}, T={T}")
+    lk.check_codec(link.q, n, device)
+    if link.is_sc and link.q.mode in ("aqam", "apsk"):
+        raise ValueError("mm kernel: SC-FDE takes no adaptive constellation")
 
 
 def chunk_workspace(link: MmLink, chunk: int, device):
@@ -254,7 +258,6 @@ def mm_chunk(
     from ofdm_tpu_torch import build
 
     lib = build.load("mm_kernel")
-    q = link.q
     sc = link.is_sc
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
@@ -264,8 +267,7 @@ def mm_chunk(
             link.idr.data_ptr() if sc else None, link.idi.data_ptr() if sc else None,
             link.hr.data_ptr(), link.hi.data_ptr(), link.habs2.data_ptr(),
             link.gr.data_ptr(), link.gi.data_ptr(),
-            link.n, link.T, link.E, q.order, q.m, q.logm, q.bits, int(q.gray),
-            q.scale, link.slicer, snr_lin, link.cg,
+            link.n, link.T, link.E, *lk.codec_args(link.q), link.slicer, snr_lin, link.cg,
             link.method, int(link.add_noise), int(sc),
             sym0,
             chunk, tile, groups, RUN,

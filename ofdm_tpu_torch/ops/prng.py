@@ -35,6 +35,7 @@ from __future__ import annotations
 import math
 from typing import Tuple
 
+import numpy as np
 import torch
 
 M32 = 0xFFFFFFFF
@@ -158,10 +159,16 @@ def random_u32(key: Tuple[int, int], shape, device="cuda"):
 random_u32.launches = 0
 
 
-def uniform_indices(key: Tuple[int, int], shape, mask: int, device="cuda"):
-    """Uniform int32 indices in [0, mask] for a power-of-two mask + 1 below
-    2^31: the words of ``random_u32`` masked
-    (ofdm_tpu.ops.prng.uniform_indices)."""
-    if not 0 <= int(mask) < 1 << 31:
+def uniform_indices(key: Tuple[int, int], shape, mask, device="cuda"):
+    """Uniform int32 indices in [0, mask] for power-of-two masks + 1 below
+    2^31: the words of ``random_u32`` masked (ofdm_tpu.ops.prng.uniform_indices).
+    ``mask`` is an int, or a row over the last axis: each subcarrier's own
+    mask under adaptive loading (``adaptive.index_mask``, 0 on inactive
+    subcarriers)."""
+    m = np.asarray(mask, np.int64)
+    if m.size == 0 or int(m.min()) < 0 or int(m.max()) >= 1 << 31:
         raise ValueError(f"mask must be in [0, 2^31), got {mask}")
-    return random_u32(key, shape, device) & int(mask)
+    words = random_u32(key, shape, device)
+    if m.ndim == 0:
+        return words & int(m)
+    return words & torch.as_tensor(m.astype(np.int32), device=words.device)

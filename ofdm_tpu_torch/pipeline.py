@@ -25,11 +25,12 @@ the keys of the JAX runner's.
   single-tap channels (E = 0), and OFDM whose lr factorization fails its
   certification.
 
-All take fixed-mode square QAM, ZF / MMSE / no equalizer, AWGN or no
-noise, and neither power switch.  Every other configuration prepares as in
-the JAX package but raises NotImplementedError at ``kernel_mode`` (and so at
-``LinkRunner``), naming the ROADMAP item that will bring it; nothing falls
-back to a slower path.
+All take square QAM and power-of-two PSK, fixed or with CAPACITY_BASED
+per-subcarrier loading (SC-FDE fixed only), ZF / MMSE / no equalizer, AWGN
+or no noise, and neither power switch.  Every other configuration prepares
+as in the JAX package but raises NotImplementedError at ``kernel_mode`` (and
+so at ``LinkRunner``), naming the ROADMAP item that will bring it; nothing
+falls back to a slower path.
 
 Reference quirks kept (SURVEY §3.2): the equalizer's H comes from the
 *un-normalized* impulse response while the channel convolves the
@@ -41,6 +42,7 @@ the noise variance per OFDM symbol.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
@@ -50,13 +52,13 @@ from numpy.typing import NDArray
 
 from ofdm_tpu_torch.config import (
     AdaptiveModulationMode,
-    ConstellationType,
     ModulationType,
     PowerAllocationType,
     PrefixType,
     SimulationConfig,
 )
 from ofdm_tpu_torch.models import channels as chm
+from ofdm_tpu_torch.ops import adaptive as ad
 from ofdm_tpu_torch.ops import allocate as al
 from ofdm_tpu_torch.ops import fold_kernel as fk
 from ofdm_tpu_torch.ops import link_kernel as lk
@@ -71,8 +73,7 @@ from ofdm_tpu_torch.ops import prng
 @dataclasses.dataclass(frozen=True)
 class LinkSetup:
     """All host-side precomputed state for one simulation point (the JAX
-    ``LinkSetup``'s fields; ``amap`` stays None until adaptive modulation
-    is ported)."""
+    ``LinkSetup``'s fields)."""
 
     cfg: SimulationConfig
     taps: NDArray[np.complex128]  # unit-energy normalized IR (channel path)
@@ -83,8 +84,8 @@ class LinkSetup:
     power_allocation: NDArray[np.float64]
     water_level: Optional[float]
     constellation_orders: NDArray[np.int64]  # (N,)
-    const: Optional[mp.Constellation]
-    amap: None
+    const: Optional[mp.Constellation]  # fixed mode
+    amap: Optional[ad.AdaptiveMapper]  # CAPACITY_BASED mode
     num_ofdm_symbols: int
     bits_per_ofdm_symbol: int
     total_bits: int
@@ -97,11 +98,15 @@ class LinkSetup:
     def block_length(self) -> int:
         return self.cfg.num_subcarriers + self.prefix_length
 
+    @property
+    def constellation_points(self) -> NDArray[np.complex128]:
+        return self.amap.composite_constellation if self.amap else self.const.table
+
 
 def prepare(
     cfg: SimulationConfig, channel_ir: Optional[NDArray[np.complex128]] = None
 ) -> LinkSetup:
-    """Resolve channel + allocation for one config (host float64)."""
+    """Resolve channel + allocation + (adaptive) bit loading for one config (host float64)."""
     n = cfg.num_subcarriers
     # FLAT/None falls back to the reference's hardcoded default multipath
     # (its "FLAT" enum also means the default multipath).
@@ -116,26 +121,44 @@ def prepare(
     if cfg.prefix_type == PrefixType.NONE:
         prefix_length = 0
 
-    if cfg.adaptive_modulation_mode == AdaptiveModulationMode.CAPACITY_BASED:
-        raise NotImplementedError(
-            "adaptive (CAPACITY_BASED) bit loading is not ported yet "
-            "(ROADMAP modules item 8)"
-        )
     water_level: Optional[float] = None
-    const = mp.make_constellation(cfg.constellation_type.value, cfg.constellation_order)
-    orders = np.full(n, cfg.constellation_order, dtype=np.int64)
-    bps = const.bits_per_symbol
-    total_bits = cfg.num_bits if cfg.num_bits is not None else cfg.num_symbols * bps
-    if total_bits % bps != 0:
-        raise ValueError(f"num_bits={total_bits} must be a multiple of bits_per_symbol={bps}")
-    num_qam_symbols = total_bits // bps
-    if num_qam_symbols % n != 0:
-        raise ValueError(f"{num_qam_symbols} symbols not divisible by {n} subcarriers")
-    if cfg.power_allocation_type == PowerAllocationType.WATERFILLING:
-        power = al.waterfilling(1.0, gains, noise_power)
-        water_level = al.water_level(power, gains, noise_power)
+    if cfg.adaptive_modulation_mode == AdaptiveModulationMode.CAPACITY_BASED:
+        # Adaptive branch (reference simulation/models.py:289-395): allocate a
+        # budget of n over the subcarriers, gap-function bit loading off
+        # P * |H|^2 / N0.  num_symbols counts OFDM symbols here.
+        if cfg.power_allocation_type == PowerAllocationType.WATERFILLING:
+            power = al.waterfilling(float(n), gains, noise_power)
+            water_level = al.water_level(power, gains, noise_power)
+        else:
+            power = al.uniform(float(n), n)
+        snr_per_sc = power * gains / noise_power
+        orders = mp.bit_loading_orders(cfg.constellation_type.value, cfg.desired_symbol_error_rate, snr_per_sc)
+        amap = ad.make_adaptive_mapper(cfg.constellation_type.value, orders)
+        bits_per_ofdm = amap.bits_per_ofdm_symbol
+        if cfg.num_symbols is not None:
+            num_ofdm_symbols = cfg.num_symbols
+        else:
+            num_ofdm_symbols = cfg.num_bits // bits_per_ofdm  # floor, as the reference
+        total_bits = bits_per_ofdm * num_ofdm_symbols
+        const = None
     else:
-        power = al.uniform(1.0, n)
+        const = mp.make_constellation(cfg.constellation_type.value, cfg.constellation_order)
+        orders = np.full(n, cfg.constellation_order, dtype=np.int64)
+        amap = None
+        bps = const.bits_per_symbol
+        total_bits = cfg.num_bits if cfg.num_bits is not None else cfg.num_symbols * bps
+        if total_bits % bps != 0:
+            raise ValueError(f"num_bits={total_bits} must be a multiple of bits_per_symbol={bps}")
+        num_qam_symbols = total_bits // bps
+        if num_qam_symbols % n != 0:
+            raise ValueError(f"{num_qam_symbols} symbols not divisible by {n} subcarriers")
+        num_ofdm_symbols = num_qam_symbols // n
+        bits_per_ofdm = bps * n
+        if cfg.power_allocation_type == PowerAllocationType.WATERFILLING:
+            power = al.waterfilling(1.0, gains, noise_power)
+            water_level = al.water_level(power, gains, noise_power)
+        else:
+            power = al.uniform(1.0, n)
 
     if order > 0 and (n + prefix_length) < order:
         raise ValueError(f"Block length {n + prefix_length} shorter than channel order {order}")
@@ -151,9 +174,9 @@ def prepare(
         water_level=water_level,
         constellation_orders=orders,
         const=const,
-        amap=None,
-        num_ofdm_symbols=num_qam_symbols // n,
-        bits_per_ofdm_symbol=bps * n,
+        amap=amap,
+        num_ofdm_symbols=num_ofdm_symbols,
+        bits_per_ofdm_symbol=bits_per_ofdm,
         total_bits=total_bits,
     )
 
@@ -196,10 +219,11 @@ def kernel_mode(setup: LinkSetup) -> str:
     other link."""
     cfg = setup.cfg
     n = cfg.num_subcarriers
-    if setup.is_adaptive or cfg.constellation_type != ConstellationType.QAM:
-        raise _unported("PSK and adaptive constellations (ROADMAP modules item 8)")
     if cfg.apply_power_allocation or cfg.normalize_before_demap:
-        raise _unported("apply_power_allocation / normalize_before_demap (ROADMAP modules item 8)")
+        raise _unported("apply_power_allocation / normalize_before_demap (ROADMAP modules item 9, "
+                        "with the noise-bump stages)")
+    if setup.is_adaptive and cfg.modulation_type == ModulationType.SC_OFDM:
+        raise _unported("SC-FDE with adaptive loading (ROADMAP modules item 8b)")
     zp = cfg.prefix_type == PrefixType.ZERO
 
     def dense():
@@ -242,14 +266,19 @@ def kernel_mode(setup: LinkSetup) -> str:
     return "lr"
 
 
-def sampled_tx_papr(idx: torch.Tensor, const: mp.Constellation, ftx, rows: int = 4096):
+def sampled_tx_papr(idx: torch.Tensor, table, ftx, rows: int = 4096):
     """(peak power, power sum, sample count) of x = s @ F_tx over the table
-    points s = const.table[idx] of (S, n) indices, ``ftx`` = (re, im) of the
-    (n, T) TX matrix.  The product runs in full f32 (no TF32), in blocks of
-    ``rows`` symbols, on the indices' device."""
+    points s of (S, n) indices, ``ftx`` = (re, im) of the (n, T) TX matrix.
+    ``table`` is the constellation (s = table[idx]) or an adaptive mapper
+    (each subcarrier's own table, ``adaptive.encode_from_indices``).  The
+    product runs in full f32 (no TF32), in blocks of ``rows`` symbols, on
+    the indices' device."""
     dev = idx.device
-    tr = lk.f32_tensor(const.table.real, dev)
-    ti = lk.f32_tensor(const.table.imag, dev)
+    if isinstance(table, ad.AdaptiveMapper):
+        encode = functools.partial(ad.encode_from_indices, m=table)
+    else:
+        tr, ti = lk.f32_tensor(table.table.real, dev), lk.f32_tensor(table.table.imag, dev)
+        encode = lambda i: (tr[i], ti[i])  # noqa: E731
     fr, fi = lk.f32_tensor(ftx[0], dev), lk.f32_tensor(ftx[1], dev)
     was = torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -258,8 +287,7 @@ def sampled_tx_papr(idx: torch.Tensor, const: mp.Constellation, ftx, rows: int =
         peak = torch.zeros((), dtype=torch.float32, device=dev)
         total = torch.zeros((), dtype=torch.float64, device=dev)
         for r0 in range(0, idx.shape[0], rows):
-            i = idx[r0 : r0 + rows]
-            sr, si = tr[i], ti[i]
+            sr, si = encode(idx[r0 : r0 + rows])
             p, s, _ = mt.papr_stats(sr @ fr - si @ fi, sr @ fi + si @ fr)
             peak = torch.maximum(peak, p)
             total = total + s
@@ -294,9 +322,10 @@ class LinkRunner:
         """(power_allocation, water_level) for an SNR point — host f64.
 
         Fixed mode computes (but does not apply) a total_power=1.0
-        allocation per point (simulation/models.py:483-501)."""
+        allocation per point (simulation/models.py:483-501); adaptive mode
+        keeps the setup's, from which its orders were loaded."""
         s = self.setup
-        if s.cfg.power_allocation_type != PowerAllocationType.WATERFILLING:
+        if s.is_adaptive or s.cfg.power_allocation_type != PowerAllocationType.WATERFILLING:
             return s.power_allocation, s.water_level
         noise_power = float(10.0 ** (-snr_db / 10.0))
         power = al.waterfilling(1.0, s.channel_gains, noise_power)
@@ -400,17 +429,18 @@ class LinkRunner:
         """(peak power, power sum, count) of the PAPR statistic from a sampled
         TX batch, cached per runner (the JAX runner's ``_papr_sample``): S =
         min(max(1024, 2^25 // T), B) symbols of uniform indices under the
-        fixed seed, table-encoded and modulated by F_tx in full f32.  PAPR is
-        TX-side only, so one sample serves every SNR point."""
+        fixed seed (under each subcarrier's index mask on adaptive links),
+        table-encoded and modulated by F_tx in full f32.  PAPR is TX-side
+        only, so one sample serves every SNR point."""
         if self._papr_cache is None:
             s = self.setup
             cfg = s.cfg
             n = cfg.num_subcarriers
             S = int(min(max(1024, (1 << 25) // max(s.block_length, 1)), s.num_ofdm_symbols))
-            idx = prng.uniform_indices(prng.key_words(PAPR_SAMPLE_SEED), (S, n),
-                                       cfg.constellation_order - 1, self.device)
+            mask = ad.index_mask(s.amap) if s.is_adaptive else cfg.constellation_order - 1
+            idx = prng.uniform_indices(prng.key_words(PAPR_SAMPLE_SEED), (S, n), mask, self.device)
             ftx = linops.tx_matrix(n, cfg.prefix_type, s.prefix_length, cfg.modulation_type)
-            self._papr_cache = sampled_tx_papr(idx, s.const, ftx)
+            self._papr_cache = sampled_tx_papr(idx, s.amap if s.is_adaptive else s.const, ftx)
         return self._papr_cache
 
     def run(
@@ -423,7 +453,9 @@ class LinkRunner:
         """Execute the whole simulation; returns a reference-style results dict.
 
         ``seed`` (an int < 2^64) keys every random draw of the run;
-        ``snr_db`` overrides the config's SNR, so one runner serves a sweep."""
+        ``snr_db`` overrides the config's SNR, so one runner serves a sweep
+        (fixed mode only: adaptive loading depends on the SNR, so each point
+        needs its own ``prepare()``)."""
         if collect_symbols > 0 or render_constellation:
             raise NotImplementedError(
                 "symbol capture is not ported yet (ROADMAP modules item 10)"
@@ -431,6 +463,8 @@ class LinkRunner:
         s = self.setup
         if snr_db is None:
             snr_db = s.cfg.snr_db
+        elif s.is_adaptive and snr_db != s.cfg.snr_db:
+            raise ValueError("Adaptive bit loading is SNR-dependent; prepare() a new setup per point.")
         power_allocation, water_level = self.point_params(snr_db)
         key = prng.key_words(seed)
         snr_lin = lk.snr_linear(snr_db)

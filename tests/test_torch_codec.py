@@ -125,3 +125,137 @@ def test_metrics_match_jax():
     for e, b in ((0, 100), (17, 10**6), (10**5, 10**6)):
         assert tmt.ber_confidence_interval(e, b) == jmt.ber_confidence_interval(e, b)
     assert tmt.popcount(torch.tensor([0, 1, 0xFFFFFFFF, 0x80000001])).tolist() == [0, 1, 32, 2]
+
+
+# --- the PSK and adaptive codecs (pallas_link._encode_tile / _demap_tile /
+# psk_sector_arith(_vec) with the rows of _consts_for) --------------------------
+
+
+def _mode_spec(mode, bits, order=0, gray=True):
+    # the fields of pallas_link._Spec that the codec reads
+    return types.SimpleNamespace(mode=mode, order=order, is_gray=gray, bits=bits,
+                                 method=EqualizationMethod.MMSE)
+
+
+PSK_CASES = [(o, True) for o in (2, 4, 8, 16, 64, 1024)] + [(8, False)]
+
+
+@pytest.mark.parametrize("order,gray", PSK_CASES)
+def test_psk_encode_equals_jax(words, order, gray):
+    w = words[: 1 << 16]
+    spec = _mode_spec("psk", order.bit_length() - 1, order, gray)
+    tx_j, sr_j, si_j = pk._encode_tile(spec, jnp.asarray(w.view(np.int32)), None)
+    c = lk.Codec.psk(order, "gray" if gray else "none")
+    tx_t, sr_t, si_t = lk.encode(torch.from_numpy(w.astype(np.int64)), c)
+    # indices exactly, points bit for bit
+    assert np.array_equal(np.asarray(tx_j), tx_t.numpy())
+    assert np.array_equal(np.asarray(sr_j, np.float32), sr_t.numpy())
+    assert np.array_equal(np.asarray(si_j, np.float32), si_t.numpy())
+
+
+@pytest.mark.parametrize("order,gray", PSK_CASES)
+def test_psk_encoder_points_are_the_table(order, gray):
+    from ofdm_tpu_torch.ops.mapping import psk_constellation
+
+    coding = "gray" if gray else "none"
+    tx, sr, si = lk.encode(torch.arange(order, dtype=torch.int64), lk.Codec.psk(order, coding))
+    table = psk_constellation(order, coding).table
+    # the cos/sin lattice against the f64 table: within 1e-6
+    assert np.abs(sr.numpy() + 1j * si.numpy() - table[tx.numpy()]).max() < 1e-6
+
+
+def _near_sector_boundaries(rng, order, count):
+    """Points on the unit circle and scaled, half of them within a few ulp of
+    a sector boundary, plus the axes and zero."""
+    k = rng.integers(0, 2 * order, size=count)
+    ang = (k + 0.5 * (k % 2 == 0)) * np.pi / order  # boundaries and sector centres
+    ang = ang + rng.choice([-1, 1], size=count) * rng.integers(0, 4, size=count) * 1e-7
+    r = rng.uniform(0.05, 3.0, size=count)
+    pts = np.stack([r * np.cos(ang), r * np.sin(ang)]).astype(np.float32)
+    pts[:, :6] = np.array([[0.0, -0.0, 1.0, -1.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 1.0, -1.0]], np.float32)
+    return pts
+
+
+@pytest.mark.parametrize("order,gray", PSK_CASES)
+def test_psk_demap_equals_jax(order, gray):
+    rng = np.random.default_rng(order + gray)
+    pts = np.concatenate([_near_sector_boundaries(rng, order, 1 << 15),
+                          rng.standard_normal((2, 1 << 15)).astype(np.float32)], axis=1)
+    spec = _mode_spec("psk", order.bit_length() - 1, order, gray)
+    rx_j = pk._demap_tile(spec, jnp.asarray(pts[0]), jnp.asarray(pts[1]), None)
+    rx_t = lk.demap(torch.from_numpy(pts[0]), torch.from_numpy(pts[1]), lk.Codec.psk(order, "gray" if gray else "none"))
+    assert np.array_equal(np.asarray(rx_j), rx_t.numpy())
+    sector = np.asarray(pk.psk_sector_arith(jnp.asarray(pts[0]), jnp.asarray(pts[1]), order))
+    assert np.array_equal(sector, lk.psk_sector(torch.from_numpy(pts[0]), torch.from_numpy(pts[1]), order).numpy())
+
+
+def _adaptive_setups(kind, snr_db, channel="severe_multipath"):
+    """The JAX and port setups of a 64-sc adaptive link, and the JAX runner."""
+    from ofdm_tpu import config as jcfg
+    from ofdm_tpu import pipeline as jpl
+    from ofdm_tpu_torch import config as tcfg
+    from ofdm_tpu_torch import pipeline as tpl
+
+    kw = dict(num_symbols=1024, num_subcarriers=64, channel_type="CUSTOM", channel_model=channel,
+              constellation_type=kind, power_allocation_type="WATERFILLING",
+              adaptive_modulation_mode="CAPACITY_BASED", snr_db=snr_db, equalization_method="ZF")
+    jr = jpl.LinkRunner(jpl.prepare(jcfg.SimulationConfig(**kw, engine="planar", hotpath="pallas")))
+    return jr, tpl.prepare(tcfg.SimulationConfig(**kw))
+
+
+def jax_lane_rows(jr, spec):
+    """The adaptive lane rows of pallas_link._consts_for, unpacked: the last
+    five (aqam) or six (apsk) constants."""
+    consts = pk._consts_for(jr, spec)
+    k = 5 if spec.mode == "aqam" else 6
+    return [np.asarray(c)[0, : spec.n] for c in consts[-k:]]
+
+
+# orders 4/16/64; 0 (8 inactive lanes)/4/16; 2/4/8/16; 0 (8 inactive)/2/4;
+# 1024 (above the config's 256)
+ADAPTIVE_CASES = {
+    "aqam_severe_20db": ("QAM", 20.0, "severe_multipath"),
+    "aqam_p1_15db_inactive": ("QAM", 15.0, "Lin-Phoong_P1"),
+    "apsk_p1_20db": ("PSK", 20.0, "Lin-Phoong_P1"),
+    "apsk_p1_10db_inactive": ("PSK", 10.0, "Lin-Phoong_P1"),
+    "aqam_1024qam_flat_36db": ("QAM", 36.0, "flat_fading"),
+}
+
+
+@pytest.mark.parametrize("kind,snr_db,channel", ADAPTIVE_CASES.values(), ids=list(ADAPTIVE_CASES))
+def test_adaptive_codec_equals_jax(words, kind, snr_db, channel):
+    jr, ts = _adaptive_setups(kind, snr_db, channel)
+    spec = pk._spec_for(jr, 1024, True)
+    codec, _ = lk.codec_for(ts, "cpu")
+    assert (codec.mode, codec.bits) == (spec.mode, spec.bits)
+    rows = jax_lane_rows(jr, spec)
+    # the lane rows exactly: aqam [mask, m, log2 m, scale, slicer], apsk
+    # [mask, order, log2 order, amplitude, cos(pi/M), sin(pi/M)]
+    k = 3
+    assert all(np.array_equal(codec.irows[i].numpy(), rows[i]) for i in range(k))
+    assert all(np.array_equal(codec.frows[i].numpy(), rows[k + i]) for i in range(len(rows) - k))
+    if channel == "flat_fading":
+        # the loader exceeds max_constellation_order; the width covers it
+        assert int(ts.amap.orders.max()) == 1024 and codec.bits == 10
+    w = words[: 1 << 16].reshape(-1, 64)
+    aq_enc = (rows[0], rows[1], rows[2], rows[3]) if kind == "QAM" else (rows[0], rows[2], rows[3])
+    tx_j, sr_j, si_j = pk._encode_tile(spec, jnp.asarray(w.view(np.int32)), tuple(jnp.asarray(r) for r in aq_enc))
+    tx_t, sr_t, si_t = lk.encode(torch.from_numpy(w.astype(np.int64)), codec)
+    assert np.array_equal(np.asarray(tx_j), tx_t.numpy())
+    assert np.array_equal(np.asarray(sr_j, np.float32), sr_t.numpy())
+    assert np.array_equal(np.asarray(si_j, np.float32), si_t.numpy())
+    # demap: the encoded points moved by noise, in slicer units for aqam
+    rng = np.random.default_rng(7)
+    gain = rows[4] if kind == "QAM" else np.float32(1.0)
+    er = (np.asarray(sr_j) + 0.35 * rng.standard_normal(w.shape).astype(np.float32)) * gain
+    ei = (np.asarray(si_j) + 0.35 * rng.standard_normal(w.shape).astype(np.float32)) * gain
+    er, ei = er.astype(np.float32), ei.astype(np.float32)
+    aq_dec = (rows[1], rows[2]) if kind == "QAM" else (rows[1], rows[4], rows[5])
+    rx_j = pk._demap_tile(spec, jnp.asarray(er), jnp.asarray(ei), tuple(jnp.asarray(r) for r in aq_dec))
+    rx_t = lk.demap(torch.from_numpy(er), torch.from_numpy(ei), codec)
+    assert np.array_equal(np.asarray(rx_j), rx_t.numpy())
+    active = ts.amap.orders > 0
+    assert bool(active.all()) == (snr_db not in (10.0, 15.0))
+    # inactive lanes send 0 and decode to index 0: no errors, no bits
+    assert (rx_t.numpy()[:, ~active] == 0).all() and (tx_t.numpy()[:, ~active] == 0).all()
+    assert (sr_t.numpy()[:, ~active] == 0).all() and (si_t.numpy()[:, ~active] == 0).all()

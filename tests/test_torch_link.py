@@ -234,7 +234,8 @@ def test_runner_needs_cuda_or_an_explicit_cpu():
 @pytest.mark.parametrize(
     "extra",
     [
-        dict(constellation_type="PSK", constellation_order=8, num_symbols=64 * 3 * 16),
+        # 8-PSK ISI-free past the port's 256-subcarrier diag kernel (item 6b)
+        dict(constellation_type="PSK", constellation_order=8, num_subcarriers=384, num_symbols=384 * 16),
         # zero-prefix links past the port's 256-subcarrier mm kernel (the JAX package runs mm)
         dict(modulation_type="SC-OFDM", prefix_type="ZERO", num_subcarriers=512, num_symbols=512 * 16),
         dict(prefix_type="ZERO", channel_model="flat_fading", num_subcarriers=512, num_symbols=512 * 16),
@@ -253,8 +254,12 @@ def test_unsupported_configs_raise(extra):
 
 
 def test_adaptive_and_capture_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpl.prepare(tcfg.SimulationConfig(**dict(HEADLINE, adaptive_modulation_mode="CAPACITY_BASED")))
+    # adaptive loading with the TX power applied (ROADMAP item 9)
+    setup = tpl.prepare(tcfg.SimulationConfig(**dict(
+        HEADLINE, num_symbols=64, adaptive_modulation_mode="CAPACITY_BASED",
+        power_allocation_type="WATERFILLING", apply_power_allocation=True)))
+    with pytest.raises(NotImplementedError, match="ROADMAP modules item 9"):
+        tpl.LinkRunner(setup, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _port_runner(64).run(0, collect_symbols=16)
 

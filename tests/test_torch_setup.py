@@ -44,7 +44,9 @@ CONFIGS = {
     "default_channel_num_bits": dict(channel_type="FLAT", channel_model=None, num_symbols=None,
                                      num_bits=6 * 64 * 512),
     "zero_prefix": dict(prefix_type="ZERO"),
-    "psk_unsupported": dict(constellation_type="PSK", constellation_order=8),
+    # ISI-free past the port's 256-subcarrier diag kernel (ROADMAP item 6b)
+    "psk_unsupported": dict(constellation_type="PSK", constellation_order=8, num_subcarriers=384,
+                            num_symbols=384 * 16),
 }
 
 SCALARS = ("noise_power", "prefix_length", "water_level", "num_ofdm_symbols",
