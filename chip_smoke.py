@@ -22,10 +22,18 @@ adaptive QAM and adaptive PSK) on all four chunk kernels, and
 (config/simulation_settings_adaptive.json at 20 dB: 64 subcarriers,
 Lin-Phoong P1, CP ratio 1.0, MMSE, waterfilling, CAPACITY_BASED QAM 4-256;
 the diag kernel in aqam mode) on 2^26 OFDM symbols, its 15 / 25 dB points
-and the JAX package's audit links' BER bands on 2^20 symbols each.  For
-each path it checks the BER gate or band, the SNR sweep and the launch
-counters, reads the profiler's busy share, and times the kernel beside
-its plain version and its bound.  Any failed check raises.
+and the JAX package's audit links' BER bands on 2^20 symbols each; then
+the power stages: each staged kernel (``apply_power`` and ``normalize``
+on a waterfilling link of every chain and on the adaptive link, the
+noise-bump chunk, and two IRs without unit energy on the plain diag
+kernel) against its plain version, the noise-bump study's fused campaign
+(``run_noise_bump_experiment``: the JAX package's ``_FusedLink``
+configuration, 3 scenarios x 7 SNR points at 2^24 OFDM symbols a point,
+through the diag kernel with all four stages) and one waterfilling link
+a chain with both switches through ``LinkRunner``.  For each path it
+checks the BER gate or band, the SNR sweep and the launch counters, reads
+the profiler's busy share, and times the kernel beside its plain version
+and its bound.  Any failed check raises.
 
 Output: findings on earlier lines; then the kernels JSON line, the card's
 ``nvidia-smi`` name and power limit, and as the last line
@@ -98,6 +106,35 @@ CAMPAIGN_SYMBOLS = 1 << 20
 CAMPAIGN_TOL = 1.5e-3
 
 
+def kernel_key(mangled):
+    """'diag_main<2,0>' for the mangled name of a kernel template of this
+    repo (namespace::kernel<int and bool arguments>), the bool (kStaged)
+    dropped, so the plain build's keys match across sources that add it."""
+    m = re.match(r"_ZN(\d+)", mangled)
+    if not m:
+        return mangled
+    pos, names = 3, []
+    while pos < len(mangled) and mangled[pos].isdigit():
+        num = re.match(r"\d+", mangled[pos:]).group(0)
+        pos += len(num)
+        names.append(mangled[pos : pos + int(num)])
+        pos += int(num)
+    args = re.match(r"I((?:L[ib]\d+E)+)E", mangled[pos:])
+    ints = re.findall(r"Li(\d+)E", args.group(1)) if args else []
+    return f"{names[-1]}<{','.join(ints)}>"
+
+
+def qam_registers(log_text):
+    """{kernel key: registers} of the qam instantiations in a ptxas -v log
+    (the mode is the last int argument: 0 is qam)."""
+    out = {}
+    for name, regs in re.findall(r"Compiling entry function '(\w+)'.*?Used (\d+) registers", log_text, re.S):
+        key = kernel_key(name)
+        if key.endswith(",0>") or key.endswith("<0>"):
+            out[key] = int(regs)
+    return dict(sorted(out.items()))
+
+
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -106,15 +143,20 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
+# The headline link (bench.py's headline cell) and the reference's default
+# SC-FDE link (bench.py's scfde_default), without their sizes.
+HEADLINE_KW = dict(num_subcarriers=64, constellation_order=64, constellation_type="QAM", channel_type="CUSTOM",
+                   channel_model="Lin-Phoong_P2", prefix_type="CYCLIC", prefix_length_ratio=1.0,
+                   equalization_method="MMSE", noise_type="AWGN", snr_db=30.0)
+SCFDE_KW = dict(num_subcarriers=64, constellation_order=4, constellation_type="QAM", channel_type="CUSTOM",
+                channel_model="Lin-Phoong_P1", modulation_type="SC-OFDM", prefix_type="CYCLIC",
+                prefix_length_ratio=1.0, equalization_method="ZF", noise_type="AWGN", snr_db=10.0)
+
+
 def headline_cfg(num_ofdm, chunk=0, **kw):
     from ofdm_tpu_torch.config import SimulationConfig
 
-    base = dict(
-        num_symbols=64 * num_ofdm, num_subcarriers=64, constellation_order=64,
-        constellation_type="QAM", channel_type="CUSTOM", channel_model="Lin-Phoong_P2",
-        prefix_type="CYCLIC", prefix_length_ratio=1.0, equalization_method="MMSE",
-        noise_type="AWGN", snr_db=30.0, symbols_per_chunk=chunk,
-    )
+    base = dict(HEADLINE_KW, num_symbols=64 * num_ofdm, symbols_per_chunk=chunk)
     base.update(kw)
     return SimulationConfig(**base)
 
@@ -122,12 +164,7 @@ def headline_cfg(num_ofdm, chunk=0, **kw):
 def scfde_cfg(num_ofdm, chunk=0, **kw):
     from ofdm_tpu_torch.config import SimulationConfig
 
-    base = dict(
-        num_symbols=kw.get("num_subcarriers", 64) * num_ofdm, num_subcarriers=64, constellation_order=4,
-        constellation_type="QAM", channel_type="CUSTOM", channel_model="Lin-Phoong_P1",
-        modulation_type="SC-OFDM", prefix_type="CYCLIC", prefix_length_ratio=1.0,
-        equalization_method="ZF", noise_type="AWGN", snr_db=10.0, symbols_per_chunk=chunk,
-    )
+    base = dict(SCFDE_KW, num_symbols=kw.get("num_subcarriers", 64) * num_ofdm, symbols_per_chunk=chunk)
     base.update(kw)
     return SimulationConfig(**base)
 
@@ -278,11 +315,12 @@ def check_chunk(link_kw, chunk, sym0, device):
     return max(abs(kp - pp), abs(float((kcr - pcr).abs().max())), abs(float((kci - pci).abs().max())))
 
 
-def compare_chunk(label, kernel, plain, link, sym0, chunk, snr_db, device, no_papr=False):
+def compare_chunk(label, kernel, plain, link, sym0, chunk, snr_db, device, no_papr=False, rows=None):
     """A chunk kernel vs its plain version on the card on the same draw: run
-    symbols [sym0, sym0 + chunk) of the main path's seed.  Counts, PAPR peak
-    and carry row must be equal, the PAPR sum within 1e-12 (both zero when
-    ``no_papr``).  Returns the largest difference."""
+    symbols [sym0, sym0 + chunk) of the main path's seed (``rows``: the
+    stages' per-lane rows).  Counts, PAPR peak and carry row must be equal,
+    the PAPR sum within 1e-12 (both zero when ``no_papr``).  Returns the
+    largest difference."""
     import torch
 
     from ofdm_tpu_torch.ops import link_kernel as lk
@@ -293,7 +331,7 @@ def compare_chunk(label, kernel, plain, link, sym0, chunk, snr_db, device, no_pa
     got = []
     for fn in (kernel, plain):
         acc, psum = lk.new_accumulators(device)
-        cr, ci = fn(link, key, sym0, chunk, snr_lin, acc, psum)
+        cr, ci = fn(link, key, sym0, chunk, snr_lin, acc, psum, rows=rows)
         torch.cuda.synchronize()
         be, se, pk = acc.tolist()
         got.append((be, se, lk.bits_f32(pk), float(psum), cr.cpu().clone(), ci.cpu().clone()))
@@ -519,15 +557,20 @@ def moment_gate(z0, z1):
 
 
 def profile_run(runner, snr_db):
+    """``profile_call`` of one run of ``runner`` at ``snr_db``."""
+    return profile_call(lambda: runner.run(4, snr_db=snr_db))
+
+
+def profile_call(fn):
     """Device time by kernel and the device's busy share over one profiled
-    run, from torch.profiler's kernel events; None when the profiler
-    recorded no kernels."""
+    call of fn(), from torch.profiler's kernel events; None when the
+    profiler recorded no kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        runner.run(4, snr_db=snr_db)
+        fn()
     spans = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
     if not spans:
@@ -835,7 +878,9 @@ CODEC_LINKS = {
 # them diag, fold, diag, lr, diag) and the reference's adaptive config at 15
 # and 25 dB, each held at z = 5 against the JAX package's reading of the same
 # config: (bit errors, bits), XLA path, on a CPU, seed jax.random.PRNGKey(0),
-# 2^18 OFDM symbols (jax_band_readings.py).
+# 2^18 OFDM symbols (jax_band_readings.py).  JAX_CPU_READINGS also holds the
+# readings of STAGED_BAND_LINKS (the same way) and of each noise-bump point
+# (the JAX package's _Link on a CPU at 2^16 OFDM symbols).
 BAND_LINKS = {
     "psk8_cp1.0_64": ("diag", _PSK8),
     "psk8_cp0.34_64": ("fold", dict(_PSK8, prefix_length_ratio=0.34)),
@@ -843,6 +888,39 @@ BAND_LINKS = {
     "adapt_wf_zp0.5_256": ("lr", dict(_ADAPT, **_ZP05_256)),
     "adapt_psk_wf_cp1.0_64": ("diag", _APSK),
 }
+# --- the power stages and the noise-bump study -------------------------------------
+
+# A waterfilling link a chain with both power switches: TX sqrt(P) and the
+# per-tile unit power before the demap.
+_WF = dict(power_allocation_type="WATERFILLING", apply_power_allocation=True, normalize_before_demap=True)
+STAGED_BAND_LINKS = {
+    "wf_headline_64sc": ("diag", dict(HEADLINE_KW, **_WF)),
+    "wf_scfde_default": ("fold", dict(SCFDE_KW, **_WF)),
+    "wf_cp034_128sc": ("lr", dict(HEADLINE_KW, **_WF, num_subcarriers=128, constellation_order=16,
+                                  prefix_length_ratio=0.34, snr_db=20.0)),
+    "wf_zp_64sc": ("mm", dict(HEADLINE_KW, **_WF, prefix_type="ZERO")),
+}
+# The noise-bump study's fused campaign (the JAX package's _FusedLink: 64
+# sc, 64-QAM, Lin-Phoong P2, CP 1.0, MMSE, no channel noise, both
+# switches, post-EQ colored noise and 1/sqrt(P)), at its TPU default of
+# 2^24 OFDM symbols a point.
+NOISE_BUMP_SNRS = (0.0, 5.0, 10.0, 15.0, 20.0, 25.0, 30.0)
+NOISE_BUMP_SYMBOLS = 1 << 24
+NOISE_BUMP_SEED = 42
+# The reference experiment's curves at 0 / 15 / 30 dB (tests/test_experiments.py:40-48), gate +- 0.02.
+NOISE_BUMP_REFERENCE = {
+    "uniform": (0.4868, 0.4078, 0.1495),
+    "wf_plus3": (0.4907, 0.4367, 0.1578),
+    "wf_plus6": (0.4913, 0.4404, 0.1727),
+}
+NOISE_BUMP_TOL = 0.02
+
+
+def noise_bump_name(scenario_key, snr_db):
+    """The JAX_CPU_READINGS key of one noise-bump point."""
+    return f"noise_bump_{scenario_key}_{int(snr_db)}db"
+
+
 JAX_CPU_READINGS = {
     "psk8_cp1.0_64": (0, 50331648),
     "psk8_cp0.34_64": (12161, 50331648),
@@ -852,6 +930,31 @@ JAX_CPU_READINGS = {
     "reference_adaptive_15db": (18970, 41418752),
     "reference_adaptive_20db": (5378, 60293120),
     "reference_adaptive_25db": (9687, 90701824),
+    "wf_headline_64sc": (2707163, 100663296),
+    "wf_scfde_default": (1136318, 33554432),
+    "wf_cp034_128sc": (6499262, 134217728),
+    "wf_zp_64sc": (2705667, 100663296),
+    "noise_bump_uniform_0db": (12255376, 25165824),
+    "noise_bump_uniform_5db": (11958759, 25165824),
+    "noise_bump_uniform_10db": (11374755, 25165824),
+    "noise_bump_uniform_15db": (10276953, 25165824),
+    "noise_bump_uniform_20db": (8472936, 25165824),
+    "noise_bump_uniform_25db": (6205414, 25165824),
+    "noise_bump_uniform_30db": (3757426, 25165824),
+    "noise_bump_wf_plus3_0db": (12322920, 25165824),
+    "noise_bump_wf_plus3_5db": (12097055, 25165824),
+    "noise_bump_wf_plus3_10db": (11656810, 25165824),
+    "noise_bump_wf_plus3_15db": (10960770, 25165824),
+    "noise_bump_wf_plus3_20db": (9825236, 25165824),
+    "noise_bump_wf_plus3_25db": (6637112, 25165824),
+    "noise_bump_wf_plus3_30db": (3965468, 25165824),
+    "noise_bump_wf_plus6_0db": (12337855, 25165824),
+    "noise_bump_wf_plus6_5db": (12121416, 25165824),
+    "noise_bump_wf_plus6_10db": (11702108, 25165824),
+    "noise_bump_wf_plus6_15db": (11053685, 25165824),
+    "noise_bump_wf_plus6_20db": (10013329, 25165824),
+    "noise_bump_wf_plus6_25db": (7027480, 25165824),
+    "noise_bump_wf_plus6_30db": (4356699, 25165824),
 }
 
 
@@ -1017,6 +1120,236 @@ def adaptive_path(card, device, headline_ms):
             "bound_ms": bound, "bound_by": "operations", "library_ms": None}
 
 
+# --- the power stages and the noise-bump campaign ------------------------------------
+
+# Operations a bin of each stage, counted from csrc/link_common.cuh as
+# OPS_PER_BIN is: sqrt(P) (two multiplies, and the row's load); the
+# normalization (|e|^2, its share of the sums, f x slicer and the two
+# multiplies; the tile reduction is negligible); the post-EQ noise (Philox,
+# the Box-Muller chain, sigma x radius and the two multiply-adds);
+# 1/sqrt(P) (two multiplies).
+STAGE_OPS = {"power": 2, "normalize": 7, "post_noise": OPS_PER_BIN["philox"] + OPS_PER_BIN["noise"] + 5,
+             "compensate": 2}
+# The reference's custom-channel demo IR (examples/custom_channel_demo.py,
+# energy 1.22) and the 4-tap IR of energy 1.3225: ISI-free diag links over
+# taps without unit energy, on 64 sc, 16-QAM, MMSE, 20 dB, CP 1.0.
+CUSTOM_IRS = {"custom_channel_demo": (1.0, 0.4 - 0.2j, 0.1 + 0.1j), "ir_4tap_1.3225": (1.0, 0.5, 0.25j, 0.1)}
+
+
+def sqrt_power_row(runner, snr_db):
+    """The apply_power stage's (1, n) row of a runner's SNR point: f32(sqrt(P))."""
+    import numpy as np
+    import torch
+
+    return torch.tensor(np.sqrt(runner.point_params(snr_db)[0])[None], dtype=torch.float32, device=runner.device)
+
+
+def stage_checks(device):
+    """Each staged chunk kernel vs its plain version (``compare_chunk``) on
+    the last 2^17-symbol chunk of a 2^27-symbol run (2^26 for lr): both
+    switches on diag, fold, lr (wide_1024sc: the in-run PAPR from the scaled
+    symbols) and mm (zp_64sc's shape) waterfilling links and on the
+    reference's adaptive link (aqam); the noise-bump chunk; and the two
+    custom IRs without unit energy on the plain diag kernel.  Returns the
+    largest difference."""
+    import numpy as np
+
+    from ofdm_tpu_torch.experiments import noise_bump as nb
+    from ofdm_tpu_torch.ops import link_kernel as lk
+    from ofdm_tpu_torch.pipeline import LinkRunner, prepare
+
+    last = MAIN_SYMBOLS - MAIN_CHUNK
+    cases = [
+        ("wf_headline_64sc", headline_cfg(MAIN_SYMBOLS, MAIN_CHUNK, **_WF), last, None),
+        ("wf_scfde_default", scfde_cfg(MAIN_SYMBOLS, MAIN_CHUNK, **_WF), last, None),
+        ("wf_wide_1024sc", wide_cfg(LR_SYMBOLS, MAIN_CHUNK, **_WF), LR_SYMBOLS - MAIN_CHUNK, None),
+        ("wf_zp_64sc", zp_cfg(MAIN_SYMBOLS, MAIN_CHUNK, **_WF), last, None),
+        ("wf_adaptive_64sc", adaptive_cfg(20.0, MAIN_SYMBOLS).replace(apply_power_allocation=True,
+                                                                      normalize_before_demap=True), last, None),
+    ] + [(name, headline_cfg(MAIN_SYMBOLS, MAIN_CHUNK, constellation_order=16, snr_db=20.0), last, np.asarray(ir))
+         for name, ir in CUSTOM_IRS.items()]
+    chains_ = chains()
+    err = 0.0
+    for name, cfg, sym0, ir in cases:
+        runner = LinkRunner(prepare(cfg, channel_ir=ir), device)
+        _, kernel, plain, _ = chains_[runner.mode]
+        link = runner.link
+        rows = sqrt_power_row(runner, cfg.snr_db) if cfg.apply_power_allocation else None
+        if ir is not None:
+            d = link.cr.cpu().numpy() + 1j * link.ci.cpu().numpy()
+            h = link.hr.cpu().numpy() + 1j * link.hi.cpu().numpy()
+            print(f"{name}: IR energy {float(np.sum(np.abs(ir) ** 2))}, channel rows / equalizer rows "
+                  f"{float(np.mean(np.abs(d) / np.abs(h)))} (1/||ir|| {1.0 / float(np.linalg.norm(ir))})")
+        tile = lk.tile_for(MAIN_CHUNK, link.tile_cap)
+        err = max(err, compare_chunk(
+            f"{runner.mode}_chunk {name} (n={link.n}, stages={lk.link_stages(link)}, mode {link.q.mode}, tile {tile}, "
+            f"txext={getattr(link, 'txext', False)})", kernel, plain, link, sym0, MAIN_CHUNK, cfg.snr_db, device,
+            rows=rows))
+    # the noise-bump chunk: all four stages, wf_plus3 at 15 dB
+    fused = nb.FusedLink(MAIN_SYMBOLS, 64, 64, "Lin-Phoong_P2", chunk=MAIN_CHUNK, device=device)
+    scen = nb.SCENARIOS[1]
+    rows = fused.rows(scen, nb.create_noise_profile(64, scen.noise_bump_db), 15.0)
+    err = max(err, compare_chunk(f"diag_chunk noise_bump {scen.key} 15 dB (stages={lk.link_stages(fused.link)})",
+                                 lk.diag_chunk, lk.diag_chunk_plain, fused.link, last, MAIN_CHUNK, 15.0, device,
+                                 rows=rows))
+    return err
+
+
+def staged_operations(chain, link, chunk):
+    """(needed, added): the operations one staged chunk needs, the chain's
+    count plus its stages a bin, and the work the design adds (the chain's
+    own, plus the normalization pass: the chain again up to e)."""
+    from ofdm_tpu_torch.ops import link_kernel as lk
+
+    stages = lk.link_stages(link)
+    per_bin = sum(ops for bit, ops in zip((lk.STAGE_POWER, lk.STAGE_NORMALIZE, lk.STAGE_POST_NOISE,
+                                           lk.STAGE_COMPENSATE), STAGE_OPS.values()) if stages & bit)
+    if chain == "diag":
+        ops_per_bin = dict(OPS_PER_BIN_AQAM if link.q.mode == "aqam" else OPS_PER_BIN)
+        if not link.add_noise:
+            ops_per_bin["noise"] = 0
+        base = diag_operations(link, chunk, ops_per_bin)
+        added = 0
+    else:
+        base, *extra = {"fold": fold_operations, "lr": lr_operations, "mm": mm_operations}[chain](link, chunk)
+        added = sum(extra)
+    needed = base + chunk * link.n * per_bin
+    if link.normalize:
+        added += needed
+    return needed, added
+
+
+def noise_bump_path(card, device, headline_ms, err):
+    """The slice's main path: the noise-bump study's fused campaign through
+    ``run_noise_bump_experiment`` at 2^24 OFDM symbols a point (3 scenarios x
+    7 SNR points, one link), its launch counters, the reference curves'
+    gate, the z = 5 band of every point, the profile and the staged
+    diag_chunk's times.  Returns the kernels-line entry."""
+    import torch
+
+    from ofdm_tpu_torch.experiments import noise_bump as nb
+    from ofdm_tpu_torch.ops import link_kernel as lk
+    from ofdm_tpu_torch.ops import metrics as mt
+
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tmp", "noise_bump")  # gitignored
+    nb.run_noise_bump_experiment((15.0,), MAIN_CHUNK, results_dir=out_dir, seed=1, chunk=MAIN_CHUNK)  # warm-up
+    torch.cuda.synchronize()
+    lk.diag_chunk.launches = lk.diag_chunk.norm_launches = lk.diag_chunk.power_launches = 0
+    t0 = time.perf_counter()
+    res = nb.run_noise_bump_experiment(NOISE_BUMP_SNRS, NOISE_BUMP_SYMBOLS, results_dir=out_dir,
+                                       seed=NOISE_BUMP_SEED, chunk=MAIN_CHUNK)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = (lk.diag_chunk.launches, lk.diag_chunk.norm_launches, lk.diag_chunk.power_launches)
+    points = len(nb.SCENARIOS) * len(NOISE_BUMP_SNRS)
+    want = points * (NOISE_BUMP_SYMBOLS // MAIN_CHUNK)
+    print(f"noise_bump campaign [{card}]: {points} points x {NOISE_BUMP_SYMBOLS} OFDM symbols in {wall:.4f} s: "
+          f"{wall / points * 1e3:.3f} ms and {NOISE_BUMP_SYMBOLS * points / wall:.1f} OFDM syms/s a point on "
+          f"average; launches: diag_staged (counting pass) {launches[0]}, normalization pass + norm_factors "
+          f"{launches[1]} each, power_partials {launches[2]}")
+    if launches != (want, want, 0):
+        raise AssertionError(f"noise_bump campaign launched {launches}, not ({want}, {want}, 0)")
+    bits = NOISE_BUMP_SYMBOLS * 64 * 6
+    for scenario in nb.SCENARIOS:
+        bers = res[scenario.name]
+        print(f"noise_bump {scenario.key} BER at {list(NOISE_BUMP_SNRS)} dB: {bers}")
+        for snr, ber in zip(NOISE_BUMP_SNRS, bers):
+            je, jb = JAX_CPU_READINGS[noise_bump_name(scenario.key, snr)]
+            errors = int(round(ber * bits))
+            if not mt.ber_equivalent(errors, bits, je, jb, z=BAND_Z):
+                raise AssertionError(f"noise_bump {scenario.key} {snr} dB: BER {ber} outside z={BAND_Z} of the JAX "
+                                     f"package's _Link reading {je / jb}")
+        for snr, ref in zip((0.0, 15.0, 30.0), NOISE_BUMP_REFERENCE[scenario.key]):
+            got = bers[NOISE_BUMP_SNRS.index(snr)]
+            if not abs(got - ref) < NOISE_BUMP_TOL:
+                raise AssertionError(f"noise_bump {scenario.key} {snr} dB: BER {got} vs reference {ref}")
+    print(f"noise_bump: every point inside z={BAND_Z} of the JAX package's _Link reading (CPU, 2^16 symbols); "
+          f"0 / 15 / 30 dB within {NOISE_BUMP_TOL} of the reference curves {json.dumps(NOISE_BUMP_REFERENCE)}")
+
+    fused = nb.FusedLink(NOISE_BUMP_SYMBOLS, 64, 64, "Lin-Phoong_P2", chunk=MAIN_CHUNK, device=device)
+    scen = nb.SCENARIOS[1]
+    profile = nb.create_noise_profile(64, scen.noise_bump_db)
+    rows = fused.rows(scen, profile, 15.0)
+    print_profile(card, "noise_bump point (wf_plus3, 15 dB)",
+                  profile_call(lambda: fused.run_point(7, scen, profile, 15.0)))
+    link = fused.link
+    snr_lin = lk.snr_linear(15.0)
+    acc, psum = lk.new_accumulators(device)
+    work = lk.chunk_workspace(link, MAIN_CHUNK, device)
+    k_ms = cuda_ms(lambda: lk.diag_chunk(link, (3, 4), 0, MAIN_CHUNK, snr_lin, acc, psum, work, rows), 20)
+    p_ms = cuda_ms(lambda: lk.diag_chunk_plain(link, (3, 4), 0, MAIN_CHUNK, snr_lin, acc, psum, rows=rows), 3)
+    ops, added = staged_operations("diag", link, MAIN_CHUNK)
+    rows_bytes = 4 * (7 * link.n + 3 * link.n) + 8 * link.n * link.T
+    bound = max(ops / PEAK_OPS, (rows_bytes + 3 * 8) / PEAK_BYTES) * 1e3
+    print(f"diag_chunk with the noise-bump stages at {MAIN_CHUNK} symbols [{card}]: kernel {k_ms:.4f} ms (the "
+          f"headline's qam {headline_ms:.4f} ms, ratio {k_ms / headline_ms:.4f}), plain {p_ms:.3f} ms, bound "
+          f"{bound:.4f} ms ({ops} operations needed; the normalization pass adds {added}, "
+          f"{added / PEAK_OPS * 1e3:.4f} ms at the same rate)")
+    return {"name": "diag_chunk (noise-bump stages)", "route": "cuda", "source": "ofdm_tpu_torch/csrc/link_kernel.cu",
+            "replaces": "ofdm_tpu/ops/pallas_link.py:1986", "launches": launches[0],
+            "norm_launches": launches[1], "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bound, "bound_by": "operations", "library_ms": None}
+
+
+def staged_path(card, device, err):
+    """Both switches through LinkRunner, one waterfilling link a chain at
+    2^20 OFDM symbols (launch counters, the z = 5 band against the JAX
+    package's CPU reading), then each chain's staged kernel timed at its
+    check link beside its plain version and bound.  Returns the
+    kernels-line entries."""
+    from ofdm_tpu_torch.config import SimulationConfig
+    from ofdm_tpu_torch.ops import link_kernel as lk
+    from ofdm_tpu_torch.pipeline import LinkRunner, prepare
+
+    chains_ = chains()
+    launches = {}
+    for name, (chain, kw) in STAGED_BAND_LINKS.items():
+        _, kernel, _, counters = chains_[chain]
+        runner = LinkRunner(prepare(SimulationConfig(**kw, num_symbols=BAND_SYMBOLS * kw["num_subcarriers"],
+                                                     symbols_per_chunk=MAIN_CHUNK)))
+        if runner.mode != chain:
+            raise AssertionError(f"{name} routed to {runner.mode}, not {chain}")
+        for c in counters + ("norm_launches",):
+            setattr(kernel, c, 0)
+        r = runner.run(MAIN_SEED)
+        got = tuple(getattr(kernel, c) for c in counters + ("norm_launches",))
+        want = BAND_SYMBOLS // MAIN_CHUNK
+        print(f"{name} through LinkRunner ({chain}): launches {dict(zip(counters + ('norm_launches',), got))}, "
+              f"papr_estimator {r['papr_estimator']}")
+        if got != (want,) * 3 or r["hotpath_used"] != "cuda":
+            raise AssertionError(f"{name}: launches {got}, not {want} each")
+        band(name, r)
+        launches[chain] = got[0]
+
+    entries = []
+    last = MAIN_SYMBOLS - MAIN_CHUNK
+    timed = {"diag": (headline_cfg(MAIN_SYMBOLS, MAIN_CHUNK, **_WF), last),
+             "fold": (scfde_cfg(MAIN_SYMBOLS, MAIN_CHUNK, **_WF), last),
+             "lr": (wide_cfg(LR_SYMBOLS, MAIN_CHUNK, **_WF), LR_SYMBOLS - MAIN_CHUNK),
+             "mm": (zp_cfg(MAIN_SYMBOLS, MAIN_CHUNK, **_WF), last)}
+    for chain, (cfg, sym0) in timed.items():
+        runner = LinkRunner(prepare(cfg))
+        _, kernel, plain, _ = chains_[chain]
+        link = runner.link
+        rows = sqrt_power_row(runner, cfg.snr_db)
+        snr_lin = lk.snr_linear(cfg.snr_db)
+        acc, psum = lk.new_accumulators(device)
+        work = runner.kernel.workspace(link, MAIN_CHUNK, device)
+        k_ms = cuda_ms(lambda: kernel(link, (3, 4), sym0, MAIN_CHUNK, snr_lin, acc, psum, work, rows), 20)
+        p_ms = cuda_ms(lambda: plain(link, (3, 4), sym0, MAIN_CHUNK, snr_lin, acc, psum, rows=rows), 2)
+        ops, added = staged_operations(chain, link, MAIN_CHUNK)
+        bound = ops / PEAK_OPS * 1e3
+        print(f"{chain}_chunk with apply_power + normalize at {MAIN_CHUNK} symbols ({cfg.num_subcarriers} sc) "
+              f"[{card}]: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, bound {bound:.4f} ms ({ops} operations needed; "
+              f"the design adds {added}, {added / PEAK_OPS * 1e3:.4f} ms at the same rate)")
+        entries.append({"name": f"{chain}_chunk (apply_power + normalize)", "route": "cuda",
+                        "source": f"ofdm_tpu_torch/csrc/{'link' if chain == 'diag' else chain}_kernel.cu",
+                        "replaces": "ofdm_tpu/ops/pallas_link.py:1986", "launches": launches[chain],
+                        "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
+                        "bound_by": "operations", "library_ms": None})
+    return entries
+
+
 def main():
     import torch
 
@@ -1046,6 +1379,8 @@ def main():
             spills = [int(b) for b in re.findall(r"(\d+) bytes spill stores", text) if int(b)]
             print(f"ptxas {name}: {len(regs)} kernels, {min(regs, default=0)}-{max(regs, default=0)} registers, "
                   f"{len(spills)} with spill stores (at most {max(spills, default=0)} bytes)")
+            if not name.endswith("_staged") and name != "boxmuller":
+                print(f"ptxas {name} qam entry points (registers): {json.dumps(qam_registers(text))}")
 
     # 2. Philox: kernel vs plain, bit for bit
     key = (0xA4093822, 0x299F31D0)
@@ -1134,6 +1469,12 @@ def main():
     # adaptive link through the diag kernel in aqam mode
     aqam = adaptive_path(card, device, dk_ms)
 
+    # 11. the stages: each staged kernel against its plain version, the
+    # noise-bump campaign (the study's path), both switches through LinkRunner
+    stage_err = stage_checks(device)
+    bump = noise_bump_path(card, device, dk_ms, stage_err)
+    staged = staged_path(card, device, stage_err)
+
     kernels = [
         {"name": "diag_chunk", "route": "cuda", "source": "ofdm_tpu_torch/csrc/link_kernel.cu",
          "replaces": "ofdm_tpu/ops/pallas_link.py:1986", "launches": main_launches,
@@ -1149,6 +1490,8 @@ def main():
         *lr,
         mm,
         aqam,
+        bump,
+        *staged,
     ]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

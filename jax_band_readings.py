@@ -1,12 +1,17 @@
-"""The JAX package's BER readings behind chip_smoke.py's bands for the new modes.
+"""The JAX package's BER readings behind chip_smoke.py's bands.
 
     JAX_PLATFORMS=cpu python jax_band_readings.py
 
 Runs each of ``chip_smoke.BAND_LINKS`` (the audit's 8-PSK and adaptive
-links) and the reference's adaptive config at 15 / 20 / 25 dB through the
+links), the reference's adaptive config at 15 / 20 / 25 dB and
+``chip_smoke.STAGED_BAND_LINKS`` (a waterfilling link a chain with
+``apply_power_allocation`` and ``normalize_before_demap``) through the
 JAX package's XLA path on the CPU, seed ``jax.random.PRNGKey(0)``, 2^18
-OFDM symbols in chunks of 4096, and prints ``{name: [bit errors, bits]}``:
-the values of ``chip_smoke.JAX_CPU_READINGS``.  About 40 s on one CPU.
+OFDM symbols in chunks of 4096; then every point of the noise-bump study
+(3 scenarios x SNR 0, 5, ..., 30 dB) through the JAX package's ``_Link``
+at 2^16 OFDM symbols a point, key ``fold_in(PRNGKey(42), 1000 s + p)`` as
+its campaign draws them.  Prints ``{name: [bit errors, bits]}``: the
+values of ``chip_smoke.JAX_CPU_READINGS``.  About 4 min on one CPU.
 """
 
 import json
@@ -15,12 +20,16 @@ import sys
 
 import jax
 
-from chip_smoke import ADAPTIVE_CONFIG, AUDIT_BASE, BAND_LINKS
+from chip_smoke import (ADAPTIVE_CONFIG, AUDIT_BASE, BAND_LINKS, NOISE_BUMP_SNRS, STAGED_BAND_LINKS,
+                        noise_bump_name)
 from ofdm_tpu.config import SimulationConfig
+from ofdm_tpu.experiments import noise_bump as nb
+from ofdm_tpu.models import channels as chm
 from ofdm_tpu.pipeline import LinkRunner, prepare
 
 SYMBOLS = 1 << 18
 CHUNK = 4096
+NOISE_BUMP_SYMBOLS = 1 << 16
 
 
 def reading(cfg):
@@ -40,6 +49,17 @@ def main():
     for cfg in SimulationConfig.from_json(path):
         out[f"reference_adaptive_{int(cfg.snr_db)}db"] = reading(
             cfg.replace(num_symbols=SYMBOLS, symbols_per_chunk=CHUNK))
+    for name, (_, kw) in STAGED_BAND_LINKS.items():
+        out[name] = reading(SimulationConfig(**kw, num_symbols=SYMBOLS * kw["num_subcarriers"],
+                                             symbols_per_chunk=CHUNK))
+    link = nb._Link(NOISE_BUMP_SYMBOLS, 64, 64, chm.get_channel("Lin-Phoong_P2"))
+    key = jax.random.PRNGKey(42)
+    bits = NOISE_BUMP_SYMBOLS * 64 * 6
+    for s_i, scenario in enumerate(nb.SCENARIOS):
+        profile = nb.create_noise_profile(64, scenario.noise_bump_db)
+        for p_i, snr in enumerate(NOISE_BUMP_SNRS):
+            ber, _ = link.run_point(jax.random.fold_in(key, s_i * 1000 + p_i), scenario, profile, snr)
+            out[noise_bump_name(scenario.key, snr)] = [int(round(ber * bits)), bits]
     print(json.dumps(out, indent=1))
     return 0
 

@@ -1,10 +1,14 @@
 """Build the port's CUDA kernels and load them through ctypes.
 
-Each ``csrc/<name>.cu`` compiles with nvcc into a shared library with a
-plain C interface (no PyTorch headers, so a build takes seconds), named by
-a digest of its sources and flags under ``ofdm_tpu_torch/_build/``.  A
-library is built at its first use in a process; :func:`build` compiles
-several at once, one nvcc process each.  Nothing here runs at import time.
+Each library compiles one ``csrc/<source>.cu`` with nvcc into a shared
+library with a plain C interface (no PyTorch headers, so a build takes
+seconds), named by a digest of its sources and flags under
+``ofdm_tpu_torch/_build/``.  Each chunk source builds twice: plainly, and
+with ``-DOFDM_STAGED=1`` into its ``*_staged`` library, which holds the
+_Spec stages (link_common.cuh), so that the plain build's kernels compile
+from the code they had.  A library is built at its first use in a
+process; :func:`build` compiles several at once, one nvcc process each.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -21,7 +25,19 @@ from typing import Dict, Iterable
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-SOURCES = ("link_kernel", "fold_kernel", "lr_kernel", "mm_kernel", "boxmuller")
+# library -> (source in csrc/, extra nvcc flags)
+LIBRARIES = {
+    "link_kernel": ("link_kernel", ()),
+    "fold_kernel": ("fold_kernel", ()),
+    "lr_kernel": ("lr_kernel", ()),
+    "mm_kernel": ("mm_kernel", ()),
+    "boxmuller": ("boxmuller", ()),
+    "link_staged": ("link_kernel", ("-DOFDM_STAGED=1",)),
+    "fold_staged": ("fold_kernel", ("-DOFDM_STAGED=1",)),
+    "lr_staged": ("lr_kernel", ("-DOFDM_STAGED=1",)),
+    "mm_staged": ("mm_kernel", ("-DOFDM_STAGED=1",)),
+}
+SOURCES = tuple(LIBRARIES)
 # -fmad=false: every multiply rounds before its add, as in the plain
 # PyTorch versions, so kernel and plain agree operation for operation.
 NVCC_FLAGS = (
@@ -30,34 +46,37 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
-# The C entry points of each library with their (argtypes, restype), set
-# once when the library loads.
+# The stage arguments of every chunk entry point: rows, stage bits, the
+# normalization partials and factors.
+_STAGES = [_P, _I, _P, _P]
+# The C entry points of each source's libraries with their (argtypes,
+# restype), set once when a library loads.
 SIGNATURES = {
     "link_kernel": {
         "ofdm_diag_chunk": (
-            [_P] * 7 + [_I] * 8 + [_F] + [_P] * 2 + [_F] * 3 + [_I] * 2 + [ctypes.c_ulonglong]
-            + [_I] * 6 + [_U] * 2 + [_P] * 6,
+            [_P] * 9 + [_I] * 8 + [_F] + [_P] * 2 + [_F] * 3 + [_I] * 2 + [ctypes.c_ulonglong]
+            + [_I] * 7 + [_U] * 2 + [_P] * 5 + _STAGES + [_P],
             _I,
         ),
     },
     "fold_kernel": {
         "ofdm_fold_chunk": (
             [_P] * 11 + [_I] * 9 + [_F] + [_P] * 2 + [_F] * 3 + [_I] * 3 + [ctypes.c_ulonglong]
-            + [_I] * 5 + [_U] * 2 + [_P] * 6,
+            + [_I] * 5 + [_U] * 2 + [_P] * 5 + _STAGES + [_P],
             _I,
         ),
     },
     "lr_kernel": {
         "ofdm_lr_chunk": (
             [_P] * 15 + [_I] * 10 + [_F] + [_P] * 2 + [_F] * 4 + [_I] * 4 + [ctypes.c_ulonglong]
-            + [_I] * 5 + [_U] * 2 + [_P] * 6,
+            + [_I] * 5 + [_U] * 2 + [_P] * 5 + _STAGES + [_P],
             _I,
         ),
     },
     "mm_kernel": {
         "ofdm_mm_chunk": (
             [_P] * 13 + [_I] * 9 + [_F] + [_P] * 2 + [_F] * 3 + [_I] * 3 + [ctypes.c_ulonglong]
-            + [_I] * 4 + [_U] * 2 + [_P] * 8,
+            + [_I] * 4 + [_U] * 2 + [_P] * 7 + _STAGES + [_P],
             _I,
         ),
     },
@@ -87,8 +106,9 @@ def _headers():
 
 
 def library_path(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in [f"{name}.cu", *_headers()]:
+    source, extra = LIBRARIES[name]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + extra).encode())
+    for f in [f"{source}.cu", *_headers()]:
         with open(os.path.join(CSRC, f), "rb") as fh:
             h.update(f.encode() + fh.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
@@ -108,7 +128,8 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
         if os.path.exists(out):
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+        source, extra = LIBRARIES[name]
+        cmd = [nvcc_path(), *NVCC_FLAGS, *extra, "-o", tmp, os.path.join(CSRC, f"{source}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT), tmp, out)
     seconds = {}
     failures = []
@@ -127,7 +148,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library ``name`` (a key of ``LIBRARIES``), built first if needed."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
@@ -135,7 +156,7 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(library_path(name))
             lib.ofdm_error_string.argtypes = [ctypes.c_int]
             lib.ofdm_error_string.restype = ctypes.c_char_p
-            for fname, (argtypes, restype) in SIGNATURES[name].items():
+            for fname, (argtypes, restype) in SIGNATURES[LIBRARIES[name][0]].items():
                 fn = getattr(lib, fname)
                 fn.argtypes = argtypes
                 fn.restype = restype

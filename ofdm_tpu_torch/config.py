@@ -143,10 +143,10 @@ class SimulationConfig:
     # The JAX package's execution knobs, kept so one config file drives both
     # packages.  The port reads symbols_per_chunk (OFDM symbols per kernel
     # launch; 0 = one chunk), papr_stride (the PAPR statistic runs on every
-    # papr_stride-th tile of a chunk; 0 = auto = 32, 1 = every tile) and the
-    # two power switches, which this slice supports only at False.  dtype,
-    # engine, hotpath and matmul_passes select JAX/TPU paths: the port has
-    # one path, f32 throughout, and ignores them.
+    # papr_stride-th tile of a chunk; 0 = auto = 32, 1 = every tile), the
+    # two power switches, and matmul_passes only for the JAX planner's tile
+    # rule (link_kernel.selected_passes).  dtype, engine and hotpath select
+    # JAX/TPU paths: the port has one path, f32 throughout, and ignores them.
     dtype: str = "complex64"
     engine: str = "auto"
     symbols_per_chunk: int = 0

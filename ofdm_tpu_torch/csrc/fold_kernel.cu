@@ -7,7 +7,7 @@
 // whose guard is shorter than the channel order; in each constellation mode
 // (qam, psk, aqam, apsk: a template parameter, link_common.cuh's codec;
 // SC-FDE takes no adaptive mode).  Per OFDM symbol b:
-//   Philox words -> encode s_b
+//   Philox words -> encode s_b [x sqrt(P)]
 //   x_b  = s_b @ F_tx,ext                  (n -> T+E: IDFT/identity + guard,
 //                                           the last E columns repeated)
 //   PAPR max and sum over x_b[0:T)
@@ -17,7 +17,10 @@
 //   over the first `slice` symbols of b's tile, before noise
 //   ZF / MMSE / none with the slicer gain 0.5/scale folded in
 //   SC-FDE only: e = e @ IDFT (n -> n)
+//   [x the tile's unit-power factor, the slicer gain deferred to it]
 //   slicer or PSK sector -> popcount(tx ^ rx) into int64 counters.
+// The bracketed _Spec stages exist only in the build with -DOFDM_STAGED=1
+// (the kernels' kStaged parameter; link_common.cuh).
 //
 // Bound on an H100: issue rate, not memory.  The chunk reads its constant
 // matrices (~100 KB at n = 64, L1/L2 resident) and writes 3 counters and one
@@ -51,6 +54,9 @@
 //  * Counters: per-thread 32-bit, warp and block sums, one 64-bit atomicAdd
 //    per block; PAPR peak an atomicMax on the f32 bits, PAPR sum a double
 //    atomicAdd (its last digits depend on block order).
+//  * normalize (staged build): fold_main runs twice around norm_factors, as
+//    diag_staged does; phase 0 writes each warp's |e|^2 sum over its run of
+//    symbols (after the SC IDFT on SC-FDE), phase 1 scales and counts.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -88,6 +94,7 @@ struct Link {
   int run;  // consecutive symbols a warp of fold_main walks
   uint2 key;
   ofdm::Lanes lanes;  // the adaptive modes' lane rows
+  ofdm::Stages st;    // the _Spec stages (OFDM_STAGED builds)
 };
 
 using ofdm::WarpBufs;
@@ -98,13 +105,13 @@ using ofdm::warp_floats;
 // s, tx/w1/w2 for the lane's bins, x into act, the PAPR stats when `papr`,
 // the carry row when `carry_r` is set), then y = act @ CM, then the next
 // tail moves into act.
-template <int J, int kMode>
+template <int J, int kMode, bool kStaged>
 __device__ __forceinline__ void symbol_y(const Link& L, const WarpBufs& w, unsigned long long sym,
                                          int lane, bool papr, float& pk, double& ps,
                                          float* carry_r, float* carry_i, int (&tx)[J],
                                          uint32_t (&w1)[J], uint32_t (&w2)[J], float (&yr)[J],
                                          float (&yi)[J]) {
-  ofdm::symbol_tx<J, kMode>(L, w, sym, lane, papr, pk, ps, carry_r, carry_i, tx, w1, w2);
+  ofdm::symbol_tx<J, kMode, kStaged>(L, w, sym, lane, papr, pk, ps, carry_r, carry_i, tx, w1, w2);
   ofdm::row_product<J>(w.ar, w.ai, L.cmr, L.cmi, L.T + L.E, L.n, lane, yr, yi);
   ofdm::shift_tail(L, w, lane);
 }
@@ -112,7 +119,7 @@ __device__ __forceinline__ void symbol_y(const Link& L, const WarpBufs& w, unsig
 // Partial sums of |y|^2 (before noise) over each tile's measured-power slice,
 // in power_partials' order.  grid (tiles, groups); block (tile, g) covers
 // slice elements e = b*n + k in [g*4096, (g+1)*4096).
-template <int J, int kMode>
+template <int J, int kMode, bool kStaged>
 __global__ void __launch_bounds__(kThreads) fold_power(Link L, float* partials) {
   extern __shared__ float smem[];
   float* red = smem;  // kPowerBlock floats, element order
@@ -137,15 +144,15 @@ __global__ void __launch_bounds__(kThreads) fold_power(Link L, float* partials) 
     const int w_lo = s_lo + warp * per;
     const int w_hi = min(w_lo + per, s_hi);
     if (w_lo < w_hi) {
-      ofdm::prev_tail<kMode>(L, w, L.sym0 + static_cast<unsigned long long>(b0 + w_lo), lane);
+      ofdm::prev_tail<kMode, kStaged>(L, w, L.sym0 + static_cast<unsigned long long>(b0 + w_lo), lane);
       float pk = 0.0f;
       double ps = 0.0;
       int tx[J];
       uint32_t w1[J], w2[J];
       float yr[J], yi[J];
       for (int s = w_lo; s < w_hi; ++s) {
-        symbol_y<J, kMode>(L, w, L.sym0 + static_cast<unsigned long long>(b0 + s), lane, false, pk, ps,
-                    nullptr, nullptr, tx, w1, w2, yr, yi);
+        symbol_y<J, kMode, kStaged>(L, w, L.sym0 + static_cast<unsigned long long>(b0 + s), lane, false, pk,
+                                    ps, nullptr, nullptr, tx, w1, w2, yr, yi);
 #pragma unroll
         for (int j = 0; j < J; ++j) {
           const int k = lane + 32 * j;
@@ -158,7 +165,9 @@ __global__ void __launch_bounds__(kThreads) fold_power(Link L, float* partials) 
   ofdm::power_block_partial<kThreads, kPowerSteps>(red, t, partials + tile_id * L.groups + g);
 }
 
-template <int J, int kMode>
+// The chain per symbol; with kStaged, the stages (phase 0 of a normalized
+// link writes its run's |e|^2 partial instead of counting).
+template <int J, int kMode, bool kStaged>
 __global__ void __launch_bounds__(kThreads)
     fold_main(Link L, const float* partials, unsigned long long* acc, double* psum,
               float* carry_r, float* carry_i) {
@@ -173,12 +182,16 @@ __global__ void __launch_bounds__(kThreads)
   double ps = 0.0;
 
   const long long first = (static_cast<long long>(blockIdx.x) * kWarps + warp) * L.run;
+  const bool counting = !kStaged || L.st.phase == 1;
+  const bool normalize = kStaged && (L.st.bits & ofdm::kStageNormalize) != 0;
   if (first < L.chunk) {
     const int b0 = static_cast<int>(first);
     const int b1 = min(b0 + L.run, L.chunk);
-    ofdm::prev_tail<kMode>(L, w, L.sym0 + static_cast<unsigned long long>(b0), lane);
+    ofdm::prev_tail<kMode, kStaged>(L, w, L.sym0 + static_cast<unsigned long long>(b0), lane);
     int cached_tile = -1;
     float sigma = 0.0f;
+    int norm_tile = -1;
+    float fn = 1.0f, energy = 0.0f;
     int tx[J];
     uint32_t w1[J], w2[J];
     float yr[J], yi[J];
@@ -190,9 +203,15 @@ __global__ void __launch_bounds__(kThreads)
                                  L.snr_lin);
         cached_tile = tile_id;
       }
-      const bool last = b == L.chunk - 1;
-      symbol_y<J, kMode>(L, w, L.sym0 + static_cast<unsigned long long>(b), lane, true, pk, ps,
-                  last ? carry_r : nullptr, last ? carry_i : nullptr, tx, w1, w2, yr, yi);
+      if constexpr (kStaged) {
+        if (normalize && counting && tile_id != norm_tile) {
+          fn = L.st.norm_f[tile_id];
+          norm_tile = tile_id;
+        }
+      }
+      const bool last = counting && b == L.chunk - 1;
+      symbol_y<J, kMode, kStaged>(L, w, L.sym0 + static_cast<unsigned long long>(b), lane, counting, pk, ps,
+                                  last ? carry_r : nullptr, last ? carry_i : nullptr, tx, w1, w2, yr, yi);
       if (L.add_noise) {
 #pragma unroll
         for (int j = 0; j < J; ++j) {
@@ -207,7 +226,7 @@ __global__ void __launch_bounds__(kThreads)
         const int k = lane + 32 * j;
         er[j] = 0.0f;
         ei[j] = 0.0f;
-        if (k < L.n) ofdm::equalize_bin<kMode>(L.eq, L.lanes, k, yr[j], yi[j], nv, er[j], ei[j]);
+        if (k < L.n) ofdm::equalize_stage<kMode, kStaged>(L, k, yr[j], yi[j], nv, er[j], ei[j]);
       }
 
       if (!ofdm::adaptive(kMode) && L.is_sc) {
@@ -229,11 +248,31 @@ __global__ void __launch_bounds__(kThreads)
         __syncwarp();
       }
 
+      if constexpr (kStaged) {
+        if (normalize) {
+          if (!counting) {
+            energy = energy + ofdm::warp_energy<J>(er, ei, lane, L.n);
+            continue;
+          }
+#pragma unroll
+          for (int j = 0; j < J; ++j) {
+            const int k = lane + 32 * j;
+            if (k < L.n) {
+              const float m = ofdm::norm_gain<kMode>(L, k, fn);
+              er[j] = er[j] * m;
+              ei[j] = ei[j] * m;
+            }
+          }
+        }
+      }
 #pragma unroll
       for (int j = 0; j < J; ++j) {
         const int k = lane + 32 * j;
         if (k < L.n) ofdm::count_bin<kMode>(tx[j], er[j], ei[j], L.q, L.lanes, k, be, se);
       }
+    }
+    if constexpr (kStaged) {
+      if (normalize && !counting && lane == 0) L.st.norm_part[b0 / L.run] = energy;
     }
   }
 
@@ -243,25 +282,36 @@ __global__ void __launch_bounds__(kThreads)
 template <int J, int kMode>
 cudaError_t launch(const Link& L, float* partials, unsigned long long* acc, double* psum,
                    float* cr, float* ci, cudaStream_t stream) {
+  constexpr bool kS = ofdm::kStagedBuild;
   const int wf = warp_floats(L.n, L.T, L.E);
   const size_t main_bytes = sizeof(float) * kWarps * wf;
   const size_t power_bytes = sizeof(float) * (kPowerBlock + kWarps * wf);
-  cudaError_t err = cudaFuncSetAttribute(fold_main<J, kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t err = cudaFuncSetAttribute(fold_main<J, kMode, kS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(main_bytes));
   if (err != cudaSuccess) return err;
   if (L.add_noise) {
-    err = cudaFuncSetAttribute(fold_power<J, kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(fold_power<J, kMode, kS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(power_bytes));
     if (err != cudaSuccess) return err;
     const int tiles = (L.chunk + L.tile - 1) / L.tile;
-    fold_power<J, kMode><<<dim3(tiles, L.groups), kThreads, power_bytes, stream>>>(L, partials);
+    fold_power<J, kMode, kS><<<dim3(tiles, L.groups), kThreads, power_bytes, stream>>>(L, partials);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   const long long warps = (static_cast<long long>(L.chunk) + L.run - 1) / L.run;
   const int grid = static_cast<int>((warps + kWarps - 1) / kWarps);
-  fold_main<J, kMode><<<grid, kThreads, main_bytes, stream>>>(L, partials, acc, psum, cr, ci);
+#if OFDM_STAGED
+  return ofdm::staged_passes(L.st.bits, L.st.norm_part, L.st.norm_f, L.chunk, L.tile, L.run, L.n, stream,
+                             [&](int phase) {
+    Link P = L;
+    P.st.phase = phase;
+    fold_main<J, kMode, kS><<<grid, kThreads, main_bytes, stream>>>(P, partials, acc, psum, cr, ci);
+    return cudaGetLastError();
+  });
+#else
+  fold_main<J, kMode, kS><<<grid, kThreads, main_bytes, stream>>>(L, partials, acc, psum, cr, ci);
   return cudaGetLastError();
+#endif
 }
 
 template <int kMode>
@@ -290,7 +340,9 @@ extern "C" {
 // adaptive modes' lane rows; SC-FDE takes no adaptive mode).  acc = [bit
 // errors, symbol errors, PAPR peak f32 bits] (int64, accumulated), psum =
 // PAPR power sum (float64, accumulated); carry = the chunk's last symbol's
-// x[0:T).  Returns the first CUDA error of the launches, 0 if none.
+// x[0:T).  rows / stages / norm_part / norm_f: the _Spec stages
+// (link_common.cuh::Stages; 0 in the plain build; apply_power and
+// normalize only).  Returns the first CUDA error of the launches, 0 if none.
 int ofdm_fold_chunk(const float* txr, const float* txi, const float* cmr, const float* cmi,
                     const float* idr, const float* idi, const float* hr, const float* hi,
                     const float* habs2, const float* gr, const float* gi, int n, int T, int E,
@@ -299,10 +351,12 @@ int ofdm_fold_chunk(const float* txr, const float* txi, const float* cmr, const 
                     float snr_lin, float cg, int method, int add_noise, int is_sc,
                     unsigned long long sym0, int chunk, int tile, int slice, int groups, int run,
                     unsigned int key0, unsigned int key1, float* partials, long long* acc,
-                    double* psum, float* carry_r, float* carry_i, void* stream_ptr) {
+                    double* psum, float* carry_r, float* carry_i, const float* rows, int stages,
+                    float* norm_part, float* norm_f, void* stream_ptr) {
   if (n < 1 || n > kMaxN || T < n || E < 0 || E > T || chunk < 1 || tile < 1 || slice < 1 ||
-      groups < 1 || run < 1 || (is_sc && (idr == nullptr || idi == nullptr)) ||
-      (ofdm::adaptive(mode) && (is_sc || lane_i == nullptr || lane_f == nullptr))) {
+      groups < 1 || run < 1 || tile % run != 0 || (is_sc && (idr == nullptr || idi == nullptr)) ||
+      (ofdm::adaptive(mode) && (is_sc || lane_i == nullptr || lane_f == nullptr)) ||
+      !ofdm::stage_args_ok(rows, stages, norm_part, norm_f, false)) {
     return cudaErrorInvalidValue;
   }
   if (sizeof(float) * (kPowerBlock + kWarps * warp_floats(n, T, E)) > 227 * 1024) {
@@ -332,6 +386,7 @@ int ofdm_fold_chunk(const float* txr, const float* txi, const float* cmr, const 
   L.groups = groups;
   L.run = run;
   L.key = make_uint2(key0, key1);
+  L.st = ofdm::Stages{rows, stages, 1, norm_part, norm_f};
 
   unsigned long long* a = reinterpret_cast<unsigned long long*>(acc);
   return static_cast<int>(ofdm::with_mode(mode, [&](auto md) {

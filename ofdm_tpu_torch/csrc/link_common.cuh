@@ -4,7 +4,15 @@
 // on the cos/sin lattice with the rotation-search sector decision, and their
 // per-subcarrier adaptive forms), the per-bin steps the chunk
 // kernels run (tile sigma, noise, equalizer, error count, the block's
-// counter flush) and the TX stage and products of the dense ones (fold, mm).
+// counter flush), the TX stage and products of the dense ones (fold, mm),
+// and the _Spec stages (TX sqrt(P), post-EQ noise, 1/sqrt(P), per-tile
+// unit power) with their normalization reduction.
+//
+// The stages are compiled only into a second build of each chunk source,
+// with -DOFDM_STAGED=1, whose kernels take their `kStaged` template
+// parameter true; the plain build's take it false, so every
+// `if constexpr (kStaged)` block vanishes there and its kernels compile
+// from the code they had.
 //
 // Each function repeats, operation for operation, the plain PyTorch version
 // in ofdm_tpu_torch/ops/{prng,link_kernel}.py.  The kernels are compiled
@@ -18,7 +26,14 @@
 
 #include <cuda_runtime.h>
 
+#ifndef OFDM_STAGED
+#define OFDM_STAGED 0
+#endif
+
 namespace ofdm {
+
+// Whether this build holds the staged kernels (-DOFDM_STAGED=1).
+constexpr bool kStagedBuild = OFDM_STAGED != 0;
 
 // Philox4x32-10 (Salmon et al., SC'11; Random123's constants).  Counter
 // (c.x, c.y, c.z, c.w), key (k.x, k.y).
@@ -475,6 +490,96 @@ __device__ __forceinline__ void count_bin(int tx, float er, float ei, const Qam&
   se += x != 0 ? 1u : 0u;
 }
 
+// --- the _Spec stages (OFDM_STAGED builds) ------------------------------------------
+//
+// pallas_link._Spec's apply_power, normalize, post_noise and compensate
+// (pallas_link.py:1437-1443, 1826-1862): bits of Stages::bits.
+enum StageBit : int { kStagePower = 1, kStageNormalize = 2, kStagePostNoise = 4, kStageCompensate = 8 };
+
+// The stage fields every chunk kernel's Link carries last.  rows: (R, n)
+// per-lane rows of the chunk, [sqrt(P), 1/sqrt(P), post-EQ sigma] (R >= 1
+// with apply_power, 3 with the noise-bump stages); phase 0 is the
+// normalization pass (each warp or block writes the |e|^2 sum of its run
+// of consecutive symbols to norm_part), phase 1 the counting pass, which
+// reads each tile's factor from norm_f.
+struct Stages {
+  const float* rows;
+  int bits;
+  int phase;
+  float* norm_part;  // a float a run
+  float* norm_f;     // a float a tile
+};
+
+// x sqrt(P) of bin k right after encode (the apply_power stage).
+template <bool kStaged, class Link>
+__device__ __forceinline__ void scale_tx(const Link& L, int k, float& sr, float& si) {
+  if constexpr (kStaged) {
+    if (L.st.bits & kStagePower) {
+      const float p = __ldg(L.st.rows + k);
+      sr = sr * p;
+      si = si * p;
+    }
+  }
+}
+
+// Bin k equalized; under normalize the slicer gain is deferred past the
+// normalization (defer_slicer, pallas_link.py:1772): the gain is 1 here,
+// the raw ZF rows come from the host.
+template <int kMode, bool kStaged, class Link>
+__device__ __forceinline__ void equalize_stage(const Link& L, int k, float yr, float yi, float nv,
+                                               float& er, float& ei) {
+  if constexpr (kStaged) {
+    if (L.st.bits & kStageNormalize) {
+      Equalizer unit = L.eq;
+      unit.slicer = 1.0f;
+      equalize_bin(unit, k, yr, yi, nv, er, ei);
+      return;
+    }
+  }
+  equalize_bin<kMode>(L.eq, L.lanes, k, yr, yi, nv, er, ei);
+}
+
+// e += (sigma * radius) * (cos, sin): the post-EQ noise of one bin from its
+// two words, in the reference kernel's operation order (the post_noise stage).
+__device__ __forceinline__ void post_noise(uint32_t w1, uint32_t w2, float sigma, float& er,
+                                           float& ei) {
+  const float u1 = uniform24_floored(w1);
+  const float rad = sqrtf(-2.0f * logf(u1));
+  float co, sn;
+  cossin_u24((w2 >> 8) & 0xFFFFFFu, co, sn);
+  const float sr = sigma * rad;
+  er = er + sr * co;
+  ei = ei + sr * sn;
+}
+
+// The normalize stage's multiplier of bin k: the tile's factor f with the
+// deferred slicer gain riding it (f * 0.5/scale for qam, f * the lane's row
+// for aqam, f for PSK).
+template <int kMode, class Link>
+__device__ __forceinline__ float norm_gain(const Link& L, int k, float f) {
+  if constexpr (kMode == kQam) {
+    return f * L.eq.slicer;
+  } else if constexpr (kMode == kAqam) {
+    return f * __ldg(L.lanes.frow + L.lanes.n + k);
+  } else {
+    return f;
+  }
+}
+
+// Sum of |e|^2 over a warp's symbol (lane holds bins lane + 32 j): per-lane
+// sum in j order, then an xor butterfly, as mmse_nv sums |y|^2.
+template <int J>
+__device__ __forceinline__ float warp_energy(const float (&er)[J], const float (&ei)[J], int lane, int n) {
+  float p = 0.0f;
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    if (lane + 32 * j < n) p = p + (er[j] * er[j] + ei[j] * ei[j]);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) p = p + __shfl_xor_sync(0xFFFFFFFFu, p, off);
+  return p;
+}
+
 // --- the TX stage of the dense chunk kernels (fold, mm) ---------------------------
 //
 // A warp holds one symbol.  `Link` is the kernel's own link struct; these
@@ -553,10 +658,10 @@ __device__ __forceinline__ void row_product(const float* vr, const float* vi, co
 }
 
 // act[T:T+E) <- symbol (run index) `sym - 1`'s tail, or zeros for the run's
-// first symbol: encode, then the same k-ascending product over the same
-// F_tx,ext columns, so it is bit-equal to the tail a carry would hold.
-// Leaves the warp synchronized.
-template <int kMode, class Link>
+// first symbol: encode (and scale, under apply_power), then the same
+// k-ascending product over the same F_tx,ext columns, so it is bit-equal to
+// the tail a carry would hold.  Leaves the warp synchronized.
+template <int kMode, bool kStaged, class Link>
 __device__ void prev_tail(const Link& L, const WarpBufs& w, unsigned long long sym, int lane) {
   const int TE = L.T + L.E;
   if (L.E == 0) return;
@@ -571,18 +676,20 @@ __device__ void prev_tail(const Link& L, const WarpBufs& w, unsigned long long s
   for (int k = lane; k < L.n; k += 32) {
     const uint4 wd = symbol_words(sym - 1, k, L.key);
     encode<kMode>(wd.x, L.q, L.lanes, k, w.sr[k], w.si[k]);
+    scale_tx<kStaged>(L, k, w.sr[k], w.si[k]);
   }
   __syncwarp();
   for (int t = L.T + lane; t < TE; t += 32) cdot(w.sr, w.si, L.txr, L.txi, L.n, TE, t, w.ar[t], w.ai[t]);
   __syncwarp();
 }
 
-// One symbol's TX stage.  Encodes symbol `sym` into s (and tx/w1/w2 for the
-// lane's bins k = lane + 32 j < n), computes x = s @ F_tx,ext into act[0:T)
-// and the next tail, folds x[0:T) into the PAPR stats when `papr`, writes
-// it to the carry row when `carry_r` is set.  Leaves the warp synchronized,
-// act = [x[0:T) | previous tail] ready for the channel product.
-template <int J, int kMode, class Link>
+// One symbol's TX stage.  Encodes symbol `sym` into s (scaled under
+// apply_power; and tx/w1/w2 for the lane's bins k = lane + 32 j < n),
+// computes x = s @ F_tx,ext into act[0:T) and the next tail, folds x[0:T)
+// into the PAPR stats when `papr`, writes it to the carry row when
+// `carry_r` is set.  Leaves the warp synchronized, act = [x[0:T) | previous
+// tail] ready for the channel product.
+template <int J, int kMode, bool kStaged, class Link>
 __device__ __forceinline__ void symbol_tx(const Link& L, const WarpBufs& w, unsigned long long sym,
                                           int lane, bool papr, float& pk, double& ps,
                                           float* carry_r, float* carry_i, int (&tx)[J],
@@ -597,6 +704,7 @@ __device__ __forceinline__ void symbol_tx(const Link& L, const WarpBufs& w, unsi
     if (k < L.n) {
       const uint4 wd = symbol_words(sym, k, L.key);
       tx[j] = encode<kMode>(wd.x, L.q, L.lanes, k, w.sr[k], w.si[k]);
+      scale_tx<kStaged>(L, k, w.sr[k], w.si[k]);
       w1[j] = wd.y;
       w2[j] = wd.z;
     }
@@ -717,6 +825,64 @@ __device__ __forceinline__ void flush_counters(uint32_t be, uint32_t se, float p
     atomicMax(acc + 2, static_cast<unsigned long long>(__float_as_uint(tp)));
     atomicAdd(psum, tps);
   }
+}
+
+// --- the normalization reduction and the staged launches ------------------------------
+
+#if OFDM_STAGED
+constexpr int kNormThreads = 256;
+
+// Each tile's unit-power factor f = 1/sqrt(mean |e|^2), or 1 where that mean
+// is <= 1e-10 (pallas_link.py:1853-1854), from its runs' partials: thread t
+// sums partials t, t + 256, ... in order, then the block's halving tree;
+// the mean is over the tile's tlen * n points.  One block a tile.
+__global__ void __launch_bounds__(kNormThreads)
+    norm_factors(const float* part, int chunk, int tile, int run, int n, float* f) {
+  __shared__ float red[kNormThreads];
+  const int t = threadIdx.x;
+  const int b0 = blockIdx.x * tile;
+  const int tlen = min(tile, chunk - b0);
+  const int r0 = b0 / run;
+  const int nr = (tlen + run - 1) / run;
+  float acc = 0.0f;
+  for (int j = t; j < nr; j += kNormThreads) acc = acc + part[r0 + j];
+  red[t] = acc;
+  __syncthreads();
+  tree_sum<kNormThreads>(red, t);
+  if (t == 0) {
+    const float avg = red[0] / static_cast<float>(tlen * n);
+    f[blockIdx.x] = avg > 1e-10f ? 1.0f / sqrtf(avg) : 1.0f;
+  }
+}
+
+// A chunk's normalization between its two passes: `pass(0)` writes the run
+// partials, norm_factors reduces them per tile, `pass(1)` counts.  Without
+// normalize only pass(1) runs.  Returns the first launch error.
+template <class Pass>
+cudaError_t staged_passes(int bits, const float* part, float* f, int chunk, int tile, int run, int n,
+                          cudaStream_t stream, Pass&& pass) {
+  if (bits & kStageNormalize) {
+    cudaError_t err = pass(0);
+    if (err != cudaSuccess) return err;
+    norm_factors<<<(chunk + tile - 1) / tile, kNormThreads, 0, stream>>>(part, chunk, tile, run, n, f);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return pass(1);
+}
+#endif
+
+// Checks an entry point's stage arguments: none in a plain build; in a
+// staged build the rows with apply_power or the noise-bump stages and the
+// normalization scratch with normalize; the noise-bump stages only where
+// the chain has them (`post_ok`).
+inline bool stage_args_ok(const float* rows, int bits, const float* part, const float* f, bool post_ok) {
+  if (!kStagedBuild) return bits == 0;
+  if (bits & ~(kStagePower | kStageNormalize | kStagePostNoise | kStageCompensate)) return false;
+  if ((bits & (kStagePostNoise | kStageCompensate)) && !post_ok) return false;
+  if ((bits & (kStagePower | kStagePostNoise | kStageCompensate)) && rows == nullptr) return false;
+  if ((bits & kStageNormalize) && (part == nullptr || f == nullptr)) return false;
+  return true;
 }
 
 }  // namespace ofdm

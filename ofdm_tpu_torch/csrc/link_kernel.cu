@@ -4,12 +4,21 @@
 //
 // Replaces: ofdm_tpu/ops/pallas_link.py::_fn_for_spec -> kernel, in its
 // conv="diag" form (cyclic prefix covering the channel order, so TX ->
-// channel -> RX is exactly diag(h_freq)), in each constellation mode: qam,
-// psk, aqam and apsk (a template parameter, link_common.cuh's codec).  Per
-// bin: Philox words -> encode -> y = s*h -> measured-power AWGN (Box-Muller,
-// quarter-range polynomial phase) -> ZF / MMSE / no equalizer with the
-// slicer gain folded in -> slicer or PSK sector -> popcount(tx ^ rx).
-// Every pstride-th tile also runs the IDFT+CP product for the PAPR max/sum.
+// channel -> RX is diagonal), in each constellation mode: qam, psk, aqam and
+// apsk (a template parameter, link_common.cuh's codec).  Per bin: Philox
+// words -> encode -> [x sqrt(P)] -> y = s*d (d the diagonal of the
+// unit-energy taps' response: the raw h_freq where the IR has unit energy)
+// -> measured-power AWGN (Box-Muller, quarter-range polynomial phase) -> ZF
+// / MMSE / no equalizer against the raw h_freq with the slicer gain folded
+// in -> [post-EQ noise] -> [x 1/sqrt(P)] -> [x the tile's unit-power
+// factor] -> slicer or PSK sector -> popcount(tx ^ rx).  Every pstride-th
+// tile also runs the IDFT+CP product for the PAPR max/sum.
+//
+// The bracketed _Spec stages (pallas_link.py:1437-1443, 1826-1862) exist
+// only in the build with -DOFDM_STAGED=1, whose main kernel is diag_staged;
+// the plain build's diag_main is the unstaged chain over an IR with unit
+// energy (its channel rows are the equalizer's h rows).  A link over an IR
+// without unit energy runs diag_staged with no stage bits.
 //
 // Bound on an H100: issue rate, not memory.  The kernel reads only the
 // constant rows (a few KB, L1/L2 resident) and writes 3 counters, so the
@@ -37,6 +46,15 @@
 //    atomicAdd per block.  The PAPR peak is an atomicMax on the f32 bit
 //    pattern (non-negative floats order like their bits); the PAPR sum is
 //    a double atomicAdd, so its last digits depend on block order.
+//  * normalize needs the mean |e|^2 over every point of a tile before any
+//    of its decisions, after noise, equalizer and the post-EQ stages.
+//    diag_staged runs twice: phase 0 recomputes the chain to e and writes
+//    one partial a warp (each warp walks `run` consecutive symbols, a
+//    fixed layout: per-symbol warp sum, then the run in order), the shared
+//    norm_factors kernel reduces a tile's partials in a fixed tree, and
+//    phase 1 recomputes e, scales it by its tile's factor and counts.  The
+//    pass costs about one more main pass; the plain version
+//    (link_kernel.tile_norm) repeats every sum bit for bit.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -70,15 +88,20 @@ struct Link {
   int carry_sym;  // last symbol of the chunk's last sampled tile
   uint2 key;
   ofdm::Lanes lanes;  // the adaptive modes' lane rows
+  const float* chr;   // (n,) the channel multiply's rows (diag_response)
+  const float* chi;
+  int run;            // consecutive symbols a warp of diag_staged walks
+  ofdm::Stages st;    // the _Spec stages (OFDM_STAGED builds)
 };
 
 __device__ __forceinline__ uint4 words_for(const Link& L, int b, int k) {
   return ofdm::symbol_words(L.sym0 + static_cast<unsigned long long>(b), k, L.key);
 }
 
-// Partial sums of |s*h|^2 over each tile's measured-power slice.
-// grid (tiles, groups); element e = g*4096 + j*256 + t of the tile's slice.
-template <int kMode>
+// Partial sums of |s*d|^2 over each tile's measured-power slice (s scaled
+// under apply_power).  grid (tiles, groups); element e = g*4096 + j*256 + t
+// of the tile's slice.
+template <int kMode, bool kStaged>
 __global__ void __launch_bounds__(kPowerThreads) power_partials(Link L, float* partials) {
   __shared__ float red[kPowerThreads];
   const int tile_id = blockIdx.x;
@@ -97,8 +120,11 @@ __global__ void __launch_bounds__(kPowerThreads) power_partials(Link L, float* p
       const uint4 w = words_for(L, b0 + b, k);
       float sr, si;
       ofdm::encode<kMode>(w.x, L.q, L.lanes, k, sr, si);
-      const float hr = __ldg(L.eq.hr + k);
-      const float hi = __ldg(L.eq.hi + k);
+      ofdm::scale_tx<kStaged>(L, k, sr, si);
+      const float* chr = kStaged ? L.chr : L.eq.hr;
+      const float* chi = kStaged ? L.chi : L.eq.hi;
+      const float hr = __ldg(chr + k);
+      const float hi = __ldg(chi + k);
       const float yr = sr * hr - si * hi;
       const float yi = sr * hi + si * hr;
       p = yr * yr + yi * yi;
@@ -198,6 +224,138 @@ __global__ void __launch_bounds__(kThreads)
   ofdm::flush_counters<kWarps>(be, se, pk, ps, acc, psum);
 }
 
+#if OFDM_STAGED
+// The chain with the _Spec stages, one warp per symbol walking `run`
+// consecutive symbols (a fixed layout, so the normalization partials sum
+// in a fixed order).  Phase 0 (normalize only) writes each warp's sum of
+// |e|^2 over its run; phase 1 scales e by its tile's factor, counts, and
+// takes the PAPR statistic and the carry row.
+template <int J, int kMode>
+__global__ void __launch_bounds__(kThreads)
+    diag_staged(Link L, const float* partials, unsigned long long* acc, double* psum,
+                float* carry_r, float* carry_i) {
+  __shared__ float s_sr[kWarps][kMaxN];
+  __shared__ float s_si[kWarps][kMaxN];
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const bool counting = L.st.phase == 1;
+  const bool normalize = (L.st.bits & ofdm::kStageNormalize) != 0;
+  const float* comp = L.st.rows + L.n;
+  const float* nstd = L.st.rows + 2 * L.n;
+
+  uint32_t be = 0, se = 0;
+  float pk = 0.0f;
+  double ps = 0.0;
+  const long long first = (static_cast<long long>(blockIdx.x) * kWarps + warp) * L.run;
+  if (first < L.chunk) {
+    const int b0 = static_cast<int>(first);
+    const int b1 = min(b0 + L.run, L.chunk);
+    int cached_tile = -1;
+    float sigma = 0.0f, fn = 1.0f, energy = 0.0f;
+    for (int b = b0; b < b1; ++b) {
+      const int tile_id = b / L.tile;
+      if (tile_id != cached_tile) {
+        const int tlen = min(L.tile, L.chunk - tile_id * L.tile);
+        if (L.add_noise) {
+          sigma = ofdm::tile_sigma(partials + tile_id * L.groups, L.groups, min(L.slice, tlen) * L.n,
+                                   L.snr_lin);
+        }
+        if (normalize && counting) fn = L.st.norm_f[tile_id];
+        cached_tile = tile_id;
+      }
+      const bool sampled = counting && (tile_id % L.pstride) == 0;
+      const unsigned long long sym = L.sym0 + static_cast<unsigned long long>(b);
+
+      float yr[J], yi[J];
+      int tx[J];
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const int k = lane + 32 * j;
+        yr[j] = 0.0f;
+        yi[j] = 0.0f;
+        tx[j] = 0;
+        if (k < L.n) {
+          const uint4 w = words_for(L, b, k);
+          float sr, si;
+          tx[j] = ofdm::encode<kMode>(w.x, L.q, L.lanes, k, sr, si);
+          ofdm::scale_tx<true>(L, k, sr, si);
+          if (sampled) {
+            s_sr[warp][k] = sr;
+            s_si[warp][k] = si;
+          }
+          const float hr = __ldg(L.chr + k);
+          const float hi = __ldg(L.chi + k);
+          yr[j] = sr * hr - si * hi;
+          yi[j] = sr * hi + si * hr;
+          if (L.add_noise) ofdm::add_noise(w.y, w.z, sigma, yr[j], yi[j]);
+        }
+      }
+
+      const float nv = ofdm::mmse_nv<J>(L.eq, yr, yi, lane, L.n, L.snr_lin);
+      float er[J], ei[J];
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const int k = lane + 32 * j;
+        er[j] = 0.0f;
+        ei[j] = 0.0f;
+        if (k < L.n) {
+          ofdm::equalize_stage<kMode, true>(L, k, yr[j], yi[j], nv, er[j], ei[j]);
+          if (L.st.bits & ofdm::kStagePostNoise) {
+            const uint4 w = ofdm::philox4x32_10(
+                make_uint4(static_cast<uint32_t>(sym), static_cast<uint32_t>(sym >> 32),
+                           static_cast<uint32_t>(k), 3u),
+                L.key);
+            ofdm::post_noise(w.y, w.z, __ldg(nstd + k), er[j], ei[j]);
+          }
+          if (L.st.bits & ofdm::kStageCompensate) {
+            const float c = __ldg(comp + k);
+            er[j] = er[j] * c;
+            ei[j] = ei[j] * c;
+          }
+        }
+      }
+      if (normalize && !counting) {
+        energy = energy + ofdm::warp_energy<J>(er, ei, lane, L.n);
+        continue;
+      }
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const int k = lane + 32 * j;
+        if (k < L.n) {
+          if (normalize) {
+            const float m = ofdm::norm_gain<kMode>(L, k, fn);
+            er[j] = er[j] * m;
+            ei[j] = ei[j] * m;
+          }
+          ofdm::count_bin<kMode>(tx[j], er[j], ei[j], L.q, L.lanes, k, be, se);
+        }
+      }
+
+      if (sampled) {
+        // PAPR: x = s @ F_tx over this symbol's n (scaled) bins, T time samples.
+        __syncwarp();
+        for (int t = lane; t < L.T; t += 32) {
+          float xr, xi;
+          ofdm::cdot(s_sr[warp], s_si[warp], L.fr, L.fi, L.n, L.T, t, xr, xi);
+          const float pw = xr * xr + xi * xi;
+          pk = fmaxf(pk, pw);
+          ps += static_cast<double>(pw);
+          if (b == L.carry_sym) {
+            carry_r[t] = xr;
+            carry_i[t] = xi;
+          }
+        }
+        __syncwarp();
+      }
+    }
+    if (normalize && !counting && lane == 0) L.st.norm_part[b0 / L.run] = energy;
+  }
+
+  ofdm::flush_counters<kWarps>(be, se, pk, ps, acc, psum);
+}
+#endif
+
 int sm_count() {
   static int count = 0;
   if (count == 0) {
@@ -209,14 +367,36 @@ int sm_count() {
   return count;
 }
 
-// power_partials (when noise is on) then diag_main, in mode kMode.
+// power_partials (when noise is on) then diag_main, in mode kMode; in the
+// OFDM_STAGED build diag_staged instead of diag_main, under normalize twice
+// around norm_factors.
 template <int kMode>
 cudaError_t launch(const Link& L, float* partials, unsigned long long* acc, double* psum, float* cr,
                    float* ci, cudaStream_t stream) {
   const int tiles = (L.chunk + L.tile - 1) / L.tile;
   if (L.add_noise) {
-    power_partials<kMode><<<dim3(tiles, L.groups), kPowerThreads, 0, stream>>>(L, partials);
+    power_partials<kMode, ofdm::kStagedBuild><<<dim3(tiles, L.groups), kPowerThreads, 0, stream>>>(L, partials);
   }
+#if OFDM_STAGED
+  const int warps = (L.chunk + L.run - 1) / L.run;
+  const int sgrid = (warps + kWarps - 1) / kWarps;
+  return ofdm::staged_passes(L.st.bits, L.st.norm_part, L.st.norm_f, L.chunk, L.tile, L.run, L.n, stream,
+                             [&](int phase) {
+    Link P = L;
+    P.st.phase = phase;
+    switch ((L.n + 31) / 32) {
+      case 1: diag_staged<1, kMode><<<sgrid, kThreads, 0, stream>>>(P, partials, acc, psum, cr, ci); break;
+      case 2: diag_staged<2, kMode><<<sgrid, kThreads, 0, stream>>>(P, partials, acc, psum, cr, ci); break;
+      case 3: diag_staged<3, kMode><<<sgrid, kThreads, 0, stream>>>(P, partials, acc, psum, cr, ci); break;
+      case 4: diag_staged<4, kMode><<<sgrid, kThreads, 0, stream>>>(P, partials, acc, psum, cr, ci); break;
+      case 5: diag_staged<5, kMode><<<sgrid, kThreads, 0, stream>>>(P, partials, acc, psum, cr, ci); break;
+      case 6: diag_staged<6, kMode><<<sgrid, kThreads, 0, stream>>>(P, partials, acc, psum, cr, ci); break;
+      case 7: diag_staged<7, kMode><<<sgrid, kThreads, 0, stream>>>(P, partials, acc, psum, cr, ci); break;
+      default: diag_staged<8, kMode><<<sgrid, kThreads, 0, stream>>>(P, partials, acc, psum, cr, ci); break;
+    }
+    return cudaGetLastError();
+  });
+#else
   const int want = (L.chunk + kWarps - 1) / kWarps;
   const int grid = want < sm_count() * 8 ? want : sm_count() * 8;
   switch ((L.n + 31) / 32) {
@@ -230,6 +410,7 @@ cudaError_t launch(const Link& L, float* partials, unsigned long long* acc, doub
     default: diag_main<8, kMode><<<grid, kThreads, 0, stream>>>(L, partials, acc, psum, cr, ci); break;
   }
   return cudaGetLastError();
+#endif
 }
 
 }  // namespace ofdm_link
@@ -238,22 +419,30 @@ using namespace ofdm_link;
 
 extern "C" {
 
-// One chunk: power_partials (when noise is on) then diag_main, both on
-// `stream`, in constellation mode `mode` (link_common.cuh::Mode; lane_i /
-// lane_f the adaptive modes' lane rows).  acc = [bit errors, symbol errors,
-// PAPR peak f32 bits] (int64, accumulated), psum = PAPR power sum (float64,
-// accumulated).  Returns cudaGetLastError() after the launches.
+// One chunk: power_partials (when noise is on) then diag_main (diag_staged
+// in the OFDM_STAGED build), all on `stream`, in constellation mode `mode`
+// (link_common.cuh::Mode; lane_i / lane_f the adaptive modes' lane rows).
+// acc = [bit errors, symbol errors, PAPR peak f32 bits] (int64,
+// accumulated), psum = PAPR power sum (float64, accumulated).  rows /
+// stages / norm_part / norm_f: the _Spec stages (link_common.cuh::Stages;
+// stages must be 0 in the plain build, and chr / chi, the channel rows,
+// the equalizer's h rows).  Returns the first CUDA error of the launches, 0
+// if none.
 int ofdm_diag_chunk(const float* hr, const float* hi, const float* habs2, const float* gr,
-                    const float* gi, const float* fr, const float* fi, int n, int T, int mode,
+                    const float* gi, const float* chr, const float* chi, const float* fr,
+                    const float* fi, int n, int T, int mode,
                     int order, int m, int logm, int bits, int gray, float scale,
                     const int* lane_i, const float* lane_f, float slicer,
                     float snr_lin, float cg, int method, int add_noise,
                     unsigned long long sym0, int chunk, int tile, int slice, int groups,
-                    int pstride, int carry_sym, unsigned int key0, unsigned int key1,
+                    int pstride, int carry_sym, int run, unsigned int key0, unsigned int key1,
                     float* partials, long long* acc, double* psum, float* carry_r,
-                    float* carry_i, void* stream_ptr) {
-  if (n < 1 || n > kMaxN || chunk < 1 || tile < 1 || pstride < 1 ||
-      (ofdm::adaptive(mode) && (lane_i == nullptr || lane_f == nullptr))) {
+                    float* carry_i, const float* rows, int stages, float* norm_part, float* norm_f,
+                    void* stream_ptr) {
+  if (n < 1 || n > kMaxN || chunk < 1 || tile < 1 || pstride < 1 || run < 1 || tile % run != 0 ||
+      (ofdm::adaptive(mode) && (lane_i == nullptr || lane_f == nullptr)) ||
+      !ofdm::stage_args_ok(rows, stages, norm_part, norm_f, true) ||
+      (!ofdm::kStagedBuild && (chr != hr || chi != hi))) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
@@ -275,6 +464,10 @@ int ofdm_diag_chunk(const float* hr, const float* hi, const float* habs2, const 
   L.pstride = pstride;
   L.carry_sym = carry_sym;
   L.key = make_uint2(key0, key1);
+  L.chr = chr;
+  L.chi = chi;
+  L.run = run;
+  L.st = ofdm::Stages{rows, stages, 1, norm_part, norm_f};
 
   unsigned long long* a = reinterpret_cast<unsigned long long*>(acc);
   return static_cast<int>(ofdm::with_mode(mode, [&](auto md) {

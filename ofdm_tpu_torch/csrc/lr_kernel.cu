@@ -8,16 +8,20 @@
 // factored (ops/lowrank.py) into a diagonal D and two rank-E corrections —
 // wide links with or without ISI, and zero-prefix links with their colored
 // bin noise.  Per OFDM symbol b:
-//   Philox words -> encode s_b
+//   Philox words -> encode s_b [x sqrt(P)]
 //   t_b  = s_b @ TailM                     (n -> E: the block's last E time samples)
 //   y_b  = s_b * D + t_b @ Cr + t_{b-1} @ Cp
 //   AWGN per frequency bin, sigma = sqrt(mp / snr_lin / 2), mp the mean |y|^2
 //   over the first `slice` symbols of b's tile, before noise, times pw_scale;
 //   a zero prefix adds the colored part sigma * g2 @ B^H (g2: r normals)
 //   ZF / MMSE / none with the slicer gain 0.5/scale folded in
+//   [x the tile's unit-power factor, the slicer gain deferred to it]
 //   slicer or PSK sector -> popcount(tx ^ rx) into int64 counters.
 // Below 512 subcarriers every pstride-th tile also runs x = s @ F_tx for the
-// PAPR max and sum; from 512 (txext) the runner supplies the statistic.
+// PAPR max and sum; from 512 (txext) the runner supplies the statistic,
+// except under apply_power (the sampled batch is unscaled).  The bracketed
+// _Spec stages exist only in the build with -DOFDM_STAGED=1 (the kernels'
+// kStaged parameter; link_common.cuh).
 //
 // Bound on an H100: issue rate, not memory.  The chunk reads its constant
 // rows and skinny matrices (E x n each, 57 KB at n = 1024 and E = 7: L1/L2
@@ -49,6 +53,9 @@
 //  * Counters: per-thread 32-bit, warp and block sums, one 64-bit atomicAdd
 //    per block; PAPR peak an atomicMax on the f32 bits, PAPR sum a double
 //    atomicAdd (its last digits depend on block order).
+//  * normalize (staged build): lr_main runs twice around norm_factors, as
+//    diag_staged does; phase 0 writes each block's |e|^2 sum over its run of
+//    symbols (each symbol's sum a block_sum), phase 1 scales and counts.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -96,6 +103,7 @@ struct Link {
   int run;  // consecutive symbols a block of lr_main walks
   uint2 key;
   ofdm::Lanes lanes;  // the adaptive modes' lane rows
+  ofdm::Stages st;    // the _Spec stages (OFDM_STAGED builds)
 };
 
 // Block-shared scratch of both kernels.
@@ -106,8 +114,9 @@ struct Scratch {
   float nv[kWarps];                // block_sum of the MMSE mean
 };
 
-// Symbol `sym`'s words and points for the thread's bins.
-template <int J, int kMode>
+// Symbol `sym`'s words and points for the thread's bins (scaled under
+// apply_power).
+template <int J, int kMode, bool kStaged>
 __device__ __forceinline__ void encode(const Link& L, unsigned long long sym, int (&tx)[J],
                                        uint32_t (&w1)[J], uint32_t (&w2)[J], float (&sr)[J],
                                        float (&si)[J]) {
@@ -122,6 +131,7 @@ __device__ __forceinline__ void encode(const Link& L, unsigned long long sym, in
     if (k < L.n) {
       const uint4 wd = ofdm::symbol_words(sym, k, L.key);
       tx[j] = ofdm::encode<kMode>(wd.x, L.q, L.lanes, k, sr[j], si[j]);
+      ofdm::scale_tx<kStaged>(L, k, sr[j], si[j]);
       w1[j] = wd.y;
       w2[j] = wd.z;
     }
@@ -170,7 +180,7 @@ __device__ void tail_of(const Link& L, const float (&sr)[J], const float (&si)[J
 
 // out = t of run symbol `sym - 1`, or zeros for the run's first symbol.
 // Leaves the block synchronized.
-template <int J, int kMode>
+template <int J, int kMode, bool kStaged>
 __device__ void prev_tail(const Link& L, unsigned long long sym, Scratch& sh, float* out) {
   if (sym == 0) {
     if (static_cast<int>(threadIdx.x) < 2 * L.E) out[threadIdx.x] = 0.0f;
@@ -180,7 +190,7 @@ __device__ void prev_tail(const Link& L, unsigned long long sym, Scratch& sh, fl
   int tx[J];
   uint32_t w1[J], w2[J];
   float sr[J], si[J];
-  encode<J, kMode>(L, sym - 1, tx, w1, w2, sr, si);
+  encode<J, kMode, kStaged>(L, sym - 1, tx, w1, w2, sr, si);
   tail_of<J>(L, sr, si, sh, out);
 }
 
@@ -224,7 +234,7 @@ __device__ __forceinline__ void symbol_y(const Link& L, const float (&sr)[J], co
 // Partial sums of |y|^2 (before noise) over each tile's measured-power slice,
 // in power_partials' order.  grid (tiles, groups); block (tile, g) covers
 // slice elements e = b*n + k in [g*4096, (g+1)*4096).
-template <int J, int kMode>
+template <int J, int kMode, bool kStaged>
 __global__ void __launch_bounds__(kThreads) lr_power(Link L, float* partials) {
   __shared__ float red[kPowerBlock];  // element order
   __shared__ Scratch sh;
@@ -241,13 +251,13 @@ __global__ void __launch_bounds__(kThreads) lr_power(Link L, float* partials) {
   if (e_lo < e_hi) {
     const int s_lo = e_lo / L.n;
     const int s_hi = (e_hi - 1) / L.n + 1;
-    prev_tail<J, kMode>(L, L.sym0 + static_cast<unsigned long long>(b0 + s_lo), sh, sh.t[0]);
+    prev_tail<J, kMode, kStaged>(L, L.sym0 + static_cast<unsigned long long>(b0 + s_lo), sh, sh.t[0]);
     int cur = 0;
     for (int s = s_lo; s < s_hi; ++s) {
       int tx[J];
       uint32_t w1[J], w2[J];
       float sr[J], si[J], yr[J], yi[J];
-      encode<J, kMode>(L, L.sym0 + static_cast<unsigned long long>(b0 + s), tx, w1, w2, sr, si);
+      encode<J, kMode, kStaged>(L, L.sym0 + static_cast<unsigned long long>(b0 + s), tx, w1, w2, sr, si);
       tail_of<J>(L, sr, si, sh, sh.t[cur ^ 1]);
       symbol_y<J>(L, sr, si, sh.t[cur ^ 1], sh.t[cur], yr, yi);
 #pragma unroll
@@ -262,7 +272,9 @@ __global__ void __launch_bounds__(kThreads) lr_power(Link L, float* partials) {
   ofdm::power_block_partial<kThreads, kPowerSteps>(red, tid, partials + tile_id * L.groups + g);
 }
 
-template <int J, int kMode>
+// With kStaged, the stages (phase 0 of a normalized link writes its run's
+// |e|^2 partial instead of counting).
+template <int J, int kMode, bool kStaged>
 __global__ void __launch_bounds__(kThreads)
     lr_main(Link L, const float* partials, unsigned long long* acc, double* psum, float* carry_r,
             float* carry_i) {
@@ -276,10 +288,14 @@ __global__ void __launch_bounds__(kThreads)
 
   const int b0 = static_cast<int>(static_cast<long long>(blockIdx.x) * L.run);
   const int b1 = min(b0 + L.run, L.chunk);
-  prev_tail<J, kMode>(L, L.sym0 + static_cast<unsigned long long>(b0), sh, sh.t[0]);
+  const bool counting = !kStaged || L.st.phase == 1;
+  const bool normalize = kStaged && (L.st.bits & ofdm::kStageNormalize) != 0;
+  prev_tail<J, kMode, kStaged>(L, L.sym0 + static_cast<unsigned long long>(b0), sh, sh.t[0]);
   int cur = 0;
   int cached_tile = -1;
   float sigma = 0.0f;
+  int norm_tile = -1;
+  float fn = 1.0f, energy = 0.0f;
   for (int b = b0; b < b1; ++b) {
     const int tile_id = b / L.tile;
     if (L.add_noise && tile_id != cached_tile) {
@@ -288,16 +304,22 @@ __global__ void __launch_bounds__(kThreads)
                                L.snr_lin, L.pw_scale);
       cached_tile = tile_id;
     }
+    if constexpr (kStaged) {
+      if (normalize && counting && tile_id != norm_tile) {
+        fn = L.st.norm_f[tile_id];
+        norm_tile = tile_id;
+      }
+    }
     const unsigned long long sym = L.sym0 + static_cast<unsigned long long>(b);
     int tx[J];
     uint32_t w1[J], w2[J];
     float sr[J], si[J];
-    encode<J, kMode>(L, sym, tx, w1, w2, sr, si);
+    encode<J, kMode, kStaged>(L, sym, tx, w1, w2, sr, si);
     float* t = sh.t[cur ^ 1];
     const float* tp = sh.t[cur];
     tail_of<J>(L, sr, si, sh, t);
 
-    if (!L.txext && tile_id % L.pstride == 0) {
+    if (counting && !L.txext && tile_id % L.pstride == 0) {
       // PAPR: x = s @ F_tx over this symbol's n bins, T time samples.
 #pragma unroll
       for (int j = 0; j < J; ++j) {
@@ -363,17 +385,48 @@ __global__ void __launch_bounds__(kThreads)
     }
 
     const float nv = ofdm::mmse_nv_block<J, kWarps>(L.eq, yr, yi, L.n, L.snr_lin, sh.nv);
+    if constexpr (kStaged) {
+      float er[J], ei[J];
+      float p = 0.0f;
 #pragma unroll
-    for (int j = 0; j < J; ++j) {
-      const int k = tid + kThreads * j;
-      if (k < L.n) {
-        float er, ei;
-        ofdm::equalize_bin<kMode>(L.eq, L.lanes, k, yr[j], yi[j], nv, er, ei);
-        ofdm::count_bin<kMode>(tx[j], er, ei, L.q, L.lanes, k, be, se);
+      for (int j = 0; j < J; ++j) {
+        const int k = tid + kThreads * j;
+        er[j] = 0.0f;
+        ei[j] = 0.0f;
+        if (k < L.n) {
+          ofdm::equalize_stage<kMode, true>(L, k, yr[j], yi[j], nv, er[j], ei[j]);
+          p = p + (er[j] * er[j] + ei[j] * ei[j]);
+        }
+      }
+      if (normalize && !counting) {
+        energy = energy + ofdm::block_sum<kWarps>(p, sh.nv);
+      } else {
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          const int k = tid + kThreads * j;
+          if (k < L.n) {
+            if (normalize) {
+              const float m = ofdm::norm_gain<kMode>(L, k, fn);
+              er[j] = er[j] * m;
+              ei[j] = ei[j] * m;
+            }
+            ofdm::count_bin<kMode>(tx[j], er[j], ei[j], L.q, L.lanes, k, be, se);
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const int k = tid + kThreads * j;
+        if (k < L.n) {
+          float er, ei;
+          ofdm::equalize_bin<kMode>(L.eq, L.lanes, k, yr[j], yi[j], nv, er, ei);
+          ofdm::count_bin<kMode>(tx[j], er, ei, L.q, L.lanes, k, be, se);
+        }
       }
     }
 
-    if (b == L.chunk - 1) {
+    if (counting && b == L.chunk - 1) {
       // the JAX carry contract: (T,) zero but for the last E lanes, this t
       const int off = L.T - L.E;
       for (int c = tid; c < L.T; c += kThreads) {
@@ -384,6 +437,9 @@ __global__ void __launch_bounds__(kThreads)
     cur ^= 1;
     __syncthreads();  // t, tp and g are rewritten by the next symbol
   }
+  if constexpr (kStaged) {
+    if (normalize && !counting && tid == 0 && b0 < L.chunk) L.st.norm_part[blockIdx.x] = energy;
+  }
 
   ofdm::flush_counters<kWarps>(be, se, pk, ps, acc, psum);
 }
@@ -391,21 +447,32 @@ __global__ void __launch_bounds__(kThreads)
 template <int J, int kMode>
 cudaError_t launch(const Link& L, float* partials, unsigned long long* acc, double* psum,
                    float* cr, float* ci, cudaStream_t stream) {
+  constexpr bool kS = ofdm::kStagedBuild;
   if (L.add_noise) {
     const int tiles = (L.chunk + L.tile - 1) / L.tile;
-    lr_power<J, kMode><<<dim3(tiles, L.groups), kThreads, 0, stream>>>(L, partials);
+    lr_power<J, kMode, kS><<<dim3(tiles, L.groups), kThreads, 0, stream>>>(L, partials);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   const size_t plane_bytes = L.txext ? 0 : sizeof(float) * 2 * L.n;
   if (plane_bytes > 0) {
     const cudaError_t err = cudaFuncSetAttribute(
-        lr_main<J, kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(plane_bytes));
+        lr_main<J, kMode, kS>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(plane_bytes));
     if (err != cudaSuccess) return err;
   }
   const int grid = (L.chunk + L.run - 1) / L.run;
-  lr_main<J, kMode><<<grid, kThreads, plane_bytes, stream>>>(L, partials, acc, psum, cr, ci);
+#if OFDM_STAGED
+  return ofdm::staged_passes(L.st.bits, L.st.norm_part, L.st.norm_f, L.chunk, L.tile, L.run, L.n, stream,
+                             [&](int phase) {
+    Link P = L;
+    P.st.phase = phase;
+    lr_main<J, kMode, kS><<<grid, kThreads, plane_bytes, stream>>>(P, partials, acc, psum, cr, ci);
+    return cudaGetLastError();
+  });
+#else
+  lr_main<J, kMode, kS><<<grid, kThreads, plane_bytes, stream>>>(L, partials, acc, psum, cr, ci);
   return cudaGetLastError();
+#endif
 }
 
 template <int kMode>
@@ -429,8 +496,10 @@ extern "C" {
 // constellation mode `mode` (link_common.cuh::Mode; lane_i / lane_f the
 // adaptive modes' lane rows).  acc = [bit errors, symbol errors, PAPR peak f32 bits] (int64, accumulated),
 // psum = PAPR power sum (float64, accumulated); carry = (T,) zeros but for the
-// last E lanes, the chunk's last symbol's t.  Returns the first CUDA error of
-// the launches, 0 if none.
+// last E lanes, the chunk's last symbol's t.  rows / stages / norm_part /
+// norm_f: the _Spec stages (link_common.cuh::Stages; 0 in the plain build;
+// apply_power and normalize only).  Returns the first CUDA error of the
+// launches, 0 if none.
 int ofdm_lr_chunk(const float* tlr, const float* tli, const float* ccr, const float* cci,
                   const float* bhr, const float* bhi, const float* dr, const float* di,
                   const float* fr, const float* fi, const float* hr, const float* hi,
@@ -439,9 +508,11 @@ int ofdm_lr_chunk(const float* tlr, const float* tli, const float* ccr, const fl
                   const int* lane_i, const float* lane_f, float slicer, float snr_lin, float cg, float pw_scale, int method, int add_noise,
                   int txext, int pstride, unsigned long long sym0, int chunk, int tile, int slice,
                   int groups, int run, unsigned int key0, unsigned int key1, float* partials,
-                  long long* acc, double* psum, float* carry_r, float* carry_i, void* stream_ptr) {
+                  long long* acc, double* psum, float* carry_r, float* carry_i, const float* rows,
+                  int stages, float* norm_part, float* norm_f, void* stream_ptr) {
   if (n < 1 || n > kMaxN || T < n || E < 1 || E > kMaxE || E > T || rank < 0 ||
       rank > kMaxRank || chunk < 1 || tile < 1 || slice < 1 || groups < 1 || run < 1 ||
+      tile % run != 0 || !ofdm::stage_args_ok(rows, stages, norm_part, norm_f, false) ||
       pstride < 1 || (!txext && (fr == nullptr || fi == nullptr)) ||
       (add_noise && rank > 0 && (bhr == nullptr || bhi == nullptr)) ||
       (ofdm::adaptive(mode) && (lane_i == nullptr || lane_f == nullptr))) {
@@ -478,6 +549,7 @@ int ofdm_lr_chunk(const float* tlr, const float* tli, const float* ccr, const fl
   L.groups = groups;
   L.run = run;
   L.key = make_uint2(key0, key1);
+  L.st = ofdm::Stages{rows, stages, 1, norm_part, norm_f};
 
   unsigned long long* a = reinterpret_cast<unsigned long long*>(acc);
   return static_cast<int>(ofdm::with_mode(mode, [&](auto md) {

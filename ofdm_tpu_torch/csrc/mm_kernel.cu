@@ -6,7 +6,7 @@
 // not fold into the receiver; in each constellation mode (qam, psk, aqam,
 // apsk: a template parameter, link_common.cuh's codec; SC-FDE takes no
 // adaptive mode).  Per OFDM symbol b:
-//   Philox words -> encode s_b
+//   Philox words -> encode s_b [x sqrt(P)]
 //   x_b  = s_b @ F_tx,ext                  (n -> T+E: IDFT/identity + zero
 //                                           guard, the last E columns repeated)
 //   PAPR max and sum over x_b[0:T)
@@ -18,7 +18,10 @@
 //   Y    = y @ R                           (T -> n: overlap-add + DFT)
 //   ZF / MMSE / none with the slicer gain 0.5/scale folded in
 //   SC-FDE only: e = e @ IDFT (n -> n)
+//   [x the tile's unit-power factor, the slicer gain deferred to it]
 //   slicer or PSK sector -> popcount(tx ^ rx) into int64 counters.
+// The bracketed _Spec stages exist only in the build with -DOFDM_STAGED=1
+// (the kernels' kStaged parameter; link_common.cuh).
 //
 // Bound on an H100: issue rate, not memory.  Each symbol runs n(T+E) +
 // (T+E)T + Tn (+ n^2 for SC-FDE) complex multiply-adds at 8 fp32 operations
@@ -55,6 +58,9 @@
 //  * Counters: per-thread 32-bit, warp and block sums, one 64-bit atomicAdd
 //    per block; PAPR peak an atomicMax on the f32 bits, PAPR sum a double
 //    atomicAdd (its last digits depend on block order).
+//  * normalize (staged build): mm_main runs twice around norm_factors, as
+//    diag_staged does; phase 0 writes each warp's |e|^2 sum over its run of
+//    symbols, phase 1 scales and counts.  mm_front runs once.
 
 #include <climits>
 #include <cstdint>
@@ -95,13 +101,14 @@ struct Link {
   int run;     // consecutive symbols a warp of mm_main walks
   uint2 key;
   ofdm::Lanes lanes;  // the adaptive modes' lane rows
+  ofdm::Stages st;    // the _Spec stages (OFDM_STAGED builds)
 };
 
 // y before noise of the chunk's symbols, over each tile's time samples
 // e = s*T + t (tile-local s), and the power partials in power_partials'
 // order.  grid (tiles, groups); block (tile, g) covers e in
 // [g*4096, (g+1)*4096).
-template <int J, int kMode>
+template <int J, int kMode, bool kStaged>
 __global__ void __launch_bounds__(kThreads)
     mm_front(Link L, float* y_r, float* y_i, float* partials, unsigned long long* acc, double* psum,
              float* carry_r, float* carry_i) {
@@ -130,7 +137,7 @@ __global__ void __launch_bounds__(kThreads)
     const int w_lo = s_lo + warp * per;
     const int w_hi = min(w_lo + per, s_hi);
     if (w_lo < w_hi) {
-      ofdm::prev_tail<kMode>(L, w, L.sym0 + static_cast<unsigned long long>(b0 + w_lo), lane);
+      ofdm::prev_tail<kMode, kStaged>(L, w, L.sym0 + static_cast<unsigned long long>(b0 + w_lo), lane);
       const long long base = static_cast<long long>(b0) * L.T;
       int tx[J];
       uint32_t w1[J], w2[J];
@@ -138,8 +145,9 @@ __global__ void __launch_bounds__(kThreads)
       for (int s = w_lo; s < w_hi; ++s) {
         const bool own = s * L.T >= e_lo;  // the block holds the symbol's first sample
         const bool last = own && b0 + s == L.chunk - 1;
-        ofdm::symbol_tx<J, kMode>(L, w, L.sym0 + static_cast<unsigned long long>(b0 + s), lane, own, pk, ps,
-                           last ? carry_r : nullptr, last ? carry_i : nullptr, tx, w1, w2);
+        ofdm::symbol_tx<J, kMode, kStaged>(L, w, L.sym0 + static_cast<unsigned long long>(b0 + s), lane, own,
+                                           pk, ps, last ? carry_r : nullptr, last ? carry_i : nullptr, tx,
+                                           w1, w2);
         ofdm::row_product<J>(w.ar, w.ai, L.cvr, L.cvi, L.T + L.E, L.T, lane, yr, yi);
         ofdm::shift_tail(L, w, lane);
 #pragma unroll
@@ -163,7 +171,9 @@ __global__ void __launch_bounds__(kThreads)
 // SC-FDE, the equalized bins (n complex).
 __host__ __device__ __forceinline__ int main_floats(int n, int T) { return 2 * (T + n); }
 
-template <int J, int kMode>
+// With kStaged, the stages (phase 0 of a normalized link writes its run's
+// |e|^2 partial instead of counting).
+template <int J, int kMode, bool kStaged>
 __global__ void __launch_bounds__(kThreads)
     mm_main(Link L, const float* y_r, const float* y_i, const float* partials,
             unsigned long long* acc, double* psum) {
@@ -177,17 +187,27 @@ __global__ void __launch_bounds__(kThreads)
 
   uint32_t be = 0, se = 0;
   const long long first = (static_cast<long long>(blockIdx.x) * kWarps + warp) * L.run;
+  const bool counting = !kStaged || L.st.phase == 1;
+  const bool normalize = kStaged && (L.st.bits & ofdm::kStageNormalize) != 0;
   if (first < L.chunk) {
     const int b0 = static_cast<int>(first);
     const int b1 = min(b0 + L.run, L.chunk);
     int cached_tile = -1;
     float sigma = 0.0f;
+    int norm_tile = -1;
+    float fn = 1.0f, energy = 0.0f;
     for (int b = b0; b < b1; ++b) {
       const int tile_id = b / L.tile;
       if (L.add_noise && tile_id != cached_tile) {
         const int tlen = min(L.tile, L.chunk - tile_id * L.tile);
         sigma = ofdm::tile_sigma(partials + tile_id * L.groups, L.groups, tlen * L.T, L.snr_lin);
         cached_tile = tile_id;
+      }
+      if constexpr (kStaged) {
+        if (normalize && counting && tile_id != norm_tile) {
+          fn = L.st.norm_f[tile_id];
+          norm_tile = tile_id;
+        }
       }
       const unsigned long long sym = L.sym0 + static_cast<unsigned long long>(b);
       const long long base = static_cast<long long>(b) * L.T;
@@ -219,7 +239,7 @@ __global__ void __launch_bounds__(kThreads)
         const int k = lane + 32 * j;
         er[j] = 0.0f;
         ei[j] = 0.0f;
-        if (k < L.n) ofdm::equalize_bin<kMode>(L.eq, L.lanes, k, fr[j], fi[j], nv, er[j], ei[j]);
+        if (k < L.n) ofdm::equalize_stage<kMode, kStaged>(L, k, fr[j], fi[j], nv, er[j], ei[j]);
       }
 
       if (!ofdm::adaptive(kMode) && L.is_sc) {
@@ -240,12 +260,34 @@ __global__ void __launch_bounds__(kThreads)
         }
       }
 
+      if constexpr (kStaged) {
+        if (normalize) {
+          if (!counting) {
+            energy = energy + ofdm::warp_energy<J>(er, ei, lane, L.n);
+          } else {
 #pragma unroll
-      for (int j = 0; j < J; ++j) {
-        const int k = lane + 32 * j;
-        if (k < L.n) ofdm::count_bin<kMode>(tx[j], er[j], ei[j], L.q, L.lanes, k, be, se);
+            for (int j = 0; j < J; ++j) {
+              const int k = lane + 32 * j;
+              if (k < L.n) {
+                const float m = ofdm::norm_gain<kMode>(L, k, fn);
+                er[j] = er[j] * m;
+                ei[j] = ei[j] * m;
+              }
+            }
+          }
+        }
+      }
+      if (counting) {
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          const int k = lane + 32 * j;
+          if (k < L.n) ofdm::count_bin<kMode>(tx[j], er[j], ei[j], L.q, L.lanes, k, be, se);
+        }
       }
       __syncwarp();  // the next symbol rewrites the buffers
+    }
+    if constexpr (kStaged) {
+      if (normalize && !counting && lane == 0) L.st.norm_part[b0 / L.run] = energy;
     }
   }
 
@@ -259,23 +301,34 @@ __host__ __forceinline__ size_t front_bytes(int n, int T, int E) {
 template <int J, int kMode>
 cudaError_t launch(const Link& L, float* y_r, float* y_i, float* partials, unsigned long long* acc,
                    double* psum, float* cr, float* ci, cudaStream_t stream) {
+  constexpr bool kS = ofdm::kStagedBuild;
   const size_t fbytes = front_bytes(L.n, L.T, L.E);
   const size_t mbytes = sizeof(float) * kWarps * main_floats(L.n, L.T);
-  cudaError_t err = cudaFuncSetAttribute(mm_front<J, kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t err = cudaFuncSetAttribute(mm_front<J, kMode, kS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(fbytes));
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(mm_main<J, kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(mm_main<J, kMode, kS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(mbytes));
   if (err != cudaSuccess) return err;
   const int tiles = (L.chunk + L.tile - 1) / L.tile;
-  mm_front<J, kMode><<<dim3(tiles, L.groups), kThreads, fbytes, stream>>>(L, y_r, y_i, partials, acc,
-                                                                           psum, cr, ci);
+  mm_front<J, kMode, kS><<<dim3(tiles, L.groups), kThreads, fbytes, stream>>>(L, y_r, y_i, partials, acc,
+                                                                               psum, cr, ci);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long warps = (static_cast<long long>(L.chunk) + L.run - 1) / L.run;
   const int grid = static_cast<int>((warps + kWarps - 1) / kWarps);
-  mm_main<J, kMode><<<grid, kThreads, mbytes, stream>>>(L, y_r, y_i, partials, acc, psum);
+#if OFDM_STAGED
+  return ofdm::staged_passes(L.st.bits, L.st.norm_part, L.st.norm_f, L.chunk, L.tile, L.run, L.n, stream,
+                             [&](int phase) {
+    Link P = L;
+    P.st.phase = phase;
+    mm_main<J, kMode, kS><<<grid, kThreads, mbytes, stream>>>(P, y_r, y_i, partials, acc, psum);
+    return cudaGetLastError();
+  });
+#else
+  mm_main<J, kMode, kS><<<grid, kThreads, mbytes, stream>>>(L, y_r, y_i, partials, acc, psum);
   return cudaGetLastError();
+#endif
 }
 
 // Time samples a lane holds, rounded up to a compiled width.
@@ -303,8 +356,10 @@ extern "C" {
 // rows; SC-FDE takes no adaptive mode).  acc = [bit errors,
 // symbol errors, PAPR peak f32 bits] (int64, accumulated), psum = PAPR power
 // sum (float64, accumulated); y = scratch planes of chunk * T floats;
-// carry = the chunk's last symbol's x[0:T).  Returns the first CUDA error of
-// the launches, 0 if none.
+// carry = the chunk's last symbol's x[0:T).  rows / stages / norm_part /
+// norm_f: the _Spec stages (link_common.cuh::Stages; 0 in the plain build;
+// apply_power and normalize only).  Returns the first CUDA error of the
+// launches, 0 if none.
 int ofdm_mm_chunk(const float* txr, const float* txi, const float* cvr, const float* cvi,
                   const float* rxr, const float* rxi, const float* idr, const float* idi,
                   const float* hr, const float* hi, const float* habs2, const float* gr,
@@ -314,9 +369,11 @@ int ofdm_mm_chunk(const float* txr, const float* txi, const float* cvr, const fl
                   int add_noise, int is_sc, unsigned long long sym0, int chunk, int tile,
                   int groups, int run, unsigned int key0, unsigned int key1, float* y_r,
                   float* y_i, float* partials, long long* acc, double* psum, float* carry_r,
-                  float* carry_i, void* stream_ptr) {
+                  float* carry_i, const float* rows, int stages, float* norm_part, float* norm_f,
+                  void* stream_ptr) {
   if (n < 1 || n > kMaxN || T < n || T > kMaxT || E < 0 || E > T || chunk < 1 || tile < 1 ||
-      run < 1 || static_cast<long long>(chunk) * T > INT_MAX ||
+      run < 1 || tile % run != 0 || static_cast<long long>(chunk) * T > INT_MAX ||
+      !ofdm::stage_args_ok(rows, stages, norm_part, norm_f, false) ||
       static_cast<long long>(groups) * kPowerBlock < static_cast<long long>(tile) * T ||
       (is_sc && (idr == nullptr || idi == nullptr)) ||
       (ofdm::adaptive(mode) && (is_sc || lane_i == nullptr || lane_f == nullptr))) {
@@ -348,6 +405,7 @@ int ofdm_mm_chunk(const float* txr, const float* txi, const float* cvr, const fl
   L.groups = groups;
   L.run = run;
   L.key = make_uint2(key0, key1);
+  L.st = ofdm::Stages{rows, stages, 1, norm_part, norm_f};
 
   unsigned long long* a = reinterpret_cast<unsigned long long*>(acc);
   return static_cast<int>(ofdm::with_mode(mode, [&](auto md) {

@@ -9,10 +9,12 @@ products (three for SC-FDE) and the noise is added per frequency bin.
 
 A chunk, per OFDM symbol b (the semantics of pallas_link.py:1428-1937 in
 its fold branches, not its lane-packed TPU layout): Philox words -> encode
-s_b -> x_b = s_b @ F_tx,ext (E duplicated tail columns) -> PAPR max
-and sum over x_b[:T] -> act = [x_b[:T] | x_{b-1}[T:T+E]] -> y = act @ CM
--> AWGN with the diag chunk's per-tile measured power -> ZF / MMSE / none
--> (SC-FDE) e @ IDFT -> slicer -> popcount into int64 counters.  The
+s_b -> [x sqrt(P)] -> x_b = s_b @ F_tx,ext (E duplicated tail columns) ->
+PAPR max and sum over x_b[:T] -> act = [x_b[:T] | x_{b-1}[T:T+E]] -> y =
+act @ CM -> AWGN with the diag chunk's per-tile measured power -> ZF /
+MMSE / none -> (SC-FDE) e @ IDFT -> [x the tile's unit-power factor,
+in the time domain on SC-FDE as chunk_body's normalize] -> slicer ->
+popcount into int64 counters (``link_kernel``'s stages).  The
 chunk returns its last symbol's x[:T], the JAX package's carry contract.
 The previous symbol's tail is recomputed from its Philox words, so a chunk
 reads no carry: the run's symbol 0 sees zeros (the JAX runner's zero
@@ -52,6 +54,8 @@ class FoldLink:
     cg: float
     method: int
     add_noise: bool
+    apply_power: bool
+    normalize: bool
     is_sc: bool
     tile_cap: int
     slice: int
@@ -90,7 +94,7 @@ def fold_link(setup, device) -> FoldLink:
         T=T,
         E=E,
         is_sc=is_sc,
-        tile_cap=lk.fold_tile_cap(n, T, E, is_sc),
+        tile_cap=lk.fold_tile_cap(n, T, E, is_sc, lk.selected_passes(setup)),
         txr=lk.f32_tensor(txr, device),
         txi=lk.f32_tensor(txi, device),
         cmr=lk.f32_tensor(cm.real, device),
@@ -117,15 +121,17 @@ def papr_samples(link: FoldLink, chunk: int) -> int:
 
 
 def fold_planes(link: FoldLink, key: Tuple[int, int], sym0: int, chunk: int, snr_lin: float,
-                device, words=None):
+                device, words=None, rows=None):
     """(tx, er, ei, xr, xi): the chunk's TX indices (chunk, n), equalized points
     in slicer units (chunk, n) and TX rows x (chunk, T+E) — the plain chain
-    up to the slicer.
+    up to the slicer, the stages included (``rows``: the chunk's per-lane
+    rows).
 
     ``words`` = (raw, u1 word, u2 word) injects integer planes in place of
     the Philox draw: (chunk, n) for sym0 == 0, else (chunk + 1, n) whose
     first row is symbol sym0 - 1 (only its raw word is read)."""
     n, T = link.n, link.T
+    rows = lk.stage_rows(link, rows, lk.rows_needed(link))
     tile, tiles, groups = _chunk_geometry(link, chunk)
     prev = 1 if sym0 > 0 else 0
     if words is None:
@@ -134,6 +140,8 @@ def fold_planes(link: FoldLink, key: Tuple[int, int], sym0: int, chunk: int, snr
     if raw.shape != (chunk + prev, n):
         raise ValueError(f"words must be ({chunk + prev}, {n}) planes, got {tuple(raw.shape)}")
     tx, sr, si = lk.encode(raw, link.q)
+    if link.apply_power:
+        sr, si = lk.scale_tx(sr, si, rows)
     xr, xi = lk.cmatmul(link.txr, link.txi, sr, si)
     if prev:
         tail_r, tail_i = xr[:1, T:], xi[:1, T:]
@@ -148,6 +156,8 @@ def fold_planes(link: FoldLink, key: Tuple[int, int], sym0: int, chunk: int, snr
     er, ei = lk.equalize(link, yr, yi, snr_lin)
     if link.is_sc:
         er, ei = lk.cmatmul(link.idr, link.idi, er, ei)
+    if link.normalize:
+        er, ei = lk.normalize_points(link, er, ei, lk.tile_norm(er, ei, chunk, tile, RUN))
     return tx, er, ei, xr, xi
 
 
@@ -160,11 +170,12 @@ def fold_chunk_plain(
     acc: torch.Tensor,
     psum: torch.Tensor,
     words=None,
+    rows=None,
 ):
     """Plain version of ``fold_chunk`` (same arguments, same effects);
     ``words`` as in ``fold_planes``."""
     T = link.T
-    tx, er, ei, xr, xi = fold_planes(link, key, sym0, chunk, snr_lin, acc.device, words)
+    tx, er, ei, xr, xi = fold_planes(link, key, sym0, chunk, snr_lin, acc.device, words, rows)
     lk.count_errors(link, tx, er, ei, acc)
     lk.add_papr(xr[:, :T], xi[:, :T], acc, psum)
     return xr[-1, :T].clone(), xi[-1, :T].clone()
@@ -194,11 +205,13 @@ def _check_link(link: FoldLink, device):
 
 
 def chunk_workspace(link: FoldLink, chunk: int, device):
-    """(partials, carry_r, carry_i): the scratch ``fold_chunk`` needs for
-    chunks of ``chunk`` symbols, so that a run allocates it once."""
-    _, tiles, groups = _chunk_geometry(link, chunk)
+    """(partials, carry_r, carry_i, norm partials, norm factors): the scratch
+    ``fold_chunk`` needs for chunks of ``chunk`` symbols, so that a run
+    allocates it once."""
+    tile, tiles, groups = _chunk_geometry(link, chunk)
     f32 = dict(dtype=torch.float32, device=device)
-    return torch.empty(tiles * groups, **f32), torch.empty(link.T, **f32), torch.empty(link.T, **f32)
+    return (torch.empty(tiles * groups, **f32), torch.empty(link.T, **f32), torch.empty(link.T, **f32),
+            *lk.norm_workspace(chunk, tile, RUN, device))
 
 
 def fold_chunk(
@@ -210,36 +223,36 @@ def fold_chunk(
     acc: torch.Tensor,
     psum: torch.Tensor,
     work=None,
+    rows=None,
 ):
     """One chunk of run symbols [sym0, sym0 + chunk): adds its bit errors,
     symbol errors and PAPR peak bits into ``acc`` and its PAPR power sum
     into ``psum``.  Returns the carry row (re, im): the last symbol's TX time
     row x[:T], written into ``work`` (a ``chunk_workspace``) when given.
+    ``rows``: the stages' per-lane rows (``link_kernel.stage_rows``).
 
     CUDA tensors launch the fused kernel (csrc/fold_kernel.cu): with noise
-    on, ``fold_power`` and then ``fold_main``, counted apart in
-    ``fold_chunk.power_launches`` and ``fold_chunk.launches``.  CPU tensors
-    run ``fold_chunk_plain``."""
+    on, ``fold_power``; then ``fold_main`` (for a link with stages its
+    OFDM_STAGED build, under ``normalize`` twice around ``norm_factors``),
+    counted in ``fold_chunk.power_launches``, ``.launches`` and
+    ``.norm_launches``.  CPU tensors run ``fold_chunk_plain``."""
     dev = acc.device
     if dev.type == "cpu":
-        return fold_chunk_plain(link, key, sym0, chunk, snr_lin, acc, psum)
+        return fold_chunk_plain(link, key, sym0, chunk, snr_lin, acc, psum, rows=rows)
     if dev.type != "cuda":
         raise ValueError(f"fold_chunk runs on cpu or cuda, not {dev}")
-    if acc.dtype != torch.int64 or acc.shape != (3,) or psum.dtype != torch.float64 or psum.shape != (1,):
-        raise ValueError("acc must be int64 (3,) and psum float64 (1,)")
-    if psum.device != dev or not (acc.is_contiguous() and psum.is_contiguous()):
-        raise ValueError("acc and psum must be contiguous on one device")
+    lk.check_accumulators(acc, psum)
     _check_link(link, dev)
     if not 1 <= chunk <= (2**31 - 1) // link.n:
         raise ValueError(f"chunk out of range: {chunk}")
     tile, tiles, groups = _chunk_geometry(link, chunk)
-    partials, carry_r, carry_i = chunk_workspace(link, chunk, dev) if work is None else work
-    for t, size in ((partials, tiles * groups), (carry_r, link.T), (carry_i, link.T)):
-        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous() or t.numel() < size:
-            raise ValueError(f"work must be chunk_workspace(link, {chunk}, {dev})")
+    work = chunk_workspace(link, chunk, dev) if work is None else work
+    lk.check_work(work, (tiles * groups, link.T, link.T, -(-chunk // RUN), tiles),
+                  f"chunk_workspace(link, {chunk}, {dev})")
+    partials, carry_r, carry_i, norm_part, norm_f = work
     from ofdm_tpu_torch import build
 
-    lib = build.load("fold_kernel")
+    lib = build.load("fold_staged" if lk.link_stages(link) else "fold_kernel")
     sc = link.is_sc
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
@@ -254,14 +267,17 @@ def fold_chunk(
             chunk, tile, link.slice, groups, RUN,
             key[0], key[1],
             partials.data_ptr(), acc.data_ptr(), psum.data_ptr(),
-            carry_r.data_ptr(), carry_i.data_ptr(), stream,
+            carry_r.data_ptr(), carry_i.data_ptr(),
+            *lk.stage_args(link, rows, norm_part, norm_f), stream,
         )
     build.check(lib, code, "ofdm_fold_chunk")
     if link.add_noise:
         fold_chunk.power_launches += 1
+    fold_chunk.norm_launches += int(link.normalize)
     fold_chunk.launches += 1
     return carry_r, carry_i
 
 
-fold_chunk.launches = 0  # fold_main kernels launched
+fold_chunk.launches = 0  # fold_main kernels launched (the pass that counts errors)
 fold_chunk.power_launches = 0  # fold_power kernels launched
+fold_chunk.norm_launches = 0  # normalization passes (each with its norm_factors) launched

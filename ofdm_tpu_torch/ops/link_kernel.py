@@ -16,18 +16,34 @@ the pieces after the channel (``awgn``, ``equalize``, ``count_errors``,
 
 A chunk of a diag link, per bin (the semantics of pallas_link.py:1428-1937,
 not its TPU layout): Philox words -> encode (Gray/zig-zag QAM or the PSK
-cos/sin lattice, per-subcarrier rows under adaptive loading) -> y = s * h
-(h is the raw-IR ``h_freq``; the diagonal identity is checked here) ->
-AWGN with sigma = sqrt(mp / snr_lin / 2), mp the mean |y|^2 over the
-first ``slice`` symbols of the bin's tile -> ZF / MMSE / none with the
-slicer gain folded in (QAM only) -> float-clipped slicer or PSK sector ->
-popcount of tx ^ rx into int64 counters.  Every ``pstride``-th tile of a
-chunk also computes the IDFT+CP time plane for the PAPR max and sum.
+cos/sin lattice, per-subcarrier rows under adaptive loading) -> [x sqrt(P)]
+-> y = s * d (d = ``linops.diag_response`` of the unit-energy taps, which
+is the raw-IR ``h_freq`` wherever the IR has unit energy) -> AWGN with
+sigma = sqrt(mp / snr_lin / 2), mp the mean |y|^2 over the first
+``slice`` symbols of the bin's tile -> ZF / MMSE / none against the raw
+``h_freq`` with the slicer gain folded in (QAM only) -> [post-EQ noise]
+-> [x 1/sqrt(P)] -> [x f, the tile's unit-power factor, with the slicer
+gain] -> float-clipped slicer or PSK sector -> popcount of tx ^ rx into
+int64 counters.  Every ``pstride``-th tile of a chunk also computes the
+IDFT+CP time plane for the PAPR max and sum.
+
+The bracketed stages are ``_Spec``'s (pallas_link.py:709-731):
+``apply_power`` and ``normalize`` follow ``SimulationConfig``'s
+``apply_power_allocation`` and ``normalize_before_demap`` on every chain;
+``post_noise`` and ``compensate`` are the noise-bump study's
+(``noise_bump_link``), diag only.  Their per-lane rows (sqrt(P),
+1/sqrt(P), the post-EQ sigma) are an argument of the chunk, not link
+constants, so one link serves every SNR point and scenario.  The
+normalization mean covers every symbol of a tile, so it is summed in a
+fixed order (``tile_norm``) that the kernels repeat: per symbol as the
+MMSE mean is, per run of consecutive symbols in order, then a tile's runs
+by ``norm_factors``' tree.
 
 Host constants and rules kept from the reference: ``_consts_for``'s diag
 and codec rows (:1049-1161), ``_spec_for``'s tile rule (:795-799) with
-``_plan``'s diag tile cap and its static codec width (:821-847), and the
-measured-power slice (:1691-1694).
+``_plan``'s diag tile cap (its staging factor from ``selected_passes``)
+and its static codec width (:821-847), and the measured-power slice
+(:1691-1694).
 """
 
 from __future__ import annotations
@@ -58,6 +74,10 @@ _SINC_Z = (1.5707963267681528, -0.6459640955781804, 0.0796926037175787,
 TILE_LADDER = (8192, 4096, 2048, 1024, 512, 256, 128, 64, 32)
 MAX_N = 256  # the kernel's warp-per-symbol layout holds up to 8 bins a lane
 POWER_BLOCK = 16 * 256  # slice elements per power_partials block
+RUN = 8  # consecutive symbols a warp of the staged diag kernel walks
+NORM_THREADS = 256  # threads of norm_factors, one block a tile
+# Stage bits of the kernels' C entry points (pallas_link._Spec's switches).
+STAGE_POWER, STAGE_NORMALIZE, STAGE_POST_NOISE, STAGE_COMPENSATE = 1, 2, 4, 8
 METHOD_CODE = {EqualizationMethod.ZF: 0, EqualizationMethod.MMSE: 1, EqualizationMethod.NONE: 2}
 
 
@@ -387,53 +407,75 @@ def slice_symbols(n: int) -> int:
     return max(64, -(-65536 // n))
 
 
-def tile_cap(n: int, T: int) -> int:
+def selected_passes(setup) -> int:
+    """The bf16 passes the JAX kernel stages for a setup's link
+    (pallas_link.selected_passes, host f64): ``matmul_passes`` when set,
+    else 1 when the constellation's decision half-distance (the QAM scale,
+    or sin(pi/M) for PSK; the largest loaded order under adaptive loading)
+    is at least 0.07, else 3.  The port computes in f32 either way; the
+    count feeds only the tile rule, so that the per-tile estimators see
+    the JAX package's tiles."""
+    cfg = setup.cfg
+    if cfg.matmul_passes != "auto":
+        return int(cfg.matmul_passes)
+    is_qam = cfg.constellation_type.value == "QAM"
+    if setup.amap is not None:
+        active = np.asarray(setup.amap.orders)
+        active = active[active > 0]
+        if active.size == 0:
+            return 1
+        worst = int(active.max())
+    else:
+        worst = cfg.constellation_order
+    if is_qam:
+        half_d = float(make_constellation("QAM", worst).scale)
+    else:
+        half_d = float(np.sin(np.pi / worst))
+    return 1 if half_d >= 0.07 else 3
+
+
+def tile_cap(n: int, T: int, passes: int = 1) -> int:
     """Largest tile the reference admits for a diag link (pallas_link._plan's
-    diag budget).  Kept so the per-tile power estimator sees the same tiles
-    as the JAX package.  The budget's staging factor is fixed at its
-    single-pass value: the port ignores ``matmul_passes``.  The JAX
-    package's cap differs from this one only where it stages three bf16
-    passes (1024-QAM, or matmul_passes=3) and T lies just below a tile
-    step (T in 155-156, 309-312 or 610-621 for n <= 256)."""
-    return _budget_tile(max(1, 128 // n) ** 2 * n * T + 128 * 128, T)
+    diag budget) at ``passes`` bf16 passes (``selected_passes``).  Kept so
+    the per-tile power estimator sees the same tiles as the JAX package."""
+    return _budget_tile(max(1, 128 // n) ** 2 * n * T + 128 * 128, T, passes)
 
 
-def fold_tile_cap(n: int, T: int, E: int, is_sc: bool) -> int:
+def fold_tile_cap(n: int, T: int, E: int, is_sc: bool, passes: int = 1) -> int:
     """Largest tile the reference admits for a fold link (pallas_link._plan's
     "mm" budget with fold staging: F_tx,ext, the merged conv+RX matrix and,
-    for SC-FDE, the IDFT; activation planes T+E wide).  Same fixed staging
-    factor as ``tile_cap``."""
+    for SC-FDE, the IDFT; activation planes T+E wide)."""
     TE = T + E
-    return _budget_tile(n * TE + TE * n + (n * n if is_sc else 0), TE)
+    return _budget_tile(n * TE + TE * n + (n * n if is_sc else 0), TE, passes)
 
 
-def mm_tile_cap(n: int, T: int, E: int, is_sc: bool) -> int:
+def mm_tile_cap(n: int, T: int, E: int, is_sc: bool, passes: int = 1) -> int:
     """Largest tile the reference admits for a zero-prefix mm link
     (pallas_link._plan's "mm" budget without fold: F_tx,ext, the merged
     conv, the overlap-add + DFT matrix and, for SC-FDE, the IDFT;
-    activation planes T+E wide).  Same fixed staging factor as
-    ``tile_cap``."""
+    activation planes T+E wide)."""
     TE = T + E
-    return _budget_tile(TE * T + n * TE + n * T + (n * n if is_sc else 0), TE)
+    return _budget_tile(TE * T + n * TE + n * T + (n * n if is_sc else 0), TE, passes)
 
 
-def lr_tile_cap(n: int, T: int, E: int, rank: int, txext: bool) -> int:
+def lr_tile_cap(n: int, T: int, E: int, rank: int, txext: bool, passes: int = 1) -> int:
     """Largest tile the reference admits for an lr link (pallas_link._plan's
     lr budget): TailM, the stacked [Cr; Cp], the noise factor (at least one
     group of 8 rows, zero for iid noise) and, unless the PAPR statistic is
     external, the TX matrix; activation planes T wide.  From 4096
     subcarriers the reference raises the scoped budget
-    (_VMEM_SCOPED_GIANT_LR).  Same fixed staging factor as ``tile_cap``."""
+    (_VMEM_SCOPED_GIANT_LR)."""
     ep = max(8, -(-E // 8) * 8)
     rp = max(8, -(-max(rank, 1) // 8) * 8)
     staged = n * ep + 2 * ep * n + rp * n + (128 * 128 if txext else n * T)
-    return _budget_tile(staged, T, 119_000_000 if n >= 4096 else 72_000_000)
+    return _budget_tile(staged, T, passes, 119_000_000 if n >= 4096 else 72_000_000)
 
 
-def _budget_tile(staged: int, width: int, scoped: int = 72_000_000) -> int:
-    """_plan's scoped-VMEM rule: staged matrices at 3 bf16 splits x 2 buffers,
-    plus 14 live (tile, width) f32 planes, within ``scoped`` bytes."""
-    fixed = 2 * 3 * staged
+def _budget_tile(staged: int, width: int, passes: int, scoped: int = 72_000_000) -> int:
+    """_plan's scoped-VMEM rule: staged matrices at u bf16 splits x 2
+    buffers (u = 3 for one pass, 6 for three), plus 14 live (tile, width)
+    f32 planes, within ``scoped`` bytes."""
+    fixed = 2 * (3 if passes == 1 else 6) * staged
     for tile in TILE_LADDER:
         if fixed + 4 * 14 * tile * width <= scoped:
             return tile
@@ -471,16 +513,24 @@ class DiagLink:
     cg: float  # f32 mean |h|^2
     method: int  # METHOD_CODE
     add_noise: bool
+    apply_power: bool  # x sqrt(P) at TX (the chunk's rows[0])
+    normalize: bool  # per-tile unit power before the demap
     pstride: int
     tile_cap: int
     slice: int
-    hr: torch.Tensor  # (n,)
+    hr: torch.Tensor  # (n,) raw-IR h_freq: the equalizer's
     hi: torch.Tensor
     habs2: torch.Tensor
-    gr: torch.Tensor  # ZF gain rows, slicer folded in
+    gr: torch.Tensor  # ZF gain rows, slicer folded in unless normalize
     gi: torch.Tensor
+    cr: torch.Tensor  # (n,) the channel multiply's diag_response rows
+    ci: torch.Tensor
     fr: torch.Tensor  # (n, T) IDFT + CP
     fi: torch.Tensor
+    # The noise-bump study's stages (noise_bump_link): post-EQ noise of
+    # sigma rows[2], then x rows[1] (1/sqrt(P)).
+    post_noise: bool = False
+    compensate: bool = False
 
 
 def f32_tensor(a, device) -> torch.Tensor:
@@ -492,16 +542,18 @@ def equalizer_fields(setup, device) -> dict:
     """The fields every chunk kernel shares (pallas_link._consts_for's rows,
     :1049-1106 and :1155): the codec, the scalar slicer gain (0.5/scale for
     qam; 1 for PSK, whose demap is scale-free, and for aqam, whose gain is
-    the codec's per-lane row), mean |h|^2, method and noise switches, the
-    measured-power slice, and the f32 rows h, |h|^2 and the ZF gain with
-    the slicer gain folded in (qam and aqam; raw for PSK)."""
+    the codec's per-lane row), mean |h|^2, method, noise and power-stage
+    switches, the measured-power slice, and the f32 rows h, |h|^2 and the
+    ZF gain with the slicer gain folded in (qam and aqam, unless
+    ``normalize``, which defers the slicer gain past the normalization;
+    raw for PSK)."""
     cfg = setup.cfg
     n = cfg.num_subcarriers
     h = np.asarray(setup.h_freq, np.complex128)
     codec, slicer = codec_for(setup, device)
     h_z = np.where(h == 0, np.complex128(1e-10), h)
     zf_g = 1.0 / h_z
-    if cfg.equalization_method == EqualizationMethod.ZF and slicer is not None:
+    if cfg.equalization_method == EqualizationMethod.ZF and slicer is not None and not cfg.normalize_before_demap:
         zf_g = zf_g * slicer
     return dict(
         n=n,
@@ -510,6 +562,8 @@ def equalizer_fields(setup, device) -> dict:
         cg=float(np.float32(np.mean(np.abs(h) ** 2))),
         method=METHOD_CODE[cfg.equalization_method],
         add_noise=cfg.noise_type == NoiseType.AWGN,
+        apply_power=bool(cfg.apply_power_allocation),
+        normalize=bool(cfg.normalize_before_demap),
         slice=slice_symbols(n),
         hr=f32_tensor(h.real, device),
         hi=f32_tensor(h.imag, device),
@@ -522,23 +576,50 @@ def equalizer_fields(setup, device) -> dict:
 def diag_link(setup, device) -> DiagLink:
     """Host constants of a diag link (pallas_link._consts_for, diag branch).
 
-    Checks that TX -> channel -> RX is exactly diag(h_freq) before anything
-    runs on it."""
+    ``linops.diag_response`` checks that TX -> channel -> RX is diagonal
+    and gives its diagonal d, the FFT of the unit-energy taps: the channel
+    multiply's rows.  The equalizer keeps the raw-IR ``h_freq``, as the
+    reference does (docs/PARITY.md quirk 1), so on an IR without unit
+    energy d = h_freq / ||ir||.  Where d equals h_freq within f32 (unit
+    energy) the channel rows are the h rows, bit for bit, as the JAX
+    kernel's."""
     cfg = setup.cfg
     n, L = cfg.num_subcarriers, setup.prefix_length
     T = n + L
     d = linops.diag_response(np.asarray(setup.taps), n, cfg.prefix_type, L)
-    if not np.allclose(d, np.asarray(setup.h_freq, np.complex128), rtol=1e-5, atol=1e-7):
-        raise ValueError("diag link: diag(F_tx C R) != h_freq")
+    fields = equalizer_fields(setup, device)
+    if np.allclose(d, np.asarray(setup.h_freq, np.complex128), rtol=1e-5, atol=1e-7):
+        cr, ci = fields["hr"], fields["hi"]
+    else:
+        cr, ci = f32_tensor(d.real, device), f32_tensor(d.imag, device)
     ftx_r, ftx_i = linops.tx_matrix(n, cfg.prefix_type, L, cfg.modulation_type)
     return DiagLink(
         T=T,
         pstride=cfg.papr_stride or 32,
-        tile_cap=tile_cap(n, T),
+        tile_cap=tile_cap(n, T, selected_passes(setup)),
+        cr=cr,
+        ci=ci,
         fr=f32_tensor(ftx_r, device),
         fi=f32_tensor(ftx_i, device),
-        **equalizer_fields(setup, device),
+        **fields,
     )
+
+
+def own_channel_rows(link: DiagLink) -> bool:
+    """Whether the channel multiply has rows of its own (an IR without
+    unit energy); else they are the equalizer's h rows, one tensor."""
+    return link.cr is not link.hr or link.ci is not link.hi
+
+
+def noise_bump_link(link: DiagLink) -> DiagLink:
+    """The diag link with the noise-bump study's two stages on: post-EQ
+    noise of sigma ``rows[2]``, then x ``rows[1]`` (1/sqrt(P))
+    (pallas_link.make_noise_bump_chunk).  The link must apply the power
+    allocation, normalize before the demap and add no channel noise."""
+    if not (link.apply_power and link.normalize) or link.add_noise:
+        raise ValueError("the noise-bump chunk needs apply_power_allocation=True, "
+                         "normalize_before_demap=True and noise_type=NONE")
+    return dataclasses.replace(link, post_noise=True, compensate=True)
 
 
 def _chunk_geometry(link: DiagLink, chunk: int):
@@ -559,6 +640,23 @@ def papr_samples(link: DiagLink, chunk: int) -> int:
 # --- plain version of the chunk ----------------------------------------------
 
 
+def tree_sum(v: torch.Tensor, threads: int = NORM_THREADS) -> torch.Tensor:
+    """Sum over the last axis in a power kernel's order (power_partials,
+    norm_factors): thread t sums elements t, t + threads, ... in order,
+    then the block's halving tree."""
+    n = v.shape[-1]
+    J = max(1, -(-n // threads))
+    v = torch.nn.functional.pad(v, (0, threads * J - n)).reshape(*v.shape[:-1], J, threads)
+    acc = torch.zeros(v.shape[:-2] + (threads,), dtype=v.dtype, device=v.device)
+    for j in range(J):
+        acc = acc + v[..., j, :]
+    s = threads // 2
+    while s >= 1:
+        acc = acc[..., :s] + acc[..., s : 2 * s]
+        s >>= 1
+    return acc[..., 0]
+
+
 def _tile_sigma(pw: torch.Tensor, chunk, tile, tiles, groups, snr_lin, slice_syms, pw_scale=1.0):
     """Per-tile sigma from |y|^2 (chunk, width): the mean over the first
     ``slice_syms`` symbols (all ``width`` samples of each) of every tile,
@@ -574,15 +672,7 @@ def _tile_sigma(pw: torch.Tensor, chunk, tile, tiles, groups, snr_lin, slice_sym
         count = min(slice_syms, min(tile, chunk - b0)) * width
         seg[t, :count] = flat[b0 * width : b0 * width + count]
         counts.append(count)
-    v = seg.view(tiles, groups, 16, 256)
-    acc = torch.zeros((tiles, groups, 256), dtype=torch.float32, device=pw.device)
-    for j in range(16):
-        acc = acc + v[:, :, j, :]
-    s = 128
-    while s >= 1:
-        acc = acc[..., :s] + acc[..., s : 2 * s]
-        s >>= 1
-    parts = acc[..., 0]
+    parts = tree_sum(seg.view(tiles, groups, POWER_BLOCK))
     tot = torch.zeros((tiles,), dtype=torch.float32, device=pw.device)
     for g in range(groups):
         tot = tot + parts[:, g]
@@ -644,21 +734,113 @@ def awgn(yr, yi, w1, w2, chunk, tile, tiles, groups, snr_lin, slice_syms, pw_sca
 def equalize(link, yr, yi, snr_lin, threads=32):
     """ZF / MMSE / no equalizer, in slicer units (the slicer gain folded in:
     the scalar for qam, the codec's per-lane row for aqam, none for PSK);
-    MMSE sums |y|^2 in the order of ``threads`` threads a symbol."""
+    MMSE sums |y|^2 in the order of ``threads`` threads a symbol.  Under
+    ``normalize`` the slicer gain is deferred to ``normalize_points``
+    (pallas_link.py:1772, defer_slicer): the points stay in data units."""
     hr, hi = link.hr, link.hi
-    lane_slicer = link.q.frows[1] if link.q.mode == "aqam" else None
+    defer = link.normalize
+    lane_slicer = link.q.frows[1] if link.q.mode == "aqam" and not defer else None
     if link.method == 0:
         gr, gi = link.gr, link.gi
         return yr * gr - yi * gi, yi * gr + yr * gi
     if link.method == 1:
         nv = _mmse_nv(link, yr, yi, snr_lin, threads)
-        g = (_f32(link.slicer, nv) if lane_slicer is None else lane_slicer) / (link.habs2 + nv)
+        num = _f32(1.0 if defer else link.slicer, nv) if lane_slicer is None else lane_slicer
+        g = num / (link.habs2 + nv)
         return (yr * hr + yi * hi) * g, (yi * hr - yr * hi) * g
     if lane_slicer is not None:
         return yr * lane_slicer, yi * lane_slicer
-    if link.q.mode != "qam":
+    if link.q.mode != "qam" or defer:
         return yr, yi
     return yr * link.slicer, yi * link.slicer
+
+
+# --- the _Spec stages (pallas_link.py:1437-1443, 1826-1862) -------------------
+
+
+def stage_rows(link, rows, need: int) -> Optional[torch.Tensor]:
+    """The chunk's per-lane rows, checked: None when no stage reads them,
+    else an f32 (R, n) tensor on the link's device with R >= ``need``
+    (rows[0] = sqrt(P), rows[1] = 1/sqrt(P), rows[2] = the post-EQ
+    sigma)."""
+    if need == 0:
+        return None
+    dev = link.hr.device
+    if rows is None:
+        raise ValueError(f"this link's stages read {need} per-lane row(s): pass rows")
+    if (rows.dtype != torch.float32 or rows.device != dev or rows.ndim != 2 or rows.shape[0] < need
+            or rows.shape[1] != link.n or not rows.is_contiguous()):
+        raise ValueError(f"rows must be a contiguous f32 ({need}, {link.n}) tensor on {dev}")
+    return rows
+
+
+def link_stages(link) -> int:
+    """The STAGE_* bits of a chunk link (any chain; only the diag link has
+    the noise-bump stages)."""
+    return (STAGE_POWER * link.apply_power + STAGE_NORMALIZE * link.normalize
+            + STAGE_POST_NOISE * getattr(link, "post_noise", False)
+            + STAGE_COMPENSATE * getattr(link, "compensate", False))
+
+
+def rows_needed(link) -> int:
+    """Per-lane rows a link's stages read: 3 with the noise-bump stages, 1
+    for sqrt(P) alone, else 0."""
+    stages = link_stages(link)
+    if stages & (STAGE_POST_NOISE | STAGE_COMPENSATE):
+        return 3
+    return 1 if stages & STAGE_POWER else 0
+
+
+def scale_tx(sr, si, rows):
+    """x sqrt(P) per lane, right after encode (the apply_power stage)."""
+    return sr * rows[0], si * rows[0]
+
+
+def post_noise(er, ei, sigma, w1, w2):
+    """e + sigma * Box-Muller(w1, w2) per lane, in the reference kernel's
+    order: (sigma * radius) * cos, (sigma * radius) * sin."""
+    rad = torch.sqrt(-2.0 * torch.log(uniform24_floored(w1)))
+    co, sn = cossin_u24((w2 >> 8) & 0xFFFFFF)
+    sr = sigma * rad
+    return er + sr * co, ei + sr * sn
+
+
+def tile_norm(er, ei, chunk: int, tile: int, run: int, threads: int = 32) -> torch.Tensor:
+    """(chunk, 1) f32: each symbol's tile factor f = 1/sqrt(mean |e|^2) over
+    all of the tile's points, or 1 where that mean is <= 1e-10
+    (pallas_link.py:1853-1854), summed in the kernels' order: each symbol
+    by ``block_sum`` over ``threads`` threads, each run of ``run``
+    consecutive symbols in order (one partial a warp or block), then a
+    tile's partials by ``norm_factors``' tree."""
+    n = er.shape[1]
+    dev = er.device
+    sym = block_sum(er * er + ei * ei, threads)
+    runs = -(-chunk // run)
+    sym = torch.nn.functional.pad(sym, (0, runs * run - chunk)).view(runs, run)
+    part = torch.zeros(runs, dtype=torch.float32, device=dev)
+    for r in range(run):
+        part = part + sym[:, r]
+    tiles = -(-chunk // tile)
+    rpt = tile // run
+    part = torch.nn.functional.pad(part, (0, tiles * rpt - runs)).view(tiles, rpt)
+    tot = tree_sum(part)
+    cnt = torch.tensor([min(tile, chunk - t * tile) * n for t in range(tiles)], dtype=torch.float32, device=dev)
+    avg = tot / cnt
+    f = torch.where(avg > _f32(1e-10, avg), _f32(1.0, avg) / torch.sqrt(avg), _f32(1.0, avg))
+    return f.repeat_interleave(tile)[:chunk, None]
+
+
+def normalize_points(link, er, ei, f):
+    """e x f, the tile's unit-power factor, with the deferred slicer gain
+    riding the same multiply (f x 0.5/scale for qam, f x the lane row for
+    aqam, f alone for PSK; pallas_link.py:1855-1861)."""
+    if link.q.mode == "qam":
+        m = f * _f32(link.slicer, f)
+    elif link.q.mode == "aqam":
+        m = f * link.q.frows[1]
+    else:
+        m = f
+    return er * m, ei * m
 
 
 def count_errors(link, tx, er, ei, acc):
@@ -699,6 +881,45 @@ def bits_f32(b: int) -> float:
     return struct.unpack("<f", struct.pack("<I", int(b) & 0xFFFFFFFF))[0]
 
 
+def diag_planes(link: DiagLink, key: Tuple[int, int], sym0: int, chunk: int, snr_lin: float,
+                device, words=None, rows=None):
+    """(tx, er, ei, sr, si): the chunk's TX indices, points ready for the
+    slicer and TX symbols, each (chunk, n) — the plain chain up to the
+    slicer, the stages included (``rows``: the chunk's per-lane rows).
+
+    ``words`` = (raw, u1 word, u2 word) injects (chunk, n) integer planes in
+    place of the Philox draw (tests feed zeros or numpy words); with
+    ``post_noise`` two more, the post-EQ draws' (u1 word, u2 word)."""
+    dev = device
+    n = link.n
+    rows = stage_rows(link, rows, rows_needed(link))
+    tile, tiles, groups, _ = _chunk_geometry(link, chunk)
+    if words is None:
+        words = prng.link_words(key, sym0, chunk, n, dev)
+        if link.post_noise:
+            words += prng.post_noise_words(key, sym0, chunk, n, dev)
+    planes = [torch.as_tensor(w).to(device=dev, dtype=torch.int64) & prng.M32 for w in words]
+    if planes[0].shape != (chunk, n) or len(planes) != (5 if link.post_noise else 3):
+        raise ValueError(f"words must be 3 ({chunk}, {n}) planes (5 with post_noise)")
+    raw, w1, w2 = planes[:3]
+    tx, sr, si = encode(raw, link.q)
+    if link.apply_power:
+        sr, si = scale_tx(sr, si, rows)
+    cr, ci = link.cr, link.ci
+    yr = sr * cr - si * ci
+    yi = sr * ci + si * cr
+    if link.add_noise:
+        yr, yi = awgn(yr, yi, w1, w2, chunk, tile, tiles, groups, snr_lin, link.slice)
+    er, ei = equalize(link, yr, yi, snr_lin)
+    if link.post_noise:
+        er, ei = post_noise(er, ei, rows[2], planes[3], planes[4])
+    if link.compensate:
+        er, ei = er * rows[1], ei * rows[1]
+    if link.normalize:
+        er, ei = normalize_points(link, er, ei, tile_norm(er, ei, chunk, tile, RUN))
+    return tx, er, ei, sr, si
+
+
 def diag_chunk_plain(
     link: DiagLink,
     key: Tuple[int, int],
@@ -708,30 +929,17 @@ def diag_chunk_plain(
     acc: torch.Tensor,
     psum: torch.Tensor,
     words=None,
+    rows=None,
 ):
-    """Plain version of ``diag_chunk`` (same arguments, same effects).
-
-    ``words`` = (raw, u1 word, u2 word) injects (chunk, n) integer planes in
-    place of the Philox draw (tests feed zeros or numpy words)."""
+    """Plain version of ``diag_chunk`` (same arguments, same effects);
+    ``words`` as in ``diag_planes``."""
     dev = acc.device
-    n = link.n
-    tile, tiles, groups, carry_sym = _chunk_geometry(link, chunk)
-    if words is None:
-        words = prng.link_words(key, sym0, chunk, n, dev)
-    raw, w1, w2 = (torch.as_tensor(w).to(device=dev, dtype=torch.int64) & prng.M32 for w in words)
-    if raw.shape != (chunk, n):
-        raise ValueError(f"words must be ({chunk}, {n}) planes, got {tuple(raw.shape)}")
-    tx, sr, si = encode(raw, link.q)
-    hr, hi = link.hr, link.hi
-    yr = sr * hr - si * hi
-    yi = sr * hi + si * hr
-    if link.add_noise:
-        yr, yi = awgn(yr, yi, w1, w2, chunk, tile, tiles, groups, snr_lin, link.slice)
-    er, ei = equalize(link, yr, yi, snr_lin)
+    tile = tile_for(chunk, link.tile_cap)
+    tx, er, ei, sr, si = diag_planes(link, key, sym0, chunk, snr_lin, dev, words, rows)
     count_errors(link, tx, er, ei, acc)
 
-    rows = (torch.arange(chunk, device=dev) // tile) % link.pstride == 0
-    xr, xi = cmatmul(link.fr, link.fi, sr[rows], si[rows])
+    sampled = (torch.arange(chunk, device=dev) // tile) % link.pstride == 0
+    xr, xi = cmatmul(link.fr, link.fi, sr[sampled], si[sampled])
     add_papr(xr, xi, acc, psum)
     # sampled rows are in symbol order: the last one is symbol carry_sym
     return xr[-1].clone(), xi[-1].clone()
@@ -750,7 +958,7 @@ def new_accumulators(device):
 
 
 def _check_link_tensors(link: DiagLink, device):
-    for name in ("hr", "hi", "habs2", "gr", "gi", "fr", "fi"):
+    for name in ("hr", "hi", "habs2", "gr", "gi", "cr", "ci", "fr", "fi"):
         t = getattr(link, name)
         if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"link.{name} must be contiguous f32 on {device}")
@@ -761,12 +969,45 @@ def _check_link_tensors(link: DiagLink, device):
     check_codec(link.q, link.n, device)
 
 
-def chunk_workspace(link: DiagLink, chunk: int, device):
-    """(partials, carry_r, carry_i): the scratch ``diag_chunk`` needs for
-    chunks of ``chunk`` symbols, so that a run allocates it once."""
-    _, tiles, groups, _ = _chunk_geometry(link, chunk)
+def norm_workspace(chunk: int, tile: int, run: int, device):
+    """(run partials, tile factors): the scratch of a chunk's normalization,
+    one float a run of ``run`` symbols and one a tile."""
     f32 = dict(dtype=torch.float32, device=device)
-    return torch.empty(tiles * groups, **f32), torch.empty(link.T, **f32), torch.empty(link.T, **f32)
+    return torch.empty(-(-chunk // run), **f32), torch.empty(-(-chunk // tile), **f32)
+
+
+def check_work(work, sizes, what):
+    """Raise unless each tensor of ``work`` is contiguous f32 with room for
+    its size, on the device of the first."""
+    dev = work[0].device
+    for t, size in zip(work, sizes):
+        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous() or t.numel() < size:
+            raise ValueError(f"work must be {what}")
+
+
+def chunk_workspace(link: DiagLink, chunk: int, device):
+    """(partials, carry_r, carry_i, norm partials, norm factors): the scratch
+    ``diag_chunk`` needs for chunks of ``chunk`` symbols, so that a run
+    allocates it once."""
+    tile, tiles, groups, _ = _chunk_geometry(link, chunk)
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.empty(tiles * groups, **f32), torch.empty(link.T, **f32), torch.empty(link.T, **f32),
+            *norm_workspace(chunk, tile, RUN, device))
+
+
+def check_accumulators(acc, psum):
+    """Raise unless acc is int64 (3,) and psum float64 (1,), contiguous, on one device."""
+    if acc.dtype != torch.int64 or acc.shape != (3,) or psum.dtype != torch.float64 or psum.shape != (1,):
+        raise ValueError("acc must be int64 (3,) and psum float64 (1,)")
+    if psum.device != acc.device or not (acc.is_contiguous() and psum.is_contiguous()):
+        raise ValueError("acc and psum must be contiguous on one device")
+
+
+def stage_args(link, rows, norm_part, norm_f):
+    """The stage arguments of a chunk kernel's C entry point: the rows
+    pointer, the STAGE_* bits and the normalization scratch."""
+    rows = stage_rows(link, rows, rows_needed(link))
+    return (None if rows is None else rows.data_ptr(), link_stages(link), norm_part.data_ptr(), norm_f.data_ptr())
 
 
 def diag_chunk(
@@ -778,60 +1019,68 @@ def diag_chunk(
     acc: torch.Tensor,
     psum: torch.Tensor,
     work=None,
+    rows=None,
 ):
     """One chunk of run symbols [sym0, sym0 + chunk): adds its bit errors,
     symbol errors and PAPR peak bits into ``acc`` and its PAPR power sum
     into ``psum``, on the accumulators' device.  Returns the carry row
     (re, im): the TX time row of the chunk's last sampled symbol, written
     into ``work`` (a ``chunk_workspace`` for this chunk size) when given.
+    ``rows`` are the stages' per-lane rows (``stage_rows``), read only
+    when the link has stages.
 
-    CUDA tensors launch the fused kernel (csrc/link_kernel.cu): with noise
-    on, ``power_partials`` and then ``diag_main``, counted apart in
-    ``diag_chunk.power_launches`` and ``diag_chunk.launches``.  CPU tensors
-    run ``diag_chunk_plain``."""
+    CUDA tensors launch the fused kernels (csrc/link_kernel.cu): with noise
+    on, ``power_partials``; then ``diag_main``, or for a link with stages
+    or channel rows of its own (``own_channel_rows``; the library built
+    with OFDM_STAGED) ``diag_staged``, under ``normalize`` twice around
+    ``norm_factors``.  Counted in
+    ``diag_chunk.power_launches``, ``.launches`` (the pass that counts
+    errors) and ``.norm_launches`` (the normalization pass and its
+    ``norm_factors``, one each).  CPU tensors run ``diag_chunk_plain``."""
     dev = acc.device
     if dev.type == "cpu":
-        return diag_chunk_plain(link, key, sym0, chunk, snr_lin, acc, psum)
+        return diag_chunk_plain(link, key, sym0, chunk, snr_lin, acc, psum, rows=rows)
     if dev.type != "cuda":
         raise ValueError(f"diag_chunk runs on cpu or cuda, not {dev}")
-    if acc.dtype != torch.int64 or acc.shape != (3,) or psum.dtype != torch.float64 or psum.shape != (1,):
-        raise ValueError("acc must be int64 (3,) and psum float64 (1,)")
-    if psum.device != dev or not (acc.is_contiguous() and psum.is_contiguous()):
-        raise ValueError("acc and psum must be contiguous on one device")
+    check_accumulators(acc, psum)
     _check_link_tensors(link, dev)
     if not 1 <= chunk <= (2**31 - 1) // link.n:
         raise ValueError(f"chunk out of range: {chunk}")
     tile, tiles, groups, carry_sym = _chunk_geometry(link, chunk)
-    partials, carry_r, carry_i = chunk_workspace(link, chunk, dev) if work is None else work
-    for t, size in ((partials, tiles * groups), (carry_r, link.T), (carry_i, link.T)):
-        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous() or t.numel() < size:
-            raise ValueError(f"work must be chunk_workspace(link, {chunk}, {dev})")
+    work = chunk_workspace(link, chunk, dev) if work is None else work
+    check_work(work, (tiles * groups, link.T, link.T, -(-chunk // RUN), tiles),
+               f"chunk_workspace(link, {chunk}, {dev})")
+    partials, carry_r, carry_i, norm_part, norm_f = work
     from ofdm_tpu_torch import build
 
-    lib = build.load("link_kernel")
+    lib = build.load("link_staged" if link_stages(link) or own_channel_rows(link) else "link_kernel")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.ofdm_diag_chunk(
             link.hr.data_ptr(), link.hi.data_ptr(), link.habs2.data_ptr(),
-            link.gr.data_ptr(), link.gi.data_ptr(), link.fr.data_ptr(), link.fi.data_ptr(),
+            link.gr.data_ptr(), link.gi.data_ptr(), link.cr.data_ptr(), link.ci.data_ptr(),
+            link.fr.data_ptr(), link.fi.data_ptr(),
             link.n, link.T, *codec_args(link.q), link.slicer, snr_lin, link.cg,
             link.method, int(link.add_noise),
             sym0,
             chunk, tile, link.slice, groups, link.pstride,
-            carry_sym,
+            carry_sym, RUN,
             key[0], key[1],
             partials.data_ptr(), acc.data_ptr(), psum.data_ptr(),
-            carry_r.data_ptr(), carry_i.data_ptr(), stream,
+            carry_r.data_ptr(), carry_i.data_ptr(),
+            *stage_args(link, rows, norm_part, norm_f), stream,
         )
     build.check(lib, code, "ofdm_diag_chunk")
     if link.add_noise:
         diag_chunk.power_launches += 1
+    diag_chunk.norm_launches += int(link.normalize)
     diag_chunk.launches += 1
     return carry_r, carry_i
 
 
-diag_chunk.launches = 0  # diag_main kernels launched
+diag_chunk.launches = 0  # diag_main (diag_staged) kernels launched
 diag_chunk.power_launches = 0  # power_partials kernels launched
+diag_chunk.norm_launches = 0  # normalization passes (each with its norm_factors) launched
 
 
 def boxmuller_sample_plain(seed0: int, seed1: int, shape, device="cpu"):

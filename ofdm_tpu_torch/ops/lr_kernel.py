@@ -10,14 +10,17 @@ subcarriers when it does.
 
 A chunk, per OFDM symbol b (the semantics of the lr branches of
 pallas_link.py:1428-1937, not its TPU layout): Philox words -> encode
-s_b -> t_b = s_b @ TailM (the block's last E time samples) -> y_b = s_b * D
-+ t_b @ Cr + t_{b-1} @ Cp -> AWGN per bin with sigma = sqrt(mp / snr_lin /
-2), mp the mean |y|^2 over the first ``slice`` symbols of b's tile times
-``pw_scale`` (n/T for ZP), plus for ZP the colored part sigma * g2 @ B^H
--> ZF / MMSE / none -> slicer -> popcount into int64 counters.  Below 512
-subcarriers every ``pstride``-th tile also runs x = s @ F_tx for the PAPR
-statistic; from 512 (``txext``) the runner supplies it from a sampled TX
-batch.  The chunk returns the JAX carry contract: a (T,) row, zero but for
+s_b -> [x sqrt(P)] -> t_b = s_b @ TailM (the block's last E time samples)
+-> y_b = s_b * D + t_b @ Cr + t_{b-1} @ Cp -> AWGN per bin with sigma =
+sqrt(mp / snr_lin / 2), mp the mean |y|^2 over the first ``slice``
+symbols of b's tile times ``pw_scale`` (n/T for ZP), plus for ZP the
+colored part sigma * g2 @ B^H -> ZF / MMSE / none -> [x the tile's
+unit-power factor] -> slicer -> popcount into int64 counters
+(``link_kernel``'s stages).  Below 512 subcarriers every ``pstride``-th
+tile also runs x = s @ F_tx for the PAPR statistic; from 512 (``txext``)
+the runner supplies it from a sampled TX batch, unless the link applies
+the power allocation: the sampled batch is unscaled, so such a link takes
+its PAPR in the run from the scaled symbols (pallas_link.py:876-887).  The chunk returns the JAX carry contract: a (T,) row, zero but for
 its last E lanes, which hold the last symbol's t.
 
 Every block-wide sum (t, the MMSE mean) runs in a fixed order that the
@@ -66,6 +69,8 @@ class LrLink:
     cg: float
     method: int
     add_noise: bool
+    apply_power: bool
+    normalize: bool
     txext: bool  # the PAPR statistic comes from the runner's sampled TX batch
     pstride: int
     tile_cap: int
@@ -113,7 +118,7 @@ def lr_link(setup, device, factors: Optional[lowrank.LRFactors] = None) -> LrLin
         raise ValueError("lr link: the low-rank factorization failed its certification")
     if f.n != n or f.tail.shape != (n, f.E):
         raise ValueError("lr link: factors of another width")
-    txext = n >= 512 and cfg.papr_stride != 1
+    txext = n >= 512 and cfg.papr_stride != 1 and not cfg.apply_power_allocation
     rank = f.noise_rank
     f32 = functools.partial(lk.f32_tensor, device=device)
     tail = np.ascontiguousarray(f.tail.T)
@@ -126,7 +131,7 @@ def lr_link(setup, device, factors: Optional[lowrank.LRFactors] = None) -> LrLin
         rank=rank,
         txext=txext,
         pstride=cfg.papr_stride or 32,
-        tile_cap=lk.lr_tile_cap(n, T, f.E, rank, txext),
+        tile_cap=lk.lr_tile_cap(n, T, f.E, rank, txext, lk.selected_passes(setup)),
         pw_scale=float(np.float32(f.pw_scale)) if cfg.prefix_type == PrefixType.ZERO else 1.0,
         tail_r=f32(tail.real),
         tail_i=f32(tail.imag),
@@ -172,10 +177,11 @@ def tails(link: LrLink, sr: torch.Tensor, si: torch.Tensor):
 
 
 def lr_planes(link: LrLink, key: Tuple[int, int], sym0: int, chunk: int, snr_lin: float,
-              device, words=None):
+              device, words=None, rows=None):
     """(tx, er, ei, tr, ti, sr, si): the chunk's TX indices, equalized points
     in slicer units, tails t and symbols, each (chunk, n) or (chunk, E) —
-    the plain chain up to the slicer.
+    the plain chain up to the slicer, the stages included (``rows``: the
+    chunk's per-lane rows).
 
     ``words`` injects integer planes in place of the Philox draw: (raw,
     u1 word, u2 word), (chunk, n) for sym0 == 0, else (chunk + 1, n) whose
@@ -183,6 +189,7 @@ def lr_planes(link: LrLink, key: Tuple[int, int], sym0: int, chunk: int, snr_lin
     link (ZP, noise on) takes two more, the g2 draws' (u1 word, u2 word),
     each (chunk, rank)."""
     n, E = link.n, link.E
+    rows = lk.stage_rows(link, rows, lk.rows_needed(link))
     tile, tiles, groups = _chunk_geometry(link, chunk)
     colored = link.add_noise and link.rank > 0
     prev = 1 if sym0 > 0 else 0
@@ -195,6 +202,8 @@ def lr_planes(link: LrLink, key: Tuple[int, int], sym0: int, chunk: int, snr_lin
     if raw.shape != (chunk + prev, n) or len(planes) != (5 if colored else 3):
         raise ValueError(f"words must be 3 ({chunk + prev}, {n}) planes (+2 (chunk, rank) for colored noise)")
     tx, sr, si = lk.encode(raw, link.q)
+    if link.apply_power:
+        sr, si = lk.scale_tx(sr, si, rows)
     tr, ti = tails(link, sr, si)
     if prev:
         tpr, tpi = tr[:-1], ti[:-1]
@@ -212,6 +221,8 @@ def lr_planes(link: LrLink, key: Tuple[int, int], sym0: int, chunk: int, snr_lin
         yr, yi = lk.awgn(yr, yi, w1, w2, chunk, tile, tiles, groups, snr_lin, link.slice,
                           link.pw_scale, extra)
     er, ei = lk.equalize(link, yr, yi, snr_lin, THREADS)
+    if link.normalize:
+        er, ei = lk.normalize_points(link, er, ei, lk.tile_norm(er, ei, chunk, tile, RUN, THREADS))
     return tx, er, ei, tr, ti, sr, si
 
 
@@ -224,16 +235,17 @@ def lr_chunk_plain(
     acc: torch.Tensor,
     psum: torch.Tensor,
     words=None,
+    rows=None,
 ):
     """Plain version of ``lr_chunk`` (same arguments, same effects);
     ``words`` as in ``lr_planes``."""
     dev = acc.device
-    tx, er, ei, tr, ti, sr, si = lr_planes(link, key, sym0, chunk, snr_lin, dev, words)
+    tx, er, ei, tr, ti, sr, si = lr_planes(link, key, sym0, chunk, snr_lin, dev, words, rows)
     lk.count_errors(link, tx, er, ei, acc)
     if not link.txext:
         tile = lk.tile_for(chunk, link.tile_cap)
-        rows = (torch.arange(chunk, device=dev) // tile) % link.pstride == 0
-        lk.add_papr(*lk.cmatmul(link.fr, link.fi, sr[rows], si[rows]), acc, psum)
+        sampled = (torch.arange(chunk, device=dev) // tile) % link.pstride == 0
+        lk.add_papr(*lk.cmatmul(link.fr, link.fi, sr[sampled], si[sampled]), acc, psum)
     carry_r = torch.zeros(link.T, dtype=torch.float32, device=dev)
     carry_i = torch.zeros_like(carry_r)
     carry_r[link.T - link.E :] = tr[-1]
@@ -265,11 +277,13 @@ def _check_link(link: LrLink, device):
 
 
 def chunk_workspace(link: LrLink, chunk: int, device):
-    """(partials, carry_r, carry_i): the scratch ``lr_chunk`` needs for
-    chunks of ``chunk`` symbols, so that a run allocates it once."""
-    _, tiles, groups = _chunk_geometry(link, chunk)
+    """(partials, carry_r, carry_i, norm partials, norm factors): the scratch
+    ``lr_chunk`` needs for chunks of ``chunk`` symbols, so that a run
+    allocates it once."""
+    tile, tiles, groups = _chunk_geometry(link, chunk)
     f32 = dict(dtype=torch.float32, device=device)
-    return torch.empty(tiles * groups, **f32), torch.empty(link.T, **f32), torch.empty(link.T, **f32)
+    return (torch.empty(tiles * groups, **f32), torch.empty(link.T, **f32), torch.empty(link.T, **f32),
+            *lk.norm_workspace(chunk, tile, RUN, device))
 
 
 def lr_chunk(
@@ -281,37 +295,37 @@ def lr_chunk(
     acc: torch.Tensor,
     psum: torch.Tensor,
     work=None,
+    rows=None,
 ):
     """One chunk of run symbols [sym0, sym0 + chunk): adds its bit errors,
     symbol errors and (below ``txext``) PAPR peak bits into ``acc`` and its
     PAPR power sum into ``psum``.  Returns the carry row (re, im): (T,),
     zero but for the last E lanes, the last symbol's t; written into
-    ``work`` (a ``chunk_workspace``) when given.
+    ``work`` (a ``chunk_workspace``) when given.  ``rows``: the stages'
+    per-lane rows (``link_kernel.stage_rows``).
 
     CUDA tensors launch the fused kernel (csrc/lr_kernel.cu): with noise on,
-    ``lr_power`` and then ``lr_main``, counted apart in
-    ``lr_chunk.power_launches`` and ``lr_chunk.launches``.  CPU tensors run
-    ``lr_chunk_plain``."""
+    ``lr_power``; then ``lr_main`` (for a link with stages its OFDM_STAGED
+    build, under ``normalize`` twice around ``norm_factors``), counted in
+    ``lr_chunk.power_launches``, ``.launches`` and ``.norm_launches``.  CPU
+    tensors run ``lr_chunk_plain``."""
     dev = acc.device
     if dev.type == "cpu":
-        return lr_chunk_plain(link, key, sym0, chunk, snr_lin, acc, psum)
+        return lr_chunk_plain(link, key, sym0, chunk, snr_lin, acc, psum, rows=rows)
     if dev.type != "cuda":
         raise ValueError(f"lr_chunk runs on cpu or cuda, not {dev}")
-    if acc.dtype != torch.int64 or acc.shape != (3,) or psum.dtype != torch.float64 or psum.shape != (1,):
-        raise ValueError("acc must be int64 (3,) and psum float64 (1,)")
-    if psum.device != dev or not (acc.is_contiguous() and psum.is_contiguous()):
-        raise ValueError("acc and psum must be contiguous on one device")
+    lk.check_accumulators(acc, psum)
     _check_link(link, dev)
     if not 1 <= chunk <= (2**31 - 1) // link.n:
         raise ValueError(f"chunk out of range: {chunk}")
     tile, tiles, groups = _chunk_geometry(link, chunk)
-    partials, carry_r, carry_i = chunk_workspace(link, chunk, dev) if work is None else work
-    for t, size in ((partials, tiles * groups), (carry_r, link.T), (carry_i, link.T)):
-        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous() or t.numel() < size:
-            raise ValueError(f"work must be chunk_workspace(link, {chunk}, {dev})")
+    work = chunk_workspace(link, chunk, dev) if work is None else work
+    lk.check_work(work, (tiles * groups, link.T, link.T, -(-chunk // RUN), tiles),
+                  f"chunk_workspace(link, {chunk}, {dev})")
+    partials, carry_r, carry_i, norm_part, norm_f = work
     from ofdm_tpu_torch import build
 
-    lib = build.load("lr_kernel")
+    lib = build.load("lr_staged" if lk.link_stages(link) else "lr_kernel")
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -330,14 +344,17 @@ def lr_chunk(
             chunk, tile, link.slice, groups, RUN,
             key[0], key[1],
             partials.data_ptr(), acc.data_ptr(), psum.data_ptr(),
-            carry_r.data_ptr(), carry_i.data_ptr(), stream,
+            carry_r.data_ptr(), carry_i.data_ptr(),
+            *lk.stage_args(link, rows, norm_part, norm_f), stream,
         )
     build.check(lib, code, "ofdm_lr_chunk")
     if link.add_noise:
         lr_chunk.power_launches += 1
+    lr_chunk.norm_launches += int(link.normalize)
     lr_chunk.launches += 1
     return carry_r, carry_i
 
 
-lr_chunk.launches = 0  # lr_main kernels launched
+lr_chunk.launches = 0  # lr_main kernels launched (the pass that counts errors)
 lr_chunk.power_launches = 0  # lr_power kernels launched
+lr_chunk.norm_launches = 0  # normalization passes (each with its norm_factors) launched

@@ -11,13 +11,13 @@ noise is added per time sample and a symbol costs three complex products
 
 A chunk, per OFDM symbol b (the semantics of pallas_link.py:1428-1937 in
 its non-fold "mm" branches, not its lane-packed TPU layout): Philox words
--> encode s_b -> x_b = s_b @ F_tx,ext (E duplicated tail columns) ->
+-> encode s_b -> [x sqrt(P)] -> x_b = s_b @ F_tx,ext (E duplicated tail columns) ->
 PAPR max and sum over x_b[:T] -> act = [x_b[:T] | x_{b-1}[T:T+E]] -> y =
 act @ C (the merged conv, T+E -> T) -> AWGN per time sample with sigma =
 sqrt(mp / snr_lin / 2), mp the mean |y|^2 over the whole tile (all its
 tile * T samples, before noise) -> Y = y @ R (overlap-add + DFT, T -> n) ->
-ZF / MMSE / none -> (SC-FDE) e @ IDFT -> slicer -> popcount into int64
-counters.  The noise of time sample j comes from counter (b, j, 0)
+ZF / MMSE / none -> (SC-FDE) e @ IDFT -> [x the tile's unit-power factor]
+-> slicer -> popcount into int64 counters (``link_kernel``'s stages).  The noise of time sample j comes from counter (b, j, 0)
 (``prng``).  The chunk returns its last symbol's x[:T], the JAX package's
 carry contract.  The previous symbol's tail is recomputed from its Philox
 words, so a chunk reads no carry: the run's symbol 0 sees zeros.
@@ -56,6 +56,8 @@ class MmLink:
     cg: float
     method: int
     add_noise: bool
+    apply_power: bool
+    normalize: bool
     is_sc: bool
     tile_cap: int
     pstride: int  # 1: every symbol feeds the PAPR statistic
@@ -99,7 +101,7 @@ def mm_link(setup, device) -> MmLink:
         T=T,
         E=E,
         is_sc=is_sc,
-        tile_cap=lk.mm_tile_cap(n, T, E, is_sc),
+        tile_cap=lk.mm_tile_cap(n, T, E, is_sc, lk.selected_passes(setup)),
         pstride=1,
         txr=lk.f32_tensor(txr, device),
         txi=lk.f32_tensor(txi, device),
@@ -129,16 +131,18 @@ def papr_samples(link: MmLink, chunk: int) -> int:
 
 
 def mm_planes(link: MmLink, key: Tuple[int, int], sym0: int, chunk: int, snr_lin: float,
-              device, words=None):
+              device, words=None, rows=None):
     """(tx, er, ei, xr, xi): the chunk's TX indices (chunk, n), equalized points
     in slicer units (chunk, n) and TX rows x (chunk, T+E) — the plain chain
-    up to the slicer.
+    up to the slicer, the stages included (``rows``: the chunk's per-lane
+    rows).
 
     ``words`` = (raw, u1 word, u2 word) injects integer planes in place of
     the Philox draw, each (chunk, T) for sym0 == 0, else (chunk + 1, T)
     whose first row is symbol sym0 - 1: the raw word is read below column
     n (and on the first row), the noise words on the chunk's rows."""
     n, T = link.n, link.T
+    rows = lk.stage_rows(link, rows, lk.rows_needed(link))
     tile, tiles, groups = _chunk_geometry(link, chunk)
     prev = 1 if sym0 > 0 else 0
     if words is None:
@@ -147,6 +151,8 @@ def mm_planes(link: MmLink, key: Tuple[int, int], sym0: int, chunk: int, snr_lin
     if not raw.shape == w1.shape == w2.shape == (chunk + prev, T):
         raise ValueError(f"words must be ({chunk + prev}, {T}) planes, got {tuple(raw.shape)}")
     tx, sr, si = lk.encode(raw[:, :n], link.q)
+    if link.apply_power:
+        sr, si = lk.scale_tx(sr, si, rows)
     xr, xi = lk.cmatmul(link.txr, link.txi, sr, si)
     if prev:
         tail_r, tail_i = xr[:1, T:], xi[:1, T:]
@@ -162,6 +168,8 @@ def mm_planes(link: MmLink, key: Tuple[int, int], sym0: int, chunk: int, snr_lin
     er, ei = lk.equalize(link, fr, fi, snr_lin)
     if link.is_sc:
         er, ei = lk.cmatmul(link.idr, link.idi, er, ei)
+    if link.normalize:
+        er, ei = lk.normalize_points(link, er, ei, lk.tile_norm(er, ei, chunk, tile, RUN))
     return tx, er, ei, xr, xi
 
 
@@ -174,11 +182,12 @@ def mm_chunk_plain(
     acc: torch.Tensor,
     psum: torch.Tensor,
     words=None,
+    rows=None,
 ):
     """Plain version of ``mm_chunk`` (same arguments, same effects);
     ``words`` as in ``mm_planes``."""
     T = link.T
-    tx, er, ei, xr, xi = mm_planes(link, key, sym0, chunk, snr_lin, acc.device, words)
+    tx, er, ei, xr, xi = mm_planes(link, key, sym0, chunk, snr_lin, acc.device, words, rows)
     lk.count_errors(link, tx, er, ei, acc)
     lk.add_papr(xr[:, :T], xi[:, :T], acc, psum)
     return xr[-1, :T].clone(), xi[-1, :T].clone()
@@ -207,13 +216,15 @@ def _check_link(link: MmLink, device):
 
 
 def chunk_workspace(link: MmLink, chunk: int, device):
-    """(y_r, y_i, partials, carry_r, carry_i): the scratch ``mm_chunk`` needs
-    for chunks of ``chunk`` symbols, so that a run allocates it once.  y
-    holds the chunk's time samples before noise, chunk * T of each plane."""
-    _, tiles, groups = _chunk_geometry(link, chunk)
+    """(y_r, y_i, partials, carry_r, carry_i, norm partials, norm factors):
+    the scratch ``mm_chunk`` needs for chunks of ``chunk`` symbols, so that
+    a run allocates it once.  y holds the chunk's time samples before
+    noise, chunk * T of each plane."""
+    tile, tiles, groups = _chunk_geometry(link, chunk)
     f32 = dict(dtype=torch.float32, device=device)
     return (torch.empty(chunk * link.T, **f32), torch.empty(chunk * link.T, **f32),
-            torch.empty(tiles * groups, **f32), torch.empty(link.T, **f32), torch.empty(link.T, **f32))
+            torch.empty(tiles * groups, **f32), torch.empty(link.T, **f32), torch.empty(link.T, **f32),
+            *lk.norm_workspace(chunk, tile, RUN, device))
 
 
 def mm_chunk(
@@ -225,39 +236,38 @@ def mm_chunk(
     acc: torch.Tensor,
     psum: torch.Tensor,
     work=None,
+    rows=None,
 ):
     """One chunk of run symbols [sym0, sym0 + chunk): adds its bit errors,
     symbol errors and PAPR peak bits into ``acc`` and its PAPR power sum
     into ``psum``.  Returns the carry row (re, im): the last symbol's TX time
     row x[:T], written into ``work`` (a ``chunk_workspace``) when given.
+    ``rows``: the stages' per-lane rows (``link_kernel.stage_rows``).
 
     CUDA tensors launch the fused kernels (csrc/mm_kernel.cu): ``mm_front``
     (TX, PAPR, conv, y before noise and the tile power partials) and then
-    ``mm_main`` (noise, RX, equalizer, slicer, counts), counted apart in
-    ``mm_chunk.front_launches`` and ``mm_chunk.launches``.  CPU tensors run
+    ``mm_main`` (noise, RX, equalizer, slicer, counts; for a link with
+    stages their OFDM_STAGED build, ``mm_main`` under ``normalize`` twice
+    around ``norm_factors``), counted in ``mm_chunk.front_launches``,
+    ``.launches`` and ``.norm_launches``.  CPU tensors run
     ``mm_chunk_plain``."""
     dev = acc.device
     if dev.type == "cpu":
-        return mm_chunk_plain(link, key, sym0, chunk, snr_lin, acc, psum)
+        return mm_chunk_plain(link, key, sym0, chunk, snr_lin, acc, psum, rows=rows)
     if dev.type != "cuda":
         raise ValueError(f"mm_chunk runs on cpu or cuda, not {dev}")
-    if acc.dtype != torch.int64 or acc.shape != (3,) or psum.dtype != torch.float64 or psum.shape != (1,):
-        raise ValueError("acc must be int64 (3,) and psum float64 (1,)")
-    if psum.device != dev or not (acc.is_contiguous() and psum.is_contiguous()):
-        raise ValueError("acc and psum must be contiguous on one device")
+    lk.check_accumulators(acc, psum)
     _check_link(link, dev)
     if not 1 <= chunk <= (2**31 - 1) // link.T:
         raise ValueError(f"chunk out of range: {chunk}")
     tile, tiles, groups = _chunk_geometry(link, chunk)
-    y_r, y_i, partials, carry_r, carry_i = chunk_workspace(link, chunk, dev) if work is None else work
-    sizes = ((y_r, chunk * link.T), (y_i, chunk * link.T), (partials, tiles * groups), (carry_r, link.T),
-             (carry_i, link.T))
-    for t, size in sizes:
-        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous() or t.numel() < size:
-            raise ValueError(f"work must be chunk_workspace(link, {chunk}, {dev})")
+    work = chunk_workspace(link, chunk, dev) if work is None else work
+    lk.check_work(work, (chunk * link.T, chunk * link.T, tiles * groups, link.T, link.T, -(-chunk // RUN),
+                         tiles), f"chunk_workspace(link, {chunk}, {dev})")
+    y_r, y_i, partials, carry_r, carry_i, norm_part, norm_f = work
     from ofdm_tpu_torch import build
 
-    lib = build.load("mm_kernel")
+    lib = build.load("mm_staged" if lk.link_stages(link) else "mm_kernel")
     sc = link.is_sc
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
@@ -273,13 +283,16 @@ def mm_chunk(
             chunk, tile, groups, RUN,
             key[0], key[1],
             y_r.data_ptr(), y_i.data_ptr(), partials.data_ptr(), acc.data_ptr(), psum.data_ptr(),
-            carry_r.data_ptr(), carry_i.data_ptr(), stream,
+            carry_r.data_ptr(), carry_i.data_ptr(),
+            *lk.stage_args(link, rows, norm_part, norm_f), stream,
         )
     build.check(lib, code, "ofdm_mm_chunk")
     mm_chunk.front_launches += 1
+    mm_chunk.norm_launches += int(link.normalize)
     mm_chunk.launches += 1
     return carry_r, carry_i
 
 
-mm_chunk.launches = 0  # mm_main kernels launched
+mm_chunk.launches = 0  # mm_main kernels launched (the pass that counts errors)
 mm_chunk.front_launches = 0  # mm_front kernels launched
+mm_chunk.norm_launches = 0  # normalization passes (each with its norm_factors) launched

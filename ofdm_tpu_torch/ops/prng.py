@@ -21,7 +21,12 @@ of its n bins: time sample j < T takes words 1 and 2 of counter
 (b lo, b hi, j, 0).  For j < n these are the words bin j already draws,
 for n <= j < T new counters that meet neither the colored draws nor the
 uniform-word stream below; ``link_words(key, sym0, count, T)`` is the
-plain draw, and the mm chain reads its raw word only below column n.  A
+plain draw, and the mm chain reads its raw word only below column n.  The
+noise-bump study's post-equalization noise (the diag chain's post_noise
+stage) draws one complex normal a bin after the equalizer: bin k takes
+words 1 and 2 of counter (b lo, b hi, k, 3) (``post_noise_words``), a
+fourth value of the last counter word that meets none of the streams of
+c3 = 0 (bins, time samples), 1 (colored draws) or 2 (uniform words).  A
 draw therefore depends on neither the chunking nor the launch geometry.
 
 ``random_u32`` (the counterpart of ``ofdm_tpu.ops.prng.random_u32``, whose
@@ -90,6 +95,21 @@ def noise_words(key: Tuple[int, int], sym0: int, count: int, r: int, device="cpu
     j = torch.arange(r, dtype=torch.int64, device=device)[None, :]
     one = torch.ones((), dtype=torch.int64, device=device)
     _, w1, w2, _ = philox4x32_10(b & M32, b >> 32, j, one, key)
+    return w1, w2
+
+
+# The last counter word of the post-EQ noise stream.
+POST_NOISE_STREAM = 3
+
+
+def post_noise_words(key: Tuple[int, int], sym0: int, count: int, n: int, device="cpu"):
+    """(u1 word, u2 word), each (count, n) int64: the post-equalization
+    noise draws of run symbols [sym0, sym0 + count), counter
+    (b lo, b hi, k, 3)."""
+    b = torch.arange(sym0, sym0 + count, dtype=torch.int64, device=device)[:, None]
+    k = torch.arange(n, dtype=torch.int64, device=device)[None, :]
+    c3 = torch.full((), POST_NOISE_STREAM, dtype=torch.int64, device=device)
+    _, w1, w2, _ = philox4x32_10(b & M32, b >> 32, k, c3, key)
     return w1, w2
 
 

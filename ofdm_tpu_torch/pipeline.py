@@ -27,16 +27,20 @@ the keys of the JAX runner's.
 
 All take square QAM and power-of-two PSK, fixed or with CAPACITY_BASED
 per-subcarrier loading (SC-FDE fixed only), ZF / MMSE / no equalizer, AWGN
-or no noise, and neither power switch.  Every other configuration prepares
-as in the JAX package but raises NotImplementedError at ``kernel_mode`` (and
-so at ``LinkRunner``), naming the ROADMAP item that will bring it; nothing
-falls back to a slower path.
+or no noise, and both power switches: ``apply_power_allocation`` scales the
+TX symbols by sqrt(P) per subcarrier (P the point's allocation, which
+sums to 1, or to n under adaptive loading) and ``normalize_before_demap``
+scales the equalized points to unit mean power per tile before the demap
+(the kernels' ``apply_power`` and ``normalize`` stages).  Every other
+configuration prepares as in the JAX package but raises
+NotImplementedError at ``kernel_mode`` (and so at ``LinkRunner``), naming
+the ROADMAP item that will bring it; nothing falls back to a slower path.
 
 Reference quirks kept (SURVEY §3.2): the equalizer's H comes from the
 *un-normalized* impulse response while the channel convolves the
-unit-energy taps; power allocation is computed and reported but not
-applied; noise power follows the measured signal power; MMSE re-estimates
-the noise variance per OFDM symbol.
+unit-energy taps; power allocation is computed and reported, and applied
+only under ``apply_power_allocation``; noise power follows the measured
+signal power; MMSE re-estimates the noise variance per OFDM symbol.
 """
 
 from __future__ import annotations
@@ -196,7 +200,7 @@ class _Kernel(NamedTuple):
     """One chunk kernel as the runner drives it."""
 
     link: Callable  # (setup, device) -> the link's device constants
-    chunk: Callable  # (link, key, sym0, chunk, snr_lin, acc, psum, work)
+    chunk: Callable  # (link, key, sym0, chunk, snr_lin, acc, psum, work, rows)
     workspace: Callable  # (link, chunk, device) -> the chunk's scratch
     papr_samples: Callable  # (link, chunk) -> time samples the PAPR statistic sees
 
@@ -219,9 +223,6 @@ def kernel_mode(setup: LinkSetup) -> str:
     other link."""
     cfg = setup.cfg
     n = cfg.num_subcarriers
-    if cfg.apply_power_allocation or cfg.normalize_before_demap:
-        raise _unported("apply_power_allocation / normalize_before_demap (ROADMAP modules item 9, "
-                        "with the noise-bump stages)")
     if setup.is_adaptive and cfg.modulation_type == ModulationType.SC_OFDM:
         raise _unported("SC-FDE with adaptive loading (ROADMAP modules item 8b)")
     zp = cfg.prefix_type == PrefixType.ZERO
@@ -321,9 +322,10 @@ class LinkRunner:
     def point_params(self, snr_db: float):
         """(power_allocation, water_level) for an SNR point — host f64.
 
-        Fixed mode computes (but does not apply) a total_power=1.0
-        allocation per point (simulation/models.py:483-501); adaptive mode
-        keeps the setup's, from which its orders were loaded."""
+        Fixed mode computes a total_power=1.0 allocation per point
+        (simulation/models.py:483-501), applied only under
+        apply_power_allocation; adaptive mode keeps the setup's, from which
+        its orders were loaded."""
         s = self.setup
         if s.is_adaptive or s.cfg.power_allocation_type != PowerAllocationType.WATERFILLING:
             return s.power_allocation, s.water_level
@@ -466,6 +468,11 @@ class LinkRunner:
         elif s.is_adaptive and snr_db != s.cfg.snr_db:
             raise ValueError("Adaptive bit loading is SNR-dependent; prepare() a new setup per point.")
         power_allocation, water_level = self.point_params(snr_db)
+        # The apply_power stage's row: f32(sqrt(P)) of this point
+        # (ofdm_tpu/pipeline.py:944-946), written to the device once.
+        rows = None
+        if s.cfg.apply_power_allocation:
+            rows = torch.tensor(np.sqrt(power_allocation)[None], dtype=torch.float32, device=self.device)
         key = prng.key_words(seed)
         snr_lin = lk.snr_linear(snr_db)
         B = s.num_ofdm_symbols
@@ -481,7 +488,7 @@ class LinkRunner:
             size = min(chunk, B - sym0)
             if size not in works and self.device.type == "cuda":
                 works[size] = self.kernel.workspace(self.link, size, self.device)
-            self.kernel.chunk(self.link, key, sym0, size, snr_lin, acc, psum, works.get(size))
+            self.kernel.chunk(self.link, key, sym0, size, snr_lin, acc, psum, works.get(size), rows)
             papr_count += self.kernel.papr_samples(self.link, size)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)

@@ -166,16 +166,33 @@ def test_random_words_match_jax_oracle(extra, chunk):
     assert psum == pytest.approx(jsum, rel=1e-5)
 
 
+def _unit_ir(taps):
+    rng = np.random.default_rng(3)
+    ir = rng.standard_normal(taps) + 1j * rng.standard_normal(taps)
+    return ir / np.linalg.norm(ir)
+
+
 @pytest.mark.parametrize(
-    "n,order,tile",
-    [(64, 64, 8192), (256, 64, 4096), (256, 1024, 4096)],
-    ids=["n64", "n256", "n256_1024qam"],
+    "n,order,tile,extra,taps",
+    [
+        (64, 64, 8192, {}, None),
+        (256, 64, 4096, {}, None),
+        (256, 1024, 4096, {}, None),
+        # 1024-QAM stages three bf16 passes in the JAX planner: T = 156 and
+        # 309 lie just past a tile step there (one pass would give 8192 and 4096)
+        (128, 1024, 4096, {}, 29),
+        (256, 1024, 2048, {}, 54),
+    ],
+    ids=["n64", "n256", "n256_1024qam", "n128_t156_1024qam", "n256_t309_1024qam"],
 )
-def test_tile_matches_jax_spec_where_the_cap_binds(n, order, tile):
+def test_tile_matches_jax_spec_where_the_cap_binds(n, order, tile, extra, taps):
     # 2^17 divides by every ladder tile, so the cap alone picks the tile
-    kw = dict(HEADLINE, num_symbols=n * 1024, num_subcarriers=n, constellation_order=order)
-    jr = jpl.LinkRunner(jpl.prepare(jcfg.SimulationConfig(**kw, engine="planar", hotpath="pallas")))
-    link = lk.diag_link(tpl.prepare(tcfg.SimulationConfig(**kw)), "cpu")
+    kw = dict(HEADLINE, num_symbols=n * 1024, num_subcarriers=n, constellation_order=order, **extra)
+    ir = None if taps is None else _unit_ir(taps)
+    jr = jpl.LinkRunner(jpl.prepare(jcfg.SimulationConfig(**kw, engine="planar", hotpath="pallas"), ir))
+    setup = tpl.prepare(tcfg.SimulationConfig(**kw), ir)
+    link = lk.diag_link(setup, "cpu")
+    assert tpl.kernel_mode(setup) == "diag"
     assert lk.tile_for(1 << 17, link.tile_cap) == pk._spec_for(jr, 1 << 17, True).tile == tile
 
 
@@ -242,8 +259,11 @@ def test_runner_needs_cuda_or_an_explicit_cpu():
         # a single-tap channel past 256 subcarriers: the JAX package keeps diag
         dict(channel_model="flat_fading", num_subcarriers=1024, num_symbols=1024 * 16),
         dict(num_subcarriers=512, num_symbols=512 * 16),
-        dict(apply_power_allocation=True),
-        dict(normalize_before_demap=True),
+        # the power switches run on every kernel now; these links still raise
+        # for their other part: adaptive SC-FDE (item 8b), ISI-free 384 sc (6b)
+        dict(apply_power_allocation=True, modulation_type="SC-OFDM", adaptive_modulation_mode="CAPACITY_BASED",
+             power_allocation_type="WATERFILLING", num_symbols=16),
+        dict(normalize_before_demap=True, num_subcarriers=384, num_symbols=384 * 16),
     ],
     ids=["psk", "scfde", "zp", "flat_fading_1024sc", "n512", "apply_power", "normalize"],
 )
@@ -254,13 +274,17 @@ def test_unsupported_configs_raise(extra):
 
 
 def test_adaptive_and_capture_raise():
-    # adaptive loading with the TX power applied (ROADMAP item 9)
+    # adaptive loading with the TX power applied runs (its allocation sums
+    # to n); symbol capture still raises (ROADMAP item 10)
     setup = tpl.prepare(tcfg.SimulationConfig(**dict(
         HEADLINE, num_symbols=64, adaptive_modulation_mode="CAPACITY_BASED",
         power_allocation_type="WATERFILLING", apply_power_allocation=True)))
-    with pytest.raises(NotImplementedError, match="ROADMAP modules item 9"):
-        tpl.LinkRunner(setup, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    runner = tpl.LinkRunner(setup, device="cpu")
+    assert runner.mode == "diag" and runner.link.q.mode == "aqam" and runner.link.apply_power
+    assert np.sum(setup.power_allocation) == pytest.approx(64.0)
+    r = runner.run(0)
+    assert 0.0 <= r["bit_error_rate"] < 0.05 and r["total_bits"] == setup.bits_per_ofdm_symbol * 64
+    with pytest.raises(NotImplementedError, match="ROADMAP modules item 10"):
         _port_runner(64).run(0, collect_symbols=16)
 
 
