@@ -30,10 +30,17 @@ kernel) against its plain version, the noise-bump study's fused campaign
 (``run_noise_bump_experiment``: the JAX package's ``_FusedLink``
 configuration, 3 scenarios x 7 SNR points at 2^24 OFDM symbols a point,
 through the diag kernel with all four stages) and one waterfilling link
-a chain with both switches through ``LinkRunner``.  For each path it
-checks the BER gate or band, the SNR sweep and the launch counters, reads
-the profiler's busy share, and times the kernel beside its plain version
-and its bound.  Any failed check raises.
+a chain with both switches through ``LinkRunner``; then K5 (the
+normal-pair kernel) and K4's plane form against their plain versions and
+the moment gate, symbol capture (``run(collect_symbols=4096)``) through
+each chain's dump stage on seven links and once over a whole 2^17-symbol
+chunk, the eager chain (the links no kernel takes: three of
+tools/shape_audit.py's shapes, a 1024-sc flat channel, the headline with
+hotpath "xla") at 2^20 OFDM symbols each, and the noise-bump study's
+eager-only campaign (``_Link``, 21 points x 2048 OFDM symbols).  For each
+path it checks the BER gate or band, the SNR sweep and the launch
+counters, reads the profiler's busy share, and times the kernel beside
+its plain version and its bound.  Any failed check raises.
 
 Output: findings on earlier lines; then the kernels JSON line, the card's
 ``nvidia-smi`` name and power limit, and as the last line
@@ -874,13 +881,34 @@ CODEC_LINKS = {
                                                    prefix_type="ZERO")),
     "adapt_psk_wf_zp1.0_64": ("mm", "apsk", dict(_APSK, prefix_type="ZERO")),
 }
+# The eager chain at full width (2^20 OFDM symbols each, chunks of 2^17):
+# tools/shape_audit.py's three shapes no kernel of the port takes, on the
+# audit's base; the two 1024-sc SC-FDE shapes again at 20 dB (at 30 dB the
+# JAX readings hold 0 and 3 errors, so those two bands cannot fail; at 20 dB
+# 64-QAM errs and the band holds the SC-FDE eager chain to the reference);
+# a 1024-sc single-tap CP link (at 20 dB, where 64-QAM over a flat channel
+# makes errors); the headline with hotpath "xla".  Each BER
+# is held at z = 5 against the JAX package's XLA reading on a CPU
+# (jax_band_readings.py, 2^24 / n OFDM symbols).
+EAGER_SYMBOLS = 1 << 20
+EAGER_LINKS = {
+    "OFDM-CY1.0-512": dict(AUDIT_BASE, num_subcarriers=512),
+    "SC-CY1.0-1024": dict(AUDIT_BASE, num_subcarriers=1024, modulation_type="SC-OFDM"),
+    "SC-ZE1.0-1024": dict(AUDIT_BASE, num_subcarriers=1024, modulation_type="SC-OFDM", prefix_type="ZERO"),
+    "SC-CY1.0-1024_20db": dict(AUDIT_BASE, num_subcarriers=1024, modulation_type="SC-OFDM", snr_db=20.0),
+    "SC-ZE1.0-1024_20db": dict(AUDIT_BASE, num_subcarriers=1024, modulation_type="SC-OFDM", prefix_type="ZERO",
+                               snr_db=20.0),
+    "flat_fading_cp_1024sc": dict(AUDIT_BASE, num_subcarriers=1024, channel_model="flat_fading", snr_db=20.0),
+    "headline_xla": dict(HEADLINE_KW, hotpath="xla"),
+}
 # The BER bands: the audit's PSK and adaptive links (the JAX package routes
 # them diag, fold, diag, lr, diag) and the reference's adaptive config at 15
 # and 25 dB, each held at z = 5 against the JAX package's reading of the same
 # config: (bit errors, bits), XLA path, on a CPU, seed jax.random.PRNGKey(0),
 # 2^18 OFDM symbols (jax_band_readings.py).  JAX_CPU_READINGS also holds the
-# readings of STAGED_BAND_LINKS (the same way) and of each noise-bump point
-# (the JAX package's _Link on a CPU at 2^16 OFDM symbols).
+# readings of STAGED_BAND_LINKS (the same way), of EAGER_LINKS (the same
+# way at 2^24 / n OFDM symbols) and of each noise-bump point (the JAX
+# package's _Link on a CPU at 2^16 OFDM symbols).
 BAND_LINKS = {
     "psk8_cp1.0_64": ("diag", _PSK8),
     "psk8_cp0.34_64": ("fold", dict(_PSK8, prefix_length_ratio=0.34)),
@@ -955,6 +983,13 @@ JAX_CPU_READINGS = {
     "noise_bump_wf_plus6_20db": (10013329, 25165824),
     "noise_bump_wf_plus6_25db": (7027480, 25165824),
     "noise_bump_wf_plus6_30db": (4356699, 25165824),
+    "OFDM-CY1.0-512": (419, 100663296),
+    "SC-CY1.0-1024": (0, 100663296),
+    "SC-ZE1.0-1024": (3, 100663296),
+    "flat_fading_cp_1024sc": (994741, 100663296),
+    "headline_xla": (1915505, 100663296),
+    "SC-CY1.0-1024_20db": (1969562, 100663296),
+    "SC-ZE1.0-1024_20db": (1971122, 100663296),
 }
 
 
@@ -992,14 +1027,14 @@ def chains():
     }
 
 
-def band(name, r):
+def band(name, r, reading="XLA path, CPU, 2^18 symbols"):
     """Hold a run's BER at z = BAND_Z against the JAX package's reading."""
     from ofdm_tpu_torch.ops import metrics as mt
 
     je, jb = JAX_CPU_READINGS[name]
     ok = mt.ber_equivalent(r["bit_errors"], r["total_bits"], je, jb, z=BAND_Z)
     print(f"band {name}: BER {r['bit_error_rate']} ({r['bit_errors']} / {r['total_bits']}) vs the JAX "
-          f"package's {je / jb} ({je} / {jb}; XLA path, CPU, 2^18 symbols) z={BAND_Z}: {'inside' if ok else 'OUTSIDE'}")
+          f"package's {je / jb} ({je} / {jb}; {reading}) z={BAND_Z}: {'inside' if ok else 'OUTSIDE'}")
     if not ok:
         raise AssertionError(f"{name}: BER {r['bit_error_rate']} outside its band around {je / jb}")
 
@@ -1232,12 +1267,13 @@ def noise_bump_path(card, device, headline_ms, err):
     from ofdm_tpu_torch.ops import metrics as mt
 
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tmp", "noise_bump")  # gitignored
-    nb.run_noise_bump_experiment((15.0,), MAIN_CHUNK, results_dir=out_dir, seed=1, chunk=MAIN_CHUNK)  # warm-up
+    nb.run_noise_bump_experiment((15.0,), fused_symbols_per_point=MAIN_CHUNK, results_dir=out_dir, seed=1,
+                                 chunk=MAIN_CHUNK)  # warm-up
     torch.cuda.synchronize()
     lk.diag_chunk.launches = lk.diag_chunk.norm_launches = lk.diag_chunk.power_launches = 0
     t0 = time.perf_counter()
-    res = nb.run_noise_bump_experiment(NOISE_BUMP_SNRS, NOISE_BUMP_SYMBOLS, results_dir=out_dir,
-                                       seed=NOISE_BUMP_SEED, chunk=MAIN_CHUNK)
+    res = nb.run_noise_bump_experiment(NOISE_BUMP_SNRS, fused_symbols_per_point=NOISE_BUMP_SYMBOLS,
+                                       results_dir=out_dir, seed=NOISE_BUMP_SEED, chunk=MAIN_CHUNK)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = (lk.diag_chunk.launches, lk.diag_chunk.norm_launches, lk.diag_chunk.power_launches)
@@ -1348,6 +1384,306 @@ def staged_path(card, device, err):
                         "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
                         "bound_by": "operations", "library_ms": None})
     return entries
+
+
+# --- symbol capture, the eager chain and its two Philox kernels ----------------------
+
+# K5's math per element beyond Philox: two 24-bit conversions, logf (~20),
+# sqrtf (~8), sincosf's reduction and two polynomials (~16) and four
+# multiplies (an estimate, as OPS_PER_BIN).
+NORMAL_OPS = 50
+CAPTURE_COLLECT = 4096
+EAGER_READING = "XLA path, CPU, 2^24 / n OFDM symbols"
+NOISE_BUMP_EAGER_SYMBOLS = 2048  # _Link's batch, the JAX package's default
+
+
+def normal_entries(card, device):
+    """K5 (``prng.normal_planes``) against its plain version on a (2^15, 128)
+    plane and at every shape the main path draws (each eager link's
+    (2^17, T) AWGN planes, ``_Link``'s (2048, 64) post-EQ noise), the moment
+    gate on its planes, K4's plane form (``prng.philox_plane``) bit-equal to
+    its plain version and to ``link_words``' word 0 at sym0 > 2^32 at every
+    shape the main path draws (each eager link's (2^17, n) TX words,
+    ``_Link``'s (2048, 64)), and both timed at the eager chain's shapes
+    beside their plain versions, bounds and torch.randn.  Returns the two
+    kernels-line entries (launches filled in later)."""
+    import torch
+
+    from ofdm_tpu_torch.config import SimulationConfig
+    from ofdm_tpu_torch.ops import prng
+    from ofdm_tpu_torch.pipeline import prepare
+
+    key = NOISE_SEEDS
+    blocks = {name: prepare(SimulationConfig(**kw, num_symbols=kw["num_subcarriers"])).block_length
+              for name, kw in EAGER_LINKS.items()}
+    widths = sorted({kw["num_subcarriers"] for kw in EAGER_LINKS.values()})
+    T = blocks["SC-CY1.0-1024"]
+    bump = (NOISE_BUMP_EAGER_SYMBOLS, 64)
+    normal_shapes = ([(NOISE_SHAPE, prng.AWGN_STREAM)] + [((MAIN_CHUNK, t), prng.AWGN_STREAM)
+                                                         for t in sorted(set(blocks.values()))]
+                     + [(bump, prng.BUMP_STREAM)])
+    err = 0.0
+    for (rows, cols), c3 in normal_shapes:
+        zk = prng.normal_planes(key, 7, rows, cols, c3, device)
+        zp = prng.normal_planes_plain(key, 7, rows, cols, c3, device)
+        e = max(float((zk[0] - zp[0]).abs().max()), float((zk[1] - zp[1]).abs().max()))
+        print(f"normal_pair ({rows}, {cols}), c3 = {c3}: kernel vs plain max abs diff {e:.3e} (tolerance 1e-5: the "
+              f"library's logf / sincosf against PyTorch's, a few ulps)")
+        if e > 1e-5:
+            raise AssertionError(f"normal_pair ({rows}, {cols}) kernel vs plain {e}")
+        err = max(err, e)
+        del zk, zp
+    ok, m = moment_gate(*prng.normal_planes(key, 0, *NOISE_SHAPE, prng.AWGN_STREAM, device))
+    print(f"normal_pair moment gate: {json.dumps(m)} ok={ok}")
+    if not ok:
+        raise AssertionError("normal_pair moment gate failed")
+    sym0 = (1 << 32) + 12345
+    plane_err = 0
+    for rows, cols in [(4096, 1024)] + [(MAIN_CHUNK, n) for n in widths] + [bump]:
+        wk = prng.philox_plane(key, sym0, rows, cols, 0, device)
+        wp = prng.philox_plane_plain(key, sym0, rows, cols, 0, device)
+        raw = prng.link_words(key, sym0, rows, cols, device)[0]
+        e = int((wk.to(torch.int64) - wp.to(torch.int64)).abs().max())
+        plane_err = max(plane_err, e)
+        if e != 0 or not torch.equal(wk.to(torch.int64) & prng.M32, raw):
+            raise AssertionError(f"philox_plane ({rows}, {cols}) differs from its plain version (max abs diff {e}) "
+                                 f"or from link_words' word 0")
+        print(f"philox_plane: ({rows}, {cols}) at sym0 {sym0} bit-equal to its plain version and to link_words' "
+              f"word 0")
+        del wk, wp, raw
+    torch.cuda.empty_cache()
+
+    elems = MAIN_CHUNK * T
+    nk = cuda_ms(lambda: prng.normal_planes(key, 0, MAIN_CHUNK, T, prng.AWGN_STREAM, device), 20)
+    npl = cuda_ms(lambda: prng.normal_planes_plain(key, 0, MAIN_CHUNK, T, prng.AWGN_STREAM, device), 2)
+    rn = cuda_ms(lambda: torch.randn((2, MAIN_CHUNK, T), device=device), 20)
+    n_ops, n_bytes = elems * (OPS_PER_BIN["philox"] + NORMAL_OPS), elems * 8
+    n_bound = max(n_ops / PEAK_OPS, n_bytes / PEAK_BYTES) * 1e3
+    words = MAIN_CHUNK * 1024
+    pk = cuda_ms(lambda: prng.philox_plane(key, 0, MAIN_CHUNK, 1024, 0, device), 20)
+    ppl = cuda_ms(lambda: prng.philox_plane_plain(key, 0, MAIN_CHUNK, 1024, 0, device), 2)
+    p_ops, p_bytes = words * OPS_PER_BIN["philox"], words * 4
+    p_bound = max(p_ops / PEAK_OPS, p_bytes / PEAK_BYTES) * 1e3
+    print(f"normal_pair at ({MAIN_CHUNK}, {T}) [{card}]: kernel {nk:.4f} ms, plain {npl:.3f} ms, bound "
+          f"{n_bound:.4f} ms ({n_ops} operations, {n_bytes} bytes); torch.randn of both planes {rn:.4f} ms "
+          f"(other numbers: for scale only)")
+    print(f"philox_plane at ({MAIN_CHUNK}, 1024) [{card}]: kernel {pk:.4f} ms, plain {ppl:.3f} ms, bound "
+          f"{p_bound:.4f} ms ({p_ops} operations, {p_bytes} bytes)")
+    torch.cuda.synchronize()
+    return [
+        {"name": "normal_pair", "route": "cuda", "source": "ofdm_tpu_torch/csrc/boxmuller.cu",
+         "replaces": "ofdm_tpu/ops/prng.py:120", "launches": None, "max_abs_err": err, "ms": nk, "plain_ms": npl,
+         "bound_ms": n_bound, "bound_by": "operations" if n_ops / PEAK_OPS >= n_bytes / PEAK_BYTES else "bytes",
+         "library_ms": None, "randn_ms": rn},
+        {"name": "philox_plane", "route": "cuda", "source": "ofdm_tpu_torch/csrc/boxmuller.cu",
+         "replaces": "ofdm_tpu/ops/prng.py:64", "launches": None, "max_abs_err": float(plane_err), "ms": pk, "plain_ms": ppl,
+         "bound_ms": p_bound, "bound_by": "operations" if p_ops / PEAK_OPS >= p_bytes / PEAK_BYTES else "bytes",
+         "library_ms": None},
+    ]
+
+
+def capture_links():
+    """(name, chain, config) of the capture checks: one link a chain at its
+    usual size (qam, and aqam on diag), a waterfilling link under both
+    switches, and the audit's 8-PSK link on fold and adaptive-PSK link on
+    mm (whose dumps write raw points)."""
+    return [
+        ("headline", "diag", headline_cfg(MAIN_SYMBOLS, MAIN_CHUNK)),
+        ("adaptive_64sc", "diag", adaptive_cfg(20.0, ADAPTIVE_SYMBOLS)),
+        ("scfde_default", "fold", scfde_cfg(MAIN_SYMBOLS, MAIN_CHUNK)),
+        ("wide_1024sc", "lr", wide_cfg(LR_SYMBOLS, MAIN_CHUNK)),
+        ("lr_1024sc_zp", "lr", wide_cfg(LR_SYMBOLS, MAIN_CHUNK, prefix_type="ZERO")),
+        ("zp_64sc", "mm", zp_cfg(MAIN_SYMBOLS, MAIN_CHUNK)),
+        ("wf_zp_64sc", "mm", zp_cfg(BAND_SYMBOLS, MAIN_CHUNK, **_WF)),
+        ("psk8_cp0.34_64", "fold", audit_cfg(BAND_SYMBOLS, MAIN_CHUNK, **BAND_LINKS["psk8_cp0.34_64"][1])),
+        ("adapt_psk_wf_zp1.0_64", "mm", audit_cfg(BAND_SYMBOLS, MAIN_CHUNK,
+                                                  **CODEC_LINKS["adapt_psk_wf_zp1.0_64"][2])),
+    ]
+
+
+def capture_check(card, device, name, chain, cfg, collect):
+    """``LinkRunner.run(seed, collect_symbols=collect)`` on one link: the run's
+    BER equals the same run's without capture to the last digit, one dump
+    launch, ``received_symbols_exact``; the points equal the plain
+    version's chunk-0 points on the card within 1e-5 and the kernel's own
+    replay bitwise; the replay counts what the plain build (and the plain
+    version) count on chunk 0.  Returns (max abs error, the runner, the
+    dump launches of the capture run)."""
+    import torch
+
+    from ofdm_tpu_torch.ops import link_kernel as lk
+    from ofdm_tpu_torch.ops import prng
+    from ofdm_tpu_torch.pipeline import LinkRunner, prepare
+
+    _, kernel, plain, _ = chains()[chain]
+    runner = LinkRunner(prepare(cfg))
+    if runner.mode != chain:
+        raise AssertionError(f"{name} routed to {runner.mode}, not {chain}")
+    r0 = runner.run(MAIN_SEED)
+    kernel.dump_launches = 0
+    r1 = runner.run(MAIN_SEED, collect_symbols=collect)
+    dumps = kernel.dump_launches
+    got = torch.from_numpy(r1["received_symbols"]).to(device)
+    if (r1["bit_error_rate"] != r0["bit_error_rate"] or r1["received_symbols_exact"] is not True or dumps != 1
+            or got.shape != (collect,)):
+        raise AssertionError(f"{name}: capture run BER {r1['bit_error_rate']} vs {r0['bit_error_rate']}, exact "
+                             f"{r1['received_symbols_exact']}, dump launches {dumps}, {tuple(got.shape)} points")
+    link = runner.link
+    n = cfg.num_subcarriers
+    chunk = runner._chunk_plan()[0]
+    key = prng.key_words(MAIN_SEED)
+    snr_lin = lk.snr_linear(cfg.snr_db)
+    rows = sqrt_power_row(runner, cfg.snr_db) if cfg.apply_power_allocation else None
+    D = lk.dump_rows(collect, n, chunk)
+    counts = {}
+    points = {}
+    for what, fn, dump in (("replay", kernel, lk.new_dump(D, n, device)), ("plain build", kernel, None),
+                           ("plain version", plain, lk.new_dump(D, n, device))):
+        acc, psum = lk.new_accumulators(device)
+        fn(link, key, 0, chunk, snr_lin, acc, psum, rows=rows, dump=dump)
+        torch.cuda.synchronize()
+        counts[what] = tuple(acc.tolist()[:2])
+        if dump is not None:
+            points[what] = torch.complex(dump[0], dump[1]).reshape(-1)[:collect]
+    err = float((got - points["plain version"]).abs().max())
+    print(f"capture {name} ({chain}, {link.q.mode}, stages {lk.link_stages(link)}) [{card}]: {collect} points, "
+          f"BER {r1['bit_error_rate']} with and without capture; max abs diff to the plain version's chunk-0 "
+          f"points {err:.3e}; chunk-0 counts replay {counts['replay']}, plain build {counts['plain build']}, "
+          f"plain version {counts['plain version']}")
+    if not torch.equal(got, points["replay"]):
+        raise AssertionError(f"{name}: run()'s capture differs from the kernel's replay")
+    if err > 1e-5:
+        raise AssertionError(f"{name}: dump vs plain {err}")
+    if not counts["replay"] == counts["plain build"] == counts["plain version"]:
+        raise AssertionError(f"{name}: chunk-0 counts {counts}")
+    return err, runner, dumps
+
+
+def capture_path(card, device):
+    """Capture on every chain (``capture_check``), once more over a whole
+    headline chunk, then each chain's chunk with the dump stage timed on
+    its first link.  Returns the four dump entries of the kernels line."""
+    import torch
+
+    from ofdm_tpu_torch.ops import link_kernel as lk
+
+    chains_ = chains()
+    errs, firsts, launches = {}, {}, {}
+    links = [(name, chain, cfg, CAPTURE_COLLECT) for name, chain, cfg in capture_links()]
+    links.append(("headline (a whole chunk)", "diag", headline_cfg(MAIN_SYMBOLS, MAIN_CHUNK), MAIN_CHUNK * 64))
+    for name, chain, cfg, collect in links:
+        err, runner, dumps = capture_check(card, device, name, chain, cfg, collect)
+        errs[chain] = max(errs.get(chain, 0.0), err)
+        launches[chain] = launches.get(chain, 0) + dumps
+        firsts.setdefault(chain, (runner, cfg))
+    entries = []
+    for chain, (runner, cfg) in firsts.items():
+        _, kernel, plain, _ = chains_[chain]
+        link = runner.link
+        n = cfg.num_subcarriers
+        snr_lin = lk.snr_linear(cfg.snr_db)
+        acc, psum = lk.new_accumulators(device)
+        work = runner.kernel.workspace(link, MAIN_CHUNK, device)
+        D = lk.dump_rows(CAPTURE_COLLECT, n, MAIN_CHUNK)
+        dump = lk.new_dump(D, n, device)
+        k_ms = cuda_ms(lambda: kernel(link, (3, 4), 0, MAIN_CHUNK, snr_lin, acc, psum, work, dump=dump), 20)
+        p_ms = cuda_ms(lambda: plain(link, (3, 4), 0, MAIN_CHUNK, snr_lin, acc, psum, dump=dump), 2)
+        base_ms = cuda_ms(lambda: kernel(link, (3, 4), 0, MAIN_CHUNK, snr_lin, acc, psum, work), 20)
+        ops = staged_operations(chain, link, MAIN_CHUNK)[0] + 2 * D * n
+        dump_bytes = 8 * D * n
+        bound = max(ops / PEAK_OPS, dump_bytes / PEAK_BYTES) * 1e3
+        print(f"{chain}_chunk with the dump stage ({D} rows) at {MAIN_CHUNK} symbols [{card}]: kernel {k_ms:.4f} ms "
+              f"(the plain build {base_ms:.4f} ms), plain {p_ms:.3f} ms, bound {bound:.4f} ms ({ops} operations)")
+        entries.append({"name": f"{chain}_chunk (dump)", "route": "cuda",
+                        "source": f"ofdm_tpu_torch/csrc/{'link' if chain == 'diag' else chain}_kernel.cu",
+                        "replaces": "ofdm_tpu/ops/pallas_link.py:1986", "launches": launches[chain],
+                        "max_abs_err": errs[chain], "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
+                        "bound_by": "operations", "library_ms": None, "plain_build_ms": base_ms})
+    torch.cuda.synchronize()
+    return entries
+
+
+def eager_path(card, device, prng_entries):
+    """The eager chain at full width: each of EAGER_LINKS at 2^20 OFDM
+    symbols in chunks of 2^17 through LinkRunner (hotpath "eager", one K4
+    plane and one K5 pair a chunk, the z = 5 band, run time and the
+    profiler's busy share, the peak device memory); fills the launches of
+    ``prng_entries``."""
+    import torch
+
+    from ofdm_tpu_torch.config import SimulationConfig
+    from ofdm_tpu_torch.ops import prng
+    from ofdm_tpu_torch.pipeline import LinkRunner, prepare
+
+    total = {"normal_pair": 0, "philox_plane": 0}
+    for name, kw in EAGER_LINKS.items():
+        n = kw["num_subcarriers"]
+        runner = LinkRunner(prepare(SimulationConfig(**kw, num_symbols=n * EAGER_SYMBOLS,
+                                                     symbols_per_chunk=MAIN_CHUNK)))
+        if runner.mode != "eager":
+            raise AssertionError(f"{name} routed to {runner.mode}")
+        runner.run(1)  # warm-up
+        prng.normal_planes.launches = prng.philox_plane.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        r = runner.run(MAIN_SEED)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        launches = (prng.normal_planes.launches, prng.philox_plane.launches)
+        chunks = EAGER_SYMBOLS // MAIN_CHUNK
+        run_s = r["transmission_time_ms"] / 1e3
+        print(f"eager {name} [{card}]: {EAGER_SYMBOLS} OFDM symbols x {n} sc, run_s={run_s:.4f} "
+              f"ofdm_symbols_per_s={r['ofdm_symbols_per_s']:.1f} BER={r['bit_error_rate']} "
+              f"papr_db={r['papr_db']:.4f} hotpath={r['hotpath_used']} launches: normal_pair {launches[0]}, "
+              f"philox_plane {launches[1]}; peak device memory {peak_gb:.2f} GB")
+        if r["hotpath_used"] != "eager" or launches != (chunks, chunks):
+            raise AssertionError(f"eager {name}: {r['hotpath_used']}, launches {launches}, not {chunks} each")
+        band(name, r, EAGER_READING)
+        total["normal_pair"] += launches[0]
+        total["philox_plane"] += launches[1]
+        print_profile(card, f"eager {name}", profile_run(runner, kw["snr_db"]))
+    for e in prng_entries:
+        e["launches"] = total[e["name"]]
+
+
+def eager_noise_bump_path(card, device):
+    """The noise-bump study's eager-only campaign (``_Link``, 2048 OFDM symbols
+    a point, 21 points): the reference curves' gate, z = 5 against the JAX
+    package's ``_Link`` readings, one K4 plane and one K5 pair a point."""
+    import torch
+
+    from ofdm_tpu_torch.experiments import noise_bump as nb
+    from ofdm_tpu_torch.ops import metrics as mt
+    from ofdm_tpu_torch.ops import prng
+
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tmp", "noise_bump_eager")  # gitignored
+    nb.run_noise_bump_experiment((15.0,), NOISE_BUMP_EAGER_SYMBOLS, results_dir=out_dir, seed=1,
+                                 fused_symbols_per_point=0)  # warm-up
+    torch.cuda.synchronize()
+    prng.normal_planes.launches = prng.philox_plane.launches = 0
+    t0 = time.perf_counter()
+    res = nb.run_noise_bump_experiment(NOISE_BUMP_SNRS, NOISE_BUMP_EAGER_SYMBOLS, results_dir=out_dir,
+                                       seed=NOISE_BUMP_SEED, fused_symbols_per_point=0)
+    wall = time.perf_counter() - t0
+    points = len(nb.SCENARIOS) * len(NOISE_BUMP_SNRS)
+    launches = (prng.normal_planes.launches, prng.philox_plane.launches)
+    print(f"noise_bump eager campaign [{card}]: {points} points x {NOISE_BUMP_EAGER_SYMBOLS} OFDM symbols in "
+          f"{wall:.4f} s; launches normal_pair {launches[0]}, philox_plane {launches[1]}")
+    if launches != (points, points):
+        raise AssertionError(f"noise_bump eager campaign launched {launches}, not {points} each")
+    bits = NOISE_BUMP_EAGER_SYMBOLS * 64 * 6
+    for scenario in nb.SCENARIOS:
+        bers = res[scenario.name]
+        print(f"noise_bump eager {scenario.key} BER at {list(NOISE_BUMP_SNRS)} dB: {bers}")
+        for snr, ber in zip(NOISE_BUMP_SNRS, bers):
+            je, jb = JAX_CPU_READINGS[noise_bump_name(scenario.key, snr)]
+            if not mt.ber_equivalent(int(round(ber * bits)), bits, je, jb, z=BAND_Z):
+                raise AssertionError(f"noise_bump eager {scenario.key} {snr} dB: BER {ber} outside z={BAND_Z} of "
+                                     f"the JAX package's _Link reading {je / jb}")
+        for snr, ref in zip((0.0, 15.0, 30.0), NOISE_BUMP_REFERENCE[scenario.key]):
+            got = bers[NOISE_BUMP_SNRS.index(snr)]
+            if not abs(got - ref) < NOISE_BUMP_TOL:
+                raise AssertionError(f"noise_bump eager {scenario.key} {snr} dB: BER {got} vs reference {ref}")
+    print(f"noise_bump eager: every point inside z={BAND_Z} of the JAX package's _Link reading; 0 / 15 / 30 dB "
+          f"within {NOISE_BUMP_TOL} of the reference curves")
 
 
 def main():
@@ -1475,6 +1811,13 @@ def main():
     bump = noise_bump_path(card, device, dk_ms, stage_err)
     staged = staged_path(card, device, stage_err)
 
+    # 12. K5 and K4's plane form; capture through the dump stage on every
+    # chain; the eager chain at full width; the noise-bump eager campaign
+    prng_entries = normal_entries(card, device)
+    dumps = capture_path(card, device)
+    eager_path(card, device, prng_entries)
+    eager_noise_bump_path(card, device)
+
     kernels = [
         {"name": "diag_chunk", "route": "cuda", "source": "ofdm_tpu_torch/csrc/link_kernel.cu",
          "replaces": "ofdm_tpu/ops/pallas_link.py:1986", "launches": main_launches,
@@ -1492,6 +1835,8 @@ def main():
         aqam,
         bump,
         *staged,
+        *prng_entries,
+        *dumps,
     ]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -7,11 +7,13 @@ links), the reference's adaptive config at 15 / 20 / 25 dB and
 ``chip_smoke.STAGED_BAND_LINKS`` (a waterfilling link a chain with
 ``apply_power_allocation`` and ``normalize_before_demap``) through the
 JAX package's XLA path on the CPU, seed ``jax.random.PRNGKey(0)``, 2^18
-OFDM symbols in chunks of 4096; then every point of the noise-bump study
+OFDM symbols in chunks of 4096; ``chip_smoke.EAGER_LINKS`` the same way at
+2^24 / n OFDM symbols (2^14 at 1024 subcarriers) in chunks of 2^20 / n;
+then every point of the noise-bump study
 (3 scenarios x SNR 0, 5, ..., 30 dB) through the JAX package's ``_Link``
 at 2^16 OFDM symbols a point, key ``fold_in(PRNGKey(42), 1000 s + p)`` as
 its campaign draws them.  Prints ``{name: [bit errors, bits]}``: the
-values of ``chip_smoke.JAX_CPU_READINGS``.  About 4 min on one CPU.
+values of ``chip_smoke.JAX_CPU_READINGS``.  About 6 min on one CPU.
 """
 
 import json
@@ -20,7 +22,7 @@ import sys
 
 import jax
 
-from chip_smoke import (ADAPTIVE_CONFIG, AUDIT_BASE, BAND_LINKS, NOISE_BUMP_SNRS, STAGED_BAND_LINKS,
+from chip_smoke import (ADAPTIVE_CONFIG, AUDIT_BASE, BAND_LINKS, EAGER_LINKS, NOISE_BUMP_SNRS, STAGED_BAND_LINKS,
                         noise_bump_name)
 from ofdm_tpu.config import SimulationConfig
 from ofdm_tpu.experiments import noise_bump as nb
@@ -30,6 +32,7 @@ from ofdm_tpu.pipeline import LinkRunner, prepare
 SYMBOLS = 1 << 18
 CHUNK = 4096
 NOISE_BUMP_SYMBOLS = 1 << 16
+EAGER_BITS_SPAN = 1 << 24  # subcarriers x OFDM symbols of each EAGER_LINKS reading
 
 
 def reading(cfg):
@@ -52,6 +55,10 @@ def main():
     for name, (_, kw) in STAGED_BAND_LINKS.items():
         out[name] = reading(SimulationConfig(**kw, num_symbols=SYMBOLS * kw["num_subcarriers"],
                                              symbols_per_chunk=CHUNK))
+    for name, kw in EAGER_LINKS.items():
+        n = kw["num_subcarriers"]
+        out[name] = reading(SimulationConfig(**dict(kw, num_symbols=n * (EAGER_BITS_SPAN // n),
+                                                    symbols_per_chunk=(1 << 20) // n)))
     link = nb._Link(NOISE_BUMP_SYMBOLS, 64, 64, chm.get_channel("Lin-Phoong_P2"))
     key = jax.random.PRNGKey(42)
     bits = NOISE_BUMP_SYMBOLS * 64 * 6

@@ -47,8 +47,8 @@ NVCC_FLAGS = (
 
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 # The stage arguments of every chunk entry point: rows, stage bits, the
-# normalization partials and factors.
-_STAGES = [_P, _I, _P, _P]
+# normalization partials and factors, the dump planes and their rows.
+_STAGES = [_P, _I, _P, _P, _P, _P, _I]
 # The C entry points of each source's libraries with their (argtypes,
 # restype), set once when a library loads.
 SIGNATURES = {
@@ -83,6 +83,8 @@ SIGNATURES = {
     "boxmuller": {
         "ofdm_boxmuller": ([_P, _P, ctypes.c_longlong, _U, _U, _P], _I),
         "ofdm_philox": ([_P, ctypes.c_longlong] + [_U] * 4 + [_P], _I),
+        "ofdm_philox_plane": ([_P, ctypes.c_longlong, _I, ctypes.c_ulonglong] + [_U] * 3 + [_P], _I),
+        "ofdm_normal_pair": ([_P, _P, ctypes.c_longlong, _I, ctypes.c_ulonglong] + [_U] * 3 + [_P], _I),
     },
 }
 

@@ -144,9 +144,13 @@ class SimulationConfig:
     # packages.  The port reads symbols_per_chunk (OFDM symbols per kernel
     # launch; 0 = one chunk), papr_stride (the PAPR statistic runs on every
     # papr_stride-th tile of a chunk; 0 = auto = 32, 1 = every tile), the
-    # two power switches, and matmul_passes only for the JAX planner's tile
-    # rule (link_kernel.selected_passes).  dtype, engine and hotpath select
-    # JAX/TPU paths: the port has one path, f32 throughout, and ignores them.
+    # two power switches, hotpath, and matmul_passes only for the JAX
+    # planner's tile rule (link_kernel.selected_passes).  hotpath "auto" or
+    # "pallas" runs a link on its chunk kernel where one takes it; any other
+    # value ("xla", "matmul", ...) sends it to the eager chain, as the JAX
+    # package sends it to chunk_body (pipeline.kernel_mode).  dtype and
+    # engine select JAX/TPU paths: the port runs f32 / complex64 and ignores
+    # them.
     dtype: str = "complex64"
     engine: str = "auto"
     symbols_per_chunk: int = 0

@@ -167,7 +167,7 @@ __global__ void __launch_bounds__(kThreads) fold_power(Link L, float* partials) 
 
 // The chain per symbol; with kStaged, the stages (phase 0 of a normalized
 // link writes its run's |e|^2 partial instead of counting).
-template <int J, int kMode, bool kStaged>
+template <int J, int kMode, bool kStaged, bool kDump = false>
 __global__ void __launch_bounds__(kThreads)
     fold_main(Link L, const float* partials, unsigned long long* acc, double* psum,
               float* carry_r, float* carry_i) {
@@ -268,7 +268,10 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < J; ++j) {
         const int k = lane + 32 * j;
-        if (k < L.n) ofdm::count_bin<kMode>(tx[j], er[j], ei[j], L.q, L.lanes, k, be, se);
+        if (k < L.n) {
+          ofdm::dump_bin<kMode, kDump>(L, b, k, er[j], ei[j]);
+          ofdm::count_bin<kMode>(tx[j], er[j], ei[j], L.q, L.lanes, k, be, se);
+        }
       }
     }
     if constexpr (kStaged) {
@@ -283,10 +286,14 @@ template <int J, int kMode>
 cudaError_t launch(const Link& L, float* partials, unsigned long long* acc, double* psum,
                    float* cr, float* ci, cudaStream_t stream) {
   constexpr bool kS = ofdm::kStagedBuild;
+  auto* main_kernel = &fold_main<J, kMode, kS>;
+#if OFDM_STAGED
+  if (L.st.bits & ofdm::kStageDump) main_kernel = &fold_main<J, kMode, kS, true>;
+#endif
   const int wf = warp_floats(L.n, L.T, L.E);
   const size_t main_bytes = sizeof(float) * kWarps * wf;
   const size_t power_bytes = sizeof(float) * (kPowerBlock + kWarps * wf);
-  cudaError_t err = cudaFuncSetAttribute(fold_main<J, kMode, kS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t err = cudaFuncSetAttribute(main_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(main_bytes));
   if (err != cudaSuccess) return err;
   if (L.add_noise) {
@@ -305,11 +312,11 @@ cudaError_t launch(const Link& L, float* partials, unsigned long long* acc, doub
                              [&](int phase) {
     Link P = L;
     P.st.phase = phase;
-    fold_main<J, kMode, kS><<<grid, kThreads, main_bytes, stream>>>(P, partials, acc, psum, cr, ci);
+    main_kernel<<<grid, kThreads, main_bytes, stream>>>(P, partials, acc, psum, cr, ci);
     return cudaGetLastError();
   });
 #else
-  fold_main<J, kMode, kS><<<grid, kThreads, main_bytes, stream>>>(L, partials, acc, psum, cr, ci);
+  main_kernel<<<grid, kThreads, main_bytes, stream>>>(L, partials, acc, psum, cr, ci);
   return cudaGetLastError();
 #endif
 }
@@ -352,11 +359,12 @@ int ofdm_fold_chunk(const float* txr, const float* txi, const float* cmr, const 
                     unsigned long long sym0, int chunk, int tile, int slice, int groups, int run,
                     unsigned int key0, unsigned int key1, float* partials, long long* acc,
                     double* psum, float* carry_r, float* carry_i, const float* rows, int stages,
-                    float* norm_part, float* norm_f, void* stream_ptr) {
+                    float* norm_part, float* norm_f,
+                    float* dump_r, float* dump_i, int dump_rows, void* stream_ptr) {
   if (n < 1 || n > kMaxN || T < n || E < 0 || E > T || chunk < 1 || tile < 1 || slice < 1 ||
       groups < 1 || run < 1 || tile % run != 0 || (is_sc && (idr == nullptr || idi == nullptr)) ||
       (ofdm::adaptive(mode) && (is_sc || lane_i == nullptr || lane_f == nullptr)) ||
-      !ofdm::stage_args_ok(rows, stages, norm_part, norm_f, false)) {
+      !ofdm::stage_args_ok(rows, stages, norm_part, norm_f, dump_r, dump_i, dump_rows, false)) {
     return cudaErrorInvalidValue;
   }
   if (sizeof(float) * (kPowerBlock + kWarps * warp_floats(n, T, E)) > 227 * 1024) {
@@ -386,7 +394,7 @@ int ofdm_fold_chunk(const float* txr, const float* txi, const float* cmr, const 
   L.groups = groups;
   L.run = run;
   L.key = make_uint2(key0, key1);
-  L.st = ofdm::Stages{rows, stages, 1, norm_part, norm_f};
+  L.st = ofdm::make_stages(rows, stages, norm_part, norm_f, dump_r, dump_i, dump_rows);
 
   unsigned long long* a = reinterpret_cast<unsigned long long*>(acc);
   return static_cast<int>(ofdm::with_mode(mode, [&](auto md) {

@@ -492,22 +492,36 @@ __device__ __forceinline__ void count_bin(int tx, float er, float ei, const Qam&
 
 // --- the _Spec stages (OFDM_STAGED builds) ------------------------------------------
 //
-// pallas_link._Spec's apply_power, normalize, post_noise and compensate
-// (pallas_link.py:1437-1443, 1826-1862): bits of Stages::bits.
-enum StageBit : int { kStagePower = 1, kStageNormalize = 2, kStagePostNoise = 4, kStageCompensate = 8 };
+// pallas_link._Spec's apply_power, normalize, post_noise, compensate and
+// dump (pallas_link.py:1437-1443, 1826-1879): bits of Stages::bits.
+enum StageBit : int {
+  kStagePower = 1,
+  kStageNormalize = 2,
+  kStagePostNoise = 4,
+  kStageCompensate = 8,
+  kStageDump = 16
+};
 
 // The stage fields every chunk kernel's Link carries last.  rows: (R, n)
 // per-lane rows of the chunk, [sqrt(P), 1/sqrt(P), post-EQ sigma] (R >= 1
 // with apply_power, 3 with the noise-bump stages); phase 0 is the
 // normalization pass (each warp or block writes the |e|^2 sum of its run
 // of consecutive symbols to norm_part), phase 1 the counting pass, which
-// reads each tile's factor from norm_f.
+// reads each tile's factor from norm_f.  With kStageDump the counting pass
+// writes the points of the chunk's first dump_rows symbols, in data units,
+// to the (dump_rows, n) planes dump_r / dump_i (only the staged builds
+// carry these fields, so the plain builds' kernels keep their parameters).
 struct Stages {
   const float* rows;
   int bits;
   int phase;
   float* norm_part;  // a float a run
   float* norm_f;     // a float a tile
+#if OFDM_STAGED
+  float* dump_r;
+  float* dump_i;
+  int dump_rows;
+#endif
 };
 
 // x sqrt(P) of bin k right after encode (the apply_power stage).
@@ -564,6 +578,38 @@ __device__ __forceinline__ float norm_gain(const Link& L, int k, float f) {
   } else {
     return f;
   }
+}
+
+// The dump stage (pallas_link.py:1863-1879): bin k of chunk symbol b, ready
+// for the slicer, written in data units when b is one of the first
+// dump_rows symbols: qam x f32(1 / slicer) (one rounded division, as the
+// JAX stage's f64 reciprocal rounded to f32), aqam / the lane's slicer row,
+// PSK raw.
+// The counting pass calls it just before count_bin; it changes nothing else.
+// kDump is a template parameter of the staged main kernels, instantiated
+// both ways in the staged builds and chosen at launch from kStageDump, so
+// a chunk without capture runs the staged code it had without the stage.
+template <int kMode, bool kDump, class Link>
+__device__ __forceinline__ void dump_bin(const Link& L, int b, int k, float er, float ei) {
+#if OFDM_STAGED
+  if constexpr (kDump) {
+    if (b < L.st.dump_rows) {
+      float dr = er, di = ei;
+      if constexpr (kMode == kQam) {
+        const float u = 1.0f / L.eq.slicer;
+        dr = er * u;
+        di = ei * u;
+      } else if constexpr (kMode == kAqam) {
+        const float s = __ldg(L.lanes.frow + L.lanes.n + k);
+        dr = er / s;
+        di = ei / s;
+      }
+      const long long i = static_cast<long long>(b) * L.n + k;
+      L.st.dump_r[i] = dr;
+      L.st.dump_i[i] = di;
+    }
+  }
+#endif
 }
 
 // Sum of |e|^2 over a warp's symbol (lane holds bins lane + 32 j): per-lane
@@ -873,16 +919,35 @@ cudaError_t staged_passes(int bits, const float* part, float* f, int chunk, int 
 #endif
 
 // Checks an entry point's stage arguments: none in a plain build; in a
-// staged build the rows with apply_power or the noise-bump stages and the
-// normalization scratch with normalize; the noise-bump stages only where
-// the chain has them (`post_ok`).
-inline bool stage_args_ok(const float* rows, int bits, const float* part, const float* f, bool post_ok) {
+// staged build the rows with apply_power or the noise-bump stages, the
+// normalization scratch with normalize and the dump planes with dump; the
+// noise-bump stages only where the chain has them (`post_ok`).
+inline bool stage_args_ok(const float* rows, int bits, const float* part, const float* f,
+                          const float* dump_r, const float* dump_i, int dump_rows, bool post_ok) {
   if (!kStagedBuild) return bits == 0;
-  if (bits & ~(kStagePower | kStageNormalize | kStagePostNoise | kStageCompensate)) return false;
+  if (bits & ~(kStagePower | kStageNormalize | kStagePostNoise | kStageCompensate | kStageDump)) return false;
   if ((bits & (kStagePostNoise | kStageCompensate)) && !post_ok) return false;
   if ((bits & (kStagePower | kStagePostNoise | kStageCompensate)) && rows == nullptr) return false;
   if ((bits & kStageNormalize) && (part == nullptr || f == nullptr)) return false;
+  if ((bits & kStageDump) && (dump_r == nullptr || dump_i == nullptr || dump_rows < 1)) return false;
   return true;
+}
+
+// The Stages of an entry point's arguments (the dump fields in the staged
+// builds only; the counting pass is phase 1).
+inline Stages make_stages(const float* rows, int bits, float* part, float* f, float* dump_r, float* dump_i,
+                          int dump_rows) {
+  Stages st{rows, bits, 1, part, f};
+#if OFDM_STAGED
+  st.dump_r = dump_r;
+  st.dump_i = dump_i;
+  st.dump_rows = dump_rows;
+#else
+  (void)dump_r;
+  (void)dump_i;
+  (void)dump_rows;
+#endif
+  return st;
 }
 
 }  // namespace ofdm

@@ -229,8 +229,8 @@ __global__ void __launch_bounds__(kThreads)
 // consecutive symbols (a fixed layout, so the normalization partials sum
 // in a fixed order).  Phase 0 (normalize only) writes each warp's sum of
 // |e|^2 over its run; phase 1 scales e by its tile's factor, counts, and
-// takes the PAPR statistic and the carry row.
-template <int J, int kMode>
+// takes the PAPR statistic and the carry row (and with kDump, the dump).
+template <int J, int kMode, bool kDump>
 __global__ void __launch_bounds__(kThreads)
     diag_staged(Link L, const float* partials, unsigned long long* acc, double* psum,
                 float* carry_r, float* carry_i) {
@@ -328,6 +328,7 @@ __global__ void __launch_bounds__(kThreads)
             er[j] = er[j] * m;
             ei[j] = ei[j] * m;
           }
+          ofdm::dump_bin<kMode, kDump>(L, b, k, er[j], ei[j]);
           ofdm::count_bin<kMode>(tx[j], er[j], ei[j], L.q, L.lanes, k, be, se);
         }
       }
@@ -353,6 +354,15 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   ofdm::flush_counters<kWarps>(be, se, pk, ps, acc, psum);
+}
+
+// One pass of diag_staged at width J, with the dump stage when its bit is set.
+template <int J, int kMode>
+cudaError_t staged_pass(const Link& P, int sgrid, const float* partials, unsigned long long* acc,
+                        double* psum, float* cr, float* ci, cudaStream_t stream) {
+  auto* kernel = (P.st.bits & ofdm::kStageDump) ? &diag_staged<J, kMode, true> : &diag_staged<J, kMode, false>;
+  kernel<<<sgrid, kThreads, 0, stream>>>(P, partials, acc, psum, cr, ci);
+  return cudaGetLastError();
 }
 #endif
 
@@ -385,16 +395,15 @@ cudaError_t launch(const Link& L, float* partials, unsigned long long* acc, doub
     Link P = L;
     P.st.phase = phase;
     switch ((L.n + 31) / 32) {
-      case 1: diag_staged<1, kMode><<<sgrid, kThreads, 0, stream>>>(P, partials, acc, psum, cr, ci); break;
-      case 2: diag_staged<2, kMode><<<sgrid, kThreads, 0, stream>>>(P, partials, acc, psum, cr, ci); break;
-      case 3: diag_staged<3, kMode><<<sgrid, kThreads, 0, stream>>>(P, partials, acc, psum, cr, ci); break;
-      case 4: diag_staged<4, kMode><<<sgrid, kThreads, 0, stream>>>(P, partials, acc, psum, cr, ci); break;
-      case 5: diag_staged<5, kMode><<<sgrid, kThreads, 0, stream>>>(P, partials, acc, psum, cr, ci); break;
-      case 6: diag_staged<6, kMode><<<sgrid, kThreads, 0, stream>>>(P, partials, acc, psum, cr, ci); break;
-      case 7: diag_staged<7, kMode><<<sgrid, kThreads, 0, stream>>>(P, partials, acc, psum, cr, ci); break;
-      default: diag_staged<8, kMode><<<sgrid, kThreads, 0, stream>>>(P, partials, acc, psum, cr, ci); break;
+      case 1: return staged_pass<1, kMode>(P, sgrid, partials, acc, psum, cr, ci, stream);
+      case 2: return staged_pass<2, kMode>(P, sgrid, partials, acc, psum, cr, ci, stream);
+      case 3: return staged_pass<3, kMode>(P, sgrid, partials, acc, psum, cr, ci, stream);
+      case 4: return staged_pass<4, kMode>(P, sgrid, partials, acc, psum, cr, ci, stream);
+      case 5: return staged_pass<5, kMode>(P, sgrid, partials, acc, psum, cr, ci, stream);
+      case 6: return staged_pass<6, kMode>(P, sgrid, partials, acc, psum, cr, ci, stream);
+      case 7: return staged_pass<7, kMode>(P, sgrid, partials, acc, psum, cr, ci, stream);
+      default: return staged_pass<8, kMode>(P, sgrid, partials, acc, psum, cr, ci, stream);
     }
-    return cudaGetLastError();
   });
 #else
   const int want = (L.chunk + kWarps - 1) / kWarps;
@@ -438,10 +447,10 @@ int ofdm_diag_chunk(const float* hr, const float* hi, const float* habs2, const 
                     int pstride, int carry_sym, int run, unsigned int key0, unsigned int key1,
                     float* partials, long long* acc, double* psum, float* carry_r,
                     float* carry_i, const float* rows, int stages, float* norm_part, float* norm_f,
-                    void* stream_ptr) {
+                    float* dump_r, float* dump_i, int dump_rows, void* stream_ptr) {
   if (n < 1 || n > kMaxN || chunk < 1 || tile < 1 || pstride < 1 || run < 1 || tile % run != 0 ||
       (ofdm::adaptive(mode) && (lane_i == nullptr || lane_f == nullptr)) ||
-      !ofdm::stage_args_ok(rows, stages, norm_part, norm_f, true) ||
+      !ofdm::stage_args_ok(rows, stages, norm_part, norm_f, dump_r, dump_i, dump_rows, true) ||
       (!ofdm::kStagedBuild && (chr != hr || chi != hi))) {
     return cudaErrorInvalidValue;
   }
@@ -467,7 +476,7 @@ int ofdm_diag_chunk(const float* hr, const float* hi, const float* habs2, const 
   L.chr = chr;
   L.chi = chi;
   L.run = run;
-  L.st = ofdm::Stages{rows, stages, 1, norm_part, norm_f};
+  L.st = ofdm::make_stages(rows, stages, norm_part, norm_f, dump_r, dump_i, dump_rows);
 
   unsigned long long* a = reinterpret_cast<unsigned long long*>(acc);
   return static_cast<int>(ofdm::with_mode(mode, [&](auto md) {

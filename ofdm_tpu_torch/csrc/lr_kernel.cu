@@ -274,7 +274,7 @@ __global__ void __launch_bounds__(kThreads) lr_power(Link L, float* partials) {
 
 // With kStaged, the stages (phase 0 of a normalized link writes its run's
 // |e|^2 partial instead of counting).
-template <int J, int kMode, bool kStaged>
+template <int J, int kMode, bool kStaged, bool kDump = false>
 __global__ void __launch_bounds__(kThreads)
     lr_main(Link L, const float* partials, unsigned long long* acc, double* psum, float* carry_r,
             float* carry_i) {
@@ -410,6 +410,7 @@ __global__ void __launch_bounds__(kThreads)
               er[j] = er[j] * m;
               ei[j] = ei[j] * m;
             }
+            ofdm::dump_bin<kMode, kDump>(L, b, k, er[j], ei[j]);
             ofdm::count_bin<kMode>(tx[j], er[j], ei[j], L.q, L.lanes, k, be, se);
           }
         }
@@ -448,6 +449,10 @@ template <int J, int kMode>
 cudaError_t launch(const Link& L, float* partials, unsigned long long* acc, double* psum,
                    float* cr, float* ci, cudaStream_t stream) {
   constexpr bool kS = ofdm::kStagedBuild;
+  auto* main_kernel = &lr_main<J, kMode, kS>;
+#if OFDM_STAGED
+  if (L.st.bits & ofdm::kStageDump) main_kernel = &lr_main<J, kMode, kS, true>;
+#endif
   if (L.add_noise) {
     const int tiles = (L.chunk + L.tile - 1) / L.tile;
     lr_power<J, kMode, kS><<<dim3(tiles, L.groups), kThreads, 0, stream>>>(L, partials);
@@ -457,7 +462,7 @@ cudaError_t launch(const Link& L, float* partials, unsigned long long* acc, doub
   const size_t plane_bytes = L.txext ? 0 : sizeof(float) * 2 * L.n;
   if (plane_bytes > 0) {
     const cudaError_t err = cudaFuncSetAttribute(
-        lr_main<J, kMode, kS>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(plane_bytes));
+        main_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(plane_bytes));
     if (err != cudaSuccess) return err;
   }
   const int grid = (L.chunk + L.run - 1) / L.run;
@@ -466,11 +471,11 @@ cudaError_t launch(const Link& L, float* partials, unsigned long long* acc, doub
                              [&](int phase) {
     Link P = L;
     P.st.phase = phase;
-    lr_main<J, kMode, kS><<<grid, kThreads, plane_bytes, stream>>>(P, partials, acc, psum, cr, ci);
+    main_kernel<<<grid, kThreads, plane_bytes, stream>>>(P, partials, acc, psum, cr, ci);
     return cudaGetLastError();
   });
 #else
-  lr_main<J, kMode, kS><<<grid, kThreads, plane_bytes, stream>>>(L, partials, acc, psum, cr, ci);
+  main_kernel<<<grid, kThreads, plane_bytes, stream>>>(L, partials, acc, psum, cr, ci);
   return cudaGetLastError();
 #endif
 }
@@ -509,10 +514,11 @@ int ofdm_lr_chunk(const float* tlr, const float* tli, const float* ccr, const fl
                   int txext, int pstride, unsigned long long sym0, int chunk, int tile, int slice,
                   int groups, int run, unsigned int key0, unsigned int key1, float* partials,
                   long long* acc, double* psum, float* carry_r, float* carry_i, const float* rows,
-                  int stages, float* norm_part, float* norm_f, void* stream_ptr) {
+                  int stages, float* norm_part, float* norm_f,
+                    float* dump_r, float* dump_i, int dump_rows, void* stream_ptr) {
   if (n < 1 || n > kMaxN || T < n || E < 1 || E > kMaxE || E > T || rank < 0 ||
       rank > kMaxRank || chunk < 1 || tile < 1 || slice < 1 || groups < 1 || run < 1 ||
-      tile % run != 0 || !ofdm::stage_args_ok(rows, stages, norm_part, norm_f, false) ||
+      tile % run != 0 || !ofdm::stage_args_ok(rows, stages, norm_part, norm_f, dump_r, dump_i, dump_rows, false) ||
       pstride < 1 || (!txext && (fr == nullptr || fi == nullptr)) ||
       (add_noise && rank > 0 && (bhr == nullptr || bhi == nullptr)) ||
       (ofdm::adaptive(mode) && (lane_i == nullptr || lane_f == nullptr))) {
@@ -549,7 +555,7 @@ int ofdm_lr_chunk(const float* tlr, const float* tli, const float* ccr, const fl
   L.groups = groups;
   L.run = run;
   L.key = make_uint2(key0, key1);
-  L.st = ofdm::Stages{rows, stages, 1, norm_part, norm_f};
+  L.st = ofdm::make_stages(rows, stages, norm_part, norm_f, dump_r, dump_i, dump_rows);
 
   unsigned long long* a = reinterpret_cast<unsigned long long*>(acc);
   return static_cast<int>(ofdm::with_mode(mode, [&](auto md) {

@@ -173,7 +173,7 @@ __host__ __device__ __forceinline__ int main_floats(int n, int T) { return 2 * (
 
 // With kStaged, the stages (phase 0 of a normalized link writes its run's
 // |e|^2 partial instead of counting).
-template <int J, int kMode, bool kStaged>
+template <int J, int kMode, bool kStaged, bool kDump = false>
 __global__ void __launch_bounds__(kThreads)
     mm_main(Link L, const float* y_r, const float* y_i, const float* partials,
             unsigned long long* acc, double* psum) {
@@ -281,7 +281,10 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int j = 0; j < J; ++j) {
           const int k = lane + 32 * j;
-          if (k < L.n) ofdm::count_bin<kMode>(tx[j], er[j], ei[j], L.q, L.lanes, k, be, se);
+          if (k < L.n) {
+            ofdm::dump_bin<kMode, kDump>(L, b, k, er[j], ei[j]);
+            ofdm::count_bin<kMode>(tx[j], er[j], ei[j], L.q, L.lanes, k, be, se);
+          }
         }
       }
       __syncwarp();  // the next symbol rewrites the buffers
@@ -302,12 +305,16 @@ template <int J, int kMode>
 cudaError_t launch(const Link& L, float* y_r, float* y_i, float* partials, unsigned long long* acc,
                    double* psum, float* cr, float* ci, cudaStream_t stream) {
   constexpr bool kS = ofdm::kStagedBuild;
+  auto* main_kernel = &mm_main<J, kMode, kS>;
+#if OFDM_STAGED
+  if (L.st.bits & ofdm::kStageDump) main_kernel = &mm_main<J, kMode, kS, true>;
+#endif
   const size_t fbytes = front_bytes(L.n, L.T, L.E);
   const size_t mbytes = sizeof(float) * kWarps * main_floats(L.n, L.T);
   cudaError_t err = cudaFuncSetAttribute(mm_front<J, kMode, kS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(fbytes));
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(mm_main<J, kMode, kS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(main_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(mbytes));
   if (err != cudaSuccess) return err;
   const int tiles = (L.chunk + L.tile - 1) / L.tile;
@@ -322,11 +329,11 @@ cudaError_t launch(const Link& L, float* y_r, float* y_i, float* partials, unsig
                              [&](int phase) {
     Link P = L;
     P.st.phase = phase;
-    mm_main<J, kMode, kS><<<grid, kThreads, mbytes, stream>>>(P, y_r, y_i, partials, acc, psum);
+    main_kernel<<<grid, kThreads, mbytes, stream>>>(P, y_r, y_i, partials, acc, psum);
     return cudaGetLastError();
   });
 #else
-  mm_main<J, kMode, kS><<<grid, kThreads, mbytes, stream>>>(L, y_r, y_i, partials, acc, psum);
+  main_kernel<<<grid, kThreads, mbytes, stream>>>(L, y_r, y_i, partials, acc, psum);
   return cudaGetLastError();
 #endif
 }
@@ -370,10 +377,10 @@ int ofdm_mm_chunk(const float* txr, const float* txi, const float* cvr, const fl
                   int groups, int run, unsigned int key0, unsigned int key1, float* y_r,
                   float* y_i, float* partials, long long* acc, double* psum, float* carry_r,
                   float* carry_i, const float* rows, int stages, float* norm_part, float* norm_f,
-                  void* stream_ptr) {
+                    float* dump_r, float* dump_i, int dump_rows, void* stream_ptr) {
   if (n < 1 || n > kMaxN || T < n || T > kMaxT || E < 0 || E > T || chunk < 1 || tile < 1 ||
       run < 1 || tile % run != 0 || static_cast<long long>(chunk) * T > INT_MAX ||
-      !ofdm::stage_args_ok(rows, stages, norm_part, norm_f, false) ||
+      !ofdm::stage_args_ok(rows, stages, norm_part, norm_f, dump_r, dump_i, dump_rows, false) ||
       static_cast<long long>(groups) * kPowerBlock < static_cast<long long>(tile) * T ||
       (is_sc && (idr == nullptr || idi == nullptr)) ||
       (ofdm::adaptive(mode) && (is_sc || lane_i == nullptr || lane_f == nullptr))) {
@@ -405,7 +412,7 @@ int ofdm_mm_chunk(const float* txr, const float* txi, const float* cvr, const fl
   L.groups = groups;
   L.run = run;
   L.key = make_uint2(key0, key1);
-  L.st = ofdm::Stages{rows, stages, 1, norm_part, norm_f};
+  L.st = ofdm::make_stages(rows, stages, norm_part, norm_f, dump_r, dump_i, dump_rows);
 
   unsigned long long* a = reinterpret_cast<unsigned long long*>(acc);
   return static_cast<int>(ofdm::with_mode(mode, [&](auto md) {

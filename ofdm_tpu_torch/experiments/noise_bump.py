@@ -15,26 +15,37 @@ kept exactly:
   * global unit-power normalization before demapping               (:180-183)
 
 Three scenarios (uniform +3 dB, WF +3 dB, WF +6 dB) over SNR 0..30 dB.
-The BER of each point comes from the diag chunk kernel with all four of
-its stages on (``link_kernel.noise_bump_link``: the JAX package's
-``_FusedLink`` on ``make_noise_bump_chunk``), one link for every point:
-the scenario and SNR enter as the chunk's (3, n) rows.  The JAX package's
-small-batch XLA sampler (``_Link``), which draws the constellation plots,
-needs the eager chain and its normal-pair kernel and is not ported yet.
+Two links, as in the JAX package:
+
+* ``_Link``, the small-batch sampler (``num_ofdm_symbols`` a point, 2048
+  by default): the eager chain's operations on complex64 tensors, its
+  post-EQ normals from ``prng.normal_planes`` (the K5 port) at c3 = 5.  It
+  draws the constellation plots, and gives the BER of the eager-only
+  campaign (``fused_symbols_per_point=0``).
+* ``FusedLink``: the BER of each point from the diag chunk kernel with all
+  four of its stages on (``link_kernel.noise_bump_link``: the JAX
+  package's ``_FusedLink`` on ``make_noise_bump_chunk``), one link for
+  every point: the scenario and SNR enter as the chunk's (3, n) rows.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ofdm_tpu_torch.config import EqualizationMethod, NoiseType, PrefixType, SimulationConfig
+from ofdm_tpu_torch.models import channels as chm
 from ofdm_tpu_torch.ops import allocate as al
+from ofdm_tpu_torch.ops import channel as ch
+from ofdm_tpu_torch.ops import equalize as eq
 from ofdm_tpu_torch.ops import link_kernel as lk
+from ofdm_tpu_torch.ops import mapping as mp
+from ofdm_tpu_torch.ops import metrics as mt
+from ofdm_tpu_torch.ops import ofdm
 from ofdm_tpu_torch.ops import prng
 from ofdm_tpu_torch.pipeline import LinkRunner, prepare
 
@@ -102,6 +113,53 @@ def point_rows(channel_gains: np.ndarray, scenario: Scenario, noise_profile: np.
     return np.stack([sqrt_power, 1.0 / inv, noise_std]).astype(np.float32)
 
 
+class _Link:
+    """The study's small-batch sampler (the JAX package's ``_Link``): one
+    batch of ``num_ofdm_symbols`` OFDM symbols a point, ``order``-QAM over
+    ``channel_ir`` with a CP of the channel order, no channel noise, MMSE,
+    then the colored post-EQ noise, 1/sqrt(P) and the unit power over the
+    whole batch, in complex64 on ``device`` (``None`` means ``cuda``)."""
+
+    def __init__(self, num_ofdm_symbols: int, num_subcarriers: int, order: int, channel_ir: np.ndarray,
+                 device=None):
+        self.B = num_ofdm_symbols
+        self.n = num_subcarriers
+        self.const = mp.make_constellation("QAM", order)
+        self.device = torch.device("cuda" if device is None else device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("_Link: CUDA is not available (pass device='cpu')")
+        self.h_freq_np = chm.channel_frequency_response(channel_ir, num_subcarriers)
+        self.prefix_length = int(1.0 * chm.channel_order(channel_ir))
+        self.taps = torch.tensor(chm.normalize_impulse_response(channel_ir), dtype=torch.complex64,
+                                 device=self.device)
+        self.h_freq = torch.tensor(self.h_freq_np, dtype=torch.complex64, device=self.device)
+
+    def run_point(self, seed: int, scenario: Scenario, noise_profile: np.ndarray, snr_db: float):
+        """(BER, the normalized points as numpy complex64, symbol-major) of
+        one point drawn under ``seed``: TX words from counters (b, k, 0),
+        the post-EQ normals from (b, k, 5)."""
+        n, B, L, dev = self.n, self.B, self.prefix_length, self.device
+        gains = np.abs(self.h_freq_np) ** 2
+        rows = torch.tensor(point_rows(gains, scenario, noise_profile, snr_db), device=dev)
+        key = prng.key_words(seed)
+        tx_idx = prng.philox_plane(key, 0, B, n, 0, dev) & (self.const.order - 1)
+        symbols = mp.encode_indices(tx_idx, self.const) * rows[0]  # sqrt(P) at TX (:148)
+        blocks = ofdm.ofdm_modulate(symbols, n, PrefixType.CYCLIC, L)
+        rx_blocks, _ = ch.transmit(blocks, self.taps, snr_db, add_noise=False)
+        freq = ofdm.ofdm_demodulate_to_freq(rx_blocks, n, PrefixType.CYCLIC, L)
+        eqd = eq.equalize(freq, self.h_freq, EqualizationMethod.MMSE, snr_db)
+        # Colored noise after equalization, per subcarrier (:165-172).
+        z0, z1 = prng.normal_planes(key, 0, B, n, prng.BUMP_STREAM, dev)
+        noisy = eqd + torch.complex(z0 * rows[2], z1 * rows[2])
+        # 1/sqrt(P) compensation (:174-178), then global normalization (:180-183).
+        noisy = noisy * rows[1]
+        avg = ch.mean_abs2(noisy)
+        noisy = torch.where(avg > 1e-12, noisy / torch.sqrt(avg), noisy)
+        rx_idx = mp.decode_hard(noisy, self.const)
+        errors = int(mt.index_bit_errors(tx_idx, rx_idx, self.const.bits_per_symbol))
+        return errors / (B * n * self.const.bits_per_symbol), noisy.reshape(-1).cpu().numpy()
+
+
 class FusedLink:
     """The study's link on the diag chunk kernel with the noise-bump stages.
 
@@ -160,50 +218,114 @@ class FusedLink:
         return int(acc[0].item()) / (self.B * self.n * self.bits)
 
 
+def _plot_point(plt, path, sample, ideal, scenario: Scenario, snr_db: float, ber: float) -> None:
+    """One point's constellation PNG, in the JAX package's layout."""
+    plt.figure(figsize=(6, 6))
+    plt.scatter(sample.real, sample.imag, color="tab:blue", alpha=0.15, s=6, label="Received Symbols")
+    plt.scatter(ideal.real, ideal.imag, color="tab:red", marker="o", s=30, label="Ideal Constellation")
+    plt.title(f"{scenario.name}\nSNR = {snr_db} dB | BER = {ber:.3e}")
+    plt.xlabel("In-Phase")
+    plt.ylabel("Quadrature")
+    plt.axhline(0, color="gray", linewidth=0.5)
+    plt.axvline(0, color="gray", linewidth=0.5)
+    plt.grid(True, linestyle=":", alpha=0.4)
+    plt.legend(loc="upper right", fontsize=8)
+    plt.xlim([-2.2, 2.2])
+    plt.ylim([-2.2, 2.2])
+    plt.gca().set_aspect("equal", adjustable="box")
+    plt.tight_layout()
+    plt.savefig(path, dpi=200)
+    plt.close()
+
+
 def run_noise_bump_experiment(
     snr_values: Sequence[float] = (0, 5, 10, 15, 20, 25, 30),
-    fused_symbols_per_point: int = 1 << 24,
+    num_ofdm_symbols: int = 2048,
     num_subcarriers: int = 64,
     constellation_order: int = 64,
     channel: str = "Lin-Phoong_P2",
+    output_dir: str = "images/Lin-Phoong_P2/CP-OFDM-Waterfilling-Study",
     results_dir: str = "results",
     seed: int = 42,
     save_plots: bool = False,
+    max_plot_symbols: int = 32768,
+    fused_symbols_per_point: Optional[int] = None,
     chunk: int = 1 << 17,
     device=None,
 ) -> Dict[str, List[float]]:
-    """The fused BER campaign: all three scenarios over ``snr_values``,
-    ``fused_symbols_per_point`` OFDM symbols a point on one ``FusedLink``.
-    Returns {scenario name: [ber per snr]} and writes
-    ``ber_{key}_waterfilling_study.csv`` per scenario under
-    ``results_dir``.  Point (scenario s, SNR index p) runs under seed
-    ``seed * 2^32 + 500000 + 1000 s + p``.
+    """All three scenarios over ``snr_values``; returns {scenario name: [ber
+    per snr]} and writes ``ber_{key}_waterfilling_study.csv`` per scenario
+    under ``results_dir``.
 
-    The constellation plots (``save_plots``) and the XLA-only campaign
-    (``fused_symbols_per_point=0``) need the JAX package's ``_Link``
-    sampler, which is not ported: both raise NotImplementedError."""
-    if save_plots or not fused_symbols_per_point:
-        raise NotImplementedError(
-            "not in this slice of the port: the noise-bump study's plots and its small-batch sampler "
-            "(_Link) need the eager chain (ROADMAP modules item 2) and its normal-pair kernel "
-            "(ROADMAP kernel item 9, K5)")
+    ``fused_symbols_per_point``: OFDM symbols a point on one ``FusedLink``
+    (the diag kernel with the study's stages), in chunks of ``chunk``;
+    ``None`` means 2^24 on a CUDA device and 0 on the CPU, and 0 runs the
+    eager-only campaign, each point's BER from ``_Link`` at
+    ``num_ofdm_symbols``.  ``_Link`` runs a point only where its output is
+    used (the BER of the eager-only campaign, the plots); the JAX package
+    runs it for every point.  Point (scenario s, SNR index p) draws under
+    seed ``seed * 2^32 + 1000 s + p`` on ``_Link`` and ``+ 500000`` on the
+    fused link.
+
+    ``save_plots`` writes each point's constellation PNG under
+    ``output_dir/<scenario prefix>/`` and the BER comparison figure, with
+    the JAX package's names and layout.  It defaults to False (the JAX
+    package's to True): it needs matplotlib, which a machine that runs the
+    kernels may not have.  ``device=None`` means ``cuda``."""
     if not 0 <= int(seed) < 1 << 32:
         raise ValueError(f"seed must be in [0, 2^32), got {seed}")
-    fused = FusedLink(fused_symbols_per_point, num_subcarriers, constellation_order, channel,
-                      chunk=chunk, device=device)
+    device = torch.device("cuda" if device is None else device)
+    if fused_symbols_per_point is None:
+        fused_symbols_per_point = 1 << 24 if device.type == "cuda" else 0
+    plt = None
+    if save_plots:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    link = _Link(num_ofdm_symbols, num_subcarriers, constellation_order, chm.get_channel(channel), device)
+    fused = None
+    if fused_symbols_per_point:
+        fused = FusedLink(fused_symbols_per_point, num_subcarriers, constellation_order, channel,
+                          chunk=chunk, device=device)
+    base_out = Path(output_dir)
     res_dir = Path(results_dir)
     res_dir.mkdir(parents=True, exist_ok=True)
     scenario_results: Dict[str, List[float]] = {}
     for s_i, scenario in enumerate(SCENARIOS):
+        scen_dir = base_out / scenario.short_prefix
+        if save_plots:
+            scen_dir.mkdir(parents=True, exist_ok=True)
         noise_profile = create_noise_profile(num_subcarriers, scenario.noise_bump_db)
-        bers = [
-            fused.run_point((int(seed) << 32) + POINT_SEED_BASE + s_i * 1000 + p_i, scenario,
-                            noise_profile, float(snr_db))
-            for p_i, snr_db in enumerate(snr_values)
-        ]
+        bers: List[float] = []
+        for p_i, snr_db in enumerate(snr_values):
+            point_seed = (int(seed) << 32) + s_i * 1000 + p_i
+            if fused is None or save_plots:
+                ber, symbols = link.run_point(point_seed, scenario, noise_profile, float(snr_db))
+            if fused is not None:
+                ber = fused.run_point(point_seed + POINT_SEED_BASE, scenario, noise_profile, float(snr_db))
+            bers.append(ber)
+            if save_plots:
+                _plot_point(plt, scen_dir / f"{scenario.short_prefix}-SNR{int(snr_db):02d}dB.png",
+                            symbols[:max_plot_symbols], link.const.table, scenario, snr_db, ber)
         scenario_results[scenario.name] = bers
         with (res_dir / f"ber_{scenario.key}_waterfilling_study.csv").open("w", encoding="utf-8") as fp:
             fp.write("snr_db,bit_error_rate\n")
             for snr_db, ber in zip(snr_values, bers):
                 fp.write(f"{snr_db},{ber}\n")
+
+    if save_plots:
+        base_out.mkdir(parents=True, exist_ok=True)
+        plt.figure(figsize=(7, 5))
+        for scenario in SCENARIOS:
+            plt.semilogy(snr_values, scenario_results[scenario.name], marker="o", linewidth=2,
+                         label=scenario.name)
+        plt.title("CP-OFDM BER vs. SNR with Colored Noise Bumps")
+        plt.xlabel("SNR (dB)")
+        plt.ylabel("Bit Error Rate")
+        plt.grid(True, which="both", linestyle=":", alpha=0.6)
+        plt.legend()
+        plt.tight_layout()
+        plt.savefig(base_out / "CP-OFDM-waterfilling-ber-comparison.png", dpi=250)
+        plt.close()
     return scenario_results

@@ -2,7 +2,9 @@
 
 The port's copy of what it needs from ``ofdm_tpu.ops.adaptive``: the
 mapper's per-subcarrier orders and padded constellation tables, the
-per-subcarrier index mask, and a table encode for the sampled TX batch.
+per-subcarrier index mask, a table encode (the sampled TX batch and the
+eager chain) and the complex path's nearest-neighbour demap
+(``decode_to_indices``, the eager chain's).
 The chunk kernels never read a table: they encode and slice each
 subcarrier arithmetically from lane rows (``ops.link_kernel.Codec``).
 
@@ -86,3 +88,35 @@ def encode_from_indices(idx: torch.Tensor, m: AdaptiveMapper):
     base = torch.tensor(m.group_id.astype(np.int64) * m.max_order, device=idx.device)
     i = base + idx.to(torch.int64)
     return tr[i], ti[i]
+
+
+def encode_complex(idx: torch.Tensor, m: AdaptiveMapper) -> torch.Tensor:
+    """``encode_from_indices`` as one complex64 plane."""
+    re, im = encode_from_indices(idx, m)
+    return torch.complex(re, im)
+
+
+def decode_to_indices(symbols: torch.Tensor, m: AdaptiveMapper, rows: int = 4096) -> torch.Tensor:
+    """Complex points (B, N) -> int64 hard-decision indices (B, N), each
+    subcarrier against its own order's table: argmax over the padded
+    table of 2 Re(y conj(c)) - |c|^2 in f32, padded entries at -inf (the
+    index half of ofdm_tpu.ops.adaptive.decode, the complex path's demap).
+    Runs ``rows`` symbols at a time to bound the (rows, N, max order)
+    score plane."""
+    dev = symbols.device
+    tab = m.tables
+    valid = np.zeros(tab.shape, dtype=bool)
+    uniq = [int(o) for o in np.unique(m.orders) if o > 0]
+    for g, o in enumerate(uniq):
+        valid[g, :o] = True
+    valid[len(uniq), :1] = True  # the inactive row: a single zero point
+    gid = torch.tensor(m.group_id.astype(np.int64), device=dev)
+    cre = torch.tensor((2.0 * tab.real).astype(np.float32), device=dev)[gid]  # (N, maxM)
+    cim = torch.tensor((2.0 * tab.imag).astype(np.float32), device=dev)[gid]
+    bias = torch.tensor(np.where(valid, -np.abs(tab) ** 2, -np.inf).astype(np.float32), device=dev)[gid]
+    out = torch.empty(symbols.shape, dtype=torch.int64, device=dev)
+    for r0 in range(0, symbols.shape[0], rows):
+        y = symbols[r0 : r0 + rows]
+        scores = y.real[..., None] * cre + y.imag[..., None] * cim + bias
+        out[r0 : r0 + rows] = torch.argmax(scores, dim=-1)
+    return out

@@ -171,11 +171,14 @@ def fold_chunk_plain(
     psum: torch.Tensor,
     words=None,
     rows=None,
+    dump=None,
 ):
     """Plain version of ``fold_chunk`` (same arguments, same effects);
     ``words`` as in ``fold_planes``."""
     T = link.T
     tx, er, ei, xr, xi = fold_planes(link, key, sym0, chunk, snr_lin, acc.device, words, rows)
+    if dump is not None:
+        lk.write_dump(link, dump, er, ei)
     lk.count_errors(link, tx, er, ei, acc)
     lk.add_papr(xr[:, :T], xi[:, :T], acc, psum)
     return xr[-1, :T].clone(), xi[-1, :T].clone()
@@ -224,12 +227,14 @@ def fold_chunk(
     psum: torch.Tensor,
     work=None,
     rows=None,
+    dump=None,
 ):
     """One chunk of run symbols [sym0, sym0 + chunk): adds its bit errors,
     symbol errors and PAPR peak bits into ``acc`` and its PAPR power sum
     into ``psum``.  Returns the carry row (re, im): the last symbol's TX time
     row x[:T], written into ``work`` (a ``chunk_workspace``) when given.
-    ``rows``: the stages' per-lane rows (``link_kernel.stage_rows``).
+    ``rows``: the stages' per-lane rows (``link_kernel.stage_rows``).  ``dump``: the dump stage's
+    planes (``link_kernel.new_dump``; counted in ``fold_chunk.dump_launches``).
 
     CUDA tensors launch the fused kernel (csrc/fold_kernel.cu): with noise
     on, ``fold_power``; then ``fold_main`` (for a link with stages its
@@ -238,13 +243,15 @@ def fold_chunk(
     ``.norm_launches``.  CPU tensors run ``fold_chunk_plain``."""
     dev = acc.device
     if dev.type == "cpu":
-        return fold_chunk_plain(link, key, sym0, chunk, snr_lin, acc, psum, rows=rows)
+        return fold_chunk_plain(link, key, sym0, chunk, snr_lin, acc, psum, rows=rows, dump=dump)
     if dev.type != "cuda":
         raise ValueError(f"fold_chunk runs on cpu or cuda, not {dev}")
     lk.check_accumulators(acc, psum)
     _check_link(link, dev)
     if not 1 <= chunk <= (2**31 - 1) // link.n:
         raise ValueError(f"chunk out of range: {chunk}")
+    if dump is not None:
+        lk.check_dump(dump, chunk, link.n, dev)
     tile, tiles, groups = _chunk_geometry(link, chunk)
     work = chunk_workspace(link, chunk, dev) if work is None else work
     lk.check_work(work, (tiles * groups, link.T, link.T, -(-chunk // RUN), tiles),
@@ -252,7 +259,7 @@ def fold_chunk(
     partials, carry_r, carry_i, norm_part, norm_f = work
     from ofdm_tpu_torch import build
 
-    lib = build.load("fold_staged" if lk.link_stages(link) else "fold_kernel")
+    lib = build.load(lk.staged_library(link, dump, "fold_kernel", "fold_staged"))
     sc = link.is_sc
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
@@ -268,12 +275,13 @@ def fold_chunk(
             key[0], key[1],
             partials.data_ptr(), acc.data_ptr(), psum.data_ptr(),
             carry_r.data_ptr(), carry_i.data_ptr(),
-            *lk.stage_args(link, rows, norm_part, norm_f), stream,
+            *lk.stage_args(link, rows, norm_part, norm_f, dump), stream,
         )
     build.check(lib, code, "ofdm_fold_chunk")
     if link.add_noise:
         fold_chunk.power_launches += 1
     fold_chunk.norm_launches += int(link.normalize)
+    fold_chunk.dump_launches += int(dump is not None)
     fold_chunk.launches += 1
     return carry_r, carry_i
 
@@ -281,3 +289,4 @@ def fold_chunk(
 fold_chunk.launches = 0  # fold_main kernels launched (the pass that counts errors)
 fold_chunk.power_launches = 0  # fold_power kernels launched
 fold_chunk.norm_launches = 0  # normalization passes (each with its norm_factors) launched
+fold_chunk.dump_launches = 0  # counting passes that ran the dump stage

@@ -33,7 +33,10 @@ The bracketed stages are ``_Spec``'s (pallas_link.py:709-731):
 ``post_noise`` and ``compensate`` are the noise-bump study's
 (``noise_bump_link``), diag only.  Their per-lane rows (sqrt(P),
 1/sqrt(P), the post-EQ sigma) are an argument of the chunk, not link
-constants, so one link serves every SNR point and scenario.  The
+constants, so one link serves every SNR point and scenario.  A fifth,
+``dump`` (every chain; a chunk's ``dump`` argument), writes the first
+symbols' points of the pass that counts, in data units, for symbol
+capture (``dump_points``; ``pipeline.LinkRunner.capture``).  The
 normalization mean covers every symbol of a tile, so it is summed in a
 fixed order (``tile_norm``) that the kernels repeat: per symbol as the
 MMSE mean is, per run of consecutive symbols in order, then a tile's runs
@@ -77,7 +80,7 @@ POWER_BLOCK = 16 * 256  # slice elements per power_partials block
 RUN = 8  # consecutive symbols a warp of the staged diag kernel walks
 NORM_THREADS = 256  # threads of norm_factors, one block a tile
 # Stage bits of the kernels' C entry points (pallas_link._Spec's switches).
-STAGE_POWER, STAGE_NORMALIZE, STAGE_POST_NOISE, STAGE_COMPENSATE = 1, 2, 4, 8
+STAGE_POWER, STAGE_NORMALIZE, STAGE_POST_NOISE, STAGE_COMPENSATE, STAGE_DUMP = 1, 2, 4, 8, 16
 METHOD_CODE = {EqualizationMethod.ZF: 0, EqualizationMethod.MMSE: 1, EqualizationMethod.NONE: 2}
 
 
@@ -930,12 +933,15 @@ def diag_chunk_plain(
     psum: torch.Tensor,
     words=None,
     rows=None,
+    dump=None,
 ):
     """Plain version of ``diag_chunk`` (same arguments, same effects);
     ``words`` as in ``diag_planes``."""
     dev = acc.device
     tile = tile_for(chunk, link.tile_cap)
     tx, er, ei, sr, si = diag_planes(link, key, sym0, chunk, snr_lin, dev, words, rows)
+    if dump is not None:
+        write_dump(link, dump, er, ei)
     count_errors(link, tx, er, ei, acc)
 
     sampled = (torch.arange(chunk, device=dev) // tile) % link.pstride == 0
@@ -1003,11 +1009,69 @@ def check_accumulators(acc, psum):
         raise ValueError("acc and psum must be contiguous on one device")
 
 
-def stage_args(link, rows, norm_part, norm_f):
+def stage_args(link, rows, norm_part, norm_f, dump=None):
     """The stage arguments of a chunk kernel's C entry point: the rows
-    pointer, the STAGE_* bits and the normalization scratch."""
+    pointer, the STAGE_* bits, the normalization scratch and the dump
+    stage's planes and their rows."""
     rows = stage_rows(link, rows, rows_needed(link))
-    return (None if rows is None else rows.data_ptr(), link_stages(link), norm_part.data_ptr(), norm_f.data_ptr())
+    bits = link_stages(link) | (STAGE_DUMP if dump is not None else 0)
+    planes = (None, None, 0) if dump is None else (dump[0].data_ptr(), dump[1].data_ptr(), dump[0].shape[0])
+    return (None if rows is None else rows.data_ptr(), bits, norm_part.data_ptr(), norm_f.data_ptr(),
+            *planes)
+
+
+def staged_library(link, dump, plain: str, staged: str) -> str:
+    """The library a chunk runs from: the OFDM_STAGED build when the link
+    has stages or a dump is asked for (the plain build takes no stage bit)."""
+    return staged if link_stages(link) or dump is not None else plain
+
+
+# --- the dump stage (pallas_link.py:1863-1879) ----------------------------------
+
+
+def dump_points(link, er, ei):
+    """Points ready for the slicer back in data units, as the dump stage
+    writes them: qam x f32(1/slicer), aqam / the lane's slicer row, PSK raw.
+    The reciprocal is one f32 division, as on the card; it equals the JAX
+    stage's f64 reciprocal rounded to f32."""
+    if link.q.mode == "qam":
+        u = _f32(1.0, er) / _f32(link.slicer, er)
+        return er * u, ei * u
+    if link.q.mode == "aqam":
+        return er / link.q.frows[1], ei / link.q.frows[1]
+    return er, ei
+
+
+def dump_rows(collect: int, n: int, chunk: int) -> int:
+    """D = ceil(collect / n) symbols, capped at the chunk: the rows a dump
+    of ``collect`` points needs."""
+    return max(1, min(-(-int(collect) // n), chunk))
+
+
+def new_dump(rows: int, n: int, device):
+    """A (re, im) pair of (rows, n) f32 planes for the dump stage."""
+    f32 = dict(dtype=torch.float32, device=device)
+    return torch.zeros((rows, n), **f32), torch.zeros((rows, n), **f32)
+
+
+def check_dump(dump, chunk: int, n: int, device):
+    """Raise unless ``dump`` is a pair of contiguous f32 (D, n) planes on
+    ``device`` with 1 <= D <= chunk."""
+    ok = dump is not None and len(dump) == 2 and all(
+        t.device == device and t.dtype == torch.float32 and t.is_contiguous() and t.ndim == 2
+        and t.shape == dump[0].shape for t in dump)
+    if not ok or dump[0].shape[1] != n or not 1 <= dump[0].shape[0] <= chunk:
+        raise ValueError(f"dump must be two contiguous f32 (D, {n}) planes on {device}, 1 <= D <= {chunk}")
+
+
+def write_dump(link, dump, er, ei):
+    """The plain dump stage: the first D symbols' points (``dump_points``)
+    into the planes."""
+    check_dump(dump, er.shape[0], link.n, er.device)
+    d = dump[0].shape[0]
+    dr, di = dump_points(link, er[:d], ei[:d])
+    dump[0].copy_(dr)
+    dump[1].copy_(di)
 
 
 def diag_chunk(
@@ -1020,6 +1084,7 @@ def diag_chunk(
     psum: torch.Tensor,
     work=None,
     rows=None,
+    dump=None,
 ):
     """One chunk of run symbols [sym0, sym0 + chunk): adds its bit errors,
     symbol errors and PAPR peak bits into ``acc`` and its PAPR power sum
@@ -1027,7 +1092,10 @@ def diag_chunk(
     (re, im): the TX time row of the chunk's last sampled symbol, written
     into ``work`` (a ``chunk_workspace`` for this chunk size) when given.
     ``rows`` are the stages' per-lane rows (``stage_rows``), read only
-    when the link has stages.
+    when the link has stages.  ``dump`` (``new_dump``'s planes of D <=
+    chunk rows) turns the dump stage on: the pass that counts writes the
+    first D symbols' points in data units (``dump_points``) into it,
+    counted in ``diag_chunk.dump_launches``.
 
     CUDA tensors launch the fused kernels (csrc/link_kernel.cu): with noise
     on, ``power_partials``; then ``diag_main``, or for a link with stages
@@ -1039,13 +1107,15 @@ def diag_chunk(
     ``norm_factors``, one each).  CPU tensors run ``diag_chunk_plain``."""
     dev = acc.device
     if dev.type == "cpu":
-        return diag_chunk_plain(link, key, sym0, chunk, snr_lin, acc, psum, rows=rows)
+        return diag_chunk_plain(link, key, sym0, chunk, snr_lin, acc, psum, rows=rows, dump=dump)
     if dev.type != "cuda":
         raise ValueError(f"diag_chunk runs on cpu or cuda, not {dev}")
     check_accumulators(acc, psum)
     _check_link_tensors(link, dev)
     if not 1 <= chunk <= (2**31 - 1) // link.n:
         raise ValueError(f"chunk out of range: {chunk}")
+    if dump is not None:
+        check_dump(dump, chunk, link.n, dev)
     tile, tiles, groups, carry_sym = _chunk_geometry(link, chunk)
     work = chunk_workspace(link, chunk, dev) if work is None else work
     check_work(work, (tiles * groups, link.T, link.T, -(-chunk // RUN), tiles),
@@ -1053,7 +1123,8 @@ def diag_chunk(
     partials, carry_r, carry_i, norm_part, norm_f = work
     from ofdm_tpu_torch import build
 
-    lib = build.load("link_staged" if link_stages(link) or own_channel_rows(link) else "link_kernel")
+    staged = "link_staged" if own_channel_rows(link) else staged_library(link, dump, "link_kernel", "link_staged")
+    lib = build.load(staged)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.ofdm_diag_chunk(
@@ -1068,17 +1139,19 @@ def diag_chunk(
             key[0], key[1],
             partials.data_ptr(), acc.data_ptr(), psum.data_ptr(),
             carry_r.data_ptr(), carry_i.data_ptr(),
-            *stage_args(link, rows, norm_part, norm_f), stream,
+            *stage_args(link, rows, norm_part, norm_f, dump), stream,
         )
     build.check(lib, code, "ofdm_diag_chunk")
     if link.add_noise:
         diag_chunk.power_launches += 1
     diag_chunk.norm_launches += int(link.normalize)
+    diag_chunk.dump_launches += int(dump is not None)
     diag_chunk.launches += 1
     return carry_r, carry_i
 
 
 diag_chunk.launches = 0  # diag_main (diag_staged) kernels launched
+diag_chunk.dump_launches = 0  # counting passes that ran the dump stage
 diag_chunk.power_launches = 0  # power_partials kernels launched
 diag_chunk.norm_launches = 0  # normalization passes (each with its norm_factors) launched
 

@@ -236,11 +236,14 @@ def lr_chunk_plain(
     psum: torch.Tensor,
     words=None,
     rows=None,
+    dump=None,
 ):
     """Plain version of ``lr_chunk`` (same arguments, same effects);
     ``words`` as in ``lr_planes``."""
     dev = acc.device
     tx, er, ei, tr, ti, sr, si = lr_planes(link, key, sym0, chunk, snr_lin, dev, words, rows)
+    if dump is not None:
+        lk.write_dump(link, dump, er, ei)
     lk.count_errors(link, tx, er, ei, acc)
     if not link.txext:
         tile = lk.tile_for(chunk, link.tile_cap)
@@ -296,13 +299,15 @@ def lr_chunk(
     psum: torch.Tensor,
     work=None,
     rows=None,
+    dump=None,
 ):
     """One chunk of run symbols [sym0, sym0 + chunk): adds its bit errors,
     symbol errors and (below ``txext``) PAPR peak bits into ``acc`` and its
     PAPR power sum into ``psum``.  Returns the carry row (re, im): (T,),
     zero but for the last E lanes, the last symbol's t; written into
     ``work`` (a ``chunk_workspace``) when given.  ``rows``: the stages'
-    per-lane rows (``link_kernel.stage_rows``).
+    per-lane rows (``link_kernel.stage_rows``).  ``dump``: the dump stage's
+    planes (``link_kernel.new_dump``; counted in ``lr_chunk.dump_launches``).
 
     CUDA tensors launch the fused kernel (csrc/lr_kernel.cu): with noise on,
     ``lr_power``; then ``lr_main`` (for a link with stages its OFDM_STAGED
@@ -311,13 +316,15 @@ def lr_chunk(
     tensors run ``lr_chunk_plain``."""
     dev = acc.device
     if dev.type == "cpu":
-        return lr_chunk_plain(link, key, sym0, chunk, snr_lin, acc, psum, rows=rows)
+        return lr_chunk_plain(link, key, sym0, chunk, snr_lin, acc, psum, rows=rows, dump=dump)
     if dev.type != "cuda":
         raise ValueError(f"lr_chunk runs on cpu or cuda, not {dev}")
     lk.check_accumulators(acc, psum)
     _check_link(link, dev)
     if not 1 <= chunk <= (2**31 - 1) // link.n:
         raise ValueError(f"chunk out of range: {chunk}")
+    if dump is not None:
+        lk.check_dump(dump, chunk, link.n, dev)
     tile, tiles, groups = _chunk_geometry(link, chunk)
     work = chunk_workspace(link, chunk, dev) if work is None else work
     lk.check_work(work, (tiles * groups, link.T, link.T, -(-chunk // RUN), tiles),
@@ -325,7 +332,7 @@ def lr_chunk(
     partials, carry_r, carry_i, norm_part, norm_f = work
     from ofdm_tpu_torch import build
 
-    lib = build.load("lr_staged" if lk.link_stages(link) else "lr_kernel")
+    lib = build.load(lk.staged_library(link, dump, "lr_kernel", "lr_staged"))
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -345,12 +352,13 @@ def lr_chunk(
             key[0], key[1],
             partials.data_ptr(), acc.data_ptr(), psum.data_ptr(),
             carry_r.data_ptr(), carry_i.data_ptr(),
-            *lk.stage_args(link, rows, norm_part, norm_f), stream,
+            *lk.stage_args(link, rows, norm_part, norm_f, dump), stream,
         )
     build.check(lib, code, "ofdm_lr_chunk")
     if link.add_noise:
         lr_chunk.power_launches += 1
     lr_chunk.norm_launches += int(link.normalize)
+    lr_chunk.dump_launches += int(dump is not None)
     lr_chunk.launches += 1
     return carry_r, carry_i
 
@@ -358,3 +366,4 @@ def lr_chunk(
 lr_chunk.launches = 0  # lr_main kernels launched (the pass that counts errors)
 lr_chunk.power_launches = 0  # lr_power kernels launched
 lr_chunk.norm_launches = 0  # normalization passes (each with its norm_factors) launched
+lr_chunk.dump_launches = 0  # counting passes that ran the dump stage

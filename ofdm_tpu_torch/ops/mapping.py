@@ -2,11 +2,14 @@
 
 Host-side float64 tables and ``scale``, point for point the same as
 ``ofdm_tpu.ops.mapping`` (reference constellation/models.py:180-218 for QAM,
-:356-380 for PSK).  The kernel never reads a table: it encodes and slices
-arithmetically (``ops.link_kernel``); the table here fixes ``scale`` and
-is what the tests hold the arithmetic codec against.  The bit loading
-(``bit_loading_orders``) picks each subcarrier's order for adaptive
-modulation, as ``ofdm_tpu.ops.mapping`` does.
+:356-380 for PSK).  The chunk kernels never read a table: they encode and
+slice arithmetically (``ops.link_kernel``); the table here fixes ``scale``
+and is what the tests hold the arithmetic codec against.  The eager chain
+encodes by the table (``encode_indices``) and demaps with the JAX
+package's complex-path slicer (``decode_hard``: round and clip to the QAM
+grid, then the ``inv_index`` gather; the PSK sector by arctan2).  The bit
+loading (``bit_loading_orders``) picks each subcarrier's order for
+adaptive modulation, as ``ofdm_tpu.ops.mapping`` does.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import dataclasses
 from functools import lru_cache
 
 import numpy as np
+import torch
 from numpy.typing import NDArray
 from scipy.stats import norm
 
@@ -109,6 +113,38 @@ def make_constellation(kind: str, order: int, coding: str = "gray") -> Constella
     if kind == "PSK":
         return psk_constellation(order, coding)
     raise ValueError(f"Unknown constellation kind: {kind}")
+
+
+# --- table encode and hard-decision demap (the eager chain) ------------------
+
+
+def encode_indices(idx: torch.Tensor, const: Constellation, dtype=torch.complex64) -> torch.Tensor:
+    """Table points of indices (...,), on the indices' device."""
+    table = torch.tensor(const.table, dtype=dtype, device=idx.device)
+    return table[idx.to(torch.int64)]
+
+
+def decode_hard(symbols: torch.Tensor, const: Constellation) -> torch.Tensor:
+    """O(1) hard-decision demap of complex points (...,) to int64 table
+    indices (ofdm_tpu.ops.mapping.decode_hard): QAM rounds each axis to the
+    grid in f32, clips, and looks the position up in ``inv_index``; PSK
+    rounds the phase to its sector, Gray-coded unless ``coding`` is "none"."""
+    dev = symbols.device
+    if const.kind == "QAM":
+        m = int(np.sqrt(const.order))
+        scale = torch.tensor(const.scale, dtype=torch.float32, device=dev)
+        x = symbols.real / scale
+        y = symbols.imag / scale
+        col = torch.clamp(torch.round((x + (m - 1)) * 0.5), 0, m - 1).to(torch.int64)
+        row = torch.clamp(torch.round(((m - 1) - y) * 0.5), 0, m - 1).to(torch.int64)
+        inv = torch.tensor(const.inv_index.astype(np.int64), device=dev)
+        return inv[row * m + col]
+    M = const.order
+    ang = torch.atan2(symbols.imag, symbols.real)
+    sector = torch.remainder(torch.round(ang * (M / (2.0 * np.pi))).to(torch.int64), M)
+    if const.coding == "none":
+        return sector
+    return sector ^ (sector >> 1)
 
 
 # --- gap-function bit loading (host, float64) -----------------------------------

@@ -23,19 +23,27 @@ def popcount(x: torch.Tensor) -> torch.Tensor:
     return (x * 0x01010101 & 0xFFFFFFFF) >> 24
 
 
-def index_bit_errors(tx_idx: torch.Tensor, rx_idx: torch.Tensor) -> torch.Tensor:
-    """Bit errors between MSB-first index words: sum of popcount(tx ^ rx).
+def index_bit_errors(tx_idx: torch.Tensor, rx_idx: torch.Tensor, max_bits=None) -> torch.Tensor:
+    """Bit errors between MSB-first index words: sum of popcount(tx ^ rx),
+    over the low ``max_bits`` bits when given (ofdm_tpu.ops.metrics's fixed
+    unroll; both indices below 2^max_bits make it the full popcount).
 
     The index IS the bit word, so this equals the per-bit comparison."""
-    return popcount(tx_idx.to(torch.int64) ^ rx_idx.to(torch.int64)).sum()
+    x = tx_idx.to(torch.int64) ^ rx_idx.to(torch.int64)
+    if max_bits is not None:
+        x = x & ((1 << int(max_bits)) - 1)
+    return popcount(x).sum()
 
 
 def symbol_errors(tx_idx: torch.Tensor, rx_idx: torch.Tensor) -> torch.Tensor:
     return (tx_idx != rx_idx).sum()
 
 
-def papr_stats(xr: torch.Tensor, xi: torch.Tensor):
-    """(peak power, power sum in float64, sample count) of a time plane."""
+def papr_stats(xr: torch.Tensor, xi=None):
+    """(peak power, power sum in float64, sample count) of a time plane:
+    its (re, im) planes, or one complex plane."""
+    if xi is None:
+        xr, xi = xr.real, xr.imag
     p = xr * xr + xi * xi
     return p.max(), p.to(torch.float64).sum(), p.numel()
 

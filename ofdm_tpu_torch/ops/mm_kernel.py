@@ -183,11 +183,14 @@ def mm_chunk_plain(
     psum: torch.Tensor,
     words=None,
     rows=None,
+    dump=None,
 ):
     """Plain version of ``mm_chunk`` (same arguments, same effects);
     ``words`` as in ``mm_planes``."""
     T = link.T
     tx, er, ei, xr, xi = mm_planes(link, key, sym0, chunk, snr_lin, acc.device, words, rows)
+    if dump is not None:
+        lk.write_dump(link, dump, er, ei)
     lk.count_errors(link, tx, er, ei, acc)
     lk.add_papr(xr[:, :T], xi[:, :T], acc, psum)
     return xr[-1, :T].clone(), xi[-1, :T].clone()
@@ -237,12 +240,14 @@ def mm_chunk(
     psum: torch.Tensor,
     work=None,
     rows=None,
+    dump=None,
 ):
     """One chunk of run symbols [sym0, sym0 + chunk): adds its bit errors,
     symbol errors and PAPR peak bits into ``acc`` and its PAPR power sum
     into ``psum``.  Returns the carry row (re, im): the last symbol's TX time
     row x[:T], written into ``work`` (a ``chunk_workspace``) when given.
-    ``rows``: the stages' per-lane rows (``link_kernel.stage_rows``).
+    ``rows``: the stages' per-lane rows (``link_kernel.stage_rows``).  ``dump``: the dump stage's
+    planes (``link_kernel.new_dump``; counted in ``mm_chunk.dump_launches``).
 
     CUDA tensors launch the fused kernels (csrc/mm_kernel.cu): ``mm_front``
     (TX, PAPR, conv, y before noise and the tile power partials) and then
@@ -253,13 +258,15 @@ def mm_chunk(
     ``mm_chunk_plain``."""
     dev = acc.device
     if dev.type == "cpu":
-        return mm_chunk_plain(link, key, sym0, chunk, snr_lin, acc, psum, rows=rows)
+        return mm_chunk_plain(link, key, sym0, chunk, snr_lin, acc, psum, rows=rows, dump=dump)
     if dev.type != "cuda":
         raise ValueError(f"mm_chunk runs on cpu or cuda, not {dev}")
     lk.check_accumulators(acc, psum)
     _check_link(link, dev)
     if not 1 <= chunk <= (2**31 - 1) // link.T:
         raise ValueError(f"chunk out of range: {chunk}")
+    if dump is not None:
+        lk.check_dump(dump, chunk, link.n, dev)
     tile, tiles, groups = _chunk_geometry(link, chunk)
     work = chunk_workspace(link, chunk, dev) if work is None else work
     lk.check_work(work, (chunk * link.T, chunk * link.T, tiles * groups, link.T, link.T, -(-chunk // RUN),
@@ -267,7 +274,7 @@ def mm_chunk(
     y_r, y_i, partials, carry_r, carry_i, norm_part, norm_f = work
     from ofdm_tpu_torch import build
 
-    lib = build.load("mm_staged" if lk.link_stages(link) else "mm_kernel")
+    lib = build.load(lk.staged_library(link, dump, "mm_kernel", "mm_staged"))
     sc = link.is_sc
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
@@ -284,11 +291,12 @@ def mm_chunk(
             key[0], key[1],
             y_r.data_ptr(), y_i.data_ptr(), partials.data_ptr(), acc.data_ptr(), psum.data_ptr(),
             carry_r.data_ptr(), carry_i.data_ptr(),
-            *lk.stage_args(link, rows, norm_part, norm_f), stream,
+            *lk.stage_args(link, rows, norm_part, norm_f, dump), stream,
         )
     build.check(lib, code, "ofdm_mm_chunk")
     mm_chunk.front_launches += 1
     mm_chunk.norm_launches += int(link.normalize)
+    mm_chunk.dump_launches += int(dump is not None)
     mm_chunk.launches += 1
     return carry_r, carry_i
 
@@ -296,3 +304,4 @@ def mm_chunk(
 mm_chunk.launches = 0  # mm_main kernels launched (the pass that counts errors)
 mm_chunk.front_launches = 0  # mm_front kernels launched
 mm_chunk.norm_launches = 0  # normalization passes (each with its norm_factors) launched
+mm_chunk.dump_launches = 0  # counting passes that ran the dump stage

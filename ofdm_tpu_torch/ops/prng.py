@@ -26,8 +26,21 @@ noise-bump study's post-equalization noise (the diag chain's post_noise
 stage) draws one complex normal a bin after the equalizer: bin k takes
 words 1 and 2 of counter (b lo, b hi, k, 3) (``post_noise_words``), a
 fourth value of the last counter word that meets none of the streams of
-c3 = 0 (bins, time samples), 1 (colored draws) or 2 (uniform words).  A
+c3 = 0 (bins, time samples), 1 (colored draws) or 2 (uniform words).  The
+eager chain (``pipeline``'s chain for the links no chunk kernel takes)
+draws from two more: its time-domain AWGN takes words 1 and 2 of counter
+(b lo, b hi, j, 4) for time sample j of symbol b, and the noise-bump
+study's small-batch sampler (``experiments.noise_bump._Link``) its post-EQ
+noise from counter (b lo, b hi, k, 5) for bin k (``normal_planes``).  A
 draw therefore depends on neither the chunking nor the launch geometry.
+
+``philox_plane`` fills a (rows, cols) plane with word 0 of counters
+(b lo, b hi, c, c3), b = sym0 + row: at c3 = 0 the TX words the chunk
+kernels draw, so the eager chain and every kernel send the same symbols
+for one seed.  ``normal_planes`` turns words 1 and 2 of the same counters
+into two N(0,1) planes by Box-Muller with the library's log, sqrt, cos and
+sin (the TPU kernel ``ofdm_tpu.ops.prng._normal_kernel``'s math, not the
+link kernels' polynomial phase).
 
 ``random_u32`` (the counterpart of ``ofdm_tpu.ops.prng.random_u32``, whose
 TPU kernel is ``_pallas_u32``) fills uniform words from counters
@@ -192,3 +205,99 @@ def uniform_indices(key: Tuple[int, int], shape, mask, device="cuda"):
     if m.ndim == 0:
         return words & int(m)
     return words & torch.as_tensor(m.astype(np.int32), device=words.device)
+
+
+# Last counter words of the eager chain's streams: its time-domain AWGN and
+# the noise-bump sampler's post-EQ noise.
+AWGN_STREAM = 4
+BUMP_STREAM = 5
+_TWO_PI = float(np.float32(2.0 * np.pi))
+
+
+def _plane_counters(sym0: int, rows: int, cols: int, device):
+    b = torch.arange(sym0, sym0 + rows, dtype=torch.int64, device=device)[:, None]
+    c = torch.arange(cols, dtype=torch.int64, device=device)[None, :]
+    return b & M32, b >> 32, c
+
+
+def _check_plane(sym0: int, rows: int, cols: int, c3: int):
+    if rows < 1 or cols < 1 or not 0 <= sym0 < 1 << 64 or not 0 <= c3 <= M32 or rows * cols >= 1 << 62:
+        raise ValueError(f"bad plane: sym0={sym0} rows={rows} cols={cols} c3={c3}")
+
+
+def philox_plane_plain(key: Tuple[int, int], sym0: int, rows: int, cols: int, c3: int = 0, device="cpu"):
+    """Plain version of ``philox_plane``: (rows, cols) int32 holding the uint32 bits."""
+    _check_plane(sym0, rows, cols, c3)
+    lo, hi, c = _plane_counters(sym0, rows, cols, device)
+    w0, _, _, _ = philox4x32_10(lo, hi, c, torch.full((), c3, dtype=torch.int64, device=device), key)
+    return (w0 - ((w0 >> 31) << 32)).to(torch.int32)
+
+
+def _plane_launch(fn: str, outs, key, sym0, rows, cols, c3, device):
+    """Launch one of boxmuller.cu's plane kernels into ``outs``."""
+    from ofdm_tpu_torch import build
+
+    lib = build.load("boxmuller")
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = getattr(lib, fn)(*(o.data_ptr() for o in outs), rows, cols, sym0, c3, key[0], key[1], stream)
+    build.check(lib, code, fn)
+
+
+def philox_plane(key: Tuple[int, int], sym0: int, rows: int, cols: int, c3: int = 0, device="cuda"):
+    """Word 0 of Philox counters (b lo, b hi, c, c3) for rows b = sym0 ...
+    sym0 + rows - 1 and columns c < cols, as (rows, cols) int32 holding the
+    uint32 bits (K4's plane form).  At c3 = 0 these are the TX words of the
+    chunk kernels (``link_words``' first plane).  On a CUDA device the
+    ``ofdm_philox_plane`` kernel writes them (``philox_plane.launches``);
+    on the CPU the plain version."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return philox_plane_plain(key, sym0, rows, cols, c3, device)
+    if device.type != "cuda":
+        raise ValueError(f"philox_plane runs on cpu or cuda, not {device}")
+    _check_plane(sym0, rows, cols, c3)
+    out = torch.empty((rows, cols), dtype=torch.int32, device=device)
+    _plane_launch("ofdm_philox_plane", (out,), key, sym0, rows, cols, c3, device)
+    philox_plane.launches += 1
+    return out
+
+
+philox_plane.launches = 0
+
+
+def normal_planes_plain(key: Tuple[int, int], sym0: int, rows: int, cols: int, c3: int, device="cpu"):
+    """Plain version of ``normal_planes``, in torch f32."""
+    _check_plane(sym0, rows, cols, c3)
+    lo, hi, c = _plane_counters(sym0, rows, cols, device)
+    _, w1, w2, _ = philox4x32_10(lo, hi, c, torch.full((), c3, dtype=torch.int64, device=device), key)
+    inv = 1.0 / 16777216.0
+    u1 = torch.clamp(((w1 >> 8) & 0xFFFFFF).to(torch.float32) * inv, min=inv)
+    u2 = ((w2 >> 8) & 0xFFFFFF).to(torch.float32) * inv
+    r = torch.sqrt(-2.0 * torch.log(u1))
+    theta = _TWO_PI * u2
+    return r * torch.cos(theta), r * torch.sin(theta)
+
+
+def normal_planes(key: Tuple[int, int], sym0: int, rows: int, cols: int, c3: int, device="cuda"):
+    """Two N(0,1) f32 planes (z0, z1) of shape (rows, cols): element (r, c)
+    from words 1 and 2 of Philox counter ((sym0 + r) lo, hi, c, c3) by
+    ``ofdm_tpu.ops.prng._normal_kernel``'s Box-Muller: 24-bit u1 floored at
+    2^-24, u2 from 24 bits, r = sqrt(-2 ln u1), theta = 2 pi u2, z0 = r cos
+    theta, z1 = r sin theta.  On a CUDA device the ``ofdm_normal_pair``
+    kernel (K5's port; ``normal_planes.launches``), on the CPU the plain
+    version; the two agree within a few ulps of the library cos and sin."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return normal_planes_plain(key, sym0, rows, cols, c3, device)
+    if device.type != "cuda":
+        raise ValueError(f"normal_planes runs on cpu or cuda, not {device}")
+    _check_plane(sym0, rows, cols, c3)
+    z0 = torch.empty((rows, cols), dtype=torch.float32, device=device)
+    z1 = torch.empty_like(z0)
+    _plane_launch("ofdm_normal_pair", (z0, z1), key, sym0, rows, cols, c3, device)
+    normal_planes.launches += 1
+    return z0, z1
+
+
+normal_planes.launches = 0

@@ -31,10 +31,25 @@ or no noise, and both power switches: ``apply_power_allocation`` scales the
 TX symbols by sqrt(P) per subcarrier (P the point's allocation, which
 sums to 1, or to n under adaptive loading) and ``normalize_before_demap``
 scales the equalized points to unit mean power per tile before the demap
-(the kernels' ``apply_power`` and ``normalize`` stages).  Every other
-configuration prepares as in the JAX package but raises
-NotImplementedError at ``kernel_mode`` (and so at ``LinkRunner``), naming
-the ROADMAP item that will bring it; nothing falls back to a slower path.
+(the kernels' ``apply_power`` and ``normalize`` stages).
+
+* "eager" (``eager_chunk``): every link no kernel takes (adaptive SC-FDE,
+  ISI-free links at 257-512 subcarriers, single-tap channels past 256,
+  fold and zero-prefix mm links past their widths, lr links past 4096
+  subcarriers or 63 tail lanes), and every link whose ``hotpath`` is
+  neither "auto" nor "pallas": the JAX package's ``chunk_body`` on native
+  complex64 tensors, as the JAX package falls back to XLA
+  (ofdm_tpu/pipeline.py:568-590).  Its random draws are the kernels'
+  Philox: the TX indices are ``prng.philox_plane``'s words (the chunk
+  kernels' TX words), the AWGN normals ``prng.normal_planes`` at c3 = 4.
+
+Routing is static and decided before any launch: a kernel that fails to
+build or launch raises, and nothing carries on in the eager chain.
+
+Symbol capture (``run(collect_symbols=k)``) is bitwise the counted
+realization: on a kernel path ``run()`` replays chunk 0 outside the timed
+window through the kernel's dump stage (the same chain, counted into
+accumulators of its own), on the eager chain it keeps chunk 0's points.
 
 Reference quirks kept (SURVEY §3.2): the equalizer's H comes from the
 *un-normalized* impulse response while the channel convolves the
@@ -56,7 +71,9 @@ from numpy.typing import NDArray
 
 from ofdm_tpu_torch.config import (
     AdaptiveModulationMode,
+    EqualizationMethod,
     ModulationType,
+    NoiseType,
     PowerAllocationType,
     PrefixType,
     SimulationConfig,
@@ -64,6 +81,8 @@ from ofdm_tpu_torch.config import (
 from ofdm_tpu_torch.models import channels as chm
 from ofdm_tpu_torch.ops import adaptive as ad
 from ofdm_tpu_torch.ops import allocate as al
+from ofdm_tpu_torch.ops import channel as ch
+from ofdm_tpu_torch.ops import equalize as eq
 from ofdm_tpu_torch.ops import fold_kernel as fk
 from ofdm_tpu_torch.ops import link_kernel as lk
 from ofdm_tpu_torch.ops import linops
@@ -71,6 +90,7 @@ from ofdm_tpu_torch.ops import lr_kernel as lrk
 from ofdm_tpu_torch.ops import mapping as mp
 from ofdm_tpu_torch.ops import metrics as mt
 from ofdm_tpu_torch.ops import mm_kernel as mmk
+from ofdm_tpu_torch.ops import ofdm
 from ofdm_tpu_torch.ops import prng
 
 
@@ -200,7 +220,7 @@ class _Kernel(NamedTuple):
     """One chunk kernel as the runner drives it."""
 
     link: Callable  # (setup, device) -> the link's device constants
-    chunk: Callable  # (link, key, sym0, chunk, snr_lin, acc, psum, work, rows)
+    chunk: Callable  # (link, key, sym0, chunk, snr_lin, acc, psum, work, rows, dump=None)
     workspace: Callable  # (link, chunk, device) -> the chunk's scratch
     papr_samples: Callable  # (link, chunk) -> time samples the PAPR statistic sees
 
@@ -213,32 +233,23 @@ _KERNELS = {
 }
 
 
-def _unported(reason: str) -> NotImplementedError:
-    return NotImplementedError(f"not in this slice of the port: {reason}")
-
-
 def kernel_mode(setup: LinkSetup) -> str:
-    """"diag", "fold", "lr" or "mm": the chunk kernel that runs ``setup``.
-    Raises NotImplementedError naming the ROADMAP item that will bring any
-    other link."""
+    """"diag", "fold", "lr" or "mm": the chunk kernel that runs ``setup``, or
+    "eager" for a link no kernel takes and for a ``hotpath`` other than
+    "auto" and "pallas" (the JAX package's chunk_body)."""
     cfg = setup.cfg
     n = cfg.num_subcarriers
+    if cfg.hotpath not in ("auto", "pallas"):
+        return "eager"
     if setup.is_adaptive and cfg.modulation_type == ModulationType.SC_OFDM:
-        raise _unported("SC-FDE with adaptive loading (ROADMAP modules item 8b)")
+        return "eager"  # adaptive SC-FDE (ROADMAP modules item 8b): the XLA path's semantics
     zp = cfg.prefix_type == PrefixType.ZERO
 
     def dense():
-        """The unfactored chain: mm for a zero prefix, fold otherwise."""
+        """The unfactored chain: mm for a zero prefix, fold otherwise, within their widths."""
         if zp:
-            if n > mmk.MAX_N or setup.block_length > mmk.MAX_T:
-                raise _unported(f"zero-prefix mm links wider than {mmk.MAX_N} subcarriers or "
-                                f"{mmk.MAX_T} time samples (ROADMAP modules item 7b, the mm kernel "
-                                f"past 256 subcarriers)")
-            return "mm"
-        if n > fk.MAX_N:
-            raise _unported(f"fold links wider than {fk.MAX_N} subcarriers "
-                            "(ROADMAP modules item 5, the fold kernel past 256 subcarriers)")
-        return "fold"
+            return "mm" if n <= mmk.MAX_N and setup.block_length <= mmk.MAX_T else "eager"
+        return "fold" if n <= fk.MAX_N else "eager"
 
     if cfg.modulation_type == ModulationType.SC_OFDM:
         return dense()
@@ -247,24 +258,115 @@ def kernel_mode(setup: LinkSetup) -> str:
     if isi_free and n <= lk.MAX_N:
         return "diag"
     if isi_free and n <= DIAG_MAX_N:
-        raise _unported(f"ISI-free links at {lk.MAX_N + 1}-{DIAG_MAX_N} subcarriers "
-                        "(ROADMAP modules item 6b, the diag kernel past 256 subcarriers)")
+        return "eager"  # ISI-free links at 257-512 sc (ROADMAP modules item 6b)
     if not isi_free and n < LR_MIN_N:
         return dense()
     if linops.ext_width(len(setup.taps), setup.block_length) == 0:
-        if zp:
-            return dense()
-        raise _unported(f"single-tap channels wider than {lk.MAX_N} subcarriers "
-                        "(ROADMAP modules item 6b, the diag kernel past 256 subcarriers)")
+        return dense() if zp else "eager"  # single-tap channels past 256 sc (item 6b)
     if n > lrk.MAX_N:
-        raise _unported(f"lr links wider than {lrk.MAX_N} subcarriers (ROADMAP modules item 6)")
+        return "eager"
     f = lrk.lr_factors(setup)
     if f is None:
         return dense()  # as the JAX package: the factorization failed its certification
     if f.E > lrk.MAX_E or f.noise_rank > lrk.MAX_RANK:
-        raise _unported(f"lr links with more than {lrk.MAX_E} tail lanes or a noise rank above "
-                        f"{lrk.MAX_RANK} (ROADMAP modules item 6)")
+        return "eager"
     return "lr"
+
+
+# --- the eager chain (ofdm_tpu/pipeline.py:392-566, chunk_body) ---------------
+
+
+@dataclasses.dataclass(frozen=True)
+class EagerLink:
+    """What the eager chain reads: the setup and its complex64 rows on one device."""
+
+    setup: LinkSetup
+    taps: torch.Tensor  # (K,) unit-energy taps, the channel's
+    h_freq: torch.Tensor  # (n,) raw-IR response, the equalizer's
+    mask: Any  # the TX index mask: an int, or an (n,) int32 row under adaptive loading
+
+    @property
+    def device(self) -> torch.device:
+        return self.taps.device
+
+
+def eager_link(setup: LinkSetup, device) -> EagerLink:
+    """The eager chain's device constants of ``setup``."""
+    mask = (torch.tensor(ad.index_mask(setup.amap).astype(np.int32), device=device) if setup.is_adaptive
+            else setup.cfg.constellation_order - 1)
+    return EagerLink(setup, torch.tensor(setup.taps, dtype=torch.complex64, device=device),
+                     torch.tensor(setup.h_freq, dtype=torch.complex64, device=device), mask)
+
+
+def eager_carry(link: EagerLink) -> torch.Tensor:
+    """The stream convolution's carry at the run's start: (K - 1,) zeros."""
+    return torch.zeros(max(link.taps.shape[0] - 1, 0), dtype=torch.complex64, device=link.device)
+
+
+def eager_chunk(link: EagerLink, key, sym0: int, chunk: int, snr_db: float, acc: torch.Tensor,
+                psum: torch.Tensor, carry: torch.Tensor, rows=None, draws=None):
+    """One chunk of run symbols [sym0, sym0 + chunk) through the eager chain
+    (ofdm_tpu.pipeline.LinkRunner.chunk_body on the complex engine): adds
+    its bit and symbol errors and PAPR peak bits into ``acc`` and its PAPR
+    power sum into ``psum``, on the accumulators' device, with no host
+    sync.  Returns (the next carry, the chunk's equalized data (chunk, n)
+    complex64 in data units, ``chunk_body``'s ``data``).
+
+    TX indices: word 0 of Philox counter (b lo, b hi, k, 0)
+    (``prng.philox_plane``, the chunk kernels' TX words) masked by the
+    order or each subcarrier's mask; table encode; x sqrt(P) (``rows[0]``)
+    under ``apply_power_allocation``; OFDM IFFT + guard or the SC guard;
+    the PAPR statistic over every block; the stream convolution with the
+    unit-energy taps from ``carry``; AWGN with sigma from the chunk's mean
+    |rx|^2 and normals ``prng.normal_planes`` at (run symbol, time sample,
+    c3 = 4); guard removal and FFT; ZF / MMSE / none against the raw
+    h_freq; the SC IDFT on SC-FDE; unit power over the chunk under
+    ``normalize_before_demap``; hard decisions (adaptive: nearest point of
+    each subcarrier's table); popcount of tx ^ rx.  ``draws`` = (tx
+    indices (chunk, n), z0, z1 (chunk, T)) injects the draws instead."""
+    s = link.setup
+    cfg = s.cfg
+    n, L = cfg.num_subcarriers, s.prefix_length
+    dev = acc.device
+    if draws is None:
+        tx = prng.philox_plane(key, sym0, chunk, n, 0, dev) & link.mask
+    else:
+        tx = torch.as_tensor(np.asarray(draws[0]), device=dev)
+    symbols = ad.encode_complex(tx, s.amap) if s.is_adaptive else mp.encode_indices(tx, s.const)
+    if cfg.apply_power_allocation:
+        if rows is None or rows.dtype != torch.float32 or rows.shape[-1] != n or rows.device != dev:
+            raise ValueError(f"apply_power_allocation reads rows[0] = sqrt(P): an f32 (1, {n}) tensor on {dev}")
+        symbols = symbols * rows[0]
+    if cfg.modulation_type == ModulationType.OFDM:
+        blocks = ofdm.ofdm_modulate(symbols, n, cfg.prefix_type, L)
+    else:
+        blocks = ofdm.sc_modulate(symbols, cfg.prefix_type, L)
+    peak, total, _ = mt.papr_stats(blocks)
+    add_noise = cfg.noise_type == NoiseType.AWGN
+    z = None
+    if add_noise:
+        T = blocks.shape[1]
+        z = (prng.normal_planes(key, sym0, chunk, T, prng.AWGN_STREAM, dev) if draws is None
+             else tuple(torch.as_tensor(np.asarray(d, np.float32), device=dev) for d in draws[1:]))
+    rx, carry = ch.transmit(blocks, link.taps, snr_db, z, add_noise=add_noise, carry=carry)
+    freq = ofdm.ofdm_demodulate_to_freq(rx, n, cfg.prefix_type, L)
+    data = eq.equalize(freq, link.h_freq, cfg.equalization_method, snr_db)
+    if cfg.modulation_type == ModulationType.SC_OFDM:
+        data = ofdm.sc_demodulate_from_freq(data, n)
+    if cfg.normalize_before_demap:
+        avg = ch.mean_abs2(data)
+        data = torch.where(avg > 1e-10, data / torch.sqrt(avg), data)
+    if s.is_adaptive:
+        rx_idx = ad.decode_to_indices(data, s.amap)
+        max_bits = int(s.amap.bits_per_subcarrier.max())
+    else:
+        rx_idx = mp.decode_hard(data, s.const)
+        max_bits = s.const.bits_per_symbol
+    acc[0] += mt.index_bit_errors(tx, rx_idx, max_bits)
+    acc[1] += mt.symbol_errors(tx, rx_idx)
+    acc[2] = torch.maximum(acc[2], peak.reshape(1).view(torch.int32).to(torch.int64)[0] & prng.M32)
+    psum += total
+    return carry, data
 
 
 def sampled_tx_papr(idx: torch.Tensor, table, ftx, rows: int = 4096):
@@ -315,8 +417,8 @@ class LinkRunner:
         self.setup = setup
         self.device = device
         self.mode = mode
-        self.kernel = _KERNELS[mode]
-        self.link = self.kernel.link(setup, device)
+        self.kernel = _KERNELS.get(mode)
+        self.link = eager_link(setup, device) if mode == "eager" else self.kernel.link(setup, device)
         self._papr_cache = None
 
     def point_params(self, snr_db: float):
@@ -339,13 +441,22 @@ class LinkRunner:
         The kernel takes any symbol count and masks its ragged last tile,
         so the last chunk is simply shorter; the cap keeps the kernel's
         int32 indexing in range: chunk * n bins, and chunk * T time samples
-        on the mm chain."""
+        on the mm chain.  The eager chain takes the same cap in time
+        samples; it holds a few complex64 (chunk, T) planes at once (about
+        1.1 GB each at 1024 subcarriers and 2^17 symbols; PERF.md gives the
+        measured peak), which the card's 80 GB take at the chunk sizes the
+        kernels run, so it keeps the same plan.
+        hotpath_used: "cuda" (a kernel), "torch" (its plain version on the
+        CPU) or "eager" (the eager chain, on either device)."""
         s = self.setup
         B = s.num_ofdm_symbols
-        width = s.block_length if self.mode == "mm" else s.cfg.num_subcarriers
+        width = s.block_length if self.mode in ("mm", "eager") else s.cfg.num_subcarriers
         chunk = min(s.cfg.symbols_per_chunk or B, B, (2**31 - 1) // width)
         chunk = max(chunk, 1)
-        hotpath_used = "cuda" if self.device.type == "cuda" else "torch"
+        if self.mode == "eager":
+            hotpath_used = "eager"
+        else:
+            hotpath_used = "cuda" if self.device.type == "cuda" else "torch"
         return chunk, -(-B // chunk), hotpath_used, "fp32"
 
     def _results(
@@ -401,8 +512,8 @@ class LinkRunner:
             "papr_db": mt.papr_db(papr_peak, papr_sum, papr_count),
             # Fraction of time samples the PAPR statistic saw: every
             # papr_stride-th tile of each chunk on diag and narrow lr links,
-            # every sample on fold links, the sampled TX batch from 512
-            # subcarriers (error counts cover all).
+            # every sample on fold, mm and eager links, the sampled TX batch
+            # from 512 subcarriers on lr (error counts cover all).
             "papr_sample_fraction": papr_count / (B * s.block_length) if B else 1.0,
             # "in_run": the run's own TX planes; "sampled_tx": the fixed-seed
             # sampled TX batch (_papr_sample).
@@ -420,7 +531,8 @@ class LinkRunner:
             "ofdm_symbols_per_s": B / elapsed if elapsed > 0 else float("inf"),
             "bits_per_s": s.total_bits / elapsed if elapsed > 0 else float("inf"),
             # Provenance: "cuda" = the fused kernel, "torch" = its plain
-            # version on the CPU; "fp32" = the PAPR IDFT in full f32.
+            # version on the CPU, "eager" = the eager chain (either device);
+            # "fp32" = the PAPR IDFT in full f32.
             "hotpath_used": hotpath_used,
             "matmul_passes_used": matmul_passes_used,
             "kernel_ablation": "",
@@ -445,6 +557,20 @@ class LinkRunner:
             self._papr_cache = sampled_tx_papr(idx, s.amap if s.is_adaptive else s.const, ftx)
         return self._papr_cache
 
+    def capture(self, key, chunk: int, snr_lin: float, rows, collect: int) -> np.ndarray:
+        """The first ``collect`` equalized points of chunk 0 in data units,
+        symbol-major, as numpy complex64: chunk 0 (sym0 = 0, the run's key
+        and chunk size) replayed through the kernel with its dump stage,
+        counted into accumulators of its own (the run's counts are
+        untouched).  The replay computes the counted chain, so the points
+        are bitwise the counted realization."""
+        n = self.setup.cfg.num_subcarriers
+        dump = lk.new_dump(lk.dump_rows(collect, n, chunk), n, self.device)
+        acc, psum = lk.new_accumulators(self.device)
+        work = self.kernel.workspace(self.link, chunk, self.device) if self.device.type == "cuda" else None
+        self.kernel.chunk(self.link, key, 0, chunk, snr_lin, acc, psum, work, rows, dump=dump)
+        return torch.complex(dump[0], dump[1]).reshape(-1)[:collect].cpu().numpy()
+
     def run(
         self,
         seed: int = 0,
@@ -457,11 +583,19 @@ class LinkRunner:
         ``seed`` (an int < 2^64) keys every random draw of the run;
         ``snr_db`` overrides the config's SNR, so one runner serves a sweep
         (fixed mode only: adaptive loading depends on the SNR, so each point
-        needs its own ``prepare()``)."""
-        if collect_symbols > 0 or render_constellation:
-            raise NotImplementedError(
-                "symbol capture is not ported yet (ROADMAP modules item 10)"
-            )
+        needs its own ``prepare()``).
+
+        ``collect_symbols=k`` returns chunk 0's first k equalized points in
+        ``results["received_symbols"]`` (numpy complex64, data units,
+        symbol-major), bitwise the counted realization
+        (``received_symbols_exact`` is True): a kernel path replays chunk 0
+        through its dump stage before the timed window (``capture``), the
+        eager chain keeps its chunk 0's points.
+        ``render_constellation=True`` collects 4096 points when k is 0 and
+        renders the reference's constellation figure into
+        ``results["constellation_plot"]`` (a PIL image; needs matplotlib)."""
+        if render_constellation and collect_symbols <= 0:
+            collect_symbols = 4096
         s = self.setup
         if snr_db is None:
             snr_db = s.cfg.snr_db
@@ -478,14 +612,25 @@ class LinkRunner:
         B = s.num_ofdm_symbols
         chunk, num_chunks, hotpath_used, passes_used = self._chunk_plan()
         acc, psum = lk.new_accumulators(self.device)
+        eager = self.mode == "eager"
+        received = None
+        if collect_symbols > 0 and not eager:
+            received = self.capture(key, min(chunk, B), snr_lin, rows, collect_symbols)
 
         # kernel scratch per chunk size (the last chunk may be shorter)
         works = {}
         papr_count = 0
+        carry = eager_carry(self.link) if eager else None
         t0 = time.perf_counter()
         for c in range(num_chunks):
             sym0 = c * chunk
             size = min(chunk, B - sym0)
+            if eager:
+                carry, data = eager_chunk(self.link, key, sym0, size, snr_db, acc, psum, carry, rows)
+                if c == 0 and collect_symbols > 0:
+                    received = data.reshape(-1)[:collect_symbols].clone()
+                papr_count += size * s.block_length
+                continue
             if size not in works and self.device.type == "cuda":
                 works[size] = self.kernel.workspace(self.link, size, self.device)
             self.kernel.chunk(self.link, key, sym0, size, snr_lin, acc, psum, works.get(size), rows)
@@ -493,6 +638,8 @@ class LinkRunner:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         elapsed = time.perf_counter() - t0
+        if isinstance(received, torch.Tensor):
+            received = received.cpu().numpy()
 
         be, se, peak_bits = acc.tolist()
         results = self._results(
@@ -507,5 +654,12 @@ class LinkRunner:
             hotpath_used,
             passes_used,
         )
-        results["received_symbols_exact"] = None
+        results["received_symbols"] = received
+        results["received_symbols_exact"] = True if collect_symbols > 0 else None
+        if render_constellation:
+            from ofdm_tpu_torch.utils.visualization import render_results_constellation
+
+            results["constellation_plot"] = render_results_constellation(
+                results, s.constellation_points, s.constellation_orders, s.cfg.num_subcarriers,
+                adaptive=s.is_adaptive)
         return results

@@ -183,9 +183,10 @@ def test_adaptive_sampled_papr_matches_jax_runner():
 
 
 def test_adaptive_scfde_and_snr_override_raise():
+    # adaptive SC-FDE runs on the eager chain, with the XLA path's semantics
     sc = tpl.prepare(_reference(tcfg, 20.0, num_symbols=16, modulation_type="SC-OFDM"))
-    with pytest.raises(NotImplementedError, match="ROADMAP modules item 8b"):
-        tpl.LinkRunner(sc, device="cpu")
+    sc_runner = tpl.LinkRunner(sc, device="cpu")
+    assert sc_runner.mode == "eager" and sc_runner.run(0)["hotpath_used"] == "eager"
     runner = tpl.LinkRunner(tpl.prepare(_reference(tcfg, 20.0, num_symbols=16)), device="cpu")
     with pytest.raises(ValueError, match="SNR-dependent"):
         runner.run(0, snr_db=25.0)

@@ -288,9 +288,10 @@ def test_scfde_snr_sweep_falls():
         (LINKS["ofdm_no_prefix_p2"], "mm", "fold"),
         (dict(LINKS["ofdm_short_cp"], num_subcarriers=128, num_symbols=128 * 16), "lr", "lr"),
         (dict(modulation_type="OFDM", channel_model="Lin-Phoong_P2"), "diag", "diag"),
-        # ISI-free past the port's 256-subcarrier diag kernel (JAX: diag, tile 2048)
+        # ISI-free past the port's 256-subcarrier diag kernel (JAX: diag, tile
+        # 2048): the eager chain
         (dict(modulation_type="OFDM", channel_model="Lin-Phoong_P2", num_subcarriers=384,
-              num_symbols=384 * 16), "diag", None),
+              num_symbols=384 * 16), "diag", "eager"),
     ],
     ids=["scfde_default", "scfde_256sc", "ofdm_short_cp", "ofdm_no_prefix", "ofdm_short_cp_128sc",
          "ofdm_cp_covers", "ofdm_isi_free_384sc"],
@@ -299,13 +300,7 @@ def test_routing_mirrors_jax_plan(extra, conv, mode):
     kw = dict(SCFDE_DEFAULT, **extra)
     setup = tpl.prepare(tcfg.SimulationConfig(**kw))
     assert pk.plan_for(_jax_runner(kw))[1] == conv
-    if mode is None:
-        with pytest.raises(NotImplementedError, match="ROADMAP modules item 6b"):
-            tpl.kernel_mode(setup)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tpl.LinkRunner(setup, device="cpu")
-    else:
-        assert tpl.kernel_mode(setup) == mode == tpl.LinkRunner(setup, device="cpu").mode
+    assert tpl.kernel_mode(setup) == mode == tpl.LinkRunner(setup, device="cpu").mode
 
 
 def test_fold_runner_needs_cuda_or_an_explicit_cpu():

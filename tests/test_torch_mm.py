@@ -148,17 +148,17 @@ def test_mm_link_and_tile_match_jax_spec(name):
 
 
 ROUTES = [
-    # (config, JAX conv, port mode or None = raises naming item 7b)
+    # (config, JAX conv, port mode: "eager" past the mm kernel's widths)
     (_sized(ZP_64SC, 32), "mm", "mm"),
     (ZP_64SC, "mm", "mm"),
     (_sized(ZP_64SC, 127), "mm", "mm"),
     (_sized(ZP_64SC, 128), "lr", "lr"),
     (dict(ZP_64SC, channel_model="flat_fading"), "mm", "mm"),
     (_sized(dict(ZP_64SC, channel_model="flat_fading"), 256), "mm", "mm"),
-    (_sized(dict(ZP_64SC, channel_model="flat_fading"), 512), "mm", None),
+    (_sized(dict(ZP_64SC, channel_model="flat_fading"), 512), "mm", "eager"),
     ({**ZP_64SC, **SCFDE_ZP}, "mm", "mm"),
     (_sized({**ZP_64SC, **SCFDE_ZP}, 256), "mm", "mm"),
-    (_sized({**ZP_64SC, **SCFDE_ZP}, 512), "mm", None),
+    (_sized({**ZP_64SC, **SCFDE_ZP}, 512), "mm", "eager"),
 ]
 
 
@@ -168,13 +168,7 @@ ROUTES = [
 def test_routing_mirrors_jax_plan(kw, conv, mode):
     assert pk.plan_for(_jax_runner(kw))[1] == conv
     setup = _port_setup(kw)
-    if mode is None:
-        with pytest.raises(NotImplementedError, match="ROADMAP modules item 7b"):
-            tpl.kernel_mode(setup)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tpl.LinkRunner(setup, device="cpu")
-    else:
-        assert tpl.kernel_mode(setup) == mode == tpl.LinkRunner(setup, device="cpu").mode
+    assert tpl.kernel_mode(setup) == mode == tpl.LinkRunner(setup, device="cpu").mode
 
 
 @pytest.mark.parametrize(

@@ -73,7 +73,8 @@ def test_fused_link_matches_jax_fused_link_interpret(monkeypatch):
 
 
 def test_fused_campaign_matches_reference_curves(tmp_path):
-    res = tnb.run_noise_bump_experiment((0.0, 15.0, 30.0), 1 << 11, results_dir=str(tmp_path), device="cpu")
+    res = tnb.run_noise_bump_experiment((0.0, 15.0, 30.0), fused_symbols_per_point=1 << 11,
+                                        results_dir=str(tmp_path), device="cpu")
     for name, ref in REFERENCE.items():
         for a, b in zip(res[name], ref):
             assert abs(a - b) < 0.02, (name, res[name], ref)
@@ -83,10 +84,17 @@ def test_fused_campaign_matches_reference_curves(tmp_path):
 
 
 def test_unported_paths_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP modules item 2.*kernel item 9"):
-        tnb.run_noise_bump_experiment((10.0,), 1024, results_dir=str(tmp_path), save_plots=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP modules item 2"):
-        tnb.run_noise_bump_experiment((10.0,), 0, results_dir=str(tmp_path), device="cpu")
+    # the plots and the eager-only campaign (the _Link sampler) run now
+    res = tnb.run_noise_bump_experiment((10.0,), 1024, results_dir=str(tmp_path), output_dir=str(tmp_path / "img"),
+                                        save_plots=True, max_plot_symbols=512, fused_symbols_per_point=1024,
+                                        device="cpu")
+    assert set(res) == {s.name for s in tnb.SCENARIOS} and all(0 < b[0] < 0.5 for b in res.values())
+    assert (tmp_path / "img" / "CP-OFDM-WF-6dB" / "CP-OFDM-WF-6dB-SNR10dB.png").exists()
+    assert (tmp_path / "img" / "CP-OFDM-waterfilling-ber-comparison.png").exists()
+    eager = tnb.run_noise_bump_experiment((10.0,), 1024, results_dir=str(tmp_path), device="cpu")
+    assert eager == tnb.run_noise_bump_experiment((10.0,), 1024, results_dir=str(tmp_path),
+                                                  fused_symbols_per_point=0, device="cpu")
+    assert all(0 < b[0] < 0.5 for b in eager.values()) and eager != res
 
 
 def test_fused_link_chunks_divide_the_batch():

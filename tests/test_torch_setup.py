@@ -44,7 +44,8 @@ CONFIGS = {
     "default_channel_num_bits": dict(channel_type="FLAT", channel_model=None, num_symbols=None,
                                      num_bits=6 * 64 * 512),
     "zero_prefix": dict(prefix_type="ZERO"),
-    # ISI-free past the port's 256-subcarrier diag kernel (ROADMAP item 6b)
+    # ISI-free past the port's 256-subcarrier diag kernel (ROADMAP item 6b):
+    # the eager chain
     "psk_unsupported": dict(constellation_type="PSK", constellation_order=8, num_subcarriers=384,
                             num_symbols=384 * 16),
 }
@@ -74,11 +75,9 @@ def _assert_setup_equal(a, b):
 def test_prepare_equals_jax_exactly(name):
     js, ts = _both(name)
     _assert_setup_equal(js, ts)
-    if name.endswith("unsupported"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tpl.LinkRunner(ts, device="cpu")
-    else:
-        assert tpl.LinkRunner(ts, device="cpu").setup is ts
+    runner = tpl.LinkRunner(ts, device="cpu")
+    assert runner.setup is ts
+    assert (runner.mode == "eager") == name.endswith("unsupported")
 
 
 @pytest.mark.parametrize("name", ["headline", "waterfilling", "qam256_none_eq"])
