@@ -14,6 +14,11 @@ then every point of the noise-bump study
 at 2^16 OFDM symbols a point, key ``fold_in(PRNGKey(42), 1000 s + p)`` as
 its campaign draws them.  Prints ``{name: [bit errors, bits]}``: the
 values of ``chip_smoke.JAX_CPU_READINGS``.  About 6 min on one CPU.
+
+The bands of ``chip_smoke.py``'s sharded phase add no reading: the one-
+and two-rank eager runs are ``OFDM-CY1.0-512``'s config, and the CLI's
+adaptive points are the reference's adaptive config at 15 / 20 / 25 dB
+(on its own 1,000 OFDM symbols a point), each held to the reading above.
 """
 
 import json

@@ -49,6 +49,13 @@ _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 # The stage arguments of every chunk entry point: rows, stage bits, the
 # normalization partials and factors, the dump planes and their rows.
 _STAGES = [_P, _I, _P, _P, _P, _P, _I]
+# The carry-in of the fold, lr and mm chunks: the tail pair, or null.
+_PREV = [_P, _P]
+# K3's entry points (ofdm_{fold,lr,mm}_probe): the TX matrix pair, n, T, E,
+# the codec, the symbol, the key, rows and stage bits, the carry row pair,
+# the tail pair, the stream.
+_PROBE = ([_P] * 2 + [_I] * 9 + [_F] + [_P] * 2 + [ctypes.c_ulonglong] + [_U] * 2 + [_P, _I] + [_P] * 4
+          + [_P], _I)
 # The C entry points of each source's libraries with their (argtypes,
 # restype), set once when a library loads.
 SIGNATURES = {
@@ -62,23 +69,26 @@ SIGNATURES = {
     "fold_kernel": {
         "ofdm_fold_chunk": (
             [_P] * 11 + [_I] * 9 + [_F] + [_P] * 2 + [_F] * 3 + [_I] * 3 + [ctypes.c_ulonglong]
-            + [_I] * 5 + [_U] * 2 + [_P] * 5 + _STAGES + [_P],
+            + [_I] * 5 + [_U] * 2 + [_P] * 5 + _STAGES + _PREV + [_P],
             _I,
         ),
+        "ofdm_fold_probe": _PROBE,
     },
     "lr_kernel": {
         "ofdm_lr_chunk": (
             [_P] * 15 + [_I] * 10 + [_F] + [_P] * 2 + [_F] * 4 + [_I] * 4 + [ctypes.c_ulonglong]
-            + [_I] * 5 + [_U] * 2 + [_P] * 5 + _STAGES + [_P],
+            + [_I] * 5 + [_U] * 2 + [_P] * 5 + _STAGES + _PREV + [_P],
             _I,
         ),
+        "ofdm_lr_probe": _PROBE,
     },
     "mm_kernel": {
         "ofdm_mm_chunk": (
             [_P] * 13 + [_I] * 9 + [_F] + [_P] * 2 + [_F] * 3 + [_I] * 3 + [ctypes.c_ulonglong]
-            + [_I] * 4 + [_U] * 2 + [_P] * 7 + _STAGES + [_P],
+            + [_I] * 4 + [_U] * 2 + [_P] * 7 + _STAGES + _PREV + [_P],
             _I,
         ),
+        "ofdm_mm_probe": _PROBE,
     },
     "boxmuller": {
         "ofdm_boxmuller": ([_P, _P, ctypes.c_longlong, _U, _U, _P], _I),

@@ -57,6 +57,17 @@
 //  * normalize (staged build): fold_main runs twice around norm_factors, as
 //    diag_staged does; phase 0 writes each warp's |e|^2 sum over its run of
 //    symbols (after the SC IDFT on SC-FDE), phase 1 scales and counts.
+//  * Carry-in (sharded contiguous streams): given a tail, the chunk's first
+//    symbol reads it instead of recomputing its predecessor, in every pass
+//    that recomputes one (fold_power, both passes of fold_main); other
+//    first symbols of a warp still recompute under the chunk's key.  In the
+//    plain build fold_main's read is a template variant (kPrev) chosen at
+//    launch, so a chunk without a carry-in runs the code it had (a run-time
+//    test there moved four qam widths' registers).
+//  * The carry probe (fold_probe; pallas_link.py::_probe_fn_for_spec, K3):
+//    one warp computes a chunk's last symbol through the same symbol_tx and
+//    writes its carry row x[0:T) and tail x[T:T+E), bit-equal to the
+//    chunk's carry and to the tail a following symbol reads.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -95,6 +106,8 @@ struct Link {
   uint2 key;
   ofdm::Lanes lanes;  // the adaptive modes' lane rows
   ofdm::Stages st;    // the _Spec stages (OFDM_STAGED builds)
+  const float* prev_r;  // (E,) tail the chunk's first symbol reads, or null
+  const float* prev_i;
 };
 
 using ofdm::WarpBufs;
@@ -167,7 +180,7 @@ __global__ void __launch_bounds__(kThreads) fold_power(Link L, float* partials) 
 
 // The chain per symbol; with kStaged, the stages (phase 0 of a normalized
 // link writes its run's |e|^2 partial instead of counting).
-template <int J, int kMode, bool kStaged, bool kDump = false>
+template <int J, int kMode, bool kStaged, bool kDump = false, bool kPrev = true>
 __global__ void __launch_bounds__(kThreads)
     fold_main(Link L, const float* partials, unsigned long long* acc, double* psum,
               float* carry_r, float* carry_i) {
@@ -187,7 +200,7 @@ __global__ void __launch_bounds__(kThreads)
   if (first < L.chunk) {
     const int b0 = static_cast<int>(first);
     const int b1 = min(b0 + L.run, L.chunk);
-    ofdm::prev_tail<kMode, kStaged>(L, w, L.sym0 + static_cast<unsigned long long>(b0), lane);
+    ofdm::prev_tail<kMode, kStaged, kPrev>(L, w, L.sym0 + static_cast<unsigned long long>(b0), lane);
     int cached_tile = -1;
     float sigma = 0.0f;
     int norm_tile = -1;
@@ -282,6 +295,33 @@ __global__ void __launch_bounds__(kThreads)
   ofdm::flush_counters<kWarps>(be, se, pk, ps, acc, psum);
 }
 
+// K3: symbol `sym`'s carry row x[0:T) and tail x[T:T+E) through the chunk's
+// own TX stage (symbol_tx), one warp.
+template <int J, int kMode, bool kStaged>
+__global__ void __launch_bounds__(32)
+    fold_probe(Link L, unsigned long long sym, float* carry_r, float* carry_i, float* tail_r, float* tail_i) {
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x;
+  const WarpBufs w = warp_bufs(L.n, L.T, L.E, smem);
+  float pk = 0.0f;
+  double ps = 0.0;
+  int tx[J];
+  uint32_t w1[J], w2[J];
+  ofdm::symbol_tx<J, kMode, kStaged>(L, w, sym, lane, false, pk, ps, carry_r, carry_i, tx, w1, w2);
+  for (int t = lane; t < L.E; t += 32) {
+    tail_r[t] = w.nr[t];
+    tail_i[t] = w.ni[t];
+  }
+}
+
+template <int J, int kMode>
+cudaError_t launch_probe(const Link& L, unsigned long long sym, float* cr, float* ci, float* tr, float* ti,
+                         cudaStream_t stream) {
+  const size_t bytes = sizeof(float) * warp_floats(L.n, L.T, L.E);
+  fold_probe<J, kMode, ofdm::kStagedBuild><<<1, 32, bytes, stream>>>(L, sym, cr, ci, tr, ti);
+  return cudaGetLastError();
+}
+
 template <int J, int kMode>
 cudaError_t launch(const Link& L, float* partials, unsigned long long* acc, double* psum,
                    float* cr, float* ci, cudaStream_t stream) {
@@ -289,6 +329,8 @@ cudaError_t launch(const Link& L, float* partials, unsigned long long* acc, doub
   auto* main_kernel = &fold_main<J, kMode, kS>;
 #if OFDM_STAGED
   if (L.st.bits & ofdm::kStageDump) main_kernel = &fold_main<J, kMode, kS, true>;
+#else
+  if (L.prev_r == nullptr) main_kernel = &fold_main<J, kMode, kS, false, false>;
 #endif
   const int wf = warp_floats(L.n, L.T, L.E);
   const size_t main_bytes = sizeof(float) * kWarps * wf;
@@ -336,6 +378,21 @@ cudaError_t launch_mode(const Link& L, float* partials, unsigned long long* acc,
   }
 }
 
+template <int kMode>
+cudaError_t probe_mode(const Link& L, unsigned long long sym, float* cr, float* ci, float* tr, float* ti,
+                       cudaStream_t stream) {
+  switch ((L.n + 31) / 32) {
+    case 1: return launch_probe<1, kMode>(L, sym, cr, ci, tr, ti, stream);
+    case 2: return launch_probe<2, kMode>(L, sym, cr, ci, tr, ti, stream);
+    case 3: return launch_probe<3, kMode>(L, sym, cr, ci, tr, ti, stream);
+    case 4: return launch_probe<4, kMode>(L, sym, cr, ci, tr, ti, stream);
+    case 5: return launch_probe<5, kMode>(L, sym, cr, ci, tr, ti, stream);
+    case 6: return launch_probe<6, kMode>(L, sym, cr, ci, tr, ti, stream);
+    case 7: return launch_probe<7, kMode>(L, sym, cr, ci, tr, ti, stream);
+    default: return launch_probe<8, kMode>(L, sym, cr, ci, tr, ti, stream);
+  }
+}
+
 }  // namespace ofdm_fold
 
 using namespace ofdm_fold;
@@ -360,8 +417,10 @@ int ofdm_fold_chunk(const float* txr, const float* txi, const float* cmr, const 
                     unsigned int key0, unsigned int key1, float* partials, long long* acc,
                     double* psum, float* carry_r, float* carry_i, const float* rows, int stages,
                     float* norm_part, float* norm_f,
-                    float* dump_r, float* dump_i, int dump_rows, void* stream_ptr) {
+                    float* dump_r, float* dump_i, int dump_rows, const float* prev_r,
+                    const float* prev_i, void* stream_ptr) {
   if (n < 1 || n > kMaxN || T < n || E < 0 || E > T || chunk < 1 || tile < 1 || slice < 1 ||
+      (prev_r == nullptr) != (prev_i == nullptr) ||
       groups < 1 || run < 1 || tile % run != 0 || (is_sc && (idr == nullptr || idi == nullptr)) ||
       (ofdm::adaptive(mode) && (is_sc || lane_i == nullptr || lane_f == nullptr)) ||
       !ofdm::stage_args_ok(rows, stages, norm_part, norm_f, dump_r, dump_i, dump_rows, false)) {
@@ -395,10 +454,43 @@ int ofdm_fold_chunk(const float* txr, const float* txi, const float* cmr, const 
   L.run = run;
   L.key = make_uint2(key0, key1);
   L.st = ofdm::make_stages(rows, stages, norm_part, norm_f, dump_r, dump_i, dump_rows);
+  L.prev_r = prev_r;
+  L.prev_i = prev_i;
 
   unsigned long long* a = reinterpret_cast<unsigned long long*>(acc);
   return static_cast<int>(ofdm::with_mode(mode, [&](auto md) {
     return launch_mode<decltype(md)::value>(L, partials, a, psum, carry_r, carry_i, stream);
+  }));
+}
+
+// K3, the carry probe: run symbol `sym`'s carry row x[0:T) (carry_r /
+// carry_i) and tail x[T:T+E) (tail_r / tail_i), through the chunk's TX
+// stage in mode `mode` (apply_power only: `rows` and the stage bits).  The
+// chunk of run symbols [sym0, sym0 + chunk) returns symbol sym0 + chunk -
+// 1's row as its carry.  Returns the launch's CUDA error, 0 if none.
+int ofdm_fold_probe(const float* txr, const float* txi, int n, int T, int E, int mode, int order, int m,
+                    int logm, int bits, int gray, float scale, const int* lane_i, const float* lane_f,
+                    unsigned long long sym, unsigned int key0, unsigned int key1, const float* rows,
+                    int stages, float* carry_r, float* carry_i, float* tail_r, float* tail_i,
+                    void* stream_ptr) {
+  if (n < 1 || n > kMaxN || T < n || E < 0 || E > T || (stages & ~ofdm::kStagePower) ||
+      !ofdm::stage_args_ok(rows, stages, nullptr, nullptr, nullptr, nullptr, 0, false) ||
+      (ofdm::adaptive(mode) && (lane_i == nullptr || lane_f == nullptr))) {
+    return cudaErrorInvalidValue;
+  }
+  Link L{};
+  L.txr = txr;
+  L.txi = txi;
+  L.n = n;
+  L.T = T;
+  L.E = E;
+  L.q = ofdm::Qam{order, m, logm, bits, gray, scale};
+  L.lanes = ofdm::Lanes{lane_i, lane_f, n};
+  L.key = make_uint2(key0, key1);
+  L.st = ofdm::make_stages(rows, stages, nullptr, nullptr, nullptr, nullptr, 0);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  return static_cast<int>(ofdm::with_mode(mode, [&](auto md) {
+    return probe_mode<decltype(md)::value>(L, sym, carry_r, carry_i, tail_r, tail_i, stream);
   }));
 }
 

@@ -706,11 +706,23 @@ __device__ __forceinline__ void row_product(const float* vr, const float* vi, co
 // act[T:T+E) <- symbol (run index) `sym - 1`'s tail, or zeros for the run's
 // first symbol: encode (and scale, under apply_power), then the same
 // k-ascending product over the same F_tx,ext columns, so it is bit-equal to
-// the tail a carry would hold.  Leaves the warp synchronized.
-template <int kMode, bool kStaged, class Link>
+// the tail a carry would hold.  With kPrev, the chunk's first symbol reads
+// the caller's tail instead when the Link carries one (prev_r / prev_i: the
+// carry-in of a sharded contiguous stream, whose predecessor another shard
+// computed); a kernel instantiated without it never reads one.  Leaves the
+// warp synchronized.
+template <int kMode, bool kStaged, bool kPrev = true, class Link>
 __device__ void prev_tail(const Link& L, const WarpBufs& w, unsigned long long sym, int lane) {
   const int TE = L.T + L.E;
   if (L.E == 0) return;
+  if (kPrev && L.prev_r != nullptr && sym == L.sym0) {
+    for (int t = lane; t < L.E; t += 32) {
+      w.ar[L.T + t] = L.prev_r[t];
+      w.ai[L.T + t] = L.prev_i[t];
+    }
+    __syncwarp();
+    return;
+  }
   if (sym == 0) {
     for (int t = L.T + lane; t < TE; t += 32) {
       w.ar[t] = 0.0f;

@@ -56,6 +56,13 @@
 //  * normalize (staged build): lr_main runs twice around norm_factors, as
 //    diag_staged does; phase 0 writes each block's |e|^2 sum over its run of
 //    symbols (each symbol's sum a block_sum), phase 1 scales and counts.
+//  * Carry-in (sharded contiguous streams): given a t, the chunk's first
+//    symbol reads it as t_prev instead of recomputing it, in every pass
+//    that recomputes one (lr_power, both passes of lr_main).
+//  * The carry probe (lr_probe; pallas_link.py::_probe_fn_for_spec, K3):
+//    one block of the chunk's shape computes a chunk's last symbol's t
+//    through the same encode and tail_of, and writes the (T,) carry row
+//    (zeros but for the last E lanes) and t.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -104,6 +111,8 @@ struct Link {
   uint2 key;
   ofdm::Lanes lanes;  // the adaptive modes' lane rows
   ofdm::Stages st;    // the _Spec stages (OFDM_STAGED builds)
+  const float* prev_r;  // (E,) t the chunk's first symbol reads as t_prev, or null
+  const float* prev_i;
 };
 
 // Block-shared scratch of both kernels.
@@ -178,10 +187,18 @@ __device__ void tail_of(const Link& L, const float (&sr)[J], const float (&si)[J
   __syncthreads();
 }
 
-// out = t of run symbol `sym - 1`, or zeros for the run's first symbol.
-// Leaves the block synchronized.
+// out = t of run symbol `sym - 1`, or zeros for the run's first symbol; the
+// chunk's first symbol reads the caller's t instead when the Link carries
+// one.  Leaves the block synchronized.
 template <int J, int kMode, bool kStaged>
 __device__ void prev_tail(const Link& L, unsigned long long sym, Scratch& sh, float* out) {
+  if (L.prev_r != nullptr && sym == L.sym0) {
+    const int e = static_cast<int>(threadIdx.x);
+    if (e < L.E) out[e] = L.prev_r[e];
+    else if (e < 2 * L.E) out[e] = L.prev_i[e - L.E];
+    __syncthreads();
+    return;
+  }
   if (sym == 0) {
     if (static_cast<int>(threadIdx.x) < 2 * L.E) out[threadIdx.x] = 0.0f;
     __syncthreads();
@@ -445,6 +462,44 @@ __global__ void __launch_bounds__(kThreads)
   ofdm::flush_counters<kWarps>(be, se, pk, ps, acc, psum);
 }
 
+// K3: symbol `sym`'s t through the chunk's own encode and tail_of, one block
+// of the chunk's shape (so the block sums run in lr_main's order): the (T,)
+// carry row, zeros but for the last E lanes, and t.
+template <int J, int kMode, bool kStaged>
+__global__ void __launch_bounds__(kThreads)
+    lr_probe(Link L, unsigned long long sym, float* carry_r, float* carry_i, float* tail_r, float* tail_i) {
+  __shared__ Scratch sh;
+  const int tid = threadIdx.x;
+  int tx[J];
+  uint32_t w1[J], w2[J];
+  float sr[J], si[J];
+  encode<J, kMode, kStaged>(L, sym, tx, w1, w2, sr, si);
+  float* t = sh.t[0];
+  tail_of<J>(L, sr, si, sh, t);
+  const int off = L.T - L.E;
+  for (int c = tid; c < L.T; c += kThreads) {
+    carry_r[c] = c >= off ? t[c - off] : 0.0f;
+    carry_i[c] = c >= off ? t[L.E + c - off] : 0.0f;
+  }
+  if (tid < L.E) {
+    tail_r[tid] = t[tid];
+    tail_i[tid] = t[L.E + tid];
+  }
+}
+
+template <int kMode>
+cudaError_t probe_mode(const Link& L, unsigned long long sym, float* cr, float* ci, float* tr, float* ti,
+                       cudaStream_t stream) {
+  constexpr bool kS = ofdm::kStagedBuild;
+  const int bins = (L.n + kThreads - 1) / kThreads;
+  if (bins <= 1) lr_probe<1, kMode, kS><<<1, kThreads, 0, stream>>>(L, sym, cr, ci, tr, ti);
+  else if (bins <= 2) lr_probe<2, kMode, kS><<<1, kThreads, 0, stream>>>(L, sym, cr, ci, tr, ti);
+  else if (bins <= 4) lr_probe<4, kMode, kS><<<1, kThreads, 0, stream>>>(L, sym, cr, ci, tr, ti);
+  else if (bins <= 8) lr_probe<8, kMode, kS><<<1, kThreads, 0, stream>>>(L, sym, cr, ci, tr, ti);
+  else lr_probe<16, kMode, kS><<<1, kThreads, 0, stream>>>(L, sym, cr, ci, tr, ti);
+  return cudaGetLastError();
+}
+
 template <int J, int kMode>
 cudaError_t launch(const Link& L, float* partials, unsigned long long* acc, double* psum,
                    float* cr, float* ci, cudaStream_t stream) {
@@ -515,8 +570,10 @@ int ofdm_lr_chunk(const float* tlr, const float* tli, const float* ccr, const fl
                   int groups, int run, unsigned int key0, unsigned int key1, float* partials,
                   long long* acc, double* psum, float* carry_r, float* carry_i, const float* rows,
                   int stages, float* norm_part, float* norm_f,
-                    float* dump_r, float* dump_i, int dump_rows, void* stream_ptr) {
+                    float* dump_r, float* dump_i, int dump_rows, const float* prev_r,
+                    const float* prev_i, void* stream_ptr) {
   if (n < 1 || n > kMaxN || T < n || E < 1 || E > kMaxE || E > T || rank < 0 ||
+      (prev_r == nullptr) != (prev_i == nullptr) ||
       rank > kMaxRank || chunk < 1 || tile < 1 || slice < 1 || groups < 1 || run < 1 ||
       tile % run != 0 || !ofdm::stage_args_ok(rows, stages, norm_part, norm_f, dump_r, dump_i, dump_rows, false) ||
       pstride < 1 || (!txext && (fr == nullptr || fi == nullptr)) ||
@@ -556,10 +613,44 @@ int ofdm_lr_chunk(const float* tlr, const float* tli, const float* ccr, const fl
   L.run = run;
   L.key = make_uint2(key0, key1);
   L.st = ofdm::make_stages(rows, stages, norm_part, norm_f, dump_r, dump_i, dump_rows);
+  L.prev_r = prev_r;
+  L.prev_i = prev_i;
 
   unsigned long long* a = reinterpret_cast<unsigned long long*>(acc);
   return static_cast<int>(ofdm::with_mode(mode, [&](auto md) {
     return launch_mode<decltype(md)::value>(L, partials, a, psum, carry_r, carry_i, stream);
+  }));
+}
+
+// K3, the carry probe: run symbol `sym`'s (T,) carry row (carry_r /
+// carry_i: zeros but for the last E lanes, its t) and t (tail_r / tail_i,
+// E each), through the chunk's encode and tail_of in mode `mode`
+// (apply_power only: `rows` and the stage bits).  The chunk of run symbols
+// [sym0, sym0 + chunk) returns symbol sym0 + chunk - 1's row as its carry.
+// Returns the launch's CUDA error, 0 if none.
+int ofdm_lr_probe(const float* tlr, const float* tli, int n, int T, int E, int mode, int order, int m,
+                  int logm, int bits, int gray, float scale, const int* lane_i, const float* lane_f,
+                  unsigned long long sym, unsigned int key0, unsigned int key1, const float* rows,
+                  int stages, float* carry_r, float* carry_i, float* tail_r, float* tail_i,
+                  void* stream_ptr) {
+  if (n < 1 || n > kMaxN || T < n || E < 1 || E > kMaxE || E > T || (stages & ~ofdm::kStagePower) ||
+      !ofdm::stage_args_ok(rows, stages, nullptr, nullptr, nullptr, nullptr, 0, false) ||
+      (ofdm::adaptive(mode) && (lane_i == nullptr || lane_f == nullptr))) {
+    return cudaErrorInvalidValue;
+  }
+  Link L{};
+  L.tlr = tlr;
+  L.tli = tli;
+  L.n = n;
+  L.T = T;
+  L.E = E;
+  L.q = ofdm::Qam{order, m, logm, bits, gray, scale};
+  L.lanes = ofdm::Lanes{lane_i, lane_f, n};
+  L.key = make_uint2(key0, key1);
+  L.st = ofdm::make_stages(rows, stages, nullptr, nullptr, nullptr, nullptr, 0);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  return static_cast<int>(ofdm::with_mode(mode, [&](auto md) {
+    return probe_mode<decltype(md)::value>(L, sym, carry_r, carry_i, tail_r, tail_i, stream);
   }));
 }
 

@@ -61,6 +61,12 @@
 //  * normalize (staged build): mm_main runs twice around norm_factors, as
 //    diag_staged does; phase 0 writes each warp's |e|^2 sum over its run of
 //    symbols, phase 1 scales and counts.  mm_front runs once.
+//  * Carry-in (sharded contiguous streams): given a tail, the chunk's first
+//    symbol reads it in mm_front instead of recomputing its predecessor
+//    (mm_main reads y and recomputes no tail).
+//  * The carry probe (mm_probe; pallas_link.py::_probe_fn_for_spec, K3):
+//    one warp computes a chunk's last symbol through the same symbol_tx and
+//    writes its carry row x[0:T) and tail x[T:T+E).
 
 #include <climits>
 #include <cstdint>
@@ -102,6 +108,8 @@ struct Link {
   uint2 key;
   ofdm::Lanes lanes;  // the adaptive modes' lane rows
   ofdm::Stages st;    // the _Spec stages (OFDM_STAGED builds)
+  const float* prev_r;  // (E,) tail the chunk's first symbol reads, or null
+  const float* prev_i;
 };
 
 // y before noise of the chunk's symbols, over each tile's time samples
@@ -297,6 +305,40 @@ __global__ void __launch_bounds__(kThreads)
   ofdm::flush_counters<kWarps>(be, se, 0.0f, 0.0, acc, psum);
 }
 
+// K3: symbol `sym`'s carry row x[0:T) and tail x[T:T+E) through the chunk's
+// own TX stage (symbol_tx), one warp.
+template <int J, int kMode, bool kStaged>
+__global__ void __launch_bounds__(32)
+    mm_probe(Link L, unsigned long long sym, float* carry_r, float* carry_i, float* tail_r, float* tail_i) {
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x;
+  const ofdm::WarpBufs w = ofdm::warp_bufs(L.n, L.T, L.E, smem);
+  float pk = 0.0f;
+  double ps = 0.0;
+  int tx[J];
+  uint32_t w1[J], w2[J];
+  ofdm::symbol_tx<J, kMode, kStaged>(L, w, sym, lane, false, pk, ps, carry_r, carry_i, tx, w1, w2);
+  for (int t = lane; t < L.E; t += 32) {
+    tail_r[t] = w.nr[t];
+    tail_i[t] = w.ni[t];
+  }
+}
+
+template <int kMode>
+cudaError_t probe_mode(const Link& L, unsigned long long sym, float* cr, float* ci, float* tr, float* ti,
+                       cudaStream_t stream) {
+  const size_t bytes = sizeof(float) * ofdm::warp_floats(L.n, L.T, L.E);
+  constexpr bool kS = ofdm::kStagedBuild;
+  switch ((L.n + 31) / 32) {
+    case 1: mm_probe<1, kMode, kS><<<1, 32, bytes, stream>>>(L, sym, cr, ci, tr, ti); break;
+    case 2: mm_probe<2, kMode, kS><<<1, 32, bytes, stream>>>(L, sym, cr, ci, tr, ti); break;
+    case 3: mm_probe<3, kMode, kS><<<1, 32, bytes, stream>>>(L, sym, cr, ci, tr, ti); break;
+    case 4: mm_probe<4, kMode, kS><<<1, 32, bytes, stream>>>(L, sym, cr, ci, tr, ti); break;
+    default: mm_probe<8, kMode, kS><<<1, 32, bytes, stream>>>(L, sym, cr, ci, tr, ti); break;
+  }
+  return cudaGetLastError();
+}
+
 __host__ __forceinline__ size_t front_bytes(int n, int T, int E) {
   return sizeof(float) * (kPowerBlock + kWarps * ofdm::warp_floats(n, T, E));
 }
@@ -377,8 +419,10 @@ int ofdm_mm_chunk(const float* txr, const float* txi, const float* cvr, const fl
                   int groups, int run, unsigned int key0, unsigned int key1, float* y_r,
                   float* y_i, float* partials, long long* acc, double* psum, float* carry_r,
                   float* carry_i, const float* rows, int stages, float* norm_part, float* norm_f,
-                    float* dump_r, float* dump_i, int dump_rows, void* stream_ptr) {
+                    float* dump_r, float* dump_i, int dump_rows, const float* prev_r,
+                    const float* prev_i, void* stream_ptr) {
   if (n < 1 || n > kMaxN || T < n || T > kMaxT || E < 0 || E > T || chunk < 1 || tile < 1 ||
+      (prev_r == nullptr) != (prev_i == nullptr) ||
       run < 1 || tile % run != 0 || static_cast<long long>(chunk) * T > INT_MAX ||
       !ofdm::stage_args_ok(rows, stages, norm_part, norm_f, dump_r, dump_i, dump_rows, false) ||
       static_cast<long long>(groups) * kPowerBlock < static_cast<long long>(tile) * T ||
@@ -413,10 +457,43 @@ int ofdm_mm_chunk(const float* txr, const float* txi, const float* cvr, const fl
   L.run = run;
   L.key = make_uint2(key0, key1);
   L.st = ofdm::make_stages(rows, stages, norm_part, norm_f, dump_r, dump_i, dump_rows);
+  L.prev_r = prev_r;
+  L.prev_i = prev_i;
 
   unsigned long long* a = reinterpret_cast<unsigned long long*>(acc);
   return static_cast<int>(ofdm::with_mode(mode, [&](auto md) {
     return launch_mode<decltype(md)::value>(L, y_r, y_i, partials, a, psum, carry_r, carry_i, stream);
+  }));
+}
+
+// K3, the carry probe: run symbol `sym`'s carry row x[0:T) (carry_r /
+// carry_i) and tail x[T:T+E) (tail_r / tail_i), through the chunk's TX
+// stage in mode `mode` (apply_power only: `rows` and the stage bits).  The
+// chunk of run symbols [sym0, sym0 + chunk) returns symbol sym0 + chunk -
+// 1's row as its carry.  Returns the launch's CUDA error, 0 if none.
+int ofdm_mm_probe(const float* txr, const float* txi, int n, int T, int E, int mode, int order, int m,
+                  int logm, int bits, int gray, float scale, const int* lane_i, const float* lane_f,
+                  unsigned long long sym, unsigned int key0, unsigned int key1, const float* rows,
+                  int stages, float* carry_r, float* carry_i, float* tail_r, float* tail_i,
+                  void* stream_ptr) {
+  if (n < 1 || n > kMaxN || T < n || T > kMaxT || E < 0 || E > T || (stages & ~ofdm::kStagePower) ||
+      !ofdm::stage_args_ok(rows, stages, nullptr, nullptr, nullptr, nullptr, 0, false) ||
+      (ofdm::adaptive(mode) && (lane_i == nullptr || lane_f == nullptr))) {
+    return cudaErrorInvalidValue;
+  }
+  Link L{};
+  L.txr = txr;
+  L.txi = txi;
+  L.n = n;
+  L.T = T;
+  L.E = E;
+  L.q = ofdm::Qam{order, m, logm, bits, gray, scale};
+  L.lanes = ofdm::Lanes{lane_i, lane_f, n};
+  L.key = make_uint2(key0, key1);
+  L.st = ofdm::make_stages(rows, stages, nullptr, nullptr, nullptr, nullptr, 0);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  return static_cast<int>(ofdm::with_mode(mode, [&](auto md) {
+    return probe_mode<decltype(md)::value>(L, sym, carry_r, carry_i, tail_r, tail_i, stream);
   }));
 }
 

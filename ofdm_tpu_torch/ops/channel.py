@@ -62,10 +62,14 @@ def convolve_blocks(blocks: torch.Tensor, taps: torch.Tensor,
     return out, tail[-1].clone()
 
 
-def awgn(signal: torch.Tensor, snr_db, z: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+def awgn(signal: torch.Tensor, snr_db, z: Tuple[torch.Tensor, torch.Tensor],
+         power: Optional[torch.Tensor] = None) -> torch.Tensor:
     """signal + sigma (z0 + j z1), sigma = sqrt(measured power / snr_lin / 2),
-    the measured power the mean |signal|^2."""
-    noise_power = mean_abs2(signal) / snr_linear(snr_db, signal.device)
+    the measured power the mean |signal|^2, or ``power`` when given (a
+    sharded run's mean over its ranks)."""
+    if power is None:
+        power = mean_abs2(signal)
+    noise_power = power / snr_linear(snr_db, signal.device)
     sigma = torch.sqrt(noise_power / 2.0)
     return signal + torch.complex(sigma * z[0], sigma * z[1])
 

@@ -18,7 +18,13 @@ popcount into int64 counters (``link_kernel``'s stages).  The
 chunk returns its last symbol's x[:T], the JAX package's carry contract.
 The previous symbol's tail is recomputed from its Philox words, so a chunk
 reads no carry: the run's symbol 0 sees zeros (the JAX runner's zero
-initial carry), every other symbol its predecessor's tail.
+initial carry), every other symbol its predecessor's tail.  A sharded
+contiguous stream passes ``prev``, the tail of the symbol before the
+chunk's first, which another shard computed: the first symbol reads it.
+
+``fold_probe`` is K3, the carry probe (pallas_link.py::_probe_fn_for_spec):
+a chunk's carry row and tail, from its last symbol's Philox words alone,
+through the chunk's own TX stage.
 
 ``fold_chunk`` launches the kernel for CUDA tensors and runs
 ``fold_chunk_plain`` only for CPU tensors.
@@ -121,29 +127,32 @@ def papr_samples(link: FoldLink, chunk: int) -> int:
 
 
 def fold_planes(link: FoldLink, key: Tuple[int, int], sym0: int, chunk: int, snr_lin: float,
-                device, words=None, rows=None):
+                device, words=None, rows=None, prev=None):
     """(tx, er, ei, xr, xi): the chunk's TX indices (chunk, n), equalized points
     in slicer units (chunk, n) and TX rows x (chunk, T+E) — the plain chain
     up to the slicer, the stages included (``rows``: the chunk's per-lane
     rows).
 
     ``words`` = (raw, u1 word, u2 word) injects integer planes in place of
-    the Philox draw: (chunk, n) for sym0 == 0, else (chunk + 1, n) whose
-    first row is symbol sym0 - 1 (only its raw word is read)."""
+    the Philox draw: (chunk, n) for sym0 == 0 or with ``prev``, else
+    (chunk + 1, n) whose first row is symbol sym0 - 1 (only its raw word is
+    read).  ``prev``: the (E,) tail pair the first symbol reads."""
     n, T = link.n, link.T
     rows = lk.stage_rows(link, rows, lk.rows_needed(link))
     tile, tiles, groups = _chunk_geometry(link, chunk)
-    prev = 1 if sym0 > 0 else 0
+    before = 1 if sym0 > 0 and prev is None else 0
     if words is None:
-        words = prng.link_words(key, sym0 - prev, chunk + prev, n, device)
+        words = prng.link_words(key, sym0 - before, chunk + before, n, device)
     raw, w1, w2 = (torch.as_tensor(w).to(device=device, dtype=torch.int64) & prng.M32 for w in words)
-    if raw.shape != (chunk + prev, n):
-        raise ValueError(f"words must be ({chunk + prev}, {n}) planes, got {tuple(raw.shape)}")
+    if raw.shape != (chunk + before, n):
+        raise ValueError(f"words must be ({chunk + before}, {n}) planes, got {tuple(raw.shape)}")
     tx, sr, si = lk.encode(raw, link.q)
     if link.apply_power:
         sr, si = lk.scale_tx(sr, si, rows)
     xr, xi = lk.cmatmul(link.txr, link.txi, sr, si)
-    if prev:
+    if prev is not None:
+        tail_r, tail_i = lk.plain_prev(prev, link.E, device)
+    elif before:
         tail_r, tail_i = xr[:1, T:], xi[:1, T:]
         xr, xi, tx, w1, w2 = xr[1:], xi[1:], tx[1:], w1[1:], w2[1:]
     else:
@@ -172,16 +181,27 @@ def fold_chunk_plain(
     words=None,
     rows=None,
     dump=None,
+    prev=None,
 ):
     """Plain version of ``fold_chunk`` (same arguments, same effects);
     ``words`` as in ``fold_planes``."""
     T = link.T
-    tx, er, ei, xr, xi = fold_planes(link, key, sym0, chunk, snr_lin, acc.device, words, rows)
+    tx, er, ei, xr, xi = fold_planes(link, key, sym0, chunk, snr_lin, acc.device, words, rows, prev)
     if dump is not None:
         lk.write_dump(link, dump, er, ei)
     lk.count_errors(link, tx, er, ei, acc)
     lk.add_papr(xr[:, :T], xi[:, :T], acc, psum)
     return xr[-1, :T].clone(), xi[-1, :T].clone()
+
+
+def fold_probe_plain(link: FoldLink, key: Tuple[int, int], sym0: int, chunk: int, rows=None, words=None):
+    """Plain version of ``fold_probe``: the last symbol's x = s @ F_tx,ext as
+    ``fold_planes`` computes it (``words``: its raw words injected, as
+    ``link_kernel.probe_symbol_tx`` takes them)."""
+    T = link.T
+    sr, si = lk.probe_symbol_tx(link, key, sym0 + chunk - 1, link.n, rows, link.txr.device, words)
+    xr, xi = lk.cmatmul(link.txr, link.txi, sr, si)
+    return xr[0, :T].clone(), xi[0, :T].clone(), xr[0, T:].clone(), xi[0, T:].clone()
 
 
 # --- kernel wrapper -------------------------------------------------------------
@@ -228,11 +248,14 @@ def fold_chunk(
     work=None,
     rows=None,
     dump=None,
+    prev=None,
 ):
     """One chunk of run symbols [sym0, sym0 + chunk): adds its bit errors,
     symbol errors and PAPR peak bits into ``acc`` and its PAPR power sum
     into ``psum``.  Returns the carry row (re, im): the last symbol's TX time
     row x[:T], written into ``work`` (a ``chunk_workspace``) when given.
+    ``prev``: the (E,) tail pair the first symbol reads (the carry-in),
+    instead of recomputing its predecessor's.
     ``rows``: the stages' per-lane rows (``link_kernel.stage_rows``).  ``dump``: the dump stage's
     planes (``link_kernel.new_dump``; counted in ``fold_chunk.dump_launches``).
 
@@ -243,7 +266,7 @@ def fold_chunk(
     ``.norm_launches``.  CPU tensors run ``fold_chunk_plain``."""
     dev = acc.device
     if dev.type == "cpu":
-        return fold_chunk_plain(link, key, sym0, chunk, snr_lin, acc, psum, rows=rows, dump=dump)
+        return fold_chunk_plain(link, key, sym0, chunk, snr_lin, acc, psum, rows=rows, dump=dump, prev=prev)
     if dev.type != "cuda":
         raise ValueError(f"fold_chunk runs on cpu or cuda, not {dev}")
     lk.check_accumulators(acc, psum)
@@ -252,6 +275,7 @@ def fold_chunk(
         raise ValueError(f"chunk out of range: {chunk}")
     if dump is not None:
         lk.check_dump(dump, chunk, link.n, dev)
+    prev_ptrs = lk.check_prev(prev, link.E, dev)
     tile, tiles, groups = _chunk_geometry(link, chunk)
     work = chunk_workspace(link, chunk, dev) if work is None else work
     lk.check_work(work, (tiles * groups, link.T, link.T, -(-chunk // RUN), tiles),
@@ -275,7 +299,7 @@ def fold_chunk(
             key[0], key[1],
             partials.data_ptr(), acc.data_ptr(), psum.data_ptr(),
             carry_r.data_ptr(), carry_i.data_ptr(),
-            *lk.stage_args(link, rows, norm_part, norm_f, dump), stream,
+            *lk.stage_args(link, rows, norm_part, norm_f, dump), *prev_ptrs, stream,
         )
     build.check(lib, code, "ofdm_fold_chunk")
     if link.add_noise:
@@ -286,6 +310,27 @@ def fold_chunk(
     return carry_r, carry_i
 
 
+def fold_probe(link: FoldLink, key: Tuple[int, int], sym0: int, chunk: int, rows=None):
+    """K3: (carry_r, carry_i, tail_r, tail_i) of the chunk of run symbols
+    [sym0, sym0 + chunk) without running it: its last symbol's x[:T] (the
+    carry row ``fold_chunk`` returns, bitwise) and x[T:T+E] (the tail the
+    next symbol reads).  CUDA links launch ``fold_probe`` (csrc/fold_kernel.cu;
+    one warp through the chunk's TX stage, in the library the chunk runs
+    from), counted in ``fold_probe.launches``; CPU links run
+    ``fold_probe_plain``."""
+    dev = link.txr.device
+    if dev.type == "cpu":
+        return fold_probe_plain(link, key, sym0, chunk, rows)
+    _check_link(link, dev)
+    from ofdm_tpu_torch import build
+
+    lib = build.load(lk.staged_library(link, None, "fold_kernel", "fold_staged"))
+    out = lk.probe_launch(lib, "ofdm_fold_probe", link, (link.txr, link.txi), key, sym0 + chunk - 1, rows, dev)
+    fold_probe.launches += 1
+    return out
+
+
+fold_probe.launches = 0  # fold_probe kernels launched
 fold_chunk.launches = 0  # fold_main kernels launched (the pass that counts errors)
 fold_chunk.power_launches = 0  # fold_power kernels launched
 fold_chunk.norm_launches = 0  # normalization passes (each with its norm_factors) launched

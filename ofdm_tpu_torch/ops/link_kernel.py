@@ -1026,6 +1026,68 @@ def staged_library(link, dump, plain: str, staged: str) -> str:
     return staged if link_stages(link) or dump is not None else plain
 
 
+# --- the carry-in and the carry probe (K3) ----------------------------------------
+
+
+def check_prev(prev, E: int, device):
+    """The tail pair a chunk's first symbol reads (``prev``): two contiguous
+    f32 (E,) tensors on ``device``; returns their pointers, or (None, None)
+    without one."""
+    if prev is None:
+        return None, None
+    ok = len(prev) == 2 and all(
+        t.device == device and t.dtype == torch.float32 and t.is_contiguous() and tuple(t.shape) == (E,)
+        for t in prev)
+    if not ok:
+        raise ValueError(f"prev must be two contiguous f32 ({E},) tensors on {device}")
+    return prev[0].data_ptr(), prev[1].data_ptr()
+
+
+def plain_prev(prev, E: int, device):
+    """The carry-in as the plain versions read it: a (1, E) pair."""
+    return tuple(torch.as_tensor(t, dtype=torch.float32, device=device).reshape(1, E) for t in prev)
+
+
+def probe_outputs(T: int, E: int, device):
+    """(carry_r, carry_i, tail_r, tail_i): (T,) and (E,) f32 tensors for a probe."""
+    f32 = dict(dtype=torch.float32, device=device)
+    return torch.empty(T, **f32), torch.empty(T, **f32), torch.empty(E, **f32), torch.empty(E, **f32)
+
+
+def probe_symbol_tx(link, key: Tuple[int, int], sym: int, words_n: int, rows, device, words=None):
+    """(sr, si): run symbol ``sym``'s TX points (1, n) as a chunk's plain
+    version makes them (encode, x sqrt(P) under apply_power); the raw words
+    are word 0 of ``words_n`` columns, the first n read, or ``words`` (a
+    (1, >= n) integer plane) when given."""
+    rows = stage_rows(link, rows, rows_needed(link))
+    if words is None:
+        raw, _, _ = prng.link_words(key, sym, 1, words_n, device)
+    else:
+        raw = torch.as_tensor(words).to(device=device, dtype=torch.int64).reshape(1, -1) & prng.M32
+    _, sr, si = encode(raw[:, : link.n], link.q)
+    if link.apply_power:
+        sr, si = scale_tx(sr, si, rows)
+    return sr, si
+
+
+def probe_launch(lib, fn: str, link, mats, key, sym: int, rows, device):
+    """Launch ``fn`` (``ofdm_{fold,lr,mm}_probe``) of ``lib`` for run symbol
+    ``sym`` of ``link`` with its TX matrix pair ``mats``; returns (carry_r,
+    carry_i, tail_r, tail_i)."""
+    from ofdm_tpu_torch import build
+
+    rows = stage_rows(link, rows, rows_needed(link))
+    out = probe_outputs(link.T, link.E, device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = getattr(lib, fn)(
+            mats[0].data_ptr(), mats[1].data_ptr(), link.n, link.T, link.E, *codec_args(link.q), sym,
+            key[0], key[1], None if rows is None else rows.data_ptr(), STAGE_POWER if link.apply_power else 0,
+            *(t.data_ptr() for t in out), stream)
+    build.check(lib, code, fn)
+    return out
+
+
 # --- the dump stage (pallas_link.py:1863-1879) ----------------------------------
 
 

@@ -28,7 +28,13 @@ plain version repeats step by step (``link_kernel.block_sum``): a kernel
 block of ``THREADS`` threads holds one symbol, thread k % THREADS sums its
 bins in k order, warps reduce by an xor butterfly, then the warps in order.
 The previous symbol's t is recomputed from its Philox words, so nothing
-depends on block order or chunking: the run's symbol 0 sees t_prev = 0.
+depends on block order or chunking: the run's symbol 0 sees t_prev = 0.  A
+sharded contiguous stream passes ``prev``, the t of the symbol before the
+chunk's first, which another shard computed: the first symbol reads it.
+
+``lr_probe`` is K3, the carry probe (pallas_link.py::_probe_fn_for_spec):
+a chunk's carry row and t, from its last symbol's Philox words alone,
+through the chunk's own encode and block sums.
 
 ``lr_chunk`` launches the kernel for CUDA tensors and runs
 ``lr_chunk_plain`` only for CPU tensors.
@@ -177,40 +183,42 @@ def tails(link: LrLink, sr: torch.Tensor, si: torch.Tensor):
 
 
 def lr_planes(link: LrLink, key: Tuple[int, int], sym0: int, chunk: int, snr_lin: float,
-              device, words=None, rows=None):
+              device, words=None, rows=None, prev=None):
     """(tx, er, ei, tr, ti, sr, si): the chunk's TX indices, equalized points
     in slicer units, tails t and symbols, each (chunk, n) or (chunk, E) —
     the plain chain up to the slicer, the stages included (``rows``: the
     chunk's per-lane rows).
 
     ``words`` injects integer planes in place of the Philox draw: (raw,
-    u1 word, u2 word), (chunk, n) for sym0 == 0, else (chunk + 1, n) whose
-    first row is symbol sym0 - 1 (only its raw word is read); a colored-noise
-    link (ZP, noise on) takes two more, the g2 draws' (u1 word, u2 word),
-    each (chunk, rank)."""
+    u1 word, u2 word), (chunk, n) for sym0 == 0 or with ``prev``, else
+    (chunk + 1, n) whose first row is symbol sym0 - 1 (only its raw word is
+    read); a colored-noise link (ZP, noise on) takes two more, the g2
+    draws' (u1 word, u2 word), each (chunk, rank).  ``prev``: the (E,) t
+    pair the first symbol reads as t_prev."""
     n, E = link.n, link.E
     rows = lk.stage_rows(link, rows, lk.rows_needed(link))
     tile, tiles, groups = _chunk_geometry(link, chunk)
     colored = link.add_noise and link.rank > 0
-    prev = 1 if sym0 > 0 else 0
+    before = 1 if sym0 > 0 and prev is None else 0
     if words is None:
-        words = prng.link_words(key, sym0 - prev, chunk + prev, n, device)
+        words = prng.link_words(key, sym0 - before, chunk + before, n, device)
         if colored:
             words += prng.noise_words(key, sym0, chunk, link.rank, device)
     planes = [torch.as_tensor(w).to(device=device, dtype=torch.int64) & prng.M32 for w in words]
     raw, w1, w2 = planes[:3]
-    if raw.shape != (chunk + prev, n) or len(planes) != (5 if colored else 3):
-        raise ValueError(f"words must be 3 ({chunk + prev}, {n}) planes (+2 (chunk, rank) for colored noise)")
+    if raw.shape != (chunk + before, n) or len(planes) != (5 if colored else 3):
+        raise ValueError(f"words must be 3 ({chunk + before}, {n}) planes (+2 (chunk, rank) for colored noise)")
     tx, sr, si = lk.encode(raw, link.q)
     if link.apply_power:
         sr, si = lk.scale_tx(sr, si, rows)
     tr, ti = tails(link, sr, si)
-    if prev:
+    if before:
         tpr, tpi = tr[:-1], ti[:-1]
         tr, ti, tx, sr, si, w1, w2 = tr[1:], ti[1:], tx[1:], sr[1:], si[1:], w1[1:], w2[1:]
     else:
         zero = torch.zeros((1, E), dtype=torch.float32, device=device)
-        tpr, tpi = torch.cat([zero, tr[:-1]]), torch.cat([zero, ti[:-1]])
+        head_r, head_i = (zero, zero) if prev is None else lk.plain_prev(prev, E, device)
+        tpr, tpi = torch.cat([head_r, tr[:-1]]), torch.cat([head_i, ti[:-1]])
     cyr, cyi = lk.cmatmul(link.cc_r, link.cc_i, torch.cat([tr, tpr], 1), torch.cat([ti, tpi], 1))
     yr = (sr * link.dr - si * link.di) + cyr
     yi = (sr * link.di + si * link.dr) + cyi
@@ -237,11 +245,12 @@ def lr_chunk_plain(
     words=None,
     rows=None,
     dump=None,
+    prev=None,
 ):
     """Plain version of ``lr_chunk`` (same arguments, same effects);
     ``words`` as in ``lr_planes``."""
     dev = acc.device
-    tx, er, ei, tr, ti, sr, si = lr_planes(link, key, sym0, chunk, snr_lin, dev, words, rows)
+    tx, er, ei, tr, ti, sr, si = lr_planes(link, key, sym0, chunk, snr_lin, dev, words, rows, prev)
     if dump is not None:
         lk.write_dump(link, dump, er, ei)
     lk.count_errors(link, tx, er, ei, acc)
@@ -254,6 +263,21 @@ def lr_chunk_plain(
     carry_r[link.T - link.E :] = tr[-1]
     carry_i[link.T - link.E :] = ti[-1]
     return carry_r, carry_i
+
+
+def lr_probe_plain(link: LrLink, key: Tuple[int, int], sym0: int, chunk: int, rows=None, words=None):
+    """Plain version of ``lr_probe``: the last symbol's t as ``lr_planes``
+    computes it, and the carry row ``lr_chunk_plain`` builds from it
+    (``words``: its raw words injected, as ``link_kernel.probe_symbol_tx``
+    takes them)."""
+    T, E = link.T, link.E
+    sr, si = lk.probe_symbol_tx(link, key, sym0 + chunk - 1, link.n, rows, link.dr.device, words)
+    tr, ti = tails(link, sr, si)
+    carry_r = torch.zeros(T, dtype=torch.float32, device=sr.device)
+    carry_i = torch.zeros_like(carry_r)
+    carry_r[T - E :] = tr[0]
+    carry_i[T - E :] = ti[0]
+    return carry_r, carry_i, tr[0].clone(), ti[0].clone()
 
 
 # --- kernel wrapper -------------------------------------------------------------
@@ -300,12 +324,15 @@ def lr_chunk(
     work=None,
     rows=None,
     dump=None,
+    prev=None,
 ):
     """One chunk of run symbols [sym0, sym0 + chunk): adds its bit errors,
     symbol errors and (below ``txext``) PAPR peak bits into ``acc`` and its
     PAPR power sum into ``psum``.  Returns the carry row (re, im): (T,),
     zero but for the last E lanes, the last symbol's t; written into
-    ``work`` (a ``chunk_workspace``) when given.  ``rows``: the stages'
+    ``work`` (a ``chunk_workspace``) when given.  ``prev``: the (E,) t pair
+    the first symbol reads as t_prev (the carry-in), instead of recomputing
+    its predecessor's.  ``rows``: the stages'
     per-lane rows (``link_kernel.stage_rows``).  ``dump``: the dump stage's
     planes (``link_kernel.new_dump``; counted in ``lr_chunk.dump_launches``).
 
@@ -316,7 +343,7 @@ def lr_chunk(
     tensors run ``lr_chunk_plain``."""
     dev = acc.device
     if dev.type == "cpu":
-        return lr_chunk_plain(link, key, sym0, chunk, snr_lin, acc, psum, rows=rows, dump=dump)
+        return lr_chunk_plain(link, key, sym0, chunk, snr_lin, acc, psum, rows=rows, dump=dump, prev=prev)
     if dev.type != "cuda":
         raise ValueError(f"lr_chunk runs on cpu or cuda, not {dev}")
     lk.check_accumulators(acc, psum)
@@ -325,6 +352,7 @@ def lr_chunk(
         raise ValueError(f"chunk out of range: {chunk}")
     if dump is not None:
         lk.check_dump(dump, chunk, link.n, dev)
+    prev_ptrs = lk.check_prev(prev, link.E, dev)
     tile, tiles, groups = _chunk_geometry(link, chunk)
     work = chunk_workspace(link, chunk, dev) if work is None else work
     lk.check_work(work, (tiles * groups, link.T, link.T, -(-chunk // RUN), tiles),
@@ -352,7 +380,7 @@ def lr_chunk(
             key[0], key[1],
             partials.data_ptr(), acc.data_ptr(), psum.data_ptr(),
             carry_r.data_ptr(), carry_i.data_ptr(),
-            *lk.stage_args(link, rows, norm_part, norm_f, dump), stream,
+            *lk.stage_args(link, rows, norm_part, norm_f, dump), *prev_ptrs, stream,
         )
     build.check(lib, code, "ofdm_lr_chunk")
     if link.add_noise:
@@ -363,6 +391,28 @@ def lr_chunk(
     return carry_r, carry_i
 
 
+def lr_probe(link: LrLink, key: Tuple[int, int], sym0: int, chunk: int, rows=None):
+    """K3: (carry_r, carry_i, tail_r, tail_i) of the chunk of run symbols
+    [sym0, sym0 + chunk) without running it: the (T,) carry row ``lr_chunk``
+    returns (bitwise: zeros but for the last E lanes) and the last symbol's
+    t (the t_prev the next symbol reads).  CUDA links launch ``lr_probe``
+    (csrc/lr_kernel.cu; one block of lr_main's shape through the chunk's
+    encode and tail_of, in the library the chunk runs from), counted in
+    ``lr_probe.launches``; CPU links run ``lr_probe_plain``."""
+    dev = link.dr.device
+    if dev.type == "cpu":
+        return lr_probe_plain(link, key, sym0, chunk, rows)
+    _check_link(link, dev)
+    from ofdm_tpu_torch import build
+
+    lib = build.load(lk.staged_library(link, None, "lr_kernel", "lr_staged"))
+    out = lk.probe_launch(lib, "ofdm_lr_probe", link, (link.tail_r, link.tail_i), key, sym0 + chunk - 1, rows,
+                          dev)
+    lr_probe.launches += 1
+    return out
+
+
+lr_probe.launches = 0  # lr_probe kernels launched
 lr_chunk.launches = 0  # lr_main kernels launched (the pass that counts errors)
 lr_chunk.power_launches = 0  # lr_power kernels launched
 lr_chunk.norm_launches = 0  # normalization passes (each with its norm_factors) launched

@@ -46,6 +46,14 @@ link kernels' polynomial phase).
 TPU kernel is ``_pallas_u32``) fills uniform words from counters
 (i lo, i hi, 0, 2), four words a counter, under the caller's key, with the
 same ``ofdm_philox`` kernel.
+
+``fold_in(key, i)`` derives the key of sub-stream i (an SNR point of a
+sweep, a shard of a sharded run), the counterpart of ``jax.random.fold_in``:
+words 0 and 1 of counter (i lo, i hi, 0, 6) under ``key``, a sixth value of
+the last counter word that meets none of the streams above.  Like every
+draw of the port it is a statistical contract, not the JAX package's
+bits: derived keys are as independent of their parent and of each other
+as Philox outputs are, and the same (key, i) always gives the same key.
 """
 
 from __future__ import annotations
@@ -61,12 +69,32 @@ _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
 
 
-def key_words(seed: int) -> Tuple[int, int]:
-    """The two 32-bit key words of a run's seed (an int < 2^64)."""
+def key_words(seed) -> Tuple[int, int]:
+    """The two 32-bit key words of a run's seed: an int < 2^64, or a pair of
+    key words (``fold_in``'s result) taken as they are."""
+    if isinstance(seed, (tuple, list)):
+        if len(seed) != 2 or not all(0 <= int(w) <= M32 for w in seed):
+            raise ValueError(f"a key is two 32-bit words, got {seed}")
+        return int(seed[0]), int(seed[1])
     if not 0 <= int(seed) < 1 << 64:
         raise ValueError(f"seed must be in [0, 2^64), got {seed}")
     seed = int(seed)
     return seed & M32, (seed >> 32) & M32
+
+
+# The last counter word of fold_in's derivation.
+FOLD_STREAM = 6
+
+
+def fold_in(key, i: int) -> Tuple[int, int]:
+    """The key words of sub-stream ``i`` (0 <= i < 2^64) of ``key`` (a seed
+    or key words): words 0 and 1 of Philox4x32-10 under ``key`` at counter
+    (i lo, i hi, 0, FOLD_STREAM), computed on the host."""
+    key = key_words(key)
+    if not 0 <= int(i) < 1 << 64:
+        raise ValueError(f"fold_in takes 0 <= i < 2^64, got {i}")
+    w0, w1, _, _ = philox4x32_10(int(i) & M32, int(i) >> 32, 0, FOLD_STREAM, key)
+    return int(w0), int(w1)
 
 
 def _mulhilo(a: int, b: torch.Tensor):
@@ -79,8 +107,8 @@ def _mulhilo(a: int, b: torch.Tensor):
 
 
 def philox4x32_10(c0, c1, c2, c3, key: Tuple[int, int]):
-    """Plain Philox4x32-10: four int64 tensors of uint32 counter words in,
-    four out (broadcasting like the arithmetic operators)."""
+    """Plain Philox4x32-10: four int64 tensors (or Python ints) of uint32
+    counter words in, four out (broadcasting like the arithmetic operators)."""
     k0, k1 = key
     for _ in range(10):
         hi0, lo0 = _mulhilo(_M0, c0)

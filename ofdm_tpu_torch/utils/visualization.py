@@ -131,3 +131,80 @@ def render_results_constellation(
     image.load()
     plt.close(fig)
     return image
+
+
+# --- PNG figures without matplotlib -------------------------------------------------
+#
+# A machine may have PIL but not matplotlib; the results manager then
+# draws its two figures with PIL: the same data and titles, in a plainer
+# style.
+
+
+def have_matplotlib() -> bool:
+    import importlib.util
+
+    return importlib.util.find_spec("matplotlib") is not None
+
+
+def _pil_axes(title: str, xlabel: str, ylabel: str, size=(900, 600)):
+    """(image, draw, plot box (x0, y0, x1, y1)) of an empty figure with its
+    frame and labels."""
+    from PIL import Image, ImageDraw
+
+    img = Image.new("RGB", size, "white")
+    draw = ImageDraw.Draw(img)
+    box = (90, 50, size[0] - 30, size[1] - 70)
+    draw.rectangle(box, outline="black")
+    draw.text((size[0] // 2 - 4 * len(title), 15), title, fill="black")
+    draw.text((size[0] // 2 - 3 * len(xlabel), size[1] - 35), xlabel, fill="black")
+    draw.text((5, size[1] // 2), ylabel, fill="black")
+    return img, draw, box
+
+
+def pil_ber_curve(path, snrs, bers, title: str = "BER vs SNR Performance") -> None:
+    """The BER-vs-SNR curve on a log axis as a PNG at ``path`` (PIL)."""
+    img, draw, (x0, y0, x1, y1) = _pil_axes(title, "SNR (dB)", "Bit Error Rate (BER)")
+    pos = [b for b in bers if b > 0]
+    lo = np.floor(np.log10(min(pos))) if pos else -6.0
+    hi = max(np.ceil(np.log10(max(pos))), lo + 1) if pos else 0.0
+    smin, smax = min(snrs), max(snrs)
+    span = (smax - smin) or 1.0
+
+    def xy(s, b):
+        yb = np.log10(b) if b > 0 else lo
+        return (x0 + (s - smin) / span * (x1 - x0), y1 - (yb - lo) / (hi - lo) * (y1 - y0))
+
+    for d in range(int(lo), int(hi) + 1):
+        y = y1 - (d - lo) / (hi - lo) * (y1 - y0)
+        draw.line((x0, y, x1, y), fill=(210, 210, 210))
+        draw.text((x0 - 60, y - 6), f"1e{d}", fill="black")
+    for s in snrs:
+        draw.text((xy(s, 1.0)[0] - 8, y1 + 8), f"{s:g}", fill="black")
+    pts = [xy(s, b) for s, b in zip(snrs, bers)]
+    if len(pts) > 1:
+        draw.line(pts, fill="blue", width=2)
+    for x, y in pts:
+        draw.ellipse((x - 4, y - 4, x + 4, y + 4), fill="blue")
+    img.save(path, format="png")
+
+
+def pil_constellation(path, received, ideal, ber: float, snr_db: float, papr_db: float, title: str) -> None:
+    """The received-vs-ideal constellation scatter with the BER / SNR / PAPR
+    text as a PNG at ``path`` (PIL), on the [-1.5, 1.5] square."""
+    img, draw, (x0, y0, x1, y1) = _pil_axes(title, "In-Phase", "Quadrature", size=(800, 800))
+
+    def xy(z):
+        return x0 + (z.real + 1.5) / 3.0 * (x1 - x0), y1 - (z.imag + 1.5) / 3.0 * (y1 - y0)
+
+    cx, cy = xy(0j)
+    draw.line((x0, cy, x1, cy), fill="black")
+    draw.line((cx, y0, cx, y1), fill="black")
+    for z in np.asarray(received).reshape(-1):
+        if abs(z.real) <= 1.5 and abs(z.imag) <= 1.5:
+            x, y = xy(z)
+            draw.point((x, y), fill=(110, 110, 255))
+    for z in np.asarray(ideal).reshape(-1):
+        x, y = xy(z)
+        draw.ellipse((x - 4, y - 4, x + 4, y + 4), fill="red")
+    draw.text((x0 + 10, y0 + 10), f"BER: {ber:.6f}\nSNR: {snr_db} dB\nPAPR: {papr_db:.2f} dB", fill="black")
+    img.save(path, format="png")
