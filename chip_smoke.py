@@ -37,7 +37,16 @@ each chain's dump stage on seven links and once over a whole 2^17-symbol
 chunk, the eager chain (the links no kernel takes: three of
 tools/shape_audit.py's shapes, a 1024-sc flat channel, the headline with
 hotpath "xla") at 2^20 OFDM symbols each, and the noise-bump study's
-eager-only campaign (``_Link``, 21 points x 2048 OFDM symbols).  For each
+eager-only campaign (``_Link``, 21 points x 2048 OFDM symbols); then the
+noise-bump stages on the fold, lr and mm kernels (each staged chunk with
+all four stages against its plain version on five links) and the diag
+chain past 256 subcarriers (``diag_wide`` against its plain version on
+three links in qam, aqam and 8-PSK, an IR without unit energy, the
+study's 512-sc link, two captures; the audit's two cells it takes from
+the eager chain through ``LinkRunner``), and the study's fused campaign
+at 512 sc (``diag_wide``) and 1024 sc (lr), 3 scenarios x 7 SNR points
+at 2^20 OFDM symbols a point, each point at z = 5 against the JAX
+package's ``_Link`` at that width.  For each
 path it checks the BER gate or band, the SNR sweep and the launch
 counters, reads the profiler's busy share, and times the kernel beside
 its plain version and its bound.  Any failed check raises.
@@ -129,7 +138,9 @@ def kernel_key(mangled):
     repo (namespace::kernel<int and bool arguments>), the bool arguments
     dropped while all are false (kStaged, kDump in the plain builds), so the
     plain build's keys match across sources that add one; a variant with a
-    true bool gets them as a suffix ('fold_main<2,0>+001': the carry-in)."""
+    true bool gets them as a suffix without its trailing false ones
+    ('fold_main<2,0>+001': the carry-in; 'lr_main<4,0>+1': the staged
+    build's), so a key stays when a source adds a defaulted bool after them."""
     m = re.match(r"_ZN(\d+)", mangled)
     if not m:
         return mangled
@@ -142,7 +153,7 @@ def kernel_key(mangled):
     args = re.match(r"I((?:L[ib]\d+E)+)E", mangled[pos:])
     ints = re.findall(r"Li(\d+)E", args.group(1)) if args else []
     bools = re.findall(r"Lb(\d)E", args.group(1)) if args else []
-    suffix = "+" + "".join(bools) if "1" in bools else ""
+    suffix = "+" + "".join(bools).rstrip("0") if "1" in bools else ""
     return f"{names[-1]}<{','.join(ints)}>{suffix}"
 
 
@@ -898,23 +909,26 @@ CODEC_LINKS = {
     "adapt_psk_wf_zp1.0_64": ("mm", "apsk", dict(_APSK, prefix_type="ZERO")),
 }
 # The eager chain at full width (2^20 OFDM symbols each, chunks of 2^17):
-# tools/shape_audit.py's three shapes no kernel of the port takes, on the
-# audit's base; the two 1024-sc SC-FDE shapes again at 20 dB (at 30 dB the
-# JAX readings hold 0 and 3 errors, so those two bands cannot fail; at 20 dB
-# 64-QAM errs and the band holds the SC-FDE eager chain to the reference);
-# a 1024-sc single-tap CP link (at 20 dB, where 64-QAM over a flat channel
-# makes errors); the headline with hotpath "xla".  Each BER
+# tools/shape_audit.py's two shapes no kernel of the port takes and the one
+# the wide diag kernel took from it (OFDM-CY1.0-512, now asked for by
+# hotpath "xla"), on the audit's base; the two 1024-sc SC-FDE shapes again
+# at 20 dB (at 30 dB the JAX readings hold 0 and 3 errors, so those two
+# bands cannot fail; at 20 dB 64-QAM errs and the band holds the SC-FDE
+# eager chain to the reference); a 1024-sc single-tap CP link (at 20 dB,
+# where 64-QAM over a flat channel makes errors; diag_wide takes it, hotpath
+# "xla" keeps it here); the headline with hotpath "xla".  Each BER
 # is held at z = 5 against the JAX package's XLA reading on a CPU
 # (jax_band_readings.py, 2^24 / n OFDM symbols).
 EAGER_SYMBOLS = 1 << 20
 EAGER_LINKS = {
-    "OFDM-CY1.0-512": dict(AUDIT_BASE, num_subcarriers=512),
+    "OFDM-CY1.0-512": dict(AUDIT_BASE, num_subcarriers=512, hotpath="xla"),
     "SC-CY1.0-1024": dict(AUDIT_BASE, num_subcarriers=1024, modulation_type="SC-OFDM"),
     "SC-ZE1.0-1024": dict(AUDIT_BASE, num_subcarriers=1024, modulation_type="SC-OFDM", prefix_type="ZERO"),
     "SC-CY1.0-1024_20db": dict(AUDIT_BASE, num_subcarriers=1024, modulation_type="SC-OFDM", snr_db=20.0),
     "SC-ZE1.0-1024_20db": dict(AUDIT_BASE, num_subcarriers=1024, modulation_type="SC-OFDM", prefix_type="ZERO",
                                snr_db=20.0),
-    "flat_fading_cp_1024sc": dict(AUDIT_BASE, num_subcarriers=1024, channel_model="flat_fading", snr_db=20.0),
+    "flat_fading_cp_1024sc": dict(AUDIT_BASE, num_subcarriers=1024, channel_model="flat_fading", snr_db=20.0,
+                                  hotpath="xla"),
     "headline_xla": dict(HEADLINE_KW, hotpath="xla"),
 }
 # The BER bands: the audit's PSK and adaptive links (the JAX package routes
@@ -924,7 +938,8 @@ EAGER_LINKS = {
 # 2^18 OFDM symbols (jax_band_readings.py).  JAX_CPU_READINGS also holds the
 # readings of STAGED_BAND_LINKS (the same way), of EAGER_LINKS (the same
 # way at 2^24 / n OFDM symbols) and of each noise-bump point (the JAX
-# package's _Link on a CPU at 2^16 OFDM symbols).
+# package's _Link on a CPU at 2^16 OFDM symbols at 64 sc, 2^22 / n at the
+# widths of NOISE_BUMP_WIDE).
 BAND_LINKS = {
     "psk8_cp1.0_64": ("diag", _PSK8),
     "psk8_cp0.34_64": ("fold", dict(_PSK8, prefix_length_ratio=0.34)),
@@ -960,9 +975,17 @@ NOISE_BUMP_REFERENCE = {
 NOISE_BUMP_TOL = 0.02
 
 
-def noise_bump_name(scenario_key, snr_db):
-    """The JAX_CPU_READINGS key of one noise-bump point."""
-    return f"noise_bump_{scenario_key}_{int(snr_db)}db"
+# The study at the two wider widths the JAX package's fused kernel takes
+# (pallas_link.plan_for; the chain each routes to): 512 sc on diag (the
+# block-per-symbol diag_wide), 1024 sc on lr; 2^20 OFDM symbols a point.
+NOISE_BUMP_WIDE = {512: "diag", 1024: "lr"}
+NOISE_BUMP_WIDE_SYMBOLS = 1 << 20
+
+
+def noise_bump_name(scenario_key, snr_db, n=64):
+    """The JAX_CPU_READINGS key of one noise-bump point at ``n`` subcarriers."""
+    width = "" if n == 64 else f"{n}sc_"
+    return f"noise_bump_{width}{scenario_key}_{int(snr_db)}db"
 
 
 JAX_CPU_READINGS = {
@@ -999,6 +1022,48 @@ JAX_CPU_READINGS = {
     "noise_bump_wf_plus6_20db": (10013329, 25165824),
     "noise_bump_wf_plus6_25db": (7027480, 25165824),
     "noise_bump_wf_plus6_30db": (4356699, 25165824),
+    "noise_bump_512sc_uniform_0db": (12460498, 25165824),
+    "noise_bump_512sc_uniform_5db": (12367784, 25165824),
+    "noise_bump_512sc_uniform_10db": (12184023, 25165824),
+    "noise_bump_512sc_uniform_15db": (11837933, 25165824),
+    "noise_bump_512sc_uniform_20db": (11170039, 25165824),
+    "noise_bump_512sc_uniform_25db": (9933709, 25165824),
+    "noise_bump_512sc_uniform_30db": (7987501, 25165824),
+    "noise_bump_512sc_wf_plus3_0db": (12481392, 25165824),
+    "noise_bump_512sc_wf_plus3_5db": (12399937, 25165824),
+    "noise_bump_512sc_wf_plus3_10db": (12214408, 25165824),
+    "noise_bump_512sc_wf_plus3_15db": (11868038, 25165824),
+    "noise_bump_512sc_wf_plus3_20db": (11207554, 25165824),
+    "noise_bump_512sc_wf_plus3_25db": (9983277, 25165824),
+    "noise_bump_512sc_wf_plus3_30db": (8050045, 25165824),
+    "noise_bump_512sc_wf_plus6_0db": (12482764, 25165824),
+    "noise_bump_512sc_wf_plus6_5db": (12403328, 25165824),
+    "noise_bump_512sc_wf_plus6_10db": (12234589, 25165824),
+    "noise_bump_512sc_wf_plus6_15db": (11917571, 25165824),
+    "noise_bump_512sc_wf_plus6_20db": (11313779, 25165824),
+    "noise_bump_512sc_wf_plus6_25db": (10187867, 25165824),
+    "noise_bump_512sc_wf_plus6_30db": (8407230, 25165824),
+    "noise_bump_1024sc_uniform_0db": (12495160, 25165824),
+    "noise_bump_1024sc_uniform_5db": (12432697, 25165824),
+    "noise_bump_1024sc_uniform_10db": (12305263, 25165824),
+    "noise_bump_1024sc_uniform_15db": (12070732, 25165824),
+    "noise_bump_1024sc_uniform_20db": (11620556, 25165824),
+    "noise_bump_1024sc_uniform_25db": (10760759, 25165824),
+    "noise_bump_1024sc_uniform_30db": (9229438, 25165824),
+    "noise_bump_1024sc_wf_plus3_0db": (12507746, 25165824),
+    "noise_bump_1024sc_wf_plus3_5db": (12444065, 25165824),
+    "noise_bump_1024sc_wf_plus3_10db": (12321100, 25165824),
+    "noise_bump_1024sc_wf_plus3_15db": (12083572, 25165824),
+    "noise_bump_1024sc_wf_plus3_20db": (11636596, 25165824),
+    "noise_bump_1024sc_wf_plus3_25db": (10782773, 25165824),
+    "noise_bump_1024sc_wf_plus3_30db": (9259428, 25165824),
+    "noise_bump_1024sc_wf_plus6_0db": (12509285, 25165824),
+    "noise_bump_1024sc_wf_plus6_5db": (12453951, 25165824),
+    "noise_bump_1024sc_wf_plus6_10db": (12335494, 25165824),
+    "noise_bump_1024sc_wf_plus6_15db": (12113402, 25165824),
+    "noise_bump_1024sc_wf_plus6_20db": (11701403, 25165824),
+    "noise_bump_1024sc_wf_plus6_25db": (10912526, 25165824),
+    "noise_bump_1024sc_wf_plus6_30db": (9517541, 25165824),
     "OFDM-CY1.0-512": (419, 100663296),
     "SC-CY1.0-1024": (0, 100663296),
     "SC-ZE1.0-1024": (3, 100663296),
@@ -1095,10 +1160,12 @@ def diag_operations(link, chunk, ops_per_bin):
 
     tile = lk.tile_for(chunk, link.tile_cap)
     tiles = -(-chunk // tile)
-    slice_bins = sum(min(link.slice, min(tile, chunk - t * tile)) for t in range(tiles)) * link.n
+    slice_bins = sum(min(link.slice, min(tile, chunk - t * tile)) for t in range(tiles)) * link.n * link.add_noise
+    ops = chunk * link.n * sum(ops_per_bin.values()) + slice_bins * POWER_SUM_OPS
+    if link.txext:  # no time plane in the chunk
+        return ops
     sampled = lk.sampled_symbols(chunk, tile, link.pstride)
-    return (chunk * link.n * sum(ops_per_bin.values()) + slice_bins * POWER_SUM_OPS
-            + sampled * (product_ops(link.fr, link.fi) + PAPR_OPS * link.T))
+    return ops + sampled * (product_ops(link.fr, link.fi) + PAPR_OPS * link.T)
 
 
 def adaptive_path(card, device, headline_ms):
@@ -1702,6 +1769,308 @@ def eager_noise_bump_path(card, device):
           f"within {NOISE_BUMP_TOL} of the reference curves")
 
 
+# --- the noise-bump stages on every chain; diag past 256 subcarriers -----------------
+
+# A noiseless link with both power switches: the noise-bump study's stages
+# ride it (link_kernel.noise_bump_link).
+_NB = dict(noise_type="NONE", apply_power_allocation=True, normalize_before_demap=True)
+# The diag links past the warp layout, held against the plain version in
+# three codec modes: the audit's two shapes that the kernel takes from the
+# eager chain (both txext) and a 300-sc ISI-free link (the in-run PAPR).
+WIDE_DIAG_LINKS = {
+    "OFDM-CY1.0-512": dict(num_subcarriers=512),
+    "flat_fading_cp_1024sc": dict(num_subcarriers=1024, channel_model="flat_fading", snr_db=20.0),
+    "isi_free_300sc": dict(num_subcarriers=300, channel_model="Lin-Phoong_P2", snr_db=20.0),
+}
+WIDE_DIAG_MODES = {"qam": {}, "aqam": _ADAPT, "psk8": _PSK8}
+WIDE_BAND_SYMBOLS = 1 << 20
+
+
+def bump_rows(runner, device, snr_db=15.0):
+    """The study's (3, n) rows of its wf_plus3 scenario at ``snr_db`` for a runner's link."""
+    import numpy as np
+    import torch
+
+    from ofdm_tpu_torch.experiments import noise_bump as nb
+
+    n = runner.setup.cfg.num_subcarriers
+    scen = nb.SCENARIOS[1]
+    rows = nb.point_rows(np.abs(runner.setup.h_freq) ** 2, scen, nb.create_noise_profile(n, scen.noise_bump_db),
+                         snr_db)
+    return torch.tensor(rows, device=device)
+
+
+def bump_links(device):
+    """{name: (chain, noise-bump link, its rows, sym0)}: the staged chunks
+    with all four stages held against their plain version: fold (OFDM short
+    CP, scfde_default), lr (cp034_128sc, the study's 1024-sc link), mm
+    (zp_64sc); each at the last 2^17-symbol chunk of its usual run."""
+    from ofdm_tpu_torch.experiments import noise_bump as nb
+    from ofdm_tpu_torch.ops import link_kernel as lk
+    from ofdm_tpu_torch.pipeline import LinkRunner, prepare
+
+    last = MAIN_SYMBOLS - MAIN_CHUNK
+    cfgs = {
+        "ofdm_short_cp": ("fold", scfde_cfg(MAIN_SYMBOLS, MAIN_CHUNK, **dict(FOLD_LINKS["ofdm_short_cp"], **_NB)),
+                          last),
+        "scfde_default": ("fold", scfde_cfg(MAIN_SYMBOLS, MAIN_CHUNK, **_NB), last),
+        "cp034_128sc": ("lr", wide_cfg(LR_SYMBOLS, MAIN_CHUNK, **dict(LR_LINKS["cp034_128sc"][0], **_NB)),
+                        LR_SYMBOLS - MAIN_CHUNK),
+        "zp_64sc": ("mm", zp_cfg(MAIN_SYMBOLS, MAIN_CHUNK, **_NB), last),
+    }
+    out = {}
+    for name, (chain, cfg, sym0) in cfgs.items():
+        runner = LinkRunner(prepare(cfg), device)
+        if runner.mode != chain:
+            raise AssertionError(f"{name} routed to {runner.mode}, not {chain}")
+        out[name] = (chain, lk.noise_bump_link(runner.link), bump_rows(runner, device), sym0)
+    fused = nb.FusedLink(LR_SYMBOLS, 1024, 64, "Lin-Phoong_P2", chunk=MAIN_CHUNK, device=device)
+    if fused.runner.mode != "lr":
+        raise AssertionError(f"the 1024-sc study link routed to {fused.runner.mode}")
+    out["study_1024sc"] = ("lr", fused.link, bump_rows(fused.runner, device), LR_SYMBOLS - MAIN_CHUNK)
+    return out
+
+
+def chunk_loop(chain, link, rows, chunks, device, snr_db=15.0):
+    """``chunks`` consecutive 2^17-symbol chunks of one link through its
+    chain's wrapper, one stream as ``FusedLink.run_point`` drives it;
+    returns the launches of the wrapper's counting pass."""
+    import torch
+
+    from ofdm_tpu_torch.ops import link_kernel as lk
+    from ofdm_tpu_torch.pipeline import _KERNELS
+
+    kernel = _KERNELS[chain].chunk
+    work = _KERNELS[chain].workspace(link, MAIN_CHUNK, device)
+    counter = "wide_launches" if chain == "diag" and link.n > lk.WARP_MAX_N else "launches"
+    setattr(kernel, counter, 0)
+    acc, psum = lk.new_accumulators(device)
+    for c in range(chunks):
+        kernel(link, (9, 1), c * MAIN_CHUNK, MAIN_CHUNK, lk.snr_linear(snr_db), acc, psum, work, rows)
+    torch.cuda.synchronize()
+    return getattr(kernel, counter)
+
+
+def bump_checks(device):
+    """Each chain's staged chunk with all four stages against its plain
+    version (``compare_chunk``: counts, PAPR and carry exactly), then each
+    link driven over 8 chunks through its chain's wrapper.  Returns
+    ({chain: (max difference, launches)}, the links)."""
+    from ofdm_tpu_torch.ops import link_kernel as lk
+
+    links = bump_links(device)
+    chains_ = chains()
+    out = {}
+    for name, (chain, link, rows, sym0) in links.items():
+        _, kernel, plain, _ = chains_[chain]
+        err = compare_chunk(f"{chain}_chunk noise-bump stages {name} (n={link.n}, E={link.E}, "
+                            f"sc={getattr(link, 'is_sc', False)}, stages={lk.link_stages(link)})", kernel, plain, link,
+                            sym0, MAIN_CHUNK, 15.0, device, rows=rows)
+        launches = chunk_loop(chain, link, rows, 8, device)
+        e, count = out.get(chain, (0.0, 0))
+        out[chain] = (max(e, err), count + launches)
+    return out, links
+
+
+def wide_diag_checks(card, device):
+    """diag_wide against its plain version on the card (counts, PAPR and
+    carry exactly; no PAPR under txext) on WIDE_DIAG_LINKS in qam, aqam and
+    8-PSK at 2^17 symbols, on an IR without unit energy and on the study's
+    512-sc link with all four stages; a capture replay on two of them.
+    Returns the largest difference."""
+    import numpy as np
+
+    from ofdm_tpu_torch.experiments import noise_bump as nb
+    from ofdm_tpu_torch.ops import link_kernel as lk
+    from ofdm_tpu_torch.pipeline import LinkRunner, prepare
+
+    sym0 = WIDE_BAND_SYMBOLS - MAIN_CHUNK
+    err = 0.0
+    for name, kw in WIDE_DIAG_LINKS.items():
+        for mode, extra in WIDE_DIAG_MODES.items():
+            runner = LinkRunner(prepare(audit_cfg(WIDE_BAND_SYMBOLS, MAIN_CHUNK, **{**kw, **extra})), device)
+            link = runner.link
+            if runner.mode != "diag" or link.q.mode != ("psk" if mode == "psk8" else mode):
+                raise AssertionError(f"{name} {mode} routed to {runner.mode} in {link.q.mode}")
+            tile = lk.tile_for(MAIN_CHUNK, link.tile_cap)
+            err = max(err, compare_chunk(
+                f"diag_chunk {name} {mode} (n={link.n}, diag_wide, tile {tile}, txext={link.txext})",
+                lk.diag_chunk, lk.diag_chunk_plain, link, sym0, MAIN_CHUNK, runner.setup.cfg.snr_db, device,
+                no_papr=link.txext))
+    # an IR without unit energy: the channel multiply's own rows
+    ir = np.asarray(CUSTOM_IRS["custom_channel_demo"])
+    runner = LinkRunner(prepare(audit_cfg(WIDE_BAND_SYMBOLS, MAIN_CHUNK, **WIDE_DIAG_LINKS["isi_free_300sc"]),
+                                channel_ir=ir), device)
+    if runner.mode != "diag" or not lk.own_channel_rows(runner.link):
+        raise AssertionError(f"custom_channel_demo at 300 sc: {runner.mode}, own rows "
+                             f"{lk.own_channel_rows(runner.link)}")
+    err = max(err, compare_chunk("diag_chunk custom_channel_demo 300 sc (diag_wide, channel rows of its own)",
+                                 lk.diag_chunk, lk.diag_chunk_plain, runner.link, sym0, MAIN_CHUNK,
+                                 runner.setup.cfg.snr_db, device))
+    fused = nb.FusedLink(WIDE_BAND_SYMBOLS, 512, 64, "Lin-Phoong_P2", chunk=MAIN_CHUNK, device=device)
+    err = max(err, compare_chunk(f"diag_chunk noise-bump study 512 sc (diag_wide, stages="
+                                 f"{lk.link_stages(fused.link)})", lk.diag_chunk, lk.diag_chunk_plain, fused.link,
+                                 sym0, MAIN_CHUNK, 15.0, device, rows=bump_rows(fused.runner, device)))
+    for name, mode in (("OFDM-CY1.0-512", "qam"), ("isi_free_300sc", "aqam")):
+        cfg = audit_cfg(WIDE_BAND_SYMBOLS, MAIN_CHUNK, **{**WIDE_DIAG_LINKS[name], **WIDE_DIAG_MODES[mode]})
+        err = max(err, capture_check(card, device, f"{name} {mode} (diag_wide)", "diag", cfg, CAPTURE_COLLECT)[0])
+    return err
+
+
+def wide_cells(card, device):
+    """The two audit cells the wide diag kernel took from the eager chain,
+    through LinkRunner at 2^20 OFDM symbols: diag_wide's launches, the
+    sampled-TX PAPR, the z = 5 band against the JAX package's XLA reading
+    (their eager twins run in eager_path), the profile.  Returns (launches,
+    the OFDM-CY1.0-512 runner)."""
+    from ofdm_tpu_torch.ops import link_kernel as lk
+    from ofdm_tpu_torch.pipeline import LinkRunner, prepare
+
+    launches, first = 0, None
+    for name in ("OFDM-CY1.0-512", "flat_fading_cp_1024sc"):
+        runner = LinkRunner(prepare(audit_cfg(WIDE_BAND_SYMBOLS, MAIN_CHUNK, **WIDE_DIAG_LINKS[name])), device)
+        runner.run(1)  # warm-up (and the cached PAPR sample)
+        lk.diag_chunk.wide_launches = lk.diag_chunk.launches = lk.diag_chunk.power_launches = 0
+        r = runner.run(MAIN_SEED)
+        got = (lk.diag_chunk.wide_launches, lk.diag_chunk.launches, lk.diag_chunk.power_launches)
+        want = WIDE_BAND_SYMBOLS // MAIN_CHUNK
+        print(f"{name} through LinkRunner (diag_wide) [{card}]: {WIDE_BAND_SYMBOLS} OFDM symbols, "
+              f"ofdm_symbols_per_s={r['ofdm_symbols_per_s']:.1f} BER={r['bit_error_rate']} "
+              f"papr_db={r['papr_db']:.4f} ({r['papr_estimator']}) hotpath={r['hotpath_used']}; launches "
+              f"diag_wide {got[0]}, diag_main {got[1]}, wide_power {got[2]}")
+        if got != (want, 0, want) or r["hotpath_used"] != "cuda" or r["papr_estimator"] != "sampled_tx":
+            raise AssertionError(f"{name}: launches {got}, {r['hotpath_used']}, {r['papr_estimator']}")
+        band(name, r, EAGER_READING)
+        launches += got[0]
+        first = first or runner
+        print_profile(card, f"{name} (diag_wide)", profile_run(runner, runner.setup.cfg.snr_db))
+    return launches, first
+
+
+def wide_noise_bump_campaigns(card, device):
+    """The study's fused campaign at 512 sc (diag_wide) and 1024 sc (lr):
+    ``run_noise_bump_experiment``, 3 scenarios x 7 SNR points at 2^20 OFDM
+    symbols a point, its launch counters, every point at z = 5 against the
+    JAX package's ``_Link`` reading at that width, the profile of one
+    point.  Returns {n: counting-pass launches}."""
+    import torch
+
+    from ofdm_tpu_torch.experiments import noise_bump as nb
+    from ofdm_tpu_torch.ops import link_kernel as lk
+    from ofdm_tpu_torch.ops import lr_kernel as lrk
+    from ofdm_tpu_torch.ops import metrics as mt
+
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tmp", "noise_bump_wide")  # gitignored
+    points = len(nb.SCENARIOS) * len(NOISE_BUMP_SNRS)
+    want = points * (NOISE_BUMP_WIDE_SYMBOLS // MAIN_CHUNK)
+    out = {}
+    for n, chain in NOISE_BUMP_WIDE.items():
+        kernel, counter = (lk.diag_chunk, "wide_launches") if chain == "diag" else (lrk.lr_chunk, "launches")
+        nb.run_noise_bump_experiment((15.0,), num_subcarriers=n, fused_symbols_per_point=MAIN_CHUNK,
+                                     results_dir=out_dir, seed=1, chunk=MAIN_CHUNK)  # warm-up
+        torch.cuda.synchronize()
+        setattr(kernel, counter, 0)
+        kernel.norm_launches = 0
+        t0 = time.perf_counter()
+        res = nb.run_noise_bump_experiment(NOISE_BUMP_SNRS, num_subcarriers=n,
+                                           fused_symbols_per_point=NOISE_BUMP_WIDE_SYMBOLS, results_dir=out_dir,
+                                           seed=NOISE_BUMP_SEED, chunk=MAIN_CHUNK)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = (getattr(kernel, counter), kernel.norm_launches)
+        kname = "diag_wide" if chain == "diag" else "lr_main"
+        print(f"noise_bump campaign {n} sc [{card}]: {points} points x {NOISE_BUMP_WIDE_SYMBOLS} OFDM symbols in "
+              f"{wall:.4f} s: {wall / points * 1e3:.3f} ms and {NOISE_BUMP_WIDE_SYMBOLS * points / wall:.1f} OFDM "
+              f"syms/s a point on average; launches: {kname} (counting pass) {got[0]}, normalization pass + "
+              f"norm_factors {got[1]} each")
+        if got != (want, want):
+            raise AssertionError(f"noise_bump {n} sc campaign launched {got}, not ({want}, {want})")
+        bits = NOISE_BUMP_WIDE_SYMBOLS * n * 6
+        for scenario in nb.SCENARIOS:
+            bers = res[scenario.name]
+            print(f"noise_bump {n} sc {scenario.key} BER at {list(NOISE_BUMP_SNRS)} dB: {bers}")
+            for snr, ber in zip(NOISE_BUMP_SNRS, bers):
+                je, jb = JAX_CPU_READINGS[noise_bump_name(scenario.key, snr, n)]
+                if not mt.ber_equivalent(int(round(ber * bits)), bits, je, jb, z=BAND_Z):
+                    raise AssertionError(f"noise_bump {n} sc {scenario.key} {snr} dB: BER {ber} outside z={BAND_Z} "
+                                         f"of the JAX package's _Link reading {je / jb}")
+        print(f"noise_bump {n} sc: every point inside z={BAND_Z} of the JAX package's _Link reading (CPU, "
+              f"2^22 / n OFDM symbols)")
+        fused = nb.FusedLink(NOISE_BUMP_WIDE_SYMBOLS, n, 64, "Lin-Phoong_P2", chunk=MAIN_CHUNK, device=device)
+        scen = nb.SCENARIOS[1]
+        profile = nb.create_noise_profile(n, scen.noise_bump_db)
+        print_profile(card, f"noise_bump {n} sc point (wf_plus3, 15 dB)",
+                      profile_call(lambda: fused.run_point(7, scen, profile, 15.0)))
+        out[n] = got[0]
+    return out
+
+
+def bump_entry(card, device, name, chain, link, rows, sym0, launches, err):
+    """One chain's staged chunk with all four stages timed at 2^17 symbols
+    beside its plain version and bound; returns its kernels-line entry."""
+    from ofdm_tpu_torch.ops import link_kernel as lk
+    from ofdm_tpu_torch.pipeline import _KERNELS
+
+    _, kernel, plain, _ = chains()[chain]
+    snr_lin = lk.snr_linear(15.0)
+    acc, psum = lk.new_accumulators(device)
+    work = _KERNELS[chain].workspace(link, MAIN_CHUNK, device)
+    k_ms = cuda_ms(lambda: kernel(link, (3, 4), sym0, MAIN_CHUNK, snr_lin, acc, psum, work, rows), 10)
+    p_ms = cuda_ms(lambda: plain(link, (3, 4), sym0, MAIN_CHUNK, snr_lin, acc, psum, rows=rows), 1)
+    ops, added = staged_operations(chain, link, MAIN_CHUNK)
+    bound = ops / PEAK_OPS * 1e3
+    kname = "diag_wide" if chain == "diag" else f"{chain}_chunk"
+    print(f"{kname} with the noise-bump stages, {name} (n={link.n}) at {MAIN_CHUNK} symbols [{card}]: kernel "
+          f"{k_ms:.4f} ms, plain {p_ms:.3f} ms, bound {bound:.4f} ms ({ops} operations needed; the normalization "
+          f"pass adds {added}, {added / PEAK_OPS * 1e3:.4f} ms at the same rate)")
+    source = {"diag": "diag_wide_kernel", "fold": "fold_kernel", "lr": "lr_kernel", "mm": "mm_kernel"}[chain]
+    return {"name": f"{kname} (noise-bump stages, {name})", "route": "cuda",
+            "source": f"ofdm_tpu_torch/csrc/{source}.cu", "replaces": "ofdm_tpu/ops/pallas_link.py:1986",
+            "launches": launches, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
+            "bound_by": "operations", "library_ms": None}
+
+
+def wide_path(card, device):
+    """This slice's phase: the noise-bump stages on fold, lr and mm and the
+    diag chain past 256 subcarriers against their plain versions; the two
+    audit cells diag_wide takes through LinkRunner; the study's campaign at
+    512 and 1024 sc; the new kernels timed.  Returns the kernels-line
+    entries."""
+    from ofdm_tpu_torch.experiments import noise_bump as nb
+    from ofdm_tpu_torch.ops import link_kernel as lk
+
+    t0 = time.perf_counter()
+    bump, links = bump_checks(device)
+    wide_err = wide_diag_checks(card, device)
+    cell_launches, cell_runner = wide_cells(card, device)
+    campaign = wide_noise_bump_campaigns(card, device)
+
+    # diag_wide in qam on OFDM-CY1.0-512 (txext: no time plane), the plain build
+    link = cell_runner.link
+    snr_lin = lk.snr_linear(cell_runner.setup.cfg.snr_db)
+    acc, psum = lk.new_accumulators(device)
+    work = lk.chunk_workspace(link, MAIN_CHUNK, device)
+    k_ms = cuda_ms(lambda: lk.diag_chunk(link, (3, 4), 0, MAIN_CHUNK, snr_lin, acc, psum, work), 20)
+    p_ms = cuda_ms(lambda: lk.diag_chunk_plain(link, (3, 4), 0, MAIN_CHUNK, snr_lin, acc, psum), 2)
+    ops = diag_operations(link, MAIN_CHUNK, OPS_PER_BIN)
+    bound = max(ops / PEAK_OPS, (4 * 7 * link.n + 3 * 8) / PEAK_BYTES) * 1e3
+    print(f"diag_wide (qam) OFDM-CY1.0-512 at {MAIN_CHUNK} symbols [{card}]: kernel {k_ms:.4f} ms, plain "
+          f"{p_ms:.3f} ms, bound {bound:.4f} ms ({ops} operations)")
+    entries = [{"name": "diag_wide (qam, OFDM-CY1.0-512)", "route": "cuda",
+                "source": "ofdm_tpu_torch/csrc/diag_wide_kernel.cu", "replaces": "ofdm_tpu/ops/pallas_link.py:1986",
+                "launches": cell_launches, "max_abs_err": wide_err, "ms": k_ms, "plain_ms": p_ms,
+                "bound_ms": bound, "bound_by": "operations", "library_ms": None}]
+    fused = nb.FusedLink(WIDE_BAND_SYMBOLS, 512, 64, "Lin-Phoong_P2", chunk=MAIN_CHUNK, device=device)
+    entries.append(bump_entry(card, device, "study 512 sc", "diag", fused.link, bump_rows(fused.runner, device), 0,
+                              campaign[512], wide_err))
+    for name in ("ofdm_short_cp", "scfde_default", "study_1024sc", "zp_64sc"):
+        chain, link, rows, sym0 = links[name]
+        launches = campaign[1024] if name == "study_1024sc" else bump[chain][1]
+        entries.append(bump_entry(card, device, name, chain, link, rows, sym0, launches, bump[chain][0]))
+    print(f"noise-bump stages and diag_wide phase: {time.perf_counter() - t0:.1f} s")
+    return entries
+
+
 # --- the sweep and the shards: K3, the carry-in, the mesh, the CLI ------------------
 
 # The links K3 (the carry probe) is held on: its chunk's carry row, its plain
@@ -2254,7 +2623,7 @@ def main():
             spills = [int(b) for b in re.findall(r"(\d+) bytes spill stores", text) if int(b)]
             print(f"ptxas {name}: {len(regs)} kernels, {min(regs, default=0)}-{max(regs, default=0)} registers, "
                   f"{len(spills)} with spill stores (at most {max(spills, default=0)} bytes)")
-            if not name.endswith("_staged") and name != "boxmuller":
+            if not name.endswith(("_staged", "_bump")) and name != "boxmuller":
                 print(f"ptxas {name} qam entry points (registers): {json.dumps(qam_registers(text))}")
 
     # 2. Philox: kernel vs plain, bit for bit
@@ -2357,6 +2726,10 @@ def main():
     eager_path(card, device, prng_entries)
     eager_noise_bump_path(card, device)
 
+    # 12b. the noise-bump stages on fold, lr and mm; diag past 256 subcarriers
+    # (diag_wide); the study's campaign at 512 and 1024 sc
+    wide = wide_path(card, device)
+
     # 13. K3 and the carry-in on every chain; the sharded runs (one rank
     # under NCCL, two ranks under gloo) and the CLI on the reference's configs
     t_sweep = time.perf_counter()
@@ -2384,6 +2757,7 @@ def main():
         *staged,
         *prng_entries,
         *dumps,
+        *wide,
         *probe_entries,
     ]
     print(json.dumps({"kernels": kernels}))

@@ -12,11 +12,14 @@ OFDM symbols in chunks of 4096; ``chip_smoke.EAGER_LINKS`` the same way at
 then every point of the noise-bump study
 (3 scenarios x SNR 0, 5, ..., 30 dB) through the JAX package's ``_Link``
 at 2^16 OFDM symbols a point, key ``fold_in(PRNGKey(42), 1000 s + p)`` as
-its campaign draws them.  Prints ``{name: [bit errors, bits]}``: the
-values of ``chip_smoke.JAX_CPU_READINGS``.  About 6 min on one CPU.
+its campaign draws them, at 64 subcarriers and at each width of
+``chip_smoke.NOISE_BUMP_WIDE`` (2^22 / n OFDM symbols a point there).
+Prints ``{name: [bit errors, bits]}``: the values of
+``chip_smoke.JAX_CPU_READINGS``.  About 8 min on one CPU.
 
 The bands of ``chip_smoke.py``'s sharded phase add no reading: the one-
-and two-rank eager runs are ``OFDM-CY1.0-512``'s config, and the CLI's
+and two-rank eager runs are ``OFDM-CY1.0-512``'s config (on the eager
+chain by its hotpath), and the CLI's
 adaptive points are the reference's adaptive config at 15 / 20 / 25 dB
 (on its own 1,000 OFDM symbols a point), each held to the reading above.
 """
@@ -27,8 +30,8 @@ import sys
 
 import jax
 
-from chip_smoke import (ADAPTIVE_CONFIG, AUDIT_BASE, BAND_LINKS, EAGER_LINKS, NOISE_BUMP_SNRS, STAGED_BAND_LINKS,
-                        noise_bump_name)
+from chip_smoke import (ADAPTIVE_CONFIG, AUDIT_BASE, BAND_LINKS, EAGER_LINKS, NOISE_BUMP_SNRS, NOISE_BUMP_WIDE,
+                        STAGED_BAND_LINKS, noise_bump_name)
 from ofdm_tpu.config import SimulationConfig
 from ofdm_tpu.experiments import noise_bump as nb
 from ofdm_tpu.models import channels as chm
@@ -64,14 +67,16 @@ def main():
         n = kw["num_subcarriers"]
         out[name] = reading(SimulationConfig(**dict(kw, num_symbols=n * (EAGER_BITS_SPAN // n),
                                                     symbols_per_chunk=(1 << 20) // n)))
-    link = nb._Link(NOISE_BUMP_SYMBOLS, 64, 64, chm.get_channel("Lin-Phoong_P2"))
     key = jax.random.PRNGKey(42)
-    bits = NOISE_BUMP_SYMBOLS * 64 * 6
-    for s_i, scenario in enumerate(nb.SCENARIOS):
-        profile = nb.create_noise_profile(64, scenario.noise_bump_db)
-        for p_i, snr in enumerate(NOISE_BUMP_SNRS):
-            ber, _ = link.run_point(jax.random.fold_in(key, s_i * 1000 + p_i), scenario, profile, snr)
-            out[noise_bump_name(scenario.key, snr)] = [int(round(ber * bits)), bits]
+    for n in (64, *NOISE_BUMP_WIDE):
+        symbols = NOISE_BUMP_SYMBOLS * 64 // n
+        link = nb._Link(symbols, n, 64, chm.get_channel("Lin-Phoong_P2"))
+        bits = symbols * n * 6
+        for s_i, scenario in enumerate(nb.SCENARIOS):
+            profile = nb.create_noise_profile(n, scenario.noise_bump_db)
+            for p_i, snr in enumerate(NOISE_BUMP_SNRS):
+                ber, _ = link.run_point(jax.random.fold_in(key, s_i * 1000 + p_i), scenario, profile, snr)
+                out[noise_bump_name(scenario.key, snr, n)] = [int(round(ber * bits)), bits]
     print(json.dumps(out, indent=1))
     return 0
 

@@ -6,7 +6,10 @@ seconds), named by a digest of its sources and flags under
 ``ofdm_tpu_torch/_build/``.  Each chunk source builds twice: plainly, and
 with ``-DOFDM_STAGED=1`` into its ``*_staged`` library, which holds the
 _Spec stages (link_common.cuh), so that the plain build's kernels compile
-from the code they had.  A library is built at its first use in a
+from the code they had; the fold, lr, mm and diag_wide sources a third
+time with ``-DOFDM_BUMP=1`` as well, into ``*_bump``, whose mains hold the
+noise-bump stages (the staged build's keep the code they had, and the
+builds run side by side).  A library is built at its first use in a
 process; :func:`build` compiles several at once, one nvcc process each.
 Nothing here runs at import time.
 """
@@ -28,14 +31,20 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 # library -> (source in csrc/, extra nvcc flags)
 LIBRARIES = {
     "link_kernel": ("link_kernel", ()),
+    "diag_wide": ("diag_wide_kernel", ()),
     "fold_kernel": ("fold_kernel", ()),
     "lr_kernel": ("lr_kernel", ()),
     "mm_kernel": ("mm_kernel", ()),
     "boxmuller": ("boxmuller", ()),
     "link_staged": ("link_kernel", ("-DOFDM_STAGED=1",)),
+    "diag_wide_staged": ("diag_wide_kernel", ("-DOFDM_STAGED=1",)),
     "fold_staged": ("fold_kernel", ("-DOFDM_STAGED=1",)),
     "lr_staged": ("lr_kernel", ("-DOFDM_STAGED=1",)),
     "mm_staged": ("mm_kernel", ("-DOFDM_STAGED=1",)),
+    "diag_wide_bump": ("diag_wide_kernel", ("-DOFDM_STAGED=1", "-DOFDM_BUMP=1")),
+    "fold_bump": ("fold_kernel", ("-DOFDM_STAGED=1", "-DOFDM_BUMP=1")),
+    "lr_bump": ("lr_kernel", ("-DOFDM_STAGED=1", "-DOFDM_BUMP=1")),
+    "mm_bump": ("mm_kernel", ("-DOFDM_STAGED=1", "-DOFDM_BUMP=1")),
 }
 SOURCES = tuple(LIBRARIES)
 # -fmad=false: every multiply rounds before its add, as in the plain
@@ -58,14 +67,12 @@ _PROBE = ([_P] * 2 + [_I] * 9 + [_F] + [_P] * 2 + [ctypes.c_ulonglong] + [_U] * 
           + [_P], _I)
 # The C entry points of each source's libraries with their (argtypes,
 # restype), set once when a library loads.
+_DIAG = [_P] * 9 + [_I] * 8 + [_F] + [_P] * 2 + [_F] * 3 + [_I] * 2 + [ctypes.c_ulonglong] + [_I] * 7 + [_U] * 2 \
+    + [_P] * 5 + _STAGES
 SIGNATURES = {
-    "link_kernel": {
-        "ofdm_diag_chunk": (
-            [_P] * 9 + [_I] * 8 + [_F] + [_P] * 2 + [_F] * 3 + [_I] * 2 + [ctypes.c_ulonglong]
-            + [_I] * 7 + [_U] * 2 + [_P] * 5 + _STAGES + [_P],
-            _I,
-        ),
-    },
+    "link_kernel": {"ofdm_diag_chunk": (_DIAG + [_P], _I)},
+    # the diag chunk past 256 subcarriers: the same arguments, then txext
+    "diag_wide_kernel": {"ofdm_diag_wide_chunk": (_DIAG + [_I, _P], _I)},
     "fold_kernel": {
         "ofdm_fold_chunk": (
             [_P] * 11 + [_I] * 9 + [_F] + [_P] * 2 + [_F] * 3 + [_I] * 3 + [ctypes.c_ulonglong]

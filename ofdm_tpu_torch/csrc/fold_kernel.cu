@@ -17,10 +17,12 @@
 //   over the first `slice` symbols of b's tile, before noise
 //   ZF / MMSE / none with the slicer gain 0.5/scale folded in
 //   SC-FDE only: e = e @ IDFT (n -> n)
+//   [post-EQ noise, x 1/sqrt(P): per time sample on SC-FDE]
 //   [x the tile's unit-power factor, the slicer gain deferred to it]
 //   slicer or PSK sector -> popcount(tx ^ rx) into int64 counters.
 // The bracketed _Spec stages exist only in the build with -DOFDM_STAGED=1
-// (the kernels' kStaged parameter; link_common.cuh).
+// (the kernels' kStaged parameter; link_common.cuh), the post-EQ noise and
+// 1/sqrt(P) only in the one with -DOFDM_BUMP=1 as well (kBump).
 //
 // Bound on an H100: issue rate, not memory.  The chunk reads its constant
 // matrices (~100 KB at n = 64, L1/L2 resident) and writes 3 counters and one
@@ -56,7 +58,9 @@
 //    atomicAdd (its last digits depend on block order).
 //  * normalize (staged build): fold_main runs twice around norm_factors, as
 //    diag_staged does; phase 0 writes each warp's |e|^2 sum over its run of
-//    symbols (after the SC IDFT on SC-FDE), phase 1 scales and counts.
+//    symbols (after the SC IDFT and the noise-bump stages), phase 1 scales
+//    and counts.  The post-EQ noise is drawn again in phase 1 at the same
+//    Philox counter, so both passes see the same e.
 //  * Carry-in (sharded contiguous streams): given a tail, the chunk's first
 //    symbol reads it instead of recomputing its predecessor, in every pass
 //    that recomputes one (fold_power, both passes of fold_main); other
@@ -180,7 +184,7 @@ __global__ void __launch_bounds__(kThreads) fold_power(Link L, float* partials) 
 
 // The chain per symbol; with kStaged, the stages (phase 0 of a normalized
 // link writes its run's |e|^2 partial instead of counting).
-template <int J, int kMode, bool kStaged, bool kDump = false, bool kPrev = true>
+template <int J, int kMode, bool kStaged, bool kDump = false, bool kPrev = true, bool kBump = false>
 __global__ void __launch_bounds__(kThreads)
     fold_main(Link L, const float* partials, unsigned long long* acc, double* psum,
               float* carry_r, float* carry_i) {
@@ -261,6 +265,13 @@ __global__ void __launch_bounds__(kThreads)
         __syncwarp();
       }
 
+      if constexpr (kBump) {
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          const int k = lane + 32 * j;
+          if (k < L.n) ofdm::bump_stages<true>(L, L.sym0 + static_cast<unsigned long long>(b), k, er[j], ei[j]);
+        }
+      }
       if constexpr (kStaged) {
         if (normalize) {
           if (!counting) {
@@ -326,9 +337,10 @@ template <int J, int kMode>
 cudaError_t launch(const Link& L, float* partials, unsigned long long* acc, double* psum,
                    float* cr, float* ci, cudaStream_t stream) {
   constexpr bool kS = ofdm::kStagedBuild;
-  auto* main_kernel = &fold_main<J, kMode, kS>;
+  constexpr bool kB = ofdm::kBumpBuild;
+  auto* main_kernel = &fold_main<J, kMode, kS, false, true, kB>;
 #if OFDM_STAGED
-  if (L.st.bits & ofdm::kStageDump) main_kernel = &fold_main<J, kMode, kS, true>;
+  if (L.st.bits & ofdm::kStageDump) main_kernel = &fold_main<J, kMode, kS, true, true, kB>;
 #else
   if (L.prev_r == nullptr) main_kernel = &fold_main<J, kMode, kS, false, false>;
 #endif
@@ -405,8 +417,8 @@ extern "C" {
 // errors, symbol errors, PAPR peak f32 bits] (int64, accumulated), psum =
 // PAPR power sum (float64, accumulated); carry = the chunk's last symbol's
 // x[0:T).  rows / stages / norm_part / norm_f: the _Spec stages
-// (link_common.cuh::Stages; 0 in the plain build; apply_power and
-// normalize only).  Returns the first CUDA error of the launches, 0 if none.
+// (link_common.cuh::Stages; 0 in the plain build).  Returns the first CUDA
+// error of the launches, 0 if none.
 int ofdm_fold_chunk(const float* txr, const float* txi, const float* cmr, const float* cmi,
                     const float* idr, const float* idi, const float* hr, const float* hi,
                     const float* habs2, const float* gr, const float* gi, int n, int T, int E,
@@ -423,7 +435,7 @@ int ofdm_fold_chunk(const float* txr, const float* txi, const float* cmr, const 
       (prev_r == nullptr) != (prev_i == nullptr) ||
       groups < 1 || run < 1 || tile % run != 0 || (is_sc && (idr == nullptr || idi == nullptr)) ||
       (ofdm::adaptive(mode) && (is_sc || lane_i == nullptr || lane_f == nullptr)) ||
-      !ofdm::stage_args_ok(rows, stages, norm_part, norm_f, dump_r, dump_i, dump_rows, false)) {
+      !ofdm::stage_args_ok(rows, stages, norm_part, norm_f, dump_r, dump_i, dump_rows, ofdm::kBumpBuild)) {
     return cudaErrorInvalidValue;
   }
   if (sizeof(float) * (kPowerBlock + kWarps * warp_floats(n, T, E)) > 227 * 1024) {

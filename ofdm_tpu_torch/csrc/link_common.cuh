@@ -12,7 +12,9 @@
 // with -DOFDM_STAGED=1, whose kernels take their `kStaged` template
 // parameter true; the plain build's take it false, so every
 // `if constexpr (kStaged)` block vanishes there and its kernels compile
-// from the code they had.
+// from the code they had.  The noise-bump stages of the fold, lr, mm and
+// diag_wide mains live in a third build, with -DOFDM_BUMP=1 as well
+// (kBumpBuild), for the same reason.
 //
 // Each function repeats, operation for operation, the plain PyTorch version
 // in ofdm_tpu_torch/ops/{prng,link_kernel}.py.  The kernels are compiled
@@ -29,11 +31,19 @@
 #ifndef OFDM_STAGED
 #define OFDM_STAGED 0
 #endif
+#ifndef OFDM_BUMP
+#define OFDM_BUMP 0
+#endif
 
 namespace ofdm {
 
 // Whether this build holds the staged kernels (-DOFDM_STAGED=1).
 constexpr bool kStagedBuild = OFDM_STAGED != 0;
+// Whether this staged build holds the noise-bump stages (-DOFDM_BUMP=1): the
+// fold, lr, mm and diag_wide mains compiled with them (kBump) in a third
+// build of their sources, so the staged build's mains keep the code they
+// had and the two builds compile side by side.
+constexpr bool kBumpBuild = OFDM_STAGED != 0 && OFDM_BUMP != 0;
 
 // Philox4x32-10 (Salmon et al., SC'11; Random123's constants).  Counter
 // (c.x, c.y, c.z, c.w), key (k.x, k.y).
@@ -566,6 +576,33 @@ __device__ __forceinline__ void post_noise(uint32_t w1, uint32_t w2, float sigma
   ei = ei + sr * sn;
 }
 
+// The noise-bump stages of lane k of run symbol `sym`, where the reference
+// kernel has them (pallas_link.py:1824-1846): after the equalizer and the
+// SC-FDE IDFT (so k is a time sample on SC-FDE), before the normalization.
+// post_noise adds sigma rows[2][k] x Box-Muller of the words of Philox
+// counter (sym lo, sym hi, k, 3); compensate multiplies by rows[1][k]
+// (1/sqrt(P)).  Both passes of a normalized chunk call it, so the
+// normalization energy sees the points the counting pass counts.  The
+// fold, lr, mm and diag_wide mains take it as a template parameter (kBump),
+// true in the OFDM_BUMP build only (kBumpBuild).
+template <bool kStaged, class Link>
+__device__ __forceinline__ void bump_stages(const Link& L, unsigned long long sym, int k, float& er,
+                                            float& ei) {
+  if constexpr (kStaged) {
+    if (L.st.bits & kStagePostNoise) {
+      const uint4 w = philox4x32_10(
+          make_uint4(static_cast<uint32_t>(sym), static_cast<uint32_t>(sym >> 32), static_cast<uint32_t>(k), 3u),
+          L.key);
+      post_noise(w.y, w.z, __ldg(L.st.rows + 2 * L.n + k), er, ei);
+    }
+    if (L.st.bits & kStageCompensate) {
+      const float c = __ldg(L.st.rows + L.n + k);
+      er = er * c;
+      ei = ei * c;
+    }
+  }
+}
+
 // The normalize stage's multiplier of bin k: the tile's factor f with the
 // deferred slicer gain riding it (f * 0.5/scale for qam, f * the lane's row
 // for aqam, f for PSK).
@@ -933,7 +970,9 @@ cudaError_t staged_passes(int bits, const float* part, float* f, int chunk, int 
 // Checks an entry point's stage arguments: none in a plain build; in a
 // staged build the rows with apply_power or the noise-bump stages, the
 // normalization scratch with normalize and the dump planes with dump; the
-// noise-bump stages only where the chain has them (`post_ok`).
+// noise-bump stages only where the entry point runs them (`post_ok`: the
+// chunks of the builds that hold them, not the carry probes, which compute
+// TX only).
 inline bool stage_args_ok(const float* rows, int bits, const float* part, const float* f,
                           const float* dump_r, const float* dump_i, int dump_rows, bool post_ok) {
   if (!kStagedBuild) return bits == 0;

@@ -15,13 +15,15 @@
 //   over the first `slice` symbols of b's tile, before noise, times pw_scale;
 //   a zero prefix adds the colored part sigma * g2 @ B^H (g2: r normals)
 //   ZF / MMSE / none with the slicer gain 0.5/scale folded in
+//   [post-EQ noise, x 1/sqrt(P)]
 //   [x the tile's unit-power factor, the slicer gain deferred to it]
 //   slicer or PSK sector -> popcount(tx ^ rx) into int64 counters.
 // Below 512 subcarriers every pstride-th tile also runs x = s @ F_tx for the
 // PAPR max and sum; from 512 (txext) the runner supplies the statistic,
 // except under apply_power (the sampled batch is unscaled).  The bracketed
 // _Spec stages exist only in the build with -DOFDM_STAGED=1 (the kernels'
-// kStaged parameter; link_common.cuh).
+// kStaged parameter; link_common.cuh), the post-EQ noise and
+// 1/sqrt(P) only in the one with -DOFDM_BUMP=1 as well (kBump).
 //
 // Bound on an H100: issue rate, not memory.  The chunk reads its constant
 // rows and skinny matrices (E x n each, 57 KB at n = 1024 and E = 7: L1/L2
@@ -290,8 +292,9 @@ __global__ void __launch_bounds__(kThreads) lr_power(Link L, float* partials) {
 }
 
 // With kStaged, the stages (phase 0 of a normalized link writes its run's
-// |e|^2 partial instead of counting).
-template <int J, int kMode, bool kStaged, bool kDump = false>
+// |e|^2 partial instead of counting); kDump is the dump stage's
+// launch-time variant, kBump the noise-bump stages (the OFDM_BUMP build).
+template <int J, int kMode, bool kStaged, bool kDump = false, bool kBump = false>
 __global__ void __launch_bounds__(kThreads)
     lr_main(Link L, const float* partials, unsigned long long* acc, double* psum, float* carry_r,
             float* carry_i) {
@@ -412,6 +415,7 @@ __global__ void __launch_bounds__(kThreads)
         ei[j] = 0.0f;
         if (k < L.n) {
           ofdm::equalize_stage<kMode, true>(L, k, yr[j], yi[j], nv, er[j], ei[j]);
+          ofdm::bump_stages<kBump>(L, sym, k, er[j], ei[j]);
           p = p + (er[j] * er[j] + ei[j] * ei[j]);
         }
       }
@@ -504,9 +508,10 @@ template <int J, int kMode>
 cudaError_t launch(const Link& L, float* partials, unsigned long long* acc, double* psum,
                    float* cr, float* ci, cudaStream_t stream) {
   constexpr bool kS = ofdm::kStagedBuild;
-  auto* main_kernel = &lr_main<J, kMode, kS>;
+  constexpr bool kB = ofdm::kBumpBuild;
+  auto* main_kernel = &lr_main<J, kMode, kS, false, kB>;
 #if OFDM_STAGED
-  if (L.st.bits & ofdm::kStageDump) main_kernel = &lr_main<J, kMode, kS, true>;
+  if (L.st.bits & ofdm::kStageDump) main_kernel = &lr_main<J, kMode, kS, true, kB>;
 #endif
   if (L.add_noise) {
     const int tiles = (L.chunk + L.tile - 1) / L.tile;
@@ -557,9 +562,8 @@ extern "C" {
 // adaptive modes' lane rows).  acc = [bit errors, symbol errors, PAPR peak f32 bits] (int64, accumulated),
 // psum = PAPR power sum (float64, accumulated); carry = (T,) zeros but for the
 // last E lanes, the chunk's last symbol's t.  rows / stages / norm_part /
-// norm_f: the _Spec stages (link_common.cuh::Stages; 0 in the plain build;
-// apply_power and normalize only).  Returns the first CUDA error of the
-// launches, 0 if none.
+// norm_f: the _Spec stages (link_common.cuh::Stages; 0 in the plain build).
+// Returns the first CUDA error of the launches, 0 if none.
 int ofdm_lr_chunk(const float* tlr, const float* tli, const float* ccr, const float* cci,
                   const float* bhr, const float* bhi, const float* dr, const float* di,
                   const float* fr, const float* fi, const float* hr, const float* hi,
@@ -575,7 +579,8 @@ int ofdm_lr_chunk(const float* tlr, const float* tli, const float* ccr, const fl
   if (n < 1 || n > kMaxN || T < n || E < 1 || E > kMaxE || E > T || rank < 0 ||
       (prev_r == nullptr) != (prev_i == nullptr) ||
       rank > kMaxRank || chunk < 1 || tile < 1 || slice < 1 || groups < 1 || run < 1 ||
-      tile % run != 0 || !ofdm::stage_args_ok(rows, stages, norm_part, norm_f, dump_r, dump_i, dump_rows, false) ||
+      tile % run != 0 ||
+      !ofdm::stage_args_ok(rows, stages, norm_part, norm_f, dump_r, dump_i, dump_rows, ofdm::kBumpBuild) ||
       pstride < 1 || (!txext && (fr == nullptr || fi == nullptr)) ||
       (add_noise && rank > 0 && (bhr == nullptr || bhi == nullptr)) ||
       (ofdm::adaptive(mode) && (lane_i == nullptr || lane_f == nullptr))) {

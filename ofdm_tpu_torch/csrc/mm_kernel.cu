@@ -18,10 +18,12 @@
 //   Y    = y @ R                           (T -> n: overlap-add + DFT)
 //   ZF / MMSE / none with the slicer gain 0.5/scale folded in
 //   SC-FDE only: e = e @ IDFT (n -> n)
+//   [post-EQ noise, x 1/sqrt(P): per time sample on SC-FDE]
 //   [x the tile's unit-power factor, the slicer gain deferred to it]
 //   slicer or PSK sector -> popcount(tx ^ rx) into int64 counters.
 // The bracketed _Spec stages exist only in the build with -DOFDM_STAGED=1
-// (the kernels' kStaged parameter; link_common.cuh).
+// (the kernels' kStaged parameter; link_common.cuh), the post-EQ noise and
+// 1/sqrt(P) only in the one with -DOFDM_BUMP=1 as well (kBump).
 //
 // Bound on an H100: issue rate, not memory.  Each symbol runs n(T+E) +
 // (T+E)T + Tn (+ n^2 for SC-FDE) complex multiply-adds at 8 fp32 operations
@@ -181,7 +183,7 @@ __host__ __device__ __forceinline__ int main_floats(int n, int T) { return 2 * (
 
 // With kStaged, the stages (phase 0 of a normalized link writes its run's
 // |e|^2 partial instead of counting).
-template <int J, int kMode, bool kStaged, bool kDump = false>
+template <int J, int kMode, bool kStaged, bool kDump = false, bool kBump = false>
 __global__ void __launch_bounds__(kThreads)
     mm_main(Link L, const float* y_r, const float* y_i, const float* partials,
             unsigned long long* acc, double* psum) {
@@ -268,6 +270,13 @@ __global__ void __launch_bounds__(kThreads)
         }
       }
 
+      if constexpr (kBump) {
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          const int k = lane + 32 * j;
+          if (k < L.n) ofdm::bump_stages<true>(L, sym, k, er[j], ei[j]);
+        }
+      }
       if constexpr (kStaged) {
         if (normalize) {
           if (!counting) {
@@ -347,9 +356,10 @@ template <int J, int kMode>
 cudaError_t launch(const Link& L, float* y_r, float* y_i, float* partials, unsigned long long* acc,
                    double* psum, float* cr, float* ci, cudaStream_t stream) {
   constexpr bool kS = ofdm::kStagedBuild;
-  auto* main_kernel = &mm_main<J, kMode, kS>;
+  constexpr bool kB = ofdm::kBumpBuild;
+  auto* main_kernel = &mm_main<J, kMode, kS, false, kB>;
 #if OFDM_STAGED
-  if (L.st.bits & ofdm::kStageDump) main_kernel = &mm_main<J, kMode, kS, true>;
+  if (L.st.bits & ofdm::kStageDump) main_kernel = &mm_main<J, kMode, kS, true, kB>;
 #endif
   const size_t fbytes = front_bytes(L.n, L.T, L.E);
   const size_t mbytes = sizeof(float) * kWarps * main_floats(L.n, L.T);
@@ -406,9 +416,8 @@ extern "C" {
 // symbol errors, PAPR peak f32 bits] (int64, accumulated), psum = PAPR power
 // sum (float64, accumulated); y = scratch planes of chunk * T floats;
 // carry = the chunk's last symbol's x[0:T).  rows / stages / norm_part /
-// norm_f: the _Spec stages (link_common.cuh::Stages; 0 in the plain build;
-// apply_power and normalize only).  Returns the first CUDA error of the
-// launches, 0 if none.
+// norm_f: the _Spec stages (link_common.cuh::Stages; 0 in the plain build).
+// Returns the first CUDA error of the launches, 0 if none.
 int ofdm_mm_chunk(const float* txr, const float* txi, const float* cvr, const float* cvi,
                   const float* rxr, const float* rxi, const float* idr, const float* idi,
                   const float* hr, const float* hi, const float* habs2, const float* gr,
@@ -424,7 +433,7 @@ int ofdm_mm_chunk(const float* txr, const float* txi, const float* cvr, const fl
   if (n < 1 || n > kMaxN || T < n || T > kMaxT || E < 0 || E > T || chunk < 1 || tile < 1 ||
       (prev_r == nullptr) != (prev_i == nullptr) ||
       run < 1 || tile % run != 0 || static_cast<long long>(chunk) * T > INT_MAX ||
-      !ofdm::stage_args_ok(rows, stages, norm_part, norm_f, dump_r, dump_i, dump_rows, false) ||
+      !ofdm::stage_args_ok(rows, stages, norm_part, norm_f, dump_r, dump_i, dump_rows, ofdm::kBumpBuild) ||
       static_cast<long long>(groups) * kPowerBlock < static_cast<long long>(tile) * T ||
       (is_sc && (idr == nullptr || idi == nullptr)) ||
       (ofdm::adaptive(mode) && (is_sc || lane_i == nullptr || lane_f == nullptr))) {

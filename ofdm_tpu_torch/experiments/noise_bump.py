@@ -22,10 +22,12 @@ Two links, as in the JAX package:
   post-EQ normals from ``prng.normal_planes`` (the K5 port) at c3 = 5.  It
   draws the constellation plots, and gives the BER of the eager-only
   campaign (``fused_symbols_per_point=0``).
-* ``FusedLink``: the BER of each point from the diag chunk kernel with all
-  four of its stages on (``link_kernel.noise_bump_link``: the JAX
-  package's ``_FusedLink`` on ``make_noise_bump_chunk``), one link for
-  every point: the scenario and SNR enter as the chunk's (3, n) rows.
+* ``FusedLink``: the BER of each point from the chunk kernel the link
+  routes to (``pipeline.kernel_mode``, as the JAX package's ``plan_for``:
+  diag up to 512 subcarriers, lr past them, diag again for a single-tap
+  channel) with all four of its stages on (``link_kernel.noise_bump_link``:
+  the JAX package's ``_FusedLink`` on ``make_noise_bump_chunk``), one link
+  for every point: the scenario and SNR enter as the chunk's (3, n) rows.
 """
 
 from __future__ import annotations
@@ -161,12 +163,15 @@ class _Link:
 
 
 class FusedLink:
-    """The study's link on the diag chunk kernel with the noise-bump stages.
+    """The study's link on its chunk kernel with the noise-bump stages.
 
     The JAX package's ``_FusedLink`` configuration: ``num_subcarriers``,
     ``order``-QAM, the named channel, CP ratio 1.0, MMSE, no channel
     noise, both power switches on; ``num_ofdm_symbols`` a point in chunks of
-    ``chunk`` (which must divide it).  One link serves every point.
+    ``chunk`` (which must divide it).  One link serves every point; the
+    runner's chain (``LinkRunner.mode``) picks the chunk wrapper and its
+    workspace.  A link no kernel takes raises (the JAX package's campaign
+    falls back to its XLA link there; this one does not hide the device).
     ``device=None`` means ``cuda``; ``"cpu"`` runs the plain version."""
 
     def __init__(self, num_ofdm_symbols: int, num_subcarriers: int, order: int, channel: str,
@@ -190,15 +195,17 @@ class FusedLink:
             symbols_per_chunk=chunk,
         )
         self.runner = LinkRunner(prepare(cfg), device)
-        if self.runner.mode != "diag":
-            raise ValueError(f"the noise-bump link runs on the diag chain, this one routes to {self.runner.mode}")
+        if self.runner.mode == "eager":
+            raise ValueError(f"no chunk kernel takes this noise-bump link at {num_subcarriers} subcarriers: it "
+                             "routes to the eager chain (ROADMAP modules item 6, lr past 4096 subcarriers)")
+        self.kernel = self.runner.kernel
         self.link = lk.noise_bump_link(self.runner.link)
         self.device = self.runner.device
         self.B = num_ofdm_symbols
         self.n = num_subcarriers
         self.bits = int(np.log2(order))
         self.chunk = chunk
-        self._work = (lk.chunk_workspace(self.link, chunk, self.device)
+        self._work = (self.kernel.workspace(self.link, chunk, self.device)
                       if self.device.type == "cuda" else None)
 
     def rows(self, scenario: Scenario, noise_profile: np.ndarray, snr_db: float) -> torch.Tensor:
@@ -208,13 +215,16 @@ class FusedLink:
 
     def run_point(self, seed: int, scenario: Scenario, noise_profile: np.ndarray, snr_db: float) -> float:
         """BER of one (scenario, SNR) point over ``num_ofdm_symbols`` OFDM
-        symbols drawn under ``seed``."""
+        symbols drawn under ``seed``: one stream of run symbols, chunk after
+        chunk, as ``LinkRunner.run`` drives it (on the lr chain each chunk's
+        first symbol recomputes its predecessor's tail from the stream's
+        Philox words, bit-equal to the carry the JAX package threads)."""
         rows = self.rows(scenario, noise_profile, snr_db)
         key = prng.key_words(seed)
         snr_lin = lk.snr_linear(snr_db)
         acc, psum = lk.new_accumulators(self.device)
         for sym0 in range(0, self.B, self.chunk):
-            lk.diag_chunk(self.link, key, sym0, self.chunk, snr_lin, acc, psum, self._work, rows)
+            self.kernel.chunk(self.link, key, sym0, self.chunk, snr_lin, acc, psum, self._work, rows)
         return int(acc[0].item()) / (self.B * self.n * self.bits)
 
 
@@ -258,7 +268,7 @@ def run_noise_bump_experiment(
     under ``results_dir``.
 
     ``fused_symbols_per_point``: OFDM symbols a point on one ``FusedLink``
-    (the diag kernel with the study's stages), in chunks of ``chunk``;
+    (the link's chunk kernel with the study's stages), in chunks of ``chunk``;
     ``None`` means 2^24 on a CUDA device and 0 on the CPU, and 0 runs the
     eager-only campaign, each point's BER from ``_Link`` at
     ``num_ofdm_symbols``.  ``_Link`` runs a point only where its output is

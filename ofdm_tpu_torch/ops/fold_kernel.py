@@ -12,8 +12,9 @@ its fold branches, not its lane-packed TPU layout): Philox words -> encode
 s_b -> [x sqrt(P)] -> x_b = s_b @ F_tx,ext (E duplicated tail columns) ->
 PAPR max and sum over x_b[:T] -> act = [x_b[:T] | x_{b-1}[T:T+E]] -> y =
 act @ CM -> AWGN with the diag chunk's per-tile measured power -> ZF /
-MMSE / none -> (SC-FDE) e @ IDFT -> [x the tile's unit-power factor,
-in the time domain on SC-FDE as chunk_body's normalize] -> slicer ->
+MMSE / none -> (SC-FDE) e @ IDFT -> [post-EQ noise, x 1/sqrt(P), per
+time sample on SC-FDE] -> [x the tile's unit-power factor, in the time
+domain on SC-FDE as chunk_body's normalize] -> slicer ->
 popcount into int64 counters (``link_kernel``'s stages).  The
 chunk returns its last symbol's x[:T], the JAX package's carry contract.
 The previous symbol's tail is recomputed from its Philox words, so a chunk
@@ -76,6 +77,10 @@ class FoldLink:
     habs2: torch.Tensor
     gr: torch.Tensor  # ZF gain rows, slicer folded in
     gi: torch.Tensor
+    # The noise-bump study's stages (link_kernel.noise_bump_link): post-EQ
+    # noise of sigma rows[2], then x rows[1] (1/sqrt(P)).
+    post_noise: bool = False
+    compensate: bool = False
 
 
 def fold_link(setup, device) -> FoldLink:
@@ -136,11 +141,13 @@ def fold_planes(link: FoldLink, key: Tuple[int, int], sym0: int, chunk: int, snr
     ``words`` = (raw, u1 word, u2 word) injects integer planes in place of
     the Philox draw: (chunk, n) for sym0 == 0 or with ``prev``, else
     (chunk + 1, n) whose first row is symbol sym0 - 1 (only its raw word is
-    read).  ``prev``: the (E,) tail pair the first symbol reads."""
+    read); with ``post_noise`` two more, the post-EQ draws' (u1 word, u2
+    word), (chunk, n).  ``prev``: the (E,) tail pair the first symbol reads."""
     n, T = link.n, link.T
     rows = lk.stage_rows(link, rows, lk.rows_needed(link))
     tile, tiles, groups = _chunk_geometry(link, chunk)
     before = 1 if sym0 > 0 and prev is None else 0
+    words, pwords = lk.split_words(link, words, 3, key, sym0, chunk, device)
     if words is None:
         words = prng.link_words(key, sym0 - before, chunk + before, n, device)
     raw, w1, w2 = (torch.as_tensor(w).to(device=device, dtype=torch.int64) & prng.M32 for w in words)
@@ -165,6 +172,7 @@ def fold_planes(link: FoldLink, key: Tuple[int, int], sym0: int, chunk: int, snr
     er, ei = lk.equalize(link, yr, yi, snr_lin)
     if link.is_sc:
         er, ei = lk.cmatmul(link.idr, link.idi, er, ei)
+    er, ei = lk.bump_stages(link, er, ei, rows, pwords)
     if link.normalize:
         er, ei = lk.normalize_points(link, er, ei, lk.tile_norm(er, ei, chunk, tile, RUN))
     return tx, er, ei, xr, xi
@@ -256,12 +264,14 @@ def fold_chunk(
     row x[:T], written into ``work`` (a ``chunk_workspace``) when given.
     ``prev``: the (E,) tail pair the first symbol reads (the carry-in),
     instead of recomputing its predecessor's.
-    ``rows``: the stages' per-lane rows (``link_kernel.stage_rows``).  ``dump``: the dump stage's
-    planes (``link_kernel.new_dump``; counted in ``fold_chunk.dump_launches``).
+    ``rows``: the stages' per-lane rows (``link_kernel.stage_rows``; all
+    five stages).  ``dump``: the dump stage's planes
+    (``link_kernel.new_dump``; counted in ``fold_chunk.dump_launches``).
 
     CUDA tensors launch the fused kernel (csrc/fold_kernel.cu): with noise
     on, ``fold_power``; then ``fold_main`` (for a link with stages its
-    OFDM_STAGED build, under ``normalize`` twice around ``norm_factors``),
+    OFDM_STAGED build, with the noise-bump stages its OFDM_BUMP build,
+    under ``normalize`` twice around ``norm_factors``),
     counted in ``fold_chunk.power_launches``, ``.launches`` and
     ``.norm_launches``.  CPU tensors run ``fold_chunk_plain``."""
     dev = acc.device
@@ -283,7 +293,7 @@ def fold_chunk(
     partials, carry_r, carry_i, norm_part, norm_f = work
     from ofdm_tpu_torch import build
 
-    lib = build.load(lk.staged_library(link, dump, "fold_kernel", "fold_staged"))
+    lib = build.load(lk.staged_library(link, dump, "fold"))
     sc = link.is_sc
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
@@ -324,7 +334,7 @@ def fold_probe(link: FoldLink, key: Tuple[int, int], sym0: int, chunk: int, rows
     _check_link(link, dev)
     from ofdm_tpu_torch import build
 
-    lib = build.load(lk.staged_library(link, None, "fold_kernel", "fold_staged"))
+    lib = build.load(lk.staged_library(link, None, "fold"))
     out = lk.probe_launch(lib, "ofdm_fold_probe", link, (link.txr, link.txi), key, sym0 + chunk - 1, rows, dev)
     fold_probe.launches += 1
     return out

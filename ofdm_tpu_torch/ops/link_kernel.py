@@ -1,10 +1,12 @@
 """The fused diag-mode chunk, the constellation codec and the Box-Muller sampler.
 
 Counterpart of ``ofdm_tpu/ops/pallas_link.py`` for the diag chain: its
-``kernel`` in conv="diag" form (``csrc/link_kernel.cu``), in each
-constellation mode — qam, psk, aqam and apsk (``Codec``: fixed square QAM,
-fixed M-PSK, and their per-subcarrier CAPACITY_BASED forms) — and
-``boxmuller_sample`` (``csrc/boxmuller.cu``).  Beside each kernel sits its
+``kernel`` in conv="diag" form (``csrc/link_kernel.cu`` up to 256
+subcarriers, a warp a symbol; ``csrc/diag_wide_kernel.cu`` past them, a
+block a symbol, up to 4096), in each constellation mode — qam, psk, aqam
+and apsk (``Codec``: fixed square QAM, fixed M-PSK, and their
+per-subcarrier CAPACITY_BASED forms) — and ``boxmuller_sample``
+(``csrc/boxmuller.cu``).  Beside each kernel sits its
 plain PyTorch version with the same operations in the same order, f32
 arithmetic and int64 integer ops; the wrappers ``diag_chunk`` and
 ``boxmuller_sample`` launch the kernel for CUDA tensors and run the plain
@@ -25,13 +27,16 @@ sigma = sqrt(mp / snr_lin / 2), mp the mean |y|^2 over the first
 -> [x 1/sqrt(P)] -> [x f, the tile's unit-power factor, with the slicer
 gain] -> float-clipped slicer or PSK sector -> popcount of tx ^ rx into
 int64 counters.  Every ``pstride``-th tile of a chunk also computes the
-IDFT+CP time plane for the PAPR max and sum.
+IDFT+CP time plane for the PAPR max and sum, but under ``txext`` (from 512
+subcarriers without ``apply_power``; pallas_link.py:882-887), where the
+runner's sampled TX batch supplies the statistic.
 
 The bracketed stages are ``_Spec``'s (pallas_link.py:709-731):
 ``apply_power`` and ``normalize`` follow ``SimulationConfig``'s
 ``apply_power_allocation`` and ``normalize_before_demap`` on every chain;
 ``post_noise`` and ``compensate`` are the noise-bump study's
-(``noise_bump_link``), diag only.  Their per-lane rows (sqrt(P),
+(``noise_bump_link``), on every chain, after the SC-FDE IDFT where there
+is one (so indexed by time sample there).  Their per-lane rows (sqrt(P),
 1/sqrt(P), the post-EQ sigma) are an argument of the chunk, not link
 constants, so one link serves every SNR point and scenario.  A fifth,
 ``dump`` (every chain; a chunk's ``dump`` argument), writes the first
@@ -40,13 +45,14 @@ capture (``dump_points``; ``pipeline.LinkRunner.capture``).  The
 normalization mean covers every symbol of a tile, so it is summed in a
 fixed order (``tile_norm``) that the kernels repeat: per symbol as the
 MMSE mean is, per run of consecutive symbols in order, then a tile's runs
-by ``norm_factors``' tree.
+by ``norm_factors``' tree.  A diag symbol is summed by a warp up to 256
+subcarriers and by a block of 256 threads past them (``diag_layout``).
 
 Host constants and rules kept from the reference: ``_consts_for``'s diag
 and codec rows (:1049-1161), ``_spec_for``'s tile rule (:795-799) with
-``_plan``'s diag tile cap (its staging factor from ``selected_passes``)
-and its static codec width (:821-847), and the measured-power slice
-(:1691-1694).
+``_plan``'s diag tile cap and staged limit (its staging factor from
+``selected_passes``; ``diag_fits``) and its static codec width
+(:821-847), and the measured-power slice (:1691-1694).
 """
 
 from __future__ import annotations
@@ -75,9 +81,12 @@ _SINC_Z = (1.5707963267681528, -0.6459640955781804, 0.0796926037175787,
            -3.4318293237942273e-06)
 
 TILE_LADDER = (8192, 4096, 2048, 1024, 512, 256, 128, 64, 32)
-MAX_N = 256  # the kernel's warp-per-symbol layout holds up to 8 bins a lane
+MAX_N = 4096  # diag_wide holds up to 16 bins a thread
+WARP_MAX_N = 256  # diag_main's warp-per-symbol layout holds up to 8 bins a lane
 POWER_BLOCK = 16 * 256  # slice elements per power_partials block
 RUN = 8  # consecutive symbols a warp of the staged diag kernel walks
+WIDE_RUN = 16  # consecutive symbols a block of diag_wide walks
+WIDE_THREADS = 256  # diag_wide's block, one symbol
 NORM_THREADS = 256  # threads of norm_factors, one block a tile
 # Stage bits of the kernels' C entry points (pallas_link._Spec's switches).
 STAGE_POWER, STAGE_NORMALIZE, STAGE_POST_NOISE, STAGE_COMPENSATE, STAGE_DUMP = 1, 2, 4, 8, 16
@@ -437,11 +446,32 @@ def selected_passes(setup) -> int:
     return 1 if half_d >= 0.07 else 3
 
 
-def tile_cap(n: int, T: int, passes: int = 1) -> int:
+def _diag_staged(n: int, T: int, txext: bool) -> int:
+    """pallas_link._plan's staged diag elements: the lane-packed TX matrix
+    and the MMSE segment matrix, or only the latter under ``txext``."""
+    return 128 * 128 if txext else max(1, 128 // n) ** 2 * n * T + 128 * 128
+
+
+def diag_fits(n: int, T: int, passes: int = 1, txext: bool = False) -> bool:
+    """Whether the reference admits a diag link at all: its staged matrices
+    within _VMEM_STAGED_LIMIT (40e6 bytes; pallas_link.py:201).  Where they
+    are not, no fused kernel of the JAX package takes the link."""
+    return 2 * (3 if passes == 1 else 6) * _diag_staged(n, T, txext) <= 40_000_000
+
+
+def tile_cap(n: int, T: int, passes: int = 1, txext: bool = False) -> int:
     """Largest tile the reference admits for a diag link (pallas_link._plan's
     diag budget) at ``passes`` bf16 passes (``selected_passes``).  Kept so
     the per-tile power estimator sees the same tiles as the JAX package."""
-    return _budget_tile(max(1, 128 // n) ** 2 * n * T + 128 * 128, T, passes)
+    return _budget_tile(_diag_staged(n, T, txext), T, passes)
+
+
+def txext_for(cfg) -> bool:
+    """Whether a diag or lr link takes its PAPR statistic from the runner's
+    sampled TX batch (pallas_link.py:882-887): from 512 subcarriers, unless
+    papr_stride is 1 or the power allocation is applied (the sampled batch
+    is unscaled)."""
+    return cfg.num_subcarriers >= 512 and cfg.papr_stride != 1 and not cfg.apply_power_allocation
 
 
 def fold_tile_cap(n: int, T: int, E: int, is_sc: bool, passes: int = 1) -> int:
@@ -518,6 +548,7 @@ class DiagLink:
     add_noise: bool
     apply_power: bool  # x sqrt(P) at TX (the chunk's rows[0])
     normalize: bool  # per-tile unit power before the demap
+    txext: bool  # the PAPR statistic comes from the runner's sampled TX batch
     pstride: int
     tile_cap: int
     slice: int
@@ -528,8 +559,8 @@ class DiagLink:
     gi: torch.Tensor
     cr: torch.Tensor  # (n,) the channel multiply's diag_response rows
     ci: torch.Tensor
-    fr: torch.Tensor  # (n, T) IDFT + CP
-    fi: torch.Tensor
+    fr: Optional[torch.Tensor]  # (n, T) IDFT + CP; None under txext
+    fi: Optional[torch.Tensor]
     # The noise-bump study's stages (noise_bump_link): post-EQ noise of
     # sigma rows[2], then x rows[1] (1/sqrt(P)).
     post_noise: bool = False
@@ -595,15 +626,17 @@ def diag_link(setup, device) -> DiagLink:
         cr, ci = fields["hr"], fields["hi"]
     else:
         cr, ci = f32_tensor(d.real, device), f32_tensor(d.imag, device)
-    ftx_r, ftx_i = linops.tx_matrix(n, cfg.prefix_type, L, cfg.modulation_type)
+    txext = txext_for(cfg)
+    ftx = None if txext else linops.tx_matrix(n, cfg.prefix_type, L, cfg.modulation_type)
     return DiagLink(
         T=T,
+        txext=txext,
         pstride=cfg.papr_stride or 32,
-        tile_cap=tile_cap(n, T, selected_passes(setup)),
+        tile_cap=tile_cap(n, T, selected_passes(setup), txext),
         cr=cr,
         ci=ci,
-        fr=f32_tensor(ftx_r, device),
-        fi=f32_tensor(ftx_i, device),
+        fr=None if ftx is None else f32_tensor(ftx[0], device),
+        fi=None if ftx is None else f32_tensor(ftx[1], device),
         **fields,
     )
 
@@ -614,15 +647,22 @@ def own_channel_rows(link: DiagLink) -> bool:
     return link.cr is not link.hr or link.ci is not link.hi
 
 
-def noise_bump_link(link: DiagLink) -> DiagLink:
-    """The diag link with the noise-bump study's two stages on: post-EQ
-    noise of sigma ``rows[2]``, then x ``rows[1]`` (1/sqrt(P))
+def noise_bump_link(link):
+    """A chunk link (any chain) with the noise-bump study's two stages on:
+    post-EQ noise of sigma ``rows[2]``, then x ``rows[1]`` (1/sqrt(P))
     (pallas_link.make_noise_bump_chunk).  The link must apply the power
     allocation, normalize before the demap and add no channel noise."""
     if not (link.apply_power and link.normalize) or link.add_noise:
         raise ValueError("the noise-bump chunk needs apply_power_allocation=True, "
                          "normalize_before_demap=True and noise_type=NONE")
     return dataclasses.replace(link, post_noise=True, compensate=True)
+
+
+def diag_layout(n: int):
+    """(run, threads): the consecutive symbols a warp (a block past 256
+    subcarriers) of the diag kernels walks, and the threads that sum one
+    symbol's bins (the MMSE mean, the normalization energy)."""
+    return (RUN, 32) if n <= WARP_MAX_N else (WIDE_RUN, WIDE_THREADS)
 
 
 def _chunk_geometry(link: DiagLink, chunk: int):
@@ -635,7 +675,9 @@ def _chunk_geometry(link: DiagLink, chunk: int):
 
 
 def papr_samples(link: DiagLink, chunk: int) -> int:
-    """Time samples one chunk contributes to the PAPR statistic."""
+    """Time samples one chunk contributes to the PAPR statistic (0 under txext)."""
+    if link.txext:
+        return 0
     tile = tile_for(chunk, link.tile_cap)
     return sampled_symbols(chunk, tile, link.pstride) * link.T
 
@@ -778,11 +820,9 @@ def stage_rows(link, rows, need: int) -> Optional[torch.Tensor]:
 
 
 def link_stages(link) -> int:
-    """The STAGE_* bits of a chunk link (any chain; only the diag link has
-    the noise-bump stages)."""
+    """The STAGE_* bits of a chunk link (any chain)."""
     return (STAGE_POWER * link.apply_power + STAGE_NORMALIZE * link.normalize
-            + STAGE_POST_NOISE * getattr(link, "post_noise", False)
-            + STAGE_COMPENSATE * getattr(link, "compensate", False))
+            + STAGE_POST_NOISE * link.post_noise + STAGE_COMPENSATE * link.compensate)
 
 
 def rows_needed(link) -> int:
@@ -797,6 +837,37 @@ def rows_needed(link) -> int:
 def scale_tx(sr, si, rows):
     """x sqrt(P) per lane, right after encode (the apply_power stage)."""
     return sr * rows[0], si * rows[0]
+
+
+def split_words(link, words, own: int, key, sym0: int, chunk: int, device):
+    """(the chain's own injected word planes, the post-EQ noise's (u1 word,
+    u2 word) planes): ``words`` holds the chain's ``own`` planes, then,
+    with ``post_noise``, two (chunk, n) planes; without ``words`` the chain
+    draws its own (None) and the post-EQ words are
+    ``prng.post_noise_words``'s.  The second is None without
+    ``post_noise``."""
+    if words is None:
+        return None, prng.post_noise_words(key, sym0, chunk, link.n, device) if link.post_noise else None
+    if len(words) != own + 2 * link.post_noise:
+        raise ValueError(f"words must be {own} planes of the chain's draws (+2 with post_noise)")
+    if not link.post_noise:
+        return words, None
+    planes = tuple(torch.as_tensor(w).to(device=device, dtype=torch.int64) & prng.M32 for w in words[own:])
+    if any(tuple(p.shape) != (chunk, link.n) for p in planes):
+        raise ValueError(f"the post-EQ noise words must be ({chunk}, {link.n}) planes")
+    return words[:own], planes
+
+
+def bump_stages(link, er, ei, rows, pwords):
+    """The noise-bump stages on equalized points (chunk, n), at the JAX
+    position: after the SC-FDE IDFT, before the normalization.  post_noise
+    adds sigma ``rows[2]`` x Box-Muller of ``pwords`` (``split_words``),
+    compensate multiplies by ``rows[1]``."""
+    if link.post_noise:
+        er, ei = post_noise(er, ei, rows[2], *pwords)
+    if link.compensate:
+        er, ei = er * rows[1], ei * rows[1]
+    return er, ei
 
 
 def post_noise(er, ei, sigma, w1, w2):
@@ -892,19 +963,20 @@ def diag_planes(link: DiagLink, key: Tuple[int, int], sym0: int, chunk: int, snr
 
     ``words`` = (raw, u1 word, u2 word) injects (chunk, n) integer planes in
     place of the Philox draw (tests feed zeros or numpy words); with
-    ``post_noise`` two more, the post-EQ draws' (u1 word, u2 word)."""
+    ``post_noise`` two more, the post-EQ draws' (u1 word, u2 word).  Past
+    256 subcarriers the per-symbol sums run in ``diag_wide``'s block order
+    (``diag_layout``)."""
     dev = device
     n = link.n
+    run, threads = diag_layout(n)
     rows = stage_rows(link, rows, rows_needed(link))
     tile, tiles, groups, _ = _chunk_geometry(link, chunk)
+    words, pwords = split_words(link, words, 3, key, sym0, chunk, dev)
     if words is None:
         words = prng.link_words(key, sym0, chunk, n, dev)
-        if link.post_noise:
-            words += prng.post_noise_words(key, sym0, chunk, n, dev)
-    planes = [torch.as_tensor(w).to(device=dev, dtype=torch.int64) & prng.M32 for w in words]
-    if planes[0].shape != (chunk, n) or len(planes) != (5 if link.post_noise else 3):
+    raw, w1, w2 = (torch.as_tensor(w).to(device=dev, dtype=torch.int64) & prng.M32 for w in words)
+    if raw.shape != (chunk, n):
         raise ValueError(f"words must be 3 ({chunk}, {n}) planes (5 with post_noise)")
-    raw, w1, w2 = planes[:3]
     tx, sr, si = encode(raw, link.q)
     if link.apply_power:
         sr, si = scale_tx(sr, si, rows)
@@ -913,13 +985,10 @@ def diag_planes(link: DiagLink, key: Tuple[int, int], sym0: int, chunk: int, snr
     yi = sr * ci + si * cr
     if link.add_noise:
         yr, yi = awgn(yr, yi, w1, w2, chunk, tile, tiles, groups, snr_lin, link.slice)
-    er, ei = equalize(link, yr, yi, snr_lin)
-    if link.post_noise:
-        er, ei = post_noise(er, ei, rows[2], planes[3], planes[4])
-    if link.compensate:
-        er, ei = er * rows[1], ei * rows[1]
+    er, ei = equalize(link, yr, yi, snr_lin, threads)
+    er, ei = bump_stages(link, er, ei, rows, pwords)
     if link.normalize:
-        er, ei = normalize_points(link, er, ei, tile_norm(er, ei, chunk, tile, RUN))
+        er, ei = normalize_points(link, er, ei, tile_norm(er, ei, chunk, tile, run, threads))
     return tx, er, ei, sr, si
 
 
@@ -943,7 +1012,10 @@ def diag_chunk_plain(
     if dump is not None:
         write_dump(link, dump, er, ei)
     count_errors(link, tx, er, ei, acc)
-
+    if link.txext:
+        # no time plane in the chunk: the carry row is zeros (no diag symbol reads it)
+        return torch.zeros(link.T, dtype=torch.float32, device=dev), torch.zeros(link.T, dtype=torch.float32,
+                                                                                    device=dev)
     sampled = (torch.arange(chunk, device=dev) // tile) % link.pstride == 0
     xr, xi = cmatmul(link.fr, link.fi, sr[sampled], si[sampled])
     add_papr(xr, xi, acc, psum)
@@ -964,14 +1036,17 @@ def new_accumulators(device):
 
 
 def _check_link_tensors(link: DiagLink, device):
-    for name in ("hr", "hi", "habs2", "gr", "gi", "cr", "ci", "fr", "fi"):
+    names = ("hr", "hi", "habs2", "gr", "gi", "cr", "ci") + (() if link.txext else ("fr", "fi"))
+    for name in names:
         t = getattr(link, name)
-        if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
+        if t is None or t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"link.{name} must be contiguous f32 on {device}")
-    if link.hr.shape != (link.n,) or link.fr.shape != (link.n, link.T):
+    if link.hr.shape != (link.n,) or (not link.txext and link.fr.shape != (link.n, link.T)):
         raise ValueError("link rows have the wrong shape")
     if not 1 <= link.n <= MAX_N:
-        raise ValueError(f"diag kernel takes 1 <= n <= {MAX_N}, got {link.n}")
+        raise ValueError(f"diag kernels take 1 <= n <= {MAX_N}, got {link.n}")
+    if link.txext and link.n <= WARP_MAX_N:
+        raise ValueError("diag_main computes its PAPR in the run: a txext link needs n > 256")
     check_codec(link.q, link.n, device)
 
 
@@ -998,7 +1073,7 @@ def chunk_workspace(link: DiagLink, chunk: int, device):
     tile, tiles, groups, _ = _chunk_geometry(link, chunk)
     f32 = dict(dtype=torch.float32, device=device)
     return (torch.empty(tiles * groups, **f32), torch.empty(link.T, **f32), torch.empty(link.T, **f32),
-            *norm_workspace(chunk, tile, RUN, device))
+            *norm_workspace(chunk, tile, diag_layout(link.n)[0], device))
 
 
 def check_accumulators(acc, psum):
@@ -1020,10 +1095,15 @@ def stage_args(link, rows, norm_part, norm_f, dump=None):
             *planes)
 
 
-def staged_library(link, dump, plain: str, staged: str) -> str:
-    """The library a chunk runs from: the OFDM_STAGED build when the link
-    has stages or a dump is asked for (the plain build takes no stage bit)."""
-    return staged if link_stages(link) or dump is not None else plain
+def staged_library(link, dump, chain: str) -> str:
+    """The library a chunk of ``chain`` ("diag_wide", "fold", "lr", "mm")
+    runs from: the OFDM_BUMP build with the noise-bump stages, else the
+    OFDM_STAGED build when the link has stages or a dump is asked for (the
+    plain build takes no stage bit)."""
+    plain = chain if chain == "diag_wide" else f"{chain}_kernel"
+    if link.post_noise or link.compensate:
+        return f"{chain}_bump"
+    return f"{chain}_staged" if link_stages(link) or dump is not None else plain
 
 
 # --- the carry-in and the carry probe (K3) ----------------------------------------
@@ -1159,13 +1239,18 @@ def diag_chunk(
     first D symbols' points in data units (``dump_points``) into it,
     counted in ``diag_chunk.dump_launches``.
 
-    CUDA tensors launch the fused kernels (csrc/link_kernel.cu): with noise
-    on, ``power_partials``; then ``diag_main``, or for a link with stages
-    or channel rows of its own (``own_channel_rows``; the library built
-    with OFDM_STAGED) ``diag_staged``, under ``normalize`` twice around
-    ``norm_factors``.  Counted in
-    ``diag_chunk.power_launches``, ``.launches`` (the pass that counts
-    errors) and ``.norm_launches`` (the normalization pass and its
+    CUDA tensors launch the fused kernels.  Up to 256 subcarriers
+    (csrc/link_kernel.cu): with noise on, ``power_partials``; then
+    ``diag_main``, or for a link with stages or channel rows of its own
+    (``own_channel_rows``; the library built with OFDM_STAGED)
+    ``diag_staged``, under ``normalize`` twice around ``norm_factors``.
+    Past 256 (csrc/diag_wide_kernel.cu): ``wide_power`` with noise on, then
+    ``diag_wide`` (its OFDM_STAGED build for a link with stages, its
+    OFDM_BUMP build with the noise-bump stages), under ``normalize`` twice
+    around ``norm_factors``.  Counted in
+    ``diag_chunk.power_launches``, ``.launches`` (the pass of ``diag_main``
+    or ``diag_staged`` that counts errors), ``.wide_launches`` (the same of
+    ``diag_wide``) and ``.norm_launches`` (the normalization pass and its
     ``norm_factors``, one each).  CPU tensors run ``diag_chunk_plain``."""
     dev = acc.device
     if dev.type == "cpu":
@@ -1179,40 +1264,50 @@ def diag_chunk(
     if dump is not None:
         check_dump(dump, chunk, link.n, dev)
     tile, tiles, groups, carry_sym = _chunk_geometry(link, chunk)
+    run = diag_layout(link.n)[0]
     work = chunk_workspace(link, chunk, dev) if work is None else work
-    check_work(work, (tiles * groups, link.T, link.T, -(-chunk // RUN), tiles),
+    check_work(work, (tiles * groups, link.T, link.T, -(-chunk // run), tiles),
                f"chunk_workspace(link, {chunk}, {dev})")
     partials, carry_r, carry_i, norm_part, norm_f = work
     from ofdm_tpu_torch import build
 
-    staged = "link_staged" if own_channel_rows(link) else staged_library(link, dump, "link_kernel", "link_staged")
-    lib = build.load(staged)
+    wide = link.n > WARP_MAX_N
+    if wide:
+        fn, lib = "ofdm_diag_wide_chunk", build.load(staged_library(link, dump, "diag_wide"))
+    else:
+        fn = "ofdm_diag_chunk"
+        staged = own_channel_rows(link) or link_stages(link) or dump is not None
+        lib = build.load("link_staged" if staged else "link_kernel")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.ofdm_diag_chunk(
+        code = getattr(lib, fn)(
             link.hr.data_ptr(), link.hi.data_ptr(), link.habs2.data_ptr(),
             link.gr.data_ptr(), link.gi.data_ptr(), link.cr.data_ptr(), link.ci.data_ptr(),
-            link.fr.data_ptr(), link.fi.data_ptr(),
+            None if link.txext else link.fr.data_ptr(), None if link.txext else link.fi.data_ptr(),
             link.n, link.T, *codec_args(link.q), link.slicer, snr_lin, link.cg,
             link.method, int(link.add_noise),
             sym0,
             chunk, tile, link.slice, groups, link.pstride,
-            carry_sym, RUN,
+            carry_sym, run,
             key[0], key[1],
             partials.data_ptr(), acc.data_ptr(), psum.data_ptr(),
             carry_r.data_ptr(), carry_i.data_ptr(),
-            *stage_args(link, rows, norm_part, norm_f, dump), stream,
+            *stage_args(link, rows, norm_part, norm_f, dump), *((int(link.txext),) if wide else ()), stream,
         )
-    build.check(lib, code, "ofdm_diag_chunk")
+    build.check(lib, code, fn)
     if link.add_noise:
         diag_chunk.power_launches += 1
     diag_chunk.norm_launches += int(link.normalize)
     diag_chunk.dump_launches += int(dump is not None)
-    diag_chunk.launches += 1
+    if wide:
+        diag_chunk.wide_launches += 1
+    else:
+        diag_chunk.launches += 1
     return carry_r, carry_i
 
 
 diag_chunk.launches = 0  # diag_main (diag_staged) kernels launched
+diag_chunk.wide_launches = 0  # diag_wide kernels launched (the pass that counts errors)
 diag_chunk.dump_launches = 0  # counting passes that ran the dump stage
 diag_chunk.power_launches = 0  # power_partials kernels launched
 diag_chunk.norm_launches = 0  # normalization passes (each with its norm_factors) launched

@@ -14,8 +14,9 @@ s_b -> [x sqrt(P)] -> t_b = s_b @ TailM (the block's last E time samples)
 -> y_b = s_b * D + t_b @ Cr + t_{b-1} @ Cp -> AWGN per bin with sigma =
 sqrt(mp / snr_lin / 2), mp the mean |y|^2 over the first ``slice``
 symbols of b's tile times ``pw_scale`` (n/T for ZP), plus for ZP the
-colored part sigma * g2 @ B^H -> ZF / MMSE / none -> [x the tile's
-unit-power factor] -> slicer -> popcount into int64 counters
+colored part sigma * g2 @ B^H -> ZF / MMSE / none -> [post-EQ noise, x
+1/sqrt(P)] -> [x the tile's unit-power factor] -> slicer -> popcount into
+int64 counters
 (``link_kernel``'s stages).  Below 512 subcarriers every ``pstride``-th
 tile also runs x = s @ F_tx for the PAPR statistic; from 512 (``txext``)
 the runner supplies it from a sampled TX batch, unless the link applies
@@ -97,6 +98,10 @@ class LrLink:
     gi: torch.Tensor
     fr: Optional[torch.Tensor]  # (n, T) TX matrix; None under txext
     fi: Optional[torch.Tensor]
+    # The noise-bump study's stages (link_kernel.noise_bump_link): post-EQ
+    # noise of sigma rows[2], then x rows[1] (1/sqrt(P)).
+    post_noise: bool = False
+    compensate: bool = False
 
 
 @functools.lru_cache(maxsize=16)
@@ -124,7 +129,7 @@ def lr_link(setup, device, factors: Optional[lowrank.LRFactors] = None) -> LrLin
         raise ValueError("lr link: the low-rank factorization failed its certification")
     if f.n != n or f.tail.shape != (n, f.E):
         raise ValueError("lr link: factors of another width")
-    txext = n >= 512 and cfg.papr_stride != 1 and not cfg.apply_power_allocation
+    txext = lk.txext_for(cfg)
     rank = f.noise_rank
     f32 = functools.partial(lk.f32_tensor, device=device)
     tail = np.ascontiguousarray(f.tail.T)
@@ -193,13 +198,15 @@ def lr_planes(link: LrLink, key: Tuple[int, int], sym0: int, chunk: int, snr_lin
     u1 word, u2 word), (chunk, n) for sym0 == 0 or with ``prev``, else
     (chunk + 1, n) whose first row is symbol sym0 - 1 (only its raw word is
     read); a colored-noise link (ZP, noise on) takes two more, the g2
-    draws' (u1 word, u2 word), each (chunk, rank).  ``prev``: the (E,) t
-    pair the first symbol reads as t_prev."""
+    draws' (u1 word, u2 word), each (chunk, rank); with ``post_noise`` two
+    more, the post-EQ draws' (u1 word, u2 word), (chunk, n).  ``prev``: the
+    (E,) t pair the first symbol reads as t_prev."""
     n, E = link.n, link.E
     rows = lk.stage_rows(link, rows, lk.rows_needed(link))
     tile, tiles, groups = _chunk_geometry(link, chunk)
     colored = link.add_noise and link.rank > 0
     before = 1 if sym0 > 0 and prev is None else 0
+    words, pwords = lk.split_words(link, words, 5 if colored else 3, key, sym0, chunk, device)
     if words is None:
         words = prng.link_words(key, sym0 - before, chunk + before, n, device)
         if colored:
@@ -229,6 +236,7 @@ def lr_planes(link: LrLink, key: Tuple[int, int], sym0: int, chunk: int, snr_lin
         yr, yi = lk.awgn(yr, yi, w1, w2, chunk, tile, tiles, groups, snr_lin, link.slice,
                           link.pw_scale, extra)
     er, ei = lk.equalize(link, yr, yi, snr_lin, THREADS)
+    er, ei = lk.bump_stages(link, er, ei, rows, pwords)
     if link.normalize:
         er, ei = lk.normalize_points(link, er, ei, lk.tile_norm(er, ei, chunk, tile, RUN, THREADS))
     return tx, er, ei, tr, ti, sr, si
@@ -338,7 +346,8 @@ def lr_chunk(
 
     CUDA tensors launch the fused kernel (csrc/lr_kernel.cu): with noise on,
     ``lr_power``; then ``lr_main`` (for a link with stages its OFDM_STAGED
-    build, under ``normalize`` twice around ``norm_factors``), counted in
+    build, with the noise-bump stages its OFDM_BUMP build, under
+    ``normalize`` twice around ``norm_factors``), counted in
     ``lr_chunk.power_launches``, ``.launches`` and ``.norm_launches``.  CPU
     tensors run ``lr_chunk_plain``."""
     dev = acc.device
@@ -360,7 +369,7 @@ def lr_chunk(
     partials, carry_r, carry_i, norm_part, norm_f = work
     from ofdm_tpu_torch import build
 
-    lib = build.load(lk.staged_library(link, dump, "lr_kernel", "lr_staged"))
+    lib = build.load(lk.staged_library(link, dump, "lr"))
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -405,7 +414,7 @@ def lr_probe(link: LrLink, key: Tuple[int, int], sym0: int, chunk: int, rows=Non
     _check_link(link, dev)
     from ofdm_tpu_torch import build
 
-    lib = build.load(lk.staged_library(link, None, "lr_kernel", "lr_staged"))
+    lib = build.load(lk.staged_library(link, None, "lr"))
     out = lk.probe_launch(lib, "ofdm_lr_probe", link, (link.tail_r, link.tail_i), key, sym0 + chunk - 1, rows,
                           dev)
     lr_probe.launches += 1

@@ -16,8 +16,9 @@ PAPR max and sum over x_b[:T] -> act = [x_b[:T] | x_{b-1}[T:T+E]] -> y =
 act @ C (the merged conv, T+E -> T) -> AWGN per time sample with sigma =
 sqrt(mp / snr_lin / 2), mp the mean |y|^2 over the whole tile (all its
 tile * T samples, before noise) -> Y = y @ R (overlap-add + DFT, T -> n) ->
-ZF / MMSE / none -> (SC-FDE) e @ IDFT -> [x the tile's unit-power factor]
--> slicer -> popcount into int64 counters (``link_kernel``'s stages).  The noise of time sample j comes from counter (b, j, 0)
+ZF / MMSE / none -> (SC-FDE) e @ IDFT -> [post-EQ noise, x 1/sqrt(P)]
+-> [x the tile's unit-power factor] -> slicer -> popcount into int64
+counters (``link_kernel``'s stages).  The noise of time sample j comes from counter (b, j, 0)
 (``prng``).  The chunk returns its last symbol's x[:T], the JAX package's
 carry contract.  The previous symbol's tail is recomputed from its Philox
 words, so a chunk reads no carry: the run's symbol 0 sees zeros.  A
@@ -80,6 +81,10 @@ class MmLink:
     habs2: torch.Tensor
     gr: torch.Tensor  # ZF gain rows, slicer folded in
     gi: torch.Tensor
+    # The noise-bump study's stages (link_kernel.noise_bump_link): post-EQ
+    # noise of sigma rows[2], then x rows[1] (1/sqrt(P)).
+    post_noise: bool = False
+    compensate: bool = False
 
 
 def mm_link(setup, device) -> MmLink:
@@ -147,11 +152,13 @@ def mm_planes(link: MmLink, key: Tuple[int, int], sym0: int, chunk: int, snr_lin
     the Philox draw, each (chunk, T) for sym0 == 0 or with ``prev``, else
     (chunk + 1, T) whose first row is symbol sym0 - 1: the raw word is read
     below column n (and on the first row), the noise words on the chunk's
-    rows.  ``prev``: the (E,) tail pair the first symbol reads."""
+    rows; with ``post_noise`` two more, the post-EQ draws' (u1 word, u2
+    word), (chunk, n).  ``prev``: the (E,) tail pair the first symbol reads."""
     n, T = link.n, link.T
     rows = lk.stage_rows(link, rows, lk.rows_needed(link))
     tile, tiles, groups = _chunk_geometry(link, chunk)
     before = 1 if sym0 > 0 and prev is None else 0
+    words, pwords = lk.split_words(link, words, 3, key, sym0, chunk, device)
     if words is None:
         words = prng.link_words(key, sym0 - before, chunk + before, T, device)
     raw, w1, w2 = (torch.as_tensor(w).to(device=device, dtype=torch.int64) & prng.M32 for w in words)
@@ -177,6 +184,7 @@ def mm_planes(link: MmLink, key: Tuple[int, int], sym0: int, chunk: int, snr_lin
     er, ei = lk.equalize(link, fr, fi, snr_lin)
     if link.is_sc:
         er, ei = lk.cmatmul(link.idr, link.idi, er, ei)
+    er, ei = lk.bump_stages(link, er, ei, rows, pwords)
     if link.normalize:
         er, ei = lk.normalize_points(link, er, ei, lk.tile_norm(er, ei, chunk, tile, RUN))
     return tx, er, ei, xr, xi
@@ -275,7 +283,8 @@ def mm_chunk(
     CUDA tensors launch the fused kernels (csrc/mm_kernel.cu): ``mm_front``
     (TX, PAPR, conv, y before noise and the tile power partials) and then
     ``mm_main`` (noise, RX, equalizer, slicer, counts; for a link with
-    stages their OFDM_STAGED build, ``mm_main`` under ``normalize`` twice
+    stages their OFDM_STAGED build, with the noise-bump stages their
+    OFDM_BUMP build, ``mm_main`` under ``normalize`` twice
     around ``norm_factors``), counted in ``mm_chunk.front_launches``,
     ``.launches`` and ``.norm_launches``.  CPU tensors run
     ``mm_chunk_plain``."""
@@ -298,7 +307,7 @@ def mm_chunk(
     y_r, y_i, partials, carry_r, carry_i, norm_part, norm_f = work
     from ofdm_tpu_torch import build
 
-    lib = build.load(lk.staged_library(link, dump, "mm_kernel", "mm_staged"))
+    lib = build.load(lk.staged_library(link, dump, "mm"))
     sc = link.is_sc
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
@@ -339,7 +348,7 @@ def mm_probe(link: MmLink, key: Tuple[int, int], sym0: int, chunk: int, rows=Non
     _check_link(link, dev)
     from ofdm_tpu_torch import build
 
-    lib = build.load(lk.staged_library(link, None, "mm_kernel", "mm_staged"))
+    lib = build.load(lk.staged_library(link, None, "mm"))
     out = lk.probe_launch(lib, "ofdm_mm_probe", link, (link.txr, link.txi), key, sym0 + chunk - 1, rows, dev)
     mm_probe.launches += 1
     return out

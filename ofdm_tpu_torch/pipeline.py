@@ -10,7 +10,12 @@ the keys of the JAX runner's.
 
 * "diag" (``ops.link_kernel.diag_chunk``): OFDM whose cyclic prefix covers
   the channel order (TX -> channel -> RX is then exactly diag(h_freq)),
-  n <= 256;
+  n <= 512, and past 512 when it has no lr factors (single-tap channels)
+  up to 4096, where the JAX package's diag budget admits the link
+  (``link_kernel.diag_fits``); a warp a symbol up to 256 subcarriers, a
+  block a symbol past them.  From 512 subcarriers without
+  ``apply_power_allocation`` the PAPR statistic comes from a sampled TX
+  batch (``_papr_sample``);
 * "fold" (``ops.fold_kernel.fold_chunk``): SC-FDE with a cyclic prefix or
   none at n <= 256, and OFDM with a cyclic prefix or none whose guard is
   shorter than the channel order at n < 128, or at n <= 256 when its lr
@@ -34,9 +39,9 @@ scales the equalized points to unit mean power per tile before the demap
 (the kernels' ``apply_power`` and ``normalize`` stages).
 
 * "eager" (``eager_chunk``): every link no kernel takes (adaptive SC-FDE,
-  ISI-free links at 257-512 subcarriers, single-tap channels past 256,
   fold and zero-prefix mm links past their widths, lr links past 4096
-  subcarriers or 63 tail lanes), and every link whose ``hotpath`` is
+  subcarriers or 63 tail lanes, diag links the JAX package's diag budget
+  refuses), and every link whose ``hotpath`` is
   neither "auto" nor "pallas": the JAX package's ``chunk_body`` on native
   complex64 tensors, as the JAX package falls back to XLA
   (ofdm_tpu/pipeline.py:568-590).  Its random draws are the kernels'
@@ -254,23 +259,27 @@ def kernel_mode(setup: LinkSetup) -> str:
             return "mm" if n <= mmk.MAX_N and setup.block_length <= mmk.MAX_T else "eager"
         return "fold" if n <= fk.MAX_N else "eager"
 
+    def diag():
+        """The diag chain, where the JAX package's diag budget admits the link."""
+        fits = lk.diag_fits(n, setup.block_length, lk.selected_passes(setup), lk.txext_for(cfg))
+        return "diag" if n <= lk.MAX_N and fits else "eager"
+
     if cfg.modulation_type == ModulationType.SC_OFDM:
         return dense()
     L = setup.prefix_length if cfg.prefix_type == PrefixType.CYCLIC else 0
     isi_free = not zp and len(setup.taps) - 1 <= L
-    if isi_free and n <= lk.MAX_N:
-        return "diag"
     if isi_free and n <= DIAG_MAX_N:
-        return "eager"  # ISI-free links at 257-512 sc (ROADMAP modules item 6b)
+        return diag()
     if not isi_free and n < LR_MIN_N:
         return dense()
     if linops.ext_width(len(setup.taps), setup.block_length) == 0:
-        return dense() if zp else "eager"  # single-tap channels past 256 sc (item 6b)
+        return dense() if zp else diag()  # single-tap channels: no lr factors, diag at any width
     if n > lrk.MAX_N:
         return "eager"
     f = lrk.lr_factors(setup)
     if f is None:
-        return dense()  # as the JAX package: the factorization failed its certification
+        # as the JAX package: the factorization failed its certification
+        return diag() if isi_free else dense()
     if f.E > lrk.MAX_E or f.noise_rank > lrk.MAX_RANK:
         return "eager"
     return "lr"
@@ -540,9 +549,9 @@ class LinkRunner:
             # metrics
             "papr_db": mt.papr_db(papr_peak, papr_sum, papr_count),
             # Fraction of time samples the PAPR statistic saw: every
-            # papr_stride-th tile of each chunk on diag and narrow lr links,
-            # every sample on fold, mm and eager links, the sampled TX batch
-            # from 512 subcarriers on lr (error counts cover all).
+            # papr_stride-th tile of each chunk on diag and lr links, every
+            # sample on fold, mm and eager links, the sampled TX batch under
+            # txext (diag and lr from 512 subcarriers; error counts cover all).
             "papr_sample_fraction": papr_count / (B * s.block_length) if B else 1.0,
             # "in_run": the run's own TX planes; "sampled_tx": the fixed-seed
             # sampled TX batch (_papr_sample).

@@ -63,7 +63,10 @@ CHAIN_LINKS = {
 # errors) and the headline forced onto the eager chain.
 BAND_LINKS = {
     "headline_xla": (dict(hotpath="xla"), 1 << 12),
-    "OFDM-CY1.0-512": (dict(num_subcarriers=512, channel_model="severe_multipath", snr_db=20.0), 1 << 9),
+    # the audit's 512-sc ISI-free shape routes to the wide diag kernel: its
+    # eager chain is asked for by hotpath, as JAX's XLA path is
+    "OFDM-CY1.0-512": (dict(num_subcarriers=512, channel_model="severe_multipath", snr_db=20.0, hotpath="xla"),
+                       1 << 9),
     "SC-ZE1.0-1024": (dict(num_subcarriers=1024, channel_model="severe_multipath", modulation_type="SC-OFDM",
                            prefix_type="ZERO", snr_db=20.0), 1 << 8),
 }

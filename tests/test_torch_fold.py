@@ -288,10 +288,10 @@ def test_scfde_snr_sweep_falls():
         (LINKS["ofdm_no_prefix_p2"], "mm", "fold"),
         (dict(LINKS["ofdm_short_cp"], num_subcarriers=128, num_symbols=128 * 16), "lr", "lr"),
         (dict(modulation_type="OFDM", channel_model="Lin-Phoong_P2"), "diag", "diag"),
-        # ISI-free past the port's 256-subcarrier diag kernel (JAX: diag, tile
-        # 2048): the eager chain
+        # ISI-free past the 256-subcarrier warp layout (JAX: diag, tile
+        # 2048): the block-per-symbol diag kernel
         (dict(modulation_type="OFDM", channel_model="Lin-Phoong_P2", num_subcarriers=384,
-              num_symbols=384 * 16), "diag", "eager"),
+              num_symbols=384 * 16), "diag", "diag"),
     ],
     ids=["scfde_default", "scfde_256sc", "ofdm_short_cp", "ofdm_no_prefix", "ofdm_short_cp_128sc",
          "ofdm_cp_covers", "ofdm_isi_free_384sc"],

@@ -250,30 +250,32 @@ def test_runner_needs_cuda_or_an_explicit_cpu():
 
 
 @pytest.mark.parametrize(
-    "extra",
+    "extra,mode",
     [
-        # 8-PSK ISI-free past the port's 256-subcarrier diag kernel (item 6b)
-        dict(constellation_type="PSK", constellation_order=8, num_subcarriers=384, num_symbols=384 * 16),
+        # 8-PSK ISI-free past the 256-subcarrier warp layout: diag_wide (item 6b)
+        (dict(constellation_type="PSK", constellation_order=8, num_subcarriers=384, num_symbols=384 * 16), "diag"),
         # zero-prefix links past the port's 256-subcarrier mm kernel (the JAX package runs mm)
-        dict(modulation_type="SC-OFDM", prefix_type="ZERO", num_subcarriers=512, num_symbols=512 * 16),
-        dict(prefix_type="ZERO", channel_model="flat_fading", num_subcarriers=512, num_symbols=512 * 16),
-        # a single-tap channel past 256 subcarriers: the JAX package keeps diag
-        dict(channel_model="flat_fading", num_subcarriers=1024, num_symbols=1024 * 16),
-        dict(num_subcarriers=512, num_symbols=512 * 16),
-        # the power switches run on every kernel; these links take the eager
-        # chain for their other part: adaptive SC-FDE (item 8b), ISI-free 384 sc (6b)
-        dict(apply_power_allocation=True, modulation_type="SC-OFDM", adaptive_modulation_mode="CAPACITY_BASED",
-             power_allocation_type="WATERFILLING", num_symbols=16),
-        dict(normalize_before_demap=True, num_subcarriers=384, num_symbols=384 * 16),
+        (dict(modulation_type="SC-OFDM", prefix_type="ZERO", num_subcarriers=512, num_symbols=512 * 16), "eager"),
+        (dict(prefix_type="ZERO", channel_model="flat_fading", num_subcarriers=512, num_symbols=512 * 16), "eager"),
+        # a single-tap channel past 256 subcarriers: the JAX package keeps diag, so does the port (txext)
+        (dict(channel_model="flat_fading", num_subcarriers=1024, num_symbols=1024 * 16), "diag"),
+        (dict(num_subcarriers=512, num_symbols=512 * 16), "diag"),
+        # the power switches run on every kernel: adaptive SC-FDE takes the
+        # eager chain for its other part (item 8b), ISI-free 384 sc diag_wide
+        (dict(apply_power_allocation=True, modulation_type="SC-OFDM", adaptive_modulation_mode="CAPACITY_BASED",
+              power_allocation_type="WATERFILLING", num_symbols=16), "eager"),
+        (dict(normalize_before_demap=True, num_subcarriers=384, num_symbols=384 * 16), "diag"),
     ],
     ids=["psk", "scfde", "zp", "flat_fading_1024sc", "n512", "apply_power", "normalize"],
 )
-def test_unsupported_configs_raise(extra):
-    # no kernel of the port takes these links: they route to the eager chain and run
+def test_unsupported_configs_raise(extra, mode):
+    # links the port took only on the eager chain before its wide diag
+    # kernel, and those it still does: each routes as the JAX package's
+    # plan allows and runs
     setup = tpl.prepare(tcfg.SimulationConfig(**dict(HEADLINE, **extra)))
-    assert tpl.kernel_mode(setup) == "eager"
+    assert tpl.kernel_mode(setup) == mode
     r = tpl.LinkRunner(setup, device="cpu").run(0)
-    assert r["hotpath_used"] == "eager" and r["total_bits"] == setup.total_bits
+    assert r["hotpath_used"] == ("eager" if mode == "eager" else "torch") and r["total_bits"] == setup.total_bits
     # (adaptive SC-FDE reads ~0.106 at 30 dB in both packages: orders loaded per
     # bin, demapped per time sample after the SC IDFT)
     assert 0.0 <= r["bit_error_rate"] < 0.2 and r["papr_sample_fraction"] == 1.0

@@ -195,9 +195,9 @@ ROUTES = [
     (dict(num_subcarriers=64, prefix_type="ZERO", prefix_length_ratio=1.0), "mm", "mm"),
     (dict(num_subcarriers=128, prefix_type="ZERO", prefix_length_ratio=1.0), "lr", "lr"),
     (dict(num_subcarriers=256, prefix_length_ratio=1.0), "diag", "diag"),
-    (dict(num_subcarriers=512, prefix_length_ratio=1.0), "diag", "eager"),
+    (dict(num_subcarriers=512, prefix_length_ratio=1.0), "diag", "diag"),
     (dict(num_subcarriers=1024, prefix_length_ratio=1.0), "lr", "lr"),
-    (dict(num_subcarriers=1024, prefix_length_ratio=1.0, channel_model="flat_fading"), "diag", "eager"),
+    (dict(num_subcarriers=1024, prefix_length_ratio=1.0, channel_model="flat_fading"), "diag", "diag"),
 ]
 
 

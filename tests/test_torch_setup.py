@@ -44,8 +44,8 @@ CONFIGS = {
     "default_channel_num_bits": dict(channel_type="FLAT", channel_model=None, num_symbols=None,
                                      num_bits=6 * 64 * 512),
     "zero_prefix": dict(prefix_type="ZERO"),
-    # ISI-free past the port's 256-subcarrier diag kernel (ROADMAP item 6b):
-    # the eager chain
+    # ISI-free past the 256-subcarrier warp layout: the eager chain until the
+    # block-per-symbol diag kernel (ROADMAP item 6b), which takes it now
     "psk_unsupported": dict(constellation_type="PSK", constellation_order=8, num_subcarriers=384,
                             num_symbols=384 * 16),
 }
@@ -77,7 +77,7 @@ def test_prepare_equals_jax_exactly(name):
     _assert_setup_equal(js, ts)
     runner = tpl.LinkRunner(ts, device="cpu")
     assert runner.setup is ts
-    assert (runner.mode == "eager") == name.endswith("unsupported")
+    assert runner.mode == ("mm" if name == "zero_prefix" else "diag")
 
 
 @pytest.mark.parametrize("name", ["headline", "waterfilling", "qam256_none_eq"])
