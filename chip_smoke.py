@@ -46,17 +46,24 @@ study's 512-sc link, two captures; the audit's two cells it takes from
 the eager chain through ``LinkRunner``), and the study's fused campaign
 at 512 sc (``diag_wide``) and 1024 sc (lr), 3 scenarios x 7 SNR points
 at 2^20 OFDM symbols a point, each point at z = 5 against the JAX
-package's ``_Link`` at that width.  For each
+package's ``_Link`` at that width; then the fold and zero-prefix mm
+chains past 256 subcarriers (``fold_wide`` and ``mm_wide`` against their
+plain versions on ten links at sym0 = 0 and 2^32 + 77, with apply_power +
+normalize, with the noise-bump stages, a capture a chain, K3 on three
+links) and the audit's ``SC-CY1.0-1024`` and ``SC-ZE1.0-1024`` at 30 and
+20 dB through ``LinkRunner`` (2^20 OFDM symbols each, z = 5 against the
+JAX package's XLA readings), which ran on the eager chain.  For each
 path it checks the BER gate or band, the SNR sweep and the launch
 counters, reads the profiler's busy share, and times the kernel beside
 its plain version and its bound.  Any failed check raises.
 
 Then K3, the carry probe, against its plain version and the chunk
 kernels' carry row on 14 links, and the chunks' carry-in; the sharded runs
-(``ShardedLinkRunner`` on a one-rank NCCL mesh in both stream modes, two
-ranks on the card under gloo against the shards' single-process runs and a
-chained emulation) and the CLI (``python -m ofdm_tpu_torch``) on the
-reference's default, adaptive and pod-scale configs.
+(``ShardedLinkRunner`` on a one-rank NCCL mesh in both stream modes, the
+wide fold and mm links among them, two ranks on the card under gloo
+against the shards' single-process runs and a chained emulation) and the
+CLI (``python -m ofdm_tpu_torch``) on the reference's default, adaptive
+and pod-scale configs.
 
     python3 chip_smoke.py --nccl-ranks 4
 
@@ -908,25 +915,27 @@ CODEC_LINKS = {
                                                    prefix_type="ZERO")),
     "adapt_psk_wf_zp1.0_64": ("mm", "apsk", dict(_APSK, prefix_type="ZERO")),
 }
-# The eager chain at full width (2^20 OFDM symbols each, chunks of 2^17):
-# tools/shape_audit.py's two shapes no kernel of the port takes and the one
-# the wide diag kernel took from it (OFDM-CY1.0-512, now asked for by
-# hotpath "xla"), on the audit's base; the two 1024-sc SC-FDE shapes again
-# at 20 dB (at 30 dB the JAX readings hold 0 and 3 errors, so those two
-# bands cannot fail; at 20 dB 64-QAM errs and the band holds the SC-FDE
-# eager chain to the reference); a 1024-sc single-tap CP link (at 20 dB,
-# where 64-QAM over a flat channel makes errors; diag_wide takes it, hotpath
-# "xla" keeps it here); the headline with hotpath "xla".  Each BER
-# is held at z = 5 against the JAX package's XLA reading on a CPU
-# (jax_band_readings.py, 2^24 / n OFDM symbols).
+# The eager chain at full width (2^20 OFDM symbols each, chunks of 2^17),
+# each asked for by hotpath "xla" where a kernel takes the link:
+# tools/shape_audit.py's three shapes the wide kernels took from it
+# (OFDM-CY1.0-512 on diag_wide; SC-CY1.0-1024 on fold_wide, SC-ZE1.0-1024
+# on mm_wide), on the audit's base; the two 1024-sc SC-FDE shapes again at
+# 20 dB (at 30 dB the JAX readings hold 0 and 3 errors, so those two bands
+# cannot fail; at 20 dB 64-QAM errs and the band holds the SC-FDE eager
+# chain to the reference); a 1024-sc single-tap CP link (at 20 dB, where
+# 64-QAM over a flat channel makes errors; diag_wide takes it); the
+# headline.  Each BER is held at z = 5 against the JAX package's XLA
+# reading on a CPU (jax_band_readings.py, 2^24 / n OFDM symbols).
 EAGER_SYMBOLS = 1 << 20
 EAGER_LINKS = {
     "OFDM-CY1.0-512": dict(AUDIT_BASE, num_subcarriers=512, hotpath="xla"),
-    "SC-CY1.0-1024": dict(AUDIT_BASE, num_subcarriers=1024, modulation_type="SC-OFDM"),
-    "SC-ZE1.0-1024": dict(AUDIT_BASE, num_subcarriers=1024, modulation_type="SC-OFDM", prefix_type="ZERO"),
-    "SC-CY1.0-1024_20db": dict(AUDIT_BASE, num_subcarriers=1024, modulation_type="SC-OFDM", snr_db=20.0),
+    "SC-CY1.0-1024": dict(AUDIT_BASE, num_subcarriers=1024, modulation_type="SC-OFDM", hotpath="xla"),
+    "SC-ZE1.0-1024": dict(AUDIT_BASE, num_subcarriers=1024, modulation_type="SC-OFDM", prefix_type="ZERO",
+                          hotpath="xla"),
+    "SC-CY1.0-1024_20db": dict(AUDIT_BASE, num_subcarriers=1024, modulation_type="SC-OFDM", snr_db=20.0,
+                               hotpath="xla"),
     "SC-ZE1.0-1024_20db": dict(AUDIT_BASE, num_subcarriers=1024, modulation_type="SC-OFDM", prefix_type="ZERO",
-                               snr_db=20.0),
+                               snr_db=20.0, hotpath="xla"),
     "flat_fading_cp_1024sc": dict(AUDIT_BASE, num_subcarriers=1024, channel_model="flat_fading", snr_db=20.0,
                                   hotpath="xla"),
     "headline_xla": dict(HEADLINE_KW, hotpath="xla"),
@@ -2071,6 +2080,258 @@ def wide_path(card, device):
     return entries
 
 
+# --- the fold and zero-prefix mm chains past 256 subcarriers (dense_wide) ------------
+
+_SC = dict(modulation_type="SC-OFDM")
+# The wide dense links held against their plain versions at a 2^17-symbol
+# chunk, (chain, changes to the audit's base): tools/shape_audit.py's SC-FDE
+# shapes at 512 and 1024 sc (CP and zero prefix), SC-FDE without a prefix,
+# a 300-sc single-tap CP link (the two-factor DFT, 15 x 20), single-tap
+# zero-prefix OFDM at 512 and 1024 sc, 8-PSK on one SC-FDE link and aqam on
+# single-tap ZP OFDM; at 20 dB, where 64-QAM errs.
+DENSE_WIDE_SNR = 20.0
+DENSE_WIDE_LINKS = {
+    "SC-CY1.0-512": ("fold", dict(_SC, num_subcarriers=512)),
+    "SC-CY1.0-1024": ("fold", dict(_SC, num_subcarriers=1024)),
+    "SC-NO-512": ("fold", dict(_SC, num_subcarriers=512, prefix_type="NONE")),
+    "sc_flat_cp_300": ("fold", dict(_SC, num_subcarriers=300, channel_model="flat_fading")),
+    "SC-ZE1.0-512": ("mm", dict(_SC, num_subcarriers=512, prefix_type="ZERO")),
+    "SC-ZE1.0-1024": ("mm", dict(_SC, num_subcarriers=1024, prefix_type="ZERO")),
+    "flat_zp_ofdm_512": ("mm", dict(num_subcarriers=512, prefix_type="ZERO", channel_model="flat_fading")),
+    "flat_zp_ofdm_1024": ("mm", dict(num_subcarriers=1024, prefix_type="ZERO", channel_model="flat_fading")),
+    "SC-CY1.0-512_psk8": ("fold", dict(_SC, num_subcarriers=512, **_PSK8)),
+    "flat_zp_ofdm_512_aqam": ("mm", dict(num_subcarriers=512, prefix_type="ZERO", channel_model="flat_fading",
+                                         **_ADAPT)),
+}
+# The two audit cells the wide kernels take from the eager chain, through
+# LinkRunner at 30 and 20 dB (their JAX readings' names).
+DENSE_WIDE_CELLS = {
+    "SC-CY1.0-1024": ("fold", dict(_SC, num_subcarriers=1024)),
+    "SC-ZE1.0-1024": ("mm", dict(_SC, num_subcarriers=1024, prefix_type="ZERO")),
+    "SC-CY1.0-1024_20db": ("fold", dict(_SC, num_subcarriers=1024, snr_db=20.0)),
+    "SC-ZE1.0-1024_20db": ("mm", dict(_SC, num_subcarriers=1024, prefix_type="ZERO", snr_db=20.0)),
+}
+
+
+def dense_wide_cfg(kw, num_ofdm=WIDE_BAND_SYMBOLS, **extra):
+    """An audit config of a dense wide link at DENSE_WIDE_SNR unless it says otherwise."""
+    return audit_cfg(num_ofdm, MAIN_CHUNK, **{"snr_db": DENSE_WIDE_SNR, **kw, **extra})
+
+
+def dense_wide_runner(name, chain, cfg, device):
+    """LinkRunner of a wide dense link, checked to route to ``chain``'s wide kernel."""
+    from ofdm_tpu_torch.ops import fold_kernel as fk
+    from ofdm_tpu_torch.ops import mm_kernel as mmk
+    from ofdm_tpu_torch.pipeline import LinkRunner, prepare
+
+    runner = LinkRunner(prepare(cfg), device)
+    wide = (fk if chain == "fold" else mmk).is_wide(runner.link) if runner.mode == chain else False
+    if not wide:
+        raise AssertionError(f"{name} routed to {runner.mode} (wide {wide}), not {chain}'s wide kernel")
+    return runner
+
+
+def dense_wide_counters(reset=False):
+    """The wide wrappers' launch counters (and the narrow ones beside them)."""
+    from ofdm_tpu_torch.ops import fold_kernel as fk
+    from ofdm_tpu_torch.ops import mm_kernel as mmk
+
+    names = ((fk.fold_chunk, ("wide_launches", "wide_power_launches", "launches", "power_launches")),
+             (mmk.mm_chunk, ("wide_launches", "wide_front_launches", "launches", "front_launches")),
+             (fk.fold_probe, ("wide_launches", "launches")), (mmk.mm_probe, ("wide_launches", "launches")))
+    out = {}
+    for fn, attrs in names:
+        for a in attrs:
+            if reset:
+                setattr(fn, a, 0)
+            out[f"{fn.__name__}.{a}"] = getattr(fn, a)
+    return out
+
+
+def dense_wide_operations(chain, link, chunk):
+    """(needed, power pass): the operations one wide fold or mm chunk needs,
+    counted from csrc/{fold,mm}_wide_kernel.cu, and what the measured-power
+    pass recomputes.  Per symbol: Philox on every drawn bin (fold) or time
+    sample (mm), encode, the block transforms (radix-2: 10 a butterfly, n / 2
+    log2 n of them; the split: 8 a term over n (N1 + N2), 6 n twiddles; 2 n
+    for the scale) for OFDM's TX, the receiver and SC-FDE's IDFT, the
+    8 K-term convolution per kept sample, Box-Muller on each noisy sample,
+    mm's overlap-add, the equalizer, slicer and count per bin, the PAPR per
+    time sample; |y|^2 and its sum over each tile's measured slice."""
+    from ofdm_tpu_torch.ops import fold_kernel as fk
+    from ofdm_tpu_torch.ops import mm_kernel as mmk
+
+    n, T, K = link.n, link.T, link.E + 1
+    p = link.plan
+    dft = ((n // 2) * p.log2n * 10 if p.log2n >= 0 else n * (p.n1 + p.n2) * 8 + 6 * n) + 2 * n
+    drawn = T if chain == "mm" else n
+    eq = OPS_PER_BIN["mmse"] if link.method == 1 else 6
+    tx = (0 if link.is_sc else dft) + n * (OPS_PER_BIN["philox"] + OPS_PER_BIN["encode"])
+    conv = 8 * K * (T if chain == "mm" else n)
+    per_symbol = (tx + (drawn - n) * OPS_PER_BIN["philox"] + PAPR_OPS * T + conv
+                  + (drawn * OPS_PER_BIN["noise"] if link.add_noise else 0) + (2 * (T - n) if chain == "mm" else 0)
+                  + dft + (dft if link.is_sc else 0)
+                  + n * (eq + OPS_PER_BIN["demap"] + OPS_PER_BIN["count"]))
+    m = mmk if chain == "mm" else fk
+    tile, tiles, _ = m._chunk_geometry(link, chunk)
+    slice_ = tile if chain == "mm" else link.slice
+    power_syms = sum(min(slice_, min(tile, chunk - t * tile)) for t in range(tiles)) if link.add_noise else 0
+    power_pass = power_syms * (tx + conv + (0 if chain == "mm" else dft))
+    return chunk * per_symbol + power_syms * drawn * POWER_SUM_OPS, power_pass
+
+
+def dense_wide_checks(card, device):
+    """fold_wide and mm_wide against their plain versions on the card
+    (``compare_chunk``: counts, PAPR and carry exactly) on DENSE_WIDE_LINKS
+    at sym0 = 0 and 2^32 + 77; K3 (``probe_check``) on three links; one link
+    a chain with apply_power + normalize, one with all four noise-bump
+    stages; a capture a chain.  Returns ({chain: max difference}, {chain:
+    probe max difference})."""
+    from ofdm_tpu_torch.ops import link_kernel as lk
+
+    err = {"fold": 0.0, "mm": 0.0}
+    for name, (chain, kw) in DENSE_WIDE_LINKS.items():
+        runner = dense_wide_runner(name, chain, dense_wide_cfg(kw), device)
+        link = runner.link
+        _, kernel, plain, _ = chains()[chain]
+        for sym0 in PROBE_SYM0:
+            err[chain] = max(err[chain], compare_chunk(
+                f"{chain}_wide {name} ({link.q.mode}, n={link.n}, T={link.T}, E={link.E}, sc={link.is_sc}, tile "
+                f"{lk.tile_for(MAIN_CHUNK, link.tile_cap)}, dft {link.plan.n1}x{link.plan.n2} log2n "
+                f"{link.plan.log2n})", kernel, plain, link, sym0, MAIN_CHUNK, runner.setup.cfg.snr_db, device))
+    for name, chain, extra in (("SC-CY1.0-1024", "fold", _WF), ("SC-ZE1.0-1024", "mm", _WF)):
+        runner = dense_wide_runner(name, chain, dense_wide_cfg(DENSE_WIDE_LINKS[name][1], **extra), device)
+        _, kernel, plain, _ = chains()[chain]
+        err[chain] = max(err[chain], compare_chunk(
+            f"{chain}_wide {name} apply_power + normalize (stages {lk.link_stages(runner.link)})", kernel, plain,
+            runner.link, MAIN_CHUNK, MAIN_CHUNK, DENSE_WIDE_SNR, device,
+            rows=sqrt_power_row(runner, DENSE_WIDE_SNR)))
+    for name, chain in (("SC-CY1.0-512", "fold"), ("flat_zp_ofdm_512", "mm")):
+        runner = dense_wide_runner(name, chain, dense_wide_cfg(DENSE_WIDE_LINKS[name][1], **_NB), device)
+        link = lk.noise_bump_link(runner.link)
+        _, kernel, plain, _ = chains()[chain]
+        err[chain] = max(err[chain], compare_chunk(
+            f"{chain}_wide {name} noise-bump stages (stages {lk.link_stages(link)})", kernel, plain, link,
+            MAIN_CHUNK, MAIN_CHUNK, 15.0, device, rows=bump_rows(runner, device)))
+    probe_err = {}
+    for name in ("SC-CY1.0-1024", "SC-NO-512", "SC-ZE1.0-1024"):
+        chain, kw = DENSE_WIDE_LINKS[name]
+        probe_err[chain] = max(probe_err.get(chain, 0.0), probe_check(name, chain, dense_wide_cfg(kw), device))
+    for name in ("SC-CY1.0-1024", "SC-ZE1.0-1024"):
+        chain, kw = DENSE_WIDE_LINKS[name]
+        err[chain] = max(err[chain], capture_check(card, device, f"{name} ({chain}_wide)", chain,
+                                                   dense_wide_cfg(kw), CAPTURE_COLLECT)[0])
+    return err, probe_err
+
+
+def dense_wide_cells(card, device):
+    """The two audit cells the wide kernels take from the eager chain at 30
+    and 20 dB through LinkRunner at 2^20 OFDM symbols: every launch counter
+    set to 0 just before the run and read just after (each wide main kernel
+    8 times, its power pass 8, no narrow kernel), OFDM syms/s, peak device
+    memory, ``hotpath_used``, the z = 5 band against the JAX package's XLA
+    reading (their eager twins run in eager_path), the profile.  Returns
+    ({chain: main launches}, {chain: power launches}, {name: OFDM syms/s})."""
+    import torch
+
+    launches, power, rates = {"fold": 0, "mm": 0}, {"fold": 0, "mm": 0}, {}
+    for name, (chain, kw) in DENSE_WIDE_CELLS.items():
+        runner = dense_wide_runner(name, chain, audit_cfg(WIDE_BAND_SYMBOLS, MAIN_CHUNK, **kw), device)
+        runner.run(1)  # warm-up
+        torch.cuda.synchronize()
+        dense_wide_counters(reset=True)
+        torch.cuda.reset_peak_memory_stats()
+        r = runner.run(MAIN_SEED)
+        peak_mb = torch.cuda.max_memory_allocated() / 1e6
+        got = dense_wide_counters()
+        fn = "fold_chunk" if chain == "fold" else "mm_chunk"
+        pw = "wide_power_launches" if chain == "fold" else "wide_front_launches"
+        want = WIDE_BAND_SYMBOLS // MAIN_CHUNK
+        others = {k: v for k, v in got.items() if v and k not in (f"{fn}.wide_launches", f"{fn}.{pw}")}
+        print(f"{name} through LinkRunner ({chain}_wide) [{card}]: {WIDE_BAND_SYMBOLS} OFDM symbols, "
+              f"ofdm_symbols_per_s={r['ofdm_symbols_per_s']:.1f} run_s={r['transmission_time_ms'] / 1e3:.4f} "
+              f"BER={r['bit_error_rate']} papr_db={r['papr_db']:.4f} ({r['papr_estimator']}) "
+              f"hotpath={r['hotpath_used']}; peak device memory {peak_mb:.3f} MB; launches {json.dumps(got)}")
+        if (got[f"{fn}.wide_launches"], got[f"{fn}.{pw}"]) != (want, want) or others or r["hotpath_used"] != "cuda":
+            raise AssertionError(f"{name}: launches {got}, hotpath {r['hotpath_used']}")
+        band(name, r, EAGER_READING)
+        launches[chain] += want
+        power[chain] += want
+        rates[name] = r["ofdm_symbols_per_s"]
+        print_profile(card, f"{name} ({chain}_wide)", profile_run(runner, runner.setup.cfg.snr_db))
+    return launches, power, rates
+
+
+def dense_wide_entries(card, device, err, probe_err, launches, power):
+    """The kernels-line entries: fold_wide on SC-CY1.0-1024 and mm_wide on
+    SC-ZE1.0-1024 (30 dB, the cells' links) timed at 2^17 symbols by CUDA
+    events beside their plain versions and bounds; their probes (launches
+    filled in by the one-rank halo run)."""
+    from ofdm_tpu_torch.ops import link_kernel as lk
+    from ofdm_tpu_torch.ops import prng
+    from ofdm_tpu_torch.pipeline import _KERNELS
+
+    out = []
+    key = prng.key_words(MAIN_SEED)
+    for chain, name in (("fold", "SC-CY1.0-1024"), ("mm", "SC-ZE1.0-1024")):
+        kw = DENSE_WIDE_CELLS[name][1]
+        runner = dense_wide_runner(name, chain, audit_cfg(WIDE_BAND_SYMBOLS, MAIN_CHUNK, **kw), device)
+        link = runner.link
+        _, kernel, plain, _ = chains()[chain]
+        snr_lin = lk.snr_linear(runner.setup.cfg.snr_db)
+        acc, psum = lk.new_accumulators(device)
+        work = _KERNELS[chain].workspace(link, MAIN_CHUNK, device)
+        k_ms = cuda_ms(lambda: kernel(link, (3, 4), 0, MAIN_CHUNK, snr_lin, acc, psum, work), 20)
+        p_ms = cuda_ms(lambda: plain(link, (3, 4), 0, MAIN_CHUNK, snr_lin, acc, psum), 1)
+        ops, added = dense_wide_operations(chain, link, MAIN_CHUNK)
+        bound = ops / PEAK_OPS * 1e3
+        kname = f"{chain}_wide"
+        print(f"{kname} {name} at {MAIN_CHUNK} symbols [{card}]: kernel {k_ms:.4f} ms "
+              f"({MAIN_CHUNK / k_ms * 1e3:.1f} OFDM syms/s), plain {p_ms:.3f} ms, bound {bound:.4f} ms ({ops} "
+              f"operations needed; the measured-power pass recomputes {added}, {added / PEAK_OPS * 1e3:.4f} ms at "
+              f"the same rate)")
+        out.append({"name": f"{kname} ({name})", "route": "cuda",
+                    "source": f"ofdm_tpu_torch/csrc/{chain}_wide_kernel.cu",
+                    "replaces": "ofdm_tpu/ops/pallas_link.py:1986", "launches": launches[chain],
+                    "power_launches": power[chain], "max_abs_err": err[chain], "ms": k_ms, "plain_ms": p_ms,
+                    "bound_ms": bound, "bound_by": "operations", "library_ms": None})
+        probe, probe_plain = probes()[chain]
+        pk_ms = cuda_ms(lambda: probe(link, key, MAIN_CHUNK, MAIN_CHUNK), PROBE_TIMED_LAUNCHES)
+        prof = profile_call(lambda: [probe(link, key, MAIN_CHUNK, MAIN_CHUNK) for _ in range(100)])
+        dev_ms = None if prof is None else prof[0].get("ofdm::wide_probe", 0.0) / 100
+        pp_ms = cuda_ms(lambda: probe_plain(link, key, MAIN_CHUNK, MAIN_CHUNK), 20)
+        p = link.plan
+        idft = 0 if link.is_sc else ((link.n // 2) * p.log2n * 10 if p.log2n >= 0 else link.n * (p.n1 + p.n2) * 8)
+        pops = link.n * (OPS_PER_BIN["philox"] + OPS_PER_BIN["encode"]) + idft
+        pbytes = 8 * (link.T + link.E)
+        pbound = max(pops / PEAK_OPS, pbytes / PEAK_BYTES) * 1e3
+        print(f"K3 {kname}_probe {name} (T={link.T}, E={link.E}) [{card}]: kernel {pk_ms:.4f} ms a launch (mean "
+              f"of {PROBE_TIMED_LAUNCHES} by CUDA events: the wrapper's host time bounds it), device time "
+              f"{dev_ms if dev_ms is None else f'{dev_ms:.5f}'} ms a launch (profiler), plain {pp_ms:.3f} ms, "
+              f"bound {pbound:.6f} ms ({pops} operations, {pbytes} bytes)")
+        by_ops = pops / PEAK_OPS >= pbytes / PEAK_BYTES
+        out.append({"name": f"{kname}_probe", "route": "cuda",
+                    "source": f"ofdm_tpu_torch/csrc/{chain}_wide_kernel.cu",
+                    "replaces": "ofdm_tpu/ops/pallas_link.py:2218", "launches": None,
+                    "max_abs_err": probe_err[chain], "ms": pk_ms, "device_ms": dev_ms, "plain_ms": pp_ms,
+                    "bound_ms": pbound, "bound_by": "operations" if by_ops else "bytes", "library_ms": None})
+    return out
+
+
+def dense_wide_path(card, device):
+    """This slice's phase: fold_wide and mm_wide (with their probes, staged,
+    bump and dump builds) against their plain versions, the two audit cells
+    they take from the eager chain through LinkRunner, the kernels timed.
+    Returns the kernels-line entries (the probes' launches filled in by
+    ``one_rank_path``'s halo run on SC-CY1.0-1024)."""
+    t0 = time.perf_counter()
+    err, probe_err = dense_wide_checks(card, device)
+    launches, power, rates = dense_wide_cells(card, device)
+    entries = dense_wide_entries(card, device, err, probe_err, launches, power)
+    print(f"dense_wide phase: {time.perf_counter() - t0:.1f} s; OFDM syms/s {json.dumps(rates)}")
+    return entries
+
+
 # --- the sweep and the shards: K3, the carry-in, the mesh, the CLI ------------------
 
 # The links K3 (the carry probe) is held on: its chunk's carry row, its plain
@@ -2235,8 +2496,8 @@ TWO_RANK_TIMEOUT_S = 300.0
 
 def shard_links():
     """{name: (chain, config)} of the one-rank sharded runs: 2^24 OFDM
-    symbols, 2^23 at 1024 subcarriers, 2^20 on the eager link; chunks of
-    2^17."""
+    symbols, 2^23 at 1024 subcarriers, 2^20 on the eager link and on the
+    wide fold link; chunks of 2^17."""
     from ofdm_tpu_torch.config import SimulationConfig
 
     eager = EAGER_LINKS["OFDM-CY1.0-512"]
@@ -2247,6 +2508,10 @@ def shard_links():
         "zp_64sc": ("mm", zp_cfg(1 << 24, MAIN_CHUNK)),
         "OFDM-CY1.0-512": ("eager", SimulationConfig(**eager, num_symbols=512 * EAGER_SYMBOLS,
                                                      symbols_per_chunk=MAIN_CHUNK)),
+        # the wide fold and mm chains, their probes (fold_wide_probe,
+        # mm_wide_probe) in halo mode
+        "SC-CY1.0-1024": ("fold", audit_cfg(EAGER_SYMBOLS, MAIN_CHUNK, **DENSE_WIDE_CELLS["SC-CY1.0-1024"][1])),
+        "SC-ZE1.0-1024": ("mm", audit_cfg(EAGER_SYMBOLS, MAIN_CHUNK, **DENSE_WIDE_CELLS["SC-ZE1.0-1024"][1])),
     }
 
 
@@ -2274,6 +2539,8 @@ def one_rank_path(card, device, probe_entries):
     import torch
     import torch.distributed as dist
 
+    from ofdm_tpu_torch.ops import fold_kernel as fk
+    from ofdm_tpu_torch.ops import mm_kernel as mmk
     from ofdm_tpu_torch.ops import prng
     from ofdm_tpu_torch.parallel import ShardedLinkRunner, distributed_init, make_mesh
     from ofdm_tpu_torch.pipeline import LinkRunner, prepare
@@ -2298,26 +2565,34 @@ def one_rank_path(card, device, probe_entries):
             for mode in ("independent", "halo"):
                 runner = ShardedLinkRunner(setup, mesh=mesh, stream_mode=mode)
                 chunks = runner._chunk_plan()[1]
+                # the wide links' probes count apart (wide_launches)
+                wide = (chain == "fold" and fk.is_wide(runner.link)) or (chain == "mm" and mmk.is_wide(runner.link))
+                counter = "wide_launches" if wide else "launches"
+                pname = f"{chain}_wide_probe" if wide else f"{chain}_probe"
                 if chain in probes_:
-                    probes_[chain][0].launches = 0
+                    probes_[chain][0].launches = probes_[chain][0].wide_launches = 0
                 r = runner.run(SHARD_KEY)
                 torch.cuda.synchronize()
                 got[mode] = r
-                launches = probes_[chain][0].launches if chain in probes_ else 0
+                launches = other = 0
+                if chain in probes_:
+                    launches = getattr(probes_[chain][0], counter)
+                    other = probes_[chain][0].launches + probes_[chain][0].wide_launches - launches
                 want_launches = chunks if mode == "halo" and chain in probes_ else 0
                 print(f"sharded {name} ({chain}, {mode}, 1 rank, {r['collective_backend']}) [{card}]: "
                       f"{setup.num_ofdm_symbols} OFDM symbols in {chunks} chunks, BER={r['bit_error_rate']} "
                       f"({r['bit_errors']} / {r['symbol_errors']}), ofdm_symbols_per_s="
                       f"{r['ofdm_symbols_per_s']:.1f} (LinkRunner {want['ofdm_symbols_per_s']:.1f}), "
-                      f"{chain}_probe launches {launches}")
+                      f"{pname} launches {launches}")
                 if (r["bit_errors"], r["symbol_errors"]) != (want["bit_errors"], want["symbol_errors"]):
                     raise AssertionError(f"sharded {name} {mode}: {r['bit_errors']}/{r['symbol_errors']}, "
                                          f"LinkRunner {want['bit_errors']}/{want['symbol_errors']}")
-                if launches != want_launches or r["collective_backend"] != "nccl":
-                    raise AssertionError(f"sharded {name} {mode}: probe launches {launches}, not {want_launches}")
+                if launches != want_launches or other or r["collective_backend"] != "nccl":
+                    raise AssertionError(f"sharded {name} {mode}: probe launches {launches} (+{other} of the other "
+                                         f"probe), not {want_launches}")
                 if mode == "halo" and chain in probes_:
                     for e in probe_entries:
-                        if e["name"] == f"{chain}_probe":
+                        if e["name"] == pname:
                             e["launches"] = launches
                 shard_gate(name, r)
             if (got["halo"]["bit_errors"], got["halo"]["symbol_errors"]) != (
@@ -2730,10 +3005,15 @@ def main():
     # (diag_wide); the study's campaign at 512 and 1024 sc
     wide = wide_path(card, device)
 
+    # 12c. the fold and zero-prefix mm chains past 256 subcarriers (fold_wide,
+    # mm_wide): against their plain versions, the two audit cells they take
+    # from the eager chain
+    dense_wide = dense_wide_path(card, device)
+
     # 13. K3 and the carry-in on every chain; the sharded runs (one rank
     # under NCCL, two ranks under gloo) and the CLI on the reference's configs
     t_sweep = time.perf_counter()
-    probe_entries = probe_path(card, device)
+    probe_entries = probe_path(card, device) + [e for e in dense_wide if e["name"].endswith("_probe")]
     cli_s = sweep_path(card, device, probe_entries)
     print(f"sweep and shards phase: {time.perf_counter() - t_sweep:.1f} s (CLI s a point {json.dumps(cli_s)}); "
           f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
@@ -2758,6 +3038,7 @@ def main():
         *prng_entries,
         *dumps,
         *wide,
+        *[e for e in dense_wide if not e["name"].endswith("_probe")],
         *probe_entries,
     ]
     print(json.dumps({"kernels": kernels}))

@@ -6,9 +6,9 @@ seconds), named by a digest of its sources and flags under
 ``ofdm_tpu_torch/_build/``.  Each chunk source builds twice: plainly, and
 with ``-DOFDM_STAGED=1`` into its ``*_staged`` library, which holds the
 _Spec stages (link_common.cuh), so that the plain build's kernels compile
-from the code they had; the fold, lr, mm and diag_wide sources a third
-time with ``-DOFDM_BUMP=1`` as well, into ``*_bump``, whose mains hold the
-noise-bump stages (the staged build's keep the code they had, and the
+from the code they had; the fold, lr, mm, diag_wide, fold_wide and
+mm_wide sources a third time with ``-DOFDM_BUMP=1`` as well, into
+``*_bump``, whose mains hold the noise-bump stages (the staged build's keep the code they had, and the
 builds run side by side).  A library is built at its first use in a
 process; :func:`build` compiles several at once, one nvcc process each.
 Nothing here runs at import time.
@@ -35,16 +35,22 @@ LIBRARIES = {
     "fold_kernel": ("fold_kernel", ()),
     "lr_kernel": ("lr_kernel", ()),
     "mm_kernel": ("mm_kernel", ()),
+    "fold_wide": ("fold_wide_kernel", ()),
+    "mm_wide": ("mm_wide_kernel", ()),
     "boxmuller": ("boxmuller", ()),
     "link_staged": ("link_kernel", ("-DOFDM_STAGED=1",)),
     "diag_wide_staged": ("diag_wide_kernel", ("-DOFDM_STAGED=1",)),
     "fold_staged": ("fold_kernel", ("-DOFDM_STAGED=1",)),
     "lr_staged": ("lr_kernel", ("-DOFDM_STAGED=1",)),
     "mm_staged": ("mm_kernel", ("-DOFDM_STAGED=1",)),
+    "fold_wide_staged": ("fold_wide_kernel", ("-DOFDM_STAGED=1",)),
+    "mm_wide_staged": ("mm_wide_kernel", ("-DOFDM_STAGED=1",)),
     "diag_wide_bump": ("diag_wide_kernel", ("-DOFDM_STAGED=1", "-DOFDM_BUMP=1")),
     "fold_bump": ("fold_kernel", ("-DOFDM_STAGED=1", "-DOFDM_BUMP=1")),
     "lr_bump": ("lr_kernel", ("-DOFDM_STAGED=1", "-DOFDM_BUMP=1")),
     "mm_bump": ("mm_kernel", ("-DOFDM_STAGED=1", "-DOFDM_BUMP=1")),
+    "fold_wide_bump": ("fold_wide_kernel", ("-DOFDM_STAGED=1", "-DOFDM_BUMP=1")),
+    "mm_wide_bump": ("mm_wide_kernel", ("-DOFDM_STAGED=1", "-DOFDM_BUMP=1")),
 }
 SOURCES = tuple(LIBRARIES)
 # -fmad=false: every multiply rounds before its add, as in the plain
@@ -67,6 +73,14 @@ _PROBE = ([_P] * 2 + [_I] * 9 + [_F] + [_P] * 2 + [ctypes.c_ulonglong] + [_U] * 
           + [_P], _I)
 # The C entry points of each source's libraries with their (argtypes,
 # restype), set once when a library loads.
+# The wide fold and mm chunks (ofdm_{fold,mm}_wide_chunk): taps, twiddles and
+# equalizer rows, n, T, E, the DFT split and scale, the codec, the equalizer
+# scalars and switches, sym0, the chunk geometry, the key, the outputs, the
+# stages, the carry-in, the stream; and their probes.
+_WIDE = ([_P] * 9 + [_I] * 6 + [_F] + [_I] * 6 + [_F] + [_P] * 2 + [_F] * 3 + [_I] * 3 + [ctypes.c_ulonglong]
+         + [_I] * 5 + [_U] * 2 + [_P] * 5 + _STAGES + _PREV + [_P], _I)
+_WIDE_PROBE = ([_P] * 2 + [_I] * 6 + [_F] + [_I] * 7 + [_F] + [_P] * 2 + [ctypes.c_ulonglong] + [_U] * 2
+               + [_P, _I] + [_P] * 4 + [_P], _I)
 _DIAG = [_P] * 9 + [_I] * 8 + [_F] + [_P] * 2 + [_F] * 3 + [_I] * 2 + [ctypes.c_ulonglong] + [_I] * 7 + [_U] * 2 \
     + [_P] * 5 + _STAGES
 SIGNATURES = {
@@ -97,6 +111,8 @@ SIGNATURES = {
         ),
         "ofdm_mm_probe": _PROBE,
     },
+    "fold_wide_kernel": {"ofdm_fold_wide_chunk": _WIDE, "ofdm_fold_wide_probe": _WIDE_PROBE},
+    "mm_wide_kernel": {"ofdm_mm_wide_chunk": _WIDE, "ofdm_mm_wide_probe": _WIDE_PROBE},
     "boxmuller": {
         "ofdm_boxmuller": ([_P, _P, ctypes.c_longlong, _U, _U, _P], _I),
         "ofdm_philox": ([_P, ctypes.c_longlong] + [_U] * 4 + [_P], _I),

@@ -27,6 +27,15 @@ chunk's first, which another shard computed: the first symbol reads it.
 a chunk's carry row and tail, from its last symbol's Philox words alone,
 through the chunk's own TX stage.
 
+Past MAX_N subcarriers (up to WIDE_MAX_N, wherever the JAX package's dense
+budget admits the link: ``link_kernel.fold_fits``) the chunk and the probe
+run the same semantics on the block-per-symbol chain
+(``csrc/fold_wide_kernel.cu``; plain version ``fold_wide_chunk_plain``):
+the TX block by copies or the block IDFT, the direct K-tap stream
+convolution, the block DFT (``ops/dft.py``) and the per-bin chain with
+its sums in a block of 256 threads' order, in place of the dense
+products, which such a link does not build.
+
 ``fold_chunk`` launches the kernel for CUDA tensors and runs
 ``fold_chunk_plain`` only for CPU tensors.
 """
@@ -40,13 +49,16 @@ import numpy as np
 import torch
 
 from ofdm_tpu_torch.config import ModulationType, PrefixType
-from ofdm_tpu_torch.ops import linops, prng
+from ofdm_tpu_torch.ops import dft, linops, prng
 from ofdm_tpu_torch.ops import link_kernel as lk
 
 MAX_N = 256  # the kernel's warp-per-symbol layout holds up to 8 bins a lane
+WIDE_MAX_N = 2048  # fold_wide's block-per-symbol layout holds up to 8 bins a thread
 # Consecutive symbols one warp of fold_main walks; it recomputes the tail of
 # the symbol before its first, so one tail in RUN is extra work.
 RUN = 8
+WIDE_RUN = 16  # consecutive symbols a block of fold_wide_main walks
+WIDE_THREADS = 256  # fold_wide's block, one symbol
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,17 +78,23 @@ class FoldLink:
     is_sc: bool
     tile_cap: int
     slice: int
-    txr: torch.Tensor  # (n, T+E) F_tx,ext
-    txi: torch.Tensor
-    cmr: torch.Tensor  # (T+E, n) conv + guard strip + DFT
-    cmi: torch.Tensor
-    idr: Optional[torch.Tensor]  # (n, n) SC-FDE IDFT; None for OFDM
+    txr: Optional[torch.Tensor]  # (n, T+E) F_tx,ext; None past MAX_N
+    txi: Optional[torch.Tensor]
+    cmr: Optional[torch.Tensor]  # (T+E, n) conv + guard strip + DFT; None past MAX_N
+    cmi: Optional[torch.Tensor]
+    idr: Optional[torch.Tensor]  # (n, n) SC-FDE IDFT; None for OFDM and past MAX_N
     idi: Optional[torch.Tensor]
     hr: torch.Tensor  # (n,)
     hi: torch.Tensor
     habs2: torch.Tensor
     gr: torch.Tensor  # ZF gain rows, slicer folded in
     gi: torch.Tensor
+    # The wide chain's constants (link_kernel.wide_link_fields): the guard
+    # offset T - n, the (K,) unit-energy taps, the block DFT plan.
+    L: int
+    tpr: torch.Tensor
+    tpi: torch.Tensor
+    plan: dft.DftPlan
     # The noise-bump study's stages (link_kernel.noise_bump_link): post-EQ
     # noise of sigma rows[2], then x rows[1] (1/sqrt(P)).
     post_noise: bool = False
@@ -86,7 +104,8 @@ class FoldLink:
 def fold_link(setup, device) -> FoldLink:
     """Host constants of a fold link (pallas_link._consts_for, fold branch,
     unpacked): F_tx,ext, the merged conv+RX matrix, the SC-FDE IDFT and the
-    equalizer rows, f32 on ``device``."""
+    equalizer rows, f32 on ``device``; past MAX_N subcarriers only the wide
+    chain's taps and DFT plan (no dense matrix), which every link carries."""
     cfg = setup.cfg
     if cfg.prefix_type == PrefixType.ZERO:
         raise ValueError("fold link: zero-prefix links do not fold the conv into RX")
@@ -95,25 +114,29 @@ def fold_link(setup, device) -> FoldLink:
     taps = np.asarray(setup.taps)
     E = linops.ext_width(len(taps), T)
     is_sc = cfg.modulation_type == ModulationType.SC_OFDM
-    txr, txi = linops.tx_ext_matrix(linops.tx_matrix(n, cfg.prefix_type, L, cfg.modulation_type), E)
-    cm = linops.conv_rx_merged(taps, n, cfg.prefix_type, L)
-    idr = idi = None
-    if is_sc:
-        dr, di = linops.dft_matrix(n, inverse=True)
-        idr, idi = lk.f32_tensor(dr, device), lk.f32_tensor(di, device)
+    dense = dict.fromkeys(("txr", "txi", "cmr", "cmi", "idr", "idi"))
+    if n <= MAX_N:
+        txr, txi = linops.tx_ext_matrix(linops.tx_matrix(n, cfg.prefix_type, L, cfg.modulation_type), E)
+        cm = linops.conv_rx_merged(taps, n, cfg.prefix_type, L)
+        dense.update(txr=lk.f32_tensor(txr, device), txi=lk.f32_tensor(txi, device),
+                     cmr=lk.f32_tensor(cm.real, device), cmi=lk.f32_tensor(cm.imag, device))
+        if is_sc:
+            dr, di = linops.dft_matrix(n, inverse=True)
+            dense.update(idr=lk.f32_tensor(dr, device), idi=lk.f32_tensor(di, device))
     return FoldLink(
         T=T,
         E=E,
         is_sc=is_sc,
         tile_cap=lk.fold_tile_cap(n, T, E, is_sc, lk.selected_passes(setup)),
-        txr=lk.f32_tensor(txr, device),
-        txi=lk.f32_tensor(txi, device),
-        cmr=lk.f32_tensor(cm.real, device),
-        cmi=lk.f32_tensor(cm.imag, device),
-        idr=idr,
-        idi=idi,
+        **dense,
         **lk.equalizer_fields(setup, device),
+        **lk.wide_link_fields(setup, device),
     )
+
+
+def is_wide(link: FoldLink) -> bool:
+    """Whether the link runs on the block-per-symbol chain (fold_wide)."""
+    return link.n > MAX_N
 
 
 def _chunk_geometry(link: FoldLink, chunk: int):
@@ -192,7 +215,9 @@ def fold_chunk_plain(
     prev=None,
 ):
     """Plain version of ``fold_chunk`` (same arguments, same effects);
-    ``words`` as in ``fold_planes``."""
+    ``words`` as in ``fold_planes``; past MAX_N ``fold_wide_chunk_plain``."""
+    if is_wide(link):
+        return fold_wide_chunk_plain(link, key, sym0, chunk, snr_lin, acc, psum, words, rows, dump, prev)
     T = link.T
     tx, er, ei, xr, xi = fold_planes(link, key, sym0, chunk, snr_lin, acc.device, words, rows, prev)
     if dump is not None:
@@ -205,17 +230,104 @@ def fold_chunk_plain(
 def fold_probe_plain(link: FoldLink, key: Tuple[int, int], sym0: int, chunk: int, rows=None, words=None):
     """Plain version of ``fold_probe``: the last symbol's x = s @ F_tx,ext as
     ``fold_planes`` computes it (``words``: its raw words injected, as
-    ``link_kernel.probe_symbol_tx`` takes them)."""
+    ``link_kernel.probe_symbol_tx`` takes them); past MAX_N
+    ``fold_wide_probe_plain``."""
+    if is_wide(link):
+        return fold_wide_probe_plain(link, key, sym0, chunk, rows, words)
     T = link.T
     sr, si = lk.probe_symbol_tx(link, key, sym0 + chunk - 1, link.n, rows, link.txr.device, words)
     xr, xi = lk.cmatmul(link.txr, link.txi, sr, si)
     return xr[0, :T].clone(), xi[0, :T].clone(), xr[0, T:].clone(), xi[0, T:].clone()
 
 
+# --- plain version of the wide chain (csrc/fold_wide_kernel.cu) ----------------
+
+
+def fold_wide_planes(link: FoldLink, key: Tuple[int, int], sym0: int, chunk: int, snr_lin: float,
+                     device, words=None, rows=None, prev=None):
+    """(tx, er, ei, xr, xi): ``fold_planes``' outputs (x (chunk, T)) as the
+    block-per-symbol chain computes them: the TX block by copies or the
+    block IDFT (``link_kernel.wide_tx``), the direct K-tap stream
+    convolution over [previous tail | x] at the n post-guard samples
+    (``link_kernel.stream_conv``), the block DFT, the per-bin chain with
+    the MMSE mean and the normalization energy summed in a block of 256
+    threads' order, the SC-FDE block IDFT (``dft.block_dft``).  ``words``
+    and ``prev`` as in ``fold_planes``."""
+    n, T = link.n, link.T
+    rows = lk.stage_rows(link, rows, lk.rows_needed(link))
+    tile, tiles, groups = _chunk_geometry(link, chunk)
+    before = 1 if sym0 > 0 and prev is None else 0
+    words, pwords = lk.split_words(link, words, 3, key, sym0, chunk, device)
+    if words is None:
+        words = prng.link_words(key, sym0 - before, chunk + before, n, device)
+    raw, w1, w2 = (torch.as_tensor(w).to(device=device, dtype=torch.int64) & prng.M32 for w in words)
+    if raw.shape != (chunk + before, n):
+        raise ValueError(f"words must be ({chunk + before}, {n}) planes, got {tuple(raw.shape)}")
+    tx, sr, si = lk.encode(raw, link.q)
+    if link.apply_power:
+        sr, si = lk.scale_tx(sr, si, rows)
+    xr, xi = lk.wide_tx(sr, si, T, link.is_sc, False, link.plan)
+    tail, xr, xi = lk.wide_prev(link, xr, xi, prev, before, device)
+    if before:
+        tx, w1, w2 = tx[1:], w1[1:], w2[1:]
+    zr, zi = lk.wide_stream(xr, xi, link.E, tail)
+    rr, ri = lk.stream_conv(zr, zi, link.tpr, link.tpi, link.L, n)
+    yr, yi = dft.block_dft(rr, ri, link.plan)
+    if link.add_noise:
+        yr, yi = lk.awgn(yr, yi, w1, w2, chunk, tile, tiles, groups, snr_lin, link.slice)
+    er, ei = lk.equalize(link, yr, yi, snr_lin, WIDE_THREADS)
+    if link.is_sc:
+        er, ei = dft.block_dft(er, ei, link.plan, inverse=True)
+    er, ei = lk.bump_stages(link, er, ei, rows, pwords)
+    if link.normalize:
+        er, ei = lk.normalize_points(link, er, ei, lk.tile_norm(er, ei, chunk, tile, WIDE_RUN, WIDE_THREADS))
+    return tx, er, ei, xr, xi
+
+
+def fold_wide_chunk_plain(link: FoldLink, key: Tuple[int, int], sym0: int, chunk: int, snr_lin: float,
+                          acc: torch.Tensor, psum: torch.Tensor, words=None, rows=None, dump=None, prev=None):
+    """Plain version of ``fold_chunk`` on the wide chain (any n; the chunk
+    past MAX_N); ``words`` as in ``fold_planes``."""
+    tx, er, ei, xr, xi = fold_wide_planes(link, key, sym0, chunk, snr_lin, acc.device, words, rows, prev)
+    if dump is not None:
+        lk.write_dump(link, dump, er, ei)
+    lk.count_errors(link, tx, er, ei, acc)
+    lk.add_papr(xr, xi, acc, psum)
+    return xr[-1].clone(), xi[-1].clone()
+
+
+def fold_wide_probe_plain(link: FoldLink, key: Tuple[int, int], sym0: int, chunk: int, rows=None, words=None):
+    """Plain version of ``fold_probe`` on the wide chain: the last symbol's
+    TX block (``link_kernel.wide_tx``), its x[:T] and tail x[T-E:T]."""
+    T = link.T
+    sr, si = lk.probe_symbol_tx(link, key, sym0 + chunk - 1, link.n, rows, link.tpr.device, words)
+    xr, xi = lk.wide_tx(sr, si, T, link.is_sc, False, link.plan)
+    return xr[0].clone(), xi[0].clone(), xr[0, T - link.E :].clone(), xi[0, T - link.E :].clone()
+
+
 # --- kernel wrapper -------------------------------------------------------------
 
 
+def _check_wide_link(link: FoldLink, device):
+    n, K = link.n, link.E + 1
+    shapes = {"tpr": (K,), "tpi": (K,), "hr": (n,), "hi": (n,), "habs2": (n,), "gr": (n,), "gi": (n,)}
+    for name, shape in shapes.items():
+        t = getattr(link, name)
+        if t.device != device or t.dtype != torch.float32 or not t.is_contiguous() or tuple(t.shape) != shape:
+            raise ValueError(f"link.{name} must be contiguous f32 {shape} on {device}")
+    p = link.plan
+    if p.n != n or p.twr.device != device or p.twi.device != device:
+        raise ValueError(f"link.plan must be the {n}-point DFT plan on {device}")
+    if not (MAX_N < n <= WIDE_MAX_N and link.T == n + link.L and 0 <= link.E <= link.T):
+        raise ValueError(f"fold_wide takes {MAX_N} < n <= {WIDE_MAX_N}, T = n + L; got n={n}, T={link.T}")
+    lk.check_codec(link.q, n, device)
+    if link.is_sc and link.q.mode in ("aqam", "apsk"):
+        raise ValueError("fold kernel: SC-FDE takes no adaptive constellation")
+
+
 def _check_link(link: FoldLink, device):
+    if is_wide(link):
+        return _check_wide_link(link, device)
     names = ["txr", "txi", "cmr", "cmi", "hr", "hi", "habs2", "gr", "gi"]
     names += ["idr", "idi"] if link.is_sc else []
     for name in names:
@@ -242,7 +354,11 @@ def chunk_workspace(link: FoldLink, chunk: int, device):
     tile, tiles, groups = _chunk_geometry(link, chunk)
     f32 = dict(dtype=torch.float32, device=device)
     return (torch.empty(tiles * groups, **f32), torch.empty(link.T, **f32), torch.empty(link.T, **f32),
-            *lk.norm_workspace(chunk, tile, RUN, device))
+            *lk.norm_workspace(chunk, tile, _run(link), device))
+
+
+def _run(link: FoldLink) -> int:
+    return WIDE_RUN if is_wide(link) else RUN
 
 
 def fold_chunk(
@@ -273,7 +389,11 @@ def fold_chunk(
     OFDM_STAGED build, with the noise-bump stages its OFDM_BUMP build,
     under ``normalize`` twice around ``norm_factors``),
     counted in ``fold_chunk.power_launches``, ``.launches`` and
-    ``.norm_launches``.  CPU tensors run ``fold_chunk_plain``."""
+    ``.norm_launches``.  Past MAX_N the block-per-symbol chain
+    (csrc/fold_wide_kernel.cu, its staged and bump builds alike):
+    ``fold_wide_power`` with noise on, then ``fold_wide_main``, counted in
+    ``.wide_power_launches`` and ``.wide_launches``.  CPU tensors run
+    ``fold_chunk_plain``."""
     dev = acc.device
     if dev.type == "cpu":
         return fold_chunk_plain(link, key, sym0, chunk, snr_lin, acc, psum, rows=rows, dump=dump, prev=prev)
@@ -288,11 +408,30 @@ def fold_chunk(
     prev_ptrs = lk.check_prev(prev, link.E, dev)
     tile, tiles, groups = _chunk_geometry(link, chunk)
     work = chunk_workspace(link, chunk, dev) if work is None else work
-    lk.check_work(work, (tiles * groups, link.T, link.T, -(-chunk // RUN), tiles),
+    lk.check_work(work, (tiles * groups, link.T, link.T, -(-chunk // _run(link)), tiles),
                   f"chunk_workspace(link, {chunk}, {dev})")
     partials, carry_r, carry_i, norm_part, norm_f = work
     from ofdm_tpu_torch import build
 
+    if is_wide(link):
+        lib = build.load(lk.staged_library(link, dump, "fold_wide"))
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            code = lib.ofdm_fold_wide_chunk(
+                link.tpr.data_ptr(), link.tpi.data_ptr(), link.plan.twr.data_ptr(), link.plan.twi.data_ptr(),
+                link.hr.data_ptr(), link.hi.data_ptr(), link.habs2.data_ptr(), link.gr.data_ptr(),
+                link.gi.data_ptr(), *lk.wide_args(link), *lk.codec_args(link.q), link.slicer, snr_lin, link.cg,
+                link.method, int(link.add_noise), int(link.is_sc), sym0, chunk, tile, link.slice, groups,
+                WIDE_RUN, key[0], key[1], partials.data_ptr(), acc.data_ptr(), psum.data_ptr(),
+                carry_r.data_ptr(), carry_i.data_ptr(), *lk.stage_args(link, rows, norm_part, norm_f, dump),
+                *prev_ptrs, stream,
+            )
+        build.check(lib, code, "ofdm_fold_wide_chunk")
+        fold_chunk.wide_power_launches += int(link.add_noise)
+        fold_chunk.norm_launches += int(link.normalize)
+        fold_chunk.dump_launches += int(dump is not None)
+        fold_chunk.wide_launches += 1
+        return carry_r, carry_i
     lib = build.load(lk.staged_library(link, dump, "fold"))
     sc = link.is_sc
     with torch.cuda.device(dev):
@@ -326,14 +465,20 @@ def fold_probe(link: FoldLink, key: Tuple[int, int], sym0: int, chunk: int, rows
     carry row ``fold_chunk`` returns, bitwise) and x[T:T+E] (the tail the
     next symbol reads).  CUDA links launch ``fold_probe`` (csrc/fold_kernel.cu;
     one warp through the chunk's TX stage, in the library the chunk runs
-    from), counted in ``fold_probe.launches``; CPU links run
-    ``fold_probe_plain``."""
-    dev = link.txr.device
+    from), counted in ``fold_probe.launches``, past MAX_N
+    ``fold_wide_probe`` (csrc/fold_wide_kernel.cu; one block), counted in
+    ``fold_probe.wide_launches``; CPU links run ``fold_probe_plain``."""
+    dev = link.hr.device
     if dev.type == "cpu":
         return fold_probe_plain(link, key, sym0, chunk, rows)
     _check_link(link, dev)
     from ofdm_tpu_torch import build
 
+    if is_wide(link):
+        lib = build.load(lk.staged_library(link, None, "fold_wide"))
+        out = lk.wide_probe_launch(lib, "ofdm_fold_wide_probe", link, key, sym0 + chunk - 1, rows, dev)
+        fold_probe.wide_launches += 1
+        return out
     lib = build.load(lk.staged_library(link, None, "fold"))
     out = lk.probe_launch(lib, "ofdm_fold_probe", link, (link.txr, link.txi), key, sym0 + chunk - 1, rows, dev)
     fold_probe.launches += 1
@@ -341,7 +486,10 @@ def fold_probe(link: FoldLink, key: Tuple[int, int], sym0: int, chunk: int, rows
 
 
 fold_probe.launches = 0  # fold_probe kernels launched
+fold_probe.wide_launches = 0  # fold_wide_probe kernels launched
 fold_chunk.launches = 0  # fold_main kernels launched (the pass that counts errors)
 fold_chunk.power_launches = 0  # fold_power kernels launched
+fold_chunk.wide_launches = 0  # fold_wide_main kernels launched (the pass that counts errors)
+fold_chunk.wide_power_launches = 0  # fold_wide_power kernels launched
 fold_chunk.norm_launches = 0  # normalization passes (each with its norm_factors) launched
 fold_chunk.dump_launches = 0  # counting passes that ran the dump stage

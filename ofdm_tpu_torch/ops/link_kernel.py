@@ -51,8 +51,12 @@ subcarriers and by a block of 256 threads past them (``diag_layout``).
 Host constants and rules kept from the reference: ``_consts_for``'s diag
 and codec rows (:1049-1161), ``_spec_for``'s tile rule (:795-799) with
 ``_plan``'s diag tile cap and staged limit (its staging factor from
-``selected_passes``; ``diag_fits``) and its static codec width
-(:821-847), and the measured-power slice (:1691-1694).
+``selected_passes``; ``diag_fits``) and its dense "mm" / "mm4" rule
+(``fold_fits``, ``mm_fits``, whose tiles ``fold_tile_cap`` and
+``mm_tile_cap`` give), its static codec width (:821-847), and the
+measured-power slice (:1691-1694).  The wide fold and mm chains' TX
+block and stream convolution (``wide_tx``, ``stream_conv``) live here
+too, shared by ``ops.fold_kernel`` and ``ops.mm_kernel``.
 """
 
 from __future__ import annotations
@@ -474,21 +478,62 @@ def txext_for(cfg) -> bool:
     return cfg.num_subcarriers >= 512 and cfg.papr_stride != 1 and not cfg.apply_power_allocation
 
 
-def fold_tile_cap(n: int, T: int, E: int, is_sc: bool, passes: int = 1) -> int:
-    """Largest tile the reference admits for a fold link (pallas_link._plan's
-    "mm" budget with fold staging: F_tx,ext, the merged conv+RX matrix and,
-    for SC-FDE, the IDFT; activation planes T+E wide)."""
+def _fold_staged(n: int, T: int, E: int, is_sc: bool) -> int:
+    """pallas_link._plan's staged "mm" elements with fold: F_tx,ext, the
+    merged conv+RX matrix and, for SC-FDE, the IDFT."""
     TE = T + E
-    return _budget_tile(n * TE + TE * n + (n * n if is_sc else 0), TE, passes)
+    return n * TE + TE * n + (n * n if is_sc else 0)
+
+
+def _mm_staged(n: int, T: int, E: int, is_sc: bool) -> int:
+    """pallas_link._plan's staged "mm" elements without fold: F_tx,ext, the
+    merged conv, the overlap-add + DFT matrix and, for SC-FDE, the IDFT."""
+    TE = T + E
+    return TE * T + n * TE + n * T + (n * n if is_sc else 0)
+
+
+def _dense_tile(staged: int, width: int, passes: int) -> Optional[int]:
+    """pallas_link._plan's rule for the dense chains: "mm" at u = 3 (6 at
+    three passes) bf16 splits, then, at one pass only, "mm4" at u = 2; the
+    first whose staged matrices x 2 buffers stay within
+    _VMEM_STAGED_LIMIT (40e6 bytes) and whose stack of 14 live (tile,
+    width) f32 planes fits the 72e6-byte scoped budget at some ladder tile
+    gives the tile.  None: no fused kernel of the JAX package takes the
+    link (its XLA path runs it)."""
+    for u in ((3,) if passes == 1 else (6,)) + ((2,) if passes == 1 else ()):
+        fixed = 2 * u * staged
+        if fixed > 40_000_000:
+            continue
+        for tile in TILE_LADDER:
+            if fixed + 4 * 14 * tile * width <= 72_000_000:
+                return tile
+    return None
+
+
+def fold_fits(n: int, T: int, E: int, is_sc: bool, passes: int = 1) -> bool:
+    """Whether the reference admits a fold link at all ("mm" or "mm4" with
+    fold staging, ``_dense_tile``)."""
+    return _dense_tile(_fold_staged(n, T, E, is_sc), T + E, passes) is not None
+
+
+def mm_fits(n: int, T: int, E: int, is_sc: bool, passes: int = 1) -> bool:
+    """Whether the reference admits a zero-prefix mm link at all ("mm" or
+    "mm4" without fold, ``_dense_tile``)."""
+    return _dense_tile(_mm_staged(n, T, E, is_sc), T + E, passes) is not None
+
+
+def fold_tile_cap(n: int, T: int, E: int, is_sc: bool, passes: int = 1) -> int:
+    """Largest tile the reference admits for a fold link (``_dense_tile``
+    with fold staging; activation planes T+E wide), the ladder's smallest
+    where it admits none."""
+    return _dense_tile(_fold_staged(n, T, E, is_sc), T + E, passes) or TILE_LADDER[-1]
 
 
 def mm_tile_cap(n: int, T: int, E: int, is_sc: bool, passes: int = 1) -> int:
     """Largest tile the reference admits for a zero-prefix mm link
-    (pallas_link._plan's "mm" budget without fold: F_tx,ext, the merged
-    conv, the overlap-add + DFT matrix and, for SC-FDE, the IDFT;
-    activation planes T+E wide)."""
-    TE = T + E
-    return _budget_tile(TE * T + n * TE + n * T + (n * n if is_sc else 0), TE, passes)
+    (``_dense_tile`` without fold; activation planes T+E wide), the
+    ladder's smallest where it admits none."""
+    return _dense_tile(_mm_staged(n, T, E, is_sc), T + E, passes) or TILE_LADDER[-1]
 
 
 def lr_tile_cap(n: int, T: int, E: int, rank: int, txext: bool, passes: int = 1) -> int:
@@ -940,6 +985,106 @@ def cmatmul(fr, fi, sr, si):
     return xr, xi
 
 
+# --- the wide dense chains' TX block and stream convolution (csrc/wide_chain.cuh) ---
+
+
+def wide_tx(sr, si, T: int, is_sc: bool, zp: bool, plan):
+    """x (rows, T): symbols (rows, n) -> the time block with its guard of L
+    = T - n samples, as ``linops.tx_matrix``'s rows define it: SC-FDE
+    copies s, OFDM takes the block IDFT (``dft.block_dft``); a cyclic
+    prefix prepends the last L samples, a zero prefix appends L zeros (no
+    prefix: L = 0).  Copies only, so bit-equal to the product with F_tx's
+    0 / 1 rows on SC-FDE."""
+    from ofdm_tpu_torch.ops import dft
+
+    n = sr.shape[-1]
+    L = T - n
+    tr, ti = (sr, si) if is_sc else dft.block_dft(sr, si, plan, inverse=True)
+    if L == 0:
+        return tr, ti
+    if zp:
+        pad = torch.zeros((*tr.shape[:-1], L), dtype=torch.float32, device=tr.device)
+        return torch.cat([tr, pad], dim=-1), torch.cat([ti, pad], dim=-1)
+    return torch.cat([tr[..., n - L :], tr], dim=-1), torch.cat([ti[..., n - L :], ti], dim=-1)
+
+
+def wide_stream(xr, xi, E: int, tail):
+    """z (chunk, E+T): each symbol's block x (chunk, T) behind the tail
+    x[T-E:T) of the symbol before it, the first symbol behind ``tail`` (a
+    (1, E) pair)."""
+    T = xr.shape[1]
+    prev_r = torch.cat([tail[0], xr[:-1, T - E :]])
+    prev_i = torch.cat([tail[1], xi[:-1, T - E :]])
+    return torch.cat([prev_r, xr], dim=1), torch.cat([prev_i, xi], dim=1)
+
+
+def stream_conv(zr, zi, tpr, tpi, m0: int, count: int):
+    """y[:, i] = sum_k h[k] z[:, E + m0 + i - k] (i < count) over the K = E + 1
+    unit-energy taps, k ascending, each term (a*h_r - c*h_i) / (a*h_i +
+    c*h_r) rounded before it is added: the direct K-tap form of
+    ``linops.conv_matrix_merged`` (time samples m0 .. m0 + count)."""
+    K = tpr.shape[0]
+    E = K - 1
+    yr = torch.zeros((zr.shape[0], count), dtype=torch.float32, device=zr.device)
+    yi = torch.zeros_like(yr)
+    for k in range(K):
+        a = zr[:, E + m0 - k : E + m0 - k + count]
+        c = zi[:, E + m0 - k : E + m0 - k + count]
+        yr = yr + (a * tpr[k] - c * tpi[k])
+        yi = yi + (a * tpi[k] + c * tpr[k])
+    return yr, yi
+
+
+def wide_prev(link, xr, xi, prev, before: int, device):
+    """(tail, x rows of the chunk): the (1, E) tail the chunk's first symbol
+    reads (``prev``; else the recomputed predecessor's, row 0 of x when
+    ``before``; else zeros, the run's symbol 0) and x without that row."""
+    T, E = link.T, link.E
+    if prev is not None:
+        return plain_prev(prev, E, device), xr, xi
+    if before:
+        return (xr[:1, T - E :], xi[:1, T - E :]), xr[1:], xi[1:]
+    zero = torch.zeros((1, E), dtype=torch.float32, device=device)
+    return (zero, zero), xr, xi
+
+
+def wide_link_fields(setup, device) -> dict:
+    """The wide chains' own constants: the guard offset L = T - n, the f32
+    unit-energy taps (K = E + 1; the merged conv's) and the block DFT plan
+    of n points."""
+    from ofdm_tpu_torch.ops import dft
+
+    taps = np.asarray(setup.taps, np.complex128)
+    return dict(L=setup.block_length - setup.cfg.num_subcarriers,
+                tpr=f32_tensor(taps.real, device), tpi=f32_tensor(taps.imag, device),
+                plan=dft.dft_plan(setup.cfg.num_subcarriers, device))
+
+
+def wide_args(link):
+    """The wide chunk and probe entry points' link arguments after the twiddle
+    pair: n, T, E, the DFT split (n1, n2, log2 n) and its f32 scale."""
+    p = link.plan
+    return link.n, link.T, link.E, p.n1, p.n2, p.log2n, p.scale
+
+
+def wide_probe_launch(lib, fn: str, link, key, sym: int, rows, device):
+    """Launch ``fn`` (``ofdm_{fold,mm}_wide_probe``) of ``lib`` for run
+    symbol ``sym`` of a wide link; returns (carry_r, carry_i, tail_r,
+    tail_i)."""
+    from ofdm_tpu_torch import build
+
+    rows = stage_rows(link, rows, rows_needed(link))
+    out = probe_outputs(link.T, link.E, device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = getattr(lib, fn)(
+            link.plan.twr.data_ptr(), link.plan.twi.data_ptr(), *wide_args(link), int(link.is_sc),
+            *codec_args(link.q), sym, key[0], key[1], None if rows is None else rows.data_ptr(),
+            STAGE_POWER if link.apply_power else 0, *(t.data_ptr() for t in out), stream)
+    build.check(lib, code, fn)
+    return out
+
+
 def add_papr(xr, xi, acc, psum):
     """Fold a time plane's PAPR peak (f32 bits, max) and power sum into acc/psum."""
     peak, total, _ = metrics.papr_stats(xr, xi)
@@ -1096,11 +1241,11 @@ def stage_args(link, rows, norm_part, norm_f, dump=None):
 
 
 def staged_library(link, dump, chain: str) -> str:
-    """The library a chunk of ``chain`` ("diag_wide", "fold", "lr", "mm")
-    runs from: the OFDM_BUMP build with the noise-bump stages, else the
-    OFDM_STAGED build when the link has stages or a dump is asked for (the
-    plain build takes no stage bit)."""
-    plain = chain if chain == "diag_wide" else f"{chain}_kernel"
+    """The library a chunk of ``chain`` ("diag_wide", "fold", "fold_wide",
+    "lr", "mm", "mm_wide") runs from: the OFDM_BUMP build with the
+    noise-bump stages, else the OFDM_STAGED build when the link has stages
+    or a dump is asked for (the plain build takes no stage bit)."""
+    plain = chain if chain.endswith("_wide") else f"{chain}_kernel"
     if link.post_noise or link.compensate:
         return f"{chain}_bump"
     return f"{chain}_staged" if link_stages(link) or dump is not None else plain

@@ -5,9 +5,9 @@ fold=False form (``csrc/mm_kernel.cu``), in each constellation mode
 (``link_kernel.Codec``; SC-FDE fixed modes only): zero-prefix OFDM below
 128 subcarriers, zero-prefix SC-FDE, single-tap zero-prefix links, and
 zero-prefix OFDM whose lr factorization fails its certification, at
-n <= 256.  A zero prefix does not fold the conv into the receiver, so the
-noise is added per time sample and a symbol costs three complex products
-(four for SC-FDE).
+n <= 256 and T <= 320 (past them, the wide chain below).  A zero prefix
+does not fold the conv into the receiver, so the noise is added per time
+sample and a symbol costs three complex products (four for SC-FDE).
 
 A chunk, per OFDM symbol b (the semantics of pallas_link.py:1428-1937 in
 its non-fold "mm" branches, not its lane-packed TPU layout): Philox words
@@ -29,6 +29,16 @@ the chunk's first, which another shard computed: the first symbol reads it.
 chunk's carry row and tail, from its last symbol's Philox words alone,
 through the chunk's own TX stage.
 
+Past MAX_N subcarriers or MAX_T time samples (up to WIDE_MAX_T, wherever
+the JAX package's dense budget admits the link: ``link_kernel.mm_fits``)
+the chunk and the probe run the same semantics on the block-per-symbol
+chain (``csrc/mm_wide_kernel.cu``; plain version ``mm_wide_chunk_plain``):
+the TX block with its zero guard, the direct K-tap stream convolution,
+the overlap-add r[i] = y[i] + y[n + i], the block DFT (``ops/dft.py``)
+and the per-bin chain with its sums in a block of 256 threads' order, in
+place of the dense products, which such a link does not build; its second
+kernel recomputes y instead of reading a scratch plane.
+
 ``mm_chunk`` launches the kernels for CUDA tensors and runs
 ``mm_chunk_plain`` only for CPU tensors.
 """
@@ -42,13 +52,16 @@ import numpy as np
 import torch
 
 from ofdm_tpu_torch.config import ModulationType, PrefixType
-from ofdm_tpu_torch.ops import linops, prng
+from ofdm_tpu_torch.ops import dft, linops, prng
 from ofdm_tpu_torch.ops import link_kernel as lk
 
 MAX_N = 256  # bins a lane of mm_main holds: up to 8
 MAX_T = 320  # time samples a lane holds: up to 10
+WIDE_MAX_T = 2048  # time samples a thread of mm_wide's block holds: up to 8
 # Consecutive symbols one warp of mm_main walks.
 RUN = 8
+WIDE_RUN = 16  # consecutive symbols a block of mm_wide_main walks
+WIDE_THREADS = 256  # mm_wide's block, one symbol
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,19 +81,25 @@ class MmLink:
     is_sc: bool
     tile_cap: int
     pstride: int  # 1: every symbol feeds the PAPR statistic
-    txr: torch.Tensor  # (n, T+E) F_tx,ext
-    txi: torch.Tensor
-    cvr: torch.Tensor  # (T+E, T) merged conv
-    cvi: torch.Tensor
-    rxr: torch.Tensor  # (T, n) overlap-add + DFT
-    rxi: torch.Tensor
-    idr: Optional[torch.Tensor]  # (n, n) SC-FDE IDFT; None for OFDM
+    txr: Optional[torch.Tensor]  # (n, T+E) F_tx,ext; None on a wide link
+    txi: Optional[torch.Tensor]
+    cvr: Optional[torch.Tensor]  # (T+E, T) merged conv; None on a wide link
+    cvi: Optional[torch.Tensor]
+    rxr: Optional[torch.Tensor]  # (T, n) overlap-add + DFT; None on a wide link
+    rxi: Optional[torch.Tensor]
+    idr: Optional[torch.Tensor]  # (n, n) SC-FDE IDFT; None for OFDM and on a wide link
     idi: Optional[torch.Tensor]
     hr: torch.Tensor  # (n,)
     hi: torch.Tensor
     habs2: torch.Tensor
     gr: torch.Tensor  # ZF gain rows, slicer folded in
     gi: torch.Tensor
+    # The wide chain's constants (link_kernel.wide_link_fields): the guard
+    # offset T - n, the (K,) unit-energy taps, the block DFT plan.
+    L: int
+    tpr: torch.Tensor
+    tpi: torch.Tensor
+    plan: dft.DftPlan
     # The noise-bump study's stages (link_kernel.noise_bump_link): post-EQ
     # noise of sigma rows[2], then x rows[1] (1/sqrt(P)).
     post_noise: bool = False
@@ -90,7 +109,9 @@ class MmLink:
 def mm_link(setup, device) -> MmLink:
     """Host constants of a zero-prefix mm link (pallas_link._consts_for,
     non-fold branch, unpacked): F_tx,ext, the merged conv, the overlap-add +
-    DFT matrix, the SC-FDE IDFT and the equalizer rows, f32 on ``device``."""
+    DFT matrix, the SC-FDE IDFT and the equalizer rows, f32 on ``device``;
+    past MAX_N subcarriers or MAX_T time samples only the wide chain's taps
+    and DFT plan (no dense matrix), which every link carries."""
     cfg = setup.cfg
     if cfg.prefix_type != PrefixType.ZERO:
         raise ValueError("mm link: only zero-prefix links keep the conv apart from the receiver")
@@ -99,13 +120,17 @@ def mm_link(setup, device) -> MmLink:
     taps = np.asarray(setup.taps)
     E = linops.ext_width(len(taps), T)
     is_sc = cfg.modulation_type == ModulationType.SC_OFDM
-    txr, txi = linops.tx_ext_matrix(linops.tx_matrix(n, cfg.prefix_type, L, cfg.modulation_type), E)
-    cv = linops.conv_matrix_merged(taps, T)
-    rxr, rxi = linops.rx_matrix(n, cfg.prefix_type, L)
-    idr = idi = None
-    if is_sc:
-        dr, di = linops.dft_matrix(n, inverse=True)
-        idr, idi = lk.f32_tensor(dr, device), lk.f32_tensor(di, device)
+    dense = dict.fromkeys(("txr", "txi", "cvr", "cvi", "rxr", "rxi", "idr", "idi"))
+    if n <= MAX_N and T <= MAX_T:
+        txr, txi = linops.tx_ext_matrix(linops.tx_matrix(n, cfg.prefix_type, L, cfg.modulation_type), E)
+        cv = linops.conv_matrix_merged(taps, T)
+        rxr, rxi = linops.rx_matrix(n, cfg.prefix_type, L)
+        dense.update(txr=lk.f32_tensor(txr, device), txi=lk.f32_tensor(txi, device),
+                     cvr=lk.f32_tensor(cv.real, device), cvi=lk.f32_tensor(cv.imag, device),
+                     rxr=lk.f32_tensor(rxr, device), rxi=lk.f32_tensor(rxi, device))
+        if is_sc:
+            dr, di = linops.dft_matrix(n, inverse=True)
+            dense.update(idr=lk.f32_tensor(dr, device), idi=lk.f32_tensor(di, device))
     fields = lk.equalizer_fields(setup, device)
     del fields["slice"]  # the measured power covers the whole tile
     return MmLink(
@@ -114,16 +139,15 @@ def mm_link(setup, device) -> MmLink:
         is_sc=is_sc,
         tile_cap=lk.mm_tile_cap(n, T, E, is_sc, lk.selected_passes(setup)),
         pstride=1,
-        txr=lk.f32_tensor(txr, device),
-        txi=lk.f32_tensor(txi, device),
-        cvr=lk.f32_tensor(cv.real, device),
-        cvi=lk.f32_tensor(cv.imag, device),
-        rxr=lk.f32_tensor(rxr, device),
-        rxi=lk.f32_tensor(rxi, device),
-        idr=idr,
-        idi=idi,
+        **dense,
         **fields,
+        **lk.wide_link_fields(setup, device),
     )
+
+
+def is_wide(link: MmLink) -> bool:
+    """Whether the link runs on the block-per-symbol chain (mm_wide)."""
+    return link.n > MAX_N or link.T > MAX_T
 
 
 def _chunk_geometry(link: MmLink, chunk: int):
@@ -204,7 +228,9 @@ def mm_chunk_plain(
     prev=None,
 ):
     """Plain version of ``mm_chunk`` (same arguments, same effects);
-    ``words`` as in ``mm_planes``."""
+    ``words`` as in ``mm_planes``; on a wide link ``mm_wide_chunk_plain``."""
+    if is_wide(link):
+        return mm_wide_chunk_plain(link, key, sym0, chunk, snr_lin, acc, psum, words, rows, dump, prev)
     T = link.T
     tx, er, ei, xr, xi = mm_planes(link, key, sym0, chunk, snr_lin, acc.device, words, rows, prev)
     if dump is not None:
@@ -217,17 +243,108 @@ def mm_chunk_plain(
 def mm_probe_plain(link: MmLink, key: Tuple[int, int], sym0: int, chunk: int, rows=None, words=None):
     """Plain version of ``mm_probe``: the last symbol's x = s @ F_tx,ext as
     ``mm_planes`` computes it (``words``: its raw words injected, as
-    ``link_kernel.probe_symbol_tx`` takes them)."""
+    ``link_kernel.probe_symbol_tx`` takes them); on a wide link
+    ``mm_wide_probe_plain``."""
+    if is_wide(link):
+        return mm_wide_probe_plain(link, key, sym0, chunk, rows, words)
     T = link.T
     sr, si = lk.probe_symbol_tx(link, key, sym0 + chunk - 1, T, rows, link.txr.device, words)
     xr, xi = lk.cmatmul(link.txr, link.txi, sr, si)
     return xr[0, :T].clone(), xi[0, :T].clone(), xr[0, T:].clone(), xi[0, T:].clone()
 
 
+# --- plain version of the wide chain (csrc/mm_wide_kernel.cu) ------------------
+
+
+def mm_wide_planes(link: MmLink, key: Tuple[int, int], sym0: int, chunk: int, snr_lin: float,
+                   device, words=None, rows=None, prev=None):
+    """(tx, er, ei, xr, xi): ``mm_planes``' outputs (x (chunk, T)) as the
+    block-per-symbol chain computes them: the TX block by copies or the
+    block IDFT with its zero guard (``link_kernel.wide_tx``), the direct
+    K-tap stream convolution over [previous tail | x] at all T samples
+    (``link_kernel.stream_conv``), AWGN per time sample with the tile's
+    full-plane measured power, the overlap-add r[i] = y[i] + y[n + i] (i <
+    T - n), the block DFT, the per-bin chain with the MMSE mean and the
+    normalization energy summed in a block of 256 threads' order, the
+    SC-FDE block IDFT.  ``words`` and ``prev`` as in ``mm_planes``."""
+    n, T = link.n, link.T
+    rows = lk.stage_rows(link, rows, lk.rows_needed(link))
+    tile, tiles, groups = _chunk_geometry(link, chunk)
+    before = 1 if sym0 > 0 and prev is None else 0
+    words, pwords = lk.split_words(link, words, 3, key, sym0, chunk, device)
+    if words is None:
+        words = prng.link_words(key, sym0 - before, chunk + before, T, device)
+    raw, w1, w2 = (torch.as_tensor(w).to(device=device, dtype=torch.int64) & prng.M32 for w in words)
+    if not raw.shape == w1.shape == w2.shape == (chunk + before, T):
+        raise ValueError(f"words must be ({chunk + before}, {T}) planes, got {tuple(raw.shape)}")
+    tx, sr, si = lk.encode(raw[:, :n], link.q)
+    if link.apply_power:
+        sr, si = lk.scale_tx(sr, si, rows)
+    xr, xi = lk.wide_tx(sr, si, T, link.is_sc, True, link.plan)
+    tail, xr, xi = lk.wide_prev(link, xr, xi, prev, before, device)
+    if before:
+        tx, w1, w2 = tx[1:], w1[1:], w2[1:]
+    zr, zi = lk.wide_stream(xr, xi, link.E, tail)
+    yr, yi = lk.stream_conv(zr, zi, link.tpr, link.tpi, 0, T)
+    if link.add_noise:
+        yr, yi = lk.awgn(yr, yi, w1, w2, chunk, tile, tiles, groups, snr_lin, tile)
+    L = T - n
+    rr = torch.cat([yr[:, :L] + yr[:, n:], yr[:, L:n]], dim=1)
+    ri = torch.cat([yi[:, :L] + yi[:, n:], yi[:, L:n]], dim=1)
+    fr, fi = dft.block_dft(rr, ri, link.plan)
+    er, ei = lk.equalize(link, fr, fi, snr_lin, WIDE_THREADS)
+    if link.is_sc:
+        er, ei = dft.block_dft(er, ei, link.plan, inverse=True)
+    er, ei = lk.bump_stages(link, er, ei, rows, pwords)
+    if link.normalize:
+        er, ei = lk.normalize_points(link, er, ei, lk.tile_norm(er, ei, chunk, tile, WIDE_RUN, WIDE_THREADS))
+    return tx, er, ei, xr, xi
+
+
+def mm_wide_chunk_plain(link: MmLink, key: Tuple[int, int], sym0: int, chunk: int, snr_lin: float,
+                        acc: torch.Tensor, psum: torch.Tensor, words=None, rows=None, dump=None, prev=None):
+    """Plain version of ``mm_chunk`` on the wide chain (any n and T; the
+    chunk past MAX_N or MAX_T); ``words`` as in ``mm_planes``."""
+    tx, er, ei, xr, xi = mm_wide_planes(link, key, sym0, chunk, snr_lin, acc.device, words, rows, prev)
+    if dump is not None:
+        lk.write_dump(link, dump, er, ei)
+    lk.count_errors(link, tx, er, ei, acc)
+    lk.add_papr(xr, xi, acc, psum)
+    return xr[-1].clone(), xi[-1].clone()
+
+
+def mm_wide_probe_plain(link: MmLink, key: Tuple[int, int], sym0: int, chunk: int, rows=None, words=None):
+    """Plain version of ``mm_probe`` on the wide chain: the last symbol's TX
+    block (``link_kernel.wide_tx``), its x[:T] and tail x[T-E:T]."""
+    T = link.T
+    sr, si = lk.probe_symbol_tx(link, key, sym0 + chunk - 1, T, rows, link.tpr.device, words)
+    xr, xi = lk.wide_tx(sr, si, T, link.is_sc, True, link.plan)
+    return xr[0].clone(), xi[0].clone(), xr[0, T - link.E :].clone(), xi[0, T - link.E :].clone()
+
+
 # --- kernel wrapper -------------------------------------------------------------
 
 
+def _check_wide_link(link: MmLink, device):
+    n, T, K = link.n, link.T, link.E + 1
+    shapes = {"tpr": (K,), "tpi": (K,), "hr": (n,), "hi": (n,), "habs2": (n,), "gr": (n,), "gi": (n,)}
+    for name, shape in shapes.items():
+        t = getattr(link, name)
+        if t.device != device or t.dtype != torch.float32 or not t.is_contiguous() or tuple(t.shape) != shape:
+            raise ValueError(f"link.{name} must be contiguous f32 {shape} on {device}")
+    p = link.plan
+    if p.n != n or p.twr.device != device or p.twi.device != device:
+        raise ValueError(f"link.plan must be the {n}-point DFT plan on {device}")
+    if not (1 <= n <= T <= WIDE_MAX_T and T == n + link.L and link.L <= n and 0 <= link.E <= T):
+        raise ValueError(f"mm_wide takes n <= T <= {WIDE_MAX_T}, T - n <= n; got n={n}, T={T}")
+    lk.check_codec(link.q, n, device)
+    if link.is_sc and link.q.mode in ("aqam", "apsk"):
+        raise ValueError("mm kernel: SC-FDE takes no adaptive constellation")
+
+
 def _check_link(link: MmLink, device):
+    if is_wide(link):
+        return _check_wide_link(link, device)
     n, T, TE = link.n, link.T, link.T + link.E
     shapes = {"txr": (n, TE), "txi": (n, TE), "cvr": (TE, T), "cvi": (TE, T), "rxr": (T, n), "rxi": (T, n),
               "hr": (n,), "hi": (n,), "habs2": (n,), "gr": (n,), "gi": (n,)}
@@ -250,12 +367,15 @@ def chunk_workspace(link: MmLink, chunk: int, device):
     """(y_r, y_i, partials, carry_r, carry_i, norm partials, norm factors):
     the scratch ``mm_chunk`` needs for chunks of ``chunk`` symbols, so that
     a run allocates it once.  y holds the chunk's time samples before
-    noise, chunk * T of each plane."""
+    noise, chunk * T of each plane; a wide link recomputes them and needs
+    none (empty y planes)."""
     tile, tiles, groups = _chunk_geometry(link, chunk)
     f32 = dict(dtype=torch.float32, device=device)
-    return (torch.empty(chunk * link.T, **f32), torch.empty(chunk * link.T, **f32),
+    ys = 0 if is_wide(link) else chunk * link.T
+    run = WIDE_RUN if is_wide(link) else RUN
+    return (torch.empty(ys, **f32), torch.empty(ys, **f32),
             torch.empty(tiles * groups, **f32), torch.empty(link.T, **f32), torch.empty(link.T, **f32),
-            *lk.norm_workspace(chunk, tile, RUN, device))
+            *lk.norm_workspace(chunk, tile, run, device))
 
 
 def mm_chunk(
@@ -286,8 +406,12 @@ def mm_chunk(
     stages their OFDM_STAGED build, with the noise-bump stages their
     OFDM_BUMP build, ``mm_main`` under ``normalize`` twice
     around ``norm_factors``), counted in ``mm_chunk.front_launches``,
-    ``.launches`` and ``.norm_launches``.  CPU tensors run
-    ``mm_chunk_plain``."""
+    ``.launches`` and ``.norm_launches``.  Past MAX_N subcarriers or MAX_T
+    time samples the block-per-symbol chain (csrc/mm_wide_kernel.cu, its
+    staged and bump builds alike): ``mm_wide_front`` (the tiles' measured
+    power) with noise on, then ``mm_wide_main``, which recomputes y,
+    counted in ``.wide_front_launches`` and ``.wide_launches``.  CPU
+    tensors run ``mm_chunk_plain``."""
     dev = acc.device
     if dev.type == "cpu":
         return mm_chunk_plain(link, key, sym0, chunk, snr_lin, acc, psum, rows=rows, dump=dump, prev=prev)
@@ -302,10 +426,32 @@ def mm_chunk(
     prev_ptrs = lk.check_prev(prev, link.E, dev)
     tile, tiles, groups = _chunk_geometry(link, chunk)
     work = chunk_workspace(link, chunk, dev) if work is None else work
-    lk.check_work(work, (chunk * link.T, chunk * link.T, tiles * groups, link.T, link.T, -(-chunk // RUN),
-                         tiles), f"chunk_workspace(link, {chunk}, {dev})")
+    wide = is_wide(link)
+    ys = 0 if wide else chunk * link.T
+    lk.check_work(work, (ys, ys, tiles * groups, link.T, link.T, -(-chunk // (WIDE_RUN if wide else RUN)), tiles),
+                  f"chunk_workspace(link, {chunk}, {dev})")
     y_r, y_i, partials, carry_r, carry_i, norm_part, norm_f = work
     from ofdm_tpu_torch import build
+
+    if wide:
+        lib = build.load(lk.staged_library(link, dump, "mm_wide"))
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            code = lib.ofdm_mm_wide_chunk(
+                link.tpr.data_ptr(), link.tpi.data_ptr(), link.plan.twr.data_ptr(), link.plan.twi.data_ptr(),
+                link.hr.data_ptr(), link.hi.data_ptr(), link.habs2.data_ptr(), link.gr.data_ptr(),
+                link.gi.data_ptr(), *lk.wide_args(link), *lk.codec_args(link.q), link.slicer, snr_lin, link.cg,
+                link.method, int(link.add_noise), int(link.is_sc), sym0, chunk, tile, tile, groups,
+                WIDE_RUN, key[0], key[1], partials.data_ptr(), acc.data_ptr(), psum.data_ptr(),
+                carry_r.data_ptr(), carry_i.data_ptr(), *lk.stage_args(link, rows, norm_part, norm_f, dump),
+                *prev_ptrs, stream,
+            )
+        build.check(lib, code, "ofdm_mm_wide_chunk")
+        mm_chunk.wide_front_launches += int(link.add_noise)
+        mm_chunk.norm_launches += int(link.normalize)
+        mm_chunk.dump_launches += int(dump is not None)
+        mm_chunk.wide_launches += 1
+        return carry_r, carry_i
 
     lib = build.load(lk.staged_library(link, dump, "mm"))
     sc = link.is_sc
@@ -340,14 +486,20 @@ def mm_probe(link: MmLink, key: Tuple[int, int], sym0: int, chunk: int, rows=Non
     carry row ``mm_chunk`` returns, bitwise) and x[T:T+E] (the tail the
     next symbol reads).  CUDA links launch ``mm_probe`` (csrc/mm_kernel.cu;
     one warp through the chunk's TX stage, in the library the chunk runs
-    from), counted in ``mm_probe.launches``; CPU links run
-    ``mm_probe_plain``."""
-    dev = link.txr.device
+    from), counted in ``mm_probe.launches``, a wide link ``mm_wide_probe``
+    (csrc/mm_wide_kernel.cu; one block), counted in
+    ``mm_probe.wide_launches``; CPU links run ``mm_probe_plain``."""
+    dev = link.hr.device
     if dev.type == "cpu":
         return mm_probe_plain(link, key, sym0, chunk, rows)
     _check_link(link, dev)
     from ofdm_tpu_torch import build
 
+    if is_wide(link):
+        lib = build.load(lk.staged_library(link, None, "mm_wide"))
+        out = lk.wide_probe_launch(lib, "ofdm_mm_wide_probe", link, key, sym0 + chunk - 1, rows, dev)
+        mm_probe.wide_launches += 1
+        return out
     lib = build.load(lk.staged_library(link, None, "mm"))
     out = lk.probe_launch(lib, "ofdm_mm_probe", link, (link.txr, link.txi), key, sym0 + chunk - 1, rows, dev)
     mm_probe.launches += 1
@@ -355,7 +507,10 @@ def mm_probe(link: MmLink, key: Tuple[int, int], sym0: int, chunk: int, rows=Non
 
 
 mm_probe.launches = 0  # mm_probe kernels launched
+mm_probe.wide_launches = 0  # mm_wide_probe kernels launched
 mm_chunk.launches = 0  # mm_main kernels launched (the pass that counts errors)
 mm_chunk.front_launches = 0  # mm_front kernels launched
+mm_chunk.wide_launches = 0  # mm_wide_main kernels launched (the pass that counts errors)
+mm_chunk.wide_front_launches = 0  # mm_wide_front kernels launched
 mm_chunk.norm_launches = 0  # normalization passes (each with its norm_factors) launched
 mm_chunk.dump_launches = 0  # counting passes that ran the dump stage

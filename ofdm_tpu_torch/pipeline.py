@@ -254,10 +254,17 @@ def kernel_mode(setup: LinkSetup) -> str:
     zp = cfg.prefix_type == PrefixType.ZERO
 
     def dense():
-        """The unfactored chain: mm for a zero prefix, fold otherwise, within their widths."""
+        """The unfactored chain: mm for a zero prefix, fold otherwise.  The
+        narrow kernels take every link they hold; past them the wide ones
+        take what the JAX package's dense budget admits (``fold_fits`` /
+        ``mm_fits``: its "mm" or "mm4" kernel), within their own widths."""
+        T = setup.block_length
+        args = (n, T, linops.ext_width(len(setup.taps), T), cfg.modulation_type == ModulationType.SC_OFDM,
+                lk.selected_passes(setup))
         if zp:
-            return "mm" if n <= mmk.MAX_N and setup.block_length <= mmk.MAX_T else "eager"
-        return "fold" if n <= fk.MAX_N else "eager"
+            narrow = n <= mmk.MAX_N and T <= mmk.MAX_T
+            return "mm" if narrow or (T <= mmk.WIDE_MAX_T and lk.mm_fits(*args)) else "eager"
+        return "fold" if n <= fk.MAX_N or (n <= fk.WIDE_MAX_N and lk.fold_fits(*args)) else "eager"
 
     def diag():
         """The diag chain, where the JAX package's diag budget admits the link."""

@@ -58,17 +58,18 @@ CHAIN_LINKS = {
     "adaptive_scfde": dict(adaptive_modulation_mode="CAPACITY_BASED", power_allocation_type="WATERFILLING",
                            modulation_type="SC-OFDM", snr_db=20.0),
 }
-# Links no kernel of the port takes (two of tools/shape_audit.py's refused
-# shapes, cut in symbols and taken to 20 dB, where so few symbols see
-# errors) and the headline forced onto the eager chain.
+# Links on the eager chain (two of tools/shape_audit.py's shapes, cut in
+# symbols and taken to 20 dB, where so few symbols see errors) and the
+# headline forced onto it.
 BAND_LINKS = {
     "headline_xla": (dict(hotpath="xla"), 1 << 12),
     # the audit's 512-sc ISI-free shape routes to the wide diag kernel: its
     # eager chain is asked for by hotpath, as JAX's XLA path is
     "OFDM-CY1.0-512": (dict(num_subcarriers=512, channel_model="severe_multipath", snr_db=20.0, hotpath="xla"),
                        1 << 9),
+    # as is the audit's zero-prefix SC-FDE shape since its wide mm kernel
     "SC-ZE1.0-1024": (dict(num_subcarriers=1024, channel_model="severe_multipath", modulation_type="SC-OFDM",
-                           prefix_type="ZERO", snr_db=20.0), 1 << 8),
+                           prefix_type="ZERO", snr_db=20.0, hotpath="xla"), 1 << 8),
 }
 
 

@@ -254,9 +254,10 @@ def test_runner_needs_cuda_or_an_explicit_cpu():
     [
         # 8-PSK ISI-free past the 256-subcarrier warp layout: diag_wide (item 6b)
         (dict(constellation_type="PSK", constellation_order=8, num_subcarriers=384, num_symbols=384 * 16), "diag"),
-        # zero-prefix links past the port's 256-subcarrier mm kernel (the JAX package runs mm)
-        (dict(modulation_type="SC-OFDM", prefix_type="ZERO", num_subcarriers=512, num_symbols=512 * 16), "eager"),
-        (dict(prefix_type="ZERO", channel_model="flat_fading", num_subcarriers=512, num_symbols=512 * 16), "eager"),
+        # zero-prefix links past the port's 256-subcarrier mm kernel (the JAX package runs mm):
+        # the block-per-symbol mm kernel (modules item 7b)
+        (dict(modulation_type="SC-OFDM", prefix_type="ZERO", num_subcarriers=512, num_symbols=512 * 16), "mm"),
+        (dict(prefix_type="ZERO", channel_model="flat_fading", num_subcarriers=512, num_symbols=512 * 16), "mm"),
         # a single-tap channel past 256 subcarriers: the JAX package keeps diag, so does the port (txext)
         (dict(channel_model="flat_fading", num_subcarriers=1024, num_symbols=1024 * 16), "diag"),
         (dict(num_subcarriers=512, num_symbols=512 * 16), "diag"),
@@ -269,8 +270,8 @@ def test_runner_needs_cuda_or_an_explicit_cpu():
     ids=["psk", "scfde", "zp", "flat_fading_1024sc", "n512", "apply_power", "normalize"],
 )
 def test_unsupported_configs_raise(extra, mode):
-    # links the port took only on the eager chain before its wide diag
-    # kernel, and those it still does: each routes as the JAX package's
+    # links the port took only on the eager chain before its wide diag and
+    # mm kernels, and those it still does: each routes as the JAX package's
     # plan allows and runs
     setup = tpl.prepare(tcfg.SimulationConfig(**dict(HEADLINE, **extra)))
     assert tpl.kernel_mode(setup) == mode

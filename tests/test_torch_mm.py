@@ -148,17 +148,17 @@ def test_mm_link_and_tile_match_jax_spec(name):
 
 
 ROUTES = [
-    # (config, JAX conv, port mode: "eager" past the mm kernel's widths)
+    # (config, JAX conv, port mode: past 256 subcarriers the block-per-symbol mm kernel)
     (_sized(ZP_64SC, 32), "mm", "mm"),
     (ZP_64SC, "mm", "mm"),
     (_sized(ZP_64SC, 127), "mm", "mm"),
     (_sized(ZP_64SC, 128), "lr", "lr"),
     (dict(ZP_64SC, channel_model="flat_fading"), "mm", "mm"),
     (_sized(dict(ZP_64SC, channel_model="flat_fading"), 256), "mm", "mm"),
-    (_sized(dict(ZP_64SC, channel_model="flat_fading"), 512), "mm", "eager"),
+    (_sized(dict(ZP_64SC, channel_model="flat_fading"), 512), "mm", "mm"),
     ({**ZP_64SC, **SCFDE_ZP}, "mm", "mm"),
     (_sized({**ZP_64SC, **SCFDE_ZP}, 256), "mm", "mm"),
-    (_sized({**ZP_64SC, **SCFDE_ZP}, 512), "mm", "eager"),
+    (_sized({**ZP_64SC, **SCFDE_ZP}, 512), "mm", "mm"),
 ]
 
 
