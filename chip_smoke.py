@@ -52,10 +52,20 @@ plain versions on ten links at sym0 = 0 and 2^32 + 77, with apply_power +
 normalize, with the noise-bump stages, a capture a chain, K3 on three
 links) and the audit's ``SC-CY1.0-1024`` and ``SC-ZE1.0-1024`` at 30 and
 20 dB through ``LinkRunner`` (2^20 OFDM symbols each, z = 5 against the
-JAX package's XLA readings), which ran on the eager chain.  For each
-path it checks the BER gate or band, the SNR sweep and the launch
-counters, reads the profiler's busy share, and times the kernel beside
-its plain version and its bound.  Any failed check raises.
+JAX package's XLA readings), which ran on the eager chain; then adaptive
+SC-FDE on those chains (``adaptive_scfde``: the reference's adaptive
+config with "modulation_type": "SC-OFDM", each kernel in aqam or apsk
+against its plain version on eight links at 64-1024 sc with its staged,
+bump, dump and K3 checks, the router over the adaptive SC-FDE grid, and
+the cells ``adaptive_scfde_64sc`` through ``run_sweep`` at 15 / 20 / 25 dB
+(2^24 OFDM symbols a point), ``adaptive_scfde_64sc_zp`` (mm, 2^22) and
+``adaptive_scfde_1024sc`` / ``_zp`` (fold_wide, mm_wide; 2^20), each at
+z = 5 against the JAX package's XLA reading (on fold with the fold
+kernel's measured power), beside the eager chain's rate on the same
+link).  For each path it checks the BER gate or band,
+the SNR sweep and the launch counters, reads the profiler's busy share,
+and times the kernel beside its plain version and its bound.  Any failed
+check raises.
 
 Then K3, the carry probe, against its plain version and the chunk
 kernels' carry row on 14 links, and the chunks' carry-in; the sharded runs
@@ -63,7 +73,7 @@ kernels' carry row on 14 links, and the chunks' carry-in; the sharded runs
 wide fold and mm links among them, two ranks on the card under gloo
 against the shards' single-process runs and a chained emulation) and the
 CLI (``python -m ofdm_tpu_torch``) on the reference's default, adaptive
-and pod-scale configs.
+and pod-scale configs and on the adaptive one on SC-FDE.
 
     python3 chip_smoke.py --nccl-ranks 4
 
@@ -653,7 +663,7 @@ def product_ops(mr, mi):
     return int(8 * nnz[~copy].sum())
 
 
-def fold_operations(link, chunk):
+def fold_operations(link, chunk, ops=OPS_PER_BIN):
     """(needed, power pass, tails): the operations one fold chunk needs, and
     two kinds of work the kernel's design adds.  Needed, per symbol: the
     products as ``product_ops`` counts them (the SC-FDE TX stage is a copy),
@@ -667,15 +677,15 @@ def fold_operations(link, chunk):
 
     n, T, E = link.n, link.T, link.E
     TE = T + E
-    eq = OPS_PER_BIN["mmse"] if link.method == 1 else 6
+    eq = ops["mmse"] if link.method == 1 else 6
     per_symbol = (product_ops(link.txr, link.txi) + product_ops(link.cmr, link.cmi)
                   + (product_ops(link.idr, link.idi) if link.is_sc else 0)
-                  + n * (OPS_PER_BIN["philox"] + OPS_PER_BIN["encode"] + eq + OPS_PER_BIN["demap"]
-                         + OPS_PER_BIN["count"] + (OPS_PER_BIN["noise"] if link.add_noise else 0))
+                  + n * (ops["philox"] + ops["encode"] + eq + ops["demap"]
+                         + ops["count"] + (ops["noise"] if link.add_noise else 0))
                   + PAPR_OPS * T)
     tile, tiles, _ = fk._chunk_geometry(link, chunk)
     slice_syms = sum(min(link.slice, min(tile, chunk - t * tile)) for t in range(tiles)) if link.add_noise else 0
-    encode = n * (OPS_PER_BIN["philox"] + OPS_PER_BIN["encode"])
+    encode = n * (ops["philox"] + ops["encode"])
     power = slice_syms * (encode + 8 * 2 * n * TE)
     tails = -(-chunk // fk.RUN) * (encode + 8 * n * E)
     return chunk * per_symbol + slice_syms * n * POWER_SUM_OPS, power, tails
@@ -760,7 +770,7 @@ def check_mm(name, device):
                          device)
 
 
-def mm_operations(link, chunk):
+def mm_operations(link, chunk, ops=OPS_PER_BIN):
     """(needed, added): the operations one mm chunk needs, and the work the
     kernels' design adds.  Needed, per symbol: the products as
     ``product_ops`` counts them, the conv without the rows that meet an
@@ -782,15 +792,15 @@ def mm_operations(link, chunk):
     conv = product_ops(link.cvr[rows], link.cvi[rows])
     products = (product_ops(link.txr, link.txi) + conv + product_ops(link.rxr, link.rxi)
                 + (product_ops(link.idr, link.idi) if link.is_sc else 0))
-    eq = OPS_PER_BIN["mmse"] if link.method == 1 else 6
+    eq = ops["mmse"] if link.method == 1 else 6
     noisy = link.add_noise
-    per_symbol = (products + (T if noisy else n) * OPS_PER_BIN["philox"]
-                  + n * (OPS_PER_BIN["encode"] + eq + OPS_PER_BIN["demap"] + OPS_PER_BIN["count"])
-                  + T * (PAPR_OPS + ((OPS_PER_BIN["noise"] + POWER_SUM_OPS) if noisy else 0)))
+    per_symbol = (products + (T if noisy else n) * ops["philox"]
+                  + n * (ops["encode"] + eq + ops["demap"] + ops["count"])
+                  + T * (PAPR_OPS + ((ops["noise"] + POWER_SUM_OPS) if noisy else 0)))
     _, tiles, groups = mmk._chunk_geometry(link, chunk)
-    encode = n * (OPS_PER_BIN["philox"] + OPS_PER_BIN["encode"])
+    encode = n * (ops["philox"] + ops["encode"])
     blocks = tiles * groups
-    added = (chunk * n * OPS_PER_BIN["philox"] + blocks * 8 * (encode + 8 * n * E)
+    added = (chunk * n * ops["philox"] + blocks * 8 * (encode + 8 * n * E)
              + blocks * (encode + 8 * n * (T + E) + 8 * (T + E) * T))
     return chunk * per_symbol, added
 
@@ -945,10 +955,10 @@ EAGER_LINKS = {
 # and 25 dB, each held at z = 5 against the JAX package's reading of the same
 # config: (bit errors, bits), XLA path, on a CPU, seed jax.random.PRNGKey(0),
 # 2^18 OFDM symbols (jax_band_readings.py).  JAX_CPU_READINGS also holds the
-# readings of STAGED_BAND_LINKS (the same way), of EAGER_LINKS (the same
-# way at 2^24 / n OFDM symbols) and of each noise-bump point (the JAX
-# package's _Link on a CPU at 2^16 OFDM symbols at 64 sc, 2^22 / n at the
-# widths of NOISE_BUMP_WIDE).
+# readings of STAGED_BAND_LINKS and of ASC_CELLS (the same way), of
+# EAGER_LINKS (the same way at 2^24 / n OFDM symbols) and of each
+# noise-bump point (the JAX package's _Link on a CPU at 2^16 OFDM symbols
+# at 64 sc, 2^22 / n at the widths of NOISE_BUMP_WIDE).
 BAND_LINKS = {
     "psk8_cp1.0_64": ("diag", _PSK8),
     "psk8_cp0.34_64": ("fold", dict(_PSK8, prefix_length_ratio=0.34)),
@@ -1080,6 +1090,16 @@ JAX_CPU_READINGS = {
     "headline_xla": (1915505, 100663296),
     "SC-CY1.0-1024_20db": (1969562, 100663296),
     "SC-ZE1.0-1024_20db": (1971122, 100663296),
+    "adaptive_scfde_64sc_15db": (509055, 41418752),
+    "adaptive_scfde_64sc_15db_fold_power": (502808, 41418752),
+    "adaptive_scfde_64sc_20db": (34288, 60293120),
+    "adaptive_scfde_64sc_20db_fold_power": (34290, 60293120),
+    "adaptive_scfde_64sc_25db": (180615, 90701824),
+    "adaptive_scfde_64sc_25db_fold_power": (180599, 90701824),
+    "adaptive_scfde_64sc_zp_20db": (45915, 60293120),
+    "adaptive_scfde_1024sc_20db": (3448270, 1085800448),
+    "adaptive_scfde_1024sc_20db_fold_power": (3448274, 1085800448),
+    "adaptive_scfde_1024sc_zp_20db": (3847430, 1085800448),
 }
 
 
@@ -2148,7 +2168,7 @@ def dense_wide_counters(reset=False):
     return out
 
 
-def dense_wide_operations(chain, link, chunk):
+def dense_wide_operations(chain, link, chunk, ops=OPS_PER_BIN):
     """(needed, power pass): the operations one wide fold or mm chunk needs,
     counted from csrc/{fold,mm}_wide_kernel.cu, and what the measured-power
     pass recomputes.  Per symbol: Philox on every drawn bin (fold) or time
@@ -2165,13 +2185,13 @@ def dense_wide_operations(chain, link, chunk):
     p = link.plan
     dft = ((n // 2) * p.log2n * 10 if p.log2n >= 0 else n * (p.n1 + p.n2) * 8 + 6 * n) + 2 * n
     drawn = T if chain == "mm" else n
-    eq = OPS_PER_BIN["mmse"] if link.method == 1 else 6
-    tx = (0 if link.is_sc else dft) + n * (OPS_PER_BIN["philox"] + OPS_PER_BIN["encode"])
+    eq = ops["mmse"] if link.method == 1 else 6
+    tx = (0 if link.is_sc else dft) + n * (ops["philox"] + ops["encode"])
     conv = 8 * K * (T if chain == "mm" else n)
-    per_symbol = (tx + (drawn - n) * OPS_PER_BIN["philox"] + PAPR_OPS * T + conv
-                  + (drawn * OPS_PER_BIN["noise"] if link.add_noise else 0) + (2 * (T - n) if chain == "mm" else 0)
+    per_symbol = (tx + (drawn - n) * ops["philox"] + PAPR_OPS * T + conv
+                  + (drawn * ops["noise"] if link.add_noise else 0) + (2 * (T - n) if chain == "mm" else 0)
                   + dft + (dft if link.is_sc else 0)
-                  + n * (eq + OPS_PER_BIN["demap"] + OPS_PER_BIN["count"]))
+                  + n * (eq + ops["demap"] + ops["count"]))
     m = mmk if chain == "mm" else fk
     tile, tiles, _ = m._chunk_geometry(link, chunk)
     slice_ = tile if chain == "mm" else link.slice
@@ -2329,6 +2349,255 @@ def dense_wide_path(card, device):
     launches, power, rates = dense_wide_cells(card, device)
     entries = dense_wide_entries(card, device, err, probe_err, launches, power)
     print(f"dense_wide phase: {time.perf_counter() - t0:.1f} s; OFDM syms/s {json.dumps(rates)}")
+    return entries
+
+
+# --- adaptive SC-FDE on the fold and mm kernels, narrow and wide -------------------
+
+# The reference's adaptive link (config/simulation_settings_adaptive.json: 64
+# sc, Lin-Phoong P1, CP 1.0, MMSE, waterfilling, CAPACITY_BASED QAM 4-256) on
+# SC-FDE, where lane t's order demaps time sample t after the SC IDFT
+# (link_kernel.sc_slicer).  The chunk checks, (chain, changes): MMSE and ZF,
+# normalize_before_demap (the row rides the normalization), adaptive PSK, a
+# zero prefix (mm), severe_multipath at 512 and 1024 sc (fold_wide; orders
+# {4, 16, 64}) and at 1024 sc with a zero prefix (mm_wide).
+_ASC_WIDE = dict(num_subcarriers=1024, channel_model="severe_multipath")
+ASC_LINKS = {
+    "asc_64_cp_mmse": ("fold", {}),
+    "asc_64_cp_zf": ("fold", dict(equalization_method="ZF")),
+    "asc_64_cp_normalize": ("fold", dict(normalize_before_demap=True)),
+    "asc_64_cp_apsk": ("fold", dict(constellation_type="PSK")),
+    "asc_64_zp": ("mm", dict(prefix_type="ZERO")),
+    "asc_512_cp": ("fold", dict(_ASC_WIDE, num_subcarriers=512)),
+    "asc_1024_cp": ("fold", _ASC_WIDE),
+    "asc_1024_zp": ("mm", dict(_ASC_WIDE, prefix_type="ZERO")),
+}
+# The phase's cells through the normal entry points on the card, (chain,
+# changes, SNR points, OFDM symbols a point): the 64-sc link through
+# run_sweep (one setup a point) at the config's three SNRs, its zero-prefix
+# twin, and both at 1024 sc over severe_multipath.  Each BER at z = BAND_Z
+# against the JAX package's XLA reading on a CPU (jax_band_readings.py,
+# ASC_READING_SYMBOLS OFDM symbols), key "<cell>_<snr>db"; on the fold
+# chain against the same run with the JAX fold kernel's measured power,
+# "<cell>_<snr>db_fold_power": the fold kernels (the JAX package's and the
+# port's) measure |Y|^2 over the n bins, the XLA path |y|^2 over all T
+# samples, and on SC-FDE the cyclic prefix copies the last lanes' power,
+# so where lanes are inactive (the 64-sc link at 15 dB: 8 of 64) the two
+# noise powers differ (by 0.64% there; BER 0.012140 against 0.012290 at
+# 2^18 symbols).  The eager twins are held to the XLA reading.
+ASC_CELLS = {
+    "adaptive_scfde_64sc": ("fold", {}, (15.0, 20.0, 25.0), 1 << 24),
+    "adaptive_scfde_64sc_zp": ("mm", dict(prefix_type="ZERO"), (20.0,), 1 << 22),
+    "adaptive_scfde_1024sc": ("fold", _ASC_WIDE, (20.0,), 1 << 20),
+    "adaptive_scfde_1024sc_zp": ("mm", dict(_ASC_WIDE, prefix_type="ZERO"), (20.0,), 1 << 20),
+}
+ASC_READING_SYMBOLS = 1 << 18
+ASC_READING = "XLA path, CPU, 2^18 OFDM symbols"
+# aqam on SC-FDE multiplies each time sample by its lane's row after the
+# IDFT (two multiplies, counted with the per-sample counters); the
+# equalizer reads no lane row then (mmse as qam's).
+ASC_OPS = dict(OPS_PER_BIN_AQAM, mmse=OPS_PER_BIN["mmse"], count=OPS_PER_BIN["count"] + 2)
+
+
+def asc_cfg(snr_db, num_ofdm, chunk=MAIN_CHUNK, **kw):
+    """The reference's adaptive config at ``snr_db`` on SC-FDE, with ``kw``'s changes."""
+    return adaptive_cfg(snr_db, num_ofdm, chunk).replace(modulation_type="SC-OFDM", **kw)
+
+
+def asc_kernel(chain, link):
+    """The kernel that runs an adaptive SC-FDE link: fold, mm, fold_wide or mm_wide."""
+    from ofdm_tpu_torch.ops import fold_kernel as fk
+    from ofdm_tpu_torch.ops import mm_kernel as mmk
+
+    return chain + ("_wide" if (fk if chain == "fold" else mmk).is_wide(link) else "")
+
+
+def asc_runner(name, chain, cfg, device):
+    """LinkRunner of an adaptive SC-FDE link, checked to route to ``chain``
+    in an adaptive codec mode."""
+    from ofdm_tpu_torch.pipeline import LinkRunner, prepare
+
+    runner = LinkRunner(prepare(cfg), device)
+    if runner.mode != chain or runner.link.q.mode not in ("aqam", "apsk") or not runner.link.is_sc:
+        raise AssertionError(f"{name} routed to {runner.mode} ({getattr(runner.link, 'q', None)}), not {chain}")
+    return runner
+
+
+def asc_checks(card, device):
+    """Each kernel against its plain version (``compare_chunk``) on
+    ASC_LINKS at sym0 = 0 and 2^32 + 77; apply_power alone (the staged
+    build's row after the IDFT) on a narrow and a wide link; the noise-bump
+    stages; a capture; K3 on a narrow and a wide link.  Returns ({kernel:
+    max difference}, K3's max difference)."""
+    from ofdm_tpu_torch.ops import link_kernel as lk
+
+    err = {"fold": 0.0, "mm": 0.0, "fold_wide": 0.0, "mm_wide": 0.0}
+
+    def check(label, chain, runner, sym0, snr_db, link=None, rows=None):
+        link = runner.link if link is None else link
+        kname = asc_kernel(chain, link)
+        _, kernel, plain, _ = chains()[chain]
+        orders = sorted({int(o) for o in runner.setup.constellation_orders})
+        err[kname] = max(err[kname], compare_chunk(
+            f"{kname} {label} ({link.q.mode} SC-FDE, n={link.n}, T={link.T}, E={link.E}, orders {orders}, tile "
+            f"{lk.tile_for(MAIN_CHUNK, link.tile_cap)}, stages {lk.link_stages(link)})", kernel, plain, link, sym0,
+            MAIN_CHUNK, snr_db, device, rows=rows))
+
+    for name, (chain, kw) in ASC_LINKS.items():
+        runner = asc_runner(name, chain, asc_cfg(20.0, MAIN_SYMBOLS, **kw), device)
+        for sym0 in PROBE_SYM0:
+            check(name, chain, runner, sym0, 20.0)
+    for name in ("asc_64_cp_mmse", "asc_1024_cp"):
+        chain, kw = ASC_LINKS[name]
+        runner = asc_runner(name, chain, asc_cfg(20.0, MAIN_SYMBOLS, apply_power_allocation=True, **kw), device)
+        check(f"{name} apply_power", chain, runner, MAIN_CHUNK, 20.0, rows=sqrt_power_row(runner, 20.0))
+    runner = asc_runner("asc_64_cp_mmse", "fold", asc_cfg(20.0, MAIN_SYMBOLS, **_NB), device)
+    check("asc_64_cp_mmse noise-bump stages", "fold", runner, MAIN_CHUNK, 15.0, lk.noise_bump_link(runner.link),
+          bump_rows(runner, device))
+    err["fold"] = max(err["fold"], capture_check(card, device, "asc_64_cp_mmse (fold, aqam SC-FDE)", "fold",
+                                                 asc_cfg(20.0, BAND_SYMBOLS), CAPTURE_COLLECT)[0])
+    probe_err = 0.0
+    for name in ("asc_64_cp_mmse", "asc_1024_zp"):
+        chain, kw = ASC_LINKS[name]
+        probe_err = max(probe_err, probe_check(name, chain, asc_cfg(20.0, MAIN_SYMBOLS, **kw), device))
+    return err, probe_err
+
+
+def asc_router():
+    """kernel_mode on the adaptive SC-FDE grid (CP / ZP / none x three
+    channels x 16-2048 sc x QAM and PSK loading): every link the JAX plan
+    admits (up to 1024 sc; tests/test_torch_adaptive_scfde.py holds the
+    grid against plan_for + supports on the CPU) on fold or mm, none
+    eager; at 2048 sc eager, as the JAX package runs it on XLA."""
+    import itertools
+
+    from ofdm_tpu_torch.pipeline import kernel_mode, prepare
+
+    seen = {}
+    for prefix, channel, n, kind in itertools.product(("CYCLIC", "ZERO", "NONE"),
+                                                      ("severe_multipath", "flat_fading", "Lin-Phoong_P2"),
+                                                      (16, 32, 64, 128, 256, 512, 1024, 2048), ("QAM", "PSK")):
+        mode = kernel_mode(prepare(asc_cfg(20.0, 16, 0, num_subcarriers=n, prefix_type=prefix, channel_model=channel,
+                                           constellation_type=kind)))
+        want = "eager" if n == 2048 else ("mm" if prefix == "ZERO" else "fold")
+        if mode != want:
+            raise AssertionError(f"adaptive SC-FDE {prefix} {channel} {n} sc {kind}: {mode}, not {want}")
+        seen[mode] = seen.get(mode, 0) + 1
+    print(f"adaptive SC-FDE router: {sum(seen.values())} configs, {json.dumps(seen)} (none of n <= 1024 eager)")
+
+
+def asc_cells(card, device):
+    """ASC_CELLS through the normal entry points: the 64-sc cell through
+    run_sweep (a runner a point), the others through LinkRunner.  Every
+    launch counter set to 0 just before a cell and read just after (each
+    point's chunk kernel and its power pass once a chunk, nothing else),
+    ``hotpath_used``, the z = 5 band, OFDM syms/s beside the eager chain's
+    on the same link (hotpath "xla", banded too).  Returns ({kernel:
+    launches}, {kernel: power-pass launches}, {cell: OFDM syms/s})."""
+    import torch
+
+    from ofdm_tpu_torch.parallel.sweep import run_sweep
+    from ofdm_tpu_torch.pipeline import LinkRunner, prepare
+
+    launches, power, rates = {}, {}, {}
+    for cell, (chain, kw, snrs, num_ofdm) in ASC_CELLS.items():
+        warm = asc_runner(cell, chain, asc_cfg(snrs[0], MAIN_CHUNK, **kw), device)
+        warm.run(1)
+        kname = asc_kernel(chain, warm.link)
+        torch.cuda.synchronize()
+        dense_wide_counters(reset=True)
+        if len(snrs) > 1:
+            rs = run_sweep(asc_cfg(snrs[0], num_ofdm, **kw), snrs=snrs, key=MAIN_SEED, sharded=False, device=device)
+        else:
+            rs = [asc_runner(cell, chain, asc_cfg(snrs[0], num_ofdm, **kw), device).run(MAIN_SEED)]
+        torch.cuda.synchronize()
+        got = dense_wide_counters()
+        fn = "fold_chunk" if chain == "fold" else "mm_chunk"
+        main = f"{fn}.{'wide_launches' if kname.endswith('_wide') else 'launches'}"
+        pw = f"{fn}.{('wide_' if kname.endswith('_wide') else '') + ('power' if chain == 'fold' else 'front')}_launches"
+        want = len(snrs) * num_ofdm // MAIN_CHUNK
+        others = {k: v for k, v in got.items() if v and k not in (main, pw)}
+        if (got[main], got[pw]) != (want, want) or others or any(r["hotpath_used"] != "cuda" for r in rs):
+            raise AssertionError(f"{cell}: launches {got}, hotpath {[r['hotpath_used'] for r in rs]}")
+        launches[kname], power[kname] = want, want
+        for snr, r in zip(snrs, rs):
+            name = f"{cell}_{int(snr)}db"
+            print(f"{name} through {'run_sweep' if len(snrs) > 1 else 'LinkRunner'} ({kname}, "
+                  f"{warm.link.q.mode} SC-FDE) [{card}]: {num_ofdm} OFDM symbols ({r['total_bits']} bits), "
+                  f"ofdm_symbols_per_s={r['ofdm_symbols_per_s']:.1f} run_s={r['transmission_time_ms'] / 1e3:.4f} "
+                  f"BER={r['bit_error_rate']} papr_db={r['papr_db']:.4f} hotpath={r['hotpath_used']}; "
+                  f"launches of the cell {json.dumps({k: v for k, v in got.items() if v})}")
+            band(f"{name}_fold_power" if chain == "fold" else name, r,
+                 ASC_READING + (", the fold kernel's measured power" if chain == "fold" else ""))
+            rates[name] = r["ofdm_symbols_per_s"]
+        snr = snrs[len(snrs) // 2]
+        eager = LinkRunner(prepare(asc_cfg(snr, min(num_ofdm, 1 << 24), hotpath="xla", **kw)), device)
+        if eager.mode != "eager":
+            raise AssertionError(f"{cell} with hotpath xla routed to {eager.mode}")
+        eager.run(1)
+        e = eager.run(MAIN_SEED)
+        print(f"{cell}_{int(snr)}db on the eager chain (hotpath xla) [{card}]: "
+              f"ofdm_symbols_per_s={e['ofdm_symbols_per_s']:.1f} BER={e['bit_error_rate']} "
+              f"hotpath={e['hotpath_used']} (the kernel: {rates[f'{cell}_{int(snr)}db']:.1f})")
+        band(f"{cell}_{int(snr)}db", e, ASC_READING)
+        rates[f"{cell}_{int(snr)}db_eager"] = e["ofdm_symbols_per_s"]
+    prof_runner = asc_runner("adaptive_scfde_64sc", "fold", asc_cfg(20.0, 1 << 22), device)
+    print_profile(card, "adaptive_scfde_64sc 20 dB (fold)", profile_run(prof_runner, 20.0))
+    return launches, power, rates
+
+
+def asc_entries(card, device, err, launches, power):
+    """The kernels-line entries: each kernel in aqam on SC-FDE on its cell's
+    20 dB link, timed at 2^17 symbols by CUDA events beside its plain
+    version and its bound by operations (ASC_OPS: the aqam codec's per-bin
+    counts and the post-IDFT row)."""
+    from ofdm_tpu_torch.ops import link_kernel as lk
+    from ofdm_tpu_torch.pipeline import _KERNELS
+
+    out = []
+    for cell, (chain, kw, _, _) in ASC_CELLS.items():
+        runner = asc_runner(cell, chain, asc_cfg(20.0, MAIN_SYMBOLS, **kw), device)
+        link = runner.link
+        kname = asc_kernel(chain, link)
+        _, kernel, plain, _ = chains()[chain]
+        snr_lin = lk.snr_linear(20.0)
+        acc, psum = lk.new_accumulators(device)
+        work = _KERNELS[chain].workspace(link, MAIN_CHUNK, device)
+        k_ms = cuda_ms(lambda: kernel(link, (3, 4), 0, MAIN_CHUNK, snr_lin, acc, psum, work), 20)
+        p_ms = cuda_ms(lambda: plain(link, (3, 4), 0, MAIN_CHUNK, snr_lin, acc, psum), 1)
+        if kname.endswith("_wide"):
+            ops, added = dense_wide_operations(chain, link, MAIN_CHUNK, ASC_OPS)
+        elif chain == "fold":
+            ops, power_ops, tail_ops = fold_operations(link, MAIN_CHUNK, ASC_OPS)
+            added = power_ops + tail_ops
+        else:
+            ops, added = mm_operations(link, MAIN_CHUNK, ASC_OPS)
+        bound = ops / PEAK_OPS * 1e3
+        print(f"{kname} aqam SC-FDE ({cell}, 20 dB) at {MAIN_CHUNK} symbols [{card}]: kernel {k_ms:.4f} ms "
+              f"({MAIN_CHUNK / k_ms * 1e3:.1f} OFDM syms/s), plain {p_ms:.3f} ms, bound {bound:.4f} ms ({ops} "
+              f"operations needed; the design adds {added}, {added / PEAK_OPS * 1e3:.4f} ms at the same rate)")
+        wrapper = {"fold": "fold_chunk", "mm": "mm_chunk"}.get(kname, kname)
+        out.append({"name": f"{wrapper} (aqam SC-FDE, {cell})", "route": "cuda",
+                    "source": f"ofdm_tpu_torch/csrc/{kname}_kernel.cu",
+                    "replaces": "ofdm_tpu/ops/pallas_link.py:1986", "launches": launches[kname],
+                    "power_launches": power[kname], "max_abs_err": err[kname], "ms": k_ms, "plain_ms": p_ms,
+                    "bound_ms": bound, "bound_by": "operations", "library_ms": None})
+    return out
+
+
+def adaptive_scfde_path(card, device):
+    """This slice's phase: adaptive SC-FDE (aqam, apsk) on fold, mm,
+    fold_wide and mm_wide against their plain versions (with the staged,
+    bump and dump builds and K3), the router over the adaptive SC-FDE grid,
+    the cells through run_sweep and LinkRunner, the kernels timed.
+    Returns the kernels-line entries."""
+    t0 = time.perf_counter()
+    err, probe_err = asc_checks(card, device)
+    asc_router()
+    launches, power, rates = asc_cells(card, device)
+    entries = asc_entries(card, device, err, launches, power)
+    print(f"adaptive_scfde phase [{card}]: {time.perf_counter() - t0:.1f} s; K3 max difference {probe_err}; "
+          f"OFDM syms/s {json.dumps(rates)}")
     return entries
 
 
@@ -2769,10 +3038,11 @@ POD_SCALE_PUBLISHED = {0.0: (0.402, 5e-4), 10.0: (0.187, 5e-4), 20.0: (0.0212, 5
 
 
 def cli_path(card):
-    """``python -m ofdm_tpu_torch`` on the three configs of CLI_CONFIGS, each
-    in a results directory of its own under tmp/cli_smoke: exit 0, the
-    CSV, the BER curve and a constellation PNG a point, BERs in their
-    gates.  Returns {config: seconds a point}."""
+    """``python -m ofdm_tpu_torch`` on the three configs of CLI_CONFIGS and
+    on the adaptive one with "modulation_type": "SC-OFDM" (written under
+    tmp/cli_smoke), each in a results directory of its own under
+    tmp/cli_smoke: exit 0, the CSV, the BER curve and a constellation PNG a
+    point, BERs in their gates.  Returns {config: seconds a point}."""
     import csv
 
     from ofdm_tpu_torch.config import SimulationConfig
@@ -2782,7 +3052,14 @@ def cli_path(card):
     here = os.path.dirname(os.path.abspath(__file__))
     env = {k: v for k, v in os.environ.items() if not k.startswith("OFDM_TPU_")}
     per_point = {}
-    for name, path in CLI_CONFIGS.items():
+    # the reference's adaptive settings on SC-FDE (the adaptive_scfde phase's link)
+    with open(os.path.join(here, ADAPTIVE_CONFIG)) as fh:
+        settings = dict(json.load(fh), modulation_type="SC-OFDM")
+    scfde_path = os.path.join(here, "tmp", "cli_smoke", "simulation_settings_adaptive_scfde.json")
+    os.makedirs(os.path.dirname(scfde_path), exist_ok=True)
+    with open(scfde_path, "w") as fh:
+        json.dump(settings, fh, indent=1)
+    for name, path in dict(CLI_CONFIGS, adaptive_scfde=scfde_path).items():
         out_dir = os.path.join(here, "tmp", "cli_smoke", name)
         args = [sys.executable, "-m", "ofdm_tpu_torch", "--simulation-settings", path,
                 "--results-dir", os.path.join(out_dir, "results"), "--images-dir", os.path.join(out_dir, "images"),
@@ -2812,8 +3089,10 @@ def cli_path(card):
                 ref = REFERENCE_SCFDE_BER[snr]
                 ok = mt.ber_equivalent(errors, bits, round(ref * bits), bits, z=BAND_Z)
                 checks.append(f"{snr:g} dB {ber} vs reference {ref} z={BAND_Z}: {'inside' if ok else 'OUTSIDE'}")
-            elif name == "adaptive":
-                je, jb = JAX_CPU_READINGS[f"reference_adaptive_{int(snr)}db"]
+            elif name in ("adaptive", "adaptive_scfde"):
+                key = (f"reference_adaptive_{int(snr)}db" if name == "adaptive"
+                       else f"adaptive_scfde_64sc_{int(snr)}db_fold_power")
+                je, jb = JAX_CPU_READINGS[key]
                 ok = mt.ber_equivalent(errors, bits, je, jb, z=BAND_Z)
                 checks.append(f"{snr:g} dB {ber} ({errors} / {bits}) vs JAX {je / jb} z={BAND_Z}: "
                               f"{'inside' if ok else 'OUTSIDE'}")
@@ -3010,6 +3289,11 @@ def main():
     # from the eager chain
     dense_wide = dense_wide_path(card, device)
 
+    # 12d. adaptive SC-FDE (aqam, apsk) on fold, mm, fold_wide and mm_wide:
+    # against their plain versions, the router, the cells through run_sweep
+    # and LinkRunner
+    adaptive_scfde = adaptive_scfde_path(card, device)
+
     # 13. K3 and the carry-in on every chain; the sharded runs (one rank
     # under NCCL, two ranks under gloo) and the CLI on the reference's configs
     t_sweep = time.perf_counter()
@@ -3039,6 +3323,7 @@ def main():
         *dumps,
         *wide,
         *[e for e in dense_wide if not e["name"].endswith("_probe")],
+        *adaptive_scfde,
         *probe_entries,
     ]
     print(json.dumps({"kernels": kernels}))

@@ -9,7 +9,10 @@ links), the reference's adaptive config at 15 / 20 / 25 dB and
 JAX package's XLA path on the CPU, seed ``jax.random.PRNGKey(0)``, 2^18
 OFDM symbols in chunks of 4096; ``chip_smoke.EAGER_LINKS`` the same way at
 2^24 / n OFDM symbols (2^14 at 1024 subcarriers) in chunks of 2^20 / n;
-then every point of the noise-bump study
+then ``chip_smoke.ASC_CELLS`` (the reference's adaptive config on
+SC-FDE) at 2^18 OFDM symbols, the fold cells also with the fold kernel's
+measured power (``fold_power_estimator``); then every
+point of the noise-bump study
 (3 scenarios x SNR 0, 5, ..., 30 dB) through the JAX package's ``_Link``
 at 2^16 OFDM symbols a point, key ``fold_in(PRNGKey(42), 1000 s + p)`` as
 its campaign draws them, at 64 subcarriers and at each width of
@@ -24,17 +27,20 @@ adaptive points are the reference's adaptive config at 15 / 20 / 25 dB
 (on its own 1,000 OFDM symbols a point), each held to the reading above.
 """
 
+import contextlib
 import json
 import os
 import sys
 
 import jax
 
-from chip_smoke import (ADAPTIVE_CONFIG, AUDIT_BASE, BAND_LINKS, EAGER_LINKS, NOISE_BUMP_SNRS, NOISE_BUMP_WIDE,
-                        STAGED_BAND_LINKS, noise_bump_name)
+from chip_smoke import (ADAPTIVE_CONFIG, ASC_CELLS, ASC_READING_SYMBOLS, AUDIT_BASE, BAND_LINKS, EAGER_LINKS,
+                        NOISE_BUMP_SNRS, NOISE_BUMP_WIDE, STAGED_BAND_LINKS, noise_bump_name)
 from ofdm_tpu.config import SimulationConfig
 from ofdm_tpu.experiments import noise_bump as nb
 from ofdm_tpu.models import channels as chm
+from ofdm_tpu.ops import channel as jch
+from ofdm_tpu.ops import cplx
 from ofdm_tpu.pipeline import LinkRunner, prepare
 
 SYMBOLS = 1 << 18
@@ -47,6 +53,51 @@ def reading(cfg):
     r = LinkRunner(prepare(cfg)).run(jax.random.PRNGKey(0))
     assert r["hotpath_used"] == "xla", r["hotpath_used"]
     return [r["bit_errors"], r["total_bits"]]
+
+
+@contextlib.contextmanager
+def fold_power_estimator(guard):
+    """The XLA path's AWGN with the JAX fold kernel's measured power: the
+    mean |y|^2 over the n samples after the ``guard`` (Parseval: over the
+    frequency bins, as pallas_link.py's fold branch measures it) instead of
+    over all T samples.  Patched in this process only; the JAX package is
+    not edited."""
+    real = jch.awgn
+
+    def awgn(key, signal, snr_db, measured_power=None, axis_name=None):
+        if measured_power is None:
+            measured_power = cplx.mean_abs2(cplx.CArray(signal.re[:, guard:], signal.im[:, guard:])
+                                            if isinstance(signal, cplx.CArray) else signal[:, guard:])
+        return real(key, signal, snr_db, measured_power, axis_name)
+
+    jch.awgn = awgn
+    try:
+        yield
+    finally:
+        jch.awgn = real
+
+
+def adaptive_scfde_readings():
+    """{"<cell>_<snr>db": [bit errors, bits]} of chip_smoke.ASC_CELLS: the
+    reference's adaptive config at each SNR point on SC-FDE with the cell's
+    changes, ASC_READING_SYMBOLS OFDM symbols in chunks of at most 4096
+    (2^20 / n at 1024 sc); for the cells on the fold chain also
+    "<cell>_<snr>db_fold_power", the same run with the fold kernel's
+    measured power (``fold_power_estimator``), which the kernel path's
+    BER is held to."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), ADAPTIVE_CONFIG)
+    cfgs = {c.snr_db: c for c in SimulationConfig.from_json(path)}
+    out = {}
+    for cell, (chain, kw, snrs, _) in ASC_CELLS.items():
+        n = kw.get("num_subcarriers", 64)
+        for snr in snrs:
+            cfg = cfgs[snr].replace(modulation_type="SC-OFDM", num_symbols=ASC_READING_SYMBOLS,
+                                    symbols_per_chunk=min(CHUNK, (1 << 20) // n), **kw)
+            out[f"{cell}_{int(snr)}db"] = reading(cfg)
+            if chain == "fold":
+                with fold_power_estimator(prepare(cfg).prefix_length):
+                    out[f"{cell}_{int(snr)}db_fold_power"] = reading(cfg)
+    return out
 
 
 def main():
@@ -67,6 +118,7 @@ def main():
         n = kw["num_subcarriers"]
         out[name] = reading(SimulationConfig(**dict(kw, num_symbols=n * (EAGER_BITS_SPAN // n),
                                                     symbols_per_chunk=(1 << 20) // n)))
+    out.update(adaptive_scfde_readings())
     key = jax.random.PRNGKey(42)
     for n in (64, *NOISE_BUMP_WIDE):
         symbols = NOISE_BUMP_SYMBOLS * 64 // n

@@ -6,7 +6,7 @@
 // conv="mm", fold=True form: SC-FDE with a cyclic prefix or none, and OFDM
 // whose guard is shorter than the channel order; in each constellation mode
 // (qam, psk, aqam, apsk: a template parameter, link_common.cuh's codec;
-// SC-FDE takes no adaptive mode).  Per OFDM symbol b:
+// on SC-FDE lane t's order demaps time sample t).  Per OFDM symbol b:
 //   Philox words -> encode s_b [x sqrt(P)]
 //   x_b  = s_b @ F_tx,ext                  (n -> T+E: IDFT/identity + guard,
 //                                           the last E columns repeated)
@@ -15,10 +15,12 @@
 //   y    = act @ CM                        (T+E -> n: conv + guard strip + DFT)
 //   AWGN per frequency bin, sigma = sqrt(mp / snr_lin / 2), mp the mean |y|^2
 //   over the first `slice` symbols of b's tile, before noise
-//   ZF / MMSE / none with the slicer gain 0.5/scale folded in
+//   ZF / MMSE / none with the slicer gain 0.5/scale folded in (aqam: the
+//   lane's row; on SC-FDE deferred past the IDFT)
 //   SC-FDE only: e = e @ IDFT (n -> n)
 //   [post-EQ noise, x 1/sqrt(P): per time sample on SC-FDE]
 //   [x the tile's unit-power factor, the slicer gain deferred to it]
+//   aqam on SC-FDE without normalize: time sample t x lane t's slicer row
 //   slicer or PSK sector -> popcount(tx ^ rx) into int64 counters.
 // The bracketed _Spec stages exist only in the build with -DOFDM_STAGED=1
 // (the kernels' kStaged parameter; link_common.cuh), the post-EQ noise and
@@ -243,10 +245,10 @@ __global__ void __launch_bounds__(kThreads)
         const int k = lane + 32 * j;
         er[j] = 0.0f;
         ei[j] = 0.0f;
-        if (k < L.n) ofdm::equalize_stage<kMode, kStaged>(L, k, yr[j], yi[j], nv, er[j], ei[j]);
+        if (k < L.n) ofdm::equalize_stage<kMode, kStaged>(L, k, yr[j], yi[j], nv, er[j], ei[j], L.is_sc);
       }
 
-      if (!ofdm::adaptive(kMode) && L.is_sc) {
+      if (L.is_sc) {
         // SC-FDE: equalized bins -> time-domain symbols, e @ IDFT.
 #pragma unroll
         for (int j = 0; j < J; ++j) {
@@ -293,6 +295,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < J; ++j) {
         const int k = lane + 32 * j;
         if (k < L.n) {
+          ofdm::sc_slicer_bin<kMode, kStaged>(L, k, er[j], ei[j]);
           ofdm::dump_bin<kMode, kDump>(L, b, k, er[j], ei[j]);
           ofdm::count_bin<kMode>(tx[j], er[j], ei[j], L.q, L.lanes, k, be, se);
         }
@@ -413,7 +416,7 @@ extern "C" {
 
 // One chunk: fold_power (when noise is on) then fold_main, both on `stream`,
 // in constellation mode `mode` (link_common.cuh::Mode; lane_i / lane_f the
-// adaptive modes' lane rows; SC-FDE takes no adaptive mode).  acc = [bit
+// adaptive modes' lane rows).  acc = [bit
 // errors, symbol errors, PAPR peak f32 bits] (int64, accumulated), psum =
 // PAPR power sum (float64, accumulated); carry = the chunk's last symbol's
 // x[0:T).  rows / stages / norm_part / norm_f: the _Spec stages
@@ -434,7 +437,7 @@ int ofdm_fold_chunk(const float* txr, const float* txi, const float* cmr, const 
   if (n < 1 || n > kMaxN || T < n || E < 0 || E > T || chunk < 1 || tile < 1 || slice < 1 ||
       (prev_r == nullptr) != (prev_i == nullptr) ||
       groups < 1 || run < 1 || tile % run != 0 || (is_sc && (idr == nullptr || idi == nullptr)) ||
-      (ofdm::adaptive(mode) && (is_sc || lane_i == nullptr || lane_f == nullptr)) ||
+      (ofdm::adaptive(mode) && (lane_i == nullptr || lane_f == nullptr)) ||
       !ofdm::stage_args_ok(rows, stages, norm_part, norm_f, dump_r, dump_i, dump_rows, ofdm::kBumpBuild)) {
     return cudaErrorInvalidValue;
   }

@@ -9,9 +9,10 @@
 // widths the warp-per-symbol fold_main (fold_kernel.cu, n <= 256) does not
 // hold: n = 257-2048 wherever the reference's dense budget admits the link
 // (link_kernel.fold_fits, pallas_link._plan :124-216), in each
-// constellation mode (a template parameter, link_common.cuh's codec; SC-FDE
-// takes no adaptive mode); and K3, its carry probe (:2218).  Per OFDM symbol
-// b, the semantics of the TPU kernel's dense products, not their form:
+// constellation mode (a template parameter, link_common.cuh's codec; on
+// SC-FDE lane t's order demaps time sample t); and K3, its carry probe
+// (:2218).  Per OFDM symbol b, the semantics of the TPU kernel's dense
+// products, not their form:
 //   Philox words -> encode s_b [x sqrt(P)]
 //   x_b  = TX block (SC-FDE: s_b; OFDM: block IDFT) with its cyclic prefix
 //   PAPR max and sum over x_b[0:T), every symbol
@@ -20,10 +21,12 @@
 //   Y    = block DFT of y (block_dft.cuh)
 //   AWGN per frequency bin, sigma = sqrt(mp / snr_lin / 2), mp the mean |Y|^2
 //   over the first `slice` symbols of b's tile, before noise
-//   ZF / MMSE / none with the slicer gain folded in
+//   ZF / MMSE / none with the slicer gain folded in (aqam: the lane's row;
+//   on SC-FDE deferred past the IDFT)
 //   SC-FDE only: e = block IDFT of e
 //   [post-EQ noise, x 1/sqrt(P): per time sample on SC-FDE]
 //   [x the tile's unit-power factor, the slicer gain deferred to it]
+//   aqam on SC-FDE without normalize: time sample t x lane t's slicer row
 //   slicer or PSK sector -> popcount(tx ^ rx) into int64 counters.
 // The bracketed _Spec stages exist only in the build with -DOFDM_STAGED=1
 // (kStaged; link_common.cuh), the post-EQ noise and 1/sqrt(P) only in the
@@ -164,7 +167,7 @@ __global__ void __launch_bounds__(kWideThreads, ofdm::kWideMinBlocks)
   const int b1 = min(b0 + L.run, L.chunk);
   const bool counting = !kStaged || L.st.phase == 1;
   const bool normalize = kStaged && (L.st.bits & ofdm::kStageNormalize) != 0;
-  const bool sc = !ofdm::adaptive(kMode) && L.is_sc;
+  const bool sc = L.is_sc != 0;
   int cached_tile = -1;
   float sigma = 0.0f;
   int norm_tile = -1;
@@ -203,7 +206,7 @@ __global__ void __launch_bounds__(kWideThreads, ofdm::kWideMinBlocks)
       const int k = tid + kWideThreads * j;
       er[j] = 0.0f;
       ei[j] = 0.0f;
-      if (k < L.n) ofdm::equalize_stage<kMode, kStaged>(L, k, yr[j], yi[j], nv, er[j], ei[j]);
+      if (k < L.n) ofdm::equalize_stage<kMode, kStaged>(L, k, yr[j], yi[j], nv, er[j], ei[j], sc);
     }
     if (sc) {
       // SC-FDE: equalized bins -> time-domain symbols, the block IDFT.
@@ -253,6 +256,7 @@ __global__ void __launch_bounds__(kWideThreads, ofdm::kWideMinBlocks)
             ei[j] = ei[j] * m;
           }
         }
+        ofdm::sc_slicer_bin<kMode, kStaged>(L, k, er[j], ei[j]);
         ofdm::dump_bin<kMode, kDump>(L, b, k, er[j], ei[j]);
         ofdm::count_bin<kMode>(tx[j], er[j], ei[j], L.q, L.lanes, k, be, se);
       }
@@ -347,7 +351,7 @@ extern "C" {
 // One chunk of a fold link at n <= 2048 (the wrapper sends n > 256):
 // fold_wide_power (when noise is on) then fold_wide_main, all on `stream`,
 // in constellation mode `mode` (link_common.cuh::Mode; lane_i / lane_f the
-// adaptive modes' lane rows; SC-FDE takes no adaptive mode).  tpr / tpi:
+// adaptive modes' lane rows).  tpr / tpi:
 // the K = E + 1 unit-energy taps; twr / twi, n1, n2, log2n, dscale: the
 // n-point DFT plan (ops/dft.py::DftPlan).  acc = [bit errors, symbol
 // errors, PAPR peak f32 bits] (int64, accumulated), psum = PAPR power sum
@@ -370,7 +374,7 @@ int ofdm_fold_wide_chunk(const float* tpr, const float* tpi, const float* twr, c
       static_cast<long long>(groups) * ofdm::kWidePowerBlock <
           static_cast<long long>(slice < tile ? slice : tile) * n ||
       (prev_r == nullptr) != (prev_i == nullptr) ||
-      (ofdm::adaptive(mode) && (is_sc || lane_i == nullptr || lane_f == nullptr)) ||
+      (ofdm::adaptive(mode) && (lane_i == nullptr || lane_f == nullptr)) ||
       !ofdm::stage_args_ok(rows, stages, norm_part, norm_f, dump_r, dump_i, dump_rows, ofdm::kBumpBuild)) {
     return cudaErrorInvalidValue;
   }

@@ -548,12 +548,17 @@ __device__ __forceinline__ void scale_tx(const Link& L, int k, float& sr, float&
 
 // Bin k equalized; under normalize the slicer gain is deferred past the
 // normalization (defer_slicer, pallas_link.py:1772): the gain is 1 here,
-// the raw ZF rows come from the host.
+// the raw ZF rows come from the host.  aqam on SC-FDE (`sc`) defers its
+// lane row past the SC IDFT in any case (sc_slicer_bin): lane t's order
+// demaps time sample t (link_kernel.deferred_lane_slicer).
 template <int kMode, bool kStaged, class Link>
 __device__ __forceinline__ void equalize_stage(const Link& L, int k, float yr, float yi, float nv,
-                                               float& er, float& ei) {
-  if constexpr (kStaged) {
-    if (L.st.bits & kStageNormalize) {
+                                               float& er, float& ei, bool sc = false) {
+  bool unit_gain = false;
+  if constexpr (kStaged) unit_gain = (L.st.bits & kStageNormalize) != 0;
+  if constexpr (kMode == kAqam) unit_gain = unit_gain || sc;
+  if constexpr (kStaged || kMode == kAqam) {
+    if (unit_gain) {
       Equalizer unit = L.eq;
       unit.slicer = 1.0f;
       equalize_bin(unit, k, yr, yi, nv, er, ei);
@@ -561,6 +566,23 @@ __device__ __forceinline__ void equalize_stage(const Link& L, int k, float yr, f
     }
   }
   equalize_bin<kMode>(L.eq, L.lanes, k, yr, yi, nv, er, ei);
+}
+
+// aqam on SC-FDE without normalize: time sample k x the lane's slicer row
+// 0.5/scale, after the SC IDFT and the noise-bump stages, just before the
+// slicer (link_kernel.sc_slicer; under normalize norm_gain carries the
+// row).  Nothing in the other modes.
+template <int kMode, bool kStaged, class Link>
+__device__ __forceinline__ void sc_slicer_bin(const Link& L, int k, float& er, float& ei) {
+  if constexpr (kMode == kAqam) {
+    bool normalize = false;
+    if constexpr (kStaged) normalize = (L.st.bits & kStageNormalize) != 0;
+    if (L.is_sc && !normalize) {
+      const float s = __ldg(L.lanes.frow + L.lanes.n + k);
+      er = er * s;
+      ei = ei * s;
+    }
+  }
 }
 
 // e += (sigma * radius) * (cos, sin): the post-EQ noise of one bin from its

@@ -4,8 +4,8 @@
 // Replaces: ofdm_tpu/ops/pallas_link.py::_fn_for_spec -> kernel, in its
 // conv="mm", fold=False form: zero-prefix OFDM and SC-FDE, whose conv does
 // not fold into the receiver; in each constellation mode (qam, psk, aqam,
-// apsk: a template parameter, link_common.cuh's codec; SC-FDE takes no
-// adaptive mode).  Per OFDM symbol b:
+// apsk: a template parameter, link_common.cuh's codec; on SC-FDE lane t's
+// order demaps time sample t).  Per OFDM symbol b:
 //   Philox words -> encode s_b [x sqrt(P)]
 //   x_b  = s_b @ F_tx,ext                  (n -> T+E: IDFT/identity + zero
 //                                           guard, the last E columns repeated)
@@ -16,10 +16,12 @@
 //   over all tile * T samples of b's tile, before noise; time sample t's
 //   words from counter (b, t, 0)
 //   Y    = y @ R                           (T -> n: overlap-add + DFT)
-//   ZF / MMSE / none with the slicer gain 0.5/scale folded in
+//   ZF / MMSE / none with the slicer gain 0.5/scale folded in (aqam: the
+//   lane's row; on SC-FDE deferred past the IDFT)
 //   SC-FDE only: e = e @ IDFT (n -> n)
 //   [post-EQ noise, x 1/sqrt(P): per time sample on SC-FDE]
 //   [x the tile's unit-power factor, the slicer gain deferred to it]
+//   aqam on SC-FDE without normalize: time sample t x lane t's slicer row
 //   slicer or PSK sector -> popcount(tx ^ rx) into int64 counters.
 // The bracketed _Spec stages exist only in the build with -DOFDM_STAGED=1
 // (the kernels' kStaged parameter; link_common.cuh), the post-EQ noise and
@@ -249,10 +251,10 @@ __global__ void __launch_bounds__(kThreads)
         const int k = lane + 32 * j;
         er[j] = 0.0f;
         ei[j] = 0.0f;
-        if (k < L.n) ofdm::equalize_stage<kMode, kStaged>(L, k, fr[j], fi[j], nv, er[j], ei[j]);
+        if (k < L.n) ofdm::equalize_stage<kMode, kStaged>(L, k, fr[j], fi[j], nv, er[j], ei[j], L.is_sc);
       }
 
-      if (!ofdm::adaptive(kMode) && L.is_sc) {
+      if (L.is_sc) {
         // SC-FDE: equalized bins -> time-domain symbols, e @ IDFT.
 #pragma unroll
         for (int j = 0; j < J; ++j) {
@@ -299,6 +301,7 @@ __global__ void __launch_bounds__(kThreads)
         for (int j = 0; j < J; ++j) {
           const int k = lane + 32 * j;
           if (k < L.n) {
+            ofdm::sc_slicer_bin<kMode, kStaged>(L, k, er[j], ei[j]);
             ofdm::dump_bin<kMode, kDump>(L, b, k, er[j], ei[j]);
             ofdm::count_bin<kMode>(tx[j], er[j], ei[j], L.q, L.lanes, k, be, se);
           }
@@ -412,7 +415,7 @@ extern "C" {
 
 // One chunk: mm_front then mm_main, both on `stream`, in constellation mode
 // `mode` (link_common.cuh::Mode; lane_i / lane_f the adaptive modes' lane
-// rows; SC-FDE takes no adaptive mode).  acc = [bit errors,
+// rows).  acc = [bit errors,
 // symbol errors, PAPR peak f32 bits] (int64, accumulated), psum = PAPR power
 // sum (float64, accumulated); y = scratch planes of chunk * T floats;
 // carry = the chunk's last symbol's x[0:T).  rows / stages / norm_part /
@@ -436,7 +439,7 @@ int ofdm_mm_chunk(const float* txr, const float* txi, const float* cvr, const fl
       !ofdm::stage_args_ok(rows, stages, norm_part, norm_f, dump_r, dump_i, dump_rows, ofdm::kBumpBuild) ||
       static_cast<long long>(groups) * kPowerBlock < static_cast<long long>(tile) * T ||
       (is_sc && (idr == nullptr || idi == nullptr)) ||
-      (ofdm::adaptive(mode) && (is_sc || lane_i == nullptr || lane_f == nullptr))) {
+      (ofdm::adaptive(mode) && (lane_i == nullptr || lane_f == nullptr))) {
     return cudaErrorInvalidValue;
   }
   if (front_bytes(n, T, E) > 227 * 1024) return cudaErrorInvalidValue;

@@ -8,10 +8,10 @@
 // widths the warp-per-symbol mm kernels (mm_kernel.cu, n <= 256, T <= 320)
 // do not hold: T <= 2048 wherever the reference's dense budget admits the
 // link (link_kernel.mm_fits, pallas_link._plan :124-216), in each
-// constellation mode (a template parameter, link_common.cuh's codec; SC-FDE
-// takes no adaptive mode); and K3, its carry probe (:2218).  Per OFDM symbol
-// b, the semantics of the TPU kernel's dense products, not their form (the
-// mm chain's, mm_kernel.cu):
+// constellation mode (a template parameter, link_common.cuh's codec; on
+// SC-FDE lane t's order demaps time sample t); and K3, its carry probe
+// (:2218).  Per OFDM symbol b, the semantics of the TPU kernel's dense
+// products, not their form (the mm chain's, mm_kernel.cu):
 //   Philox words -> encode s_b [x sqrt(P)]
 //   x_b  = TX block (SC-FDE: s_b; OFDM: block IDFT) with L = T - n zeros
 //   PAPR max and sum over x_b[0:T), every symbol
@@ -22,10 +22,12 @@
 //   words from counter (b, t, 0)
 //   r    = the overlap-add r[i] = y[i] + y[n + i] (i < L), y[i] beyond
 //   Y    = block DFT of r (block_dft.cuh)
-//   ZF / MMSE / none with the slicer gain folded in
+//   ZF / MMSE / none with the slicer gain folded in (aqam: the lane's row;
+//   on SC-FDE deferred past the IDFT)
 //   SC-FDE only: e = block IDFT of e
 //   [post-EQ noise, x 1/sqrt(P): per time sample on SC-FDE]
 //   [x the tile's unit-power factor, the slicer gain deferred to it]
+//   aqam on SC-FDE without normalize: time sample t x lane t's slicer row
 //   slicer or PSK sector -> popcount(tx ^ rx) into int64 counters.
 // The bracketed _Spec stages exist only in the build with -DOFDM_STAGED=1
 // (kStaged; link_common.cuh), the post-EQ noise and 1/sqrt(P) only in the
@@ -151,7 +153,7 @@ __global__ void __launch_bounds__(kWideThreads, ofdm::kWideMinBlocks)
   const int b1 = min(b0 + L.run, L.chunk);
   const bool counting = !kStaged || L.st.phase == 1;
   const bool normalize = kStaged && (L.st.bits & ofdm::kStageNormalize) != 0;
-  const bool sc = !ofdm::adaptive(kMode) && L.is_sc;
+  const bool sc = L.is_sc != 0;
   int cached_tile = -1;
   float sigma = 0.0f;
   int norm_tile = -1;
@@ -218,7 +220,7 @@ __global__ void __launch_bounds__(kWideThreads, ofdm::kWideMinBlocks)
       const int k = tid + kWideThreads * j;
       er[j] = 0.0f;
       ei[j] = 0.0f;
-      if (k < L.n) ofdm::equalize_stage<kMode, kStaged>(L, k, fr[j], fi[j], nv, er[j], ei[j]);
+      if (k < L.n) ofdm::equalize_stage<kMode, kStaged>(L, k, fr[j], fi[j], nv, er[j], ei[j], sc);
     }
     if (sc) {
       // SC-FDE: equalized bins -> time-domain symbols, the block IDFT.
@@ -268,6 +270,7 @@ __global__ void __launch_bounds__(kWideThreads, ofdm::kWideMinBlocks)
             ei[j] = ei[j] * m;
           }
         }
+        ofdm::sc_slicer_bin<kMode, kStaged>(L, k, er[j], ei[j]);
         ofdm::dump_bin<kMode, kDump>(L, b, k, er[j], ei[j]);
         ofdm::count_bin<kMode>(tx[j], er[j], ei[j], L.q, L.lanes, k, be, se);
       }
@@ -379,7 +382,7 @@ int ofdm_mm_wide_chunk(const float* tpr, const float* tpi, const float* twr, con
       tpi == nullptr || chunk < 1 || tile < 1 || slice != tile || groups < 1 || run < 1 || tile % run != 0 ||
       static_cast<long long>(groups) * ofdm::kWidePowerBlock < static_cast<long long>(tile) * T ||
       (prev_r == nullptr) != (prev_i == nullptr) ||
-      (ofdm::adaptive(mode) && (is_sc || lane_i == nullptr || lane_f == nullptr)) ||
+      (ofdm::adaptive(mode) && (lane_i == nullptr || lane_f == nullptr)) ||
       !ofdm::stage_args_ok(rows, stages, norm_part, norm_f, dump_r, dump_i, dump_rows, ofdm::kBumpBuild)) {
     return cudaErrorInvalidValue;
   }

@@ -2,8 +2,10 @@
 
 Counterpart of ``ofdm_tpu/ops/pallas_link.py``'s ``kernel`` in conv="mm",
 fold=True form (``csrc/fold_kernel.cu``), in each constellation mode
-(``link_kernel.Codec``; SC-FDE fixed modes only): SC-FDE with a cyclic
-prefix or none, and OFDM whose guard is shorter than the channel order.
+(``link_kernel.Codec``; on SC-FDE lane t's order demaps time sample t,
+aqam's slicer row riding the time sample: ``link_kernel.sc_slicer``):
+SC-FDE with a cyclic prefix or none, and OFDM whose guard is shorter than
+the channel order.
 The conv folds into the guard strip + DFT, so a symbol costs two complex
 products (three for SC-FDE) and the noise is added per frequency bin.
 
@@ -14,7 +16,8 @@ PAPR max and sum over x_b[:T] -> act = [x_b[:T] | x_{b-1}[T:T+E]] -> y =
 act @ CM -> AWGN with the diag chunk's per-tile measured power -> ZF /
 MMSE / none -> (SC-FDE) e @ IDFT -> [post-EQ noise, x 1/sqrt(P), per
 time sample on SC-FDE] -> [x the tile's unit-power factor, in the time
-domain on SC-FDE as chunk_body's normalize] -> slicer ->
+domain on SC-FDE as chunk_body's normalize] -> (aqam on SC-FDE without
+normalize) x lane t's slicer row -> slicer ->
 popcount into int64 counters (``link_kernel``'s stages).  The
 chunk returns its last symbol's x[:T], the JAX package's carry contract.
 The previous symbol's tail is recomputed from its Philox words, so a chunk
@@ -126,7 +129,6 @@ def fold_link(setup, device) -> FoldLink:
     return FoldLink(
         T=T,
         E=E,
-        is_sc=is_sc,
         tile_cap=lk.fold_tile_cap(n, T, E, is_sc, lk.selected_passes(setup)),
         **dense,
         **lk.equalizer_fields(setup, device),
@@ -196,6 +198,7 @@ def fold_planes(link: FoldLink, key: Tuple[int, int], sym0: int, chunk: int, snr
     if link.is_sc:
         er, ei = lk.cmatmul(link.idr, link.idi, er, ei)
     er, ei = lk.bump_stages(link, er, ei, rows, pwords)
+    er, ei = lk.sc_slicer(link, er, ei)
     if link.normalize:
         er, ei = lk.normalize_points(link, er, ei, lk.tile_norm(er, ei, chunk, tile, RUN))
     return tx, er, ei, xr, xi
@@ -279,6 +282,7 @@ def fold_wide_planes(link: FoldLink, key: Tuple[int, int], sym0: int, chunk: int
     if link.is_sc:
         er, ei = dft.block_dft(er, ei, link.plan, inverse=True)
     er, ei = lk.bump_stages(link, er, ei, rows, pwords)
+    er, ei = lk.sc_slicer(link, er, ei)
     if link.normalize:
         er, ei = lk.normalize_points(link, er, ei, lk.tile_norm(er, ei, chunk, tile, WIDE_RUN, WIDE_THREADS))
     return tx, er, ei, xr, xi
@@ -321,8 +325,6 @@ def _check_wide_link(link: FoldLink, device):
     if not (MAX_N < n <= WIDE_MAX_N and link.T == n + link.L and 0 <= link.E <= link.T):
         raise ValueError(f"fold_wide takes {MAX_N} < n <= {WIDE_MAX_N}, T = n + L; got n={n}, T={link.T}")
     lk.check_codec(link.q, n, device)
-    if link.is_sc and link.q.mode in ("aqam", "apsk"):
-        raise ValueError("fold kernel: SC-FDE takes no adaptive constellation")
 
 
 def _check_link(link: FoldLink, device):
@@ -343,8 +345,6 @@ def _check_link(link: FoldLink, device):
     if not 1 <= n <= MAX_N:
         raise ValueError(f"fold kernel takes 1 <= n <= {MAX_N}, got {n}")
     lk.check_codec(link.q, n, device)
-    if link.is_sc and link.q.mode in ("aqam", "apsk"):
-        raise ValueError("fold kernel: SC-FDE takes no adaptive constellation")
 
 
 def chunk_workspace(link: FoldLink, chunk: int, device):

@@ -69,7 +69,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ofdm_tpu_torch.config import EqualizationMethod, NoiseType
+from ofdm_tpu_torch.config import EqualizationMethod, ModulationType, NoiseType
 from ofdm_tpu_torch.ops import linops, metrics, prng
 from ofdm_tpu_torch.ops.mapping import make_constellation
 
@@ -298,6 +298,28 @@ class Codec(Qam):
         return cls(order, 0, 0, bits, coding == "gray", 1.0, mode="psk")
 
 
+def adaptive_bits(setup) -> int:
+    """The static codec width of an adaptive setup (_spec_for :821-847): log2
+    of the config's largest order or of the largest loaded one, whichever
+    is wider; the kernels take up to MAX_BITS."""
+    top = max(int(np.max(setup.amap.orders)), 2)
+    return max(int(np.log2(setup.cfg.max_constellation_order)), max(1, int(np.log2(top))))
+
+
+def adaptive_supported(setup) -> bool:
+    """Whether the kernels' codec takes an adaptive setup's orders: the JAX
+    package's rule (pallas_link._adaptive_supported: some lane active, every
+    active order square QAM or a power-of-2 PSK) within the codec's width."""
+    orders = np.asarray(setup.amap.orders, np.int64)
+    active = orders[orders > 0]
+    if active.size == 0 or adaptive_bits(setup) > MAX_BITS:
+        return False
+    if setup.amap.kind == "QAM":
+        roots = np.round(np.sqrt(active.astype(np.float64)))
+        return bool(np.all(roots * roots == active))
+    return bool(np.all(2 ** np.round(np.log2(active.astype(np.float64))) == active))
+
+
 def codec_for(setup, device):
     """(codec, slicer): a setup's codec on ``device`` and the f64 slicer-units
     gain folded into its ZF rows — a scalar for qam, a per-lane row for
@@ -311,7 +333,7 @@ def codec_for(setup, device):
         return Codec.qam(const.order, const.coding), 0.5 / const.scale
     orders = np.asarray(setup.amap.orders, np.int64)
     active = orders > 0
-    bits = max(int(np.log2(cfg.max_constellation_order)), max(1, int(np.log2(max(int(orders.max()), 2)))))
+    bits = adaptive_bits(setup)
     if bits > MAX_BITS:
         raise ValueError(f"adaptive orders above 2^{MAX_BITS}: {int(orders.max())}")
     mask = np.where(active, orders - 1, 0)
@@ -593,6 +615,7 @@ class DiagLink:
     add_noise: bool
     apply_power: bool  # x sqrt(P) at TX (the chunk's rows[0])
     normalize: bool  # per-tile unit power before the demap
+    is_sc: bool  # SC-FDE (never on the diag chain)
     txext: bool  # the PAPR statistic comes from the runner's sampled TX batch
     pstride: int
     tile_cap: int
@@ -622,17 +645,18 @@ def equalizer_fields(setup, device) -> dict:
     :1049-1106 and :1155): the codec, the scalar slicer gain (0.5/scale for
     qam; 1 for PSK, whose demap is scale-free, and for aqam, whose gain is
     the codec's per-lane row), mean |h|^2, method, noise and power-stage
-    switches, the measured-power slice, and the f32 rows h, |h|^2 and the
-    ZF gain with the slicer gain folded in (qam and aqam, unless
-    ``normalize``, which defers the slicer gain past the normalization;
-    raw for PSK)."""
+    switches, SC-FDE or not, the measured-power slice, and the f32 rows h,
+    |h|^2 and the ZF gain with the slicer gain folded in (qam and aqam,
+    unless it is deferred: ``deferred_lane_slicer``; raw for PSK)."""
     cfg = setup.cfg
     n = cfg.num_subcarriers
     h = np.asarray(setup.h_freq, np.complex128)
     codec, slicer = codec_for(setup, device)
+    is_sc = cfg.modulation_type == ModulationType.SC_OFDM
     h_z = np.where(h == 0, np.complex128(1e-10), h)
     zf_g = 1.0 / h_z
-    if cfg.equalization_method == EqualizationMethod.ZF and slicer is not None and not cfg.normalize_before_demap:
+    defer = cfg.normalize_before_demap or (is_sc and codec.mode == "aqam")
+    if cfg.equalization_method == EqualizationMethod.ZF and slicer is not None and not defer:
         zf_g = zf_g * slicer
     return dict(
         n=n,
@@ -643,6 +667,7 @@ def equalizer_fields(setup, device) -> dict:
         add_noise=cfg.noise_type == NoiseType.AWGN,
         apply_power=bool(cfg.apply_power_allocation),
         normalize=bool(cfg.normalize_before_demap),
+        is_sc=is_sc,
         slice=slice_symbols(n),
         hr=f32_tensor(h.real, device),
         hi=f32_tensor(h.imag, device),
@@ -821,14 +846,24 @@ def awgn(yr, yi, w1, w2, chunk, tile, tiles, groups, snr_lin, slice_syms, pw_sca
     return yr + sigma * zr, yi + sigma * zi
 
 
+def deferred_lane_slicer(link) -> bool:
+    """Whether aqam's per-lane slicer row waits for the SC IDFT: on SC-FDE
+    lane t's order demaps time sample t, so the row multiplies the time
+    sample (``sc_slicer``), as the JAX XLA path demaps after the IDFT
+    (ofdm_tpu/pipeline.py:533-549), and not the frequency bin."""
+    return link.q.mode == "aqam" and link.is_sc
+
+
 def equalize(link, yr, yi, snr_lin, threads=32):
     """ZF / MMSE / no equalizer, in slicer units (the slicer gain folded in:
     the scalar for qam, the codec's per-lane row for aqam, none for PSK);
     MMSE sums |y|^2 in the order of ``threads`` threads a symbol.  Under
     ``normalize`` the slicer gain is deferred to ``normalize_points``
-    (pallas_link.py:1772, defer_slicer): the points stay in data units."""
+    (pallas_link.py:1772, defer_slicer): the points stay in data units;
+    aqam on SC-FDE defers its lane row past the IDFT in any case
+    (``deferred_lane_slicer``)."""
     hr, hi = link.hr, link.hi
-    defer = link.normalize
+    defer = link.normalize or deferred_lane_slicer(link)
     lane_slicer = link.q.frows[1] if link.q.mode == "aqam" and not defer else None
     if link.method == 0:
         gr, gi = link.gr, link.gi
@@ -960,6 +995,16 @@ def normalize_points(link, er, ei, f):
     else:
         m = f
     return er * m, ei * m
+
+
+def sc_slicer(link, er, ei):
+    """aqam on SC-FDE without ``normalize``: time sample t x the lane row
+    0.5/scale of lane t's order, after the IDFT and the noise-bump stages
+    (under ``normalize`` ``normalize_points`` carries the row); every
+    other link unchanged."""
+    if link.normalize or not deferred_lane_slicer(link):
+        return er, ei
+    return er * link.q.frows[1], ei * link.q.frows[1]
 
 
 def count_errors(link, tx, er, ei, acc):

@@ -78,6 +78,7 @@ class LrLink:
     add_noise: bool
     apply_power: bool
     normalize: bool
+    is_sc: bool  # SC-FDE (never on the lr chain)
     txext: bool  # the PAPR statistic comes from the runner's sampled TX batch
     pstride: int
     tile_cap: int

@@ -2,10 +2,12 @@
 
 Counterpart of ``ofdm_tpu/ops/pallas_link.py``'s ``kernel`` in conv="mm",
 fold=False form (``csrc/mm_kernel.cu``), in each constellation mode
-(``link_kernel.Codec``; SC-FDE fixed modes only): zero-prefix OFDM below
-128 subcarriers, zero-prefix SC-FDE, single-tap zero-prefix links, and
-zero-prefix OFDM whose lr factorization fails its certification, at
-n <= 256 and T <= 320 (past them, the wide chain below).  A zero prefix
+(``link_kernel.Codec``; on SC-FDE lane t's order demaps time sample t,
+aqam's slicer row riding the time sample: ``link_kernel.sc_slicer``):
+zero-prefix OFDM below 128 subcarriers, zero-prefix SC-FDE, single-tap
+zero-prefix links, and zero-prefix OFDM whose lr factorization fails its
+certification, at n <= 256 and T <= 320 (past them, the wide chain
+below).  A zero prefix
 does not fold the conv into the receiver, so the noise is added per time
 sample and a symbol costs three complex products (four for SC-FDE).
 
@@ -17,7 +19,8 @@ act @ C (the merged conv, T+E -> T) -> AWGN per time sample with sigma =
 sqrt(mp / snr_lin / 2), mp the mean |y|^2 over the whole tile (all its
 tile * T samples, before noise) -> Y = y @ R (overlap-add + DFT, T -> n) ->
 ZF / MMSE / none -> (SC-FDE) e @ IDFT -> [post-EQ noise, x 1/sqrt(P)]
--> [x the tile's unit-power factor] -> slicer -> popcount into int64
+-> [x the tile's unit-power factor] -> (aqam on SC-FDE without
+normalize) x lane t's slicer row -> slicer -> popcount into int64
 counters (``link_kernel``'s stages).  The noise of time sample j comes from counter (b, j, 0)
 (``prng``).  The chunk returns its last symbol's x[:T], the JAX package's
 carry contract.  The previous symbol's tail is recomputed from its Philox
@@ -136,7 +139,6 @@ def mm_link(setup, device) -> MmLink:
     return MmLink(
         T=T,
         E=E,
-        is_sc=is_sc,
         tile_cap=lk.mm_tile_cap(n, T, E, is_sc, lk.selected_passes(setup)),
         pstride=1,
         **dense,
@@ -209,6 +211,7 @@ def mm_planes(link: MmLink, key: Tuple[int, int], sym0: int, chunk: int, snr_lin
     if link.is_sc:
         er, ei = lk.cmatmul(link.idr, link.idi, er, ei)
     er, ei = lk.bump_stages(link, er, ei, rows, pwords)
+    er, ei = lk.sc_slicer(link, er, ei)
     if link.normalize:
         er, ei = lk.normalize_points(link, er, ei, lk.tile_norm(er, ei, chunk, tile, RUN))
     return tx, er, ei, xr, xi
@@ -296,6 +299,7 @@ def mm_wide_planes(link: MmLink, key: Tuple[int, int], sym0: int, chunk: int, sn
     if link.is_sc:
         er, ei = dft.block_dft(er, ei, link.plan, inverse=True)
     er, ei = lk.bump_stages(link, er, ei, rows, pwords)
+    er, ei = lk.sc_slicer(link, er, ei)
     if link.normalize:
         er, ei = lk.normalize_points(link, er, ei, lk.tile_norm(er, ei, chunk, tile, WIDE_RUN, WIDE_THREADS))
     return tx, er, ei, xr, xi
@@ -338,8 +342,6 @@ def _check_wide_link(link: MmLink, device):
     if not (1 <= n <= T <= WIDE_MAX_T and T == n + link.L and link.L <= n and 0 <= link.E <= T):
         raise ValueError(f"mm_wide takes n <= T <= {WIDE_MAX_T}, T - n <= n; got n={n}, T={T}")
     lk.check_codec(link.q, n, device)
-    if link.is_sc and link.q.mode in ("aqam", "apsk"):
-        raise ValueError("mm kernel: SC-FDE takes no adaptive constellation")
 
 
 def _check_link(link: MmLink, device):
@@ -359,8 +361,6 @@ def _check_link(link: MmLink, device):
     if not (1 <= n <= MAX_N and n <= T <= MAX_T and 0 <= link.E <= T):
         raise ValueError(f"mm kernel takes n <= {MAX_N}, n <= T <= {MAX_T}; got n={n}, T={T}")
     lk.check_codec(link.q, n, device)
-    if link.is_sc and link.q.mode in ("aqam", "apsk"):
-        raise ValueError("mm kernel: SC-FDE takes no adaptive constellation")
 
 
 def chunk_workspace(link: MmLink, chunk: int, device):

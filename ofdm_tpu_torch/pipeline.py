@@ -31,17 +31,21 @@ the keys of the JAX runner's.
   certification.
 
 All take square QAM and power-of-two PSK, fixed or with CAPACITY_BASED
-per-subcarrier loading (SC-FDE fixed only), ZF / MMSE / no equalizer, AWGN
+per-subcarrier loading (``link_kernel.adaptive_supported``; on SC-FDE
+lane t's order demaps time sample t after the SC IDFT, the JAX XLA path's
+order, so aqam's slicer row multiplies the time sample:
+``link_kernel.sc_slicer``), ZF / MMSE / no equalizer, AWGN
 or no noise, and both power switches: ``apply_power_allocation`` scales the
 TX symbols by sqrt(P) per subcarrier (P the point's allocation, which
 sums to 1, or to n under adaptive loading) and ``normalize_before_demap``
 scales the equalized points to unit mean power per tile before the demap
 (the kernels' ``apply_power`` and ``normalize`` stages).
 
-* "eager" (``eager_chunk``): every link no kernel takes (adaptive SC-FDE,
-  fold and zero-prefix mm links past their widths, lr links past 4096
-  subcarriers or 63 tail lanes, diag links the JAX package's diag budget
-  refuses), and every link whose ``hotpath`` is
+* "eager" (``eager_chunk``): every link no kernel takes (fold and
+  zero-prefix mm links past the JAX package's dense budget, lr links past
+  4096 subcarriers or 63 tail lanes, diag links the JAX package's diag
+  budget refuses, adaptive orders the codec does not take), and every
+  link whose ``hotpath`` is
   neither "auto" nor "pallas": the JAX package's ``chunk_body`` on native
   complex64 tensors, as the JAX package falls back to XLA
   (ofdm_tpu/pipeline.py:568-590).  Its random draws are the kernels'
@@ -249,8 +253,8 @@ def kernel_mode(setup: LinkSetup) -> str:
     n = cfg.num_subcarriers
     if cfg.hotpath not in ("auto", "pallas"):
         return "eager"
-    if setup.is_adaptive and cfg.modulation_type == ModulationType.SC_OFDM:
-        return "eager"  # adaptive SC-FDE (ROADMAP modules item 8b): the XLA path's semantics
+    if setup.is_adaptive and not lk.adaptive_supported(setup):
+        return "eager"  # as the JAX package's supports(): orders its codec does not take
     zp = cfg.prefix_type == PrefixType.ZERO
 
     def dense():

@@ -183,10 +183,11 @@ def test_adaptive_sampled_papr_matches_jax_runner():
 
 
 def test_adaptive_scfde_and_snr_override_raise():
-    # adaptive SC-FDE runs on the eager chain, with the XLA path's semantics
+    # adaptive SC-FDE runs on the fold kernel (its plain version on the
+    # CPU), with the XLA path's semantics: lane t's order demaps time sample t
     sc = tpl.prepare(_reference(tcfg, 20.0, num_symbols=16, modulation_type="SC-OFDM"))
     sc_runner = tpl.LinkRunner(sc, device="cpu")
-    assert sc_runner.mode == "eager" and sc_runner.run(0)["hotpath_used"] == "eager"
+    assert sc_runner.mode == "fold" and sc_runner.run(0)["hotpath_used"] == "torch"
     runner = tpl.LinkRunner(tpl.prepare(_reference(tcfg, 20.0, num_symbols=16)), device="cpu")
     with pytest.raises(ValueError, match="SNR-dependent"):
         runner.run(0, snr_db=25.0)

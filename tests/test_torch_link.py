@@ -261,10 +261,11 @@ def test_runner_needs_cuda_or_an_explicit_cpu():
         # a single-tap channel past 256 subcarriers: the JAX package keeps diag, so does the port (txext)
         (dict(channel_model="flat_fading", num_subcarriers=1024, num_symbols=1024 * 16), "diag"),
         (dict(num_subcarriers=512, num_symbols=512 * 16), "diag"),
-        # the power switches run on every kernel: adaptive SC-FDE takes the
-        # eager chain for its other part (item 8b), ISI-free 384 sc diag_wide
+        # the power switches run on every kernel: adaptive SC-FDE on the fold
+        # kernel since modules item 8b (its lane rows demap after the SC
+        # IDFT), ISI-free 384 sc diag_wide
         (dict(apply_power_allocation=True, modulation_type="SC-OFDM", adaptive_modulation_mode="CAPACITY_BASED",
-              power_allocation_type="WATERFILLING", num_symbols=16), "eager"),
+              power_allocation_type="WATERFILLING", num_symbols=16), "fold"),
         (dict(normalize_before_demap=True, num_subcarriers=384, num_symbols=384 * 16), "diag"),
     ],
     ids=["psk", "scfde", "zp", "flat_fading_1024sc", "n512", "apply_power", "normalize"],
