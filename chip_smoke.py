@@ -442,7 +442,8 @@ def lr_operations(link, chunk):
     tile's slice, |y|^2 and its sum; per sampled symbol the TX product and
     the PAPR statistic.  lr_power recomputes Philox, encode, t and y on the
     slices and one previous t a block; lr_main recomputes one previous t a
-    block of RUN symbols."""
+    block of RUN symbols (both over the link's listed rows: none without a
+    tail)."""
     from ofdm_tpu_torch.ops import link_kernel as lk
     from ofdm_tpu_torch.ops import lr_kernel as lrk
 
@@ -461,9 +462,11 @@ def lr_operations(link, chunk):
     slice_syms = sum(min(link.slice, min(tile, chunk - t * tile)) for t in range(tiles)) if link.add_noise else 0
     sampled = 0 if link.txext else lk.sampled_symbols(chunk, tile, link.pstride)
     papr = sampled * (product_ops(link.fr, link.fi) + PAPR_OPS * link.T) if sampled else 0
-    y_ops = encode + 8 * n * E + 8 * n * 2 * E + 6 * n
-    power = slice_syms * y_ops + (tiles * groups if link.add_noise else 0) * (encode + 8 * n * E)
-    tails = -(-chunk // lrk.RUN) * (encode + 8 * n * E)
+    t_rows, c_rows = len(link.tail_rows), len(link.cc_rows)
+    prev_t = encode + 8 * n * t_rows if t_rows else 0
+    y_ops = encode + 8 * n * t_rows + 8 * n * c_rows + 6 * n
+    power = slice_syms * y_ops + (tiles * groups if link.add_noise else 0) * prev_t
+    tails = -(-chunk // lrk.RUN) * prev_t
     return chunk * per_symbol + slice_syms * n * POWER_SUM_OPS + papr, power, tails
 
 
@@ -535,7 +538,63 @@ def lr_cell(card, device, name, kw, sweep):
           f"bound {bound:.4f} ms ({ops} operations needed; the design adds {power_ops} in the power pass "
           f"and {tail_ops} in lr_main's tail recomputes, {(power_ops + tail_ops) / PEAK_OPS * 1e3:.4f} ms "
           f"at the same rate)")
+    lr_geometry(card, name, link)
     return launches, k_ms, p_ms, bound, sample_ms
+
+
+def lr_geometry(card, name, link):
+    """Print lr_main's layout on a link, as the loaded kernel reports it
+    (``lr_kernel.geometry``: the symbols a group M, registers, local bytes,
+    shared memory a block, resident blocks an SM), and the factor bytes a
+    bin and symbol it reads (the listed rows, D and the equalizer rows once
+    a group) beside those a layout that reads every row once a symbol
+    would."""
+    from ofdm_tpu_torch.ops import lr_kernel as lrk
+
+    g = lrk.geometry(link)
+    M = g["group_symbols"]
+    rank = link.rank if link.add_noise else 0
+    eq = {0: 8, 1: 12}.get(link.method, 0)
+    bh = len(link.bh_rows) if rank else 0
+    per_group = 8 * (len(link.tail_rows) + len(link.cc_rows) + bh) + 8 + eq
+    every_row = 8 * (3 * link.E + rank) + 8 + eq
+    print(f"lr_main on {name} (n={link.n}) [{card}]: J={g['bins_a_thread']} bins a thread, M={M} symbols a group "
+          f"(lr_power {g['power_group_symbols']}); {g['registers']} registers, {g['local_bytes']} local bytes a "
+          f"thread; shared memory a block {g['dynamic_smem_bytes']} bytes dynamic + {g['static_smem_bytes']} "
+          f"static; {g['blocks_an_sm']} blocks an SM; factor bytes a bin and symbol {per_group / M:.2f} (rows "
+          f"read: TailM {list(link.tail_rows)}, [Cr; Cp] {list(link.cc_rows)}, B^H {list(link.bh_rows)[:bh]}, "
+          f"D and the equalizer rows, once a group) against {every_row} read once a symbol over all rows")
+
+
+def lr_layouts_fit(card):
+    """lr_main's layout at every width it takes, at the largest tail and
+    noise ranks (its shared memory grows with both), with and without the
+    in-kernel PAPR, in the plain, staged and noise-bump builds: the card
+    gives each a block's shared memory and keeps a block resident, and the
+    groups divide the run, which divides every tile."""
+    import ctypes
+
+    from ofdm_tpu_torch import build
+    from ofdm_tpu_torch.ops import link_kernel as lk
+    from ofdm_tpu_torch.ops import lr_kernel as lrk
+
+    out = (ctypes.c_int * len(lrk.GEOMETRY_KEYS))()
+    most = {}
+    for library in ("lr_kernel", "lr_staged", "lr_bump"):
+        lib = build.load(library)
+        for n in range(1, lrk.MAX_N + 1):
+            for txext in (0, 1):
+                build.check(lib, lib.ofdm_lr_geometry(n, lrk.MAX_E, lrk.MAX_RANK, 1, txext, out),
+                            f"{library} ofdm_lr_geometry n={n} txext={txext}")
+                g = dict(zip(lrk.GEOMETRY_KEYS, out))
+                if g["blocks_an_sm"] < 1 or lrk.RUN % g["group_symbols"] or lrk.RUN % g["power_group_symbols"]:
+                    raise AssertionError(f"lr_main's layout at n={n}, txext={txext} in {library}: {g}")
+                most[library] = max(most.get(library, (0, 0)), (g["dynamic_smem_bytes"] + g["static_smem_bytes"], n))
+    bad = [t for t in lk.TILE_LADDER if t % lrk.RUN]
+    if bad:
+        raise AssertionError(f"tiles {bad} do not hold whole runs of {lrk.RUN}")
+    print(f"lr_main's layout fits at every width 1-{lrk.MAX_N}, E={lrk.MAX_E}, rank={lrk.MAX_RANK} [{card}]: "
+          f"most shared memory a block (bytes, at n) {most}")
 
 
 def lr_path(card, device):
@@ -563,6 +622,7 @@ def lr_path(card, device):
         print(f"random_u32: {sh} words bit-equal")
 
     err = max(check_lr(name, device) for name in LR_LINKS)
+    lr_layouts_fit(card)
     wide = lr_cell(card, device, "wide_1024sc", {}, sweep=True)
     zp = lr_cell(card, device, "lr_1024sc_zp", dict(prefix_type="ZERO"), sweep=False)
 

@@ -95,13 +95,17 @@ SIGNATURES = {
         ),
         "ofdm_fold_probe": _PROBE,
     },
+    # lr's chunk and probe take their row masks (TailM; [Cr; Cp] and B^H as
+    # two words each) after the carry-in / the outputs; ofdm_lr_geometry
+    # writes lr_main's layout into eight ints
     "lr_kernel": {
         "ofdm_lr_chunk": (
             [_P] * 15 + [_I] * 10 + [_F] + [_P] * 2 + [_F] * 4 + [_I] * 4 + [ctypes.c_ulonglong]
-            + [_I] * 5 + [_U] * 2 + [_P] * 5 + _STAGES + _PREV + [_P],
+            + [_I] * 5 + [_U] * 2 + [_P] * 5 + _STAGES + _PREV + [ctypes.c_ulonglong] * 5 + [_P],
             _I,
         ),
-        "ofdm_lr_probe": _PROBE,
+        "ofdm_lr_probe": (_PROBE[0][:-1] + [ctypes.c_ulonglong, _P], _I),
+        "ofdm_lr_geometry": ([_I] * 5 + [ctypes.POINTER(ctypes.c_int)], _I),
     },
     "mm_kernel": {
         "ofdm_mm_chunk": (

@@ -26,30 +26,55 @@
 // 1/sqrt(P) only in the one with -DOFDM_BUMP=1 as well (kBump).
 //
 // Bound on an H100: issue rate, not memory.  The chunk reads its constant
-// rows and skinny matrices (E x n each, 57 KB at n = 1024 and E = 7: L1/L2
-// resident) and writes 3 counters and one row.  Each bin runs the per-bin
-// chain it shares with the diag kernel (link_common.cuh: Philox, encode,
-// Box-Muller, equalizer, slicer, ~250 operations) plus 8 operations a term
-// of the two skinny products (E terms for t, 2E for the corrections) and,
-// on a zero prefix, r terms of g2 @ B^H.
+// rows and skinny matrices (E x n each, 57 KB at n = 1024 and E = 7) and
+// writes 3 counters and one row.  Each bin runs the per-bin chain it shares
+// with the diag kernel (link_common.cuh: Philox, encode, Box-Muller,
+// equalizer, slicer, ~250 operations) plus 8 operations a term of the two
+// skinny products (E terms for t, 2E for the corrections) and, on a zero
+// prefix, r terms of g2 @ B^H.  A layout that reads every factor element
+// once a symbol streams ~190-240 bytes a bin and symbol from L2 at 1024
+// subcarriers and is bound by L2 instead (its time grows linearly with E).
 //
 // Design:
-//  * One block of 256 threads per symbol: thread t holds bins t + 256 j
-//    (j < J, n <= 4096 so J <= 16).  Every block-wide sum — t's E outputs
-//    and the MMSE mean — is per-thread partials in k order, an xor
-//    butterfly in each warp and the 8 warps in order, a fixed order that the
-//    plain version (link_kernel.block_sum) repeats, so counts agree exactly.
+//  * One block of 256 threads walks `run` consecutive symbols in groups of
+//    M (group_of(J): 4 up to 512 subcarriers, 8 to 1024, 4 to 2048, 2 to
+//    4096); thread t holds bins t + 256 j (j < J, n <= 4096 so J <= 16).
+//    Within a group a thread loads each factor element of its bins once —
+//    TailM[e, k], [Cr; Cp][r, k], B^H[i, k], D[k], the equalizer rows — and
+//    applies it to all M symbols, so the factors stream once a group and
+//    not once a symbol.
+//  * Only the rows the host lists are read (Link's row masks, ascending):
+//    the nonzero rows of TailM and B^H, and the rows of [Cr; Cp] that are
+//    nonzero and multiply a lane of t that is not identically zero.  Under
+//    -fmad=false a skipped term is a*0 - c*0 = +-0, which leaves every sum
+//    unchanged, and t's skipped lanes are exactly +0 (the slots start at
+//    zero), so the result is bit-equal to the product over all rows.  A
+//    link with an all-zero TailM (a zero prefix covering the channel) runs
+//    no tail pass and no correction.
+//  * The group's points live in registers, s[M][J] complex (an encode loop
+//    over the symbols that shifts the rows down, so every register index is
+//    static); the Box-Muller normals (drawn right after encode: they depend
+//    only on the words), the TX indices and then y live in the thread's own
+//    slots of dynamic shared memory.
+//  * Every block-wide sum keeps the order of one symbol a block: t's E
+//    outputs and the MMSE mean are per-thread partials in k order, an xor
+//    butterfly in each warp and the 8 warps in order, which the plain
+//    version (link_kernel.block_sum) repeats, so counts agree exactly.  The
+//    group's M x 2E tail sums share one pair of barriers and its M means
+//    one barrier.
 //  * The TPU grid runs in order and carries the last tail row from tile to
-//    tile; CUDA blocks do not.  A block walks `run` consecutive symbols and
-//    keeps the previous symbol's t in shared memory; for its first symbol it
-//    recomputes t_{b-1} from Philox with the same operation order, which is
-//    bit-equal to a carried row.  Run symbol 0 sees t_prev = 0.  So nothing
-//    depends on block order, launch geometry or chunking.
+//    tile; CUDA blocks do not.  A block keeps the previous symbol's t in
+//    slot 0 of its t slots (the last slot moves there as the next group's
+//    sums land); for its first symbol it recomputes t_{b-1} from Philox
+//    with the same operation order, which is bit-equal to a carried row.
+//    Run symbol 0 sees t_prev = 0.  So nothing depends on block order,
+//    launch geometry or chunking.
 //  * Measured power: a first kernel (lr_power) recomputes y for each tile's
-//    slice (one block per 4096 slice elements) and reduces |y|^2 in
-//    power_partials' fixed order; lr_main sums a tile's partials in order.
-//  * The g2 draws of a zero-prefix symbol come from Philox counters
-//    (b lo, b hi, j, 1), one thread each, shared through shared memory.
+//    slice (one block per 4096 slice elements, in groups of group_power(J)
+//    symbols) and reduces |y|^2 in power_partials' fixed order; lr_main
+//    sums a tile's partials in order (a run lies in one tile).
+//  * The g2 draws of a zero-prefix group come from Philox counters (b lo,
+//    b hi, i, 1), one thread each, shared through shared memory.
 //  * Matrices are read through the read-only cache, (E, n) and (2E, n)
 //    row-major so a warp reads consecutive words.
 //  * Counters: per-thread 32-bit, warp and block sums, one 64-bit atomicAdd
@@ -57,13 +82,15 @@
 //    atomicAdd (its last digits depend on block order).
 //  * normalize (staged build): lr_main runs twice around norm_factors, as
 //    diag_staged does; phase 0 writes each block's |e|^2 sum over its run of
-//    symbols (each symbol's sum a block_sum), phase 1 scales and counts.
-//  * Carry-in (sharded contiguous streams): given a t, the chunk's first
-//    symbol reads it as t_prev instead of recomputing it, in every pass
-//    that recomputes one (lr_power, both passes of lr_main).
+//    symbols (each symbol's sum a block sum, added in symbol order), phase 1
+//    scales and counts.
+//  * Carry-in (sharded contiguous streams): given a t (this link's: its
+//    lanes of zero TailM rows are zero), the chunk's first symbol reads it
+//    as t_prev instead of recomputing it, in every pass that recomputes one
+//    (lr_power, both passes of lr_main).
 //  * The carry probe (lr_probe; pallas_link.py::_probe_fn_for_spec, K3):
 //    one block of the chunk's shape computes a chunk's last symbol's t
-//    through the same encode and tail_of, and writes the (T,) carry row
+//    through the same encode and tail pass, and writes the (T,) carry row
 //    (zeros but for the last E lanes) and t.
 
 #include <cstdint>
@@ -82,6 +109,16 @@ constexpr int kMaxN = 4096;
 constexpr int kMaxE = 63;
 constexpr int kMaxRank = 128;
 
+// Symbols a group of lr_main holds at J bins a thread (M x J <= 32 points a
+// thread), and of lr_power (whose block covers 4096 / n symbols); both
+// divide the run of 16 (ofdm_lr_geometry reports them).
+// Up to 512 subcarriers lr_main keeps 4 symbols a group in 64 registers, so
+// 4 blocks share an SM; from 513 it takes 128 registers and 2 blocks (the
+// faster of the layouts timed on an H100, PERF.md §6).
+__host__ __device__ constexpr int group_of(int J) { return J <= 2 ? 4 : 32 / J; }
+__host__ __device__ constexpr int group_power(int J) { return J <= 2 ? 8 : 16 / J; }
+__host__ __device__ constexpr int min_blocks(int J) { return J <= 2 ? 4 : 2; }
+
 struct Link {
   const float* tlr;  // (E, n) TailM transposed, row-major
   const float* tli;
@@ -97,7 +134,7 @@ struct Link {
   int n;
   int T;
   int E;
-  int rank;
+  int rank;  // B^H's rows; 0 without noise, so no g2 draw runs then
   ofdm::Qam q;
   float snr_lin;
   float pw_scale;
@@ -115,148 +152,199 @@ struct Link {
   ofdm::Stages st;    // the _Spec stages (OFDM_STAGED builds)
   const float* prev_r;  // (E,) t the chunk's first symbol reads as t_prev, or null
   const float* prev_i;
+  // The rows the kernels read (bit r: row r): TailM's nonzero rows, the
+  // rows of [Cr; Cp] that can add a nonzero term (bits 0-63 in [0], 64-125
+  // in [1]), B^H's nonzero rows.
+  unsigned long long tail_mask;
+  unsigned long long cc_mask[2];
+  unsigned long long bh_mask[2];
 };
 
-// Block-shared scratch of both kernels.
-struct Scratch {
-  float wsum[kWarps * 2 * kMaxE];  // per-warp sums of t (re | im)
-  float t[2][2 * kMaxE];           // this and the previous symbol's t (re | im)
-  float g[2 * kMaxRank];           // g2 draws (re | im)
-  float nv[kWarps];                // block_sum of the MMSE mean
-};
+// f(r) for each set bit r of the row mask (lo, hi), ascending.
+template <class F>
+__device__ __forceinline__ void for_rows(unsigned long long lo, unsigned long long hi, F&& f) {
+  for (unsigned long long w = lo; w != 0ull; w &= w - 1ull) f(__ffsll(static_cast<long long>(w)) - 1);
+  for (unsigned long long w = hi; w != 0ull; w &= w - 1ull) f(64 + __ffsll(static_cast<long long>(w)) - 1);
+}
 
-// Symbol `sym`'s words and points for the thread's bins (scaled under
-// apply_power).
-template <int J, int kMode, bool kStaged>
-__device__ __forceinline__ void encode(const Link& L, unsigned long long sym, int (&tx)[J],
-                                       uint32_t (&w1)[J], uint32_t (&w2)[J], float (&sr)[J],
-                                       float (&si)[J]) {
+// Dynamic shared memory of lr_main in floats, in this order: the t slots
+// (M + 1 symbols x E, float2), the g2 draws (M x rank, float2), the
+// thread's slots (M x J x 256: the normals then y as float2, the TX
+// index), the per-warp tail sums (8 x M x 2E), the per-warp MMSE and
+// energy sums (8 x M each), and a sampled symbol's s (2n, in-kernel PAPR
+// only).  ofdm_lr_geometry reports it.
+__host__ __device__ constexpr int main_smem_floats(int M, int J, int n, int E, int rank, int txext) {
+  return 2 * (M + 1) * E + 2 * M * rank + 3 * M * J * kThreads + kWarps * M * 2 * E + 2 * kWarps * M +
+         (txext ? 0 : 2 * n);
+}
+
+// lr_power's and lr_probe's: the t slots and the per-warp tail sums.
+__host__ __device__ constexpr int tail_smem_floats(int M, int E) {
+  return 2 * (M + 1) * E + kWarps * M * 2 * E;
+}
+
+// Symbols [first, first + cnt) of a group: sr / si[m][j] the points of the
+// thread's bins (zeros from cnt on), scaled under apply_power.  With kWords,
+// each (m, j) slot also gets the TX index and, with noise, the Box-Muller
+// normals of the bin's words.  The loop over symbols shifts the rows down
+// and fills the last, so every register index is static.
+template <int J, int M, int kMode, bool kStaged, bool kWords>
+__device__ __forceinline__ void encode_group(const Link& L, unsigned long long first, int cnt,
+                                             float (&sr)[M][J], float (&si)[M][J], float2* zs, int* txs) {
+  const int tid = threadIdx.x;
+#pragma unroll 1
+  for (int m = 0; m < M; ++m) {
 #pragma unroll
-  for (int j = 0; j < J; ++j) {
-    const int k = static_cast<int>(threadIdx.x) + kThreads * j;
-    tx[j] = 0;
-    w1[j] = 0u;
-    w2[j] = 0u;
-    sr[j] = 0.0f;
-    si[j] = 0.0f;
-    if (k < L.n) {
-      const uint4 wd = ofdm::symbol_words(sym, k, L.key);
-      tx[j] = ofdm::encode<kMode>(wd.x, L.q, L.lanes, k, sr[j], si[j]);
-      ofdm::scale_tx<kStaged>(L, k, sr[j], si[j]);
-      w1[j] = wd.y;
-      w2[j] = wd.z;
+    for (int i = 0; i + 1 < M; ++i) {
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        sr[i][j] = sr[i + 1][j];
+        si[i][j] = si[i + 1][j];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int k = tid + kThreads * j;
+      float a = 0.0f, c = 0.0f;
+      if (m < cnt && k < L.n) {
+        const uint4 wd = ofdm::symbol_words(first + static_cast<unsigned long long>(m), k, L.key);
+        const int tx = ofdm::encode<kMode>(wd.x, L.q, L.lanes, k, a, c);
+        ofdm::scale_tx<kStaged>(L, k, a, c);
+        if constexpr (kWords) {
+          const int slot = (m * J + j) * kThreads + tid;
+          txs[slot] = tx;
+          float zr = 0.0f, zi = 0.0f;
+          if (L.add_noise) ofdm::box_muller(wd.y, wd.z, zr, zi);
+          zs[slot] = make_float2(zr, zi);
+        }
+      }
+      sr[M - 1][j] = a;
+      si[M - 1][j] = c;
     }
   }
 }
 
-// out = s @ TailM (re at [0, E), im at [E, 2E)): per-thread partials in k
-// order, a warp butterfly, the warps in order.  Every thread of the block
-// calls it; it leaves the block synchronized.
-template <int J>
-__device__ void tail_of(const Link& L, const float (&sr)[J], const float (&si)[J], Scratch& sh,
-                        float* out) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int E2 = 2 * L.E;
-  for (int e = 0; e < L.E; ++e) {
-    float pr = 0.0f, pi = 0.0f;
+// t of the group's symbols m < cnt into out[m * E + e] (re, im) for TailM's
+// listed rows e: per-thread partials in k order, a warp butterfly, the
+// warps in order.  With `moved`, out[(M - 1) * E + e] first moves to
+// moved[e] (the previous group's last t becomes this group's t_prev).
+// Every thread of the block calls it; it leaves the block synchronized.
+template <int J, int M>
+__device__ __forceinline__ void tails_group(const Link& L, const float (&sr)[M][J], const float (&si)[M][J], int cnt,
+                            float* wsum, float2* out, float2* moved) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int E = L.E;
+  const int E2 = 2 * E;
+  for_rows(L.tail_mask, 0ull, [&](int e) {
+    float pr[M], pi[M];
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      pr[m] = 0.0f;
+      pi[m] = 0.0f;
+    }
 #pragma unroll
     for (int j = 0; j < J; ++j) {
-      const int k = static_cast<int>(threadIdx.x) + kThreads * j;
+      const int k = tid + kThreads * j;
       if (k < L.n) {
         const float f_r = __ldg(L.tlr + e * L.n + k);
         const float f_i = __ldg(L.tli + e * L.n + k);
-        pr = pr + (sr[j] * f_r - si[j] * f_i);
-        pi = pi + (sr[j] * f_i + si[j] * f_r);
+#pragma unroll
+        for (int m = 0; m < M; ++m) {
+          pr[m] = pr[m] + (sr[m][j] * f_r - si[m][j] * f_i);
+          pi[m] = pi[m] + (sr[m][j] * f_i + si[m][j] * f_r);
+        }
       }
     }
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      pr = pr + __shfl_xor_sync(0xFFFFFFFFu, pr, off);
-      pi = pi + __shfl_xor_sync(0xFFFFFFFFu, pi, off);
+    for (int m = 0; m < M; ++m) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        pr[m] = pr[m] + __shfl_xor_sync(0xFFFFFFFFu, pr[m], off);
+        pi[m] = pi[m] + __shfl_xor_sync(0xFFFFFFFFu, pi[m], off);
+      }
     }
     if (lane == 0) {
-      sh.wsum[warp * E2 + e] = pr;
-      sh.wsum[warp * E2 + L.E + e] = pi;
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        wsum[(warp * M + m) * E2 + e] = pr[m];
+        wsum[(warp * M + m) * E2 + E + e] = pi[m];
+      }
     }
-  }
+  });
   __syncthreads();
-  if (static_cast<int>(threadIdx.x) < E2) {
-    float s = 0.0f;
-    for (int w = 0; w < kWarps; ++w) s = s + sh.wsum[w * E2 + threadIdx.x];
-    out[threadIdx.x] = s;
+  for (int o = tid; o < M * E2; o += kThreads) {
+    const int m = o / E2;
+    const int c = o - m * E2;
+    const int e = c < E ? c : c - E;
+    if (((L.tail_mask >> e) & 1ull) == 0ull) continue;
+    float* dst = reinterpret_cast<float*>(out + m * E + e) + (c < E ? 0 : 1);
+    if (moved != nullptr && m == M - 1) reinterpret_cast<float*>(moved + e)[c < E ? 0 : 1] = *dst;
+    if (m < cnt) {
+      float s = 0.0f;
+      for (int w = 0; w < kWarps; ++w) s = s + wsum[(w * M + m) * E2 + c];
+      *dst = s;
+    }
   }
   __syncthreads();
 }
 
-// out = t of run symbol `sym - 1`, or zeros for the run's first symbol; the
-// chunk's first symbol reads the caller's t instead when the Link carries
-// one.  Leaves the block synchronized.
+// out[e] = t of run symbol `sym - 1` for TailM's listed rows, the t slot of
+// the run's first symbol (zero-initialized and synchronized by the
+// caller); it stays zero for the run's first symbol and when TailM is all
+// zero.  The chunk's first symbol reads the caller's t instead when the
+// Link carries one.  Leaves the block synchronized.
 template <int J, int kMode, bool kStaged>
-__device__ void prev_tail(const Link& L, unsigned long long sym, Scratch& sh, float* out) {
+__device__ void prev_tail(const Link& L, unsigned long long sym, float* wsum, float2* out) {
+  if (L.tail_mask == 0ull) return;
   if (L.prev_r != nullptr && sym == L.sym0) {
     const int e = static_cast<int>(threadIdx.x);
-    if (e < L.E) out[e] = L.prev_r[e];
-    else if (e < 2 * L.E) out[e] = L.prev_i[e - L.E];
+    if (e < L.E && ((L.tail_mask >> e) & 1ull)) out[e] = make_float2(L.prev_r[e], L.prev_i[e]);
     __syncthreads();
     return;
   }
-  if (sym == 0) {
-    if (static_cast<int>(threadIdx.x) < 2 * L.E) out[threadIdx.x] = 0.0f;
-    __syncthreads();
-    return;
-  }
-  int tx[J];
-  uint32_t w1[J], w2[J];
-  float sr[J], si[J];
-  encode<J, kMode, kStaged>(L, sym - 1, tx, w1, w2, sr, si);
-  tail_of<J>(L, sr, si, sh, out);
+  if (sym == 0) return;
+  float sr[1][J], si[1][J];
+  encode_group<J, 1, kMode, kStaged, false>(L, sym - 1, 1, sr, si, nullptr, nullptr);
+  tails_group<J, 1>(L, sr, si, 1, wsum, out, nullptr);
 }
 
-// y before noise: s * D + [t | tp] @ [Cr; Cp], the stacked product's rows in
-// order (t's, then tp's).
-template <int J>
-__device__ __forceinline__ void symbol_y(const Link& L, const float (&sr)[J], const float (&si)[J],
-                                         const float* t, const float* tp, float (&yr)[J],
-                                         float (&yi)[J]) {
+// cr / ci[m] = [t | tp] @ [Cr; Cp] at bin k for the group's symbols, over
+// the listed rows in order (t's, then tp's): ts holds the t slots, symbol m
+// at slot m + 1, its t_prev at slot m.
+template <int M>
+__device__ __forceinline__ void corrections(const Link& L, int k, const float2* ts, float (&cr)[M],
+                                            float (&ci)[M]) {
 #pragma unroll
-  for (int j = 0; j < J; ++j) {
-    const int k = static_cast<int>(threadIdx.x) + kThreads * j;
-    yr[j] = 0.0f;
-    yi[j] = 0.0f;
-    if (k < L.n) {
-      float cr = 0.0f, ci = 0.0f;
-      for (int e = 0; e < L.E; ++e) {
-        const float a = t[e];
-        const float c = t[L.E + e];
-        const float m_r = __ldg(L.ccr + e * L.n + k);
-        const float m_i = __ldg(L.cci + e * L.n + k);
-        cr = cr + (a * m_r - c * m_i);
-        ci = ci + (a * m_i + c * m_r);
-      }
-      for (int e = 0; e < L.E; ++e) {
-        const float a = tp[e];
-        const float c = tp[L.E + e];
-        const float m_r = __ldg(L.ccr + (L.E + e) * L.n + k);
-        const float m_i = __ldg(L.cci + (L.E + e) * L.n + k);
-        cr = cr + (a * m_r - c * m_i);
-        ci = ci + (a * m_i + c * m_r);
-      }
-      const float d_r = __ldg(L.dr + k);
-      const float d_i = __ldg(L.di + k);
-      yr[j] = (sr[j] * d_r - si[j] * d_i) + cr;
-      yi[j] = (sr[j] * d_i + si[j] * d_r) + ci;
-    }
+  for (int m = 0; m < M; ++m) {
+    cr[m] = 0.0f;
+    ci[m] = 0.0f;
   }
+  for_rows(L.cc_mask[0], L.cc_mask[1], [&](int r) {
+    const float m_r = __ldg(L.ccr + r * L.n + k);
+    const float m_i = __ldg(L.cci + r * L.n + k);
+    const float2* tv = ts + (r < L.E ? L.E + r : r - L.E);
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const float2 t = tv[m * L.E];
+      cr[m] = cr[m] + (t.x * m_r - t.y * m_i);
+      ci[m] = ci[m] + (t.x * m_i + t.y * m_r);
+    }
+  });
 }
 
 // Partial sums of |y|^2 (before noise) over each tile's measured-power slice,
 // in power_partials' order.  grid (tiles, groups); block (tile, g) covers
-// slice elements e = b*n + k in [g*4096, (g+1)*4096).
+// slice elements e = b*n + k in [g*4096, (g+1)*4096), its symbols in groups
+// of group_power(J).
 template <int J, int kMode, bool kStaged>
 __global__ void __launch_bounds__(kThreads) lr_power(Link L, float* partials) {
+  constexpr int M = group_power(J);
   __shared__ float red[kPowerBlock];  // element order
-  __shared__ Scratch sh;
+  extern __shared__ float dyn[];
+  float2* ts = reinterpret_cast<float2*>(dyn);
+  float* wsum = dyn + 2 * (M + 1) * L.E;
   const int tid = threadIdx.x;
   const int tile_id = blockIdx.x;
   const int g = blockIdx.y;
@@ -266,40 +354,82 @@ __global__ void __launch_bounds__(kThreads) lr_power(Link L, float* partials) {
   const int e_lo = g * kPowerBlock;
   const int e_hi = min(e_lo + kPowerBlock, count);
   for (int i = tid; i < kPowerBlock; i += kThreads) red[i] = 0.0f;
+  for (int i = tid; i < (M + 1) * L.E; i += kThreads) ts[i] = make_float2(0.0f, 0.0f);
   __syncthreads();
   if (e_lo < e_hi) {
     const int s_lo = e_lo / L.n;
     const int s_hi = (e_hi - 1) / L.n + 1;
-    prev_tail<J, kMode, kStaged>(L, L.sym0 + static_cast<unsigned long long>(b0 + s_lo), sh, sh.t[0]);
-    int cur = 0;
-    for (int s = s_lo; s < s_hi; ++s) {
-      int tx[J];
-      uint32_t w1[J], w2[J];
-      float sr[J], si[J], yr[J], yi[J];
-      encode<J, kMode, kStaged>(L, L.sym0 + static_cast<unsigned long long>(b0 + s), tx, w1, w2, sr, si);
-      tail_of<J>(L, sr, si, sh, sh.t[cur ^ 1]);
-      symbol_y<J>(L, sr, si, sh.t[cur ^ 1], sh.t[cur], yr, yi);
+    prev_tail<J, kMode, kStaged>(L, L.sym0 + static_cast<unsigned long long>(b0 + s_lo), wsum, ts);
+    for (int g0 = s_lo; g0 < s_hi; g0 += M) {
+      const int cnt = min(M, s_hi - g0);
+      float sr[M][J], si[M][J];
+      encode_group<J, M, kMode, kStaged, false>(L, L.sym0 + static_cast<unsigned long long>(b0 + g0), cnt, sr,
+                                                si, nullptr, nullptr);
+      if (L.tail_mask != 0ull) tails_group<J, M>(L, sr, si, cnt, wsum, ts + L.E, g0 > s_lo ? ts : nullptr);
 #pragma unroll
       for (int j = 0; j < J; ++j) {
         const int k = tid + kThreads * j;
-        const int e = s * L.n + k;
-        if (k < L.n && e >= e_lo && e < e_hi) red[e - e_lo] = yr[j] * yr[j] + yi[j] * yi[j];
+        if (k < L.n) {
+          float cr[M], ci[M];
+          corrections<M>(L, k, ts, cr, ci);
+          const float d_r = __ldg(L.dr + k);
+          const float d_i = __ldg(L.di + k);
+#pragma unroll
+          for (int m = 0; m < M; ++m) {
+            const float yr = (sr[m][j] * d_r - si[m][j] * d_i) + cr[m];
+            const float yi = (sr[m][j] * d_i + si[m][j] * d_r) + ci[m];
+            const int e = (g0 + m) * L.n + k;
+            if (m < cnt && e >= e_lo && e < e_hi) red[e - e_lo] = yr * yr + yi * yi;
+          }
+        }
       }
-      cur ^= 1;
+      __syncthreads();  // the t slots are rewritten by the next group
     }
   }
   ofdm::power_block_partial<kThreads, kPowerSteps>(red, tid, partials + tile_id * L.groups + g);
+}
+
+// The per-warp sums of one value a symbol (v[m], the thread's partials)
+// into sums[warp * M + m]: an xor butterfly in each warp.  Every thread of
+// the block calls it; the caller synchronizes before reading.
+template <int M>
+__device__ __forceinline__ void warp_sums(float (&v)[M], float* sums) {
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v[m] = v[m] + __shfl_xor_sync(0xFFFFFFFFu, v[m], off);
+  }
+  if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+    for (int m = 0; m < M; ++m) sums[(threadIdx.x >> 5) * M + m] = v[m];
+  }
+}
+
+// The block sum of symbol m from warp_sums' output: the warps in order.
+template <int M>
+__device__ __forceinline__ float warps_in_order(const float* sums, int m) {
+  float s = 0.0f;
+  for (int w = 0; w < kWarps; ++w) s = s + sums[w * M + m];
+  return s;
 }
 
 // With kStaged, the stages (phase 0 of a normalized link writes its run's
 // |e|^2 partial instead of counting); kDump is the dump stage's
 // launch-time variant, kBump the noise-bump stages (the OFDM_BUMP build).
 template <int J, int kMode, bool kStaged, bool kDump = false, bool kBump = false>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, min_blocks(J))
     lr_main(Link L, const float* partials, unsigned long long* acc, double* psum, float* carry_r,
             float* carry_i) {
-  extern __shared__ float splane[];  // 2n floats: a sampled symbol's s (in-kernel PAPR only)
-  __shared__ Scratch sh;
+  constexpr int M = group_of(J);
+  extern __shared__ float dyn[];
+  float2* ts = reinterpret_cast<float2*>(dyn);
+  float2* gs = ts + (M + 1) * L.E;
+  float2* zs = gs + M * L.rank;  // the thread's slots: normals, then y
+  int* txs = reinterpret_cast<int*>(zs + M * J * kThreads);
+  float* wsum = reinterpret_cast<float*>(txs + M * J * kThreads);
+  float* nvs = wsum + kWarps * M * 2 * L.E;
+  float* es = nvs + kWarps * M;
+  float* splane = es + kWarps * M;  // 2n floats: a sampled symbol's s (in-kernel PAPR only)
   const int tid = threadIdx.x;
 
   uint32_t be = 0, se = 0;
@@ -310,154 +440,223 @@ __global__ void __launch_bounds__(kThreads)
   const int b1 = min(b0 + L.run, L.chunk);
   const bool counting = !kStaged || L.st.phase == 1;
   const bool normalize = kStaged && (L.st.bits & ofdm::kStageNormalize) != 0;
-  prev_tail<J, kMode, kStaged>(L, L.sym0 + static_cast<unsigned long long>(b0), sh, sh.t[0]);
-  int cur = 0;
-  int cached_tile = -1;
+  // tile % run == 0: the run lies in one tile
+  const int tile_id = b0 / L.tile;
   float sigma = 0.0f;
-  int norm_tile = -1;
+  if (L.add_noise) {
+    const int tlen = min(L.tile, L.chunk - tile_id * L.tile);
+    sigma = ofdm::tile_sigma(partials + tile_id * L.groups, L.groups, min(L.slice, tlen) * L.n, L.snr_lin,
+                             L.pw_scale);
+  }
   float fn = 1.0f, energy = 0.0f;
-  for (int b = b0; b < b1; ++b) {
-    const int tile_id = b / L.tile;
-    if (L.add_noise && tile_id != cached_tile) {
-      const int tlen = min(L.tile, L.chunk - tile_id * L.tile);
-      sigma = ofdm::tile_sigma(partials + tile_id * L.groups, L.groups, min(L.slice, tlen) * L.n,
-                               L.snr_lin, L.pw_scale);
-      cached_tile = tile_id;
-    }
-    if constexpr (kStaged) {
-      if (normalize && counting && tile_id != norm_tile) {
-        fn = L.st.norm_f[tile_id];
-        norm_tile = tile_id;
-      }
-    }
-    const unsigned long long sym = L.sym0 + static_cast<unsigned long long>(b);
-    int tx[J];
-    uint32_t w1[J], w2[J];
-    float sr[J], si[J];
-    encode<J, kMode, kStaged>(L, sym, tx, w1, w2, sr, si);
-    float* t = sh.t[cur ^ 1];
-    const float* tp = sh.t[cur];
-    tail_of<J>(L, sr, si, sh, t);
+  if constexpr (kStaged) {
+    if (normalize && counting) fn = L.st.norm_f[tile_id];
+  }
+  const bool papr = counting && !L.txext && tile_id % L.pstride == 0;
+  for (int i = tid; i < (M + 1) * L.E; i += kThreads) ts[i] = make_float2(0.0f, 0.0f);
+  __syncthreads();
+  prev_tail<J, kMode, kStaged>(L, L.sym0 + static_cast<unsigned long long>(b0), wsum, ts);
 
-    if (counting && !L.txext && tile_id % L.pstride == 0) {
-      // PAPR: x = s @ F_tx over this symbol's n bins, T time samples.
+  for (int g0 = b0; g0 < b1; g0 += M) {
+    const int cnt = min(M, b1 - g0);
+    const unsigned long long first = L.sym0 + static_cast<unsigned long long>(g0);
+    float sr[M][J], si[M][J];
+    encode_group<J, M, kMode, kStaged, true>(L, first, cnt, sr, si, zs, txs);
+    if (L.tail_mask != 0ull) tails_group<J, M>(L, sr, si, cnt, wsum, ts + L.E, g0 > b0 ? ts : nullptr);
+
+    if (papr) {
+      // PAPR: x = s @ F_tx over each symbol's n bins, T time samples.
 #pragma unroll
-      for (int j = 0; j < J; ++j) {
-        const int k = tid + kThreads * j;
-        if (k < L.n) {
-          splane[k] = sr[j];
-          splane[L.n + k] = si[j];
+      for (int m = 0; m < M; ++m) {
+        if (m < cnt) {
+#pragma unroll
+          for (int j = 0; j < J; ++j) {
+            const int k = tid + kThreads * j;
+            if (k < L.n) {
+              splane[k] = sr[m][j];
+              splane[L.n + k] = si[m][j];
+            }
+          }
+          __syncthreads();
+          for (int c = tid; c < L.T; c += kThreads) {
+            float xr = 0.0f, xi = 0.0f;
+            for (int k = 0; k < L.n; ++k) {
+              const float a = splane[k];
+              const float cc = splane[L.n + k];
+              const float f_r = __ldg(L.fr + k * L.T + c);
+              const float f_i = __ldg(L.fi + k * L.T + c);
+              xr = xr + (a * f_r - cc * f_i);
+              xi = xi + (a * f_i + cc * f_r);
+            }
+            const float pw = xr * xr + xi * xi;
+            pk = fmaxf(pk, pw);
+            ps += static_cast<double>(pw);
+          }
+          __syncthreads();
         }
       }
-      __syncthreads();
-      for (int c = tid; c < L.T; c += kThreads) {
-        float xr = 0.0f, xi = 0.0f;
-        for (int k = 0; k < L.n; ++k) {
-          const float a = splane[k];
-          const float cc = splane[L.n + k];
-          const float f_r = __ldg(L.fr + k * L.T + c);
-          const float f_i = __ldg(L.fi + k * L.T + c);
-          xr = xr + (a * f_r - cc * f_i);
-          xi = xi + (a * f_i + cc * f_r);
-        }
-        const float pw = xr * xr + xi * xi;
-        pk = fmaxf(pk, pw);
-        ps += static_cast<double>(pw);
-      }
-      __syncthreads();
     }
 
-    float yr[J], yi[J];
-    symbol_y<J>(L, sr, si, t, tp, yr, yi);
-    if (L.add_noise) {
-      if (L.rank > 0) {
-        // colored part: g2 @ B^H, g2 from counters (b lo, b hi, j, 1)
-        if (tid < L.rank) {
+    if (L.rank > 0) {
+      // g2 of the group's symbols: counters (b lo, b hi, i, 1), B^H's listed rows
+      for (int o = tid; o < cnt * L.rank; o += kThreads) {
+        const int m = o / L.rank;
+        const int i = o - m * L.rank;
+        const bool listed = i < 64 ? ((L.bh_mask[0] >> i) & 1ull) : ((L.bh_mask[1] >> (i - 64)) & 1ull);
+        if (listed) {
+          const unsigned long long sym = first + static_cast<unsigned long long>(m);
           const uint4 wd = ofdm::philox4x32_10(
-              make_uint4(static_cast<uint32_t>(sym), static_cast<uint32_t>(sym >> 32),
-                         static_cast<uint32_t>(tid), 1u),
+              make_uint4(static_cast<uint32_t>(sym), static_cast<uint32_t>(sym >> 32), static_cast<uint32_t>(i),
+                         1u),
               L.key);
-          ofdm::box_muller(wd.y, wd.z, sh.g[tid], sh.g[L.rank + tid]);
+          float zr, zi;
+          ofdm::box_muller(wd.y, wd.z, zr, zi);
+          gs[m * L.rank + i] = make_float2(zr, zi);
         }
-        __syncthreads();
+      }
+      __syncthreads();
+    }
+
+    // y = s * D + corrections (+ noise) into the thread's slots; the MMSE
+    // partials in j order
+    float pn[M];
 #pragma unroll
-        for (int j = 0; j < J; ++j) {
-          const int k = tid + kThreads * j;
-          if (k < L.n) {
-            float cr = 0.0f, ci = 0.0f;
-            for (int i = 0; i < L.rank; ++i) {
-              const float a = sh.g[i];
-              const float c = sh.g[L.rank + i];
+    for (int m = 0; m < M; ++m) pn[m] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int k = tid + kThreads * j;
+      if (k < L.n) {
+        float yr[M], yi[M];
+        corrections<M>(L, k, ts, yr, yi);
+        const float d_r = __ldg(L.dr + k);
+        const float d_i = __ldg(L.di + k);
+#pragma unroll
+        for (int m = 0; m < M; ++m) {
+          yr[m] = (sr[m][j] * d_r - si[m][j] * d_i) + yr[m];
+          yi[m] = (sr[m][j] * d_i + si[m][j] * d_r) + yi[m];
+        }
+        if (L.add_noise) {
+          if (L.rank > 0) {
+            // colored part: g2 @ B^H over the listed rows
+            float cr[M], ci[M];
+#pragma unroll
+            for (int m = 0; m < M; ++m) {
+              cr[m] = 0.0f;
+              ci[m] = 0.0f;
+            }
+            for_rows(L.bh_mask[0], L.bh_mask[1], [&](int i) {
               const float m_r = __ldg(L.bhr + i * L.n + k);
               const float m_i = __ldg(L.bhi + i * L.n + k);
-              cr = cr + (a * m_r - c * m_i);
-              ci = ci + (a * m_i + c * m_r);
+#pragma unroll
+              for (int m = 0; m < M; ++m) {
+                const float2 gv = gs[m * L.rank + i];
+                cr[m] = cr[m] + (gv.x * m_r - gv.y * m_i);
+                ci[m] = ci[m] + (gv.x * m_i + gv.y * m_r);
+              }
+            });
+#pragma unroll
+            for (int m = 0; m < M; ++m) {
+              const float2 z = zs[(m * J + j) * kThreads + tid];
+              const float zr = z.x + cr[m];
+              const float zi = z.y + ci[m];
+              yr[m] = yr[m] + sigma * zr;
+              yi[m] = yi[m] + sigma * zi;
             }
-            ofdm::add_noise(w1[j], w2[j], cr, ci, sigma, yr[j], yi[j]);
+          } else {
+#pragma unroll
+            for (int m = 0; m < M; ++m) {
+              const float2 z = zs[(m * J + j) * kThreads + tid];
+              yr[m] = yr[m] + sigma * z.x;
+              yi[m] = yi[m] + sigma * z.y;
+            }
           }
         }
-      } else {
 #pragma unroll
-        for (int j = 0; j < J; ++j) {
-          if (tid + kThreads * j < L.n) ofdm::add_noise(w1[j], w2[j], sigma, yr[j], yi[j]);
+        for (int m = 0; m < M; ++m) {
+          pn[m] = pn[m] + (yr[m] * yr[m] + yi[m] * yi[m]);
+          zs[(m * J + j) * kThreads + tid] = make_float2(yr[m], yi[m]);
         }
       }
     }
-
-    const float nv = ofdm::mmse_nv_block<J, kWarps>(L.eq, yr, yi, L.n, L.snr_lin, sh.nv);
-    if constexpr (kStaged) {
-      float er[J], ei[J];
-      float p = 0.0f;
+    float nv[M];
 #pragma unroll
+    for (int m = 0; m < M; ++m) nv[m] = 0.0f;
+    if (L.eq.method == 1) {
+      warp_sums<M>(pn, nvs);
+      __syncthreads();
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        const float sp = warps_in_order<M>(nvs, m) / static_cast<float>(L.n);
+        nv[m] = sp / L.snr_lin / L.eq.cg;
+      }
+    }
+
+    if constexpr (kStaged) {
+      float p[M];
+#pragma unroll
+      for (int m = 0; m < M; ++m) p[m] = 0.0f;
+#pragma unroll 1
       for (int j = 0; j < J; ++j) {
         const int k = tid + kThreads * j;
-        er[j] = 0.0f;
-        ei[j] = 0.0f;
         if (k < L.n) {
-          ofdm::equalize_stage<kMode, true>(L, k, yr[j], yi[j], nv, er[j], ei[j]);
-          ofdm::bump_stages<kBump>(L, sym, k, er[j], ei[j]);
-          p = p + (er[j] * er[j] + ei[j] * ei[j]);
+#pragma unroll
+          for (int m = 0; m < M; ++m) {
+            if (m < cnt) {
+              const int slot = (m * J + j) * kThreads + tid;
+              const float2 y = zs[slot];
+              float er, ei;
+              ofdm::equalize_stage<kMode, true>(L, k, y.x, y.y, nv[m], er, ei);
+              ofdm::bump_stages<kBump>(L, first + static_cast<unsigned long long>(m), k, er, ei);
+              p[m] = p[m] + (er * er + ei * ei);
+              if (!normalize || counting) {
+                if (normalize) {
+                  const float g = ofdm::norm_gain<kMode>(L, k, fn);
+                  er = er * g;
+                  ei = ei * g;
+                }
+                ofdm::dump_bin<kMode, kDump>(L, g0 + m, k, er, ei);
+                ofdm::count_bin<kMode>(txs[slot], er, ei, L.q, L.lanes, k, be, se);
+              }
+            }
+          }
         }
       }
       if (normalize && !counting) {
-        energy = energy + ofdm::block_sum<kWarps>(p, sh.nv);
-      } else {
-#pragma unroll
-        for (int j = 0; j < J; ++j) {
-          const int k = tid + kThreads * j;
-          if (k < L.n) {
-            if (normalize) {
-              const float m = ofdm::norm_gain<kMode>(L, k, fn);
-              er[j] = er[j] * m;
-              ei[j] = ei[j] * m;
-            }
-            ofdm::dump_bin<kMode, kDump>(L, b, k, er[j], ei[j]);
-            ofdm::count_bin<kMode>(tx[j], er[j], ei[j], L.q, L.lanes, k, be, se);
-          }
+        warp_sums<M>(p, es);
+        __syncthreads();
+        if (tid == 0) {
+          for (int m = 0; m < cnt; ++m) energy = energy + warps_in_order<M>(es, m);
         }
       }
     } else {
-#pragma unroll
+#pragma unroll 1
       for (int j = 0; j < J; ++j) {
         const int k = tid + kThreads * j;
         if (k < L.n) {
-          float er, ei;
-          ofdm::equalize_bin<kMode>(L.eq, L.lanes, k, yr[j], yi[j], nv, er, ei);
-          ofdm::count_bin<kMode>(tx[j], er, ei, L.q, L.lanes, k, be, se);
+#pragma unroll
+          for (int m = 0; m < M; ++m) {
+            if (m < cnt) {
+              const int slot = (m * J + j) * kThreads + tid;
+              const float2 y = zs[slot];
+              float er, ei;
+              ofdm::equalize_bin<kMode>(L.eq, L.lanes, k, y.x, y.y, nv[m], er, ei);
+              ofdm::count_bin<kMode>(txs[slot], er, ei, L.q, L.lanes, k, be, se);
+            }
+          }
         }
       }
     }
 
-    if (counting && b == L.chunk - 1) {
+    if (counting && g0 <= L.chunk - 1 && L.chunk - 1 < g0 + cnt) {
       // the JAX carry contract: (T,) zero but for the last E lanes, this t
+      const float2* t = ts + (L.chunk - g0) * L.E;  // slot m + 1 of m = chunk - 1 - g0
       const int off = L.T - L.E;
       for (int c = tid; c < L.T; c += kThreads) {
-        carry_r[c] = c >= off ? t[c - off] : 0.0f;
-        carry_i[c] = c >= off ? t[L.E + c - off] : 0.0f;
+        carry_r[c] = c >= off ? t[c - off].x : 0.0f;
+        carry_i[c] = c >= off ? t[c - off].y : 0.0f;
       }
     }
-    cur ^= 1;
-    __syncthreads();  // t, tp and g are rewritten by the next symbol
+    __syncthreads();  // the t slots, g2 and the per-warp sums are rewritten by the next group
   }
   if constexpr (kStaged) {
     if (normalize && !counting && tid == 0 && b0 < L.chunk) L.st.norm_part[blockIdx.x] = energy;
@@ -466,42 +665,60 @@ __global__ void __launch_bounds__(kThreads)
   ofdm::flush_counters<kWarps>(be, se, pk, ps, acc, psum);
 }
 
-// K3: symbol `sym`'s t through the chunk's own encode and tail_of, one block
-// of the chunk's shape (so the block sums run in lr_main's order): the (T,)
-// carry row, zeros but for the last E lanes, and t.
+// K3: symbol `sym`'s t through the chunk's own encode and tail pass, one
+// block of the chunk's shape (so the block sums run in lr_main's order): the
+// (T,) carry row, zeros but for the last E lanes, and t.
 template <int J, int kMode, bool kStaged>
 __global__ void __launch_bounds__(kThreads)
     lr_probe(Link L, unsigned long long sym, float* carry_r, float* carry_i, float* tail_r, float* tail_i) {
-  __shared__ Scratch sh;
+  extern __shared__ float dyn[];
+  float2* t = reinterpret_cast<float2*>(dyn);
+  float* wsum = dyn + 2 * 2 * L.E;
   const int tid = threadIdx.x;
-  int tx[J];
-  uint32_t w1[J], w2[J];
-  float sr[J], si[J];
-  encode<J, kMode, kStaged>(L, sym, tx, w1, w2, sr, si);
-  float* t = sh.t[0];
-  tail_of<J>(L, sr, si, sh, t);
+  for (int i = tid; i < L.E; i += kThreads) t[i] = make_float2(0.0f, 0.0f);
+  __syncthreads();
+  if (L.tail_mask != 0ull) {
+    float sr[1][J], si[1][J];
+    encode_group<J, 1, kMode, kStaged, false>(L, sym, 1, sr, si, nullptr, nullptr);
+    tails_group<J, 1>(L, sr, si, 1, wsum, t, nullptr);
+  }
   const int off = L.T - L.E;
   for (int c = tid; c < L.T; c += kThreads) {
-    carry_r[c] = c >= off ? t[c - off] : 0.0f;
-    carry_i[c] = c >= off ? t[L.E + c - off] : 0.0f;
+    carry_r[c] = c >= off ? t[c - off].x : 0.0f;
+    carry_i[c] = c >= off ? t[c - off].y : 0.0f;
   }
   if (tid < L.E) {
-    tail_r[tid] = t[tid];
-    tail_i[tid] = t[L.E + tid];
+    tail_r[tid] = t[tid].x;
+    tail_i[tid] = t[tid].y;
   }
+}
+
+// Sets a kernel's dynamic shared memory limit and launches it.
+template <class K, class... Args>
+cudaError_t launch_with(K kernel, dim3 grid, int floats, cudaStream_t stream, Args... args) {
+  const int bytes = static_cast<int>(sizeof(float)) * floats;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, bytes, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+template <int J, int kMode>
+cudaError_t probe_at(const Link& L, unsigned long long sym, float* cr, float* ci, float* tr, float* ti,
+                     cudaStream_t stream) {
+  return launch_with(&lr_probe<J, kMode, ofdm::kStagedBuild>, dim3(1), tail_smem_floats(1, L.E), stream, L, sym,
+                     cr, ci, tr, ti);
 }
 
 template <int kMode>
 cudaError_t probe_mode(const Link& L, unsigned long long sym, float* cr, float* ci, float* tr, float* ti,
                        cudaStream_t stream) {
-  constexpr bool kS = ofdm::kStagedBuild;
   const int bins = (L.n + kThreads - 1) / kThreads;
-  if (bins <= 1) lr_probe<1, kMode, kS><<<1, kThreads, 0, stream>>>(L, sym, cr, ci, tr, ti);
-  else if (bins <= 2) lr_probe<2, kMode, kS><<<1, kThreads, 0, stream>>>(L, sym, cr, ci, tr, ti);
-  else if (bins <= 4) lr_probe<4, kMode, kS><<<1, kThreads, 0, stream>>>(L, sym, cr, ci, tr, ti);
-  else if (bins <= 8) lr_probe<8, kMode, kS><<<1, kThreads, 0, stream>>>(L, sym, cr, ci, tr, ti);
-  else lr_probe<16, kMode, kS><<<1, kThreads, 0, stream>>>(L, sym, cr, ci, tr, ti);
-  return cudaGetLastError();
+  if (bins <= 1) return probe_at<1, kMode>(L, sym, cr, ci, tr, ti, stream);
+  if (bins <= 2) return probe_at<2, kMode>(L, sym, cr, ci, tr, ti, stream);
+  if (bins <= 4) return probe_at<4, kMode>(L, sym, cr, ci, tr, ti, stream);
+  if (bins <= 8) return probe_at<8, kMode>(L, sym, cr, ci, tr, ti, stream);
+  return probe_at<16, kMode>(L, sym, cr, ci, tr, ti, stream);
 }
 
 template <int J, int kMode>
@@ -515,28 +732,21 @@ cudaError_t launch(const Link& L, float* partials, unsigned long long* acc, doub
 #endif
   if (L.add_noise) {
     const int tiles = (L.chunk + L.tile - 1) / L.tile;
-    lr_power<J, kMode, kS><<<dim3(tiles, L.groups), kThreads, 0, stream>>>(L, partials);
-    const cudaError_t err = cudaGetLastError();
+    const cudaError_t err = launch_with(&lr_power<J, kMode, kS>, dim3(tiles, L.groups),
+                                        tail_smem_floats(group_power(J), L.E), stream, L, partials);
     if (err != cudaSuccess) return err;
   }
-  const size_t plane_bytes = L.txext ? 0 : sizeof(float) * 2 * L.n;
-  if (plane_bytes > 0) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        main_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(plane_bytes));
-    if (err != cudaSuccess) return err;
-  }
-  const int grid = (L.chunk + L.run - 1) / L.run;
+  const int floats = main_smem_floats(group_of(J), J, L.n, L.E, L.rank, L.txext);  // L.rank: 0 without noise
+  const dim3 grid((L.chunk + L.run - 1) / L.run);
 #if OFDM_STAGED
   return ofdm::staged_passes(L.st.bits, L.st.norm_part, L.st.norm_f, L.chunk, L.tile, L.run, L.n, stream,
                              [&](int phase) {
     Link P = L;
     P.st.phase = phase;
-    main_kernel<<<grid, kThreads, plane_bytes, stream>>>(P, partials, acc, psum, cr, ci);
-    return cudaGetLastError();
+    return launch_with(main_kernel, grid, floats, stream, P, partials, acc, psum, cr, ci);
   });
 #else
-  main_kernel<<<grid, kThreads, plane_bytes, stream>>>(L, partials, acc, psum, cr, ci);
-  return cudaGetLastError();
+  return launch_with(main_kernel, grid, floats, stream, L, partials, acc, psum, cr, ci);
 #endif
 }
 
@@ -551,6 +761,35 @@ cudaError_t launch_mode(const Link& L, float* partials, unsigned long long* acc,
   return launch<16, kMode>(L, partials, acc, psum, cr, ci, stream);
 }
 
+// lr_main's layout at J bins a thread, from its qam entry point of this
+// build as the chunk launches it: out = [J, M, lr_power's group, dynamic
+// shared bytes a block, registers a thread, local bytes a thread (spills
+// and stack), static shared bytes, resident blocks an SM].
+template <int J>
+cudaError_t geometry_at(int n, int E, int rank, int txext, int* out) {
+  auto* kernel = &lr_main<J, ofdm::kQam, ofdm::kStagedBuild, false, ofdm::kBumpBuild>;
+  const int bytes = static_cast<int>(sizeof(float)) * main_smem_floats(group_of(J), J, n, E, rank, txext);
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  int blocks = 0;
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, bytes);
+  if (err != cudaSuccess) return err;
+  const int v[8] = {J, group_of(J), group_power(J), bytes, a.numRegs, static_cast<int>(a.localSizeBytes),
+                    static_cast<int>(a.sharedSizeBytes), blocks};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
+  return cudaSuccess;
+}
+
+// Whether a row mask (lo, hi) lists rows below `rows` only.
+bool mask_fits(unsigned long long lo, unsigned long long hi, int rows) {
+  for (int r = 0; r < 128; ++r) {
+    const bool set = r < 64 ? ((lo >> r) & 1ull) : ((hi >> (r - 64)) & 1ull);
+    if (set && r >= rows) return false;
+  }
+  return true;
+}
+
 }  // namespace ofdm_lr
 
 using namespace ofdm_lr;
@@ -563,7 +802,9 @@ extern "C" {
 // psum = PAPR power sum (float64, accumulated); carry = (T,) zeros but for the
 // last E lanes, the chunk's last symbol's t.  rows / stages / norm_part /
 // norm_f: the _Spec stages (link_common.cuh::Stages; 0 in the plain build).
-// Returns the first CUDA error of the launches, 0 if none.
+// tail_mask, cc_lo / cc_hi, bh_lo / bh_hi: the rows of TailM, [Cr; Cp] and
+// B^H the kernels read (Link's masks).  Returns the first CUDA error of the
+// launches, 0 if none.
 int ofdm_lr_chunk(const float* tlr, const float* tli, const float* ccr, const float* cci,
                   const float* bhr, const float* bhi, const float* dr, const float* di,
                   const float* fr, const float* fi, const float* hr, const float* hi,
@@ -575,11 +816,14 @@ int ofdm_lr_chunk(const float* tlr, const float* tli, const float* ccr, const fl
                   long long* acc, double* psum, float* carry_r, float* carry_i, const float* rows,
                   int stages, float* norm_part, float* norm_f,
                     float* dump_r, float* dump_i, int dump_rows, const float* prev_r,
-                    const float* prev_i, void* stream_ptr) {
+                    const float* prev_i, unsigned long long tail_mask, unsigned long long cc_lo,
+                    unsigned long long cc_hi, unsigned long long bh_lo, unsigned long long bh_hi,
+                    void* stream_ptr) {
   if (n < 1 || n > kMaxN || T < n || E < 1 || E > kMaxE || E > T || rank < 0 ||
       (prev_r == nullptr) != (prev_i == nullptr) ||
       rank > kMaxRank || chunk < 1 || tile < 1 || slice < 1 || groups < 1 || run < 1 ||
-      tile % run != 0 ||
+      tile % run != 0 || run % group_of((n + kThreads - 1) / kThreads) != 0 ||
+      !mask_fits(tail_mask, 0ull, E) || !mask_fits(cc_lo, cc_hi, 2 * E) || !mask_fits(bh_lo, bh_hi, rank) ||
       !ofdm::stage_args_ok(rows, stages, norm_part, norm_f, dump_r, dump_i, dump_rows, ofdm::kBumpBuild) ||
       pstride < 1 || (!txext && (fr == nullptr || fi == nullptr)) ||
       (add_noise && rank > 0 && (bhr == nullptr || bhi == nullptr)) ||
@@ -620,6 +864,11 @@ int ofdm_lr_chunk(const float* tlr, const float* tli, const float* ccr, const fl
   L.st = ofdm::make_stages(rows, stages, norm_part, norm_f, dump_r, dump_i, dump_rows);
   L.prev_r = prev_r;
   L.prev_i = prev_i;
+  L.tail_mask = tail_mask;
+  L.cc_mask[0] = cc_lo;
+  L.cc_mask[1] = cc_hi;
+  L.bh_mask[0] = bh_lo;
+  L.bh_mask[1] = bh_hi;
 
   unsigned long long* a = reinterpret_cast<unsigned long long*>(acc);
   return static_cast<int>(ofdm::with_mode(mode, [&](auto md) {
@@ -629,16 +878,18 @@ int ofdm_lr_chunk(const float* tlr, const float* tli, const float* ccr, const fl
 
 // K3, the carry probe: run symbol `sym`'s (T,) carry row (carry_r /
 // carry_i: zeros but for the last E lanes, its t) and t (tail_r / tail_i,
-// E each), through the chunk's encode and tail_of in mode `mode`
-// (apply_power only: `rows` and the stage bits).  The chunk of run symbols
-// [sym0, sym0 + chunk) returns symbol sym0 + chunk - 1's row as its carry.
-// Returns the launch's CUDA error, 0 if none.
+// E each), through the chunk's encode and tail pass in mode `mode`
+// (apply_power only: `rows` and the stage bits) over TailM's rows in
+// `tail_mask`.  The chunk of run symbols [sym0, sym0 + chunk) returns
+// symbol sym0 + chunk - 1's row as its carry.  Returns the launch's CUDA
+// error, 0 if none.
 int ofdm_lr_probe(const float* tlr, const float* tli, int n, int T, int E, int mode, int order, int m,
                   int logm, int bits, int gray, float scale, const int* lane_i, const float* lane_f,
                   unsigned long long sym, unsigned int key0, unsigned int key1, const float* rows,
                   int stages, float* carry_r, float* carry_i, float* tail_r, float* tail_i,
-                  void* stream_ptr) {
+                  unsigned long long tail_mask, void* stream_ptr) {
   if (n < 1 || n > kMaxN || T < n || E < 1 || E > kMaxE || E > T || (stages & ~ofdm::kStagePower) ||
+      !mask_fits(tail_mask, 0ull, E) ||
       !ofdm::stage_args_ok(rows, stages, nullptr, nullptr, nullptr, nullptr, 0, false) ||
       (ofdm::adaptive(mode) && (lane_i == nullptr || lane_f == nullptr))) {
     return cudaErrorInvalidValue;
@@ -653,10 +904,28 @@ int ofdm_lr_probe(const float* tlr, const float* tli, int n, int T, int E, int m
   L.lanes = ofdm::Lanes{lane_i, lane_f, n};
   L.key = make_uint2(key0, key1);
   L.st = ofdm::make_stages(rows, stages, nullptr, nullptr, nullptr, nullptr, 0);
+  L.tail_mask = tail_mask;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   return static_cast<int>(ofdm::with_mode(mode, [&](auto md) {
     return probe_mode<decltype(md)::value>(L, sym, carry_r, carry_i, tail_r, tail_i, stream);
   }));
+}
+
+// lr_main's layout on a link of n bins, E tail lanes and noise rank `rank`
+// (geometry_at's eight ints into out; the rank counts only with add_noise,
+// as in ofdm_lr_chunk).  A layout whose shared memory the card cannot give
+// a block returns the CUDA error of setting it.  Returns 0 if none.
+int ofdm_lr_geometry(int n, int E, int rank, int add_noise, int txext, int* out) {
+  if (n < 1 || n > kMaxN || E < 1 || E > kMaxE || rank < 0 || rank > kMaxRank || out == nullptr) {
+    return cudaErrorInvalidValue;
+  }
+  const int r = add_noise ? rank : 0;
+  const int bins = (n + kThreads - 1) / kThreads;
+  if (bins <= 1) return static_cast<int>(geometry_at<1>(n, E, r, txext, out));
+  if (bins <= 2) return static_cast<int>(geometry_at<2>(n, E, r, txext, out));
+  if (bins <= 4) return static_cast<int>(geometry_at<4>(n, E, r, txext, out));
+  if (bins <= 8) return static_cast<int>(geometry_at<8>(n, E, r, txext, out));
+  return static_cast<int>(geometry_at<16>(n, E, r, txext, out));
 }
 
 const char* ofdm_error_string(int code) {

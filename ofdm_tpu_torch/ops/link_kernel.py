@@ -1340,9 +1340,10 @@ def probe_symbol_tx(link, key: Tuple[int, int], sym: int, words_n: int, rows, de
     return sr, si
 
 
-def probe_launch(lib, fn: str, link, mats, key, sym: int, rows, device):
+def probe_launch(lib, fn: str, link, mats, key, sym: int, rows, device, extra=()):
     """Launch ``fn`` (``ofdm_{fold,lr,mm}_probe``) of ``lib`` for run symbol
-    ``sym`` of ``link`` with its TX matrix pair ``mats``; returns (carry_r,
+    ``sym`` of ``link`` with its TX matrix pair ``mats`` (and ``extra``, the
+    arguments after the outputs: lr's tail row mask); returns (carry_r,
     carry_i, tail_r, tail_i)."""
     from ofdm_tpu_torch import build
 
@@ -1353,7 +1354,7 @@ def probe_launch(lib, fn: str, link, mats, key, sym: int, rows, device):
         code = getattr(lib, fn)(
             mats[0].data_ptr(), mats[1].data_ptr(), link.n, link.T, link.E, *codec_args(link.q), sym,
             key[0], key[1], None if rows is None else rows.data_ptr(), STAGE_POWER if link.apply_power else 0,
-            *(t.data_ptr() for t in out), stream)
+            *(t.data_ptr() for t in out), *extra, stream)
     build.check(lib, code, fn)
     return out
 

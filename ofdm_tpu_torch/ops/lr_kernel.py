@@ -25,13 +25,20 @@ its PAPR in the run from the scaled symbols (pallas_link.py:876-887).  The chunk
 its last E lanes, which hold the last symbol's t.
 
 Every block-wide sum (t, the MMSE mean) runs in a fixed order that the
-plain version repeats step by step (``link_kernel.block_sum``): a kernel
-block of ``THREADS`` threads holds one symbol, thread k % THREADS sums its
-bins in k order, warps reduce by an xor butterfly, then the warps in order.
-The previous symbol's t is recomputed from its Philox words, so nothing
-depends on block order or chunking: the run's symbol 0 sees t_prev = 0.  A
-sharded contiguous stream passes ``prev``, the t of the symbol before the
-chunk's first, which another shard computed: the first symbol reads it.
+plain version repeats step by step (``link_kernel.block_sum``): each
+symbol's sums run over a kernel block of ``THREADS`` threads, thread
+k % THREADS sums its bins in k order, warps reduce by an xor butterfly,
+then the warps in order.  The kernel block walks its run of ``RUN``
+symbols in groups of M (``geometry``), reading each factor element
+once a group, and only the factor rows ``lr_link`` lists (``tail_rows``,
+``cc_rows``, ``bh_rows``): a skipped row is identically zero, or multiplies
+a lane of t that is, so its terms are +-0 and every sum is bit-equal to the
+product over all rows that the plain version takes.  The previous symbol's
+t is recomputed from its Philox words, so nothing depends on block order or
+chunking: the run's symbol 0 sees t_prev = 0.  A sharded contiguous stream
+passes ``prev``, the t of the symbol before the chunk's first, which
+another shard computed (a t of this link: zero on TailM's zero rows): the
+first symbol reads it.
 
 ``lr_probe`` is K3, the carry probe (pallas_link.py::_probe_fn_for_spec):
 a chunk's carry row and t, from its last symbol's Philox words alone,
@@ -43,6 +50,7 @@ through the chunk's own encode and block sums.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 from typing import Optional, Tuple
@@ -57,10 +65,42 @@ from ofdm_tpu_torch.ops import linops, lowrank, prng
 MAX_N = 4096  # bins a thread holds: up to 16
 MAX_E = 63  # tail lanes
 MAX_RANK = 128  # ZP noise-factor rank
-THREADS = 256  # one kernel block per symbol
+THREADS = 256  # a kernel block's threads; each symbol's block sums run over them
 # Consecutive symbols one block of lr_main walks; it recomputes t of the
 # symbol before its first, so one t in RUN + 1 is extra work.
 RUN = 16
+
+
+GEOMETRY_KEYS = ("bins_a_thread", "group_symbols", "power_group_symbols", "dynamic_smem_bytes", "registers",
+                 "local_bytes", "static_smem_bytes", "blocks_an_sm")
+
+
+def geometry(link: LrLink) -> dict:
+    """lr_main's layout on a CUDA link, read from the library its chunk runs
+    from (csrc/lr_kernel.cu::ofdm_lr_geometry, the qam entry point as the
+    chunk launches it): bins a thread (J), the symbols a group of lr_main
+    and of lr_power (M), its dynamic shared memory a block, and from the
+    loaded kernel its registers, local bytes a thread (spills and stack),
+    static shared memory and resident blocks an SM.  Raises if the card
+    cannot give a block that shared memory."""
+    from ofdm_tpu_torch import build
+
+    lib = build.load(lk.staged_library(link, None, "lr"))
+    out = (ctypes.c_int * len(GEOMETRY_KEYS))()
+    code = lib.ofdm_lr_geometry(link.n, link.E, link.rank, int(link.add_noise), int(link.txext), out)
+    build.check(lib, code, "ofdm_lr_geometry")
+    return dict(zip(GEOMETRY_KEYS, out))
+
+
+def nonzero_rows(re: torch.Tensor, im: torch.Tensor) -> Tuple[int, ...]:
+    """Indices of the rows of a complex (rows, n) pair that hold a nonzero."""
+    return tuple(int(r) for r in torch.nonzero((re != 0).any(1) | (im != 0).any(1)).flatten())
+
+
+def row_mask(rows) -> Tuple[int, int]:
+    """(bits 0-63, bits 64-127) of a row list, the kernel's row mask."""
+    bits = sum(1 << r for r in rows)
+    return bits & (2**64 - 1), bits >> 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,6 +139,12 @@ class LrLink:
     gi: torch.Tensor
     fr: Optional[torch.Tensor]  # (n, T) TX matrix; None under txext
     fi: Optional[torch.Tensor]
+    # The rows the kernel reads, ascending: TailM's nonzero rows, the rows of
+    # [Cr; Cp] that are nonzero and multiply a lane of t in tail_rows, and
+    # B^H's nonzero rows.
+    tail_rows: Tuple[int, ...]
+    cc_rows: Tuple[int, ...]
+    bh_rows: Tuple[int, ...]
     # The noise-bump study's stages (link_kernel.noise_bump_link): post-EQ
     # noise of sigma rows[2], then x rows[1] (1/sqrt(P)).
     post_noise: bool = False
@@ -137,6 +183,9 @@ def lr_link(setup, device, factors: Optional[lowrank.LRFactors] = None) -> LrLin
     cc = np.concatenate([f.cr, f.cp])
     bh = np.ascontiguousarray(f.bnoise.conj().T) if rank else None
     ftx = None if txext else linops.tx_matrix(n, cfg.prefix_type, L, cfg.modulation_type)
+    tail_r, tail_i, cc_r, cc_i = f32(tail.real), f32(tail.imag), f32(cc.real), f32(cc.imag)
+    bh_r, bh_i = (None, None) if bh is None else (f32(bh.real), f32(bh.imag))
+    tail_rows = nonzero_rows(tail_r, tail_i)
     return LrLink(
         T=T,
         E=f.E,
@@ -145,16 +194,19 @@ def lr_link(setup, device, factors: Optional[lowrank.LRFactors] = None) -> LrLin
         pstride=cfg.papr_stride or 32,
         tile_cap=lk.lr_tile_cap(n, T, f.E, rank, txext, lk.selected_passes(setup)),
         pw_scale=float(np.float32(f.pw_scale)) if cfg.prefix_type == PrefixType.ZERO else 1.0,
-        tail_r=f32(tail.real),
-        tail_i=f32(tail.imag),
-        cc_r=f32(cc.real),
-        cc_i=f32(cc.imag),
-        bh_r=None if bh is None else f32(bh.real),
-        bh_i=None if bh is None else f32(bh.imag),
+        tail_r=tail_r,
+        tail_i=tail_i,
+        cc_r=cc_r,
+        cc_i=cc_i,
+        bh_r=bh_r,
+        bh_i=bh_i,
         dr=f32(f.d.real),
         di=f32(f.d.imag),
         fr=None if ftx is None else f32(ftx[0]),
         fi=None if ftx is None else f32(ftx[1]),
+        tail_rows=tail_rows,
+        cc_rows=tuple(r for r in nonzero_rows(cc_r, cc_i) if r % f.E in tail_rows),
+        bh_rows=() if bh is None else nonzero_rows(bh_r, bh_i),
         **lk.equalizer_fields(setup, device),
     )
 
@@ -309,6 +361,10 @@ def _check_link(link: LrLink, device):
     if not (1 <= n <= MAX_N and 1 <= E <= MAX_E and 0 <= r <= MAX_RANK and link.T >= n):
         raise ValueError(f"lr kernel takes n <= {MAX_N}, 1 <= E <= {MAX_E}, rank <= {MAX_RANK}; "
                          f"got n={n}, E={E}, rank={r}")
+    for name, rows, bound in (("tail_rows", link.tail_rows, E), ("cc_rows", link.cc_rows, 2 * E),
+                              ("bh_rows", link.bh_rows, r)):
+        if list(rows) != sorted(set(rows)) or any(not 0 <= i < bound for i in rows):
+            raise ValueError(f"link.{name} must be ascending distinct rows below {bound}, got {rows}")
     lk.check_codec(link.q, n, device)
 
 
@@ -390,7 +446,8 @@ def lr_chunk(
             key[0], key[1],
             partials.data_ptr(), acc.data_ptr(), psum.data_ptr(),
             carry_r.data_ptr(), carry_i.data_ptr(),
-            *lk.stage_args(link, rows, norm_part, norm_f, dump), *prev_ptrs, stream,
+            *lk.stage_args(link, rows, norm_part, norm_f, dump), *prev_ptrs,
+            *row_mask(link.tail_rows)[:1], *row_mask(link.cc_rows), *row_mask(link.bh_rows), stream,
         )
     build.check(lib, code, "ofdm_lr_chunk")
     if link.add_noise:
@@ -407,7 +464,8 @@ def lr_probe(link: LrLink, key: Tuple[int, int], sym0: int, chunk: int, rows=Non
     returns (bitwise: zeros but for the last E lanes) and the last symbol's
     t (the t_prev the next symbol reads).  CUDA links launch ``lr_probe``
     (csrc/lr_kernel.cu; one block of lr_main's shape through the chunk's
-    encode and tail_of, in the library the chunk runs from), counted in
+    encode and tail pass over ``tail_rows``, in the library the chunk runs
+    from), counted in
     ``lr_probe.launches``; CPU links run ``lr_probe_plain``."""
     dev = link.dr.device
     if dev.type == "cpu":
@@ -417,7 +475,7 @@ def lr_probe(link: LrLink, key: Tuple[int, int], sym0: int, chunk: int, rows=Non
 
     lib = build.load(lk.staged_library(link, None, "lr"))
     out = lk.probe_launch(lib, "ofdm_lr_probe", link, (link.tail_r, link.tail_i), key, sym0 + chunk - 1, rows,
-                          dev)
+                          dev, row_mask(link.tail_rows)[:1])
     lr_probe.launches += 1
     return out
 

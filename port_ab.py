@@ -1,6 +1,6 @@
 """A/B of two trees of the port on one CUDA card: registers and chunk times.
 
-    python3 port_ab.py OTHER_TREE [--reps 3]
+    python3 port_ab.py OTHER_TREE [--reps 3] [--lr-study]
 
 OTHER_TREE is another checkout of this repository (for example the parent
 commit, unpacked with ``git archive`` into a directory that .gitignore
@@ -11,13 +11,18 @@ compares the registers ptxas reports for every qam entry point that both
 trees have, in the plain chunk libraries and apart in the staged ones.
 Then it times, at a 2^17-symbol chunk, the five qam cells' chunk kernels
 (the headline link on diag, scfde_default on fold, wide_1024sc and
-lr_1024sc_zp on lr, zp_64sc on mm) and the staged cells (a waterfilling
-link with both power switches on each chain, and the noise-bump study's
-chunk with all four stages on diag at 64, 512 and 1024 subcarriers, fold
-and mm; a cell a tree does not take reads "skip") in four processes, in
-the order other, this, this, other; each time is the median of ``reps``
-timings of 20 launches by CUDA events (10 for the staged cells).  Prints
-one JSON object as its last line.
+lr_1024sc_zp on lr, zp_64sc on mm; the lr zero-prefix chunk at 512 and
+2048 subcarriers, lr_main's other group sizes) and the staged cells (a
+waterfilling link with both power switches on each chain, and the
+noise-bump study's chunk with all four stages on diag at 64, 512 and 1024
+subcarriers, fold and mm; a cell a tree does not take reads "skip") in
+four processes, in the order other, this, this, other; each time is the
+median of ``reps`` timings of 20 launches by CUDA events (10 for the
+staged cells).  With ``--lr-study`` it times the lr study's cells instead:
+the lr chunk over the repo's channel models of E = 1, 3 and 5 at 1024
+subcarriers (cyclic and zero prefix) and a short-CP link at 128, and the
+staged 1024-sc lr chunks with the PAPR statistic on one tile in 128 (its
+share of them).  Prints one JSON object as its last line.
 """
 
 import json
@@ -40,6 +45,9 @@ CELLS = {
     "wide_1024sc": WIDE,
     "lr_1024sc_zp": dict(WIDE, prefix_type="ZERO"),
     "zp_64sc": dict(HEADLINE, prefix_type="ZERO"),
+    # lr_main's groups of 4 (four blocks an SM) and of 2 symbols
+    "lr_512sc_zp": dict(WIDE, num_subcarriers=512, prefix_type="ZERO"),
+    "lr_2048sc_zp": dict(WIDE, num_subcarriers=2048, prefix_type="ZERO"),
 }
 _WF = dict(power_allocation_type="WATERFILLING", apply_power_allocation=True, normalize_before_demap=True)
 _NB = dict(noise_type="NONE", apply_power_allocation=True, normalize_before_demap=True)
@@ -56,6 +64,22 @@ STAGED_CELLS = {
     "bump_study_1024sc": (dict(HEADLINE, **_NB, num_subcarriers=1024), True),
     "bump_scfde_default": (dict(SCFDE, **_NB), True),
     "bump_zp_64sc": (dict(HEADLINE, **_NB, prefix_type="ZERO"), True),
+}
+# --lr-study: the lr chunk against the tail rank E, and the in-run PAPR's
+# share of the staged 1024-sc lr chunks (1 tile in 128 sampled, not 4)
+LR_STUDY_CELLS = {
+    "lr_two_ray_1024sc": dict(WIDE, channel_model="two_ray"),
+    "lr_two_ray_1024sc_zp": dict(WIDE, channel_model="two_ray", prefix_type="ZERO"),
+    "lr_p2_1024sc": dict(WIDE, channel_model="Lin-Phoong_P2"),
+    "lr_p2_1024sc_zp": dict(WIDE, channel_model="Lin-Phoong_P2", prefix_type="ZERO"),
+    "lr_rayleigh_1024sc": dict(WIDE, channel_model="rayleigh_fading"),
+    "lr_rayleigh_1024sc_zp": dict(WIDE, channel_model="rayleigh_fading", prefix_type="ZERO"),
+    "lr_cp034_128sc": dict(WIDE, num_subcarriers=128, constellation_order=16, prefix_length_ratio=0.34,
+                           snr_db=20.0),
+}
+LR_STUDY_STAGED = {
+    "wf_wide_1024sc_papr1": (dict(WIDE, **_WF, papr_stride=128), False),
+    "bump_study_1024sc_papr1": (dict(HEADLINE, **_NB, num_subcarriers=1024, papr_stride=128), True),
 }
 
 
@@ -108,7 +132,8 @@ def staged_cell(kw, bump, dev):
 
 
 def worker(what, reps):
-    """In a tree's own process: build its libraries, or time its cells."""
+    """In a tree's own process: build its libraries, or time its cells
+    (``what`` "time") or the lr study's ("lr_study")."""
     import torch
 
     from ofdm_tpu_torch import build
@@ -122,8 +147,9 @@ def worker(what, reps):
     from ofdm_tpu_torch.pipeline import LinkRunner, prepare
 
     dev = torch.device("cuda")
+    cells, staged = (LR_STUDY_CELLS, LR_STUDY_STAGED) if what == "lr_study" else (CELLS, STAGED_CELLS)
     out = {}
-    for name, kw in CELLS.items():
+    for name, kw in cells.items():
         runner = LinkRunner(prepare(SimulationConfig(**kw, num_symbols=kw["num_subcarriers"] * 4 * CHUNK,
                                                      symbols_per_chunk=CHUNK)), dev)
         link, chunk_fn = runner.link, runner.kernel.chunk
@@ -135,7 +161,7 @@ def worker(what, reps):
             chunk_fn(link, (3, 4), CHUNK, CHUNK, snr_lin, acc, psum, work)
 
         out[name] = median_ms(launch, reps, 20)
-    for name, (kw, bump) in STAGED_CELLS.items():
+    for name, (kw, bump) in staged.items():
         try:
             launch = staged_cell(kw, bump, dev)
         except (TypeError, ValueError) as e:  # a stage the tree's chain does not have
@@ -200,7 +226,7 @@ def main(argv):
           f"this {builds['this']['build_s']:.1f} ({len(builds['this']['libraries'])} libraries)")
     timings = []
     for label in ("other", "this", "this", "other"):
-        t = run_worker(other if label == "other" else HERE, "time", reps)
+        t = run_worker(other if label == "other" else HERE, "lr_study" if "--lr-study" in argv else "time", reps)
         print(f"{label}: {json.dumps(t)}", flush=True)
         timings.append({"tree": label, "ms": t})
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
