@@ -64,8 +64,10 @@ z = 5 against the JAX package's XLA reading (on fold with the fold
 kernel's measured power), beside the eager chain's rate on the same
 link).  For each path it checks the BER gate or band,
 the SNR sweep and the launch counters, reads the profiler's busy share,
-and times the kernel beside its plain version and its bound.  Any failed
-check raises.
+and times the kernel beside its plain version and its bound; for the fold
+and mm kernels it also reads their layout off the loaded kernels (symbols
+a group, warps, registers, shared memory, blocks an SM) and checks it at
+every width they take.  Any failed check raises.
 
 Then K3, the carry probe, against its plain version and the chunk
 kernels' carry row on 14 links, and the chunks' carry-in; the sharded runs
@@ -730,13 +732,13 @@ def fold_operations(link, chunk, ops=OPS_PER_BIN):
     the per-bin chain as in the diag count (Philox, encode, noise,
     equalizer, slicer, counters) and the PAPR statistic per time sample;
     per bin of each tile's slice, |y|^2 and its sum.  fold_power recomputes
-    Philox, encode and both dense products on the slices; fold_main's warps
-    recompute their first symbol's predecessor tail (Philox, encode, the
-    dense tail product; fold_power's one tail a warp is not counted)."""
+    Philox, encode and both products' listed terms on the slices; fold_main's
+    warps recompute their first symbol's predecessor tail (Philox, encode,
+    the tail columns' listed terms; fold_power's one tail a warp is not
+    counted)."""
     from ofdm_tpu_torch.ops import fold_kernel as fk
 
-    n, T, E = link.n, link.T, link.E
-    TE = T + E
+    n, T = link.n, link.T
     eq = ops["mmse"] if link.method == 1 else 6
     per_symbol = (product_ops(link.txr, link.txi) + product_ops(link.cmr, link.cmi)
                   + (product_ops(link.idr, link.idi) if link.is_sc else 0)
@@ -746,9 +748,60 @@ def fold_operations(link, chunk, ops=OPS_PER_BIN):
     tile, tiles, _ = fk._chunk_geometry(link, chunk)
     slice_syms = sum(min(link.slice, min(tile, chunk - t * tile)) for t in range(tiles)) if link.add_noise else 0
     encode = n * (ops["philox"] + ops["encode"])
-    power = slice_syms * (encode + 8 * 2 * n * TE)
-    tails = -(-chunk // fk.RUN) * (encode + 8 * n * E)
+    power = slice_syms * (encode + 8 * (link.tx_terms.nonzero + link.cm_terms.nonzero))
+    tails = -(-chunk // fk.RUN) * (encode + tail_ops(link))
     return chunk * per_symbol + slice_syms * n * POWER_SUM_OPS, power, tails
+
+
+def group_geometry(card, chain, name, link):
+    """Print the fold or mm kernels' layout on a link as the loaded kernels
+    report it (``{fold,mm}_kernel.geometry``: bins a lane, symbols a group,
+    each kernel's warps a block, registers, local bytes a thread, shared
+    memory a block and resident blocks an SM), and the products' listed
+    terms a symbol (the nonzero elements; and the terms the lanes run)
+    against the dense products'.  Returns the layout."""
+    from ofdm_tpu_torch.ops import fold_kernel as fk
+    from ofdm_tpu_torch.ops import link_kernel as lk
+    from ofdm_tpu_torch.ops import mm_kernel as mmk
+    from ofdm_tpu_torch.ops import terms
+
+    mod, second = (fk, "power") if chain == "fold" else (mmk, "front")
+    g = mod.geometry(link.n, link.T, link.E, lk.staged_library(link, None, chain))
+    mats = [t for t in (getattr(link, f"{m}_terms", None) for m in ("tx", "cm", "cv", "rx", "id")) if t is not None]
+    listed = sum(t.nonzero for t in mats)
+    ran = sum(terms.lane_terms(t) for t in mats)
+    full = sum(t.rows * t.cols for t in mats)
+    print(f"{chain} layout on {name} (n={link.n}, T={link.T}, E={link.E}) [{card}]: J={g['bins_a_lane']} bins a "
+          f"lane, S={g['group_symbols']} symbols a group; {chain}_main {g['warps']} warps a block, "
+          f"{g['registers']} registers, {g['local_bytes']} local bytes a thread, shared memory a block "
+          f"{g['dynamic_smem_bytes']} bytes dynamic + {g['static_smem_bytes']} static, {g['blocks_an_sm']} blocks "
+          f"an SM; {chain}_{second} {g[second + '_warps']} warps, {g[second + '_registers']} registers, "
+          f"{g[second + '_local_bytes']} local bytes, {g[second + '_dynamic_smem_bytes']} bytes dynamic, "
+          f"{g[second + '_blocks_an_sm']} blocks an SM; listed terms a symbol {listed} (lanes run {ran}) against "
+          f"{full} dense")
+    return g
+
+
+def group_layouts_fit(card):
+    """The fold and mm kernels' layouts at every width they take (n = 1 ...
+    256 at the widest time samples and tail a link of that width can have:
+    T = 2n, mm at most 320, and E = T), in the plain, staged and noise-bump
+    builds: the card gives each kernel's block its shared memory and keeps
+    one resident."""
+    from ofdm_tpu_torch.ops import fold_kernel as fk
+    from ofdm_tpu_torch.ops import mm_kernel as mmk
+
+    most = {}
+    for chain, mod, second in (("fold", fk, "power"), ("mm", mmk, "front")):
+        for library in (f"{chain}_kernel", f"{chain}_staged", f"{chain}_bump"):
+            for n in range(1, mod.MAX_N + 1):
+                T = min(2 * n, mmk.MAX_T) if chain == "mm" else 2 * n
+                g = mod.geometry(n, T, T, library)
+                if min(g["warps"], g["blocks_an_sm"], g[second + "_warps"], g[second + "_blocks_an_sm"]) < 1:
+                    raise AssertionError(f"{library}'s layout at n={n}, T={T}, E={T}: {g}")
+                most[library] = max(most.get(library, (0, 0)), (g["dynamic_smem_bytes"] + g["static_smem_bytes"], n))
+    print(f"fold and mm layouts fit at every width 1-256, T = 2n (mm <= 320), E = T [{card}]: most shared memory a "
+          f"block (bytes, at n) {most}")
 
 
 def fold_path(card, device):
@@ -763,6 +816,7 @@ def fold_path(card, device):
 
     last = MAIN_SYMBOLS - MAIN_CHUNK
     err = max(check_fold(name, last, device) for name in FOLD_LINKS)
+    group_layouts_fit(card)
 
     runner = LinkRunner(prepare(scfde_cfg(MAIN_SYMBOLS, MAIN_CHUNK)))
     if runner.mode != "fold":
@@ -798,6 +852,7 @@ def fold_path(card, device):
     snr_lin = lk.snr_linear(10.0)
     acc, psum = lk.new_accumulators(device)
     work = fk.chunk_workspace(link, MAIN_CHUNK, device)
+    layout = group_geometry(card, "fold", "scfde_default", link)
     k_ms = cuda_ms(lambda: fk.fold_chunk(link, (3, 4), MAIN_CHUNK, MAIN_CHUNK, snr_lin, acc, psum, work), 20)
     p_ms = cuda_ms(lambda: fk.fold_chunk_plain(link, (3, 4), MAIN_CHUNK, MAIN_CHUNK, snr_lin, acc, psum), 3)
     ops, power_ops, tail_ops = fold_operations(link, MAIN_CHUNK)
@@ -810,7 +865,7 @@ def fold_path(card, device):
     return {"name": "fold_chunk", "route": "cuda", "source": "ofdm_tpu_torch/csrc/fold_kernel.cu",
             "replaces": "ofdm_tpu/ops/pallas_link.py:1986", "launches": main_launches,
             "power_launches": power_launches, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": bound, "bound_by": "operations", "library_ms": None}
+            "bound_ms": bound, "bound_by": "operations", "library_ms": None, "layout": layout}
 
 
 def check_mm(name, device):
@@ -839,8 +894,8 @@ def mm_operations(link, chunk, ops=OPS_PER_BIN):
     n), encode, equalizer, slicer and counters per bin, Box-Muller, |y|^2
     and its sum per time sample when the noise is on, and the PAPR
     statistic per time sample.  Added: mm_main draws the bins' Philox words
-    again; mm_front recomputes one predecessor tail a warp (encode and the
-    tail product) and, once a block, the symbol that straddles its start."""
+    again; mm_front recomputes one predecessor tail a run of RUN symbols
+    (encode and the tail columns' listed terms, ``tail_ops``)."""
     import numpy as np
     import torch
 
@@ -857,12 +912,16 @@ def mm_operations(link, chunk, ops=OPS_PER_BIN):
     per_symbol = (products + (T if noisy else n) * ops["philox"]
                   + n * (ops["encode"] + eq + ops["demap"] + ops["count"])
                   + T * (PAPR_OPS + ((ops["noise"] + POWER_SUM_OPS) if noisy else 0)))
-    _, tiles, groups = mmk._chunk_geometry(link, chunk)
     encode = n * (ops["philox"] + ops["encode"])
-    blocks = tiles * groups
-    added = (chunk * n * ops["philox"] + blocks * 8 * (encode + 8 * n * E)
-             + blocks * (encode + 8 * n * (T + E) + 8 * (T + E) * T))
+    added = chunk * n * ops["philox"] + -(-chunk // mmk.RUN) * (encode + tail_ops(link))
     return chunk * per_symbol, added
+
+
+def tail_ops(link):
+    """Operations of a predecessor tail's product: 8 a listed term of
+    F_tx,ext's columns T ... T+E-1."""
+    return sum(8 * int((el[:, lane] != 0).sum()) for j, _, _, el in link.tx_terms.segments()
+               for lane in range(32) if link.T <= 32 * j + lane < link.T + link.E)
 
 
 def mm_path(card, device):
@@ -883,9 +942,10 @@ def mm_path(card, device):
     if runner.mode != "mm":
         raise AssertionError(f"zp_64sc routed to {runner.mode}")
     runner.run(1, snr_db=25.0)  # warm-up
-    mmk.mm_chunk.launches = mmk.mm_chunk.front_launches = 0
+    mmk.mm_chunk.launches = mmk.mm_chunk.front_launches = mmk.mm_chunk.power_launches = 0
     r = runner.run(MAIN_SEED, snr_db=30.0)
     main_launches, front_launches = mmk.mm_chunk.launches, mmk.mm_chunk.front_launches
+    power_launches = mmk.mm_chunk.power_launches
     num_chunks = MAIN_SYMBOLS // MAIN_CHUNK
     ber = r["bit_error_rate"]
     print(f"zp_64sc run [{card}]: {MAIN_SYMBOLS} OFDM symbols ({r['total_bits']} bits), "
@@ -893,10 +953,10 @@ def mm_path(card, device):
           f"BER={ber} (gate {ZP_BER_REF} +- {CAMPAIGN_TOL}, the seeded reference, docs/RESULTS.md:58; "
           f"the JAX package on a TPU v5e read {TPU_V5E_ZP_64SC_BER} on 2^18 symbols) "
           f"papr_db={r['papr_db']:.4f} papr_estimator={r['papr_estimator']} hotpath={r['hotpath_used']} "
-          f"launches: mm_front {front_launches}, mm_main {main_launches}")
-    if main_launches != num_chunks or front_launches != num_chunks or r["hotpath_used"] != "cuda":
-        raise AssertionError(f"the zp_64sc run launched mm_front {front_launches} and mm_main "
-                             f"{main_launches} times, not {num_chunks} each")
+          f"launches: mm_front {front_launches}, mm_power {power_launches}, mm_main {main_launches}")
+    if (main_launches, front_launches, power_launches) != (num_chunks,) * 3 or r["hotpath_used"] != "cuda":
+        raise AssertionError(f"the zp_64sc run launched mm_front {front_launches}, mm_power {power_launches} "
+                             f"and mm_main {main_launches} times, not {num_chunks} each")
     if r["papr_estimator"] != "in_run" or r["papr_sample_fraction"] != 1.0:
         raise AssertionError(f"zp_64sc PAPR: {r['papr_estimator']} {r['papr_sample_fraction']}")
     if not abs(ber - ZP_BER_REF) < CAMPAIGN_TOL:
@@ -912,6 +972,7 @@ def mm_path(card, device):
     snr_lin = lk.snr_linear(30.0)
     acc, psum = lk.new_accumulators(device)
     work = mmk.chunk_workspace(link, MAIN_CHUNK, device)
+    layout = group_geometry(card, "mm", "zp_64sc", link)
     k_ms = cuda_ms(lambda: mmk.mm_chunk(link, (3, 4), MAIN_CHUNK, MAIN_CHUNK, snr_lin, acc, psum, work), 20)
     p_ms = cuda_ms(lambda: mmk.mm_chunk_plain(link, (3, 4), MAIN_CHUNK, MAIN_CHUNK, snr_lin, acc, psum), 3)
     ops, added = mm_operations(link, MAIN_CHUNK)
@@ -920,8 +981,8 @@ def mm_path(card, device):
     print(f"mm_chunk at {MAIN_CHUNK} symbols [{card}]: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
           f"bound {bound:.4f} ms ({ops} operations needed; the design adds {added}, "
           f"{added / PEAK_OPS * 1e3:.4f} ms at the same rate, and moves y before noise through device "
-          f"memory: {2 * 8 * MAIN_CHUNK * link.T} bytes, {2 * 8 * MAIN_CHUNK * link.T / PEAK_BYTES * 1e3:.4f} ms "
-          f"at 3.35 TB/s)")
+          f"memory, written once and read by mm_power and mm_main: {3 * 8 * MAIN_CHUNK * link.T} bytes, "
+          f"{3 * 8 * MAIN_CHUNK * link.T / PEAK_BYTES * 1e3:.4f} ms at 3.35 TB/s)")
 
     # the published campaign, each cell through the kernel it routes to
     for (prefix, eq, ratio), (tpu, ref) in CAMPAIGN.items():
@@ -934,8 +995,8 @@ def mm_path(card, device):
             raise AssertionError(f"campaign cell {prefix} {eq} {ratio}: BER {b} vs reference {ref}")
     return {"name": "mm_chunk", "route": "cuda", "source": "ofdm_tpu_torch/csrc/mm_kernel.cu",
             "replaces": "ofdm_tpu/ops/pallas_link.py:1986", "launches": main_launches,
-            "front_launches": front_launches, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": bound, "bound_by": "operations", "library_ms": None}
+            "front_launches": front_launches, "power_launches": power_launches, "max_abs_err": err, "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": bound, "bound_by": "operations", "library_ms": None, "layout": layout}
 
 
 # --- the constellation modes: psk, aqam, apsk ------------------------------------
@@ -1193,7 +1254,7 @@ def chains():
         "diag": (lk.diag_link, lk.diag_chunk, lk.diag_chunk_plain, ("launches", "power_launches")),
         "fold": (fk.fold_link, fk.fold_chunk, fk.fold_chunk_plain, ("launches", "power_launches")),
         "lr": (lrk.lr_link, lrk.lr_chunk, lrk.lr_chunk_plain, ("launches", "power_launches")),
-        "mm": (mmk.mm_link, mmk.mm_chunk, mmk.mm_chunk_plain, ("launches", "front_launches")),
+        "mm": (mmk.mm_link, mmk.mm_chunk, mmk.mm_chunk_plain, ("launches", "front_launches", "power_launches")),
     }
 
 
@@ -1234,7 +1295,7 @@ def check_codec(name, device):
         setattr(kernel, c, 0)
     r = LinkRunner(prepare(audit_cfg(MAIN_CHUNK, MAIN_CHUNK, **kw))).run(MAIN_SEED)
     launches = tuple(getattr(kernel, c) for c in counters)
-    if r["hotpath_used"] != "cuda" or launches != (1, 1):
+    if r["hotpath_used"] != "cuda" or launches != (1,) * len(counters):
         raise AssertionError(f"{name} through LinkRunner: {r['hotpath_used']}, launches {launches}")
     print(f"{name} through LinkRunner ({chain}, {mode}) on {MAIN_CHUNK} symbols: BER {r['bit_error_rate']}, "
           f"hotpath {r['hotpath_used']}, launches {launches}")
@@ -1524,7 +1585,7 @@ def staged_path(card, device, err):
         want = BAND_SYMBOLS // MAIN_CHUNK
         print(f"{name} through LinkRunner ({chain}): launches {dict(zip(counters + ('norm_launches',), got))}, "
               f"papr_estimator {r['papr_estimator']}")
-        if got != (want,) * 3 or r["hotpath_used"] != "cuda":
+        if got != (want,) * len(got) or r["hotpath_used"] != "cuda":
             raise AssertionError(f"{name}: launches {got}, not {want} each")
         band(name, r)
         launches[chain] = got[0]

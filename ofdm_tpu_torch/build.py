@@ -87,13 +87,17 @@ SIGNATURES = {
     "link_kernel": {"ofdm_diag_chunk": (_DIAG + [_P], _I)},
     # the diag chunk past 256 subcarriers: the same arguments, then txext
     "diag_wide_kernel": {"ofdm_diag_wide_chunk": (_DIAG + [_I, _P], _I)},
+    # the fold and mm chunks take each matrix as its listed terms (p, idx,
+    # chunks: ops/terms.py); ofdm_{fold,mm}_geometry write the kernels'
+    # layout into thirteen ints
     "fold_kernel": {
         "ofdm_fold_chunk": (
-            [_P] * 11 + [_I] * 9 + [_F] + [_P] * 2 + [_F] * 3 + [_I] * 3 + [ctypes.c_ulonglong]
+            [_P, _P, _I] * 3 + [_P] * 5 + [_I] * 9 + [_F] + [_P] * 2 + [_F] * 3 + [_I] * 3 + [ctypes.c_ulonglong]
             + [_I] * 5 + [_U] * 2 + [_P] * 5 + _STAGES + _PREV + [_P],
             _I,
         ),
         "ofdm_fold_probe": _PROBE,
+        "ofdm_fold_geometry": ([_I] * 3 + [ctypes.POINTER(ctypes.c_int)], _I),
     },
     # lr's chunk and probe take their row masks (TailM; [Cr; Cp] and B^H as
     # two words each) after the carry-in / the outputs; ofdm_lr_geometry
@@ -109,11 +113,12 @@ SIGNATURES = {
     },
     "mm_kernel": {
         "ofdm_mm_chunk": (
-            [_P] * 13 + [_I] * 9 + [_F] + [_P] * 2 + [_F] * 3 + [_I] * 3 + [ctypes.c_ulonglong]
+            [_P, _P, _I] * 4 + [_P] * 5 + [_I] * 9 + [_F] + [_P] * 2 + [_F] * 3 + [_I] * 3 + [ctypes.c_ulonglong]
             + [_I] * 4 + [_U] * 2 + [_P] * 7 + _STAGES + _PREV + [_P],
             _I,
         ),
         "ofdm_mm_probe": _PROBE,
+        "ofdm_mm_geometry": ([_I] * 3 + [ctypes.POINTER(ctypes.c_int)], _I),
     },
     "fold_wide_kernel": {"ofdm_fold_wide_chunk": _WIDE, "ofdm_fold_wide_probe": _WIDE_PROBE},
     "mm_wide_kernel": {"ofdm_mm_wide_chunk": _WIDE, "ofdm_mm_wide_probe": _WIDE_PROBE},

@@ -27,75 +27,80 @@
 // (the kernels' kStaged parameter; link_common.cuh), the post-EQ noise and
 // 1/sqrt(P) only in the one with -DOFDM_BUMP=1 as well (kBump).
 //
-// Bound on an H100: issue rate, not memory.  Each symbol runs n(T+E) +
-// (T+E)T + Tn (+ n^2 for SC-FDE) complex multiply-adds at 8 fp32 operations
-// each (no FMA: -fmad=false), dense even where a matrix is banded (C) or
-// zero (the guard columns of F_tx,ext), plus the Philox / noise chain on T
-// samples and the per-bin equalizer / slicer chain it shares with the other
-// chunk kernels (link_common.cuh).  The chunk's y before noise goes through
-// device memory once (8 bytes a time sample each way: ~70 MB a 2^17-symbol
-// chunk at T = 67, ~0.04 ms at 3.35 TB/s).
+// Bound on an H100: issue rate, not memory.  Each symbol needs the nonzero
+// terms of its products (F_tx,ext without its zero guard, C's band of E + 1
+// taps, R, the SC-FDE IDFT) at 8 fp32 operations each (no FMA:
+// -fmad=false), plus the Philox / noise chain on T samples and the per-bin
+// equalizer / slicer chain it shares with the other chunk kernels
+// (link_common.cuh).  The chunk's y before noise goes through device memory
+// (8 bytes a time sample written, read twice: ~70 MB each way a 2^17-symbol
+// chunk at T = 67, ~0.02 ms at 3.35 TB/s).
 //
-// Design:
+// Design (csrc/group_product.cuh):
 //  * The measured power needs every sample of a tile before any of its
-//    noise, so the chunk runs in two kernels.  mm_front: one block per 4096
-//    consecutive time samples of a tile (elements e = s*T + t); its warps
-//    compute the symbols that cover them (TX, PAPR, conv), write y to the
-//    chunk's scratch planes and reduce |y|^2 in power_partials' fixed order
-//    (16 sequential steps a thread, a 256-way tree).  A symbol that straddles
-//    two blocks is computed by both; its PAPR and the carry row come from the
-//    block that holds its first sample.  mm_main: a warp walks `run`
-//    consecutive symbols, sums its tile's partials in order for sigma, reads
-//    y back, adds the noise and runs RX, equalizer and slicer.  The plain
-//    version reproduces sigma bit for bit.
+//    noise, so the chunk runs in three kernels.  mm_front: a warp walks
+//    `run` consecutive symbols in groups of S (group_of(J)) through TX, the
+//    PAPR statistic and the conv, and writes y to the chunk's scratch
+//    planes.  mm_power: one block per 4096 consecutive time samples of a
+//    tile (elements e = s*T + t) reads y and reduces |y|^2 in
+//    power_partials' fixed order (16 sequential steps a thread, a 256-way
+//    tree).  mm_main: a warp walks `run` symbols in groups, sums its tile's
+//    partials in order for sigma, reads y back, adds the noise and runs RX,
+//    equalizer and slicer.  The plain version reproduces sigma bit for bit.
+//  * Each product runs over a group at once, lane l computing column 32 j + l
+//    for the S symbols in registers over the matrix's listed terms only:
+//    each element it loads serves S symbols, C's band runs E + 1 terms a
+//    column (its tail rows apart) and the zero guard none.  The per-bin
+//    chain runs a symbol at a time, lane l holding bins l + 32 j (j < J =
+//    ceil(n/32)), so the MMSE per-symbol mean is a per-lane sum plus an xor
+//    butterfly.  Each product output is an ascending sum of rounded
+//    (a*m_r - c*m_i), (a*m_i + c*m_r) terms, as the plain version's cmatmul.
 //  * The previous symbol's tail: CUDA blocks do not run in order, so each warp
 //    of mm_front recomputes its first symbol's predecessor tail from Philox
-//    (link_common.cuh::prev_tail), bit-equal to a carried row; symbol 0 of
-//    the run sees zeros.  Nothing depends on block order, launch geometry or
+//    (group_prev_tail), bit-equal to a carried row; symbol 0 of the run
+//    sees zeros.  Nothing depends on block order, launch geometry or
 //    chunking.
-//  * One warp per symbol, three widths: lane owns time samples t = lane + 32 j
-//    (j < J = the template, T <= 32 J) and bins k = lane + 32 j < n.  The
-//    noisy y goes to the warp's shared buffer before the RX product reads it;
-//    the MMSE per-symbol mean is a per-lane sum plus an xor butterfly.  Each
-//    product output is a ascending sum of rounded (a*m_r - c*m_i),
-//    (a*m_i + c*m_r) terms, as the plain version's cmatmul.
+//  * A block holds 8 warps, fewer where a link's group buffers would pass
+//    the 227 KB a block may hold (group_warps).
 //  * Counters: per-thread 32-bit, warp and block sums, one 64-bit atomicAdd
 //    per block; PAPR peak an atomicMax on the f32 bits, PAPR sum a double
 //    atomicAdd (its last digits depend on block order).
 //  * normalize (staged build): mm_main runs twice around norm_factors, as
 //    diag_staged does; phase 0 writes each warp's |e|^2 sum over its run of
-//    symbols, phase 1 scales and counts.  mm_front runs once.
+//    symbols, phase 1 scales and counts.  mm_front and mm_power run once.
 //  * Carry-in (sharded contiguous streams): given a tail, the chunk's first
 //    symbol reads it in mm_front instead of recomputing its predecessor
 //    (mm_main reads y and recomputes no tail).
 //  * The carry probe (mm_probe; pallas_link.py::_probe_fn_for_spec, K3):
-//    one warp computes a chunk's last symbol through the same symbol_tx and
-//    writes its carry row x[0:T) and tail x[T:T+E).
+//    one warp computes a chunk's last symbol through link_common.cuh's
+//    symbol_tx over the dense F_tx,ext and writes its carry row x[0:T) and
+//    tail x[T:T+E), bit-equal to the chunk's (the listed terms are the dense
+//    product's nonzero terms in its order).
 
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "group_product.cuh"
 #include "link_common.cuh"
 
 namespace ofdm_mm {
 
-constexpr int kWarps = 8;
+constexpr int kWarps = ofdm::kGroupWarps;
 constexpr int kThreads = 32 * kWarps;
+constexpr int kPowerThreads = 256;
 constexpr int kPowerSteps = 16;
-constexpr int kPowerBlock = kPowerSteps * kThreads;  // time samples per mm_front block
+constexpr int kPowerBlock = kPowerSteps * kPowerThreads;  // time samples per mm_power block
 constexpr int kMaxN = 256;
 constexpr int kMaxT = 320;
 
 struct Link {
-  const float* txr;  // (n, T+E) F_tx,ext, row-major
+  const float* txr;  // (n, T+E) F_tx,ext, row-major (the carry probe's)
   const float* txi;
-  const float* cvr;  // (T+E, T) merged conv, row-major
-  const float* cvi;
-  const float* rxr;  // (T, n) overlap-add + DFT, row-major
-  const float* rxi;
-  const float* idr;  // (n, n) SC-FDE IDFT (unused for OFDM)
-  const float* idi;
+  ofdm::Terms tx;  // the chunk's listed terms: F_tx,ext (n -> T+E)
+  ofdm::Terms cv;  // merged conv (T+E -> T)
+  ofdm::Terms rx;  // overlap-add + DFT (T -> n)
+  ofdm::Terms id;  // SC-FDE IDFT (n -> n; unused for OFDM)
   ofdm::Equalizer eq;
   int n;
   int T;
@@ -107,8 +112,8 @@ struct Link {
   unsigned long long sym0;  // run index of the chunk's first symbol
   int chunk;
   int tile;
-  int groups;  // mm_front blocks a tile: ceil(tile * T / 4096)
-  int run;     // consecutive symbols a warp of mm_main walks
+  int groups;  // mm_power blocks a tile: ceil(tile * T / 4096)
+  int run;     // consecutive symbols a warp of mm_front and mm_main walks
   uint2 key;
   ofdm::Lanes lanes;  // the adaptive modes' lane rows
   ofdm::Stages st;    // the _Spec stages (OFDM_STAGED builds)
@@ -116,72 +121,80 @@ struct Link {
   const float* prev_i;
 };
 
-// y before noise of the chunk's symbols, over each tile's time samples
-// e = s*T + t (tile-local s), and the power partials in power_partials'
-// order.  grid (tiles, groups); block (tile, g) covers e in
-// [g*4096, (g+1)*4096).
+using ofdm::GroupBufs;
+
+// y before noise of the chunk's symbols into the scratch planes (chunk * T
+// floats each, element b*T + t), the PAPR stats, the carry row.
 template <int J, int kMode, bool kStaged>
 __global__ void __launch_bounds__(kThreads)
-    mm_front(Link L, float* y_r, float* y_i, float* partials, unsigned long long* acc, double* psum,
-             float* carry_r, float* carry_i) {
-  extern __shared__ float smem[];
-  float* red = smem;  // kPowerBlock floats, element order
+    mm_front(Link L, float* y_r, float* y_i, unsigned long long* acc, double* psum, float* carry_r,
+             float* carry_i) {
+  extern __shared__ float4 smem4[];
+  constexpr int S = ofdm::group_of(J);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const ofdm::WarpBufs w =
-      ofdm::warp_bufs(L.n, L.T, L.E, smem + kPowerBlock + warp * ofdm::warp_floats(L.n, L.T, L.E));
-  const int tile_id = blockIdx.x;
-  const int g = blockIdx.y;
-  const int t = threadIdx.x;
-  const int b0 = tile_id * L.tile;
-  const int tlen = min(L.tile, L.chunk - b0);
-  const int count = tlen * L.T;
-  const int e_lo = g * kPowerBlock;
-  const int e_hi = min(e_lo + kPowerBlock, count);
-  for (int i = t; i < kPowerBlock; i += kThreads) red[i] = 0.0f;
-  __syncthreads();
+  const GroupBufs g = ofdm::group_bufs(S, L.n, L.T, L.E,
+                                       reinterpret_cast<float2*>(smem4) +
+                                           warp * ofdm::group_pairs(S, L.n, L.T, L.E));
   float pk = 0.0f;
   double ps = 0.0;
-  if (e_lo < e_hi) {
-    const int s_lo = e_lo / L.T;
-    const int s_hi = (e_hi - 1) / L.T + 1;
-    const int per = (s_hi - s_lo + kWarps - 1) / kWarps;
-    const int w_lo = s_lo + warp * per;
-    const int w_hi = min(w_lo + per, s_hi);
-    if (w_lo < w_hi) {
-      ofdm::prev_tail<kMode, kStaged>(L, w, L.sym0 + static_cast<unsigned long long>(b0 + w_lo), lane);
-      const long long base = static_cast<long long>(b0) * L.T;
-      int tx[J];
-      uint32_t w1[J], w2[J];
-      float yr[J], yi[J];
-      for (int s = w_lo; s < w_hi; ++s) {
-        const bool own = s * L.T >= e_lo;  // the block holds the symbol's first sample
-        const bool last = own && b0 + s == L.chunk - 1;
-        ofdm::symbol_tx<J, kMode, kStaged>(L, w, L.sym0 + static_cast<unsigned long long>(b0 + s), lane, own,
-                                           pk, ps, last ? carry_r : nullptr, last ? carry_i : nullptr, tx,
-                                           w1, w2);
-        ofdm::row_product<J>(w.ar, w.ai, L.cvr, L.cvi, L.T + L.E, L.T, lane, yr, yi);
-        ofdm::shift_tail(L, w, lane);
+  const long long first = (static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + warp) * L.run;
+  if (first < L.chunk) {
+    const int b0 = static_cast<int>(first);
+    const int b1 = min(b0 + L.run, L.chunk);
+    ofdm::group_prev_tail<S, kMode, kStaged, true>(L, L.tx, g, L.sym0 + static_cast<unsigned long long>(b0), lane);
+    int tx[S][J];
+    uint32_t w1[S][J], w2[S][J];
+    for (int g0 = b0; g0 < b1; g0 += S) {
+      const int cnt = min(S, b1 - g0);
+      ofdm::encode_group<S, J, kMode, kStaged, false>(L, L.sym0 + static_cast<unsigned long long>(g0), cnt, g.sb,
+                                                      lane, tx, w1, w2);
+      __syncwarp();
+      ofdm::tx_stage<S, ofdm::kAhead>(L, L.tx, g, cnt, L.chunk - 1 - g0, lane, true, pk, ps, carry_r, carry_i);
+      __syncwarp();
+      const long long base = static_cast<long long>(g0) * L.T;
+      ofdm::group_product<S>(g.act, L.cv, lane, [&](int c, const float (&yr)[S], const float (&yi)[S]) {
+        if (c < L.T) {
 #pragma unroll
-        for (int j = 0; j < J; ++j) {
-          const int tt = lane + 32 * j;
-          const int e = s * L.T + tt;
-          if (tt < L.T && e >= e_lo && e < e_hi) {
-            red[e - e_lo] = yr[j] * yr[j] + yi[j] * yi[j];
-            y_r[base + e] = yr[j];
-            y_i[base + e] = yi[j];
+          for (int s = 0; s < S; ++s) {
+            if (s < cnt) {
+              y_r[base + s * L.T + c] = yr[s];
+              y_i[base + s * L.T + c] = yi[s];
+            }
           }
         }
-      }
+      });
+      __syncwarp();
+      ofdm::next_tail<S>(L, g, lane);
     }
   }
-  ofdm::power_block_partial<kThreads, kPowerSteps>(red, t, partials + tile_id * L.groups + g);
-  ofdm::flush_counters<kWarps>(0u, 0u, pk, ps, acc, psum);
+  ofdm::flush_block(0u, 0u, pk, ps, acc, psum);
 }
 
-// Floats of a warp's mm_main buffers: the noisy y (T complex) and, for
-// SC-FDE, the equalized bins (n complex).
-__host__ __device__ __forceinline__ int main_floats(int n, int T) { return 2 * (T + n); }
+// The power partials of each tile's time samples e = s*T + t (tile-local s)
+// in power_partials' order, from y before noise.  grid (tiles, groups);
+// block (tile, g) covers e in [g*4096, (g+1)*4096).
+__global__ void __launch_bounds__(kPowerThreads)
+    mm_power(int chunk, int tile, int T, int groups, const float* y_r, const float* y_i, float* partials) {
+  __shared__ float red[kPowerThreads];
+  const int t = threadIdx.x;
+  const int b0 = blockIdx.x * tile;
+  const int count = min(tile, chunk - b0) * T;
+  const int e_lo = blockIdx.y * kPowerBlock;
+  const long long base = static_cast<long long>(b0) * T;
+  float acc = 0.0f;
+  for (int j = 0; j < kPowerSteps; ++j) {
+    const int e = e_lo + j * kPowerThreads + t;
+    float v = 0.0f;
+    if (e < count) {
+      const float yr = y_r[base + e];
+      const float yi = y_i[base + e];
+      v = yr * yr + yi * yi;
+    }
+    acc = acc + v;
+  }
+  ofdm::store_block_sum<kPowerThreads>(acc, red, t, partials + blockIdx.x * groups + blockIdx.y);
+}
 
 // With kStaged, the stages (phase 0 of a normalized link writes its run's
 // |e|^2 partial instead of counting).
@@ -189,16 +202,17 @@ template <int J, int kMode, bool kStaged, bool kDump = false, bool kBump = false
 __global__ void __launch_bounds__(kThreads)
     mm_main(Link L, const float* y_r, const float* y_i, const float* partials,
             unsigned long long* acc, double* psum) {
-  extern __shared__ float smem[];
+  extern __shared__ float4 smem4[];
+  constexpr int S = ofdm::group_of(J);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  float* ybr = smem + warp * main_floats(L.n, L.T);
-  float* ybi = ybr + L.T;
-  float* sbr = ybi + L.T;
-  float* sbi = sbr + L.n;
+  // The noisy y of the group (T rows), then the RX outputs (n rows); the
+  // SC-FDE IDFT writes into the y rows.
+  float2* yb = reinterpret_cast<float2*>(smem4) + warp * ofdm::group_pairs(S, L.n, L.T, L.E);
+  float2* sb = yb + S * L.T;
 
   uint32_t be = 0, se = 0;
-  const long long first = (static_cast<long long>(blockIdx.x) * kWarps + warp) * L.run;
+  const long long first = (static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + warp) * L.run;
   const bool counting = !kStaged || L.st.phase == 1;
   const bool normalize = kStaged && (L.st.bits & ofdm::kStageNormalize) != 0;
   if (first < L.chunk) {
@@ -208,113 +222,155 @@ __global__ void __launch_bounds__(kThreads)
     float sigma = 0.0f;
     int norm_tile = -1;
     float fn = 1.0f, energy = 0.0f;
-    for (int b = b0; b < b1; ++b) {
-      const int tile_id = b / L.tile;
-      if (L.add_noise && tile_id != cached_tile) {
-        const int tlen = min(L.tile, L.chunk - tile_id * L.tile);
-        sigma = ofdm::tile_sigma(partials + tile_id * L.groups, L.groups, tlen * L.T, L.snr_lin);
-        cached_tile = tile_id;
-      }
-      if constexpr (kStaged) {
-        if (normalize && counting && tile_id != norm_tile) {
-          fn = L.st.norm_f[tile_id];
-          norm_tile = tile_id;
-        }
-      }
-      const unsigned long long sym = L.sym0 + static_cast<unsigned long long>(b);
-      const long long base = static_cast<long long>(b) * L.T;
-      int tx[J];
-#pragma unroll
-      for (int j = 0; j < J; ++j) {
-        const int t = lane + 32 * j;
-        tx[j] = 0;
-        if (t < L.T) {
-          float yr = __ldg(y_r + base + t);
-          float yi = __ldg(y_i + base + t);
-          if (t < L.n || L.add_noise) {
-            const uint4 wd = ofdm::symbol_words(sym, t, L.key);
-            if (t < L.n) tx[j] = ofdm::tx_index<kMode>(wd.x, L.q, L.lanes, t);
-            if (L.add_noise) ofdm::add_noise(wd.y, wd.z, sigma, yr, yi);
+    int tx[S][J];
+    for (int g0 = b0; g0 < b1; g0 += S) {
+      const int cnt = min(S, b1 - g0);
+      // The group's noisy y into yb (zeros from cnt on) and its TX indices
+      // into the register rows (row s ends as symbol s's).
+#pragma unroll 1
+      for (int s = 0; s < S; ++s) {
+        ofdm::shift_rows(tx);
+        const int b = g0 + s;
+        const bool live = s < cnt;
+        if (live && L.add_noise) {
+          const int tile_id = b / L.tile;
+          if (tile_id != cached_tile) {
+            const int tlen = min(L.tile, L.chunk - tile_id * L.tile);
+            sigma = ofdm::tile_sigma(partials + tile_id * L.groups, L.groups, tlen * L.T, L.snr_lin);
+            cached_tile = tile_id;
           }
-          ybr[t] = yr;
-          ybi[t] = yi;
+        }
+        const unsigned long long sym = L.sym0 + static_cast<unsigned long long>(b);
+        const long long base = static_cast<long long>(b) * L.T;
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          const int t = lane + 32 * j;
+          tx[S - 1][j] = 0;
+          if (t < L.T) {
+            float yr = 0.0f, yi = 0.0f;
+            if (live) {
+              yr = __ldg(y_r + base + t);
+              yi = __ldg(y_i + base + t);
+              if (t < L.n || L.add_noise) {
+                const uint4 wd = ofdm::symbol_words(sym, t, L.key);
+                if (t < L.n) tx[S - 1][j] = ofdm::tx_index<kMode>(wd.x, L.q, L.lanes, t);
+                if (L.add_noise) ofdm::add_noise(wd.y, wd.z, sigma, yr, yi);
+              }
+            }
+            yb[t * S + s] = make_float2(yr, yi);
+          }
+        }
+        for (int t = 32 * J + lane; t < L.T; t += 32) {  // time samples past the bins
+          float yr = 0.0f, yi = 0.0f;
+          if (live) {
+            yr = __ldg(y_r + base + t);
+            yi = __ldg(y_i + base + t);
+            if (L.add_noise) {
+              const uint4 wd = ofdm::symbol_words(sym, t, L.key);
+              ofdm::add_noise(wd.y, wd.z, sigma, yr, yi);
+            }
+          }
+          yb[t * S + s] = make_float2(yr, yi);
         }
       }
       __syncwarp();
-      float fr[J], fi[J];
-      ofdm::row_product<J>(ybr, ybi, L.rxr, L.rxi, L.T, L.n, lane, fr, fi);
-
-      const float nv = ofdm::mmse_nv<J>(L.eq, fr, fi, lane, L.n, L.snr_lin);
-      float er[J], ei[J];
+      ofdm::group_product<S>(yb, L.rx, lane, [&](int c, const float (&fr)[S], const float (&fi)[S]) {
+        if (c < L.n) {
 #pragma unroll
-      for (int j = 0; j < J; ++j) {
-        const int k = lane + 32 * j;
-        er[j] = 0.0f;
-        ei[j] = 0.0f;
-        if (k < L.n) ofdm::equalize_stage<kMode, kStaged>(L, k, fr[j], fi[j], nv, er[j], ei[j], L.is_sc);
+          for (int s = 0; s < S; ++s) sb[c * S + s] = make_float2(fr[s], fi[s]);
+        }
+      });
+      __syncwarp();
+      // The equalizer a symbol at a time; on SC-FDE the equalized bins go
+      // back to sb for the IDFT, else the chain ends here.
+#pragma unroll 1
+      for (int s = 0; s < cnt; ++s) {
+        const int b = g0 + s;
+        if constexpr (kStaged) {
+          const int tile_id = b / L.tile;
+          if (normalize && counting && tile_id != norm_tile) {
+            fn = L.st.norm_f[tile_id];
+            norm_tile = tile_id;
+          }
+        }
+        float fr[J], fi[J];
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          const int k = lane + 32 * j;
+          fr[j] = 0.0f;
+          fi[j] = 0.0f;
+          if (k < L.n) {
+            const float2 v = sb[k * S + s];
+            fr[j] = v.x;
+            fi[j] = v.y;
+          }
+        }
+        const float nv = ofdm::mmse_nv<J>(L.eq, fr, fi, lane, L.n, L.snr_lin);
+        float er[J], ei[J];
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          const int k = lane + 32 * j;
+          er[j] = 0.0f;
+          ei[j] = 0.0f;
+          if (k < L.n) ofdm::equalize_stage<kMode, kStaged>(L, k, fr[j], fi[j], nv, er[j], ei[j], L.is_sc);
+        }
+        if (L.is_sc) {
+#pragma unroll
+          for (int j = 0; j < J; ++j) {
+            const int k = lane + 32 * j;
+            if (k < L.n) sb[k * S + s] = make_float2(er[j], ei[j]);
+          }
+        } else {
+          ofdm::finish_symbol<J, kMode, kStaged, kDump, kBump>(L, b, lane, er, ei, tx[0], counting, normalize, fn,
+                                                              energy, be, se);
+          ofdm::shift_rows(tx);
+        }
       }
-
       if (L.is_sc) {
         // SC-FDE: equalized bins -> time-domain symbols, e @ IDFT.
-#pragma unroll
-        for (int j = 0; j < J; ++j) {
-          const int k = lane + 32 * j;
-          if (k < L.n) {
-            sbr[k] = er[j];
-            sbi[k] = ei[j];
-          }
-        }
         __syncwarp();
+        ofdm::group_product<S>(sb, L.id, lane, [&](int c, const float (&xr)[S], const float (&xi)[S]) {
+          if (c < L.n) {
 #pragma unroll
-        for (int j = 0; j < J; ++j) {
-          const int k = lane + 32 * j;
-          if (k < L.n) ofdm::cdot(sbr, sbi, L.idr, L.idi, L.n, L.n, k, er[j], ei[j]);
-        }
-      }
-
-      if constexpr (kBump) {
-#pragma unroll
-        for (int j = 0; j < J; ++j) {
-          const int k = lane + 32 * j;
-          if (k < L.n) ofdm::bump_stages<true>(L, sym, k, er[j], ei[j]);
-        }
-      }
-      if constexpr (kStaged) {
-        if (normalize) {
-          if (!counting) {
-            energy = energy + ofdm::warp_energy<J>(er, ei, lane, L.n);
-          } else {
-#pragma unroll
-            for (int j = 0; j < J; ++j) {
-              const int k = lane + 32 * j;
-              if (k < L.n) {
-                const float m = ofdm::norm_gain<kMode>(L, k, fn);
-                er[j] = er[j] * m;
-                ei[j] = ei[j] * m;
-              }
+            for (int s = 0; s < S; ++s) yb[c * S + s] = make_float2(xr[s], xi[s]);
+          }
+        });
+        __syncwarp();
+#pragma unroll 1
+        for (int s = 0; s < cnt; ++s) {
+          const int b = g0 + s;
+          if constexpr (kStaged) {
+            const int tile_id = b / L.tile;
+            if (normalize && counting && tile_id != norm_tile) {
+              fn = L.st.norm_f[tile_id];
+              norm_tile = tile_id;
             }
           }
-        }
-      }
-      if (counting) {
+          float er[J], ei[J];
 #pragma unroll
-        for (int j = 0; j < J; ++j) {
-          const int k = lane + 32 * j;
-          if (k < L.n) {
-            ofdm::sc_slicer_bin<kMode, kStaged>(L, k, er[j], ei[j]);
-            ofdm::dump_bin<kMode, kDump>(L, b, k, er[j], ei[j]);
-            ofdm::count_bin<kMode>(tx[j], er[j], ei[j], L.q, L.lanes, k, be, se);
+          for (int j = 0; j < J; ++j) {
+            const int k = lane + 32 * j;
+            er[j] = 0.0f;
+            ei[j] = 0.0f;
+            if (k < L.n) {
+              const float2 v = yb[k * S + s];
+              er[j] = v.x;
+              ei[j] = v.y;
+            }
           }
+          ofdm::finish_symbol<J, kMode, kStaged, kDump, kBump>(L, b, lane, er, ei, tx[0], counting, normalize, fn,
+                                                              energy, be, se);
+          ofdm::shift_rows(tx);
         }
       }
-      __syncwarp();  // the next symbol rewrites the buffers
+      __syncwarp();  // the next group rewrites the buffers
     }
     if constexpr (kStaged) {
       if (normalize && !counting && lane == 0) L.st.norm_part[b0 / L.run] = energy;
     }
   }
 
-  ofdm::flush_counters<kWarps>(be, se, 0.0f, 0.0, acc, psum);
+  ofdm::flush_block(be, se, 0.0f, 0.0, acc, psum);
 }
 
 // K3: symbol `sym`'s carry row x[0:T) and tail x[T:T+E) through the chunk's
@@ -351,8 +407,15 @@ cudaError_t probe_mode(const Link& L, unsigned long long sym, float* cr, float* 
   return cudaGetLastError();
 }
 
-__host__ __forceinline__ size_t front_bytes(int n, int T, int E) {
-  return sizeof(float) * (kPowerBlock + kWarps * ofdm::warp_floats(n, T, E));
+// Warps a block of mm_front and mm_main.
+__host__ __device__ constexpr int block_warps(int J, int n, int T, int E) {
+  return ofdm::group_warps(ofdm::group_bytes(J, n, T, E), 0);
+}
+
+// The qam mm_main as the chunk launches it without a dump.
+template <int J>
+auto* main_kernel_of() {
+  return &mm_main<J, ofdm::kQam, ofdm::kStagedBuild, false, ofdm::kBumpBuild>;
 }
 
 template <int J, int kMode>
@@ -364,47 +427,74 @@ cudaError_t launch(const Link& L, float* y_r, float* y_i, float* partials, unsig
 #if OFDM_STAGED
   if (L.st.bits & ofdm::kStageDump) main_kernel = &mm_main<J, kMode, kS, true, kB>;
 #endif
-  const size_t fbytes = front_bytes(L.n, L.T, L.E);
-  const size_t mbytes = sizeof(float) * kWarps * main_floats(L.n, L.T);
+  const int nw = block_warps(J, L.n, L.T, L.E);
+  if (nw < 1) return cudaErrorInvalidValue;
+  const size_t bytes = static_cast<size_t>(nw) * ofdm::group_bytes(J, L.n, L.T, L.E);
   cudaError_t err = cudaFuncSetAttribute(mm_front<J, kMode, kS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(fbytes));
+                                         static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(main_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(mbytes));
-  if (err != cudaSuccess) return err;
-  const int tiles = (L.chunk + L.tile - 1) / L.tile;
-  mm_front<J, kMode, kS><<<dim3(tiles, L.groups), kThreads, fbytes, stream>>>(L, y_r, y_i, partials, acc,
-                                                                               psum, cr, ci);
-  err = cudaGetLastError();
+  err = cudaFuncSetAttribute(main_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   const long long warps = (static_cast<long long>(L.chunk) + L.run - 1) / L.run;
-  const int grid = static_cast<int>((warps + kWarps - 1) / kWarps);
+  const int grid = static_cast<int>((warps + nw - 1) / nw);
+  mm_front<J, kMode, kS><<<grid, 32 * nw, bytes, stream>>>(L, y_r, y_i, acc, psum, cr, ci);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (L.add_noise) {
+    const int tiles = (L.chunk + L.tile - 1) / L.tile;
+    mm_power<<<dim3(tiles, L.groups), kPowerThreads, 0, stream>>>(L.chunk, L.tile, L.T, L.groups, y_r, y_i,
+                                                                   partials);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
 #if OFDM_STAGED
   return ofdm::staged_passes(L.st.bits, L.st.norm_part, L.st.norm_f, L.chunk, L.tile, L.run, L.n, stream,
                              [&](int phase) {
     Link P = L;
     P.st.phase = phase;
-    main_kernel<<<grid, kThreads, mbytes, stream>>>(P, y_r, y_i, partials, acc, psum);
+    main_kernel<<<grid, 32 * nw, bytes, stream>>>(P, y_r, y_i, partials, acc, psum);
     return cudaGetLastError();
   });
 #else
-  main_kernel<<<grid, kThreads, mbytes, stream>>>(L, y_r, y_i, partials, acc, psum);
+  main_kernel<<<grid, 32 * nw, bytes, stream>>>(L, y_r, y_i, partials, acc, psum);
   return cudaGetLastError();
 #endif
 }
 
-// Time samples a lane holds, rounded up to a compiled width.
-template <int kMode>
-cudaError_t launch_mode(const Link& L, float* y_r, float* y_i, float* partials,
-                        unsigned long long* acc, double* psum, float* cr, float* ci,
-                        cudaStream_t stream) {
-  const int jt = (L.T + 31) / 32;
-  if (jt <= 2) return launch<2, kMode>(L, y_r, y_i, partials, acc, psum, cr, ci, stream);
-  if (jt == 3) return launch<3, kMode>(L, y_r, y_i, partials, acc, psum, cr, ci, stream);
-  if (jt == 4) return launch<4, kMode>(L, y_r, y_i, partials, acc, psum, cr, ci, stream);
-  if (jt <= 6) return launch<6, kMode>(L, y_r, y_i, partials, acc, psum, cr, ci, stream);
-  if (jt <= 8) return launch<8, kMode>(L, y_r, y_i, partials, acc, psum, cr, ci, stream);
-  return launch<10, kMode>(L, y_r, y_i, partials, acc, psum, cr, ci, stream);
+// The layout of the qam kernels at (n, T, E) as the chunk launches them
+// (ofdm_mm_geometry's thirteen ints).
+template <int J>
+cudaError_t geometry_at(int n, int T, int E, int* out) {
+  const int nw = block_warps(J, n, T, E);
+  if (nw < 1) return cudaErrorInvalidValue;
+  const int bytes = nw * ofdm::group_bytes(J, n, T, E);
+  auto* mk = main_kernel_of<J>();
+  auto* fk = &mm_front<J, ofdm::kQam, ofdm::kStagedBuild>;
+  cudaFuncAttributes ma, fa;
+  cudaError_t err = cudaFuncGetAttributes(&ma, mk);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, fk);
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(mk, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(fk, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  int mblocks = 0, fblocks = 0;
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&mblocks, mk, 32 * nw, bytes);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fblocks, fk, 32 * nw, bytes);
+  if (err != cudaSuccess) return err;
+  const int v[13] = {J, ofdm::group_of(J), nw, bytes, ma.numRegs, static_cast<int>(ma.localSizeBytes),
+                     static_cast<int>(ma.sharedSizeBytes), mblocks, nw, bytes, fa.numRegs,
+                     static_cast<int>(fa.localSizeBytes), fblocks};
+  for (int i = 0; i < 13; ++i) out[i] = v[i];
+  return cudaSuccess;
+}
+
+// Bins a lane, rounded up to a compiled width.
+template <class F>
+cudaError_t with_width(int n, F&& f) {
+  const int jn = (n + 31) / 32;
+  if (jn <= 2) return f(std::integral_constant<int, 2>());
+  if (jn == 3) return f(std::integral_constant<int, 3>());
+  if (jn == 4) return f(std::integral_constant<int, 4>());
+  if (jn <= 6) return f(std::integral_constant<int, 6>());
+  return f(std::integral_constant<int, 8>());
 }
 
 }  // namespace ofdm_mm
@@ -413,16 +503,19 @@ using namespace ofdm_mm;
 
 extern "C" {
 
-// One chunk: mm_front then mm_main, both on `stream`, in constellation mode
-// `mode` (link_common.cuh::Mode; lane_i / lane_f the adaptive modes' lane
-// rows).  acc = [bit errors,
-// symbol errors, PAPR peak f32 bits] (int64, accumulated), psum = PAPR power
-// sum (float64, accumulated); y = scratch planes of chunk * T floats;
-// carry = the chunk's last symbol's x[0:T).  rows / stages / norm_part /
-// norm_f: the _Spec stages (link_common.cuh::Stages; 0 in the plain build).
-// Returns the first CUDA error of the launches, 0 if none.
-int ofdm_mm_chunk(const float* txr, const float* txi, const float* cvr, const float* cvi,
-                  const float* rxr, const float* rxi, const float* idr, const float* idi,
+// One chunk: mm_front, mm_power (when noise is on), then mm_main, all on
+// `stream`, in constellation mode `mode` (link_common.cuh::Mode; lane_i /
+// lane_f the adaptive modes' lane rows).  Each matrix comes as its listed
+// terms (p, idx, chunks: group_product.cuh::Terms): F_tx,ext, the merged
+// conv, R and, for SC-FDE, the IDFT.  acc = [bit errors, symbol errors,
+// PAPR peak f32 bits] (int64, accumulated), psum = PAPR power sum (float64,
+// accumulated); y = scratch planes of chunk * T floats; carry = the chunk's
+// last symbol's x[0:T).  rows / stages / norm_part / norm_f: the _Spec
+// stages (link_common.cuh::Stages; 0 in the plain build).  Returns the
+// first CUDA error of the launches, 0 if none.
+int ofdm_mm_chunk(const float* tx_p, const int* tx_idx, int tx_chunks, const float* cv_p, const int* cv_idx,
+                  int cv_chunks, const float* rx_p, const int* rx_idx, int rx_chunks, const float* id_p,
+                  const int* id_idx, int id_chunks,
                   const float* hr, const float* hi, const float* habs2, const float* gr,
                   const float* gi, int n, int T, int E, int mode, int order, int m, int logm,
                   int bits, int gray, float scale, const int* lane_i, const float* lane_f,
@@ -433,26 +526,25 @@ int ofdm_mm_chunk(const float* txr, const float* txi, const float* cvr, const fl
                   float* carry_i, const float* rows, int stages, float* norm_part, float* norm_f,
                     float* dump_r, float* dump_i, int dump_rows, const float* prev_r,
                     const float* prev_i, void* stream_ptr) {
+  const int bin_chunks = (n + 31) / 32;
   if (n < 1 || n > kMaxN || T < n || T > kMaxT || E < 0 || E > T || chunk < 1 || tile < 1 ||
       (prev_r == nullptr) != (prev_i == nullptr) ||
+      tx_p == nullptr || tx_idx == nullptr || cv_p == nullptr || cv_idx == nullptr || rx_p == nullptr ||
+      rx_idx == nullptr || tx_chunks != (T + E + 31) / 32 || cv_chunks != (T + 31) / 32 ||
+      rx_chunks != bin_chunks ||
       run < 1 || tile % run != 0 || static_cast<long long>(chunk) * T > INT_MAX ||
       !ofdm::stage_args_ok(rows, stages, norm_part, norm_f, dump_r, dump_i, dump_rows, ofdm::kBumpBuild) ||
       static_cast<long long>(groups) * kPowerBlock < static_cast<long long>(tile) * T ||
-      (is_sc && (idr == nullptr || idi == nullptr)) ||
+      (is_sc && (id_p == nullptr || id_idx == nullptr || id_chunks != bin_chunks)) ||
       (ofdm::adaptive(mode) && (lane_i == nullptr || lane_f == nullptr))) {
     return cudaErrorInvalidValue;
   }
-  if (front_bytes(n, T, E) > 227 * 1024) return cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  Link L;
-  L.txr = txr;
-  L.txi = txi;
-  L.cvr = cvr;
-  L.cvi = cvi;
-  L.rxr = rxr;
-  L.rxi = rxi;
-  L.idr = idr;
-  L.idi = idi;
+  Link L{};
+  L.tx = ofdm::make_terms(tx_p, tx_idx, tx_chunks);
+  L.cv = ofdm::make_terms(cv_p, cv_idx, cv_chunks);
+  L.rx = ofdm::make_terms(rx_p, rx_idx, rx_chunks);
+  if (is_sc) L.id = ofdm::make_terms(id_p, id_idx, id_chunks);
   L.eq = ofdm::Equalizer{hr, hi, habs2, gr, gi, slicer, cg, method};
   L.n = n;
   L.T = T;
@@ -474,7 +566,10 @@ int ofdm_mm_chunk(const float* txr, const float* txi, const float* cvr, const fl
 
   unsigned long long* a = reinterpret_cast<unsigned long long*>(acc);
   return static_cast<int>(ofdm::with_mode(mode, [&](auto md) {
-    return launch_mode<decltype(md)::value>(L, y_r, y_i, partials, a, psum, carry_r, carry_i, stream);
+    return with_width(n, [&](auto jw) {
+      return launch<decltype(jw)::value, decltype(md)::value>(L, y_r, y_i, partials, a, psum, carry_r, carry_i,
+                                                               stream);
+    });
   }));
 }
 
@@ -507,6 +602,18 @@ int ofdm_mm_probe(const float* txr, const float* txi, int n, int T, int E, int m
   return static_cast<int>(ofdm::with_mode(mode, [&](auto md) {
     return probe_mode<decltype(md)::value>(L, sym, carry_r, carry_i, tail_r, tail_i, stream);
   }));
+}
+
+// The layout of mm_main and mm_front at (n, T, E), the qam entry points of
+// this build as a chunk without a dump launches them, into out: bins a
+// lane (J), symbols a group (S), then mm_main's warps a block, dynamic
+// shared memory a block (bytes), registers, local bytes a thread, static
+// shared memory and resident blocks an SM, then mm_front's warps, dynamic
+// shared memory, registers, local bytes and resident blocks.  Returns the
+// CUDA error of a layout the card cannot give, 0 if none.
+int ofdm_mm_geometry(int n, int T, int E, int* out) {
+  if (n < 1 || n > kMaxN || T < n || T > kMaxT || E < 0 || E > T || out == nullptr) return cudaErrorInvalidValue;
+  return static_cast<int>(with_width(n, [&](auto jw) { return geometry_at<decltype(jw)::value>(n, T, E, out); }));
 }
 
 const char* ofdm_error_string(int code) {

@@ -52,14 +52,16 @@ import numpy as np
 import torch
 
 from ofdm_tpu_torch.config import ModulationType, PrefixType
-from ofdm_tpu_torch.ops import dft, linops, prng
+from ofdm_tpu_torch.ops import dft, linops, prng, terms
 from ofdm_tpu_torch.ops import link_kernel as lk
 
-MAX_N = 256  # the kernel's warp-per-symbol layout holds up to 8 bins a lane
+MAX_N = 256  # the kernel's layout holds up to 8 bins a lane
 WIDE_MAX_N = 2048  # fold_wide's block-per-symbol layout holds up to 8 bins a thread
-# Consecutive symbols one warp of fold_main walks; it recomputes the tail of
-# the symbol before its first, so one tail in RUN is extra work.
+# Consecutive symbols one warp of fold_main walks (in groups of
+# terms.group_of(J)); it recomputes the tail of the symbol before its
+# first, so one tail in RUN is extra work.
 RUN = 8
+POWER_FIXED = 4 * lk.POWER_BLOCK  # fold_power's |y|^2 block beside its warps' buffers
 WIDE_RUN = 16  # consecutive symbols a block of fold_wide_main walks
 WIDE_THREADS = 256  # fold_wide's block, one symbol
 
@@ -102,13 +104,19 @@ class FoldLink:
     # noise of sigma rows[2], then x rows[1] (1/sqrt(P)).
     post_noise: bool = False
     compensate: bool = False
+    # The kernel's listed terms (ops/terms.py) of F_tx,ext, CM and the SC-FDE
+    # IDFT; None past MAX_N (and the IDFT's for OFDM).
+    tx_terms: Optional[terms.Terms] = None
+    cm_terms: Optional[terms.Terms] = None
+    id_terms: Optional[terms.Terms] = None
 
 
 def fold_link(setup, device) -> FoldLink:
     """Host constants of a fold link (pallas_link._consts_for, fold branch,
     unpacked): F_tx,ext, the merged conv+RX matrix, the SC-FDE IDFT and the
-    equalizer rows, f32 on ``device``; past MAX_N subcarriers only the wide
-    chain's taps and DFT plan (no dense matrix), which every link carries."""
+    equalizer rows, f32 on ``device``, with the kernel's listed terms of each
+    matrix; past MAX_N subcarriers only the wide chain's taps and DFT plan
+    (no dense matrix), which every link carries."""
     cfg = setup.cfg
     if cfg.prefix_type == PrefixType.ZERO:
         raise ValueError("fold link: zero-prefix links do not fold the conv into RX")
@@ -126,6 +134,8 @@ def fold_link(setup, device) -> FoldLink:
         if is_sc:
             dr, di = linops.dft_matrix(n, inverse=True)
             dense.update(idr=lk.f32_tensor(dr, device), idi=lk.f32_tensor(di, device))
+        dense.update({f"{m}_terms": terms.term_list(dense[f"{m}r"], dense[f"{m}i"], device)
+                      for m in ("tx", "cm", "id") if dense[f"{m}r"] is not None})
     return FoldLink(
         T=T,
         E=E,
@@ -139,6 +149,18 @@ def fold_link(setup, device) -> FoldLink:
 def is_wide(link: FoldLink) -> bool:
     """Whether the link runs on the block-per-symbol chain (fold_wide)."""
     return link.n > MAX_N
+
+
+def layout(n: int, T: int, E: int) -> dict:
+    """fold_main's and fold_power's layout at (n, T, E) as the launcher
+    picks it (csrc/fold_kernel.cu): bins a lane J, symbols a group S, the
+    warps a block of each kernel and their dynamic shared memory a block
+    (bytes).  A warp count of 0 means no block fits."""
+    J = -(-n // 32)
+    wb = terms.group_bytes(J, n, T, E)
+    mw, pw = terms.group_warps(wb), terms.group_warps(wb, POWER_FIXED)
+    return {"J": J, "S": terms.group_of(J), "main_warps": mw, "main_bytes": mw * wb, "power_warps": pw,
+            "power_bytes": POWER_FIXED + pw * wb}
 
 
 def _chunk_geometry(link: FoldLink, chunk: int):
@@ -336,8 +358,12 @@ def _check_link(link: FoldLink, device):
         t = getattr(link, name)
         if t is None or t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"link.{name} must be contiguous f32 on {device}")
-    TE = link.T + link.E
-    n = link.n
+    TE, n = link.T + link.E, link.n
+    shapes = {"tx_terms": (n, TE), "cm_terms": (TE, n)} | ({"id_terms": (n, n)} if link.is_sc else {})
+    for name, shape in shapes.items():
+        t = getattr(link, name)
+        if t is None or t.p.device != device or t.idx.device != device or (t.rows, t.cols) != shape:
+            raise ValueError(f"link.{name} must be the listed terms of a {shape} matrix on {device}")
     if link.txr.shape != (n, TE) or link.cmr.shape != (TE, n) or link.hr.shape != (n,):
         raise ValueError("link matrices have the wrong shape")
     if link.is_sc and link.idr.shape != (n, n):
@@ -355,6 +381,30 @@ def chunk_workspace(link: FoldLink, chunk: int, device):
     f32 = dict(dtype=torch.float32, device=device)
     return (torch.empty(tiles * groups, **f32), torch.empty(link.T, **f32), torch.empty(link.T, **f32),
             *lk.norm_workspace(chunk, tile, _run(link), device))
+
+
+GEOMETRY_KEYS = ("bins_a_lane", "group_symbols", "warps", "dynamic_smem_bytes", "registers", "local_bytes",
+                 "static_smem_bytes", "blocks_an_sm", "power_warps", "power_dynamic_smem_bytes", "power_registers",
+                 "power_local_bytes", "power_blocks_an_sm")
+
+
+def geometry(n: int, T: int, E: int, library: str = "fold_kernel") -> dict:
+    """fold_main's and fold_power's layout at (n, T, E), read from the
+    loaded ``library`` (csrc/fold_kernel.cu::ofdm_fold_geometry, the qam
+    entry points as a chunk without a carry-in or dump launches them): bins
+    a lane, symbols a group, and for each kernel its warps a block and
+    dynamic shared memory a block and, from the loaded kernel, registers,
+    local bytes a thread (spills and stack), static shared memory (fold_main)
+    and resident blocks an SM.  Raises if the card cannot give a block that
+    shared memory."""
+    import ctypes
+
+    from ofdm_tpu_torch import build
+
+    lib = build.load(library)
+    out = (ctypes.c_int * len(GEOMETRY_KEYS))()
+    build.check(lib, lib.ofdm_fold_geometry(n, T, E, out), "ofdm_fold_geometry")
+    return dict(zip(GEOMETRY_KEYS, out))
 
 
 def _run(link: FoldLink) -> int:
@@ -384,8 +434,9 @@ def fold_chunk(
     five stages).  ``dump``: the dump stage's planes
     (``link_kernel.new_dump``; counted in ``fold_chunk.dump_launches``).
 
-    CUDA tensors launch the fused kernel (csrc/fold_kernel.cu): with noise
-    on, ``fold_power``; then ``fold_main`` (for a link with stages its
+    CUDA tensors launch the fused kernel (csrc/fold_kernel.cu, over the
+    link's listed terms, its warps in groups of symbols: ``layout``): with
+    noise on, ``fold_power``; then ``fold_main`` (for a link with stages its
     OFDM_STAGED build, with the noise-bump stages its OFDM_BUMP build,
     under ``normalize`` twice around ``norm_factors``),
     counted in ``fold_chunk.power_launches``, ``.launches`` and
@@ -437,8 +488,7 @@ def fold_chunk(
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.ofdm_fold_chunk(
-            link.txr.data_ptr(), link.txi.data_ptr(), link.cmr.data_ptr(), link.cmi.data_ptr(),
-            link.idr.data_ptr() if sc else None, link.idi.data_ptr() if sc else None,
+            *link.tx_terms.args(), *link.cm_terms.args(), *(link.id_terms.args() if sc else (None, None, 0)),
             link.hr.data_ptr(), link.hi.data_ptr(), link.habs2.data_ptr(),
             link.gr.data_ptr(), link.gi.data_ptr(),
             link.n, link.T, link.E, *lk.codec_args(link.q), link.slicer, snr_lin, link.cg,

@@ -55,13 +55,14 @@ import numpy as np
 import torch
 
 from ofdm_tpu_torch.config import ModulationType, PrefixType
-from ofdm_tpu_torch.ops import dft, linops, prng
+from ofdm_tpu_torch.ops import dft, linops, prng, terms
 from ofdm_tpu_torch.ops import link_kernel as lk
 
 MAX_N = 256  # bins a lane of mm_main holds: up to 8
-MAX_T = 320  # time samples a lane holds: up to 10
+MAX_T = 320  # time samples a warp's group buffers hold
 WIDE_MAX_T = 2048  # time samples a thread of mm_wide's block holds: up to 8
-# Consecutive symbols one warp of mm_main walks.
+# Consecutive symbols one warp of mm_front and mm_main walks (in groups of
+# terms.group_of(J)).
 RUN = 8
 WIDE_RUN = 16  # consecutive symbols a block of mm_wide_main walks
 WIDE_THREADS = 256  # mm_wide's block, one symbol
@@ -107,14 +108,21 @@ class MmLink:
     # noise of sigma rows[2], then x rows[1] (1/sqrt(P)).
     post_noise: bool = False
     compensate: bool = False
+    # The kernel's listed terms (ops/terms.py) of F_tx,ext, C, R and the SC-FDE
+    # IDFT; None on a wide link (and the IDFT's for OFDM).
+    tx_terms: Optional[terms.Terms] = None
+    cv_terms: Optional[terms.Terms] = None
+    rx_terms: Optional[terms.Terms] = None
+    id_terms: Optional[terms.Terms] = None
 
 
 def mm_link(setup, device) -> MmLink:
     """Host constants of a zero-prefix mm link (pallas_link._consts_for,
     non-fold branch, unpacked): F_tx,ext, the merged conv, the overlap-add +
-    DFT matrix, the SC-FDE IDFT and the equalizer rows, f32 on ``device``;
-    past MAX_N subcarriers or MAX_T time samples only the wide chain's taps
-    and DFT plan (no dense matrix), which every link carries."""
+    DFT matrix, the SC-FDE IDFT and the equalizer rows, f32 on ``device``,
+    with the kernel's listed terms of each matrix; past MAX_N subcarriers or
+    MAX_T time samples only the wide chain's taps and DFT plan (no dense
+    matrix), which every link carries."""
     cfg = setup.cfg
     if cfg.prefix_type != PrefixType.ZERO:
         raise ValueError("mm link: only zero-prefix links keep the conv apart from the receiver")
@@ -134,6 +142,8 @@ def mm_link(setup, device) -> MmLink:
         if is_sc:
             dr, di = linops.dft_matrix(n, inverse=True)
             dense.update(idr=lk.f32_tensor(dr, device), idi=lk.f32_tensor(di, device))
+        dense.update({f"{m}_terms": terms.term_list(dense[f"{m}r"], dense[f"{m}i"], device)
+                      for m in ("tx", "cv", "rx", "id") if dense[f"{m}r"] is not None})
     fields = lk.equalizer_fields(setup, device)
     del fields["slice"]  # the measured power covers the whole tile
     return MmLink(
@@ -150,6 +160,23 @@ def mm_link(setup, device) -> MmLink:
 def is_wide(link: MmLink) -> bool:
     """Whether the link runs on the block-per-symbol chain (mm_wide)."""
     return link.n > MAX_N or link.T > MAX_T
+
+
+def bins_class(n: int) -> int:
+    """Bins a lane of mm_main, rounded up to a compiled width (2, 3, 4, 6, 8)."""
+    J = -(-n // 32)
+    return 2 if J <= 2 else J if J <= 4 else 6 if J <= 6 else 8
+
+
+def layout(n: int, T: int, E: int) -> dict:
+    """mm_front's and mm_main's layout at (n, T, E) as the launcher picks
+    it (csrc/mm_kernel.cu): bins a lane J, symbols a group S, the warps a
+    block (both kernels) and their dynamic shared memory a block (bytes).  A
+    warp count of 0 means no block fits."""
+    J = bins_class(n)
+    wb = terms.group_bytes(J, n, T, E)
+    w = terms.group_warps(wb)
+    return {"J": J, "S": terms.group_of(J), "main_warps": w, "main_bytes": w * wb}
 
 
 def _chunk_geometry(link: MmLink, chunk: int):
@@ -358,9 +385,38 @@ def _check_link(link: MmLink, device):
             raise ValueError(f"link.{name} must be contiguous f32 on {device}")
         if tuple(t.shape) != shape:
             raise ValueError(f"link.{name} must be {shape}, got {tuple(t.shape)}")
+    listed = {"tx_terms": (n, TE), "cv_terms": (TE, T), "rx_terms": (T, n)} | (
+        {"id_terms": (n, n)} if link.is_sc else {})
+    for name, shape in listed.items():
+        t = getattr(link, name)
+        if t is None or t.p.device != device or t.idx.device != device or (t.rows, t.cols) != shape:
+            raise ValueError(f"link.{name} must be the listed terms of a {shape} matrix on {device}")
     if not (1 <= n <= MAX_N and n <= T <= MAX_T and 0 <= link.E <= T):
         raise ValueError(f"mm kernel takes n <= {MAX_N}, n <= T <= {MAX_T}; got n={n}, T={T}")
     lk.check_codec(link.q, n, device)
+
+
+GEOMETRY_KEYS = ("bins_a_lane", "group_symbols", "warps", "dynamic_smem_bytes", "registers", "local_bytes",
+                 "static_smem_bytes", "blocks_an_sm", "front_warps", "front_dynamic_smem_bytes", "front_registers",
+                 "front_local_bytes", "front_blocks_an_sm")
+
+
+def geometry(n: int, T: int, E: int, library: str = "mm_kernel") -> dict:
+    """mm_main's and mm_front's layout at (n, T, E), read from the loaded
+    ``library`` (csrc/mm_kernel.cu::ofdm_mm_geometry, the qam entry points
+    as a chunk without a dump launches them): bins a lane, symbols a group,
+    and for each kernel its warps a block and dynamic shared memory a block
+    and, from the loaded kernel, registers, local bytes a thread, static
+    shared memory (mm_main) and resident blocks an SM.  Raises if the card
+    cannot give a block that shared memory."""
+    import ctypes
+
+    from ofdm_tpu_torch import build
+
+    lib = build.load(library)
+    out = (ctypes.c_int * len(GEOMETRY_KEYS))()
+    build.check(lib, lib.ofdm_mm_geometry(n, T, E, out), "ofdm_mm_geometry")
+    return dict(zip(GEOMETRY_KEYS, out))
 
 
 def chunk_workspace(link: MmLink, chunk: int, device):
@@ -400,13 +456,15 @@ def mm_chunk(
     ``rows``: the stages' per-lane rows (``link_kernel.stage_rows``).  ``dump``: the dump stage's
     planes (``link_kernel.new_dump``; counted in ``mm_chunk.dump_launches``).
 
-    CUDA tensors launch the fused kernels (csrc/mm_kernel.cu): ``mm_front``
-    (TX, PAPR, conv, y before noise and the tile power partials) and then
-    ``mm_main`` (noise, RX, equalizer, slicer, counts; for a link with
+    CUDA tensors launch the fused kernels (csrc/mm_kernel.cu, over the
+    link's listed terms, their warps in groups of symbols: ``layout``):
+    ``mm_front`` (TX, PAPR, conv, y before noise), with noise on
+    ``mm_power`` (the tile power partials, from y), and then ``mm_main``
+    (noise, RX, equalizer, slicer, counts; for a link with
     stages their OFDM_STAGED build, with the noise-bump stages their
     OFDM_BUMP build, ``mm_main`` under ``normalize`` twice
     around ``norm_factors``), counted in ``mm_chunk.front_launches``,
-    ``.launches`` and ``.norm_launches``.  Past MAX_N subcarriers or MAX_T
+    ``.power_launches``, ``.launches`` and ``.norm_launches``.  Past MAX_N subcarriers or MAX_T
     time samples the block-per-symbol chain (csrc/mm_wide_kernel.cu, its
     staged and bump builds alike): ``mm_wide_front`` (the tiles' measured
     power) with noise on, then ``mm_wide_main``, which recomputes y,
@@ -458,9 +516,8 @@ def mm_chunk(
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.ofdm_mm_chunk(
-            link.txr.data_ptr(), link.txi.data_ptr(), link.cvr.data_ptr(), link.cvi.data_ptr(),
-            link.rxr.data_ptr(), link.rxi.data_ptr(),
-            link.idr.data_ptr() if sc else None, link.idi.data_ptr() if sc else None,
+            *link.tx_terms.args(), *link.cv_terms.args(), *link.rx_terms.args(),
+            *(link.id_terms.args() if sc else (None, None, 0)),
             link.hr.data_ptr(), link.hi.data_ptr(), link.habs2.data_ptr(),
             link.gr.data_ptr(), link.gi.data_ptr(),
             link.n, link.T, link.E, *lk.codec_args(link.q), link.slicer, snr_lin, link.cg,
@@ -474,6 +531,7 @@ def mm_chunk(
         )
     build.check(lib, code, "ofdm_mm_chunk")
     mm_chunk.front_launches += 1
+    mm_chunk.power_launches += int(link.add_noise)
     mm_chunk.norm_launches += int(link.normalize)
     mm_chunk.dump_launches += int(dump is not None)
     mm_chunk.launches += 1
@@ -510,6 +568,7 @@ mm_probe.launches = 0  # mm_probe kernels launched
 mm_probe.wide_launches = 0  # mm_wide_probe kernels launched
 mm_chunk.launches = 0  # mm_main kernels launched (the pass that counts errors)
 mm_chunk.front_launches = 0  # mm_front kernels launched
+mm_chunk.power_launches = 0  # mm_power kernels launched
 mm_chunk.wide_launches = 0  # mm_wide_main kernels launched (the pass that counts errors)
 mm_chunk.wide_front_launches = 0  # mm_wide_front kernels launched
 mm_chunk.norm_launches = 0  # normalization passes (each with its norm_factors) launched

@@ -12,7 +12,9 @@ trees have, in the plain chunk libraries and apart in the staged ones.
 Then it times, at a 2^17-symbol chunk, the five qam cells' chunk kernels
 (the headline link on diag, scfde_default on fold, wide_1024sc and
 lr_1024sc_zp on lr, zp_64sc on mm; the lr zero-prefix chunk at 512 and
-2048 subcarriers, lr_main's other group sizes) and the staged cells (a
+2048 subcarriers, lr_main's other group sizes; an SC-FDE link at each
+other width the fold and mm kernels compile for, 32-256 subcarriers, with
+a cyclic and a zero prefix) and the staged cells (a
 waterfilling link with both power switches on each chain, and the
 noise-bump study's chunk with all four stages on diag at 64, 512 and 1024
 subcarriers, fold and mm; a cell a tree does not take reads "skip") in
@@ -48,6 +50,10 @@ CELLS = {
     # lr_main's groups of 4 (four blocks an SM) and of 2 symbols
     "lr_512sc_zp": dict(WIDE, num_subcarriers=512, prefix_type="ZERO"),
     "lr_2048sc_zp": dict(WIDE, num_subcarriers=2048, prefix_type="ZERO"),
+    # fold's other compiled widths (bins a lane 1, 3-8; scfde_default has 2)
+    **{f"scfde_{n}sc": dict(SCFDE, num_subcarriers=n) for n in (32, 96, 128, 160, 192, 224, 256)},
+    # mm's other compiled widths (bins a lane 3, 4, 6, 8; zp_64sc has 2)
+    **{f"scfde_zp_{n}sc": dict(SCFDE, num_subcarriers=n, prefix_type="ZERO") for n in (96, 128, 192, 256)},
 }
 _WF = dict(power_allocation_type="WATERFILLING", apply_power_allocation=True, normalize_before_demap=True)
 _NB = dict(noise_type="NONE", apply_power_allocation=True, normalize_before_demap=True)
