@@ -67,7 +67,12 @@ the SNR sweep and the launch counters, reads the profiler's busy share,
 and times the kernel beside its plain version and its bound; for the fold
 and mm kernels it also reads their layout off the loaded kernels (symbols
 a group, warps, registers, shared memory, blocks an SM) and checks it at
-every width they take.  Any failed check raises.
+every width they take; for the diag kernels (``diag_layout``) it prints
+their layout, the static SASS of diag_main, power_partials, the one-pass
+front and diag_demap by pipe (``cuobjdump -sass``) and the headline
+chunk's pipe-aware bound, and it times diag_demap, the one-pass
+normalize's counting kernel, on the noise-bump links at 64 and 512 sc.
+Any failed check raises.
 
 Then K3, the carry probe, against its plain version and the chunk
 kernels' carry row on 14 links, and the chunks' carry-in; the sharded runs
@@ -169,7 +174,7 @@ def kernel_key(mangled):
         pos += len(num)
         names.append(mangled[pos : pos + int(num)])
         pos += int(num)
-    args = re.match(r"I((?:L[ib]\d+E)+)E", mangled[pos:])
+    args = re.match(r"I((?:L[ib]\d+E)+)", mangled[pos:])  # the int and bool arguments, before any type
     ints = re.findall(r"Li(\d+)E", args.group(1)) if args else []
     bools = re.findall(r"Lb(\d)E", args.group(1)) if args else []
     suffix = "+" + "".join(bools).rstrip("0") if "1" in bools else ""
@@ -186,6 +191,86 @@ def qam_registers(log_text):
         if base.endswith(",0>") or base.endswith("<0>"):
             out[key] = int(regs)
     return dict(sorted(out.items()))
+
+
+# Lane operations a clock of one H100 SM on each pipe of the SASS the
+# kernels compile to (the CUDA C++ Programming Guide's arithmetic throughput
+# table, compute capability 9.0): fp32 add / multiply; the integer ALU
+# (add, logic, shift, compare, select, min / max, IMAD, moves); int <->
+# float and f32 rounding conversions; the special-function unit (MUFU: lg2,
+# sqrt, rcp); popcount and bit scans; warp shuffles; loads and stores.
+# Control and uniform-datapath instructions count only toward issue (four
+# schedulers of 32 lanes a clock).  1.98 GHz x 132 SMs, as PEAK_OPS.
+PIPE_RATE = {"fp32": 128, "int": 64, "conv": 16, "mufu": 16, "popc": 16, "shfl": 32, "mem": 32, "other": 128}
+SM_CLOCKS = 132 * 1.98e9
+_PIPE_OPS = {
+    "fp32": ("FADD", "FMUL", "FFMA", "FADD32I", "FMUL32I", "FFMA32I", "FSWZADD"),
+    "int": ("IMAD", "IADD3", "IADD32I", "LOP3", "LOP32I", "SHF", "SHL", "SHR", "ISETP", "IMNMX", "VIMNMX", "LEA",
+            "SEL", "FSEL", "FSETP", "FMNMX", "PLOP3", "MOV", "MOV32I", "PRMT", "IABS", "BMSK", "SGXT", "P2R", "R2P",
+            "IMUL", "ISCADD", "FCHK", "IDP", "HADD2", "HMUL2", "HFMA2"),
+    "conv": ("F2I", "I2F", "F2F", "I2FP", "F2FP", "FRND", "I2I"),
+    "mufu": ("MUFU",),
+    "popc": ("POPC", "FLO", "BREV"),
+    "shfl": ("SHFL",),
+    "mem": ("LDG", "STG", "LDS", "STS", "LD", "ST", "LDC", "ATOM", "ATOMG", "ATOMS", "RED", "LDL", "STL", "LDSM"),
+}
+_PIPE_OF = {op: pipe for pipe, ops in _PIPE_OPS.items() for op in ops}
+# Philox4x32-10's second multiplier, as SASS may print it (unsigned or as
+# a negative immediate): each round multiplies by it once.
+PHILOX_MARKS = ("0xcd9e8d57", "-0x326172a9")
+
+
+def sass_counts(library_path, bins_per_pass):
+    """{kernel key: counts} of the static SASS (``cuobjdump -sass``) of the
+    kernels of a built library named in ``bins_per_pass`` ({kernel key: bins
+    one pass of its outermost loop handles}): instructions by pipe
+    (PIPE_RATE's classes) over the whole function (``function``), over the
+    body of its outermost loop without the loops nested in it (``loop``:
+    one pass, the tile-sigma and PAPR loops left out) and that per bin
+    (``per_bin``), with ``philox``, the Philox4x32-10 calls of the pass (the
+    body's instructions that name PHILOX_MARKS, over the ten rounds a call).
+    A static count: every branch of the body counts, taken or not."""
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", library_path], capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    out = {}
+    for block in re.split(r"\n\s*Function : ", text)[1:]:
+        key = kernel_key(block.split()[0])
+        if key not in bins_per_pass:
+            continue
+        ins = [(int(m.group(1), 16), m.group(2), m.group(0)) for m in re.finditer(
+            r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_]*)[^;]*;", block)]
+        back = []  # backward branches: (target, address)
+        for addr, op, txt in ins:
+            hit = re.search(r"\bBRA\b[^;]*?(0x[0-9a-f]+)", txt) if op == "BRA" else None
+            if hit and int(hit.group(1), 16) < addr:
+                back.append((int(hit.group(1), 16), addr))
+        lo, hi = min(back, key=lambda b: b[0] - b[1]) if back else (0, -1)
+        nested = [(t, a) for t, a in back if lo <= t and a <= hi and (t, a) != (lo, hi)]
+
+        def count(sel):
+            pipes = dict.fromkeys(PIPE_RATE, 0)
+            for addr, op, _ in sel:
+                pipes[_PIPE_OF.get(op, "other")] += 1
+            return pipes
+
+        body = [i for i in ins if lo <= i[0] <= hi and not any(t <= i[0] <= a for t, a in nested)]
+        loop = count(body)
+        bins = bins_per_pass[key]
+        out[key] = {"function": count(ins), "loop": loop, "per_bin": {k: v / bins for k, v in loop.items()},
+                    "philox": sum(any(mark in txt for mark in PHILOX_MARKS) for _, _, txt in body) / 10}
+    return out
+
+
+def pipe_bound_ms(per_bin, bins):
+    """The least ms ``bins`` bins of ``per_bin`` instructions by pipe (lane
+    instructions a bin) could take on the card: each pipe's lane
+    instructions over its rate, and all of them over the issue rate, the
+    largest of these; with the pipe that sets it."""
+    times = {pipe: bins * count / (PIPE_RATE[pipe] * SM_CLOCKS) for pipe, count in per_bin.items()}
+    times["issue"] = bins * sum(per_bin.values()) / (4 * 32 * SM_CLOCKS)
+    pipe = max(times, key=times.get)
+    return times[pipe] * 1e3, pipe
 
 
 def card_line():
@@ -337,35 +422,16 @@ def cuda_ms(fn, reps):
 
 
 def check_chunk(link_kw, chunk, sym0, device):
-    """diag_chunk kernel vs plain on the card on the same draw: run symbols
-    [sym0, sym0 + chunk) of the main path's seed.  Counts must be equal."""
-    import torch
-
+    """diag_chunk kernel vs plain on the card on the same draw
+    (``compare_chunk``: counts, PAPR peak and carry row exactly): run
+    symbols [sym0, sym0 + chunk) of the main path's seed."""
     from ofdm_tpu_torch.ops import link_kernel as lk
-    from ofdm_tpu_torch.ops import prng
     from ofdm_tpu_torch.pipeline import prepare
 
     setup = prepare(headline_cfg(MAIN_SYMBOLS, MAIN_CHUNK, **link_kw))
     link = lk.diag_link(setup, device)
-    snr_lin = lk.snr_linear(setup.cfg.snr_db)
-    key = prng.key_words(MAIN_SEED)
-    got = []
-    for fn in (lk.diag_chunk, lk.diag_chunk_plain):
-        acc, psum = lk.new_accumulators(device)
-        cr, ci = fn(link, key, sym0, chunk, snr_lin, acc, psum)
-        torch.cuda.synchronize()
-        be, se, pk = acc.tolist()
-        got.append((be, se, lk.bits_f32(pk), float(psum), cr.cpu(), ci.cpu()))
-    (kb, ks, kp, kps, kcr, kci), (pb, ps, pp, pps, pcr, pci) = got
-    print(f"chunk {link_kw or 'headline'} symbols [{sym0}, {sym0 + chunk}): kernel be={kb} se={ks} "
-          f"peak={kp} sum={kps}; plain be={pb} se={ps} peak={pp} sum={pps}")
-    if (kb, ks) != (pb, ps):
-        raise AssertionError(f"diag_chunk counts disagree: kernel {kb}/{ks}, plain {pb}/{ps}")
-    if abs(kp - pp) > 1e-5 * pp or abs(kps - pps) > 1e-4 * pps:
-        raise AssertionError("diag_chunk PAPR statistics disagree")
-    if not (torch.allclose(kcr, pcr, rtol=1e-5, atol=1e-6) and torch.allclose(kci, pci, rtol=1e-5, atol=1e-6)):
-        raise AssertionError("diag_chunk carry rows disagree")
-    return max(abs(kp - pp), abs(float((kcr - pcr).abs().max())), abs(float((kci - pci).abs().max())))
+    return compare_chunk(f"chunk {link_kw or 'headline'}", lk.diag_chunk, lk.diag_chunk_plain, link, sym0, chunk,
+                         setup.cfg.snr_db, device)
 
 
 def compare_chunk(label, kernel, plain, link, sym0, chunk, snr_db, device, no_papr=False, rows=None):
@@ -1315,7 +1381,30 @@ def diag_operations(link, chunk, ops_per_bin):
     if link.txext:  # no time plane in the chunk
         return ops
     sampled = lk.sampled_symbols(chunk, tile, link.pstride)
-    return ops + sampled * (product_ops(link.fr, link.fi) + PAPR_OPS * link.T)
+    return ops + sampled * (papr_product_ops(link) + PAPR_OPS * link.T)
+
+
+def idft_ops(plan):
+    """Operations of one n-point block (I)DFT (csrc/block_dft.cuh): radix-2
+    10 a butterfly, n / 2 log2 n of them; the split 8 a term over n (N1 +
+    N2) and 6 n twiddles; 2 n for the scale."""
+    n = plan.n
+    return ((n // 2) * plan.log2n * 10 if plan.log2n >= 0 else n * (plan.n1 + plan.n2) * 8 + 6 * n) + 2 * n
+
+
+def papr_matrix_bytes(link):
+    """Bytes a diag chunk reads for its in-run time block: the IDFT's
+    twiddle rows, or F_tx (none under txext)."""
+    if link.txext:
+        return 0
+    return 8 * link.n if link.plan is not None else 8 * link.n * link.T
+
+
+def papr_product_ops(link):
+    """Operations of a diag link's in-run time block a sampled symbol: its
+    n-point IDFT (``idft_ops``) where the link has a plan, else the product
+    with F_tx (``product_ops``: its distinct columns)."""
+    return product_ops(link.fr, link.fi) if link.plan is None else idft_ops(link.plan)
 
 
 def adaptive_path(card, device, headline_ms):
@@ -1376,7 +1465,7 @@ def adaptive_path(card, device, headline_ms):
     k_ms = cuda_ms(lambda: lk.diag_chunk(link, (3, 4), 0, MAIN_CHUNK, snr_lin, acc, psum, work), 20)
     p_ms = cuda_ms(lambda: lk.diag_chunk_plain(link, (3, 4), 0, MAIN_CHUNK, snr_lin, acc, psum), 3)
     ops = diag_operations(link, MAIN_CHUNK, OPS_PER_BIN_AQAM)
-    rows = 4 * (7 * link.n + 5 * link.n) + 8 * link.n * link.T
+    rows = 4 * (7 * link.n + 5 * link.n) + papr_matrix_bytes(link)
     bound = max(ops / PEAK_OPS, (rows + 3 * 8) / PEAK_BYTES) * 1e3
     print(f"diag_chunk aqam at {MAIN_CHUNK} symbols [{card}]: kernel {k_ms:.4f} ms (the headline's qam "
           f"{headline_ms:.4f} ms, ratio {k_ms / headline_ms:.4f}), plain {p_ms:.3f} ms, bound {bound:.4f} ms "
@@ -1466,7 +1555,8 @@ def stage_checks(device):
 def staged_operations(chain, link, chunk):
     """(needed, added): the operations one staged chunk needs, the chain's
     count plus its stages a bin, and the work the design adds (the chain's
-    own, plus the normalization pass: the chain again up to e)."""
+    own, plus, but on the diag chains, which run the chain once and keep e
+    in a scratch plane, the normalization pass: the chain again up to e)."""
     from ofdm_tpu_torch.ops import link_kernel as lk
 
     stages = lk.link_stages(link)
@@ -1482,7 +1572,7 @@ def staged_operations(chain, link, chunk):
         base, *extra = {"fold": fold_operations, "lr": lr_operations, "mm": mm_operations}[chain](link, chunk)
         added = sum(extra)
     needed = base + chunk * link.n * per_bin
-    if link.normalize:
+    if link.normalize and chain != "diag":
         added += needed
     return needed, added
 
@@ -1504,20 +1594,22 @@ def noise_bump_path(card, device, headline_ms, err):
                                  chunk=MAIN_CHUNK)  # warm-up
     torch.cuda.synchronize()
     lk.diag_chunk.launches = lk.diag_chunk.norm_launches = lk.diag_chunk.power_launches = 0
+    lk.diag_chunk.demap_launches = 0
     t0 = time.perf_counter()
     res = nb.run_noise_bump_experiment(NOISE_BUMP_SNRS, fused_symbols_per_point=NOISE_BUMP_SYMBOLS,
                                        results_dir=out_dir, seed=NOISE_BUMP_SEED, chunk=MAIN_CHUNK)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = (lk.diag_chunk.launches, lk.diag_chunk.norm_launches, lk.diag_chunk.power_launches)
+    launches = (lk.diag_chunk.launches, lk.diag_chunk.norm_launches, lk.diag_chunk.demap_launches,
+                lk.diag_chunk.power_launches)
     points = len(nb.SCENARIOS) * len(NOISE_BUMP_SNRS)
     want = points * (NOISE_BUMP_SYMBOLS // MAIN_CHUNK)
     print(f"noise_bump campaign [{card}]: {points} points x {NOISE_BUMP_SYMBOLS} OFDM symbols in {wall:.4f} s: "
           f"{wall / points * 1e3:.3f} ms and {NOISE_BUMP_SYMBOLS * points / wall:.1f} OFDM syms/s a point on "
-          f"average; launches: diag_staged (counting pass) {launches[0]}, normalization pass + norm_factors "
-          f"{launches[1]} each, power_partials {launches[2]}")
-    if launches != (want, want, 0):
-        raise AssertionError(f"noise_bump campaign launched {launches}, not ({want}, {want}, 0)")
+          f"average; launches: diag_staged (the chain, once a chunk) {launches[0]}, norm_factors {launches[1]}, "
+          f"diag_demap {launches[2]}, power_partials {launches[3]}")
+    if launches != (want, want, want, 0):
+        raise AssertionError(f"noise_bump campaign launched {launches}, not ({want}, {want}, {want}, 0)")
     bits = NOISE_BUMP_SYMBOLS * 64 * 6
     for scenario in nb.SCENARIOS:
         bers = res[scenario.name]
@@ -1548,16 +1640,16 @@ def noise_bump_path(card, device, headline_ms, err):
     k_ms = cuda_ms(lambda: lk.diag_chunk(link, (3, 4), 0, MAIN_CHUNK, snr_lin, acc, psum, work, rows), 20)
     p_ms = cuda_ms(lambda: lk.diag_chunk_plain(link, (3, 4), 0, MAIN_CHUNK, snr_lin, acc, psum, rows=rows), 3)
     ops, added = staged_operations("diag", link, MAIN_CHUNK)
-    rows_bytes = 4 * (7 * link.n + 3 * link.n) + 8 * link.n * link.T
+    rows_bytes = 4 * (7 * link.n + 3 * link.n) + papr_matrix_bytes(link)
     bound = max(ops / PEAK_OPS, (rows_bytes + 3 * 8) / PEAK_BYTES) * 1e3
     print(f"diag_chunk with the noise-bump stages at {MAIN_CHUNK} symbols [{card}]: kernel {k_ms:.4f} ms (the "
           f"headline's qam {headline_ms:.4f} ms, ratio {k_ms / headline_ms:.4f}), plain {p_ms:.3f} ms, bound "
-          f"{bound:.4f} ms ({ops} operations needed; the normalization pass adds {added}, "
-          f"{added / PEAK_OPS * 1e3:.4f} ms at the same rate)")
+          f"{bound:.4f} ms ({ops} operations needed; the design adds {added}, {added / PEAK_OPS * 1e3:.4f} ms at "
+          f"the same rate, and a scratch plane of {lk.ONEPASS_BYTES_PER_BIN} bytes a bin written and read once)")
     return {"name": "diag_chunk (noise-bump stages)", "route": "cuda", "source": "ofdm_tpu_torch/csrc/link_kernel.cu",
             "replaces": "ofdm_tpu/ops/pallas_link.py:1986", "launches": launches[0],
-            "norm_launches": launches[1], "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": bound, "bound_by": "operations", "library_ms": None}
+            "norm_launches": launches[1], "demap_launches": launches[2], "max_abs_err": err, "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": bound, "bound_by": "operations", "library_ms": None}
 
 
 def staged_path(card, device, err):
@@ -1578,12 +1670,14 @@ def staged_path(card, device, err):
                                                      symbols_per_chunk=MAIN_CHUNK)))
         if runner.mode != chain:
             raise AssertionError(f"{name} routed to {runner.mode}, not {chain}")
-        for c in counters + ("norm_launches",):
+        # the diag chain: the chain once, norm_factors and diag_demap a chunk
+        counters = counters + ("norm_launches",) + (("demap_launches",) if chain == "diag" else ())
+        for c in counters:
             setattr(kernel, c, 0)
         r = runner.run(MAIN_SEED)
-        got = tuple(getattr(kernel, c) for c in counters + ("norm_launches",))
+        got = tuple(getattr(kernel, c) for c in counters)
         want = BAND_SYMBOLS // MAIN_CHUNK
-        print(f"{name} through LinkRunner ({chain}): launches {dict(zip(counters + ('norm_launches',), got))}, "
+        print(f"{name} through LinkRunner ({chain}): launches {dict(zip(counters, got))}, "
               f"papr_estimator {r['papr_estimator']}")
         if got != (want,) * len(got) or r["hotpath_used"] != "cuda":
             raise AssertionError(f"{name}: launches {got}, not {want} each")
@@ -2120,21 +2214,24 @@ def wide_noise_bump_campaigns(card, device):
                                      results_dir=out_dir, seed=1, chunk=MAIN_CHUNK)  # warm-up
         torch.cuda.synchronize()
         setattr(kernel, counter, 0)
-        kernel.norm_launches = 0
+        kernel.norm_launches = lk.diag_chunk.demap_launches = 0
         t0 = time.perf_counter()
         res = nb.run_noise_bump_experiment(NOISE_BUMP_SNRS, num_subcarriers=n,
                                            fused_symbols_per_point=NOISE_BUMP_WIDE_SYMBOLS, results_dir=out_dir,
                                            seed=NOISE_BUMP_SEED, chunk=MAIN_CHUNK)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        got = (getattr(kernel, counter), kernel.norm_launches)
-        kname = "diag_wide" if chain == "diag" else "lr_main"
+        # diag_wide runs the chain once, then norm_factors and diag_demap; lr its
+        # normalization pass and norm_factors, then its counting pass
+        got = (getattr(kernel, counter), kernel.norm_launches) + ((lk.diag_chunk.demap_launches,)
+                                                                  if chain == "diag" else ())
+        what = ("diag_wide (the chain) {}, norm_factors {}, diag_demap {}" if chain == "diag" else
+                "lr_main (counting pass) {}, normalization pass + norm_factors {} each").format(*got)
         print(f"noise_bump campaign {n} sc [{card}]: {points} points x {NOISE_BUMP_WIDE_SYMBOLS} OFDM symbols in "
               f"{wall:.4f} s: {wall / points * 1e3:.3f} ms and {NOISE_BUMP_WIDE_SYMBOLS * points / wall:.1f} OFDM "
-              f"syms/s a point on average; launches: {kname} (counting pass) {got[0]}, normalization pass + "
-              f"norm_factors {got[1]} each")
-        if got != (want, want):
-            raise AssertionError(f"noise_bump {n} sc campaign launched {got}, not ({want}, {want})")
+              f"syms/s a point on average; launches: {what}")
+        if got != (want,) * len(got):
+            raise AssertionError(f"noise_bump {n} sc campaign launched {got}, not {want} each")
         bits = NOISE_BUMP_WIDE_SYMBOLS * n * 6
         for scenario in nb.SCENARIOS:
             bers = res[scenario.name]
@@ -2171,13 +2268,138 @@ def bump_entry(card, device, name, chain, link, rows, sym0, launches, err):
     bound = ops / PEAK_OPS * 1e3
     kname = "diag_wide" if chain == "diag" else f"{chain}_chunk"
     print(f"{kname} with the noise-bump stages, {name} (n={link.n}) at {MAIN_CHUNK} symbols [{card}]: kernel "
-          f"{k_ms:.4f} ms, plain {p_ms:.3f} ms, bound {bound:.4f} ms ({ops} operations needed; the normalization "
-          f"pass adds {added}, {added / PEAK_OPS * 1e3:.4f} ms at the same rate)")
+          f"{k_ms:.4f} ms, plain {p_ms:.3f} ms, bound {bound:.4f} ms ({ops} operations needed; the design adds "
+          f"{added}, {added / PEAK_OPS * 1e3:.4f} ms at the same rate)")
     source = {"diag": "diag_wide_kernel", "fold": "fold_kernel", "lr": "lr_kernel", "mm": "mm_kernel"}[chain]
     return {"name": f"{kname} (noise-bump stages, {name})", "route": "cuda",
             "source": f"ofdm_tpu_torch/csrc/{source}.cu", "replaces": "ofdm_tpu/ops/pallas_link.py:1986",
             "launches": launches, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
             "bound_by": "operations", "library_ms": None}
+
+
+# --- the diag kernels' layout and pipes; the one-pass demap ---------------------------
+
+# The diag libraries and widths whose layout diag_layout prints: (library,
+# n, log2 n of the in-run IDFT or -1 for the split).
+DIAG_LAYOUTS = (("link_kernel", 64, 6), ("link_staged", 64, 6), ("diag_wide", 512, 9),
+                ("diag_wide_staged", 300, -1), ("diag_wide_bump", 512, 9))
+# The kernels whose SASS diag_layout counts by pipe: (library, kernel key,
+# bins one pass of its outermost loop handles): the headline's, the
+# one-pass normalize's at 64 sc (front, demap, the staged power pass) and
+# the 512-sc noise-bump chunk's.
+DIAG_SASS = (("link_kernel", "diag_main<2,0>", 2), ("link_kernel", "power_partials<0>", 1),
+             ("link_staged", "diag_staged<2,0>+01", 2), ("link_staged", "diag_demap<0>", 4),
+             ("link_staged", "power_partials<0>+1", 1), ("diag_wide_bump", "diag_wide<2,0>+1011", 2),
+             ("diag_wide_bump", "diag_demap<0>", 4))
+
+
+def diag_layout(card, device, headline_ms):
+    """Print each diag library's kernels' layout as the loaded kernels report
+    it (``link_kernel.geometry``: registers, local bytes, static shared
+    memory, blocks an SM) and the static SASS of DIAG_SASS's kernels by
+    pipe (``sass_counts``), then the pipe-aware bounds (``pipe_bound_ms``:
+    each kernel's bins x its loop body's instructions a bin by pipe over the
+    pipe's rate, the kernels of a chunk in turn, the in-run IDFT's
+    operations at the fp32 rate) of the headline chunk, the noise-bump
+    chunks at 64 and 512 sc and the 64-sc waterfilling chunk with both
+    switches.  Returns {chunk: (bound ms, the pipe that sets its chain
+    kernel's bound)}."""
+    from ofdm_tpu_torch import build
+    from ofdm_tpu_torch.experiments import noise_bump as nb
+    from ofdm_tpu_torch.ops import link_kernel as lk
+    from ofdm_tpu_torch.pipeline import LinkRunner, prepare
+
+    for lib, n, log2n in DIAG_LAYOUTS:
+        print(f"diag layout {lib} at {n} sc [{card}]: {json.dumps(lk.geometry(n, lib, log2n))}")
+    counts = {}
+    for lib in dict.fromkeys(lib for lib, _, _ in DIAG_SASS):
+        keys = {key: bins for l_, key, bins in DIAG_SASS if l_ == lib}
+        for key, c in sass_counts(build.library_path(lib), keys).items():
+            counts[lib, key] = c
+            print(f"diag SASS {lib} {key}: whole function {json.dumps(c['function'])}; outermost loop's body "
+                  f"{json.dumps(c['loop'])} ({c['philox']:.1f} Philox calls), a bin {json.dumps(c['per_bin'])}")
+
+    def bound(name, link, kernels, ms):
+        tile = lk.tile_for(MAIN_CHUNK, link.tile_cap)
+        tiles = -(-MAIN_CHUNK // tile)
+        slice_bins = sum(min(link.slice, min(tile, MAIN_CHUNK - t * tile)) for t in range(tiles)) * link.n
+        parts = []
+        for lib, key, per in kernels:
+            t, pipe = pipe_bound_ms(counts[lib, key]["per_bin"], slice_bins if per == "slice" else MAIN_CHUNK * link.n)
+            parts.append((key, t, pipe))
+        papr = lk.sampled_symbols(MAIN_CHUNK, tile, link.pstride) * (papr_product_ops(link) + PAPR_OPS * link.T)
+        total = sum(t for _, t, _ in parts) + papr / PEAK_OPS * 1e3
+        print(f"{name} pipe-aware bound at {MAIN_CHUNK} symbols [{card}]: {total:.4f} ms ("
+              + ", ".join(f"{key} {t:.4f} by {pipe}" for key, t, pipe in parts)
+              + f", the in-run IDFT {papr / PEAK_OPS * 1e3:.4f}; static SASS, every branch counted); the chunk "
+              f"{ms}")
+        return total, parts[0][2]
+
+    link = lk.diag_link(prepare(headline_cfg(MAIN_SYMBOLS, MAIN_CHUNK)), device)
+    out = {"headline": bound("diag_chunk", link, (("link_kernel", "diag_main<2,0>", "bins"),
+                                                   ("link_kernel", "power_partials<0>", "slice")),
+                             f"{headline_ms:.4f} ms, uniform bound "
+                             f"{diag_operations(link, MAIN_CHUNK, OPS_PER_BIN) / PEAK_OPS * 1e3:.4f} ms")}
+    one_pass = (("link_staged", "diag_staged<2,0>+01", "bins"), ("link_staged", "diag_demap<0>", "bins"))
+    fused = nb.FusedLink(WIDE_BAND_SYMBOLS, 64, 64, "Lin-Phoong_P2", chunk=MAIN_CHUNK, device=device)
+    out["noise_bump_64"] = bound("diag_chunk with the noise-bump stages", fused.link, one_pass, "timed below")
+    wf = LinkRunner(prepare(headline_cfg(MAIN_SYMBOLS, MAIN_CHUNK, **_WF)), device).link
+    out["wf_64"] = bound("diag_chunk with apply_power + normalize", wf,
+                         one_pass + (("link_staged", "power_partials<0>+1", "slice"),), "timed below")
+    fused = nb.FusedLink(WIDE_BAND_SYMBOLS, 512, 64, "Lin-Phoong_P2", chunk=MAIN_CHUNK, device=device)
+    out["noise_bump_512"] = bound("diag_wide with the noise-bump stages, 512 sc", fused.link,
+                                  (("diag_wide_bump", "diag_wide<2,0>+1011", "bins"),
+                                   ("diag_wide_bump", "diag_demap<0>", "bins")), "timed below")
+    return out
+
+
+def demap_entry(card, device, name, link, rows, launches, err):
+    """diag_demap on a normalized link: its device time a launch from the
+    profiler over 10 chunks, beside its plain version (the plain chunk's
+    normalize_points and count_errors on e planes of the chunk's shape) and
+    its bound (the scratch's bytes read once; norm_gain, the slicer and the
+    count a bin).  Returns its kernels-line entry."""
+    import torch
+
+    from ofdm_tpu_torch.ops import link_kernel as lk
+
+    work = lk.chunk_workspace(link, MAIN_CHUNK, device)
+    acc, psum = lk.new_accumulators(device)
+    snr_lin = lk.snr_linear(15.0)
+    lk.diag_chunk.demap_launches = 0
+    prof = profile_call(lambda: [lk.diag_chunk(link, (3, 4), c * MAIN_CHUNK, MAIN_CHUNK, snr_lin, acc, psum, work,
+                                               rows) for c in range(10)])
+    count = lk.diag_chunk.demap_launches
+    ms = None if prof is None else sum(v for k, v in prof[0].items() if "diag_demap" in k) / count
+    bins = MAIN_CHUNK * link.n
+    g = torch.Generator(device=device).manual_seed(5)
+    er = torch.randn((MAIN_CHUNK, link.n), generator=g, device=device)
+    ei = torch.randn((MAIN_CHUNK, link.n), generator=g, device=device)
+    tx = torch.randint(0, 64, (MAIN_CHUNK, link.n), generator=g, device=device)
+    f = torch.rand((MAIN_CHUNK, 1), generator=g, device=device) + 0.5
+    p_ms = cuda_ms(lambda: lk.count_errors(link, tx, *lk.normalize_points(link, er, ei, f), acc), 3)
+    ops = bins * (2 + OPS_PER_BIN["demap"] + OPS_PER_BIN["count"])
+    nbytes = bins * lk.ONEPASS_BYTES_PER_BIN
+    bound = max(ops / PEAK_OPS, nbytes / PEAK_BYTES) * 1e3
+    print(f"diag_demap {name} at {MAIN_CHUNK} symbols [{card}]: {ms} ms a launch (profiler, {count} launches), plain "
+          f"{p_ms:.3f} ms, bound {bound:.4f} ms ({nbytes} bytes, {ops} operations)")
+    return {"name": f"diag_demap ({name})", "route": "cuda", "source": "ofdm_tpu_torch/csrc/diag_common.cuh",
+            "replaces": "ofdm_tpu/ops/pallas_link.py:1986", "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": p_ms, "bound_ms": bound,
+            "bound_by": "operations" if ops / PEAK_OPS >= nbytes / PEAK_BYTES else "bytes", "library_ms": None}
+
+
+def demap_entries(card, device, launches_64, launches_512, err):
+    """``demap_entry`` on the noise-bump study's links at 64 sc (diag_staged)
+    and 512 sc (diag_wide)."""
+    from ofdm_tpu_torch.experiments import noise_bump as nb
+
+    out = []
+    for n, launches in ((64, launches_64), (512, launches_512)):
+        fused = nb.FusedLink(WIDE_BAND_SYMBOLS, n, 64, "Lin-Phoong_P2", chunk=MAIN_CHUNK, device=device)
+        out.append(demap_entry(card, device, f"noise-bump stages, {n} sc", fused.link, bump_rows(fused.runner, device),
+                               launches, err))
+    return out
 
 
 def wide_path(card, device):
@@ -2304,7 +2526,7 @@ def dense_wide_operations(chain, link, chunk, ops=OPS_PER_BIN):
 
     n, T, K = link.n, link.T, link.E + 1
     p = link.plan
-    dft = ((n // 2) * p.log2n * 10 if p.log2n >= 0 else n * (p.n1 + p.n2) * 8 + 6 * n) + 2 * n
+    dft = idft_ops(p)
     drawn = T if chain == "mm" else n
     eq = ops["mmse"] if link.method == 1 else 6
     tx = (0 if link.is_sc else dft) + n * (ops["philox"] + ops["encode"])
@@ -3363,7 +3585,7 @@ def main():
     dk_ms = cuda_ms(lambda: lk.diag_chunk(link, (3, 4), 0, MAIN_CHUNK, snr_lin, acc, psum, work), 20)
     dp_ms = cuda_ms(lambda: lk.diag_chunk_plain(link, (3, 4), 0, MAIN_CHUNK, snr_lin, acc, psum), 3)
     diag_ops = diag_operations(link, MAIN_CHUNK, OPS_PER_BIN)
-    diag_bound = max(diag_ops / PEAK_OPS, (4 * 7 * link.n + 8 * link.n * link.T + 3 * 8) / PEAK_BYTES) * 1e3
+    diag_bound = max(diag_ops / PEAK_OPS, (4 * 7 * link.n + papr_matrix_bytes(link) + 3 * 8) / PEAK_BYTES) * 1e3
     bk_ms = cuda_ms(lambda: lk.boxmuller_sample(*NOISE_SEEDS, NOISE_SHAPE, device), 20)
     bp_ms = cuda_ms(lambda: lk.boxmuller_sample_plain(*NOISE_SEEDS, NOISE_SHAPE, device), 3)
     elems = NOISE_SHAPE[0] * NOISE_SHAPE[1]
@@ -3374,6 +3596,7 @@ def main():
           f"bound {diag_bound:.4f} ms ({diag_ops} operations)")
     print(f"boxmuller_sample at {NOISE_SHAPE} [{card}]: kernel {bk_ms:.4f} ms, plain {bp_ms:.3f} ms, "
           f"bound {bm_bound:.4f} ms")
+    pipe_bounds = diag_layout(card, device, dk_ms)
 
     # 7. the SC-FDE default through the fold kernel
     fold = fold_path(card, device)
@@ -3404,6 +3627,9 @@ def main():
     # 12b. the noise-bump stages on fold, lr and mm; diag past 256 subcarriers
     # (diag_wide); the study's campaign at 512 and 1024 sc
     wide = wide_path(card, device)
+    demaps = demap_entries(card, device, bump["demap_launches"],
+                           next(e["launches"] for e in wide if e["name"].startswith("diag_wide (noise-bump")),
+                           max(stage_err, next(e["max_abs_err"] for e in wide if e["name"].startswith("diag_wide"))))
 
     # 12c. the fold and zero-prefix mm chains past 256 subcarriers (fold_wide,
     # mm_wide): against their plain versions, the two audit cells they take
@@ -3423,12 +3649,18 @@ def main():
     print(f"sweep and shards phase: {time.perf_counter() - t_sweep:.1f} s (CLI s a point {json.dumps(cli_s)}); "
           f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
 
+    # the one-pass chunks' pipe-aware bounds (diag_layout) beside their uniform ones
+    one_pass = {"noise_bump_64": bump, "wf_64": next(e for e in staged if e["name"].startswith("diag_chunk")),
+                "noise_bump_512": next(e for e in wide if e["name"].startswith("diag_wide (noise-bump"))}
+    for key, entry in one_pass.items():
+        entry["pipe_bound_ms"], entry["pipe_bound_by"] = pipe_bounds[key]
     kernels = [
         {"name": "diag_chunk", "route": "cuda", "source": "ofdm_tpu_torch/csrc/link_kernel.cu",
          "replaces": "ofdm_tpu/ops/pallas_link.py:1986", "launches": main_launches,
          "power_partials_launches": power_launches,
          "max_abs_err": chunk_err, "ms": dk_ms, "plain_ms": dp_ms, "bound_ms": diag_bound,
-         "bound_by": "operations", "library_ms": None},
+         "bound_by": "operations", "library_ms": None, "pipe_bound_ms": pipe_bounds["headline"][0],
+         "pipe_bound_by": pipe_bounds["headline"][1]},
         {"name": "boxmuller_sample", "route": "cuda", "source": "ofdm_tpu_torch/csrc/boxmuller.cu",
          "replaces": "ofdm_tpu/ops/pallas_link.py:597", "launches": bm_launches,
          "max_abs_err": bm_err, "ms": bk_ms, "plain_ms": bp_ms, "bound_ms": bm_bound,
@@ -3443,6 +3675,7 @@ def main():
         *prng_entries,
         *dumps,
         *wide,
+        *demaps,
         *[e for e in dense_wide if not e["name"].endswith("_probe")],
         *adaptive_scfde,
         *probe_entries,

@@ -83,10 +83,20 @@ _WIDE_PROBE = ([_P] * 2 + [_I] * 6 + [_F] + [_I] * 7 + [_F] + [_P] * 2 + [ctypes
                + [_P, _I] + [_P] * 4 + [_P], _I)
 _DIAG = [_P] * 9 + [_I] * 8 + [_F] + [_P] * 2 + [_F] * 3 + [_I] * 2 + [ctypes.c_ulonglong] + [_I] * 7 + [_U] * 2 \
     + [_P] * 5 + _STAGES
+# The diag chunks (ofdm_diag_chunk, ofdm_diag_wide_chunk): _DIAG, then the
+# one-pass scratch (the e planes, the TX index plane, the slab), the in-run
+# IDFT's plan (the twiddle pair, n1, n2, log2 n, the scale), txext, the stream.
+_DIAG_CHUNK = (_DIAG + [_P] * 3 + [_I] + [_P] * 2 + [_I] * 3 + [_F, _I, _P], _I)
 SIGNATURES = {
-    "link_kernel": {"ofdm_diag_chunk": (_DIAG + [_P], _I)},
-    # the diag chunk past 256 subcarriers: the same arguments, then txext
-    "diag_wide_kernel": {"ofdm_diag_wide_chunk": (_DIAG + [_I, _P], _I)},
+    # ofdm_diag{,_wide}_geometry write the diag kernels' layout into sixteen ints
+    "link_kernel": {
+        "ofdm_diag_chunk": _DIAG_CHUNK,
+        "ofdm_diag_geometry": ([_I, ctypes.POINTER(ctypes.c_int)], _I),
+    },
+    "diag_wide_kernel": {
+        "ofdm_diag_wide_chunk": _DIAG_CHUNK,
+        "ofdm_diag_wide_geometry": ([_I, _I, ctypes.POINTER(ctypes.c_int)], _I),
+    },
     # the fold and mm chunks take each matrix as its listed terms (p, idx,
     # chunks: ops/terms.py); ofdm_{fold,mm}_geometry write the kernels'
     # layout into thirteen ints

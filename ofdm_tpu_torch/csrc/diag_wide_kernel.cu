@@ -13,7 +13,7 @@
 // -> y = s*d -> AWGN with the tile's measured power -> ZF / MMSE / none ->
 // [post-EQ noise] -> [x 1/sqrt(P)] -> [x the tile's unit-power factor] ->
 // slicer or PSK sector -> popcount(tx ^ rx).  Every pstride-th tile also
-// runs the IDFT+CP product for the PAPR max and sum, except under txext
+// runs the block IDFT (block_dft.cuh) for the PAPR max and sum, except under txext
 // (from 512 subcarriers without apply_power; pallas_link.py:882-887), where
 // the runner's sampled TX batch supplies the statistic.  The bracketed
 // _Spec stages exist only in the build with -DOFDM_STAGED=1 (the kernel's
@@ -21,11 +21,13 @@
 // 1/sqrt(P) only in the one with -DOFDM_BUMP=1 as well (kBump).
 //
 // Bound on an H100: issue rate, not memory.  The chunk reads its constant
-// rows (a few KB a row) and, on sampled tiles, the (n, T) IDFT+CP matrix
-// from L2; it writes 3 counters and one row.  Each bin costs the ~250 fp32
-// and integer operations of the diag chain (Philox, encode, Box-Muller,
-// equalizer, slicer); a sampled symbol adds 8 n T operations of the PAPR
-// product (4.2M at 512 subcarriers and CP 1.0), on 1/pstride of the tiles.
+// rows (a few KB a row) and the IDFT's twiddles; it writes 3 counters and
+// one row (a normalized chunk adds its scratch plane, 10 bytes a bin
+// written and read once).  Each bin costs the ~250 fp32 and integer
+// operations of the diag chain (Philox, encode, Box-Muller, equalizer,
+// slicer); a sampled symbol adds the n-point block IDFT ((n/2) log2 n
+// butterflies, 23K operations at 512 subcarriers; the dense (n, T) product
+// it replaced took 4.2M), on 1/pstride of the tiles.
 //
 // Design:
 //  * One block of 256 threads a symbol (lr_main's layout): thread t holds
@@ -37,16 +39,20 @@
 //  * Measured power: wide_power, power_partials' fixed order (16 sequential
 //    steps a thread, a 256-way tree) over each tile's first `slice`
 //    symbols; the main kernel sums a tile's partials in order.
-//  * The in-run PAPR product: a sampled symbol's s goes to shared memory
-//    (2n floats, dynamic), and the block's threads stride over the T
-//    outputs, each a k-ascending sum of rounded terms (the plain version's
-//    cmatmul) over the matrix read through the read-only cache: neighbouring
-//    threads read neighbouring columns, and the matrix (n T complex, 4 MB at
-//    512 subcarriers) streams from L2, never staged whole.
-//  * normalize (staged build): the kernel runs twice around norm_factors, as
-//    diag_staged does; phase 0 writes one partial a block (its run's
-//    symbols' energies in order), phase 1 scales and counts.  Both passes
-//    recompute the chain, the post-EQ noise at the same Philox counter.
+//  * The in-run PAPR: a sampled symbol's s goes to shared memory at its
+//    dft_slot, the block's threads run block_dft.cuh's inverse transform
+//    (the plan of ops/dft.py::dft_plan, any n), and x = scale * the result.
+//    The cyclic prefix repeats the last L = T - n samples, so sample m >= n
+//    - L enters the PAPR sum twice and both places of the carry row; the
+//    peak and the carry row are those of the whole time block.  The plain
+//    version (link_kernel.wide_tx) runs the same transform in the same
+//    order, so the two agree bit for bit.  A sampled symbol costs about a
+//    fifth more than another, so the blocks that walk sampled tiles set no
+//    tail of their own.
+//  * normalize (staged build; diag_common.cuh): the front variant runs the
+//    chain once, writes e and the TX index of each bin to the scratch and
+//    one |e|^2 partial a block (its run's symbols' energies in order),
+//    norm_factors reduces a tile's partials, diag_demap scales and counts.
 //  * Counters: per-thread 32-bit, warp and block sums, one 64-bit atomicAdd
 //    per block; the PAPR peak an atomicMax on the f32 bits, the PAPR sum a
 //    double atomicAdd (its last digits depend on block order).
@@ -54,6 +60,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "block_dft.cuh"
+#include "diag_common.cuh"
 #include "link_common.cuh"
 
 // A named namespace, so profilers show the kernels' names.
@@ -67,9 +75,8 @@ constexpr int kMaxN = 4096;
 
 struct Link {
   ofdm::Equalizer eq;
-  const float* fr;  // (n, T) IDFT + CP, row-major (null under txext)
-  const float* fi;
-  const float* chr;  // (n,) the channel multiply's rows (diag_response)
+  ofdm::DftPlan plan;  // the n-point IDFT of the in-run PAPR (twiddles null under txext)
+  const float* chr;    // (n,) the channel multiply's rows (diag_response)
   const float* chi;
   int n;
   int T;
@@ -124,15 +131,50 @@ __global__ void __launch_bounds__(kThreads) wide_power(Link L, float* partials) 
   ofdm::store_block_sum<kThreads>(acc, red, t, partials + tile_id * L.groups + g);
 }
 
-// The chain a symbol a block; with kStaged, the stages (phase 0 of a
-// normalized link writes its run's |e|^2 partial instead of counting);
-// kDump is the dump stage's launch-time variant, kBump the noise-bump
-// stages (the OFDM_BUMP build).
-template <int J, int kMode, bool kStaged, bool kDump = false, bool kBump = false>
-__global__ void __launch_bounds__(kThreads)
-    diag_wide(Link L, const float* partials, unsigned long long* acc, double* psum, float* carry_r,
-              float* carry_i) {
-  extern __shared__ float splane[];  // 2n floats: a sampled symbol's s (in-run PAPR only)
+// Blocks an SM the plain build's diag_wide keeps to at J bins a thread:
+// 40, 48, 128 and 80 registers at 2, 4, 8 and 16 bins, the layout before
+// the in-run transform, whose code would take 48, 122, 184 and 117 (the
+// txext variant at 8 and 16; port_ab.py's OFDM-CY1.0-512 and
+// flat_fading_cp_{1024,2048,4096}sc cells).
+__host__ __device__ constexpr int plain_blocks(int J) { return J <= 2 ? 6 : J <= 4 ? 5 : J <= 8 ? 2 : 3; }
+
+// Shared floats of the in-run PAPR's block IDFT: (ar, ai), and the split's
+// (br, bi) where n is not a power of two.
+__host__ __device__ __forceinline__ int plane_floats(const ofdm::DftPlan& p) {
+  return (p.log2n >= 0 ? 2 : 4) * p.n;
+}
+
+// The PAPR statistic of a sampled symbol whose s the block stored at its
+// dft_slot in (ar, ai): the block IDFT, x = scale * the result, IDFT
+// sample m the block's time sample T - n + m (papr_sample).  Every thread
+// of the block calls it; it ends with __syncthreads, so the plane may be
+// rewritten.
+__device__ __forceinline__ void papr_idft(const Link& L, float* plane, bool carry, float& pk, double& ps,
+                                          float* carry_r, float* carry_i) {
+  const int n = L.n;
+  float* ar = plane;
+  float* ai = plane + n;
+  ofdm::block_dft<kThreads>(L.plan, ar, ai, plane + 2 * n, plane + 3 * n, true);
+  for (int m = threadIdx.x; m < n; m += kThreads) {
+    ofdm::papr_sample(n, L.T - n + m, ar[m] * L.plan.scale, ai[m] * L.plan.scale, carry, pk, ps, carry_r, carry_i);
+  }
+  __syncthreads();
+}
+
+// The chain over chunk symbols [b_lo, b_hi), a symbol a block, each block
+// walking `run` consecutive symbols; with kStaged, the stages; kDump is the
+// dump stage's launch-time variant, kBump the noise-bump stages (the
+// OFDM_BUMP build).  The counting variant counts; the front variant of a
+// normalized chunk (kFront) writes e and the TX index of each bin to the
+// slab's scratch and its run's |e|^2 partial instead.  kTxext, the plain
+// build's launch-time variant for a txext chunk, holds no in-run time
+// block.  The plain build's chain keeps to plain_blocks(J) blocks an SM.
+template <int J, int kMode, bool kStaged, bool kDump = false, bool kBump = false, bool kFront = false,
+          bool kTxext = false>
+__global__ void __launch_bounds__(kThreads, kStaged ? 1 : plain_blocks(J))
+    diag_wide(Link L, int b_lo, int b_hi, const float* partials, unsigned long long* acc, double* psum,
+              float* carry_r, float* carry_i, ofdm::Scratch scr) {
+  extern __shared__ float splane[];  // plane_floats: a sampled symbol's IDFT (in-run PAPR only)
   __shared__ float wsum[kWarps];
   const int tid = threadIdx.x;
 
@@ -140,14 +182,10 @@ __global__ void __launch_bounds__(kThreads)
   float pk = 0.0f;
   double ps = 0.0;
 
-  const int b0 = static_cast<int>(static_cast<long long>(blockIdx.x) * L.run);
-  const int b1 = min(b0 + L.run, L.chunk);
-  const bool counting = !kStaged || L.st.phase == 1;
-  const bool normalize = kStaged && (L.st.bits & ofdm::kStageNormalize) != 0;
+  const int b0 = static_cast<int>(b_lo + static_cast<long long>(blockIdx.x) * L.run);
+  const int b1 = min(b0 + L.run, b_hi);
   int cached_tile = -1;
-  float sigma = 0.0f;
-  int norm_tile = -1;
-  float fn = 1.0f, energy = 0.0f;
+  float sigma = 0.0f, energy = 0.0f;
   for (int b = b0; b < b1; ++b) {
     const int tile_id = b / L.tile;
     if (L.add_noise && tile_id != cached_tile) {
@@ -155,13 +193,7 @@ __global__ void __launch_bounds__(kThreads)
       sigma = ofdm::tile_sigma(partials + tile_id * L.groups, L.groups, min(L.slice, tlen) * L.n, L.snr_lin);
       cached_tile = tile_id;
     }
-    if constexpr (kStaged) {
-      if (normalize && counting && tile_id != norm_tile) {
-        fn = L.st.norm_f[tile_id];
-        norm_tile = tile_id;
-      }
-    }
-    const bool sampled = counting && !L.txext && (tile_id % L.pstride) == 0;
+    const bool sampled = !kTxext && !L.txext && (tile_id % L.pstride) == 0;
     const unsigned long long sym = L.sym0 + static_cast<unsigned long long>(b);
 
     float yr[J], yi[J];
@@ -178,8 +210,9 @@ __global__ void __launch_bounds__(kThreads)
         tx[j] = ofdm::encode<kMode>(w.x, L.q, L.lanes, k, sr, si);
         ofdm::scale_tx<kStaged>(L, k, sr, si);
         if (sampled) {
-          splane[k] = sr;
-          splane[L.n + k] = si;
+          const int slot = ofdm::dft_slot(L.plan, k);
+          splane[slot] = sr;
+          splane[L.n + slot] = si;
         }
         const float hr = __ldg(L.chr + k);
         const float hi = __ldg(L.chi + k);
@@ -200,103 +233,111 @@ __global__ void __launch_bounds__(kThreads)
       if (k < L.n) {
         ofdm::equalize_stage<kMode, kStaged>(L, k, yr[j], yi[j], nv, er[j], ei[j]);
         ofdm::bump_stages<kBump>(L, sym, k, er[j], ei[j]);
-        if constexpr (kStaged) p = p + (er[j] * er[j] + ei[j] * ei[j]);
+        if constexpr (kFront) p = p + (er[j] * er[j] + ei[j] * ei[j]);
       }
     }
-    if constexpr (kStaged) {
-      if (normalize && !counting) {
-        energy = energy + ofdm::block_sum<kWarps>(p, wsum);
-        continue;
-      }
-    }
+    if constexpr (kFront) {
+      energy = energy + ofdm::block_sum<kWarps>(p, wsum);
 #pragma unroll
-    for (int j = 0; j < J; ++j) {
-      const int k = tid + kThreads * j;
-      if (k < L.n) {
-        if constexpr (kStaged) {
-          if (normalize) {
-            const float m = ofdm::norm_gain<kMode>(L, k, fn);
-            er[j] = er[j] * m;
-            ei[j] = ei[j] * m;
-          }
+      for (int j = 0; j < J; ++j) {
+        const int k = tid + kThreads * j;
+        if (k < L.n) ofdm::scratch_store(scr, b_lo, L.n, b, k, tx[j], er[j], ei[j]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const int k = tid + kThreads * j;
+        if (k < L.n) {
+          ofdm::dump_bin<kMode, kDump>(L, b, k, er[j], ei[j]);
+          ofdm::count_bin<kMode>(tx[j], er[j], ei[j], L.q, L.lanes, k, be, se);
         }
-        ofdm::dump_bin<kMode, kDump>(L, b, k, er[j], ei[j]);
-        ofdm::count_bin<kMode>(tx[j], er[j], ei[j], L.q, L.lanes, k, be, se);
       }
     }
 
-    if (sampled) {
-      // PAPR: x = s @ F_tx over this symbol's n (scaled) bins, T time samples.
-      __syncthreads();
-      for (int c = tid; c < L.T; c += kThreads) {
-        float xr, xi;
-        ofdm::cdot(splane, splane + L.n, L.fr, L.fi, L.n, L.T, c, xr, xi);
-        const float pw = xr * xr + xi * xi;
-        pk = fmaxf(pk, pw);
-        ps += static_cast<double>(pw);
-        if (b == L.carry_sym) {
-          carry_r[c] = xr;
-          carry_i[c] = xi;
-        }
-      }
-      __syncthreads();  // splane is rewritten by the next sampled symbol
-    }
+    if (sampled) papr_idft(L, splane, b == L.carry_sym, pk, ps, carry_r, carry_i);
   }
-  if (counting && L.txext && blockIdx.x == 0) {
+  if (L.txext && blockIdx.x == 0 && b_lo == 0) {
     // no time plane in the chunk: the carry row is zeros (no diag symbol reads it)
     for (int c = tid; c < L.T; c += kThreads) {
       carry_r[c] = 0.0f;
       carry_i[c] = 0.0f;
     }
   }
-  if constexpr (kStaged) {
-    if (normalize && !counting && tid == 0 && b0 < L.chunk) L.st.norm_part[blockIdx.x] = energy;
-  }
+  if (kFront && tid == 0 && b0 < b_hi) L.st.norm_part[b0 / L.run] = energy;
 
   ofdm::flush_counters<kWarps>(be, se, pk, ps, acc, psum);
 }
 
+int sm_count() {
+  static int count = 0;
+  if (count == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    if (count <= 0) count = 132;
+  }
+  return count;
+}
+
+// Dynamic shared bytes of a chunk's main kernels: the in-run PAPR's plane.
+size_t plane_bytes(const Link& L) {
+  return L.txext ? 0 : sizeof(float) * static_cast<size_t>(plane_floats(L.plan));  // <= 64 KB
+}
+
+// Launches `kernel` over chunk symbols [b_lo, b_hi), a block a run, with the
+// plane's dynamic shared memory (raising the kernel's limit past 48 KB).
+template <class K>
+cudaError_t launch_main(K* kernel, const Link& L, int b_lo, int b_hi, const float* partials,
+                        unsigned long long* acc, double* psum, float* cr, float* ci, const ofdm::Scratch& scr,
+                        cudaStream_t stream) {
+  const size_t bytes = plane_bytes(L);
+  if (bytes > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (err != cudaSuccess) return err;
+  }
+  const int grid = (b_hi - b_lo + L.run - 1) / L.run;
+  kernel<<<grid, kThreads, bytes, stream>>>(L, b_lo, b_hi, partials, acc, psum, cr, ci, scr);
+  return cudaGetLastError();
+}
+
 // wide_power (when noise is on) then diag_wide at J bins a thread; in the
-// OFDM_STAGED build diag_wide twice around norm_factors under normalize.
+// OFDM_STAGED build under normalize the one-pass slabs (diag_common.cuh).
 template <int J, int kMode>
-cudaError_t launch(const Link& L, float* partials, unsigned long long* acc, double* psum, float* cr, float* ci,
-                   cudaStream_t stream) {
+cudaError_t launch(const Link& L, int slab, const ofdm::Scratch& scr, float* partials, unsigned long long* acc,
+                   double* psum, float* cr, float* ci, cudaStream_t stream) {
   constexpr bool kS = ofdm::kStagedBuild;
   constexpr bool kB = ofdm::kBumpBuild;
   auto* main_kernel = &diag_wide<J, kMode, kS, false, kB>;
-#if OFDM_STAGED
-  if (L.st.bits & ofdm::kStageDump) main_kernel = &diag_wide<J, kMode, kS, true, kB>;
-#endif
   if (L.add_noise) {
     const int tiles = (L.chunk + L.tile - 1) / L.tile;
     wide_power<kMode, kS><<<dim3(tiles, L.groups), kThreads, 0, stream>>>(L, partials);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  const size_t plane_bytes = L.txext ? 0 : sizeof(float) * 2 * L.n;  // <= 32 KB
-  const int grid = (L.chunk + L.run - 1) / L.run;
 #if OFDM_STAGED
-  return ofdm::staged_passes(L.st.bits, L.st.norm_part, L.st.norm_f, L.chunk, L.tile, L.run, L.n, stream,
-                             [&](int phase) {
-    Link P = L;
-    P.st.phase = phase;
-    main_kernel<<<grid, kThreads, plane_bytes, stream>>>(P, partials, acc, psum, cr, ci);
-    return cudaGetLastError();
-  });
+  if (L.st.bits & ofdm::kStageNormalize) {
+    return ofdm::onepass_slabs<kMode>(L, slab, scr, sm_count() * 8, acc, psum, stream, [&](int b_lo, int b_hi) {
+      return launch_main(&diag_wide<J, kMode, kS, false, kB, true>, L, b_lo, b_hi, partials, acc, psum, cr, ci,
+                         scr, stream);
+    });
+  }
+  if (L.st.bits & ofdm::kStageDump) main_kernel = &diag_wide<J, kMode, kS, true, kB>;
 #else
-  main_kernel<<<grid, kThreads, plane_bytes, stream>>>(L, partials, acc, psum, cr, ci);
-  return cudaGetLastError();
+  (void)slab;
+  if (L.txext) main_kernel = &diag_wide<J, kMode, false, false, false, false, true>;
 #endif
+  return launch_main(main_kernel, L, 0, L.chunk, partials, acc, psum, cr, ci, scr, stream);
 }
 
-template <int kMode>
-cudaError_t launch_mode(const Link& L, float* partials, unsigned long long* acc, double* psum, float* cr,
-                        float* ci, cudaStream_t stream) {
-  const int bins = (L.n + kThreads - 1) / kThreads;  // bins a thread: 2 ... 16
-  if (bins <= 2) return launch<2, kMode>(L, partials, acc, psum, cr, ci, stream);
-  if (bins <= 4) return launch<4, kMode>(L, partials, acc, psum, cr, ci, stream);
-  if (bins <= 8) return launch<8, kMode>(L, partials, acc, psum, cr, ci, stream);
-  return launch<16, kMode>(L, partials, acc, psum, cr, ci, stream);
+// Calls f(std::integral_constant<int, J>()) for the bins a thread of width n.
+template <class F>
+cudaError_t with_width(int n, F&& f) {
+  const int bins = (n + kThreads - 1) / kThreads;  // bins a thread: 2 ... 16
+  if (bins <= 2) return f(std::integral_constant<int, 2>());
+  if (bins <= 4) return f(std::integral_constant<int, 4>());
+  if (bins <= 8) return f(std::integral_constant<int, 8>());
+  return f(std::integral_constant<int, 16>());
 }
 
 }  // namespace ofdm_diag_wide
@@ -308,17 +349,19 @@ extern "C" {
 // One chunk of a diag link at 257 <= n <= 4096: wide_power (when noise is
 // on) then diag_wide, all on `stream`, in constellation mode `mode`
 // (link_common.cuh::Mode; lane_i / lane_f the adaptive modes' lane rows).
-// The arguments are link_kernel.cu's ofdm_diag_chunk's (chr / chi, the
-// channel rows, read in both builds), then txext: 1 when the runner supplies
-// the PAPR statistic (fr / fi may then be null; the carry row is zeros).
-// acc = [bit errors, symbol errors, PAPR peak f32 bits] (int64,
-// accumulated), psum = PAPR power sum (float64, accumulated).  rows /
-// stages / norm_part / norm_f / dump: the _Spec stages
-// (link_common.cuh::Stages; stages must be 0 in the plain build).  Returns
-// the first CUDA error of the launches, 0 if none.
+// The arguments are link_kernel.cu's ofdm_diag_chunk's: fr / fi unused
+// (the in-run PAPR takes the block IDFT of the plan twr / twi / n1 / n2 /
+// log2n / dft_scale, ops/dft.py::DftPlan; the twiddles null under txext),
+// txext 1 when the runner supplies the PAPR statistic (the carry row is
+// then zeros).  acc = [bit errors, symbol errors, PAPR peak f32 bits]
+// (int64, accumulated), psum = PAPR power sum (float64, accumulated).
+// rows / stages / norm_part / norm_f / dump: the _Spec stages
+// (link_common.cuh::Stages; stages must be 0 in the plain build); scr_r /
+// scr_i / scr_tx / slab: a normalized chunk's scratch (diag_common.cuh).
+// Returns the first CUDA error of the launches, 0 if none.
 int ofdm_diag_wide_chunk(const float* hr, const float* hi, const float* habs2, const float* gr,
-                         const float* gi, const float* chr, const float* chi, const float* fr,
-                         const float* fi, int n, int T, int mode,
+                         const float* gi, const float* chr, const float* chi, const float* /* fr */,
+                         const float* /* fi */, int n, int T, int mode,
                          int order, int m, int logm, int bits, int gray, float scale,
                          const int* lane_i, const float* lane_f, float slicer,
                          float snr_lin, float cg, int method, int add_noise,
@@ -326,19 +369,25 @@ int ofdm_diag_wide_chunk(const float* hr, const float* hi, const float* habs2, c
                          int pstride, int carry_sym, int run, unsigned int key0, unsigned int key1,
                          float* partials, long long* acc, double* psum, float* carry_r,
                          float* carry_i, const float* rows, int stages, float* norm_part, float* norm_f,
-                         float* dump_r, float* dump_i, int dump_rows, int txext, void* stream_ptr) {
-  if (n < kMinN || n > kMaxN || T < n || chunk < 1 || tile < 1 || slice < 1 || groups < 1 || pstride < 1 ||
-      run < 1 || tile % run != 0 || chr == nullptr || chi == nullptr ||
-      (!txext && (fr == nullptr || fi == nullptr)) ||
+                         float* dump_r, float* dump_i, int dump_rows, float* scr_r, float* scr_i,
+                         unsigned short* scr_tx, int slab, const float* twr, const float* twi, int n1, int n2,
+                         int log2n, float dft_scale, int txext, void* stream_ptr) {
+  const bool plan_ok = txext || (twr != nullptr && twi != nullptr && n1 >= 1 && n1 * n2 == n &&
+                                 (log2n < 0 || (1 << log2n) == n));
+  if (n < kMinN || n > kMaxN || T < n || T > 2 * n || chunk < 1 || tile < 1 || slice < 1 || groups < 1 ||
+      pstride < 1 || run < 1 || tile % run != 0 || chr == nullptr || chi == nullptr || !plan_ok ||
       (ofdm::adaptive(mode) && (lane_i == nullptr || lane_f == nullptr)) ||
       !ofdm::stage_args_ok(rows, stages, norm_part, norm_f, dump_r, dump_i, dump_rows, ofdm::kBumpBuild)) {
     return cudaErrorInvalidValue;
   }
+  const ofdm::Scratch scr{scr_r, scr_i, scr_tx};
+#if OFDM_STAGED
+  if (!ofdm::scratch_ok(stages, scr, slab, tile, chunk)) return cudaErrorInvalidValue;
+#endif
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   Link L;
   L.eq = ofdm::Equalizer{hr, hi, habs2, gr, gi, slicer, cg, method};
-  L.fr = fr;
-  L.fi = fi;
+  L.plan = ofdm::DftPlan{twr, twi, n, n1, n2, log2n, dft_scale};
   L.chr = chr;
   L.chi = chi;
   L.n = n;
@@ -361,7 +410,40 @@ int ofdm_diag_wide_chunk(const float* hr, const float* hi, const float* habs2, c
 
   unsigned long long* a = reinterpret_cast<unsigned long long*>(acc);
   return static_cast<int>(ofdm::with_mode(mode, [&](auto md) {
-    return launch_mode<decltype(md)::value>(L, partials, a, psum, carry_r, carry_i, stream);
+    return with_width(n, [&](auto j) {
+      return launch<decltype(j)::value, decltype(md)::value>(L, slab, scr, partials, a, psum, carry_r, carry_i,
+                                                             stream);
+    });
+  }));
+}
+
+// The layout of this build's qam kernels at width n with the in-run PAPR's
+// plane (log2n >= 0: radix-2, else the split), as a chunk launches them:
+// four ints (registers, local bytes a thread, static shared memory,
+// resident blocks an SM) for each of wide_power, diag_wide's counting
+// variant, its front variant and diag_demap (-1 where the build has none),
+// into out[16].
+int ofdm_diag_wide_geometry(int n, int log2n, int* out) {
+  if (n < kMinN || n > kMaxN) return cudaErrorInvalidValue;
+  for (int i = 0; i < 16; ++i) out[i] = -1;
+  const size_t bytes = sizeof(float) * static_cast<size_t>((log2n >= 0 ? 2 : 4) * n);
+  return static_cast<int>(with_width(n, [&](auto j) {
+    constexpr int J = decltype(j)::value;
+    constexpr bool kS = ofdm::kStagedBuild;
+    constexpr bool kB = ofdm::kBumpBuild;
+    cudaError_t err = ofdm::kernel_layout(&wide_power<ofdm::kQam, kS>, kThreads, 0, out);
+    if (err == cudaSuccess) {
+      err = ofdm::kernel_layout(&diag_wide<J, ofdm::kQam, kS, false, kB>, kThreads, bytes, out + 4);
+    }
+#if OFDM_STAGED
+    if (err == cudaSuccess) {
+      err = ofdm::kernel_layout(&diag_wide<J, ofdm::kQam, kS, false, kB, true>, kThreads, bytes, out + 8);
+    }
+    if (err == cudaSuccess) {
+      err = ofdm::kernel_layout(&ofdm::diag_demap<ofdm::kQam, false, Link>, ofdm::kDemapThreads, 0, out + 12);
+    }
+#endif
+    return err;
   }));
 }
 

@@ -47,6 +47,9 @@ fixed order (``tile_norm``) that the kernels repeat: per symbol as the
 MMSE mean is, per run of consecutive symbols in order, then a tile's runs
 by ``norm_factors``' tree.  A diag symbol is summed by a warp up to 256
 subcarriers and by a block of 256 threads past them (``diag_layout``).
+The diag kernels run a normalized chunk's chain once, into a scratch
+plane of whole-tile slabs (``onepass_slab``), and count in a demap kernel
+(csrc/diag_common.cuh); the plain version builds e once as well.
 
 Host constants and rules kept from the reference: ``_consts_for``'s diag
 and codec rows (:1049-1161), ``_spec_for``'s tile rule (:795-799) with
@@ -86,6 +89,11 @@ _SINC_Z = (1.5707963267681528, -0.6459640955781804, 0.0796926037175787,
 
 TILE_LADDER = (8192, 4096, 2048, 1024, 512, 256, 128, 64, 32)
 MAX_N = 4096  # diag_wide holds up to 16 bins a thread
+# The one-pass normalize's scratch (csrc/diag_common.cuh): e (2 x f32) and
+# the TX index (u16) a bin, for a slab of whole tiles of at most
+# ONEPASS_SLAB_BINS bins (671 MB; a slab of one tile past it).
+ONEPASS_BYTES_PER_BIN = 10
+ONEPASS_SLAB_BINS = 1 << 26
 WARP_MAX_N = 256  # diag_main's warp-per-symbol layout holds up to 8 bins a lane
 POWER_BLOCK = 16 * 256  # slice elements per power_partials block
 RUN = 8  # consecutive symbols a warp of the staged diag kernel walks
@@ -627,12 +635,15 @@ class DiagLink:
     gi: torch.Tensor
     cr: torch.Tensor  # (n,) the channel multiply's diag_response rows
     ci: torch.Tensor
-    fr: Optional[torch.Tensor]  # (n, T) IDFT + CP; None under txext
+    fr: Optional[torch.Tensor]  # (n, T) IDFT + CP where there is no ``plan``; None under txext
     fi: Optional[torch.Tensor]
     # The noise-bump study's stages (noise_bump_link): post-EQ noise of
     # sigma rows[2], then x rows[1] (1/sqrt(P)).
     post_noise: bool = False
     compensate: bool = False
+    # The in-run PAPR's n-point IDFT (``dft.dft_plan``) in place of F_tx:
+    # past 256 sc without txext, and up to 256 sc where n is a power of two.
+    plan: Optional[object] = None
 
 
 def f32_tensor(a, device) -> torch.Tensor:
@@ -686,7 +697,9 @@ def diag_link(setup, device) -> DiagLink:
     reference does (docs/PARITY.md quirk 1), so on an IR without unit
     energy d = h_freq / ||ir||.  Where d equals h_freq within f32 (unit
     energy) the channel rows are the h rows, bit for bit, as the JAX
-    kernel's."""
+    kernel's.  The in-run PAPR takes the n-point IDFT (``plan``,
+    ``wide_tx``) where n is a power of two or past 256 subcarriers, and
+    multiplies by the dense F_tx elsewhere (``papr_plane``)."""
     cfg = setup.cfg
     n, L = cfg.num_subcarriers, setup.prefix_length
     T = n + L
@@ -697,7 +710,12 @@ def diag_link(setup, device) -> DiagLink:
     else:
         cr, ci = f32_tensor(d.real, device), f32_tensor(d.imag, device)
     txext = txext_for(cfg)
-    ftx = None if txext else linops.tx_matrix(n, cfg.prefix_type, L, cfg.modulation_type)
+    idft = n > WARP_MAX_N or n & (n - 1) == 0
+    ftx = None if txext or idft else linops.tx_matrix(n, cfg.prefix_type, L, cfg.modulation_type)
+    if idft and not txext:
+        from ofdm_tpu_torch.ops import dft
+
+        fields["plan"] = dft.dft_plan(n, device)
     return DiagLink(
         T=T,
         txext=txext,
@@ -1207,10 +1225,21 @@ def diag_chunk_plain(
         return torch.zeros(link.T, dtype=torch.float32, device=dev), torch.zeros(link.T, dtype=torch.float32,
                                                                                     device=dev)
     sampled = (torch.arange(chunk, device=dev) // tile) % link.pstride == 0
-    xr, xi = cmatmul(link.fr, link.fi, sr[sampled], si[sampled])
+    xr, xi = papr_plane(link, sr[sampled], si[sampled])
     add_papr(xr, xi, acc, psum)
     # sampled rows are in symbol order: the last one is symbol carry_sym
     return xr[-1].clone(), xi[-1].clone()
+
+
+def papr_plane(link: DiagLink, sr, si):
+    """The time blocks (rows, T) of TX symbols (rows, n), as the kernels
+    compute them for the PAPR statistic: the block IDFT with its cyclic
+    prefix where the link has a ``plan`` (``wide_tx``; the order of
+    diag_main's in-warp radix-2 and of diag_wide's block transform), else
+    ``cmatmul`` over F_tx."""
+    if link.plan is None:
+        return cmatmul(link.fr, link.fi, sr, si)
+    return wide_tx(sr, si, link.T, False, False, link.plan)
 
 
 # --- kernel wrappers ----------------------------------------------------------
@@ -1226,17 +1255,28 @@ def new_accumulators(device):
 
 
 def _check_link_tensors(link: DiagLink, device):
-    names = ("hr", "hi", "habs2", "gr", "gi", "cr", "ci") + (() if link.txext else ("fr", "fi"))
-    for name in names:
-        t = getattr(link, name)
+    rows = {name: getattr(link, name) for name in ("hr", "hi", "habs2", "gr", "gi", "cr", "ci")}
+    if link.txext:
+        papr = {}
+    elif link.plan is None:
+        papr = {"fr": link.fr, "fi": link.fi}
+    else:
+        papr = {"plan.twr": link.plan.twr, "plan.twi": link.plan.twi}
+    for name, t in {**rows, **papr}.items():
         if t is None or t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"link.{name} must be contiguous f32 on {device}")
-    if link.hr.shape != (link.n,) or (not link.txext and link.fr.shape != (link.n, link.T)):
+    if link.hr.shape != (link.n,) or ("fr" in papr and link.fr.shape != (link.n, link.T)):
         raise ValueError("link rows have the wrong shape")
     if not 1 <= link.n <= MAX_N:
         raise ValueError(f"diag kernels take 1 <= n <= {MAX_N}, got {link.n}")
-    if link.txext and link.n <= WARP_MAX_N:
+    if not link.n <= link.T <= 2 * link.n:
+        raise ValueError(f"the diag kernels take a prefix of at most n samples: T = {link.T}, n = {link.n}")
+    wide = link.n > WARP_MAX_N
+    if link.txext and not wide:
         raise ValueError("diag_main computes its PAPR in the run: a txext link needs n > 256")
+    if "fr" in papr and wide or link.plan is not None and (link.plan.n != link.n or not wide and link.plan.log2n < 0):
+        raise ValueError(f"the in-run PAPR takes the {link.n}-point IDFT plan past 256 subcarriers and at a "
+                         f"power-of-two width, F_tx elsewhere")
     check_codec(link.q, link.n, device)
 
 
@@ -1256,14 +1296,38 @@ def check_work(work, sizes, what):
             raise ValueError(f"work must be {what}")
 
 
+def onepass_slab(n: int, chunk: int, tile: int) -> int:
+    """Symbols a slab of a normalized diag chunk: whole tiles, as many as
+    keep slab x n within ONEPASS_SLAB_BINS bins (at least one tile), the
+    whole chunk where it fits.  The scratch holds one slab, slab x n x
+    ONEPASS_BYTES_PER_BIN bytes: 84 MB at 64 sc (a 2^17-symbol chunk, 8.4M
+    bins), 671 MB at 512 sc (67M bins, the cap), and past the cap whole tiles
+    (4096 sc at a single-tap link's tile of 32: 512 tiles, 16,384 symbols,
+    671 MB); one tile is at most 8192 x 4096 bins (336 MB), so the scratch
+    stays below 1 GB at any width."""
+    if chunk * n <= ONEPASS_SLAB_BINS:
+        return chunk
+    return max(1, ONEPASS_SLAB_BINS // (tile * n)) * tile
+
+
+def onepass_scratch(link: DiagLink, chunk: int, device):
+    """(e re, e im, TX index): the scratch planes of a normalized chunk's
+    slab (``onepass_slab`` x n bins: two f32 and one int16 plane, the
+    index's bits read as u16), or empty planes for a link without
+    normalize."""
+    bins = onepass_slab(link.n, chunk, tile_for(chunk, link.tile_cap)) * link.n if link.normalize else 0
+    f32 = dict(dtype=torch.float32, device=device)
+    return torch.empty(bins, **f32), torch.empty(bins, **f32), torch.empty(bins, dtype=torch.int16, device=device)
+
+
 def chunk_workspace(link: DiagLink, chunk: int, device):
-    """(partials, carry_r, carry_i, norm partials, norm factors): the scratch
-    ``diag_chunk`` needs for chunks of ``chunk`` symbols, so that a run
-    allocates it once."""
+    """(partials, carry_r, carry_i, norm partials, norm factors, e re, e im,
+    TX index): the scratch ``diag_chunk`` needs for chunks of ``chunk``
+    symbols (``onepass_scratch`` last), so that a run allocates it once."""
     tile, tiles, groups, _ = _chunk_geometry(link, chunk)
     f32 = dict(dtype=torch.float32, device=device)
     return (torch.empty(tiles * groups, **f32), torch.empty(link.T, **f32), torch.empty(link.T, **f32),
-            *norm_workspace(chunk, tile, diag_layout(link.n)[0], device))
+            *norm_workspace(chunk, tile, diag_layout(link.n)[0], device), *onepass_scratch(link, chunk, device))
 
 
 def check_accumulators(acc, psum):
@@ -1434,15 +1498,17 @@ def diag_chunk(
     (csrc/link_kernel.cu): with noise on, ``power_partials``; then
     ``diag_main``, or for a link with stages or channel rows of its own
     (``own_channel_rows``; the library built with OFDM_STAGED)
-    ``diag_staged``, under ``normalize`` twice around ``norm_factors``.
-    Past 256 (csrc/diag_wide_kernel.cu): ``wide_power`` with noise on, then
-    ``diag_wide`` (its OFDM_STAGED build for a link with stages, its
-    OFDM_BUMP build with the noise-bump stages), under ``normalize`` twice
-    around ``norm_factors``.  Counted in
-    ``diag_chunk.power_launches``, ``.launches`` (the pass of ``diag_main``
-    or ``diag_staged`` that counts errors), ``.wide_launches`` (the same of
-    ``diag_wide``) and ``.norm_launches`` (the normalization pass and its
-    ``norm_factors``, one each).  CPU tensors run ``diag_chunk_plain``."""
+    ``diag_staged``.  Past 256 (csrc/diag_wide_kernel.cu): ``wide_power``
+    with noise on, then ``diag_wide`` (its OFDM_STAGED build for a link
+    with stages, its OFDM_BUMP build with the noise-bump stages).  Under
+    ``normalize`` each slab of ``onepass_slab`` symbols runs the chain
+    kernel's front variant once (e into ``work``'s scratch), then
+    ``norm_factors`` and ``diag_demap``.  Counted in
+    ``diag_chunk.power_launches``, ``.launches`` (``diag_main`` or
+    ``diag_staged``: the chain), ``.wide_launches`` (the same of
+    ``diag_wide``), ``.norm_launches`` (``norm_factors``) and
+    ``.demap_launches`` (``diag_demap``), one a slab each under
+    ``normalize``.  CPU tensors run ``diag_chunk_plain``."""
     dev = acc.device
     if dev.type == "cpu":
         return diag_chunk_plain(link, key, sym0, chunk, snr_lin, acc, psum, rows=rows, dump=dump)
@@ -1456,10 +1522,15 @@ def diag_chunk(
         check_dump(dump, chunk, link.n, dev)
     tile, tiles, groups, carry_sym = _chunk_geometry(link, chunk)
     run = diag_layout(link.n)[0]
+    slab = onepass_slab(link.n, chunk, tile)
+    slabs = -(-chunk // slab) if link.normalize else 0
     work = chunk_workspace(link, chunk, dev) if work is None else work
-    check_work(work, (tiles * groups, link.T, link.T, -(-chunk // run), tiles),
-               f"chunk_workspace(link, {chunk}, {dev})")
-    partials, carry_r, carry_i, norm_part, norm_f = work
+    what = f"chunk_workspace(link, {chunk}, {dev})"
+    bins = slab * link.n if link.normalize else 0
+    check_work(work[:7], (tiles * groups, link.T, link.T, -(-chunk // run), tiles, bins, bins), what)
+    if len(work) != 8 or work[7].device != dev or work[7].dtype != torch.int16 or work[7].numel() < bins:
+        raise ValueError(f"work must be {what}")
+    partials, carry_r, carry_i, norm_part, norm_f, scr_r, scr_i, scr_tx = work
     from ofdm_tpu_torch import build
 
     wide = link.n > WARP_MAX_N
@@ -1469,12 +1540,15 @@ def diag_chunk(
         fn = "ofdm_diag_chunk"
         staged = own_channel_rows(link) or link_stages(link) or dump is not None
         lib = build.load("link_staged" if staged else "link_kernel")
+    p = link.plan
+    ftx = (None, None) if link.fr is None else (link.fr.data_ptr(), link.fi.data_ptr())
+    plan = (None, None, 1, link.n, -1, 1.0) if p is None else (p.twr.data_ptr(), p.twi.data_ptr(), p.n1, p.n2,
+                                                                p.log2n, p.scale)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = getattr(lib, fn)(
             link.hr.data_ptr(), link.hi.data_ptr(), link.habs2.data_ptr(),
-            link.gr.data_ptr(), link.gi.data_ptr(), link.cr.data_ptr(), link.ci.data_ptr(),
-            None if link.txext else link.fr.data_ptr(), None if link.txext else link.fi.data_ptr(),
+            link.gr.data_ptr(), link.gi.data_ptr(), link.cr.data_ptr(), link.ci.data_ptr(), *ftx,
             link.n, link.T, *codec_args(link.q), link.slicer, snr_lin, link.cg,
             link.method, int(link.add_noise),
             sym0,
@@ -1483,25 +1557,56 @@ def diag_chunk(
             key[0], key[1],
             partials.data_ptr(), acc.data_ptr(), psum.data_ptr(),
             carry_r.data_ptr(), carry_i.data_ptr(),
-            *stage_args(link, rows, norm_part, norm_f, dump), *((int(link.txext),) if wide else ()), stream,
+            *stage_args(link, rows, norm_part, norm_f, dump), scr_r.data_ptr(), scr_i.data_ptr(),
+            scr_tx.data_ptr(), slab, *plan, int(link.txext), stream,
         )
     build.check(lib, code, fn)
     if link.add_noise:
         diag_chunk.power_launches += 1
-    diag_chunk.norm_launches += int(link.normalize)
+    diag_chunk.norm_launches += slabs
+    diag_chunk.demap_launches += slabs
     diag_chunk.dump_launches += int(dump is not None)
     if wide:
-        diag_chunk.wide_launches += 1
+        diag_chunk.wide_launches += max(1, slabs)
     else:
-        diag_chunk.launches += 1
+        diag_chunk.launches += max(1, slabs)
     return carry_r, carry_i
 
 
-diag_chunk.launches = 0  # diag_main (diag_staged) kernels launched
-diag_chunk.wide_launches = 0  # diag_wide kernels launched (the pass that counts errors)
-diag_chunk.dump_launches = 0  # counting passes that ran the dump stage
-diag_chunk.power_launches = 0  # power_partials kernels launched
-diag_chunk.norm_launches = 0  # normalization passes (each with its norm_factors) launched
+diag_chunk.launches = 0  # diag_main / diag_staged kernels launched (the chain; one a slab under normalize)
+diag_chunk.wide_launches = 0  # diag_wide kernels launched (the same)
+diag_chunk.dump_launches = 0  # chunks that ran the dump stage
+diag_chunk.power_launches = 0  # power_partials / wide_power kernels launched
+diag_chunk.norm_launches = 0  # norm_factors kernels launched (one a slab of a normalized chunk)
+diag_chunk.demap_launches = 0  # diag_demap kernels launched (the same)
+
+
+DIAG_GEOMETRY_KERNELS = ("power", "main", "front", "demap")
+DIAG_GEOMETRY_KEYS = ("registers", "local_bytes", "shared_bytes", "blocks_per_sm")
+
+
+def geometry(n: int, library: str, log2n: int = -1) -> dict:
+    """The layout of a diag library's qam kernels at width n, read from the
+    loaded ``library`` (csrc/link_kernel.cu::ofdm_diag_geometry up to 256
+    subcarriers, csrc/diag_wide_kernel.cu::ofdm_diag_wide_geometry past
+    them, with the in-run PAPR's plane: radix-2 for log2n >= 0, else the
+    split): for power_partials / wide_power, the main kernel (diag_main,
+    or the staged builds' counting variant), the front variant and
+    diag_demap, its registers, local bytes a thread, static shared memory
+    and resident blocks an SM; None where the build has no such kernel."""
+    import ctypes
+
+    from ofdm_tpu_torch import build
+
+    lib = build.load(library)
+    out = (ctypes.c_int * 16)()
+    if n > WARP_MAX_N:
+        build.check(lib, lib.ofdm_diag_wide_geometry(n, log2n, out), "ofdm_diag_wide_geometry")
+    else:
+        build.check(lib, lib.ofdm_diag_geometry(n, out), "ofdm_diag_geometry")
+    vals = list(out)
+    return {k: None if vals[4 * i] < 0 else dict(zip(DIAG_GEOMETRY_KEYS, vals[4 * i : 4 * i + 4]))
+            for i, k in enumerate(DIAG_GEOMETRY_KERNELS)}
 
 
 def boxmuller_sample_plain(seed0: int, seed1: int, shape, device="cpu"):

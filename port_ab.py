@@ -1,6 +1,6 @@
 """A/B of two trees of the port on one CUDA card: registers and chunk times.
 
-    python3 port_ab.py OTHER_TREE [--reps 3] [--lr-study]
+    python3 port_ab.py OTHER_TREE [--reps 3] [--lr-study | --slab-study]
 
 OTHER_TREE is another checkout of this repository (for example the parent
 commit, unpacked with ``git archive`` into a directory that .gitignore
@@ -8,10 +8,15 @@ lists).  The script builds both trees' kernel libraries, each in a process
 of its own with its tree first on ``sys.path`` (this script's cells and
 worker for both), and
 compares the registers ptxas reports for every qam entry point that both
-trees have, in the plain chunk libraries and apart in the staged ones.
-Then it times, at a 2^17-symbol chunk, the five qam cells' chunk kernels
-(the headline link on diag, scfde_default on fold, wide_1024sc and
-lr_1024sc_zp on lr, zp_64sc on mm; the lr zero-prefix chunk at 512 and
+trees have, in the plain chunk libraries and apart in the staged ones,
+and the counts each tree's diag chain gives (the noise-bump campaigns at
+64 and 512 sc point by point, a waterfilling 512-sc run's BER and in-run
+papr_db).  Then it times, at a 2^17-symbol chunk, the five qam cells'
+chunk kernels (the headline link on diag, scfde_default on fold,
+wide_1024sc and lr_1024sc_zp on lr, zp_64sc on mm; the diag chain's
+adaptive_64sc (aqam), OFDM-CY1.0-512 and flat single-tap links at 1024,
+2048 and 4096 sc (diag_wide, txext), a 300-sc link over the reference's
+custom-channel demo IR and a 160-sc one; the lr zero-prefix chunk at 512 and
 2048 subcarriers, lr_main's other group sizes; an SC-FDE link at each
 other width the fold and mm kernels compile for, 32-256 subcarriers, with
 a cyclic and a zero prefix) and the staged cells (a
@@ -24,7 +29,10 @@ staged cells).  With ``--lr-study`` it times the lr study's cells instead:
 the lr chunk over the repo's channel models of E = 1, 3 and 5 at 1024
 subcarriers (cyclic and zero prefix) and a short-CP link at 128, and the
 staged 1024-sc lr chunks with the PAPR statistic on one tile in 128 (its
-share of them).  Prints one JSON object as its last line.
+share of them).  With ``--slab-study`` it times instead the noise-bump
+chunks of the diag chains at 64 and 512 sc with the one-pass scratch
+capped at 2^22, 2^23, 2^24 and 2^26 bins a slab (a tree without the
+one-pass scratch reads "skip").  Prints one JSON object as its last line.
 """
 
 import json
@@ -41,8 +49,20 @@ HEADLINE = dict(num_subcarriers=64, constellation_order=64, channel_type="CUSTOM
 WIDE = dict(HEADLINE, num_subcarriers=1024, channel_model="severe_multipath")
 SCFDE = dict(HEADLINE, constellation_order=4, channel_model="Lin-Phoong_P1", modulation_type="SC-OFDM",
              equalization_method="ZF", snr_db=10.0)
+# The reference's custom-channel demo IR (examples/custom_channel_demo.py, energy 1.22)
+DEMO_IR = (1.0, 0.4 - 0.2j, 0.1 + 0.1j)
+# A cell's config is SimulationConfig keywords; "adaptive_json" takes the
+# reference's adaptive config at the cell's snr_db instead, "channel_ir" an IR.
 CELLS = {
     "headline_64sc": HEADLINE,
+    "adaptive_64sc": dict(adaptive_json="config/simulation_settings_adaptive.json", num_subcarriers=64,
+                          snr_db=20.0),
+    "OFDM-CY1.0-512": dict(HEADLINE, num_subcarriers=512, channel_model="severe_multipath"),
+    "custom_demo_300sc": dict(HEADLINE, num_subcarriers=300, snr_db=20.0, channel_ir=DEMO_IR),
+    # diag_main at 5 bins a lane; diag_wide at 4, 8 and 16 bins a thread under txext
+    "severe_160sc": dict(HEADLINE, num_subcarriers=160, channel_model="severe_multipath"),
+    **{f"flat_fading_cp_{n}sc": dict(HEADLINE, num_subcarriers=n, channel_model="flat_fading", snr_db=20.0)
+       for n in (1024, 2048, 4096)},
     "scfde_default": SCFDE,
     "wide_1024sc": WIDE,
     "lr_1024sc_zp": dict(WIDE, prefix_type="ZERO"),
@@ -89,6 +109,29 @@ LR_STUDY_STAGED = {
 }
 
 
+# --slab-study: the one-pass scratch's slab cap (bins) on the diag noise-bump chunks
+SLAB_BINS = (1 << 22, 1 << 23, 1 << 24, 1 << 26)
+SLAB_CELLS = {n: STAGED_CELLS[f"bump_study_{n}sc"][0] for n in (64, 512)}
+
+
+def runner_for(kw, dev):
+    """A LinkRunner of a cell at 4 chunks of CHUNK symbols (``CELLS``' keys)."""
+    import numpy as np
+
+    from ofdm_tpu_torch.config import SimulationConfig
+    from ofdm_tpu_torch.pipeline import LinkRunner, prepare
+
+    kw = dict(kw)
+    ir = kw.pop("channel_ir", None)
+    path = kw.pop("adaptive_json", None)
+    if path is not None:
+        cfg = {c.snr_db: c for c in SimulationConfig.from_json(os.path.join(HERE, path))}[kw["snr_db"]]
+        cfg = cfg.replace(num_symbols=4 * CHUNK, symbols_per_chunk=CHUNK)
+    else:
+        cfg = SimulationConfig(**kw, num_symbols=kw["num_subcarriers"] * 4 * CHUNK, symbols_per_chunk=CHUNK)
+    return LinkRunner(prepare(cfg, channel_ir=None if ir is None else np.asarray(ir)), dev)
+
+
 def median_ms(launch, reps, launches):
     """Median over ``reps`` of the mean ms of ``launches`` launches, by CUDA events."""
     import torch
@@ -114,13 +157,10 @@ def staged_cell(kw, bump, dev):
     import numpy as np
     import torch
 
-    from ofdm_tpu_torch.config import SimulationConfig
     from ofdm_tpu_torch.experiments import noise_bump as nb
     from ofdm_tpu_torch.ops import link_kernel as lk
-    from ofdm_tpu_torch.pipeline import LinkRunner, prepare
 
-    runner = LinkRunner(prepare(SimulationConfig(**kw, num_symbols=kw["num_subcarriers"] * 4 * CHUNK,
-                                                 symbols_per_chunk=CHUNK)), dev)
+    runner = runner_for(kw, dev)
     if runner.mode == "eager":
         return None
     link = runner.link
@@ -137,9 +177,50 @@ def staged_cell(kw, bump, dev):
     return lambda: runner.kernel.chunk(link, (3, 4), CHUNK, CHUNK, snr_lin, acc, psum, work, rows)
 
 
+def diag_counts(dev):
+    """The diag chain's counts in this tree: the noise-bump study's fused
+    campaign at 64 sc (21 points x 2^24 OFDM symbols) and 512 sc (2^20), BER
+    by point, and a 512-sc waterfilling link's run (2^20; apply_power, so
+    the PAPR statistic is in the run): BER and papr_db."""
+    import tempfile
+
+    from ofdm_tpu_torch.config import SimulationConfig
+    from ofdm_tpu_torch.experiments import noise_bump as nb
+    from ofdm_tpu_torch.pipeline import LinkRunner, prepare
+
+    out = {}
+    snrs = (0.0, 5.0, 10.0, 15.0, 20.0, 25.0, 30.0)
+    with tempfile.TemporaryDirectory() as tmp:
+        for n, symbols in ((64, 1 << 24), (512, 1 << 20)):
+            res = nb.run_noise_bump_experiment(snrs, num_subcarriers=n, fused_symbols_per_point=symbols,
+                                               results_dir=tmp, seed=42, chunk=CHUNK)
+            out[f"noise_bump_{n}sc"] = res
+    kw = dict(STAGED_CELLS["wf_headline_64sc"][0], num_subcarriers=512)
+    r = LinkRunner(prepare(SimulationConfig(**kw, num_symbols=512 << 20, symbols_per_chunk=CHUNK)), dev).run(0)
+    out["wf_512sc"] = {"bit_error_rate": r["bit_error_rate"], "papr_db": r["papr_db"],
+                       "papr_estimator": r["papr_estimator"]}
+    return out
+
+
+def slab_study(dev, reps):
+    """The diag noise-bump chunks at 64 and 512 sc at each SLAB_BINS cap."""
+    from ofdm_tpu_torch.ops import link_kernel as lk
+
+    out = {}
+    for n, kw in SLAB_CELLS.items():
+        for bins in SLAB_BINS:
+            if not hasattr(lk, "ONEPASS_SLAB_BINS"):
+                out[f"bump_study_{n}sc_slab{bins}"] = "skip: no one-pass scratch"
+                continue
+            lk.ONEPASS_SLAB_BINS = bins
+            out[f"bump_study_{n}sc_slab{bins}"] = median_ms(staged_cell(kw, True, dev), reps, 10)
+    return out
+
+
 def worker(what, reps):
-    """In a tree's own process: build its libraries, or time its cells
-    (``what`` "time") or the lr study's ("lr_study")."""
+    """In a tree's own process: build its libraries, read its diag counts
+    (``what`` "counts"), or time its cells ("time"), the lr study's
+    ("lr_study") or the slab study's ("slab_study")."""
     import torch
 
     from ofdm_tpu_torch import build
@@ -148,20 +229,21 @@ def worker(what, reps):
         t0 = time.perf_counter()
         build.build(build.SOURCES)
         return {"build_s": time.perf_counter() - t0, "build_dir": build.BUILD_DIR, "libraries": list(build.SOURCES)}
-    from ofdm_tpu_torch.config import SimulationConfig
     from ofdm_tpu_torch.ops import link_kernel as lk
-    from ofdm_tpu_torch.pipeline import LinkRunner, prepare
 
     dev = torch.device("cuda")
+    if what == "counts":
+        return diag_counts(dev)
+    if what == "slab_study":
+        return slab_study(dev, reps)
     cells, staged = (LR_STUDY_CELLS, LR_STUDY_STAGED) if what == "lr_study" else (CELLS, STAGED_CELLS)
     out = {}
     for name, kw in cells.items():
-        runner = LinkRunner(prepare(SimulationConfig(**kw, num_symbols=kw["num_subcarriers"] * 4 * CHUNK,
-                                                     symbols_per_chunk=CHUNK)), dev)
+        runner = runner_for(kw, dev)
         link, chunk_fn = runner.link, runner.kernel.chunk
         work = runner.kernel.workspace(link, CHUNK, dev)
         acc, psum = lk.new_accumulators(dev)
-        snr_lin = lk.snr_linear(kw["snr_db"])
+        snr_lin = lk.snr_linear(runner.setup.cfg.snr_db)
 
         def launch():
             chunk_fn(link, (3, 4), CHUNK, CHUNK, snr_lin, acc, psum, work)
@@ -230,14 +312,24 @@ def main(argv):
           f"{json.dumps(staged_moved)}")
     print(f"build s: other {builds['other']['build_s']:.1f} ({len(builds['other']['libraries'])} libraries), "
           f"this {builds['this']['build_s']:.1f} ({len(builds['this']['libraries'])} libraries)")
+    counts = {label: run_worker(tree, "counts", reps) for label, tree in (("other", other), ("this", HERE))}
+    for label, c in counts.items():
+        print(f"diag counts {label}: {json.dumps(c)}")
+    same = {k: counts["other"][k] == counts["this"][k] for k in counts["this"] if k.startswith("noise_bump")}
+    papr_gap = abs(counts["other"]["wf_512sc"]["papr_db"] - counts["this"]["wf_512sc"]["papr_db"])
+    print(f"diag counts: noise-bump points equal {json.dumps(same)}; wf_512sc BER equal "
+          f"{counts['other']['wf_512sc']['bit_error_rate'] == counts['this']['wf_512sc']['bit_error_rate']}, "
+          f"papr_db gap {papr_gap:.6f} dB")
+    mode = "lr_study" if "--lr-study" in argv else "slab_study" if "--slab-study" in argv else "time"
     timings = []
     for label in ("other", "this", "this", "other"):
-        t = run_worker(other if label == "other" else HERE, "lr_study" if "--lr-study" in argv else "time", reps)
+        t = run_worker(other if label == "other" else HERE, mode, reps)
         print(f"{label}: {json.dumps(t)}", flush=True)
         timings.append({"tree": label, "ms": t})
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
-    result = {"card": card, "qam_entry_points": common, "registers_moved": moved,
+    result = {"card": card, "qam_entry_points": common, "registers_moved": moved, "diag_counts": counts,
+              "noise_bump_points_equal": same, "wf_512sc_papr_db_gap": papr_gap,
               "staged_qam_entry_points": staged_common, "staged_registers_moved": staged_moved,
               "build_s": {k: v["build_s"] for k, v in builds.items()}, "timings": timings}
     print(json.dumps(result))
