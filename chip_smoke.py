@@ -184,13 +184,8 @@ def kernel_key(mangled):
 def qam_registers(log_text):
     """{kernel key: registers} of the qam instantiations in a ptxas -v log
     (the mode is the last int argument: 0 is qam)."""
-    out = {}
-    for name, regs in re.findall(r"Compiling entry function '(\w+)'.*?Used (\d+) registers", log_text, re.S):
-        key = kernel_key(name)
-        base = key.split("+")[0]
-        if base.endswith(",0>") or base.endswith("<0>"):
-            out[key] = int(regs)
-    return dict(sorted(out.items()))
+    return {k: regs for k, (regs, _) in sorted(ptxas_kernels(log_text).items())
+            if k.split("+")[0].endswith((",0>", "<0>"))}
 
 
 # Lane operations a clock of one H100 SM on each pipe of the SASS the
@@ -2476,6 +2471,86 @@ DENSE_WIDE_CELLS = {
 }
 
 
+# The wide cells' BER as this script read them on the wide kernels before
+# their staged transform (commit 5a7d89f; NVIDIA H100 80GB HBM3, 700.00 W):
+# the staged kernels must give the same counts.
+WIDE_BASELINE_BER = {
+    "SC-CY1.0-1024": 1.3969838619232178e-09,
+    "SC-ZE1.0-1024": 2.3283064365386963e-08,
+    "SC-CY1.0-1024_20db": 0.019552769139409065,
+    "SC-ZE1.0-1024_20db": 0.019556751164297264,
+    "adaptive_scfde_1024sc_20db": 0.003175132692522153,
+    "adaptive_scfde_1024sc_zp_20db": 0.0035425263979997914,
+}
+
+
+def check_baseline_ber(name, r):
+    """A wide cell's BER against the baseline reading (WIDE_BASELINE_BER), exactly."""
+    want = WIDE_BASELINE_BER[name]
+    print(f"{name}: BER {r['bit_error_rate']} vs the baseline's {want}: "
+          f"{'equal' if r['bit_error_rate'] == want else 'DIFFERENT'}")
+    if r["bit_error_rate"] != want:
+        raise AssertionError(f"{name}: BER {r['bit_error_rate']} is not the baseline's {want}")
+
+
+# The wide dense links whose kernels' layout dense_wide_layout prints: the
+# four cells' widths (radix-2, staged) and the split 300-sc link.
+DENSE_WIDE_LAYOUT_LINKS = ("SC-CY1.0-1024", "SC-ZE1.0-1024", "SC-CY1.0-512", "SC-ZE1.0-512", "sc_flat_cp_300")
+
+
+def sass_barriers(library_path):
+    """{kernel key: {"bar": block barriers, "warpsync": warp barriers}}: the
+    static BAR and WARPSYNC instructions of each kernel of a built library
+    (``cuobjdump -sass``); a barrier inside a loop counts once."""
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", library_path], capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    out = {}
+    for block in re.split(r"\n\s*Function : ", text)[1:]:
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_]*)", block)
+        out[kernel_key(block.split()[0])] = {"bar": ops.count("BAR"), "warpsync": ops.count("WARPSYNC")}
+    return out
+
+
+def ptxas_kernels(log_text):
+    """{kernel key: (registers, spill store bytes)} of every kernel in a ptxas -v log."""
+    out = {}
+    for name, spill, regs in re.findall(
+            r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores.*?Used (\d+) registers", log_text, re.S):
+        out[kernel_key(name)] = (int(regs), int(spill))
+    return out
+
+
+def dense_wide_layout(card, device):
+    """The wide dense kernels' layout: for each DENSE_WIDE_LAYOUT_LINKS link
+    and build, the slots a thread and each kernel's registers, local bytes,
+    shared bytes a block and resident blocks an SM as the loaded kernels
+    report them (link_kernel.wide_geometry); for each library the qam
+    kernels' registers, spill stores (ptxas) and static block barriers (BAR)
+    and warp barriers (WARPSYNC) in the SASS.  mm_wide_main must hold 4
+    slots a thread at 1024 sc with no local memory."""
+    from ofdm_tpu_torch import build
+    from ofdm_tpu_torch.ops import link_kernel as lk
+
+    for name in DENSE_WIDE_LAYOUT_LINKS:
+        chain, kw = DENSE_WIDE_LINKS[name]
+        link = dense_wide_runner(name, chain, dense_wide_cfg(kw), device).link
+        for suffix in ("", "_staged", "_bump"):
+            lib = f"{chain}_wide{suffix}"
+            geo = lk.wide_geometry(chain, link.n, link.T, link.E, link.plan.log2n, lib)
+            print(f"wide layout {lib} {name} (n={link.n}, T={link.T}, E={link.E}, log2n {link.plan.log2n}) "
+                  f"[{card}]: {json.dumps(geo)}")
+            if suffix == "" and name == "SC-ZE1.0-1024" and (geo["J"] != 4 or geo["main"]["local_bytes"] != 0):
+                raise AssertionError(f"mm_wide_main at 1024 sc: {geo}")
+    for lib in ("fold_wide", "fold_wide_staged", "fold_wide_bump", "mm_wide", "mm_wide_staged", "mm_wide_bump"):
+        with open(os.path.join(build.BUILD_DIR, f"{lib}.log")) as fh:
+            regs = ptxas_kernels(fh.read())
+        bars = sass_barriers(build.library_path(lib))
+        rows = {k: {"registers": regs[k][0], "spill_bytes": regs[k][1], **bars.get(k, {})}
+                for k in sorted(regs) if k.split("+")[0].endswith(",0>")}
+        print(f"wide SASS {lib} qam kernels: {json.dumps(rows)}")
+
+
 def dense_wide_cfg(kw, num_ofdm=WIDE_BAND_SYMBOLS, **extra):
     """An audit config of a dense wide link at DENSE_WIDE_SNR unless it says otherwise."""
     return audit_cfg(num_ofdm, MAIN_CHUNK, **{"snr_db": DENSE_WIDE_SNR, **kw, **extra})
@@ -2618,6 +2693,7 @@ def dense_wide_cells(card, device):
         if (got[f"{fn}.wide_launches"], got[f"{fn}.{pw}"]) != (want, want) or others or r["hotpath_used"] != "cuda":
             raise AssertionError(f"{name}: launches {got}, hotpath {r['hotpath_used']}")
         band(name, r, EAGER_READING)
+        check_baseline_ber(name, r)
         launches[chain] += want
         power[chain] += want
         rates[name] = r["ofdm_symbols_per_s"]
@@ -2681,6 +2757,46 @@ def dense_wide_entries(card, device, err, probe_err, launches, power):
     return out
 
 
+def dense_wide_stage_times(card, device):
+    """The wide dense chunks with their stages, timed at 2^17 symbols by CUDA
+    events (10 launches): apply_power + normalize on SC-CY1.0-1024 (fold)
+    and SC-ZE1.0-1024 (mm), the four noise-bump stages on SC-CY1.0-512 and
+    flat_zp_ofdm_512, and the dump stage (a capture's rows) on the two
+    1024-sc links, each beside its bound (the chain's operations plus its
+    stages a bin; the normalization's second pass printed apart)."""
+    from ofdm_tpu_torch.ops import link_kernel as lk
+    from ofdm_tpu_torch.pipeline import _KERNELS
+
+    cases = []
+    for name, chain in (("SC-CY1.0-1024", "fold"), ("SC-ZE1.0-1024", "mm")):
+        runner = dense_wide_runner(name, chain, dense_wide_cfg(DENSE_WIDE_LINKS[name][1], **_WF), device)
+        cases.append((f"{name} apply_power + normalize", chain, runner.link, DENSE_WIDE_SNR,
+                      sqrt_power_row(runner, DENSE_WIDE_SNR), None))
+    for name, chain in (("SC-CY1.0-512", "fold"), ("flat_zp_ofdm_512", "mm")):
+        runner = dense_wide_runner(name, chain, dense_wide_cfg(DENSE_WIDE_LINKS[name][1], **_NB), device)
+        cases.append((f"{name} noise-bump stages", chain, lk.noise_bump_link(runner.link), 15.0,
+                      bump_rows(runner, device), None))
+    for name, chain in (("SC-CY1.0-1024", "fold"), ("SC-ZE1.0-1024", "mm")):
+        link = dense_wide_runner(name, chain, dense_wide_cfg(DENSE_WIDE_LINKS[name][1]), device).link
+        cases.append((f"{name} dump", chain, link, DENSE_WIDE_SNR, None,
+                      lk.new_dump(lk.dump_rows(CAPTURE_COLLECT, link.n, MAIN_CHUNK), link.n, device)))
+    for label, chain, link, snr_db, rows, dump in cases:
+        _, kernel, _, _ = chains()[chain]
+        acc, psum = lk.new_accumulators(device)
+        work = _KERNELS[chain].workspace(link, MAIN_CHUNK, device)
+        snr_lin = lk.snr_linear(snr_db)
+        ms = cuda_ms(lambda: kernel(link, (3, 4), 0, MAIN_CHUNK, snr_lin, acc, psum, work, rows=rows, dump=dump), 10)
+        stages = lk.link_stages(link)
+        per_bin = sum(ops for bit, ops in zip((lk.STAGE_POWER, lk.STAGE_NORMALIZE, lk.STAGE_POST_NOISE,
+                                               lk.STAGE_COMPENSATE), STAGE_OPS.values()) if stages & bit)
+        base, _ = dense_wide_operations(chain, link, MAIN_CHUNK)
+        needed = base + MAIN_CHUNK * link.n * per_bin
+        print(f"{chain}_wide {label} at {MAIN_CHUNK} symbols [{card}]: kernel {ms:.4f} ms, bound "
+              f"{needed / PEAK_OPS * 1e3:.4f} ms ({needed} operations"
+              + (f"; the normalization's second pass adds {base / PEAK_OPS * 1e3:.4f} ms" if link.normalize else "")
+              + ")")
+
+
 def dense_wide_path(card, device):
     """This slice's phase: fold_wide and mm_wide (with their probes, staged,
     bump and dump builds) against their plain versions, the two audit cells
@@ -2688,9 +2804,11 @@ def dense_wide_path(card, device):
     Returns the kernels-line entries (the probes' launches filled in by
     ``one_rank_path``'s halo run on SC-CY1.0-1024)."""
     t0 = time.perf_counter()
+    dense_wide_layout(card, device)
     err, probe_err = dense_wide_checks(card, device)
     launches, power, rates = dense_wide_cells(card, device)
     entries = dense_wide_entries(card, device, err, probe_err, launches, power)
+    dense_wide_stage_times(card, device)
     print(f"dense_wide phase: {time.perf_counter() - t0:.1f} s; OFDM syms/s {json.dumps(rates)}")
     return entries
 
@@ -2872,6 +2990,8 @@ def asc_cells(card, device):
                   f"launches of the cell {json.dumps({k: v for k, v in got.items() if v})}")
             band(f"{name}_fold_power" if chain == "fold" else name, r,
                  ASC_READING + (", the fold kernel's measured power" if chain == "fold" else ""))
+            if name in WIDE_BASELINE_BER:
+                check_baseline_ber(name, r)
             rates[name] = r["ofdm_symbols_per_s"]
         snr = snrs[len(snrs) // 2]
         eager = LinkRunner(prepare(asc_cfg(snr, min(num_ofdm, 1 << 24), hotpath="xla", **kw)), device)

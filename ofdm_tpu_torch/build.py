@@ -81,6 +81,7 @@ _WIDE = ([_P] * 9 + [_I] * 6 + [_F] + [_I] * 6 + [_F] + [_P] * 2 + [_F] * 3 + [_
          + [_I] * 5 + [_U] * 2 + [_P] * 5 + _STAGES + _PREV + [_P], _I)
 _WIDE_PROBE = ([_P] * 2 + [_I] * 6 + [_F] + [_I] * 7 + [_F] + [_P] * 2 + [ctypes.c_ulonglong] + [_U] * 2
                + [_P, _I] + [_P] * 4 + [_P], _I)
+_WIDE_GEOMETRY = ([_I] * 4 + [ctypes.POINTER(ctypes.c_int)], _I)
 _DIAG = [_P] * 9 + [_I] * 8 + [_F] + [_P] * 2 + [_F] * 3 + [_I] * 2 + [ctypes.c_ulonglong] + [_I] * 7 + [_U] * 2 \
     + [_P] * 5 + _STAGES
 # The diag chunks (ofdm_diag_chunk, ofdm_diag_wide_chunk): _DIAG, then the
@@ -130,8 +131,11 @@ SIGNATURES = {
         "ofdm_mm_probe": _PROBE,
         "ofdm_mm_geometry": ([_I] * 3 + [ctypes.POINTER(ctypes.c_int)], _I),
     },
-    "fold_wide_kernel": {"ofdm_fold_wide_chunk": _WIDE, "ofdm_fold_wide_probe": _WIDE_PROBE},
-    "mm_wide_kernel": {"ofdm_mm_wide_chunk": _WIDE, "ofdm_mm_wide_probe": _WIDE_PROBE},
+    # ofdm_{fold,mm}_wide_geometry write the wide kernels' layout into thirteen ints
+    "fold_wide_kernel": {"ofdm_fold_wide_chunk": _WIDE, "ofdm_fold_wide_probe": _WIDE_PROBE,
+                         "ofdm_fold_wide_geometry": _WIDE_GEOMETRY},
+    "mm_wide_kernel": {"ofdm_mm_wide_chunk": _WIDE, "ofdm_mm_wide_probe": _WIDE_PROBE,
+                       "ofdm_mm_wide_geometry": _WIDE_GEOMETRY},
     "boxmuller": {
         "ofdm_boxmuller": ([_P, _P, ctypes.c_longlong, _U, _U, _P], _I),
         "ofdm_philox": ([_P, ctypes.c_longlong] + [_U] * 4 + [_P], _I),

@@ -1,6 +1,7 @@
-// The block DFT of the wide chunk kernels (fold_wide, mm_wide): one
-// symbol's orthonormal (I)DFT in a block's shared memory, all the block's
-// threads together, __syncthreads between stages.
+// The block DFT of the wide chunk kernels (diag_wide's in-run IDFT; fold_wide
+// and mm_wide at a width other than 256 J, where wide_dft.cuh runs the same
+// butterflies staged): one symbol's orthonormal (I)DFT in a block's shared
+// memory, all the block's threads together, __syncthreads between stages.
 //
 // The TPU kernel multiplies by dense (n, n) DFT matrices on the MXU; the
 // JAX package's own XLA path splits every DFT past 256 points in two

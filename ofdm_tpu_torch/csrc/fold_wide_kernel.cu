@@ -18,7 +18,7 @@
 //   PAPR max and sum over x_b[0:T), every symbol
 //   y    = the K-tap stream convolution over [x_{b-1}[T-E:T) | x_b] at the
 //          n samples after the guard
-//   Y    = block DFT of y (block_dft.cuh)
+//   Y    = block DFT of y (wide_dft.cuh staged; block_dft.cuh at a split n)
 //   AWGN per frequency bin, sigma = sqrt(mp / snr_lin / 2), mp the mean |Y|^2
 //   over the first `slice` symbols of b's tile, before noise
 //   ZF / MMSE / none with the slicer gain folded in (aqam: the lane's row;
@@ -45,10 +45,16 @@
 //    bins k = t + 256 j (j < J <= 8); the MMSE mean and a symbol's
 //    normalization energy are block sums in block_sum's fixed order, which
 //    the plain version repeats (link_kernel.block_sum, 256 threads).  The
-//    symbol's planes (z = [tail | x], the DFT's data and scratch) live in
-//    shared memory (wide_chain.cuh), ~25 KB at n = 1024.
-//  * A block walks `run` consecutive symbols and keeps the previous tail in
-//    shared memory; for its first symbol it recomputes symbol b-1's block
+//    symbol's planes (two z = [tail | x] buffers, the transform's exchange
+//    buffers and twiddles, the taps) live in shared memory (wide_chain.cuh),
+//    43 KB at n = 1024.
+//  * At n = 256 J the block transforms run staged (wide_dft.cuh): the
+//    convolution's outputs enter the forward transform's first round in
+//    registers, and a symbol takes 7 block barriers at 512 and 1024 sc
+//    (SC-FDE, MMSE: TX 1, forward 2, the MMSE mean 1, the IDFT 3), 5 at
+//    2048; block_dft.cuh's barrier a stage would make it 28 at 1024.
+//  * A block walks `run` consecutive symbols, the previous tail in the
+//    other z buffer; for its first symbol it recomputes symbol b-1's block
 //    from Philox (or reads the carry-in), so nothing depends on block order,
 //    launch geometry or chunking.
 //  * Measured power: fold_wide_power, one block per 4096 slice elements
@@ -80,29 +86,25 @@ using ofdm::WideLink;
 // One symbol up to Y before noise: the TX block (tx, w1, w2 for the thread's
 // bins; the PAPR stats when `papr`; the carry row when carry_r is set), the
 // convolution at the n post-guard samples, the block DFT; y holds the
-// thread's bins of Y.  z's tail moves on for the next symbol.
+// thread's bins of Y.  The staged transform takes the convolution's outputs
+// in its first round's layout straight from registers.
 template <int J, int kMode, bool kStaged>
-__device__ __forceinline__ void symbol_bins(const WideLink& L, const WideBufs& w, unsigned long long sym, bool papr,
+__device__ __forceinline__ void symbol_bins(const WideLink& L, WideBufs& w, unsigned long long sym, bool papr,
                                             float& pk, double& ps, float* carry_r, float* carry_i, int (&tx)[J],
                                             uint32_t (&w1)[J], uint32_t (&w2)[J], float (&yr)[J], float (&yi)[J]) {
-  ofdm::wide_tx<J, kMode, kStaged, false>(L, w, sym, L.n, tx, w1, w2);
+  ofdm::wide_tx<J, kMode, kStaged, false>(L, w, sym, tx, w1, w2);
   if (papr) ofdm::wide_papr(L, w, pk, ps, carry_r, carry_i);
-  for (int i = threadIdx.x; i < L.n; i += kWideThreads) {
-    const int s = ofdm::dft_slot(L.dft, i);
-    ofdm::conv_at(L, w, L.L + i, w.ar[s], w.ai[s]);
-  }
-  __syncthreads();
-  ofdm::wide_shift_tail(L, w);
-  ofdm::block_dft<kWideThreads>(L.dft, w.ar, w.ai, w.br, w.bi, false);
+  if (ofdm::wide_staged<J>(L.dft)) {
+    ofdm::conv_slots<J, true>(L, w, L.L + static_cast<int>(__brev(threadIdx.x) >> 24), L.L + L.n, yr, yi);
+    ofdm::staged_dft<J, false>(yr, yi, w.dft);
 #pragma unroll
-  for (int j = 0; j < J; ++j) {
-    const int k = threadIdx.x + kWideThreads * j;
-    yr[j] = 0.0f;
-    yi[j] = 0.0f;
-    if (k < L.n) {
-      yr[j] = w.ar[k] * L.dft.scale;
-      yi[j] = w.ai[k] * L.dft.scale;
+    for (int j = 0; j < J; ++j) {
+      yr[j] = yr[j] * L.dft.scale;
+      yi[j] = yi[j] * L.dft.scale;
     }
+  } else {
+    ofdm::conv_slots<J, false>(L, w, L.L + static_cast<int>(threadIdx.x), L.L + L.n, yr, yi);
+    ofdm::wide_transform<J, false>(L, w, yr, yi);
   }
 }
 
@@ -111,9 +113,9 @@ __device__ __forceinline__ void symbol_bins(const WideLink& L, const WideBufs& w
 // covers slice elements e = b*n + k in [g*4096, (g+1)*4096).
 template <int J, int kMode, bool kStaged>
 __global__ void __launch_bounds__(kWideThreads) fold_wide_power(WideLink L, float* partials) {
-  extern __shared__ float smem[];
-  float* red = smem;  // kWidePowerBlock floats, element order
-  const WideBufs w = ofdm::wide_bufs(L.n, L.T, L.E, smem + ofdm::kWidePowerBlock);
+  extern __shared__ float2 smem2[];
+  float* red = reinterpret_cast<float*>(smem2);  // kWidePowerBlock floats, element order
+  WideBufs w = ofdm::wide_setup<J>(L, smem2 + ofdm::kWidePowerBlock / 2);
   const int tile_id = blockIdx.x;
   const int g = blockIdx.y;
   const int t = threadIdx.x;
@@ -149,14 +151,17 @@ __global__ void __launch_bounds__(kWideThreads) fold_wide_power(WideLink L, floa
 // The chain a symbol a block; with kStaged, the stages (phase 0 of a
 // normalized link writes its run's |e|^2 partial instead of counting);
 // kDump is the dump stage's launch-time variant, kBump the noise-bump
-// stages (the OFDM_BUMP build).
+// stages (the OFDM_BUMP build).  Block barriers a symbol at n = 1024
+// (SC-FDE, MMSE): the TX block's 1, the forward transform's 2, the MMSE
+// mean's 1, the IDFT's 3.
 template <int J, int kMode, bool kStaged, bool kDump = false, bool kBump = false>
-__global__ void __launch_bounds__(kWideThreads, ofdm::kWideMinBlocks)
+__global__ void __launch_bounds__(kWideThreads, ofdm::wide_min_blocks(J))
     fold_wide_main(WideLink L, const float* partials, unsigned long long* acc, double* psum, float* carry_r,
                    float* carry_i) {
-  extern __shared__ float smem[];
+  extern __shared__ float2 smem2[];
   __shared__ float wsum[kWideWarps];
-  const WideBufs w = ofdm::wide_bufs(L.n, L.T, L.E, smem);
+  __shared__ float wsum_e[kWideWarps];
+  WideBufs w = ofdm::wide_setup<J>(L, smem2);
   const int tid = threadIdx.x;
 
   uint32_t be = 0, se = 0;
@@ -199,7 +204,7 @@ __global__ void __launch_bounds__(kWideThreads, ofdm::kWideMinBlocks)
         if (tid + kWideThreads * j < L.n) ofdm::add_noise(w1[j], w2[j], sigma, yr[j], yi[j]);
       }
     }
-    const float nv = ofdm::mmse_nv_block<J, kWideWarps>(L.eq, yr, yi, L.n, L.snr_lin, wsum);
+    const float nv = ofdm::wide_mmse_nv<J>(L, yr, yi, wsum);
     float er[J], ei[J];
 #pragma unroll
     for (int j = 0; j < J; ++j) {
@@ -208,28 +213,8 @@ __global__ void __launch_bounds__(kWideThreads, ofdm::kWideMinBlocks)
       ei[j] = 0.0f;
       if (k < L.n) ofdm::equalize_stage<kMode, kStaged>(L, k, yr[j], yi[j], nv, er[j], ei[j], sc);
     }
-    if (sc) {
-      // SC-FDE: equalized bins -> time-domain symbols, the block IDFT.
-      __syncthreads();  // every thread has read Y out of the DFT planes
-#pragma unroll
-      for (int j = 0; j < J; ++j) {
-        const int k = tid + kWideThreads * j;
-        if (k < L.n) {
-          const int s = ofdm::dft_slot(L.dft, k);
-          w.ar[s] = er[j];
-          w.ai[s] = ei[j];
-        }
-      }
-      ofdm::block_dft<kWideThreads>(L.dft, w.ar, w.ai, w.br, w.bi, true);
-#pragma unroll
-      for (int j = 0; j < J; ++j) {
-        const int k = tid + kWideThreads * j;
-        if (k < L.n) {
-          er[j] = w.ar[k] * L.dft.scale;
-          ei[j] = w.ai[k] * L.dft.scale;
-        }
-      }
-    }
+    // SC-FDE: equalized bins -> time-domain symbols, the block IDFT.
+    if (sc) ofdm::wide_transform<J, true>(L, w, er, ei);
     float p = 0.0f;
 #pragma unroll
     for (int j = 0; j < J; ++j) {
@@ -241,7 +226,7 @@ __global__ void __launch_bounds__(kWideThreads, ofdm::kWideMinBlocks)
     }
     if constexpr (kStaged) {
       if (normalize && !counting) {
-        energy = energy + ofdm::block_sum<kWideWarps>(p, wsum);
+        energy = energy + ofdm::block_sum_once<kWideWarps>(p, wsum_e);
         continue;
       }
     }
@@ -270,7 +255,13 @@ __global__ void __launch_bounds__(kWideThreads, ofdm::kWideMinBlocks)
 
 template <class K>
 cudaError_t allow_smem(K* kernel, size_t bytes) {
+  if (bytes > ofdm::kWideMaxShared) return cudaErrorInvalidValue;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+}
+
+template <int J>
+size_t main_bytes(const WideLink& L) {
+  return sizeof(float2) * ofdm::wide_float2s<J>(L.n, L.T, L.E, L.dft.log2n);
 }
 
 // fold_wide_power (when noise is on) then fold_wide_main at J bins a thread;
@@ -285,9 +276,9 @@ cudaError_t launch(const WideLink& L, float* partials, unsigned long long* acc, 
 #if OFDM_STAGED
   if (L.st.bits & ofdm::kStageDump) main_kernel = &fold_wide_main<J, kMode, kS, true, kB>;
 #endif
-  const size_t main_bytes = sizeof(float) * ofdm::wide_floats(L.n, L.T, L.E, false);
-  const size_t power_bytes = main_bytes + sizeof(float) * ofdm::kWidePowerBlock;
-  cudaError_t err = allow_smem(main_kernel, main_bytes);
+  const size_t mbytes = main_bytes<J>(L);
+  const size_t power_bytes = mbytes + sizeof(float) * ofdm::kWidePowerBlock;
+  cudaError_t err = allow_smem(main_kernel, mbytes);
   if (err != cudaSuccess) return err;
   if (L.add_noise) {
     err = allow_smem(&fold_wide_power<J, kMode, kS>, power_bytes);
@@ -303,11 +294,11 @@ cudaError_t launch(const WideLink& L, float* partials, unsigned long long* acc, 
                              [&](int phase) {
     WideLink P = L;
     P.st.phase = phase;
-    main_kernel<<<grid, kWideThreads, main_bytes, stream>>>(P, partials, acc, psum, cr, ci);
+    main_kernel<<<grid, kWideThreads, mbytes, stream>>>(P, partials, acc, psum, cr, ci);
     return cudaGetLastError();
   });
 #else
-  main_kernel<<<grid, kWideThreads, main_bytes, stream>>>(L, partials, acc, psum, cr, ci);
+  main_kernel<<<grid, kWideThreads, mbytes, stream>>>(L, partials, acc, psum, cr, ci);
   return cudaGetLastError();
 #endif
 }
@@ -316,7 +307,7 @@ template <int J, int kMode>
 cudaError_t launch_probe(const WideLink& L, unsigned long long sym, float* cr, float* ci, float* tr, float* ti,
                          cudaStream_t stream) {
   auto* kernel = &ofdm::wide_probe<J, kMode, ofdm::kStagedBuild, false>;
-  const size_t bytes = sizeof(float) * ofdm::wide_floats(L.n, L.T, L.E, false);
+  const size_t bytes = main_bytes<J>(L);
   const cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
   kernel<<<1, kWideThreads, bytes, stream>>>(L, sym, cr, ci, tr, ti);
@@ -327,18 +318,18 @@ cudaError_t launch_probe(const WideLink& L, unsigned long long sym, float* cr, f
 template <int kMode>
 cudaError_t launch_mode(const WideLink& L, float* partials, unsigned long long* acc, double* psum, float* cr,
                         float* ci, cudaStream_t stream) {
-  const int bins = (L.n + kWideThreads - 1) / kWideThreads;
-  if (bins <= 2) return launch<2, kMode>(L, partials, acc, psum, cr, ci, stream);
-  if (bins <= 4) return launch<4, kMode>(L, partials, acc, psum, cr, ci, stream);
+  const int slots = ofdm::wide_slots(L.n);
+  if (slots == 2) return launch<2, kMode>(L, partials, acc, psum, cr, ci, stream);
+  if (slots == 4) return launch<4, kMode>(L, partials, acc, psum, cr, ci, stream);
   return launch<8, kMode>(L, partials, acc, psum, cr, ci, stream);
 }
 
 template <int kMode>
 cudaError_t probe_mode(const WideLink& L, unsigned long long sym, float* cr, float* ci, float* tr, float* ti,
                        cudaStream_t stream) {
-  const int bins = (L.n + kWideThreads - 1) / kWideThreads;
-  if (bins <= 2) return launch_probe<2, kMode>(L, sym, cr, ci, tr, ti, stream);
-  if (bins <= 4) return launch_probe<4, kMode>(L, sym, cr, ci, tr, ti, stream);
+  const int slots = ofdm::wide_slots(L.n);
+  if (slots == 2) return launch_probe<2, kMode>(L, sym, cr, ci, tr, ti, stream);
+  if (slots == 4) return launch_probe<4, kMode>(L, sym, cr, ci, tr, ti, stream);
   return launch_probe<8, kMode>(L, sym, cr, ci, tr, ti, stream);
 }
 
@@ -376,9 +367,6 @@ int ofdm_fold_wide_chunk(const float* tpr, const float* tpi, const float* twr, c
       (prev_r == nullptr) != (prev_i == nullptr) ||
       (ofdm::adaptive(mode) && (lane_i == nullptr || lane_f == nullptr)) ||
       !ofdm::stage_args_ok(rows, stages, norm_part, norm_f, dump_r, dump_i, dump_rows, ofdm::kBumpBuild)) {
-    return cudaErrorInvalidValue;
-  }
-  if (sizeof(float) * (ofdm::wide_floats(n, T, E, false) + ofdm::kWidePowerBlock) > 227 * 1024) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
@@ -424,6 +412,33 @@ int ofdm_fold_wide_probe(const float* twr, const float* twi, int n, int T, int E
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   return static_cast<int>(ofdm::with_mode(mode, [&](auto md) {
     return probe_mode<decltype(md)::value>(L, sym, carry_r, carry_i, tail_r, tail_i, stream);
+  }));
+}
+
+// The layout of the qam kernels at (n, T, E, log2n) into out[0..13): the
+// slots a thread J, then fold_wide_main's (a chunk without a dump launches it),
+// fold_wide_power's and wide_probe's registers, local bytes a thread, shared
+// bytes a block and resident blocks an SM (ofdm_tpu_torch/ops/
+// fold_kernel.py::wide_geometry).  Returns a CUDA error, 0 if none.
+int ofdm_fold_wide_geometry(int n, int T, int E, int log2n, int* out) {
+  if (n < 1 || n > ofdm::kWideMaxN || T < n || T - n > n || E < 0 || E > T) return cudaErrorInvalidValue;
+  WideLink L{};
+  L.n = n;
+  L.T = T;
+  L.E = E;
+  L.L = T - n;
+  L.dft.log2n = log2n;
+  return static_cast<int>(ofdm::with_slots(n, [&](auto jc) {
+    constexpr int J = decltype(jc)::value;
+    constexpr bool kS = ofdm::kStagedBuild;
+    constexpr bool kB = ofdm::kBumpBuild;
+    out[0] = J;
+    cudaError_t err = ofdm::wide_layout(&fold_wide_main<J, ofdm::kQam, kS, false, kB>, main_bytes<J>(L), out + 1);
+    if (err == cudaSuccess) err = ofdm::wide_layout(&fold_wide_power<J, ofdm::kQam, kS>, main_bytes<J>(L) + sizeof(float) * ofdm::kWidePowerBlock, out + 5);
+    if (err == cudaSuccess) {
+      err = ofdm::wide_layout(&ofdm::wide_probe<J, ofdm::kQam, kS, false>, main_bytes<J>(L), out + 9);
+    }
+    return err;
   }));
 }
 

@@ -21,7 +21,7 @@
 //   over all tile * T samples of b's tile, before noise; time sample t's
 //   words from counter (b, t, 0)
 //   r    = the overlap-add r[i] = y[i] + y[n + i] (i < L), y[i] beyond
-//   Y    = block DFT of r (block_dft.cuh)
+//   Y    = block DFT of r (wide_dft.cuh staged; block_dft.cuh at a split n)
 //   ZF / MMSE / none with the slicer gain folded in (aqam: the lane's row;
 //   on SC-FDE deferred past the IDFT)
 //   SC-FDE only: e = block IDFT of e
@@ -44,16 +44,25 @@
 //  * The measured power needs every sample of a tile before any of its
 //    noise, so the chunk runs in two kernels; the second recomputes y
 //    instead of reading it back (a 2^17-symbol chunk's y at T = 1031 would
-//    be 1.1 GB).  mm_wide_front: one block per 4096 consecutive time samples
-//    of a tile (e = s*T + t) computes the symbols that cover them (TX, the
-//    convolution) and reduces |y|^2 in power_partials' fixed order (16
-//    sequential steps a thread, a 256-way tree).  mm_wide_main: a block
-//    walks `run` consecutive symbols through the whole chain; it sums its
-//    tile's partials in order for sigma.
-//  * One block of 256 threads a symbol: thread t holds time samples and bins
-//    t + 256 j (j < J <= 8); the noisy y goes to shared memory for the
-//    overlap-add; the MMSE mean and the normalization energy are block sums
-//    in block_sum's fixed order (link_kernel.block_sum, 256 threads).
+//    be 1.1 GB).  mm_wide_front: a block closes 8 power groups of 4096
+//    consecutive time samples of a tile (e = s*T + t), walking the whole
+//    symbols that cover them (TX and the convolution once a symbol, plus
+//    its first symbol's predecessor), each symbol's |y|^2 row in shared
+//    memory, in power_partials' fixed order (thread t adds its elements of
+//    a group in ascending order, a 256-way tree closes the group).
+//    mm_wide_main: a block walks `run` consecutive symbols through the whole
+//    chain; it sums its tile's partials in order for sigma.
+//  * One block of 256 threads a symbol: thread t holds head samples and
+//    bins t + 256 j (J = ceil(n / 256) rounded up to 2, 4 or 8: 4 at 1024
+//    sc, where slots counted from T would take 8) and computes the guard
+//    sample n + i of each head slot i < L (L <= n) one at a time, its noise
+//    and the overlap-add in registers; the MMSE mean and the normalization
+//    energy are block sums in block_sum's fixed order
+//    (link_kernel.block_sum, 256 threads).
+//  * At n = 256 J the block transforms run staged (wide_dft.cuh): 8 block
+//    barriers a symbol at 512 and 1024 sc (SC-FDE, MMSE: TX 1, the forward
+//    transform from natural order 3, the MMSE mean 1, the IDFT 3);
+//    block_dft.cuh's barrier a stage would make it 29 at 1024.
 //  * The previous tail, the carry-in, normalize and the counters as in
 //    fold_wide_kernel.cu.
 
@@ -70,45 +79,56 @@ using ofdm::kWideWarps;
 using ofdm::WideBufs;
 using ofdm::WideLink;
 
-// One symbol up to y before noise: the TX block (tx, w1, w2 for the thread's
-// time samples; the PAPR stats when `papr`; the carry row when carry_r is
-// set), then the convolution at the thread's samples t = tid + 256 j < T.
-// z's tail moves on for the next symbol once every thread has read z.
+// Power groups (4096 time samples each) one mm_wide_front block closes.
+constexpr int kFrontGroups = 8;
+
+// One symbol's y before noise at the thread's head samples i = t + 256 j < n,
+// after the TX block (tx, w1, w2 for the head samples; the PAPR stats when
+// `papr`; the carry row when carry_r is set).
 template <int J, int kMode, bool kStaged>
-__device__ __forceinline__ void symbol_samples(const WideLink& L, const WideBufs& w, unsigned long long sym,
-                                               int limit, bool papr, float& pk, double& ps, float* carry_r,
-                                               float* carry_i, int (&tx)[J], uint32_t (&w1)[J], uint32_t (&w2)[J],
-                                               float (&yr)[J], float (&yi)[J]) {
-  ofdm::wide_tx<J, kMode, kStaged, true>(L, w, sym, limit, tx, w1, w2);
+__device__ __forceinline__ void symbol_samples(const WideLink& L, WideBufs& w, unsigned long long sym, bool papr,
+                                               float& pk, double& ps, float* carry_r, float* carry_i, int (&tx)[J],
+                                               uint32_t (&w1)[J], uint32_t (&w2)[J], float (&yr)[J], float (&yi)[J]) {
+  ofdm::wide_tx<J, kMode, kStaged, true>(L, w, sym, tx, w1, w2);
   if (papr) ofdm::wide_papr(L, w, pk, ps, carry_r, carry_i);
-#pragma unroll
-  for (int j = 0; j < J; ++j) {
-    const int t = threadIdx.x + kWideThreads * j;
-    yr[j] = 0.0f;
-    yi[j] = 0.0f;
-    if (t < L.T) ofdm::conv_at(L, w, t, yr[j], yi[j]);
-  }
-  __syncthreads();
-  ofdm::wide_shift_tail(L, w);
+  ofdm::conv_slots<J, false>(L, w, static_cast<int>(threadIdx.x), L.n, yr, yi);
+}
+
+// y before noise at guard sample n + i (i < L), one sample at a time so the
+// guard holds no slot arrays.
+__device__ __forceinline__ void guard_sample(const WideLink& L, const WideBufs& w, int i, float& yr, float& yi) {
+  float gr[1], gi[1];
+  ofdm::conv_slots<1, false>(L, w, L.n + i, L.T, gr, gi);
+  yr = gr[0];
+  yi = gi[0];
 }
 
 // Partial sums of |y|^2 (before noise) over each tile's time samples, in
-// power_partials' order.  grid (tiles, groups); block (tile, g) covers
-// e = s*T + t in [g*4096, (g+1)*4096).
+// power_partials' order (power_block_partial): group g's thread t adds the
+// elements e = s*T + m = 4096 g + 256 j + t, j ascending, and the block's
+// 256-way tree closes the group.  grid (tiles, ceil(groups / kFrontGroups));
+// a block walks the whole symbols that cover its groups, each symbol's TX
+// and convolution once (plus its first symbol's predecessor), and reads the
+// elements out of the symbol's |y|^2 row in shared memory.
 template <int J, int kMode, bool kStaged>
 __global__ void __launch_bounds__(kWideThreads) mm_wide_front(WideLink L, float* partials) {
-  extern __shared__ float smem[];
-  float* red = smem;  // kWidePowerBlock floats, element order
-  const WideBufs w = ofdm::wide_bufs(L.n, L.T, L.E, smem + ofdm::kWidePowerBlock);
+  extern __shared__ float2 smem2[];
+  const int row_len = (L.T + 1) & ~1;
+  float* row = reinterpret_cast<float*>(smem2);  // the symbol's |y|^2, T floats
+  float* red = row + row_len;                     // the tree's kWideThreads floats
+  WideBufs w = ofdm::wide_setup<J>(L, smem2 + (row_len + kWideThreads) / 2);
   const int tile_id = blockIdx.x;
-  const int g = blockIdx.y;
   const int t = threadIdx.x;
   const int b0 = tile_id * L.tile;
-  const int tlen = min(L.tile, L.chunk - b0);
-  const int count = min(L.slice, tlen) * L.T;
-  const int e_lo = g * ofdm::kWidePowerBlock;
-  const int e_hi = min(e_lo + ofdm::kWidePowerBlock, count);
-  for (int i = t; i < ofdm::kWidePowerBlock; i += kWideThreads) red[i] = 0.0f;
+  const int count = min(L.tile, L.chunk - b0) * L.T;
+  const int g_lo = blockIdx.y * kFrontGroups;
+  const int g_hi = min(g_lo + kFrontGroups, L.groups);
+  const int e_lo = g_lo * ofdm::kWidePowerBlock;
+  const int e_hi = min(g_hi * ofdm::kWidePowerBlock, count);
+  float* out = partials + tile_id * L.groups;
+  int g = g_lo;
+  float acc = 0.0f;
+  int e_next = g * ofdm::kWidePowerBlock + t;  // the thread's next element of group g
   if (e_lo < e_hi) {
     const int s_lo = e_lo / L.T;
     const int s_hi = (e_hi - 1) / L.T + 1;
@@ -119,30 +139,52 @@ __global__ void __launch_bounds__(kWideThreads) mm_wide_front(WideLink L, float*
     uint32_t w1[J], w2[J];
     float yr[J], yi[J];
     for (int s = s_lo; s < s_hi; ++s) {
-      symbol_samples<J, kMode, kStaged>(L, w, L.sym0 + static_cast<unsigned long long>(b0 + s), L.n, false, pk,
-                                        ps, nullptr, nullptr, tx, w1, w2, yr, yi);
+      symbol_samples<J, kMode, kStaged>(L, w, L.sym0 + static_cast<unsigned long long>(b0 + s), false, pk, ps,
+                                        nullptr, nullptr, tx, w1, w2, yr, yi);
 #pragma unroll
       for (int j = 0; j < J; ++j) {
-        const int tt = t + kWideThreads * j;
-        const int e = s * L.T + tt;
-        if (tt < L.T && e >= e_lo && e < e_hi) red[e - e_lo] = yr[j] * yr[j] + yi[j] * yi[j];
+        const int i = t + kWideThreads * j;
+        if (i < L.n) row[i] = yr[j] * yr[j] + yi[j] * yi[j];
+        if (i < L.L) {
+          float gr, gi;
+          guard_sample(L, w, i, gr, gi);
+          row[L.n + i] = gr * gr + gi * gi;
+        }
+      }
+      __syncthreads();
+      const int s_e0 = s * L.T;
+      const int s_e1 = min(s_e0 + L.T, e_hi);
+      while (g < g_hi) {
+        const int g_end = min((g + 1) * ofdm::kWidePowerBlock, e_hi);
+        for (const int stop = min(s_e1, g_end); e_next < stop; e_next += kWideThreads) acc = acc + row[e_next - s_e0];
+        if (g_end > s_e1) break;  // the group goes on in the next symbol
+        ofdm::store_block_sum<kWideThreads>(acc, red, t, out + g);
+        acc = 0.0f;
+        ++g;
+        e_next = g * ofdm::kWidePowerBlock + t;
       }
     }
   }
-  ofdm::power_block_partial<kWideThreads, ofdm::kWidePowerSteps>(red, t, partials + tile_id * L.groups + g);
+  for (; g < g_hi; ++g) ofdm::store_block_sum<kWideThreads>(0.0f, red, t, out + g);  // groups past the tile
 }
 
 // The chain a symbol a block; with kStaged, the stages (phase 0 of a
 // normalized link writes its run's |e|^2 partial instead of counting);
 // kDump is the dump stage's launch-time variant, kBump the noise-bump
-// stages (the OFDM_BUMP build).
+// stages (the OFDM_BUMP build).  Thread t holds head samples and bins t +
+// 256 j (J = ceil(n / 256) rounded up to 2, 4 or 8) and the guard samples n
+// + i, i < L, of its head slots: their noise from counter (sym, n + i, 0)
+// and the overlap-add r[i] = y[i] + y[n + i] in registers.  Block barriers
+// a symbol at n = 1024 (SC-FDE, MMSE): the TX block's 1, the forward
+// transform's 3, the MMSE mean's 1, the IDFT's 3.
 template <int J, int kMode, bool kStaged, bool kDump = false, bool kBump = false>
-__global__ void __launch_bounds__(kWideThreads, ofdm::kWideMinBlocks)
+__global__ void __launch_bounds__(kWideThreads, ofdm::wide_min_blocks(J))
     mm_wide_main(WideLink L, const float* partials, unsigned long long* acc, double* psum, float* carry_r,
                  float* carry_i) {
-  extern __shared__ float smem[];
+  extern __shared__ float2 smem2[];
   __shared__ float wsum[kWideWarps];
-  const WideBufs w = ofdm::wide_bufs(L.n, L.T, L.E, smem);
+  __shared__ float wsum_e[kWideWarps];
+  WideBufs w = ofdm::wide_setup<J>(L, smem2);
   const int tid = threadIdx.x;
 
   uint32_t be = 0, se = 0;
@@ -177,73 +219,37 @@ __global__ void __launch_bounds__(kWideThreads, ofdm::kWideMinBlocks)
     int tx[J];
     uint32_t w1[J], w2[J];
     float yr[J], yi[J];
-    symbol_samples<J, kMode, kStaged>(L, w, sym, L.T, counting, pk, ps, last ? carry_r : nullptr,
+    symbol_samples<J, kMode, kStaged>(L, w, sym, counting, pk, ps, last ? carry_r : nullptr,
                                       last ? carry_i : nullptr, tx, w1, w2, yr, yi);
+    // The noise, then the overlap-add of the zero-prefix tail onto the head
+    // (linops.rx_matrix).
 #pragma unroll
     for (int j = 0; j < J; ++j) {
-      const int t = tid + kWideThreads * j;
-      if (t < L.T) {
-        if (L.add_noise) ofdm::add_noise(w1[j], w2[j], sigma, yr[j], yi[j]);
-        w.yr[t] = yr[j];
-        w.yi[t] = yi[j];
-      }
-    }
-    __syncthreads();
-    // The overlap-add of the zero-prefix tail onto the head (linops.rx_matrix).
-    for (int i = tid; i < L.n; i += kWideThreads) {
-      float rr = w.yr[i];
-      float ri = w.yi[i];
+      const int i = tid + kWideThreads * j;
+      if (i < L.n && L.add_noise) ofdm::add_noise(w1[j], w2[j], sigma, yr[j], yi[j]);
       if (i < L.L) {
-        rr = rr + w.yr[L.n + i];
-        ri = ri + w.yi[L.n + i];
-      }
-      const int s = ofdm::dft_slot(L.dft, i);
-      w.ar[s] = rr;
-      w.ai[s] = ri;
-    }
-    ofdm::block_dft<kWideThreads>(L.dft, w.ar, w.ai, w.br, w.bi, false);
-    float fr[J], fi[J];
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
-      const int k = tid + kWideThreads * j;
-      fr[j] = 0.0f;
-      fi[j] = 0.0f;
-      if (k < L.n) {
-        fr[j] = w.ar[k] * L.dft.scale;
-        fi[j] = w.ai[k] * L.dft.scale;
+        float gr, gi;
+        guard_sample(L, w, i, gr, gi);
+        if (L.add_noise) {
+          const uint4 wd = ofdm::symbol_words(sym, L.n + i, L.key);
+          ofdm::add_noise(wd.y, wd.z, sigma, gr, gi);
+        }
+        yr[j] = yr[j] + gr;
+        yi[j] = yi[j] + gi;
       }
     }
-    const float nv = ofdm::mmse_nv_block<J, kWideWarps>(L.eq, fr, fi, L.n, L.snr_lin, wsum);
+    ofdm::wide_transform<J, false>(L, w, yr, yi);
+    const float nv = ofdm::wide_mmse_nv<J>(L, yr, yi, wsum);
     float er[J], ei[J];
 #pragma unroll
     for (int j = 0; j < J; ++j) {
       const int k = tid + kWideThreads * j;
       er[j] = 0.0f;
       ei[j] = 0.0f;
-      if (k < L.n) ofdm::equalize_stage<kMode, kStaged>(L, k, fr[j], fi[j], nv, er[j], ei[j], sc);
+      if (k < L.n) ofdm::equalize_stage<kMode, kStaged>(L, k, yr[j], yi[j], nv, er[j], ei[j], sc);
     }
-    if (sc) {
-      // SC-FDE: equalized bins -> time-domain symbols, the block IDFT.
-      __syncthreads();  // every thread has read Y out of the DFT planes
-#pragma unroll
-      for (int j = 0; j < J; ++j) {
-        const int k = tid + kWideThreads * j;
-        if (k < L.n) {
-          const int s = ofdm::dft_slot(L.dft, k);
-          w.ar[s] = er[j];
-          w.ai[s] = ei[j];
-        }
-      }
-      ofdm::block_dft<kWideThreads>(L.dft, w.ar, w.ai, w.br, w.bi, true);
-#pragma unroll
-      for (int j = 0; j < J; ++j) {
-        const int k = tid + kWideThreads * j;
-        if (k < L.n) {
-          er[j] = w.ar[k] * L.dft.scale;
-          ei[j] = w.ai[k] * L.dft.scale;
-        }
-      }
-    }
+    // SC-FDE: equalized bins -> time-domain symbols, the block IDFT.
+    if (sc) ofdm::wide_transform<J, true>(L, w, er, ei);
     float p = 0.0f;
 #pragma unroll
     for (int j = 0; j < J; ++j) {
@@ -255,7 +261,7 @@ __global__ void __launch_bounds__(kWideThreads, ofdm::kWideMinBlocks)
     }
     if constexpr (kStaged) {
       if (normalize && !counting) {
-        energy = energy + ofdm::block_sum<kWideWarps>(p, wsum);
+        energy = energy + ofdm::block_sum_once<kWideWarps>(p, wsum_e);
         continue;
       }
     }
@@ -284,12 +290,23 @@ __global__ void __launch_bounds__(kWideThreads, ofdm::kWideMinBlocks)
 
 template <class K>
 cudaError_t allow_smem(K* kernel, size_t bytes) {
+  if (bytes > ofdm::kWideMaxShared) return cudaErrorInvalidValue;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
 }
 
-// mm_wide_front (when noise is on) then mm_wide_main at J time samples a
-// thread; in the OFDM_STAGED build mm_wide_main twice around norm_factors
-// under normalize.
+template <int J>
+size_t main_bytes(const WideLink& L) {
+  return sizeof(float2) * ofdm::wide_float2s<J>(L.n, L.T, L.E, L.dft.log2n);
+}
+
+// mm_wide_front's extra: the |y|^2 row and the tree.
+inline size_t front_extra(const WideLink& L) {
+  return sizeof(float) * (((L.T + 1) & ~1) + kWideThreads);
+}
+
+// mm_wide_front (when noise is on) then mm_wide_main at J slots a thread;
+// in the OFDM_STAGED build mm_wide_main twice around norm_factors under
+// normalize.
 template <int J, int kMode>
 cudaError_t launch(const WideLink& L, float* partials, unsigned long long* acc, double* psum, float* cr, float* ci,
                    cudaStream_t stream) {
@@ -299,15 +316,16 @@ cudaError_t launch(const WideLink& L, float* partials, unsigned long long* acc, 
 #if OFDM_STAGED
   if (L.st.bits & ofdm::kStageDump) main_kernel = &mm_wide_main<J, kMode, kS, true, kB>;
 #endif
-  const size_t main_bytes = sizeof(float) * ofdm::wide_floats(L.n, L.T, L.E, true);
-  const size_t front_bytes = sizeof(float) * (ofdm::wide_floats(L.n, L.T, L.E, false) + ofdm::kWidePowerBlock);
-  cudaError_t err = allow_smem(main_kernel, main_bytes);
+  const size_t mbytes = main_bytes<J>(L);
+  const size_t front_bytes = mbytes + front_extra(L);
+  cudaError_t err = allow_smem(main_kernel, mbytes);
   if (err != cudaSuccess) return err;
   if (L.add_noise) {
     err = allow_smem(&mm_wide_front<J, kMode, kS>, front_bytes);
     if (err != cudaSuccess) return err;
     const int tiles = (L.chunk + L.tile - 1) / L.tile;
-    mm_wide_front<J, kMode, kS><<<dim3(tiles, L.groups), kWideThreads, front_bytes, stream>>>(L, partials);
+    const dim3 grid(tiles, (L.groups + kFrontGroups - 1) / kFrontGroups);
+    mm_wide_front<J, kMode, kS><<<grid, kWideThreads, front_bytes, stream>>>(L, partials);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -317,11 +335,11 @@ cudaError_t launch(const WideLink& L, float* partials, unsigned long long* acc, 
                              [&](int phase) {
     WideLink P = L;
     P.st.phase = phase;
-    main_kernel<<<grid, kWideThreads, main_bytes, stream>>>(P, partials, acc, psum, cr, ci);
+    main_kernel<<<grid, kWideThreads, mbytes, stream>>>(P, partials, acc, psum, cr, ci);
     return cudaGetLastError();
   });
 #else
-  main_kernel<<<grid, kWideThreads, main_bytes, stream>>>(L, partials, acc, psum, cr, ci);
+  main_kernel<<<grid, kWideThreads, mbytes, stream>>>(L, partials, acc, psum, cr, ci);
   return cudaGetLastError();
 #endif
 }
@@ -330,29 +348,30 @@ template <int J, int kMode>
 cudaError_t launch_probe(const WideLink& L, unsigned long long sym, float* cr, float* ci, float* tr, float* ti,
                          cudaStream_t stream) {
   auto* kernel = &ofdm::wide_probe<J, kMode, ofdm::kStagedBuild, true>;
-  const size_t bytes = sizeof(float) * ofdm::wide_floats(L.n, L.T, L.E, false);
+  const size_t bytes = main_bytes<J>(L);
   const cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
   kernel<<<1, kWideThreads, bytes, stream>>>(L, sym, cr, ci, tr, ti);
   return cudaGetLastError();
 }
 
-// Time samples a thread, rounded up to a compiled width: 2, 4 or 8.
+// Slots a thread from n, rounded up to a compiled width: 2, 4 or 8 (the
+// guard's L <= n samples ride the head slots).
 template <int kMode>
 cudaError_t launch_mode(const WideLink& L, float* partials, unsigned long long* acc, double* psum, float* cr,
                         float* ci, cudaStream_t stream) {
-  const int slots = (L.T + kWideThreads - 1) / kWideThreads;
-  if (slots <= 2) return launch<2, kMode>(L, partials, acc, psum, cr, ci, stream);
-  if (slots <= 4) return launch<4, kMode>(L, partials, acc, psum, cr, ci, stream);
+  const int slots = ofdm::wide_slots(L.n);
+  if (slots == 2) return launch<2, kMode>(L, partials, acc, psum, cr, ci, stream);
+  if (slots == 4) return launch<4, kMode>(L, partials, acc, psum, cr, ci, stream);
   return launch<8, kMode>(L, partials, acc, psum, cr, ci, stream);
 }
 
 template <int kMode>
 cudaError_t probe_mode(const WideLink& L, unsigned long long sym, float* cr, float* ci, float* tr, float* ti,
                        cudaStream_t stream) {
-  const int slots = (L.T + kWideThreads - 1) / kWideThreads;
-  if (slots <= 2) return launch_probe<2, kMode>(L, sym, cr, ci, tr, ti, stream);
-  if (slots <= 4) return launch_probe<4, kMode>(L, sym, cr, ci, tr, ti, stream);
+  const int slots = ofdm::wide_slots(L.n);
+  if (slots == 2) return launch_probe<2, kMode>(L, sym, cr, ci, tr, ti, stream);
+  if (slots == 4) return launch_probe<4, kMode>(L, sym, cr, ci, tr, ti, stream);
   return launch_probe<8, kMode>(L, sym, cr, ci, tr, ti, stream);
 }
 
@@ -428,6 +447,33 @@ int ofdm_mm_wide_probe(const float* twr, const float* twi, int n, int T, int E, 
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   return static_cast<int>(ofdm::with_mode(mode, [&](auto md) {
     return probe_mode<decltype(md)::value>(L, sym, carry_r, carry_i, tail_r, tail_i, stream);
+  }));
+}
+
+// The layout of the qam kernels at (n, T, E, log2n) into out[0..13): the
+// slots a thread J, then mm_wide_main's (a chunk without a dump launches it),
+// mm_wide_front's and wide_probe's registers, local bytes a thread, shared
+// bytes a block and resident blocks an SM (ofdm_tpu_torch/ops/
+// mm_kernel.py::wide_geometry).  Returns a CUDA error, 0 if none.
+int ofdm_mm_wide_geometry(int n, int T, int E, int log2n, int* out) {
+  if (n < 1 || n > ofdm::kWideMaxN || T < n || T - n > n || E < 0 || E > T) return cudaErrorInvalidValue;
+  WideLink L{};
+  L.n = n;
+  L.T = T;
+  L.E = E;
+  L.L = T - n;
+  L.dft.log2n = log2n;
+  return static_cast<int>(ofdm::with_slots(n, [&](auto jc) {
+    constexpr int J = decltype(jc)::value;
+    constexpr bool kS = ofdm::kStagedBuild;
+    constexpr bool kB = ofdm::kBumpBuild;
+    out[0] = J;
+    cudaError_t err = ofdm::wide_layout(&mm_wide_main<J, ofdm::kQam, kS, false, kB>, main_bytes<J>(L), out + 1);
+    if (err == cudaSuccess) err = ofdm::wide_layout(&mm_wide_front<J, ofdm::kQam, kS>, main_bytes<J>(L) + front_extra(L), out + 5);
+    if (err == cudaSuccess) {
+      err = ofdm::wide_layout(&ofdm::wide_probe<J, ofdm::kQam, kS, true>, main_bytes<J>(L), out + 9);
+    }
+    return err;
   }));
 }
 

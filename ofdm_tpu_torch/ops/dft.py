@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -142,3 +143,111 @@ def block_dft(xr: torch.Tensor, xi: torch.Tensor, plan: DftPlan, inverse: bool =
     yr, yi = (_radix2 if plan.log2n >= 0 else _split)(xr, xi, plan, wr, wi)
     s = torch.tensor(plan.scale, dtype=torch.float32, device=xr.device)
     return yr * s, yi * s
+
+
+# --- the staged schedule of the wide chains' radix-2 transform ------------------------
+#
+# csrc/wide_dft.cuh runs block_dft's radix-2 butterflies at n = 256 J (J = 2,
+# 4, 8 slots a thread of a 256-thread block) in rounds.  In round r, bit b
+# of q = t | (j << 8) (lane bits 0-4, warp bits 5-7, slot bits 8..) sets bit
+# STAGE_PERMS[n][r][b] of the position (block_dft's storage index: input m
+# at its bit-reversed index) that thread t holds in slot j.  A round runs,
+# in registers, the stages h = 2^s whose position bit s is a slot bit, in
+# order; between rounds the elements move through shared memory, inside the
+# warp where the warp bits keep their position bits.  The kernel's tables
+# (kStagePerm) are these.
+
+STAGE_THREADS = 256
+STAGE_PERMS = {
+    512: ((1, 2, 3, 4, 5, 6, 7, 8, 0),
+          (2, 3, 4, 5, 0, 6, 7, 8, 1),
+          (0, 1, 3, 4, 5, 6, 7, 8, 2),
+          (0, 1, 2, 4, 5, 6, 7, 8, 3),
+          (0, 1, 2, 3, 5, 6, 7, 8, 4),
+          (0, 1, 2, 3, 4, 6, 7, 8, 5),
+          (3, 4, 5, 7, 8, 0, 1, 2, 6),
+          (3, 4, 5, 6, 8, 0, 1, 2, 7),
+          (0, 1, 2, 3, 4, 5, 6, 7, 8)),
+    1024: ((2, 3, 4, 5, 6, 7, 8, 9, 0, 1),
+           (4, 5, 6, 0, 1, 7, 8, 9, 2, 3),
+           (0, 1, 2, 3, 6, 7, 8, 9, 4, 5),
+           (0, 1, 2, 3, 4, 7, 8, 9, 5, 6),
+           (0, 1, 2, 3, 4, 5, 6, 9, 7, 8),
+           (0, 1, 2, 3, 4, 5, 6, 7, 8, 9)),
+    2048: ((3, 4, 5, 6, 7, 8, 9, 10, 0, 1, 2),
+           (6, 7, 0, 1, 2, 8, 9, 10, 3, 4, 5),
+           (0, 1, 2, 3, 4, 8, 9, 10, 5, 6, 7),
+           (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10)),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class StageRound:
+    """One round of the staged schedule: ``table[t, j]`` the position thread t
+    holds in slot j, ``stages`` the butterfly stages s (h = 2^s) it runs in
+    registers, ``warp_local`` whether the move to the next round stays inside
+    each warp (None for the last round)."""
+
+    table: np.ndarray
+    stages: Tuple[int, ...]
+    warp_local: Optional[bool]
+
+
+def stage_rounds(n: int):
+    """The rounds of the staged transform at ``n`` (a key of STAGE_PERMS)."""
+    perms = STAGE_PERMS[n]
+    log2n = n.bit_length() - 1
+    J = n // STAGE_THREADS
+    q = np.arange(STAGE_THREADS)[:, None] | (np.arange(J)[None, :] << 8)
+    out, nxt = [], 0
+    for r, perm in enumerate(perms):
+        table = np.zeros_like(q)
+        for b, d in enumerate(perm):
+            table |= ((q >> b) & 1) << d
+        slot_bits = set(perm[8:])
+        stages = []
+        while nxt < log2n and nxt in slot_bits:
+            stages.append(nxt)
+            nxt += 1
+        local = None if r + 1 == len(perms) else perm[5:8] == perms[r + 1][5:8]
+        out.append(StageRound(table, tuple(stages), local))
+    return out
+
+
+def staged_block_dft(xr: torch.Tensor, xi: torch.Tensor, plan: DftPlan, inverse: bool = False):
+    """``block_dft`` at n = 256 J run round by round as csrc/wide_dft.cuh runs
+    it: each round gathers the (..., 256, J) elements its table names, runs
+    its stages on a thread's slots (the butterfly of the slot pair whose
+    positions differ in bit s, twiddle W_n^(pos n / 2h)) and scatters them
+    back; the scale multiplies the result once."""
+    n = plan.n
+    if n not in STAGE_PERMS or plan.log2n < 0:
+        raise ValueError(f"staged_block_dft runs at n in {sorted(STAGE_PERMS)}, got {n}")
+    wr, wi = plan.twr, -plan.twi if inverse else plan.twi
+    lead = xr.shape[:-1]
+    # positions hold the input in bit-reversed order
+    perm = torch.as_tensor(_bitrev(n, plan.log2n), device=xr.device)
+    pr, pi = xr[..., perm].clone(), xi[..., perm].clone()
+    for rnd in stage_rounds(n):
+        table = torch.as_tensor(rnd.table, device=xr.device)
+        flat = table.reshape(-1)
+        vr = pr[..., flat].reshape(*lead, *table.shape)
+        vi = pi[..., flat].reshape(*lead, *table.shape)
+        for s in rnd.stages:
+            for j in range(table.shape[1]):
+                j1 = int(np.flatnonzero((rnd.table[0] ^ rnd.table[0, j]) == (1 << s))[0]) \
+                    if not rnd.table[0, j] >> s & 1 else None
+                if j1 is None:
+                    continue
+                pos = table[:, j] & ((1 << s) - 1)
+                k = pos * (n >> (s + 1))
+                w_r, w_i = wr[k], wi[k]
+                ar, ai, br, bi = (v[..., c].clone() for v, c in ((vr, j), (vi, j), (vr, j1), (vi, j1)))
+                tr = w_r * br - w_i * bi
+                ti = w_r * bi + w_i * br
+                vr[..., j], vi[..., j] = ar + tr, ai + ti
+                vr[..., j1], vi[..., j1] = ar - tr, ai - ti
+        pr[..., flat] = vr.reshape(*lead, -1)
+        pi[..., flat] = vi.reshape(*lead, -1)
+    s = torch.tensor(plan.scale, dtype=torch.float32, device=xr.device)
+    return pr * s, pi * s

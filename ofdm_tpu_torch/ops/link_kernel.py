@@ -1609,6 +1609,31 @@ def geometry(n: int, library: str, log2n: int = -1) -> dict:
             for i, k in enumerate(DIAG_GEOMETRY_KERNELS)}
 
 
+WIDE_GEOMETRY_KEYS = ("registers", "local_bytes", "shared_bytes", "blocks_an_sm")
+
+
+def wide_geometry(chain: str, n: int, T: int, E: int, log2n: int, library: Optional[str] = None) -> dict:
+    """The layout of ``chain``'s ("fold" or "mm") wide qam kernels at (n, T,
+    E) and the DFT plan's log2 n (-1: the split), read from the loaded
+    ``library`` (its plain build by default;
+    csrc/{fold,mm}_wide_kernel.cu::ofdm_{fold,mm}_wide_geometry): ``J``, the
+    slots a thread, and for the main kernel, the power pass (fold) or front
+    (mm) and the probe their registers, local bytes a thread, shared bytes
+    a block (static and dynamic) and resident blocks an SM."""
+    import ctypes
+
+    from ofdm_tpu_torch import build
+
+    lib = build.load(library or f"{chain}_wide")
+    out = (ctypes.c_int * 13)()
+    fn = f"ofdm_{chain}_wide_geometry"
+    build.check(lib, getattr(lib, fn)(n, T, E, log2n, out), fn)
+    vals = list(out)
+    kernels = ("main", "power" if chain == "fold" else "front", "probe")
+    return {"J": vals[0], **{k: dict(zip(WIDE_GEOMETRY_KEYS, vals[1 + 4 * i : 5 + 4 * i]))
+                             for i, k in enumerate(kernels)}}
+
+
 def boxmuller_sample_plain(seed0: int, seed1: int, shape, device="cpu"):
     """Plain version of ``boxmuller_sample``."""
     count = int(np.prod(shape))

@@ -60,7 +60,7 @@ from ofdm_tpu_torch.ops import link_kernel as lk
 
 MAX_N = 256  # bins a lane of mm_main holds: up to 8
 MAX_T = 320  # time samples a warp's group buffers hold
-WIDE_MAX_T = 2048  # time samples a thread of mm_wide's block holds: up to 8
+WIDE_MAX_T = 2048  # mm_wide holds up to 8 head samples a thread, each with its guard sample
 # Consecutive symbols one warp of mm_front and mm_main walks (in groups of
 # terms.group_of(J)).
 RUN = 8

@@ -1,6 +1,6 @@
 """A/B of two trees of the port on one CUDA card: registers and chunk times.
 
-    python3 port_ab.py OTHER_TREE [--reps 3] [--lr-study | --slab-study]
+    python3 port_ab.py OTHER_TREE [--reps 3] [--lr-study | --slab-study | --bounds-study]
 
 OTHER_TREE is another checkout of this repository (for example the parent
 commit, unpacked with ``git archive`` into a directory that .gitignore
@@ -11,7 +11,9 @@ compares the registers ptxas reports for every qam entry point that both
 trees have, in the plain chunk libraries and apart in the staged ones,
 and the counts each tree's diag chain gives (the noise-bump campaigns at
 64 and 512 sc point by point, a waterfilling 512-sc run's BER and in-run
-papr_db).  Then it times, at a 2^17-symbol chunk, the five qam cells'
+papr_db) and each WIDE_COUNT_CELLS run gives on fold_wide and mm_wide
+(route, BER, papr_db), with the static block and warp barriers of both
+trees' wide dense kernels.  Then it times, at a 2^17-symbol chunk, the five qam cells'
 chunk kernels (the headline link on diag, scfde_default on fold,
 wide_1024sc and lr_1024sc_zp on lr, zp_64sc on mm; the diag chain's
 adaptive_64sc (aqam), OFDM-CY1.0-512 and flat single-tap links at 1024,
@@ -19,8 +21,9 @@ adaptive_64sc (aqam), OFDM-CY1.0-512 and flat single-tap links at 1024,
 custom-channel demo IR and a 160-sc one; the lr zero-prefix chunk at 512 and
 2048 subcarriers, lr_main's other group sizes; an SC-FDE link at each
 other width the fold and mm kernels compile for, 32-256 subcarriers, with
-a cyclic and a zero prefix) and the staged cells (a
-waterfilling link with both power switches on each chain, and the
+a cyclic and a zero prefix; WIDE_DENSE_CELLS on fold_wide and mm_wide) and
+the staged cells (a waterfilling link with both power switches on each
+chain and on the two wide dense chains, and the
 noise-bump study's chunk with all four stages on diag at 64, 512 and 1024
 subcarriers, fold and mm; a cell a tree does not take reads "skip") in
 four processes, in the order other, this, this, other; each time is the
@@ -32,7 +35,10 @@ staged 1024-sc lr chunks with the PAPR statistic on one tile in 128 (its
 share of them).  With ``--slab-study`` it times instead the noise-bump
 chunks of the diag chains at 64 and 512 sc with the one-pass scratch
 capped at 2^22, 2^23, 2^24 and 2^26 bins a slab (a tree without the
-one-pass scratch reads "skip").  Prints one JSON object as its last line.
+one-pass scratch reads "skip").  With ``--bounds-study`` it times
+BOUNDS_CELLS with fold_wide and mm_wide built at each BOUNDS minimum of
+resident blocks (``OFDM_WIDE_MIN_BLOCKS``), this tree only.  Prints one
+JSON object as its last line.
 """
 
 import json
@@ -53,6 +59,25 @@ SCFDE = dict(HEADLINE, constellation_order=4, channel_model="Lin-Phoong_P1", mod
 DEMO_IR = (1.0, 0.4 - 0.2j, 0.1 + 0.1j)
 # A cell's config is SimulationConfig keywords; "adaptive_json" takes the
 # reference's adaptive config at the cell's snr_db instead, "channel_ir" an IR.
+# The fold and mm chains past 256 subcarriers (fold_wide, mm_wide): the audit's
+# SC-FDE cells at 1024 and 512 sc (64-QAM, severe_multipath, 30 dB), a
+# 300-sc single-tap link (the split DFT), single-tap zero-prefix OFDM at
+# 1024 sc (OFDM's TX transform) and the reference's adaptive config on
+# SC-FDE at 1024 sc (aqam, 20 dB).
+AUDIT_SC = dict(HEADLINE, channel_model="severe_multipath", modulation_type="SC-OFDM")
+_ASC = dict(adaptive_json="config/simulation_settings_adaptive.json", num_subcarriers=1024, snr_db=20.0,
+            channel_model="severe_multipath", modulation_type="SC-OFDM")
+WIDE_DENSE_CELLS = {
+    "SC-CY1.0-1024": dict(AUDIT_SC, num_subcarriers=1024),
+    "SC-ZE1.0-1024": dict(AUDIT_SC, num_subcarriers=1024, prefix_type="ZERO"),
+    "SC-CY1.0-512": dict(AUDIT_SC, num_subcarriers=512),
+    "SC-ZE1.0-512": dict(AUDIT_SC, num_subcarriers=512, prefix_type="ZERO"),
+    "sc_flat_cp_300": dict(AUDIT_SC, num_subcarriers=300, channel_model="flat_fading", snr_db=20.0),
+    "flat_zp_ofdm_1024": dict(HEADLINE, num_subcarriers=1024, prefix_type="ZERO", channel_model="flat_fading",
+                              snr_db=20.0),
+    "adaptive_scfde_1024sc": _ASC,
+    "adaptive_scfde_1024sc_zp": dict(_ASC, prefix_type="ZERO"),
+}
 CELLS = {
     "headline_64sc": HEADLINE,
     "adaptive_64sc": dict(adaptive_json="config/simulation_settings_adaptive.json", num_subcarriers=64,
@@ -74,6 +99,7 @@ CELLS = {
     **{f"scfde_{n}sc": dict(SCFDE, num_subcarriers=n) for n in (32, 96, 128, 160, 192, 224, 256)},
     # mm's other compiled widths (bins a lane 3, 4, 6, 8; zp_64sc has 2)
     **{f"scfde_zp_{n}sc": dict(SCFDE, num_subcarriers=n, prefix_type="ZERO") for n in (96, 128, 192, 256)},
+    **WIDE_DENSE_CELLS,
 }
 _WF = dict(power_allocation_type="WATERFILLING", apply_power_allocation=True, normalize_before_demap=True)
 _NB = dict(noise_type="NONE", apply_power_allocation=True, normalize_before_demap=True)
@@ -90,7 +116,12 @@ STAGED_CELLS = {
     "bump_study_1024sc": (dict(HEADLINE, **_NB, num_subcarriers=1024), True),
     "bump_scfde_default": (dict(SCFDE, **_NB), True),
     "bump_zp_64sc": (dict(HEADLINE, **_NB, prefix_type="ZERO"), True),
+    # the wide dense chains with apply_power + normalize
+    "wf_SC-CY1.0-1024": (dict(WIDE_DENSE_CELLS["SC-CY1.0-1024"], **_WF), False),
+    "wf_SC-ZE1.0-1024": (dict(WIDE_DENSE_CELLS["SC-ZE1.0-1024"], **_WF), False),
 }
+# The cells whose runs' counts both trees must give alike (wide_counts).
+WIDE_COUNT_CELLS = {**WIDE_DENSE_CELLS, **{k: STAGED_CELLS[k][0] for k in ("wf_SC-CY1.0-1024", "wf_SC-ZE1.0-1024")}}
 # --lr-study: the lr chunk against the tail rank E, and the in-run PAPR's
 # share of the staged 1024-sc lr chunks (1 tile in 128 sampled, not 4)
 LR_STUDY_CELLS = {
@@ -114,8 +145,8 @@ SLAB_BINS = (1 << 22, 1 << 23, 1 << 24, 1 << 26)
 SLAB_CELLS = {n: STAGED_CELLS[f"bump_study_{n}sc"][0] for n in (64, 512)}
 
 
-def runner_for(kw, dev):
-    """A LinkRunner of a cell at 4 chunks of CHUNK symbols (``CELLS``' keys)."""
+def runner_for(kw, dev, chunks=4):
+    """A LinkRunner of a cell at ``chunks`` chunks of CHUNK OFDM symbols (``CELLS``' keys)."""
     import numpy as np
 
     from ofdm_tpu_torch.config import SimulationConfig
@@ -125,10 +156,10 @@ def runner_for(kw, dev):
     ir = kw.pop("channel_ir", None)
     path = kw.pop("adaptive_json", None)
     if path is not None:
-        cfg = {c.snr_db: c for c in SimulationConfig.from_json(os.path.join(HERE, path))}[kw["snr_db"]]
-        cfg = cfg.replace(num_symbols=4 * CHUNK, symbols_per_chunk=CHUNK)
+        cfg = {c.snr_db: c for c in SimulationConfig.from_json(os.path.join(HERE, path))}[kw.pop("snr_db")]
+        cfg = cfg.replace(num_symbols=chunks * CHUNK, symbols_per_chunk=CHUNK, **kw)
     else:
-        cfg = SimulationConfig(**kw, num_symbols=kw["num_subcarriers"] * 4 * CHUNK, symbols_per_chunk=CHUNK)
+        cfg = SimulationConfig(**kw, num_symbols=kw["num_subcarriers"] * chunks * CHUNK, symbols_per_chunk=CHUNK)
     return LinkRunner(prepare(cfg, channel_ir=None if ir is None else np.asarray(ir)), dev)
 
 
@@ -202,6 +233,28 @@ def diag_counts(dev):
     return out
 
 
+def wide_counts(dev):
+    """Each WIDE_COUNT_CELLS cell's run through LinkRunner in this tree (8
+    chunks of CHUNK OFDM symbols, seed 0): the route, BER and papr_db."""
+    out = {}
+    for name, kw in WIDE_COUNT_CELLS.items():
+        runner = runner_for(kw, dev, chunks=8)
+        r = runner.run(0)
+        out[name] = {"mode": runner.mode, "bit_error_rate": r["bit_error_rate"], "papr_db": r["papr_db"]}
+    return out
+
+
+def sass_barriers(build):
+    """{library: {kernel key: static BAR, WARPSYNC}} of a tree's wide dense
+    libraries' qam kernels (``chip_smoke.sass_barriers``)."""
+    from chip_smoke import sass_barriers as count
+
+    out = {}
+    for lib, path in build["wide_libraries"].items():
+        out[lib] = {k: v for k, v in count(path).items() if k.split("+")[0].endswith(",0>")}
+    return out
+
+
 def slab_study(dev, reps):
     """The diag noise-bump chunks at 64 and 512 sc at each SLAB_BINS cap."""
     from ofdm_tpu_torch.ops import link_kernel as lk
@@ -217,6 +270,46 @@ def slab_study(dev, reps):
     return out
 
 
+# --bounds-study: the wide dense mains' __launch_bounds__ minimum blocks an SM
+BOUNDS = (4, 3, 5, 4)
+BOUNDS_CELLS = ("SC-CY1.0-1024", "SC-ZE1.0-1024", "SC-CY1.0-512", "SC-ZE1.0-512", "adaptive_scfde_1024sc",
+                "adaptive_scfde_1024sc_zp")
+
+
+def bounds_study(dev, reps):
+    """BOUNDS_CELLS' chunks with fold_wide and mm_wide built at each BOUNDS
+    value of OFDM_WIDE_MIN_BLOCKS (the plain builds, all compiled at once),
+    in BOUNDS' order, with each variant's mains' registers, local bytes and
+    blocks an SM at the cell's width."""
+    from ofdm_tpu_torch import build
+    from ofdm_tpu_torch.ops import link_kernel as lk
+
+    names = {}
+    for mb in sorted(set(BOUNDS)):
+        for chain in ("fold_wide", "mm_wide"):
+            names[chain, mb] = f"{chain}_minblocks{mb}"
+            build.LIBRARIES[names[chain, mb]] = (f"{chain}_kernel", (f"-DOFDM_WIDE_MIN_BLOCKS={mb}",))
+    build.build(list(names.values()))
+    load = build.load
+    out = {}
+    for i, mb in enumerate(BOUNDS):
+        build.load = lambda name, mb=mb: load(names.get((name, mb), name))
+        try:
+            for name in BOUNDS_CELLS:
+                runner = runner_for(CELLS[name], dev)
+                link = runner.link
+                work = runner.kernel.workspace(link, CHUNK, dev)
+                acc, psum = lk.new_accumulators(dev)
+                snr_lin = lk.snr_linear(runner.setup.cfg.snr_db)
+                ms = median_ms(lambda: runner.kernel.chunk(link, (3, 4), CHUNK, CHUNK, snr_lin, acc, psum, work),
+                               reps, 20)
+                geo = lk.wide_geometry(runner.mode, link.n, link.T, link.E, link.plan.log2n)
+                out[f"{name}_minblocks{mb}_{i}"] = {"ms": ms, "main": geo["main"]}
+        finally:
+            build.load = load
+    return out
+
+
 def worker(what, reps):
     """In a tree's own process: build its libraries, read its diag counts
     (``what`` "counts"), or time its cells ("time"), the lr study's
@@ -228,14 +321,18 @@ def worker(what, reps):
     if what == "build":
         t0 = time.perf_counter()
         build.build(build.SOURCES)
-        return {"build_s": time.perf_counter() - t0, "build_dir": build.BUILD_DIR, "libraries": list(build.SOURCES)}
+        wide = [n for n in build.SOURCES if n.startswith(("fold_wide", "mm_wide"))]
+        return {"build_s": time.perf_counter() - t0, "build_dir": build.BUILD_DIR, "libraries": list(build.SOURCES),
+                "wide_libraries": {n: build.library_path(n) for n in wide}}
     from ofdm_tpu_torch.ops import link_kernel as lk
 
     dev = torch.device("cuda")
     if what == "counts":
-        return diag_counts(dev)
+        return {**diag_counts(dev), "wide": wide_counts(dev)}
     if what == "slab_study":
         return slab_study(dev, reps)
+    if what == "bounds_study":
+        return bounds_study(dev, reps)
     cells, staged = (LR_STUDY_CELLS, LR_STUDY_STAGED) if what == "lr_study" else (CELLS, STAGED_CELLS)
     out = {}
     for name, kw in cells.items():
@@ -304,19 +401,39 @@ def main(argv):
     if not torch.cuda.is_available():
         print("port_ab: no CUDA device", file=sys.stderr)
         return 1
+    if "--bounds-study" in argv:
+        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                              capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+        result = {"card": card, "bounds_study": run_worker(HERE, "bounds_study", reps)}
+        for k, v in result["bounds_study"].items():
+            print(f"{k}: {json.dumps(v)}")
+        print(json.dumps(result))
+        return 0
     builds = {label: run_worker(tree, "build", reps) for label, tree in (("other", other), ("this", HERE))}
     common, moved = compare(builds, False)
     staged_common, staged_moved = compare(builds, True)
     print(f"qam entry points: {common} in both trees, {len(moved)} with other registers: {json.dumps(moved)}")
     print(f"staged qam entry points: {staged_common} in both trees, {len(staged_moved)} with other registers: "
           f"{json.dumps(staged_moved)}")
+    outside = {k: v for k, v in {**moved, **staged_moved}.items() if not k.startswith(("fold_wide", "mm_wide"))}
+    print(f"qam entry points outside fold_wide / mm_wide with other registers: {json.dumps(outside)}")
     print(f"build s: other {builds['other']['build_s']:.1f} ({len(builds['other']['libraries'])} libraries), "
           f"this {builds['this']['build_s']:.1f} ({len(builds['this']['libraries'])} libraries)")
+    barriers = {label: sass_barriers(b) for label, b in builds.items()}
+    for label, b in barriers.items():
+        print(f"wide static barriers {label}: {json.dumps(b)}")
     counts = {label: run_worker(tree, "counts", reps) for label, tree in (("other", other), ("this", HERE))}
     for label, c in counts.items():
         print(f"diag counts {label}: {json.dumps(c)}")
     same = {k: counts["other"][k] == counts["this"][k] for k in counts["this"] if k.startswith("noise_bump")}
     papr_gap = abs(counts["other"]["wf_512sc"]["papr_db"] - counts["this"]["wf_512sc"]["papr_db"])
+    # the route and BER exactly; papr_db's PAPR sum is a double atomicAdd whose
+    # last digits follow the blocks' order, so within 1e-9 dB
+    wide_same = {k: counts["other"]["wide"][k]["mode"] == v["mode"]
+                 and counts["other"]["wide"][k]["bit_error_rate"] == v["bit_error_rate"]
+                 and abs(counts["other"]["wide"][k]["papr_db"] - v["papr_db"]) < 1e-9
+                 for k, v in counts["this"]["wide"].items()}
+    print(f"wide dense counts equal in both trees (route, BER; papr_db within 1e-9 dB): {json.dumps(wide_same)}")
     print(f"diag counts: noise-bump points equal {json.dumps(same)}; wf_512sc BER equal "
           f"{counts['other']['wf_512sc']['bit_error_rate'] == counts['this']['wf_512sc']['bit_error_rate']}, "
           f"papr_db gap {papr_gap:.6f} dB")
@@ -331,6 +448,8 @@ def main(argv):
     result = {"card": card, "qam_entry_points": common, "registers_moved": moved, "diag_counts": counts,
               "noise_bump_points_equal": same, "wf_512sc_papr_db_gap": papr_gap,
               "staged_qam_entry_points": staged_common, "staged_registers_moved": staged_moved,
+              "registers_moved_outside_wide_dense": outside, "wide_counts_equal": wide_same,
+              "wide_static_barriers": barriers,
               "build_s": {k: v["build_s"] for k, v in builds.items()}, "timings": timings}
     print(json.dumps(result))
     return 0
