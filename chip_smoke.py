@@ -109,6 +109,7 @@ MAIN_SEED = 0
 CHECK_SYMBOLS = 1 << 14
 NOISE_SHAPE = (1 << 15, 128)
 NOISE_SEEDS = (987654321, 123456789)  # bench.py's moment-gate seeds
+BOXMULLER_COUNTS = ((4194301,), (5,))  # K2's scalar tail: 1 element past the quads; 1 quad and 1 element
 # One operation per lane per clock: 132 SMs x 128 fp32 lanes x 1.98 GHz,
 # half the 67 TFLOP/s float32 rate, which counts an FMA as two (H100 SXM
 # data sheet).  bytes: 3.35 TB/s HBM3.
@@ -3068,9 +3069,14 @@ def adaptive_scfde_path(card, device):
 
 # The links K3 (the carry probe) is held on: its chunk's carry row, its plain
 # version, and the carry-in, at sym0 = 0 and sym0 > 2^32.  Each chain in qam
-# and in the codec's other modes, and with apply_power.
+# and in the codec's other modes, and with apply_power; fold and mm also at
+# each other width their chunk kernels compile for (bins a lane 1, 3-8: the
+# fold and mm chunk checks' links).
 PROBE_SYM0 = (0, (1 << 32) + 77)
 PROBE_TIMED_LAUNCHES = 1000
+PROBE_FOLD_WIDTHS = ("scfde_32sc", "ofdm_short_cp_96sc", "scfde_mmse_128sc", "scfde_160sc", "scfde_192sc",
+                     "scfde_224sc", "scfde_256sc")
+PROBE_MM_WIDTHS = ("zp_32sc", "zp_96sc", "scfde_zp_160sc", "flat_zp_256sc", "scfde_zp_256sc")
 
 
 def probe_links():
@@ -3093,6 +3099,9 @@ def probe_links():
         "psk8_zp1.0_64": codec("psk8_zp1.0_64"),
         "adapt_psk_wf_zp1.0_64": codec("adapt_psk_wf_zp1.0_64"),
         "wf_zp_64sc": ("mm", zp_cfg(MAIN_SYMBOLS, MAIN_CHUNK, **_WF)),
+        **{f"fold_{name}": ("fold", scfde_cfg(MAIN_SYMBOLS, MAIN_CHUNK, **FOLD_LINKS[name]))
+           for name in PROBE_FOLD_WIDTHS},
+        **{f"mm_{name}": ("mm", zp_cfg(MAIN_SYMBOLS, MAIN_CHUNK, **MM_LINKS[name])) for name in PROBE_MM_WIDTHS},
     }
 
 
@@ -3125,7 +3134,9 @@ def probe_check(name, chain, cfg, device):
     own predecessor's tail (K3 of the one-symbol chunk before it; zeros at
     sym0 = 0) counts exactly what it counts without it; at sym0 > 2^32 the
     chunk given a foreign tail counts what its plain version counts with
-    it.  Returns the largest difference (0 when bit-equal)."""
+    it.  Each call's four outputs are views of one new buffer: a second
+    probe leaves the first one's outputs as they were.  Returns the largest
+    difference (0 when bit-equal)."""
     import torch
 
     from ofdm_tpu_torch.ops import link_kernel as lk
@@ -3152,6 +3163,15 @@ def probe_check(name, chain, cfg, device):
             raise AssertionError(f"{name} sym0={sym0}: K3 and its plain version differ (max {diff})")
         if not (torch.equal(got[0], cr) and torch.equal(got[1], ci)):
             raise AssertionError(f"{name} sym0={sym0}: K3's row differs from the chunk kernel's carry row")
+        first = probe(link, key, sym0, MAIN_CHUNK, rows)
+        kept = [t.clone() for t in first]
+        second = probe(link, prng.fold_in(key, 7), sym0 + 1, MAIN_CHUNK, rows)
+        torch.cuda.synchronize()
+        base = first[0].untyped_storage().data_ptr()
+        if (any(t.untyped_storage().data_ptr() != base for t in first)
+                or second[0].untyped_storage().data_ptr() == base
+                or not all(torch.equal(a, b) for a, b in zip(first, kept))):
+            raise AssertionError(f"{name} sym0={sym0}: K3's outputs are not views of one new buffer a call")
         if sym0 == 0:
             own = tuple(torch.zeros(link.E, dtype=torch.float32, device=device) for _ in range(2))
         else:
@@ -3161,7 +3181,8 @@ def probe_check(name, chain, cfg, device):
             raise AssertionError(f"{name} sym0={sym0}: the chunk given its own predecessor's tail counts "
                                  f"{pb}/{ps}, without it {be}/{se}")
         line = (f"K3 {name} ({chain}, {link.q.mode}, E={link.E}, apply_power={link.apply_power}) sym0={sym0}: "
-                f"probe = plain = carry row (bit-equal); chunk {be}/{se} with and without its own carry-in")
+                f"probe = plain = carry row (bit-equal), one new buffer a call; chunk {be}/{se} with and without its "
+                f"own carry-in")
         if sym0 > 0:
             foreign = tuple(probe(link, prng.fold_in(key, 99), 12345, 1, rows)[2:])
             fb, fs, _, _ = chunk_counts(kernel, link, key, sym0, MAIN_CHUNK, snr_lin, device, rows, prev=foreign)
@@ -3179,7 +3200,9 @@ def probe_entries(card, device, err):
     (scfde_default, lr_1024sc_zp, zp_64sc) at the 2^17-symbol chunk, the
     mean of PROBE_TIMED_LAUNCHES launches by CUDA events, beside its plain
     version and its bound (one symbol: Philox and encode a bin, the TX
-    product's needed terms; bytes: the matrix read, the rows written)."""
+    product's needed terms; bytes: the matrix read, for fold and mm its
+    nonzero elements, which the one-block probes read as listed terms, and
+    the rows written)."""
     from ofdm_tpu_torch.ops import prng
     from ofdm_tpu_torch.pipeline import LinkRunner, prepare
 
@@ -3197,7 +3220,7 @@ def probe_entries(card, device, err):
         mats = (link.tail_r, link.tail_i) if chain == "lr" else (link.txr, link.txi)
         ops = link.n * (OPS_PER_BIN["philox"] + OPS_PER_BIN["encode"]) + product_ops(
             mats[0].T if chain == "lr" else mats[0], mats[1].T if chain == "lr" else mats[1])
-        nbytes = 8 * mats[0].numel() + 8 * (link.T + link.E)
+        nbytes = 8 * (mats[0].numel() if chain == "lr" else link.tx_terms.nonzero) + 8 * (link.T + link.E)
         bound = max(ops / PEAK_OPS, nbytes / PEAK_BYTES) * 1e3
         print(f"K3 {chain}_probe at {cfg.num_subcarriers} sc (T={link.T}, E={link.E}) [{card}]: kernel "
               f"{k_ms:.4f} ms a launch (mean of {PROBE_TIMED_LAUNCHES} by CUDA events: the wrapper's host time "
@@ -3651,11 +3674,17 @@ def main():
         raise AssertionError("Philox kernel and plain words differ")
     print("philox: 2^20 counters bit-equal")
 
-    # 3. boxmuller_sample: kernel vs plain, then the moment gate (its own path)
-    zk = lk.boxmuller_sample(*NOISE_SEEDS, NOISE_SHAPE, device)
-    zp = lk.boxmuller_sample_plain(*NOISE_SEEDS, NOISE_SHAPE, device)
-    bm_err = max(float((zk[0] - zp[0]).abs().max()), float((zk[1] - zp[1]).abs().max()))
-    print(f"boxmuller: kernel vs plain max abs diff {bm_err:.3e}")
+    # 3. boxmuller_sample: kernel vs plain (at the gate's shape, and at counts
+    # with a scalar tail of 1 element and of 1 quad and 1 element), then the
+    # moment gate (its own path)
+    bm_err = 0.0
+    for shape in (NOISE_SHAPE, *BOXMULLER_COUNTS):
+        zk = lk.boxmuller_sample(*NOISE_SEEDS, shape, device)
+        zp = lk.boxmuller_sample_plain(*NOISE_SEEDS, shape, device)
+        err = max(float((zk[0] - zp[0]).abs().max()), float((zk[1] - zp[1]).abs().max()))
+        geo = lk.boxmuller_geometry(zk[0].numel())
+        print(f"boxmuller at {shape}: kernel vs plain max abs diff {err:.3e} (launch {json.dumps(geo)})")
+        bm_err = max(bm_err, err)
     if bm_err > 1e-6:
         raise AssertionError(f"boxmuller kernel vs plain {bm_err}")
     lk.boxmuller_sample.launches = 0
@@ -3707,15 +3736,24 @@ def main():
     diag_ops = diag_operations(link, MAIN_CHUNK, OPS_PER_BIN)
     diag_bound = max(diag_ops / PEAK_OPS, (4 * 7 * link.n + papr_matrix_bytes(link) + 3 * 8) / PEAK_BYTES) * 1e3
     bk_ms = cuda_ms(lambda: lk.boxmuller_sample(*NOISE_SEEDS, NOISE_SHAPE, device), 20)
+    prof = profile_call(lambda: [lk.boxmuller_sample(*NOISE_SEEDS, NOISE_SHAPE, device) for _ in range(20)])
+    bk_dev_ms = None if prof is None else prof[0].get("ofdm_sampler::boxmuller_kernel", 0.0) / 20
     bp_ms = cuda_ms(lambda: lk.boxmuller_sample_plain(*NOISE_SEEDS, NOISE_SHAPE, device), 3)
     elems = NOISE_SHAPE[0] * NOISE_SHAPE[1]
     bm_ops = elems * (OPS_PER_BIN["philox"] + OPS_PER_BIN["noise"])
     bm_bytes = elems * 8
     bm_bound = max(bm_ops / PEAK_OPS, bm_bytes / PEAK_BYTES) * 1e3
+    # the pipe-aware bound from the static SASS: one pass of the quad loop a 4-element step
+    bm_sass = sass_counts(build.library_path("boxmuller"), {"boxmuller_kernel<>": lk.BOXMULLER_STEP})
+    bm_sass = bm_sass["boxmuller_kernel<>"]
+    bm_pipe_ms, bm_pipe_by = max(pipe_bound_ms(bm_sass["per_bin"], elems), (bm_bytes / PEAK_BYTES * 1e3, "bytes"))
     print(f"diag_chunk at {MAIN_CHUNK} symbols [{card}]: kernel {dk_ms:.4f} ms, plain {dp_ms:.3f} ms, "
           f"bound {diag_bound:.4f} ms ({diag_ops} operations)")
-    print(f"boxmuller_sample at {NOISE_SHAPE} [{card}]: kernel {bk_ms:.4f} ms, plain {bp_ms:.3f} ms, "
-          f"bound {bm_bound:.4f} ms")
+    print(f"boxmuller_sample at {NOISE_SHAPE} [{card}]: kernel {bk_ms:.4f} ms a call (CUDA events, 20 calls), "
+          f"device {bk_dev_ms} ms a launch (profiler, 20 launches), plain {bp_ms:.3f} ms, bound {bm_bound:.4f} ms "
+          f"(uniform), pipe-aware bound {bm_pipe_ms:.4f} ms ({bm_pipe_by}); geometry "
+          f"{json.dumps(lk.boxmuller_geometry(elems))}; static SASS of the quad loop a element "
+          f"{json.dumps(bm_sass['per_bin'])}, Philox calls a pass {bm_sass['philox']}")
     pipe_bounds = diag_layout(card, device, dk_ms)
 
     # 7. the SC-FDE default through the fold kernel
@@ -3783,9 +3821,9 @@ def main():
          "pipe_bound_by": pipe_bounds["headline"][1]},
         {"name": "boxmuller_sample", "route": "cuda", "source": "ofdm_tpu_torch/csrc/boxmuller.cu",
          "replaces": "ofdm_tpu/ops/pallas_link.py:597", "launches": bm_launches,
-         "max_abs_err": bm_err, "ms": bk_ms, "plain_ms": bp_ms, "bound_ms": bm_bound,
+         "max_abs_err": bm_err, "ms": bk_ms, "device_ms": bk_dev_ms, "plain_ms": bp_ms, "bound_ms": bm_bound,
          "bound_by": "operations" if bm_ops / PEAK_OPS >= bm_bytes / PEAK_BYTES else "bytes",
-         "library_ms": None},
+         "library_ms": None, "pipe_bound_ms": bm_pipe_ms, "pipe_bound_by": bm_pipe_by},
         fold,
         *lr,
         mm,

@@ -66,11 +66,13 @@ _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 _STAGES = [_P, _I, _P, _P, _P, _P, _I]
 # The carry-in of the fold, lr and mm chunks: the tail pair, or null.
 _PREV = [_P, _P]
-# K3's entry points (ofdm_{fold,lr,mm}_probe): the TX matrix pair, n, T, E,
-# the codec, the symbol, the key, rows and stage bits, the carry row pair,
-# the tail pair, the stream.
-_PROBE = ([_P] * 2 + [_I] * 9 + [_F] + [_P] * 2 + [ctypes.c_ulonglong] + [_U] * 2 + [_P, _I] + [_P] * 4
-          + [_P], _I)
+# K3's entry points (ofdm_{fold,lr,mm}_probe) after their matrix arguments:
+# n, T, E, the codec, the symbol, the key, rows and stage bits, the carry
+# row pair, the tail pair.  fold's and mm's take the listed TX terms (p,
+# idx, chunks) first and the stream last; lr's its tail factor pair first
+# and its row mask before the stream.
+_PROBE_ARGS = [_I] * 9 + [_F] + [_P] * 2 + [ctypes.c_ulonglong] + [_U] * 2 + [_P, _I] + [_P] * 4
+_PROBE = ([_P, _P, _I] + _PROBE_ARGS + [_P], _I)
 # The C entry points of each source's libraries with their (argtypes,
 # restype), set once when a library loads.
 # The wide fold and mm chunks (ofdm_{fold,mm}_wide_chunk): taps, twiddles and
@@ -119,7 +121,7 @@ SIGNATURES = {
             + [_I] * 5 + [_U] * 2 + [_P] * 5 + _STAGES + _PREV + [ctypes.c_ulonglong] * 5 + [_P],
             _I,
         ),
-        "ofdm_lr_probe": (_PROBE[0][:-1] + [ctypes.c_ulonglong, _P], _I),
+        "ofdm_lr_probe": ([_P] * 2 + _PROBE_ARGS + [ctypes.c_ulonglong, _P], _I),
         "ofdm_lr_geometry": ([_I] * 5 + [ctypes.POINTER(ctypes.c_int)], _I),
     },
     "mm_kernel": {
@@ -138,6 +140,8 @@ SIGNATURES = {
                        "ofdm_mm_wide_geometry": _WIDE_GEOMETRY},
     "boxmuller": {
         "ofdm_boxmuller": ([_P, _P, ctypes.c_longlong, _U, _U, _P], _I),
+        # ofdm_boxmuller's grid, block, step, registers, local bytes and blocks an SM
+        "ofdm_boxmuller_geometry": ([ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)], _I),
         "ofdm_philox": ([_P, ctypes.c_longlong] + [_U] * 4 + [_P], _I),
         "ofdm_philox_plane": ([_P, ctypes.c_longlong, _I, ctypes.c_ulonglong] + [_U] * 3 + [_P], _I),
         "ofdm_normal_pair": ([_P, _P, ctypes.c_longlong, _I, ctypes.c_ulonglong] + [_U] * 3 + [_P], _I),

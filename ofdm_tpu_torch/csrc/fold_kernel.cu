@@ -77,11 +77,15 @@
 //    plain build fold_main's read is a template variant (kPrev) chosen at
 //    launch, so a chunk without a carry-in runs the code it had.
 //  * The carry probe (fold_probe; pallas_link.py::_probe_fn_for_spec, K3):
-//    one warp computes a chunk's last symbol through link_common.cuh's
-//    symbol_tx over the dense F_tx,ext and writes its carry row x[0:T) and
-//    tail x[T:T+E), bit-equal to the chunk's carry and to the tail a
-//    following symbol reads (the listed terms are the dense product's
-//    nonzero terms in its order).
+//    one block computes a chunk's last symbol (group_product.cuh's
+//    probe_block): its threads encode the n bins into shared memory, then
+//    each computes its columns of x over the chunk's listed F_tx,ext terms
+//    in the chunk's order and writes the carry row x[0:T) and the tail
+//    x[T:T+E) coalesced, bit-equal to the chunk's carry and to the tail a
+//    following symbol reads.  Bound: one symbol's Philox and encode and
+//    the nonzero TX terms (none at SC-FDE, whose TX stage copies), so
+//    latency, not the card's rates: the block reads no dense matrix and
+//    launches no more threads than the columns need.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -98,8 +102,6 @@ constexpr int kPowerBlock = kPowerSteps * 256;  // slice elements per fold_power
 constexpr int kMaxN = 256;
 
 struct Link {
-  const float* txr;  // (n, T+E) F_tx,ext, row-major (the carry probe's)
-  const float* txi;
   ofdm::Terms tx;  // the chunk's listed terms: F_tx,ext (n -> T+E)
   ofdm::Terms cm;  // conv + guard strip + DFT (T+E -> n)
   ofdm::Terms id;  // SC-FDE IDFT (n -> n; unused for OFDM)
@@ -125,9 +127,6 @@ struct Link {
 };
 
 using ofdm::GroupBufs;
-using ofdm::WarpBufs;
-using ofdm::warp_bufs;
-using ofdm::warp_floats;
 
 // Matrix elements a lane of fold's products loads ahead: one a term up to
 // 64 subcarriers, where the matrices stay in L1 and the loads hit, 4 past
@@ -349,30 +348,18 @@ __global__ void __launch_bounds__(kThreads)
   ofdm::flush_block(be, se, pk, ps, acc, psum);
 }
 
-// K3: symbol `sym`'s carry row x[0:T) and tail x[T:T+E) through the chunk's
-// own TX stage (symbol_tx), one warp.
-template <int J, int kMode, bool kStaged>
-__global__ void __launch_bounds__(32)
+// K3: symbol `sym`'s carry row x[0:T) and tail x[T:T+E) over the chunk's
+// listed TX terms, one block (probe_block).
+template <int kMode, bool kStaged>
+__global__ void __launch_bounds__(ofdm::kProbeMaxThreads)
     fold_probe(Link L, unsigned long long sym, float* carry_r, float* carry_i, float* tail_r, float* tail_i) {
-  extern __shared__ float smem[];
-  const int lane = threadIdx.x;
-  const WarpBufs w = warp_bufs(L.n, L.T, L.E, smem);
-  float pk = 0.0f;
-  double ps = 0.0;
-  int tx[J];
-  uint32_t w1[J], w2[J];
-  ofdm::symbol_tx<J, kMode, kStaged>(L, w, sym, lane, false, pk, ps, carry_r, carry_i, tx, w1, w2);
-  for (int t = lane; t < L.E; t += 32) {
-    tail_r[t] = w.nr[t];
-    tail_i[t] = w.ni[t];
-  }
+  ofdm::probe_block<kMode, kStaged>(L, L.tx, sym, carry_r, carry_i, tail_r, tail_i);
 }
 
-template <int J, int kMode>
+template <int kMode>
 cudaError_t launch_probe(const Link& L, unsigned long long sym, float* cr, float* ci, float* tr, float* ti,
                          cudaStream_t stream) {
-  const size_t bytes = sizeof(float) * warp_floats(L.n, L.T, L.E);
-  fold_probe<J, kMode, ofdm::kStagedBuild><<<1, 32, bytes, stream>>>(L, sym, cr, ci, tr, ti);
+  fold_probe<kMode, ofdm::kStagedBuild><<<1, ofdm::probe_threads(L.T, L.E), 0, stream>>>(L, sym, cr, ci, tr, ti);
   return cudaGetLastError();
 }
 
@@ -553,23 +540,24 @@ int ofdm_fold_chunk(const float* tx_p, const int* tx_idx, int tx_chunks, const f
 }
 
 // K3, the carry probe: run symbol `sym`'s carry row x[0:T) (carry_r /
-// carry_i) and tail x[T:T+E) (tail_r / tail_i), through the chunk's TX
-// stage in mode `mode` (apply_power only: `rows` and the stage bits).  The
-// chunk of run symbols [sym0, sym0 + chunk) returns symbol sym0 + chunk -
-// 1's row as its carry.  Returns the launch's CUDA error, 0 if none.
-int ofdm_fold_probe(const float* txr, const float* txi, int n, int T, int E, int mode, int order, int m,
-                    int logm, int bits, int gray, float scale, const int* lane_i, const float* lane_f,
-                    unsigned long long sym, unsigned int key0, unsigned int key1, const float* rows,
-                    int stages, float* carry_r, float* carry_i, float* tail_r, float* tail_i,
+// carry_i) and tail x[T:T+E) (tail_r / tail_i), over the chunk's listed
+// F_tx,ext terms (tx_p, tx_idx, tx_chunks, as ofdm_fold_chunk takes them)
+// in mode `mode` (apply_power only: `rows` and the stage bits).  The chunk
+// of run symbols [sym0, sym0 + chunk) returns symbol sym0 + chunk - 1's row
+// as its carry.  Returns the launch's CUDA error, 0 if none.
+int ofdm_fold_probe(const float* tx_p, const int* tx_idx, int tx_chunks, int n, int T, int E, int mode,
+                    int order, int m, int logm, int bits, int gray, float scale, const int* lane_i,
+                    const float* lane_f, unsigned long long sym, unsigned int key0, unsigned int key1,
+                    const float* rows, int stages, float* carry_r, float* carry_i, float* tail_r, float* tail_i,
                     void* stream_ptr) {
   if (n < 1 || n > kMaxN || T < n || E < 0 || E > T || (stages & ~ofdm::kStagePower) ||
+      tx_p == nullptr || tx_idx == nullptr || tx_chunks != (T + E + 31) / 32 ||
       !ofdm::stage_args_ok(rows, stages, nullptr, nullptr, nullptr, nullptr, 0, false) ||
       (ofdm::adaptive(mode) && (lane_i == nullptr || lane_f == nullptr))) {
     return cudaErrorInvalidValue;
   }
   Link L{};
-  L.txr = txr;
-  L.txi = txi;
+  L.tx = ofdm::make_terms(tx_p, tx_idx, tx_chunks);
   L.n = n;
   L.T = T;
   L.E = E;
@@ -579,10 +567,7 @@ int ofdm_fold_probe(const float* txr, const float* txi, int n, int T, int E, int
   L.st = ofdm::make_stages(rows, stages, nullptr, nullptr, nullptr, nullptr, 0);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   return static_cast<int>(ofdm::with_mode(mode, [&](auto md) {
-    return with_width(n, [&](auto jw) {
-      return launch_probe<decltype(jw)::value, decltype(md)::value>(L, sym, carry_r, carry_i, tail_r, tail_i,
-                                                                     stream);
-    });
+    return launch_probe<decltype(md)::value>(L, sym, carry_r, carry_i, tail_r, tail_i, stream);
   }));
 }
 

@@ -170,6 +170,157 @@ __device__ __forceinline__ float2 column_dot(const float2* v, int stride, const 
   return make_float2(xr, xi);
 }
 
+// --- K3, the carry probe of the narrow fold and mm chains ---------------------------
+//
+// One block computes run symbol `sym`'s x = s @ F_tx,ext: its threads
+// encode the n bins into shared memory (the Philox words at (sym, k),
+// encode, x sqrt(P) under apply_power: the functions encode_group runs),
+// then thread t computes columns t, t + blockDim.x, ... of x over the
+// chunk's listed terms, column_dot's terms in its order, so column c < T
+// is bit-equal to the chunk's carry row and column T <= c < T+E to the
+// tail the next symbol reads.  Neighbouring threads write neighbouring
+// columns.
+//
+// A column's terms are one chain of dependent adds (a dense column's up to
+// 256), so what can overlap are its loads, each a round trip of ~0.5 us
+// for a lone block on an H100: a thread loads a segment's matrix elements
+// kProbeBatch at a time, and loads its first column's first batch (with
+// the indices that locate it) before the bins are encoded, which hides
+// one round trip behind the Philox draws.  Loads past a segment's trip are
+// predicated off and their terms use a zero element and the segment's last
+// input: a +-0 term, which leaves a sum begun at +0 unchanged (it is never
+// -0 under round-to-nearest), as group_product.cuh's packed zeros do.
+
+constexpr int kProbeMaxN = 256;
+constexpr int kProbeMaxThreads = 256;
+constexpr int kProbeBatch = 32;
+
+// Threads of a probe's block: 128 while the symbol's T+E columns (and so
+// its n <= T bins) fit one a thread, so the product runs as one pass of
+// four warps; past that 256, at most three columns a thread of the narrow
+// chains' widest symbol (T+E <= 640).
+__host__ __device__ constexpr int probe_threads(int T, int E) { return T + E <= 128 ? 128 : kProbeMaxThreads; }
+
+// Where column c's terms start: its chunk's segments [q, q1) and the first
+// one's packed row r0, trip and the lane's first input row lo (q == q1: a
+// column without terms; c past the matrix: none either).
+struct ProbeHead {
+  int q, q1, r0, trip, lo;
+};
+
+__device__ __forceinline__ ProbeHead probe_head(const Terms& m, int c, int cols) {
+  ProbeHead h{0, 0, 0, 0, 0};
+  if (c < cols) {
+    h.q = __ldg(m.seg + (c >> 5));
+    h.q1 = __ldg(m.seg + (c >> 5) + 1);
+    if (h.q < h.q1) {
+      h.r0 = __ldg(terms_off(m) + h.q);
+      h.trip = __ldg(terms_off(m) + h.q + 1) - h.r0;
+      h.lo = __ldg(terms_lo(m) + 32 * h.q + (c & 31));
+    }
+  }
+  return h;
+}
+
+// The first kProbeBatch elements of column c's first segment (zero past its trip).
+__device__ __forceinline__ void probe_first(const Terms& m, int c, const ProbeHead& h, float2 (&w)[kProbeBatch]) {
+  const float2* p = m.p + 32 * h.r0 + (c & 31);
+#pragma unroll
+  for (int d = 0; d < kProbeBatch; ++d) w[d] = d < h.trip ? __ldg(p + 32 * d) : make_float2(0.0f, 0.0f);
+}
+
+// The terms i0 ... trip - 1 of a segment (inputs a[i], elements p[32 i]):
+// batches of kProbeBatch, then of 4 with the last one's tail predicated off.
+__device__ __forceinline__ void probe_segment(const float2* a, const float2* p, int trip, int i0, float& xr,
+                                              float& xi) {
+  for (; i0 + kProbeBatch <= trip; i0 += kProbeBatch) {
+    float2 w[kProbeBatch];
+#pragma unroll
+    for (int d = 0; d < kProbeBatch; ++d) w[d] = __ldg(p + 32 * (i0 + d));
+#pragma unroll
+    for (int d = 0; d < kProbeBatch; ++d) {
+      const float2 x = a[i0 + d];
+      xr = xr + (x.x * w[d].x - x.y * w[d].y);
+      xi = xi + (x.x * w[d].y + x.y * w[d].x);
+    }
+  }
+  for (; i0 < trip; i0 += 4) {
+    float2 w[4], x[4];
+#pragma unroll
+    for (int d = 0; d < 4; ++d) {
+      const bool in = i0 + d < trip;
+      w[d] = in ? __ldg(p + 32 * (i0 + d)) : make_float2(0.0f, 0.0f);
+      x[d] = a[in ? i0 + d : trip - 1];
+    }
+#pragma unroll
+    for (int d = 0; d < 4; ++d) {
+      xr = xr + (x[d].x * w[d].x - x[d].y * w[d].y);
+      xi = xi + (x[d].x * w[d].y + x[d].y * w[d].x);
+    }
+  }
+}
+
+// Column c of x = s @ M from its head and its first batch w.
+__device__ __forceinline__ float2 probe_column(const float2* s, const Terms& m, int c, const ProbeHead& h,
+                                               const float2 (&w)[kProbeBatch]) {
+  float xr = 0.0f, xi = 0.0f;
+  if (h.q < h.q1) {
+    const float2* a = s + h.lo;
+    const int n0 = h.trip < kProbeBatch ? h.trip : kProbeBatch;
+#pragma unroll
+    for (int d0 = 0; d0 < kProbeBatch; d0 += 4) {
+      if (d0 < n0) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 x = a[d0 + e < h.trip ? d0 + e : h.trip - 1];
+          xr = xr + (x.x * w[d0 + e].x - x.y * w[d0 + e].y);
+          xi = xi + (x.x * w[d0 + e].y + x.y * w[d0 + e].x);
+        }
+      }
+    }
+    const int l = c & 31;
+    probe_segment(a, m.p + 32 * h.r0 + l, h.trip, kProbeBatch, xr, xi);
+    for (int q = h.q + 1; q < h.q1; ++q) {
+      const int r0 = __ldg(terms_off(m) + q);
+      probe_segment(s + __ldg(terms_lo(m) + 32 * q + l), m.p + 32 * r0 + l, __ldg(terms_off(m) + q + 1) - r0, 0,
+                    xr, xi);
+    }
+  }
+  return make_float2(xr, xi);
+}
+
+template <int kMode, bool kStaged, class Link>
+__device__ __forceinline__ void probe_block(const Link& L, const Terms& tx, unsigned long long sym, float* carry_r,
+                                            float* carry_i, float* tail_r, float* tail_i) {
+  __shared__ float2 sb[kProbeMaxN];
+  const int cols = L.T + L.E;
+  ProbeHead h = probe_head(tx, threadIdx.x, cols);
+  float2 w[kProbeBatch];
+  probe_first(tx, threadIdx.x, h, w);
+  for (int k = threadIdx.x; k < L.n; k += blockDim.x) {
+    const uint4 wd = symbol_words(sym, k, L.key);
+    float sr, si;
+    encode<kMode>(wd.x, L.q, L.lanes, k, sr, si);
+    scale_tx<kStaged>(L, k, sr, si);
+    sb[k] = make_float2(sr, si);
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < cols; c += blockDim.x) {
+    if (c != static_cast<int>(threadIdx.x)) {
+      h = probe_head(tx, c, cols);
+      probe_first(tx, c, h, w);
+    }
+    const float2 x = probe_column(sb, tx, c, h, w);
+    if (c < L.T) {
+      carry_r[c] = x.x;
+      carry_i[c] = x.y;
+    } else {
+      tail_r[c - L.T] = x.x;
+      tail_i[c - L.T] = x.y;
+    }
+  }
+}
+
 // A warp's group buffers (float2): act [T+E][S] = the group's x[0:T) and
 // in rows T ... T+E-1 each symbol's predecessor tail; sb [n][S] the group's
 // points, then a product's outputs; nt [E] the tail of the group's last

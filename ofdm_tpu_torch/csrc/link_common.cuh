@@ -4,7 +4,7 @@
 // on the cos/sin lattice with the rotation-search sector decision, and their
 // per-subcarrier adaptive forms), the per-bin steps the chunk
 // kernels run (tile sigma, noise, equalizer, error count, the block's
-// counter flush), the TX stage and products of the dense ones (fold, mm),
+// counter flush), a dense product column (the diag kernel's in-run PAPR),
 // and the _Spec stages (TX sqrt(P), post-EQ noise, 1/sqrt(P), per-tile
 // unit power) with their normalization reduction.
 //
@@ -685,37 +685,7 @@ __device__ __forceinline__ float warp_energy(const float (&er)[J], const float (
   return p;
 }
 
-// --- the TX stage of the dense chunk kernels (fold, mm) ---------------------------
-//
-// A warp holds one symbol.  `Link` is the kernel's own link struct; these
-// functions read its txr / txi ((n, T+E) F_tx,ext, row-major), n, T, E, q,
-// lanes and key, and encode in mode kMode.
-
-// A warp's shared buffers: s (n complex), act = [x[0:T) | previous tail]
-// (T+E complex), the next tail (E complex).
-struct WarpBufs {
-  float* sr;
-  float* si;
-  float* ar;
-  float* ai;
-  float* nr;
-  float* ni;
-};
-
-__host__ __device__ __forceinline__ int warp_floats(int n, int T, int E) {
-  return 2 * (n + T + E + E);
-}
-
-__device__ __forceinline__ WarpBufs warp_bufs(int n, int T, int E, float* base) {
-  WarpBufs w;
-  w.sr = base;
-  w.si = w.sr + n;
-  w.ar = w.si + n;
-  w.ai = w.ar + T + E;
-  w.nr = w.ai + T + E;
-  w.ni = w.nr + E;
-  return w;
-}
+// --- a dense product column (the diag kernel's in-run PAPR: papr_columns) ----------
 
 // out[t] = sum_k v[k] * M[k, t] over k < rows, k ascending (M row-major, `cols` wide).
 __device__ __forceinline__ void cdot(const float* vr, const float* vi, const float* mr,
@@ -732,134 +702,6 @@ __device__ __forceinline__ void cdot(const float* vr, const float* vi, const flo
   }
   outr = xr;
   outi = xi;
-}
-
-// out[j] = sum_r v[r] * M[r, lane + 32 j] over r < rows, r ascending, for the
-// lane's columns below `cols` (M row-major, `cols` wide; zero elsewhere).
-// Neighbouring lanes read neighbouring words of a row.
-template <int J>
-__device__ __forceinline__ void row_product(const float* vr, const float* vi, const float* mr,
-                                            const float* mi, int rows, int cols, int lane,
-                                            float (&outr)[J], float (&outi)[J]) {
-#pragma unroll
-  for (int j = 0; j < J; ++j) {
-    outr[j] = 0.0f;
-    outi[j] = 0.0f;
-  }
-  for (int r = 0; r < rows; ++r) {
-    const float a = vr[r];
-    const float c = vi[r];
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
-      const int k = lane + 32 * j;
-      if (k < cols) {
-        const float m_r = __ldg(mr + r * cols + k);
-        const float m_i = __ldg(mi + r * cols + k);
-        outr[j] = outr[j] + (a * m_r - c * m_i);
-        outi[j] = outi[j] + (a * m_i + c * m_r);
-      }
-    }
-  }
-}
-
-// act[T:T+E) <- symbol (run index) `sym - 1`'s tail, or zeros for the run's
-// first symbol: encode (and scale, under apply_power), then the same
-// k-ascending product over the same F_tx,ext columns, so it is bit-equal to
-// the tail a carry would hold.  With kPrev, the chunk's first symbol reads
-// the caller's tail instead when the Link carries one (prev_r / prev_i: the
-// carry-in of a sharded contiguous stream, whose predecessor another shard
-// computed); a kernel instantiated without it never reads one.  Leaves the
-// warp synchronized.
-template <int kMode, bool kStaged, bool kPrev = true, class Link>
-__device__ void prev_tail(const Link& L, const WarpBufs& w, unsigned long long sym, int lane) {
-  const int TE = L.T + L.E;
-  if (L.E == 0) return;
-  if (kPrev && L.prev_r != nullptr && sym == L.sym0) {
-    for (int t = lane; t < L.E; t += 32) {
-      w.ar[L.T + t] = L.prev_r[t];
-      w.ai[L.T + t] = L.prev_i[t];
-    }
-    __syncwarp();
-    return;
-  }
-  if (sym == 0) {
-    for (int t = L.T + lane; t < TE; t += 32) {
-      w.ar[t] = 0.0f;
-      w.ai[t] = 0.0f;
-    }
-    __syncwarp();
-    return;
-  }
-  for (int k = lane; k < L.n; k += 32) {
-    const uint4 wd = symbol_words(sym - 1, k, L.key);
-    encode<kMode>(wd.x, L.q, L.lanes, k, w.sr[k], w.si[k]);
-    scale_tx<kStaged>(L, k, w.sr[k], w.si[k]);
-  }
-  __syncwarp();
-  for (int t = L.T + lane; t < TE; t += 32) cdot(w.sr, w.si, L.txr, L.txi, L.n, TE, t, w.ar[t], w.ai[t]);
-  __syncwarp();
-}
-
-// One symbol's TX stage.  Encodes symbol `sym` into s (scaled under
-// apply_power; and tx/w1/w2 for the lane's bins k = lane + 32 j < n),
-// computes x = s @ F_tx,ext into act[0:T) and the next tail, folds x[0:T)
-// into the PAPR stats when `papr`, writes it to the carry row when
-// `carry_r` is set.  Leaves the warp synchronized, act = [x[0:T) | previous
-// tail] ready for the channel product.
-template <int J, int kMode, bool kStaged, class Link>
-__device__ __forceinline__ void symbol_tx(const Link& L, const WarpBufs& w, unsigned long long sym,
-                                          int lane, bool papr, float& pk, double& ps,
-                                          float* carry_r, float* carry_i, int (&tx)[J],
-                                          uint32_t (&w1)[J], uint32_t (&w2)[J]) {
-  const int TE = L.T + L.E;
-#pragma unroll
-  for (int j = 0; j < J; ++j) {
-    const int k = lane + 32 * j;
-    tx[j] = 0;
-    w1[j] = 0u;
-    w2[j] = 0u;
-    if (k < L.n) {
-      const uint4 wd = symbol_words(sym, k, L.key);
-      tx[j] = encode<kMode>(wd.x, L.q, L.lanes, k, w.sr[k], w.si[k]);
-      scale_tx<kStaged>(L, k, w.sr[k], w.si[k]);
-      w1[j] = wd.y;
-      w2[j] = wd.z;
-    }
-  }
-  __syncwarp();
-  for (int t = lane; t < TE; t += 32) {
-    float xr, xi;
-    cdot(w.sr, w.si, L.txr, L.txi, L.n, TE, t, xr, xi);
-    if (t < L.T) {
-      w.ar[t] = xr;
-      w.ai[t] = xi;
-      if (papr) {
-        const float pw = xr * xr + xi * xi;
-        pk = fmaxf(pk, pw);
-        ps += static_cast<double>(pw);
-      }
-      if (carry_r != nullptr) {
-        carry_r[t] = xr;
-        carry_i[t] = xi;
-      }
-    } else {
-      w.nr[t - L.T] = xr;
-      w.ni[t - L.T] = xi;
-    }
-  }
-  __syncwarp();
-}
-
-// After the channel product has read act: act[T:T+E) <- this symbol's tail,
-// for the next symbol.  Synchronizes before and after.
-template <class Link>
-__device__ __forceinline__ void shift_tail(const Link& L, const WarpBufs& w, int lane) {
-  __syncwarp();
-  for (int t = L.T + lane; t < L.T + L.E; t += 32) {
-    w.ar[t] = w.nr[t - L.T];
-    w.ai[t] = w.ni[t - L.T];
-  }
-  __syncwarp();
 }
 
 // Block sum of red[0..N) by a halving tree (red is overwritten); every

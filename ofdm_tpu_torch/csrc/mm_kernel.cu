@@ -72,10 +72,13 @@
 //    symbol reads it in mm_front instead of recomputing its predecessor
 //    (mm_main reads y and recomputes no tail).
 //  * The carry probe (mm_probe; pallas_link.py::_probe_fn_for_spec, K3):
-//    one warp computes a chunk's last symbol through link_common.cuh's
-//    symbol_tx over the dense F_tx,ext and writes its carry row x[0:T) and
-//    tail x[T:T+E), bit-equal to the chunk's (the listed terms are the dense
-//    product's nonzero terms in its order).
+//    one block computes a chunk's last symbol (group_product.cuh's
+//    probe_block): its threads encode the n bins into shared memory, then
+//    each computes its columns of x over the chunk's listed F_tx,ext terms
+//    in the chunk's order (the zero guard runs none) and writes the carry
+//    row x[0:T) and the tail x[T:T+E) coalesced, bit-equal to the chunk's.
+//    Bound: one symbol's Philox, encode and nonzero TX terms, so latency,
+//    not the card's rates: the block reads no dense matrix.
 
 #include <climits>
 #include <cstdint>
@@ -95,8 +98,6 @@ constexpr int kMaxN = 256;
 constexpr int kMaxT = 320;
 
 struct Link {
-  const float* txr;  // (n, T+E) F_tx,ext, row-major (the carry probe's)
-  const float* txi;
   ofdm::Terms tx;  // the chunk's listed terms: F_tx,ext (n -> T+E)
   ofdm::Terms cv;  // merged conv (T+E -> T)
   ofdm::Terms rx;  // overlap-add + DFT (T -> n)
@@ -373,37 +374,18 @@ __global__ void __launch_bounds__(kThreads)
   ofdm::flush_block(be, se, 0.0f, 0.0, acc, psum);
 }
 
-// K3: symbol `sym`'s carry row x[0:T) and tail x[T:T+E) through the chunk's
-// own TX stage (symbol_tx), one warp.
-template <int J, int kMode, bool kStaged>
-__global__ void __launch_bounds__(32)
+// K3: symbol `sym`'s carry row x[0:T) and tail x[T:T+E) over the chunk's
+// listed TX terms, one block (probe_block).
+template <int kMode, bool kStaged>
+__global__ void __launch_bounds__(ofdm::kProbeMaxThreads)
     mm_probe(Link L, unsigned long long sym, float* carry_r, float* carry_i, float* tail_r, float* tail_i) {
-  extern __shared__ float smem[];
-  const int lane = threadIdx.x;
-  const ofdm::WarpBufs w = ofdm::warp_bufs(L.n, L.T, L.E, smem);
-  float pk = 0.0f;
-  double ps = 0.0;
-  int tx[J];
-  uint32_t w1[J], w2[J];
-  ofdm::symbol_tx<J, kMode, kStaged>(L, w, sym, lane, false, pk, ps, carry_r, carry_i, tx, w1, w2);
-  for (int t = lane; t < L.E; t += 32) {
-    tail_r[t] = w.nr[t];
-    tail_i[t] = w.ni[t];
-  }
+  ofdm::probe_block<kMode, kStaged>(L, L.tx, sym, carry_r, carry_i, tail_r, tail_i);
 }
 
 template <int kMode>
 cudaError_t probe_mode(const Link& L, unsigned long long sym, float* cr, float* ci, float* tr, float* ti,
                        cudaStream_t stream) {
-  const size_t bytes = sizeof(float) * ofdm::warp_floats(L.n, L.T, L.E);
-  constexpr bool kS = ofdm::kStagedBuild;
-  switch ((L.n + 31) / 32) {
-    case 1: mm_probe<1, kMode, kS><<<1, 32, bytes, stream>>>(L, sym, cr, ci, tr, ti); break;
-    case 2: mm_probe<2, kMode, kS><<<1, 32, bytes, stream>>>(L, sym, cr, ci, tr, ti); break;
-    case 3: mm_probe<3, kMode, kS><<<1, 32, bytes, stream>>>(L, sym, cr, ci, tr, ti); break;
-    case 4: mm_probe<4, kMode, kS><<<1, 32, bytes, stream>>>(L, sym, cr, ci, tr, ti); break;
-    default: mm_probe<8, kMode, kS><<<1, 32, bytes, stream>>>(L, sym, cr, ci, tr, ti); break;
-  }
+  mm_probe<kMode, ofdm::kStagedBuild><<<1, ofdm::probe_threads(L.T, L.E), 0, stream>>>(L, sym, cr, ci, tr, ti);
   return cudaGetLastError();
 }
 
@@ -574,23 +556,24 @@ int ofdm_mm_chunk(const float* tx_p, const int* tx_idx, int tx_chunks, const flo
 }
 
 // K3, the carry probe: run symbol `sym`'s carry row x[0:T) (carry_r /
-// carry_i) and tail x[T:T+E) (tail_r / tail_i), through the chunk's TX
-// stage in mode `mode` (apply_power only: `rows` and the stage bits).  The
-// chunk of run symbols [sym0, sym0 + chunk) returns symbol sym0 + chunk -
-// 1's row as its carry.  Returns the launch's CUDA error, 0 if none.
-int ofdm_mm_probe(const float* txr, const float* txi, int n, int T, int E, int mode, int order, int m,
-                  int logm, int bits, int gray, float scale, const int* lane_i, const float* lane_f,
+// carry_i) and tail x[T:T+E) (tail_r / tail_i), over the chunk's listed
+// F_tx,ext terms (tx_p, tx_idx, tx_chunks, as ofdm_mm_chunk takes them) in
+// mode `mode` (apply_power only: `rows` and the stage bits).  The chunk of
+// run symbols [sym0, sym0 + chunk) returns symbol sym0 + chunk - 1's row as
+// its carry.  Returns the launch's CUDA error, 0 if none.
+int ofdm_mm_probe(const float* tx_p, const int* tx_idx, int tx_chunks, int n, int T, int E, int mode, int order,
+                  int m, int logm, int bits, int gray, float scale, const int* lane_i, const float* lane_f,
                   unsigned long long sym, unsigned int key0, unsigned int key1, const float* rows,
                   int stages, float* carry_r, float* carry_i, float* tail_r, float* tail_i,
                   void* stream_ptr) {
   if (n < 1 || n > kMaxN || T < n || T > kMaxT || E < 0 || E > T || (stages & ~ofdm::kStagePower) ||
+      tx_p == nullptr || tx_idx == nullptr || tx_chunks != (T + E + 31) / 32 ||
       !ofdm::stage_args_ok(rows, stages, nullptr, nullptr, nullptr, nullptr, 0, false) ||
       (ofdm::adaptive(mode) && (lane_i == nullptr || lane_f == nullptr))) {
     return cudaErrorInvalidValue;
   }
   Link L{};
-  L.txr = txr;
-  L.txi = txi;
+  L.tx = ofdm::make_terms(tx_p, tx_idx, tx_chunks);
   L.n = n;
   L.T = T;
   L.E = E;

@@ -21,7 +21,7 @@
 // other, so a symbol's TX waits for no reader of the previous one.  For its
 // first symbol a block recomputes symbol b-1's TX block from Philox (or
 // reads the carry-in of a sharded stream, or zeros for the run's symbol 0),
-// as the warp-per-symbol chains do (prev_tail).  The taps and the staged
+// as the narrow chains do (group_prev_tail, lr's prev_tail).  The taps and the staged
 // twiddles are loaded into shared memory once a block.
 //
 // Shared memory a block (float2 entries): two z buffers of E + T samples

@@ -1383,9 +1383,25 @@ def plain_prev(prev, E: int, device):
 
 
 def probe_outputs(T: int, E: int, device):
-    """(carry_r, carry_i, tail_r, tail_i): (T,) and (E,) f32 tensors for a probe."""
-    f32 = dict(dtype=torch.float32, device=device)
-    return torch.empty(T, **f32), torch.empty(T, **f32), torch.empty(E, **f32), torch.empty(E, **f32)
+    """(carry_r, carry_i, tail_r, tail_i): (T,) and (E,) f32 views of one
+    new (2T + 2E,) buffer for a probe.  Each call allocates anew: callers
+    keep a probe's tails past the next probe (a carry, a prev)."""
+    return torch.empty(2 * (T + E), dtype=torch.float32, device=device).split((T, T, E, E))
+
+
+def link_cached(link, name: str, make):
+    """``make()``, computed at the first call for ``link`` and kept in its
+    ``cache`` (a field that ``dataclasses.replace`` starts empty): what a
+    wrapper derives from the link alone, its checks passed once."""
+    got = link.cache.get(name)
+    if got is None:
+        got = link.cache[name] = make()
+    return got
+
+
+def probe_args(link) -> tuple:
+    """K3's link arguments after its matrix arguments: n, T, E and the codec."""
+    return (link.n, link.T, link.E, *codec_args(link.q))
 
 
 def probe_symbol_tx(link, key: Tuple[int, int], sym: int, words_n: int, rows, device, words=None):
@@ -1404,21 +1420,25 @@ def probe_symbol_tx(link, key: Tuple[int, int], sym: int, words_n: int, rows, de
     return sr, si
 
 
-def probe_launch(lib, fn: str, link, mats, key, sym: int, rows, device, extra=()):
+def probe_launch(lib, fn: str, link, head: tuple, key, sym: int, rows, device, extra=()):
     """Launch ``fn`` (``ofdm_{fold,lr,mm}_probe``) of ``lib`` for run symbol
-    ``sym`` of ``link`` with its TX matrix pair ``mats`` (and ``extra``, the
-    arguments after the outputs: lr's tail row mask); returns (carry_r,
-    carry_i, tail_r, tail_i)."""
+    ``sym`` of ``link``: ``head`` is the entry point's link arguments up to
+    the symbol (its matrix arguments, then ``probe_args``; built once a link,
+    ``link_cached``), ``extra`` the arguments after the outputs (lr's tail
+    row mask).  Returns (carry_r, carry_i, tail_r, tail_i), views of one new
+    buffer."""
     from ofdm_tpu_torch import build
 
     rows = stage_rows(link, rows, rows_needed(link))
-    out = probe_outputs(link.T, link.E, device)
+    T, E = link.T, link.E
+    out = probe_outputs(T, E, device)
+    base = out[0].data_ptr()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         code = getattr(lib, fn)(
-            mats[0].data_ptr(), mats[1].data_ptr(), link.n, link.T, link.E, *codec_args(link.q), sym,
-            key[0], key[1], None if rows is None else rows.data_ptr(), STAGE_POWER if link.apply_power else 0,
-            *(t.data_ptr() for t in out), *extra, stream)
+            *head, sym, key[0], key[1], None if rows is None else rows.data_ptr(),
+            STAGE_POWER if link.apply_power else 0, base, base + 4 * T, base + 8 * T, base + 8 * T + 4 * E,
+            *extra, stream)
     build.check(lib, code, fn)
     return out
 
@@ -1634,21 +1654,67 @@ def wide_geometry(chain: str, n: int, T: int, E: int, log2n: int, library: Optio
                              for i, k in enumerate(kernels)}}
 
 
+BOXMULLER_THREADS = 256  # ofdm_boxmuller's block (csrc/boxmuller.cu: kBmThreads)
+BOXMULLER_STEP = 4  # consecutive elements a thread takes a step, one float4 store a plane (kBmStep)
+BOXMULLER_GEOMETRY_KEYS = ("grid", "threads", "step", "registers", "local_bytes", "blocks_an_sm")
+
+
+def boxmuller_elements(seed0: int, seed1: int, i: torch.Tensor):
+    """(z0, z1) of elements ``i`` (an int64 tensor) of ``boxmuller_sample``:
+    words 1 and 2 of Philox counter (i lo, i hi, 0, 0)."""
+    key = (int(seed0) & prng.M32, int(seed1) & prng.M32)
+    zero = torch.zeros((), dtype=torch.int64, device=i.device)
+    _, w1, w2, _ = prng.philox4x32_10(i & prng.M32, i >> 32, zero, zero, key)
+    return box_muller(w1, w2)
+
+
 def boxmuller_sample_plain(seed0: int, seed1: int, shape, device="cpu"):
     """Plain version of ``boxmuller_sample``."""
     count = int(np.prod(shape))
-    key = (int(seed0) & prng.M32, int(seed1) & prng.M32)
-    i = torch.arange(count, dtype=torch.int64, device=device)
-    zero = torch.zeros((), dtype=torch.int64, device=device)
-    _, w1, w2, _ = prng.philox4x32_10(i & prng.M32, i >> 32, zero, zero, key)
-    z0, z1 = box_muller(w1, w2)
+    z0, z1 = boxmuller_elements(seed0, seed1, torch.arange(count, dtype=torch.int64, device=device))
     return z0.view(shape), z1.view(shape)
+
+
+def boxmuller_grid(count: int, resident: int) -> int:
+    """ofdm_boxmuller's blocks for ``count`` elements on a card that holds
+    ``resident`` of its blocks at once: its quads' blocks, at most one wave."""
+    want = -(-(count // BOXMULLER_STEP) // BOXMULLER_THREADS)
+    return max(1, min(want, resident))
+
+
+def boxmuller_cover(count: int, grid: int) -> np.ndarray:
+    """The element indices ofdm_boxmuller's threads write at ``grid`` blocks,
+    thread by thread and step by step, as its loop walks them: thread g of
+    the P = grid x BOXMULLER_THREADS takes quads q = g, g + P, ... below
+    count // 4 (elements 4q ... 4q + 3), then element 4 (count // 4) + g
+    when that is below count (the scalar tail)."""
+    P = grid * BOXMULLER_THREADS
+    quads = count // BOXMULLER_STEP
+    q = np.arange(P)[:, None] + P * np.arange(-(-quads // P))[None, :]
+    q = q[q < quads]
+    tail = BOXMULLER_STEP * quads + np.arange(P)
+    return np.concatenate([(BOXMULLER_STEP * q[:, None] + np.arange(BOXMULLER_STEP)).reshape(-1), tail[tail < count]])
+
+
+def boxmuller_geometry(count: int) -> dict:
+    """ofdm_boxmuller's launch for ``count`` elements on the current card, as
+    the loaded kernel reports it (csrc/boxmuller.cu::ofdm_boxmuller_geometry):
+    BOXMULLER_GEOMETRY_KEYS."""
+    import ctypes
+
+    from ofdm_tpu_torch import build
+
+    lib = build.load("boxmuller")
+    out = (ctypes.c_int * len(BOXMULLER_GEOMETRY_KEYS))()
+    build.check(lib, lib.ofdm_boxmuller_geometry(count, out), "ofdm_boxmuller_geometry")
+    return dict(zip(BOXMULLER_GEOMETRY_KEYS, out))
 
 
 def boxmuller_sample(seed0: int, seed1: int, shape, device="cuda"):
     """(z0, z1) N(0,1) f32 planes of ``shape`` from the link's exact noise
     chain (pallas_link.py::boxmuller_sample): the ``ofdm_boxmuller`` kernel
-    on a CUDA device, the plain version on the CPU."""
+    on a CUDA device (one wave, 4 elements a thread a step:
+    ``boxmuller_cover``), the plain version on the CPU."""
     device = torch.device(device)
     if device.type == "cpu":
         return boxmuller_sample_plain(seed0, seed1, shape, device)

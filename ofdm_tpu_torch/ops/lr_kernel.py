@@ -149,6 +149,9 @@ class LrLink:
     # noise of sigma rows[2], then x rows[1] (1/sqrt(P)).
     post_noise: bool = False
     compensate: bool = False
+    # What the wrappers derive from the link alone (link_kernel.link_cached):
+    # a new link, dataclasses.replace's too, starts it empty.
+    cache: dict = dataclasses.field(default_factory=dict, init=False, repr=False, compare=False)
 
 
 @functools.lru_cache(maxsize=16)
@@ -466,16 +469,22 @@ def lr_probe(link: LrLink, key: Tuple[int, int], sym0: int, chunk: int, rows=Non
     (csrc/lr_kernel.cu; one block of lr_main's shape through the chunk's
     encode and tail pass over ``tail_rows``, in the library the chunk runs
     from), counted in
-    ``lr_probe.launches``; CPU links run ``lr_probe_plain``."""
+    ``lr_probe.launches``; CPU links run ``lr_probe_plain``.  The link is
+    checked and its arguments built once (``link_kernel.link_cached``); the
+    four outputs are views of one new buffer a call."""
     dev = link.dr.device
     if dev.type == "cpu":
         return lr_probe_plain(link, key, sym0, chunk, rows)
-    _check_link(link, dev)
     from ofdm_tpu_torch import build
 
-    lib = build.load(lk.staged_library(link, None, "lr"))
-    out = lk.probe_launch(lib, "ofdm_lr_probe", link, (link.tail_r, link.tail_i), key, sym0 + chunk - 1, rows,
-                          dev, row_mask(link.tail_rows)[:1])
+    def head():
+        _check_link(link, dev)
+        return (build.load(lk.staged_library(link, None, "lr")),
+                (link.tail_r.data_ptr(), link.tail_i.data_ptr(), *lk.probe_args(link)),
+                tuple(row_mask(link.tail_rows)[:1]))
+
+    lib, args, mask = lk.link_cached(link, "probe", head)
+    out = lk.probe_launch(lib, "ofdm_lr_probe", link, args, key, sym0 + chunk - 1, rows, dev, mask)
     lr_probe.launches += 1
     return out
 

@@ -114,6 +114,9 @@ class MmLink:
     cv_terms: Optional[terms.Terms] = None
     rx_terms: Optional[terms.Terms] = None
     id_terms: Optional[terms.Terms] = None
+    # What the wrappers derive from the link alone (link_kernel.link_cached):
+    # a new link, dataclasses.replace's too, starts it empty.
+    cache: dict = dataclasses.field(default_factory=dict, init=False, repr=False, compare=False)
 
 
 def mm_link(setup, device) -> MmLink:
@@ -543,23 +546,30 @@ def mm_probe(link: MmLink, key: Tuple[int, int], sym0: int, chunk: int, rows=Non
     [sym0, sym0 + chunk) without running it: its last symbol's x[:T] (the
     carry row ``mm_chunk`` returns, bitwise) and x[T:T+E] (the tail the
     next symbol reads).  CUDA links launch ``mm_probe`` (csrc/mm_kernel.cu;
-    one warp through the chunk's TX stage, in the library the chunk runs
-    from), counted in ``mm_probe.launches``, a wide link ``mm_wide_probe``
-    (csrc/mm_wide_kernel.cu; one block), counted in
-    ``mm_probe.wide_launches``; CPU links run ``mm_probe_plain``."""
+    one block over the chunk's listed TX terms, in the library the chunk
+    runs from; the link checked and its arguments built once,
+    ``link_kernel.link_cached``), counted in ``mm_probe.launches``, a wide
+    link ``mm_wide_probe`` (csrc/mm_wide_kernel.cu; one block), counted in
+    ``mm_probe.wide_launches``; CPU links run ``mm_probe_plain``.  The four
+    outputs are views of one new buffer a call."""
     dev = link.hr.device
     if dev.type == "cpu":
         return mm_probe_plain(link, key, sym0, chunk, rows)
-    _check_link(link, dev)
     from ofdm_tpu_torch import build
 
     if is_wide(link):
+        _check_link(link, dev)
         lib = build.load(lk.staged_library(link, None, "mm_wide"))
         out = lk.wide_probe_launch(lib, "ofdm_mm_wide_probe", link, key, sym0 + chunk - 1, rows, dev)
         mm_probe.wide_launches += 1
         return out
-    lib = build.load(lk.staged_library(link, None, "mm"))
-    out = lk.probe_launch(lib, "ofdm_mm_probe", link, (link.txr, link.txi), key, sym0 + chunk - 1, rows, dev)
+
+    def head():
+        _check_link(link, dev)
+        return build.load(lk.staged_library(link, None, "mm")), (*link.tx_terms.args(), *lk.probe_args(link))
+
+    lib, args = lk.link_cached(link, "probe", head)
+    out = lk.probe_launch(lib, "ofdm_mm_probe", link, args, key, sym0 + chunk - 1, rows, dev)
     mm_probe.launches += 1
     return out
 

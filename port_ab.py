@@ -1,6 +1,6 @@
 """A/B of two trees of the port on one CUDA card: registers and chunk times.
 
-    python3 port_ab.py OTHER_TREE [--reps 3] [--lr-study | --slab-study | --bounds-study]
+    python3 port_ab.py OTHER_TREE [--reps 3] [--lr-study | --slab-study | --bounds-study | --sampler-study]
 
 OTHER_TREE is another checkout of this repository (for example the parent
 commit, unpacked with ``git archive`` into a directory that .gitignore
@@ -13,7 +13,11 @@ and the counts each tree's diag chain gives (the noise-bump campaigns at
 64 and 512 sc point by point, a waterfilling 512-sc run's BER and in-run
 papr_db) and each WIDE_COUNT_CELLS run gives on fold_wide and mm_wide
 (route, BER, papr_db), with the static block and warp barriers of both
-trees' wide dense kernels.  Then it times, at a 2^17-symbol chunk, the five qam cells'
+trees' wide dense kernels, and the samplers' outputs in both trees: a hash
+of K2's planes (ofdm_boxmuller at the moment gate's shape) and of K3's four
+outputs (fold_probe / mm_probe on each PROBE_CELLS link at two symbols),
+which must be equal, with the registers of K2's library and of the probes.
+Then it times, at a 2^17-symbol chunk, the five qam cells'
 chunk kernels (the headline link on diag, scfde_default on fold,
 wide_1024sc and lr_1024sc_zp on lr, zp_64sc on mm; the diag chain's
 adaptive_64sc (aqam), OFDM-CY1.0-512 and flat single-tap links at 1024,
@@ -37,8 +41,14 @@ chunks of the diag chains at 64 and 512 sc with the one-pass scratch
 capped at 2^22, 2^23, 2^24 and 2^26 bins a slab (a tree without the
 one-pass scratch reads "skip").  With ``--bounds-study`` it times
 BOUNDS_CELLS with fold_wide and mm_wide built at each BOUNDS minimum of
-resident blocks (``OFDM_WIDE_MIN_BLOCKS``), this tree only.  Prints one
-JSON object as its last line.
+resident blocks (``OFDM_WIDE_MIN_BLOCKS``), this tree only.  With
+``--sampler-study`` it builds and compares both trees' registers and
+sampler hashes as above, then times only the samplers in the four
+processes: K2's device time by CUDA events over back-to-back launches of
+its entry point on fixed planes, and through ``boxmuller_sample``; K3's
+device time by the profiler and its time through the wrapper by CUDA
+events, on scfde_default (fold) and zp_64sc (mm).  Prints one JSON object
+as its last line.
 """
 
 import json
@@ -138,6 +148,131 @@ LR_STUDY_STAGED = {
     "wf_wide_1024sc_papr1": (dict(WIDE, **_WF, papr_stride=128), False),
     "bump_study_1024sc_papr1": (dict(HEADLINE, **_NB, num_subcarriers=1024, papr_stride=128), True),
 }
+
+
+# The samplers: K2 at the moment gate's shape and seeds (chip_smoke.py's
+# NOISE_SHAPE / NOISE_SEEDS), K3 on fold and mm links at every width their
+# chunk kernels compile for, in qam, aqam and with apply_power, at two
+# symbols (run symbol 0's chunk and one past 2^32).
+NOISE_SHAPE = (1 << 15, 128)
+NOISE_SEEDS = (987654321, 123456789)
+PROBE_SYM0 = (0, (1 << 32) + 77)
+PROBE_CELLS = {
+    **{k: CELLS[k] for k in ("scfde_default", "zp_64sc")},
+    **{f"scfde_{n}sc": CELLS[f"scfde_{n}sc"] for n in (32, 96, 128, 160, 192, 224, 256)},
+    **{f"scfde_zp_{n}sc": CELLS[f"scfde_zp_{n}sc"] for n in (96, 128, 192, 256)},
+    "adaptive_scfde_64sc": dict(_ASC, num_subcarriers=64),
+    "wf_scfde_default": STAGED_CELLS["wf_scfde_default"][0],
+    "wf_zp_64sc": STAGED_CELLS["wf_zp_64sc"][0],
+}
+PROBE_TIMED = ("scfde_default", "zp_64sc")
+
+
+def _probe_of(runner):
+    """(K3 wrapper, rows) of a fold or mm runner: rows sqrt(P) under apply_power."""
+    import numpy as np
+    import torch
+
+    from ofdm_tpu_torch.ops import fold_kernel as fk
+    from ofdm_tpu_torch.ops import mm_kernel as mmk
+
+    probe = {"fold": fk.fold_probe, "mm": mmk.mm_probe}[runner.mode]
+    rows = None
+    if runner.link.apply_power:
+        rows = np.sqrt(runner.point_params(runner.setup.cfg.snr_db)[0])[None]
+        rows = torch.tensor(rows, dtype=torch.float32, device=runner.link.hr.device)
+    return probe, rows
+
+
+def sampler_hashes(dev):
+    """sha256 of K2's planes and of each PROBE_CELLS link's K3 outputs at
+    PROBE_SYM0 in this tree, with the route."""
+    import hashlib
+
+    import torch
+
+    from ofdm_tpu_torch.ops import link_kernel as lk
+    from ofdm_tpu_torch.ops import prng
+
+    def digest(ts):
+        torch.cuda.synchronize()
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()[:20]
+
+    out = {"boxmuller": digest(lk.boxmuller_sample(*NOISE_SEEDS, NOISE_SHAPE, dev))}
+    key = prng.key_words(0)
+    for name, kw in PROBE_CELLS.items():
+        runner = runner_for(kw, dev)
+        probe, rows = _probe_of(runner)
+        out[name] = [runner.mode, runner.link.q.mode] + [digest(probe(runner.link, key, s, CHUNK, rows))
+                                                        for s in PROBE_SYM0]
+    return out
+
+
+def device_ms(fn, name, launches):
+    """Mean device ms a launch of the kernel ``name`` over ``launches`` calls
+    of fn, from the profiler's kernel events (None when it records none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+    return None if len(spans) != launches else sum(spans) / launches / 1e3
+
+
+def sampler_times(dev, reps):
+    """K2's device time (CUDA events over 50 back-to-back launches of
+    ofdm_boxmuller on fixed planes: its host call is a few microseconds) and
+    its time through boxmuller_sample; K3's device time (profiler, 200
+    launches) and time through the wrapper (CUDA events, 1000 calls) on
+    PROBE_TIMED."""
+    import torch
+
+    from ofdm_tpu_torch import build
+    from ofdm_tpu_torch.ops import link_kernel as lk
+    from ofdm_tpu_torch.ops import prng
+
+    lib = build.load("boxmuller")
+    count = NOISE_SHAPE[0] * NOISE_SHAPE[1]
+    z0 = torch.empty(count, dtype=torch.float32, device=dev)
+    z1 = torch.empty(count, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def raw():
+        build.check(lib, lib.ofdm_boxmuller(z0.data_ptr(), z1.data_ptr(), count, *NOISE_SEEDS, stream),
+                    "ofdm_boxmuller")
+
+    out = {"boxmuller_device": median_ms(raw, reps, 50),
+           "boxmuller_profiler": device_ms(raw, "boxmuller_kernel", 50),
+           "boxmuller_wrapper": median_ms(lambda: lk.boxmuller_sample(*NOISE_SEEDS, NOISE_SHAPE, dev), reps, 50)}
+    key = prng.key_words(0)
+    for name in PROBE_TIMED:
+        runner = runner_for(PROBE_CELLS[name], dev)
+        probe, rows = _probe_of(runner)
+        link = runner.link
+
+        def call():
+            probe(link, key, CHUNK, CHUNK, rows)
+
+        out[f"{runner.mode}_probe_device"] = device_ms(call, f"{runner.mode}_probe", 200)
+        out[f"{runner.mode}_probe_wrapper"] = median_ms(call, reps, 1000)
+    return out
+
+
+def ptxas_registers(build_dir, lib, match):
+    """{kernel key: registers} of library ``lib``'s kernels whose key holds ``match``."""
+    from chip_smoke import ptxas_kernels
+
+    with open(os.path.join(build_dir, f"{lib}.log")) as fh:
+        return {k: v[0] for k, v in ptxas_kernels(fh.read()).items() if match in k}
 
 
 # --slab-study: the one-pass scratch's slab cap (bins) on the diag noise-bump chunks
@@ -329,6 +464,10 @@ def worker(what, reps):
     dev = torch.device("cuda")
     if what == "counts":
         return {**diag_counts(dev), "wide": wide_counts(dev)}
+    if what == "sampler_hashes":
+        return sampler_hashes(dev)
+    if what == "sampler_times":
+        return sampler_times(dev, reps)
     if what == "slab_study":
         return slab_study(dev, reps)
     if what == "bounds_study":
@@ -415,10 +554,42 @@ def main(argv):
     print(f"qam entry points: {common} in both trees, {len(moved)} with other registers: {json.dumps(moved)}")
     print(f"staged qam entry points: {staged_common} in both trees, {len(staged_moved)} with other registers: "
           f"{json.dumps(staged_moved)}")
-    outside = {k: v for k, v in {**moved, **staged_moved}.items() if not k.startswith(("fold_wide", "mm_wide"))}
-    print(f"qam entry points outside fold_wide / mm_wide with other registers: {json.dumps(outside)}")
+    outside = {k: v for k, v in {**moved, **staged_moved}.items() if "_probe<" not in k}
+    print(f"qam entry points outside the probes with other registers: {json.dumps(outside)}")
+    # K3's narrow probes and K2's library (K4 and K5 beside it) in both trees, by kernel key
+    sampler_regs = {label: {**{f"{lib}:{k}": r for lib in ("fold_kernel", "fold_staged", "mm_kernel", "mm_staged")
+                               for k, r in ptxas_registers(b["build_dir"], lib, "_probe<").items()},
+                            **{f"boxmuller:{k}": r for k, r in ptxas_registers(b["build_dir"], "boxmuller", "").items()}}
+                    for label, b in builds.items()}
+    for label, regs in sampler_regs.items():
+        print(f"sampler registers {label}: {json.dumps(regs)}")
+    hashes = {label: run_worker(tree, "sampler_hashes", reps) for label, tree in (("other", other), ("this", HERE))}
+    for label, h in hashes.items():
+        print(f"sampler hashes {label}: {json.dumps(h)}")
+    hashes_equal = {k: hashes["other"].get(k) == v for k, v in hashes["this"].items()}
+    print(f"sampler hashes equal in both trees: {json.dumps(hashes_equal)}")
     print(f"build s: other {builds['other']['build_s']:.1f} ({len(builds['other']['libraries'])} libraries), "
           f"this {builds['this']['build_s']:.1f} ({len(builds['this']['libraries'])} libraries)")
+    sampler_timings = []
+    for label in ("other", "this", "this", "other"):
+        t = run_worker(other if label == "other" else HERE, "sampler_times", reps)
+        print(f"samplers {label}: {json.dumps(t)}", flush=True)
+        sampler_timings.append({"tree": label, "ms": t})
+    result = {"qam_entry_points": common, "registers_moved": moved, "staged_qam_entry_points": staged_common,
+              "staged_registers_moved": staged_moved, "registers_moved_outside_the_probes": outside,
+              "sampler_registers": sampler_regs, "sampler_hashes": hashes, "sampler_hashes_equal": hashes_equal,
+              "sampler_timings": sampler_timings, "build_s": {k: v["build_s"] for k, v in builds.items()}}
+    if "--sampler-study" not in argv:
+        result.update(chunk_study(argv, other, builds, reps))
+    result["card"] = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                                    capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+    print(json.dumps(result))
+    return 0
+
+
+def chunk_study(argv, other, builds, reps):
+    """The wide dense kernels' static barriers, both trees' counts and the
+    chunk timings (or the lr / slab study's), in turns."""
     barriers = {label: sass_barriers(b) for label, b in builds.items()}
     for label, b in barriers.items():
         print(f"wide static barriers {label}: {json.dumps(b)}")
@@ -443,16 +614,8 @@ def main(argv):
         t = run_worker(other if label == "other" else HERE, mode, reps)
         print(f"{label}: {json.dumps(t)}", flush=True)
         timings.append({"tree": label, "ms": t})
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
-    result = {"card": card, "qam_entry_points": common, "registers_moved": moved, "diag_counts": counts,
-              "noise_bump_points_equal": same, "wf_512sc_papr_db_gap": papr_gap,
-              "staged_qam_entry_points": staged_common, "staged_registers_moved": staged_moved,
-              "registers_moved_outside_wide_dense": outside, "wide_counts_equal": wide_same,
-              "wide_static_barriers": barriers,
-              "build_s": {k: v["build_s"] for k, v in builds.items()}, "timings": timings}
-    print(json.dumps(result))
-    return 0
+    return {"diag_counts": counts, "noise_bump_points_equal": same, "wf_512sc_papr_db_gap": papr_gap,
+            "wide_counts_equal": wide_same, "wide_static_barriers": barriers, "timings": timings}
 
 
 if __name__ == "__main__":
