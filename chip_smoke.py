@@ -62,7 +62,18 @@ the cells ``adaptive_scfde_64sc`` through ``run_sweep`` at 15 / 20 / 25 dB
 ``adaptive_scfde_1024sc`` / ``_zp`` (fold_wide, mm_wide; 2^20), each at
 z = 5 against the JAX package's XLA reading (on fold with the fold
 kernel's measured power), beside the eager chain's rate on the same
-link).  For each path it checks the BER gate or band,
+link); then two chains built by hand from the bit-level ops
+(``bitlevel_path``: ``bitlevel_headline``, the headline link's parameters
+through bits.random_bits -> mapping.encode -> linops.modulate / convolve ->
+channel.awgn -> linops.demodulate -> equalize -> decode_bits, and
+``bitlevel_adaptive``, examples/overview.py's adaptive chain; 2^20 OFDM
+symbols x 64 sc each in blocks of 2^16, K4 under random_bits and K5 for the
+AWGN, random_bits on the card bit-equal to its CPU version at 2^24 and
+1,000,003 bits and at each chain's block, each BER at z = 5 against the
+JAX package's own chain) and the shape audit
+(``ofdm_tpu_torch.shape_audit``: tools/shape_audit.py's 30 shapes and two
+more through ``LinkRunner``, each on the chain the JAX package's plan
+picks, in its z = 5 band).  For each path it checks the BER gate or band,
 the SNR sweep and the launch counters, reads the profiler's busy share,
 and times the kernel beside its plain version and its bound; for the fold
 and mm kernels it also reads their layout off the loaded kernels (symbols
@@ -98,6 +109,8 @@ import subprocess
 import sys
 import time
 
+from ofdm_tpu_torch.shape_audit import AUDIT_BASE  # the audit's base link (64 sc, severe_multipath, 30 dB)
+
 REFERENCE_BER_30DB = 0.01901  # the reference's published BER (bench.py gate)
 # The reference's SC-FDE default at 0/10/20 dB (docs/RESULTS.md) and the JAX
 # package's reading of it on a TPU v5e (BENCH_r05.json, 2^29 symbols).
@@ -115,6 +128,7 @@ BOXMULLER_COUNTS = ((4194301,), (5,))  # K2's scalar tail: 1 element past the qu
 # data sheet).  bytes: 3.35 TB/s HBM3.
 PEAK_OPS = 67e12 / 2
 PEAK_BYTES = 3.35e12
+L2_BYTES = 50e6  # the H100's 50 MB L2 (the same data sheet)
 # Operations per bin of the diag chunk, counted from csrc/link_kernel.cu:
 # Philox4x32-10 = 10 rounds x (2 mulhi + 2 mul + 4 xor + 2 key adds);
 # QAM encode (zig-zag, Gray, int->float, affine); y = s*h; Box-Muller
@@ -764,6 +778,14 @@ def profile_call(fn):
     return by_name, busy / window, window / 1e3
 
 
+def device_ms(fn, kernel, reps=20):
+    """Device milliseconds a launch of ``kernel`` over ``reps`` calls of fn()
+    (the profiler's kernel events); None when the profiler recorded no
+    launch of it."""
+    prof = profile_call(lambda: [fn() for _ in range(reps)])
+    return None if prof is None or kernel not in prof[0] else prof[0][kernel] / reps
+
+
 def print_profile(card, what, prof):
     if prof is None:
         print(f"profile {what}: the profiler recorded no device kernels; idle share not measured")
@@ -1085,9 +1107,6 @@ _PSK8 = dict(constellation_type="PSK", constellation_order=8)
 _ADAPT = dict(power_allocation_type="WATERFILLING", adaptive_modulation_mode="CAPACITY_BASED", snr_db=20.0)
 _APSK = dict(_ADAPT, constellation_type="PSK")
 _ZP05_256 = dict(num_subcarriers=256, prefix_type="ZERO", prefix_length_ratio=0.5)
-AUDIT_BASE = dict(num_subcarriers=64, constellation_order=64, constellation_type="QAM", channel_type="CUSTOM",
-                  channel_model="severe_multipath", prefix_type="CYCLIC", prefix_length_ratio=1.0,
-                  equalization_method="MMSE", noise_type="AWGN", snr_db=30.0)
 # The codec checks: each chunk kernel in each new mode, (chain, mode, link).
 # adapt_flat_36db loads 1024-QAM, above the config's 256 (the static width
 # must cover it; tests/test_pallas_link.py:456); the two Lin-Phoong P1
@@ -1283,6 +1302,8 @@ JAX_CPU_READINGS = {
     "adaptive_scfde_1024sc_20db": (3448270, 1085800448),
     "adaptive_scfde_1024sc_20db_fold_power": (3448274, 1085800448),
     "adaptive_scfde_1024sc_zp_20db": (3847430, 1085800448),
+    "bitlevel_headline": (478897, 25165824),
+    "bitlevel_adaptive": (1316, 15073280),
 }
 
 
@@ -2737,8 +2758,7 @@ def dense_wide_entries(card, device, err, probe_err, launches, power):
                     "bound_ms": bound, "bound_by": "operations", "library_ms": None})
         probe, probe_plain = probes()[chain]
         pk_ms = cuda_ms(lambda: probe(link, key, MAIN_CHUNK, MAIN_CHUNK), PROBE_TIMED_LAUNCHES)
-        prof = profile_call(lambda: [probe(link, key, MAIN_CHUNK, MAIN_CHUNK) for _ in range(100)])
-        dev_ms = None if prof is None else prof[0].get("ofdm::wide_probe", 0.0) / 100
+        dev_ms = device_ms(lambda: probe(link, key, MAIN_CHUNK, MAIN_CHUNK), "ofdm::wide_probe", 100)
         pp_ms = cuda_ms(lambda: probe_plain(link, key, MAIN_CHUNK, MAIN_CHUNK), 20)
         p = link.plan
         idft = 0 if link.is_sc else ((link.n // 2) * p.log2n * 10 if p.log2n >= 0 else link.n * (p.n1 + p.n2) * 8)
@@ -3214,8 +3234,7 @@ def probe_entries(card, device, err):
         link = LinkRunner(prepare(cfg), device).link
         probe, probe_plain = probes()[chain]
         k_ms = cuda_ms(lambda: probe(link, key, MAIN_CHUNK, MAIN_CHUNK), PROBE_TIMED_LAUNCHES)
-        prof = profile_call(lambda: [probe(link, key, MAIN_CHUNK, MAIN_CHUNK) for _ in range(100)])
-        dev_ms = None if prof is None else prof[0].get(f"ofdm_{chain}::{chain}_probe", 0.0) / 100
+        dev_ms = device_ms(lambda: probe(link, key, MAIN_CHUNK, MAIN_CHUNK), f"ofdm_{chain}::{chain}_probe", 100)
         p_ms = cuda_ms(lambda: probe_plain(link, key, MAIN_CHUNK, MAIN_CHUNK), 20)
         mats = (link.tail_r, link.tail_i) if chain == "lr" else (link.txr, link.txi)
         ops = link.n * (OPS_PER_BIN["philox"] + OPS_PER_BIN["encode"]) + product_ops(
@@ -3609,6 +3628,296 @@ def sweep_path(card, device, probe_entries):
     return cli_path(card)
 
 
+# --- the bit-level chains and the shape audit ----------------------------------------
+
+# Two chains built by hand from the port's bit-level ops at 2^20 OFDM
+# symbols x 64 subcarriers (2^26 symbols, adaptive_64sc's size), in blocks of
+# 2^16 OFDM symbols with the convolution's carry passed from block to block;
+# block b draws its bits from prng.fold_in(key, b) through bits.random_bits
+# (K4) and its AWGN from prng.normal_planes (K5) at rows b x 2^16 of the
+# eager chain's stream (c3 = 4).  Each BER at z = BAND_Z against the JAX
+# package's own chain with jax.random on a CPU at 2^16 OFDM symbols
+# (jax_band_readings.py).
+#   bitlevel_headline: the headline link's parameters from prepare(): 64-QAM
+#     Gray, CP ratio 1.0, Lin-Phoong P2, MMSE, 30 dB; bits -> mapping.encode
+#     -> linops.modulate -> linops.convolve (banded) -> channel.awgn ->
+#     linops.demodulate -> equalize -> mapping.decode_bits -> bit_errors.
+#   bitlevel_adaptive: examples/overview.py:31-92: Lin-Phoong P1, 64 sc, 20
+#     dB, prefix = the channel order, waterfilling (budget n), QAM gap
+#     loading at SER 1e-3, sqrt(P) at TX, ofdm_modulate -> channel.transmit
+#     -> MMSE -> unit power a subcarrier -> adaptive.decode; BER and SER.
+BITLEVEL_OFDM_SYMBOLS = 1 << 20
+BITLEVEL_BLOCK = 1 << 16
+BITLEVEL_SEED = 0
+BITLEVEL_READING = "the JAX package's bit-level chain, jax.random, CPU, 2^16 OFDM symbols"
+BITLEVEL_CHECK_BITS = (1 << 24, 1000003)  # random_bits on the card vs the CPU (and each chain's block); 1000003 is odd
+NN_TIE = 1e-5  # decode_nn and decode_hard may part only where two scores lie this close
+
+
+def bitlevel_headline_link(device):
+    """The headline link's constants for the headline chain, from prepare()."""
+    import torch
+
+    from ofdm_tpu_torch.ops import linops
+    from ofdm_tpu_torch.pipeline import prepare
+
+    s = prepare(headline_cfg(BITLEVEL_BLOCK))
+    cfg, T = s.cfg, s.block_length
+    E = linops.ext_width(len(s.taps), T)
+    t0, t1 = linops.conv_matrices(s.taps, T)
+    return dict(setup=s, n=cfg.num_subcarriers, L=s.prefix_length, T=T, E=E, const=s.const,
+                t0=torch.tensor(t0, dtype=torch.complex64, device=device),
+                band=torch.tensor(t1[T - E:], dtype=torch.complex64, device=device),
+                h_freq=torch.tensor(s.h_freq, dtype=torch.complex64, device=device))
+
+
+def nn_disagreements(eqd, const):
+    """(symbol, nn index, hard index, score gap) wherever decode_nn and
+    decode_hard part on ``eqd``; the gap (the NN score of its pick minus that
+    of the slicer's, from the f32 points in float64) is 0 on a tie."""
+    import numpy as np
+    import torch
+
+    from ofdm_tpu_torch.ops import mapping
+
+    nn = mapping.decode_nn(eqd, const).reshape(-1)
+    hard = mapping.decode_hard(eqd, const).reshape(-1)
+    where = torch.nonzero(nn != hard).reshape(-1)
+    y = eqd.reshape(-1)[where].cpu().numpy().astype(np.complex128)
+    c = const.table
+    out = []
+    for i, yy, a, b in zip(where.tolist(), y, nn[where].tolist(), hard[where].tolist()):
+        score = lambda j: 2.0 * (yy * np.conj(c[j])).real - abs(c[j]) ** 2  # noqa: E731
+        out.append((i, a, b, float(score(a) - score(b))))
+    return out
+
+
+def bitlevel_headline(device, num_ofdm=BITLEVEL_OFDM_SYMBOLS, block=BITLEVEL_BLOCK, seed=BITLEVEL_SEED):
+    """The headline chain: {errors, bits, ms, nn} (nn: block 0's decode_nn /
+    decode_hard disagreements)."""
+    import torch
+
+    from ofdm_tpu_torch.config import EqualizationMethod, ModulationType
+    from ofdm_tpu_torch.ops import bits as tb
+    from ofdm_tpu_torch.ops import channel, linops, mapping, metrics, prng
+    from ofdm_tpu_torch.ops import equalize as eq
+
+    link = bitlevel_headline_link(device)
+    s, const, n, L, T = link["setup"], link["const"], link["n"], link["L"], link["T"]
+    prefix, snr = s.cfg.prefix_type, s.cfg.snr_db
+    key = prng.key_words(seed)
+    errors = torch.zeros((), dtype=torch.int64, device=device)
+    carry, eqd0 = None, None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in range(num_ofdm // block):
+        tx = tb.random_bits(prng.fold_in(key, b), (block, n, const.bits_per_symbol), device)
+        x = linops.modulate(mapping.encode(tx, const), n, prefix, L, ModulationType.OFDM)
+        y, carry = linops.convolve(x, link["t0"], link["band"], carry, ext=link["E"])
+        y = channel.awgn(y, snr, prng.normal_planes(key, b * block, block, T, prng.AWGN_STREAM, device))
+        eqd = eq.equalize(linops.demodulate(y, n, prefix, L), link["h_freq"], EqualizationMethod.MMSE, snr)
+        errors += metrics.bit_errors(tx, mapping.decode_bits(eqd, const))
+        eqd0 = eqd if b == 0 else eqd0
+    errors = int(errors)
+    ms = (time.perf_counter() - t0) * 1e3
+    # outside the timed window: block 0's second decode
+    return dict(errors=errors, bits=num_ofdm * n * const.bits_per_symbol, ms=ms, nn=nn_disagreements(eqd0, const))
+
+
+def bitlevel_adaptive_setup():
+    """overview.py's host setup (float64): (taps, h_freq, L, power, mapper)."""
+    import numpy as np
+
+    from ofdm_tpu_torch.models import channels as chm
+    from ofdm_tpu_torch.ops import adaptive as ad
+    from ofdm_tpu_torch.ops import allocate as al
+    from ofdm_tpu_torch.ops import mapping
+
+    n, snr_db = 64, 20.0
+    raw = chm.get_channel("Lin-Phoong_P1")
+    h_freq = chm.channel_frequency_response(raw, n)
+    gains = np.abs(h_freq) ** 2
+    noise_power = 10 ** (-snr_db / 10)
+    power = al.waterfilling(float(n), gains, noise_power)
+    orders = mapping.qam_bit_loading_orders(1e-3, power * gains / noise_power)
+    return dict(n=n, snr_db=snr_db, taps=chm.normalize_impulse_response(raw), h_freq=h_freq,
+                L=chm.channel_order(raw), power=power, mapper=ad.make_adaptive_mapper("QAM", orders))
+
+
+def bitlevel_adaptive(device, num_ofdm=BITLEVEL_OFDM_SYMBOLS, block=BITLEVEL_BLOCK, seed=BITLEVEL_SEED):
+    """overview.py's adaptive chain: {errors, bits, symbol_errors, symbols, ms}."""
+    import torch
+
+    from ofdm_tpu_torch.config import EqualizationMethod, PrefixType
+    from ofdm_tpu_torch.ops import adaptive as ad
+    from ofdm_tpu_torch.ops import bits as tb
+    from ofdm_tpu_torch.ops import channel, metrics, ofdm, prng
+    from ofdm_tpu_torch.ops import equalize as eq
+
+    a = bitlevel_adaptive_setup()
+    n, L, snr, m = a["n"], a["L"], a["snr_db"], a["mapper"]
+    taps = torch.tensor(a["taps"], dtype=torch.complex64, device=device)
+    h_freq = torch.tensor(a["h_freq"], dtype=torch.complex64, device=device)
+    sqrt_p = torch.tensor(a["power"], dtype=torch.float32, device=device).sqrt().to(torch.complex64)
+    key = prng.key_words(seed)
+    errors = torch.zeros((), dtype=torch.int64, device=device)
+    sym_errors = torch.zeros((), dtype=torch.int64, device=device)
+    carry = None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in range(num_ofdm // block):
+        tx = tb.random_bits(prng.fold_in(key, b), (block, m.bits_per_ofdm_symbol), device)
+        sym, tx_idx = ad.encode(tx, m)
+        blocks = ofdm.ofdm_modulate(sym * sqrt_p, n, PrefixType.CYCLIC, L)
+        z = prng.normal_planes(key, b * block, block, n + L, prng.AWGN_STREAM, device)
+        rx, carry = channel.transmit(blocks, taps, snr, z=z, carry=carry)
+        freq = ofdm.ofdm_demodulate_to_freq(rx, n, PrefixType.CYCLIC, L)
+        eqd = eq.equalize(freq, h_freq, EqualizationMethod.MMSE, snr)
+        p = (eqd.real * eqd.real + eqd.imag * eqd.imag).mean(dim=0, keepdim=True)
+        eqd = torch.where(p > 1e-10, eqd / p.sqrt(), eqd)
+        rx_bits, rx_idx = ad.decode(eqd, m)
+        errors += metrics.bit_errors(tx, rx_bits)
+        sym_errors += metrics.symbol_errors(tx_idx, rx_idx)
+    errors, sym_errors = int(errors), int(sym_errors)
+    ms = (time.perf_counter() - t0) * 1e3
+    return dict(errors=errors, bits=num_ofdm * m.bits_per_ofdm_symbol, symbol_errors=sym_errors,
+                symbols=num_ofdm * n, ms=ms)
+
+
+def l2_bound_ms(ops, nbytes):
+    """(bound ms, "operations" or "bytes") of a sampler launch timed back to
+    back: the larger of ops / PEAK_OPS and nbytes / PEAK_BYTES, except that an
+    output that fits in L2 (rewritten in place launch after launch, it need
+    not reach HBM, and L2's own rate has no published figure) is bounded by
+    its operations alone."""
+    if nbytes <= L2_BYTES or ops / PEAK_OPS >= nbytes / PEAK_BYTES:
+        return ops / PEAK_OPS * 1e3, "operations"
+    return nbytes / PEAK_BYTES * 1e3, "bytes"
+
+
+def bitlevel_band(name, r):
+    """Hold a chain's BER at z = BAND_Z against the JAX package's chain."""
+    band(name, {"bit_errors": r["errors"], "total_bits": r["bits"], "bit_error_rate": r["errors"] / r["bits"]},
+         BITLEVEL_READING)
+
+
+def bitlevel_path(card, device):
+    """K4 under bits.random_bits and K5 at the chains' shapes against their
+    plain versions, then both chains at full size with their launch counts,
+    bands and rates.  Returns the two kernels-line entries."""
+    import torch
+
+    from ofdm_tpu_torch.ops import bits as tb
+    from ofdm_tpu_torch.ops import prng
+
+    t_phase = time.perf_counter()
+    key = prng.key_words(BITLEVEL_SEED)
+    head, adapt = bitlevel_headline_link(device), bitlevel_adaptive_setup()
+    # at 2^24 bits, at an odd count, and at each chain's block shape under its
+    # first block's key: the words the timed chains draw
+    checks = [(key, (nbits,)) for nbits in BITLEVEL_CHECK_BITS] + [
+        (prng.fold_in(key, 0), (BITLEVEL_BLOCK, head["n"], head["const"].bits_per_symbol)),
+        (prng.fold_in(key, 0), (BITLEVEL_BLOCK, adapt["mapper"].bits_per_ofdm_symbol))]
+    u_err = 0.0
+    for k, shape in checks:
+        bk, bp = tb.random_bits(k, shape, device).cpu(), tb.random_bits(k, shape, "cpu")
+        e = float((bk.to(torch.int16) - bp.to(torch.int16)).abs().max())
+        print(f"random_bits {shape} ({bp.numel()} bits, {-(-bp.numel() // 32)} words): the card's vs "
+              f"random_bits(device='cpu') max abs diff {e} (tolerance 0: bit-equal); mean "
+              f"{float(bp.float().mean()):.6f}")
+        if e != 0.0:
+            raise AssertionError(f"random_bits at {shape}: the card's bits differ from the CPU's")
+        u_err = max(u_err, e)
+    z_err = 0.0
+    for T in sorted({head["T"], adapt["n"] + adapt["L"]}):
+        zk = prng.normal_planes(key, 3 * BITLEVEL_BLOCK, BITLEVEL_BLOCK, T, prng.AWGN_STREAM, device)
+        zp = prng.normal_planes_plain(key, 3 * BITLEVEL_BLOCK, BITLEVEL_BLOCK, T, prng.AWGN_STREAM, device)
+        e = max(float((zk[0] - zp[0]).abs().max()), float((zk[1] - zp[1]).abs().max()))
+        print(f"normal_pair ({BITLEVEL_BLOCK}, {T}), c3 = {prng.AWGN_STREAM}: kernel vs plain max abs diff {e:.3e} "
+              f"(tolerance 1e-5)")
+        if e > 1e-5:
+            raise AssertionError(f"normal_pair ({BITLEVEL_BLOCK}, {T}) kernel vs plain {e}")
+        z_err = max(z_err, e)
+
+    bitlevel_headline(device, 2 * BITLEVEL_BLOCK, BITLEVEL_BLOCK, seed=1)  # warm-up
+    bitlevel_adaptive(device, 2 * BITLEVEL_BLOCK, BITLEVEL_BLOCK, seed=1)
+    blocks = BITLEVEL_OFDM_SYMBOLS // BITLEVEL_BLOCK
+    launches = {}
+    results = {}
+    for name, fn in (("bitlevel_headline", bitlevel_headline), ("bitlevel_adaptive", bitlevel_adaptive)):
+        prng.random_u32.launches = prng.normal_planes.launches = 0
+        r = fn(device)
+        launches[name] = (prng.random_u32.launches, prng.normal_planes.launches)
+        results[name] = r
+        extra = (f", SER {r['symbol_errors'] / r['symbols']} ({r['symbol_errors']} / {r['symbols']})"
+                 if "symbol_errors" in r else "")
+        print(f"{name} [{card}]: {BITLEVEL_OFDM_SYMBOLS} OFDM symbols x 64 sc in blocks of {BITLEVEL_BLOCK}, "
+              f"{r['ms']:.1f} ms, ofdm_symbols_per_s={BITLEVEL_OFDM_SYMBOLS / r['ms'] * 1e3:.1f} BER "
+              f"{r['errors'] / r['bits']} ({r['errors']} / {r['bits']}){extra}; launches: random_u32 (K4) "
+              f"{launches[name][0]}, normal_pair (K5) {launches[name][1]}")
+        if launches[name] != (blocks, blocks):
+            raise AssertionError(f"{name}: K4 / K5 launched {launches[name]}, not {blocks} each")
+        bitlevel_band(name, r)
+        print_profile(card, f"{name} (two blocks)", profile_call(lambda: fn(device, 2 * BITLEVEL_BLOCK, seed=2)))
+    head_r = results["bitlevel_headline"]
+    ber = head_r["errors"] / head_r["bits"]
+    print(f"bitlevel_headline vs bench.py's gate {REFERENCE_BER_30DB} +- 1.5e-3 (for information; the chain "
+          f"measures its noise power over each block's time samples): distance {ber - REFERENCE_BER_30DB:+.6f}")
+    bad = [d for d in head_r["nn"] if abs(d[3]) > NN_TIE]
+    print(f"bitlevel_headline block 0: decode_nn and decode_hard part on {len(head_r['nn'])} of "
+          f"{BITLEVEL_BLOCK * 64} symbols" + "".join(f"; symbol {i}: nn {a}, hard {b}, score gap {g:.3e}"
+                                                      for i, a, b, g in head_r["nn"]))
+    if bad:
+        raise AssertionError(f"decode_nn and decode_hard part off a tie: {bad[:5]}")
+
+    # K4 and K5 at the headline chain's block shapes, beside their plain versions and bounds
+    words = -(-BITLEVEL_BLOCK * 64 * head["const"].bits_per_symbol // 32)
+    u_ms = cuda_ms(lambda: prng.random_u32(key, (words,), device), 20)
+    up_ms = cuda_ms(lambda: prng.random_u32_plain(key, (words,), device), 3)
+    u_ops, u_bytes = -(-words // 4) * OPS_PER_BIN["philox"], words * 4
+    u_bound, u_by = l2_bound_ms(u_ops, u_bytes)
+    T = head["T"]
+    elems = BITLEVEL_BLOCK * T
+    n_ms = cuda_ms(lambda: prng.normal_planes(key, 0, BITLEVEL_BLOCK, T, prng.AWGN_STREAM, device), 20)
+    np_ms = cuda_ms(lambda: prng.normal_planes_plain(key, 0, BITLEVEL_BLOCK, T, prng.AWGN_STREAM, device), 3)
+    n_ops, n_bytes = elems * (OPS_PER_BIN["philox"] + NORMAL_OPS), elems * 8
+    n_bound, n_by = l2_bound_ms(n_ops, n_bytes)
+    # the device's own time a launch (the wrappers' host work outlasts these small launches)
+    u_dev = device_ms(lambda: prng.random_u32(key, (words,), device), "ofdm_sampler::philox_kernel")
+    n_dev = device_ms(lambda: prng.normal_planes(key, 0, BITLEVEL_BLOCK, T, prng.AWGN_STREAM, device),
+                      "ofdm_sampler::normal_pair_kernel")
+    print(f"random_u32 at ({words},) (a headline block's bits) [{card}]: kernel {u_ms:.4f} ms a call (CUDA events, "
+          f"20 calls), device {u_dev} ms a launch (profiler), plain {up_ms:.3f} ms, bound {u_bound:.6f} ms ({u_by}: "
+          f"{u_ops} operations, {u_bytes} bytes); normal_pair at ({BITLEVEL_BLOCK}, {T}): kernel {n_ms:.4f} ms a call, "
+          f"device {n_dev} ms a launch, plain {np_ms:.3f} ms, bound {n_bound:.6f} ms ({n_by}: {n_ops} operations, "
+          f"{n_bytes} bytes)")
+    print(f"bit-level phase: {time.perf_counter() - t_phase:.1f} s")
+    total = [sum(v[i] for v in launches.values()) for i in (0, 1)]
+    return [
+        {"name": "random_u32 (bits.random_bits, bit-level chains)", "route": "cuda",
+         "source": "ofdm_tpu_torch/csrc/boxmuller.cu", "replaces": "ofdm_tpu/ops/prng.py:64", "launches": total[0],
+         "max_abs_err": u_err, "ms": u_ms, "device_ms": u_dev, "plain_ms": up_ms, "bound_ms": u_bound,
+         "bound_by": u_by, "library_ms": None},
+        {"name": "normal_pair (bit-level chains)", "route": "cuda", "source": "ofdm_tpu_torch/csrc/boxmuller.cu",
+         "replaces": "ofdm_tpu/ops/prng.py:120", "launches": total[1], "max_abs_err": z_err, "ms": n_ms,
+         "device_ms": n_dev, "plain_ms": np_ms, "bound_ms": n_bound, "bound_by": n_by, "library_ms": None},
+    ]
+
+
+def audit_path(card, device):
+    """The shape audit (ofdm_tpu_torch.shape_audit): every production shape
+    through LinkRunner on its kernel, its route and BER band; raises naming
+    every bad shape."""
+    from ofdm_tpu_torch import shape_audit
+
+    t0 = time.perf_counter()
+    results = shape_audit.audit(device)
+    bad = [r["shape"] for r in results if r["faults"]]
+    print(f"shape audit [{card}]: {len(results)} shapes, {len(bad)} bad, {time.perf_counter() - t0:.1f} s")
+    if bad:
+        raise AssertionError(f"shape audit: {bad}")
+
+
 def nccl_main(ranks):
     """``--nccl-ranks N``: only the sharded runs on N cards under NCCL, one
     rank a card (``multi_rank_path``), after the build."""
@@ -3736,8 +4045,8 @@ def main():
     diag_ops = diag_operations(link, MAIN_CHUNK, OPS_PER_BIN)
     diag_bound = max(diag_ops / PEAK_OPS, (4 * 7 * link.n + papr_matrix_bytes(link) + 3 * 8) / PEAK_BYTES) * 1e3
     bk_ms = cuda_ms(lambda: lk.boxmuller_sample(*NOISE_SEEDS, NOISE_SHAPE, device), 20)
-    prof = profile_call(lambda: [lk.boxmuller_sample(*NOISE_SEEDS, NOISE_SHAPE, device) for _ in range(20)])
-    bk_dev_ms = None if prof is None else prof[0].get("ofdm_sampler::boxmuller_kernel", 0.0) / 20
+    bk_dev_ms = device_ms(lambda: lk.boxmuller_sample(*NOISE_SEEDS, NOISE_SHAPE, device),
+                          "ofdm_sampler::boxmuller_kernel")
     bp_ms = cuda_ms(lambda: lk.boxmuller_sample_plain(*NOISE_SEEDS, NOISE_SHAPE, device), 3)
     elems = NOISE_SHAPE[0] * NOISE_SHAPE[1]
     bm_ops = elems * (OPS_PER_BIN["philox"] + OPS_PER_BIN["noise"])
@@ -3799,6 +4108,11 @@ def main():
     # and LinkRunner
     adaptive_scfde = adaptive_scfde_path(card, device)
 
+    # 12e. the bit-level chains (K4 under bits.random_bits, K5 their AWGN) and
+    # the shape audit: every production shape on its kernel, route and band
+    bitlevel = bitlevel_path(card, device)
+    audit_path(card, device)
+
     # 13. K3 and the carry-in on every chain; the sharded runs (one rank
     # under NCCL, two ranks under gloo) and the CLI on the reference's configs
     t_sweep = time.perf_counter()
@@ -3836,6 +4150,7 @@ def main():
         *demaps,
         *[e for e in dense_wide if not e["name"].endswith("_probe")],
         *adaptive_scfde,
+        *bitlevel,
         *probe_entries,
     ]
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,9 @@
 """The JAX package's BER readings behind chip_smoke.py's bands.
 
-    JAX_PLATFORMS=cpu python jax_band_readings.py
+    JAX_PLATFORMS=cpu python jax_band_readings.py [group ...]
+
+Groups (all by default): bands, adaptive_scfde, noise_bump, bitlevel,
+audit.
 
 Runs each of ``chip_smoke.BAND_LINKS`` (the audit's 8-PSK and adaptive
 links), the reference's adaptive config at 15 / 20 / 25 dB and
@@ -17,8 +20,15 @@ point of the noise-bump study
 at 2^16 OFDM symbols a point, key ``fold_in(PRNGKey(42), 1000 s + p)`` as
 its campaign draws them, at 64 subcarriers and at each width of
 ``chip_smoke.NOISE_BUMP_WIDE`` (2^22 / n OFDM symbols a point there).
-Prints ``{name: [bit errors, bits]}``: the values of
-``chip_smoke.JAX_CPU_READINGS``.  About 8 min on one CPU.
+Then (group bitlevel) the two bit-level chains of ``chip_smoke.py``
+with the JAX package's own functions and ``jax.random`` (key
+``PRNGKey(0)``) at 2^16 OFDM symbols; then (group audit) every shape of
+``ofdm_tpu_torch.shape_audit`` through the XLA path at min(16384, 2^24 /
+n) OFDM symbols in chunks of min(4096, 2^20 / n).  Prints
+``{"chip_smoke.JAX_CPU_READINGS": {name: [bit errors, bits]}}`` and
+``{"shape_audit.READINGS": {...}}``, the values of those two tables.
+About 8 min on one CPU; the bitlevel and audit groups 82 s of them on 8
+cores.
 
 The bands of ``chip_smoke.py``'s sharded phase add no reading: the one-
 and two-rank eager runs are ``OFDM-CY1.0-512``'s config (on the eager
@@ -33,17 +43,30 @@ import os
 import sys
 
 import jax
+import jax.numpy as jnp
+import numpy as np
 
-from chip_smoke import (ADAPTIVE_CONFIG, ASC_CELLS, ASC_READING_SYMBOLS, AUDIT_BASE, BAND_LINKS, EAGER_LINKS,
+from chip_smoke import (ADAPTIVE_CONFIG, ASC_CELLS, ASC_READING_SYMBOLS, BAND_LINKS, EAGER_LINKS, HEADLINE_KW,
                         NOISE_BUMP_SNRS, NOISE_BUMP_WIDE, STAGED_BAND_LINKS, noise_bump_name)
-from ofdm_tpu.config import SimulationConfig
+from ofdm_tpu.config import EqualizationMethod, PrefixType, SimulationConfig
 from ofdm_tpu.experiments import noise_bump as nb
 from ofdm_tpu.models import channels as chm
+from ofdm_tpu.ops import adaptive as jad
+from ofdm_tpu.ops import allocate as jal
+from ofdm_tpu.ops import bits as jbits
 from ofdm_tpu.ops import channel as jch
 from ofdm_tpu.ops import cplx
+from ofdm_tpu.ops import equalize as jeq
+from ofdm_tpu.ops import linops as jlin
+from ofdm_tpu.ops import mapping as jmp
+from ofdm_tpu.ops import metrics as jmt
+from ofdm_tpu.ops import ofdm as jofdm
 from ofdm_tpu.pipeline import LinkRunner, prepare
+from ofdm_tpu_torch import shape_audit as sa
+from ofdm_tpu_torch.shape_audit import AUDIT_BASE
 
 SYMBOLS = 1 << 18
+BITLEVEL_SYMBOLS = 1 << 16  # OFDM symbols of each bit-level chain's reading
 CHUNK = 4096
 NOISE_BUMP_SYMBOLS = 1 << 16
 EAGER_BITS_SPAN = 1 << 24  # subcarriers x OFDM symbols of each EAGER_LINKS reading
@@ -100,7 +123,8 @@ def adaptive_scfde_readings():
     return out
 
 
-def main():
+def band_readings():
+    """BAND_LINKS, the reference's adaptive config, STAGED_BAND_LINKS and EAGER_LINKS."""
     out = {}
     for name, (_, kw) in BAND_LINKS.items():
         base = dict(AUDIT_BASE, symbols_per_chunk=CHUNK, **kw)
@@ -118,7 +142,12 @@ def main():
         n = kw["num_subcarriers"]
         out[name] = reading(SimulationConfig(**dict(kw, num_symbols=n * (EAGER_BITS_SPAN // n),
                                                     symbols_per_chunk=(1 << 20) // n)))
-    out.update(adaptive_scfde_readings())
+    return out
+
+
+def noise_bump_readings():
+    """Every point of the noise-bump study through _Link, at 64 sc and NOISE_BUMP_WIDE's widths."""
+    out = {}
     key = jax.random.PRNGKey(42)
     for n in (64, *NOISE_BUMP_WIDE):
         symbols = NOISE_BUMP_SYMBOLS * 64 // n
@@ -129,9 +158,95 @@ def main():
             for p_i, snr in enumerate(NOISE_BUMP_SNRS):
                 ber, _ = link.run_point(jax.random.fold_in(key, s_i * 1000 + p_i), scenario, profile, snr)
                 out[noise_bump_name(scenario.key, snr, n)] = [int(round(ber * bits)), bits]
-    print(json.dumps(out, indent=1))
+    return out
+
+
+def bitlevel_headline_reading(num_ofdm=BITLEVEL_SYMBOLS):
+    """chip_smoke.bitlevel_headline's chain with the JAX package's functions
+    and jax.random: the headline link's parameters from prepare(), bits ->
+    mapping.encode -> linops.modulate -> linops.convolve (banded) ->
+    channel.awgn -> linops.demodulate -> equalize -> decode_bits."""
+    s = prepare(SimulationConfig(**HEADLINE_KW, num_symbols=64 * num_ofdm))
+    cfg, const, n, L = s.cfg, s.const, s.cfg.num_subcarriers, s.prefix_length
+    T = n + L
+    kb, kn = jax.random.split(jax.random.PRNGKey(0))
+    tx = jbits.random_bits(kb, (num_ofdm, n, const.bits_per_symbol))
+    x = jlin.modulate(cplx.from_complex(jmp.encode(tx, const)), n, cfg.prefix_type, L, cfg.modulation_type)
+    t0, t1 = jlin.conv_matrices(s.taps, T)
+    E = jlin.ext_width(len(s.taps), T)
+
+    def f32(m):
+        return jnp.asarray(m.real, jnp.float32), jnp.asarray(m.imag, jnp.float32)
+
+    y, _ = jlin.convolve(x, f32(t0), f32(t1[T - E:]), None, ext=E)
+    y = jch.awgn(kn, y, cfg.snr_db)
+    eqd = jeq.equalize(jlin.demodulate(y, n, cfg.prefix_type, L), cplx.from_complex(s.h_freq),
+                       cfg.equalization_method, cfg.snr_db)
+    rx = jmp.decode_bits(eqd.re + 1j * eqd.im, const)
+    return [int(jmt.bit_errors(tx, rx)), int(tx.size)]
+
+
+def bitlevel_adaptive_reading(num_ofdm=BITLEVEL_SYMBOLS):
+    """examples/overview.py's chain (its functions, jax.random) at ``num_ofdm``
+    OFDM symbols: chip_smoke.bitlevel_adaptive's reference."""
+    n, snr_db = 64, 20.0
+    raw = chm.get_channel("Lin-Phoong_P1")
+    taps = jnp.asarray(chm.normalize_impulse_response(raw), jnp.complex64)
+    h_freq = chm.channel_frequency_response(raw, n)
+    gains = np.abs(h_freq) ** 2
+    noise_power = 10 ** (-snr_db / 10)
+    L = chm.channel_order(raw)
+    power = jal.waterfilling(float(n), gains, noise_power)
+    mapper = jad.make_adaptive_mapper("QAM", jmp.qam_bit_loading_orders(1e-3, power * gains / noise_power))
+    kbits, knoise = jax.random.split(jax.random.PRNGKey(0))
+    tx = jbits.random_bits(kbits, (num_ofdm, mapper.bits_per_ofdm_symbol))
+    symbols, _ = jad.encode(tx, mapper)
+    symbols = symbols * jnp.sqrt(jnp.asarray(power)).astype(symbols.dtype)
+    blocks = jofdm.ofdm_modulate(symbols, n, PrefixType.CYCLIC, L)
+    rx, _ = jch.transmit(knoise, blocks, taps, snr_db)
+    freq = jofdm.ofdm_demodulate_to_freq(rx, n, PrefixType.CYCLIC, L)
+    eqd = jeq.equalize(freq, jnp.asarray(h_freq, jnp.complex64), EqualizationMethod.MMSE, snr_db)
+    p = jnp.mean(jnp.abs(eqd) ** 2, axis=0, keepdims=True)
+    eqd = jnp.where(p > 1e-10, eqd / jnp.sqrt(p), eqd)
+    rx_bits, _ = jad.decode(eqd, mapper)
+    return [int(jmt.bit_errors(tx, rx_bits)), int(tx.size)]
+
+
+def audit_readings():
+    """{tag: [bit errors, bits]} of every shape of ofdm_tpu_torch.shape_audit:
+    the XLA path at min(16384, 2^24 / n) OFDM symbols in chunks of
+    min(4096, 2^20 / n)."""
+    out = {}
+    for tag in sa.SHAPES:
+        kw = sa.config_kw(tag)
+        n = kw["num_subcarriers"]
+        ofdm = min(sa.AUDIT_OFDM_SYMBOLS, (1 << 24) // n)
+        adaptive = kw.get("adaptive_modulation_mode") == "CAPACITY_BASED"
+        kw.update(num_symbols=ofdm if adaptive else ofdm * n, symbols_per_chunk=min(CHUNK, (1 << 20) // n))
+        out[tag] = reading(SimulationConfig(**kw))
+    return out
+
+
+GROUPS = {
+    "bands": band_readings,
+    "adaptive_scfde": adaptive_scfde_readings,
+    "noise_bump": noise_bump_readings,
+    "bitlevel": lambda: {"bitlevel_headline": bitlevel_headline_reading(),
+                         "bitlevel_adaptive": bitlevel_adaptive_reading()},
+}
+
+
+def main(argv):
+    groups = argv or [*GROUPS, "audit"]
+    out = {}
+    for g in groups:
+        if g != "audit":
+            out.update(GROUPS[g]())
+    print(json.dumps({"chip_smoke.JAX_CPU_READINGS": out}, indent=1))
+    if "audit" in groups:
+        print(json.dumps({"shape_audit.READINGS": audit_readings()}, indent=1))
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -9,6 +9,7 @@ provide the reference's channel-model math:
   * unit-energy normalization of the IR      (channel/models.py:37-44)
   * channel order = len(h) - 1               (channel/models.py:21-24)
   * frequency response H = FFT(h, n_fft)     (channel/models.py:26-30)
+  * gains = |H|^2                            (channel/models.py:32-35)
 
 All helpers here are host-side NumPy in float64: channel construction is
 one-time setup, and SURVEY §7.3 requires f64 for H/gains so that waterfilling
@@ -20,7 +21,7 @@ kernel consumes the results as f32 constant rows.
 from __future__ import annotations
 
 import os
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 from numpy.typing import NDArray
@@ -95,6 +96,10 @@ CHANNEL_MODELS: Dict[str, NDArray[np.complex128]] = {
 }
 
 
+def list_channels() -> List[str]:
+    return sorted(CHANNEL_MODELS)
+
+
 def get_channel(name_or_path: str | None) -> NDArray[np.complex128]:
     """Resolve a channel spec to a raw (un-normalized) impulse response.
 
@@ -137,3 +142,21 @@ def channel_frequency_response(
 ) -> NDArray[np.complex128]:
     """H = FFT(h, n_fft) in float64 (channel/models.py:26-30)."""
     return np.fft.fft(np.asarray(h, dtype=np.complex128), n=n_fft)
+
+
+def channel_gains(h: NDArray[np.complex128], n_fft: int) -> NDArray[np.float64]:
+    """|H|^2 per subcarrier (channel/models.py:32-35)."""
+    return np.abs(channel_frequency_response(h, n_fft)) ** 2
+
+
+def export_channel_models(output_dir: str) -> None:
+    """Write all built-in channels as `.npy` assets (reference asset layout)."""
+    os.makedirs(output_dir, exist_ok=True)
+    for name, h in CHANNEL_MODELS.items():
+        np.save(os.path.join(output_dir, f"{name}.npy"), h)
+
+
+if __name__ == "__main__":  # pragma: no cover
+    export_channel_models("config/channel_models")
+    for _name in list_channels():
+        print(f"{_name}: {len(CHANNEL_MODELS[_name])} taps")

@@ -4,10 +4,14 @@ The reference's exact bisection (power_allocation/models.py:140-225), so the
 port's allocations and water levels equal ``ofdm_tpu.ops.allocate`` bit for
 bit.  Reference quirks kept: the floor is N0 / (|H|^2 * N), the bisection
 runs on [0, P_total + max(floor)] for at most 100 steps at tol 1e-8, and the
-budget is renormalized exactly afterwards.
+budget is renormalized exactly afterwards.  The capacity helpers
+(power_allocation/models.py:228-334) are the JAX package's expressions in
+float64.
 """
 
 from __future__ import annotations
+
+from typing import Dict
 
 import numpy as np
 from numpy.typing import NDArray
@@ -69,3 +73,43 @@ def water_level(
     lvl = power + floor
     active = power > 1e-10
     return float(np.mean(lvl[active])) if np.any(active) else float("nan")
+
+
+# --- capacity helpers (power_allocation/models.py:228-334) ------------------------
+
+
+def capacity(
+    power: NDArray[np.float64],
+    channel_gains: NDArray[np.float64],
+    noise_power: float,
+) -> float:
+    """Shannon capacity C = sum(log2(1 + P|H|^2/N0 + 1e-12)) bits/use."""
+    snr = np.asarray(power) * np.asarray(channel_gains) / noise_power
+    return float(np.sum(np.log2(1.0 + snr + 1e-12)))
+
+
+def capacity_per_subcarrier(
+    power: NDArray[np.float64],
+    channel_gains: NDArray[np.float64],
+    noise_power: float,
+) -> NDArray[np.float64]:
+    """log2(1 + P|H|^2/N0 + 1e-12) per subcarrier."""
+    snr = np.asarray(power) * np.asarray(channel_gains) / noise_power
+    return np.log2(1.0 + snr + 1e-12)
+
+
+def compare_allocations(
+    uniform_power: NDArray[np.float64],
+    waterfilling_power: NDArray[np.float64],
+    channel_gains: NDArray[np.float64],
+    noise_power: float,
+) -> Dict[str, float]:
+    """Capacities of a uniform and a waterfilling allocation and the gain."""
+    cap_u = capacity(uniform_power, channel_gains, noise_power)
+    cap_w = capacity(waterfilling_power, channel_gains, noise_power)
+    return {
+        "uniform_capacity": cap_u,
+        "waterfilling_capacity": cap_w,
+        "capacity_gain": cap_w - cap_u,
+        "capacity_gain_percent": 100 * (cap_w - cap_u) / cap_u if cap_u > 0 else 0.0,
+    }

@@ -1,4 +1,8 @@
-"""The block DFT of the wide chunk kernels: host twiddles and the plain version.
+"""The orthonormal DFT pair, and the block DFT of the wide chunk kernels.
+
+``fft_ortho`` / ``ifft_ortho`` are the JAX package's functions of the same
+names on complex tensors (the eager and bit-level chains).  The rest holds
+the wide kernels' host twiddles and plain versions.
 
 Counterpart of ``ofdm_tpu/ops/dft.py``, whose XLA path computes every DFT
 past 256 points by a two-factor Cooley-Tukey split (``_split_factors``,
@@ -31,6 +35,17 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+
+def fft_ortho(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Orthonormal DFT over the last axis (``ofdm_tpu.ops.dft.fft_ortho`` on
+    a complex array: ``torch.fft.fft``, norm "ortho", in the input's type)."""
+    return torch.fft.fft(x, n=n, dim=-1, norm="ortho")
+
+
+def ifft_ortho(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Orthonormal inverse DFT over the last axis."""
+    return torch.fft.ifft(x, n=n, dim=-1, norm="ortho")
 
 
 def split_factors(n: int):

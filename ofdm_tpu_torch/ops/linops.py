@@ -10,14 +10,21 @@ to stage F_tx for the PAPR statistic, and for the fold kernel's two
 products: F_tx,ext (TX with E duplicated tail columns) and the merged
 conv + guard strip + DFT matrix.  Same builders, same float64 values as
 ``ofdm_tpu.ops.linops`` / ``ofdm_tpu.ops.dft`` / ``pallas_link._tx_ext_matrix``.
+
+``modulate``, ``convolve`` and ``demodulate`` apply them to complex64
+blocks, as the JAX package's functions of the same names do: the matrices
+rounded to f32 from float64, each product one ``torch.matmul`` in complex64
+(f32 arithmetic, no TF32), where the JAX package runs a bf16x3 split.
 """
 
 from __future__ import annotations
 
+import contextlib
 from functools import lru_cache
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 from ofdm_tpu_torch.config import ModulationType, PrefixType
 
@@ -155,3 +162,60 @@ def diag_response(taps: np.ndarray, n: int, prefix: PrefixType, L: int) -> np.nd
     if np.abs(full).max() >= 1e-12:
         raise ValueError("link is not diagonal: off-diagonal coupling")
     return d
+
+
+@contextlib.contextmanager
+def fp32_matmul():
+    """f32 products in full precision inside the block: no TF32 on the card
+    (ROADMAP §2: the port's products run in full f32); the caller's settings come
+    back after."""
+    was = torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(was[1])
+        torch.backends.cuda.matmul.allow_tf32 = was[0]
+
+
+def _matrix(mat, like: torch.Tensor) -> torch.Tensor:
+    """A host matrix (complex, or its (re, im) pair) as complex64 on
+    ``like``'s device; a tensor already there is taken as it is."""
+    if isinstance(mat, tuple):
+        mat = np.asarray(mat[0]) + 1j * np.asarray(mat[1])
+    return torch.as_tensor(mat, dtype=torch.complex64, device=like.device)
+
+
+def modulate(symbols: torch.Tensor, n: int, prefix: PrefixType, L: int,
+             modulation: ModulationType) -> torch.Tensor:
+    """(B, N) frequency / time symbols -> (B, T) guarded time blocks: X @ F_tx."""
+    with fp32_matmul():
+        return symbols @ _matrix(tx_matrix(n, prefix, L, modulation), symbols)
+
+
+def convolve(blocks: torch.Tensor, t0, t1, carry_row: Optional[torch.Tensor] = None,
+             ext: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The stream convolution by the Toeplitz matrices of ``conv_matrices``:
+    y[b] = x[b] @ T0 + x[b - 1] @ T1, x[-1] = ``carry_row`` (zeros when
+    None).  Returns (out, last row), the carry of the next call.
+
+    ``ext`` (``ext_width``, num_taps - 1) selects the banded form: ``t1`` is
+    then the (E, T) band T1[T - E:, :], the previous block's last E samples,
+    and the second product (B, E) @ (E, T); ``ext=0`` (a flat channel)
+    drops the ISI term; ``ext=None`` keeps the dense (T, T) ``t1``."""
+    T = blocks.shape[-1]
+    if carry_row is None:
+        carry_row = blocks.new_zeros((T,))
+    with fp32_matmul():
+        out = blocks @ _matrix(t0, blocks)
+        if ext is None or ext > 0:
+            prev = torch.cat([carry_row.to(blocks.dtype)[None, :], blocks[:-1]], dim=0)
+            out = out + (prev if ext is None else prev[:, T - ext :]) @ _matrix(t1, blocks)
+    return out, blocks[-1].clone()
+
+
+def demodulate(y: torch.Tensor, n: int, prefix: PrefixType, L: int) -> torch.Tensor:
+    """(B, T) received blocks -> (B, N) unequalized frequency symbols: y @ R."""
+    with fp32_matmul():
+        return y @ _matrix(rx_matrix(n, prefix, L), y)

@@ -9,7 +9,10 @@ encodes by the table (``encode_indices``) and demaps with the JAX
 package's complex-path slicer (``decode_hard``: round and clip to the QAM
 grid, then the ``inv_index`` gather; the PSK sector by arctan2).  The bit
 loading (``bit_loading_orders``) picks each subcarrier's order for
-adaptive modulation, as ``ofdm_tpu.ops.mapping`` does.
+adaptive modulation, as ``ofdm_tpu.ops.mapping`` does.  The bit-level
+functions (``bits_to_indices``, ``indices_to_bits``, ``encode``,
+``decode_nn``, ``decode_bits``) are the JAX package's, for callers that
+build a link from bits by hand.
 """
 
 from __future__ import annotations
@@ -145,6 +148,59 @@ def decode_hard(symbols: torch.Tensor, const: Constellation) -> torch.Tensor:
     if const.coding == "none":
         return sector
     return sector ^ (sector >> 1)
+
+
+# --- bit-level encode / decode (ofdm_tpu.ops.mapping) ----------------------------
+
+
+def bits_to_indices(bits: torch.Tensor, bits_per_symbol: int) -> torch.Tensor:
+    """Pack bit groups (..., bits_per_symbol) MSB-first into int32 indices."""
+    weights = torch.tensor(1 << np.arange(bits_per_symbol - 1, -1, -1), dtype=torch.int32, device=bits.device)
+    return (bits.to(torch.int32) * weights).sum(dim=-1, dtype=torch.int32)
+
+
+def indices_to_bits(indices: torch.Tensor, bits_per_symbol: int) -> torch.Tensor:
+    """Unpack integer indices into (..., bits_per_symbol) uint8 bits, MSB-first."""
+    shifts = torch.arange(bits_per_symbol - 1, -1, -1, dtype=indices.dtype, device=indices.device)
+    return ((indices[..., None] >> shifts) & 1).to(torch.uint8)
+
+
+def encode(bits: torch.Tensor, const: Constellation, dtype=torch.complex64) -> torch.Tensor:
+    """Map bits (..., bits_per_symbol) to constellation symbols (...,)."""
+    return encode_indices(bits_to_indices(bits, const.bits_per_symbol), const, dtype)
+
+
+# Symbols a block of ``decode_nn``: at M = 1024 a (2^16, M) f32 score plane
+# is 256 MB, so a 2^26-symbol plane never forms its whole score matrix.
+NN_ROWS = 1 << 16
+
+
+def decode_nn(symbols: torch.Tensor, const: Constellation, rows: int = NN_ROWS) -> torch.Tensor:
+    """Nearest-neighbour demap to int64 table indices: argmax_j of
+    2 Re(y conj(c_j)) - |c_j|^2 in f32 (argmin_j |y - c_j|^2), the first
+    maximum on a tie, as the JAX package's ``decode_nn`` scores each point
+    (its (S, 2) @ (2, M) product plus the bias row).  Runs ``rows`` symbols
+    at a time; each score depends on its own symbol only, so the result
+    does not depend on ``rows``."""
+    dev = symbols.device
+    c = const.table
+    cr = torch.tensor((2.0 * c.real).astype(np.float32), device=dev)
+    ci = torch.tensor((2.0 * c.imag).astype(np.float32), device=dev)
+    bias = torch.tensor((-np.abs(c) ** 2).astype(np.float32), device=dev)
+    y = symbols.reshape(-1)
+    out = torch.empty(y.shape, dtype=torch.int64, device=dev)
+    for r0 in range(0, y.shape[0], rows):
+        b = y[r0 : r0 + rows]
+        scores = b.real.to(torch.float32)[:, None] * cr + b.imag.to(torch.float32)[:, None] * ci + bias
+        out[r0 : r0 + rows] = torch.argmax(scores, dim=-1)
+    return out.reshape(symbols.shape)
+
+
+def decode_bits(symbols: torch.Tensor, const: Constellation, hard: bool = True) -> torch.Tensor:
+    """Demap symbols (...,) to bits (..., bits_per_symbol) uint8: by the
+    O(1) slicer (``decode_hard``) or, with ``hard=False``, by ``decode_nn``."""
+    idx = decode_hard(symbols, const) if hard else decode_nn(symbols, const)
+    return indices_to_bits(idx, const.bits_per_symbol)
 
 
 # --- gap-function bit loading (host, float64) -----------------------------------

@@ -1,4 +1,4 @@
-"""Link metrics: index-word bit/symbol errors, PAPR, BER intervals.
+"""Link metrics: bit and index-word bit/symbol errors, PAPR, BER intervals.
 
 SER compares transmitted and received table indices, which equals the
 reference's re-encode-and-compare (simulation/models.py:604-608).  PAPR is
@@ -21,6 +21,15 @@ def popcount(x: torch.Tensor) -> torch.Tensor:
     x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
     x = (x + (x >> 4)) & 0x0F0F0F0F
     return (x * 0x01010101 & 0xFFFFFFFF) >> 24
+
+
+def bit_errors(tx_bits: torch.Tensor, rx_bits: torch.Tensor) -> torch.Tensor:
+    """Count differing bits (uint8 tensors of any equal shape) -> int64 scalar.
+
+    The JAX package counts in int32, exact below 2^31 bits a call; int64
+    is the port's counter type (the chunk kernels' counters too), exact at
+    any size a device holds."""
+    return (tx_bits != rx_bits).sum(dtype=torch.int64)
 
 
 def index_bit_errors(tx_idx: torch.Tensor, rx_idx: torch.Tensor, max_bits=None) -> torch.Tensor:

@@ -1,12 +1,12 @@
-"""OFDM / SC-FDE modulation of the eager chain: ortho (I)DFT, framing, guards.
+"""OFDM / SC-FDE modulation of the eager chain: guards around the ortho (I)DFT.
 
-The port's copy of ``ofdm_tpu.ops.dft`` (``fft_ortho`` / ``ifft_ortho``),
-``ofdm_tpu.ops.framing`` and ``ofdm_tpu.ops.ofdm`` on native complex
-tensors, for the eager chain (``pipeline.eager_chunk``).  The JAX package
-runs these outside any Pallas kernel, so the transforms are PyTorch's
-``torch.fft`` with ``norm="ortho"``, in the input's complex type (complex64
-on the chain).  Every function works on ``(..., N)`` or ``(..., N + L)``
-blocks.
+The port's copy of ``ofdm_tpu.ops.ofdm`` on native complex tensors, for
+the eager chain (``pipeline.eager_chunk``) and the bit-level chain.  The
+transforms are ``ops.dft.fft_ortho`` / ``ifft_ortho`` (PyTorch's
+``torch.fft`` with ``norm="ortho"``, in the input's complex type);
+``to_parallel`` / ``to_serial`` live in ``ops.framing`` and are imported
+here too, where earlier callers find them.  Every function works on
+``(..., N)`` or ``(..., N + L)`` blocks.
 
 Reference semantics (modulation/models.py, prefix/models.py):
   * OFDM TX: IFFT(norm="ortho") then prefix; RX: strip prefix, FFT(ortho)
@@ -20,34 +20,8 @@ from __future__ import annotations
 import torch
 
 from ofdm_tpu_torch.config import PrefixType
-
-
-def fft_ortho(x: torch.Tensor, n: int) -> torch.Tensor:
-    """Orthonormal DFT over the last axis."""
-    return torch.fft.fft(x, n=n, dim=-1, norm="ortho")
-
-
-def ifft_ortho(x: torch.Tensor, n: int) -> torch.Tensor:
-    """Orthonormal inverse DFT over the last axis."""
-    return torch.fft.ifft(x, n=n, dim=-1, norm="ortho")
-
-
-def to_parallel(data: torch.Tensor, num_streams: int) -> torch.Tensor:
-    """1D stream -> (blocks, num_streams); validates divisibility."""
-    if data.ndim != 1:
-        raise ValueError("Input data must be a 1D array.")
-    if num_streams <= 0:
-        raise ValueError("Number of streams must be a positive integer.")
-    if data.shape[0] % num_streams != 0:
-        raise ValueError("Length of data must be divisible by number of streams.")
-    return data.reshape(-1, num_streams)
-
-
-def to_serial(data: torch.Tensor) -> torch.Tensor:
-    """(blocks, num_streams) -> flat 1D stream."""
-    if data.ndim != 2:
-        raise ValueError("Input data must be a 2D array.")
-    return data.reshape(-1)
+from ofdm_tpu_torch.ops.dft import fft_ortho, ifft_ortho
+from ofdm_tpu_torch.ops.framing import to_parallel, to_serial  # noqa: F401 (their old home)
 
 
 def add_prefix(x: torch.Tensor, prefix_type: PrefixType, prefix_length: int) -> torch.Tensor:

@@ -432,10 +432,7 @@ def sampled_tx_papr(idx: torch.Tensor, table, ftx, rows: int = 4096):
         tr, ti = lk.f32_tensor(table.table.real, dev), lk.f32_tensor(table.table.imag, dev)
         encode = lambda i: (tr[i], ti[i])  # noqa: E731
     fr, fi = lk.f32_tensor(ftx[0], dev), lk.f32_tensor(ftx[1], dev)
-    was = torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
-    try:
+    with linops.fp32_matmul():
         peak = torch.zeros((), dtype=torch.float32, device=dev)
         total = torch.zeros((), dtype=torch.float64, device=dev)
         for r0 in range(0, idx.shape[0], rows):
@@ -443,9 +440,6 @@ def sampled_tx_papr(idx: torch.Tensor, table, ftx, rows: int = 4096):
             p, s, _ = mt.papr_stats(sr @ fr - si @ fi, sr @ fi + si @ fr)
             peak = torch.maximum(peak, p)
             total = total + s
-    finally:
-        torch.set_float32_matmul_precision(was[1])
-        torch.backends.cuda.matmul.allow_tf32 = was[0]
     return float(peak), float(total), idx.shape[0] * fr.shape[1]
 
 
