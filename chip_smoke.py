@@ -91,11 +91,19 @@ kernels' carry row on 14 links, and the chunks' carry-in; the sharded runs
 wide fold and mm links among them, two ranks on the card under gloo
 against the shards' single-process runs and a chained emulation) and the
 CLI (``python -m ofdm_tpu_torch``) on the reference's default, adaptive
-and pod-scale configs and on the adaptive one on SC-FDE.
+and pod-scale configs and on the adaptive one on SC-FDE.  Last, the
+examples and tools (``examples_path``): every module of
+``ofdm_tpu_torch.examples`` through its ``main()`` at the JAX script's
+size in a temporary directory, each link on the card and inside z = 5
+of the JAX script's reading, the parity report with its guard grid free
+of MISMATCH, the noise-bump example inside its gates with its PNGs drawn
+(PIL without matplotlib), then the live watcher, the channel plot,
+``trace()`` around a headline run and ``ThroughputMeter``.
 
     python3 chip_smoke.py --nccl-ranks 4
 
-runs only the sharded runs, on four cards under NCCL (one rank a card).
+runs only the sharded runs, on four cards under NCCL (one rank a card);
+``--examples-only`` the build and the examples and tools.
 
 Output: findings on earlier lines; then the kernels JSON line, the card's
 ``nvidia-smi`` name and power limit, and as the last line
@@ -3918,6 +3926,295 @@ def audit_path(card, device):
         raise AssertionError(f"shape audit: {bad}")
 
 
+# The examples and tools: every module of ofdm_tpu_torch.examples
+# through its main() at the JAX script's own size, in a temporary directory,
+# each link's BER at z = BAND_Z against the JAX script's reading at that
+# size (EXAMPLE_READINGS, jax_band_readings.py examples; the noise-bump
+# points against JAX_CPU_READINGS' _Link readings), then the tools.
+EXAMPLE_RUNS = (
+    ("custom_channel_demo", []),
+    ("pod_scale_sweep", []),
+    ("quick_start_adaptive", []),
+    ("adaptive_modulation_demo", []),
+    ("configurable_simulation_demo", []),
+    ("plot_adaptive_constellation_demo", []),
+    ("plot_waterfilling_diagram", []),
+    ("waterfilling_demo", []),
+    ("generate_channel_models", []),
+    ("waterfilling_noise_bump_experiment", []),
+    ("overview", []),
+    ("bit_loading_walkthrough", ["--out", "walkthrough"]),
+    ("parity_report", ["--guard-grid", "--output", "results/parity_report.md"]),
+    ("plot_constellations", ["--output", "constellation_16QAM.png"]),
+)
+EXAMPLE_READING = "the JAX script's own links, CPU, at the script's size and key"
+# The counting kernel of each route (the counters of a chain's error-counting pass).
+ROUTE_COUNTERS = {"diag": ("diag_main", "diag_wide"), "fold": ("fold_main", "fold_wide_main"), "lr": ("lr_main",),
+                  "mm": ("mm_main", "mm_wide_main"), "eager": ("philox_plane",),
+                  "bit-level ops": ("random_u32", "normal_pair"), "small-batch link": ("philox_plane", "normal_pair")}
+TRACE_SYMBOLS = 1 << 24  # the traced headline run (128 chunks)
+ON_CARD = ("cuda", "eager")  # the hotpath_used of a link that ran on the card
+EXAMPLE_READINGS = {
+    "custom_channel_demo/flat_fading": (0, 256000),
+    "custom_channel_demo/two_ray": (1395, 256000),
+    "custom_channel_demo/severe_multipath": (123, 256000),
+    "custom_channel_demo/Lin-Phoong_P2.npy": (9484, 256000),
+    "custom_channel_demo/custom 3-tap": (897, 256000),
+    "pod_scale_sweep/0db": (40504498, 100663296),
+    "pod_scale_sweep/10db": (18859727, 100663296),
+    "pod_scale_sweep/20db": (2133123, 100663296),
+    "pod_scale_sweep/30db": (366, 100663296),
+    "quick_start_adaptive/quick_start": (47, 499790),
+    "adaptive_modulation_demo/fixed_10db": (48104, 512000),
+    "adaptive_modulation_demo/fixed_15db": (14975, 512000),
+    "adaptive_modulation_demo/fixed_20db": (3538, 512000),
+    "adaptive_modulation_demo/fixed_25db": (244, 512000),
+    "adaptive_modulation_demo/adaptive_10db": (73, 184000),
+    "adaptive_modulation_demo/adaptive_15db": (134, 316000),
+    "adaptive_modulation_demo/adaptive_20db": (40, 460000),
+    "adaptive_modulation_demo/adaptive_25db": (89, 692000),
+    "configurable_simulation_demo/10db": (24139, 256000),
+    "configurable_simulation_demo/15db": (7456, 256000),
+    "configurable_simulation_demo/20db": (1780, 256000),
+    "configurable_simulation_demo/25db": (127, 256000),
+    "configurable_simulation_demo/30db": (0, 256000),
+    "plot_adaptive_constellation_demo/adaptive_constellation": (160, 612000),
+    "overview/overview": (27, 230000),
+    "bit_loading_walkthrough/bit_loading_walkthrough": (16, 35568),
+    "parity_report/baseline_sc_qpsk_0db": (8202521, 33554432),
+    "parity_report/baseline_sc_qpsk_10db": (478537, 33554432),
+    "parity_report/baseline_sc_qpsk_20db": (0, 33554432),
+    "parity_report/multipath_64qam_zf_30db": (1879599, 100663296),
+    "parity_report/multipath_64qam_mmse_30db": (1914034, 100663296),
+    "parity_report/CYCLIC-ZF-0.34": (4120790, 100663296),
+    "parity_report/CYCLIC-ZF-0.68": (2675420, 100663296),
+    "parity_report/CYCLIC-ZF-1.0": (1879599, 100663296),
+    "parity_report/CYCLIC-ZF-1.34": (1880388, 100663296),
+    "parity_report/CYCLIC-MMSE-0.34": (4124125, 100663296),
+    "parity_report/CYCLIC-MMSE-0.68": (2695190, 100663296),
+    "parity_report/CYCLIC-MMSE-1.0": (1914034, 100663296),
+    "parity_report/CYCLIC-MMSE-1.34": (1914601, 100663296),
+    "parity_report/ZERO-ZF-0.34": (4122659, 100663296),
+    "parity_report/ZERO-ZF-0.68": (2675891, 100663296),
+    "parity_report/ZERO-ZF-1.0": (1879397, 100663296),
+    "parity_report/ZERO-ZF-1.34": (1880314, 100663296),
+    "parity_report/ZERO-MMSE-0.34": (4125918, 100663296),
+    "parity_report/ZERO-MMSE-0.68": (2696698, 100663296),
+    "parity_report/ZERO-MMSE-1.0": (1913284, 100663296),
+    "parity_report/ZERO-MMSE-1.34": (1914331, 100663296),
+}
+
+
+def launch_counters():
+    """{name: (wrapper, attribute)} of every launch counter the examples can move."""
+    from ofdm_tpu_torch.ops import fold_kernel as fk
+    from ofdm_tpu_torch.ops import link_kernel as lk
+    from ofdm_tpu_torch.ops import lr_kernel as lrk
+    from ofdm_tpu_torch.ops import mm_kernel as mmk
+    from ofdm_tpu_torch.ops import prng
+
+    return {
+        "diag_main": (lk.diag_chunk, "launches"), "diag_wide": (lk.diag_chunk, "wide_launches"),
+        "power_partials": (lk.diag_chunk, "power_launches"), "norm_factors": (lk.diag_chunk, "norm_launches"),
+        "diag_demap": (lk.diag_chunk, "demap_launches"), "diag_dump": (lk.diag_chunk, "dump_launches"),
+        "fold_main": (fk.fold_chunk, "launches"), "fold_power": (fk.fold_chunk, "power_launches"),
+        "fold_wide_main": (fk.fold_chunk, "wide_launches"), "fold_wide_power": (fk.fold_chunk, "wide_power_launches"),
+        "fold_dump": (fk.fold_chunk, "dump_launches"),
+        "lr_main": (lrk.lr_chunk, "launches"), "lr_power": (lrk.lr_chunk, "power_launches"),
+        "lr_dump": (lrk.lr_chunk, "dump_launches"),
+        "mm_front": (mmk.mm_chunk, "front_launches"), "mm_power": (mmk.mm_chunk, "power_launches"),
+        "mm_main": (mmk.mm_chunk, "launches"), "mm_wide_front": (mmk.mm_chunk, "wide_front_launches"),
+        "mm_wide_main": (mmk.mm_chunk, "wide_launches"), "mm_dump": (mmk.mm_chunk, "dump_launches"),
+        "random_u32": (prng.random_u32, "launches"), "philox_plane": (prng.philox_plane, "launches"),
+        "normal_pair": (prng.normal_planes, "launches"), "boxmuller": (lk.boxmuller_sample, "launches"),
+    }
+
+
+def reset_counters(counters):
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+
+
+def read_counters(counters):
+    return {name: getattr(fn, attr) for name, (fn, attr) in counters.items() if getattr(fn, attr)}
+
+
+def example_band(name, rec, reading, source):
+    """Hold one example link's BER at z = BAND_Z against the JAX script's."""
+    from ofdm_tpu_torch.ops import metrics as mt
+
+    je, jb = reading
+    if not mt.ber_equivalent(rec["bit_errors"], rec["total_bits"], je, jb, z=BAND_Z):
+        raise AssertionError(f"{name} {rec['label']}: BER {rec['bit_error_rate']} ({rec['bit_errors']} / "
+                             f"{rec['total_bits']}) outside z={BAND_Z} of {je / jb} ({je} / {jb}; {source})")
+
+
+def nonblank_png(path):
+    """Raise unless ``path`` is a PNG with some ink on it; returns its size."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        lo, hi = im.convert("L").getextrema()
+        if im.format != "PNG" or lo == hi:
+            raise AssertionError(f"{path}: not a drawn PNG ({im.format}, extrema {lo}-{hi})")
+        return im.size
+
+
+def run_example(card, name, argv, counters):
+    """One example through its main(): its records, launches and wall time,
+    with each link's route, where it ran and its band checked."""
+    import importlib
+
+    import torch
+
+    from ofdm_tpu_torch.experiments import noise_bump as nb
+
+    mod = importlib.import_module(f"ofdm_tpu_torch.examples.{name}")
+    reset_counters(counters)
+    t0 = time.perf_counter()
+    if name == "parity_report":
+        recs = []
+        rc = mod.main(argv, records=recs)
+        if rc != 0:
+            raise AssertionError(f"parity_report flagged a MISMATCH (exit status {rc})")
+    else:
+        recs = mod.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters(counters)
+    for rec in recs:
+        if rec["hotpath_used"] not in ON_CARD:
+            raise AssertionError(f"{name} {rec['label']}: ran on {rec['hotpath_used']}, not the card")
+        if not any(launches.get(c) for c in ROUTE_COUNTERS[rec["kernel_mode"]]):
+            raise AssertionError(f"{name} {rec['label']}: route {rec['kernel_mode']} launched none of "
+                                 f"{ROUTE_COUNTERS[rec['kernel_mode']]} ({launches})")
+        key = f"{name}/{rec['label']}"
+        if name == "waterfilling_noise_bump_experiment" or rec["label"].startswith("noise_bump_"):
+            scenario, snr = rec["label"].removeprefix("noise_bump_").rsplit("_", 1)
+            example_band(name, rec, JAX_CPU_READINGS[noise_bump_name(scenario, float(snr[:-2]))],
+                         "the JAX package's _Link, CPU, 2^16 OFDM symbols")
+        else:
+            example_band(name, rec, EXAMPLE_READINGS[key], EXAMPLE_READING)
+    if name == "waterfilling_noise_bump_experiment":
+        bers = {(r["label"].rsplit("_", 1)[0], float(r["label"].rsplit("_", 1)[1][:-2])): r["bit_error_rate"]
+                for r in recs}
+        for s in nb.SCENARIOS:
+            for snr, ref in zip((0.0, 15.0, 30.0), NOISE_BUMP_REFERENCE[s.key]):
+                if not abs(bers[(s.key, snr)] - ref) < NOISE_BUMP_TOL:
+                    raise AssertionError(f"noise-bump example {s.key} {snr} dB: BER {bers[(s.key, snr)]} vs {ref}")
+        symbols = nb.default_fused_symbols(None) * len(recs)
+        for r in recs:
+            r["ofdm_symbols_per_s"] = symbols / wall  # the example's wall clock over its fused symbols
+    links = "; ".join(f"{r['label']}: {r['kernel_mode']} ({r['hotpath_used']}), BER {r['bit_error_rate']:.6g} "
+                      f"({r['bit_errors']} / {r['total_bits']}), {r['ofdm_symbols_per_s']:.4g} OFDM syms/s"
+                      for r in recs)
+    print(f"example {name} [{card}]: {wall:.2f} s, {len(recs)} links{': ' + links if links else ''}; "
+          f"launches {json.dumps(launches)}")
+    return recs, launches, wall
+
+
+def tools_checks(card, device):
+    """watch --once and channel_plots write PNGs; trace() names the headline
+    run's kernels; ThroughputMeter counts its OFDM symbols."""
+    from ofdm_tpu_torch.pipeline import LinkRunner, prepare
+    from ofdm_tpu_torch.utils import channel_plots, profiling, watch
+    from ofdm_tpu_torch.utils.report import ResultsManager
+
+    rm = ResultsManager("watch", "watch_images", doc_figures_dir=None)
+    watch.clear_results_file(str(rm.csv_path))
+    for name, snr, ber in (("fixed", 10.0, 0.1), ("fixed", 20.0, 0.01), ("adaptive", 10.0, 0.05),
+                           ("adaptive", 20.0, 0.002)):
+        rm.update_ber_csv(name, snr, ber)
+    rc = watch.main(["--results", str(rm.csv_path), "--output", "watch/ber_vs_snr_live.png", "--once"])
+    size = nonblank_png("watch/ber_vs_snr_live.png")
+    rc2 = channel_plots.main(["severe_multipath", "--out", "channel_response.png"])
+    size2 = nonblank_png("channel_response.png")
+    print(f"tools: watch --once exit {rc}, ber_vs_snr_live.png {size}; channel_plots exit {rc2}, "
+          f"channel_response.png {size2}")
+    if rc or rc2:
+        raise AssertionError("watch or channel_plots exited non-zero")
+
+    runner = LinkRunner(prepare(headline_cfg(TRACE_SYMBOLS, MAIN_CHUNK)), device)
+    runner.run(1)  # warm-up
+    with profiling.trace("trace") as prof:
+        r = runner.run(MAIN_SEED)
+    names = {e.key for e in prof.key_averages()}
+    found = {k: sorted(n for n in names if k in n)[:2] for k in ("diag_main", "power_partials")}
+    files = os.listdir("trace")
+    print(f"trace() around the headline run ({TRACE_SYMBOLS} OFDM symbols) [{card}]: {len(names)} event names, "
+          f"{json.dumps(found)}; files {files}")
+    if not all(found.values()) or not files:
+        raise AssertionError(f"trace() recorded {found}, files {files}")
+
+    meter = profiling.ThroughputMeter()
+    with meter.section(runner.setup.num_ofdm_symbols, runner.setup.total_bits):
+        r = runner.run(MAIN_SEED)
+    print(f"ThroughputMeter [{card}]: {meter.report()}; run()'s own ofdm_symbols_per_s "
+          f"{r['ofdm_symbols_per_s']:.1f}")
+    if meter.ofdm_symbols != TRACE_SYMBOLS or meter.bits != r["total_bits"] or \
+            not meter.ofdm_symbols_per_s <= r["ofdm_symbols_per_s"]:
+        raise AssertionError(f"ThroughputMeter: {meter} against the run's {r['ofdm_symbols_per_s']}")
+
+
+def examples_path(card, device):
+    """Every example through its main() on the card and the tools, in a
+    temporary directory; raises on any failed check."""
+    import tempfile
+
+    import torch
+
+    from ofdm_tpu_torch.utils import visualization as vis
+
+    t_phase = time.perf_counter()
+    counters = launch_counters()
+    cwd = os.getcwd()
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            for name, argv in EXAMPLE_RUNS:
+                recs, launches[name], _ = run_example(card, name, argv, counters)
+            pngs = [f for _, _, fs in os.walk("images") for f in fs if f.endswith(".png")]
+            print(f"noise-bump example: {len(pngs)} PNGs under images/ (drawn with "
+                  f"{'matplotlib' if vis.have_matplotlib() else 'PIL'})")
+            if len(pngs) != 22:
+                raise AssertionError(f"the noise-bump example wrote {len(pngs)} PNGs, not 21 + 1")
+            for path in ("adaptive_constellation.png", "waterfilling_diagram.png", "waterfilling_demo.png",
+                         "walkthrough/bit_loading_constellation.png", "walkthrough/bit_loading_water_level.png",
+                         "constellation_16QAM.png", *[os.path.join(r, f) for r, _, fs in os.walk("images")
+                                                     for f in fs]):
+                nonblank_png(path)
+            with open("results/parity_report.md") as fh:
+                report = fh.read()
+            if "MISMATCH" in report:
+                raise AssertionError("parity report holds a MISMATCH")
+            tools_checks(card, device)
+        finally:
+            os.chdir(cwd)
+    torch.cuda.synchronize()
+    print(f"examples and tools phase [{card}]: {time.perf_counter() - t_phase:.1f} s; launches by example "
+          f"{json.dumps(launches)}")
+    return launches
+
+
+def examples_main():
+    """``--examples-only``: the build, then only the examples and tools phase."""
+    import torch
+
+    from ofdm_tpu_torch import build
+
+    t0 = time.perf_counter()
+    card = card_line()
+    secs = build.build(build.SOURCES)
+    print(f"build: {time.perf_counter() - t0:.1f} s ({len(secs)} libraries)")
+    examples_path(card, torch.device("cuda"))
+    print(f"chip_smoke --examples-only: {time.perf_counter() - t0:.1f} s in all")
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def nccl_main(ranks):
     """``--nccl-ranks N``: only the sharded runs on N cards under NCCL, one
     rank a card (``multi_rank_path``), after the build."""
@@ -3948,6 +4245,8 @@ def main():
         return 1
     if "--nccl-ranks" in sys.argv:
         return nccl_main(int(sys.argv[sys.argv.index("--nccl-ranks") + 1]))
+    if "--examples-only" in sys.argv:
+        return examples_main()
     from ofdm_tpu_torch import build
     from ofdm_tpu_torch.ops import link_kernel as lk
     from ofdm_tpu_torch.ops import prng
@@ -4118,8 +4417,13 @@ def main():
     t_sweep = time.perf_counter()
     probe_entries = probe_path(card, device) + [e for e in dense_wide if e["name"].endswith("_probe")]
     cli_s = sweep_path(card, device, probe_entries)
-    print(f"sweep and shards phase: {time.perf_counter() - t_sweep:.1f} s (CLI s a point {json.dumps(cli_s)}); "
-          f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
+    print(f"sweep and shards phase: {time.perf_counter() - t_sweep:.1f} s (CLI s a point {json.dumps(cli_s)})")
+
+    # 14. the examples and tools: every example of ofdm_tpu_torch.examples
+    # through its main() at the JAX script's size, watch, channel_plots,
+    # trace and ThroughputMeter
+    examples_path(card, device)
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
 
     # the one-pass chunks' pipe-aware bounds (diag_layout) beside their uniform ones
     one_pass = {"noise_bump_64": bump, "wf_64": next(e for e in staged if e["name"].startswith("diag_chunk")),

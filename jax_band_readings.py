@@ -3,7 +3,7 @@
     JAX_PLATFORMS=cpu python jax_band_readings.py [group ...]
 
 Groups (all by default): bands, adaptive_scfde, noise_bump, bitlevel,
-audit.
+audit, examples.
 
 Runs each of ``chip_smoke.BAND_LINKS`` (the audit's 8-PSK and adaptive
 links), the reference's adaptive config at 15 / 20 / 25 dB and
@@ -27,6 +27,10 @@ with the JAX package's own functions and ``jax.random`` (key
 n) OFDM symbols in chunks of min(4096, 2^20 / n).  Prints
 ``{"chip_smoke.JAX_CPU_READINGS": {name: [bit errors, bits]}}`` and
 ``{"shape_audit.READINGS": {...}}``, the values of those two tables.
+Then (group examples) every link of the JAX package's ``examples/`` at
+the script's own size and key (``example_readings``), printed as
+``{"chip_smoke.EXAMPLE_READINGS": {...}}``; the noise-bump study's and
+the parity report's noise-bump points are the noise_bump group's.
 About 8 min on one CPU; the bitlevel and audit groups 82 s of them on 8
 cores.
 
@@ -186,9 +190,10 @@ def bitlevel_headline_reading(num_ofdm=BITLEVEL_SYMBOLS):
     return [int(jmt.bit_errors(tx, rx)), int(tx.size)]
 
 
-def bitlevel_adaptive_reading(num_ofdm=BITLEVEL_SYMBOLS):
+def bitlevel_adaptive_reading(num_ofdm=BITLEVEL_SYMBOLS, seed=0):
     """examples/overview.py's chain (its functions, jax.random) at ``num_ofdm``
-    OFDM symbols: chip_smoke.bitlevel_adaptive's reference."""
+    OFDM symbols under ``PRNGKey(seed)``: chip_smoke.bitlevel_adaptive's
+    reference (seed 0), and examples/overview.py's own run (seed 42)."""
     n, snr_db = 64, 20.0
     raw = chm.get_channel("Lin-Phoong_P1")
     taps = jnp.asarray(chm.normalize_impulse_response(raw), jnp.complex64)
@@ -198,7 +203,7 @@ def bitlevel_adaptive_reading(num_ofdm=BITLEVEL_SYMBOLS):
     L = chm.channel_order(raw)
     power = jal.waterfilling(float(n), gains, noise_power)
     mapper = jad.make_adaptive_mapper("QAM", jmp.qam_bit_loading_orders(1e-3, power * gains / noise_power))
-    kbits, knoise = jax.random.split(jax.random.PRNGKey(0))
+    kbits, knoise = jax.random.split(jax.random.PRNGKey(seed))
     tx = jbits.random_bits(kbits, (num_ofdm, mapper.bits_per_ofdm_symbol))
     symbols, _ = jad.encode(tx, mapper)
     symbols = symbols * jnp.sqrt(jnp.asarray(power)).astype(symbols.dtype)
@@ -210,6 +215,154 @@ def bitlevel_adaptive_reading(num_ofdm=BITLEVEL_SYMBOLS):
     eqd = jnp.where(p > 1e-10, eqd / jnp.sqrt(p), eqd)
     rx_bits, _ = jad.decode(eqd, mapper)
     return [int(jmt.bit_errors(tx, rx_bits)), int(tx.size)]
+
+
+def walkthrough_reading(num_ofdm=10_000 // 64, snr_db=20.0, ser=1e-3, channel="Lin-Phoong_P2", n=64):
+    """examples/bit_loading_walkthrough.py's link (steps 1-9, QAM, P = 1,
+    PRNGKey(0)) at ``num_ofdm`` OFDM symbols: [bit errors, bits]."""
+    noise_power = 1.0 / 10.0 ** (snr_db / 10.0)
+    taps = chm.normalize_impulse_response(chm.get_channel(channel))
+    h_freq = chm.channel_frequency_response(taps, n)
+    gains = chm.channel_gains(taps, n)
+    power = jal.waterfilling(1.0, gains, noise_power)
+    orders = jmp.bit_loading_orders("QAM", ser, power * gains / (noise_power / n))
+    mapper = jad.make_adaptive_mapper("QAM", orders)
+    k_bits, k_chan = jax.random.split(jax.random.PRNGKey(0))
+    tx = jbits.random_bits(k_bits, (num_ofdm, mapper.bits_per_ofdm_symbol))
+    symbols, _ = jad.encode(tx, mapper)
+    sqrt_power = jnp.sqrt(jnp.asarray(power, jnp.float32))
+    blocks = jofdm.ofdm_modulate(symbols * sqrt_power[None, :], n, PrefixType.CYCLIC, len(taps) - 1)
+    rx, _ = jch.transmit(k_chan, blocks, jnp.asarray(taps), snr_db)
+    freq = jofdm.ofdm_demodulate_to_freq(rx, n, PrefixType.CYCLIC, len(taps) - 1)
+    eqd = jeq.equalize(freq, jnp.asarray(h_freq), EqualizationMethod.MMSE, snr_db)
+    comp = jnp.where(sqrt_power > 1e-10, 1.0 / jnp.maximum(sqrt_power, 1e-10), 0.0)
+    rx_bits, _ = jad.decode(eqd * comp[None, :], mapper)
+    return [int(jmt.bit_errors(tx, rx_bits)), int(tx.size)]
+
+
+def _counts(r):
+    return [int(r["bit_errors"]), int(r["total_bits"])]
+
+
+_KEY = jax.random.PRNGKey(0)
+_ADAPTIVE = dict(num_subcarriers=64, channel_type="CUSTOM", equalization_method=EqualizationMethod.MMSE,
+                 power_allocation_type="WATERFILLING", adaptive_modulation_mode="CAPACITY_BASED")
+
+
+def custom_channel_demo_reading(num_ofdm=1000):
+    from ofdm_tpu.pipeline import simulate
+
+    base = SimulationConfig(num_symbols=64 * num_ofdm, num_subcarriers=64, constellation_order=16,
+                            channel_type="CUSTOM", equalization_method=EqualizationMethod.MMSE, snr_db=20.0)
+    out = {name: _counts(simulate(base.replace(channel_model=name), _KEY))
+           for name in ("flat_fading", "two_ray", "severe_multipath")}
+    out["Lin-Phoong_P2.npy"] = _counts(simulate(base.replace(channel_model="config/channel_models/Lin-Phoong_P2.npy"),
+                                                _KEY))
+    out["custom 3-tap"] = _counts(simulate(base, _KEY, channel_ir=np.array([1.0 + 0.0j, 0.4 - 0.2j, 0.1 + 0.1j])))
+    return out
+
+
+def pod_scale_sweep_reading(qam_symbols=1 << 24, n=1024):
+    """ShardedLinkRunner.run_grid on this process's devices, as the script runs it."""
+    from ofdm_tpu.parallel import ShardedLinkRunner, make_mesh
+
+    mesh = make_mesh()
+    n_dev = mesh.devices.size
+    num_ofdm = qam_symbols // n
+    num_ofdm -= num_ofdm % n_dev
+    cfg = SimulationConfig(num_symbols=num_ofdm * n, num_subcarriers=n, constellation_order=64,
+                           channel_type="CUSTOM", channel_model="severe_multipath", prefix_type=PrefixType.CYCLIC,
+                           prefix_length_ratio=1.0, equalization_method=EqualizationMethod.MMSE, snr_db=20.0,
+                           symbols_per_chunk=min(num_ofdm, 8192 * n_dev))
+    rs = ShardedLinkRunner(prepare(cfg), mesh=mesh).run_grid(_KEY, (0.0, 10.0, 20.0, 30.0))
+    return {f"{r['snr_db']:.0f}db": _counts(r) for r in rs}
+
+
+def quick_start_adaptive_reading(num_bits=500_000):
+    cfg = SimulationConfig(num_bits=num_bits, channel_model="Lin-Phoong_P1", desired_symbol_error_rate=1e-3,
+                           snr_db=20.0, **_ADAPTIVE)
+    return {"quick_start": _counts(LinkRunner(prepare(cfg)).run(_KEY))}
+
+
+def adaptive_modulation_demo_reading(num_ofdm=2000):
+    from ofdm_tpu.config import AdaptiveModulationMode
+    from ofdm_tpu.parallel import run_sweep
+
+    base = SimulationConfig(num_symbols=64 * num_ofdm, num_subcarriers=64, constellation_order=16,
+                            channel_type="CUSTOM", channel_model="Lin-Phoong_P1",
+                            equalization_method=EqualizationMethod.MMSE, power_allocation_type="WATERFILLING",
+                            snr_db=20.0)
+    out = {}
+    for mode, cfg in (("fixed", base), ("adaptive", base.replace(
+            num_symbols=num_ofdm, adaptive_modulation_mode=AdaptiveModulationMode.CAPACITY_BASED))):
+        for r in run_sweep(cfg, snrs=[10.0, 15.0, 20.0, 25.0], sharded=False, key=_KEY):
+            out[f"{mode}_{r['snr_db']:.0f}db"] = _counts(r)
+    return out
+
+
+def configurable_simulation_demo_reading(num_ofdm=1000):
+    from ofdm_tpu.parallel import run_sweep
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "config/simulation_settings_waterfilling.json")
+    cfgs = SimulationConfig.from_json(path)
+    rs = run_sweep(cfgs[0].replace(num_symbols=64 * num_ofdm), snrs=[c.snr_db for c in cfgs], sharded=False,
+                   key=_KEY)
+    return {f"{r['snr_db']:.0f}db": _counts(r) for r in rs}
+
+
+def plot_adaptive_constellation_demo_reading(num_ofdm=2000):
+    cfg = SimulationConfig(num_symbols=num_ofdm, channel_model="severe_multipath", snr_db=22.0, **_ADAPTIVE)
+    return {"adaptive_constellation": _counts(LinkRunner(prepare(cfg)).run(_KEY, collect_symbols=32768))}
+
+
+def parity_report_reading(points=1 << 18, guard_grid=True):
+    """The report's sweeps and (``guard_grid``) its 16 guard cells; its
+    noise-bump rows are the noise_bump group's."""
+    from ofdm_tpu.parallel import run_sweep
+    from ofdm_tpu_torch.examples import parity_report as tpr
+
+    campaign = dict(num_symbols=64 * points, num_subcarriers=64, channel_type="CUSTOM",
+                    symbols_per_chunk=min(points, 1 << 17))
+    sweeps = (("baseline_sc_qpsk", SimulationConfig(
+        constellation_order=4, modulation_type="SC-OFDM", channel_model="Lin-Phoong_P1", prefix_type="CYCLIC",
+        equalization_method="ZF", snr_db=20.0, **campaign), [0.0, 10.0, 20.0]),
+        ("multipath_64qam_zf", SimulationConfig(constellation_order=64, channel_model="Lin-Phoong_P2",
+                                                equalization_method="ZF", snr_db=30.0, **campaign), [30.0]),
+        ("multipath_64qam_mmse", SimulationConfig(constellation_order=64, channel_model="Lin-Phoong_P2",
+                                                  equalization_method="MMSE", snr_db=30.0, **campaign), [30.0]))
+    out = {}
+    for name, cfg, snrs in sweeps:
+        for r in run_sweep(cfg, snrs=snrs, sharded=False, key=_KEY):
+            out[f"{name}_{r['snr_db']:.0f}db"] = _counts(r)
+    for cell in tpr.GUARD_GRID_REFERENCE if guard_grid else ():
+        ptype, eqm, ratio = cell.split("-")
+        cfg = SimulationConfig(constellation_order=64, channel_model="Lin-Phoong_P2", prefix_type=ptype,
+                               prefix_length_ratio=float(ratio), equalization_method=eqm, snr_db=30.0, **campaign)
+        out[cell] = _counts(run_sweep(cfg, snrs=[30.0], sharded=False, key=_KEY)[0])
+    return out
+
+
+# Each JAX example's links at the script's own size: {label: [bit errors, bits]}.
+EXAMPLES = {
+    "custom_channel_demo": custom_channel_demo_reading,
+    "pod_scale_sweep": pod_scale_sweep_reading,
+    "quick_start_adaptive": quick_start_adaptive_reading,
+    "adaptive_modulation_demo": adaptive_modulation_demo_reading,
+    "configurable_simulation_demo": configurable_simulation_demo_reading,
+    "plot_adaptive_constellation_demo": plot_adaptive_constellation_demo_reading,
+    "overview": lambda num_ofdm=1000: {"overview": bitlevel_adaptive_reading(num_ofdm, seed=42)},
+    "bit_loading_walkthrough": lambda num_ofdm=10_000 // 64: {"bit_loading_walkthrough": walkthrough_reading(num_ofdm)},
+    "parity_report": parity_report_reading,
+}
+
+
+def example_readings():
+    """{"<example>/<label>": [bit errors, bits]}: every link of the JAX
+    package's examples/ at the script's own size, keyed PRNGKey(0)
+    (overview.py PRNGKey(42)) as the scripts key them; the labels are the
+    port's ``ofdm_tpu_torch.examples`` records'.  The noise-bump study's
+    points are the noise_bump group's."""
+    return {f"{name}/{label}": v for name, fn in EXAMPLES.items() for label, v in fn().items()}
 
 
 def audit_readings():
@@ -237,14 +390,17 @@ GROUPS = {
 
 
 def main(argv):
-    groups = argv or [*GROUPS, "audit"]
+    groups = argv or [*GROUPS, "audit", "examples"]
     out = {}
     for g in groups:
-        if g != "audit":
+        if g in GROUPS:
             out.update(GROUPS[g]())
-    print(json.dumps({"chip_smoke.JAX_CPU_READINGS": out}, indent=1))
+    if out:
+        print(json.dumps({"chip_smoke.JAX_CPU_READINGS": out}, indent=1))
     if "audit" in groups:
         print(json.dumps({"shape_audit.READINGS": audit_readings()}, indent=1))
+    if "examples" in groups:
+        print(json.dumps({"chip_smoke.EXAMPLE_READINGS": example_readings()}, indent=1))
     return 0
 
 

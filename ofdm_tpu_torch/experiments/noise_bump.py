@@ -50,6 +50,7 @@ from ofdm_tpu_torch.ops import metrics as mt
 from ofdm_tpu_torch.ops import ofdm
 from ofdm_tpu_torch.ops import prng
 from ofdm_tpu_torch.pipeline import LinkRunner, prepare
+from ofdm_tpu_torch.utils import visualization as vis
 
 
 @dataclass(frozen=True)
@@ -162,15 +163,34 @@ class _Link:
         return errors / (B * n * self.const.bits_per_symbol), noisy.reshape(-1).cpu().numpy()
 
 
+def fused_config(num_ofdm_symbols: int, num_subcarriers: int, order: int, channel: str,
+                 chunk: int = 1 << 17) -> SimulationConfig:
+    """The study's fused link (the JAX package's ``_FusedLink``): ``order``-QAM
+    over the named channel, CP ratio 1.0, MMSE, no channel noise, both
+    power switches on, ``num_ofdm_symbols`` a point in chunks of ``chunk``."""
+    return SimulationConfig(
+        num_symbols=num_subcarriers * num_ofdm_symbols,
+        num_subcarriers=num_subcarriers,
+        constellation_order=order,
+        channel_type="CUSTOM",
+        channel_model=channel,
+        prefix_type=PrefixType.CYCLIC,
+        prefix_length_ratio=1.0,
+        equalization_method=EqualizationMethod.MMSE,
+        noise_type=NoiseType.NONE,
+        apply_power_allocation=True,
+        normalize_before_demap=True,
+        snr_db=30.0,
+        symbols_per_chunk=min(chunk, num_ofdm_symbols),
+    )
+
+
 class FusedLink:
     """The study's link on its chunk kernel with the noise-bump stages.
 
-    The JAX package's ``_FusedLink`` configuration: ``num_subcarriers``,
-    ``order``-QAM, the named channel, CP ratio 1.0, MMSE, no channel
-    noise, both power switches on; ``num_ofdm_symbols`` a point in chunks of
-    ``chunk`` (which must divide it).  One link serves every point; the
-    runner's chain (``LinkRunner.mode``) picks the chunk wrapper and its
-    workspace.  A link no kernel takes raises (the JAX package's campaign
+    ``fused_config``'s link; ``chunk`` must divide ``num_ofdm_symbols``.
+    One link serves every point; the runner's chain (``LinkRunner.mode``)
+    picks the chunk wrapper and its workspace.  A link no kernel takes raises (the JAX package's campaign
     falls back to its XLA link there; this one does not hide the device).
     ``device=None`` means ``cuda``; ``"cpu"`` runs the plain version."""
 
@@ -179,21 +199,7 @@ class FusedLink:
         chunk = min(chunk, num_ofdm_symbols)
         if num_ofdm_symbols % chunk:
             raise ValueError("num_ofdm_symbols must divide by the chunk size")
-        cfg = SimulationConfig(
-            num_symbols=num_subcarriers * num_ofdm_symbols,
-            num_subcarriers=num_subcarriers,
-            constellation_order=order,
-            channel_type="CUSTOM",
-            channel_model=channel,
-            prefix_type=PrefixType.CYCLIC,
-            prefix_length_ratio=1.0,
-            equalization_method=EqualizationMethod.MMSE,
-            noise_type=NoiseType.NONE,
-            apply_power_allocation=True,
-            normalize_before_demap=True,
-            snr_db=30.0,
-            symbols_per_chunk=chunk,
-        )
+        cfg = fused_config(num_ofdm_symbols, num_subcarriers, order, channel, chunk)
         self.runner = LinkRunner(prepare(cfg), device)
         if self.runner.mode == "eager":
             raise ValueError(f"no chunk kernel takes this noise-bump link at {num_subcarriers} subcarriers: it "
@@ -228,12 +234,19 @@ class FusedLink:
         return int(acc[0].item()) / (self.B * self.n * self.bits)
 
 
-def _plot_point(plt, path, sample, ideal, scenario: Scenario, snr_db: float, ber: float) -> None:
-    """One point's constellation PNG, in the JAX package's layout."""
+def _plot_point(path, sample, ideal, scenario: Scenario, snr_db: float, ber: float) -> None:
+    """One point's constellation PNG, in the JAX package's layout (PIL
+    without matplotlib)."""
+    title = f"{scenario.name}\nSNR = {snr_db} dB | BER = {ber:.3e}"
+    if not vis.have_matplotlib():
+        vis.pil_scatter_figure(sample, ideal, title, lim=2.2, legend=("Received Symbols", "Ideal Constellation"),
+                               figsize=(6, 6)).savefig(path, dpi=200)
+        return
+    plt = vis._pyplot()
     plt.figure(figsize=(6, 6))
     plt.scatter(sample.real, sample.imag, color="tab:blue", alpha=0.15, s=6, label="Received Symbols")
     plt.scatter(ideal.real, ideal.imag, color="tab:red", marker="o", s=30, label="Ideal Constellation")
-    plt.title(f"{scenario.name}\nSNR = {snr_db} dB | BER = {ber:.3e}")
+    plt.title(title)
     plt.xlabel("In-Phase")
     plt.ylabel("Quadrature")
     plt.axhline(0, color="gray", linewidth=0.5)
@@ -246,6 +259,33 @@ def _plot_point(plt, path, sample, ideal, scenario: Scenario, snr_db: float, ber
     plt.tight_layout()
     plt.savefig(path, dpi=200)
     plt.close()
+
+
+def _plot_comparison(path, snr_values, scenario_results: Dict[str, List[float]]) -> None:
+    """The three scenarios' BER curves on one semilogy figure (PIL without matplotlib)."""
+    title = "CP-OFDM BER vs. SNR with Colored Noise Bumps"
+    if not vis.have_matplotlib():
+        series = {s.name: (list(snr_values), scenario_results[s.name]) for s in SCENARIOS}
+        vis.pil_ber_curves(path, series, title, size=(1750, 1250))
+        return
+    plt = vis._pyplot()
+    plt.figure(figsize=(7, 5))
+    for scenario in SCENARIOS:
+        plt.semilogy(snr_values, scenario_results[scenario.name], marker="o", linewidth=2, label=scenario.name)
+    plt.title(title)
+    plt.xlabel("SNR (dB)")
+    plt.ylabel("Bit Error Rate")
+    plt.grid(True, which="both", linestyle=":", alpha=0.6)
+    plt.legend()
+    plt.tight_layout()
+    plt.savefig(path, dpi=250)
+    plt.close()
+
+
+def default_fused_symbols(device) -> int:
+    """OFDM symbols a point of the fused campaign by default: 2^24 on a CUDA
+    device, 0 (the eager-only campaign) on the CPU."""
+    return 1 << 24 if torch.device("cuda" if device is None else device).type == "cuda" else 0
 
 
 def run_noise_bump_experiment(
@@ -279,20 +319,16 @@ def run_noise_bump_experiment(
 
     ``save_plots`` writes each point's constellation PNG under
     ``output_dir/<scenario prefix>/`` and the BER comparison figure, with
-    the JAX package's names and layout.  It defaults to False (the JAX
-    package's to True): it needs matplotlib, which a machine that runs the
-    kernels may not have.  ``device=None`` means ``cuda``."""
+    the JAX package's names and layout (drawn with PIL where matplotlib is
+    missing).  It defaults to False (the JAX package's to True) because
+    each plotted point runs ``_Link`` on top of its fused point: a timed
+    campaign would pay for a small-batch run it does not count.
+    ``device=None`` means ``cuda``."""
     if not 0 <= int(seed) < 1 << 32:
         raise ValueError(f"seed must be in [0, 2^32), got {seed}")
     device = torch.device("cuda" if device is None else device)
     if fused_symbols_per_point is None:
-        fused_symbols_per_point = 1 << 24 if device.type == "cuda" else 0
-    plt = None
-    if save_plots:
-        import matplotlib
-
-        matplotlib.use("Agg")
-        import matplotlib.pyplot as plt
+        fused_symbols_per_point = default_fused_symbols(device)
     link = _Link(num_ofdm_symbols, num_subcarriers, constellation_order, chm.get_channel(channel), device)
     fused = None
     if fused_symbols_per_point:
@@ -316,7 +352,7 @@ def run_noise_bump_experiment(
                 ber = fused.run_point(point_seed + POINT_SEED_BASE, scenario, noise_profile, float(snr_db))
             bers.append(ber)
             if save_plots:
-                _plot_point(plt, scen_dir / f"{scenario.short_prefix}-SNR{int(snr_db):02d}dB.png",
+                _plot_point(scen_dir / f"{scenario.short_prefix}-SNR{int(snr_db):02d}dB.png",
                             symbols[:max_plot_symbols], link.const.table, scenario, snr_db, ber)
         scenario_results[scenario.name] = bers
         with (res_dir / f"ber_{scenario.key}_waterfilling_study.csv").open("w", encoding="utf-8") as fp:
@@ -326,16 +362,5 @@ def run_noise_bump_experiment(
 
     if save_plots:
         base_out.mkdir(parents=True, exist_ok=True)
-        plt.figure(figsize=(7, 5))
-        for scenario in SCENARIOS:
-            plt.semilogy(snr_values, scenario_results[scenario.name], marker="o", linewidth=2,
-                         label=scenario.name)
-        plt.title("CP-OFDM BER vs. SNR with Colored Noise Bumps")
-        plt.xlabel("SNR (dB)")
-        plt.ylabel("Bit Error Rate")
-        plt.grid(True, which="both", linestyle=":", alpha=0.6)
-        plt.legend()
-        plt.tight_layout()
-        plt.savefig(base_out / "CP-OFDM-waterfilling-ber-comparison.png", dpi=250)
-        plt.close()
+        _plot_comparison(base_out / "CP-OFDM-waterfilling-ber-comparison.png", snr_values, scenario_results)
     return scenario_results
