@@ -98,12 +98,19 @@ size in a temporary directory, each link on the card and inside z = 5
 of the JAX script's reading, the parity report with its guard grid free
 of MISMATCH, the noise-bump example inside its gates with its PNGs drawn
 (PIL without matplotlib), then the live watcher, the channel plot,
-``trace()`` around a headline run and ``ThroughputMeter``.
+``trace()`` around a headline run and ``ThroughputMeter``.  Before K3,
+the giant path (``giant_path``): the lr and diag chains past 4096
+subcarriers (thread-block clusters), past 63 tail lanes and noise rank
+128, and ``mm_wide`` on the JAX plan's "taps" link, against their plain
+versions and end to end through ``LinkRunner``.
 
     python3 chip_smoke.py --nccl-ranks 4
 
 runs only the sharded runs, on four cards under NCCL (one rank a card);
-``--examples-only`` the build and the examples and tools.
+``--examples-only`` the build and the examples and tools;
+``--giant-only`` the build of the giant path's libraries and the giant
+path; ``--factor-seconds N`` times the host factorization of the giant
+path's severe_multipath CP 0.5 link at N subcarriers.
 
 Output: findings on earlier lines; then the kernels JSON line, the card's
 ``nvidia-smi`` name and power limit, and as the last line
@@ -117,6 +124,7 @@ import subprocess
 import sys
 import time
 
+T_SCRIPT = time.perf_counter()  # the script's start: main's clock misses the torch import and CUDA start
 from ofdm_tpu_torch.shape_audit import AUDIT_BASE  # the audit's base link (64 sc, severe_multipath, 30 dB)
 
 REFERENCE_BER_30DB = 0.01901  # the reference's published BER (bench.py gate)
@@ -652,12 +660,16 @@ def lr_geometry(card, name, link):
           f"D and the equalizer rows, once a group) against {every_row} read once a symbol over all rows")
 
 
+LR_LAYOUT_ROWS = ((63, 128), (159, 159))  # (listed tail lanes, listed noise rows) lr_layouts_fit checks
+
+
 def lr_layouts_fit(card):
-    """lr_main's layout at every width it takes, at the largest tail and
-    noise ranks (its shared memory grows with both), with and without the
-    in-kernel PAPR, in the plain, staged and noise-bump builds: the card
-    gives each a block's shared memory and keeps a block resident, and the
-    groups divide the run, which divides every tile."""
+    """lr_main's layout at every width it takes (1-4096, and 8192, 16384,
+    32768 as clusters under txext) at LR_LAYOUT_ROWS' tail and noise rows
+    (its shared memory grows with both), with and without the in-kernel
+    PAPR, in the plain, staged and noise-bump builds: the card gives each a
+    block's shared memory and keeps a block resident, and the groups divide
+    the run, which divides every tile."""
     import ctypes
 
     from ofdm_tpu_torch import build
@@ -666,21 +678,24 @@ def lr_layouts_fit(card):
 
     out = (ctypes.c_int * len(lrk.GEOMETRY_KEYS))()
     most = {}
+    widths = [(n, txext) for n in range(1, lk.CLUSTER_BINS + 1) for txext in (0, 1)]
+    widths += [(n, 1) for n in (8192, 16384, lrk.MAX_N)]
     for library in ("lr_kernel", "lr_staged", "lr_bump"):
         lib = build.load(library)
-        for n in range(1, lrk.MAX_N + 1):
-            for txext in (0, 1):
-                build.check(lib, lib.ofdm_lr_geometry(n, lrk.MAX_E, lrk.MAX_RANK, 1, txext, out),
-                            f"{library} ofdm_lr_geometry n={n} txext={txext}")
+        for n, txext in widths:
+            for nt, nbh in LR_LAYOUT_ROWS:
+                build.check(lib, lib.ofdm_lr_geometry(n, nt, nbh, txext, out),
+                            f"{library} ofdm_lr_geometry n={n} nt={nt} nbh={nbh} txext={txext}")
                 g = dict(zip(lrk.GEOMETRY_KEYS, out))
                 if g["blocks_an_sm"] < 1 or lrk.RUN % g["group_symbols"] or lrk.RUN % g["power_group_symbols"]:
-                    raise AssertionError(f"lr_main's layout at n={n}, txext={txext} in {library}: {g}")
+                    raise AssertionError(f"lr_main's layout at n={n}, nt={nt}, nbh={nbh}, txext={txext} in "
+                                         f"{library}: {g}")
                 most[library] = max(most.get(library, (0, 0)), (g["dynamic_smem_bytes"] + g["static_smem_bytes"], n))
     bad = [t for t in lk.TILE_LADDER if t % lrk.RUN]
     if bad:
         raise AssertionError(f"tiles {bad} do not hold whole runs of {lrk.RUN}")
-    print(f"lr_main's layout fits at every width 1-{lrk.MAX_N}, E={lrk.MAX_E}, rank={lrk.MAX_RANK} [{card}]: "
-          f"most shared memory a block (bytes, at n) {most}")
+    print(f"lr_main's layout fits at every width 1-{lk.CLUSTER_BINS} and 8192 / 16384 / {lrk.MAX_N}, (tail, noise) "
+          f"rows {LR_LAYOUT_ROWS} [{card}]: most shared memory a block (bytes, at n) {most}")
 
 
 def lr_path(card, device):
@@ -1312,6 +1327,9 @@ JAX_CPU_READINGS = {
     "adaptive_scfde_1024sc_zp_20db": (3847430, 1085800448),
     "bitlevel_headline": (478897, 25165824),
     "bitlevel_adaptive": (1316, 15073280),
+    # the giant path's 1024-sc links (jax_band_readings.py giant: 2^14 OFDM symbols)
+    "long_ir_1024_zp": (403062, 67108864),
+    "taps_1024_zp": (759195, 167772160),
 }
 
 
@@ -4237,6 +4255,416 @@ def nccl_main(ranks):
     return 0
 
 
+# --- the giant path: lr and diag past 4096 subcarriers, E 63 and noise rank 128 -------
+
+GIANT_CHUNK = 1 << 12  # past 4096 sc: 2^25-2^27 bins a chunk, so the plain version's planes fit the card
+GIANT_LONG_CHUNK = 1 << 15  # the long channels at 1024 sc
+GIANT_EAGER_BINS = 1 << 27  # subcarriers x OFDM symbols of each eager twin
+GIANT_IR_SEED = 11  # the seeded long channels' (seeded_taps)
+GIANT_LONG_SNR = 24.0  # the 160-tap link's SNR (16-QAM, ZP 1.0, 1024 sc): BER ~6e-3
+GIANT_READING = "the port's eager chain on this card at the same config"
+GIANT_KW = dict(constellation_order=64, constellation_type="QAM", channel_type="CUSTOM",
+                channel_model="severe_multipath", prefix_type="CYCLIC", prefix_length_ratio=0.5,
+                equalization_method="MMSE", noise_type="AWGN", snr_db=22.0)
+_ZP10 = dict(prefix_type="ZERO", prefix_length_ratio=1.0)
+GIANT_TAPS_KW = dict(num_subcarriers=1024, modulation_type="SC-OFDM", constellation_order=1024, snr_db=34.0,
+                     hotpath="pallas", **_ZP10)
+# The end-to-end runs: config changes, the taps of a seeded channel (None: the
+# model's), OFDM symbols, the chain, and whether the band's reading is the
+# JAX package's XLA path on a CPU (jax_band_readings.py giant; else the
+# eager chain on the card: JAX readings are not taken at full width past
+# 4096 sc).  The 8K / 32K links are the FFT modes of DVB-T2 (ETSI EN 302
+# 755) and ATSC 3.0 (A/322); a 160-tap echo profile is what users load
+# through channel_model_path.  A 16K lr link is not run end to end: its host
+# factorization takes over a minute (``--factor-seconds``, ROADMAP).
+GIANT_RUNS = {
+    "giant_8k_cp05": (dict(num_subcarriers=8192), None, 1 << 16, "lr", False),
+    "giant_8k_zp": (dict(num_subcarriers=8192, **_ZP10), None, 1 << 16, "lr", False),
+    "flat_32k": (dict(num_subcarriers=32768, channel_model="flat_fading", snr_db=21.0), None, 1 << 14, "diag",
+                 False),
+    "long_ir_1024_zp": (dict(num_subcarriers=1024, constellation_order=16, snr_db=GIANT_LONG_SNR, **_ZP10), 160,
+                        1 << 20, "lr", True),
+    # the JAX plan's "taps" row (hotpath "pallas"): SC-FDE, ZP 1.0, 1024-QAM on mm_wide
+    "taps_1024_zp": (dict(GIANT_TAPS_KW), None, 1 << 18, "mm", True),
+}
+# The kernels-line entries: a checked shape (giant_checks) and the run of
+# GIANT_RUNS whose launches it reports.
+GIANT_ENTRIES = {"lr_8k_cp05": "giant_8k_cp05", "lr_8k_zp": "giant_8k_zp", "lr_e159_1024_zp": "long_ir_1024_zp",
+                 "diag_32k": "flat_32k", "mm_wide_taps_1024": "taps_1024_zp"}
+# Checked lr shapes that no end-to-end run drives (their host factorization
+# takes over a minute past 8192 sc, ROADMAP), timed beside the first entry:
+# 32768 sc, and widths whose last 4096-bin slice is short.
+GIANT_UNRUN = ("lr_32k_seeded", "lr_6k_seeded", "lr_10k_zp_seeded")
+
+
+def seeded_taps(k, seed):
+    """A unit-energy k-tap channel with an exponential power profile, from a seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ir = (rng.standard_normal(k) + 1j * rng.standard_normal(k)) * np.exp(-np.arange(k) / (k / 4.0))
+    return ir / np.linalg.norm(ir)
+
+
+def giant_cfg(kw, num_ofdm, chunk):
+    from ofdm_tpu_torch.config import SimulationConfig
+
+    base = dict(GIANT_KW, **kw)
+    return SimulationConfig(**base, num_symbols=num_ofdm * base["num_subcarriers"], symbols_per_chunk=chunk)
+
+
+def giant_ir(taps):
+    return None if taps is None else seeded_taps(taps, GIANT_IR_SEED)
+
+
+def seeded_factors(setup, E, rank, seed):
+    """lowrank.LRFactors of the link's shapes on seeded rows, with no host
+    factorization: D the channel's response, TailM the TX matrix's last E
+    columns (the IDFT's, O(n E)), [Cr; Cp] and the noise factor seeded
+    complex normals at ISI scale."""
+    import numpy as np
+
+    from ofdm_tpu_torch.config import PrefixType
+    from ofdm_tpu_torch.ops import lowrank
+
+    n = setup.cfg.num_subcarriers
+    T = setup.block_length
+    zp = setup.cfg.prefix_type == PrefixType.ZERO
+    rng = np.random.default_rng(seed)
+    cn = lambda *shape: rng.standard_normal(shape) + 1j * rng.standard_normal(shape)  # noqa: E731
+    cols = np.arange(n - E, n) if not zp else np.arange(n - E + (T - n), n)  # the block's last E samples
+    tail = np.exp(2j * np.pi * np.outer(np.arange(n), cols % n) / n) / np.sqrt(n)
+    if zp:  # a zero prefix's guard samples carry nothing
+        tail = np.concatenate([tail, np.zeros((n, E - tail.shape[1]))], axis=1)[:, :E]
+    scale = 0.05 / np.sqrt(E)
+    return lowrank.LRFactors(d=np.asarray(setup.h_freq, np.complex128), tail=tail, cr=scale * cn(E, n),
+                             cp=scale * cn(E, n), bnoise=cn(n, rank) / np.sqrt(n) if rank else None,
+                             pw_scale=n / T if zp else 1.0, E=E)
+
+
+def giant_factor(kw, taps=None):
+    """The host factorization of the giant link ``kw`` (GIANT_KW changes;
+    cached by lr_kernel.lr_factors)."""
+    from ofdm_tpu_torch.ops import lr_kernel as lrk
+    from ofdm_tpu_torch.pipeline import prepare
+
+    return lrk.lr_factors(prepare(giant_cfg(kw, GIANT_CHUNK, GIANT_CHUNK), channel_ir=giant_ir(taps)))
+
+
+def factor_main(n):
+    """``--factor-seconds N``: the seconds of the host factorization
+    (lowrank.factor, float64) of severe_multipath under CP 0.5 at N
+    subcarriers, the step that keeps a 16K lr link out of the giant path."""
+    card = card_line()
+    t0 = time.perf_counter()
+    f = giant_factor(dict(num_subcarriers=n))
+    print(f"giant factorization at {n} sc (lowrank.factor, float64, CP 0.5, severe_multipath; E={f.E}) "
+          f"[{card}]: {time.perf_counter() - t0:.2f} s")
+    return 0
+
+
+def giant_checks(card, device):
+    """Every new variant against its plain version on the card, counts,
+    PAPR and carry row exactly (``compare_chunk``): lr at 8192 sc on real
+    factors (CP 0.5 at two sym0, ZP 1.0, 8-PSK, normalize), at 16384 and
+    32768 on seeded factor rows, and at 6144 and 10000 (a short last
+    slice); lr on the two long channels at 1024 sc (E = 99; E = rank = 159,
+    two g2 rounds); diag at 8192 / 10000 / 16384 / 32768 (plain,
+    normalize, aqam at 8192); mm_wide on the taps-planned link;
+    the dump stage (``capture_check``) on lr at 8192 and diag at 32768.
+    Returns ({name: (link, chunk, kernel, plain)} to time, the largest
+    difference)."""
+    from ofdm_tpu_torch.ops import link_kernel as lk
+    from ofdm_tpu_torch.ops import lr_kernel as lrk
+    from ofdm_tpu_torch.ops import mm_kernel as mmk
+    from ofdm_tpu_torch.pipeline import kernel_mode, prepare
+
+    err, links = 0.0, {}
+
+    def check(name, chain, link, chunk, sym0, snr_db):
+        nonlocal err
+        _, kernel, plain, _ = chains()[chain]
+        tile = lk.tile_for(chunk, link.tile_cap)
+        extra = f", E={link.E}, rank={link.rank}" if chain == "lr" else ""
+        err = max(err, compare_chunk(f"{chain}_chunk {name} (n={link.n}{extra}, tile {tile}, {link.q.mode}, "
+                                     f"stages {lk.link_stages(link)})", kernel, plain, link, sym0, chunk, snr_db,
+                                     device, no_papr=getattr(link, "txext", False)))
+        links.setdefault(name, (link, chunk, kernel, plain))
+
+    def setup_of(kw, taps=None, chunk=GIANT_CHUNK):
+        return prepare(giant_cfg(kw, 4 * chunk, chunk), channel_ir=giant_ir(taps))
+
+    for name, kw, sym0 in (("lr_8k_cp05", dict(num_subcarriers=8192), 3 * GIANT_CHUNK),
+                           ("lr_8k_cp05", dict(num_subcarriers=8192), (1 << 32) + 77),
+                           ("lr_8k_zp", dict(num_subcarriers=8192, **_ZP10), GIANT_CHUNK),
+                           ("lr_8k_psk8", dict(num_subcarriers=8192, constellation_type="PSK", constellation_order=8,
+                                               snr_db=16.0), GIANT_CHUNK),
+                           ("lr_8k_normalize", dict(num_subcarriers=8192, normalize_before_demap=True), GIANT_CHUNK)):
+        setup = setup_of(kw)
+        if kernel_mode(setup) != "lr":
+            raise AssertionError(f"{name} routes to {kernel_mode(setup)}")
+        check(name, "lr", lrk.lr_link(setup, device), GIANT_CHUNK, sym0, setup.cfg.snr_db)
+    for name, kw, E, rank in (("lr_16k_seeded", dict(num_subcarriers=16384), 7, 0),
+                              ("lr_16k_zp_seeded", dict(num_subcarriers=16384, **_ZP10), 7, 7),
+                              ("lr_32k_seeded", dict(num_subcarriers=32768), 7, 0),
+                              # a short last slice: 2048 of 4096 bins; 1808, not a multiple of 256
+                              ("lr_6k_seeded", dict(num_subcarriers=6144), 7, 0),
+                              ("lr_10k_zp_seeded", dict(num_subcarriers=10000, **_ZP10), 7, 7)):
+        setup = setup_of(kw)
+        link = lrk.lr_link(setup, device, factors=seeded_factors(setup, E, rank, GIANT_IR_SEED))
+        check(name, "lr", link, GIANT_CHUNK, GIANT_CHUNK, setup.cfg.snr_db)
+    for name, kw, taps in (("lr_e99_1024", dict(num_subcarriers=1024, constellation_order=16), 100),
+                           ("lr_e159_1024_zp", dict(num_subcarriers=1024, constellation_order=16, **_ZP10), 160)):
+        setup = setup_of(kw, taps, GIANT_LONG_CHUNK)
+        link = lrk.lr_link(setup, device)
+        if kernel_mode(setup) != "lr" or (len(link.tail_rows) <= lrk.TAIL_PASS and len(link.bh_rows) <= lrk.G2_ROUND):
+            raise AssertionError(f"{name}: {kernel_mode(setup)}, {len(link.tail_rows)} tail rows, "
+                                 f"{len(link.bh_rows)} noise rows")
+        check(name, "lr", link, GIANT_LONG_CHUNK, GIANT_LONG_CHUNK, setup.cfg.snr_db)
+    flat = dict(channel_model="flat_fading", snr_db=21.0)
+    for name, kw in (("diag_8k", dict(flat, num_subcarriers=8192)), ("diag_16k", dict(flat, num_subcarriers=16384)),
+                     ("diag_10k", dict(flat, num_subcarriers=10000)),
+                     ("diag_32k", dict(flat, num_subcarriers=32768)),
+                     ("diag_32k_normalize", dict(flat, num_subcarriers=32768, normalize_before_demap=True)),
+                     ("diag_8k_aqam", dict(flat, num_subcarriers=8192, **_ADAPT))):
+        chunk = GIANT_CHUNK
+        setup = prepare(audit_cfg(4 * chunk, chunk, **dict(GIANT_KW, **kw)))
+        if kernel_mode(setup) != "diag":
+            raise AssertionError(f"{name} routes to {kernel_mode(setup)}")
+        check(name, "diag", lk.diag_link(setup, device), chunk, chunk, setup.cfg.snr_db)
+    setup = prepare(giant_cfg(GIANT_TAPS_KW, 4 * GIANT_LONG_CHUNK, GIANT_LONG_CHUNK))
+    link = mmk.mm_link(setup, device)
+    if kernel_mode(setup) != "mm" or not mmk.is_wide(link):
+        raise AssertionError(f"the taps link routes to {kernel_mode(setup)}")
+    check("mm_wide_taps_1024", "mm", link, GIANT_LONG_CHUNK, GIANT_LONG_CHUNK, setup.cfg.snr_db)
+    # the dump stage as clusters: a capture on lr at 8192 sc and diag at 32768 sc
+    for name, chain, cfg in (("lr_8k_cp05", "lr", giant_cfg(dict(num_subcarriers=8192), 2 * GIANT_CHUNK, GIANT_CHUNK)),
+                             ("diag_32k", "diag", audit_cfg(2 * GIANT_CHUNK, GIANT_CHUNK,
+                                                            **dict(GIANT_KW, **flat, num_subcarriers=32768)))):
+        err = max(err, capture_check(card, device, f"{name} (a cluster)", chain, cfg, CAPTURE_COLLECT)[0])
+    return links, err
+
+
+def giant_probe_check(card, device, link):
+    """lr_probe on the 8192-sc link (a cluster of two blocks): bit-equal to
+    its plain version and to the chunk kernel's carry row at sym0 = 0 and
+    2^32 + 77; the chunk given its own predecessor's tail counts what it
+    counts without it.  Returns the largest difference."""
+    import torch
+
+    from ofdm_tpu_torch.ops import link_kernel as lk
+    from ofdm_tpu_torch.ops import lr_kernel as lrk
+    from ofdm_tpu_torch.ops import prng
+
+    key = prng.key_words(MAIN_SEED)
+    snr_lin = lk.snr_linear(GIANT_KW["snr_db"])
+    err = 0.0
+    for sym0 in (0, (1 << 32) + 77):
+        be, se, cr, ci = chunk_counts(lrk.lr_chunk, link, key, sym0, GIANT_CHUNK, snr_lin, device, None)
+        got = [t.cpu() for t in lrk.lr_probe(link, key, sym0, GIANT_CHUNK)]
+        ref = [t.cpu() for t in lrk.lr_probe_plain(link, key, sym0, GIANT_CHUNK)]
+        err = max(err, *(float((a - b).abs().max()) for a, b in zip(got, ref)))
+        if not all(torch.equal(a, b) for a, b in zip(got, ref)) or not (torch.equal(got[0], cr)
+                                                                        and torch.equal(got[1], ci)):
+            raise AssertionError(f"lr_probe 8192 sc sym0={sym0}: probe, plain and carry row differ")
+        own = (tuple(torch.zeros(link.E, dtype=torch.float32, device=device) for _ in range(2)) if sym0 == 0
+               else tuple(lrk.lr_probe(link, key, sym0 - 1, 1)[2:]))
+        pb, ps, _, _ = chunk_counts(lrk.lr_chunk, link, key, sym0, GIANT_CHUNK, snr_lin, device, None, prev=own)
+        if (pb, ps) != (be, se):
+            raise AssertionError(f"lr 8192 sc sym0={sym0}: with its own carry-in {pb}/{ps}, without {be}/{se}")
+        print(f"lr_probe 8192 sc (a cluster of {link.n // 4096} blocks) sym0={sym0} [{card}]: probe = plain = "
+              f"carry row (bit-equal); chunk {be}/{se} with and without its own carry-in")
+    return err
+
+
+def giant_counters():
+    """The launch counters a giant run reads: lr_main, lr_power, diag_wide,
+    wide_power, mm_wide_main, mm_wide_front."""
+    from ofdm_tpu_torch.ops import link_kernel as lk
+    from ofdm_tpu_torch.ops import lr_kernel as lrk
+    from ofdm_tpu_torch.ops import mm_kernel as mmk
+
+    return {"lr_main": (lrk.lr_chunk, "launches"), "lr_power": (lrk.lr_chunk, "power_launches"),
+            "diag_wide": (lk.diag_chunk, "wide_launches"), "wide_power": (lk.diag_chunk, "power_launches"),
+            "mm_wide_main": (mmk.mm_chunk, "wide_launches"), "mm_wide_front": (mmk.mm_chunk, "wide_front_launches")}
+
+
+def giant_run(card, device, name, factor_s=0.0):
+    """One end-to-end run through prepare() -> LinkRunner.run(): its route,
+    launch counters, OFDM syms/s, device busy share, host setup seconds
+    (prepare, the link constants and the sampled-TX PAPR, plus ``factor_s``,
+    the host factorization the caller timed) and peak device memory; then its eager twin on the card at the same
+    config (GIANT_EAGER_BINS), and the band: z = 5 against the JAX
+    package's XLA reading where it has one, else against the eager twin.
+    Returns (record, runner)."""
+    import torch
+
+    from ofdm_tpu_torch.ops import link_kernel as lk
+    from ofdm_tpu_torch.ops import metrics as mt
+    from ofdm_tpu_torch.pipeline import LinkRunner, prepare
+
+    kw, taps, num_ofdm, chain, jax_band = GIANT_RUNS[name]
+    n = kw["num_subcarriers"]
+    chunk = GIANT_LONG_CHUNK if n <= 1024 else GIANT_CHUNK
+    counters = giant_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    runner = LinkRunner(prepare(giant_cfg(kw, num_ofdm, chunk), channel_ir=giant_ir(taps)), device)
+    runner._papr_sample()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0 + factor_s
+    if runner.mode != chain:
+        raise AssertionError(f"{name} routes to {runner.mode}, not {chain}")
+    runner.run(1)  # warm-up
+    reset_counters(counters)
+    r = runner.run(MAIN_SEED)
+    got = {k: read_counters(counters).get(k, 0) for k in counters}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    chunks = -(-num_ofdm // chunk)
+    want = {"lr": {"lr_main": chunks, "lr_power": chunks}, "diag": {"diag_wide": chunks, "wide_power": chunks},
+            "mm": {"mm_wide_main": chunks, "mm_wide_front": chunks}}[chain]
+    prof = profile_run(runner, runner.setup.cfg.snr_db)
+    busy = None if prof is None else prof[1]
+    link = runner.link
+    print(f"giant {name} [{card}]: route {runner.mode} (n={n}, T={runner.setup.block_length}, "
+          f"E={getattr(link, 'E', 0)}, rank={getattr(link, 'rank', 0)}, tile {lk.tile_for(chunk, link.tile_cap)}), "
+          f"{num_ofdm} OFDM symbols, "
+          f"ofdm_symbols_per_s={r['ofdm_symbols_per_s']:.1f} BER={r['bit_error_rate']} papr_db={r['papr_db']:.4f} "
+          f"({r['papr_estimator']}) hotpath={r['hotpath_used']}; launches {json.dumps(got)}; device busy "
+          f"{busy if busy is None else f'{busy:.4f}'}; host setup {setup_s:.2f} s; peak device memory "
+          f"{peak_gb:.3f} GB")
+    if any(got[k] != v for k, v in want.items()) or r["hotpath_used"] != "cuda":
+        raise AssertionError(f"{name}: launches {got}, want {want}; {r['hotpath_used']}")
+    eager = LinkRunner(prepare(giant_cfg(dict(kw, hotpath="xla"), GIANT_EAGER_BINS // n, chunk),
+                               channel_ir=giant_ir(taps)), device)
+    eager.run(1)
+    e = eager.run(MAIN_SEED)
+    print(f"giant {name} eager twin [{card}]: {GIANT_EAGER_BINS // n} OFDM symbols, "
+          f"ofdm_symbols_per_s={e['ofdm_symbols_per_s']:.1f} BER={e['bit_error_rate']} hotpath={e['hotpath_used']}")
+    if e["hotpath_used"] != "eager":
+        raise AssertionError(f"{name}: the eager twin ran {e['hotpath_used']}")
+    if jax_band:
+        band(name, r, "XLA path, CPU, 2^24 / n OFDM symbols")
+    else:
+        ok = mt.ber_equivalent(r["bit_errors"], r["total_bits"], e["bit_errors"], e["total_bits"], z=BAND_Z)
+        print(f"band {name}: BER {r['bit_error_rate']} ({r['bit_errors']} / {r['total_bits']}) vs "
+              f"{e['bit_error_rate']} ({e['bit_errors']} / {e['total_bits']}; {GIANT_READING}) z={BAND_Z}: "
+              f"{'inside' if ok else 'OUTSIDE'}")
+        if not ok:
+            raise AssertionError(f"{name}: BER {r['bit_error_rate']} outside its band around {e['bit_error_rate']}")
+    if not 1e-3 <= r["bit_error_rate"] <= 1e-2:
+        print(f"giant {name}: BER {r['bit_error_rate']} lies outside 1e-3..1e-2, where its SNR was chosen to put it")
+    rec = dict(name=name, route=runner.mode, n=n, launches=got, ofdm_symbols_per_s=r["ofdm_symbols_per_s"],
+               eager_ofdm_symbols_per_s=e["ofdm_symbols_per_s"], ber=r["bit_error_rate"], busy=busy,
+               setup_s=setup_s, peak_gb=peak_gb)
+    return rec, runner
+
+
+def giant_entry(card, device, name, link, chunk, kernel, plain, launches, err, chain):
+    """A kernels-line entry: the chunk kernel's time at ``chunk`` symbols
+    (CUDA events) beside its plain version's and its bound (operations, as
+    ``lr_operations`` / ``diag_operations`` count them; bytes: the link's
+    rows and factors read once, the counters and the carry row written)."""
+    from ofdm_tpu_torch.ops import link_kernel as lk
+    from ofdm_tpu_torch.ops import lr_kernel as lrk
+    from ofdm_tpu_torch.ops import mm_kernel as mmk
+
+    snr_lin = lk.snr_linear(GIANT_KW["snr_db"])
+    acc, psum = lk.new_accumulators(device)
+    work = {"lr": lrk, "diag": lk, "mm": mmk}[chain].chunk_workspace(link, chunk, device)
+    k_ms = cuda_ms(lambda: kernel(link, (3, 4), chunk, chunk, snr_lin, acc, psum, work), 10)
+    p_ms = cuda_ms(lambda: plain(link, (3, 4), chunk, chunk, snr_lin, acc, psum), 1)
+    if chain == "lr":
+        ops = lr_operations(link, chunk)[0]
+        rank = link.rank if link.add_noise else 0
+        nbytes = 4 * (2 * (3 * link.E * link.n + rank * link.n) + 7 * link.n) + 3 * 8 + 8 * link.T
+    elif chain == "diag":
+        ops = diag_operations(link, chunk, OPS_PER_BIN_AQAM if link.q.mode == "aqam" else OPS_PER_BIN)
+        nbytes = 4 * 7 * link.n + 3 * 8 + 8 * link.T
+    else:
+        ops = dense_wide_operations("mm", link, chunk)[0]
+        nbytes = 4 * 7 * link.n + 8 * (link.E + 1) + 3 * 8 + 8 * link.T
+    bound = max(ops / PEAK_OPS, nbytes / PEAK_BYTES) * 1e3
+    print(f"{chain}_chunk {name} at {chunk} symbols x {link.n} sc [{card}]: kernel {k_ms:.4f} ms, plain "
+          f"{p_ms:.3f} ms, bound {bound:.4f} ms ({ops} operations, {nbytes} bytes)")
+    source = {"lr": "ofdm_tpu_torch/csrc/lr_kernel.cu", "diag": "ofdm_tpu_torch/csrc/diag_wide_kernel.cu",
+              "mm": "ofdm_tpu_torch/csrc/mm_wide_kernel.cu"}[chain]
+    return {"name": f"{chain}_chunk {name}", "route": "cuda", "source": source,
+            "replaces": "ofdm_tpu/ops/pallas_link.py:1986", "launches": launches, "max_abs_err": err, "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": bound,
+            "bound_by": "operations" if ops / PEAK_OPS >= nbytes / PEAK_BYTES else "bytes", "library_ms": None}
+
+
+def giant_path(card, device):
+    """The lr and diag chains at the JAX plan's largest widths and longest
+    channels: ``giant_checks`` and lr_probe on the card, then the end-to-end
+    runs of GIANT_RUNS, each kernel's time at its checked shape.  Returns
+    the kernels-line entries, each with the launches of the run that drives
+    its shape (GIANT_ENTRIES)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    # the host factorization of each lr run first, while nothing is cached
+    # (the checks and the runs then read its cache)
+    factor_s = {}
+    for name, (kw, taps, _, chain, _) in GIANT_RUNS.items():
+        if chain != "lr":
+            continue
+        t0 = time.perf_counter()
+        giant_factor(kw, taps)
+        factor_s[name] = time.perf_counter() - t0
+        print(f"giant {name}: the host factorization (lowrank.factor, float64, n={kw['num_subcarriers']}) took "
+              f"{factor_s[name]:.2f} s [{card}]")
+    links, err = giant_checks(card, device)
+    probe_err = giant_probe_check(card, device, links["lr_8k_cp05"][0])
+    runs = {name: giant_run(card, device, name, factor_s.get(name, 0.0))[0] for name in GIANT_RUNS}
+    torch.cuda.empty_cache()
+    print(f"giant runs: {json.dumps(runs)}")
+    main = {"lr": "lr_main", "diag": "diag_wide", "mm": "mm_wide_main"}
+    entries = []
+    for name, run in GIANT_ENTRIES.items():
+        chain = name.split("_")[0]
+        entries.append(giant_entry(card, device, name, *links[name], runs[run]["launches"][main[chain]], err, chain))
+    keep = ("name", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    entries[0]["shapes_no_run"] = [{k: e[k] for k in keep} for e in
+                                   (giant_entry(card, device, name, *links[name], 0, err, "lr")
+                                    for name in GIANT_UNRUN)]
+    entries[0]["probe_max_abs_err"] = probe_err
+    print(f"giant_path: {time.perf_counter() - t_phase:.1f} s")
+    return entries
+
+
+GIANT_LIBRARIES = ("lr_kernel", "lr_staged", "lr_bump", "diag_wide", "diag_wide_staged", "mm_wide", "boxmuller")
+
+
+def giant_main():
+    """``--giant-only``: the build of the libraries the giant path loads, then
+    the giant path, its kernels line and the last two lines."""
+    import torch
+
+    from ofdm_tpu_torch import build
+
+    t_start = time.perf_counter()
+    card = card_line()
+    t0 = time.perf_counter()
+    secs = build.build(GIANT_LIBRARIES)
+    print(f"build: {time.perf_counter() - t0:.1f} s ({', '.join(f'{k} {v:.1f}s' for k, v in secs.items())})")
+    for name in GIANT_LIBRARIES:
+        with open(os.path.join(build.BUILD_DIR, f"{name}.log")) as fh:
+            text = fh.read()
+        spills = [int(b) for b in re.findall(r"(\d+) bytes spill stores", text) if int(b)]
+        print(f"ptxas {name}: {len(re.findall('Used', text))} kernels, {len(spills)} with spill stores")
+    lr_layouts_fit(card)
+    entries = giant_path(card, torch.device("cuda"))
+    print(f"chip_smoke --giant-only: {time.perf_counter() - t_start:.1f} s in all")
+    print(json.dumps({"kernels": entries}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main():
     import torch
 
@@ -4247,6 +4675,10 @@ def main():
         return nccl_main(int(sys.argv[sys.argv.index("--nccl-ranks") + 1]))
     if "--examples-only" in sys.argv:
         return examples_main()
+    if "--giant-only" in sys.argv:
+        return giant_main()
+    if "--factor-seconds" in sys.argv:
+        return factor_main(int(sys.argv[sys.argv.index("--factor-seconds") + 1]))
     from ofdm_tpu_torch import build
     from ofdm_tpu_torch.ops import link_kernel as lk
     from ofdm_tpu_torch.ops import prng
@@ -4412,6 +4844,10 @@ def main():
     bitlevel = bitlevel_path(card, device)
     audit_path(card, device)
 
+    # 12f. the lr and diag chains past 4096 subcarriers (clusters), past 63 tail
+    # lanes and noise rank 128: against their plain versions, end to end
+    giant = giant_path(card, device)
+
     # 13. K3 and the carry-in on every chain; the sharded runs (one rank
     # under NCCL, two ranks under gloo) and the CLI on the reference's configs
     t_sweep = time.perf_counter()
@@ -4423,7 +4859,8 @@ def main():
     # through its main() at the JAX script's size, watch, channel_plots,
     # trace and ThroughputMeter
     examples_path(card, device)
-    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, {time.perf_counter() - T_SCRIPT:.1f} s "
+          f"from the script's start (the torch import and CUDA start included); wall clock {time.time():.1f}")
 
     # the one-pass chunks' pipe-aware bounds (diag_layout) beside their uniform ones
     one_pass = {"noise_bump_64": bump, "wf_64": next(e for e in staged if e["name"].startswith("diag_chunk")),
@@ -4455,6 +4892,7 @@ def main():
         *[e for e in dense_wide if not e["name"].endswith("_probe")],
         *adaptive_scfde,
         *bitlevel,
+        *giant,
         *probe_entries,
     ]
     print(json.dumps({"kernels": kernels}))

@@ -3,7 +3,7 @@
     JAX_PLATFORMS=cpu python jax_band_readings.py [group ...]
 
 Groups (all by default): bands, adaptive_scfde, noise_bump, bitlevel,
-audit, examples.
+giant, audit, examples.
 
 Runs each of ``chip_smoke.BAND_LINKS`` (the audit's 8-PSK and adaptive
 links), the reference's adaptive config at 15 / 20 / 25 dB and
@@ -22,7 +22,9 @@ its campaign draws them, at 64 subcarriers and at each width of
 ``chip_smoke.NOISE_BUMP_WIDE`` (2^22 / n OFDM symbols a point there).
 Then (group bitlevel) the two bit-level chains of ``chip_smoke.py``
 with the JAX package's own functions and ``jax.random`` (key
-``PRNGKey(0)``) at 2^16 OFDM symbols; then (group audit) every shape of
+``PRNGKey(0)``) at 2^16 OFDM symbols; then (group giant) the runs of
+``chip_smoke.GIANT_RUNS`` held to a JAX reading (the 160-tap zero-prefix
+link and the "taps" link, both at 1024 sc) at 2^24 / n OFDM symbols; then (group audit) every shape of
 ``ofdm_tpu_torch.shape_audit`` through the XLA path at min(16384, 2^24 /
 n) OFDM symbols in chunks of min(4096, 2^20 / n).  Prints
 ``{"chip_smoke.JAX_CPU_READINGS": {name: [bit errors, bits]}}`` and
@@ -50,8 +52,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from chip_smoke import (ADAPTIVE_CONFIG, ASC_CELLS, ASC_READING_SYMBOLS, BAND_LINKS, EAGER_LINKS, HEADLINE_KW,
-                        NOISE_BUMP_SNRS, NOISE_BUMP_WIDE, STAGED_BAND_LINKS, noise_bump_name)
+from chip_smoke import (ADAPTIVE_CONFIG, ASC_CELLS, ASC_READING_SYMBOLS, BAND_LINKS, EAGER_LINKS, GIANT_IR_SEED,
+                        GIANT_KW, GIANT_RUNS, HEADLINE_KW, NOISE_BUMP_SNRS, NOISE_BUMP_WIDE, STAGED_BAND_LINKS,
+                        noise_bump_name, seeded_taps)
 from ofdm_tpu.config import EqualizationMethod, PrefixType, SimulationConfig
 from ofdm_tpu.experiments import noise_bump as nb
 from ofdm_tpu.models import channels as chm
@@ -146,6 +149,27 @@ def band_readings():
         n = kw["num_subcarriers"]
         out[name] = reading(SimulationConfig(**dict(kw, num_symbols=n * (EAGER_BITS_SPAN // n),
                                                     symbols_per_chunk=(1 << 20) // n)))
+    return out
+
+
+def giant_readings():
+    """{name: [bit errors, bits]} of the runs of chip_smoke.GIANT_RUNS whose
+    band is the JAX package's (the two at 1024 sc: the 160-tap zero-prefix
+    link and the "taps" link): the XLA path at 2^24 / n OFDM symbols in
+    chunks of 2^20 / n, on the seeded channel where the run has one.  The
+    runs past 4096 sc are not read here (full-width links are not run on a
+    shared CPU); chip_smoke.py holds them to the eager chain on the card."""
+    out = {}
+    for name, (kw, taps, _, _, jax_band) in GIANT_RUNS.items():
+        if not jax_band:
+            continue
+        n = kw["num_subcarriers"]
+        cfg = SimulationConfig(**dict(GIANT_KW, **kw), num_symbols=n * (EAGER_BITS_SPAN // n),
+                               symbols_per_chunk=(1 << 20) // n)
+        ir = None if taps is None else seeded_taps(taps, GIANT_IR_SEED)
+        r = LinkRunner(prepare(cfg, channel_ir=ir)).run(jax.random.PRNGKey(0))
+        assert r["hotpath_used"] == "xla", r["hotpath_used"]
+        out[name] = [r["bit_errors"], r["total_bits"]]
     return out
 
 
@@ -386,6 +410,7 @@ GROUPS = {
     "noise_bump": noise_bump_readings,
     "bitlevel": lambda: {"bitlevel_headline": bitlevel_headline_reading(),
                          "bitlevel_adaptive": bitlevel_adaptive_reading()},
+    "giant": giant_readings,
 }
 
 

@@ -70,7 +70,7 @@ _PREV = [_P, _P]
 # n, T, E, the codec, the symbol, the key, rows and stage bits, the carry
 # row pair, the tail pair.  fold's and mm's take the listed TX terms (p,
 # idx, chunks) first and the stream last; lr's its tail factor pair first
-# and its row mask before the stream.
+# and its row table and tail rows before the stream.
 _PROBE_ARGS = [_I] * 9 + [_F] + [_P] * 2 + [ctypes.c_ulonglong] + [_U] * 2 + [_P, _I] + [_P] * 4
 _PROBE = ([_P, _P, _I] + _PROBE_ARGS + [_P], _I)
 # The C entry points of each source's libraries with their (argtypes,
@@ -112,17 +112,17 @@ SIGNATURES = {
         "ofdm_fold_probe": _PROBE,
         "ofdm_fold_geometry": ([_I] * 3 + [ctypes.POINTER(ctypes.c_int)], _I),
     },
-    # lr's chunk and probe take their row masks (TailM; [Cr; Cp] and B^H as
-    # two words each) after the carry-in / the outputs; ofdm_lr_geometry
-    # writes lr_main's layout into eight ints
+    # lr's chunk takes its row table (lr_kernel.row_table) and its three row
+    # counts after the carry-in, its probe the table and the tail rows after
+    # the outputs; ofdm_lr_geometry writes lr_main's layout into eight ints
     "lr_kernel": {
         "ofdm_lr_chunk": (
             [_P] * 15 + [_I] * 10 + [_F] + [_P] * 2 + [_F] * 4 + [_I] * 4 + [ctypes.c_ulonglong]
-            + [_I] * 5 + [_U] * 2 + [_P] * 5 + _STAGES + _PREV + [ctypes.c_ulonglong] * 5 + [_P],
+            + [_I] * 5 + [_U] * 2 + [_P] * 5 + _STAGES + _PREV + [_P] + [_I] * 3 + [_P],
             _I,
         ),
-        "ofdm_lr_probe": ([_P] * 2 + _PROBE_ARGS + [ctypes.c_ulonglong, _P], _I),
-        "ofdm_lr_geometry": ([_I] * 5 + [ctypes.POINTER(ctypes.c_int)], _I),
+        "ofdm_lr_probe": ([_P] * 2 + _PROBE_ARGS + [_P, _I, _P], _I),
+        "ofdm_lr_geometry": ([_I] * 4 + [ctypes.POINTER(ctypes.c_int)], _I),
     },
     "mm_kernel": {
         "ofdm_mm_chunk": (

@@ -7,7 +7,8 @@
 // conv="diag" form, at the widths the warp-per-symbol diag_main
 // (link_kernel.cu, n <= 256) does not hold: ISI-free OFDM links at 257-512
 // subcarriers and single-tap channels at any width the reference's diag
-// budget admits (plan_for, pallas_link.py:272-300; up to 4096 here), in
+// budget admits (plan_for, pallas_link.py:272-300; up to 32768 here: the
+// 8K, 16K and 32K FFT modes of DVB-T2 and ATSC 3.0 under txext), in
 // each constellation mode (a template parameter, link_common.cuh's codec).
 // Per bin, the chain of link_kernel.cu: Philox words -> encode -> [x sqrt(P)]
 // -> y = s*d -> AWGN with the tile's measured power -> ZF / MMSE / none ->
@@ -36,6 +37,15 @@
 //    are block sums in a fixed order (per thread in j order, a butterfly in
 //    each warp, the warps in order: link_common.cuh::block_sum), which the
 //    plain version repeats (link_kernel.block_sum, link_kernel.diag_layout).
+//    Past 4096 subcarriers (txext only: no in-run transform) a symbol is
+//    held by a thread-block cluster of C = ceil(n / 4096) blocks (up to 8,
+//    the portable cluster size), block r holding the 4096-bin slice from
+//    r x 4096 in the same layout; each block's slice sum goes to its shared
+//    memory and every block adds the C of them in rank order through
+//    distributed shared memory (link_common.cuh::cluster_totals), the order
+//    of block_sum's slice.  The cluster steps are a template variant
+//    (kCluster, at 16 bins a thread only): the kernels of up to 4096
+//    subcarriers hold no cluster code.
 //  * Measured power: wide_power, power_partials' fixed order (16 sequential
 //    steps a thread, a 256-way tree) over each tile's first `slice`
 //    symbols; the main kernel sums a tile's partials in order.
@@ -71,7 +81,11 @@ constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kPowerSteps = 16;  // elements per thread of wide_power
 constexpr int kMinN = 257;
-constexpr int kMaxN = 4096;
+constexpr int kSliceBins = 4096;  // bins a block holds (16 a thread)
+constexpr int kMaxN = 8 * kSliceBins;  // a cluster of at most 8 blocks a symbol
+
+// Blocks a symbol: 1 up to 4096 bins, else a cluster of ceil(n / 4096).
+__host__ __device__ constexpr int cluster_of(int n) { return (n + kSliceBins - 1) / kSliceBins; }
 
 struct Link {
   ofdm::Equalizer eq;
@@ -92,6 +106,7 @@ struct Link {
   int pstride;
   int carry_sym;  // last symbol of the chunk's last sampled tile
   int run;        // consecutive symbols a block walks
+  int C;          // blocks a symbol (cluster_of(n))
   uint2 key;
   ofdm::Lanes lanes;  // the adaptive modes' lane rows
   ofdm::Stages st;    // the _Spec stages (OFDM_STAGED builds)
@@ -161,28 +176,48 @@ __device__ __forceinline__ void papr_idft(const Link& L, float* plane, bool carr
   __syncthreads();
 }
 
-// The chain over chunk symbols [b_lo, b_hi), a symbol a block, each block
-// walking `run` consecutive symbols; with kStaged, the stages; kDump is the
-// dump stage's launch-time variant, kBump the noise-bump stages (the
+// A symbol's sum of one value a thread: block_sum, and with kCluster the
+// cluster's blocks' sums in rank order (cpart: two floats of shared
+// memory).  Every thread of the block (of the cluster) must call it.
+template <bool kCluster>
+__device__ __forceinline__ float symbol_sum(const Link& L, float v, float* wsum, float* cpart) {
+  const float s = ofdm::block_sum<kWarps>(v, wsum);
+  if constexpr (kCluster) {
+    if (threadIdx.x == 0) cpart[0] = s;
+    ofdm::cluster_totals(cpart, cpart + 1, 1, L.C);
+    return cpart[1];
+  } else {
+    return s;
+  }
+}
+
+// The chain over chunk symbols [b_lo, b_hi), a symbol a block (a cluster
+// of C blocks past 4096 bins, one slice each), each block walking `run`
+// consecutive symbols; with kStaged, the stages; kDump is the dump stage's
+// launch-time variant, kBump the noise-bump stages (the
 // OFDM_BUMP build).  The counting variant counts; the front variant of a
 // normalized chunk (kFront) writes e and the TX index of each bin to the
 // slab's scratch and its run's |e|^2 partial instead.  kTxext, the plain
 // build's launch-time variant for a txext chunk, holds no in-run time
-// block.  The plain build's chain keeps to plain_blocks(J) blocks an SM.
+// block; kCluster, a symbol a cluster of L.C blocks.  The plain build's
+// chain keeps to plain_blocks(J) blocks an SM.
 template <int J, int kMode, bool kStaged, bool kDump = false, bool kBump = false, bool kFront = false,
-          bool kTxext = false>
+          bool kTxext = false, bool kCluster = false>
 __global__ void __launch_bounds__(kThreads, kStaged ? 1 : plain_blocks(J))
     diag_wide(Link L, int b_lo, int b_hi, const float* partials, unsigned long long* acc, double* psum,
               float* carry_r, float* carry_i, ofdm::Scratch scr) {
   extern __shared__ float splane[];  // plane_floats: a sampled symbol's IDFT (in-run PAPR only)
   __shared__ float wsum[kWarps];
+  __shared__ float cpart[2];
   const int tid = threadIdx.x;
+  const int base = kCluster ? static_cast<int>(blockIdx.x % L.C) * kSliceBins : 0;
 
   uint32_t be = 0, se = 0;
   float pk = 0.0f;
   double ps = 0.0;
 
-  const int b0 = static_cast<int>(b_lo + static_cast<long long>(blockIdx.x) * L.run);
+  const int run_id = kCluster ? static_cast<int>(blockIdx.x) / L.C : static_cast<int>(blockIdx.x);
+  const int b0 = static_cast<int>(b_lo + static_cast<long long>(run_id) * L.run);
   const int b1 = min(b0 + L.run, b_hi);
   int cached_tile = -1;
   float sigma = 0.0f, energy = 0.0f;
@@ -200,7 +235,7 @@ __global__ void __launch_bounds__(kThreads, kStaged ? 1 : plain_blocks(J))
     int tx[J];
 #pragma unroll
     for (int j = 0; j < J; ++j) {
-      const int k = tid + kThreads * j;
+      const int k = base + tid + kThreads * j;
       yr[j] = 0.0f;
       yi[j] = 0.0f;
       tx[j] = 0;
@@ -222,12 +257,22 @@ __global__ void __launch_bounds__(kThreads, kStaged ? 1 : plain_blocks(J))
       }
     }
 
-    const float nv = ofdm::mmse_nv_block<J, kWarps>(L.eq, yr, yi, L.n, L.snr_lin, wsum);
+    // the MMSE mean: per-thread sum in j order, the block sum, the slices in order
+    float nv = 0.0f;
+    if (L.eq.method == 1) {
+      float p = 0.0f;
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        if (base + tid + kThreads * j < L.n) p = p + (yr[j] * yr[j] + yi[j] * yi[j]);
+      }
+      const float sp = symbol_sum<kCluster>(L, p, wsum, cpart) / static_cast<float>(L.n);
+      nv = sp / L.snr_lin / L.eq.cg;
+    }
     float er[J], ei[J];
     float p = 0.0f;
 #pragma unroll
     for (int j = 0; j < J; ++j) {
-      const int k = tid + kThreads * j;
+      const int k = base + tid + kThreads * j;
       er[j] = 0.0f;
       ei[j] = 0.0f;
       if (k < L.n) {
@@ -237,16 +282,16 @@ __global__ void __launch_bounds__(kThreads, kStaged ? 1 : plain_blocks(J))
       }
     }
     if constexpr (kFront) {
-      energy = energy + ofdm::block_sum<kWarps>(p, wsum);
+      energy = energy + symbol_sum<kCluster>(L, p, wsum, cpart);
 #pragma unroll
       for (int j = 0; j < J; ++j) {
-        const int k = tid + kThreads * j;
+        const int k = base + tid + kThreads * j;
         if (k < L.n) ofdm::scratch_store(scr, b_lo, L.n, b, k, tx[j], er[j], ei[j]);
       }
     } else {
 #pragma unroll
       for (int j = 0; j < J; ++j) {
-        const int k = tid + kThreads * j;
+        const int k = base + tid + kThreads * j;
         if (k < L.n) {
           ofdm::dump_bin<kMode, kDump>(L, b, k, er[j], ei[j]);
           ofdm::count_bin<kMode>(tx[j], er[j], ei[j], L.q, L.lanes, k, be, se);
@@ -263,7 +308,7 @@ __global__ void __launch_bounds__(kThreads, kStaged ? 1 : plain_blocks(J))
       carry_i[c] = 0.0f;
     }
   }
-  if (kFront && tid == 0 && b0 < b_hi) L.st.norm_part[b0 / L.run] = energy;
+  if (kFront && tid == 0 && base == 0 && b0 < b_hi) L.st.norm_part[b0 / L.run] = energy;
 
   ofdm::flush_counters<kWarps>(be, se, pk, ps, acc, psum);
 }
@@ -297,18 +342,24 @@ cudaError_t launch_main(K* kernel, const Link& L, int b_lo, int b_hi, const floa
     if (err != cudaSuccess) return err;
   }
   const int grid = (b_hi - b_lo + L.run - 1) / L.run;
+  if (L.C > 1) {
+    // a cluster of C blocks a symbol along x (txext: no dynamic shared memory)
+    return ofdm::launch_clusters(kernel, dim3(grid * L.C), kThreads, static_cast<int>(bytes), L.C, 0, stream, L,
+                                 b_lo, b_hi, partials, acc, psum, cr, ci, scr);
+  }
   kernel<<<grid, kThreads, bytes, stream>>>(L, b_lo, b_hi, partials, acc, psum, cr, ci, scr);
   return cudaGetLastError();
 }
 
-// wide_power (when noise is on) then diag_wide at J bins a thread; in the
-// OFDM_STAGED build under normalize the one-pass slabs (diag_common.cuh).
-template <int J, int kMode>
-cudaError_t launch(const Link& L, int slab, const ofdm::Scratch& scr, float* partials, unsigned long long* acc,
-                   double* psum, float* cr, float* ci, cudaStream_t stream) {
+// wide_power (when noise is on) then diag_wide at J bins a thread, as
+// clusters of L.C blocks a symbol with kCl; in the OFDM_STAGED build under
+// normalize the one-pass slabs (diag_common.cuh).
+template <int J, int kMode, bool kCl>
+cudaError_t launch_at(const Link& L, int slab, const ofdm::Scratch& scr, float* partials, unsigned long long* acc,
+                      double* psum, float* cr, float* ci, cudaStream_t stream) {
   constexpr bool kS = ofdm::kStagedBuild;
   constexpr bool kB = ofdm::kBumpBuild;
-  auto* main_kernel = &diag_wide<J, kMode, kS, false, kB>;
+  auto* main_kernel = &diag_wide<J, kMode, kS, false, kB, false, false, kCl>;
   if (L.add_noise) {
     const int tiles = (L.chunk + L.tile - 1) / L.tile;
     wide_power<kMode, kS><<<dim3(tiles, L.groups), kThreads, 0, stream>>>(L, partials);
@@ -318,22 +369,31 @@ cudaError_t launch(const Link& L, int slab, const ofdm::Scratch& scr, float* par
 #if OFDM_STAGED
   if (L.st.bits & ofdm::kStageNormalize) {
     return ofdm::onepass_slabs<kMode>(L, slab, scr, sm_count() * 8, acc, psum, stream, [&](int b_lo, int b_hi) {
-      return launch_main(&diag_wide<J, kMode, kS, false, kB, true>, L, b_lo, b_hi, partials, acc, psum, cr, ci,
-                         scr, stream);
+      return launch_main(&diag_wide<J, kMode, kS, false, kB, true, false, kCl>, L, b_lo, b_hi, partials, acc, psum,
+                         cr, ci, scr, stream);
     });
   }
-  if (L.st.bits & ofdm::kStageDump) main_kernel = &diag_wide<J, kMode, kS, true, kB>;
+  if (L.st.bits & ofdm::kStageDump) main_kernel = &diag_wide<J, kMode, kS, true, kB, false, false, kCl>;
 #else
   (void)slab;
-  if (L.txext) main_kernel = &diag_wide<J, kMode, false, false, false, false, true>;
+  if (L.txext) main_kernel = &diag_wide<J, kMode, false, false, false, false, true, kCl>;
 #endif
   return launch_main(main_kernel, L, 0, L.chunk, partials, acc, psum, cr, ci, scr, stream);
+}
+
+template <int J, int kMode>
+cudaError_t launch(const Link& L, int slab, const ofdm::Scratch& scr, float* partials, unsigned long long* acc,
+                   double* psum, float* cr, float* ci, cudaStream_t stream) {
+  if constexpr (J == 16) {  // past 4096 bins: clusters
+    if (L.C > 1) return launch_at<J, kMode, true>(L, slab, scr, partials, acc, psum, cr, ci, stream);
+  }
+  return launch_at<J, kMode, false>(L, slab, scr, partials, acc, psum, cr, ci, stream);
 }
 
 // Calls f(std::integral_constant<int, J>()) for the bins a thread of width n.
 template <class F>
 cudaError_t with_width(int n, F&& f) {
-  const int bins = (n + kThreads - 1) / kThreads;  // bins a thread: 2 ... 16
+  const int bins = ((n < kSliceBins ? n : kSliceBins) + kThreads - 1) / kThreads;  // bins a thread: 2 ... 16
   if (bins <= 2) return f(std::integral_constant<int, 2>());
   if (bins <= 4) return f(std::integral_constant<int, 4>());
   if (bins <= 8) return f(std::integral_constant<int, 8>());
@@ -346,7 +406,8 @@ using namespace ofdm_diag_wide;
 
 extern "C" {
 
-// One chunk of a diag link at 257 <= n <= 4096: wide_power (when noise is
+// One chunk of a diag link at 257 <= n <= 32768 (past 4096 under txext, as
+// clusters of ceil(n / 4096) blocks a symbol): wide_power (when noise is
 // on) then diag_wide, all on `stream`, in constellation mode `mode`
 // (link_common.cuh::Mode; lane_i / lane_f the adaptive modes' lane rows).
 // The arguments are link_kernel.cu's ofdm_diag_chunk's: fr / fi unused
@@ -374,8 +435,8 @@ int ofdm_diag_wide_chunk(const float* hr, const float* hi, const float* habs2, c
                          int log2n, float dft_scale, int txext, void* stream_ptr) {
   const bool plan_ok = txext || (twr != nullptr && twi != nullptr && n1 >= 1 && n1 * n2 == n &&
                                  (log2n < 0 || (1 << log2n) == n));
-  if (n < kMinN || n > kMaxN || T < n || T > 2 * n || chunk < 1 || tile < 1 || slice < 1 || groups < 1 ||
-      pstride < 1 || run < 1 || tile % run != 0 || chr == nullptr || chi == nullptr || !plan_ok ||
+  if (n < kMinN || n > kMaxN || (n > kSliceBins && !txext) || T < n || T > 2 * n || chunk < 1 || tile < 1 ||
+      slice < 1 || groups < 1 || pstride < 1 || run < 1 || tile % run != 0 || chr == nullptr || chi == nullptr || !plan_ok ||
       (ofdm::adaptive(mode) && (lane_i == nullptr || lane_f == nullptr)) ||
       !ofdm::stage_args_ok(rows, stages, norm_part, norm_f, dump_r, dump_i, dump_rows, ofdm::kBumpBuild)) {
     return cudaErrorInvalidValue;
@@ -404,6 +465,7 @@ int ofdm_diag_wide_chunk(const float* hr, const float* hi, const float* habs2, c
   L.pstride = pstride;
   L.carry_sym = carry_sym;
   L.run = run;
+  L.C = cluster_of(n);
   L.key = make_uint2(key0, key1);
   L.lanes = ofdm::Lanes{lane_i, lane_f, n};
   L.st = ofdm::make_stages(rows, stages, norm_part, norm_f, dump_r, dump_i, dump_rows);

@@ -26,6 +26,7 @@
 #include <cstdint>
 #include <type_traits>
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #ifndef OFDM_STAGED
@@ -438,20 +439,55 @@ __device__ __forceinline__ float block_sum(float v, float* wsum) {
   return s;
 }
 
-// mmse_nv for a symbol held by a whole block (thread t holds bins
-// t + 32 kWarps j): per-thread sum in j order, then block_sum.
-template <int J, int kWarps>
-__device__ __forceinline__ float mmse_nv_block(const Equalizer& eq, const float (&yr)[J],
-                                               const float (&yi)[J], int n, float snr_lin,
-                                               float* wsum) {
-  if (eq.method != 1) return 0.0f;
-  float p = 0.0f;
-#pragma unroll
-  for (int j = 0; j < J; ++j) {
-    if (static_cast<int>(threadIdx.x) + 32 * kWarps * j < n) p = p + (yr[j] * yr[j] + yi[j] * yi[j]);
+// --- sums over a thread-block cluster ------------------------------------------
+
+// out[i] = the sum over the cluster's blocks, in block-rank order, of each
+// block's part[i] (its own shared memory, read through distributed shared
+// memory), for i < cnt, in every block of the cluster: a symbol past one
+// block's bins is held by a cluster of blocks, one slice each, and its sums
+// are the slices' sums in slice order (link_kernel.block_sum's slice).  The
+// first cluster barrier publishes every block's part, the second keeps part
+// until every block has read it and publishes out.  Every thread of every
+// block of the cluster must call it.
+__device__ __forceinline__ void cluster_totals(float* part, float* out, int cnt, int blocks) {
+  cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
+  cl.sync();
+  for (int i = threadIdx.x; i < cnt; i += blockDim.x) {
+    float s = 0.0f;
+    for (int q = 0; q < blocks; ++q) s = s + cl.map_shared_rank(part, q)[i];
+    out[i] = s;
   }
-  const float sp = block_sum<kWarps>(p, wsum) / static_cast<float>(n);
-  return sp / snr_lin / eq.cg;
+  cl.sync();
+}
+
+// Launches kernel<<<grid, threads, bytes, stream>>>(args...), as clusters of
+// `cluster` blocks along the grid's dimension `dim` (0: x, 1: y) where
+// cluster > 1 (cudaLaunchKernelEx with cudaLaunchAttributeClusterDimension),
+// after raising the kernel's dynamic shared memory limit to `bytes`.
+template <class... Params, class... Args>
+cudaError_t launch_clusters(void (*kernel)(Params...), dim3 grid, int threads, int bytes, int cluster, int dim,
+                            cudaStream_t stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  if (cluster <= 1) {
+    kernel<<<grid, threads, bytes, stream>>>(args...);
+    return cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(bytes);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = dim == 0 ? cluster : 1;
+  attr[0].val.clusterDim.y = dim == 1 ? cluster : 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 // Bin k equalized into slicer units (the slicer gain: 0.5/scale for qam,

@@ -39,13 +39,22 @@
 //  * One block of 256 threads walks `run` consecutive symbols in groups of
 //    M (group_of(J): 4 up to 512 subcarriers, 8 to 1024, 4 to 2048, 2 to
 //    4096); thread t holds bins t + 256 j (j < J, n <= 4096 so J <= 16).
+//    Past 4096 subcarriers (8K / 16K / 32K FFTs) a symbol is held by a
+//    thread-block cluster of C = ceil(n / 4096) blocks (2 to 8: within the
+//    portable cluster size), block r holding the 4096-bin slice from r x 4096
+//    in the same layout (J = 16; the last slice may be short, its missing
+//    bins skipped as n's are at any width).  The blocks of a cluster walk
+//    the same run.
 //    Within a group a thread loads each factor element of its bins once —
 //    TailM[e, k], [Cr; Cp][r, k], B^H[i, k], D[k], the equalizer rows — and
 //    applies it to all M symbols, so the factors stream once a group and
 //    not once a symbol.
-//  * Only the rows the host lists are read (Link's row masks, ascending):
-//    the nonzero rows of TailM and B^H, and the rows of [Cr; Cp] that are
-//    nonzero and multiply a lane of t that is not identically zero.  Under
+//  * Only the rows the host lists are read (Link's row table, ascending;
+//    lr_kernel.row_table): the nonzero rows of TailM and B^H, and the rows
+//    of [Cr; Cp] that are nonzero and multiply a lane of t that is not
+//    identically zero.  t is kept for the listed lanes only, so its slots,
+//    and a block's shared memory, grow with the nonzero tail lanes and not
+//    with E.  Under
 //    -fmad=false a skipped term is a*0 - c*0 = +-0, which leaves every sum
 //    unchanged, and t's skipped lanes are exactly +0 (the slots start at
 //    zero), so the result is bit-equal to the product over all rows.  A
@@ -60,8 +69,17 @@
 //    outputs and the MMSE mean are per-thread partials in k order, an xor
 //    butterfly in each warp and the 8 warps in order, which the plain
 //    version (link_kernel.block_sum) repeats, so counts agree exactly.  The
-//    group's M x 2E tail sums share one pair of barriers and its M means
-//    one barrier.
+//    group's tail sums run in passes of at most kTailPass listed lanes (M x
+//    2 x 64 sums sharing one pair of barriers), and its M means share one
+//    barrier.  In a cluster each block's slice sums go to its shared
+//    memory, a cluster barrier publishes them, and every block adds the C
+//    slices' sums in block-rank order through distributed shared memory
+//    (link_common.cuh::cluster_totals); the plain version takes the same
+//    slices in the same order (block_sum's slice), and a block that holds a
+//    whole symbol takes no cluster step, so every link of up to 4096
+//    subcarriers keeps its bits.  Only the kernels of 16 bins a thread
+//    hold the cluster code (diag_wide instead instantiates it apart:
+//    beside its one-block code it cost 8.6% at 4096 subcarriers).
 //  * The TPU grid runs in order and carries the last tail row from tile to
 //    tile; CUDA blocks do not.  A block keeps the previous symbol's t in
 //    slot 0 of its t slots (the last slot moves there as the next group's
@@ -71,10 +89,16 @@
 //    launch geometry or chunking.
 //  * Measured power: a first kernel (lr_power) recomputes y for each tile's
 //    slice (one block per 4096 slice elements, in groups of group_power(J)
-//    symbols) and reduces |y|^2 in power_partials' fixed order; lr_main
-//    sums a tile's partials in order (a run lies in one tile).
+//    symbols; past 4096 bins one block per 4096-bin slice of a symbol, a
+//    short last slice's missing elements zero) and reduces |y|^2 in
+//    power_partials' fixed order; lr_main sums a tile's partials in order
+//    (a run lies in one tile).
 //  * The g2 draws of a zero-prefix group come from Philox counters (b lo,
-//    b hi, i, 1), one thread each, shared through shared memory.
+//    b hi, i, 1), one thread each, shared through shared memory, in rounds
+//    of at most kG2Round listed rows of B^H: one round (up to 128 rows) is
+//    drawn once a group, more are drawn again for each j, between barriers,
+//    so the shared memory stays bounded at any noise rank.  A bin's colored
+//    part sums the rows in the same ascending order either way.
 //  * Matrices are read through the read-only cache, (E, n) and (2E, n)
 //    row-major so a warp reads consecutive words.
 //  * Counters: per-thread 32-bit, warp and block sums, one 64-bit atomicAdd
@@ -89,9 +113,10 @@
 //    as t_prev instead of recomputing it, in every pass that recomputes one
 //    (lr_power, both passes of lr_main).
 //  * The carry probe (lr_probe; pallas_link.py::_probe_fn_for_spec, K3):
-//    one block of the chunk's shape computes a chunk's last symbol's t
-//    through the same encode and tail pass, and writes the (T,) carry row
-//    (zeros but for the last E lanes) and t.
+//    one block (a cluster past 4096 subcarriers) of the chunk's shape
+//    computes a chunk's last symbol's t through the same encode and tail
+//    pass, and writes the (T,) carry row (zeros but for the last E lanes)
+//    and t.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -105,9 +130,11 @@ constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kPowerSteps = 16;
 constexpr int kPowerBlock = kPowerSteps * kThreads;  // slice elements per lr_power block
-constexpr int kMaxN = 4096;
-constexpr int kMaxE = 63;
-constexpr int kMaxRank = 128;
+constexpr int kSliceBins = 4096;                     // bins a block holds (16 a thread)
+constexpr int kMaxCluster = 8;                       // the portable cluster size
+constexpr int kMaxN = kSliceBins * kMaxCluster;
+constexpr int kTailPass = 64;  // listed tail lanes a pass of tails_group sums
+constexpr int kG2Round = 128;  // listed rows of B^H whose g2 draws a round holds
 
 // Symbols a group of lr_main holds at J bins a thread (M x J <= 32 points a
 // thread), and of lr_power (whose block covers 4096 / n symbols); both
@@ -118,6 +145,9 @@ constexpr int kMaxRank = 128;
 __host__ __device__ constexpr int group_of(int J) { return J <= 2 ? 4 : 32 / J; }
 __host__ __device__ constexpr int group_power(int J) { return J <= 2 ? 8 : 16 / J; }
 __host__ __device__ constexpr int min_blocks(int J) { return J <= 2 ? 4 : 2; }
+
+// Blocks a symbol: 1 up to 4096 bins, else a cluster of ceil(n / 4096).
+__host__ __device__ constexpr int cluster_of(int n) { return (n + kSliceBins - 1) / kSliceBins; }
 
 struct Link {
   const float* tlr;  // (E, n) TailM transposed, row-major
@@ -135,6 +165,7 @@ struct Link {
   int T;
   int E;
   int rank;  // B^H's rows; 0 without noise, so no g2 draw runs then
+  int C;     // blocks a symbol (cluster_of(n))
   ofdm::Qam q;
   float snr_lin;
   float pw_scale;
@@ -152,46 +183,81 @@ struct Link {
   ofdm::Stages st;    // the _Spec stages (OFDM_STAGED builds)
   const float* prev_r;  // (E,) t the chunk's first symbol reads as t_prev, or null
   const float* prev_i;
-  // The rows the kernels read (bit r: row r): TailM's nonzero rows, the
-  // rows of [Cr; Cp] that can add a nonzero term (bits 0-63 in [0], 64-125
-  // in [1]), B^H's nonzero rows.
-  unsigned long long tail_mask;
-  unsigned long long cc_mask[2];
-  unsigned long long bh_mask[2];
+  // The rows the kernels read (lr_kernel.row_table, ascending): TailM's nt
+  // listed rows (t is kept in their places only), each lane's place among
+  // them or -1 (E), the ncc rows of [Cr; Cp] that can add a nonzero term with
+  // the offset of each one's t from its symbol's t_prev slots, B^H's nbh
+  // listed rows.
+  const int* tail_rows;
+  const int* tail_slot;
+  const int* cc_rows;
+  const int* cc_off;
+  const int* bh_rows;
+  int nt;
+  int ncc;
+  int nbh;  // 0 without noise
 };
 
-// f(r) for each set bit r of the row mask (lo, hi), ascending.
-template <class F>
-__device__ __forceinline__ void for_rows(unsigned long long lo, unsigned long long hi, F&& f) {
-  for (unsigned long long w = lo; w != 0ull; w &= w - 1ull) f(__ffsll(static_cast<long long>(w)) - 1);
-  for (unsigned long long w = hi; w != 0ull; w &= w - 1ull) f(64 + __ffsll(static_cast<long long>(w)) - 1);
+// Whether a symbol is held by a cluster of blocks: only at 16 bins a thread
+// (past 4096 bins), so the kernels of fewer bins a thread hold no cluster code.
+template <int J>
+__device__ __forceinline__ bool clustered(const Link& L) {
+  if constexpr (J == 16) {
+    return L.C > 1;
+  } else {
+    return false;
+  }
+}
+
+// link_common.cuh::cluster_totals, compiled where a cluster can hold a symbol.
+template <int J>
+__device__ __forceinline__ void cluster_sums(const Link& L, float* part, float* out, int cnt) {
+  if constexpr (J == 16) ofdm::cluster_totals(part, out, cnt, L.C);
+}
+
+// Floats of the cluster scratch of a block at M symbols a group and np tail
+// lanes a pass (the slice sums, then the totals), 0 at one block a symbol.
+__host__ __device__ constexpr int cluster_floats(int M, int np, int C) {
+  return C > 1 ? 2 * (2 * M * np > M ? 2 * M * np : M) : 0;
 }
 
 // Dynamic shared memory of lr_main in floats, in this order: the t slots
-// (M + 1 symbols x E, float2), the g2 draws (M x rank, float2), the
-// thread's slots (M x J x 256: the normals then y as float2, the TX
-// index), the per-warp tail sums (8 x M x 2E), the per-warp MMSE and
-// energy sums (8 x M each), and a sampled symbol's s (2n, in-kernel PAPR
-// only).  ofdm_lr_geometry reports it.
-__host__ __device__ constexpr int main_smem_floats(int M, int J, int n, int E, int rank, int txext) {
-  return 2 * (M + 1) * E + 2 * M * rank + 3 * M * J * kThreads + kWarps * M * 2 * E + 2 * kWarps * M +
-         (txext ? 0 : 2 * n);
+// (M + 1 symbols x nt, float2), a round of g2 draws (M x R, float2), the
+// thread's slots (M x J x 256: the normals then y as float2, the TX index),
+// the per-warp tail sums (8 x M x 2 x np, np = min(nt, kTailPass)), the
+// per-warp MMSE and energy sums (8 x M each), the cluster scratch, and a
+// sampled symbol's s (2n, in-kernel PAPR only).  ofdm_lr_geometry reports it.
+__host__ __device__ constexpr int main_smem_floats(int M, int J, int n, int nt, int R, int C, int txext) {
+  return 2 * (M + 1) * nt + 2 * M * R + 3 * M * J * kThreads + kWarps * M * 2 * (nt < kTailPass ? nt : kTailPass) +
+         2 * kWarps * M + cluster_floats(M, nt < kTailPass ? nt : kTailPass, C) + (txext ? 0 : 2 * n);
 }
 
-// lr_power's and lr_probe's: the t slots and the per-warp tail sums.
-__host__ __device__ constexpr int tail_smem_floats(int M, int E) {
-  return 2 * (M + 1) * E + kWarps * M * 2 * E;
+// lr_power's and lr_probe's: the t slots, the per-warp tail sums and the
+// cluster scratch.
+__host__ __device__ constexpr int tail_smem_floats(int M, int nt, int C) {
+  return 2 * (M + 1) * nt + kWarps * M * 2 * (nt < kTailPass ? nt : kTailPass) +
+         cluster_floats(M, nt < kTailPass ? nt : kTailPass, C);
 }
 
 // Symbols [first, first + cnt) of a group: sr / si[m][j] the points of the
-// thread's bins (zeros from cnt on), scaled under apply_power.  With kWords,
-// each (m, j) slot also gets the TX index and, with noise, the Box-Muller
-// normals of the bin's words.  The loop over symbols shifts the rows down
-// and fills the last, so every register index is static.
+// thread's bins base + tid + 256 j (zeros from cnt on), scaled under
+// apply_power.  With kWords, each (m, j) slot also gets the TX index and,
+// with noise, the Box-Muller normals of the bin's words.  The loop over
+// symbols shifts the rows down and fills the last, so every register index
+// is static.  The rows start at zero: a shift that reads a row never
+// written is undefined, and nvcc then dropped the shift at 4 bins a thread.
 template <int J, int M, int kMode, bool kStaged, bool kWords>
-__device__ __forceinline__ void encode_group(const Link& L, unsigned long long first, int cnt,
+__device__ __forceinline__ void encode_group(const Link& L, int base, unsigned long long first, int cnt,
                                              float (&sr)[M][J], float (&si)[M][J], float2* zs, int* txs) {
   const int tid = threadIdx.x;
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      sr[m][j] = 0.0f;
+      si[m][j] = 0.0f;
+    }
+  }
 #pragma unroll 1
   for (int m = 0; m < M; ++m) {
 #pragma unroll
@@ -204,7 +270,7 @@ __device__ __forceinline__ void encode_group(const Link& L, unsigned long long f
     }
 #pragma unroll
     for (int j = 0; j < J; ++j) {
-      const int k = tid + kThreads * j;
+      const int k = base + tid + kThreads * j;
       float a = 0.0f, c = 0.0f;
       if (m < cnt && k < L.n) {
         const uint4 wd = ofdm::symbol_words(first + static_cast<unsigned long long>(m), k, L.key);
@@ -224,90 +290,114 @@ __device__ __forceinline__ void encode_group(const Link& L, unsigned long long f
   }
 }
 
-// t of the group's symbols m < cnt into out[m * E + e] (re, im) for TailM's
-// listed rows e: per-thread partials in k order, a warp butterfly, the
-// warps in order.  With `moved`, out[(M - 1) * E + e] first moves to
-// moved[e] (the previous group's last t becomes this group's t_prev).
-// Every thread of the block calls it; it leaves the block synchronized.
+// t of the group's symbols m < cnt into out[m * nt + p] (re, im) for the
+// listed tail lanes p, in passes of at most kTailPass lanes: per-thread
+// partials in k order, a warp butterfly, the warps in order, and in a
+// cluster the blocks' slice sums in rank order (`cpart`: the cluster
+// scratch).  With `moved`, out[(M - 1) * nt + p] first moves to moved[p]
+// (the previous group's last t becomes this group's t_prev).  Every thread
+// of the block (of the cluster) calls it; it leaves the block synchronized.
 template <int J, int M>
-__device__ __forceinline__ void tails_group(const Link& L, const float (&sr)[M][J], const float (&si)[M][J], int cnt,
-                            float* wsum, float2* out, float2* moved) {
+__device__ __forceinline__ void tails_group(const Link& L, int base, const float (&sr)[M][J],
+                                            const float (&si)[M][J], int cnt, float* wsum, float* cpart,
+                                            float2* out, float2* moved) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int E = L.E;
-  const int E2 = 2 * E;
-  for_rows(L.tail_mask, 0ull, [&](int e) {
-    float pr[M], pi[M];
+  for (int p0 = 0; p0 < L.nt; p0 += kTailPass) {
+    const int np = min(kTailPass, L.nt - p0);
+    const int W = 2 * np;
+    for (int p = p0; p < p0 + np; ++p) {
+      const int e = __ldg(L.tail_rows + p);
+      float pr[M], pi[M];
 #pragma unroll
-    for (int m = 0; m < M; ++m) {
-      pr[m] = 0.0f;
-      pi[m] = 0.0f;
-    }
+      for (int m = 0; m < M; ++m) {
+        pr[m] = 0.0f;
+        pi[m] = 0.0f;
+      }
 #pragma unroll
-    for (int j = 0; j < J; ++j) {
-      const int k = tid + kThreads * j;
-      if (k < L.n) {
-        const float f_r = __ldg(L.tlr + e * L.n + k);
-        const float f_i = __ldg(L.tli + e * L.n + k);
+      for (int j = 0; j < J; ++j) {
+        const int k = base + tid + kThreads * j;
+        if (k < L.n) {
+          const float f_r = __ldg(L.tlr + e * L.n + k);
+          const float f_i = __ldg(L.tli + e * L.n + k);
+#pragma unroll
+          for (int m = 0; m < M; ++m) {
+            pr[m] = pr[m] + (sr[m][j] * f_r - si[m][j] * f_i);
+            pi[m] = pi[m] + (sr[m][j] * f_i + si[m][j] * f_r);
+          }
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+          pr[m] = pr[m] + __shfl_xor_sync(0xFFFFFFFFu, pr[m], off);
+          pi[m] = pi[m] + __shfl_xor_sync(0xFFFFFFFFu, pi[m], off);
+        }
+      }
+      if (lane == 0) {
 #pragma unroll
         for (int m = 0; m < M; ++m) {
-          pr[m] = pr[m] + (sr[m][j] * f_r - si[m][j] * f_i);
-          pi[m] = pi[m] + (sr[m][j] * f_i + si[m][j] * f_r);
+          wsum[(warp * M + m) * W + (p - p0)] = pr[m];
+          wsum[(warp * M + m) * W + np + (p - p0)] = pi[m];
         }
       }
     }
-#pragma unroll
-    for (int m = 0; m < M; ++m) {
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        pr[m] = pr[m] + __shfl_xor_sync(0xFFFFFFFFu, pr[m], off);
-        pi[m] = pi[m] + __shfl_xor_sync(0xFFFFFFFFu, pi[m], off);
+    __syncthreads();
+    const float* sums = cpart;
+    if (clustered<J>(L)) {
+      for (int o = tid; o < M * W; o += kThreads) {
+        const int m = o / W;
+        float s = 0.0f;
+        for (int w = 0; w < kWarps; ++w) s = s + wsum[(w * M + m) * W + (o - m * W)];
+        cpart[o] = s;
+      }
+      cluster_sums<J>(L, cpart, cpart + M * W, M * W);
+      sums = cpart + M * W;
+    }
+    for (int o = tid; o < M * W; o += kThreads) {
+      const int m = o / W;
+      const int c = o - m * W;
+      float* dst = reinterpret_cast<float*>(out + m * L.nt + p0 + (c < np ? c : c - np)) + (c < np ? 0 : 1);
+      if (moved != nullptr && m == M - 1) {
+        reinterpret_cast<float*>(moved + p0 + (c < np ? c : c - np))[c < np ? 0 : 1] = *dst;
+      }
+      if (m < cnt) {
+        float s;
+        if (clustered<J>(L)) {
+          s = sums[o];
+        } else {
+          s = 0.0f;
+          for (int w = 0; w < kWarps; ++w) s = s + wsum[(w * M + m) * W + c];
+        }
+        *dst = s;
       }
     }
-    if (lane == 0) {
-#pragma unroll
-      for (int m = 0; m < M; ++m) {
-        wsum[(warp * M + m) * E2 + e] = pr[m];
-        wsum[(warp * M + m) * E2 + E + e] = pi[m];
-      }
-    }
-  });
-  __syncthreads();
-  for (int o = tid; o < M * E2; o += kThreads) {
-    const int m = o / E2;
-    const int c = o - m * E2;
-    const int e = c < E ? c : c - E;
-    if (((L.tail_mask >> e) & 1ull) == 0ull) continue;
-    float* dst = reinterpret_cast<float*>(out + m * E + e) + (c < E ? 0 : 1);
-    if (moved != nullptr && m == M - 1) reinterpret_cast<float*>(moved + e)[c < E ? 0 : 1] = *dst;
-    if (m < cnt) {
-      float s = 0.0f;
-      for (int w = 0; w < kWarps; ++w) s = s + wsum[(w * M + m) * E2 + c];
-      *dst = s;
-    }
+    __syncthreads();
   }
-  __syncthreads();
 }
 
-// out[e] = t of run symbol `sym - 1` for TailM's listed rows, the t slot of
-// the run's first symbol (zero-initialized and synchronized by the
-// caller); it stays zero for the run's first symbol and when TailM is all
+// out[p] = t of run symbol `sym - 1` for the listed tail lanes, the t slots
+// of the run's first symbol (zero-initialized and synchronized by the
+// caller); they stay zero for the run's first symbol and when TailM is all
 // zero.  The chunk's first symbol reads the caller's t instead when the
 // Link carries one.  Leaves the block synchronized.
 template <int J, int kMode, bool kStaged>
-__device__ void prev_tail(const Link& L, unsigned long long sym, float* wsum, float2* out) {
-  if (L.tail_mask == 0ull) return;
+__device__ void prev_tail(const Link& L, int base, unsigned long long sym, float* wsum, float* cpart, float2* out) {
+  if (L.nt == 0) return;
   if (L.prev_r != nullptr && sym == L.sym0) {
-    const int e = static_cast<int>(threadIdx.x);
-    if (e < L.E && ((L.tail_mask >> e) & 1ull)) out[e] = make_float2(L.prev_r[e], L.prev_i[e]);
+    for (int p = threadIdx.x; p < L.nt; p += kThreads) {
+      const int e = __ldg(L.tail_rows + p);
+      out[p] = make_float2(L.prev_r[e], L.prev_i[e]);
+    }
     __syncthreads();
     return;
   }
   if (sym == 0) return;
   float sr[1][J], si[1][J];
-  encode_group<J, 1, kMode, kStaged, false>(L, sym - 1, 1, sr, si, nullptr, nullptr);
-  tails_group<J, 1>(L, sr, si, 1, wsum, out, nullptr);
+  encode_group<J, 1, kMode, kStaged, false>(L, base, sym - 1, 1, sr, si, nullptr, nullptr);
+  tails_group<J, 1>(L, base, sr, si, 1, wsum, cpart, out, nullptr);
 }
 
 // cr / ci[m] = [t | tp] @ [Cr; Cp] at bin k for the group's symbols, over
@@ -321,54 +411,73 @@ __device__ __forceinline__ void corrections(const Link& L, int k, const float2* 
     cr[m] = 0.0f;
     ci[m] = 0.0f;
   }
-  for_rows(L.cc_mask[0], L.cc_mask[1], [&](int r) {
+  for (int i = 0; i < L.ncc; ++i) {
+    const int r = __ldg(L.cc_rows + i);
     const float m_r = __ldg(L.ccr + r * L.n + k);
     const float m_i = __ldg(L.cci + r * L.n + k);
-    const float2* tv = ts + (r < L.E ? L.E + r : r - L.E);
+    const float2* tv = ts + __ldg(L.cc_off + i);
 #pragma unroll
     for (int m = 0; m < M; ++m) {
-      const float2 t = tv[m * L.E];
+      const float2 t = tv[m * L.nt];
       cr[m] = cr[m] + (t.x * m_r - t.y * m_i);
       ci[m] = ci[m] + (t.x * m_i + t.y * m_r);
     }
-  });
+  }
+}
+
+// The bin offset of this block's slice: 0 at one block a symbol, else its
+// rank in the cluster times 4096 (the cluster's blocks are consecutive along
+// grid dimension `dim`).
+template <int J>
+__device__ __forceinline__ int slice_base(const Link& L, int dim) {
+  return clustered<J>(L) ? static_cast<int>((dim == 0 ? blockIdx.x : blockIdx.y) % L.C) * kSliceBins : 0;
 }
 
 // Partial sums of |y|^2 (before noise) over each tile's measured-power slice,
 // in power_partials' order.  grid (tiles, groups); block (tile, g) covers
 // slice elements e = b*n + k in [g*4096, (g+1)*4096), its symbols in groups
-// of group_power(J).
+// of group_power(J); past 4096 bins it covers slice g % C of symbol g / C
+// (the rest of its 4096 elements zero when that slice is short), and the
+// blocks of a symbol form a cluster along y.
 template <int J, int kMode, bool kStaged>
 __global__ void __launch_bounds__(kThreads) lr_power(Link L, float* partials) {
   constexpr int M = group_power(J);
   __shared__ float red[kPowerBlock];  // element order
   extern __shared__ float dyn[];
   float2* ts = reinterpret_cast<float2*>(dyn);
-  float* wsum = dyn + 2 * (M + 1) * L.E;
+  const int np = min(L.nt, kTailPass);
+  float* wsum = dyn + 2 * (M + 1) * L.nt;
+  float* cpart = wsum + kWarps * M * 2 * np;
   const int tid = threadIdx.x;
   const int tile_id = blockIdx.x;
   const int g = blockIdx.y;
+  const int base = slice_base<J>(L, 1);
   const int b0 = tile_id * L.tile;
   const int tlen = min(L.tile, L.chunk - b0);
   const int count = min(L.slice, tlen) * L.n;
-  const int e_lo = g * kPowerBlock;
-  const int e_hi = min(e_lo + kPowerBlock, count);
+  int e_lo = g * kPowerBlock;
+  int e_hi = min(e_lo + kPowerBlock, count);
+  if (clustered<J>(L)) {  // slice g % C of symbol g / C: g x 4096 when C x 4096 = n
+    const int s = g / L.C;
+    e_lo = s * L.n + base;
+    e_hi = s < min(L.slice, tlen) ? s * L.n + min(base + kSliceBins, L.n) : e_lo;
+  }
   for (int i = tid; i < kPowerBlock; i += kThreads) red[i] = 0.0f;
-  for (int i = tid; i < (M + 1) * L.E; i += kThreads) ts[i] = make_float2(0.0f, 0.0f);
+  for (int i = tid; i < (M + 1) * L.nt; i += kThreads) ts[i] = make_float2(0.0f, 0.0f);
   __syncthreads();
-  if (e_lo < e_hi) {
+  if (e_lo < e_hi) {  // the same for every block of a cluster: a symbol's slices
     const int s_lo = e_lo / L.n;
     const int s_hi = (e_hi - 1) / L.n + 1;
-    prev_tail<J, kMode, kStaged>(L, L.sym0 + static_cast<unsigned long long>(b0 + s_lo), wsum, ts);
+    prev_tail<J, kMode, kStaged>(L, base, L.sym0 + static_cast<unsigned long long>(b0 + s_lo), wsum, cpart, ts);
     for (int g0 = s_lo; g0 < s_hi; g0 += M) {
       const int cnt = min(M, s_hi - g0);
       float sr[M][J], si[M][J];
-      encode_group<J, M, kMode, kStaged, false>(L, L.sym0 + static_cast<unsigned long long>(b0 + g0), cnt, sr,
-                                                si, nullptr, nullptr);
-      if (L.tail_mask != 0ull) tails_group<J, M>(L, sr, si, cnt, wsum, ts + L.E, g0 > s_lo ? ts : nullptr);
+      encode_group<J, M, kMode, kStaged, false>(L, base, L.sym0 + static_cast<unsigned long long>(b0 + g0), cnt,
+                                                sr, si, nullptr, nullptr);
+      if (L.nt > 0) tails_group<J, M>(L, base, sr, si, cnt, wsum, cpart, ts + L.nt, g0 > s_lo ? ts : nullptr);
 #pragma unroll
       for (int j = 0; j < J; ++j) {
-        const int k = tid + kThreads * j;
+        const int k = base + tid + kThreads * j;
         if (k < L.n) {
           float cr[M], ci[M];
           corrections<M>(L, k, ts, cr, ci);
@@ -413,30 +522,65 @@ __device__ __forceinline__ float warps_in_order(const float* sums, int m) {
   return s;
 }
 
+// In a cluster, the M symbols' sums from warp_sums' output (synchronized):
+// each block's slice sums, then the slices in rank order, into
+// cpart[M .. 2M) of every block (the cluster scratch).  Every thread of the
+// cluster calls it.
+template <int J, int M>
+__device__ __forceinline__ const float* symbol_totals(const Link& L, const float* sums, float* cpart) {
+  if (threadIdx.x < M) cpart[threadIdx.x] = warps_in_order<M>(sums, threadIdx.x);
+  cluster_sums<J>(L, cpart, cpart + M, M);
+  return cpart + M;
+}
+
+// g2 of listed rows [r0, r0 + rn) of B^H for the group's symbols m < cnt
+// into gs[m * R + (i - r0)]: counters (b lo, b hi, row, 1), one thread each.
+__device__ __forceinline__ void draw_g2(const Link& L, unsigned long long first, int cnt, int r0, int rn, int R,
+                                        float2* gs) {
+  for (int o = threadIdx.x; o < cnt * rn; o += kThreads) {
+    const int m = o / rn;
+    const int i = o - m * rn;
+    const unsigned long long sym = first + static_cast<unsigned long long>(m);
+    const uint4 wd = ofdm::philox4x32_10(
+        make_uint4(static_cast<uint32_t>(sym), static_cast<uint32_t>(sym >> 32),
+                   static_cast<uint32_t>(__ldg(L.bh_rows + r0 + i)), 1u),
+        L.key);
+    float zr, zi;
+    ofdm::box_muller(wd.y, wd.z, zr, zi);
+    gs[m * R + i] = make_float2(zr, zi);
+  }
+}
+
 // With kStaged, the stages (phase 0 of a normalized link writes its run's
 // |e|^2 partial instead of counting); kDump is the dump stage's
 // launch-time variant, kBump the noise-bump stages (the OFDM_BUMP build).
+// grid: runs (x C past 4096 bins: a run's blocks form a cluster along x).
 template <int J, int kMode, bool kStaged, bool kDump = false, bool kBump = false>
 __global__ void __launch_bounds__(kThreads, min_blocks(J))
     lr_main(Link L, const float* partials, unsigned long long* acc, double* psum, float* carry_r,
             float* carry_i) {
   constexpr int M = group_of(J);
+  const int R = min(L.nbh, kG2Round);
+  const int np = min(L.nt, kTailPass);
   extern __shared__ float dyn[];
   float2* ts = reinterpret_cast<float2*>(dyn);
-  float2* gs = ts + (M + 1) * L.E;
-  float2* zs = gs + M * L.rank;  // the thread's slots: normals, then y
+  float2* gs = ts + (M + 1) * L.nt;
+  float2* zs = gs + M * R;  // the thread's slots: normals, then y
   int* txs = reinterpret_cast<int*>(zs + M * J * kThreads);
   float* wsum = reinterpret_cast<float*>(txs + M * J * kThreads);
-  float* nvs = wsum + kWarps * M * 2 * L.E;
+  float* nvs = wsum + kWarps * M * 2 * np;
   float* es = nvs + kWarps * M;
-  float* splane = es + kWarps * M;  // 2n floats: a sampled symbol's s (in-kernel PAPR only)
+  float* cpart = es + kWarps * M;
+  float* splane = cpart + cluster_floats(M, np, L.C);  // 2n floats: a sampled symbol's s (in-kernel PAPR only)
   const int tid = threadIdx.x;
+  const int run_id = clustered<J>(L) ? static_cast<int>(blockIdx.x) / L.C : static_cast<int>(blockIdx.x);
+  const int base = slice_base<J>(L, 0);
 
   uint32_t be = 0, se = 0;
   float pk = 0.0f;
   double ps = 0.0;
 
-  const int b0 = static_cast<int>(static_cast<long long>(blockIdx.x) * L.run);
+  const int b0 = static_cast<int>(static_cast<long long>(run_id) * L.run);
   const int b1 = min(b0 + L.run, L.chunk);
   const bool counting = !kStaged || L.st.phase == 1;
   const bool normalize = kStaged && (L.st.bits & ofdm::kStageNormalize) != 0;
@@ -452,17 +596,17 @@ __global__ void __launch_bounds__(kThreads, min_blocks(J))
   if constexpr (kStaged) {
     if (normalize && counting) fn = L.st.norm_f[tile_id];
   }
-  const bool papr = counting && !L.txext && tile_id % L.pstride == 0;
-  for (int i = tid; i < (M + 1) * L.E; i += kThreads) ts[i] = make_float2(0.0f, 0.0f);
+  const bool papr = counting && !L.txext && tile_id % L.pstride == 0;  // one block a symbol only
+  for (int i = tid; i < (M + 1) * L.nt; i += kThreads) ts[i] = make_float2(0.0f, 0.0f);
   __syncthreads();
-  prev_tail<J, kMode, kStaged>(L, L.sym0 + static_cast<unsigned long long>(b0), wsum, ts);
+  prev_tail<J, kMode, kStaged>(L, base, L.sym0 + static_cast<unsigned long long>(b0), wsum, cpart, ts);
 
   for (int g0 = b0; g0 < b1; g0 += M) {
     const int cnt = min(M, b1 - g0);
     const unsigned long long first = L.sym0 + static_cast<unsigned long long>(g0);
     float sr[M][J], si[M][J];
-    encode_group<J, M, kMode, kStaged, true>(L, first, cnt, sr, si, zs, txs);
-    if (L.tail_mask != 0ull) tails_group<J, M>(L, sr, si, cnt, wsum, ts + L.E, g0 > b0 ? ts : nullptr);
+    encode_group<J, M, kMode, kStaged, true>(L, base, first, cnt, sr, si, zs, txs);
+    if (L.nt > 0) tails_group<J, M>(L, base, sr, si, cnt, wsum, cpart, ts + L.nt, g0 > b0 ? ts : nullptr);
 
     if (papr) {
       // PAPR: x = s @ F_tx over each symbol's n bins, T time samples.
@@ -497,23 +641,11 @@ __global__ void __launch_bounds__(kThreads, min_blocks(J))
       }
     }
 
-    if (L.rank > 0) {
-      // g2 of the group's symbols: counters (b lo, b hi, i, 1), B^H's listed rows
-      for (int o = tid; o < cnt * L.rank; o += kThreads) {
-        const int m = o / L.rank;
-        const int i = o - m * L.rank;
-        const bool listed = i < 64 ? ((L.bh_mask[0] >> i) & 1ull) : ((L.bh_mask[1] >> (i - 64)) & 1ull);
-        if (listed) {
-          const unsigned long long sym = first + static_cast<unsigned long long>(m);
-          const uint4 wd = ofdm::philox4x32_10(
-              make_uint4(static_cast<uint32_t>(sym), static_cast<uint32_t>(sym >> 32), static_cast<uint32_t>(i),
-                         1u),
-              L.key);
-          float zr, zi;
-          ofdm::box_muller(wd.y, wd.z, zr, zi);
-          gs[m * L.rank + i] = make_float2(zr, zi);
-        }
-      }
+    // g2 of the group's symbols, B^H's listed rows: one round drawn here,
+    // more rounds drawn again for each j below
+    const bool one_round = L.nbh <= kG2Round;
+    if (L.rank > 0 && one_round && L.nbh > 0) {
+      draw_g2(L, first, cnt, 0, L.nbh, R, gs);
       __syncthreads();
     }
 
@@ -524,9 +656,15 @@ __global__ void __launch_bounds__(kThreads, min_blocks(J))
     for (int m = 0; m < M; ++m) pn[m] = 0.0f;
 #pragma unroll
     for (int j = 0; j < J; ++j) {
-      const int k = tid + kThreads * j;
-      if (k < L.n) {
-        float yr[M], yi[M];
+      const int k = base + tid + kThreads * j;
+      const bool in = k < L.n;
+      float yr[M], yi[M];
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        yr[m] = 0.0f;
+        yi[m] = 0.0f;
+      }
+      if (in) {
         corrections<M>(L, k, ts, yr, yi);
         const float d_r = __ldg(L.dr + k);
         const float d_i = __ldg(L.di + k);
@@ -535,25 +673,38 @@ __global__ void __launch_bounds__(kThreads, min_blocks(J))
           yr[m] = (sr[m][j] * d_r - si[m][j] * d_i) + yr[m];
           yi[m] = (sr[m][j] * d_i + si[m][j] * d_r) + yi[m];
         }
-        if (L.add_noise) {
-          if (L.rank > 0) {
-            // colored part: g2 @ B^H over the listed rows
-            float cr[M], ci[M];
+      }
+      if (L.add_noise) {
+        if (L.rank > 0) {
+          // colored part: g2 @ B^H over the listed rows, in rounds
+          float cr[M], ci[M];
 #pragma unroll
-            for (int m = 0; m < M; ++m) {
-              cr[m] = 0.0f;
-              ci[m] = 0.0f;
+          for (int m = 0; m < M; ++m) {
+            cr[m] = 0.0f;
+            ci[m] = 0.0f;
+          }
+          for (int r0 = 0; r0 < L.nbh; r0 += kG2Round) {
+            const int rn = min(kG2Round, L.nbh - r0);
+            if (!one_round) {
+              __syncthreads();  // the previous round's draws are read
+              draw_g2(L, first, cnt, r0, rn, R, gs);
+              __syncthreads();
             }
-            for_rows(L.bh_mask[0], L.bh_mask[1], [&](int i) {
-              const float m_r = __ldg(L.bhr + i * L.n + k);
-              const float m_i = __ldg(L.bhi + i * L.n + k);
+            if (in) {
+              for (int i = 0; i < rn; ++i) {
+                const int row = __ldg(L.bh_rows + r0 + i);
+                const float m_r = __ldg(L.bhr + row * L.n + k);
+                const float m_i = __ldg(L.bhi + row * L.n + k);
 #pragma unroll
-              for (int m = 0; m < M; ++m) {
-                const float2 gv = gs[m * L.rank + i];
-                cr[m] = cr[m] + (gv.x * m_r - gv.y * m_i);
-                ci[m] = ci[m] + (gv.x * m_i + gv.y * m_r);
+                for (int m = 0; m < M; ++m) {
+                  const float2 gv = gs[m * R + i];
+                  cr[m] = cr[m] + (gv.x * m_r - gv.y * m_i);
+                  ci[m] = ci[m] + (gv.x * m_i + gv.y * m_r);
+                }
               }
-            });
+            }
+          }
+          if (in) {
 #pragma unroll
             for (int m = 0; m < M; ++m) {
               const float2 z = zs[(m * J + j) * kThreads + tid];
@@ -562,15 +713,17 @@ __global__ void __launch_bounds__(kThreads, min_blocks(J))
               yr[m] = yr[m] + sigma * zr;
               yi[m] = yi[m] + sigma * zi;
             }
-          } else {
+          }
+        } else if (in) {
 #pragma unroll
-            for (int m = 0; m < M; ++m) {
-              const float2 z = zs[(m * J + j) * kThreads + tid];
-              yr[m] = yr[m] + sigma * z.x;
-              yi[m] = yi[m] + sigma * z.y;
-            }
+          for (int m = 0; m < M; ++m) {
+            const float2 z = zs[(m * J + j) * kThreads + tid];
+            yr[m] = yr[m] + sigma * z.x;
+            yi[m] = yi[m] + sigma * z.y;
           }
         }
+      }
+      if (in) {
 #pragma unroll
         for (int m = 0; m < M; ++m) {
           pn[m] = pn[m] + (yr[m] * yr[m] + yi[m] * yi[m]);
@@ -584,9 +737,10 @@ __global__ void __launch_bounds__(kThreads, min_blocks(J))
     if (L.eq.method == 1) {
       warp_sums<M>(pn, nvs);
       __syncthreads();
+      const float* tot = clustered<J>(L) ? symbol_totals<J, M>(L, nvs, cpart) : nullptr;
 #pragma unroll
       for (int m = 0; m < M; ++m) {
-        const float sp = warps_in_order<M>(nvs, m) / static_cast<float>(L.n);
+        const float sp = (tot != nullptr ? tot[m] : warps_in_order<M>(nvs, m)) / static_cast<float>(L.n);
         nv[m] = sp / L.snr_lin / L.eq.cg;
       }
     }
@@ -597,7 +751,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks(J))
       for (int m = 0; m < M; ++m) p[m] = 0.0f;
 #pragma unroll 1
       for (int j = 0; j < J; ++j) {
-        const int k = tid + kThreads * j;
+        const int k = base + tid + kThreads * j;
         if (k < L.n) {
 #pragma unroll
           for (int m = 0; m < M; ++m) {
@@ -624,14 +778,19 @@ __global__ void __launch_bounds__(kThreads, min_blocks(J))
       if (normalize && !counting) {
         warp_sums<M>(p, es);
         __syncthreads();
-        if (tid == 0) {
+        if (clustered<J>(L)) {
+          const float* tot = symbol_totals<J, M>(L, es, cpart);
+          if (tid == 0) {
+            for (int m = 0; m < cnt; ++m) energy = energy + tot[m];
+          }
+        } else if (tid == 0) {
           for (int m = 0; m < cnt; ++m) energy = energy + warps_in_order<M>(es, m);
         }
       }
     } else {
 #pragma unroll 1
       for (int j = 0; j < J; ++j) {
-        const int k = tid + kThreads * j;
+        const int k = base + tid + kThreads * j;
         if (k < L.n) {
 #pragma unroll
           for (int m = 0; m < M; ++m) {
@@ -647,73 +806,74 @@ __global__ void __launch_bounds__(kThreads, min_blocks(J))
       }
     }
 
-    if (counting && g0 <= L.chunk - 1 && L.chunk - 1 < g0 + cnt) {
+    if (counting && base == 0 && g0 <= L.chunk - 1 && L.chunk - 1 < g0 + cnt) {
       // the JAX carry contract: (T,) zero but for the last E lanes, this t
-      const float2* t = ts + (L.chunk - g0) * L.E;  // slot m + 1 of m = chunk - 1 - g0
+      const float2* t = ts + (L.chunk - g0) * L.nt;  // slot m + 1 of m = chunk - 1 - g0
       const int off = L.T - L.E;
       for (int c = tid; c < L.T; c += kThreads) {
-        carry_r[c] = c >= off ? t[c - off].x : 0.0f;
-        carry_i[c] = c >= off ? t[c - off].y : 0.0f;
+        const int p = c >= off ? __ldg(L.tail_slot + c - off) : -1;
+        carry_r[c] = p >= 0 ? t[p].x : 0.0f;
+        carry_i[c] = p >= 0 ? t[p].y : 0.0f;
       }
     }
     __syncthreads();  // the t slots, g2 and the per-warp sums are rewritten by the next group
   }
   if constexpr (kStaged) {
-    if (normalize && !counting && tid == 0 && b0 < L.chunk) L.st.norm_part[blockIdx.x] = energy;
+    if (normalize && !counting && tid == 0 && base == 0 && b0 < L.chunk) L.st.norm_part[run_id] = energy;
   }
 
   ofdm::flush_counters<kWarps>(be, se, pk, ps, acc, psum);
 }
 
 // K3: symbol `sym`'s t through the chunk's own encode and tail pass, one
-// block of the chunk's shape (so the block sums run in lr_main's order): the
-// (T,) carry row, zeros but for the last E lanes, and t.
+// block (a cluster of C past 4096 bins) of the chunk's shape, so the block
+// sums run in lr_main's order: the (T,) carry row, zeros but for the last E
+// lanes, and t (E lanes, zero where TailM's row is).
 template <int J, int kMode, bool kStaged>
 __global__ void __launch_bounds__(kThreads)
     lr_probe(Link L, unsigned long long sym, float* carry_r, float* carry_i, float* tail_r, float* tail_i) {
   extern __shared__ float dyn[];
   float2* t = reinterpret_cast<float2*>(dyn);
-  float* wsum = dyn + 2 * 2 * L.E;
+  float* wsum = dyn + 2 * 2 * L.nt;
+  float* cpart = wsum + kWarps * 2 * min(L.nt, kTailPass);
   const int tid = threadIdx.x;
-  for (int i = tid; i < L.E; i += kThreads) t[i] = make_float2(0.0f, 0.0f);
+  const int base = slice_base<J>(L, 0);
+  for (int i = tid; i < L.nt; i += kThreads) t[i] = make_float2(0.0f, 0.0f);
   __syncthreads();
-  if (L.tail_mask != 0ull) {
+  if (L.nt > 0) {
     float sr[1][J], si[1][J];
-    encode_group<J, 1, kMode, kStaged, false>(L, sym, 1, sr, si, nullptr, nullptr);
-    tails_group<J, 1>(L, sr, si, 1, wsum, t, nullptr);
+    encode_group<J, 1, kMode, kStaged, false>(L, base, sym, 1, sr, si, nullptr, nullptr);
+    tails_group<J, 1>(L, base, sr, si, 1, wsum, cpart, t, nullptr);
   }
+  if (base != 0) return;
   const int off = L.T - L.E;
   for (int c = tid; c < L.T; c += kThreads) {
-    carry_r[c] = c >= off ? t[c - off].x : 0.0f;
-    carry_i[c] = c >= off ? t[c - off].y : 0.0f;
+    const int p = c >= off ? __ldg(L.tail_slot + c - off) : -1;
+    carry_r[c] = p >= 0 ? t[p].x : 0.0f;
+    carry_i[c] = p >= 0 ? t[p].y : 0.0f;
   }
-  if (tid < L.E) {
-    tail_r[tid] = t[tid].x;
-    tail_i[tid] = t[tid].y;
+  for (int e = tid; e < L.E; e += kThreads) {
+    const int p = __ldg(L.tail_slot + e);
+    tail_r[e] = p >= 0 ? t[p].x : 0.0f;
+    tail_i[e] = p >= 0 ? t[p].y : 0.0f;
   }
-}
-
-// Sets a kernel's dynamic shared memory limit and launches it.
-template <class K, class... Args>
-cudaError_t launch_with(K kernel, dim3 grid, int floats, cudaStream_t stream, Args... args) {
-  const int bytes = static_cast<int>(sizeof(float)) * floats;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, bytes, stream>>>(args...);
-  return cudaGetLastError();
 }
 
 template <int J, int kMode>
 cudaError_t probe_at(const Link& L, unsigned long long sym, float* cr, float* ci, float* tr, float* ti,
                      cudaStream_t stream) {
-  return launch_with(&lr_probe<J, kMode, ofdm::kStagedBuild>, dim3(1), tail_smem_floats(1, L.E), stream, L, sym,
-                     cr, ci, tr, ti);
+  const int bytes = static_cast<int>(sizeof(float)) * tail_smem_floats(1, L.nt, L.C);
+  return ofdm::launch_clusters(&lr_probe<J, kMode, ofdm::kStagedBuild>, dim3(L.C), kThreads, bytes, L.C, 0, stream,
+                               L, sym, cr, ci, tr, ti);
 }
+
+// Bins a thread of a block's slice: 1 ... 16.
+inline int bins_of(int n) { return ((n < kSliceBins ? n : kSliceBins) + kThreads - 1) / kThreads; }
 
 template <int kMode>
 cudaError_t probe_mode(const Link& L, unsigned long long sym, float* cr, float* ci, float* tr, float* ti,
                        cudaStream_t stream) {
-  const int bins = (L.n + kThreads - 1) / kThreads;
+  const int bins = bins_of(L.n);
   if (bins <= 1) return probe_at<1, kMode>(L, sym, cr, ci, tr, ti, stream);
   if (bins <= 2) return probe_at<2, kMode>(L, sym, cr, ci, tr, ti, stream);
   if (bins <= 4) return probe_at<4, kMode>(L, sym, cr, ci, tr, ti, stream);
@@ -730,30 +890,33 @@ cudaError_t launch(const Link& L, float* partials, unsigned long long* acc, doub
 #if OFDM_STAGED
   if (L.st.bits & ofdm::kStageDump) main_kernel = &lr_main<J, kMode, kS, true, kB>;
 #endif
+  const int fsize = static_cast<int>(sizeof(float));
   if (L.add_noise) {
     const int tiles = (L.chunk + L.tile - 1) / L.tile;
-    const cudaError_t err = launch_with(&lr_power<J, kMode, kS>, dim3(tiles, L.groups),
-                                        tail_smem_floats(group_power(J), L.E), stream, L, partials);
+    const cudaError_t err = ofdm::launch_clusters(&lr_power<J, kMode, kS>, dim3(tiles, L.groups), kThreads,
+                                                  fsize * tail_smem_floats(group_power(J), L.nt, L.C), L.C, 1,
+                                                  stream, L, partials);
     if (err != cudaSuccess) return err;
   }
-  const int floats = main_smem_floats(group_of(J), J, L.n, L.E, L.rank, L.txext);  // L.rank: 0 without noise
-  const dim3 grid((L.chunk + L.run - 1) / L.run);
+  const int bytes = fsize * main_smem_floats(group_of(J), J, L.n, L.nt, min(L.nbh, kG2Round), L.C, L.txext);
+  const dim3 grid(((L.chunk + L.run - 1) / L.run) * L.C);
 #if OFDM_STAGED
   return ofdm::staged_passes(L.st.bits, L.st.norm_part, L.st.norm_f, L.chunk, L.tile, L.run, L.n, stream,
                              [&](int phase) {
     Link P = L;
     P.st.phase = phase;
-    return launch_with(main_kernel, grid, floats, stream, P, partials, acc, psum, cr, ci);
+    return ofdm::launch_clusters(main_kernel, grid, kThreads, bytes, L.C, 0, stream, P, partials, acc, psum, cr,
+                                 ci);
   });
 #else
-  return launch_with(main_kernel, grid, floats, stream, L, partials, acc, psum, cr, ci);
+  return ofdm::launch_clusters(main_kernel, grid, kThreads, bytes, L.C, 0, stream, L, partials, acc, psum, cr, ci);
 #endif
 }
 
 template <int kMode>
 cudaError_t launch_mode(const Link& L, float* partials, unsigned long long* acc, double* psum,
                         float* cr, float* ci, cudaStream_t stream) {
-  const int bins = (L.n + kThreads - 1) / kThreads;  // bins a thread: 1 ... 16
+  const int bins = bins_of(L.n);
   if (bins <= 1) return launch<1, kMode>(L, partials, acc, psum, cr, ci, stream);
   if (bins <= 2) return launch<2, kMode>(L, partials, acc, psum, cr, ci, stream);
   if (bins <= 4) return launch<4, kMode>(L, partials, acc, psum, cr, ci, stream);
@@ -766,9 +929,10 @@ cudaError_t launch_mode(const Link& L, float* partials, unsigned long long* acc,
 // shared bytes a block, registers a thread, local bytes a thread (spills
 // and stack), static shared bytes, resident blocks an SM].
 template <int J>
-cudaError_t geometry_at(int n, int E, int rank, int txext, int* out) {
+cudaError_t geometry_at(int n, int nt, int nbh, int txext, int* out) {
   auto* kernel = &lr_main<J, ofdm::kQam, ofdm::kStagedBuild, false, ofdm::kBumpBuild>;
-  const int bytes = static_cast<int>(sizeof(float)) * main_smem_floats(group_of(J), J, n, E, rank, txext);
+  const int bytes = static_cast<int>(sizeof(float)) *
+                    main_smem_floats(group_of(J), J, n, nt, nbh < kG2Round ? nbh : kG2Round, cluster_of(n), txext);
   cudaFuncAttributes a;
   cudaError_t err = cudaFuncGetAttributes(&a, kernel);
   if (err == cudaSuccess) err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -781,14 +945,7 @@ cudaError_t geometry_at(int n, int E, int rank, int txext, int* out) {
   return cudaSuccess;
 }
 
-// Whether a row mask (lo, hi) lists rows below `rows` only.
-bool mask_fits(unsigned long long lo, unsigned long long hi, int rows) {
-  for (int r = 0; r < 128; ++r) {
-    const bool set = r < 64 ? ((lo >> r) & 1ull) : ((hi >> (r - 64)) & 1ull);
-    if (set && r >= rows) return false;
-  }
-  return true;
-}
+inline bool width_ok(int n) { return n >= 1 && n <= kMaxN; }
 
 }  // namespace ofdm_lr
 
@@ -798,12 +955,14 @@ extern "C" {
 
 // One chunk: lr_power (when noise is on) then lr_main, both on `stream`, in
 // constellation mode `mode` (link_common.cuh::Mode; lane_i / lane_f the
-// adaptive modes' lane rows).  acc = [bit errors, symbol errors, PAPR peak f32 bits] (int64, accumulated),
-// psum = PAPR power sum (float64, accumulated); carry = (T,) zeros but for the
-// last E lanes, the chunk's last symbol's t.  rows / stages / norm_part /
-// norm_f: the _Spec stages (link_common.cuh::Stages; 0 in the plain build).
-// tail_mask, cc_lo / cc_hi, bh_lo / bh_hi: the rows of TailM, [Cr; Cp] and
-// B^H the kernels read (Link's masks).  Returns the first CUDA error of the
+// adaptive modes' lane rows); past 4096 subcarriers (txext only) as
+// clusters of ceil(n / 4096) blocks.  acc = [bit errors, symbol
+// errors, PAPR peak f32 bits] (int64, accumulated), psum = PAPR power sum
+// (float64, accumulated); carry = (T,) zeros but for the last E lanes, the
+// chunk's last symbol's t.  rows / stages / norm_part / norm_f: the _Spec
+// stages (link_common.cuh::Stages; 0 in the plain build).  table / nt / ncc
+// / nbh: the row table (lr_kernel.row_table, on the device) and its counts
+// of TailM, [Cr; Cp] and B^H rows.  Returns the first CUDA error of the
 // launches, 0 if none.
 int ofdm_lr_chunk(const float* tlr, const float* tli, const float* ccr, const float* cci,
                   const float* bhr, const float* bhi, const float* dr, const float* di,
@@ -816,17 +975,15 @@ int ofdm_lr_chunk(const float* tlr, const float* tli, const float* ccr, const fl
                   long long* acc, double* psum, float* carry_r, float* carry_i, const float* rows,
                   int stages, float* norm_part, float* norm_f,
                     float* dump_r, float* dump_i, int dump_rows, const float* prev_r,
-                    const float* prev_i, unsigned long long tail_mask, unsigned long long cc_lo,
-                    unsigned long long cc_hi, unsigned long long bh_lo, unsigned long long bh_hi,
-                    void* stream_ptr) {
-  if (n < 1 || n > kMaxN || T < n || E < 1 || E > kMaxE || E > T || rank < 0 ||
-      (prev_r == nullptr) != (prev_i == nullptr) ||
-      rank > kMaxRank || chunk < 1 || tile < 1 || slice < 1 || groups < 1 || run < 1 ||
-      tile % run != 0 || run % group_of((n + kThreads - 1) / kThreads) != 0 ||
-      !mask_fits(tail_mask, 0ull, E) || !mask_fits(cc_lo, cc_hi, 2 * E) || !mask_fits(bh_lo, bh_hi, rank) ||
+                    const float* prev_i, const int* table, int nt, int ncc, int nbh, void* stream_ptr) {
+  if (!width_ok(n) || T < n || E < 1 || E > T || rank < 0 || (n > kSliceBins && !txext) ||
+      (prev_r == nullptr) != (prev_i == nullptr) || table == nullptr || nt < 0 || nt > E || ncc < 0 ||
+      ncc > 2 * E || nbh < 0 || nbh > rank ||
+      chunk < 1 || tile < 1 || slice < 1 || groups < 1 || run < 1 ||
+      tile % run != 0 || run % group_of(bins_of(n)) != 0 || groups % cluster_of(n) != 0 ||
       !ofdm::stage_args_ok(rows, stages, norm_part, norm_f, dump_r, dump_i, dump_rows, ofdm::kBumpBuild) ||
       pstride < 1 || (!txext && (fr == nullptr || fi == nullptr)) ||
-      (add_noise && rank > 0 && (bhr == nullptr || bhi == nullptr)) ||
+      (add_noise && nbh > 0 && (bhr == nullptr || bhi == nullptr)) ||
       (ofdm::adaptive(mode) && (lane_i == nullptr || lane_f == nullptr))) {
     return cudaErrorInvalidValue;
   }
@@ -847,6 +1004,7 @@ int ofdm_lr_chunk(const float* tlr, const float* tli, const float* ccr, const fl
   L.T = T;
   L.E = E;
   L.rank = add_noise ? rank : 0;
+  L.C = cluster_of(n);
   L.q = ofdm::Qam{order, m, logm, bits, gray, scale};
   L.lanes = ofdm::Lanes{lane_i, lane_f, n};
   L.snr_lin = snr_lin;
@@ -864,11 +1022,14 @@ int ofdm_lr_chunk(const float* tlr, const float* tli, const float* ccr, const fl
   L.st = ofdm::make_stages(rows, stages, norm_part, norm_f, dump_r, dump_i, dump_rows);
   L.prev_r = prev_r;
   L.prev_i = prev_i;
-  L.tail_mask = tail_mask;
-  L.cc_mask[0] = cc_lo;
-  L.cc_mask[1] = cc_hi;
-  L.bh_mask[0] = bh_lo;
-  L.bh_mask[1] = bh_hi;
+  L.tail_rows = table;
+  L.tail_slot = table + nt;
+  L.cc_rows = table + nt + E;
+  L.cc_off = table + nt + E + ncc;
+  L.bh_rows = table + nt + E + 2 * ncc;
+  L.nt = nt;
+  L.ncc = ncc;
+  L.nbh = L.rank > 0 ? nbh : 0;
 
   unsigned long long* a = reinterpret_cast<unsigned long long*>(acc);
   return static_cast<int>(ofdm::with_mode(mode, [&](auto md) {
@@ -879,18 +1040,17 @@ int ofdm_lr_chunk(const float* tlr, const float* tli, const float* ccr, const fl
 // K3, the carry probe: run symbol `sym`'s (T,) carry row (carry_r /
 // carry_i: zeros but for the last E lanes, its t) and t (tail_r / tail_i,
 // E each), through the chunk's encode and tail pass in mode `mode`
-// (apply_power only: `rows` and the stage bits) over TailM's rows in
-// `tail_mask`.  The chunk of run symbols [sym0, sym0 + chunk) returns
-// symbol sym0 + chunk - 1's row as its carry.  Returns the launch's CUDA
-// error, 0 if none.
+// (apply_power only: `rows` and the stage bits) over TailM's listed rows
+// (the row table's first nt entries, then each lane's place among them).
+// The chunk of run symbols [sym0, sym0 + chunk) returns symbol sym0 + chunk
+// - 1's row as its carry.  Returns the launch's CUDA error, 0 if none.
 int ofdm_lr_probe(const float* tlr, const float* tli, int n, int T, int E, int mode, int order, int m,
                   int logm, int bits, int gray, float scale, const int* lane_i, const float* lane_f,
                   unsigned long long sym, unsigned int key0, unsigned int key1, const float* rows,
                   int stages, float* carry_r, float* carry_i, float* tail_r, float* tail_i,
-                  unsigned long long tail_mask, void* stream_ptr) {
-  if (n < 1 || n > kMaxN || T < n || E < 1 || E > kMaxE || E > T || (stages & ~ofdm::kStagePower) ||
-      !mask_fits(tail_mask, 0ull, E) ||
-      !ofdm::stage_args_ok(rows, stages, nullptr, nullptr, nullptr, nullptr, 0, false) ||
+                  const int* table, int nt, void* stream_ptr) {
+  if (!width_ok(n) || T < n || E < 1 || E > T || (stages & ~ofdm::kStagePower) || table == nullptr || nt < 0 ||
+      nt > E || !ofdm::stage_args_ok(rows, stages, nullptr, nullptr, nullptr, nullptr, 0, false) ||
       (ofdm::adaptive(mode) && (lane_i == nullptr || lane_f == nullptr))) {
     return cudaErrorInvalidValue;
   }
@@ -900,32 +1060,34 @@ int ofdm_lr_probe(const float* tlr, const float* tli, int n, int T, int E, int m
   L.n = n;
   L.T = T;
   L.E = E;
+  L.C = cluster_of(n);
   L.q = ofdm::Qam{order, m, logm, bits, gray, scale};
   L.lanes = ofdm::Lanes{lane_i, lane_f, n};
   L.key = make_uint2(key0, key1);
   L.st = ofdm::make_stages(rows, stages, nullptr, nullptr, nullptr, nullptr, 0);
-  L.tail_mask = tail_mask;
+  L.tail_rows = table;
+  L.tail_slot = table + nt;
+  L.nt = nt;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   return static_cast<int>(ofdm::with_mode(mode, [&](auto md) {
     return probe_mode<decltype(md)::value>(L, sym, carry_r, carry_i, tail_r, tail_i, stream);
   }));
 }
 
-// lr_main's layout on a link of n bins, E tail lanes and noise rank `rank`
-// (geometry_at's eight ints into out; the rank counts only with add_noise,
-// as in ofdm_lr_chunk).  A layout whose shared memory the card cannot give
-// a block returns the CUDA error of setting it.  Returns 0 if none.
-int ofdm_lr_geometry(int n, int E, int rank, int add_noise, int txext, int* out) {
-  if (n < 1 || n > kMaxN || E < 1 || E > kMaxE || rank < 0 || rank > kMaxRank || out == nullptr) {
+// lr_main's layout on a link of n bins with nt listed tail lanes and nbh
+// listed rows of B^H (0 without noise) (geometry_at's eight ints into out).
+// A layout whose shared memory the card cannot give a block returns the
+// CUDA error of setting it.  Returns 0 if none.
+int ofdm_lr_geometry(int n, int nt, int nbh, int txext, int* out) {
+  if (!width_ok(n) || nt < 0 || nbh < 0 || out == nullptr || (n > kSliceBins && !txext)) {
     return cudaErrorInvalidValue;
   }
-  const int r = add_noise ? rank : 0;
-  const int bins = (n + kThreads - 1) / kThreads;
-  if (bins <= 1) return static_cast<int>(geometry_at<1>(n, E, r, txext, out));
-  if (bins <= 2) return static_cast<int>(geometry_at<2>(n, E, r, txext, out));
-  if (bins <= 4) return static_cast<int>(geometry_at<4>(n, E, r, txext, out));
-  if (bins <= 8) return static_cast<int>(geometry_at<8>(n, E, r, txext, out));
-  return static_cast<int>(geometry_at<16>(n, E, r, txext, out));
+  const int bins = bins_of(n);
+  if (bins <= 1) return static_cast<int>(geometry_at<1>(n, nt, nbh, txext, out));
+  if (bins <= 2) return static_cast<int>(geometry_at<2>(n, nt, nbh, txext, out));
+  if (bins <= 4) return static_cast<int>(geometry_at<4>(n, nt, nbh, txext, out));
+  if (bins <= 8) return static_cast<int>(geometry_at<8>(n, nt, nbh, txext, out));
+  return static_cast<int>(geometry_at<16>(n, nt, nbh, txext, out));
 }
 
 const char* ofdm_error_string(int code) {

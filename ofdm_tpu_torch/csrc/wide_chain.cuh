@@ -311,8 +311,9 @@ __device__ __forceinline__ float block_sum_once(float v, float* wsum) {
   return s;
 }
 
-// mmse_nv_block (link_common.cuh) on block_sum_once: the wide mains call it
-// once a symbol, and the symbol's TX ends with a barrier.
+// The MMSE mean of a symbol a block (per-thread sum in j order, then the
+// block sum) on block_sum_once: the wide mains call it once a symbol, and
+// the symbol's TX ends with a barrier.
 template <int J>
 __device__ __forceinline__ float wide_mmse_nv(const WideLink& L, const float (&yr)[J], const float (&yi)[J],
                                               float* wsum) {

@@ -3,7 +3,8 @@
 Counterpart of ``ofdm_tpu/ops/pallas_link.py`` for the diag chain: its
 ``kernel`` in conv="diag" form (``csrc/link_kernel.cu`` up to 256
 subcarriers, a warp a symbol; ``csrc/diag_wide_kernel.cu`` past them, a
-block a symbol, up to 4096), in each constellation mode — qam, psk, aqam
+block a symbol up to 4096 and a thread-block cluster of one block a
+``CLUSTER_BINS`` slice past that, up to 32768), in each constellation mode — qam, psk, aqam
 and apsk (``Codec``: fixed square QAM, fixed M-PSK, and their
 per-subcarrier CAPACITY_BASED forms) — and ``boxmuller_sample``
 (``csrc/boxmuller.cu``).  Beside each kernel sits its
@@ -46,7 +47,9 @@ normalization mean covers every symbol of a tile, so it is summed in a
 fixed order (``tile_norm``) that the kernels repeat: per symbol as the
 MMSE mean is, per run of consecutive symbols in order, then a tile's runs
 by ``norm_factors``' tree.  A diag symbol is summed by a warp up to 256
-subcarriers and by a block of 256 threads past them (``diag_layout``).
+subcarriers and by a block of 256 threads past them (``diag_layout``);
+past ``CLUSTER_BINS`` each block of a cluster sums its slice so, and the
+slices' sums are added in slice order (``block_sum``'s ``slice``).
 The diag kernels run a normalized chunk's chain once, into a scratch
 plane of whole-tile slabs (``onepass_slab``), and count in a demap kernel
 (csrc/diag_common.cuh); the plain version builds e once as well.
@@ -54,9 +57,10 @@ plane of whole-tile slabs (``onepass_slab``), and count in a demap kernel
 Host constants and rules kept from the reference: ``_consts_for``'s diag
 and codec rows (:1049-1161), ``_spec_for``'s tile rule (:795-799) with
 ``_plan``'s diag tile cap and staged limit (its staging factor from
-``selected_passes``; ``diag_fits``) and its dense "mm" / "mm4" rule
-(``fold_fits``, ``mm_fits``, whose tiles ``fold_tile_cap`` and
-``mm_tile_cap`` give), its static codec width (:821-847), and the
+``selected_passes``; ``diag_fits``), its lr budget (``lr_fits``,
+``lr_tile_cap``), its dense "mm" / "mm4" rule (``fold_fits``,
+``mm_fits``, whose tiles ``fold_tile_cap`` and ``mm_tile_cap`` give) and
+its "taps" rule (``taps_tile``), its static codec width (:821-847), and the
 measured-power slice (:1691-1694).  The wide fold and mm chains' TX
 block and stream convolution (``wide_tx``, ``stream_conv``) live here
 too, shared by ``ops.fold_kernel`` and ``ops.mm_kernel``.
@@ -88,7 +92,11 @@ _SINC_Z = (1.5707963267681528, -0.6459640955781804, 0.0796926037175787,
            -3.4318293237942273e-06)
 
 TILE_LADDER = (8192, 4096, 2048, 1024, 512, 256, 128, 64, 32)
-MAX_N = 4096  # diag_wide holds up to 16 bins a thread
+MAX_N = 32768  # diag_wide: 16 bins a thread, a cluster of up to 8 blocks a symbol
+# Bins one block of diag_wide and lr_main holds (16 a thread of 256); a wider
+# symbol spans ceil(n / CLUSTER_BINS) blocks of one thread-block cluster,
+# each summing its slice, the slices' sums then added in slice order.
+CLUSTER_BINS = 4096
 # The one-pass normalize's scratch (csrc/diag_common.cuh): e (2 x f32) and
 # the TX index (u16) a bin, for a slab of whole tiles of at most
 # ONEPASS_SLAB_BINS bins (671 MB; a slab of one tile past it).
@@ -566,17 +574,56 @@ def mm_tile_cap(n: int, T: int, E: int, is_sc: bool, passes: int = 1) -> int:
     return _dense_tile(_mm_staged(n, T, E, is_sc), T + E, passes) or TILE_LADDER[-1]
 
 
-def lr_tile_cap(n: int, T: int, E: int, rank: int, txext: bool, passes: int = 1) -> int:
-    """Largest tile the reference admits for an lr link (pallas_link._plan's
-    lr budget): TailM, the stacked [Cr; Cp], the noise factor (at least one
-    group of 8 rows, zero for iid noise) and, unless the PAPR statistic is
-    external, the TX matrix; activation planes T wide.  From 4096
-    subcarriers the reference raises the scoped budget
-    (_VMEM_SCOPED_GIANT_LR)."""
+def _lr_staged(n: int, T: int, E: int, rank: int, txext: bool) -> int:
+    """pallas_link._plan's staged lr elements: TailM, the stacked [Cr; Cp],
+    the noise factor (at least one group of 8 rows, zero for iid noise)
+    and, unless the PAPR statistic is external, the (n, T) TX matrix."""
     ep = max(8, -(-E // 8) * 8)
     rp = max(8, -(-max(rank, 1) // 8) * 8)
-    staged = n * ep + 2 * ep * n + rp * n + (128 * 128 if txext else n * T)
-    return _budget_tile(staged, T, passes, 119_000_000 if n >= 4096 else 72_000_000)
+    return n * ep + 2 * ep * n + rp * n + (128 * 128 if txext else n * T)
+
+
+def _lr_scoped(n: int) -> int:
+    """The lr row's scoped budget: raised from 4096 subcarriers
+    (_VMEM_SCOPED_GIANT_LR, pallas_link.py:93-94)."""
+    return 119_000_000 if n >= 4096 else 72_000_000
+
+
+def lr_fits(n: int, T: int, E: int, rank: int, txext: bool, passes: int = 1) -> bool:
+    """Whether the reference admits an lr link at all (pallas_link._plan's
+    lr row): its staged matrices x 2 buffers within _VMEM_STAGED_LIMIT
+    (40e6 bytes) and some ladder tile's 14 live (tile, T) f32 planes
+    within the scoped budget.  The boundary is a TPU VMEM budget, kept so
+    the port routes as the JAX package does: a link it refuses (the in-run
+    PAPR's TX matrix from about 3000 subcarriers, for one) runs the dense
+    chains where they fit, else the eager chain."""
+    fixed = 2 * (3 if passes == 1 else 6) * _lr_staged(n, T, E, rank, txext)
+    return fixed <= 40_000_000 and fixed + 4 * 14 * TILE_LADDER[-1] * T <= _lr_scoped(n)
+
+
+def lr_tile_cap(n: int, T: int, E: int, rank: int, txext: bool, passes: int = 1) -> int:
+    """Largest tile the reference admits for an lr link (pallas_link._plan's
+    lr budget, ``_lr_staged``; activation planes T wide): 64-128 at 8192
+    subcarriers, 32-64 at 16384 and 32 at 32768, from 4096 under the raised
+    scoped budget (``_lr_scoped``)."""
+    return _budget_tile(_lr_staged(n, T, E, rank, txext), T, passes, _lr_scoped(n))
+
+
+MAX_KERNEL_TAPS = 16  # pallas_link._MAX_KERNEL_TAPS: the taps kernel's static tap loop
+
+
+def taps_tile(n: int, T: int, n_taps: int, is_sc: bool, passes: int = 1) -> Optional[int]:
+    """pallas_link._plan's "taps" row, tried under hotpath="pallas" only and
+    after every other: the tile whose stack of 4 live (tile, T) f32 planes
+    fits the scoped budget beside the staged TX and RX DFT matrices (and
+    the SC-FDE IDFT), or None where the channel has more than
+    ``MAX_KERNEL_TAPS`` taps or the matrices exceed the staged limit."""
+    if not 0 < n_taps <= MAX_KERNEL_TAPS:
+        return None
+    fixed = 2 * (3 if passes == 1 else 6) * (2 * n * T + (n * n if is_sc else 0))
+    if fixed > 40_000_000:
+        return None
+    return next((t for t in TILE_LADDER if fixed + 4 * 4 * t * T <= 72_000_000), None)
 
 
 def _budget_tile(staged: int, width: int, passes: int, scoped: int = 72_000_000) -> int:
@@ -790,21 +837,31 @@ def tree_sum(v: torch.Tensor, threads: int = NORM_THREADS) -> torch.Tensor:
     return acc[..., 0]
 
 
-def _tile_sigma(pw: torch.Tensor, chunk, tile, tiles, groups, snr_lin, slice_syms, pw_scale=1.0):
+def cluster_width(n: int) -> int:
+    """Elements a symbol spans in lr_power's blocks: n up to CLUSTER_BINS,
+    past it its cluster's whole slices, a short last one padded with zeros."""
+    return n if n <= CLUSTER_BINS else -(-n // CLUSTER_BINS) * CLUSTER_BINS
+
+
+def _tile_sigma(pw: torch.Tensor, chunk, tile, tiles, groups, snr_lin, slice_syms, pw_scale=1.0, row=0):
     """Per-tile sigma from |y|^2 (chunk, width): the mean over the first
     ``slice_syms`` symbols (all ``width`` samples of each) of every tile,
     summed in power_partials' order: 16 sequential steps per thread, a
     256-way tree per block, then the tile's blocks in order; the mean is
-    scaled by ``pw_scale``."""
-    flat = pw.reshape(-1)
+    scaled by ``pw_scale``.  ``row`` > width: each symbol's samples are
+    padded with zeros to ``row`` elements first (``cluster_width``)."""
     width = pw.shape[1]
+    if row > width:
+        pw = torch.nn.functional.pad(pw, (0, row - width))
+    flat = pw.reshape(-1)
+    padded = pw.shape[1]
     seg = torch.zeros((tiles, groups * POWER_BLOCK), dtype=torch.float32, device=pw.device)
     counts = []
     for t in range(tiles):
         b0 = t * tile
-        count = min(slice_syms, min(tile, chunk - b0)) * width
-        seg[t, :count] = flat[b0 * width : b0 * width + count]
-        counts.append(count)
+        syms = min(slice_syms, min(tile, chunk - b0))
+        seg[t, : syms * padded] = flat[b0 * padded : (b0 + syms) * padded]
+        counts.append(syms * width)
     parts = tree_sum(seg.view(tiles, groups, POWER_BLOCK))
     tot = torch.zeros((tiles,), dtype=torch.float32, device=pw.device)
     for g in range(groups):
@@ -814,12 +871,22 @@ def _tile_sigma(pw: torch.Tensor, chunk, tile, tiles, groups, snr_lin, slice_sym
     return torch.sqrt(mp / _f32(snr_lin, mp) / _f32(2.0, mp))
 
 
-def block_sum(v: torch.Tensor, threads: int) -> torch.Tensor:
+def block_sum(v: torch.Tensor, threads: int, slice: int = 0) -> torch.Tensor:
     """Sum over the last axis in a kernel block's order (link_common.cuh):
     element k belongs to thread k % threads, which sums its elements in k
     order; each warp sums its 32 threads by an xor butterfly; then the warps
-    are summed in order.  threads = 32 is the one-warp case."""
+    are summed in order.  threads = 32 is the one-warp case.  With ``slice``
+    (a cluster's blocks, each holding ``slice`` bins) and more elements than
+    that, each slice is summed so and the slices' sums are added in order."""
     n = v.shape[-1]
+    if slice and n > slice:
+        C = -(-n // slice)
+        v = torch.nn.functional.pad(v, (0, C * slice - n)).reshape(*v.shape[:-1], C, slice)
+        parts = block_sum(v, threads)
+        tot = torch.zeros(parts.shape[:-1], dtype=v.dtype, device=v.device)
+        for c in range(C):
+            tot = tot + parts[..., c]
+        return tot
     J = -(-n // threads)
     v = torch.nn.functional.pad(v, (0, threads * J - n)).reshape(*v.shape[:-1], J, threads)
     p = torch.zeros(v.shape[:-2] + (threads,), dtype=v.dtype, device=v.device)
@@ -835,11 +902,11 @@ def block_sum(v: torch.Tensor, threads: int) -> torch.Tensor:
     return tot
 
 
-def _mmse_nv(link: DiagLink, yr, yi, snr_lin, threads=32):
+def _mmse_nv(link: DiagLink, yr, yi, snr_lin, threads=32, slice=0):
     """Per-symbol noise variance, |y|^2 summed in the order of a kernel
     whose ``threads`` threads share a symbol (a warp for diag and fold, a
-    block for lr)."""
-    sp = block_sum(yr * yr + yi * yi, threads)[:, None]
+    block for lr; ``slice`` as in ``block_sum``)."""
+    sp = block_sum(yr * yr + yi * yi, threads, slice)[:, None]
     sp = sp / _f32(link.n, sp)
     return sp / _f32(snr_lin, sp) / _f32(link.cg, sp)
 
@@ -852,11 +919,12 @@ def box_muller(w1, w2):
     return rad * co, rad * sn
 
 
-def awgn(yr, yi, w1, w2, chunk, tile, tiles, groups, snr_lin, slice_syms, pw_scale=1.0, extra=None):
+def awgn(yr, yi, w1, w2, chunk, tile, tiles, groups, snr_lin, slice_syms, pw_scale=1.0, extra=None, row=0):
     """y + sigma * z, z = Box-Muller(w1, w2) (+ ``extra``, the colored part),
     sigma per tile from |y|^2 of its first ``slice_syms`` symbols times
-    ``pw_scale``; y is (chunk, width) of bins or time samples."""
-    sig = _tile_sigma(yr * yr + yi * yi, chunk, tile, tiles, groups, snr_lin, slice_syms, pw_scale)
+    ``pw_scale`` (``row`` as in ``_tile_sigma``); y is (chunk, width) of
+    bins or time samples."""
+    sig = _tile_sigma(yr * yr + yi * yi, chunk, tile, tiles, groups, snr_lin, slice_syms, pw_scale, row)
     sigma = sig.repeat_interleave(tile)[:chunk, None]
     zr, zi = box_muller(w1, w2)
     if extra is not None:
@@ -872,10 +940,11 @@ def deferred_lane_slicer(link) -> bool:
     return link.q.mode == "aqam" and link.is_sc
 
 
-def equalize(link, yr, yi, snr_lin, threads=32):
+def equalize(link, yr, yi, snr_lin, threads=32, slice=0):
     """ZF / MMSE / no equalizer, in slicer units (the slicer gain folded in:
     the scalar for qam, the codec's per-lane row for aqam, none for PSK);
-    MMSE sums |y|^2 in the order of ``threads`` threads a symbol.  Under
+    MMSE sums |y|^2 in the order of ``threads`` threads a symbol (``slice``
+    as in ``block_sum``).  Under
     ``normalize`` the slicer gain is deferred to ``normalize_points``
     (pallas_link.py:1772, defer_slicer): the points stay in data units;
     aqam on SC-FDE defers its lane row past the IDFT in any case
@@ -887,7 +956,7 @@ def equalize(link, yr, yi, snr_lin, threads=32):
         gr, gi = link.gr, link.gi
         return yr * gr - yi * gi, yi * gr + yr * gi
     if link.method == 1:
-        nv = _mmse_nv(link, yr, yi, snr_lin, threads)
+        nv = _mmse_nv(link, yr, yi, snr_lin, threads, slice)
         num = _f32(1.0 if defer else link.slicer, nv) if lane_slicer is None else lane_slicer
         g = num / (link.habs2 + nv)
         return (yr * hr + yi * hi) * g, (yi * hr - yr * hi) * g
@@ -977,16 +1046,16 @@ def post_noise(er, ei, sigma, w1, w2):
     return er + sr * co, ei + sr * sn
 
 
-def tile_norm(er, ei, chunk: int, tile: int, run: int, threads: int = 32) -> torch.Tensor:
+def tile_norm(er, ei, chunk: int, tile: int, run: int, threads: int = 32, slice: int = 0) -> torch.Tensor:
     """(chunk, 1) f32: each symbol's tile factor f = 1/sqrt(mean |e|^2) over
     all of the tile's points, or 1 where that mean is <= 1e-10
     (pallas_link.py:1853-1854), summed in the kernels' order: each symbol
-    by ``block_sum`` over ``threads`` threads, each run of ``run``
+    by ``block_sum`` over ``threads`` threads (and ``slice``), each run of ``run``
     consecutive symbols in order (one partial a warp or block), then a
     tile's partials by ``norm_factors``' tree."""
     n = er.shape[1]
     dev = er.device
-    sym = block_sum(er * er + ei * ei, threads)
+    sym = block_sum(er * er + ei * ei, threads, slice)
     runs = -(-chunk // run)
     sym = torch.nn.functional.pad(sym, (0, runs * run - chunk)).view(runs, run)
     part = torch.zeros(runs, dtype=torch.float32, device=dev)
@@ -1173,7 +1242,7 @@ def diag_planes(link: DiagLink, key: Tuple[int, int], sym0: int, chunk: int, snr
     place of the Philox draw (tests feed zeros or numpy words); with
     ``post_noise`` two more, the post-EQ draws' (u1 word, u2 word).  Past
     256 subcarriers the per-symbol sums run in ``diag_wide``'s block order
-    (``diag_layout``)."""
+    (``diag_layout``), and past ``CLUSTER_BINS`` in its cluster's."""
     dev = device
     n = link.n
     run, threads = diag_layout(n)
@@ -1193,10 +1262,11 @@ def diag_planes(link: DiagLink, key: Tuple[int, int], sym0: int, chunk: int, snr
     yi = sr * ci + si * cr
     if link.add_noise:
         yr, yi = awgn(yr, yi, w1, w2, chunk, tile, tiles, groups, snr_lin, link.slice)
-    er, ei = equalize(link, yr, yi, snr_lin, threads)
+    slice = CLUSTER_BINS if n > WARP_MAX_N else 0
+    er, ei = equalize(link, yr, yi, snr_lin, threads, slice)
     er, ei = bump_stages(link, er, ei, rows, pwords)
     if link.normalize:
-        er, ei = normalize_points(link, er, ei, tile_norm(er, ei, chunk, tile, run, threads))
+        er, ei = normalize_points(link, er, ei, tile_norm(er, ei, chunk, tile, run, threads, slice))
     return tx, er, ei, sr, si
 
 
@@ -1269,6 +1339,8 @@ def _check_link_tensors(link: DiagLink, device):
         raise ValueError("link rows have the wrong shape")
     if not 1 <= link.n <= MAX_N:
         raise ValueError(f"diag kernels take 1 <= n <= {MAX_N}, got {link.n}")
+    if link.n > CLUSTER_BINS and not link.txext:
+        raise ValueError(f"past {CLUSTER_BINS} subcarriers diag_wide takes txext links (no in-run transform)")
     if not link.n <= link.T <= 2 * link.n:
         raise ValueError(f"the diag kernels take a prefix of at most n samples: T = {link.T}, n = {link.n}")
     wide = link.n > WARP_MAX_N
@@ -1303,8 +1375,9 @@ def onepass_slab(n: int, chunk: int, tile: int) -> int:
     ONEPASS_BYTES_PER_BIN bytes: 84 MB at 64 sc (a 2^17-symbol chunk, 8.4M
     bins), 671 MB at 512 sc (67M bins, the cap), and past the cap whole tiles
     (4096 sc at a single-tap link's tile of 32: 512 tiles, 16,384 symbols,
-    671 MB); one tile is at most 8192 x 4096 bins (336 MB), so the scratch
-    stays below 1 GB at any width."""
+    671 MB); a tile the diag budget admits (``tile_cap``) holds at most
+    1.3M bins (13 MB, at ~20,000 sc), so the scratch stays below 1 GB at
+    any width."""
     if chunk * n <= ONEPASS_SLAB_BINS:
         return chunk
     return max(1, ONEPASS_SLAB_BINS // (tile * n)) * tile
@@ -1424,8 +1497,8 @@ def probe_launch(lib, fn: str, link, head: tuple, key, sym: int, rows, device, e
     """Launch ``fn`` (``ofdm_{fold,lr,mm}_probe``) of ``lib`` for run symbol
     ``sym`` of ``link``: ``head`` is the entry point's link arguments up to
     the symbol (its matrix arguments, then ``probe_args``; built once a link,
-    ``link_cached``), ``extra`` the arguments after the outputs (lr's tail
-    row mask).  Returns (carry_r, carry_i, tail_r, tail_i), views of one new
+    ``link_cached``), ``extra`` the arguments after the outputs (lr's row
+    table and its tail rows).  Returns (carry_r, carry_i, tail_r, tail_i), views of one new
     buffer."""
     from ofdm_tpu_torch import build
 

@@ -141,13 +141,30 @@ def conv_rx_merged(taps: np.ndarray, n: int, prefix: PrefixType, L: int) -> np.n
     return conv_matrix_merged(taps, T) @ (rr + 1j * ri)
 
 
+# Widths up to which ``diag_response`` forms the dense (n, T) composite,
+# which equals the JAX package's identity check bit for bit (its FFT form
+# differs by ~1e-16).  Past it the composite costs minutes and tens of GB of
+# host float64 (the 8K / 16K / 32K FFT modes): the closed form there.
+DENSE_MAX_N = 4096
+
+
 def diag_response(taps: np.ndarray, n: int, prefix: PrefixType, L: int) -> np.ndarray:
     """diag(F_tx @ C @ R) when the composite is diagonal, else ValueError.
 
     The ISI rows of the merged matrix must vanish (the CP covers the
     channel order); the returned diagonal is the per-bin response the
-    elementwise chain multiplies by.
+    elementwise chain multiplies by.  Past DENSE_MAX_N subcarriers the
+    composite is not formed: a cyclic prefix covering the channel order (or
+    a single tap without a zero prefix) makes it circulant, and the
+    orthonormal DFT's diagonal of a circulant is the FFT of its taps.
     """
+    if n > DENSE_MAX_N:
+        K = len(taps)
+        if prefix == PrefixType.ZERO:
+            raise ValueError("conv_rx_merged is defined for CP / no-prefix links only")
+        if K - 1 > (L if prefix == PrefixType.CYCLIC else 0):
+            raise ValueError(f"link is not diagonal: {K} taps beyond a guard of {L}")
+        return np.fft.fft(np.asarray(taps, np.complex128), n=n)
     T = n + L
     cmrx = conv_rx_merged(taps, n, prefix, L)
     if cmrx.shape[0] > T:

@@ -89,23 +89,23 @@ def factor(
     fr, fi = linops.tx_matrix(n, prefix, L, modulation)
     F = fr + 1j * fi  # (N, T)
 
-    # CR = the (T, N) conv + RX part, so that g_intra = F @ CR; cp comes
-    # from the merged conv's previous-tail rows, exact by construction.
-    zp_R = None
-    if prefix == PrefixType.ZERO:
-        cm = linops.conv_matrix_merged(taps, T)  # (T+E, T), banded
-        rr, ri = linops.rx_matrix(n, prefix, L)
-        R = rr + 1j * ri  # (T, N): overlap-add + DFT
-        # cm[i, j] = taps[j - i] on the upper band: row i of CR sums taps[k] * R[i + k]
-        CR = np.zeros((T, n), np.complex128)
-        for k in range(len(taps)):
-            CR[: T - k] += taps[k] * R[k:]
-        cp = np.ascontiguousarray(cm[T:] @ R)
-        zp_R = R
-    else:
-        cmrx = linops.conv_rx_merged(taps, n, prefix, L)  # (T+E, N)
-        CR = cmrx[:T]
-        cp = np.ascontiguousarray(cmrx[T:])
+    # CR = the (T, N) conv + RX part, so that g_intra = F @ CR; cp = the
+    # merged conv's previous-tail rows times R, exact by construction.  Both
+    # from the conv's band (linops.conv_matrices), never the dense (T+E, T)
+    # conv matrix: O(K T N) host work at any width.
+    rr, ri = linops.rx_matrix(n, prefix, L)
+    R = rr + 1j * ri  # (T, N): guard removal (CP) or overlap-add (ZP), then the DFT
+    # the conv's row i holds taps[k] at column i + k: row i of CR sums taps[k] * R[i + k]
+    CR = np.zeros((T, n), np.complex128)
+    for k in range(len(taps)):
+        CR[: T - k] += taps[k] * R[k:]
+    # tail row e (the previous block's sample T - E + e) holds taps[k] at
+    # column e - E + k: row e of cp sums taps[k] * R[e - E + k]
+    cp = np.zeros((E, n), np.complex128)
+    for k in range(1, len(taps)):
+        e0 = max(0, E - k)
+        cp[e0:] += taps[k] * R[e0 - E + k : k]
+    zp_R = R if prefix == PrefixType.ZERO else None
 
     # Per column j: G_intra[:, j] = D_j e_j + TailM @ Cr[:, j].  Project out
     # col(TailM) with a rank-aware orthonormal basis qt (ZP tails hold

@@ -28,14 +28,23 @@ Every block-wide sum (t, the MMSE mean) runs in a fixed order that the
 plain version repeats step by step (``link_kernel.block_sum``): each
 symbol's sums run over a kernel block of ``THREADS`` threads, thread
 k % THREADS sums its bins in k order, warps reduce by an xor butterfly,
-then the warps in order.  The kernel block walks its run of ``RUN``
+then the warps in order.  Past ``link_kernel.CLUSTER_BINS`` (4096)
+subcarriers a symbol spans C = ceil(n / 4096) blocks of one thread-block
+cluster, each holding one 4096-bin slice (the last may be short): each
+block sums its slice so, and every block adds the C slices' sums in slice
+order (``block_sum``'s ``slice``); lr_power's partials then hold one slice
+of one symbol each (``link_kernel.cluster_width``).  The kernel block walks its run of ``RUN``
 symbols in groups of M (``geometry``), reading each factor element
 once a group, and only the factor rows ``lr_link`` lists (``tail_rows``,
-``cc_rows``, ``bh_rows``): a skipped row is identically zero, or multiplies
+``cc_rows``, ``bh_rows``, handed to the kernel as one int32 table,
+``row_table``): a skipped row is identically zero, or multiplies
 a lane of t that is, so its terms are +-0 and every sum is bit-equal to the
-product over all rows that the plain version takes.  The previous symbol's
-t is recomputed from its Philox words, so nothing depends on block order or
-chunking: the run's symbol 0 sees t_prev = 0.  A sharded contiguous stream
+product over all rows that the plain version takes.  Any number of tail
+lanes and any noise rank: t's block sums run in passes of at most
+``TAIL_PASS`` listed lanes and the g2 draws in rounds of at most
+``G2_ROUND`` listed rows, neither of which changes an order of summation.
+The previous symbol's t is recomputed from its Philox words, so nothing
+depends on block order or chunking: the run's symbol 0 sees t_prev = 0.  A sharded contiguous stream
 passes ``prev``, the t of the symbol before the chunk's first, which
 another shard computed (a t of this link: zero on TailM's zero rows): the
 first symbol reads it.
@@ -62,10 +71,10 @@ from ofdm_tpu_torch.config import PrefixType
 from ofdm_tpu_torch.ops import link_kernel as lk
 from ofdm_tpu_torch.ops import linops, lowrank, prng
 
-MAX_N = 4096  # bins a thread holds: up to 16
-MAX_E = 63  # tail lanes
-MAX_RANK = 128  # ZP noise-factor rank
+MAX_N = 32768  # up to 4096 bins a block (16 a thread), past it a cluster of up to 8 blocks a symbol
 THREADS = 256  # a kernel block's threads; each symbol's block sums run over them
+TAIL_PASS = 64  # listed tail lanes whose block sums share one pass (csrc/lr_kernel.cu: kTailPass)
+G2_ROUND = 128  # listed noise-factor rows whose g2 draws share one round (kG2Round)
 # Consecutive symbols one block of lr_main walks; it recomputes t of the
 # symbol before its first, so one t in RUN + 1 is extra work.
 RUN = 16
@@ -87,7 +96,8 @@ def geometry(link: LrLink) -> dict:
 
     lib = build.load(lk.staged_library(link, None, "lr"))
     out = (ctypes.c_int * len(GEOMETRY_KEYS))()
-    code = lib.ofdm_lr_geometry(link.n, link.E, link.rank, int(link.add_noise), int(link.txext), out)
+    code = lib.ofdm_lr_geometry(link.n, len(link.tail_rows), len(link.bh_rows) if link.add_noise else 0,
+                                int(link.txext), out)
     build.check(lib, code, "ofdm_lr_geometry")
     return dict(zip(GEOMETRY_KEYS, out))
 
@@ -97,10 +107,18 @@ def nonzero_rows(re: torch.Tensor, im: torch.Tensor) -> Tuple[int, ...]:
     return tuple(int(r) for r in torch.nonzero((re != 0).any(1) | (im != 0).any(1)).flatten())
 
 
-def row_mask(rows) -> Tuple[int, int]:
-    """(bits 0-63, bits 64-127) of a row list, the kernel's row mask."""
-    bits = sum(1 << r for r in rows)
-    return bits & (2**64 - 1), bits >> 64
+def row_table(link) -> np.ndarray:
+    """The rows the kernels read, as one int32 table: TailM's listed rows
+    (nt), each tail lane's place among them or -1 (E), the listed rows of
+    [Cr; Cp] (ncc), the offset of each one's t value from its symbol's
+    t_prev slots (ncc: nt + the lane's place for a row of Cr, the lane's
+    place for a row of Cp), and B^H's listed rows.  The kernel keeps t in
+    the listed lanes' places only."""
+    place = {e: i for i, e in enumerate(link.tail_rows)}
+    nt, E = len(link.tail_rows), link.E
+    slots = [place.get(e, -1) for e in range(E)]
+    offs = [(nt if r < E else 0) + place[r % E] for r in link.cc_rows]
+    return np.asarray([*link.tail_rows, *slots, *link.cc_rows, *offs, *link.bh_rows], np.int32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -217,7 +235,7 @@ def lr_link(setup, device, factors: Optional[lowrank.LRFactors] = None) -> LrLin
 def _chunk_geometry(link: LrLink, chunk: int):
     tile = lk.tile_for(chunk, link.tile_cap)
     tiles = -(-chunk // tile)
-    groups = -(-min(link.slice, tile) * link.n // lk.POWER_BLOCK)
+    groups = -(-min(link.slice, tile) * lk.cluster_width(link.n) // lk.POWER_BLOCK)
     return tile, tiles, groups
 
 
@@ -238,8 +256,8 @@ def tails(link: LrLink, sr: torch.Tensor, si: torch.Tensor):
     fr, fi = link.tail_r[None], link.tail_i[None]
     for b0 in range(0, sr.shape[0], step):
         a, c = sr[b0 : b0 + step, None, :], si[b0 : b0 + step, None, :]
-        out_r.append(lk.block_sum(a * fr - c * fi, THREADS))
-        out_i.append(lk.block_sum(a * fi + c * fr, THREADS))
+        out_r.append(lk.block_sum(a * fr - c * fi, THREADS, lk.CLUSTER_BINS))
+        out_i.append(lk.block_sum(a * fi + c * fr, THREADS, lk.CLUSTER_BINS))
     return torch.cat(out_r), torch.cat(out_i)
 
 
@@ -290,11 +308,12 @@ def lr_planes(link: LrLink, key: Tuple[int, int], sym0: int, chunk: int, snr_lin
         if colored:
             extra = lk.cmatmul(link.bh_r, link.bh_i, *lk.box_muller(planes[3], planes[4]))
         yr, yi = lk.awgn(yr, yi, w1, w2, chunk, tile, tiles, groups, snr_lin, link.slice,
-                          link.pw_scale, extra)
-    er, ei = lk.equalize(link, yr, yi, snr_lin, THREADS)
+                          link.pw_scale, extra, lk.cluster_width(n))
+    er, ei = lk.equalize(link, yr, yi, snr_lin, THREADS, lk.CLUSTER_BINS)
     er, ei = lk.bump_stages(link, er, ei, rows, pwords)
     if link.normalize:
-        er, ei = lk.normalize_points(link, er, ei, lk.tile_norm(er, ei, chunk, tile, RUN, THREADS))
+        f = lk.tile_norm(er, ei, chunk, tile, RUN, THREADS, lk.CLUSTER_BINS)
+        er, ei = lk.normalize_points(link, er, ei, f)
     return tx, er, ei, tr, ti, sr, si
 
 
@@ -361,14 +380,23 @@ def _check_link(link: LrLink, device):
             raise ValueError(f"link.{name} must be contiguous f32 on {device}")
         if tuple(t.shape) != shape:
             raise ValueError(f"link.{name} must be {shape}, got {tuple(t.shape)}")
-    if not (1 <= n <= MAX_N and 1 <= E <= MAX_E and 0 <= r <= MAX_RANK and link.T >= n):
-        raise ValueError(f"lr kernel takes n <= {MAX_N}, 1 <= E <= {MAX_E}, rank <= {MAX_RANK}; "
-                         f"got n={n}, E={E}, rank={r}")
+    if not (1 <= n <= MAX_N and 1 <= E <= link.T and r >= 0 and link.T >= n):
+        raise ValueError(f"lr kernel takes n <= {MAX_N}, 1 <= E <= T; got n={n}, E={E}, T={link.T}")
+    if n > lk.CLUSTER_BINS and not link.txext:
+        # the in-kernel PAPR holds a symbol a block
+        raise ValueError(f"past {lk.CLUSTER_BINS} subcarriers the lr kernel takes txext links; got n={n}")
     for name, rows, bound in (("tail_rows", link.tail_rows, E), ("cc_rows", link.cc_rows, 2 * E),
                               ("bh_rows", link.bh_rows, r)):
         if list(rows) != sorted(set(rows)) or any(not 0 <= i < bound for i in rows):
             raise ValueError(f"link.{name} must be ascending distinct rows below {bound}, got {rows}")
     lk.check_codec(link.q, n, device)
+
+
+def _table_args(link: LrLink, device) -> tuple:
+    """(table pointer, nt, ncc, nbh): ``row_table`` on the device (made once
+    a link, ``link_kernel.link_cached``) and its three row counts."""
+    table = lk.link_cached(link, "row_table", lambda: torch.tensor(row_table(link), device=device))
+    return table.data_ptr(), len(link.tail_rows), len(link.cc_rows), len(link.bh_rows)
 
 
 def chunk_workspace(link: LrLink, chunk: int, device):
@@ -450,7 +478,7 @@ def lr_chunk(
             partials.data_ptr(), acc.data_ptr(), psum.data_ptr(),
             carry_r.data_ptr(), carry_i.data_ptr(),
             *lk.stage_args(link, rows, norm_part, norm_f, dump), *prev_ptrs,
-            *row_mask(link.tail_rows)[:1], *row_mask(link.cc_rows), *row_mask(link.bh_rows), stream,
+            *_table_args(link, dev), stream,
         )
     build.check(lib, code, "ofdm_lr_chunk")
     if link.add_noise:
@@ -481,7 +509,7 @@ def lr_probe(link: LrLink, key: Tuple[int, int], sym0: int, chunk: int, rows=Non
         _check_link(link, dev)
         return (build.load(lk.staged_library(link, None, "lr")),
                 (link.tail_r.data_ptr(), link.tail_i.data_ptr(), *lk.probe_args(link)),
-                tuple(row_mask(link.tail_rows)[:1]))
+                _table_args(link, dev)[:2])
 
     lib, args, mask = lk.link_cached(link, "probe", head)
     out = lk.probe_launch(lib, "ofdm_lr_probe", link, args, key, sym0 + chunk - 1, rows, dev, mask)

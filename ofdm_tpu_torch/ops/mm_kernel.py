@@ -149,10 +149,15 @@ def mm_link(setup, device) -> MmLink:
                       for m in ("tx", "cv", "rx", "id") if dense[f"{m}r"] is not None})
     fields = lk.equalizer_fields(setup, device)
     del fields["slice"]  # the measured power covers the whole tile
+    passes = lk.selected_passes(setup)
+    tile_cap = lk.mm_tile_cap(n, T, E, is_sc, passes)
+    if cfg.hotpath == "pallas" and not lk.mm_fits(n, T, E, is_sc, passes):
+        # the JAX package's "taps" kernel: the same unfolded chain, at its tile
+        tile_cap = lk.taps_tile(n, T, len(taps), is_sc, passes) or tile_cap
     return MmLink(
         T=T,
         E=E,
-        tile_cap=lk.mm_tile_cap(n, T, E, is_sc, lk.selected_passes(setup)),
+        tile_cap=tile_cap,
         pstride=1,
         **dense,
         **fields,

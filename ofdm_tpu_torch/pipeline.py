@@ -11,24 +11,30 @@ the keys of the JAX runner's.
 * "diag" (``ops.link_kernel.diag_chunk``): OFDM whose cyclic prefix covers
   the channel order (TX -> channel -> RX is then exactly diag(h_freq)),
   n <= 512, and past 512 when it has no lr factors (single-tap channels)
-  up to 4096, where the JAX package's diag budget admits the link
+  up to 32768, where the JAX package's diag budget admits the link
   (``link_kernel.diag_fits``); a warp a symbol up to 256 subcarriers, a
-  block a symbol past them.  From 512 subcarriers without
-  ``apply_power_allocation`` the PAPR statistic comes from a sampled TX
-  batch (``_papr_sample``);
+  block a symbol past them, a thread-block cluster a symbol past 4096.
+  From 512 subcarriers without ``apply_power_allocation`` the PAPR
+  statistic comes from a sampled TX batch (``_papr_sample``);
 * "fold" (``ops.fold_kernel.fold_chunk``): SC-FDE with a cyclic prefix or
   none at n <= 256, and OFDM with a cyclic prefix or none whose guard is
   shorter than the channel order at n < 128, or at n <= 256 when its lr
   factorization fails its certification;
 * "lr" (``ops.lr_kernel.lr_chunk``): OFDM whose ``lowrank.factor`` exists
   with E > 0 tail lanes, when its guard does not cover the channel (short
-  CP, no prefix, zero prefix) at n >= 128, or when it does at n > 512 —
-  up to 4096 subcarriers, E <= 63.  From 512 subcarriers the PAPR
-  statistic comes from a sampled TX batch (``_papr_sample``);
+  CP, no prefix, zero prefix) at n >= 128, or when it does at n > 512,
+  where the JAX package's lr budget admits the link (``link_kernel.lr_fits``:
+  any E and noise rank, up to 32768 subcarriers; past 4096 a thread-block
+  cluster of ceil(n / 4096) blocks a symbol).  From 512
+  subcarriers the PAPR statistic comes from a sampled TX batch
+  (``_papr_sample``), unless the link applies the power allocation or
+  samples every tile, which the budget then refuses from about 3000
+  subcarriers (a TPU VMEM bound the port keeps);
 * "mm" (``ops.mm_kernel.mm_chunk``): the zero-prefix links lr does not
   take, at n <= 256 and T <= 320: SC-FDE, OFDM below 128 subcarriers,
   single-tap channels (E = 0), and OFDM whose lr factorization fails its
-  certification.
+  certification; past them on mm_wide where the JAX package's dense
+  budget admits the link, or, under hotpath="pallas", its "taps" row.
 
 All take square QAM and power-of-two PSK, fixed or with CAPACITY_BASED
 per-subcarrier loading (``link_kernel.adaptive_supported``; on SC-FDE
@@ -41,11 +47,10 @@ sums to 1, or to n under adaptive loading) and ``normalize_before_demap``
 scales the equalized points to unit mean power per tile before the demap
 (the kernels' ``apply_power`` and ``normalize`` stages).
 
-* "eager" (``eager_chunk``): every link no kernel takes (fold and
-  zero-prefix mm links past the JAX package's dense budget, lr links past
-  4096 subcarriers or 63 tail lanes, diag links the JAX package's diag
-  budget refuses, adaptive orders the codec does not take), and every
-  link whose ``hotpath`` is
+* "eager" (``eager_chunk``): every link no kernel takes (the links the
+  JAX package's plan refuses: fold, zero-prefix mm, lr and diag links past
+  its budgets; adaptive orders the codec does not take), and every link
+  whose ``hotpath`` is
   neither "auto" nor "pallas": the JAX package's ``chunk_body`` on native
   complex64 tensors, as the JAX package falls back to XLA
   (ofdm_tpu/pipeline.py:568-590).  Its random draws are the kernels'
@@ -248,7 +253,9 @@ _KERNELS = {
 def kernel_mode(setup: LinkSetup) -> str:
     """"diag", "fold", "lr" or "mm": the chunk kernel that runs ``setup``, or
     "eager" for a link no kernel takes and for a ``hotpath`` other than
-    "auto" and "pallas" (the JAX package's chunk_body)."""
+    "auto" and "pallas" (the JAX package's chunk_body).  The rows of
+    pallas_link._plan in its order, as plan_for asks them: diag, lr, the
+    dense "mm" / "mm4" and, under hotpath="pallas" only, "taps"."""
     cfg = setup.cfg
     n = cfg.num_subcarriers
     if cfg.hotpath not in ("auto", "pallas"):
@@ -256,24 +263,30 @@ def kernel_mode(setup: LinkSetup) -> str:
     if setup.is_adaptive and not lk.adaptive_supported(setup):
         return "eager"  # as the JAX package's supports(): orders its codec does not take
     zp = cfg.prefix_type == PrefixType.ZERO
+    T = setup.block_length
+    passes = lk.selected_passes(setup)
 
     def dense():
         """The unfactored chain: mm for a zero prefix, fold otherwise.  The
         narrow kernels take every link they hold; past them the wide ones
         take what the JAX package's dense budget admits (``fold_fits`` /
-        ``mm_fits``: its "mm" or "mm4" kernel), within their own widths."""
-        T = setup.block_length
-        args = (n, T, linops.ext_width(len(setup.taps), T), cfg.modulation_type == ModulationType.SC_OFDM,
-                lk.selected_passes(setup))
+        ``mm_fits``: its "mm" or "mm4" kernel), within their own widths.
+        Under hotpath="pallas" a zero-prefix link the JAX package plans on
+        its "taps" kernel (the unfolded chain with a tap-shift convolution)
+        runs on mm_wide, which computes that chain, within WIDE_MAX_T; a
+        cyclic-prefix link planned so runs eager."""
+        is_sc = cfg.modulation_type == ModulationType.SC_OFDM
+        args = (n, T, linops.ext_width(len(setup.taps), T), is_sc, passes)
         if zp:
             narrow = n <= mmk.MAX_N and T <= mmk.MAX_T
-            return "mm" if narrow or (T <= mmk.WIDE_MAX_T and lk.mm_fits(*args)) else "eager"
+            taps = cfg.hotpath == "pallas" and lk.taps_tile(n, T, len(setup.taps), is_sc, passes) is not None
+            return "mm" if narrow or (T <= mmk.WIDE_MAX_T and (lk.mm_fits(*args) or taps)) else "eager"
         return "fold" if n <= fk.MAX_N or (n <= fk.WIDE_MAX_N and lk.fold_fits(*args)) else "eager"
 
     def diag():
-        """The diag chain, where the JAX package's diag budget admits the link."""
-        fits = lk.diag_fits(n, setup.block_length, lk.selected_passes(setup), lk.txext_for(cfg))
-        return "diag" if n <= lk.MAX_N and fits else "eager"
+        """The diag chain where the JAX package's diag budget admits the
+        link, else the dense rows."""
+        return "diag" if lk.diag_fits(n, T, passes, lk.txext_for(cfg)) else dense()
 
     if cfg.modulation_type == ModulationType.SC_OFDM:
         return dense()
@@ -283,16 +296,14 @@ def kernel_mode(setup: LinkSetup) -> str:
         return diag()
     if not isi_free and n < LR_MIN_N:
         return dense()
-    if linops.ext_width(len(setup.taps), setup.block_length) == 0:
+    if linops.ext_width(len(setup.taps), T) == 0:
         return dense() if zp else diag()  # single-tap channels: no lr factors, diag at any width
-    if n > lrk.MAX_N:
-        return "eager"
     f = lrk.lr_factors(setup)
     if f is None:
         # as the JAX package: the factorization failed its certification
         return diag() if isi_free else dense()
-    if f.E > lrk.MAX_E or f.noise_rank > lrk.MAX_RANK:
-        return "eager"
+    if not lk.lr_fits(n, T, f.E, f.noise_rank, lk.txext_for(cfg), passes):
+        return dense()
     return "lr"
 
 
@@ -418,29 +429,29 @@ def _transmit_sharded(mesh, halo: bool, blocks, taps, snr_db, z, add_noise: bool
     return rx, carry
 
 
-def sampled_tx_papr(idx: torch.Tensor, table, ftx, rows: int = 4096):
-    """(peak power, power sum, sample count) of x = s @ F_tx over the table
-    points s of (S, n) indices, ``ftx`` = (re, im) of the (n, T) TX matrix.
+def sampled_tx_papr(idx: torch.Tensor, table, modulate: Callable, rows: int = 4096):
+    """(peak power, power sum, sample count) of the time blocks x of the
+    table points s of (S, n) indices: ``modulate`` maps complex64 points
+    (rows, n) to their (rows, T) time blocks (``ofdm.ofdm_modulate`` /
+    ``ofdm.sc_modulate``: the ortho IFFT and guard, x = s @ F_tx in f32).
     ``table`` is the constellation (s = table[idx]) or an adaptive mapper
-    (each subcarrier's own table, ``adaptive.encode_from_indices``).  The
-    product runs in full f32 (no TF32), in blocks of ``rows`` symbols, on
-    the indices' device."""
+    (each subcarrier's own table, ``adaptive.encode_from_indices``).  Runs
+    in blocks of ``rows`` symbols, on the indices' device."""
     dev = idx.device
     if isinstance(table, ad.AdaptiveMapper):
         encode = functools.partial(ad.encode_from_indices, m=table)
     else:
         tr, ti = lk.f32_tensor(table.table.real, dev), lk.f32_tensor(table.table.imag, dev)
         encode = lambda i: (tr[i], ti[i])  # noqa: E731
-    fr, fi = lk.f32_tensor(ftx[0], dev), lk.f32_tensor(ftx[1], dev)
-    with linops.fp32_matmul():
-        peak = torch.zeros((), dtype=torch.float32, device=dev)
-        total = torch.zeros((), dtype=torch.float64, device=dev)
-        for r0 in range(0, idx.shape[0], rows):
-            sr, si = encode(idx[r0 : r0 + rows])
-            p, s, _ = mt.papr_stats(sr @ fr - si @ fi, sr @ fi + si @ fr)
-            peak = torch.maximum(peak, p)
-            total = total + s
-    return float(peak), float(total), idx.shape[0] * fr.shape[1]
+    count = 0
+    peak = torch.zeros((), dtype=torch.float32, device=dev)
+    total = torch.zeros((), dtype=torch.float64, device=dev)
+    for r0 in range(0, idx.shape[0], rows):
+        p, s, c = mt.papr_stats(modulate(torch.complex(*encode(idx[r0 : r0 + rows]))))
+        peak = torch.maximum(peak, p)
+        total = total + s
+        count += c
+    return float(peak), float(total), count
 
 
 class LinkRunner:
@@ -587,8 +598,10 @@ class LinkRunner:
         TX batch, cached per runner (the JAX runner's ``_papr_sample``): S =
         min(max(1024, 2^25 // T), B) symbols of uniform indices under the
         fixed seed (under each subcarrier's index mask on adaptive links),
-        table-encoded and modulated by F_tx in full f32.  PAPR is TX-side
-        only, so one sample serves every SNR point."""
+        table-encoded and modulated by the ortho IFFT and guard in f32 (the
+        JAX runner's F_tx product; no dense (n, T) matrix, which is 8.6 GB
+        of complex64 at 32768 sc).  PAPR is TX-side only, so one sample
+        serves every SNR point."""
         if self._papr_cache is None:
             s = self.setup
             cfg = s.cfg
@@ -596,8 +609,12 @@ class LinkRunner:
             S = int(min(max(1024, (1 << 25) // max(s.block_length, 1)), s.num_ofdm_symbols))
             mask = ad.index_mask(s.amap) if s.is_adaptive else cfg.constellation_order - 1
             idx = prng.uniform_indices(prng.key_words(PAPR_SAMPLE_SEED), (S, n), mask, self.device)
-            ftx = linops.tx_matrix(n, cfg.prefix_type, s.prefix_length, cfg.modulation_type)
-            self._papr_cache = sampled_tx_papr(idx, s.amap if s.is_adaptive else s.const, ftx)
+            guard = dict(prefix_type=cfg.prefix_type, prefix_length=s.prefix_length)
+            if cfg.modulation_type == ModulationType.OFDM:
+                modulate = functools.partial(ofdm.ofdm_modulate, n_sc=n, **guard)
+            else:
+                modulate = functools.partial(ofdm.sc_modulate, **guard)
+            self._papr_cache = sampled_tx_papr(idx, s.amap if s.is_adaptive else s.const, modulate)
         return self._papr_cache
 
     def capture(self, key, chunk: int, snr_lin: float, rows, collect: int) -> np.ndarray:

@@ -1,6 +1,7 @@
 """A/B of two trees of the port on one CUDA card: registers and chunk times.
 
-    python3 port_ab.py OTHER_TREE [--reps 3] [--lr-study | --slab-study | --bounds-study | --sampler-study]
+    python3 port_ab.py OTHER_TREE [--reps 3] [--lr-study | --slab-study | --bounds-study | --sampler-study |
+                                   --lr-rows-study]
 
 OTHER_TREE is another checkout of this repository (for example the parent
 commit, unpacked with ``git archive`` into a directory that .gitignore
@@ -47,8 +48,12 @@ sampler hashes as above, then times only the samplers in the four
 processes: K2's device time by CUDA events over back-to-back launches of
 its entry point on fixed planes, and through ``boxmuller_sample``; K3's
 device time by the profiler and its time through the wrapper by CUDA
-events, on scfde_default (fold) and zp_64sc (mm).  Prints one JSON object
-as its last line.
+events, on scfde_default (fold) and zp_64sc (mm).  With
+``--lr-rows-study`` it builds only the lr library (``lr_kernel``) in both
+trees, side by side, and times LR_ROWS_CELLS' lr chunks in the four
+processes: the cost of how the kernel lists its factor rows (a 64-bit
+mask in one tree, a row table in the other) on the 512-2048-sc lr cells.
+Prints one JSON object as its last line.
 """
 
 import json
@@ -144,6 +149,8 @@ LR_STUDY_CELLS = {
     "lr_cp034_128sc": dict(WIDE, num_subcarriers=128, constellation_order=16, prefix_length_ratio=0.34,
                            snr_db=20.0),
 }
+# --lr-rows-study: the plain lr chunks at 512-2048 subcarriers (the lr library alone)
+LR_ROWS_CELLS = {k: CELLS[k] for k in ("wide_1024sc", "lr_1024sc_zp", "lr_512sc_zp", "lr_2048sc_zp")}
 LR_STUDY_STAGED = {
     "wf_wide_1024sc_papr1": (dict(WIDE, **_WF, papr_stride=128), False),
     "bump_study_1024sc_papr1": (dict(HEADLINE, **_NB, num_subcarriers=1024, papr_stride=128), True),
@@ -453,6 +460,10 @@ def worker(what, reps):
 
     from ofdm_tpu_torch import build
 
+    if what == "build_lr":
+        t0 = time.perf_counter()
+        build.build(["lr_kernel"])
+        return {"build_s": time.perf_counter() - t0}
     if what == "build":
         t0 = time.perf_counter()
         build.build(build.SOURCES)
@@ -472,7 +483,8 @@ def worker(what, reps):
         return slab_study(dev, reps)
     if what == "bounds_study":
         return bounds_study(dev, reps)
-    cells, staged = (LR_STUDY_CELLS, LR_STUDY_STAGED) if what == "lr_study" else (CELLS, STAGED_CELLS)
+    cells, staged = {"lr_study": (LR_STUDY_CELLS, LR_STUDY_STAGED),
+                     "lr_rows": (LR_ROWS_CELLS, {})}.get(what, (CELLS, STAGED_CELLS))
     out = {}
     for name, kw in cells.items():
         runner = runner_for(kw, dev)
@@ -548,6 +560,8 @@ def main(argv):
             print(f"{k}: {json.dumps(v)}")
         print(json.dumps(result))
         return 0
+    if "--lr-rows-study" in argv:
+        return lr_rows_study(other, reps)
     builds = {label: run_worker(tree, "build", reps) for label, tree in (("other", other), ("this", HERE))}
     common, moved = compare(builds, False)
     staged_common, staged_moved = compare(builds, True)
@@ -584,6 +598,26 @@ def main(argv):
     result["card"] = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                                     capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
     print(json.dumps(result))
+    return 0
+
+
+def lr_rows_study(other, reps):
+    """``--lr-rows-study``: both trees' lr library built side by side, then
+    LR_ROWS_CELLS timed in the order other, this, this, other."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    trees = (("other", other), ("this", HERE))
+    with ThreadPoolExecutor(2) as pool:
+        builds = dict(zip((t[0] for t in trees), pool.map(lambda t: run_worker(t[1], "build_lr", reps), trees)))
+    print(f"lr build s: {json.dumps({k: v['build_s'] for k, v in builds.items()})}")
+    timings = []
+    for label in ("other", "this", "this", "other"):
+        t = run_worker(other if label == "other" else HERE, "lr_rows", reps)
+        print(f"{label}: {json.dumps(t)}", flush=True)
+        timings.append({"tree": label, "ms": t})
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+    print(json.dumps({"card": card, "build_s": {k: v["build_s"] for k, v in builds.items()}, "timings": timings}))
     return 0
 
 

@@ -191,10 +191,12 @@ def test_onepass_slab_sizes(n, tile, slab):
     assert lk.onepass_slab(n, chunk, tile) == slab
     assert slab % tile == 0 and slab * n <= lk.ONEPASS_SLAB_BINS
     assert slab * n * lk.ONEPASS_BYTES_PER_BIN == {64: 83_886_080, 512: 671_088_640, 4096: 671_088_640}[n]
-    # at any width and tile the kernels take, whole tiles under 1 GB
-    for t in lk.TILE_LADDER:
-        s = lk.onepass_slab(lk.MAX_N, chunk, t)
-        assert s % t == 0 and s * lk.MAX_N * lk.ONEPASS_BYTES_PER_BIN < 1 << 30
+    # at any width and tile the kernels take (the tiles the diag budget
+    # admits there, tile_cap), whole tiles under 1 GB
+    for w, txext in ((lk.WARP_MAX_N, False), (4096, True), (lk.MAX_N, True)):
+        for t in (t for t in lk.TILE_LADDER if t <= lk.tile_cap(w, w, 1, txext)):
+            s = lk.onepass_slab(w, chunk, t)
+            assert s % t == 0 and s * w * lk.ONEPASS_BYTES_PER_BIN < 1 << 30
 
 
 def test_onepass_scratch_follows_normalize():

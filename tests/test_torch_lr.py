@@ -14,6 +14,8 @@ the JAX package.
   path at 128 subcarriers, and the sampled-TX PAPR statistic.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -36,6 +38,7 @@ from ofdm_tpu_torch.ops import link_kernel as lk
 from ofdm_tpu_torch.ops import lowrank as tlr
 from ofdm_tpu_torch.ops import lr_kernel as lrk
 from ofdm_tpu_torch.ops import metrics as tmt
+from ofdm_tpu_torch.ops import ofdm as tofdm
 from ofdm_tpu_torch.ops import prng
 
 BASE = dict(
@@ -392,7 +395,9 @@ def test_sampled_papr_on_injected_indices():
     sym = jmap.encode_indices_planar(jnp.asarray(idx, jnp.int32), js.const)
     x = jcplx.matmul(sym, jnp.asarray(fr, jnp.float32), jnp.asarray(fi, jnp.float32), passes=3)
     jpeak, jsum, jcount = jmt.papr_stats(x)
-    peak, total, count = tpl.sampled_tx_papr(torch.from_numpy(idx), _port_setup(kw).const, (fr, fi), rows=128)
+    ps = _port_setup(kw)
+    modulate = functools.partial(tofdm.ofdm_modulate, n_sc=n, prefix_type=ps.cfg.prefix_type, prefix_length=L)
+    peak, total, count = tpl.sampled_tx_papr(torch.from_numpy(idx), ps.const, modulate, rows=128)
     assert count == jcount == 300 * (n + L)
     assert peak == pytest.approx(float(jpeak), rel=1e-5)
     assert total == pytest.approx(float(jsum), rel=1e-5)

@@ -7,7 +7,7 @@
 * The plain chunk over the listed rows only is bit-identical to the plain
   chunk over all rows (counters, PAPR sum, carry row): the rows the kernel
   skips add +-0 to every sum.
-* The link check refuses row lists the kernel's masks cannot hold, and
+* The link check refuses row lists the kernel's table cannot hold, and
   every tile an lr link can take holds whole runs of ``RUN`` symbols (a
   run lies in one tile).  lr_main's group layout and shared memory are the
   kernel's own (``lr_kernel.geometry``); ``chip_smoke.py`` checks them at
@@ -180,9 +180,13 @@ def test_plain_chunk_over_listed_rows_with_carry_in(monkeypatch, name):
 
 
 def test_row_mask():
-    assert lrk.row_mask(()) == (0, 0)
-    assert lrk.row_mask((0, 3, 63)) == (1 | 8 | (1 << 63), 0)
-    assert lrk.row_mask((63, 64, 125)) == (1 << 63, 1 | (1 << 61))
+    # the kernel's row table: TailM's rows, each lane's place among them,
+    # [Cr; Cp]'s rows with their t offsets (nt + place for Cr, place for
+    # Cp), B^H's rows
+    zp = _link("zp05_128sc")
+    assert list(lrk.row_table(zp)) == [0, 1, 2, 3, 0, 1, 2, 3, -1, -1, -1, 0, 1, 2, 3, 7, 8, 9, 10,
+                                       4, 5, 6, 7, 0, 1, 2, 3, 0, 1, 2]
+    assert lrk.row_table(_link("lr_1024sc_zp")).tolist() == [-1] * 7 + list(range(7))
 
 
 @pytest.mark.parametrize("field, rows", [("tail_rows", (3, 1)), ("cc_rows", (0, 14)), ("bh_rows", (2, 2))])
@@ -198,7 +202,7 @@ def test_check_link_refuses_bad_row_lists(field, rows):
 def test_tiles_hold_whole_runs(n):
     # lr_main's runs never straddle a tile, whatever tile the chunk takes
     assert all(t % lrk.RUN == 0 for t in lk.TILE_LADDER)
-    for rank in (0, 7, lrk.MAX_RANK):
+    for rank in (0, 7, 128, 159):
         for txext in (False, True):
             cap = lk.lr_tile_cap(n, n + 7, 7, rank, txext)
             for chunk in (1 << 17, 3 * 1000, 16, 40):
